@@ -1,0 +1,1 @@
+"""Data of the PyTorch port (see the package docstring)."""

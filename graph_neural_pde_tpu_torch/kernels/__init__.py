@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels of the port, their wrappers and plain versions.
+
+Each wrapper runs its kernel on CUDA tensors and its plain PyTorch version
+on CPU tensors, and counts its kernel launches in ``<wrapper>.launches``.
+Importing this package builds nothing; the kernels compile at first launch
+(``kernels.build``).
+"""
+
+from graph_neural_pde_tpu_torch.kernels.csr_spmm import (  # noqa: F401
+    csr_spmm,
+    csr_spmm_plain,
+)
+from graph_neural_pde_tpu_torch.kernels.edge_dot import (  # noqa: F401
+    edge_dot,
+    edge_dot_plain,
+)
+
+KERNELS = (csr_spmm, edge_dot)

@@ -1,0 +1,1 @@
+"""Models of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""Ops of the PyTorch port (see the package docstring)."""

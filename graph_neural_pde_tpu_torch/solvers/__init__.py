@@ -1,0 +1,1 @@
+"""Solvers of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""Training of the PyTorch port (see the package docstring)."""
