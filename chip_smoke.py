@@ -9,25 +9,35 @@ Phases, each of which must pass (any failure exits nonzero):
    device name; exits 2 without a CUDA device;
 2. build: compiles the port's CUDA kernels from ``graph_neural_pde_tpu_torch/
    csrc`` (nvcc, sm_90a) and prints the build time;
-3. kernels against their plain PyTorch versions, on the card, at two
-   shapes: the main path's own graph (the prepared Cora stand-in, D=80) and
-   an arxiv-scale symmetric random graph (169,343 nodes, ~2.3M directed
-   edges plus self-loops, D=128). Checks K1 ``csr_spmm`` forward, K1 as the
-   backward ``dx`` (weights permuted to the reverse edges, against A^T ct
-   by index_add over columns) and K2 ``edge_dot`` as ``dw``, at max error
+3. kernels against their plain PyTorch versions, on the card, at max error
    <= 1e-5 of the largest reference entry (float32; the sums only run in
-   another order), and times each: device time per call (torch.profiler,
-   mean of 20 calls; all device work of the call, so the wrapper's output
-   memset counts) and time per call seen from the host (CUDA events around
-   one call, median of 20; at small shapes this is the host's launch cost);
-4. end to end on a small input: one forward, early-stop eval and training
-   step of the tuned Cora model at reduced width on the card, held against
-   the same model on the CPU (the plain versions, which the CPU test suite
-   holds against the JAX package);
-5. main path: ``graph_neural_pde_tpu_torch.run.main`` on tuned Cora
-   (``best_params["Cora"]``, epoch=4, so 3 training epochs, each followed by
-   an eval step and the early-stop eval) over the SBM stand-in, with both
-   kernels' launch counters reset just before and required to grow.
+   another order). K1 ``csr_spmm`` forward, K1 as the backward ``dx``
+   (weights permuted to the reverse edges, against A^T ct by index_add over
+   columns) and K2 ``edge_dot`` as ``dw``, at two shapes: the prepared Cora
+   stand-in at D=80 and an arxiv-scale symmetric random graph (169,343
+   nodes, ~2.3M directed edges plus self-loops) at D=128. K3
+   ``segment_norm`` (softmax and normalise, over rows and over columns
+   through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
+   rows and columns), on the prepared Computers stand-in at H=4 and the
+   arxiv-scale graph at H=1 and H=8; two K3 launches on the same input must
+   be bit-identical. Each check is timed: device time per call
+   (torch.profiler, mean of 20 calls; all device work of the call, so the
+   wrapper's output memset counts) and time per call seen from the host
+   (CUDA events around one call, median of 20; at small shapes this is the
+   host's launch cost);
+4. end to end on small inputs, card against CPU (the plain versions, which
+   the CPU test suite holds against the JAX package), from the same
+   weights: tuned Cora at reduced width (one training forward and backward,
+   and the early-stop eval), and tuned Computers at reduced width (hard
+   attention and the continuous adjoint with its dopri5 backward solve);
+5. main paths, each through ``graph_neural_pde_tpu_torch.run.main`` over
+   the SBM stand-ins at full width, every kernel launch counter reset just
+   before each run and read just after: tuned Cora for 3 training epochs
+   (each followed by an eval step and the early-stop eval) twice, to
+   record whether two runs agree bit for bit; tuned Computers (hard
+   attention, continuous adjoint) for 3 epochs; tuned Pubmed (row
+   squareplus attention, continuous adjoint) for 2 epochs. Each run must
+   launch the kernels its path runs, and all four counters must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -108,6 +118,17 @@ def compare(name, got, want):
     return abs_err, rel
 
 
+def prepared_graph(row: str, data_dir: str):
+    """The tuned row's dataset (its SBM stand-in without raw files),
+    prepared as its block prepares it."""
+    from graph_neural_pde_tpu_torch.config import best_params
+    from graph_neural_pde_tpu_torch.data.datasets import get_dataset
+    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
+    cfg = best_params[row]
+    d = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc)
+    return prepare_graph(cfg, d.graph)
+
+
 def arxiv_scale_graph(seed: int):
     """Symmetric random graph at ogbn-arxiv's node count and ~2.3M directed
     edges, prepared as the attention block prepares its graph."""
@@ -124,15 +145,6 @@ def arxiv_scale_graph(seed: int):
     g = make_graph(np.concatenate([u, v]), np.concatenate([v, u]),
                    num_nodes=n, pad_multiple=512)
     return prepare_graph(best_params["Cora"], g)
-
-
-def cora_graph(data_dir: str):
-    from graph_neural_pde_tpu_torch.config import best_params
-    from graph_neural_pde_tpu_torch.data.datasets import get_dataset
-    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
-    cfg = best_params["Cora"]
-    d = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc)
-    return prepare_graph(cfg, d.graph)
 
 
 def check_kernels(shape_name, g, d, seed, dev="cuda"):
@@ -155,7 +167,6 @@ def check_kernels(shape_name, g, d, seed, dev="cuda"):
         return torch.zeros_like(ct).index_add(0, col_l,
                                               ct[row_l] * w[:nv, None])
 
-    rows = []
     cases = (
         ("csr_spmm", "forward A_w x",
          lambda: csr_spmm(g.rowptr, g.row, g.col, w, x),
@@ -166,35 +177,76 @@ def check_kernels(shape_name, g, d, seed, dev="cuda"):
          lambda: edge_dot(g.row, g.col, ct, x, nv),
          lambda: edge_dot_plain(g.row, g.col, ct, x, nv)),
     )
-    for kname, what, kern, plain in cases:
-        abs_err, rel = compare(f"{kname} {what} @ {shape_name}", kern(),
-                               plain())
-        call_k, call_p = median_ms(kern), median_ms(plain)
-        dev_k, dev_p = device_ms(kern), device_ms(plain)
-        measured = dev_k is not None and dev_p is not None
-        rows.append(dict(kernel=kname, check=what, shape=shape_name,
-                         max_abs_err=abs_err,
-                         ms=dev_k if measured else call_k,
-                         plain_ms=dev_p if measured else call_p))
-        dev_txt = (f"device {dev_k:.4f} ms, plain {dev_p:.4f} ms; "
-                   if measured else "device time not measured; ")
-        print(f"[kernels] {kname:9s} {what:30s} {shape_name:12s} N={n} "
-              f"E={nv} D={d}: max_abs_err={abs_err:.3e} rel={rel:.3e}; "
-              f"{dev_txt}per call kernel {call_k:.4f} ms, plain "
-              f"{call_p:.4f} ms", flush=True)
+    return [time_case(kname, what, shape_name, f"N={n} E={nv} D={d}", kern,
+                      plain) for kname, what, kern, plain in cases]
+
+
+def time_case(kname, what, shape_name, dims, kern, plain):
+    """Check one kernel call against its plain version and time both."""
+    abs_err, rel = compare(f"{kname} {what} @ {shape_name}", kern(), plain())
+    call_k, call_p = median_ms(kern), median_ms(plain)
+    dev_k, dev_p = device_ms(kern), device_ms(plain)
+    measured = dev_k is not None and dev_p is not None
+    dev_txt = (f"device {dev_k:.4f} ms, plain {dev_p:.4f} ms; "
+               if measured else "device time not measured; ")
+    print(f"[kernels] {kname:16s} {what:34s} {shape_name:14s} {dims}: "
+          f"max_abs_err={abs_err:.3e} rel={rel:.3e}; {dev_txt}per call "
+          f"kernel {call_k:.4f} ms, plain {call_p:.4f} ms", flush=True)
+    return dict(kernel=kname, check=what, shape=shape_name,
+                max_abs_err=abs_err, ms=dev_k if measured else call_k,
+                plain_ms=dev_p if measured else call_p)
+
+
+def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
+    """K3 in both modes over rows and over columns (perm = rev) and K4 in
+    both modes, against their plain versions; two K3 launches on one input
+    must be bit-identical."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import (segment_norm,
+                                                    segment_norm_bwd,
+                                                    segment_norm_bwd_plain,
+                                                    segment_norm_plain)
+    dev = torch.device(dev)
+    g = g.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.randn((g.capacity, h), generator=gen, device=dev)
+    ct = torch.randn((g.capacity, h), generator=gen, device=dev)
+    # normalise takes positive weights (squareplus values, attention)
+    weights = torch.rand((g.capacity, h), generator=gen, device=dev) + 0.05
+    rows = []
+    for mode, s in (("softmax", scores), ("normalise", weights)):
+        for seg, perm in (("rows", None), ("columns", g.rev)):
+            args = (g.rowptr, g.row, perm)
+            first, den = segment_norm(*args, s, mode)
+            again = segment_norm(*args, s, mode)
+            if not (torch.equal(first, again[0]) and torch.equal(den,
+                                                                 again[1])):
+                raise AssertionError(f"segment_norm {mode} {seg} @ "
+                                     f"{shape_name}: two launches differ")
+            dims = f"N={g.num_nodes} E={g.num_valid} H={h}"
+            rows.append(time_case(
+                "segment_norm", f"{mode} over {seg}", shape_name, dims,
+                lambda: segment_norm(*args, s, mode)[0],
+                lambda: segment_norm_plain(*args, s, mode)[0]))
+            rows.append(time_case(
+                "segment_norm_bwd", f"{mode} over {seg}", shape_name, dims,
+                lambda: segment_norm_bwd(*args, first, ct, den, mode),
+                lambda: segment_norm_bwd_plain(*args, first, ct, den, mode)))
+    print(f"[kernels] segment_norm @ {shape_name} H={h}: two launches "
+          f"bit-identical in every mode", flush=True)
     return rows
 
 
-def check_small_end_to_end(devices=("cpu", "cuda")):
-    """Tuned Cora at reduced width on a 300-node SBM: the card's kernel path
-    against the CPU's plain path, same weights and inputs."""
+def check_small_end_to_end(row: str, devices=("cpu", "cuda")):
+    """A tuned row at reduced width on a 300-node SBM: the card's kernel
+    path against the CPU's plain path, same weights and inputs."""
     import torch
     from graph_neural_pde_tpu_torch.config import best_params
     from graph_neural_pde_tpu_torch.data.synthetic import make_sbm_dataset
     from graph_neural_pde_tpu_torch.models.gnn_early import GNNEarlyModel
     from graph_neural_pde_tpu_torch.training.train import cross_entropy_loss
-    cfg = best_params["Cora"].replace(hidden_dim=16, attention_dim=16,
-                                      heads=4, input_dropout=0.0, dropout=0.0)
+    cfg = best_params[row].replace(hidden_dim=16, attention_dim=16,
+                                   heads=4, input_dropout=0.0, dropout=0.0)
     d = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=24,
                          seed=3, num_val=60)
     gen = torch.Generator().manual_seed(5)
@@ -222,10 +274,12 @@ def check_small_end_to_end(devices=("cpu", "cuda")):
                         es_stats, grads)
     (lc, loss_c, st_c, best_c, es_c, g_c) = results[devices[0]]
     (lg, loss_g, st_g, best_g, es_g, g_g) = results[devices[1]]
-    counts = ("accepted", "rejected", "nfe")
+    es_counts = ("accepted", "rejected", "nfe")
+    counts = es_counts + (("bwd_accepted", "bwd_rejected", "bwd_nfe")
+                          if cfg.adjoint else ())
     if [st_c[k] for k in counts] != [st_g[k] for k in counts]:
         raise AssertionError(f"solver steps differ: cpu {st_c} cuda {st_g}")
-    if [es_c[k] for k in counts] != [es_g[k] for k in counts]:
+    if [es_c[k] for k in es_counts] != [es_g[k] for k in es_counts]:
         raise AssertionError(f"early-stop steps differ: {es_c} vs {es_g}")
     if not torch.allclose(lg, lc, rtol=1e-4, atol=1e-5):
         raise AssertionError("logits differ between cuda and cpu")
@@ -236,11 +290,47 @@ def check_small_end_to_end(devices=("cpu", "cuda")):
         if not torch.allclose(g_g[k], g_c[k], rtol=1e-3,
                               atol=1e-4 * max(scale, 1e-30)):
             raise AssertionError(f"gradient {k} differs between cuda and cpu")
-    print(f"[small] cuda vs cpu: loss {loss_g:.6f} vs {loss_c:.6f}, "
-          f"steps {[st_g[k] for k in counts]}, early-stop best val "
+    print(f"[small] {row} cuda vs cpu: loss {loss_g:.6f} vs {loss_c:.6f}, "
+          f"steps {dict((k, st_g[k]) for k in counts)}, early-stop best val "
           f"{best_g.val:.4f} vs {best_c.val:.4f} at t* {best_g.time:.4f} vs "
           f"{best_c.time:.4f}: agree (logits rtol 1e-4, grads rtol 1e-3)",
           flush=True)
+
+
+ALL_KERNELS = ("csr_spmm", "edge_dot", "segment_norm", "segment_norm_bwd")
+
+
+def drive_main_path(cfg, data_dir: str, expected):
+    """``run.main`` on one tuned config on the card, with every kernel
+    launch counter set to 0 just before and read just after. Checks the
+    epoch logs and that each kernel in ``expected`` was launched. Returns
+    (result, launch counts)."""
+    import torch
+    from graph_neural_pde_tpu_torch import kernels, run
+    for k in kernels.KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = run.main(cfg, data_dir=data_dir, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    epochs = cfg.epoch - 1
+    print(f"[main] {epochs} epochs of tuned {cfg.dataset} in {secs:.2f} s; "
+          f"kernel launches {launches}", flush=True)
+    if len(res.logs) != epochs:
+        raise AssertionError(f"expected {epochs} epochs, got "
+                             f"{len(res.logs)}")
+    for log in res.logs:
+        if not (math.isfinite(log.loss) and log.fwd_nfe > 0
+                and log.bwd_nfe > 0):
+            raise AssertionError(f"bad epoch log {log}")
+    if not 0.0 < res.best["val_acc"] <= 1.0:
+        raise AssertionError(f"bad best {res.best}")
+    for name in expected:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the tuned "
+                                 f"{cfg.dataset} path")
+    return res, launches
 
 
 def main() -> int:
@@ -254,7 +344,6 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from graph_neural_pde_tpu_torch import kernels, run
     from graph_neural_pde_tpu_torch.config import best_params
     from graph_neural_pde_tpu_torch.kernels import build
 
@@ -276,52 +365,58 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as data_dir:
         # 3. kernels against their plain versions
-        rows = check_kernels("cora-standin", cora_graph(data_dir),
+        rows = check_kernels("cora-standin", prepared_graph("Cora", data_dir),
                              best_params["Cora"].hidden_dim, args.seed)
+        rows += check_segment_kernels(
+            "computers-standin", prepared_graph("Computers", data_dir),
+            best_params["Computers"].heads, args.seed + 2)
         t0 = time.perf_counter()
         big = arxiv_scale_graph(args.seed)
         print(f"[kernels] arxiv-scale graph built on the host in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         rows += check_kernels("arxiv-scale", big, 128, args.seed + 1)
+        for h in (1, 8):
+            rows += check_segment_kernels("arxiv-scale", big, h,
+                                          args.seed + 3 + h)
         del big
         torch.cuda.empty_cache()
 
-        # 4. end to end on a small input, card vs CPU
-        check_small_end_to_end()
+        # 4. end to end on small inputs, card vs CPU
+        check_small_end_to_end("Cora")
+        check_small_end_to_end("Computers")
 
-        # 5. the main path
-        for k in kernels.KERNELS:
-            k.launches = 0
-        t0 = time.perf_counter()
-        res = run.main(best_params["Cora"].replace(epoch=4),
-                       data_dir=data_dir, device="cuda")
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    print(f"[main] 3 epochs of tuned Cora in {main_s:.2f} s; kernel "
-          f"launches {launches}", flush=True)
-    if len(res.logs) != 3:
-        raise AssertionError(f"expected 3 epochs, got {len(res.logs)}")
-    for log in res.logs:
-        if not (math.isfinite(log.loss) and log.fwd_nfe > 0
-                and log.bwd_nfe > 0):
-            raise AssertionError(f"bad epoch log {log}")
-    if not 0.0 < res.best["val_acc"] <= 1.0:
-        raise AssertionError(f"bad best {res.best}")
+        # 5. the main paths
+        paths = (("Cora", 4, ALL_KERNELS), ("Cora", 4, ALL_KERNELS),
+                 ("Computers", 4, ("csr_spmm", "edge_dot", "segment_norm")),
+                 ("Pubmed", 3, ALL_KERNELS))
+        results, launches = [], dict.fromkeys(ALL_KERNELS, 0)
+        for row, epoch, expected in paths:
+            res, counts = drive_main_path(
+                best_params[row].replace(epoch=epoch), data_dir, expected)
+            results.append(res)
+            for k, v in counts.items():
+                launches[k] += v
+    cora_losses = [[log.loss for log in r.logs] for r in results[:2]]
+    print(f"[main] two runs of tuned Cora agree bit for bit: "
+          f"{cora_losses[0] == cora_losses[1]} (losses {cora_losses[0]} and "
+          f"{cora_losses[1]})", flush=True)
     for name, count in launches.items():
         if count <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+            raise AssertionError(f"{name} was not launched on the main paths")
 
-    sources = {"csr_spmm": ("graph_neural_pde_tpu_torch/csrc/csr_spmm.cu",
-                            "graph_neural_pde_tpu/ops/pallas/stripe.py:513"),
-               "edge_dot": ("graph_neural_pde_tpu_torch/csrc/edge_dot.cu",
-                            "graph_neural_pde_tpu/ops/pallas/stripe.py:363")}
+    sources = {"csr_spmm": ("csr_spmm.cu", "stripe.py:513"),
+               "edge_dot": ("edge_dot.cu", "stripe.py:363"),
+               "segment_norm": ("segment_norm.cu", "stripe.py:412"),
+               "segment_norm_bwd": ("segment_norm.cu", "stripe.py:412")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
         main_shape = mine[0]          # the first check at the main path's shape
-        summary.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+        summary.append({"name": name, "route": "cuda",
+                        "source": f"graph_neural_pde_tpu_torch/csrc/{src}",
+                        "replaces": ("graph_neural_pde_tpu/ops/pallas/"
+                                     + replaces),
+                        "launches": launches[name],
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": main_shape["ms"],
                         "plain_ms": main_shape["plain_ms"]})

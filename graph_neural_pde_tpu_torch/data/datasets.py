@@ -1,16 +1,17 @@
 """Dataset loading for the port (PyTorch port of ``data/datasets.py``).
 
 Ported here: the Planetoid raw format (Cora / Citeseer / Pubmed, the
-``ind.{name}.*`` pickles, with the Citeseer isolated-test-node fix),
+``ind.{name}.*`` pickles, with the Citeseer isolated-test-node fix), the
+Shchur et al. ``.npz`` format (Amazon Computers / Photo, Coauthor CS),
 ``to_undirected`` + dedupe, largest-connected-component extraction, the
-seeded development/test split, and the size-matched SBM stand-in used when
-the raw files are absent, with its calibrated feature signal and
-homophily. The stand-in and the splits are bit-identical to the JAX
-package's for one seed.
+seeded development/test split (5,000 development nodes for CoauthorCS,
+1,500 otherwise), and the size-matched SBM stand-in used when the raw files
+are absent, with its calibrated feature signal and homophily. The stand-in
+and the splits are bit-identical to the JAX package's for one seed.
 
-The Amazon / Coauthor ``.npz``, ogbn-arxiv and geom-gcn loaders, load-time
-rewiring and node reordering are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+The ogbn-arxiv and geom-gcn loaders, load-time rewiring and node
+reordering are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,13 +36,16 @@ class DatasetUnavailable(FileNotFoundError):
 # approximate real shapes, for the synthetic fallback
 _SHAPES = {
     "Cora": (2708, 1433, 7), "Citeseer": (3327, 3703, 6),
-    "Pubmed": (19717, 500, 3),
+    "Pubmed": (19717, 500, 3), "Computers": (13752, 767, 10),
+    "Photo": (7650, 745, 8), "CoauthorCS": (18333, 6805, 15),
 }
+_PLANETOID = ("Cora", "Citeseer", "Pubmed")
+# Shchur et al. .npz file of each Amazon / Coauthor dataset
+_SHCHUR = {"Computers": "amazon_electronics_computers.npz",
+           "Photo": "amazon_electronics_photo.npz",
+           "CoauthorCS": "ms_academic_cs.npz"}
 
 _NOT_PORTED = {
-    "Computers": "ROADMAP Queue 1 slice 2 (Shchur .npz loader)",
-    "Photo": "ROADMAP Queue 1 slice 2 (Shchur .npz loader)",
-    "CoauthorCS": "ROADMAP Queue 1 slice 2 (Shchur .npz loader)",
     "ogbn-arxiv": "ROADMAP Queue 1 slice 2 item 13 (ogbn-arxiv path)",
 }
 _GEOM_GCN = ("cornell", "texas", "wisconsin", "chameleon", "squirrel", "film")
@@ -104,6 +108,34 @@ def load_planetoid(root: str, name: str):
     test_mask[test_idx] = True
     return (np.asarray(features.todense(), np.float32), labels, edge_index,
             train_mask, val_mask, test_mask)
+
+
+def load_shchur_npz(root: str, name: str, fname: str):
+    """Parse the Shchur et al. .npz layout (CSR adjacency and attributes,
+    labels), symmetrised and deduplicated."""
+    import scipy.sparse as sp
+    candidates = [os.path.join(root, name, "raw", fname),
+                  os.path.join(root, name, fname),
+                  os.path.join(root, fname)]
+    path = next((p for p in candidates if os.path.exists(p)), None)
+    if path is None:
+        raise DatasetUnavailable(candidates[0])
+    with np.load(path, allow_pickle=True) as loader:
+        d = dict(loader)
+    adj = sp.csr_matrix((d["adj_data"], d["adj_indices"], d["adj_indptr"]),
+                        shape=d["adj_shape"]).tocoo()
+    attr = sp.csr_matrix((d["attr_data"], d["attr_indices"],
+                          d["attr_indptr"]), shape=d["attr_shape"])
+    x = np.asarray(attr.todense(), np.float32)
+    y = d["labels"].astype(np.int64)
+    edge_index = to_undirected(
+        np.stack([adj.row.astype(np.int64), adj.col.astype(np.int64)]))
+    return x, y, edge_index
+
+
+def _num_development(ds: str) -> int:
+    """Development-set size of the seeded split (reference data.py:97-101)."""
+    return 5000 if ds == "CoauthorCS" else 1500
 
 
 def to_undirected(edge_index: np.ndarray) -> np.ndarray:
@@ -194,8 +226,9 @@ def _stand_in(cfg: Config, data_dir: str, pad: int) -> NodeDataset:
                          num_features=nf_syn, edge_pad_multiple=pad,
                          seed=cfg.seed, feature_signal=sig, homophily=homo)
     n_nodes = int(d.y.shape[0])
-    if n_nodes > 1500 + 100:
-        _masks_to_torch(d, set_train_val_test_split(12345, d.y.numpy(), 1500))
+    dev = _num_development(ds)
+    if n_nodes > dev + 100:
+        _masks_to_torch(d, set_train_val_test_split(12345, d.y.numpy(), dev))
     d.name = f"{ds}-synthetic"
     return d
 
@@ -210,7 +243,7 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     if ds in _GEOM_GCN:
         raise NotImplementedError(
             f"dataset {ds}: geom-gcn loader, ROADMAP Queue 1 slice 5")
-    if ds not in ("Cora", "Citeseer", "Pubmed"):
+    if ds not in _PLANETOID and ds not in _SHCHUR:
         raise ValueError(f"Unknown dataset {ds}.")
     if cfg.rewiring is not None:
         raise NotImplementedError(
@@ -218,21 +251,25 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     if cfg.node_reorder not in (None, "none"):
         raise NotImplementedError(
             "node_reorder: ROADMAP Queue 2 P17-P18 (block-local graphs)")
+    masks = None
     try:
-        x, y, ei, tm, vm, sm = load_planetoid(data_dir, ds)
+        if ds in _PLANETOID:
+            x, y, ei, *masks = load_planetoid(data_dir, ds)
+        else:
+            x, y, ei = load_shchur_npz(data_dir, ds, _SHCHUR[ds])
     except DatasetUnavailable:
         if not synthetic_fallback:
             raise
         return _stand_in(cfg, data_dir, pad)
 
-    masks = (tm, vm, sm)
     if use_lcc:
         lcc = largest_connected_component(ei, x.shape[0])
         x, y = x[lcc], y[lcc]
         ei = restrict_to_nodes(ei, lcc)
         masks = None   # LCC invalidates fixed masks (data.py:70-73)
     if masks is None:
-        masks = set_train_val_test_split(12345, y, num_development=1500)
+        masks = set_train_val_test_split(12345, y,
+                                         num_development=_num_development(ds))
 
     g = make_graph(ei[0], ei[1], num_nodes=x.shape[0], pad_multiple=pad)
     d = NodeDataset(graph=g, x=torch.as_tensor(x),

@@ -14,5 +14,11 @@ from graph_neural_pde_tpu_torch.kernels.edge_dot import (  # noqa: F401
     edge_dot,
     edge_dot_plain,
 )
+from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
+    segment_norm,
+    segment_norm_bwd,
+    segment_norm_bwd_plain,
+    segment_norm_plain,
+)
 
-KERNELS = (csr_spmm, edge_dot)
+KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The kernels in ``graph_neural_pde_tpu_torch/csrc/*.cu`` are compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface and loaded with ``ctypes``. The build happens at first use, on the
-machine with the card, into ``build/kernels/`` under the checkout root
-(ignored by git). The library's file name carries a hash of the sources and
-flags, so an edited source triggers a rebuild and an unchanged one is
+``nvcc`` for Hopper (``sm_90a``), one object per source with all ``nvcc``
+processes started together, and linked into one shared library with a plain
+C interface that is loaded with ``ctypes``. The build happens at first use,
+on the machine with the card, into ``build/kernels/`` under the checkout
+root (ignored by git). The library's file name carries a hash of the sources
+and flags, so an edited source triggers a rebuild and an unchanged one is
 reused.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -21,16 +22,25 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
-# every C entry point takes this many device pointers, then (int, int,
-# stream), and returns its cudaGetLastError() code
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# argument types of every C entry point (device pointers, ints, the stream
+# last); each returns its cudaGetLastError() code
 _ENTRY_POINTS = {
-    "gnpde_csr_spmm": 5,
-    "gnpde_edge_dot": 5,
+    # rowptr, col, w, x, out, n_rows, dim, stream
+    "gnpde_csr_spmm": [_PTR] * 5 + [_INT, _INT, _PTR],
+    # row, col, a, b, out, n_edges, dim, stream
+    "gnpde_edge_dot": [_PTR] * 5 + [_INT, _INT, _PTR],
+    # rowptr, perm (nullable), s, out, den, n_rows, heads, mode, stream
+    "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
+    # rowptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
+    "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
 }
 
 _lib = None
@@ -61,6 +71,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgnpde_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Start every command at once, wait for all; raise on the first that
+    failed. Returns the compiler output of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return outs
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless a library for these sources exists.
     ``verbose`` prints ptxas's register and spill report."""
@@ -68,16 +92,20 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    ptxas = ["-Xptxas=-v"] if verbose else []
+    logs = _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(obj),
+                      str(src)] for src, obj in zip(_sources(), objs)])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
+    logs += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
+    text = "".join(logs)
+    if verbose and text:
+        print(text)
     os.replace(tmp, out)
     return out
 
@@ -87,16 +115,19 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, n_ptr in _ENTRY_POINTS.items():
+        for name, argtypes in _ENTRY_POINTS.items():
             fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                           + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def check_launch(name: str, code: int) -> None:
-    """Raise if a C entry point returned a nonzero cudaError_t."""
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point ``gnpde_<name>`` with ``args`` on the current
+    stream of ``device``; raise if it returned a nonzero cudaError_t."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = getattr(library(), f"gnpde_{name}")(*args, stream)
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {code})")

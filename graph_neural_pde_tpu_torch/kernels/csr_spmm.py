@@ -63,12 +63,8 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
         raise NotImplementedError(f"csr_spmm: no kernel for {x.device}")
     n, d = x.shape
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = build.library().gnpde_csr_spmm(
-            rowptr.data_ptr(), col.data_ptr(), w.data_ptr(), x.data_ptr(),
-            out.data_ptr(), n, d, stream)
-    build.check_launch("csr_spmm", code)
+    build.launch("csr_spmm", x.device, rowptr.data_ptr(), col.data_ptr(),
+                 w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d)
     csr_spmm.launches += 1
     return out
 

@@ -58,12 +58,9 @@ def edge_dot(row: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
     if a.device.type != "cuda":
         raise NotImplementedError(f"edge_dot: no kernel for {a.device}")
     out = torch.zeros(row.shape, dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        code = build.library().gnpde_edge_dot(
-            row.data_ptr(), col.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), n_valid, a.shape[1], stream)
-    build.check_launch("edge_dot", code)
+    build.launch("edge_dot", a.device, row.data_ptr(), col.data_ptr(),
+                 a.data_ptr(), b.data_ptr(), out.data_ptr(), n_valid,
+                 a.shape[1])
     edge_dot.launches += 1
     return out
 

@@ -2,13 +2,15 @@
 ``models/attention.py`` pieces on the GRAND-l path).
 
 Ported: the transformer attention layer's parameters (Q/K/V/Wout, weights
-constant 1e-5 as in the reference), its scaled-dot scores, and the
-composition branch of ``frozen_mean_attention`` — the head-mean attention
-the attention block freezes once per forward, normalised over rows
-(``attention_norm_idx=0``) or columns (``=1``) by softmax or squareplus.
-The JAX package has no Pallas kernel for the column-normalised freeze; the
-port computes it with torch ops. Other score families and GAT attention
-raise ``NotImplementedError`` naming their ROADMAP item.
+constant 1e-5 as in the reference, and ``output_var``/``lengthscale`` for
+``exp_kernel``), its four score families (scaled_dot, cosine_sim, pearson,
+exp_kernel), ``apply_transformer_attention`` (per-head normalised attention
+[E, H]) and the composition branch of ``frozen_mean_attention`` — its head
+mean, which the attention block freezes once per forward. Normalisation is
+over rows (``attention_norm_idx=0``) or columns (``=1``), by softmax or
+squareplus, on the K3/K4 kernels (``ops.scatter``). The Beltrami
+split-space scores and GAT attention raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,11 +27,15 @@ from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.scatter import (segment_softmax,
                                                     segment_squareplus)
 
+ATTENTION_TYPES = ("scaled_dot", "cosine_sim", "pearson", "exp_kernel")
+
 
 class TransformerAttention(nn.Module):
-    """Parameters of SpGraphTransAttentionLayer: Q, K, V [in, att_dim] and
-    Wout [d_k, in]. Only Q and K feed the frozen GRAND-l attention; V and
-    Wout are kept so that parameters round-trip with the JAX package."""
+    """Parameters of SpGraphTransAttentionLayer: Q, K, V [in, att_dim],
+    Wout [d_k, in], and the exp_kernel's ``output_var`` and ``lengthscale``
+    (one element each). Only Q, K and the exp_kernel scalars feed the
+    GRAND-l attention; V and Wout are kept so that parameters round-trip
+    with the JAX package."""
 
     def __init__(self, cfg: Config, in_dim: int, *,
                  generator: Optional[torch.Generator] = None):
@@ -38,48 +44,79 @@ class TransformerAttention(nn.Module):
         if att_dim % h:
             raise ValueError(f"Number of heads ({h}) must be a factor of the "
                              f"dimension size ({att_dim})")
-        if cfg.beltrami or cfg.attention_type != "scaled_dot":
+        if cfg.beltrami:
             raise NotImplementedError(
-                f"attention_type {cfg.attention_type!r}"
-                f"{' (beltrami)' if cfg.beltrami else ''}: ROADMAP Queue 1 "
-                "slice 2 item 10 (remaining score families)")
+                "beltrami attention: ROADMAP Queue 1 slice 4 item 15")
+        if cfg.attention_type not in ATTENTION_TYPES:
+            raise ValueError(
+                f"unknown attention_type '{cfg.attention_type}'")
         d_k = att_dim // h
+        if cfg.attention_type == "exp_kernel":
+            self.output_var = nn.Parameter(torch.ones(1))
+            self.lengthscale = nn.Parameter(torch.ones(1))
         self.Q = Linear(in_dim, att_dim, "const1e-5", generator=generator)
         self.V = Linear(in_dim, att_dim, "const1e-5", generator=generator)
         self.K = Linear(in_dim, att_dim, "const1e-5", generator=generator)
         self.Wout = Linear(d_k, in_dim, "const1e-5", generator=generator)
 
 
+def _scores(att: TransformerAttention, cfg: Config, src: torch.Tensor,
+            dst: torch.Tensor, d_k: int) -> torch.Tensor:
+    """Per-edge, per-head raw scores [E, H] from gathered q/k [E, H, d_k]
+    (JAX ``attention._scores``)."""
+    at = cfg.attention_type
+    if at == "exp_kernel":
+        sq = torch.sum((src - dst) ** 2, dim=-1)
+        return att.output_var ** 2 * torch.exp(
+            -sq / (2.0 * att.lengthscale ** 2))
+    if at == "scaled_dot":
+        return torch.sum(src * dst, dim=-1) / math.sqrt(d_k)
+    if at == "pearson":
+        src = src - torch.mean(src, dim=-1, keepdim=True)
+        dst = dst - torch.mean(dst, dim=-1, keepdim=True)
+    # cosine_sim, and pearson on the centred vectors
+    eps = 1e-5
+    num = torch.sum(src * dst, dim=-1)
+    den = (torch.clamp_min(torch.linalg.vector_norm(src, dim=-1), eps)
+           * torch.clamp_min(torch.linalg.vector_norm(dst, dim=-1), eps))
+    return num / den
+
+
 def transformer_scores(att: TransformerAttention, cfg: Config,
                        x: torch.Tensor, g: Graph,
                        edge_weight: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
-    """Raw per-edge, per-head scaled-dot scores [E, H]: q and k are
-    projected on nodes, gathered per edge and reduced per head."""
+    """Raw per-edge, per-head scores [E, H]: q and k are projected on
+    nodes, gathered per edge (q[row], k[col]) and reduced per head."""
     h = cfg.heads
     d_k = cfg.attention_dim // h
     q = att.Q(x)
     k = att.K(x)
     src = q[g.row.long()].reshape(-1, h, d_k)
     dst = k[g.col.long()].reshape(-1, h, d_k)
-    prods = torch.sum(src * dst, dim=-1) / math.sqrt(d_k)
+    prods = _scores(att, cfg, src, dst, d_k)
     if cfg.reweight_attention and edge_weight is not None:
         prods = prods * edge_weight[:, None]
     return prods
+
+
+def apply_transformer_attention(att: TransformerAttention, cfg: Config,
+                                x: torch.Tensor, g: Graph,
+                                edge_weight: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Per-head normalised attention [E, H] float32: softmax with the exact
+    per-segment max, or squareplus with the GLOBAL max over all valid scores
+    and heads (reference utils.py:196). Padding slots are 0."""
+    prods = transformer_scores(att, cfg, x, g, edge_weight).float()
+    normalise = segment_squareplus if cfg.square_plus else segment_softmax
+    return normalise(prods, g, cfg.attention_norm_idx)
 
 
 def frozen_mean_attention(att: TransformerAttention, cfg: Config,
                           x: torch.Tensor, g: Graph,
                           edge_weight: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
-    """Head-MEAN normalised attention as one [E] float32 array.
-
-    Softmax uses the exact per-segment max; squareplus uses the GLOBAL max
-    over all valid scores and heads (reference utils.py:196). Padding slots
-    are 0. All heads are normalised at once ([E, H]) and then averaged.
-    """
-    norm_index = g.row if cfg.attention_norm_idx == 0 else g.col
-    prods = transformer_scores(att, cfg, x, g, edge_weight).float()
-    normalise = segment_squareplus if cfg.square_plus else segment_softmax
-    w = normalise(prods, norm_index, g.num_nodes, g.mask)
-    return w.sum(dim=1) / prods.shape[1]
+    """Head-MEAN normalised attention as one [E] float32 array, the weights
+    the attention block freezes into the laplacian RHS."""
+    w = apply_transformer_attention(att, cfg, x, g, edge_weight)
+    return w.sum(dim=1) / w.shape[1]

@@ -1,14 +1,18 @@
 """ODE blocks: an ODE function, its graph preparation and its solve
-(PyTorch port of the ``constant`` and ``attention`` blocks of
-``models/blocks.py``).
+(PyTorch port of the ``constant``, ``attention`` and ``hard_attention``
+blocks of ``models/blocks.py``).
 
-* constant  — fixed normalised adjacency weights;
-* attention — multihead attention computed once per forward at t=0 and
-  frozen into the laplacian RHS as its head mean (GRAND-l, every tuned
-  config).
+* constant       — fixed normalised adjacency weights;
+* attention      — multihead attention computed once per forward at t=0 and
+  frozen into the laplacian RHS as its head mean (GRAND-l);
+* hard_attention — in training, the head-mean attention computed without
+  gradient, its edges below the ``1 − att_samp_pct`` quantile dropped and
+  the kept weights renormalised per node; at eval, the full head mean.
 
-The mixed, hard_attention and rewire_attention blocks raise
-``NotImplementedError`` naming their ROADMAP item.
+The solve takes ``cfg.method``; in training with ``cfg.adjoint`` its
+gradient is the continuous adjoint with the ``adjoint_method`` backward.
+The mixed and rewire_attention blocks raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,20 +23,23 @@ import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
-from graph_neural_pde_tpu_torch.models.attention import (TransformerAttention,
-                                                         frozen_mean_attention)
-from graph_neural_pde_tpu_torch.models.functions import (FuncAux, ODEFunc,
-                                                         make_rhs)
+from graph_neural_pde_tpu_torch.models.attention import (
+    TransformerAttention, apply_transformer_attention, frozen_mean_attention)
+from graph_neural_pde_tpu_torch.models.functions import (FuncAux, FuncParams,
+                                                         ODEFunc, make_rhs)
 from graph_neural_pde_tpu_torch.ops.graph import Graph, get_rw_adj
-from graph_neural_pde_tpu_torch.solvers.api import SolverOptions, odeint
+from graph_neural_pde_tpu_torch.ops.scatter import normalize_attention
+from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
+from graph_neural_pde_tpu_torch.solvers.api import (SolverOptions, odeint,
+                                                    odeint_adjoint)
 
-BLOCK_NAMES = ("constant", "attention")
+BLOCK_NAMES = ("constant", "attention", "hard_attention")
 
 
 def check_block(cfg: Config) -> None:
-    if cfg.block in ("mixed", "hard_attention"):
+    if cfg.block == "mixed":
         raise NotImplementedError(
-            f"block {cfg.block!r}: ROADMAP Queue 1 slice 2 item 11")
+            "block 'mixed': ROADMAP Queue 1 slice 2 item 11")
     if cfg.block == "rewire_attention":
         raise NotImplementedError(
             "block 'rewire_attention': ROADMAP Queue 1 slice 4 item 16")
@@ -55,38 +62,115 @@ def prepare_graph(cfg: Config, g: Graph) -> Graph:
 
 class ODEBlock(nn.Module):
     """Learnable block parameters: the ODE function's, plus the block's
-    attention layer for the attention block."""
+    attention layer for the attention and hard_attention blocks."""
 
     def __init__(self, cfg: Config, in_dim: int, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_block(cfg)
         self.func = ODEFunc(cfg)
-        if cfg.block == "attention":
+        if cfg.block in ("attention", "hard_attention"):
             self.att = TransformerAttention(cfg, in_dim, generator=generator)
 
 
-def build_aux(block: ODEBlock, cfg: Config, g: Graph,
-              x: torch.Tensor) -> FuncAux:
-    """Per-forward constants: the frozen head-mean attention (attention
-    block) and the detached source state x0."""
+def masked_quantile(values: torch.Tensor, mask: torch.Tensor,
+                    q: float) -> torch.Tensor:
+    """Linear-interpolated quantile over the masked entries, as
+    ``torch.quantile`` over the valid edges (reference
+    block_transformer_hard_attention.py:60), in the JAX package's float32
+    arithmetic."""
+    big = torch.finfo(values.dtype).max
+    sorted_vals = torch.sort(torch.where(mask, values,
+                                         torch.full_like(values, big))).values
+    n = torch.sum(mask.to(torch.int32))
+    rank = q * (n.to(values.dtype) - 1.0)
+    last = values.shape[0] - 1
+    lo = torch.clamp(torch.floor(rank).to(torch.int64), 0, last)
+    hi = torch.clamp(lo + 1, 0, last)
+    frac = rank - lo.to(values.dtype)
+    v_lo = sorted_vals[lo]
+    v_hi = torch.where(hi < n, sorted_vals[hi], v_lo)
+    return v_lo + frac * (v_hi - v_lo)
+
+
+def build_aux(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
+              training: bool) -> Tuple[FuncAux, Optional[torch.Tensor]]:
+    """Per-forward constants of the solve: the frozen attention and the
+    detached source state x0. Returns (aux, keep): ``keep`` is the
+    hard-attention training mask of kept edges (the solve runs on the graph
+    re-masked to them), else None."""
     x0 = x.detach()   # set_x0 detaches (base_classes.py:52-54)
     if cfg.block == "constant":
-        return FuncAux(attention=None, x0=x0, edge_weight=g.weight)
-    att = frozen_mean_attention(block.att, cfg, x, g, edge_weight=g.weight)
-    return FuncAux(attention=att, x0=x0, edge_weight=g.weight)
+        return FuncAux(attention=None, x0=x0, edge_weight=g.weight), None
+    if cfg.block == "attention":
+        att = frozen_mean_attention(block.att, cfg, x, g,
+                                    edge_weight=g.weight)
+        return FuncAux(attention=att, x0=x0, edge_weight=g.weight), None
+    # hard_attention: the reference computes the attention and the
+    # subsampled weights under no_grad
+    # (block_transformer_hard_attention.py:52-65)
+    with torch.no_grad():
+        mean_att = apply_transformer_attention(
+            block.att, cfg, x, g, edge_weight=g.weight).mean(dim=1)
+        if not training:
+            return FuncAux(attention=mean_att, x0=x0,
+                           edge_weight=g.weight), None
+        if cfg.use_flux:
+            row, col = g.row.long(), g.col.long()
+            mean_att = mean_att * torch.linalg.vector_norm(x[row] - x[col],
+                                                           dim=1)
+        thresh = masked_quantile(mean_att, g.mask, 1.0 - cfg.att_samp_pct)
+        keep = (mean_att > thresh) & g.mask
+        sampled = normalize_attention(mean_att, g, cfg.attention_norm_idx,
+                                      mask=keep)
+    return FuncAux(attention=sampled, x0=x0, edge_weight=g.weight), keep
+
+
+def _masked_spmm(spmm_fn: Callable, keep: torch.Tensor) -> Callable:
+    """The aggregation on the graph re-masked to ``keep``: dropped edges
+    weigh 0 and get no weight gradient (the JAX package's masked spmm)."""
+    def fn(x, w):
+        return spmm_fn(x, torch.where(keep, w, torch.zeros_like(w)))
+    return fn
 
 
 def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
-                  spmm_fn: Optional[Callable] = None
+                  training: bool, spmm_fn: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, dict]:
     """Solve the IVP over [0, T] with cfg.method. Returns (z, stats).
-    Differentiable (discrete adjoint) when autograd is enabled."""
-    aux = build_aux(block, cfg, g, x)
+
+    Differentiable when autograd is enabled: in training with
+    ``cfg.adjoint`` through the continuous adjoint (whose backward adds
+    ``bwd_nfe`` to stats), otherwise through the solver's steps (the
+    discrete adjoint)."""
+    aux, keep = build_aux(block, cfg, g, x, training)
+    if keep is not None:
+        spmm_fn = _masked_spmm(spmm_fn or make_spmm(g), keep)
     rhs = make_rhs(cfg, g, spmm_fn=spmm_fn)
+    opts = SolverOptions.from_config(cfg)
 
-    def func(t, y):
-        return rhs(block.func, aux, t, y)
+    if not (cfg.adjoint and training):
+        def func(t, y):
+            return rhs(block.func, aux, t, y)
 
-    return odeint(func, x, 0.0, cfg.time, SolverOptions.from_config(cfg),
-                  adjoint=cfg.adjoint)
+        return odeint(func, x, 0.0, cfg.time, opts)
+
+    # The continuous adjoint integrates a cotangent for every parameter
+    # tensor of the RHS, in the JAX package's leaf order: attention, x0,
+    # edge weights, then the function's scalars. The JAX parameters hold
+    # one more scalar, an inert probe that carries the backward NFE out of
+    # its solve; its cotangent is 0 but counts in the backward error norm,
+    # so a zero scalar stands in for it.
+    inert = torch.zeros((), device=x.device)
+    params = [aux.x0, aux.edge_weight, inert, block.func.alpha_train,
+              block.func.beta_train]
+    has_att = aux.attention is not None
+    if has_att:
+        params.insert(0, aux.attention)
+
+    def func_p(t, y, p):
+        att, p = (p[0], p[1:]) if has_att else (None, p)
+        return rhs(FuncParams(p[3], p[4]), FuncAux(att, p[0], p[1]), t, y)
+
+    return odeint_adjoint(func_p, x, params, 0.0, cfg.time, opts,
+                          SolverOptions.from_config(cfg, adjoint=True))

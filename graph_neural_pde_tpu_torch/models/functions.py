@@ -22,7 +22,9 @@ from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
 class FuncAux(NamedTuple):
     """Per-solve constants.
 
-    attention  : [E] head-mean frozen attention (attention block) or None
+    attention  : [E] head-mean frozen attention (attention block), the
+                 renormalised sampled attention (hard_attention block) or
+                 None
     x0         : source-term state, detached (the reference's set_x0 clones
                  and detaches, base_classes.py:52-54)
     edge_weight: normalised adjacency weights
@@ -31,6 +33,15 @@ class FuncAux(NamedTuple):
     attention: Optional[torch.Tensor]
     x0: torch.Tensor
     edge_weight: torch.Tensor
+
+
+class FuncParams(NamedTuple):
+    """An ODE function's scalars as plain tensors, where a solver passes
+    them explicitly (the continuous adjoint); the RHS reads them from this
+    or from an ``ODEFunc`` alike."""
+
+    alpha_train: torch.Tensor
+    beta_train: torch.Tensor
 
 
 class ODEFunc(nn.Module):

@@ -1,8 +1,9 @@
 """The GRAND model: encoder → continuous-time ODE block → decoder (PyTorch
 port of ``models/gnn.py``).
 
-* encoder: dropout → m1
-* ODE block: see models.blocks — one adaptive solve
+* encoder: dropout → m1 → optional batch norm (running statistics kept in
+  buffers between steps)
+* ODE block: see models.blocks — one solve
 * decoder: relu → dropout → m2
 
 The model lives on one explicit ``device``. Its prepared graph is built on
@@ -21,12 +22,13 @@ from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.models.blocks import (ODEBlock, block_forward,
                                                       check_block,
                                                       prepare_graph)
-from graph_neural_pde_tpu_torch.models.layers import Linear, dropout
+from graph_neural_pde_tpu_torch.models.layers import BatchNorm, Linear, dropout
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
 from graph_neural_pde_tpu_torch.solvers.api import check_method
+from graph_neural_pde_tpu_torch.training.train import OPTIMIZERS
 
-# Config switches outside the port's first slice, with the ROADMAP item that
+# Config switches outside the ported slices, with the ROADMAP item that
 # ports each (ROADMAP.md, Queue 1)
 _NOT_PORTED = (
     ("beltrami", "slice 4 item 15 (Beltrami / positional encodings)"),
@@ -34,8 +36,6 @@ _NOT_PORTED = (
     ("fa_layer", "slice 4 item 16 (GNNKNN fa layer)"),
     ("edge_sampling", "slice 4 item 16 (edge sampling)"),
     ("rewiring", "slice 4 item 15 (load-time rewiring)"),
-    ("adjoint", "slice 2 item 12 (continuous adjoint)"),
-    ("batch_norm", "slice 2 item 11 (batch norm)"),
     ("use_labels", "slice 2 item 13 (label diffusion)"),
     ("use_mlp", "slice 5 item 18 (encoder MLP)"),
     ("fc_out", "slice 5 item 18 (decoder fc)"),
@@ -49,7 +49,11 @@ _NOT_PORTED = (
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every config
-    outside the ported slice (the tuned-Cora GRAND-l training path)."""
+    outside the ported slices (the tuned GRAND-l rows but ogbn-arxiv)."""
+    if cfg.dataset == "ogbn-arxiv":
+        raise NotImplementedError(
+            "dataset ogbn-arxiv: ROADMAP Queue 1 slice 2 item 13 (arxiv "
+            "loader, label diffusion, not_lcc)")
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
@@ -67,16 +71,14 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             f"function {cfg.function!r}: ROADMAP Queue 1 slice 3 item 14 "
             "(transformer and GAT RHS)")
-    if cfg.block == "attention" and cfg.attention_type != "scaled_dot":
+    if cfg.optimizer not in OPTIMIZERS:
         raise NotImplementedError(
-            f"attention_type {cfg.attention_type!r}: ROADMAP Queue 1 slice 2 "
-            "item 10 (remaining score families)")
-    if cfg.optimizer not in ("adam", "adamax"):
-        raise NotImplementedError(
-            f"optimizer {cfg.optimizer!r}: ROADMAP Queue 1 slice 2 item 13 "
-            "(rmsprop) / slice 1 item 8 (sgd, adagrad)")
+            f"optimizer {cfg.optimizer!r}: ROADMAP Queue 1 slice 1 item 8 "
+            "(sgd, adagrad)")
     check_block(cfg)
     check_method(cfg.method)
+    if cfg.adjoint:
+        check_method(cfg.adjoint_method)
 
 
 class GNNModel(nn.Module):
@@ -99,13 +101,19 @@ class GNNModel(nn.Module):
         self.m1 = Linear(num_features, cfg.hidden_dim, generator=gen)
         self.m2 = Linear(cfg.hidden_dim, num_classes, generator=gen)
         self.block = ODEBlock(cfg, cfg.hidden_dim, generator=gen)
+        if cfg.batch_norm:
+            self.bn_in = BatchNorm(cfg.hidden_dim)
         self.to(self.device)
 
     def encode(self, x, training: bool,
                generator: Optional[torch.Generator] = None):
-        """Everything before the ODE solve: dropout → m1."""
+        """Everything before the ODE solve: dropout → m1 → batch norm (a
+        training forward moves its running statistics)."""
         x = dropout(x, self.cfg.input_dropout, training, generator)
-        return self.m1(x)
+        x = self.m1(x)
+        if self.cfg.batch_norm:
+            x = self.bn_in(x, training)
+        return x
 
     def decode(self, z, training: bool,
                generator: Optional[torch.Generator] = None):
@@ -118,5 +126,5 @@ class GNNModel(nn.Module):
         """Full forward. Returns (logits, solver stats)."""
         x0 = self.encode(x, training, generator)
         z, stats = block_forward(self.block, self.cfg, self.graph, x0,
-                                 spmm_fn=self.spmm_fn)
+                                 training, spmm_fn=self.spmm_fn)
         return self.decode(z, training, generator), stats

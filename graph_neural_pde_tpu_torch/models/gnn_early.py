@@ -30,7 +30,7 @@ class GNNEarlyModel(GNNModel):
         """
         cfg = self.cfg
         x0 = self.encode(x, False)
-        aux = build_aux(self.block, cfg, self.graph, x0)
+        aux, _ = build_aux(self.block, cfg, self.graph, x0, training=False)
         rhs = make_rhs(cfg, self.graph, spmm_fn=self.spmm_fn)
 
         def func(t, yy):

@@ -1,4 +1,5 @@
-"""Linear layer and dropout (PyTorch port of ``models/layers.py``).
+"""Linear layer, batch norm and dropout (PyTorch port of
+``models/layers.py``).
 
 ``Linear`` keeps the JAX package's ``[in, out]`` weight orientation
 (``y = x @ w + b``), so converted parameters need no transpose and both
@@ -35,6 +36,41 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x @ self.w + self.b
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over nodes (torch BatchNorm1d semantics, as the JAX
+    package's ``bn_init``/``bn_apply``): a training forward normalises with
+    the batch mean and biased variance and moves the running statistics by
+    ``momentum`` towards the batch mean and the unbiased variance; an eval
+    forward reads the running statistics. The running state (``mean``,
+    ``var``, ``count``) is kept in buffers, updated in place."""
+
+    momentum, eps = 0.1, 1e-5
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+        self.register_buffer("count", torch.zeros(()))
+
+    def forward(self, x: torch.Tensor, training: bool) -> torch.Tensor:
+        if training:
+            mean = torch.mean(x, dim=0)
+            var = torch.var(x, dim=0, correction=0)
+            n = x.shape[0]
+            with torch.no_grad():
+                unbiased = var * n / max(n - 1, 1)
+                m = self.momentum
+                self.mean.copy_((1 - m) * self.mean + m * mean)
+                self.var.copy_((1 - m) * self.var + m * unbiased)
+                self.count += 1
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.scale + self.bias
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,

@@ -1,10 +1,11 @@
-"""Where the time goes in the tuned-Cora training path, on the card.
+"""Where the time goes in a tuned training run, on the card.
 
-    python -m graph_neural_pde_tpu_torch.profile [--epochs 3] [--seed 0]
+    python -m graph_neural_pde_tpu_torch.profile [--dataset Cora] \
+        [--epochs 3] [--seed 0] [--data_dir DIR]
 
-Builds the tuned Cora run (``best_params["Cora"]`` over the data in
-``--data_dir``, the SBM stand-in when it holds no Planetoid files), runs one
-warm-up epoch, then profiles ``--epochs`` epochs with ``torch.profiler``.
+Builds the tuned run of ``--dataset`` (``best_params[dataset]`` over the
+data in ``--data_dir``, the SBM stand-in when it holds no raw files), runs
+one warm-up epoch, then profiles ``--epochs`` epochs with ``torch.profiler``.
 Each epoch is the CLI's: a train step, an eval step and the early-stop
 eval. Prints
 
@@ -12,8 +13,8 @@ eval. Prints
   device synchronise);
 * device busy time (the union of kernel, memcpy and memset intervals) over
   the profiled wall time, and so the device's idle share;
-* device time by kernel, with launch counts, and the port's two kernels'
-  mean device time per launch.
+* device time by kernel, with launch counts, and the port's kernels' mean
+  device time per launch.
 
 Needs a CUDA device. Numbers from it belong beside the card's name and
 power limit, which it prints first.
@@ -36,6 +37,7 @@ from graph_neural_pde_tpu_torch import run
 from graph_neural_pde_tpu_torch.config import best_params
 
 PHASES = ("train_step", "eval_step", "early_stop_eval")
+KERNEL_NAMES = ("csr_spmm", "edge_dot", "segment_norm", "segment_norm_bwd")
 
 
 def _busy_us(intervals):
@@ -92,8 +94,8 @@ def summarise(phase_s, prof, epochs: int) -> dict:
         by_name[e.name][1] += e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     ours = {}
-    for label, needle in (("csr_spmm", "csr_spmm_kernel"),
-                          ("edge_dot", "edge_dot_kernel")):
+    for label in KERNEL_NAMES:
+        needle = f"{label}_kernel"
         hits = [(n, c, t) for n, (c, t) in by_name.items() if needle in n]
         launches = sum(c for _, c, _ in hits)
         total = sum(t for _, _, t in hits)
@@ -116,6 +118,9 @@ def summarise(phase_s, prof, epochs: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dataset", type=str, default="Cora",
+                    choices=sorted(k for k in best_params
+                                   if k != "ogbn-arxiv"))
     ap.add_argument("--epochs", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data_dir", type=str, default=None)
@@ -126,7 +131,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    cfg = best_params["Cora"].replace(seed=args.seed)
+    cfg = best_params[args.dataset].replace(seed=args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         s = run.setup(cfg, args.data_dir or tmp, device="cuda")
         s.trainer.train_step(s.x, s.y, s.masks[0])        # warm-up epoch
@@ -134,7 +139,8 @@ def main() -> None:
         s.model.apply_early(s.x, s.y, s.masks)
         torch.cuda.synchronize()
         phase_s, prof = profile_epochs(s, args.epochs)
-    summary = summarise(phase_s, prof, args.epochs)
+    summary = dict(dataset=args.dataset,
+                   **summarise(phase_s, prof, args.epochs))
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15), flush=True)
     print(json.dumps(summary), flush=True)

@@ -27,9 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from graph_neural_pde_tpu_torch.solvers.rk import (hermite_mid, interp_eval,
-                                                   interp_fit, rk_step, rms,
-                                                   error_ratio,
+from graph_neural_pde_tpu_torch.solvers.rk import (axpy, error_ratio,
+                                                   hermite_mid, interp_eval,
+                                                   interp_fit, leaves, rk_step,
+                                                   rms, tmap,
                                                    y_mid_from_stages)
 from graph_neural_pde_tpu_torch.solvers.tableaus import Tableau
 
@@ -50,16 +51,17 @@ def select_initial_step(func, t0, y0, f0, order: int, rtol: float,
                         atol: float):
     """Hairer II.4 starting-step heuristic (one extra RHS evaluation)."""
     def scaled_rms(x, ref):
-        return rms(x / (atol + rtol * torch.abs(ref)))
+        return rms(tmap(lambda xi, ri: xi / (atol + rtol * torch.abs(ri)),
+                        x, ref))
 
     d0 = scaled_rms(y0, y0)
     d1 = scaled_rms(f0, y0)
     one = torch.ones_like(d0)
     h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), one * 1e-6,
                      0.01 * d0 / torch.clamp_min(d1, 1e-30))
-    y1 = y0 + h0 * f0
+    y1 = axpy(h0, f0, y0)
     f1 = func(t0 + h0, y1)
-    d2 = scaled_rms(f1 - f0, y0) / h0
+    d2 = scaled_rms(tmap(torch.sub, f1, f0), y0) / h0
     h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15),
                      torch.clamp_min(h0 * 1e-3, 1e-6),
                      (0.01 / torch.maximum(d1, d2)) ** (1.0 / (order + 1)))
@@ -92,10 +94,11 @@ def odeint_adaptive(func, tab: Tableau, t0: float, t1: float, rtol: float,
     """Adaptive solve of dy/dt = func(t, y) from t0 to t1.
 
     Returns (y(t1), stats) with stats = {nfe, accepted, rejected,
-    hit_max_steps, t_final} as host numbers. Differentiable in y0 and in
-    whatever ``func`` closes over when autograd is enabled.
+    hit_max_steps, t_final} as host numbers. ``y0`` is a tensor or a tuple
+    of tensors. Differentiable in y0 and in whatever ``func`` closes over
+    when autograd is enabled.
     """
-    dev = y0.device
+    dev = leaves(y0)[0].device
     record = torch.is_grad_enabled()
     t0_, t1_ = _f32(t0, dev), _f32(t1, dev)
     with torch.no_grad():

@@ -4,8 +4,8 @@
 At test time the IVP is integrated to ``earlystopxT · T``; after every
 accepted step the state is decoded and scored, and the snapshot with the
 best validation accuracy, with its diffusion time t*, is kept. Inference
-only: the whole solve runs under ``torch.no_grad``. The fixed-grid branch
-raises ``NotImplementedError`` (ROADMAP Queue 1 slice 1 item 6).
+only: the whole solve runs under ``torch.no_grad``. Fixed-grid methods
+evaluate after every step of their grid (the reference's EarlyStopRK4).
 """
 
 from __future__ import annotations
@@ -17,8 +17,12 @@ import torch
 from graph_neural_pde_tpu_torch.solvers.adaptive import (final_interp,
                                                          optimal_step_size,
                                                          select_initial_step)
-from graph_neural_pde_tpu_torch.solvers.api import SolverOptions, check_method
-from graph_neural_pde_tpu_torch.solvers.rk import error_ratio, rk_step
+from graph_neural_pde_tpu_torch.solvers.api import (FIXED_METHODS,
+                                                    SolverOptions,
+                                                    check_method)
+from graph_neural_pde_tpu_torch.solvers.fixed import time_grid
+from graph_neural_pde_tpu_torch.solvers.rk import (error_ratio, rk_stages,
+                                                   rk_step)
 
 
 class BestSnapshot(NamedTuple):
@@ -41,10 +45,29 @@ def odeint_early_stop(func: Callable, y0: torch.Tensor, t0: float, t1: float,
     tab = opts.tableau
     rtol, atol = opts.rtol, opts.atol
     dev = y0.device
-    t0_ = torch.tensor(t0, dtype=torch.float32, device=dev)
-    t1_ = torch.tensor(t1, dtype=torch.float32, device=dev)
     zero = torch.zeros((), device=dev)
     best = [zero, zero, zero, zero]        # train, val, test, time
+
+    def update_best(best, y, t):
+        tr, va, te = evaluate(y)
+        better = va > best[1]
+        return [torch.where(better, new, old)
+                for new, old in zip((tr, va, te, t), best)]
+
+    if opts.method in FIXED_METHODS:
+        ts = torch.tensor(time_grid(t0, t1, opts.step_size),
+                          dtype=torch.float32, device=dev)
+        y = y0
+        for t, dt in zip(ts[:-1], ts[1:] - ts[:-1]):
+            y, _ks = rk_stages(func, t, y, func(t, y), dt, tab)
+            best = update_best(best, y, t + dt)
+        n = ts.shape[0] - 1
+        stats = {"nfe": n * tab.num_stages, "accepted": n, "rejected": 0,
+                 "hit_max_steps": False, "t_final": float(t1)}
+        return y, BestSnapshot(*(float(v) for v in best)), stats
+
+    t0_ = torch.tensor(t0, dtype=torch.float32, device=dev)
+    t1_ = torch.tensor(t1, dtype=torch.float32, device=dev)
     f = func(t0_, y0)
     h = select_initial_step(func, t0_, y0, f, tab.order - 1, rtol, atol)
     nfe = 2                    # f(t0) and the initial-step probe
@@ -59,10 +82,7 @@ def odeint_early_stop(func: Callable, y0: torch.Tensor, t0: float, t1: float,
         t_new = torch.where(accept_t, t + h, t)
         accept, more = torch.stack([accept_t, t_new < t1_]).tolist()
         if accept:
-            tr, va, te = evaluate(y1)
-            better = va > best[1]
-            best = [torch.where(better, new, old)
-                    for new, old in zip((tr, va, te, t + h), best)]
+            best = update_best(best, y1, t + h)
             last = (t, h, y)
             t, y, f = t_new, y1, f1
             acc += 1

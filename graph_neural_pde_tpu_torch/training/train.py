@@ -5,7 +5,8 @@ The optimizers are written out as the JAX package computes them (optax with
 coupled weight decay), not taken from ``torch.optim``: ``optax.adamax``
 puts ``eps`` inside the max (``nu = max(|g| + eps, b2·nu)``), where
 ``torch.optim.Adamax`` adds it elsewhere, and the losses of the two packages
-are compared epoch for epoch.
+are compared epoch for epoch. rmsprop is the JAX package's torch-semantics
+``_torch_rmsprop`` (``g / (sqrt(nu) + eps)``, eps outside the root).
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.solvers.tableaus import TABLEAUS
 
 
+OPTIMIZERS = ("adam", "adamax", "rmsprop")
+
+
 def _decay_mask(cfg: Config, name: str) -> bool:
     """Coupled weight decay skips the hard-attention block's own attention
     parameters, which the reference trains under no_grad (the JAX package's
@@ -30,19 +34,20 @@ def _decay_mask(cfg: Config, name: str) -> bool:
 
 
 class Optimizer:
-    """adam / adamax with torch-style coupled weight decay (L2 added to the
-    gradient before the moment updates), as ``optax.chain(
-    add_decayed_weights(wd, mask), adam|adamax)``. A parameter without a
-    gradient takes a zero gradient, as jax.grad gives one."""
+    """adam / adamax / rmsprop with torch-style coupled weight decay (L2
+    added to the gradient before the moment updates), as ``optax.chain(
+    add_decayed_weights(wd, mask), adam|adamax|rmsprop)``. A parameter
+    without a gradient takes a zero gradient, as jax.grad gives one."""
 
     def __init__(self, cfg: Config, named_params):
-        if cfg.optimizer not in ("adam", "adamax"):
+        if cfg.optimizer not in OPTIMIZERS:
             raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r}: ROADMAP Queue 1 slice 2 "
-                "item 13 (rmsprop) / slice 1 item 8 (sgd, adagrad)")
+                f"optimizer {cfg.optimizer!r}: ROADMAP Queue 1 slice 1 "
+                "item 8 (sgd, adagrad)")
         self.cfg = cfg
         self.params = list(named_params)
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-8
+        self.rms_alpha = 0.99
         self.count = 0
         self.mu = [torch.zeros_like(p) for _, p in self.params]
         self.nu = [torch.zeros_like(p) for _, p in self.params]
@@ -55,6 +60,12 @@ class Optimizer:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             if cfg.decay and cfg.decay > 0 and _decay_mask(cfg, name):
                 g = g + cfg.decay * p
+            if cfg.optimizer == "rmsprop":
+                a = self.rms_alpha
+                nu = a * self.nu[i] + (1.0 - a) * g * g
+                self.nu[i] = nu
+                p.copy_(p + -cfg.lr * g / (torch.sqrt(nu) + eps))
+                continue
             count = torch.tensor(self.count, device=p.device)
             mu = (1 - b1) * g + b1 * self.mu[i]
             mu_hat = mu / (1 - torch.tensor(b1, device=p.device) ** count)
@@ -111,7 +122,8 @@ class Trainer:
         self.generator = torch.Generator(device=model.device)
         self.generator.manual_seed(model.cfg.seed)
         # backward NFE per accepted forward step: the discrete adjoint
-        # replays each accepted step once (the JAX package's metering)
+        # replays each accepted step once (the JAX package's metering); the
+        # continuous adjoint reports its backward solve's NFE itself
         self.bwd_evals_per_step = TABLEAUS[model.cfg.method].num_stages
 
     def train_step(self, x, y, train_mask):
@@ -121,7 +133,9 @@ class Trainer:
         loss = cross_entropy_loss(logits, y, train_mask)
         loss.backward()
         self.optimizer.step()
-        stats = dict(stats, bwd_nfe=stats["accepted"] * self.bwd_evals_per_step)
+        if "bwd_nfe" not in stats:
+            stats = dict(stats, bwd_nfe=stats["accepted"]
+                         * self.bwd_evals_per_step)
         return float(loss.detach()), stats
 
     @torch.no_grad()

@@ -85,7 +85,8 @@ def solve_pair():
           if k.startswith("block.")}
     block.load_state_dict(sd)
     xt = torch.tensor(x, requires_grad=True)
-    tz, tstats = block_forward(block, tcfg, tg, xt, spmm_fn=make_spmm(tg))
+    tz, tstats = block_forward(block, tcfg, tg, xt, True,
+                               spmm_fn=make_spmm(tg))
     torch.sum(tz * torch.tensor(probe)).backward()
     return dict(jz=np.asarray(jz), jstats=jax.tree.map(np.asarray, jstats),
                 jgb=jax.tree.map(np.asarray, jgb), jgx=np.asarray(jgx),
