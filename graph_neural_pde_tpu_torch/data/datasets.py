@@ -9,6 +9,9 @@ seeded development/test split (5,000 development nodes for CoauthorCS,
 are absent, with its calibrated feature signal and homophily. The stand-in
 and the splits are bit-identical to the JAX package's for one seed.
 
+``ogbn-arxiv-synthetic`` is the seeded random graph at ogbn-arxiv's size
+that the JAX package's ``bench.py`` measures on (nothing is read from disk).
+
 The ogbn-arxiv and geom-gcn loaders, load-time rewiring and node
 reordering are not ported yet and raise ``NotImplementedError`` naming
 their ROADMAP item.
@@ -24,8 +27,8 @@ import numpy as np
 import torch
 
 from graph_neural_pde_tpu_torch.config import Config
-from graph_neural_pde_tpu_torch.data.synthetic import (NodeDataset,
-                                                       make_sbm_dataset)
+from graph_neural_pde_tpu_torch.data.synthetic import (
+    NodeDataset, make_random_graph_dataset, make_sbm_dataset)
 from graph_neural_pde_tpu_torch.ops.graph import make_graph
 
 
@@ -238,6 +241,10 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     """Load and preprocess a dataset (reference get_dataset semantics)."""
     ds = cfg.dataset
     pad = cfg.edge_pad_multiple
+    if ds == "ogbn-arxiv-synthetic":
+        # the random graph of the JAX package's bench.py, made from cfg.seed
+        return make_random_graph_dataset(seed=cfg.seed,
+                                         edge_pad_multiple=max(pad, 1))
     if ds in _NOT_PORTED:
         raise NotImplementedError(f"dataset {ds}: {_NOT_PORTED[ds]}")
     if ds in _GEOM_GCN:

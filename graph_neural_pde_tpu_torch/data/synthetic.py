@@ -91,3 +91,30 @@ def make_sbm_dataset(num_nodes=120, num_classes=3, num_features=16,
         num_classes=num_classes,
         num_features=num_features,
     )
+
+
+def make_random_graph_dataset(num_nodes=169_343, num_edges=1_166_243,
+                              num_features=128, num_classes=40, seed=0,
+                              edge_pad_multiple=1024) -> NodeDataset:
+    """A symmetric random graph at ogbn-arxiv's node and edge counts with
+    Gaussian features: the graph of the JAX package's ``bench.py``
+    (``build_benchmark``: ``num_edges`` uniform pairs, both directions,
+    duplicates and self loops kept), with uniform random labels and a
+    random 60/20/20 split so that it can also be trained on. It measures
+    and exercises; nothing can be learnt from it."""
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, num_nodes, size=num_edges, dtype=np.int64)
+    col = rng.integers(0, num_nodes, size=num_edges, dtype=np.int64)
+    g = make_graph(np.concatenate([row, col]).astype(np.int32),
+                   np.concatenate([col, row]).astype(np.int32),
+                   num_nodes=num_nodes, pad_multiple=edge_pad_multiple)
+    x = rng.normal(size=(num_nodes, num_features)).astype(np.float32)
+    y = rng.integers(0, num_classes, size=num_nodes)
+    part = rng.random(num_nodes)
+    return NodeDataset(
+        graph=g, x=torch.as_tensor(x), y=torch.as_tensor(y, dtype=torch.int64),
+        train_mask=torch.as_tensor(part < 0.6),
+        val_mask=torch.as_tensor((part >= 0.6) & (part < 0.8)),
+        test_mask=torch.as_tensor(part >= 0.8),
+        num_classes=num_classes, num_features=num_features,
+        name="ogbn-arxiv-synthetic")

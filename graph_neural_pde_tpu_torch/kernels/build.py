@@ -41,6 +41,24 @@ _ENTRY_POINTS = {
     "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
     # rowptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
     "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
+    # The fused RHS kernels (csrc/fused_rhs.cu). qtab and ktab are scratch
+    # tables [n_rows, att]; kw_t is Kw transposed.
+    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, shifts, alpha (the last
+    # four nullable), qtab, ktab, out, den, num (nullable), n_rows, dim,
+    # att, heads, flags, stream
+    "gnpde_fused_rhs_fwd": [_PTR] * 17 + [_INT] * 5 + [_PTR],
+    # rowptr, col, x, qw, qb, kw, kb, qtab, ktab, smax, n_rows, dim, att,
+    # heads, stream
+    "gnpde_fused_rowmax": [_PTR] * 10 + [_INT] * 4 + [_PTR],
+    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
+    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg, dke,
+    # row_sums, partials, n_rows, dim, att, heads, flags, n_slots,
+    # reduce_blocks, stream
+    "gnpde_fused_rhs_bwd": [_PTR] * 22 + [_INT] * 7 + [_PTR],
+    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
+    # ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
+    # partials, n_rows, dim, att, heads, flags, reduce_blocks, stream
+    "gnpde_fused_rhs_bwd_sym": [_PTR] * 21 + [_INT] * 6 + [_PTR],
 }
 
 _lib = None

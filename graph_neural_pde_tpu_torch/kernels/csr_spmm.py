@@ -24,11 +24,11 @@ def csr_spmm_plain(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     n_valid = int(rowptr[-1])
     r, c = row[:n_valid].long(), col[:n_valid].long()
     vals = x[c] * w[:n_valid, None]
-    return torch.zeros(x.shape, dtype=x.dtype, device=x.device).index_add(
-        0, r, vals)
+    return torch.zeros((rowptr.shape[0] - 1, x.shape[1]), dtype=x.dtype,
+                       device=x.device).index_add(0, r, vals)
 
 
-def _check(rowptr, row, col, w, x):
+def _check(rowptr, row, col, w, x, table):
     dev = x.device
     for name, t in (("rowptr", rowptr), ("row", row), ("col", col),
                     ("w", w)):
@@ -43,7 +43,8 @@ def _check(rowptr, row, col, w, x):
     for name, t in (("rowptr", rowptr), ("row", row), ("col", col)):
         if t.dtype != torch.int32:
             raise TypeError(f"csr_spmm: {name} must be int32")
-    if rowptr.shape != (x.shape[0] + 1,):
+    if rowptr.dim() != 1 or rowptr.shape[0] < 1 or (
+            not table and rowptr.shape[0] != x.shape[0] + 1):
         raise ValueError(f"csr_spmm: rowptr {tuple(rowptr.shape)} does not "
                          f"match {x.shape[0]} rows")
     if not (row.shape == col.shape == w.shape and col.dim() == 1):
@@ -51,17 +52,20 @@ def _check(rowptr, row, col, w, x):
 
 
 def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
-             w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+             w: torch.Tensor, x: torch.Tensor, table: bool = False
+             ) -> torch.Tensor:
     """``A_w x`` over a row-sorted graph whose valid edges are the prefix
     ``[0, rowptr[-1])`` of ``row``/``col``/``w``. ``row`` is only read by the
-    plain version. Not differentiable by itself (see ``ops.spmm.make_spmm``).
-    """
-    _check(rowptr, row, col, w, x)
+    plain version. With ``table`` the gathered ``x`` is any table of rows
+    that ``col`` indexes (a per-edge array summed over each row's reverse
+    edges), not the [N, D] node state. Not differentiable by itself (see
+    ``ops.spmm.make_spmm``)."""
+    _check(rowptr, row, col, w, x, table)
     if x.device.type == "cpu":
         return csr_spmm_plain(rowptr, row, col, w, x)
     if x.device.type != "cuda":
         raise NotImplementedError(f"csr_spmm: no kernel for {x.device}")
-    n, d = x.shape
+    n, d = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     build.launch("csr_spmm", x.device, rowptr.data_ptr(), col.data_ptr(),
                  w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d)

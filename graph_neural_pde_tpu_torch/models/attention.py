@@ -1,5 +1,7 @@
 """Graph attention over padded edge arrays (PyTorch port of the
-``models/attention.py`` pieces on the GRAND-l path).
+``models/attention.py`` pieces on the GRAND-l path and on GRAND-nl's
+composition branch; the scores themselves are ``kernels.fused_rhs.
+edge_scores``, shared with the fused RHS's plain versions).
 
 Ported: the transformer attention layer's parameters (Q/K/V/Wout, weights
 constant 1e-5 as in the reference, and ``output_var``/``lengthscale`` for
@@ -15,13 +17,13 @@ their ROADMAP item.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import edge_scores
 from graph_neural_pde_tpu_torch.models.layers import Linear
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.scatter import (segment_softmax,
@@ -61,25 +63,12 @@ class TransformerAttention(nn.Module):
 
 
 def _scores(att: TransformerAttention, cfg: Config, src: torch.Tensor,
-            dst: torch.Tensor, d_k: int) -> torch.Tensor:
+            dst: torch.Tensor) -> torch.Tensor:
     """Per-edge, per-head raw scores [E, H] from gathered q/k [E, H, d_k]
     (JAX ``attention._scores``)."""
-    at = cfg.attention_type
-    if at == "exp_kernel":
-        sq = torch.sum((src - dst) ** 2, dim=-1)
-        return att.output_var ** 2 * torch.exp(
-            -sq / (2.0 * att.lengthscale ** 2))
-    if at == "scaled_dot":
-        return torch.sum(src * dst, dim=-1) / math.sqrt(d_k)
-    if at == "pearson":
-        src = src - torch.mean(src, dim=-1, keepdim=True)
-        dst = dst - torch.mean(dst, dim=-1, keepdim=True)
-    # cosine_sim, and pearson on the centred vectors
-    eps = 1e-5
-    num = torch.sum(src * dst, dim=-1)
-    den = (torch.clamp_min(torch.linalg.vector_norm(src, dim=-1), eps)
-           * torch.clamp_min(torch.linalg.vector_norm(dst, dim=-1), eps))
-    return num / den
+    return edge_scores(src, dst, cfg.attention_type,
+                       getattr(att, "output_var", None),
+                       getattr(att, "lengthscale", None))
 
 
 def transformer_scores(att: TransformerAttention, cfg: Config,
@@ -94,7 +83,7 @@ def transformer_scores(att: TransformerAttention, cfg: Config,
     k = att.K(x)
     src = q[g.row.long()].reshape(-1, h, d_k)
     dst = k[g.col.long()].reshape(-1, h, d_k)
-    prods = _scores(att, cfg, src, dst, d_k)
+    prods = _scores(att, cfg, src, dst)
     if cfg.reweight_attention and edge_weight is not None:
         prods = prods * edge_weight[:, None]
     return prods

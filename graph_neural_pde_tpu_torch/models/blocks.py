@@ -1,6 +1,7 @@
 """ODE blocks: an ODE function, its graph preparation and its solve
 (PyTorch port of the ``constant``, ``attention`` and ``hard_attention``
-blocks of ``models/blocks.py``).
+blocks of ``models/blocks.py``, with its poison-and-re-solve discipline
+for the fused transformer function).
 
 * constant       — fixed normalised adjacency weights;
 * attention      — multihead attention computed once per forward at t=0 and
@@ -25,8 +26,11 @@ from torch import nn
 from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.models.attention import (
     TransformerAttention, apply_transformer_attention, frozen_mean_attention)
-from graph_neural_pde_tpu_torch.models.functions import (FuncAux, FuncParams,
-                                                         ODEFunc, make_rhs)
+from graph_neural_pde_tpu_torch.models.functions import (FuncAux, ODEFunc,
+                                                         func_from_tensors,
+                                                         func_tensors,
+                                                         make_rhs,
+                                                         rhs_may_poison)
 from graph_neural_pde_tpu_torch.ops.graph import Graph, get_rw_adj
 from graph_neural_pde_tpu_torch.ops.scatter import normalize_attention
 from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
@@ -68,7 +72,7 @@ class ODEBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_block(cfg)
-        self.func = ODEFunc(cfg)
+        self.func = ODEFunc(cfg, in_dim, generator=generator)
         if cfg.block in ("attention", "hard_attention"):
             self.att = TransformerAttention(cfg, in_dim, generator=generator)
 
@@ -134,6 +138,13 @@ def _masked_spmm(spmm_fn: Callable, keep: torch.Tensor) -> Callable:
     return fn
 
 
+def solved_badly(z: torch.Tensor, stats: dict) -> bool:
+    """One host sync per solve: the state is not finite, or the adaptive
+    controller ran into its step cap (NaN error estimates reject every
+    step)."""
+    return bool(stats["hit_max_steps"]) or not bool(torch.isfinite(z).all())
+
+
 def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
                   training: bool, spmm_fn: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, dict]:
@@ -142,11 +153,29 @@ def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
     Differentiable when autograd is enabled: in training with
     ``cfg.adjoint`` through the continuous adjoint (whose backward adds
     ``bwd_nfe`` to stats), otherwise through the solver's steps (the
-    discrete adjoint)."""
+    discrete adjoint).
+
+    The fused transformer RHS runs its softmax unshifted and poisons its
+    output with NaN when an exp left float32's range
+    (``functions.rhs_may_poison``). That is detected once, after the solve,
+    and the solve is then repeated with the exact per-row softmax."""
     aux, keep = build_aux(block, cfg, g, x, training)
     if keep is not None:
         spmm_fn = _masked_spmm(spmm_fn or make_spmm(g), keep)
-    rhs = make_rhs(cfg, g, spmm_fn=spmm_fn)
+
+    def solve(exact_softmax: bool):
+        rhs = make_rhs(cfg, g, spmm_fn=spmm_fn, exact_softmax=exact_softmax,
+                       eval_fold=cfg.fold_epilogue and not training)
+        return _solve(block, cfg, aux, rhs, x, training)
+
+    z, stats = solve(False)
+    if rhs_may_poison(cfg) and solved_badly(z, stats):
+        z, stats = solve(True)
+    return z, stats
+
+
+def _solve(block: ODEBlock, cfg: Config, aux: FuncAux, rhs: Callable,
+           x: torch.Tensor, training: bool) -> Tuple[torch.Tensor, dict]:
     opts = SolverOptions.from_config(cfg)
 
     if not (cfg.adjoint and training):
@@ -157,20 +186,21 @@ def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
 
     # The continuous adjoint integrates a cotangent for every parameter
     # tensor of the RHS, in the JAX package's leaf order: attention, x0,
-    # edge weights, then the function's scalars. The JAX parameters hold
-    # one more scalar, an inert probe that carries the backward NFE out of
-    # its solve; its cotangent is 0 but counts in the backward error norm,
-    # so a zero scalar stands in for it.
+    # edge weights, then the function's parameters (its scalars and, for
+    # the transformer function, its attention layer). The JAX parameters
+    # hold one more scalar, an inert probe that carries the backward NFE
+    # out of its solve; its cotangent is 0 but counts in the backward error
+    # norm, so a zero scalar stands in for it.
     inert = torch.zeros((), device=x.device)
-    params = [aux.x0, aux.edge_weight, inert, block.func.alpha_train,
-              block.func.beta_train]
+    params = [aux.x0, aux.edge_weight, *func_tensors(block.func, inert)]
     has_att = aux.attention is not None
     if has_att:
         params.insert(0, aux.attention)
 
     def func_p(t, y, p):
         att, p = (p[0], p[1:]) if has_att else (None, p)
-        return rhs(FuncParams(p[3], p[4]), FuncAux(att, p[0], p[1]), t, y)
+        return rhs(func_from_tensors(block.func, p[2:]),
+                   FuncAux(att, p[0], p[1]), t, y)
 
     return odeint_adjoint(func_p, x, params, 0.0, cfg.time, opts,
                           SolverOptions.from_config(cfg, adjoint=True))

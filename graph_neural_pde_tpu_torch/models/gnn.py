@@ -7,8 +7,9 @@ port of ``models/gnn.py``).
 * decoder: relu → dropout → m2
 
 The model lives on one explicit ``device``. Its prepared graph is built on
-the host once and moved there; its laplacian aggregation runs through
-``ops.spmm.make_spmm``, the hand-written CUDA kernels on a CUDA device.
+the host once and moved there; its aggregation runs through
+``ops.spmm.make_spmm`` (laplacian) or ``kernels.fused_rhs`` (transformer),
+the hand-written CUDA kernels on a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.models.blocks import (ODEBlock, block_forward,
                                                       check_block,
                                                       prepare_graph)
+from graph_neural_pde_tpu_torch.models.functions import check_function
 from graph_neural_pde_tpu_torch.models.layers import BatchNorm, Linear, dropout
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
@@ -49,7 +51,8 @@ _NOT_PORTED = (
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every config
-    outside the ported slices (the tuned GRAND-l rows but ogbn-arxiv)."""
+    outside the ported slices (the tuned GRAND-l rows but ogbn-arxiv, and
+    GRAND-nl: the transformer function without mix_features)."""
     if cfg.dataset == "ogbn-arxiv":
         raise NotImplementedError(
             "dataset ogbn-arxiv: ROADMAP Queue 1 slice 2 item 13 (arxiv "
@@ -67,10 +70,7 @@ def check_supported(cfg: Config) -> None:
         raise NotImplementedError(
             "bfloat16 state or payload: the port's kernels are float32 "
             "(ROADMAP Queue 3)")
-    if cfg.function in ("transformer", "GAT"):
-        raise NotImplementedError(
-            f"function {cfg.function!r}: ROADMAP Queue 1 slice 3 item 14 "
-            "(transformer and GAT RHS)")
+    check_function(cfg)
     if cfg.optimizer not in OPTIMIZERS:
         raise NotImplementedError(
             f"optimizer {cfg.optimizer!r}: ROADMAP Queue 1 slice 1 item 8 "

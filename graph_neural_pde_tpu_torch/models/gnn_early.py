@@ -11,8 +11,10 @@ from __future__ import annotations
 
 import torch
 
-from graph_neural_pde_tpu_torch.models.blocks import build_aux
-from graph_neural_pde_tpu_torch.models.functions import make_rhs
+from graph_neural_pde_tpu_torch.models.blocks import (build_aux,
+                                                      solved_badly)
+from graph_neural_pde_tpu_torch.models.functions import (make_rhs,
+                                                         rhs_may_poison)
 from graph_neural_pde_tpu_torch.models.gnn import GNNModel
 from graph_neural_pde_tpu_torch.solvers.api import SolverOptions
 from graph_neural_pde_tpu_torch.solvers.early_stop import odeint_early_stop
@@ -31,11 +33,6 @@ class GNNEarlyModel(GNNModel):
         cfg = self.cfg
         x0 = self.encode(x, False)
         aux, _ = build_aux(self.block, cfg, self.graph, x0, training=False)
-        rhs = make_rhs(cfg, self.graph, spmm_fn=self.spmm_fn)
-
-        def func(t, yy):
-            return rhs(self.block.func, aux, t, yy)
-
         train_mask, val_mask, test_mask = masks
 
         def evaluate(z):
@@ -47,7 +44,18 @@ class GNNEarlyModel(GNNModel):
                     accuracy(logits, y, test_mask))
 
         t_ext = cfg.earlystopxT * cfg.time
-        zT, best, stats = odeint_early_stop(
-            func, x0, 0.0, float(t_ext), SolverOptions.from_config(cfg),
-            evaluate, max_test_steps=cfg.max_test_steps)
+
+        def solve(exact_softmax: bool):
+            rhs = make_rhs(cfg, self.graph, spmm_fn=self.spmm_fn,
+                           exact_softmax=exact_softmax)
+            return odeint_early_stop(
+                lambda t, yy: rhs(self.block.func, aux, t, yy), x0, 0.0,
+                float(t_ext), SolverOptions.from_config(cfg), evaluate,
+                max_test_steps=cfg.max_test_steps)
+
+        zT, best, stats = solve(False)
+        # the fused transformer RHS poisons on softmax under/overflow (see
+        # block_forward): re-run once with the exact per-row softmax
+        if rhs_may_poison(cfg) and solved_badly(zT, stats):
+            zT, best, stats = solve(True)
         return self.decode(zT, False), best, stats

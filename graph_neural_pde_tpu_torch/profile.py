@@ -1,13 +1,16 @@
 """Where the time goes in a tuned training run, on the card.
 
     python -m graph_neural_pde_tpu_torch.profile [--dataset Cora] \
-        [--epochs 3] [--seed 0] [--data_dir DIR]
+        [--epochs 3] [--seed 0] [--data_dir DIR] [any Config flag]
 
 Builds the tuned run of ``--dataset`` (``best_params[dataset]`` over the
-data in ``--data_dir``, the SBM stand-in when it holds no raw files), runs
-one warm-up epoch, then profiles ``--epochs`` epochs with ``torch.profiler``.
-Each epoch is the CLI's: a train step, an eval step and the early-stop
-eval. Prints
+data in ``--data_dir``, the SBM stand-in when it holds no raw files; the
+training CLI's Config flags override it, e.g. ``--function transformer
+--block constant --attention_norm_idx 0 --no-square_plus`` for GRAND-nl,
+and ``--dataset ogbn-arxiv-synthetic`` takes ``bench.py``'s GRAND-nl
+architecture), runs one warm-up epoch, then profiles ``--epochs``
+epochs with ``torch.profiler``. Each epoch is the CLI's: a train step, an
+eval step and, for GNNEarly, the early-stop eval. Prints
 
 * the host-clock time of each phase per epoch (each phase ends in a
   device synchronise);
@@ -22,7 +25,6 @@ power limit, which it prints first.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import tempfile
@@ -33,11 +35,11 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from graph_neural_pde_tpu_torch import run
-from graph_neural_pde_tpu_torch.config import best_params
+from graph_neural_pde_tpu_torch import kernels, run
 
 PHASES = ("train_step", "eval_step", "early_stop_eval")
-KERNEL_NAMES = ("csr_spmm", "edge_dot", "segment_norm", "segment_norm_bwd")
+# each wrapper's __global__ function is named <wrapper>_kernel
+KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS)
 
 
 def _busy_us(intervals):
@@ -73,8 +75,9 @@ def profile_epochs(s: run.Setup, epochs: int):
             timed("train_step",
                   lambda: s.trainer.train_step(s.x, s.y, s.masks[0]))
             timed("eval_step", lambda: s.trainer.eval_step(s.x, s.y, s.masks))
-            timed("early_stop_eval",
-                  lambda: s.model.apply_early(s.x, s.y, s.masks))
+            if not s.cfg.no_early:
+                timed("early_stop_eval",
+                      lambda: s.model.apply_early(s.x, s.y, s.masks))
     return phase_s, prof
 
 
@@ -117,13 +120,10 @@ def summarise(phase_s, prof, epochs: int) -> dict:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--dataset", type=str, default="Cora",
-                    choices=sorted(k for k in best_params
-                                   if k != "ogbn-arxiv"))
+    ap = run.build_parser()
+    ap.description = __doc__.split("\n")[0]
     ap.add_argument("--epochs", type=int, default=3)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--data_dir", type=str, default=None)
+    ap.set_defaults(dataset="Cora", use_best_params=True, data_dir=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -131,15 +131,17 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {smi}", flush=True)
-    cfg = best_params[args.dataset].replace(seed=args.seed)
+    cfg = run.config_from_args(args)
     with tempfile.TemporaryDirectory() as tmp:
         s = run.setup(cfg, args.data_dir or tmp, device="cuda")
         s.trainer.train_step(s.x, s.y, s.masks[0])        # warm-up epoch
         s.trainer.eval_step(s.x, s.y, s.masks)
-        s.model.apply_early(s.x, s.y, s.masks)
+        if not cfg.no_early:
+            s.model.apply_early(s.x, s.y, s.masks)
         torch.cuda.synchronize()
         phase_s, prof = profile_epochs(s, args.epochs)
-    summary = dict(dataset=args.dataset,
+    summary = dict(dataset=cfg.dataset, function=cfg.function,
+                   block=cfg.block,
                    **summarise(phase_s, prof, args.epochs))
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15), flush=True)

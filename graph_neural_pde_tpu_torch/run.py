@@ -5,8 +5,14 @@ The port of ``graph_neural_pde_tpu/run.py``: merge the tuned best params
 under the command line, load the dataset, build GNN or GNNEarly and run the
 epoch loop, with the early-stop integrator's best-val tracking after every
 epoch for GNNEarly. Flags are generated from the Config dataclass. Configs
-outside the ported slice raise ``NotImplementedError`` naming their
+outside the ported slices raise ``NotImplementedError`` naming their
 ROADMAP item (``models.gnn.check_supported``).
+
+GRAND-nl (attention recomputed at every evaluation) on a tuned row's data:
+``--dataset Cora --use_best_params --function transformer --block constant
+--attention_norm_idx 0 --no-square_plus``. ``--dataset ogbn-arxiv-synthetic
+--use_best_params`` trains the architecture of the JAX package's
+``bench.py`` on its random graph at ogbn-arxiv's size.
 
 One deliberate deviation: the JAX CLI draws the citation graphs' random
 development split from an unseeded ``np.random.randint``; the port seeds it
@@ -24,7 +30,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from graph_neural_pde_tpu_torch.config import Config, best_params
+from graph_neural_pde_tpu_torch.config import (GRAND_NL_BENCH, Config,
+                                                best_params)
 from graph_neural_pde_tpu_torch.data.datasets import (get_dataset,
                                                       set_train_val_test_split)
 from graph_neural_pde_tpu_torch.models.gnn import GNNModel, check_supported
@@ -58,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args) -> Config:
-    base = best_params.get(args.dataset, Config()) if (
+    tuned = dict(best_params, **{GRAND_NL_BENCH.dataset: GRAND_NL_BENCH})
+    base = tuned.get(args.dataset, Config()) if (
         args.use_best_params and args.dataset) else Config()
     overrides = {f.name: getattr(args, f.name)
                  for f in dataclasses.fields(Config)

@@ -194,7 +194,8 @@ def test_cli_parser_builds_config():
 
 
 @pytest.mark.parametrize("override", [
-    dict(beltrami=True), dict(block="mixed"), dict(function="transformer"),
+    dict(beltrami=True), dict(block="mixed"),
+    dict(function="transformer", mix_features=True),
     dict(function="GAT"), dict(use_labels=True), dict(method="cheby"),
     dict(optimizer="sgd"), dict(rewiring="gdc"),
     dict(mesh_devices=4), dict(rewire_KNN=True),
@@ -237,6 +238,12 @@ def test_port_runs_without_jax():
             logits, stats = m(d.x)
         assert logits.shape == (40, 3) and torch.isfinite(logits).all()
         assert stats["nfe"] > 0
+        nl = cfg.replace(function="transformer", block="constant",
+                         attention_norm_idx=0, square_plus=False)
+        m = GNNEarlyModel(nl, 6, 3, d.graph)
+        with torch.no_grad():
+            logits, stats = m(d.x)
+        assert torch.isfinite(logits).all() and stats["nfe"] > 0
         bad = [k for k, mod in sys.modules.items() if mod is not None and (
             k.split(".")[0] in ("jax", "graph_neural_pde_tpu"))]
         assert not bad, bad
