@@ -4,7 +4,10 @@ The JAX package keeps parameters as a nested dict pytree, and the batch
 norm's running statistics in a second ``state`` pytree; the port's modules
 mirror its names (``m1``, ``m2``, ``block.func``, ``block.att`` with
 ``Q``/``K``/``V``/``Wout`` and the exp_kernel's ``output_var`` /
-``lengthscale``, ``bn_in`` with ``scale``/``bias``) and keep its
+``lengthscale``, the GAT function's ``block.func.att`` with ``W``/``Wout``/
+``a``, the mixed block's ``block.gamma``, ``bn_in`` with ``scale``/``bias``;
+a block without an attention layer of its own simply has no ``block.att``
+in either package) and keep its
 ``[in, out]`` weight orientation, so a leaf's dotted path is its
 ``state_dict`` key and no array is transposed. The batch norm's running
 ``mean``, ``var`` and ``count`` are buffers of ``bn_in`` in the port. The

@@ -88,7 +88,10 @@ __global__ void segment_norm_kernel(const int* __restrict__ rowptr,
       float mx = -INFINITY;
       for (int e = start + lane; e < end; e += kWarp)
         mx = fmaxf(mx, s[member(perm, e) * heads + h]);
-      m = warp_max(mx);                          // -inf only for an empty row
+      m = warp_max(mx);
+      // an empty row, or one whose every score is -inf (all its edges
+      // masked out): shift by 0, so that each exp is 0 and not NaN
+      if (m == -INFINITY) m = 0.0f;
     }
     float acc = 0.0f;
     for (int e = start + lane; e < end; e += kWarp) {

@@ -10,6 +10,13 @@ from graph_neural_pde_tpu_torch.kernels.csr_spmm import (  # noqa: F401
     csr_spmm,
     csr_spmm_plain,
 )
+from graph_neural_pde_tpu_torch.kernels.dual_scatter import (  # noqa: F401
+    dual_gather,
+    dual_gather_plain,
+    dual_scatter,
+    dual_scatter_add,
+    dual_scatter_plain,
+)
 from graph_neural_pde_tpu_torch.kernels.edge_dot import (  # noqa: F401
     edge_dot,
     edge_dot_plain,
@@ -35,4 +42,5 @@ from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
 )
 
 KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
-           fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym)
+           fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
+           dual_scatter, dual_gather)

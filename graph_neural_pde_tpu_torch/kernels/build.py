@@ -59,6 +59,11 @@ _ENTRY_POINTS = {
     # ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
     # partials, n_rows, dim, att, heads, flags, reduce_blocks, stream
     "gnpde_fused_rhs_bwd_sym": [_PTR] * 21 + [_INT] * 6 + [_PTR],
+    # rowptr, col, u, x, num, den, n_rows, dim, heads, stream
+    "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    # rowptr, col, rev, u, x, ct_num, ct_den, du, dx, n_rows, dim, heads,
+    # stream
+    "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 3 + [_PTR],
 }
 
 _lib = None

@@ -1,0 +1,199 @@
+"""K10 ``dual_scatter`` and K11 ``dual_gather``: the aggregation of the
+composed attention right-hand side and its gradient.
+
+With ``u`` [E, H] unnormalised positive attention (0 on padding and on
+masked edges) over a row-sorted graph and ``x`` [N, D] the node state:
+
+* K10: ``num[n, h*D + d] = sum_{e in row n} u[e, h] x[col[e], d]`` and
+  ``den[n, h] = sum_{e in row n} u[e, h]``: per-head numerators and
+  denominators of the row-normalised aggregation in one pass.
+* K11: given the cotangents ``ct_num`` [N, H*D] and ``ct_den`` [N, H],
+  ``du[e, h] = ct_num[row[e], h, :] . x[col[e], :] + ct_den[row[e], h]`` and
+  ``dx[c, :] = sum_{e: col[e] = c} sum_h u[e, h] ct_num[row[e], h, :]``. On
+  a symmetric edge multiset ``dx`` is a row walk through the reverse-edge
+  map ``rev``; a directed graph raises.
+
+K10 replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
+``_scatter2_kernel`` / ``_stripe_scatter2_call``, K11 its gradient
+``_gather2_kernel`` / ``_stripe_gather2_call`` with the products XLA forms
+around them (see the source note in ``csrc/dual_scatter.cu``). On a CUDA
+tensor a wrapper launches its kernel or raises; on a CPU tensor it runs the
+plain PyTorch version beside it, which defines the semantics.
+:func:`dual_scatter_add` is the differentiable op the models call.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from graph_neural_pde_tpu_torch.kernels import build
+
+MAX_DIM, MAX_HEADS = 256, 32
+MAX_SHARED_BYTES = 227 * 1024
+GATHER_WARPS_PER_BLOCK = 4
+
+
+def _edges(rowptr, row, col):
+    n_valid = int(rowptr[-1])
+    return n_valid, row[:n_valid].long(), col[:n_valid].long()
+
+
+def dual_scatter_plain(rowptr: torch.Tensor, row: torch.Tensor,
+                       col: torch.Tensor, u: torch.Tensor, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K10: gather, broadcast product and ``index_add``
+    over the valid prefix ``[0, rowptr[-1])``."""
+    nv, r, c = _edges(rowptr, row, col)
+    n, (h, d) = rowptr.shape[0] - 1, (u.shape[1], x.shape[1])
+    vals = u[:nv, :, None] * x[c][:, None, :]                  # [E, H, D]
+    num = torch.zeros((n, h, d), dtype=x.dtype, device=x.device).index_add(
+        0, r, vals)
+    den = torch.zeros((n, h), dtype=x.dtype, device=x.device).index_add(
+        0, r, u[:nv])
+    return num.reshape(n, h * d), den
+
+
+def dual_gather_plain(rowptr: torch.Tensor, row: torch.Tensor,
+                      col: torch.Tensor, u: torch.Tensor, x: torch.Tensor,
+                      ct_num: torch.Tensor, ct_den: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K11: gathers, two contractions and an ``index_add``
+    over columns. Returns (du [E_pad, H], dx [N, D]); ``du`` is 0 on the
+    padding slots."""
+    nv, r, c = _edges(rowptr, row, col)
+    h, d = u.shape[1], x.shape[1]
+    cte = ct_num[r].reshape(nv, h, d)
+    du = torch.zeros_like(u)
+    du[:nv] = torch.einsum("ehd,ed->eh", cte, x[c]) + ct_den[r]
+    dx = torch.zeros_like(x).index_add(
+        0, c, torch.einsum("eh,ehd->ed", u[:nv], cte))
+    return du, dx
+
+
+def _check(name, rowptr, row, col, u, x, extra=(), rev=None):
+    """Device, type, shape and contiguity of what the kernels read.
+    ``extra`` is (name, tensor, shape) for the call's own float operands."""
+    dev = x.device
+    if x.dim() != 2 or u.dim() != 2:
+        raise ValueError(f"{name}: x must be [N, D] and u [E, H]")
+    n, d = x.shape
+    h = u.shape[1]
+    if not (1 <= h <= MAX_HEADS and 1 <= d <= MAX_DIM):
+        raise ValueError(f"{name}: state width {d} and heads {h} outside "
+                         f"the kernel's range (width <= {MAX_DIM}, heads "
+                         f"<= {MAX_HEADS})")
+    ints = [("rowptr", rowptr, (n + 1,)), ("row", row, (u.shape[0],)),
+            ("col", col, (u.shape[0],))]
+    if rev is not None:
+        ints.append(("rev", rev, (u.shape[0],)))
+    floats = [("u", u, None), ("x", x, None), *extra]
+    for t_name, t, shape in (*ints, *floats):
+        if t.device != dev:
+            raise ValueError(f"{name}: {t_name} on {t.device}, x on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {t_name} must be contiguous")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {t_name} is {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+    for t_name, t, _ in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {t_name} must be int32")
+    # the kernels are float32; the plain versions also take float64
+    allowed = ((torch.float32,) if dev.type != "cpu"
+               else (torch.float32, torch.float64))
+    for t_name, t, _ in floats:
+        if t.dtype != x.dtype or t.dtype not in allowed:
+            raise TypeError(f"{name}: {t_name} is {t.dtype}; every float "
+                            f"operand must be float32")
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"{name}: no kernel for {dev}")
+
+
+def dual_scatter(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                 u: torch.Tensor, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10: ``(num [N, H*D], den [N, H])`` over a row-sorted graph whose
+    valid edges are the prefix ``[0, rowptr[-1])``; ``u`` is [E_pad, H].
+    ``row`` is only read by the plain version. Not differentiable by itself
+    (see :func:`dual_scatter_add`)."""
+    _check("dual_scatter", rowptr, row, col, u, x)
+    if x.device.type == "cpu":
+        return dual_scatter_plain(rowptr, row, col, u, x)
+    n, d = x.shape
+    h = u.shape[1]
+    num = torch.empty((n, h * d), dtype=torch.float32, device=x.device)
+    den = torch.empty((n, h), dtype=torch.float32, device=x.device)
+    build.launch("dual_scatter", x.device, rowptr.data_ptr(), col.data_ptr(),
+                 u.data_ptr(), x.data_ptr(), num.data_ptr(), den.data_ptr(),
+                 n, d, h)
+    dual_scatter.launches += 1
+    return num, den
+
+
+def dual_gather(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                rev: torch.Tensor, u: torch.Tensor, x: torch.Tensor,
+                ct_num: torch.Tensor, ct_den: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11: ``(du [E_pad, H], dx [N, D])``, the gradient of K10 given its
+    outputs' cotangents, over a SYMMETRIC edge multiset with reverse-edge
+    map ``rev`` (``Graph.rev``). ``row`` is only read by the plain
+    version."""
+    n, d = x.shape
+    h = u.shape[1]
+    _check("dual_gather", rowptr, row, col, u, x,
+           (("ct_num", ct_num, (n, h * d)), ("ct_den", ct_den, (n, h))), rev)
+    if x.device.type == "cpu":
+        return dual_gather_plain(rowptr, row, col, u, x, ct_num, ct_den)
+    if 4 * GATHER_WARPS_PER_BLOCK * h * d > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"dual_gather: heads {h} x state width {d} needs "
+            f"{4 * GATHER_WARPS_PER_BLOCK * h * d} bytes of shared memory, "
+            f"more than a block's {MAX_SHARED_BYTES}")
+    du = torch.zeros_like(u)                   # padding slots stay 0
+    dx = torch.empty_like(x)
+    build.launch("dual_gather", x.device, rowptr.data_ptr(), col.data_ptr(),
+                 rev.data_ptr(), u.data_ptr(), x.data_ptr(),
+                 ct_num.data_ptr(), ct_den.data_ptr(), du.data_ptr(),
+                 dx.data_ptr(), n, d, h)
+    dual_gather.launches += 1
+    return du, dx
+
+
+dual_scatter.launches = 0
+dual_gather.launches = 0
+
+
+class _DualScatter(torch.autograd.Function):
+    """(num, den) = K10 with K11 as its backward. Residuals: u and x."""
+
+    @staticmethod
+    def forward(ctx, u, x, rowptr, row, col, rev):
+        ctx.save_for_backward(u, x, rowptr, row, col, rev)
+        return dual_scatter(rowptr, row, col, u, x)
+
+    @staticmethod
+    def backward(ctx, ct_num, ct_den):
+        u, x, rowptr, row, col, rev = ctx.saved_tensors
+        du, dx = dual_gather(rowptr, row, col, rev, u, x,
+                             ct_num.contiguous(), ct_den.contiguous())
+        return du, dx, None, None, None, None
+
+
+def dual_scatter_add(g, u: torch.Tensor, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(num [N, H*D], den [N, H])`` over the prepared graph ``g``,
+    differentiable in ``u`` and ``x`` through K11 (the JAX package's
+    ``stripe_scatter_add2`` with the x[col] gather and the outer product
+    folded in)."""
+    if not g.rows_sorted or g.rowptr is None:
+        raise ValueError("dual_scatter_add needs a row-sorted graph "
+                         "(sort_by_row)")
+    if g.rev is None:
+        raise NotImplementedError(
+            "dual_scatter_add: x's gradient on a directed (non-symmetric) "
+            "edge multiset needs the column-side transpose kernel, ROADMAP "
+            "Queue 2 K5 (make_col_gather)")
+    return _DualScatter.apply(u.contiguous(), x.contiguous(), g.rowptr,
+                              g.row, g.col, g.rev)

@@ -10,14 +10,16 @@ exp_kernel), ``apply_transformer_attention`` (per-head normalised attention
 [E, H]) and the composition branch of ``frozen_mean_attention`` — its head
 mean, which the attention block freezes once per forward. Normalisation is
 over rows (``attention_norm_idx=0``) or columns (``=1``), by softmax or
-squareplus, on the K3/K4 kernels (``ops.scatter``). The Beltrami
-split-space scores and GAT attention raise ``NotImplementedError`` naming
-their ROADMAP item.
+squareplus, on the K3/K4 kernels (``ops.scatter``). ``GATAttention`` and
+``apply_gat_attention`` are the GAT function's layer (W, Wout, a; LeakyReLU
+scores, always softmax). The Beltrami split-space scores raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -79,8 +81,10 @@ def transformer_scores(att: TransformerAttention, cfg: Config,
     nodes, gathered per edge (q[row], k[col]) and reduced per head."""
     h = cfg.heads
     d_k = cfg.attention_dim // h
-    q = att.Q(x)
-    k = att.K(x)
+    # by the leaves: ``att`` may be a plain namespace of tensors (the
+    # continuous adjoint's ``FuncParams``)
+    q = x @ att.Q.w + att.Q.b
+    k = x @ att.K.w + att.K.b
     src = q[g.row.long()].reshape(-1, h, d_k)
     dst = k[g.col.long()].reshape(-1, h, d_k)
     prods = _scores(att, cfg, src, dst)
@@ -109,3 +113,55 @@ def frozen_mean_attention(att: TransformerAttention, cfg: Config,
     the attention block freezes into the laplacian RHS."""
     w = apply_transformer_attention(att, cfg, x, g, edge_weight)
     return w.sum(dim=1) / w.shape[1]
+
+
+class GATAttention(nn.Module):
+    """Parameters of SpGraphAttentionLayer: W [in, att_dim], Wout
+    [att_dim, in] and a [2 d_k, 1], each normal with the reference's
+    ``xavier_normal_(gain=1.414)`` deviation ``1.414 sqrt(2 / (fan_in +
+    fan_out))``, drawn from ``generator``."""
+
+    def __init__(self, cfg: Config, in_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        h, att_dim = cfg.heads, cfg.attention_dim
+        if att_dim % h:
+            raise ValueError(f"Number of heads ({h}) must be a factor of the "
+                             f"dimension size ({att_dim})")
+        d_k = att_dim // h
+
+        def normal(rows, cols):
+            std = 1.414 * math.sqrt(2.0 / (rows + cols))
+            return nn.Parameter(std * torch.randn(rows, cols,
+                                                  generator=generator))
+
+        self.W = normal(in_dim, att_dim)
+        self.Wout = normal(att_dim, in_dim)
+        self.a = normal(2 * d_k, 1)
+
+
+def gat_scores(att, cfg: Config, x: torch.Tensor, g: Graph
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(LeakyReLU scores [E, H], wx [N, att_dim]). The GAT score
+    ``a . [Wx_row | Wx_col]`` is separable: ``s_src[row] + s_dst[col]``
+    with both terms projected on the nodes, so each edge gathers two [H]
+    rows (the JAX package's ``_gat_rhs_fused``)."""
+    h = cfg.heads
+    d_k = cfg.attention_dim // h
+    wx = x @ att.W                                          # [N, att_dim]
+    hh = wx.reshape(-1, h, d_k)
+    a_vec = att.a[:, 0]
+    s_src = torch.einsum("nhd,d->nh", hh, a_vec[:d_k])
+    s_dst = torch.einsum("nhd,d->nh", hh, a_vec[d_k:])
+    scores = torch.nn.functional.leaky_relu(
+        s_src[g.row.long()] + s_dst[g.col.long()], cfg.leaky_relu_slope)
+    return scores, wx
+
+
+def apply_gat_attention(att, cfg: Config, x: torch.Tensor, g: Graph
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(attention [E, H], wx [N, att_dim]): GAT scores, LeakyReLU and the
+    per-segment softmax (reference function_GAT_attention.py:105-115; GAT
+    never takes squareplus)."""
+    scores, wx = gat_scores(att, cfg, x, g)
+    return segment_softmax(scores.float(), g, cfg.attention_norm_idx), wx

@@ -1,19 +1,24 @@
 """ODE blocks: an ODE function, its graph preparation and its solve
-(PyTorch port of the ``constant``, ``attention`` and ``hard_attention``
-blocks of ``models/blocks.py``, with its poison-and-re-solve discipline
-for the fused transformer function).
+(PyTorch port of the ``constant``, ``attention``, ``mixed`` and
+``hard_attention`` blocks of ``models/blocks.py``, with its
+poison-and-re-solve discipline for the fused attention functions).
 
 * constant       — fixed normalised adjacency weights;
 * attention      — multihead attention computed once per forward at t=0 and
   frozen into the laplacian RHS as its head mean (GRAND-l);
+* mixed          — a learnable convex combination ``mean_h(att)·(1 − σ(γ))
+  + weight·σ(γ)`` of that frozen attention and the normalised adjacency;
 * hard_attention — in training, the head-mean attention computed without
   gradient, its edges below the ``1 − att_samp_pct`` quantile dropped and
-  the kept weights renormalised per node; at eval, the full head mean.
+  the kept weights renormalised per node; at eval, the full head mean. Over
+  a transformer or GAT function the block has no attention layer of its
+  own: the function's layer scores the edges, and the solve recomputes its
+  attention on the graph re-masked to the kept edges.
 
 The solve takes ``cfg.method``; in training with ``cfg.adjoint`` its
 gradient is the continuous adjoint with the ``adjoint_method`` backward.
-The mixed and rewire_attention blocks raise ``NotImplementedError`` naming
-their ROADMAP item.
+The rewire_attention block raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.models.attention import (
-    TransformerAttention, apply_transformer_attention, frozen_mean_attention)
+    TransformerAttention, apply_gat_attention, apply_transformer_attention,
+    frozen_mean_attention)
 from graph_neural_pde_tpu_torch.models.functions import (FuncAux, ODEFunc,
                                                          func_from_tensors,
                                                          func_tensors,
@@ -37,13 +43,10 @@ from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
 from graph_neural_pde_tpu_torch.solvers.api import (SolverOptions, odeint,
                                                     odeint_adjoint)
 
-BLOCK_NAMES = ("constant", "attention", "hard_attention")
+BLOCK_NAMES = ("constant", "attention", "mixed", "hard_attention")
 
 
 def check_block(cfg: Config) -> None:
-    if cfg.block == "mixed":
-        raise NotImplementedError(
-            "block 'mixed': ROADMAP Queue 1 slice 2 item 11")
     if cfg.block == "rewire_attention":
         raise NotImplementedError(
             "block 'rewire_attention': ROADMAP Queue 1 slice 4 item 16")
@@ -66,15 +69,22 @@ def prepare_graph(cfg: Config, g: Graph) -> Graph:
 
 class ODEBlock(nn.Module):
     """Learnable block parameters: the ODE function's, plus the block's
-    attention layer for the attention and hard_attention blocks."""
+    attention layer where the reference has one (the attention and mixed
+    blocks, and hard_attention over the laplacian function) and the mixed
+    block's ``gamma`` (one element, 0: an even mix)."""
 
     def __init__(self, cfg: Config, in_dim: int, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_block(cfg)
         self.func = ODEFunc(cfg, in_dim, generator=generator)
-        if cfg.block in ("attention", "hard_attention"):
+        own_attention = cfg.block in ("attention", "mixed") or (
+            cfg.block == "hard_attention"
+            and cfg.function not in ("GAT", "transformer"))
+        if own_attention:
             self.att = TransformerAttention(cfg, in_dim, generator=generator)
+        if cfg.block == "mixed":
+            self.gamma = nn.Parameter(torch.zeros(1))
 
 
 def masked_quantile(values: torch.Tensor, mask: torch.Tensor,
@@ -97,6 +107,20 @@ def masked_quantile(values: torch.Tensor, mask: torch.Tensor,
     return v_lo + frac * (v_hi - v_lo)
 
 
+def _block_attention(block: ODEBlock, cfg: Config, g: Graph,
+                     x: torch.Tensor) -> torch.Tensor:
+    """The per-head attention [E, H] a block computes at t=0: from its own
+    layer, or (hard_attention over a GAT or transformer function) from the
+    function's (block_transformer_hard_attention.py:36-41)."""
+    if hasattr(block, "att"):
+        return apply_transformer_attention(block.att, cfg, x, g,
+                                           edge_weight=g.weight)
+    if cfg.function == "GAT":
+        return apply_gat_attention(block.func.att, cfg, x, g)[0]
+    return apply_transformer_attention(block.func.att, cfg, x, g,
+                                       edge_weight=g.weight)
+
+
 def build_aux(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
               training: bool) -> Tuple[FuncAux, Optional[torch.Tensor]]:
     """Per-forward constants of the solve: the frozen attention and the
@@ -110,12 +134,16 @@ def build_aux(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
         att = frozen_mean_attention(block.att, cfg, x, g,
                                     edge_weight=g.weight)
         return FuncAux(attention=att, x0=x0, edge_weight=g.weight), None
+    if cfg.block == "mixed":
+        att = _block_attention(block, cfg, g, x)
+        gamma = torch.sigmoid(block.gamma[0])
+        mixed = torch.mean(att, dim=1) * (1.0 - gamma) + g.weight * gamma
+        return FuncAux(attention=mixed, x0=x0, edge_weight=g.weight), None
     # hard_attention: the reference computes the attention and the
     # subsampled weights under no_grad
     # (block_transformer_hard_attention.py:52-65)
     with torch.no_grad():
-        mean_att = apply_transformer_attention(
-            block.att, cfg, x, g, edge_weight=g.weight).mean(dim=1)
+        mean_att = _block_attention(block, cfg, g, x).mean(dim=1)
         if not training:
             return FuncAux(attention=mean_att, x0=x0,
                            edge_weight=g.weight), None
@@ -155,13 +183,15 @@ def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
     ``bwd_nfe`` to stats), otherwise through the solver's steps (the
     discrete adjoint).
 
-    The fused transformer RHS runs its softmax unshifted and poisons its
-    output with NaN when an exp left float32's range
+    The fused attention RHS runs its softmax with one global shift (none
+    in the one-kernel path) and poisons its output with NaN when an exp
+    left float32's range
     (``functions.rhs_may_poison``). That is detected once, after the solve,
     and the solve is then repeated with the exact per-row softmax."""
     aux, keep = build_aux(block, cfg, g, x, training)
     if keep is not None:
         spmm_fn = _masked_spmm(spmm_fn or make_spmm(g), keep)
+        g = g.with_mask(keep)
 
     def solve(exact_softmax: bool):
         rhs = make_rhs(cfg, g, spmm_fn=spmm_fn, exact_softmax=exact_softmax,
@@ -187,10 +217,10 @@ def _solve(block: ODEBlock, cfg: Config, aux: FuncAux, rhs: Callable,
     # The continuous adjoint integrates a cotangent for every parameter
     # tensor of the RHS, in the JAX package's leaf order: attention, x0,
     # edge weights, then the function's parameters (its scalars and, for
-    # the transformer function, its attention layer). The JAX parameters
-    # hold one more scalar, an inert probe that carries the backward NFE
-    # out of its solve; its cotangent is 0 but counts in the backward error
-    # norm, so a zero scalar stands in for it.
+    # the transformer and GAT functions, its attention layer). The JAX
+    # parameters hold one more scalar, an inert probe that carries the
+    # backward NFE out of its solve; its cotangent is 0 but counts in the
+    # backward error norm, so a zero scalar stands in for it.
     inert = torch.zeros((), device=x.device)
     params = [aux.x0, aux.edge_weight, *func_tensors(block.func, inert)]
     has_att = aux.attention is not None

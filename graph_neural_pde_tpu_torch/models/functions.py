@@ -1,13 +1,12 @@
-"""ODE right-hand sides dx/dt = f(x(t), G) (PyTorch port of the laplacian
-and transformer functions of ``models/functions.py``).
+"""ODE right-hand sides dx/dt = f(x(t), G) (PyTorch port of the
+laplacian, transformer and GAT functions of ``models/functions.py``).
 
 ``make_rhs`` returns ``rhs(func, aux, t, x)`` where ``func`` holds the
 learnable parameters and ``aux`` the per-solve constants. Ported: the
-laplacian function (every tuned GRAND-l config) and the transformer
-function (GRAND-nl: attention recomputed at every evaluation) without
-``mix_features``. The GAT function, and squareplus or reweighted attention
-inside the fused transformer RHS, raise ``NotImplementedError`` naming
-their ROADMAP item.
+laplacian function (every tuned GRAND-l config), the transformer function
+(GRAND-nl: attention recomputed at every evaluation; softmax or squareplus,
+optionally reweighted by the adjacency, with or without ``mix_features``)
+and the GAT function.
 """
 
 from __future__ import annotations
@@ -19,15 +18,19 @@ import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
+from graph_neural_pde_tpu_torch.kernels.dual_scatter import dual_scatter_add
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (den_guard,
                                                           fused_rhs_ax,
                                                           fused_rhs_f,
                                                           fused_rowmax,
                                                           make_fused_ax_sym)
 from graph_neural_pde_tpu_torch.models.attention import (
-    TransformerAttention, apply_transformer_attention)
+    GATAttention, TransformerAttention, apply_gat_attention,
+    apply_transformer_attention, gat_scores, transformer_scores)
 from graph_neural_pde_tpu_torch.ops.graph import Graph
-from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
+from graph_neural_pde_tpu_torch.ops.scatter import global_max, segment_softmax
+from graph_neural_pde_tpu_torch.ops.spmm import (make_spmm, spmm_mean_heads,
+                                                 spmm_multihead)
 
 
 class FuncAux(NamedTuple):
@@ -49,8 +52,9 @@ class FuncAux(NamedTuple):
 class FuncParams(NamedTuple):
     """An ODE function's parameters as plain tensors, where a solver passes
     them explicitly (the continuous adjoint); the RHS reads them from this
-    or from an ``ODEFunc`` alike. ``att`` mirrors ``ODEFunc.att`` (``Q.w``,
-    ``K.b``, ``output_var`` ...) for the transformer function."""
+    or from an ``ODEFunc`` alike. ``att`` mirrors ``ODEFunc.att``: ``Q.w``,
+    ``K.b``, ``output_var`` ... for the transformer function, ``W``,
+    ``Wout``, ``a`` for the GAT function."""
 
     alpha_train: torch.Tensor
     beta_train: torch.Tensor
@@ -60,8 +64,8 @@ class FuncParams(NamedTuple):
 class ODEFunc(nn.Module):
     """alpha_train / beta_train scalars, initialised to 0 (reference
     base_classes.py:87-88), plus the attention layer ``att`` of the
-    transformer function, which recomputes attention at every evaluation
-    (the JAX package's ``init_func_params``)."""
+    transformer and GAT functions, which recompute attention at every
+    evaluation (the JAX package's ``init_func_params``)."""
 
     def __init__(self, cfg: Config, in_dim: int = 0, *,
                  generator: Optional[torch.Generator] = None):
@@ -71,12 +75,19 @@ class ODEFunc(nn.Module):
         self.beta_train = nn.Parameter(torch.zeros(()))
         if cfg.function == "transformer":
             self.att = TransformerAttention(cfg, in_dim, generator=generator)
+        elif cfg.function == "GAT":
+            self.att = GATAttention(cfg, in_dim, generator=generator)
 
 
-# the attention layer's tensors in the JAX package's leaf order (a dict
+# the GAT layer's leaves, and the transformer attention layer's tensors in the JAX package's leaf order (a dict
 # pytree flattens by sorted key), without the exp_kernel scalars
+_GAT_LEAVES = ("W", "Wout", "a")
 _ATT_LEAVES = tuple((m, leaf) for m in ("K", "Q", "V", "Wout")
                     for leaf in ("b", "w"))
+
+
+def _is_gat(att) -> bool:
+    return hasattr(att, "a")
 
 
 def func_tensors(func: ODEFunc, inert: torch.Tensor) -> List[torch.Tensor]:
@@ -85,7 +96,9 @@ def func_tensors(func: ODEFunc, inert: torch.Tensor) -> List[torch.Tensor]:
     attention layer's leaves, beta. :func:`func_from_tensors` inverts it."""
     out = [inert, func.alpha_train]
     att = getattr(func, "att", None)
-    if att is not None:
+    if att is not None and _is_gat(att):
+        out += [getattr(att, leaf) for leaf in _GAT_LEAVES]
+    elif att is not None:
         out += [getattr(getattr(att, m), leaf) for m, leaf in _ATT_LEAVES]
         if hasattr(att, "lengthscale"):
             out += [att.lengthscale, att.output_var]
@@ -96,7 +109,9 @@ def func_from_tensors(func: ODEFunc, tensors) -> FuncParams:
     """The ``FuncParams`` over ``tensors``, laid out as :func:`func_tensors`
     lays out ``func``."""
     att = None
-    if getattr(func, "att", None) is not None:
+    if getattr(func, "att", None) is not None and _is_gat(func.att):
+        att = SimpleNamespace(**dict(zip(_GAT_LEAVES, tensors[2:-1])))
+    elif getattr(func, "att", None) is not None:
         rest = list(tensors[2:-1])
         att = SimpleNamespace(**{m: SimpleNamespace() for m in
                                  ("K", "Q", "V", "Wout")})
@@ -118,53 +133,61 @@ def _source(cfg: Config, func, f: torch.Tensor, aux: FuncAux):
     return f
 
 
-def fused_transformer(cfg: Config) -> bool:
-    """True when the transformer RHS folds the row softmax into the
-    aggregation (K6-K9) rather than composing attention and SpMM."""
-    return (cfg.function == "transformer" and cfg.fused_attention_agg
-            and not cfg.mix_features and cfg.attention_norm_idx == 0)
+def fused_attention(cfg: Config) -> bool:
+    """True when the transformer or GAT RHS folds the row normalisation
+    into the aggregation (K6-K9 for the transformer's plain softmax,
+    K10/K11 otherwise) rather than composing attention and SpMM."""
+    return (cfg.function in ("transformer", "GAT")
+            and cfg.fused_attention_agg and not cfg.mix_features
+            and cfg.attention_norm_idx == 0)
 
 
 def check_function(cfg: Config) -> None:
-    """Raise for the ODE functions and attention variants still to port."""
-    if cfg.function == "GAT":
-        raise NotImplementedError(
-            "function 'GAT': ROADMAP Queue 1 slice 3 item 14 (GAT RHS, TPU "
-            "kernels P4/P5)")
-    if cfg.function not in ("laplacian", "transformer"):
+    if cfg.function not in ("laplacian", "transformer", "GAT"):
         raise ValueError(f"unknown function '{cfg.function}'")
-    if cfg.function != "transformer":
-        return
-    if cfg.mix_features:
-        raise NotImplementedError(
-            "mix_features: ROADMAP Queue 1 slice 3 item 14 (spmm_multihead)")
-    if cfg.block == "hard_attention":
-        raise NotImplementedError(
-            "hard_attention block over the transformer function: ROADMAP "
-            "Queue 1 slice 3 item 14")
-    if fused_transformer(cfg):
-        for field in ("square_plus", "reweight_attention"):
-            if getattr(cfg, field):
-                raise NotImplementedError(
-                    f"{field} with the fused transformer RHS: ROADMAP Queue "
-                    "1 slice 3 item 14 (the dual scatter/gather, TPU "
-                    "kernels P4/P5); fused_attention_agg=False composes "
-                    "attention and SpMM instead")
+
+
+def _mega_ok(cfg: Config, g: Graph, exact_softmax: bool) -> bool:
+    """True when the fused transformer RHS runs as one kernel (K6-K9): the
+    plain softmax over the whole graph. Squareplus differentiates through
+    its global max, reweighting multiplies the scores by a per-edge weight
+    and a re-masked graph drops edges inside the rows, none of which those
+    kernels take; the exact mode's row-max shifts exist for scaled_dot
+    only (the other families are bounded). All of these compose the scores
+    with torch ops and aggregate on K10/K11."""
+    return not (cfg.square_plus or cfg.reweight_attention or g.masked
+                or (exact_softmax and cfg.attention_type != "scaled_dot"))
 
 
 def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
                            g: Graph, exact_softmax: bool, eval_fold: bool):
-    """GRAND-nl RHS with the row softmax folded into the aggregation: one
-    K6 launch per evaluation, K9 (symmetric) or K8 for its gradient.
+    """GRAND-nl RHS with the row normalisation folded into the aggregation.
 
-    Softmax is shift-invariant, so exp runs unshifted (``gmax = 0``), exact
-    while the scores stay within float32's exp range. Both failure modes, a
-    whole row underflowing to 0 or a score overflowing to inf, poison the
-    output with NaN; ``block_forward`` then re-solves once with
-    ``exact_softmax``, which shifts every edge by its row's true score max
-    (K7) so that no exp can leave the range."""
+    The plain softmax (``_mega_ok``) is one K6 launch per evaluation, K9
+    (symmetric) or K8 for its gradient. Softmax is shift-invariant, so exp
+    runs unshifted (``gmax = 0``), exact while the scores stay within
+    float32's exp range. Both failure modes, a whole row underflowing to 0
+    or a score overflowing to inf, poison the output with NaN;
+    ``block_forward`` then re-solves once with ``exact_softmax``, which
+    shifts every edge by its row's true score max (K7) so that no exp can
+    leave the range.
+
+    Every other variant composes: per-head scores from the gathered q[row]
+    and k[col], the global max ``gmax`` (differentiated through, as the
+    reference's squareplus is), ``u`` by squareplus or exp, then numerators
+    and denominators in one pass (K10, gradient K11)."""
     att = func.att
     h, score = cfg.heads, cfg.attention_type
+    if not _mega_ok(cfg, g, exact_softmax):
+        prods = transformer_scores(att, cfg, x, g, aux.edge_weight).float()
+        if cfg.square_plus:
+            sm = prods - global_max(prods, g.mask)
+            u = (sm + torch.sqrt(sm * sm + 4.0)) / 2.0
+            u = torch.where(g.mask[:, None], u, torch.zeros_like(u))
+            ax = _fused_normalized_aggregate(cfg, g, u, x)
+        else:
+            ax = _softmax_aggregate_guarded(cfg, g, prods, x, exact_softmax)
+        return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
     sp = (att.output_var, att.lengthscale) if score == "exp_kernel" else ()
     qw, qb, kw, kb = att.Q.w, att.Q.b, att.K.w, att.K.b
     if eval_fold and not exact_softmax:
@@ -191,12 +214,64 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     return _source(cfg, func, f, aux)
 
 
+def _softmax_aggregate_guarded(cfg: Config, g: Graph, prods: torch.Tensor,
+                               x: torch.Tensor, exact_softmax: bool):
+    """Softmax aggregation of raw scores ``prods`` [E, H], exact up to a
+    NaN-poisoned underflow escape.
+
+    The fast path substitutes ONE global max for the per-row softmax maxima:
+    the same result unless an exp underflows to 0 on a valid edge (its score
+    ~88 below the global max), which poisons the whole output with NaN, by
+    a device ``any`` and a select, never a host sync; ``block_forward``
+    detects it after the solve and re-solves with ``exact_softmax``, the
+    per-row softmax (K3) fed to the same aggregate."""
+    m = g.mask[:, None]
+    if exact_softmax:
+        att = segment_softmax(prods, g, 0)
+        att = torch.where(m, att, torch.zeros_like(att))
+        return _fused_normalized_aggregate(cfg, g, att, x)
+    u = torch.exp(prods - global_max(prods, g.mask))
+    u = torch.where(m, u, torch.zeros_like(u))
+    underflowed = torch.any((u == 0.0) & m)
+    ax = _fused_normalized_aggregate(cfg, g, u, x)
+    return torch.where(underflowed, torch.full_like(ax, torch.nan), ax)
+
+
+def _fused_normalized_aggregate(cfg: Config, g: Graph, u: torch.Tensor,
+                                x: torch.Tensor) -> torch.Tensor:
+    """Shared tail of the composed paths: per-head numerators and
+    denominators from one aggregation pass (K10), then the mean over heads
+    of ``num_h / (den_h + 1e-16)``. ``u`` [E, H] is unnormalised, positive
+    and 0 on masked and padding slots."""
+    h, d = cfg.heads, x.shape[1]
+    num, den = dual_scatter_add(g, u, x)
+    recip = 1.0 / (den + 1e-16)
+    out = num[:, :d] * recip[:, 0:1]
+    for hh in range(1, h):
+        out = out + num[:, hh * d:(hh + 1) * d] * recip[:, hh:hh + 1]
+    return out * (1.0 / h)
+
+
+def _gat_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
+                   g: Graph, exact_softmax: bool):
+    """GAT RHS with separable scores (``models.attention.gat_scores``) and
+    the softmax folded into the aggregation (K10/K11). GAT never takes
+    squareplus: the exp path and its poison guard run whatever
+    ``cfg.square_plus`` says."""
+    scores, _ = gat_scores(func.att, cfg, x, g)
+    ax = _softmax_aggregate_guarded(cfg, g, scores.float(), x, exact_softmax)
+    return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
+
+
 def rhs_may_poison(cfg: Config) -> bool:
     """True when make_rhs's default path can NaN-poison its output on
     softmax under- or overflow, so that the caller must re-solve with
     ``make_rhs(..., exact_softmax=True)`` if the solved state is not
-    finite."""
-    return fused_transformer(cfg) and not cfg.square_plus
+    finite. The fused GAT RHS always runs exp, so it can poison with
+    ``square_plus`` set too (the JAX package's ``rhs_may_poison`` answers
+    False there and leaves the NaN standing)."""
+    return fused_attention(cfg) and (cfg.function == "GAT"
+                                     or not cfg.square_plus)
 
 
 def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
@@ -207,18 +282,23 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
     * laplacian: alpha·(A_w x − x) [+ beta·x0] with A_w the frozen attention
       (or the normalised adjacency).
     * transformer: A_w is the head-mean attention recomputed from x. With
-      row normalisation it is the fused RHS (K6-K9, see
-      ``_transformer_rhs_fused``); otherwise (column normalisation, or
-      ``fused_attention_agg=False``) attention (K3/K4) and SpMM (K1/K2)
-      are composed.
+      row normalisation it is the fused RHS (K6-K9, or the scores composed
+      and aggregated on K10/K11, see ``_transformer_rhs_fused``); otherwise
+      (column normalisation, ``fused_attention_agg=False`` or
+      ``mix_features``) attention (K3/K4) and SpMM (K1/K2) are composed.
+      ``mix_features`` aggregates the per-head values V x and maps their
+      head mean back through Wout.
+    * GAT: the same with the GAT layer's scores (``_gat_rhs_fused`` on
+      K10/K11, or the composition); ``mix_features`` aggregates W x and maps
+      it back through Wout.
 
     ``spmm_fn(x, w)`` is the aggregation engine, by default
     ``ops.spmm.make_spmm(g)``: the CUDA kernels on a CUDA graph, their plain
-    versions on a CPU one. ``exact_softmax`` normalises with the exact
-    per-row softmax instead of the unshifted fast path (see
-    ``rhs_may_poison``); for the bounded score families (all but
-    scaled_dot) that is the composition. ``eval_fold`` folds alpha·(ax − x)
-    and a per-row guard into K6's final write on no-grad solves."""
+    versions on a CPU one. ``g`` may be re-masked (``Graph.with_mask``):
+    dropped edges take no attention. ``exact_softmax`` normalises with the
+    exact per-row softmax instead of the global-shift fast path (see
+    ``rhs_may_poison``). ``eval_fold`` folds alpha·(ax − x) and a per-row
+    guard into K6's final write on no-grad solves."""
     check_function(cfg)
     if spmm_fn is None:
         spmm_fn = make_spmm(g)
@@ -233,16 +313,40 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
 
         return rhs
 
-    use_fused = fused_transformer(cfg) and not (
-        exact_softmax and cfg.attention_type != "scaled_dot")
+    use_fused = fused_attention(cfg)
+
+    if cfg.function == "transformer":
+
+        def rhs(func, aux: FuncAux, t, x):
+            if use_fused:
+                return _transformer_rhs_fused(func, aux, x, cfg, g,
+                                              exact_softmax, eval_fold)
+            att = func.att
+            attention = apply_transformer_attention(
+                att, cfg, x, g, edge_weight=aux.edge_weight)
+            if cfg.mix_features:
+                v = (x @ att.V.w + att.V.b).reshape(x.shape[0], cfg.heads, -1)
+                vx = torch.mean(spmm_multihead(g, attention, v, spmm_fn),
+                                dim=1)                           # [N, d_k]
+                ax = vx @ att.Wout.w + att.Wout.b
+            else:
+                ax = spmm_mean_heads(g, attention, x, spmm_fn)
+            f = _alpha(cfg, func) * (ax - x)
+            return _source(cfg, func, f, aux)
+
+        return rhs
 
     def rhs(func, aux: FuncAux, t, x):
         if use_fused:
-            return _transformer_rhs_fused(func, aux, x, cfg, g,
-                                          exact_softmax, eval_fold)
-        attention = apply_transformer_attention(
-            func.att, cfg, x, g, edge_weight=aux.edge_weight)
-        ax = spmm_fn(x, torch.mean(attention, dim=1))
+            return _gat_rhs_fused(func, aux, x, cfg, g, exact_softmax)
+        attention, wx = apply_gat_attention(func.att, cfg, x, g)
+        # GAT aggregates the SAME value matrix under every head, and spmm is
+        # linear in the weights: one spmm with the head-mean attention
+        mean_att = torch.mean(attention, dim=1)
+        if cfg.mix_features:
+            ax = spmm_fn(wx, mean_att) @ func.att.Wout
+        else:
+            ax = spmm_fn(x, mean_att)
         f = _alpha(cfg, func) * (ax - x)
         return _source(cfg, func, f, aux)
 

@@ -8,8 +8,9 @@ port of ``models/gnn.py``).
 
 The model lives on one explicit ``device``. Its prepared graph is built on
 the host once and moved there; its aggregation runs through
-``ops.spmm.make_spmm`` (laplacian) or ``kernels.fused_rhs`` (transformer),
-the hand-written CUDA kernels on a CUDA device.
+``ops.spmm.make_spmm`` (laplacian), ``kernels.fused_rhs`` (transformer,
+plain row softmax) or ``kernels.dual_scatter`` (the other transformer
+variants and GAT), the hand-written CUDA kernels on a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ _NOT_PORTED = (
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every config
-    outside the ported slices (the tuned GRAND-l rows but ogbn-arxiv, and
-    GRAND-nl: the transformer function without mix_features)."""
+    outside the ported slices (ported: the tuned GRAND-l rows but
+    ogbn-arxiv, and GRAND-nl with the transformer or GAT function over the
+    constant, attention, mixed and hard_attention blocks)."""
     if cfg.dataset == "ogbn-arxiv":
         raise NotImplementedError(
             "dataset ogbn-arxiv: ROADMAP Queue 1 slice 2 item 13 (arxiv "

@@ -42,6 +42,10 @@ class Graph:
     rowptr   : int32[N + 1] or None — CSR pointer of a row-sorted graph
     rev      : int32[E_pad] or None — reverse-edge permutation (symmetric
                row-sorted graphs)
+    masked   : True when ``mask`` drops edges INSIDE the row-sorted valid
+               prefix (hard attention's re-masked graph, ``with_mask``);
+               ``rowptr`` and ``rev`` still describe the whole prefix, so
+               every per-edge value must be zeroed on the dropped slots
     """
 
     row: torch.Tensor
@@ -53,6 +57,7 @@ class Graph:
     rowptr: Optional[torch.Tensor] = None
     rev: Optional[torch.Tensor] = None
     sorted_valid: Optional[int] = None   # host copy of rowptr[-1]
+    masked: bool = False
 
     @property
     def capacity(self) -> int:
@@ -67,6 +72,11 @@ class Graph:
 
     def with_weight(self, weight: torch.Tensor) -> "Graph":
         return dataclasses.replace(self, weight=weight)
+
+    def with_mask(self, keep: torch.Tensor) -> "Graph":
+        """The same structure with only the ``keep`` edges valid (the JAX
+        package's ``with_edges(row, col, weight, keep)``)."""
+        return dataclasses.replace(self, mask=keep, masked=True)
 
     def to(self, device) -> "Graph":
         def mv(t):

@@ -67,14 +67,19 @@ def global_max(scores: torch.Tensor,
     if mask is not None:
         scores = torch.where(_bmask(mask, scores), scores,
                              torch.full_like(scores, -torch.inf))
-    gmax = torch.max(scores)
+    # amax splits the cotangent evenly over ties, as jnp.max does
+    gmax = torch.amax(scores)
     return torch.where(torch.isfinite(gmax), gmax, torch.zeros_like(gmax))
 
 
 def segment_softmax(scores: torch.Tensor, g: Graph,
                     norm_idx: int) -> torch.Tensor:
     """Per-segment softmax with the exact segment max (PyG
-    ``softmax(src, index)``)."""
+    ``softmax(src, index)``). On a re-masked graph the dropped edges score
+    -inf: they come out 0 and take no gradient."""
+    if g.masked:
+        scores = torch.where(_bmask(g.mask, scores), scores,
+                             torch.full_like(scores, -torch.inf))
     return segment_normalize(scores, g, norm_idx, "softmax")
 
 
@@ -86,6 +91,8 @@ def segment_squareplus(scores: torch.Tensor, g: Graph,
     and is differentiated through."""
     sm = scores - global_max(scores, g.mask)
     u = (sm + torch.sqrt(sm * sm + 4.0)) / 2.0
+    if g.masked:
+        u = torch.where(_bmask(g.mask, u), u, torch.zeros_like(u))
     return segment_normalize(u, g, norm_idx, "normalise")
 
 

@@ -10,6 +10,8 @@ of the framework, run once per ODE right-hand-side evaluation.
   hand-written kernels (``kernels.csr_spmm``, ``kernels.edge_dot``), with
   the whole-matvec symmetric VJP of the JAX package's
   ``_make_stripe_spmm_sym``.
+* :func:`spmm_multihead` and :func:`spmm_mean_heads` are the per-head and
+  head-mean aggregations of ``mix_features``, on the same engine.
 """
 
 from __future__ import annotations
@@ -87,3 +89,24 @@ def make_spmm(g: Graph):
                               g.row, g.col, g.rev, n_valid)
 
     return spmm_fn
+
+
+def spmm_multihead(g: Graph, att: torch.Tensor, v: torch.Tensor,
+                   spmm_fn=None) -> torch.Tensor:
+    """Per-head spmm: att [E, H], v [N, H, Dk] -> [N, H, Dk], one
+    ``spmm_fn`` (K1, its gradient K1/K2) per head: each output element is
+    summed in edge order, so two calls agree bit for bit (the JAX package
+    takes one XLA ``segment_sum`` over [E, H, Dk])."""
+    if spmm_fn is None:
+        spmm_fn = make_spmm(g)
+    att = torch.where(g.mask[:, None], att, torch.zeros_like(att))
+    return torch.stack([spmm_fn(v[:, h, :], att[:, h])
+                        for h in range(att.shape[1])], dim=1)
+
+
+def spmm_mean_heads(g: Graph, att: torch.Tensor, x: torch.Tensor,
+                    spmm_fn=None) -> torch.Tensor:
+    """spmm with the head mean of att [E, H] as edge weights: [N, D]."""
+    if spmm_fn is None:
+        spmm_fn = make_spmm(g)
+    return spmm_fn(x, torch.mean(att, dim=1))

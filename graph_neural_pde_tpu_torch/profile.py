@@ -17,7 +17,11 @@ eval step and, for GNNEarly, the early-stop eval. Prints
 * device busy time (the union of kernel, memcpy and memset intervals) over
   the profiled wall time, and so the device's idle share;
 * device time by kernel, with launch counts, and the port's kernels' mean
-  device time per launch.
+  device time per launch (K1-K4, K6-K11, matched by their ``__global__``
+  names);
+* the device time of PyTorch's indexing kernels (the per-edge gathers such
+  as q[row] and k[col] of the composed attention scores, and their
+  sort-based backward), per epoch and as a share of the device's busy time.
 
 Needs a CUDA device. Numbers from it belong beside the card's name and
 power limit, which it prints first.
@@ -40,6 +44,10 @@ from graph_neural_pde_tpu_torch import kernels, run
 PHASES = ("train_step", "eval_step", "early_stop_eval")
 # each wrapper's __global__ function is named <wrapper>_kernel
 KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS)
+# PyTorch's gather (x[index]) and its backward (index_put with accumulate:
+# a radix sort of the indices, then a segmented sum)
+INDEX_KERNELS = ("index_elementwise_kernel", "vectorized_gather_kernel",
+                 "indexing_backward", "index_put", "RadixSort", "radix_sort")
 
 
 def _busy_us(intervals):
@@ -105,6 +113,9 @@ def summarise(phase_s, prof, epochs: int) -> dict:
         ours[label] = {"launches_per_epoch": launches / epochs,
                        "device_us_per_launch": total / max(launches, 1),
                        "device_ms_per_epoch": total / epochs / 1e3}
+    index_ops = {n: (c, t) for n, (c, t) in by_name.items()
+                 if any(key in n for key in INDEX_KERNELS)}
+    index_us = sum(t for _, t in index_ops.values())
     return {
         "epochs": epochs,
         "phase_ms_per_epoch": {k: 1e3 * sum(v) / len(v)
@@ -113,6 +124,12 @@ def summarise(phase_s, prof, epochs: int) -> dict:
         "device_busy_ms_per_epoch": busy / epochs / 1e3,
         "device_idle_share": 1.0 - busy / wall_us,
         "kernels": ours,
+        "torch_index_kernels": {
+            "launches_per_epoch": sum(c for c, _ in index_ops.values())
+            / epochs,
+            "device_ms_per_epoch": index_us / epochs / 1e3,
+            "share_of_device_busy": index_us / busy,
+            "share_of_epoch": index_us / wall_us},
         "top_device_time": [
             {"name": n[:90], "launches": c, "ms": t / 1e3}
             for n, (c, t) in top[:12]],

@@ -10,7 +10,11 @@ ROADMAP item (``models.gnn.check_supported``).
 
 GRAND-nl (attention recomputed at every evaluation) on a tuned row's data:
 ``--dataset Cora --use_best_params --function transformer --block constant
---attention_norm_idx 0 --no-square_plus``. ``--dataset ogbn-arxiv-synthetic
+--attention_norm_idx 0`` (the row's squareplus attention; ``--no-square_plus``
+takes the softmax), or ``--function GAT --no-square_plus`` for the GAT
+function; ``--mix_features``, ``--reweight_attention``,
+``--leaky_relu_slope`` and ``--block mixed`` or ``hard_attention`` apply as
+in the JAX CLI. ``--dataset ogbn-arxiv-synthetic
 --use_best_params`` trains the architecture of the JAX package's
 ``bench.py`` on its random graph at ogbn-arxiv's size.
 

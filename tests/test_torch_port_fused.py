@@ -47,6 +47,16 @@ NL = dict(function="transformer", block="constant", attention_norm_idx=0,
           hidden_dim=D, attention_dim=ATT, heads=H)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _single_torch_thread():
+    """The tensors here are tiny, and the suite runs several workers at
+    once: torch's intra-op thread pool only spins against theirs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _cfgs(**kw):
     return JConfig(**NL).replace(**kw), Config(**NL).replace(**kw)
 
@@ -494,7 +504,7 @@ class TestWrappers:
                                                             in ops[:4]],
                              heads=H)
         assert [k.launches for k in kernels.KERNELS] == before
-        assert len(kernels.KERNELS) == 8
+        assert len(kernels.KERNELS) == 10
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "heads", "score",
                                      "beltrami", "meta"])
@@ -532,9 +542,9 @@ class TestWrappers:
             kernels.make_fused_ax_sym(g, 1, False, "scaled_dot")
 
     @pytest.mark.parametrize("override", [
-        dict(function="GAT"), dict(mix_features=True),
-        dict(square_plus=True), dict(reweight_attention=True),
-        dict(block="hard_attention"), dict(beltrami=True)])
+        dict(optimizer="adagrad"), dict(spmm_impl="pallas_blocked"),
+        dict(fa_layer=True), dict(edge_sampling=True),
+        dict(dtype="bfloat16"), dict(beltrami=True)])
     def test_unported_variants_raise(self, override):
         _, tcfg = _cfgs(**override)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -543,5 +553,8 @@ class TestWrappers:
     def test_supported_variants(self):
         for kw in (dict(), dict(attention_norm_idx=1, square_plus=True),
                    dict(fused_attention_agg=False, reweight_attention=True),
-                   dict(attention_type="pearson"), dict(block="attention")):
+                   dict(attention_type="pearson"), dict(block="attention"),
+                   dict(function="GAT"), dict(mix_features=True),
+                   dict(square_plus=True), dict(reweight_attention=True),
+                   dict(block="hard_attention")):
             check_supported(_cfgs(**kw)[1])

@@ -57,6 +57,16 @@ SMALL = dict(hidden_dim=16, attention_dim=16, input_dropout=0.0, dropout=0.0)
 D = SMALL["hidden_dim"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _single_torch_thread():
+    """The suite runs several workers at once: torch's intra-op thread pool
+    only spins against theirs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _small(row, **kw):
     heads = min(best_params[row].heads, 4)
     return (j_best[row].replace(**SMALL, heads=heads, **kw),

@@ -32,6 +32,16 @@ from graph_neural_pde_tpu_torch.models.gnn_early import GNNEarlyModel
 from graph_neural_pde_tpu_torch.training.train import Trainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _single_torch_thread():
+    """The suite runs several workers at once: torch's intra-op thread pool
+    only spins against theirs."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 SMALL = dict(hidden_dim=16, attention_dim=16, heads=4, input_dropout=0.0,
              dropout=0.0, epoch=4)
 
@@ -194,9 +204,9 @@ def test_cli_parser_builds_config():
 
 
 @pytest.mark.parametrize("override", [
-    dict(beltrami=True), dict(block="mixed"),
-    dict(function="transformer", mix_features=True),
-    dict(function="GAT"), dict(use_labels=True), dict(method="cheby"),
+    dict(beltrami=True), dict(use_mlp=True),
+    dict(fc_out=True),
+    dict(augment=True), dict(use_labels=True), dict(method="cheby"),
     dict(optimizer="sgd"), dict(rewiring="gdc"),
     dict(mesh_devices=4), dict(rewire_KNN=True),
 ])
@@ -240,10 +250,15 @@ def test_port_runs_without_jax():
         assert stats["nfe"] > 0
         nl = cfg.replace(function="transformer", block="constant",
                          attention_norm_idx=0, square_plus=False)
-        m = GNNEarlyModel(nl, 6, 3, d.graph)
-        with torch.no_grad():
-            logits, stats = m(d.x)
-        assert torch.isfinite(logits).all() and stats["nfe"] > 0
+        for c in (nl, nl.replace(square_plus=True),
+                  nl.replace(function="GAT"), nl.replace(mix_features=True),
+                  nl.replace(block="hard_attention"),
+                  cfg.replace(block="mixed")):
+            m = GNNEarlyModel(c, 6, 3, d.graph)
+            with torch.no_grad():
+                logits, stats = m(d.x)
+            assert torch.isfinite(logits).all() and stats["nfe"] > 0
+        assert "graph_neural_pde_tpu_torch.kernels.dual_scatter" in sys.modules
         bad = [k for k, mod in sys.modules.items() if mod is not None and (
             k.split(".")[0] in ("jax", "graph_neural_pde_tpu"))]
         assert not bad, bad
