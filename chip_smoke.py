@@ -31,7 +31,12 @@ Phases, each of which must pass (any failure exits nonzero):
    must be bit-identical. K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
    also against its plain version in float64), at a small shape, the Cora
    stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2; two
-   launches of each must be bit-identical. Each check is timed: device time per call
+   launches of each must be bit-identical. K12 ``norm1_den`` (the column
+   denominators, and the same sum weighted by the cotangent), K13
+   ``norm1_fwd`` and K14 ``norm1_bwd`` (every output, against the plain
+   version in float64), for all four score families on the Cora stand-in
+   at D=16, ATT=16, H=4 and for scaled_dot at the same two real shapes;
+   two launches of each must be bit-identical. Each check is timed: device time per call
    (torch.profiler, mean of 20 calls; all device work of the call, so the
    wrapper's output memset counts) and time per call seen from the host
    (CUDA events around one call, median of 20; at small shapes this is the
@@ -46,7 +51,8 @@ Phases, each of which must pass (any failure exits nonzero):
    and the early-stop eval), and tuned Computers at reduced width (hard
    attention and the continuous adjoint with its dopri5 backward solve),
    and the Cora GRAND-nl config (transformer function) at reduced width
-   with the softmax, with the row's squareplus, and as the GAT function;
+   with the softmax, with the row's squareplus, as the GAT function, and
+   with the softmax over columns (the row's own ``attention_norm_idx``);
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after: tuned Cora for 1 training epoch (followed by an eval step
@@ -62,8 +68,14 @@ Phases, each of which must pass (any failure exits nonzero):
    Cora row as GRAND-nl as tuned, with squareplus attention, for 3 epochs;
    (e) the same row with the GAT function for 3 epochs; (f) (a)'s
    architecture with squareplus attention for 1 epoch, printing the peak
-   device memory. Each run must launch the kernels its path runs, and all
-   ten counters must grow.
+   device memory; (g) the tuned Cora row as GRAND-nl with the softmax
+   normalised over columns, as the row's ``attention_norm_idx=1`` says
+   (K12-K14), for 1 epoch with the early-stop eval, and its forced poison,
+   which must re-solve on the composed exact softmax; (h) (a)'s
+   architecture with ``attention_norm_idx=1`` for 1 epoch; (i) the tuned
+   ogbn-arxiv row (hard attention, batch norm, rk4 adjoint, rmsprop) over
+   its stand-in for 1 epoch, as tuned and with ``use_labels``. Each run must launch the kernels its path
+   runs, and all thirteen counters must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -313,16 +325,15 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
     return rows
 
 
-def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
-                        dev="cuda"):
-    """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
-    output) against their plain versions; two K9 launches must be
-    bit-identical. ``timed=False`` only compares."""
+def rhs_operands(g, d, att, h, score, seed, dev):
+    """Seeded operands of one attention RHS evaluation on ``dev``: the
+    graph moved there, a normal sampler, the CSR arrays, (x, Qw, qb, Kw,
+    kb, gmax) and the kernels' keyword arguments (with the exp_kernel
+    scalars)."""
     import torch
-    from graph_neural_pde_tpu_torch import kernels as K
     dev = torch.device(dev)
     g = g.to(dev)
-    n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    n = g.num_nodes
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -333,15 +344,25 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     qw, kw = randn(d, att, scale=d ** -0.5), randn(d, att, scale=d ** -0.5)
     qb, kb = randn(att, scale=0.1), randn(att, scale=0.1)
     gmax = torch.full((1,), 0.25, device=dev)
-    alpha = torch.full((1,), 0.37, device=dev)
-    shifts = randn(cap, h, scale=0.5)
     sp = {}
     if score == "exp_kernel":
         sp = dict(var=torch.full((1,), 1.3, device=dev),
                   ls=torch.full((1,), 0.8, device=dev))
-    csr = (g.rowptr, g.row, g.col)
-    ops = (x, qw, qb, kw, kb, gmax)
-    kw_f = dict(heads=h, score=score, **sp)
+    return (g, randn, (g.rowptr, g.row, g.col), (x, qw, qb, kw, kb, gmax),
+            dict(heads=h, score=score, **sp))
+
+
+def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
+                        dev="cuda"):
+    """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
+    output) against their plain versions; two K9 launches must be
+    bit-identical. ``timed=False`` only compares."""
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    alpha = torch.full((1,), 0.37, device=ops[0].device)
+    shifts = randn(cap, h, scale=0.5)
     ct_ax = randn(n, d)
     # den's cotangent positive, so that the sums over all edges (dgmax, the
     # exp_kernel scalars) do not cancel and their own size is a fair scale
@@ -478,6 +499,76 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
     return rows
 
 
+def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
+                        dev="cuda"):
+    """K12 (both modes), K13 and K14 (every output, against the plain
+    version in float64) against their plain versions; two launches of each
+    must be bit-identical. ``timed=False`` only compares."""
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    n, nv = g.num_nodes, g.num_valid
+    ct_ax = randn(n, d)
+    # den's cotangent positive, as in check_fused_kernels
+    ct_den = 1.0 + randn(n, h, scale=0.1)
+    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw_f) + 1e-16)).contiguous()
+    cts = (ct_ax, (recip / h).contiguous(), ct_den)
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+
+    def bwd64():
+        out = K.norm1_bwd_plain(*csr, *map(f64, ops), *map(f64, cts),
+                                **{k: f64(v) for k, v in kw_f.items()})
+        return tuple(o.float() for o in out if o is not None)
+
+    def some(out):
+        return tuple(o for o in out if o is not None)
+
+    # compulsory bytes and float32 operations as in check_fused_kernels:
+    # indices, x and the projections' weights; every node's q and k
+    # projections, per edge one score (K14: two, and their derivatives)
+    # and the dot products or accumulations over D
+    base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
+    proj = 2 * d * att
+    cases = [
+        ("norm1_den", "column denominators",
+         lambda: K.norm1_den(*csr, *ops, **kw_f),
+         lambda: K.norm1_den_plain(*csr, *ops, **kw_f),
+         (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att), None),
+        ("norm1_den", "weighted by ct[c] . x[n]",
+         lambda: K.norm1_den(*csr, *ops, ct=ct_ax, **kw_f),
+         lambda: K.norm1_den_plain(*csr, *ops, ct=ct_ax, **kw_f),
+         (base_bytes + 4 * n * (d + h),
+          2 * n * proj + nv * (2 * att + 2 * d)), None),
+        ("norm1_fwd", "ax",
+         lambda: K.norm1_fwd(*csr, *ops, recip, **kw_f),
+         lambda: K.norm1_fwd_plain(*csr, *ops, recip, **kw_f),
+         (base_bytes + 4 * n * (h + d),
+          2 * n * proj + nv * (2 * att + 2 * d + 2 * h)), None),
+        ("norm1_bwd", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
+         lambda: some(K.norm1_bwd(*csr, *ops, *cts, **kw_f)),
+         lambda: some(K.norm1_bwd_plain(*csr, *ops, *cts, **kw_f)),
+         (base_bytes + 4 * (n * (d + 2 * h) + n * att + n * d + d * att),
+          4 * n * proj + nv * (10 * att + 6 * d)), bwd64),
+    ]
+    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}"
+    rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
+                      reference=ref, timed=timed)
+            for kname, what, kern, plain, work, ref in cases]
+    for kname, what, kern, _, _, _ in cases:
+        first, again = kern(), kern()
+        if torch.is_tensor(first):
+            first, again = (first,), (again,)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{kname} ({what}) {score} @ {shape_name}: "
+                                 f"two launches differ")
+    print(f"[kernels] norm1_den, norm1_fwd, norm1_bwd @ {shape_name} {score}: "
+          f"two launches bit-identical in every output", flush=True)
+    return rows
+
+
 def grand_nl_cora():
     """The tuned Cora row as GRAND-nl: attention recomputed at every RHS
     evaluation (transformer function over the constant block) with the row
@@ -584,9 +675,11 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
 
 GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
                    "segment_norm_bwd")
+NORM1_KERNELS = ("norm1_den", "norm1_fwd", "norm1_bwd")
 ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
                                  "fused_rhs_bwd", "fused_rhs_bwd_sym",
-                                 "dual_scatter", "dual_gather")
+                                 "dual_scatter", "dual_gather") \
+    + NORM1_KERNELS
 
 
 def counted(label: str, expected, fn):
@@ -612,8 +705,9 @@ def drive_poisoned_path(cfg, data_dir: str, seed: int):
     """The forced poison: ``cfg``'s model with Q and K redrawn so large
     that the unshifted softmax overflows at every evaluation. Each solve
     (train, eval and early-stop eval, ``cfg.epoch - 1`` epochs) must detect
-    the poison, re-solve with the exact softmax (K7's row maxima, K6 with
-    shifts, K8 in the backward) and come back finite."""
+    the poison, re-solve with the exact softmax (over rows: K7's row
+    maxima, K6 with shifts, K8 in the backward; over columns: the composed
+    attention on K3/K4 and K1/K2) and come back finite."""
     import torch
     from graph_neural_pde_tpu_torch import run
     s = run.setup(cfg, data_dir, device="cuda")
@@ -715,6 +809,13 @@ def main() -> int:
                                    args.seed + 50, timed=False)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
                                    nl.heads, args.seed + 51)
+        rows += check_norm1_kernels("cora-standin", cora_g, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 60)
+        for i, score in enumerate(SCORE_FAMILIES):
+            rows += check_norm1_kernels("cora-small", cora_g, 16, 16, 4,
+                                        score, args.seed + 70 + i,
+                                        timed=False)
         t0 = time.perf_counter()
         big = arxiv_scale_graph(args.seed)
         print(f"[kernels] arxiv-scale graph built on the host in "
@@ -728,6 +829,9 @@ def main() -> int:
                                     "scaled_dot", args.seed + 21)
         rows += check_dual_kernels("arxiv-scale", big, bench.hidden_dim,
                                    bench.heads, args.seed + 52)
+        rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    bench.attention_dim, bench.heads,
+                                    "scaled_dot", args.seed + 61)
         del big
         torch.cuda.empty_cache()
 
@@ -743,6 +847,9 @@ def main() -> int:
                                early_stop_counts=False, grad_floor=1e-5)
         check_small_end_to_end("Cora GAT", base=nl.replace(function="GAT"),
                                early_stop_counts=False, grad_floor=1e-5)
+        # the row's own normalisation axis: the softmax over columns
+        nl1 = nl.replace(attention_norm_idx=1)
+        check_small_end_to_end("Cora GRAND-nl column softmax", base=nl1)
 
         # 5. the main paths
         fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
@@ -764,6 +871,17 @@ def main() -> int:
             ("GAT Cora (e)", nl.replace(function="GAT", epoch=4), dual),
             ("GRAND-nl arxiv-scale squareplus (f)",
              bench.replace(square_plus=True, epoch=2, seed=args.seed), dual),
+            ("GRAND-nl Cora column softmax (g)", nl1.replace(epoch=2),
+             NORM1_KERNELS),
+            ("GRAND-nl arxiv-scale column softmax (h)",
+             bench.replace(attention_norm_idx=1, epoch=2, seed=args.seed),
+             NORM1_KERNELS),
+            ("tuned ogbn-arxiv over its stand-in (i)",
+             best_params["ogbn-arxiv"].replace(epoch=2),
+             ("csr_spmm", "edge_dot", "segment_norm")),
+            ("tuned ogbn-arxiv with label diffusion (i)",
+             best_params["ogbn-arxiv"].replace(epoch=2, use_labels=True),
+             ("csr_spmm", "edge_dot", "segment_norm")),
         )
         results, per_path = [], {}
         launches = dict.fromkeys(ALL_KERNELS, 0)
@@ -771,14 +889,27 @@ def main() -> int:
             res, counts = drive_main_path(label, cfg, data_dir, expected)
             results.append(res)
             per_path[label] = counts
-        label = "GRAND-nl Cora forced poison (c)"
-        losses, counts, secs = counted(
-            label, ("fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd"),
-            lambda: drive_poisoned_path(nl.replace(epoch=2), data_dir,
-                                        args.seed + 40))
-        per_path[label] = counts
-        print(f"[main] 1 epoch of {label} in {secs:.2f} s, losses {losses}; "
-              f"kernel launches {counts}", flush=True)
+        poisoned = (
+            ("GRAND-nl Cora forced poison (c)", nl,
+             ("fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd")),
+            # the fast solve poisons in K12/K13; the re-solve composes the
+            # exact column softmax. Attention normalised over columns is
+            # not row-stochastic, and as sharp as these scores make it its
+            # row sums reach the node degrees: the exact state grows like
+            # exp(alpha (row sum - 1) t) and leaves float32 before the row's
+            # 3T = 55, so this solve is cut to T = 2
+            ("GRAND-nl Cora column softmax forced poison (g)",
+             nl1.replace(time=2.0),
+             ("norm1_den", "norm1_fwd", "segment_norm", "segment_norm_bwd",
+              "csr_spmm", "edge_dot")))
+        for label, cfg, expected in poisoned:
+            losses, counts, secs = counted(
+                label, expected,
+                lambda: drive_poisoned_path(cfg.replace(epoch=2), data_dir,
+                                            args.seed + 40))
+            per_path[label] = counts
+            print(f"[main] 1 epoch of {label} in {secs:.2f} s, losses "
+                  f"{losses}; kernel launches {counts}", flush=True)
         for counts in per_path.values():
             for k, v in counts.items():
                 launches[k] += v
@@ -800,7 +931,10 @@ def main() -> int:
                "fused_rhs_bwd": ("fused_rhs.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_sym": ("fused_rhs.cu", "fused_rhs.py:1341"),
                "dual_scatter": ("dual_scatter.cu", "stripe.py:599"),
-               "dual_gather": ("dual_scatter.cu", "stripe.py:655")}
+               "dual_gather": ("dual_scatter.cu", "stripe.py:655"),
+               "norm1_den": ("norm1.cu", "fused_rhs.py:2070"),
+               "norm1_fwd": ("norm1.cu", "fused_rhs.py:2189"),
+               "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

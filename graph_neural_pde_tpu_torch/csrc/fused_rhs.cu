@@ -51,248 +51,9 @@
 // over fixed row ranges, and the wrapper adds the partials up in order. Two
 // launches on the same inputs therefore agree bit for bit.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "fused_common.cuh"
 
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kEps = 1e-16f;
-constexpr float kEpsNorm = 1e-5f;     // the reference's cosine/pearson floor
-
-enum Score { kScaledDot = 0, kCosine = 1, kPearson = 2, kExpKernel = 3 };
-
-struct Graph {
-  const int* rowptr;
-  const int* col;
-  int n_rows;
-};
-
-struct Proj {            // what a row walk reads beside the q and k tables
-  const float* x;
-  const float* gmax;
-  const float* var;      // exp_kernel only
-  const float* ls;
-  int dim, att, heads, score, square_plus;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// sum over the first `heads` lanes in lane order, the same in every lane
-__device__ __forceinline__ float head_sum(float v, int heads) {
-  float s = 0.0f;
-  for (int h = 0; h < heads; ++h) s += __shfl_sync(kFull, v, h);
-  return s;
-}
-
-// out[a] = b[a] + sum_d xs[d] W[d, a] for a in [0, att): lanes span a, J
-// accumulators a lane, W read as coalesced rows. xs and out are in shared
-// memory; b may be null. With W = Kw^T [ATT, D] it is the transposed
-// product dk Kw^T.
-template <int J>
-__device__ __forceinline__ void project_j(const float* xs,
-                                          const float* __restrict__ w,
-                                          const float* __restrict__ b,
-                                          int dim, int att, int lane,
-                                          float* out) {
-  float acc[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int a = lane + kWarp * j;
-    acc[j] = (b != nullptr && a < att) ? __ldg(b + a) : 0.0f;
-  }
-  for (int d = 0; d < dim; ++d) {
-    const float xv = xs[d];
-    const float* wr = w + static_cast<size_t>(d) * att + lane;
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-      if (lane + kWarp * j < att) acc[j] = fmaf(xv, __ldg(wr + kWarp * j), acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int a = lane + kWarp * j;
-    if (a < att) out[a] = acc[j];
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ void project(const float* xs, const float* w,
-                                        const float* b, int dim, int att,
-                                        int lane, float* out) {
-  switch ((att + kWarp - 1) / kWarp) {
-    case 1: project_j<1>(xs, w, b, dim, att, lane, out); break;
-    case 2: project_j<2>(xs, w, b, dim, att, lane, out); break;
-    case 3: project_j<3>(xs, w, b, dim, att, lane, out); break;
-    case 4: project_j<4>(xs, w, b, dim, att, lane, out); break;
-    case 5: project_j<5>(xs, w, b, dim, att, lane, out); break;
-    case 6: project_j<6>(xs, w, b, dim, att, lane, out); break;
-    case 7: project_j<7>(xs, w, b, dim, att, lane, out); break;
-    default: project_j<8>(xs, w, b, dim, att, lane, out); break;
-  }
-}
-
-__device__ __forceinline__ void load_row(const float* __restrict__ table,
-                                         int row, int dim, int lane,
-                                         float* out) {
-  const float* src = table + static_cast<size_t>(row) * dim;
-  for (int d = lane; d < dim; d += kWarp) out[d] = src[d];
-}
-
-// What the backward needs of one head's score: s itself and, for
-//   dq[a] = P (k[a] - mk) - Q (q[a] - mq),  dk[a] = P (q[a] - mq) - R (k[a] - mk)
-// per unit ds, the coefficients (P, Q, R) and the head means (pearson).
-struct HeadScore {
-  float s, p, q, r, mq, mk, dist;
-};
-
-// Score of head `h` from q and k in shared memory: d_k serial terms in a
-// fixed order. exp_kernel reads var and ls.
-__device__ __forceinline__ HeadScore head_score(const float* q, const float* k,
-                                                int h, int d_k, int score,
-                                                float var, float ls) {
-  HeadScore o = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  const float* qh = q + h * d_k;
-  const float* kh = k + h * d_k;
-  if (score == kScaledDot) {
-    float sp = 0.0f;
-    for (int j = 0; j < d_k; ++j) sp = fmaf(qh[j], kh[j], sp);
-    const float root = sqrtf(static_cast<float>(d_k));
-    o.s = sp / root;
-    o.p = 1.0f / root;
-    return o;
-  }
-  if (score == kExpKernel) {
-    float dist = 0.0f;
-    for (int j = 0; j < d_k; ++j) {
-      const float df = qh[j] - kh[j];
-      dist = fmaf(df, df, dist);
-    }
-    o.s = var * var * expf(-dist / (2.0f * ls * ls));
-    o.dist = dist;
-    o.p = o.q = o.r = o.s / (ls * ls);
-    return o;
-  }
-  if (score == kPearson) {
-    float sq = 0.0f, sk = 0.0f;
-    for (int j = 0; j < d_k; ++j) {
-      sq += qh[j];
-      sk += kh[j];
-    }
-    o.mq = sq / d_k;
-    o.mk = sk / d_k;
-  }
-  float sp = 0.0f, ss = 0.0f, kk = 0.0f;
-  for (int j = 0; j < d_k; ++j) {
-    const float a = qh[j] - o.mq, b = kh[j] - o.mk;
-    sp = fmaf(a, b, sp);
-    ss = fmaf(a, a, ss);
-    kk = fmaf(b, b, kk);
-  }
-  const float rs = sqrtf(ss), rk = sqrtf(kk);
-  const float ns = fmaxf(rs, kEpsNorm), nk = fmaxf(rk, kEpsNorm);
-  o.s = sp / (ns * nk);
-  o.p = 1.0f / (ns * nk);
-  // the clamped norm has no derivative: its term drops out below the floor
-  o.q = rs > kEpsNorm ? o.s / fmaxf(ss, kEpsNorm * kEpsNorm) : 0.0f;
-  o.r = rk > kEpsNorm ? o.s / fmaxf(kk, kEpsNorm * kEpsNorm) : 0.0f;
-  return o;
-}
-
-// u = exp(sm) or squareplus(sm), and du/dsm
-__device__ __forceinline__ void u_duds(float sm, int square_plus, float* u,
-                                       float* duds) {
-  if (square_plus) {
-    const float r = sqrtf(sm * sm + 4.0f);
-    *u = (sm + r) * 0.5f;
-    *duds = (1.0f + sm / r) * 0.5f;
-  } else {
-    *u = expf(sm);
-    *duds = *u;
-  }
-}
-
-constexpr int kNodesPerWarp = 8;
-
-// out[n] = x[n] W + b for every node n: the q and k tables the row walks
-// gather from. A warp projects eight nodes at once, so each coalesced row
-// of W is loaded once for eight products; the nodes' x rows sit transposed
-// in shared memory (xs[d][i]) and are read as two float4 broadcasts.
-template <int J>
-__device__ __forceinline__ void node_project_j(const float* xs,
-                                               const float* __restrict__ w,
-                                               const float* __restrict__ b,
-                                               float* __restrict__ out,
-                                               int n0, int n_rows, int dim,
-                                               int att, int lane) {
-  float acc[kNodesPerWarp][J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int a = lane + kWarp * j;
-    const float bias = a < att ? __ldg(b + a) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < kNodesPerWarp; ++i) acc[i][j] = bias;
-  }
-  for (int d = 0; d < dim; ++d) {
-    const float4* xv4 =
-        reinterpret_cast<const float4*>(xs + d * kNodesPerWarp);
-    const float4 lo = xv4[0], hi = xv4[1];
-    const float xv[kNodesPerWarp] = {lo.x, lo.y, lo.z, lo.w,
-                                     hi.x, hi.y, hi.z, hi.w};
-    const float* wr = w + static_cast<size_t>(d) * att + lane;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float wv = lane + kWarp * j < att ? __ldg(wr + kWarp * j) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < kNodesPerWarp; ++i)
-        acc[i][j] = fmaf(xv[i], wv, acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kNodesPerWarp; ++i) {
-    const int n = n0 + i;
-    if (n >= n_rows) break;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int a = lane + kWarp * j;
-      if (a < att) out[static_cast<size_t>(n) * att + a] = acc[i][j];
-    }
-  }
-}
-
-__global__ void node_project_kernel(const float* __restrict__ x,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ b,
-                                    float* __restrict__ out, int n_rows,
-                                    int dim, int att) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n0 = (blockIdx.x * kWarpsPerBlock + warp) * kNodesPerWarp;
-  if (n0 >= n_rows) return;
-  float* xs = smem + static_cast<size_t>(warp) * kNodesPerWarp * dim;
-  for (int i = 0; i < kNodesPerWarp; ++i) {
-    const float* src =
-        x + static_cast<size_t>(min(n0 + i, n_rows - 1)) * dim;
-    for (int d = lane; d < dim; d += kWarp)
-      xs[d * kNodesPerWarp + i] = src[d];
-  }
-  __syncwarp();
-  switch ((att + kWarp - 1) / kWarp) {
-    case 1: node_project_j<1>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 2: node_project_j<2>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 3: node_project_j<3>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 4: node_project_j<4>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 5: node_project_j<5>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 6: node_project_j<6>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 7: node_project_j<7>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    default: node_project_j<8>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-  }
-}
 
 // ----------------------------------------------------------------------- K6
 
@@ -402,45 +163,6 @@ __global__ void fused_rowmax_kernel(Graph g, Proj p,
 
 // ------------------------------------------------------------- K8 and K9
 
-// Lane h: from head h's score and the edge's cotangent factors, ds and the
-// coefficients of dq / dk, written to coef[h] = (P ds, Q ds, R ds, mq, mk);
-// adds the head's terms of the row's scalar sums. Returns u.
-__device__ __forceinline__ float head_backward(const HeadScore& hs, float sm,
-                                               int square_plus, float dot,
-                                               float rg, float ctd, float var,
-                                               float ls, int score,
-                                               float* coef, float* sum_ds,
-                                               float* sum_var, float* sum_ls) {
-  float u, duds;
-  u_duds(sm, square_plus, &u, &duds);
-  const float ds = fmaf(rg, dot, ctd) * duds;
-  coef[0] = hs.p * ds;
-  coef[1] = hs.q * ds;
-  coef[2] = hs.r * ds;
-  coef[3] = hs.mq;
-  coef[4] = hs.mk;
-  *sum_ds += ds;
-  if (score == kExpKernel) {
-    *sum_var += ds * (2.0f * hs.s / var);
-    *sum_ls += ds * hs.s * hs.dist / (ls * ls * ls);
-  }
-  return u;
-}
-
-__device__ __forceinline__ void write_row_sums(float* row_sums, int n,
-                                               int heads, int lane, float s0,
-                                               float s1, float s2) {
-  s0 = head_sum(s0, heads);
-  s1 = head_sum(s1, heads);
-  s2 = head_sum(s2, heads);
-  if (lane == 0) {
-    float* r = row_sums + static_cast<size_t>(n) * 3;
-    r[0] = s0;
-    r[1] = s1;
-    r[2] = s2;
-  }
-}
-
 __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
                                      const float* __restrict__ qtab,
                                      const float* __restrict__ ktab,
@@ -526,204 +248,8 @@ __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
                                          float* __restrict__ dkn_out,
                                          float* __restrict__ row_sums) {
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
-  float* xn = smem + static_cast<size_t>(warp) * (5 * D + 6 * A + 10 * H);
-  float* xc = xn + D;
-  float* cta = xc + D;                          // ct_ax[n]
-  float* ctc = cta + D;                         // ct_ax[c]
-  float* dxa = ctc + D;                         // dxrow[n] accumulator
-  float* q = dxa + D;                           // q_n
-  float* kn = q + A;                            // k_n: the reverse edges' k
-  float* ke = kn + A;                           // k_c
-  float* qc = ke + A;                           // q_c: the reverse edge's q
-  float* dqa = qc + A;
-  float* dkn = dqa + A;                         // sum of the reverse edges' dk
-  float* coef = dkn + A;                        // [H, 5] forward edge
-  float* coef_r = coef + 5 * H;                 // [H, 5] reverse edge
-  load_row(p.x, n, D, lane, xn);
-  load_row(ct_ax, n, D, lane, cta);
-  for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
-  for (int a = lane; a < A; a += kWarp) dqa[a] = dkn[a] = 0.0f;
-  load_row(qtab, n, A, lane, q);
-  load_row(ktab, n, A, lane, kn);
-  __syncwarp();
-  const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 1.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
-  const float rg = lane < H ? recip_p[static_cast<size_t>(n) * H + lane] : 0.0f;
-  const float ctd = lane < H ? ct_den[static_cast<size_t>(n) * H + lane] : 0.0f;
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-  for (int e = start; e < end; ++e) {
-    const int c = g.col[e];
-    load_row(p.x, c, D, lane, xc);
-    load_row(ct_ax, c, D, lane, ctc);
-    load_row(ktab, c, A, lane, ke);
-    load_row(qtab, c, A, lane, qc);
-    __syncwarp();
-    float part = 0.0f, part_r = 0.0f;
-    for (int d = lane; d < D; d += kWarp) {
-      part = fmaf(cta[d], xc[d], part);
-      part_r = fmaf(ctc[d], xn[d], part_r);
-    }
-    const float dot = warp_sum(part);           // ct_ax[n] . x_c
-    const float dot_r = warp_sum(part_r);       // ct_ax[c] . x_n
-    float w_r = 0.0f;
-    if (lane < H) {
-      // the edge (n, c): dq[n], and the sums over all edges
-      const HeadScore hs = head_score(q, ke, lane, d_k, p.score, var, ls);
-      head_backward(hs, hs.s - gmax, p.square_plus, dot, rg, ctd, var, ls,
-                    p.score, coef + 5 * lane, &s0, &s1, &s2);
-      // its reverse (c, n): row c's factors, q_c against k_n; its x[col]
-      // cotangent lands on x_n
-      const HeadScore hr = head_score(qc, kn, lane, d_k, p.score, var, ls);
-      const float rg_c = recip_p[static_cast<size_t>(c) * H + lane];
-      const float ctd_c = ct_den[static_cast<size_t>(c) * H + lane];
-      float unused0 = 0.0f, unused1 = 0.0f, unused2 = 0.0f;
-      w_r = rg_c * head_backward(hr, hr.s - gmax, p.square_plus, dot_r, rg_c,
-                                 ctd_c, var, ls, p.score, coef_r + 5 * lane,
-                                 &unused0, &unused1, &unused2);
-    }
-    const float wsum_r = head_sum(w_r, H);
-    __syncwarp();
-    for (int a = lane; a < A; a += kWarp) {
-      const int h = a / d_k;
-      const float* cf = coef + 5 * h;
-      dqa[a] += cf[0] * (ke[a] - cf[4]) - cf[1] * (q[a] - cf[3]);
-      const float* cr = coef_r + 5 * h;
-      dkn[a] += cr[0] * (qc[a] - cr[3]) - cr[2] * (kn[a] - cr[4]);
-    }
-    for (int d = lane; d < D; d += kWarp) dxa[d] = fmaf(wsum_r, ctc[d], dxa[d]);
-    __syncwarp();
-  }
-  for (int a = lane; a < A; a += kWarp) {
-    dq[static_cast<size_t>(n) * A + a] = dqa[a];
-    dkn_out[static_cast<size_t>(n) * A + a] = dkn[a];
-  }
-  __syncwarp();
-  project(dkn, kw_t, nullptr, A, D, lane, xc);  // xc: (sum of dk) Kw^T
-  for (int d = lane; d < D; d += kWarp)
-    dxrow[static_cast<size_t>(n) * D + d] = dxa[d] + xc[d];
-  write_row_sums(row_sums, n, H, lane, s0, s1, s2);
-}
-
-// partial[p, d, a] = sum over block p's rows r of [x[idx[r]] | 1][d] b[r, a]
-// (idx null: r itself), d in [0, dim]: the first pass of dKw (rows < dim)
-// and dKb (row dim). Each block owns a fixed row range and a 32 x 32 tile.
-// The chains are thousands of terms long, so each sum is compensated
-// (Kahan): its rounding error stays that of a single addition.
-__global__ void outer_reduce_kernel(const float* __restrict__ x,
-                                    const int* __restrict__ idx,
-                                    const float* __restrict__ b,
-                                    float* __restrict__ partial, int rows,
-                                    int rows_per_block, int dim, int att) {
-  const int a = blockIdx.z * 32 + threadIdx.x;
-  const int d_base = blockIdx.y * 32 + threadIdx.y;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float lost[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-  for (int r = r0; r < r1; ++r) {
-    const float bv = a < att ? b[static_cast<size_t>(r) * att + a] : 0.0f;
-    const float* xr = x + static_cast<size_t>(idx ? idx[r] : r) * dim;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int d = d_base + 8 * k;
-      const float xv = d < dim ? xr[d] : (d == dim ? 1.0f : 0.0f);
-      const float term = xv * bv - lost[k];
-      const float sum = acc[k] + term;
-      lost[k] = (sum - acc[k]) - term;
-      acc[k] = sum;
-    }
-  }
-  if (a >= att) return;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int d = d_base + 8 * k;
-    if (d <= dim)
-      partial[(static_cast<size_t>(blockIdx.x) * (dim + 1) + d) * att + a] =
-          acc[k];
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-int row_blocks(int n_rows) {
-  return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-}
-
-// table[n] = x[n] w + b for every node, into the wrapper's scratch
-cudaError_t launch_node_project(const void* x, const void* w, const void* b,
-                                void* table, int n_rows, int dim, int att,
-                                cudaStream_t stream);
-
-// both tables: q = x Qw + qb and k = x Kw + kb
-cudaError_t launch_tables(const void* x, const void* qw, const void* qb,
-                          const void* kw, const void* kb, void* qtab,
-                          void* ktab, int n_rows, int dim, int att,
-                          cudaStream_t stream) {
-  cudaError_t err = launch_node_project(x, qw, qb, qtab, n_rows, dim, att,
-                                        stream);
-  if (err != cudaSuccess) return err;
-  return launch_node_project(x, kw, kb, ktab, n_rows, dim, att, stream);
-}
-
-cudaError_t launch_node_project(const void* x, const void* w, const void* b,
-                                void* table, int n_rows, int dim, int att,
-                                cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock * kNodesPerWarp * dim;
-  cudaError_t err = allow_shared(node_project_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const int groups = (n_rows + kNodesPerWarp - 1) / kNodesPerWarp;
-  node_project_kernel<<<row_blocks(groups), kWarpsPerBlock * kWarp, bytes,
-                        stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(table), n_rows, dim,
-      att);
-  return cudaGetLastError();
-}
-
-void launch_outer_reduce(const float* x, const int* idx, const float* b,
-                         float* partial, int rows, int blocks, int dim,
-                         int att, cudaStream_t stream) {
-  if (rows <= 0) return;
-  const int rows_per_block = (rows + blocks - 1) / blocks;
-  const dim3 grid(blocks, (dim + 1 + 31) / 32, (att + 31) / 32);
-  outer_reduce_kernel<<<grid, dim3(32, 8), 0, stream>>>(
-      x, idx, b, partial, rows, rows_per_block, dim, att);
-}
-
-Proj make_proj(const void* x, const void* gmax, const void* var,
-               const void* ls, int dim, int att, int heads, int flags) {
-  Proj p;
-  p.x = static_cast<const float*>(x);
-  p.gmax = static_cast<const float*>(gmax);
-  p.var = static_cast<const float*>(var);
-  p.ls = static_cast<const float*>(ls);
-  p.dim = dim;
-  p.att = att;
-  p.heads = heads;
-  p.score = flags & 3;
-  p.square_plus = (flags >> 2) & 1;
-  return p;
-}
-
-Graph make_graph(const void* rowptr, const void* col, int n_rows) {
-  Graph g;
-  g.rowptr = static_cast<const int*>(rowptr);
-  g.col = static_cast<const int*>(col);
-  g.n_rows = n_rows;
-  return g;
+  sym_backward_row<false>(smem, g, p, qtab, ktab, kw_t, ct_ax, recip_p,
+                          ct_den, dq, dxrow, dkn_out, row_sums);
 }
 
 }  // namespace
@@ -835,30 +361,9 @@ extern "C" int gnpde_fused_rhs_bwd_sym(
     const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dq,
     void* dxrow, void* dkn, void* row_sums, void* partials, int n_rows,
     int dim, int att, int heads, int flags, int reduce_blocks, void* stream) {
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err =
-        launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (5 * dim + 6 * att + 10 * heads);
-    err = allow_shared(fused_rhs_bwd_sym_kernel, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fused_rhs_bwd_sym_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp,
-                               bytes, s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<const float*>(kw_t), static_cast<const float*>(ct_ax),
-        static_cast<const float*>(recip_p), static_cast<const float*>(ct_den),
-        static_cast<float*>(dq), static_cast<float*>(dxrow),
-        static_cast<float*>(dkn), static_cast<float*>(row_sums));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    launch_outer_reduce(static_cast<const float*>(x), nullptr,
-                        static_cast<const float*>(dkn),
-                        static_cast<float*>(partials), n_rows, reduce_blocks,
-                        dim, att, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_sym_backward(fused_rhs_bwd_sym_kernel, 1, rowptr, col, x, qw,
+                             qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den,
+                             kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
+                             partials, n_rows, dim, att, heads, flags,
+                             reduce_blocks, stream);
 }

@@ -1,0 +1,252 @@
+// K12 norm1_den, K13 norm1_fwd, K14 norm1_bwd: the GRAND-nl attention
+// right-hand side with the softmax normalised over COLUMNS
+// (attention_norm_idx = 1), over a row-sorted CSR graph whose edge multiset
+// is symmetric.
+//
+// Replace the TPU kernels of graph_neural_pde_tpu/ops/pallas/fused_rhs.py:
+// _norm1_rev_kernel / _norm1_rev_call (K12, both of its modes),
+// _norm1_fwd_kernel / _norm1_fwd_call (K13) and _norm1_bwd_kernel /
+// _norm1_bwd_call (K14). Those ride a stripe plan of padded edge chunks,
+// pack x as bf16 pairs with 1/den in the same 128-lane gather row, permute
+// every node-side operand to the pairs' decode order and do each gather and
+// sum as a one-hot matmul. None of that is carried over: a gather is cheap
+// here, so these kernels are float32, take any state width and head count
+// that fit a block's shared memory, and read 1/den and den's cotangent as
+// plain [N, H] node tables.
+//
+// For an edge e = (r, c): s_eh = score_h(q[r], k[c]), u_eh = exp(s_eh - gmax)
+// (or squareplus), and
+//     den[n, h] = sum over edges INTO n (col_e = n) of u_eh,
+//     ax[r]     = 1/H sum_h sum over row r's edges of u_eh / den[c, h] x[c].
+// The aggregation reduces by row while the softmax groups by column, so the
+// denominators do not fall out of the aggregation's row walk. On a symmetric
+// edge multiset they still come from a row walk: the edges into n are the
+// reverses of row n's edges (n, c), so row n scores S(q[c], k[n]), q from
+// the gathered node and k from the resident one. K12 does that (and, given
+// the output's cotangent ct, weights each term by ct[c] . x[n], which is
+// the numerator of den's cotangent). It needs rowptr and col only, no
+// reverse-edge map.
+//
+// What bounds them on the H100: the gathers, as for K6-K9. K12 reads q[c]
+// (ATT floats) per edge, with ct also ct[c] (D floats); K13 x[c], k[c] and
+// 1/den[c]; K14 x[c], ct[c], q[c], k[c], 1/den[c] and den's cotangent at c.
+// The arithmetic per edge is 2 ATT flop per score and 2 D per dot product
+// or accumulation.
+//
+// Design. Like K6-K9 an entry point first projects every node once into
+// the scratch tables q and k (node_project_kernel), unless its caller hands
+// it tables that an earlier launch on the same inputs filled (K12 then K13
+// in the forward, K12 then K14 in the backward: project = 0 in the second);
+// one warp owns one row, and nothing is atomic: two launches agree bit for
+// bit.
+// * K12: the row's edges are split over the lanes. A lane scores its edge
+//   for every head from q[c] in global memory against k[n] in shared
+//   memory, adds into its own column of a [H, 32] accumulator in shared
+//   memory, and a butterfly sum per head closes the row. Rows are short
+//   (9-15 edges on average), so per-edge work across lanes keeps more of
+//   the warp busy than K7's one lane per head does.
+// * K13: K6's row walk. Lane h scores head h, the edge's weight
+//   1/H sum_h u_eh / den[c, h] is one sum over the head lanes, and the row's
+//   ax accumulates in shared memory with lanes spanning D: no per-head
+//   numerators are kept.
+// * K14: K9's row walk (sym_backward_row in fused_common.cuh) with the
+//   softmax groups swapped: the edge (n, c) reads 1/den and den's
+//   cotangent at its column c, its reverse (c, n) at the resident row n.
+//   dKw, dKb, dgmax and the exp_kernel scalars go through the same two-pass
+//   reduction as K9's.
+
+#include "fused_common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------- K12
+
+__global__ void norm1_den_kernel(Graph g, Proj p,
+                                 const float* __restrict__ qtab,
+                                 const float* __restrict__ ktab,
+                                 const float* __restrict__ ct,
+                                 float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int n = blockIdx.x * kWarpsPerBlock + warp;
+  if (n >= g.n_rows) return;                    // whole warp leaves together
+  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
+  float* kn = smem + static_cast<size_t>(warp) * (A + D + kWarp * H);
+  float* xn = kn + A;                           // x_n, read with ct only
+  float* acc = xn + D;                          // [H, 32]: a column a lane
+  load_row(ktab, n, A, lane, kn);
+  if (ct) load_row(p.x, n, D, lane, xn);
+  for (int h = 0; h < H; ++h) acc[h * kWarp + lane] = 0.0f;
+  __syncwarp();
+  const float gmax = *p.gmax;
+  const float var = p.score == kExpKernel ? *p.var : 0.0f;
+  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const int start = g.rowptr[n], end = g.rowptr[n + 1];
+  for (int e = start + lane; e < end; e += kWarp) {
+    const int c = g.col[e];
+    // the reverse edge (c, n): q at the gathered node, k at the resident
+    const float* qc = qtab + static_cast<size_t>(c) * A;
+    float weight = 1.0f;
+    if (ct) {
+      const float* cc = ct + static_cast<size_t>(c) * D;
+      weight = 0.0f;
+      for (int d = 0; d < D; ++d) weight = fmaf(cc[d], xn[d], weight);
+    }
+    for (int h = 0; h < H; ++h) {
+      const HeadScore hs = head_score(qc, kn, h, d_k, p.score, var, ls);
+      float u, duds;
+      u_duds(hs.s - gmax, p.square_plus, &u, &duds);
+      acc[h * kWarp + lane] += u * weight;
+    }
+  }
+  __syncwarp();
+  float mine = 0.0f;                            // lane h: head h
+  for (int h = 0; h < H; ++h) {
+    const float total = warp_sum(acc[h * kWarp + lane]);
+    if (lane == h) mine = total;
+  }
+  if (lane < H) out[static_cast<size_t>(n) * H + lane] = mine;
+}
+
+// ---------------------------------------------------------------------- K13
+
+__global__ void norm1_fwd_kernel(Graph g, Proj p,
+                                 const float* __restrict__ qtab,
+                                 const float* __restrict__ ktab,
+                                 const float* __restrict__ recip,
+                                 float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int n = blockIdx.x * kWarpsPerBlock + warp;
+  if (n >= g.n_rows) return;
+  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
+  float* xc = smem + static_cast<size_t>(warp) * (2 * D + 2 * A);
+  float* acc = xc + D;                          // ax[n] accumulator
+  float* q = acc + D;
+  float* ke = q + A;
+  load_row(qtab, n, A, lane, q);
+  for (int d = lane; d < D; d += kWarp) acc[d] = 0.0f;
+  __syncwarp();
+  const float gmax = *p.gmax;
+  const float var = p.score == kExpKernel ? *p.var : 0.0f;
+  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const int start = g.rowptr[n], end = g.rowptr[n + 1];
+  for (int e = start; e < end; ++e) {
+    const int c = g.col[e];
+    load_row(p.x, c, D, lane, xc);
+    load_row(ktab, c, A, lane, ke);
+    __syncwarp();
+    float a = 0.0f;                             // lane h: u_eh / den[c, h]
+    if (lane < H) {
+      const HeadScore hs = head_score(q, ke, lane, d_k, p.score, var, ls);
+      float u, duds;
+      u_duds(hs.s - gmax, p.square_plus, &u, &duds);
+      a = u * recip[static_cast<size_t>(c) * H + lane];
+    }
+    const float w = head_sum(a, H);
+    for (int d = lane; d < D; d += kWarp) acc[d] = fmaf(w, xc[d], acc[d]);
+    __syncwarp();                               // xc and ke are reused
+  }
+  const float scale = 1.0f / H;
+  for (int d = lane; d < D; d += kWarp)
+    out[static_cast<size_t>(n) * D + d] = acc[d] * scale;
+}
+
+// ---------------------------------------------------------------------- K14
+
+__global__ void norm1_bwd_kernel(Graph g, Proj p,
+                                 const float* __restrict__ qtab,
+                                 const float* __restrict__ ktab,
+                                 const float* __restrict__ kw_t,
+                                 const float* __restrict__ ct_ax,
+                                 const float* __restrict__ recip_p,
+                                 const float* __restrict__ ct_den,
+                                 float* __restrict__ dq,
+                                 float* __restrict__ dxrow,
+                                 float* __restrict__ dkn_out,
+                                 float* __restrict__ row_sums) {
+  extern __shared__ __align__(16) float smem[];
+  sym_backward_row<true>(smem, g, p, qtab, ktab, kw_t, ct_ax, recip_p, ct_den,
+                         dq, dxrow, dkn_out, row_sums);
+}
+
+}  // namespace
+
+// With project != 0 an entry point first fills the scratch tables qtab and
+// ktab [n_rows, att] (q = x Qw + qb, k = x Kw + kb); with project == 0 it
+// reads them as an earlier launch on the same x, Qw, qb, Kw, kb left them.
+// Then it walks the rows. flags: bits 0-1 the score family, bit 2
+// squareplus.
+
+// out [n_rows, heads]: the column denominators, or with ct [n_rows, dim]
+// each term weighted by ct[c] . x[n]. Nullable: var, ls, ct.
+extern "C" int gnpde_norm1_den(
+    const void* rowptr, const void* col, const void* x, const void* qw,
+    const void* qb, const void* kw, const void* kb, const void* gmax,
+    const void* var, const void* ls, const void* ct, void* qtab, void* ktab,
+    void* out, int n_rows, int dim, int att, int heads, int flags,
+    int project, void* stream) {
+  if (n_rows > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
+    if (project)
+      err = launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t bytes =
+        sizeof(float) * kWarpsPerBlock * (att + dim + kWarp * heads);
+    err = allow_shared(norm1_den_kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    norm1_den_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
+                       s>>>(
+        make_graph(rowptr, col, n_rows),
+        make_proj(x, gmax, var, ls, dim, att, heads, flags),
+        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
+        static_cast<const float*>(ct), static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out [n_rows, dim] = ax; recip [n_rows, heads] = 1 / (den + 1e-16).
+// Nullable: var, ls.
+extern "C" int gnpde_norm1_fwd(
+    const void* rowptr, const void* col, const void* x, const void* qw,
+    const void* qb, const void* kw, const void* kb, const void* gmax,
+    const void* var, const void* ls, const void* recip, void* qtab,
+    void* ktab, void* out, int n_rows, int dim, int att, int heads, int flags,
+    int project, void* stream) {
+  if (n_rows > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
+    if (project)
+      err = launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t bytes =
+        sizeof(float) * kWarpsPerBlock * (2 * dim + 2 * att);
+    err = allow_shared(norm1_fwd_kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    norm1_fwd_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
+                       s>>>(
+        make_graph(rowptr, col, n_rows),
+        make_proj(x, gmax, var, ls, dim, att, heads, flags),
+        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
+        static_cast<const float*>(recip), static_cast<float*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// recip_p [n_rows, heads] = 1 / (H (den + 1e-16)); the other arguments as
+// gnpde_fused_rhs_bwd_sym's. Nullable: var, ls.
+extern "C" int gnpde_norm1_bwd(
+    const void* rowptr, const void* col, const void* x, const void* qw,
+    const void* qb, const void* kw, const void* kb, const void* gmax,
+    const void* var, const void* ls, const void* ct_ax, const void* recip_p,
+    const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dq,
+    void* dxrow, void* dkn, void* row_sums, void* partials, int n_rows,
+    int dim, int att, int heads, int flags, int reduce_blocks, int project,
+    void* stream) {
+  return launch_sym_backward(norm1_bwd_kernel, project, rowptr, col, x, qw,
+                             qb, kw, kb, gmax, var, ls, ct_ax, recip_p,
+                             ct_den, kw_t, qtab, ktab, dq, dxrow, dkn,
+                             row_sums, partials, n_rows, dim, att, heads,
+                             flags, reduce_blocks, stream);
+}

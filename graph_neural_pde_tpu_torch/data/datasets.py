@@ -2,7 +2,8 @@
 
 Ported here: the Planetoid raw format (Cora / Citeseer / Pubmed, the
 ``ind.{name}.*`` pickles, with the Citeseer isolated-test-node fix), the
-Shchur et al. ``.npz`` format (Amazon Computers / Photo, Coauthor CS),
+Shchur et al. ``.npz`` format (Amazon Computers / Photo, Coauthor CS), the
+OGB raw ``csv.gz`` layout of ogbn-arxiv with its time split,
 ``to_undirected`` + dedupe, largest-connected-component extraction, the
 seeded development/test split (5,000 development nodes for CoauthorCS,
 1,500 otherwise), and the size-matched SBM stand-in used when the raw files
@@ -12,13 +13,14 @@ and the splits are bit-identical to the JAX package's for one seed.
 ``ogbn-arxiv-synthetic`` is the seeded random graph at ogbn-arxiv's size
 that the JAX package's ``bench.py`` measures on (nothing is read from disk).
 
-The ogbn-arxiv and geom-gcn loaders, load-time rewiring and node
-reordering are not ported yet and raise ``NotImplementedError`` naming
+The geom-gcn loaders, load-time rewiring and node reordering are not
+ported yet and raise ``NotImplementedError`` naming
 their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import gzip
 import os
 import pickle
 import sys
@@ -41,6 +43,7 @@ _SHAPES = {
     "Cora": (2708, 1433, 7), "Citeseer": (3327, 3703, 6),
     "Pubmed": (19717, 500, 3), "Computers": (13752, 767, 10),
     "Photo": (7650, 745, 8), "CoauthorCS": (18333, 6805, 15),
+    "ogbn-arxiv": (169343, 128, 40),
 }
 _PLANETOID = ("Cora", "Citeseer", "Pubmed")
 # Shchur et al. .npz file of each Amazon / Coauthor dataset
@@ -48,9 +51,6 @@ _SHCHUR = {"Computers": "amazon_electronics_computers.npz",
            "Photo": "amazon_electronics_photo.npz",
            "CoauthorCS": "ms_academic_cs.npz"}
 
-_NOT_PORTED = {
-    "ogbn-arxiv": "ROADMAP Queue 1 slice 2 item 13 (ogbn-arxiv path)",
-}
 _GEOM_GCN = ("cornell", "texas", "wisconsin", "chameleon", "squirrel", "film")
 
 
@@ -134,6 +134,33 @@ def load_shchur_npz(root: str, name: str, fname: str):
     edge_index = to_undirected(
         np.stack([adj.row.astype(np.int64), adj.col.astype(np.int64)]))
     return x, y, edge_index
+
+
+def load_ogbn_arxiv(root: str):
+    """Parse OGB's raw layout (``ogbn_arxiv/raw/{edge,node-feat,node-label}
+    .csv.gz``) and its time split (``split/time/{train,valid,test}.csv.gz``);
+    the citation edges are symmetrised and deduplicated."""
+    base = os.path.join(root, "ogbn-arxiv", "ogbn_arxiv")
+    if not os.path.isdir(base):
+        base = os.path.join(root, "ogbn_arxiv")
+    raw, split = os.path.join(base, "raw"), os.path.join(base, "split", "time")
+    if not os.path.isdir(raw):
+        raise DatasetUnavailable(raw)
+
+    def csv_gz(path):
+        with gzip.open(path, "rt") as f:
+            return np.loadtxt(f, delimiter=",")
+
+    edge = csv_gz(os.path.join(raw, "edge.csv.gz")).astype(np.int64).T
+    x = csv_gz(os.path.join(raw, "node-feat.csv.gz")).astype(np.float32)
+    y = csv_gz(os.path.join(raw, "node-label.csv.gz")).astype(np.int64).ravel()
+    masks = []
+    for part in ("train", "valid", "test"):
+        idx = csv_gz(os.path.join(split, f"{part}.csv.gz")).astype(np.int64)
+        m = np.zeros(x.shape[0], bool)
+        m[idx] = True
+        masks.append(m)
+    return (x, y, to_undirected(edge), *masks)
 
 
 def _num_development(ds: str) -> int:
@@ -245,12 +272,10 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
         # the random graph of the JAX package's bench.py, made from cfg.seed
         return make_random_graph_dataset(seed=cfg.seed,
                                          edge_pad_multiple=max(pad, 1))
-    if ds in _NOT_PORTED:
-        raise NotImplementedError(f"dataset {ds}: {_NOT_PORTED[ds]}")
     if ds in _GEOM_GCN:
         raise NotImplementedError(
             f"dataset {ds}: geom-gcn loader, ROADMAP Queue 1 slice 5")
-    if ds not in _PLANETOID and ds not in _SHCHUR:
+    if ds not in _PLANETOID and ds not in _SHCHUR and ds != "ogbn-arxiv":
         raise ValueError(f"Unknown dataset {ds}.")
     if cfg.rewiring is not None:
         raise NotImplementedError(
@@ -262,6 +287,9 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     try:
         if ds in _PLANETOID:
             x, y, ei, *masks = load_planetoid(data_dir, ds)
+        elif ds == "ogbn-arxiv":
+            x, y, ei, *masks = load_ogbn_arxiv(data_dir)
+            use_lcc = False    # the reference keeps the whole graph
         else:
             x, y, ei = load_shchur_npz(data_dir, ds, _SHCHUR[ds])
     except DatasetUnavailable:

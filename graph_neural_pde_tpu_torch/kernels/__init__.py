@@ -34,6 +34,15 @@ from graph_neural_pde_tpu_torch.kernels.fused_rhs import (  # noqa: F401
     fused_rowmax_plain,
     make_fused_ax_sym,
 )
+from graph_neural_pde_tpu_torch.kernels.norm1 import (  # noqa: F401
+    make_fused_ax_norm1,
+    norm1_bwd,
+    norm1_bwd_plain,
+    norm1_den,
+    norm1_den_plain,
+    norm1_fwd,
+    norm1_fwd_plain,
+)
 from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
     segment_norm,
     segment_norm_bwd,
@@ -43,4 +52,4 @@ from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
 
 KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
-           dual_scatter, dual_gather)
+           dual_scatter, dual_gather, norm1_den, norm1_fwd, norm1_bwd)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The kernels in ``graph_neural_pde_tpu_torch/csrc/*.cu`` are compiled by
-``nvcc`` for Hopper (``sm_90a``), one object per source with all ``nvcc``
-processes started together, and linked into one shared library with a plain
+The kernels in ``graph_neural_pde_tpu_torch/csrc/*.cu`` (with the device
+code they share in ``*.cuh``) are compiled by ``nvcc`` for Hopper
+(``sm_90a``), one object per source with all ``nvcc`` processes started
+together, and linked into one shared library with a plain
 C interface that is loaded with ``ctypes``. The build happens at first use,
 on the machine with the card, into ``build/kernels/`` under the checkout
 root (ignored by git). The library's file name carries a hash of the sources
@@ -64,6 +65,16 @@ _ENTRY_POINTS = {
     # rowptr, col, rev, u, x, ct_num, ct_den, du, dx, n_rows, dim, heads,
     # stream
     "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 3 + [_PTR],
+    # The column-normalised RHS kernels (csrc/norm1.cu).
+    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, ct (the last three
+    # nullable), qtab, ktab, out, n_rows, dim, att, heads, flags, project
+    # (0: qtab and ktab are filled already), stream
+    "gnpde_norm1_den": [_PTR] * 14 + [_INT] * 6 + [_PTR],
+    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
+    # recip, qtab, ktab, out, n_rows, dim, att, heads, flags, project, stream
+    "gnpde_norm1_fwd": [_PTR] * 14 + [_INT] * 6 + [_PTR],
+    # as gnpde_fused_rhs_bwd_sym, with project before the stream
+    "gnpde_norm1_bwd": [_PTR] * 21 + [_INT] * 7 + [_PTR],
 }
 
 _lib = None
@@ -88,7 +99,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):     # the shared headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libgnpde_kernels_{h.hexdigest()[:16]}.so"

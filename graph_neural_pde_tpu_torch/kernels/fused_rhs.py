@@ -134,24 +134,14 @@ def fused_rowmax_plain(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int):
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
 
-def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
-                        recip_p, ct_den, *, heads: int, score: str, var=None,
-                        ls=None, shifts=None, square_plus: bool = False):
-    """Plain version of K8. With ``recip_p = 1 / (H (den + 1e-16))`` and
-    ``ct_den`` the total cotangent of ``den``:
-
-        du_eh = (ct_ax[n] . x_c) recip_p[n, h] + ct_den[n, h]
-        ds_eh = du_eh  du/ds
-        dq[n] = sum_e ds . ds/dq,   dk_e = ds . ds/dk
-        dxg[e] = (sum_h u_eh recip_p[n, h]) ct_ax[n] + dk_e Kw^T
-        dkw = sum_e x_c^T dk_e,  dkb = sum_e dk_e,  dgmax = -sum ds
-
-    The score's own derivative comes from autograd over
-    :func:`edge_scores`. Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb,
-    dgmax, dvar, dls); the last two are None but for ``exp_kernel``."""
+def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
+               ct_den, *, heads, score, var, ls, shifts, square_plus,
+               by_col):
+    """The per-edge backward of both normalisations: ``recip_p`` and
+    ``ct_den`` are read at each edge's softmax group, its row or
+    (``by_col``) its column. Returns fused_rhs_bwd_plain's tuple."""
     nv, r, c = _edges(rowptr, row, col)
     n, d = x.shape
-    att = qw.shape[1]
     xe = x[c]
     with torch.enable_grad():
         src = (x @ qw + qb)[r].detach().requires_grad_(True)
@@ -167,9 +157,10 @@ def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     if shifts is not None:
         sm = sm - shifts[:nv]
     u, duds = _u_duds(sm, square_plus)
-    rg = recip_p[r]
+    group = c if by_col else r
+    rg = recip_p[group]
     dot = torch.sum(ct_ax[r] * xe, dim=1, keepdim=True)
-    ds = (rg * dot + ct_den[r]) * duds
+    ds = (rg * dot + ct_den[group]) * duds
     dsrc, dke, *dextra = torch.autograd.grad(s, wrt, ds)
     dq = _node_sum(n, r, dsrc)
     dxg = torch.zeros((row.shape[0], d), dtype=x.dtype, device=x.device)
@@ -178,6 +169,27 @@ def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     dvar, dls = dextra if dextra else (None, None)
     return (dq, dxg, xe.T @ dke, torch.sum(dke, dim=0), -torch.sum(ds), dvar,
             dls)
+
+
+def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
+                        recip_p, ct_den, *, heads: int, score: str, var=None,
+                        ls=None, shifts=None, square_plus: bool = False):
+    """Plain version of K8. With ``recip_p = 1 / (H (den + 1e-16))`` and
+    ``ct_den`` the total cotangent of ``den``:
+
+        du_eh = (ct_ax[n] . x_c) recip_p[n, h] + ct_den[n, h]
+        ds_eh = du_eh  du/ds
+        dq[n] = sum_e ds . ds/dq,   dk_e = ds . ds/dk
+        dxg[e] = (sum_h u_eh recip_p[n, h]) ct_ax[n] + dk_e Kw^T
+        dkw = sum_e x_c^T dk_e,  dkb = sum_e dk_e,  dgmax = -sum ds
+
+    The score's own derivative comes from autograd over
+    :func:`edge_scores`. Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb,
+    dgmax, dvar, dls); the last two are None but for ``exp_kernel``."""
+    return _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
+                      recip_p, ct_den, heads=heads, score=score, var=var,
+                      ls=ls, shifts=shifts, square_plus=square_plus,
+                      by_col=False)
 
 
 def fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
@@ -200,7 +212,9 @@ def fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
            var=None, ls=None, extra=()):
     """Device, type, shape and contiguity of what the kernels read.
-    ``extra`` is (name, tensor, shape) for the call's own float operands."""
+    ``extra`` is (name, tensor, shape) for the call's own float operands.
+    The kernels are float32; on the CPU the plain versions also take
+    float64 operands (all of one type)."""
     dev = x.device
     if score not in SCORES:
         if score == "exp_kernel_beltrami":
@@ -237,8 +251,9 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
     for t_name, t, _ in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {t_name} must be int32")
+    wide = dev.type == "cpu" and x.dtype == torch.float64
     for t_name, t, _ in floats:
-        if t.dtype != torch.float32:
+        if t.dtype != (torch.float64 if wide else torch.float32):
             raise TypeError(f"{name}: {t_name} must be float32")
     for t_name, t in (("var", var), ("ls", ls)):
         if score == "exp_kernel" and t.numel() != 1:

@@ -1,0 +1,297 @@
+"""K12-K14: the fused attention right-hand side of GRAND-nl with the
+softmax normalised over COLUMNS (``attention_norm_idx = 1``).
+
+The aggregation reduces by row while the softmax groups by column
+(``n`` a node, ``e = (r, c)`` an edge, ``u_eh = exp(score_h(q_r, k_c) -
+gmax)`` or squareplus of the same, with q, k and the four score families of
+``kernels.fused_rhs``):
+
+    den[n, h] = sum_{e: c = n} u_eh
+    ax[r]     = (1/H) sum_h sum_{e in row r} u_eh / (den[c, h] + 1e-16) x_c
+
+so the denominators do not come out of the aggregation's row walk. On a
+SYMMETRIC edge multiset they come out of another row walk: the edges into
+``n`` are the reverses of row ``n``'s edges ``(n, c)``, hence
+``den[n, h] = sum_{(n, c)} u(score_h(q_c, k_n) - gmax)``.
+
+* K12 ``norm1_den`` -> that sum [N, H]; with ``ct`` [N, D] each term is
+  weighted by ``ct_c . x_n``, the numerator of ``den``'s cotangent in the
+  backward. Replaces ``ops/pallas/fused_rhs.py`` ``_norm1_rev_kernel`` /
+  ``_norm1_rev_call`` (both of its modes).
+* K13 ``norm1_fwd``  -> ``ax`` [N, D] from ``recip = 1 / (den + 1e-16)``;
+  replaces ``_norm1_fwd_kernel`` / ``_norm1_fwd_call``.
+* K14 ``norm1_bwd``  -> (dq, dxrow, dkw, dkb, dgmax, dvar, dls) with
+  ``dxrow`` the whole x[col] cotangent, each edge also evaluating its
+  reverse; replaces ``_norm1_bwd_kernel`` / ``_norm1_bwd_call``.
+
+The TPU engine's bf16 pair packing, its 128-lane ``x | recip`` gather rows
+and its column permutation are not carried over: the kernels are float32
+and take any width and head count that fit a block's shared memory
+(``csrc/norm1.cu``). On a CUDA tensor a wrapper launches its kernel or
+raises; on a CPU tensor it runs the plain PyTorch version beside it, which
+defines the semantics (float32, or float64 when every operand is).
+``make_fused_ax_norm1`` keeps the JAX package's name: the differentiable op
+the transformer function calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graph_neural_pde_tpu_torch.kernels import build
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
+    EPS, _bwd_extra, _bwd_plain, _check, _edges, _finish_bwd, _flags,
+    _graph_csr, _need_symmetric, _node_sum, _node_tables, _ptr,
+    _reduce_blocks, _score_params, _shared_bytes, _u_duds, edge_scores)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def norm1_den_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
+                    score: str, var=None, ls=None, square_plus: bool = False,
+                    ct=None):
+    """Plain version of K12, the same row walk: every edge (n, c) of row n
+    contributes ``u(score(q_c, k_n) - gmax)`` to ``out[n]``, times
+    ``ct_c . x_n`` when ``ct`` is given. Equal to the sum of ``u`` over the
+    edges into n only on a symmetric edge multiset."""
+    nv, r, c = _edges(rowptr, row, col)
+    q_rev = (x @ qw + qb)[c].reshape(nv, heads, -1)
+    k_rev = (x @ kw + kb)[r].reshape(nv, heads, -1)
+    u, _ = _u_duds(edge_scores(q_rev, k_rev, score, var, ls) - gmax,
+                   square_plus)
+    if ct is not None:
+        u = u * torch.sum(ct[c] * x[r], dim=1, keepdim=True)
+    return _node_sum(x.shape[0], r, u)
+
+
+def norm1_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *,
+                    heads: int, score: str, var=None, ls=None,
+                    square_plus: bool = False):
+    """Plain version of K13: gathers, the per-edge weight
+    ``(1/H) sum_h u_eh recip[c, h]`` and one ``index_add`` over rows."""
+    nv, r, c = _edges(rowptr, row, col)
+    xe = x[c]
+    src = (x @ qw + qb)[r].reshape(nv, heads, -1)
+    ke = (xe @ kw + kb).reshape(nv, heads, -1)
+    u, _ = _u_duds(edge_scores(src, ke, score, var, ls) - gmax, square_plus)
+    w = torch.sum(u * recip[c], dim=1, keepdim=True) / heads
+    return _node_sum(x.shape[0], r, w * xe)
+
+
+def norm1_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
+                    ct_den, *, heads: int, score: str, var=None, ls=None,
+                    square_plus: bool = False):
+    """Plain version of K14. With ``recip_p = 1 / (H (den + 1e-16))`` and
+    ``ct_den`` the total cotangent of ``den``, per edge (r, c):
+
+        ds_eh  = ((ct_ax[r] . x_c) recip_p[c, h] + ct_den[c, h]) du/ds
+        dq[r]  = sum_e ds . ds/dq,   dk_e = ds . ds/dk
+        dxrow[n] = sum_{e: c = n} (sum_h u_eh recip_p[c, h]) ct_ax[r]
+                   + dk_e Kw^T
+        dkw = sum_e x_c^T dk_e,  dkb = sum_e dk_e,  dgmax = -sum ds
+
+    the backward of K8/K9 with ``recip_p`` and ``ct_den`` read at the
+    edge's column. Returns (dq [N, ATT], dxrow [N, D], dkw, dkb, dgmax,
+    dvar, dls); the last two are None but for ``exp_kernel``."""
+    dq, dxg, dkw, dkb, dgmax, dvar, dls = _bwd_plain(
+        rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
+        heads=heads, score=score, var=var, ls=ls, shifts=None,
+        square_plus=square_plus, by_col=True)
+    nv, _, c = _edges(rowptr, row, col)
+    return dq, _node_sum(x.shape[0], c, dxg[:nv]), dkw, dkb, dgmax, dvar, dls
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+class NodeTables:
+    """The kernels' scratch: every node's q and k projections [N, ATT],
+    which a row walk gathers per edge. The first launch that takes the
+    tables fills them (``project()`` answers 1 once), later launches on the
+    same operands reuse them."""
+
+    def __init__(self, x: torch.Tensor, att: int):
+        self.q, self.k = _node_tables(x, att)
+        self.filled = False
+
+    def project(self) -> int:
+        first, self.filled = not self.filled, True
+        return int(first)
+
+
+def node_tables(x: torch.Tensor, att: int):
+    """Tables for the launches of one forward or one backward pass over
+    ``x`` (None on the CPU: the plain versions keep no scratch)."""
+    return NodeTables(x, att) if x.device.type == "cuda" else None
+
+
+def norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
+              score: str, var=None, ls=None, square_plus: bool = False,
+              ct=None, tabs=None):
+    """K12: [N, H] column denominators of a SYMMETRIC edge multiset (the
+    caller checks ``Graph.rev is not None``), or with ``ct`` [N, D] the
+    same sum weighted by ``ct_c . x_n``. ``gmax`` is a one-element tensor.
+    ``row`` is only read by the plain version. Not differentiable.
+
+    ``tabs`` (all three wrappers; CUDA only): the q and k tables a
+    :func:`node_tables` call allocated. The first launch that is handed
+    them fills them, a later one on the same x, Qw, qb, Kw, kb reads them
+    instead of projecting every node again."""
+    extra = [("gmax", gmax, None)]
+    if ct is not None:
+        extra.append(("ct", ct, x.shape))
+    _check("norm1_den", rowptr, row, col, x, qw, qb, kw, kb, heads, score,
+           var, ls, extra)
+    if x.device.type == "cpu":
+        return norm1_den_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
+                               heads=heads, score=score, var=var, ls=ls,
+                               square_plus=square_plus, ct=ct)
+    n, d = x.shape
+    att = qw.shape[1]
+    _shared_bytes("norm1_den", att + d + 32 * heads)
+    out = torch.empty((n, heads), dtype=torch.float32, device=x.device)
+    tabs = tabs or node_tables(x, att)
+    build.launch("norm1_den", x.device, rowptr.data_ptr(), col.data_ptr(),
+                 x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 _ptr(ct), tabs.q.data_ptr(), tabs.k.data_ptr(),
+                 out.data_ptr(), n, d, att, heads, _flags(score, square_plus),
+                 tabs.project())
+    norm1_den.launches += 1
+    return out
+
+
+def norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *, heads: int,
+              score: str, var=None, ls=None, square_plus: bool = False,
+              tabs=None):
+    """K13: ``ax`` [N, D] from ``recip = 1 / (den + 1e-16)`` [N, H]. Not
+    differentiable by itself (see :func:`make_fused_ax_norm1`)."""
+    n, d = x.shape
+    _check("norm1_fwd", rowptr, row, col, x, qw, qb, kw, kb, heads, score,
+           var, ls, [("gmax", gmax, None), ("recip", recip, (n, heads))])
+    if x.device.type == "cpu":
+        return norm1_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
+                               recip, heads=heads, score=score, var=var,
+                               ls=ls, square_plus=square_plus)
+    att = qw.shape[1]
+    _shared_bytes("norm1_fwd", 2 * d + 2 * att)
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    tabs = tabs or node_tables(x, att)
+    build.launch("norm1_fwd", x.device, rowptr.data_ptr(), col.data_ptr(),
+                 x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 recip.data_ptr(), tabs.q.data_ptr(), tabs.k.data_ptr(),
+                 out.data_ptr(), n, d, att, heads, _flags(score, square_plus),
+                 tabs.project())
+    norm1_fwd.launches += 1
+    return out
+
+
+def norm1_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
+              ct_den, *, heads: int, score: str, var=None, ls=None,
+              square_plus: bool = False, tabs=None):
+    """K14: the backward over a SYMMETRIC edge multiset (see
+    :func:`norm1_bwd_plain` for the formulas and the return value). The
+    reductions over all edges take two passes with fixed orders, so two
+    calls agree bit for bit."""
+    _check("norm1_bwd", rowptr, row, col, x, qw, qb, kw, kb, heads, score,
+           var, ls, _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None,
+                               0))
+    if x.device.type == "cpu":
+        return norm1_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
+                               ct_ax, recip_p, ct_den, heads=heads,
+                               score=score, var=var, ls=ls,
+                               square_plus=square_plus)
+    n, d = x.shape
+    att = qw.shape[1]
+    _shared_bytes("norm1_bwd", 5 * d + 6 * att + 10 * heads)
+    dev = x.device
+    dq = torch.empty((n, att), dtype=torch.float32, device=dev)
+    dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
+    # scratch, as K9's: dk summed per node, each row's scalar sums
+    dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
+    row_sums = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    blocks = _reduce_blocks(n)
+    tabs, kw_t = tabs or node_tables(x, att), kw.t().contiguous()
+    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
+                           device=dev)
+    build.launch("norm1_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
+                 x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 ct_ax.data_ptr(), recip_p.data_ptr(), ct_den.data_ptr(),
+                 kw_t.data_ptr(), tabs.q.data_ptr(), tabs.k.data_ptr(),
+                 dq.data_ptr(), dxrow.data_ptr(), dkn.data_ptr(),
+                 row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
+                 _flags(score, square_plus), blocks, tabs.project())
+    norm1_bwd.launches += 1
+    return (dq, dxrow) + _finish_bwd(partials, row_sums, d, score, var, ls)
+
+
+norm1_den.launches = 0
+norm1_fwd.launches = 0
+norm1_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the differentiable op (the JAX package's name)
+# ---------------------------------------------------------------------------
+
+class _FusedAxNorm1(torch.autograd.Function):
+    """(ax, den) = K12 then K13. Backward: K12 again, weighted by the
+    cotangent, gives den's cotangent through ``recip`` (``-m recip^2 / H``
+    on top of the incoming one); K14 does the rest. Residuals: the inputs
+    and ``den``."""
+
+    @staticmethod
+    def forward(ctx, qw, qb, kw, kb, x, gmax, var, ls, csr, heads,
+                square_plus, score):
+        kwargs = dict(heads=heads, score=score, var=var, ls=ls,
+                      square_plus=square_plus)
+        tabs = node_tables(x, qw.shape[1])       # K12 fills, K13 reuses
+        den = norm1_den(*csr, x, qw, qb, kw, kb, gmax, tabs=tabs, **kwargs)
+        recip = 1.0 / (den + EPS)
+        ax = norm1_fwd(*csr, x, qw, qb, kw, kb, gmax, recip, tabs=tabs,
+                       **kwargs)
+        ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, den, *csr)
+        ctx.opts = (heads, square_plus, score)
+        return ax, den
+
+    @staticmethod
+    def backward(ctx, ct_ax, ct_den_in):
+        qw, qb, kw, kb, x, gmax, var, ls, den, *csr = ctx.saved_tensors
+        heads, square_plus, score = ctx.opts
+        kwargs = dict(heads=heads, score=score, var=var, ls=ls,
+                      square_plus=square_plus)
+        ct_ax = ct_ax.contiguous()
+        recip = 1.0 / (den + EPS)
+        tabs = node_tables(x, qw.shape[1])       # K12 fills, K14 reuses
+        m = norm1_den(*csr, x, qw, qb, kw, kb, gmax, ct=ct_ax, tabs=tabs,
+                      **kwargs)
+        ct_den = (ct_den_in - m * recip * recip / heads).contiguous()
+        dq, dx, dkw, dkb, dgmax, dvar, dls = norm1_bwd(
+            *csr, x, qw, qb, kw, kb, gmax, ct_ax,
+            (recip / heads).contiguous(), ct_den, tabs=tabs, **kwargs)
+        dx = dx + dq @ qw.T
+        return (x.T @ dq, torch.sum(dq, dim=0), dkw, dkb, dx,
+                dgmax.reshape(gmax.shape), dvar, dls) + (None,) * 4
+
+
+def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str):
+    """``op(qw, qb, kw, kb, x, gmax, score_params) -> (ax [N, D], den
+    [N, H])`` with ``den`` the per-COLUMN score mass, over the prepared
+    graph ``g``, differentiable in qw, qb, kw, kb, x, gmax and the
+    exp_kernel scalars. ``g`` must hold a symmetric edge multiset: both the
+    denominators and x's gradient reach an edge's column through its
+    reverse edge."""
+    csr = _graph_csr(g, "make_fused_ax_norm1")
+    _need_symmetric(g, "make_fused_ax_norm1")
+
+    def op(qw, qb, kw, kb, x, gmax, score_params=()):
+        var, ls = _score_params(score, score_params)
+        return _FusedAxNorm1.apply(qw, qb, kw, kb, x.contiguous(), gmax, var,
+                                   ls, csr, heads, square_plus, score)
+
+    return op

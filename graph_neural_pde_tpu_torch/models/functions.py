@@ -6,7 +6,9 @@ learnable parameters and ``aux`` the per-solve constants. Ported: the
 laplacian function (every tuned GRAND-l config), the transformer function
 (GRAND-nl: attention recomputed at every evaluation; softmax or squareplus,
 optionally reweighted by the adjacency, with or without ``mix_features``)
-and the GAT function.
+and the GAT function. With column normalisation
+(``attention_norm_idx=1``) the transformer function's plain softmax runs on
+the fused column-normalised kernels (K12-K14).
 """
 
 from __future__ import annotations
@@ -19,11 +21,12 @@ from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.kernels.dual_scatter import dual_scatter_add
-from graph_neural_pde_tpu_torch.kernels.fused_rhs import (den_guard,
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import (SCORES, den_guard,
                                                           fused_rhs_ax,
                                                           fused_rhs_f,
                                                           fused_rowmax,
                                                           make_fused_ax_sym)
+from graph_neural_pde_tpu_torch.kernels.norm1 import make_fused_ax_norm1
 from graph_neural_pde_tpu_torch.models.attention import (
     GATAttention, TransformerAttention, apply_gat_attention,
     apply_transformer_attention, gat_scores, transformer_scores)
@@ -142,6 +145,21 @@ def fused_attention(cfg: Config) -> bool:
             and cfg.attention_norm_idx == 0)
 
 
+def norm1_fused_ok(cfg: Config) -> bool:
+    """True when the column-normalised (``attention_norm_idx=1``)
+    transformer RHS runs on the fused kernels K12-K14
+    (``kernels.norm1.make_fused_ax_norm1``): the plain softmax of one of
+    the four in-kernel score families. ``make_rhs`` still sends the exact
+    re-solve and a re-masked graph to the composition. The JAX package's
+    predicate also asks for its bfloat16 payload, which the float32 port
+    does not have."""
+    return (cfg.fused_attention_agg and not cfg.mix_features
+            and cfg.attention_norm_idx == 1
+            and cfg.function == "transformer"
+            and cfg.attention_type in SCORES
+            and not cfg.square_plus and not cfg.reweight_attention)
+
+
 def check_function(cfg: Config) -> None:
     if cfg.function not in ("laplacian", "transformer", "GAT"):
         raise ValueError(f"unknown function '{cfg.function}'")
@@ -161,7 +179,12 @@ def _mega_ok(cfg: Config, g: Graph, exact_softmax: bool) -> bool:
 
 def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
                            g: Graph, exact_softmax: bool, eval_fold: bool):
-    """GRAND-nl RHS with the row normalisation folded into the aggregation.
+    """GRAND-nl RHS with the normalisation folded into the aggregation.
+
+    Over columns (``norm1_fused_ok``) the plain softmax is K12 and K13 per
+    evaluation, K12 and K14 for its gradient, with the same unshifted exp
+    and NaN poison as below; its exact re-solve is the composition in
+    ``make_rhs``. The rest of this is the normalisation over rows.
 
     The plain softmax (``_mega_ok``) is one K6 launch per evaluation, K9
     (symmetric) or K8 for its gradient. Softmax is shift-invariant, so exp
@@ -178,6 +201,19 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     and denominators in one pass (K10, gradient K11)."""
     att = func.att
     h, score = cfg.heads, cfg.attention_type
+    if cfg.attention_norm_idx == 1:
+        # the softmax over columns (``norm1_fused_ok``; make_rhs sends no
+        # other column-normalised config here): K12 and K13, unshifted like
+        # the row softmax, with the same guard over the COLUMN
+        # denominators. The edge multiset is symmetric, so a node's row
+        # degree is its column degree.
+        sp = (att.output_var, att.lengthscale) if score == "exp_kernel" else ()
+        gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
+        ax, den = make_fused_ax_norm1(g, h, False, score)(
+            att.Q.w, att.Q.b, att.K.w, att.K.b, x, gmax, sp)
+        bad = den_guard(den, g.rowptr, per_row=False)
+        ax = torch.where(bad, torch.full_like(ax, torch.nan), ax)
+        return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
     if not _mega_ok(cfg, g, exact_softmax):
         prods = transformer_scores(att, cfg, x, g, aux.edge_weight).float()
         if cfg.square_plus:
@@ -267,11 +303,13 @@ def rhs_may_poison(cfg: Config) -> bool:
     """True when make_rhs's default path can NaN-poison its output on
     softmax under- or overflow, so that the caller must re-solve with
     ``make_rhs(..., exact_softmax=True)`` if the solved state is not
-    finite. The fused GAT RHS always runs exp, so it can poison with
+    finite: the fused softmax over rows or (``norm1_fused_ok``) over
+    columns. The fused GAT RHS always runs exp, so it can poison with
     ``square_plus`` set too (the JAX package's ``rhs_may_poison`` answers
     False there and leaves the NaN standing)."""
-    return fused_attention(cfg) and (cfg.function == "GAT"
-                                     or not cfg.square_plus)
+    if fused_attention(cfg):
+        return cfg.function == "GAT" or not cfg.square_plus
+    return norm1_fused_ok(cfg)
 
 
 def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
@@ -283,9 +321,11 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
       (or the normalised adjacency).
     * transformer: A_w is the head-mean attention recomputed from x. With
       row normalisation it is the fused RHS (K6-K9, or the scores composed
-      and aggregated on K10/K11, see ``_transformer_rhs_fused``); otherwise
-      (column normalisation, ``fused_attention_agg=False`` or
-      ``mix_features``) attention (K3/K4) and SpMM (K1/K2) are composed.
+      and aggregated on K10/K11, see ``_transformer_rhs_fused``), with the
+      plain softmax over columns the fused K12-K14 (``norm1_fused_ok``);
+      otherwise (the other column-normalised variants,
+      ``fused_attention_agg=False`` or ``mix_features``) attention (K3/K4)
+      and SpMM (K1/K2) are composed.
       ``mix_features`` aggregates the per-head values V x and maps their
       head mean back through Wout.
     * GAT: the same with the GAT layer's scores (``_gat_rhs_fused`` on
@@ -316,6 +356,10 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
     use_fused = fused_attention(cfg)
 
     if cfg.function == "transformer":
+        # the column softmax is fused for the fast solve over the whole
+        # graph only: the exact re-solve and a re-masked graph compose
+        use_fused = use_fused or (norm1_fused_ok(cfg) and not exact_softmax
+                                  and not g.masked)
 
         def rhs(func, aux: FuncAux, t, x):
             if use_fused:

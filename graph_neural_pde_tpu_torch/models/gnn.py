@@ -1,8 +1,10 @@
 """The GRAND model: encoder → continuous-time ODE block → decoder (PyTorch
 port of ``models/gnn.py``).
 
-* encoder: dropout → m1 → optional batch norm (running statistics kept in
-  buffers between steps)
+* encoder: dropout → m1 → optional label block (``use_labels``: the last
+  ``num_classes`` input columns, a one-hot label channel, bypass m1 and are
+  appended to its output) → optional batch norm (running statistics kept
+  in buffers between steps)
 * ODE block: see models.blocks — one solve
 * decoder: relu → dropout → m2
 
@@ -39,7 +41,6 @@ _NOT_PORTED = (
     ("fa_layer", "slice 4 item 16 (GNNKNN fa layer)"),
     ("edge_sampling", "slice 4 item 16 (edge sampling)"),
     ("rewiring", "slice 4 item 15 (load-time rewiring)"),
-    ("use_labels", "slice 2 item 13 (label diffusion)"),
     ("use_mlp", "slice 5 item 18 (encoder MLP)"),
     ("fc_out", "slice 5 item 18 (decoder fc)"),
     ("augment", "slice 5 item 18 (augmented state)"),
@@ -52,13 +53,9 @@ _NOT_PORTED = (
 
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every config
-    outside the ported slices (ported: the tuned GRAND-l rows but
-    ogbn-arxiv, and GRAND-nl with the transformer or GAT function over the
+    outside the ported slices (ported: every tuned GRAND-l row, label
+    diffusion, and GRAND-nl with the transformer or GAT function over the
     constant, attention, mixed and hard_attention blocks)."""
-    if cfg.dataset == "ogbn-arxiv":
-        raise NotImplementedError(
-            "dataset ogbn-arxiv: ROADMAP Queue 1 slice 2 item 13 (arxiv "
-            "loader, label diffusion, not_lcc)")
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
@@ -100,19 +97,30 @@ class GNNModel(nn.Module):
         self.graph = prepare_graph(cfg, graph).to(self.device)
         self.spmm_fn = make_spmm(self.graph)
         gen = torch.Generator().manual_seed(cfg.seed)
+        # width of the ODE state: the encoder's output plus the label block
+        self.core_dim = cfg.hidden_dim + (num_classes if cfg.use_labels
+                                          else 0)
         self.m1 = Linear(num_features, cfg.hidden_dim, generator=gen)
-        self.m2 = Linear(cfg.hidden_dim, num_classes, generator=gen)
-        self.block = ODEBlock(cfg, cfg.hidden_dim, generator=gen)
+        self.m2 = Linear(self.core_dim, num_classes, generator=gen)
+        self.block = ODEBlock(cfg, self.core_dim, generator=gen)
         if cfg.batch_norm:
-            self.bn_in = BatchNorm(cfg.hidden_dim)
+            self.bn_in = BatchNorm(self.core_dim)
         self.to(self.device)
 
     def encode(self, x, training: bool,
                generator: Optional[torch.Generator] = None):
-        """Everything before the ODE solve: dropout → m1 → batch norm (a
-        training forward moves its running statistics)."""
+        """Everything before the ODE solve: dropout → m1 → label block →
+        batch norm (a training forward moves its running statistics). With
+        ``use_labels`` ``x`` is [N, num_features + num_classes]
+        (``training.train.with_labels``)."""
+        labels = None
+        if self.cfg.use_labels:
+            labels = x[:, -self.num_classes:]
+            x = x[:, :-self.num_classes]
         x = dropout(x, self.cfg.input_dropout, training, generator)
         x = self.m1(x)
+        if labels is not None:
+            x = torch.cat([x, labels], dim=-1)
         if self.cfg.batch_norm:
             x = self.bn_in(x, training)
         return x

@@ -18,7 +18,7 @@ from graph_neural_pde_tpu_torch.models.functions import (make_rhs,
 from graph_neural_pde_tpu_torch.models.gnn import GNNModel
 from graph_neural_pde_tpu_torch.solvers.api import SolverOptions
 from graph_neural_pde_tpu_torch.solvers.early_stop import odeint_early_stop
-from graph_neural_pde_tpu_torch.training.train import accuracy
+from graph_neural_pde_tpu_torch.training.train import accuracy, with_labels
 
 
 class GNNEarlyModel(GNNModel):
@@ -29,8 +29,12 @@ class GNNEarlyModel(GNNModel):
 
         y: int labels [N]; masks: (train_mask, val_mask, test_mask).
         Returns (logits at the extended T, best: BestSnapshot, stats).
+        With ``use_labels`` every training node shows its label, as in
+        ``Trainer.eval_step``.
         """
         cfg = self.cfg
+        if cfg.use_labels:
+            x = with_labels(x, y, masks[0], self.num_classes)
         x0 = self.encode(x, False)
         aux, _ = build_aux(self.block, cfg, self.graph, x0, training=False)
         train_mask, val_mask, test_mask = masks

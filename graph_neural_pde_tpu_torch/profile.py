@@ -6,8 +6,9 @@
 Builds the tuned run of ``--dataset`` (``best_params[dataset]`` over the
 data in ``--data_dir``, the SBM stand-in when it holds no raw files; the
 training CLI's Config flags override it, e.g. ``--function transformer
---block constant --attention_norm_idx 0 --no-square_plus`` for GRAND-nl,
-and ``--dataset ogbn-arxiv-synthetic`` takes ``bench.py``'s GRAND-nl
+--block constant --attention_norm_idx 0 --no-square_plus`` for GRAND-nl
+(without ``--attention_norm_idx 0`` the row's column softmax, K12-K14;
+``--no-fused_attention_agg`` composes it instead), and ``--dataset ogbn-arxiv-synthetic`` takes ``bench.py``'s GRAND-nl
 architecture), runs one warm-up epoch, then profiles ``--epochs``
 epochs with ``torch.profiler``. Each epoch is the CLI's: a train step, an
 eval step and, for GNNEarly, the early-stop eval. Prints
@@ -17,7 +18,7 @@ eval step and, for GNNEarly, the early-stop eval. Prints
 * device busy time (the union of kernel, memcpy and memset intervals) over
   the profiled wall time, and so the device's idle share;
 * device time by kernel, with launch counts, and the port's kernels' mean
-  device time per launch (K1-K4, K6-K11, matched by their ``__global__``
+  device time per launch (K1-K4, K6-K14, matched by their ``__global__``
   names);
 * the device time of PyTorch's indexing kernels (the per-edge gathers such
   as q[row] and k[col] of the composed attention scores, and their

@@ -99,6 +99,14 @@ def accuracy(logits, labels, mask):
             / torch.clamp_min(torch.sum(m), 1.0))
 
 
+def with_labels(x, y, label_mask, num_classes: int):
+    """Label diffusion's input: ``x`` with a one-hot label channel appended
+    for the nodes of ``label_mask``, zeros for the others (reference
+    run_GNN.py:39-59)."""
+    onehot = torch.nn.functional.one_hot(y.long(), num_classes).to(x.dtype)
+    return torch.cat([x, onehot * label_mask.to(x.dtype)[:, None]], dim=-1)
+
+
 @dataclass
 class EpochLog:
     epoch: int
@@ -126,8 +134,19 @@ class Trainer:
         # continuous adjoint reports its backward solve's NFE itself
         self.bwd_evals_per_step = TABLEAUS[model.cfg.method].num_stages
 
-    def train_step(self, x, y, train_mask):
-        """One optimizer step. Returns (loss, solver stats)."""
+    def train_step(self, x, y, train_mask, label_mask=None):
+        """One optimizer step. Returns (loss, solver stats). With
+        ``use_labels`` the training nodes are split into label-carrying
+        and prediction nodes: ``label_mask`` [N] bool says which nodes
+        show their label (by default each training node with probability
+        ``label_rate``, drawn from the trainer's generator); the loss is
+        over all training nodes."""
+        if self.cfg.use_labels:
+            if label_mask is None:
+                coin = torch.rand(train_mask.shape, generator=self.generator,
+                                  device=self.generator.device)
+                label_mask = train_mask & (coin < self.cfg.label_rate)
+            x = with_labels(x, y, label_mask, self.model.num_classes)
         self.model.zero_grad(set_to_none=True)
         logits, stats = self.model(x, training=True, generator=self.generator)
         loss = cross_entropy_loss(logits, y, train_mask)
@@ -140,7 +159,10 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, x, y, masks):
-        """Returns ((train, val, test) accuracies, logits, solver stats)."""
+        """Returns ((train, val, test) accuracies, logits, solver stats).
+        With ``use_labels`` every training node shows its label."""
+        if self.cfg.use_labels:
+            x = with_labels(x, y, masks[0], self.model.num_classes)
         logits, stats = self.model(x, training=False)
         accs = tuple(float(accuracy(logits, y, m)) for m in masks)
         return accs, logits, stats

@@ -329,9 +329,10 @@ class TestRhsAgainstXla:
         assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
 
     def test_composition_paths(self):
-        """Column normalisation, and fused_attention_agg=False with
+        """Column normalisation without the fused engine (its fused form:
+        test_torch_port_norm1.py), and fused_attention_agg=False with
         squareplus, compose attention (K3/K4) and SpMM (K1/K2)."""
-        for kw in (dict(attention_norm_idx=1),
+        for kw in (dict(fused_attention_agg=False, attention_norm_idx=1),
                    dict(fused_attention_agg=False, square_plus=True)):
             c = Case("scaled_dot", seed=5)
             c.jcfg, c.tcfg = _cfgs(**kw)
@@ -504,7 +505,7 @@ class TestWrappers:
                                                             in ops[:4]],
                              heads=H)
         assert [k.launches for k in kernels.KERNELS] == before
-        assert len(kernels.KERNELS) == 10
+        assert len(kernels.KERNELS) == 13
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "heads", "score",
                                      "beltrami", "meta"])

@@ -206,7 +206,7 @@ def test_cli_parser_builds_config():
 @pytest.mark.parametrize("override", [
     dict(beltrami=True), dict(use_mlp=True),
     dict(fc_out=True),
-    dict(augment=True), dict(use_labels=True), dict(method="cheby"),
+    dict(augment=True), dict(kinetic_energy=0.1), dict(method="cheby"),
     dict(optimizer="sgd"), dict(rewiring="gdc"),
     dict(mesh_devices=4), dict(rewire_KNN=True),
 ])
@@ -217,13 +217,14 @@ def test_configs_outside_the_slice_raise(override):
 
 
 def test_every_other_tuned_row_is_refused():
-    """Every tuned row but ogbn-arxiv is ported; the arxiv row needs its
-    loader and label diffusion, still on the ROADMAP (item 13)."""
-    for name, cfg in best_params.items():
-        if name != "ogbn-arxiv":
-            check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP .* item 13"):
-        check_supported(best_params["ogbn-arxiv"])
+    """Every tuned row is ported, ogbn-arxiv and its label diffusion
+    included; the arxiv row's positional encoding (``pos_enc_type``, read
+    only with ``beltrami``) is still on the ROADMAP (item 15)."""
+    for cfg in best_params.values():
+        check_supported(cfg)
+    check_supported(best_params["ogbn-arxiv"].replace(use_labels=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP .* item 15"):
+        check_supported(best_params["ogbn-arxiv"].replace(beltrami=True))
 
 
 def test_port_runs_without_jax():
@@ -251,6 +252,7 @@ def test_port_runs_without_jax():
         nl = cfg.replace(function="transformer", block="constant",
                          attention_norm_idx=0, square_plus=False)
         for c in (nl, nl.replace(square_plus=True),
+                  nl.replace(attention_norm_idx=1),
                   nl.replace(function="GAT"), nl.replace(mix_features=True),
                   nl.replace(block="hard_attention"),
                   cfg.replace(block="mixed")):
@@ -259,6 +261,7 @@ def test_port_runs_without_jax():
                 logits, stats = m(d.x)
             assert torch.isfinite(logits).all() and stats["nfe"] > 0
         assert "graph_neural_pde_tpu_torch.kernels.dual_scatter" in sys.modules
+        assert "graph_neural_pde_tpu_torch.kernels.norm1" in sys.modules
         bad = [k for k, mod in sys.modules.items() if mod is not None and (
             k.split(".")[0] in ("jax", "graph_neural_pde_tpu"))]
         assert not bad, bad
