@@ -36,7 +36,15 @@ Phases, each of which must pass (any failure exits nonzero):
    ``norm1_fwd`` and K14 ``norm1_bwd`` (every output, against the plain
    version in float64), for all four score families on the Cora stand-in
    at D=16, ATT=16, H=4 and for scaled_dot at the same two real shapes;
-   two launches of each must be bit-identical. Each check is timed: device time per call
+   two launches of each must be bit-identical. K15 ``blocked_spmm``
+   (forward, and dx on the transposed plan) and K16 ``blocked_sddmm`` over
+   the block plan (1024-node blocks, 1024-slot chunks) of: the Cora
+   stand-in after rcm at D=80, the ogbn-arxiv stand-in after rcm at D=162,
+   the image CLI's batches (64 MNIST-shaped 28 x 28 grids, D=1; 64
+   CIFAR-shaped 32 x 32 grids with diagonals, D=3) and an 8-neighbour
+   412 x 411 grid (ogbn-arxiv's node count) at D=128, each with K1 and K2
+   on the same row-sorted graph beside it; two launches of each must be
+   bit-identical. Each check is timed: device time per call
    (torch.profiler, mean of 20 calls; all device work of the call, so the
    wrapper's output memset counts) and time per call seen from the host
    (CUDA events around one call, median of 20; at small shapes this is the
@@ -52,7 +60,9 @@ Phases, each of which must pass (any failure exits nonzero):
    attention and the continuous adjoint with its dopri5 backward solve),
    and the Cora GRAND-nl config (transformer function) at reduced width
    with the softmax, with the row's squareplus, as the GAT function, and
-   with the softmax over columns (the row's own ``attention_norm_idx``);
+   with the softmax over columns (the row's own ``attention_norm_idx``),
+   the tuned Cora row on the blocked engine (128-node blocks), and the
+   image model (one training forward and backward) on both engines;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after: tuned Cora for 1 training epoch (followed by an eval step
@@ -74,8 +84,15 @@ Phases, each of which must pass (any failure exits nonzero):
    which must re-solve on the composed exact softmax; (h) (a)'s
    architecture with ``attention_norm_idx=1`` for 1 epoch; (i) the tuned
    ogbn-arxiv row (hard attention, batch norm, rk4 adjoint, rmsprop) over
-   its stand-in for 1 epoch, as tuned and with ``use_labels``. Each run must launch the kernels its path
-   runs, and all thirteen counters must grow.
+   its stand-in for 1 epoch, as tuned and with ``use_labels``; (j) the
+   tuned Cora row with ``spmm_impl="pallas_blocked", node_reorder="rcm"``
+   for 1 epoch with the early-stop eval, which must launch K15 and K16 and
+   neither K1 nor K2; (k) ``train_image`` on the blocked engine at the
+   image CLI's defaults (batch 64, rk4, step 1, T = 3) over the stand-in
+   images for four batches, without and with ``remat`` (identical losses;
+   the peak device memory of each is printed); (l) the same on the
+   default engine (K1), whose loss must agree with (k)'s. Each run must
+   launch the kernels its path runs, and all fifteen counters must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -157,15 +174,34 @@ def compare(name, got, want):
     return abs_err, rel
 
 
-def prepared_graph(row: str, data_dir: str):
-    """The tuned row's dataset (its SBM stand-in without raw files),
-    prepared as its block prepares it."""
+def prepared_graph(row: str, data_dir: str, **overrides):
+    """The tuned row's dataset (its SBM stand-in without raw files), with
+    ``overrides`` (e.g. ``node_reorder``) on its config, prepared as its
+    block prepares it."""
     from graph_neural_pde_tpu_torch.config import best_params
     from graph_neural_pde_tpu_torch.data.datasets import get_dataset
     from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
-    cfg = best_params[row]
+    cfg = best_params[row].replace(**overrides)
     d = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc)
     return prepare_graph(cfg, d.graph)
+
+
+def image_config(**overrides):
+    """The image CLI's configuration (``training/run_image.py``)."""
+    from graph_neural_pde_tpu_torch.config import Config
+    return Config(block="constant", function="laplacian", method="rk4",
+                  step_size=1.0, time=3.0, input_dropout=0.0, dropout=0.0,
+                  lr=0.01, decay=0.0, self_loop_weight=1.0).replace(
+                      **overrides)
+
+
+def grid_graph(batch: int, h: int, w: int, diagonals: bool):
+    """``batch`` h x w pixel grids as one graph, prepared as the image
+    model prepares it (self-loops, random-walk norm, row sort)."""
+    from graph_neural_pde_tpu_torch.data.image import batched_grid_graph
+    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
+    return prepare_graph(image_config(),
+                         batched_grid_graph(batch, h, w, diagonals))
 
 
 def arxiv_scale_graph(seed: int):
@@ -310,11 +346,21 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
             idx = n + 1 + (nv if perm is not None else 0)
             # K3 reads s and writes out and den; K4 reads out, g and den and
             # writes ds; a handful of operations per edge and head
+            library = None
+            if mode == "softmax" and perm is None:
+                # the softmax over each row of an [N, N, H] sparse tensor;
+                # coalescing (set-up, untimed) sums duplicate edges' scores
+                coo = torch.sparse_coo_tensor(
+                    torch.stack([g.row[:nv].long(), g.col[:nv].long()]),
+                    s[:nv], (n, n, h)).coalesce()
+
+                def library():
+                    return torch.sparse.softmax(coo, dim=1)
             rows.append(time_case(
                 "segment_norm", f"{mode} over {seg}", shape_name, dims,
                 lambda: segment_norm(*args, s, mode)[0],
                 lambda: segment_norm_plain(*args, s, mode)[0],
-                (4 * (idx + 2 * nv * h + n * h), 4 * nv * h)))
+                (4 * (idx + 2 * nv * h + n * h), 4 * nv * h), library))
             rows.append(time_case(
                 "segment_norm_bwd", f"{mode} over {seg}", shape_name, dims,
                 lambda: segment_norm_bwd(*args, first, ct, den, mode),
@@ -569,6 +615,80 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     return rows
 
 
+def check_blocked_kernels(shape_name, g, d, seed, block_n=1024, chunk=1024,
+                          dev="cuda"):
+    """K15 forward, K15 on the transposed plan (dx, weights permuted with
+    t_perm) and K16 against their plain versions, over the block plan of a
+    prepared graph's valid edges; two launches of each must be
+    bit-identical. Then K1 and K2 on the same row-sorted graph, so that the
+    two layouts are timed side by side."""
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    from graph_neural_pde_tpu_torch.kernels.blocked import (blocked_layout,
+                                                            make_plan_pair)
+    from graph_neural_pde_tpu_torch.ops.reorder import plan_occupancy
+    dev = torch.device(dev)
+    nv = g.num_valid
+    plans = make_plan_pair(g.row[:nv].numpy(), g.col[:nv].numpy(),
+                           num_nodes=g.num_nodes, block_n=block_n,
+                           chunk=chunk)
+    fwd, bwd = blocked_layout(plans.fwd, dev), blocked_layout(plans.bwd, dev)
+    npad, cap = fwd.num_nodes, fwd.capacity
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((npad, d), generator=gen, device=dev)
+    ct = torch.randn((npad, d), generator=gen, device=dev)
+    # positive weights on the valid slots, 0 on padding, as the engine
+    # hands K15 the frozen attention
+    w = torch.rand((cap,), generator=gen, device=dev) * fwd.valid
+    t_valid = torch.as_tensor(plans.t_valid, device=dev)
+    w_t = torch.where(t_valid, w[torch.as_tensor(plans.t_perm, device=dev)
+                                 .long()], torch.zeros((), device=dev))
+    # the yardsticks: one PyTorch call each, used nowhere in the port
+    vrows = torch.as_tensor(plans.fwd.row[plans.fwd.valid], device=dev)
+    vcols = torch.as_tensor(plans.fwd.col[plans.fwd.valid], device=dev)
+    idx = torch.stack([vrows.long(), vcols.long()])
+    csr = torch.sparse_coo_tensor(idx, w[fwd.valid], (npad, npad)) \
+        .coalesce().to_sparse_csr()
+    pattern = torch.sparse_coo_tensor(
+        idx, torch.ones(idx.shape[1], device=dev), (npad, npad)) \
+        .coalesce().to_sparse_csr()
+    x_t = x.t().contiguous()
+    nslots = int(plans.fwd.valid.sum())
+    # K15 reads per valid slot its two local ids and its weight, x once,
+    # and writes out; K16 reads two local ids per slot, both tables, and
+    # writes one float per slot (padding included); 2 flop per slot and
+    # feature
+    spmm_work = (4 * (3 * nslots + 2 * npad * d), 2 * nslots * d)
+    dot_work = (4 * (3 * cap + 2 * npad * d), 2 * cap * d)
+    cases = (
+        ("blocked_spmm", "forward A_w x",
+         lambda: K.blocked_spmm(fwd, w, x),
+         lambda: K.blocked_spmm_plain(fwd, w, x), spmm_work,
+         lambda: torch.sparse.mm(csr, x)),
+        ("blocked_spmm", "backward dx, transposed plan",
+         lambda: K.blocked_spmm(bwd, w_t, ct),
+         lambda: K.blocked_spmm_plain(bwd, w_t, ct), spmm_work, None),
+        ("blocked_sddmm", "backward dw = ct[row].x[col]",
+         lambda: K.blocked_sddmm(fwd, ct, x),
+         lambda: K.blocked_sddmm_plain(fwd, ct, x), dot_work,
+         lambda: torch.sparse.sampled_addmm(pattern, ct, x_t, beta=0.0)),
+    )
+    occ = plan_occupancy(plans.fwd)
+    dims = (f"N={g.num_nodes} N_pad={npad} slots={nslots} cap={cap} D={d} "
+            f"B={block_n} buckets={occ['buckets']}")
+    rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
+                      library)
+            for kname, what, kern, plain, work, library in cases]
+    for kname, what, kern, _, _, _ in cases:
+        if not torch.equal(kern(), kern()):
+            raise AssertionError(f"{kname} ({what}) @ {shape_name}: two "
+                                 f"launches differ")
+    print(f"[kernels] blocked_spmm, blocked_sddmm @ {shape_name}: plan fill "
+          f"{occ['fill']:.3f} over {occ['n_chunks']} chunks; two launches "
+          f"bit-identical", flush=True)
+    return rows + check_kernels(shape_name, g, d, seed, dev=dev)
+
+
 def grand_nl_cora():
     """The tuned Cora row as GRAND-nl: attention recomputed at every RHS
     evaluation (transformer function over the constant block) with the row
@@ -673,13 +793,81 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
           flush=True)
 
 
+def check_small_image(engine: str, devices=("cpu", "cuda")):
+    """The image model (12 x 12 stand-in images, batch 8, the image CLI's
+    rk4 solve) card against CPU from the same weights: one training
+    forward and backward on ``engine`` ("xla" or "pallas_blocked" with
+    128-node blocks)."""
+    import torch
+    from graph_neural_pde_tpu_torch.data.image import load_image_dataset
+    from graph_neural_pde_tpu_torch.models.gnn_image import GNNImageModel
+    from graph_neural_pde_tpu_torch.training.train import cross_entropy_loss
+    cfg = image_config(spmm_impl=engine, spmm_block_n=128, spmm_chunk=128)
+    data = load_image_dataset(tempfile.gettempdir(), "MNIST", 8)
+    x, y = next(data.batches(seed=0))
+    results, state = [], None
+    for dev in devices:
+        m = GNNImageModel(cfg, data.graph, data.h, data.w, data.c, 4, 8,
+                          device=dev)
+        if state is None:
+            with torch.no_grad():
+                m.block.func.alpha_train.fill_(0.7)
+                m.block.func.beta_train.fill_(-0.4)
+            state = {k: v.cpu().clone() for k, v in m.state_dict().items()}
+        m.load_state_dict(state)
+        logits, stats = m(torch.from_numpy(x).to(dev), training=True)
+        loss = cross_entropy_loss(logits, torch.from_numpy(y).to(dev),
+                                  torch.ones(8, device=dev))
+        loss.backward()
+        results.append((logits.detach().cpu(), float(loss.detach()),
+                        {k: p.grad.cpu() for k, p in m.named_parameters()
+                         if p.grad is not None}, stats["nfe"]))
+    (lc, loss_c, g_c, nfe_c), (lg, loss_g, g_g, nfe_g) = results
+    if nfe_c != nfe_g or not torch.allclose(lg, lc, rtol=1e-4, atol=1e-5) \
+            or not math.isclose(loss_g, loss_c, rel_tol=1e-4):
+        raise AssertionError(f"image model {engine}: cuda and cpu differ "
+                             f"(logits by {float((lg - lc).abs().max()):.3e},"
+                             f" loss {loss_g} vs {loss_c}, nfe {nfe_g} vs "
+                             f"{nfe_c})")
+    for k in g_c:
+        if not torch.allclose(g_g[k], g_c[k], rtol=1e-3,
+                              atol=1e-4 * float(g_c[k].abs().max())):
+            raise AssertionError(f"image model {engine}: gradient {k} "
+                                 f"differs between cuda and cpu")
+    print(f"[small] image model {engine} cuda vs cpu: loss {loss_g:.6f} vs "
+          f"{loss_c:.6f}, nfe {nfe_g}: agree (logits rtol 1e-4, grads rtol "
+          f"1e-3)", flush=True)
+
+
+def drive_image_path(label: str, cfg, data_dir: str, expected):
+    """``train_image`` at the image CLI's defaults (batch 64, rk4, step 1,
+    T = 3) over the stand-in images for one epoch of four batches, counters
+    set to 0 just before and read just after. Returns (history, launch
+    counts, peak device memory in GiB)."""
+    import torch
+    from graph_neural_pde_tpu_torch.training.run_image import train_image
+    torch.cuda.reset_peak_memory_stats()
+    (_, hist), launches, secs = counted(
+        label, expected,
+        lambda: train_image(cfg, data_dir, "MNIST", 64, 1, max_batches=4,
+                            verbose=False, device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not (len(hist) == 1 and math.isfinite(hist[0][0])):
+        raise AssertionError(f"{label}: bad history {hist}")
+    print(f"[main] 4 batches of {label} in {secs:.2f} s, loss "
+          f"{hist[0][0]:.6f}, peak device memory {peak:.4f} GiB; kernel "
+          f"launches {launches}", flush=True)
+    return hist, launches, peak
+
+
 GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
                    "segment_norm_bwd")
+BLOCKED_KERNELS = ("blocked_spmm", "blocked_sddmm")
 NORM1_KERNELS = ("norm1_den", "norm1_fwd", "norm1_bwd")
 ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
                                  "fused_rhs_bwd", "fused_rhs_bwd_sym",
                                  "dual_scatter", "dual_gather") \
-    + NORM1_KERNELS
+    + NORM1_KERNELS + BLOCKED_KERNELS
 
 
 def counted(label: str, expected, fn):
@@ -816,6 +1004,27 @@ def main() -> int:
             rows += check_norm1_kernels("cora-small", cora_g, 16, 16, 4,
                                         score, args.seed + 70 + i,
                                         timed=False)
+        # the blocked engine's shapes: reordered Cora and ogbn-arxiv
+        # stand-ins at their rows' widths, the image CLI's batches (64
+        # MNIST-shaped grids, D=1; 64 CIFAR-shaped grids with diagonals,
+        # D=3) and an 8-neighbour grid at ogbn-arxiv's node count
+        rows += check_blocked_kernels(
+            "cora-rcm", prepared_graph("Cora", data_dir, node_reorder="rcm"),
+            best_params["Cora"].hidden_dim, args.seed + 80)
+        rows += check_blocked_kernels(
+            "arxiv-standin-rcm",
+            prepared_graph("ogbn-arxiv", data_dir, node_reorder="rcm"),
+            best_params["ogbn-arxiv"].hidden_dim, args.seed + 81)
+        rows += check_blocked_kernels("mnist-batch64", grid_graph(64, 28, 28,
+                                                                  False),
+                                      1, args.seed + 82)
+        rows += check_blocked_kernels("cifar-batch64", grid_graph(64, 32, 32,
+                                                                  True),
+                                      3, args.seed + 83)
+        rows += check_blocked_kernels("grid-412x411", grid_graph(1, 412, 411,
+                                                                 True),
+                                      128, args.seed + 84)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         big = arxiv_scale_graph(args.seed)
         print(f"[kernels] arxiv-scale graph built on the host in "
@@ -850,6 +1059,13 @@ def main() -> int:
         # the row's own normalisation axis: the softmax over columns
         nl1 = nl.replace(attention_norm_idx=1)
         check_small_end_to_end("Cora GRAND-nl column softmax", base=nl1)
+        # the blocked engine (K15/K16) over 128-node blocks
+        check_small_end_to_end(
+            "Cora blocked", base=best_params["Cora"].replace(
+                spmm_impl="pallas_blocked", spmm_block_n=128,
+                spmm_chunk=128))
+        for engine in ("xla", "pallas_blocked"):
+            check_small_image(engine)
 
         # 5. the main paths
         fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
@@ -882,6 +1098,10 @@ def main() -> int:
             ("tuned ogbn-arxiv with label diffusion (i)",
              best_params["ogbn-arxiv"].replace(epoch=2, use_labels=True),
              ("csr_spmm", "edge_dot", "segment_norm")),
+            ("tuned Cora on the blocked engine after rcm (j)",
+             best_params["Cora"].replace(epoch=2, spmm_impl="pallas_blocked",
+                                         node_reorder="rcm"),
+             BLOCKED_KERNELS),
         )
         results, per_path = [], {}
         launches = dict.fromkeys(ALL_KERNELS, 0)
@@ -889,6 +1109,36 @@ def main() -> int:
             res, counts = drive_main_path(label, cfg, data_dir, expected)
             results.append(res)
             per_path[label] = counts
+        label = paths[-1][0]
+        if per_path[label]["csr_spmm"] or per_path[label]["edge_dot"]:
+            raise AssertionError(f"{label} launched K1/K2: "
+                                 f"{per_path[label]}")
+        # (k) the image CLI on the blocked engine, without and with remat;
+        # (l) on the default engine (K1)
+        images = {}
+        for label, cfg, expected in (
+                ("image CLI on the blocked engine (k)",
+                 image_config(spmm_impl="pallas_blocked"), ("blocked_spmm",)),
+                ("image CLI on the blocked engine with remat (k)",
+                 image_config(spmm_impl="pallas_blocked", remat=True),
+                 ("blocked_spmm",)),
+                ("image CLI on the default engine (l)", image_config(),
+                 ("csr_spmm",))):
+            hist, counts, peak = drive_image_path(label, cfg, data_dir,
+                                                  expected)
+            images[label] = (hist, peak)
+            per_path[label] = counts
+        (h_k, peak_k), (h_kr, peak_kr), (h_l, _) = images.values()
+        if h_k != h_kr:
+            raise AssertionError(f"remat changed the image losses: {h_k} vs "
+                                 f"{h_kr}")
+        if not math.isclose(h_k[0][0], h_l[0][0], rel_tol=1e-4):
+            raise AssertionError(f"image losses differ between the engines: "
+                                 f"{h_k} vs {h_l}")
+        print(f"[main] image CLI peak device memory without remat "
+              f"{peak_k:.4f} GiB, with remat {peak_kr:.4f} GiB; losses "
+              f"identical with and without remat, blocked vs default "
+              f"{h_k[0][0]:.6f} vs {h_l[0][0]:.6f}", flush=True)
         poisoned = (
             ("GRAND-nl Cora forced poison (c)", nl,
              ("fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd")),
@@ -934,7 +1184,9 @@ def main() -> int:
                "dual_gather": ("dual_scatter.cu", "stripe.py:655"),
                "norm1_den": ("norm1.cu", "fused_rhs.py:2070"),
                "norm1_fwd": ("norm1.cu", "fused_rhs.py:2189"),
-               "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297")}
+               "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297"),
+               "blocked_spmm": ("blocked.cu", "spmm_blocked.py:76"),
+               "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

@@ -6,6 +6,7 @@ mirror its names (``m1``, ``m2``, ``block.func``, ``block.att`` with
 ``Q``/``K``/``V``/``Wout`` and the exp_kernel's ``output_var`` /
 ``lengthscale``, the GAT function's ``block.func.att`` with ``W``/``Wout``/
 ``a``, the mixed block's ``block.gamma``, ``bn_in`` with ``scale``/``bias``;
+the image model's ``m2`` and ``block``;
 a block without an attention layer of its own simply has no ``block.att``
 in either package) and keep its
 ``[in, out]`` weight orientation, so a leaf's dotted path is its

@@ -13,9 +13,10 @@ and the splits are bit-identical to the JAX package's for one seed.
 ``ogbn-arxiv-synthetic`` is the seeded random graph at ogbn-arxiv's size
 that the JAX package's ``bench.py`` measures on (nothing is read from disk).
 
-The geom-gcn loaders, load-time rewiring and node reordering are not
-ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item.
+``cfg.node_reorder`` (``rcm`` or ``degree``) relabels the loaded dataset
+(``ops.reorder``), the stand-in included, as the JAX package does. The
+geom-gcn loaders and load-time rewiring are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -280,9 +281,6 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     if cfg.rewiring is not None:
         raise NotImplementedError(
             "load-time rewiring: ROADMAP Queue 1 slice 4 item 15")
-    if cfg.node_reorder not in (None, "none"):
-        raise NotImplementedError(
-            "node_reorder: ROADMAP Queue 2 P17-P18 (block-local graphs)")
     masks = None
     try:
         if ds in _PLANETOID:
@@ -295,7 +293,7 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     except DatasetUnavailable:
         if not synthetic_fallback:
             raise
-        return _stand_in(cfg, data_dir, pad)
+        return _maybe_reorder(_stand_in(cfg, data_dir, pad), cfg)
 
     if use_lcc:
         lcc = largest_connected_component(ei, x.shape[0])
@@ -313,4 +311,12 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
                     num_classes=int(y.max()) + 1, num_features=x.shape[1],
                     name=ds)
     _masks_to_torch(d, masks)
-    return d
+    return _maybe_reorder(d, cfg)
+
+
+def _maybe_reorder(d: NodeDataset, cfg: Config) -> NodeDataset:
+    """cfg.node_reorder: the block-locality relabelling (ops/reorder.py)."""
+    if cfg.node_reorder in (None, "none"):
+        return d
+    from graph_neural_pde_tpu_torch.ops.reorder import reorder_dataset
+    return reorder_dataset(d, cfg.node_reorder)[0]

@@ -10,6 +10,7 @@ bit-identical graph, features and masks.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +31,8 @@ class NodeDataset:
     num_classes: int
     num_features: int
     name: str = "synthetic"
+    # node order applied by ops.reorder (order[new_id] = old_id)
+    reorder: Optional[np.ndarray] = None
 
 
 def make_sbm_dataset(num_nodes=120, num_classes=3, num_features=16,

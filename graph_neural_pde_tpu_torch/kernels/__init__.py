@@ -6,6 +6,12 @@ Importing this package builds nothing; the kernels compile at first launch
 (``kernels.build``).
 """
 
+from graph_neural_pde_tpu_torch.kernels.blocked import (  # noqa: F401
+    blocked_sddmm,
+    blocked_sddmm_plain,
+    blocked_spmm,
+    blocked_spmm_plain,
+)
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import (  # noqa: F401
     csr_spmm,
     csr_spmm_plain,
@@ -52,4 +58,5 @@ from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
 
 KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
-           dual_scatter, dual_gather, norm1_den, norm1_fwd, norm1_bwd)
+           dual_scatter, dual_gather, norm1_den, norm1_fwd, norm1_bwd,
+           blocked_spmm, blocked_sddmm)

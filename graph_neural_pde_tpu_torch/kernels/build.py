@@ -75,6 +75,13 @@ _ENTRY_POINTS = {
     "gnpde_norm1_fwd": [_PTR] * 14 + [_INT] * 6 + [_PTR],
     # as gnpde_fused_rhs_bwd_sym, with project before the stream
     "gnpde_norm1_bwd": [_PTR] * 21 + [_INT] * 7 + [_PTR],
+    # The blocked-plan kernels (csrc/blocked.cu).
+    # rb_ptr, chunk_cols, seg_ptr, seg_row, seg_start, slot_ord, slot_col,
+    # w, x, out, n_blocks, block_n, dim, tile, stream
+    "gnpde_blocked_spmm": [_PTR] * 10 + [_INT] * 4 + [_PTR],
+    # chunk_rows, chunk_cols, row_local, col_local, a, b, out, capacity,
+    # chunk, block_n, dim, lanes, stream
+    "gnpde_blocked_sddmm": [_PTR] * 7 + [_INT] * 5 + [_PTR],
 }
 
 _lib = None

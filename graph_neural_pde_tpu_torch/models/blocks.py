@@ -23,12 +23,17 @@ ROADMAP item.
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
+from graph_neural_pde_tpu_torch.kernels.blocked import EdgeMap, PlanPair
+from graph_neural_pde_tpu_torch.kernels.blocked import \
+    make_spmm as make_blocked_spmm
 from graph_neural_pde_tpu_torch.models.attention import (
     TransformerAttention, apply_gat_attention, apply_transformer_attention,
     frozen_mean_attention)
@@ -38,6 +43,8 @@ from graph_neural_pde_tpu_torch.models.functions import (FuncAux, ODEFunc,
                                                          make_rhs,
                                                          rhs_may_poison)
 from graph_neural_pde_tpu_torch.ops.graph import Graph, get_rw_adj
+from graph_neural_pde_tpu_torch.ops.plan import (build_block_plan,
+                                                 transpose_plan)
 from graph_neural_pde_tpu_torch.ops.scatter import normalize_attention
 from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
 from graph_neural_pde_tpu_torch.solvers.api import (SolverOptions, odeint,
@@ -52,6 +59,51 @@ def check_block(cfg: Config) -> None:
             "block 'rewire_attention': ROADMAP Queue 1 slice 4 item 16")
     if cfg.block not in BLOCK_NAMES:
         raise ValueError(f"unknown block '{cfg.block}'")
+
+
+SPMM_IMPLS = ("xla", "pallas_blocked")
+
+
+def build_spmm_engine(cfg: Config, g: Graph) -> Tuple[Callable, int]:
+    """The laplacian aggregation engine of a prepared graph, and the node
+    count the ODE state is padded to.
+
+    * ``xla``: ``ops.spmm.make_spmm`` over the row-sorted graph (K1/K2).
+    * ``pallas_blocked``: the blocked plan pair of the graph's valid edges
+      (``kernels.blocked``: K15, its dx on the transposed plan, K16 for dw),
+      for the laplacian function only, as in the JAX package. The plan pads
+      the node count to a multiple of ``spmm_block_n``. The graph itself
+      stays row-sorted for everything else (the attention freeze walks its
+      ``rowptr``); the engine takes the per-edge weights in the graph's slot
+      order and reaches plan order with one gather through a host-built
+      slot map, and returns dw in the graph's order.
+    """
+    if cfg.spmm_impl != "pallas_blocked" or cfg.function != "laplacian":
+        return make_spmm(g), g.num_nodes
+    if cfg.rewire_KNN or cfg.edge_sampling or cfg.fa_layer:
+        print("[spmm] pallas_blocked disabled: runtime rewiring would stale "
+              "the static block plan", file=sys.stderr)
+        return make_spmm(g), g.num_nodes
+    mask = g.mask.cpu().numpy()
+    slots = np.nonzero(mask)[0]
+    plan, tags = build_block_plan(
+        g.row.cpu().numpy()[slots], g.col.cpu().numpy()[slots],
+        num_nodes=g.num_nodes, block_n=cfg.spmm_block_n,
+        chunk=cfg.spmm_chunk, return_tags=True)
+    bwd, t_perm, t_valid = transpose_plan(plan)
+    # graph slot of each plan slot, and plan slot of each valid graph slot
+    valid = tags >= 0
+    to_plan = np.where(valid, slots[np.maximum(tags, 0)], 0)
+    from_plan = np.zeros(g.capacity, np.int64)
+    from_plan[to_plan[valid]] = np.nonzero(valid)[0]
+    dev = g.row.device
+    edge_map = EdgeMap(
+        to_plan=torch.as_tensor(to_plan.astype(np.int32), device=dev),
+        from_plan=torch.as_tensor(from_plan.astype(np.int32), device=dev),
+        mask=g.mask)
+    spmm_fn = make_blocked_spmm(PlanPair(plan, bwd, t_perm, t_valid), dev,
+                                edge_map=edge_map)
+    return spmm_fn, plan.num_nodes
 
 
 def prepare_graph(cfg: Config, g: Graph) -> Graph:

@@ -10,7 +10,9 @@ port of ``models/gnn.py``).
 
 The model lives on one explicit ``device``. Its prepared graph is built on
 the host once and moved there; its aggregation runs through
-``ops.spmm.make_spmm`` (laplacian), ``kernels.fused_rhs`` (transformer,
+``ops.spmm.make_spmm`` (laplacian; ``kernels.blocked`` with
+``spmm_impl="pallas_blocked"``, whose plan pads the ODE state's node count
+to a multiple of ``spmm_block_n``), ``kernels.fused_rhs`` (transformer,
 plain row softmax) or ``kernels.dual_scatter`` (the other transformer
 variants and GAT), the hand-written CUDA kernels on a CUDA device.
 """
@@ -23,13 +25,14 @@ import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
-from graph_neural_pde_tpu_torch.models.blocks import (ODEBlock, block_forward,
+from graph_neural_pde_tpu_torch.models.blocks import (SPMM_IMPLS, ODEBlock,
+                                                      block_forward,
+                                                      build_spmm_engine,
                                                       check_block,
                                                       prepare_graph)
 from graph_neural_pde_tpu_torch.models.functions import check_function
 from graph_neural_pde_tpu_torch.models.layers import BatchNorm, Linear, dropout
 from graph_neural_pde_tpu_torch.ops.graph import Graph
-from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
 from graph_neural_pde_tpu_torch.solvers.api import check_method
 from graph_neural_pde_tpu_torch.training.train import OPTIMIZERS
 
@@ -62,9 +65,9 @@ def check_supported(cfg: Config) -> None:
     if cfg.mesh_devices and cfg.mesh_devices > 1:
         raise NotImplementedError(
             "mesh_devices: ROADMAP Queue 1 slice 6 item 20 (multi-device)")
-    if cfg.spmm_impl != "xla":
-        raise NotImplementedError(
-            f"spmm_impl {cfg.spmm_impl!r}: ROADMAP Queue 2 P17-P18")
+    if cfg.spmm_impl not in SPMM_IMPLS:
+        raise ValueError(f"unknown spmm_impl {cfg.spmm_impl!r} (expected "
+                         f"one of {SPMM_IMPLS})")
     if cfg.dtype != "float32" or cfg.rhs_payload_dtype != "float32":
         raise NotImplementedError(
             "bfloat16 state or payload: the port's kernels are float32 "
@@ -95,7 +98,7 @@ class GNNModel(nn.Module):
         self.num_classes = num_classes
         self.device = torch.device(device)
         self.graph = prepare_graph(cfg, graph).to(self.device)
-        self.spmm_fn = make_spmm(self.graph)
+        self.spmm_fn, self.padded_nodes = build_spmm_engine(cfg, self.graph)
         gen = torch.Generator().manual_seed(cfg.seed)
         # width of the ODE state: the encoder's output plus the label block
         self.core_dim = cfg.hidden_dim + (num_classes if cfg.use_labels
@@ -135,6 +138,17 @@ class GNNModel(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """Full forward. Returns (logits, solver stats)."""
         x0 = self.encode(x, training, generator)
-        z, stats = block_forward(self.block, self.cfg, self.graph, x0,
-                                 training, spmm_fn=self.spmm_fn)
-        return self.decode(z, training, generator), stats
+        n = x0.shape[0]
+        z, stats = block_forward(self.block, self.cfg, self.graph,
+                                 pad_nodes(x0, self.padded_nodes), training,
+                                 spmm_fn=self.spmm_fn)
+        return self.decode(z[:n], training, generator), stats
+
+
+def pad_nodes(x, num_nodes: int):
+    """``x`` [N, D] with zero rows appended up to ``num_nodes`` (the ODE
+    state of the blocked engine, whose plan pads the node count to a
+    multiple of ``spmm_block_n``)."""
+    if num_nodes > x.shape[0]:
+        x = torch.nn.functional.pad(x, (0, 0, 0, num_nodes - x.shape[0]))
+    return x

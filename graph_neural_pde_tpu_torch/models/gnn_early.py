@@ -15,7 +15,7 @@ from graph_neural_pde_tpu_torch.models.blocks import (build_aux,
                                                       solved_badly)
 from graph_neural_pde_tpu_torch.models.functions import (make_rhs,
                                                          rhs_may_poison)
-from graph_neural_pde_tpu_torch.models.gnn import GNNModel
+from graph_neural_pde_tpu_torch.models.gnn import GNNModel, pad_nodes
 from graph_neural_pde_tpu_torch.solvers.api import SolverOptions
 from graph_neural_pde_tpu_torch.solvers.early_stop import odeint_early_stop
 from graph_neural_pde_tpu_torch.training.train import accuracy, with_labels
@@ -36,13 +36,15 @@ class GNNEarlyModel(GNNModel):
         if cfg.use_labels:
             x = with_labels(x, y, masks[0], self.num_classes)
         x0 = self.encode(x, False)
+        n = x0.shape[0]
+        x0 = pad_nodes(x0, self.padded_nodes)
         aux, _ = build_aux(self.block, cfg, self.graph, x0, training=False)
         train_mask, val_mask, test_mask = masks
 
         def evaluate(z):
             # relu -> m2 only: the early-stop evaluator ignores dropout
             # (reference early_stop_solver.py:105-122)
-            logits = self.m2(torch.relu(z))
+            logits = self.m2(torch.relu(z[:n]))
             return (accuracy(logits, y, train_mask),
                     accuracy(logits, y, val_mask),
                     accuracy(logits, y, test_mask))
@@ -62,4 +64,4 @@ class GNNEarlyModel(GNNModel):
         # block_forward): re-run once with the exact per-row softmax
         if rhs_may_poison(cfg) and solved_badly(zT, stats):
             zT, best, stats = solve(True)
-        return self.decode(zT, False), best, stats
+        return self.decode(zT[:n], False), best, stats

@@ -8,8 +8,10 @@ data in ``--data_dir``, the SBM stand-in when it holds no raw files; the
 training CLI's Config flags override it, e.g. ``--function transformer
 --block constant --attention_norm_idx 0 --no-square_plus`` for GRAND-nl
 (without ``--attention_norm_idx 0`` the row's column softmax, K12-K14;
-``--no-fused_attention_agg`` composes it instead), and ``--dataset ogbn-arxiv-synthetic`` takes ``bench.py``'s GRAND-nl
-architecture), runs one warm-up epoch, then profiles ``--epochs``
+``--no-fused_attention_agg`` composes it instead), ``--dataset
+ogbn-arxiv-synthetic`` takes ``bench.py``'s GRAND-nl architecture, and
+``--spmm_impl pallas_blocked --node_reorder rcm`` the blocked SpMM, K15 and
+K16), runs one warm-up epoch, then profiles ``--epochs``
 epochs with ``torch.profiler``. Each epoch is the CLI's: a train step, an
 eval step and, for GNNEarly, the early-stop eval. Prints
 
@@ -18,7 +20,7 @@ eval step and, for GNNEarly, the early-stop eval. Prints
 * device busy time (the union of kernel, memcpy and memset intervals) over
   the profiled wall time, and so the device's idle share;
 * device time by kernel, with launch counts, and the port's kernels' mean
-  device time per launch (K1-K4, K6-K14, matched by their ``__global__``
+  device time per launch (K1-K4, K6-K16, matched by their ``__global__``
   names);
 * the device time of PyTorch's indexing kernels (the per-edge gathers such
   as q[row] and k[col] of the composed attention scores, and their

@@ -14,7 +14,10 @@ GRAND-nl (attention recomputed at every evaluation) on a tuned row's data:
 takes the softmax), or ``--function GAT --no-square_plus`` for the GAT
 function; ``--mix_features``, ``--reweight_attention``,
 ``--leaky_relu_slope`` and ``--block mixed`` or ``hard_attention`` apply as
-in the JAX CLI. ``--dataset ogbn-arxiv-synthetic
+in the JAX CLI. ``--spmm_impl pallas_blocked`` aggregates the laplacian
+function on the blocked SpMM (K15/K16), best after ``--node_reorder rcm``
+(or ``degree``) has laid the graph's communities into node blocks.
+``--dataset ogbn-arxiv-synthetic
 --use_best_params`` trains the architecture of the JAX package's
 ``bench.py`` on its random graph at ogbn-arxiv's size.
 

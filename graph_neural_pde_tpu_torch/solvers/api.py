@@ -36,6 +36,7 @@ class SolverOptions:
     atol: float = 1e-7
     step_size: float = 1.0      # fixed-grid methods
     max_steps: int = 1000       # adaptive trip bound (≈ max_nfe / evals_per_step)
+    remat: bool = False         # checkpoint fixed-grid steps in backprop
 
     @property
     def tableau(self) -> Tableau:
@@ -45,7 +46,8 @@ class SolverOptions:
     def from_config(cfg, adjoint: bool = False) -> "SolverOptions":
         """Build from a Config, applying the reference's max_nfe → trip
         bound; ``adjoint`` gives the continuous adjoint's backward solve
-        (adjoint_method, adjoint_step_size, tol_scale_adjoint)."""
+        (adjoint_method, adjoint_step_size, tol_scale_adjoint), which never
+        checkpoints its steps."""
         method = cfg.adjoint_method if adjoint else cfg.method
         evals = (TABLEAUS[method].evals_per_step
                  if method in TABLEAUS else 2)
@@ -54,7 +56,8 @@ class SolverOptions:
             rtol=cfg.rtol_adjoint if adjoint else cfg.rtol,
             atol=cfg.atol_adjoint if adjoint else cfg.atol,
             step_size=cfg.adjoint_step_size if adjoint else cfg.step_size,
-            max_steps=max(cfg.max_nfe // max(evals, 1), 4))
+            max_steps=max(cfg.max_nfe // max(evals, 1), 4),
+            remat=cfg.remat and not adjoint)
 
 
 def check_method(method: str) -> None:
@@ -79,7 +82,7 @@ def odeint(func: Callable, y0, t0: float, t1: float, opts: SolverOptions):
     check_method(opts.method)
     if opts.method in FIXED_METHODS:
         return odeint_fixed(func, opts.tableau, float(t0), float(t1),
-                            opts.step_size, y0)
+                            opts.step_size, y0, remat=opts.remat)
     return odeint_adaptive(func, opts.tableau, float(t0), float(t1),
                            opts.rtol, opts.atol, opts.max_steps, y0)
 

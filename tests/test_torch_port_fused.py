@@ -505,7 +505,7 @@ class TestWrappers:
                                                             in ops[:4]],
                              heads=H)
         assert [k.launches for k in kernels.KERNELS] == before
-        assert len(kernels.KERNELS) == 13
+        assert len(kernels.KERNELS) == 15
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "heads", "score",
                                      "beltrami", "meta"])
@@ -543,7 +543,7 @@ class TestWrappers:
             kernels.make_fused_ax_sym(g, 1, False, "scaled_dot")
 
     @pytest.mark.parametrize("override", [
-        dict(optimizer="adagrad"), dict(spmm_impl="pallas_blocked"),
+        dict(optimizer="adagrad"), dict(mesh_devices=2),
         dict(fa_layer=True), dict(edge_sampling=True),
         dict(dtype="bfloat16"), dict(beltrami=True)])
     def test_unported_variants_raise(self, override):

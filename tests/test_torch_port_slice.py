@@ -255,13 +255,23 @@ def test_port_runs_without_jax():
                   nl.replace(attention_norm_idx=1),
                   nl.replace(function="GAT"), nl.replace(mix_features=True),
                   nl.replace(block="hard_attention"),
-                  cfg.replace(block="mixed")):
+                  cfg.replace(block="mixed"),
+                  cfg.replace(spmm_impl="pallas_blocked", spmm_block_n=16,
+                              spmm_chunk=16)):
             m = GNNEarlyModel(c, 6, 3, d.graph)
             with torch.no_grad():
                 logits, stats = m(d.x)
             assert torch.isfinite(logits).all() and stats["nfe"] > 0
+        from graph_neural_pde_tpu_torch.training.run_image import train_image
+        from graph_neural_pde_tpu_torch.config import Config
+        _, hist = train_image(Config(block="constant", method="rk4",
+                                     self_loop_weight=1.0), "/nonexistent",
+                              batch_size=4, epochs=1, max_batches=1,
+                              verbose=False, device="cpu")
+        assert len(hist) == 1
         assert "graph_neural_pde_tpu_torch.kernels.dual_scatter" in sys.modules
         assert "graph_neural_pde_tpu_torch.kernels.norm1" in sys.modules
+        assert "graph_neural_pde_tpu_torch.kernels.blocked" in sys.modules
         bad = [k for k, mod in sys.modules.items() if mod is not None and (
             k.split(".")[0] in ("jax", "graph_neural_pde_tpu"))]
         assert not bad, bad
