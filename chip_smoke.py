@@ -44,9 +44,24 @@ Phases, each of which must pass (any failure exits nonzero):
    CIFAR-shaped 32 x 32 grids with diagonals, D=3) and an 8-neighbour
    412 x 411 grid (ogbn-arxiv's node count) at D=128, each with K1 and K2
    on the same row-sorted graph beside it; two launches of each must be
-   bit-identical. Each check is timed: device time per call
-   (torch.profiler, mean of 20 calls; all device work of the call, so the
-   wrapper's output memset counts) and time per call seen from the host
+   bit-identical. On directed graphs (no reverse-edge map): K17
+   ``fused_rhs_bwd_col`` (x[col]'s cotangent walked over the CSC view, and
+   dKw, dKb from each column's summed dk) and K8 without its per-edge dxg
+   (dq, dgmax), against their plain versions in float64,
+   for all four score families on a small random directed graph (2,000
+   nodes) at D=16, ATT=16, H=4 and for scaled_dot on the Cora stand-in
+   rewired by GDC on the card (the CLI's defaults) at D=80, ATT=128, H=8
+   and on ogbn-arxiv-synthetic's random pairs one way only (169,343 nodes,
+   plus self-loops) at D=128, ATT=32, H=2, two K17 launches bit-identical;
+   K1 as the column sum dx = A^T ct over the CSC view, K3/K4 over its
+   columns, against ``index_add`` over the columns, and K11's du with its
+   dx by K1 over the CSC view, on those two graphs.
+   Each check is timed: device time per call (torch.profiler after
+   warm-up calls in the same session, mean of 20 calls; the device events
+   of each call are counted by the launch they come from, and a session
+   whose calls differ lost events: it is measured again, three sessions in
+   all, or the check fails; all device work of the call, so the wrapper's
+   output memset counts) and time per call seen from the host
    (CUDA events around one call, median of 20; at small shapes this is the
    host's launch cost). Beside each time stands the least time the card
    could take for the same work (``bound``: the larger of the compulsory
@@ -61,8 +76,11 @@ Phases, each of which must pass (any failure exits nonzero):
    and the Cora GRAND-nl config (transformer function) at reduced width
    with the softmax, with the row's squareplus, as the GAT function, and
    with the softmax over columns (the row's own ``attention_norm_idx``),
-   the tuned Cora row on the blocked engine (128-node blocks), and the
-   image model (one training forward and backward) on both engines;
+   the tuned Cora row on the blocked engine (128-node blocks), the
+   image model (one training forward and backward) on both engines, and
+   the tuned Cora row and Cora GRAND-nl (the softmax, squareplus, the GAT
+   function) over one GDC-rewired (directed) edge list, built once on the
+   card and handed to both devices;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after: tuned Cora for 1 training epoch (followed by an eval step
@@ -91,8 +109,15 @@ Phases, each of which must pass (any failure exits nonzero):
    image CLI's defaults (batch 64, rk4, step 1, T = 3) over the stand-in
    images for four batches, without and with ``remat`` (identical losses;
    the peak device memory of each is printed); (l) the same on the
-   default engine (K1), whose loss must agree with (k)'s. Each run must
-   launch the kernels its path runs, and all fifteen counters must grow.
+   default engine (K1), whose loss must agree with (k)'s; (m) the tuned
+   Cora row with ``rewiring="gdc"`` at the CLI's defaults (approximate
+   PPR, top 64 per column) for 1 epoch with the early-stop eval, a
+   directed graph whose column-side passes (K1's dx, K3/K4) walk its CSC
+   view; (n) (b) over the same GDC graph, which must launch K6, K8 and K17
+   and not K9; (o) (a) with ``sym_backward=False``, the JAX package's
+   column-plan backward (K8 without dxg, K17, never K9), its epoch time
+   printed beside (a)'s. Each run must launch the kernels its path runs,
+   and all sixteen counters must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -137,24 +162,96 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps: int = 20):
-    """Mean device time of one call of ``fn``: the summed duration of the
-    kernels, memsets and copies it puts on the card, from torch.profiler.
-    None when the profiler records no device activity."""
+DEVICE_MS_TAG = "device_ms call"
+WARM_UP_TAG = "device_ms warm-up"
+
+
+def _session_events(fn, reps: int, warm_up_s: float = 0.025):
+    """One torch.profiler session of ``fn``: warm-up calls for at least
+    ``warm_up_s`` seconds in an annotated range (the profiler loses device
+    events in the first moments of a session), then ``reps`` calls, each
+    between two synchronisations in an annotated range of its own. Returns
+    the session's raw events."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not dev:
+        with record_function(WARM_UP_TAG):
+            t0, calls = time.perf_counter(), 0
+            while calls < 3 or time.perf_counter() - t0 < warm_up_s:
+                fn()
+                torch.cuda.synchronize()
+                calls += 1
+        for i in range(reps):
+            with record_function(f"{DEVICE_MS_TAG} {i}"):
+                fn()
+                torch.cuda.synchronize()
+    return prof.profiler.kineto_results.events()
+
+
+def _per_call_device_events(events, reps: int):
+    """(device events per counted call, device events of the counted calls,
+    their summed duration in us, device events whose launch was not found)
+    of a ``_session_events`` session. A device event belongs to the range
+    that holds the host-side runtime call (``cuda*`` / ``cu*``) that
+    launched it, matched by the CUPTI correlation id, so that host and
+    device clocks need not agree."""
+    import bisect
+    from torch.autograd import DeviceType
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    spans = sorted((e.start_ns(), e.end_ns()) for e in host
+                   if e.name().startswith(DEVICE_MS_TAG))
+    warm = [(e.start_ns(), e.end_ns()) for e in host
+            if e.name() == WARM_UP_TAG]
+    launched = {e.correlation_id(): e.start_ns() for e in host
+                if e.name().startswith("cu") and e.correlation_id() > 0}
+    starts = [a for a, _ in spans]
+    counts, n_dev, total, orphans = [0] * reps, 0, 0.0, 0
+    for e in events:
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name().startswith(("device_ms", "ProfilerStep"))):
+            continue
+        t = launched.get(e.correlation_id())
+        if t is None:
+            orphans += 1
+            continue
+        if any(a <= t <= b for a, b in warm):
+            continue
+        n_dev += 1
+        total += e.duration_ns() / 1e3
+        i = bisect.bisect_right(starts, t) - 1
+        if len(spans) == reps and 0 <= i and t <= spans[i][1]:
+            counts[i] += 1
+    return counts, n_dev, total, orphans
+
+
+def device_ms(fn, reps: int = 20, attempts: int = 3):
+    """Mean device time of one call of ``fn``: the summed duration of the
+    device events (kernels, memsets, copies) it puts on the card, from one
+    torch.profiler session over ``reps`` calls after a warm-up. Every call
+    puts the same work on the card, so the events are counted call by call
+    and the counts must agree: a session in which they differ, or in which
+    a device event belongs to no call, lost events and would read too
+    fast. It is measured again, ``attempts`` sessions in all, and then
+    raises rather than print a time. None when no session records any
+    device activity."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts):
+        counts, n_dev, total, orphans = _per_call_device_events(
+            _session_events(fn, reps), reps)
+        if (len(set(counts)) == 1 and counts[0] > 0
+                and sum(counts) == n_dev and not orphans):
+            return total / reps / 1e3
+        seen.append((counts, n_dev, orphans))
+    if not any(n_dev or orphans for _, n_dev, orphans in seen):
         return None
-    return sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    raise AssertionError(
+        f"device_ms: device events per call (then in all, then without a "
+        f"launch) differ in each of {attempts} profiler sessions {seen}: "
+        f"the profiler lost events, so no time is read")
 
 
 def compare(name, got, want):
@@ -220,6 +317,34 @@ def arxiv_scale_graph(seed: int):
     g = make_graph(np.concatenate([u, v]), np.concatenate([v, u]),
                    num_nodes=n, pad_multiple=512)
     return prepare_graph(best_params["Cora"], g)
+
+
+def directed_random_graph(n: int, pairs: int, seed: int):
+    """``pairs`` uniform pairs over ``n`` nodes drawn from ``seed`` as
+    ogbn-arxiv-synthetic draws its own (at its size, with its seed, its
+    pairs), one way only, prepared as the attention block prepares its
+    graph (random-walk norm, self loops): a directed graph, whose
+    column-side passes walk its CSC view."""
+    import numpy as np
+    from graph_neural_pde_tpu_torch.config import best_params
+    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
+    from graph_neural_pde_tpu_torch.ops.graph import make_graph
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, n, size=pairs, dtype=np.int64)
+    col = rng.integers(0, n, size=pairs, dtype=np.int64)
+    g = make_graph(row.astype(np.int32), col.astype(np.int32), num_nodes=n,
+                   pad_multiple=512)
+    return prepare_graph(best_params["Cora"], g)
+
+
+def gdc_graph(cfg, data_dir: str):
+    """``cfg``'s dataset (its stand-in without raw files) rewired by GDC,
+    the dense diffusion on the card, and prepared as its block prepares
+    it."""
+    from graph_neural_pde_tpu_torch.data.datasets import get_dataset
+    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
+    d = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc, device="cuda")
+    return prepare_graph(cfg, d.graph)
 
 
 def check_kernels(shape_name, g, d, seed, dev="cuda"):
@@ -316,9 +441,11 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
 
 
 def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
-    """K3 in both modes over rows and over columns (perm = rev) and K4 in
-    both modes, against their plain versions; two K3 launches on one input
-    must be bit-identical."""
+    """K3 in both modes and K4 in both modes, against their plain versions
+    (``index_add`` over each edge's row or column), over rows and over
+    columns: through the reverse-edge map ``rev`` on a symmetric graph,
+    over the CSC view (``colptr``, ``col_perm``) on a directed one; two K3
+    launches on one input must be bit-identical."""
     import torch
     from graph_neural_pde_tpu_torch.kernels import (segment_norm,
                                                     segment_norm_bwd,
@@ -331,10 +458,16 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
     ct = torch.randn((g.capacity, h), generator=gen, device=dev)
     # normalise takes positive weights (squareplus values, attention)
     weights = torch.rand((g.capacity, h), generator=gen, device=dev) + 0.05
+    if g.rev is not None:
+        layouts = (("rows", (g.rowptr, g.row, None)),
+                   ("columns", (g.rowptr, g.row, g.rev)))
+    else:
+        layouts = (("columns over CSC",
+                    (g.colptr, g.col_by_col, g.col_perm)),)
     rows = []
     for mode, s in (("softmax", scores), ("normalise", weights)):
-        for seg, perm in (("rows", None), ("columns", g.rev)):
-            args = (g.rowptr, g.row, perm)
+        for seg, args in layouts:
+            perm = args[2]
             first, den = segment_norm(*args, s, mode)
             again = segment_norm(*args, s, mode)
             if not (torch.equal(first, again[0]) and torch.equal(den,
@@ -347,15 +480,16 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
             # K3 reads s and writes out and den; K4 reads out, g and den and
             # writes ds; a handful of operations per edge and head
             library = None
-            if mode == "softmax" and perm is None:
-                # the softmax over each row of an [N, N, H] sparse tensor;
-                # coalescing (set-up, untimed) sums duplicate edges' scores
+            if mode == "softmax" and (perm is None or g.rev is None):
+                # the softmax over each row (each column: dim 0) of an
+                # [N, N, H] sparse tensor; coalescing (set-up, untimed)
+                # sums duplicate edges' scores
                 coo = torch.sparse_coo_tensor(
                     torch.stack([g.row[:nv].long(), g.col[:nv].long()]),
                     s[:nv], (n, n, h)).coalesce()
 
-                def library():
-                    return torch.sparse.softmax(coo, dim=1)
+                def library(coo=coo, dim=1 if perm is None else 0):
+                    return torch.sparse.softmax(coo, dim=dim)
             rows.append(time_case(
                 "segment_norm", f"{mode} over {seg}", shape_name, dims,
                 lambda: segment_norm(*args, s, mode)[0],
@@ -369,6 +503,41 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
     print(f"[kernels] segment_norm @ {shape_name} H={h}: two launches "
           f"bit-identical in every mode", flush=True)
     return rows
+
+
+def check_column_sum(shape_name, g, d, seed, dev="cuda"):
+    """K1 as the column-side sum of a directed graph, dx = A_w^T ct walked
+    over the CSC view (``colptr``, gathering ``ct[row_by_col]`` with the
+    weights ``w[col_perm]``), against ``index_add`` over the edges'
+    columns; two launches must be bit-identical. Library: ``torch.sparse
+    .mm`` of the transposed CSR."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import csr_spmm
+    dev = torch.device(dev)
+    g = g.to(dev)
+    n, nv = g.num_nodes, g.num_valid
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ct = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.rand((g.capacity,), generator=gen, device=dev) * g.mask
+    w_col = w[g.col_perm.long()]
+    row_l, col_l = g.row.long()[:nv], g.col.long()[:nv]
+    csc = (g.colptr, g.col_by_col, g.row_by_col)
+    csr_t = torch.sparse_csr_tensor(g.colptr, g.row_by_col[:nv], w_col[:nv],
+                                    size=(n, n))
+
+    def kern():
+        return csr_spmm(*csc, w_col, ct)
+
+    if not torch.equal(kern(), kern()):
+        raise AssertionError(f"csr_spmm over CSC @ {shape_name}: two "
+                             f"launches differ")
+    return [time_case(
+        "csr_spmm", "column sum dx = A_w^T ct over CSC", shape_name,
+        f"N={n} E={nv} D={d}", kern,
+        lambda: torch.zeros_like(ct).index_add(0, col_l,
+                                               ct[row_l] * w[:nv, None]),
+        (4 * (n + 1 + 2 * nv + 2 * n * d), 2 * nv * d),
+        lambda: torch.sparse.mm(csr_t, ct))]
 
 
 def rhs_operands(g, d, att, h, score, seed, dev):
@@ -491,12 +660,90 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     return rows
 
 
+def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
+                             timed=True, dev="cuda"):
+    """K17 (x[col]'s cotangent walked over the CSC view of a directed
+    graph, and dkw, dkb from each column's summed dk) and K8 without its
+    per-edge dxg (dq, dgmax), the two kernels of the column-plan backward, against their plain versions evaluated in float64
+    on the same float32 inputs; two K17 launches must be bit-identical.
+    ``timed=False`` only compares."""
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    if g.rev is not None:
+        raise AssertionError(f"{shape_name}: not a directed graph")
+    n, nv = g.num_nodes, g.num_valid
+    csc = (g.colptr, g.col_by_col, g.row_by_col)
+    ct_ax = randn(n, d)
+    ct_den = 1.0 + randn(n, h, scale=0.1)
+    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_f)
+    recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
+    cts = (ct_ax, recip_p, ct_den)
+
+    def f64(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+
+    def plain64(fn, index, **kw):
+        out = fn(*index, *map(f64, ops), *map(f64, cts),
+                 **{k: f64(v) for k, v in {**kw_f, **kw}.items()})
+        if torch.is_tensor(out):
+            return out.float()
+        return tuple(o.float() for o in out if o is not None)
+
+    def some(out):
+        return tuple(o for o in out if o is not None)
+
+    # compulsory bytes: the index arrays, x, the cotangents read per node,
+    # the projections' weights and the outputs. float32 operations, from
+    # this run's edge count: the node projections (2 N proj), per edge one
+    # score per head and its derivative (~6 ATT) and the dot over D (2 D);
+    # K17 adds the accumulation over D per edge (2 D) and, per node, the
+    # product of the column's summed dk by Kw^T and the node's term of
+    # dKw = sum_n x_n^T dk_n (2 N proj). K8 without dxg forms no dk.
+    base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
+    proj = 2 * d * att
+    node_b = 4 * n * (d + 2 * h)
+    cases = [
+        ("fused_rhs_bwd_col", "dx, dkw, dkb over CSC",
+         lambda: K.fused_rhs_bwd_col(*csc, *ops, *cts, **kw_f),
+         lambda: K.fused_rhs_bwd_col_plain(*csc, *ops, *cts, **kw_f),
+         (base_bytes + node_b + 4 * (n * d + d * att + att),
+          4 * n * proj + nv * (6 * att + 4 * d)),
+         lambda: plain64(K.fused_rhs_bwd_col_plain, csc)),
+        ("fused_rhs_bwd", "without dxg (dq, dgmax)",
+         lambda: some(K.fused_rhs_bwd(*csr, *ops, *cts, want_dxg=False,
+                                      **kw_f)),
+         lambda: some(K.fused_rhs_bwd_plain(*csr, *ops, *cts,
+                                            want_dxg=False, **kw_f)),
+         (base_bytes + node_b + 4 * n * att,
+          2 * n * proj + nv * (6 * att + 2 * d)),
+         lambda: plain64(K.fused_rhs_bwd_plain, csr, want_dxg=False)),
+    ]
+    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}"
+    rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
+                      reference=ref, timed=timed)
+            for kname, what, kern, plain, work, ref in cases]
+    if not all(torch.equal(a, b) for a, b in zip(cases[0][2](),
+                                                 cases[0][2]())):
+        raise AssertionError(f"fused_rhs_bwd_col {score} @ {shape_name}: "
+                             f"two launches differ")
+    print(f"[kernels] fused_rhs_bwd_col @ {shape_name} {score}: two "
+          f"launches bit-identical in every output", flush=True)
+    return rows
+
+
 def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
     """K10 and K11 against their plain versions (K11 also against the plain
     version evaluated in float64 on the same float32 inputs); two launches
-    of each must be bit-identical. ``timed=False`` only compares."""
+    of each must be bit-identical. On a directed graph (no ``rev``) K11
+    writes du only and dx is K1 over the CSC view in table mode
+    (``column_head_sum``), checked as one call. ``timed=False`` only
+    compares."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
+    from graph_neural_pde_tpu_torch.kernels.dual_scatter import \
+        column_head_sum
     dev = torch.device(dev)
     g = g.to(dev)
     n, nv = g.num_nodes, g.num_valid
@@ -522,12 +769,21 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
                     2 * nv * h * d + nv * h)
     gather_work = (4 * (n + 1 + 2 * nv + 2 * nv * h + 2 * n * d + n * h * d
                         + n * h), 4 * nv * h * d)
+
+    def gather():
+        du, dx = K.dual_gather(*csr, g.rev, u, x, ct_num, ct_den)
+        if g.rev is None:
+            if dx is not None:
+                raise AssertionError("dual_gather formed dx without rev")
+            dx = column_head_sum(g, u, ct_num)
+        return du, dx
+
     cases = (
         ("dual_scatter", "num, den",
          lambda: K.dual_scatter(*csr, u, x),
          lambda: K.dual_scatter_plain(*csr, u, x), scatter_work, None),
-        ("dual_gather", "du, dx",
-         lambda: K.dual_gather(*csr, g.rev, u, x, ct_num, ct_den),
+        ("dual_gather", "du, dx" if g.rev is not None
+         else "du; dx by K1 over CSC", gather,
          lambda: K.dual_gather_plain(*csr, u, x, ct_num, ct_den),
          gather_work, gather64),
     )
@@ -708,12 +964,14 @@ def attention_layer(model):
 
 def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                            early_stop_counts: bool = True,
-                           grad_floor: float = 1e-6):
-    """A tuned row (or ``base``) at reduced width on a 300-node SBM: the
-    card's kernel path against the CPU's plain path, same weights and
-    inputs. The early-stop eval integrates to 3T, far into the steady state,
-    where the error estimate is rounding noise: a config whose step counts
-    differ there between two orders of summation passes
+                           grad_floor: float = 1e-6, graph=None):
+    """A tuned row (or ``base``) at reduced width on a 300-node SBM (over
+    ``graph`` where one is given: a rewired edge list built once and handed
+    to both devices): the card's kernel path against the CPU's plain path,
+    same weights and inputs. The early-stop eval integrates to 3T, far
+    into the steady state, where the error estimate is rounding noise: a
+    config whose step counts differ there between two orders of summation
+    passes
     ``early_stop_counts=False`` and is held to the best snapshot instead
     (equal validation accuracy, t* within 1%). ``grad_floor`` is the
     rounding noise allowed in every gradient entry, as a share of the
@@ -728,6 +986,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
         dropout=0.0)
     d = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=24,
                          seed=3, num_val=60)
+    if graph is not None:
+        d.graph = graph
     gen = torch.Generator().manual_seed(5)
     results = {}
     state = None
@@ -839,6 +1099,21 @@ def check_small_image(engine: str, devices=("cpu", "cuda")):
           f"1e-3)", flush=True)
 
 
+def small_gdc_graph():
+    """check_small_end_to_end's 300-node SBM rewired by GDC at the CLI's
+    defaults (approximate PPR, top 64 per column, self loop weight 1), the
+    dense diffusion on the card: a host graph, directed."""
+    from graph_neural_pde_tpu_torch.config import Config
+    from graph_neural_pde_tpu_torch.data.synthetic import make_sbm_dataset
+    from graph_neural_pde_tpu_torch.rewiring.gdc import apply_gdc
+    d = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=24,
+                         seed=3, num_val=60)
+    g = apply_gdc(d.graph, Config(self_loop_weight=1.0), device="cuda")
+    if g.sort_by_row().rev is not None:
+        raise AssertionError("the GDC-rewired SBM is symmetric")
+    return g
+
+
 def drive_image_path(label: str, cfg, data_dir: str, expected):
     """``train_image`` at the image CLI's defaults (batch 64, rk4, step 1,
     T = 3) over the stand-in images for one epoch of four batches, counters
@@ -864,10 +1139,11 @@ GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
                    "segment_norm_bwd")
 BLOCKED_KERNELS = ("blocked_spmm", "blocked_sddmm")
 NORM1_KERNELS = ("norm1_den", "norm1_fwd", "norm1_bwd")
+COLPLAN_KERNELS = ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_bwd_col")
 ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
                                  "fused_rhs_bwd", "fused_rhs_bwd_sym",
                                  "dual_scatter", "dual_gather") \
-    + NORM1_KERNELS + BLOCKED_KERNELS
+    + NORM1_KERNELS + BLOCKED_KERNELS + ("fused_rhs_bwd_col",)
 
 
 def counted(label: str, expected, fn):
@@ -1043,6 +1319,55 @@ def main() -> int:
                                     "scaled_dot", args.seed + 61)
         del big
         torch.cuda.empty_cache()
+        # directed graphs: K17 and K8 without dxg (four score families on a
+        # small random graph; the GDC-rewired Cora stand-in at (n)'s widths;
+        # arxiv scale at (o)'s), K1 as the column sum and K3/K4 over the CSC
+        # view
+        gdc_cora = best_params["Cora"].replace(rewiring="gdc")
+        t0 = time.perf_counter()
+        cora_gdc = gdc_graph(gdc_cora, data_dir)
+        print(f"[kernels] Cora stand-in rewired by GDC on the card (ppr, "
+              f"exact={gdc_cora.exact}, top {gdc_cora.gdc_k} per column) "
+              f"in {time.perf_counter() - t0:.2f} s: {cora_gdc.num_valid} "
+              f"edges with self loops, symmetric: {cora_gdc.rev is not None}",
+              flush=True)
+        if cora_gdc.rev is not None:
+            raise AssertionError("the GDC-rewired Cora stand-in is symmetric")
+        small_dir = directed_random_graph(2000, 16_000, args.seed + 90)
+        for i, score in enumerate(SCORE_FAMILIES):
+            rows += check_column_rhs_kernels("directed-small", small_dir, 16,
+                                             16, 4, score, args.seed + 91 + i,
+                                             timed=False)
+        rows += check_column_rhs_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
+                                         nl.attention_dim, nl.heads,
+                                         "scaled_dot", args.seed + 95)
+        rows += check_column_sum("cora-gdc", cora_gdc,
+                                 best_params["Cora"].hidden_dim,
+                                 args.seed + 96)
+        rows += check_segment_kernels("cora-gdc", cora_gdc,
+                                      best_params["Cora"].heads,
+                                      args.seed + 97)
+        rows += check_dual_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
+                                   nl.heads, args.seed + 104, timed=False)
+        t0 = time.perf_counter()
+        big_dir = directed_random_graph(169_343, 1_166_243, args.seed)
+        print(f"[kernels] directed arxiv-scale graph built on the host in "
+              f"{time.perf_counter() - t0:.1f} s: {big_dir.num_valid} edges",
+              flush=True)
+        rows += check_column_rhs_kernels("arxiv-directed", big_dir,
+                                         bench.hidden_dim, bench.attention_dim,
+                                         bench.heads, "scaled_dot",
+                                         args.seed + 98)
+        rows += check_column_sum("arxiv-directed", big_dir, bench.hidden_dim,
+                                 args.seed + 99)
+        for h in (1, 8):
+            rows += check_segment_kernels("arxiv-directed", big_dir, h,
+                                          args.seed + 100 + h)
+        rows += check_dual_kernels("arxiv-directed", big_dir,
+                                   bench.hidden_dim, bench.heads,
+                                   args.seed + 105, timed=False)
+        del big_dir
+        torch.cuda.empty_cache()
 
         # 4. end to end on small inputs, card vs CPU
         check_small_end_to_end("Cora")
@@ -1066,6 +1391,23 @@ def main() -> int:
                 spmm_chunk=128))
         for engine in ("xla", "pallas_blocked"):
             check_small_image(engine)
+        # a directed graph: the 300-node SBM rewired by GDC once, on the
+        # card, at the CLI's defaults, and handed to both devices (the
+        # dense diffusion may differ in its last bits between devices)
+        small_gdc = small_gdc_graph()
+        check_small_end_to_end("Cora over GDC", base=best_params["Cora"],
+                               graph=small_gdc)
+        check_small_end_to_end("Cora GRAND-nl over GDC", base=nl,
+                               graph=small_gdc)
+        # K10/K11 with dx by K1 over the CSC view (tolerances as above)
+        check_small_end_to_end("Cora GRAND-nl squareplus over GDC",
+                               base=nl.replace(square_plus=True),
+                               graph=small_gdc, early_stop_counts=False,
+                               grad_floor=1e-5)
+        check_small_end_to_end("Cora GAT over GDC",
+                               base=nl.replace(function="GAT"),
+                               graph=small_gdc, early_stop_counts=False,
+                               grad_floor=1e-5)
 
         # 5. the main paths
         fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
@@ -1102,17 +1444,42 @@ def main() -> int:
              best_params["Cora"].replace(epoch=2, spmm_impl="pallas_blocked",
                                          node_reorder="rcm"),
              BLOCKED_KERNELS),
+            ("tuned Cora over GDC (m)", gdc_cora.replace(epoch=2),
+             GRAND_L_KERNELS),
+            ("GRAND-nl Cora over GDC (n)", nl.replace(epoch=2,
+                                                      rewiring="gdc"),
+             COLPLAN_KERNELS),
+            ("GRAND-nl arxiv-scale sym_backward=False (o)",
+             bench.replace(epoch=2, seed=args.seed, sym_backward=False),
+             COLPLAN_KERNELS),
         )
-        results, per_path = [], {}
+        results, per_path = {}, {}
         launches = dict.fromkeys(ALL_KERNELS, 0)
         for label, cfg, expected in paths:
             res, counts = drive_main_path(label, cfg, data_dir, expected)
-            results.append(res)
+            results[label] = res
             per_path[label] = counts
-        label = paths[-1][0]
+        label = "tuned Cora on the blocked engine after rcm (j)"
         if per_path[label]["csr_spmm"] or per_path[label]["edge_dot"]:
             raise AssertionError(f"{label} launched K1/K2: "
                                  f"{per_path[label]}")
+        # (m) ran over the directed graph built above from the same config
+        # (no rev: every column-side pass walked the CSC view); (n) and (o)
+        # took the column-plan backward, never K9
+        for label in paths[-2:]:
+            if per_path[label[0]]["fused_rhs_bwd_sym"]:
+                raise AssertionError(f"{label[0]} launched K9: "
+                                     f"{per_path[label[0]]}")
+        print(f"[main] (m) trained over the GDC-rewired Cora stand-in: "
+              f"{cora_gdc.num_valid} edges with self loops, no reverse-edge "
+              f"map; K3 {per_path[paths[-3][0]]['segment_norm']} and K4 "
+              f"{per_path[paths[-3][0]]['segment_norm_bwd']} launches over "
+              f"its CSC view", flush=True)
+        epoch_a = results["GRAND-nl arxiv-scale (a)"].logs[0].runtime
+        epoch_o = results[paths[-1][0]].logs[0].runtime
+        print(f"[main] GRAND-nl arxiv-scale epoch: (a) K9 backward "
+              f"{epoch_a:.4f} s, (o) K8 + K17 column-plan backward "
+              f"{epoch_o:.4f} s ({epoch_o / epoch_a:.3f}x)", flush=True)
         # (k) the image CLI on the blocked engine, without and with remat;
         # (l) on the default engine (K1)
         images = {}
@@ -1163,7 +1530,8 @@ def main() -> int:
         for counts in per_path.values():
             for k, v in counts.items():
                 launches[k] += v
-    cora_losses = [[log.loss for log in r.logs] for r in results[:2]]
+    cora_losses = [[log.loss for log in results[k].logs]
+                   for k in ("tuned Cora", "tuned Cora again")]
     print(f"[main] two runs of tuned Cora agree bit for bit: "
           f"{cora_losses[0] == cora_losses[1]} (losses {cora_losses[0]} and "
           f"{cora_losses[1]})", flush=True)
@@ -1186,7 +1554,8 @@ def main() -> int:
                "norm1_fwd": ("norm1.cu", "fused_rhs.py:2189"),
                "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297"),
                "blocked_spmm": ("blocked.cu", "spmm_blocked.py:76"),
-               "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135")}
+               "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135"),
+               "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

@@ -34,10 +34,12 @@
 // warp by a fixed xor-shuffle butterfly, and reaches dx through the
 // reverse-edge map of a symmetric edge multiset: the edges whose column is
 // n are the reverse edges rev[e'] of row n's own edges e', so dx[n] is a
-// walk over row n that reads u[rev[e']] and ct_num[col[e']]. There are no
-// atomics: every output element is summed by one lane in edge order, so
-// two launches agree bit for bit, which the solver's replay of accepted
-// steps relies on.
+// walk over row n that reads u[rev[e']] and ct_num[col[e']]. On a directed
+// graph the wrapper passes rev = dx = null: K11 writes du only, and dx is
+// K1 (csr_spmm.cu) walked over the CSC view in table mode, ct_num read as
+// an [N * H, D] table. There are no atomics: every output element is
+// summed by one lane in edge order, so two launches agree bit for bit,
+// which the solver's replay of accepted steps relies on.
 
 #include <cuda_runtime.h>
 
@@ -155,7 +157,7 @@ __global__ void dual_gather_kernel(const int* __restrict__ rowptr,
     int c = 0, r = 0;
     if (e < end) {
       c = col[e];
-      r = rev[e];
+      if (dx != nullptr) r = rev[e];
     }
     const int n = min(kWarp, end - e0);
     for (int j = 0; j < n; ++j) {
@@ -181,6 +183,7 @@ __global__ void dual_gather_kernel(const int* __restrict__ rowptr,
       }
       if (lane < heads)
         du[static_cast<size_t>(e0 + j) * heads + lane] = mine + cden;
+      if (dx == nullptr) continue;               // the same for every lane
       const float* ur = u + static_cast<size_t>(rj) * heads;
       const float* cn = ct_num + static_cast<size_t>(cj) * hd;
       for (int h = 0; h < heads; ++h) {
@@ -193,6 +196,7 @@ __global__ void dual_gather_kernel(const int* __restrict__ rowptr,
       }
     }
   }
+  if (dx == nullptr) return;
   float* orow = dx + static_cast<size_t>(row) * dim;
 #pragma unroll
   for (int k = 0; k < kMaxAccPerLane; ++k) {
@@ -220,7 +224,8 @@ extern "C" int gnpde_dual_scatter(const void* rowptr, const void* col,
 }
 
 // The wrapper bounds dim by 256 and heads by 32 and checks that four rows
-// of ct_num fit a block's shared memory.
+// of ct_num fit a block's shared memory. rev and dx are null together (a
+// directed graph: du only).
 extern "C" int gnpde_dual_gather(const void* rowptr, const void* col,
                                  const void* rev, const void* u,
                                  const void* x, const void* ct_num,

@@ -1,17 +1,19 @@
-// K6 fused_rhs_fwd, K7 fused_rowmax, K8 fused_rhs_bwd, K9 fused_rhs_bwd_sym:
-// one evaluation of the GRAND-nl attention right-hand side over a row-sorted
-// CSR graph, its per-row score maxima, and its two backward passes.
+// K6 fused_rhs_fwd, K7 fused_rowmax, K8 fused_rhs_bwd, K9 fused_rhs_bwd_sym,
+// K17 fused_rhs_bwd_col: one evaluation of the GRAND-nl attention
+// right-hand side over a row-sorted CSR graph, its per-row score maxima, and
+// its backward passes.
 //
 // Replace the TPU kernels of graph_neural_pde_tpu/ops/pallas/fused_rhs.py:
 // _rhs_kernel_ax / _fused_ax_call (K6), _rowmax_kernel / fused_rowmax (K7),
-// _bwd_kernel / _fused_bwd_mega_call (K8) and _bwd_sym_kernel /
-// _fused_bwd_mega_sym_call (K9). Those walk a stripe plan of padded edge
-// chunks and do every gather, scatter and per-head sum as a one-hot or
-// selector matmul, because a TPU core has no fast indexed access and runs
-// its grid in order. Neither holds here: these kernels walk the CSR rowptr,
-// gather x[col] themselves and keep every per-row sum in the warp that owns
-// the row, so no [E, .] operand is read and, but for K8's per-edge outputs,
-// none is written.
+// _bwd_kernel / _fused_bwd_mega_call (K8), _bwd_sym_kernel /
+// _fused_bwd_mega_sym_call (K9) and _bwd_dx_col_kernel / _bwd_dx_col_call
+// (K17, the column-plan dx of make_fused_ax_colplan). Those walk a stripe
+// plan of padded edge chunks and do every gather, scatter and per-head sum
+// as a one-hot or selector matmul, because a TPU core has no fast indexed
+// access and runs its grid in order. Neither holds here: these kernels walk
+// the CSR rowptr (K17 the CSC colptr), gather their node rows themselves
+// and keep every per-row sum in the warp that owns the row, so no [E, .]
+// operand is read and, but for K8's per-edge outputs, none is written.
 //
 // For row n with edges e to columns c (see kernels/fused_rhs.py for the
 // full formulas):
@@ -46,7 +48,8 @@
 // atomics anywhere.
 // Sums over all edges (dKw, dKb, dgmax and the exp_kernel scalars) are
 // taken in two passes with a fixed order: K8 writes each edge's dk_e, K9
-// each node's dk summed over its reverse edges, plus per-row scalar sums;
+// each node's dk summed over its reverse edges, K17 each column's dk
+// summed over its edges, plus (K8, K9) per-row scalar sums;
 // outer_reduce_kernel then forms per-block partial sums of [x_c | 1]^T dk
 // over fixed row ranges, and the wrapper adds the partials up in order. Two
 // launches on the same inputs therefore agree bit for bit.
@@ -221,15 +224,19 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
       const float* c = coef + 5 * (a / d_k);
       const float qq = q[a] - c[3], kk = ke[a] - c[4];
       dqa[a] += c[0] * kk - c[1] * qq;
-      const float dk = c[0] * qq - c[2] * kk;
-      dke[a] = dk;
-      dke_out[static_cast<size_t>(e) * A + a] = dk;
+      if (dxg != nullptr) {                     // without dxg: no dk at all
+        const float dk = c[0] * qq - c[2] * kk;
+        dke[a] = dk;
+        dke_out[static_cast<size_t>(e) * A + a] = dk;
+      }
     }
     __syncwarp();
-    project(dke, kw_t, nullptr, A, D, lane, dkw);
-    float* xo = dxg + static_cast<size_t>(e) * D;
-    for (int d = lane; d < D; d += kWarp) xo[d] = fmaf(wsum, cta[d], dkw[d]);
-    __syncwarp();
+    if (dxg != nullptr) {
+      project(dke, kw_t, nullptr, A, D, lane, dkw);
+      float* xo = dxg + static_cast<size_t>(e) * D;
+      for (int d = lane; d < D; d += kWarp) xo[d] = fmaf(wsum, cta[d], dkw[d]);
+      __syncwarp();
+    }
   }
   for (int a = lane; a < A; a += kWarp)
     dq[static_cast<size_t>(n) * A + a] = dqa[a];
@@ -250,6 +257,92 @@ __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
   extern __shared__ __align__(16) float smem[];
   sym_backward_row<false>(smem, g, p, qtab, ktab, kw_t, ct_ax, recip_p,
                           ct_den, dq, dxrow, dkn_out, row_sums);
+}
+
+// ---------------------------------------------------------------------- K17
+//
+// dx[n] = sum over the edges e = (r, n) of column n of
+//           (sum_h u_eh recip_p[r, h]) ct_ax[r] + dk_e Kw^T
+// with u_eh, ds_eh = ((ct_ax[r] . x_n) recip_p[r, h] + ct_den[r, h]) du/ds
+// and dk_e = ds . ds/dk recomputed from q_r and k_n: the x[col] cotangent of
+// the row-normalised RHS, which K8 writes per edge. The TPU kernel
+// (_bwd_dx_col_kernel) gathers one packed bf16 node table per edge in
+// column-plan order and scatters by a one-hot matmul into its node block;
+// here a warp owns a column of the CSC view (g.rowptr is colptr, g.col is
+// row_by_col): it loads x_n and k_n once, gathers q_r and ct_ax[r] (ATT + D
+// floats) and 2 H scalars per edge, and accumulates two sums in shared
+// memory: (sum_h u recip) ct_ax[r] over D and dk_e over ATT. The summed dk
+// is multiplied by Kw^T once per column, so the per-edge work is 2 ATT + 4 D
+// + O(H d_k) flop and no per-edge product by Kw remains (K8's cost). The
+// summed dk is also written per column, and dKw / dKb are reduced from it
+// over nodes, as K9 does: K8 then forms neither dk_e nor its reduction over
+// the edges in this backward. What
+// bounds it is the two gathered rows per edge, as for K9's reverse side.
+// Each output element is summed by one lane in the column's edge order: no
+// atomics, two launches agree bit for bit.
+__global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
+                                         const float* __restrict__ qtab,
+                                         const float* __restrict__ ktab,
+                                         const float* __restrict__ kw_t,
+                                         const float* __restrict__ ct_ax,
+                                         const float* __restrict__ recip_p,
+                                         const float* __restrict__ ct_den,
+                                         float* __restrict__ dx,
+                                         float* __restrict__ dkn_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int n = blockIdx.x * kWarpsPerBlock + warp;
+  if (n >= g.n_rows) return;                    // whole warp leaves together
+  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
+  float* xn = smem + static_cast<size_t>(warp) * (4 * D + 3 * A + 5 * H);
+  float* cta = xn + D;                          // ct_ax[r]
+  float* dxa = cta + D;                         // sum of w_e ct_ax[r]
+  float* dkw = dxa + D;                         // (sum of dk) Kw^T
+  float* kn = dkw + D;                          // k_n
+  float* q = kn + A;                            // q_r
+  float* dka = q + A;                           // sum of dk_e
+  float* coef = dka + A;                        // [H, 5]
+  load_row(p.x, n, D, lane, xn);
+  load_row(ktab, n, A, lane, kn);
+  for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
+  for (int a = lane; a < A; a += kWarp) dka[a] = 0.0f;
+  __syncwarp();
+  const float gmax = *p.gmax;
+  const float var = p.score == kExpKernel ? *p.var : 1.0f;
+  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const int start = g.rowptr[n], end = g.rowptr[n + 1];
+  for (int j = start; j < end; ++j) {
+    const int r = g.col[j];
+    load_row(ct_ax, r, D, lane, cta);
+    load_row(qtab, r, A, lane, q);
+    __syncwarp();
+    float part = 0.0f;
+    for (int d = lane; d < D; d += kWarp) part = fmaf(cta[d], xn[d], part);
+    const float dot = warp_sum(part);           // ct_ax[r] . x_n
+    float w = 0.0f;
+    if (lane < H) {
+      const float rg = recip_p[static_cast<size_t>(r) * H + lane];
+      const float ctd = ct_den[static_cast<size_t>(r) * H + lane];
+      const HeadScore hs = head_score(q, kn, lane, d_k, p.score, var, ls);
+      float unused0 = 0.0f, unused1 = 0.0f, unused2 = 0.0f;
+      w = rg * head_backward(hs, hs.s - gmax, p.square_plus, dot, rg, ctd,
+                             var, ls, p.score, coef + 5 * lane, &unused0,
+                             &unused1, &unused2);
+    }
+    const float wsum = head_sum(w, H);          // sum_h u_h recip_p[r, h]
+    __syncwarp();
+    for (int a = lane; a < A; a += kWarp) {
+      const float* cf = coef + 5 * (a / d_k);
+      dka[a] += cf[0] * (q[a] - cf[3]) - cf[2] * (kn[a] - cf[4]);
+    }
+    for (int d = lane; d < D; d += kWarp) dxa[d] = fmaf(wsum, cta[d], dxa[d]);
+    __syncwarp();                               // cta, q and coef are reused
+  }
+  for (int a = lane; a < A; a += kWarp)
+    dkn_out[static_cast<size_t>(n) * A + a] = dka[a];
+  project(dka, kw_t, nullptr, A, D, lane, dkw);
+  for (int d = lane; d < D; d += kWarp)
+    dx[static_cast<size_t>(n) * D + d] = dxa[d] + dkw[d];
 }
 
 }  // namespace
@@ -312,7 +405,9 @@ extern "C" int gnpde_fused_rowmax(const void* rowptr, const void* col,
 
 // kw_t is Kw^T [att, dim]. dke [n_slots, att] and row_sums [n_rows, 3] are
 // scratch the wrapper reduces; partials [reduce_blocks, dim + 1, att] are
-// zero on entry. Nullable: var, ls, shifts.
+// zero on entry. Nullable: var, ls, shifts and, together, dxg, dke and
+// partials: without them the walk forms dq and the row sums only (the
+// column-plan backward, where K17 forms dKw and dKb per column).
 extern "C" int gnpde_fused_rhs_bwd(
     const void* rowptr, const void* col, const void* x, const void* qw,
     const void* qb, const void* kw, const void* kb, const void* gmax,
@@ -342,11 +437,12 @@ extern "C" int gnpde_fused_rhs_bwd(
         static_cast<float*>(row_sums));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    launch_outer_reduce(static_cast<const float*>(x),
-                        static_cast<const int*>(col),
-                        static_cast<const float*>(dke),
-                        static_cast<float*>(partials), n_slots, reduce_blocks,
-                        dim, att, s);
+    if (dxg != nullptr)
+      launch_outer_reduce(static_cast<const float*>(x),
+                          static_cast<const int*>(col),
+                          static_cast<const float*>(dke),
+                          static_cast<float*>(partials), n_slots,
+                          reduce_blocks, dim, att, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -366,4 +462,42 @@ extern "C" int gnpde_fused_rhs_bwd_sym(
                              kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
                              partials, n_rows, dim, att, heads, flags,
                              reduce_blocks, stream);
+}
+
+// K17 over the CSC view: colptr [n_cols + 1] and row_by_col, the row of
+// each edge in column order. kw_t is Kw^T [att, dim]. dkn [n_cols, att]
+// (each column's summed dk) is scratch the wrapper reduces; partials
+// [reduce_blocks, dim + 1, att] are zero on entry. Nullable: var, ls.
+extern "C" int gnpde_fused_rhs_bwd_col(
+    const void* colptr, const void* row_by_col, const void* x, const void* qw,
+    const void* qb, const void* kw, const void* kb, const void* gmax,
+    const void* var, const void* ls, const void* ct_ax, const void* recip_p,
+    const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dx,
+    void* dkn, void* partials, int n_cols, int dim, int att, int heads,
+    int flags, int reduce_blocks, void* stream) {
+  if (n_cols > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err =
+        launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_cols, dim, att, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t bytes =
+        sizeof(float) * kWarpsPerBlock * (4 * dim + 3 * att + 5 * heads);
+    err = allow_shared(fused_rhs_bwd_col_kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_rhs_bwd_col_kernel<<<row_blocks(n_cols), kWarpsPerBlock * kWarp,
+                               bytes, s>>>(
+        make_graph(colptr, row_by_col, n_cols),
+        make_proj(x, gmax, var, ls, dim, att, heads, flags),
+        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
+        static_cast<const float*>(kw_t), static_cast<const float*>(ct_ax),
+        static_cast<const float*>(recip_p), static_cast<const float*>(ct_den),
+        static_cast<float*>(dx), static_cast<float*>(dkn));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    launch_outer_reduce(static_cast<const float*>(x), nullptr,
+                        static_cast<const float*>(dkn),
+                        static_cast<float*>(partials), n_cols, reduce_blocks,
+                        dim, att, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

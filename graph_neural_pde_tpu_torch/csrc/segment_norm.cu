@@ -1,16 +1,20 @@
 // K3 segment_norm and K4 segment_norm_bwd: per-segment normalisation of
-// per-edge, per-head values s[E, H] over the row-sorted valid prefix that
-// rowptr delimits, and its gradient.
+// per-edge, per-head values s[E, H] over a row-sorted edge list, and its
+// gradient.
 //
 //   softmax:   out[e] = exp(s[e] - m) / (den + 1e-16),  m = max_seg s,
 //              den = sum_seg exp(s - m)
 //   normalise: out[e] = s[e] / (den + 1e-16),           den = sum_seg s
 //
-// den[N, H] is written too. The segments are rows: the edges
-// [rowptr[n], rowptr[n+1]). With a perm (the reverse-edge bijection rev of
-// a symmetric edge multiset) they are columns: for each e of row n's range
-// the member is slot perm[e], whose col is n, so node n's column segment is
-// read and written through perm and summed in row n's order.
+// den[N, H] is written too. Segment n is the positions
+// [segptr[n], segptr[n+1]); its members are the slots at those positions,
+// or with a perm the slots perm[i]. Rows are segptr = rowptr without a
+// perm. Columns are either segptr = rowptr with perm = rev, the reverse-edge
+// bijection of a symmetric edge multiset (for each e of row n's range the
+// member rev[e] has col n, so node n's column segment is read and written
+// through rev in row n's order), or, on any graph, the CSC view: segptr =
+// colptr and perm = col_perm, the slots in column order (the JAX package's
+// column plan).
 //
 // Replaces the TPU kernel graph_neural_pde_tpu/ops/pallas/stripe.py
 // _scatter_kernel / _stripe_scatter_call (P3, the unweighted stripe segment
@@ -66,12 +70,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// the slot of the segment member at position e of the row-sorted order
+// the slot of the segment member at position e
 __device__ __forceinline__ size_t member(const int* perm, int e) {
   return static_cast<size_t>(perm ? perm[e] : e);
 }
 
-__global__ void segment_norm_kernel(const int* __restrict__ rowptr,
+__global__ void segment_norm_kernel(const int* __restrict__ segptr,
                                     const int* __restrict__ perm,
                                     const float* __restrict__ s,
                                     float* __restrict__ out,
@@ -80,8 +84,8 @@ __global__ void segment_norm_kernel(const int* __restrict__ rowptr,
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
   const int lane = threadIdx.x % kWarp;
   if (row >= n_rows) return;                     // whole warp leaves together
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
+  const int start = segptr[row];
+  const int end = segptr[row + 1];
   for (int h = 0; h < heads; ++h) {
     float m = 0.0f;
     if (mode == kSoftmax) {
@@ -109,7 +113,7 @@ __global__ void segment_norm_kernel(const int* __restrict__ rowptr,
   }
 }
 
-__global__ void segment_norm_bwd_kernel(const int* __restrict__ rowptr,
+__global__ void segment_norm_bwd_kernel(const int* __restrict__ segptr,
                                         const int* __restrict__ perm,
                                         const float* __restrict__ out,
                                         const float* __restrict__ g,
@@ -119,8 +123,8 @@ __global__ void segment_norm_bwd_kernel(const int* __restrict__ rowptr,
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
   const int lane = threadIdx.x % kWarp;
   if (row >= n_rows) return;
-  const int start = rowptr[row];
-  const int end = rowptr[row + 1];
+  const int start = segptr[row];
+  const int end = segptr[row + 1];
   for (int h = 0; h < heads; ++h) {
     float acc = 0.0f;
     for (int e = start + lane; e < end; e += kWarp) {
@@ -142,28 +146,28 @@ int blocks_for(int n_rows) {
 
 }  // namespace
 
-extern "C" int gnpde_segment_norm(const void* rowptr, const void* perm,
+extern "C" int gnpde_segment_norm(const void* segptr, const void* perm,
                                   const void* s, void* out, void* den,
                                   int n_rows, int heads, int mode,
                                   void* stream) {
   if (n_rows > 0 && heads > 0) {
     segment_norm_kernel<<<blocks_for(n_rows), kWarpsPerBlock * kWarp, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rowptr), static_cast<const int*>(perm),
+        static_cast<const int*>(segptr), static_cast<const int*>(perm),
         static_cast<const float*>(s), static_cast<float*>(out),
         static_cast<float*>(den), n_rows, heads, mode);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int gnpde_segment_norm_bwd(const void* rowptr, const void* perm,
+extern "C" int gnpde_segment_norm_bwd(const void* segptr, const void* perm,
                                       const void* out, const void* g,
                                       const void* den, void* ds, int n_rows,
                                       int heads, int mode, void* stream) {
   if (n_rows > 0 && heads > 0) {
     segment_norm_bwd_kernel<<<blocks_for(n_rows), kWarpsPerBlock * kWarp, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rowptr), static_cast<const int*>(perm),
+        static_cast<const int*>(segptr), static_cast<const int*>(perm),
         static_cast<const float*>(out), static_cast<const float*>(g),
         static_cast<const float*>(den), static_cast<float*>(ds), n_rows,
         heads, mode);

@@ -13,10 +13,13 @@ and the splits are bit-identical to the JAX package's for one seed.
 ``ogbn-arxiv-synthetic`` is the seeded random graph at ogbn-arxiv's size
 that the JAX package's ``bench.py`` measures on (nothing is read from disk).
 
-``cfg.node_reorder`` (``rcm`` or ``degree``) relabels the loaded dataset
-(``ops.reorder``), the stand-in included, as the JAX package does. The
-geom-gcn loaders and load-time rewiring are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``cfg.rewiring`` (``two_hop`` or ``gdc``, ``rewiring/gdc.py``) rewires
+the loaded graph where the JAX package does: after the largest connected
+component, before training, and on the stand-in too; GDC's dense diffusion
+runs on ``device``. ``cfg.node_reorder`` (``rcm`` or ``degree``) then
+relabels the loaded dataset (``ops.reorder``), the stand-in included, as the
+JAX package does. The geom-gcn loaders and the ``pos_enc_knn`` rewiring are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -264,9 +267,30 @@ def _stand_in(cfg: Config, data_dir: str, pad: int) -> NodeDataset:
     return d
 
 
+def rewire(g, cfg: Config, device="cuda"):
+    """Load-time rewiring dispatch (the reference's data.py): ``two_hop``
+    or ``gdc``, each returning a rebuilt host Graph."""
+    from graph_neural_pde_tpu_torch.rewiring import gdc
+    rw = cfg.rewiring
+    if rw == "two_hop":
+        return gdc.two_hop(g, pad_multiple=cfg.edge_pad_multiple)
+    if rw == "gdc":
+        return gdc.apply_gdc(g, cfg, pad_multiple=cfg.edge_pad_multiple,
+                             device=device)
+    if rw == "pos_enc_knn":
+        raise NotImplementedError(
+            "rewiring 'pos_enc_knn': ROADMAP Queue 1 slice 4 item 15 "
+            "(positional encodings)")
+    raise ValueError(f"unknown rewiring '{rw}'")
+
+
 def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
-                synthetic_fallback: bool = True) -> NodeDataset:
-    """Load and preprocess a dataset (reference get_dataset semantics)."""
+                synthetic_fallback: bool = True,
+                device="cuda") -> NodeDataset:
+    """Load and preprocess a dataset (reference get_dataset semantics).
+    ``device`` is where GDC rewiring runs its dense diffusion: the card
+    unless the caller asks for the CPU (``run.setup`` passes the run's
+    device); nothing else of the load touches it."""
     ds = cfg.dataset
     pad = cfg.edge_pad_multiple
     if ds == "ogbn-arxiv-synthetic":
@@ -278,9 +302,6 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
             f"dataset {ds}: geom-gcn loader, ROADMAP Queue 1 slice 5")
     if ds not in _PLANETOID and ds not in _SHCHUR and ds != "ogbn-arxiv":
         raise ValueError(f"Unknown dataset {ds}.")
-    if cfg.rewiring is not None:
-        raise NotImplementedError(
-            "load-time rewiring: ROADMAP Queue 1 slice 4 item 15")
     masks = None
     try:
         if ds in _PLANETOID:
@@ -293,7 +314,10 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     except DatasetUnavailable:
         if not synthetic_fallback:
             raise
-        return _maybe_reorder(_stand_in(cfg, data_dir, pad), cfg)
+        d = _stand_in(cfg, data_dir, pad)
+        if cfg.rewiring is not None:
+            d.graph = rewire(d.graph, cfg, device)
+        return _maybe_reorder(d, cfg)
 
     if use_lcc:
         lcc = largest_connected_component(ei, x.shape[0])
@@ -305,6 +329,9 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
                                          num_development=_num_development(ds))
 
     g = make_graph(ei[0], ei[1], num_nodes=x.shape[0], pad_multiple=pad)
+    if cfg.rewiring is not None:
+        # after the LCC, before training (the reference's data.py)
+        g = rewire(g, cfg, device)
     d = NodeDataset(graph=g, x=torch.as_tensor(x),
                     y=torch.as_tensor(y, dtype=torch.int64),
                     train_mask=None, val_mask=None, test_mask=None,

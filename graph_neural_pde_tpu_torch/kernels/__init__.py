@@ -13,10 +13,12 @@ from graph_neural_pde_tpu_torch.kernels.blocked import (  # noqa: F401
     blocked_spmm_plain,
 )
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import (  # noqa: F401
+    column_sum,
     csr_spmm,
     csr_spmm_plain,
 )
 from graph_neural_pde_tpu_torch.kernels.dual_scatter import (  # noqa: F401
+    column_head_sum,
     dual_gather,
     dual_gather_plain,
     dual_scatter,
@@ -30,6 +32,8 @@ from graph_neural_pde_tpu_torch.kernels.edge_dot import (  # noqa: F401
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (  # noqa: F401
     fused_rhs_ax,
     fused_rhs_bwd,
+    fused_rhs_bwd_col,
+    fused_rhs_bwd_col_plain,
     fused_rhs_bwd_plain,
     fused_rhs_bwd_sym,
     fused_rhs_bwd_sym_plain,
@@ -38,6 +42,7 @@ from graph_neural_pde_tpu_torch.kernels.fused_rhs import (  # noqa: F401
     fused_rhs_fwd_plain,
     fused_rowmax,
     fused_rowmax_plain,
+    make_fused_ax_colplan,
     make_fused_ax_sym,
 )
 from graph_neural_pde_tpu_torch.kernels.norm1 import (  # noqa: F401
@@ -59,4 +64,4 @@ from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
 KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
            dual_scatter, dual_gather, norm1_den, norm1_fwd, norm1_bwd,
-           blocked_spmm, blocked_sddmm)
+           fused_rhs_bwd_col, blocked_spmm, blocked_sddmm)

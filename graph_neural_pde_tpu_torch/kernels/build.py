@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -38,9 +39,9 @@ _ENTRY_POINTS = {
     "gnpde_csr_spmm": [_PTR] * 5 + [_INT, _INT, _PTR],
     # row, col, a, b, out, n_edges, dim, stream
     "gnpde_edge_dot": [_PTR] * 5 + [_INT, _INT, _PTR],
-    # rowptr, perm (nullable), s, out, den, n_rows, heads, mode, stream
+    # segptr, perm (nullable), s, out, den, n_rows, heads, mode, stream
     "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
-    # rowptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
+    # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
     "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
     # The fused RHS kernels (csrc/fused_rhs.cu). qtab and ktab are scratch
     # tables [n_rows, att]; kw_t is Kw transposed.
@@ -52,9 +53,9 @@ _ENTRY_POINTS = {
     # heads, stream
     "gnpde_fused_rowmax": [_PTR] * 10 + [_INT] * 4 + [_PTR],
     # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
-    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg, dke,
-    # row_sums, partials, n_rows, dim, att, heads, flags, n_slots,
-    # reduce_blocks, stream
+    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg
+    # (nullable), dke, row_sums, partials, n_rows, dim, att, heads, flags,
+    # n_slots, reduce_blocks, stream
     "gnpde_fused_rhs_bwd": [_PTR] * 22 + [_INT] * 7 + [_PTR],
     # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
     # ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
@@ -62,9 +63,13 @@ _ENTRY_POINTS = {
     "gnpde_fused_rhs_bwd_sym": [_PTR] * 21 + [_INT] * 6 + [_PTR],
     # rowptr, col, u, x, num, den, n_rows, dim, heads, stream
     "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 3 + [_PTR],
-    # rowptr, col, rev, u, x, ct_num, ct_den, du, dx, n_rows, dim, heads,
-    # stream
+    # rowptr, col, rev, u, x, ct_num, ct_den, du, dx (rev and dx nullable
+    # together), n_rows, dim, heads, stream
     "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 3 + [_PTR],
+    # colptr, row_by_col, x, qw, qb, kw, kb, gmax, var, ls (the last two
+    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dx, n_cols, dim,
+    # att, heads, flags, stream
+    "gnpde_fused_rhs_bwd_col": [_PTR] * 19 + [_INT] * 6 + [_PTR],
     # The column-normalised RHS kernels (csrc/norm1.cu).
     # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, ct (the last three
     # nullable), qtab, ktab, out, n_rows, dim, att, heads, flags, project
@@ -162,6 +167,12 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """A tensor's device pointer for a nullable kernel argument; None (a
+    null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def launch(name: str, device, *args) -> None:

@@ -74,3 +74,17 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
 
 
 csr_spmm.launches = 0
+
+
+def column_sum(g, table: torch.Tensor) -> torch.Tensor:
+    """``out[n] = sum_{e: col[e]=n, e valid} table[e]`` for a per-edge
+    table [E_pad, D] over a row-sorted graph ``g``: one launch in table
+    mode, through the reverse edges on a symmetric edge multiset
+    (``g.rev``), over the CSC view (``g.colptr``, ``g.col_perm``)
+    otherwise. Slots outside ``g.mask`` weigh 0."""
+    w = g.mask.to(table.dtype)
+    if g.rev is not None:
+        return csr_spmm(g.rowptr, g.row, g.rev, w[g.rev.long()], table,
+                        table=True)
+    return csr_spmm(g.colptr, g.col_by_col, g.col_perm,
+                    w[g.col_perm.long()], table, table=True)

@@ -11,7 +11,8 @@ masked edges) over a row-sorted graph and ``x`` [N, D] the node state:
   ``du[e, h] = ct_num[row[e], h, :] . x[col[e], :] + ct_den[row[e], h]`` and
   ``dx[c, :] = sum_{e: col[e] = c} sum_h u[e, h] ct_num[row[e], h, :]``. On
   a symmetric edge multiset ``dx`` is a row walk through the reverse-edge
-  map ``rev``; a directed graph raises.
+  map ``rev``; on a directed one K11 writes ``du`` only and ``dx`` is K1
+  ``csr_spmm`` over the CSC view in table mode (:func:`column_head_sum`).
 
 K10 replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
 ``_scatter2_kernel`` / ``_stripe_scatter2_call``, K11 its gradient
@@ -24,11 +25,12 @@ plain PyTorch version beside it, which defines the semantics.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
+from graph_neural_pde_tpu_torch.kernels.csr_spmm import csr_spmm
 
 MAX_DIM, MAX_HEADS = 256, 32
 MAX_SHARED_BYTES = 227 * 1024
@@ -57,16 +59,19 @@ def dual_scatter_plain(rowptr: torch.Tensor, row: torch.Tensor,
 
 def dual_gather_plain(rowptr: torch.Tensor, row: torch.Tensor,
                       col: torch.Tensor, u: torch.Tensor, x: torch.Tensor,
-                      ct_num: torch.Tensor, ct_den: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      ct_num: torch.Tensor, ct_den: torch.Tensor,
+                      want_dx: bool = True
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain version of K11: gathers, two contractions and an ``index_add``
-    over columns. Returns (du [E_pad, H], dx [N, D]); ``du`` is 0 on the
-    padding slots."""
+    over columns. Returns (du [E_pad, H], dx [N, D] or None without
+    ``want_dx``); ``du`` is 0 on the padding slots."""
     nv, r, c = _edges(rowptr, row, col)
     h, d = u.shape[1], x.shape[1]
     cte = ct_num[r].reshape(nv, h, d)
     du = torch.zeros_like(u)
     du[:nv] = torch.einsum("ehd,ed->eh", cte, x[c]) + ct_den[r]
+    if not want_dx:
+        return du, None
     dx = torch.zeros_like(x).index_add(
         0, c, torch.einsum("eh,ehd->ed", u[:nv], cte))
     return du, dx
@@ -133,32 +138,56 @@ def dual_scatter(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
 
 
 def dual_gather(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
-                rev: torch.Tensor, u: torch.Tensor, x: torch.Tensor,
+                rev: Optional[torch.Tensor], u: torch.Tensor, x: torch.Tensor,
                 ct_num: torch.Tensor, ct_den: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K11: ``(du [E_pad, H], dx [N, D])``, the gradient of K10 given its
-    outputs' cotangents, over a SYMMETRIC edge multiset with reverse-edge
-    map ``rev`` (``Graph.rev``). ``row`` is only read by the plain
-    version."""
+    outputs' cotangents, with ``dx`` reached through the reverse-edge map
+    ``rev`` (``Graph.rev``) of a SYMMETRIC edge multiset. With ``rev=None``
+    (a directed graph) it returns ``(du, None)``: see
+    :func:`column_head_sum` for that ``dx``. ``row`` is only read by the
+    plain version."""
     n, d = x.shape
     h = u.shape[1]
     _check("dual_gather", rowptr, row, col, u, x,
            (("ct_num", ct_num, (n, h * d)), ("ct_den", ct_den, (n, h))), rev)
     if x.device.type == "cpu":
-        return dual_gather_plain(rowptr, row, col, u, x, ct_num, ct_den)
+        return dual_gather_plain(rowptr, row, col, u, x, ct_num, ct_den,
+                                 want_dx=rev is not None)
     if 4 * GATHER_WARPS_PER_BLOCK * h * d > MAX_SHARED_BYTES:
         raise ValueError(
             f"dual_gather: heads {h} x state width {d} needs "
             f"{4 * GATHER_WARPS_PER_BLOCK * h * d} bytes of shared memory, "
             f"more than a block's {MAX_SHARED_BYTES}")
     du = torch.zeros_like(u)                   # padding slots stay 0
-    dx = torch.empty_like(x)
+    dx = None if rev is None else torch.empty_like(x)
     build.launch("dual_gather", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 rev.data_ptr(), u.data_ptr(), x.data_ptr(),
+                 _ptr(rev), u.data_ptr(), x.data_ptr(),
                  ct_num.data_ptr(), ct_den.data_ptr(), du.data_ptr(),
-                 dx.data_ptr(), n, d, h)
+                 _ptr(dx), n, d, h)
     dual_gather.launches += 1
     return du, dx
+
+
+_ptr = build.ptr
+
+
+def column_head_sum(g, u: torch.Tensor, ct_num: torch.Tensor
+                    ) -> torch.Tensor:
+    """K11's ``dx`` on any row-sorted graph: ``dx[n] = sum_{e: col[e]=n}
+    sum_h u[e, h] ct_num[row[e], h, :]``, one K1 launch over the CSC view
+    in table mode. ``ct_num`` [N, H*D] is read as the table [N*H, D] whose
+    row ``r*H + h`` is head h of node r, and node n's segment lists, for
+    each of its column's edges in order, the H rows ``row_by_col*H + h``
+    weighted by ``u[col_perm, h]``. ``u`` must be 0 on dropped slots."""
+    h = u.shape[1]
+    n, hd = ct_num.shape
+    heads = torch.arange(h, dtype=torch.int32, device=u.device)
+    idx = (g.row_by_col[:, None] * h + heads).reshape(-1)
+    seg = g.col_by_col.repeat_interleave(h)
+    w = u[g.col_perm.long()].reshape(-1).contiguous()
+    return csr_spmm(g.colptr * h, seg, idx, w, ct_num.view(n * h, hd // h),
+                    table=True)
 
 
 dual_scatter.launches = 0
@@ -169,31 +198,31 @@ class _DualScatter(torch.autograd.Function):
     """(num, den) = K10 with K11 as its backward. Residuals: u and x."""
 
     @staticmethod
-    def forward(ctx, u, x, rowptr, row, col, rev):
-        ctx.save_for_backward(u, x, rowptr, row, col, rev)
-        return dual_scatter(rowptr, row, col, u, x)
+    def forward(ctx, u, x, g):
+        ctx.save_for_backward(u, x)
+        ctx.g = g
+        return dual_scatter(g.rowptr, g.row, g.col, u, x)
 
     @staticmethod
     def backward(ctx, ct_num, ct_den):
-        u, x, rowptr, row, col, rev = ctx.saved_tensors
-        du, dx = dual_gather(rowptr, row, col, rev, u, x,
-                             ct_num.contiguous(), ct_den.contiguous())
-        return du, dx, None, None, None, None
+        u, x = ctx.saved_tensors
+        g = ctx.g
+        ct_num = ct_num.contiguous()
+        du, dx = dual_gather(g.rowptr, g.row, g.col, g.rev, u, x, ct_num,
+                             ct_den.contiguous())
+        if dx is None:
+            dx = column_head_sum(g, u, ct_num)
+        return du, dx, None
 
 
 def dual_scatter_add(g, u: torch.Tensor, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(num [N, H*D], den [N, H])`` over the prepared graph ``g``,
-    differentiable in ``u`` and ``x`` through K11 (the JAX package's
+    directed or not, differentiable in ``u`` and ``x`` through K11 (and, on
+    a directed graph, K1 over the CSC view for ``dx``): the JAX package's
     ``stripe_scatter_add2`` with the x[col] gather and the outer product
-    folded in)."""
+    folded in."""
     if not g.rows_sorted or g.rowptr is None:
         raise ValueError("dual_scatter_add needs a row-sorted graph "
                          "(sort_by_row)")
-    if g.rev is None:
-        raise NotImplementedError(
-            "dual_scatter_add: x's gradient on a directed (non-symmetric) "
-            "edge multiset needs the column-side transpose kernel, ROADMAP "
-            "Queue 2 K5 (make_col_gather)")
-    return _DualScatter.apply(u.contiguous(), x.contiguous(), g.rowptr,
-                              g.row, g.col, g.rev)
+    return _DualScatter.apply(u.contiguous(), x.contiguous(), g)

@@ -19,18 +19,25 @@ gives everything (``n`` a row, ``e`` its edges, ``c = col[e]``):
 * K7 ``fused_rowmax``      -> per-row, per-head maxima of the scaled-dot
   scores (edgeless rows 0); replaces ``_rowmax_kernel`` / ``fused_rowmax``.
 * K8 ``fused_rhs_bwd``     -> (dq, per-edge dxg, dkw, dkb, dgmax, dvar, dls)
-  from the cotangents; replaces ``_bwd_kernel`` / ``_fused_bwd_mega_call``.
+  from the cotangents, or without the per-edge dxg and dk (``want_dxg=False``:
+  dq, dgmax and the exp_kernel scalars); replaces ``_bwd_kernel`` /
+  ``_fused_bwd_mega_call``.
 * K9 ``fused_rhs_bwd_sym`` -> the same with x[col]'s cotangent reduced into
   ``dxrow[n]`` through each edge's reverse edge, for symmetric edge
   multisets; replaces ``_bwd_sym_kernel`` / ``_fused_bwd_mega_sym_call``.
+* K17 ``fused_rhs_bwd_col`` -> x[col]'s cotangent summed per column, and
+  dkw, dkb from each column's summed dk, on any graph: a walk over the CSC
+  view that recomputes each edge's cotangent from node tables, so that no
+  per-edge array exists; replaces
+  ``_bwd_dx_col_kernel`` / ``_bwd_dx_col_call``.
 
-The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves; the
-kernels gather ``x[col]`` themselves (see ``csrc/fused_rhs.cu`` for what
-bounds them on the H100). On a CUDA tensor a wrapper launches its kernel or
-raises; on a CPU tensor it runs the plain PyTorch version beside it, which
-defines the semantics. ``fused_rhs_ax``, ``make_fused_ax_sym``,
-``fused_rhs_f`` keep the JAX package's names: the differentiable ops the
-models call.
+The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K17
+walks its CSC view); the kernels gather their node rows themselves (see
+``csrc/fused_rhs.cu`` for what bounds them on the H100). On a CUDA tensor a
+wrapper launches its kernel or raises; on a CPU tensor it runs the plain
+PyTorch version beside it, which defines the semantics. ``fused_rhs_ax``,
+``make_fused_ax_sym``, ``make_fused_ax_colplan`` and ``fused_rhs_f`` keep
+the JAX package's names: the differentiable ops the models call.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
-from graph_neural_pde_tpu_torch.kernels.csr_spmm import csr_spmm
+from graph_neural_pde_tpu_torch.kernels.csr_spmm import column_sum
 
 SCORES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3}
 EPS = 1e-16
@@ -173,7 +180,8 @@ def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
 
 def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                         recip_p, ct_den, *, heads: int, score: str, var=None,
-                        ls=None, shifts=None, square_plus: bool = False):
+                        ls=None, shifts=None, square_plus: bool = False,
+                        want_dxg: bool = True):
     """Plain version of K8. With ``recip_p = 1 / (H (den + 1e-16))`` and
     ``ct_den`` the total cotangent of ``den``:
 
@@ -185,11 +193,14 @@ def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 
     The score's own derivative comes from autograd over
     :func:`edge_scores`. Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb,
-    dgmax, dvar, dls); the last two are None but for ``exp_kernel``."""
-    return _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
-                      recip_p, ct_den, heads=heads, score=score, var=var,
-                      ls=ls, shifts=shifts, square_plus=square_plus,
-                      by_col=False)
+    dgmax, dvar, dls); dxg, dkw and dkb are None without ``want_dxg``
+    (K17 forms dkw and dkb there), dvar and dls are None but for
+    ``exp_kernel``."""
+    out = _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
+                     recip_p, ct_den, heads=heads, score=score, var=var,
+                     ls=ls, shifts=shifts, square_plus=square_plus,
+                     by_col=False)
+    return out if want_dxg else (out[0], None, None, None) + out[4:]
 
 
 def fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
@@ -203,6 +214,26 @@ def fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
         heads=heads, score=score, var=var, ls=ls, square_plus=square_plus)
     nv, _, c = _edges(rowptr, row, col)
     return dq, _node_sum(x.shape[0], c, dxg[:nv]), dkw, dkb, dgmax, dvar, dls
+
+
+def fused_rhs_bwd_col_plain(colptr, col_by_col, row_by_col, x, qw, qb, kw,
+                            kb, gmax, ct_ax, recip_p, ct_den, *, heads: int,
+                            score: str, var=None, ls=None,
+                            square_plus: bool = False):
+    """Plain version of K17: K8's per-edge ``dxg`` (softmax groups the rows)
+    over the edges in column order, summed per column into dx [N, D]:
+
+        dx[n] = sum_{e: col[e]=n} (sum_h u_eh recip_p[r, h]) ct_ax[r]
+                                  + dk_e Kw^T,            r = row[e]
+
+    (the caller adds ``dq Qw^T``), and K8's ``dkw = sum_e x_c^T dk_e`` and
+    ``dkb = sum_e dk_e``. Returns (dx, dkw, dkb)."""
+    out = _bwd_plain(colptr, row_by_col, col_by_col, x, qw, qb, kw, kb,
+                     gmax, ct_ax, recip_p, ct_den, heads=heads, score=score,
+                     var=var, ls=ls, shifts=None, square_plus=square_plus,
+                     by_col=False)
+    nv, _, c = _edges(colptr, row_by_col, col_by_col)
+    return _node_sum(x.shape[0], c, out[1][:nv]), out[2], out[3]
 
 
 # ---------------------------------------------------------------------------
@@ -268,8 +299,7 @@ def _shared_bytes(name: str, floats_per_warp: int) -> None:
                          "need more shared memory than a block has")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
+_ptr = build.ptr
 
 
 def _node_tables(x: torch.Tensor, att: int) -> torch.Tensor:
@@ -356,17 +386,22 @@ def _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, shifts, cap):
     return extra
 
 
-def _finish_bwd(partials, row_sums, d, score, var, ls):
-    """Second pass of the reductions over all edges: the per-block partial
-    sums of [x_c | 1]^T dk, and the per-row sums of ds and of the
-    exp_kernel scalars' terms, each summed in a fixed order."""
+def _dk_sums(partials, d):
+    """Second pass of the dkw / dkb reduction: the per-block partial sums
+    of [x | 1]^T dk added up in a fixed order."""
     dk_sum = torch.sum(partials, dim=0)                   # [D + 1, ATT]
+    return dk_sum[:d].contiguous(), dk_sum[d]
+
+
+def _row_totals(row_sums, score, var, ls):
+    """Second pass of the scalar reductions: dgmax and the exp_kernel
+    scalars' gradients from the per-row sums, in a fixed order."""
     tot = torch.sum(row_sums, dim=0)                      # [3]
     dvar = dls = None
     if score == "exp_kernel":
         dvar = tot[1].reshape(var.shape)
         dls = tot[2].reshape(ls.shape)
-    return dk_sum[:d].contiguous(), dk_sum[d], -tot[0], dvar, dls
+    return -tot[0], dvar, dls
 
 
 def _reduce_blocks(rows: int) -> int:
@@ -378,16 +413,19 @@ def _reduce_blocks(rows: int) -> int:
 
 def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                   ct_den, *, heads: int, score: str, var=None, ls=None,
-                  shifts=None, square_plus: bool = False):
+                  shifts=None, square_plus: bool = False,
+                  want_dxg: bool = True):
     """K8: the general backward (see :func:`fused_rhs_bwd_plain` for the
-    formulas and the return value). The reductions over all edges take two
-    passes with fixed orders, so two calls agree bit for bit."""
+    formulas and the return value). Without ``want_dxg`` it forms neither
+    the per-edge dxg nor dk_e, and so neither dkw nor dkb: the form that
+    K17 completes. The reductions over all edges take two passes with
+    fixed orders, so two calls agree bit for bit."""
     cap = row.shape[0]
     _check("fused_rhs_bwd", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
            _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, shifts, cap))
     kwargs = dict(heads=heads, score=score, var=var, ls=ls, shifts=shifts,
-                  square_plus=square_plus)
+                  square_plus=square_plus, want_dxg=want_dxg)
     if x.device.type == "cpu":
         return fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
                                    ct_ax, recip_p, ct_den, **kwargs)
@@ -396,26 +434,29 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 5 * heads)
     dev = x.device
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
-    dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
     # scratch: every slot's dk_e (0 on padding, which the reduction also
     # walks: the valid count stays on the device), and each row's sums of
     # ds and of the exp_kernel scalars' terms
-    dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
-    row_sums = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    dxg = dke = partials = None
     blocks = _reduce_blocks(cap)
+    if want_dxg:
+        dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
+        dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
+        partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
+                               device=dev)
+    row_sums = torch.empty((n, 3), dtype=torch.float32, device=dev)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
     build.launch("fused_rhs_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
                  x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
                  kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
                  _ptr(shifts), ct_ax.data_ptr(), recip_p.data_ptr(),
                  ct_den.data_ptr(), kw_t.data_ptr(), tabs[0].data_ptr(),
-                 tabs[1].data_ptr(), dq.data_ptr(), dxg.data_ptr(),
-                 dke.data_ptr(), row_sums.data_ptr(), partials.data_ptr(),
-                 n, d, att, heads, _flags(score, square_plus), cap, blocks)
+                 tabs[1].data_ptr(), dq.data_ptr(), _ptr(dxg), _ptr(dke),
+                 row_sums.data_ptr(), _ptr(partials), n, d, att, heads,
+                 _flags(score, square_plus), cap, blocks)
     fused_rhs_bwd.launches += 1
-    return (dq, dxg) + _finish_bwd(partials, row_sums, d, score, var, ls)
+    dk = _dk_sums(partials, d) if want_dxg else (None, None)
+    return (dq, dxg) + dk + _row_totals(row_sums, score, var, ls)
 
 
 def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
@@ -457,13 +498,57 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                  row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
                  _flags(score, square_plus), blocks)
     fused_rhs_bwd_sym.launches += 1
-    return (dq, dxrow) + _finish_bwd(partials, row_sums, d, score, var, ls)
+    return ((dq, dxrow) + _dk_sums(partials, d)
+            + _row_totals(row_sums, score, var, ls))
+
+
+def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
+                      gmax, ct_ax, recip_p, ct_den, *, heads: int, score: str,
+                      var=None, ls=None, square_plus: bool = False):
+    """K17: (dx [N, D], dkw, dkb), x[col]'s cotangent summed per column
+    and the key projection's gradients (see :func:`fused_rhs_bwd_col_plain`),
+    on any graph: one warp walks a column's edges in the CSC view
+    (``colptr``, ``row_by_col``), computes the column's k once, recomputes
+    each edge's score and cotangent from the node rows of its row (q,
+    ct_ax, recip_p, ct_den), and multiplies the column's summed dk by Kw^T
+    once; dkw and dkb are reduced from the summed dk over nodes, as K9's
+    are. ``col_by_col`` is only read by the plain version. No atomics: two
+    calls agree bit for bit."""
+    n, d = x.shape
+    _check("fused_rhs_bwd_col", colptr, col_by_col, row_by_col, x, qw, qb,
+           kw, kb, heads, score, var, ls,
+           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0))
+    if x.device.type == "cpu":
+        return fused_rhs_bwd_col_plain(
+            colptr, col_by_col, row_by_col, x, qw, qb, kw, kb, gmax, ct_ax,
+            recip_p, ct_den, heads=heads, score=score, var=var, ls=ls,
+            square_plus=square_plus)
+    att = qw.shape[1]
+    _shared_bytes("fused_rhs_bwd_col", 4 * d + 3 * att + 5 * heads)
+    dev = x.device
+    dx = torch.empty((n, d), dtype=torch.float32, device=dev)
+    dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
+    blocks = _reduce_blocks(n)
+    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
+                           device=dev)
+    tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
+    build.launch("fused_rhs_bwd_col", dev, colptr.data_ptr(),
+                 row_by_col.data_ptr(), x.data_ptr(), qw.data_ptr(),
+                 qb.data_ptr(), kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(),
+                 _ptr(var), _ptr(ls), ct_ax.data_ptr(), recip_p.data_ptr(),
+                 ct_den.data_ptr(), kw_t.data_ptr(), tabs[0].data_ptr(),
+                 tabs[1].data_ptr(), dx.data_ptr(), dkn.data_ptr(),
+                 partials.data_ptr(), n, d, att, heads,
+                 _flags(score, square_plus), blocks)
+    fused_rhs_bwd_col.launches += 1
+    return (dx,) + _dk_sums(partials, d)
 
 
 fused_rhs_fwd.launches = 0
 fused_rowmax.launches = 0
 fused_rhs_bwd.launches = 0
 fused_rhs_bwd_sym.launches = 0
+fused_rhs_bwd_col.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -489,89 +574,114 @@ def _node_cotangents(ct_ax, ct_den_in, num, den, heads):
 
 
 class _FusedAx(torch.autograd.Function):
-    """(ax, den) = K6; its backward is K9 (``rev is None`` in the call:
-    symmetric, x's whole gradient from the kernel) or K8 followed by the sum
-    of the per-edge ``dxg`` over columns, taken through the reverse-edge map
-    with K1's row walk. Residuals: the inputs, ``den`` and the per-head
-    numerators ``num`` that K6 flushes when a gradient is wanted."""
+    """(ax, den) = K6, with one of three backwards (``engine``):
+
+    * ``"sym"``: K9, x's whole gradient from the kernel (symmetric edge
+      multisets);
+    * ``"col"``: K8 without its per-edge dxg and dk for dq, dgmax and the
+      exp_kernel scalars, then K17 for x[col]'s cotangent, dkw and dkb
+      over the CSC view (any graph);
+    * ``"dxg"``: K8 with the per-edge dxg, summed over columns by K1's walk
+      in table mode, through the reverse edges or the CSC view (any graph;
+      the one backward that takes per-edge ``shifts``).
+
+    Residuals: the inputs, ``den`` and the per-head numerators ``num`` that
+    K6 flushes when a gradient is wanted."""
 
     @staticmethod
-    def forward(ctx, qw, qb, kw, kb, x, gmax, var, ls, shifts, csr, rev,
+    def forward(ctx, qw, qb, kw, kb, x, gmax, var, ls, shifts, g, engine,
                 heads, square_plus, score):
-        rowptr, row, col = csr
         want = any(ctx.needs_input_grad)
         ax, den, num = fused_rhs_fwd(
-            rowptr, row, col, x, qw, qb, kw, kb, gmax, heads=heads,
+            g.rowptr, g.row, g.col, x, qw, qb, kw, kb, gmax, heads=heads,
             score=score, var=var, ls=ls, shifts=shifts,
             square_plus=square_plus, want_num=want)
         ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, shifts, den,
-                              num, rowptr, row, col, rev)
-        ctx.opts = (heads, square_plus, score)
+                              num)
+        ctx.g = g
+        ctx.opts = (engine, heads, square_plus, score)
         return ax, den
 
     @staticmethod
     def backward(ctx, ct_ax, ct_den_in):
-        (qw, qb, kw, kb, x, gmax, var, ls, shifts, den, num, rowptr, row,
-         col, rev) = ctx.saved_tensors
-        heads, square_plus, score = ctx.opts
+        qw, qb, kw, kb, x, gmax, var, ls, shifts, den, num = ctx.saved_tensors
+        g = ctx.g
+        engine, heads, square_plus, score = ctx.opts
         ct_ax = ct_ax.contiguous()
         recip_p, ct_den = _node_cotangents(ct_ax, ct_den_in, num, den, heads)
+        csr = (g.rowptr, g.row, g.col)
         kwargs = dict(heads=heads, score=score, var=var, ls=ls,
                       square_plus=square_plus)
-        if rev is None:
+        if engine == "sym":
             dq, dx, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_sym(
-                rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
-                ct_den, **kwargs)
+                *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
+                **kwargs)
+        elif engine == "col":
+            dq, _, _, _, dgmax, dvar, dls = fused_rhs_bwd(
+                *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
+                want_dxg=False, **kwargs)
+            dx, dkw, dkb = fused_rhs_bwd_col(
+                g.colptr, g.col_by_col, g.row_by_col, x, qw, qb, kw, kb,
+                gmax, ct_ax, recip_p, ct_den, **kwargs)
         else:
             dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd(
-                rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
-                ct_den, shifts=shifts, **kwargs)
-            # dx[n] = sum_{e: col[e] = n} dxg[e] = sum_{e in row n} dxg[rev[e]]
-            dx = csr_spmm(rowptr, row, rev, torch.ones_like(dxg[:, 0]), dxg,
-                          table=True)
+                *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
+                shifts=shifts, **kwargs)
+            dx = column_sum(g, dxg)
         dx = dx + dq @ qw.T
         return (x.T @ dq, torch.sum(dq, dim=0), dkw, dkb, dx,
                 dgmax.reshape(gmax.shape), dvar, dls) + (None,) * 6
 
 
-def _graph_csr(g, name: str):
+def _check_sorted(g, name: str) -> None:
     if not g.rows_sorted or g.rowptr is None:
         raise ValueError(f"{name} needs a row-sorted graph (sort_by_row)")
-    return g.rowptr, g.row, g.col
-
-
-def _need_symmetric(g, name: str) -> None:
-    if g.rev is None:
-        raise NotImplementedError(
-            f"{name}: x's gradient on a directed (non-symmetric) edge "
-            "multiset needs the column-side transpose kernel, ROADMAP "
-            "Queue 2 K5 / P12 (_bwd_dx_col_call)")
 
 
 def fused_rhs_ax(g, heads: int, square_plus: bool, score: str, qw, qb, kw,
                  kb, x, gmax, shifts=None, score_params=()):
-    """(ax [N, D], den [N, H]) over the prepared graph ``g``, differentiable
-    in qw, qb, kw, kb, x, gmax and the exp_kernel scalars through K8.
-    ``shifts`` [E_pad, H] carry no gradient (ax is invariant to per-row
-    shifts)."""
-    csr = _graph_csr(g, "fused_rhs_ax")
-    _need_symmetric(g, "fused_rhs_ax")
+    """(ax [N, D], den [N, H]) over the prepared graph ``g``, directed or
+    not, differentiable in qw, qb, kw, kb, x, gmax and the exp_kernel
+    scalars through K8 and the column sum of its per-edge dxg. ``shifts``
+    [E_pad, H] carry no gradient (ax is invariant to per-row shifts)."""
+    _check_sorted(g, "fused_rhs_ax")
     var, ls = _score_params(score, score_params)
     return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                          shifts, csr, g.rev, heads, square_plus, score)
+                          shifts, g, "dxg", heads, square_plus, score)
 
 
 def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str):
     """``op(qw, qb, kw, kb, x, gmax, score_params) -> (ax, den)`` for a
     SYMMETRIC edge multiset, whose backward (K9) returns x's total gradient
     with no reverse-edge map and no per-edge array."""
-    csr = _graph_csr(g, "make_fused_ax_sym")
-    _need_symmetric(g, "make_fused_ax_sym")
+    _check_sorted(g, "make_fused_ax_sym")
+    if g.rev is None:
+        raise ValueError(
+            "make_fused_ax_sym: the edge multiset is not symmetric (K9 reaches "
+            "x's gradient through reverse edges); a directed graph takes "
+            "make_fused_ax_colplan")
 
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
         var, ls = _score_params(score, score_params)
         return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                              None, csr, None, heads, square_plus, score)
+                              None, g, "sym", heads, square_plus, score)
+
+    return op
+
+
+def make_fused_ax_colplan(g, heads: int, square_plus: bool, score: str):
+    """``op(qw, qb, kw, kb, x, gmax, score_params) -> (ax, den)`` over ANY
+    prepared graph (directed included), whose backward never forms a
+    per-edge array: K8 without dxg for dq, dgmax and the exp_kernel
+    scalars, K17 over the CSC view for x's gradient and dkw, dkb (the JAX
+    package's column-plan backward, with the dkw reduction moved from the
+    edges of P11 to K17's per-column sums)."""
+    _check_sorted(g, "make_fused_ax_colplan")
+
+    def op(qw, qb, kw, kb, x, gmax, score_params=()):
+        var, ls = _score_params(score, score_params)
+        return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
+                              None, g, "col", heads, square_plus, score)
 
     return op
 
@@ -591,7 +701,8 @@ def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
     final write: the no-grad solves' RHS. Under autograd it is the unfolded
     composition with the same per-row guard, so a stray gradient through an
     eval-mode model is K8's."""
-    rowptr, row, col = _graph_csr(g, "fused_rhs_f")
+    _check_sorted(g, "fused_rhs_f")
+    rowptr, row, col = g.rowptr, g.row, g.col
     gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
     tensors = (qw, qb, kw, kb, x, alpha, *score_params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

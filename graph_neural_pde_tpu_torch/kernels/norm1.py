@@ -40,9 +40,9 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
-    EPS, _bwd_extra, _bwd_plain, _check, _edges, _finish_bwd, _flags,
-    _graph_csr, _need_symmetric, _node_sum, _node_tables, _ptr,
-    _reduce_blocks, _score_params, _shared_bytes, _u_duds, edge_scores)
+    EPS, _bwd_extra, _bwd_plain, _check, _check_sorted, _dk_sums, _edges,
+    _flags, _node_sum, _node_tables, _ptr, _reduce_blocks, _row_totals,
+    _score_params, _shared_bytes, _u_duds, edge_scores)
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +227,8 @@ def norm1_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                  row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
                  _flags(score, square_plus), blocks, tabs.project())
     norm1_bwd.launches += 1
-    return (dq, dxrow) + _finish_bwd(partials, row_sums, d, score, var, ls)
+    return ((dq, dxrow) + _dk_sums(partials, d)
+            + _row_totals(row_sums, score, var, ls))
 
 
 norm1_den.launches = 0
@@ -285,9 +286,15 @@ def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str):
     graph ``g``, differentiable in qw, qb, kw, kb, x, gmax and the
     exp_kernel scalars. ``g`` must hold a symmetric edge multiset: both the
     denominators and x's gradient reach an edge's column through its
-    reverse edge."""
-    csr = _graph_csr(g, "make_fused_ax_norm1")
-    _need_symmetric(g, "make_fused_ax_norm1")
+    reverse edge. The softmax over the columns of a directed graph is the
+    composition over the CSC view (``models.functions.make_rhs``)."""
+    _check_sorted(g, "make_fused_ax_norm1")
+    if g.rev is None:
+        raise ValueError(
+            "make_fused_ax_norm1: the edge multiset is not symmetric (K12-K14 "
+            "reach an edge's column through its reverse edge); a directed "
+            "graph composes the column softmax over its CSC view")
+    csr = (g.rowptr, g.row, g.col)
 
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
         var, ls = _score_params(score, score_params)

@@ -109,7 +109,8 @@ def build_spmm_engine(cfg: Config, g: Graph) -> Tuple[Callable, int]:
 def prepare_graph(cfg: Config, g: Graph) -> Graph:
     """The block's one-off adjacency normalisation: random-walk norm over
     columns (norm_dim=1) with self-loop fill, then a row sort, which also
-    builds the CSR ``rowptr`` and the reverse-edge map ``rev``. The GCN norm
+    builds the CSR ``rowptr``, the reverse-edge map ``rev`` (symmetric edge
+    multisets) and the CSC view (every graph). The GCN norm
     of the constant block (data_norm != 'rw') is not ported yet."""
     if cfg.block == "constant" and cfg.data_norm != "rw":
         raise NotImplementedError(

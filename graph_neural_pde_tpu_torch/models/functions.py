@@ -8,7 +8,9 @@ laplacian function (every tuned GRAND-l config), the transformer function
 optionally reweighted by the adjacency, with or without ``mix_features``)
 and the GAT function. With column normalisation
 (``attention_norm_idx=1``) the transformer function's plain softmax runs on
-the fused column-normalised kernels (K12-K14).
+the fused column-normalised kernels (K12-K14) over a symmetric edge
+multiset. Every function runs on directed graphs too (GDC, two-hop): their
+column-side passes walk the graph's CSC view.
 """
 
 from __future__ import annotations
@@ -21,11 +23,9 @@ from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.kernels.dual_scatter import dual_scatter_add
-from graph_neural_pde_tpu_torch.kernels.fused_rhs import (SCORES, den_guard,
-                                                          fused_rhs_ax,
-                                                          fused_rhs_f,
-                                                          fused_rowmax,
-                                                          make_fused_ax_sym)
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
+    SCORES, den_guard, fused_rhs_ax, fused_rhs_f, fused_rowmax,
+    make_fused_ax_colplan, make_fused_ax_sym)
 from graph_neural_pde_tpu_torch.kernels.norm1 import make_fused_ax_norm1
 from graph_neural_pde_tpu_torch.models.attention import (
     GATAttention, TransformerAttention, apply_gat_attention,
@@ -150,9 +150,10 @@ def norm1_fused_ok(cfg: Config) -> bool:
     transformer RHS runs on the fused kernels K12-K14
     (``kernels.norm1.make_fused_ax_norm1``): the plain softmax of one of
     the four in-kernel score families. ``make_rhs`` still sends the exact
-    re-solve and a re-masked graph to the composition. The JAX package's
-    predicate also asks for its bfloat16 payload, which the float32 port
-    does not have."""
+    re-solve, a re-masked graph and a directed graph (no ``rev``: the JAX
+    package asks for a symmetric plan) to the composition. The JAX
+    package's predicate also asks for its bfloat16 payload, which the
+    float32 port does not have."""
     return (cfg.fused_attention_agg and not cfg.mix_features
             and cfg.attention_norm_idx == 1
             and cfg.function == "transformer"
@@ -186,14 +187,18 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     and NaN poison as below; its exact re-solve is the composition in
     ``make_rhs``. The rest of this is the normalisation over rows.
 
-    The plain softmax (``_mega_ok``) is one K6 launch per evaluation, K9
-    (symmetric) or K8 for its gradient. Softmax is shift-invariant, so exp
+    The plain softmax (``_mega_ok``) is one K6 launch per evaluation. Its
+    gradient is K9 when ``cfg.sym_backward`` (default on) and the edge
+    multiset is symmetric, otherwise K8 without its per-edge array and K17
+    over the CSC view (``make_fused_ax_colplan``), as the JAX package
+    chooses (its column-plan backward). Softmax is shift-invariant, so exp
     runs unshifted (``gmax = 0``), exact while the scores stay within
     float32's exp range. Both failure modes, a whole row underflowing to 0
     or a score overflowing to inf, poison the output with NaN;
     ``block_forward`` then re-solves once with ``exact_softmax``, which
     shifts every edge by its row's true score max (K7) so that no exp can
-    leave the range.
+    leave the range; its gradient is K8 with the per-edge dxg, summed over
+    columns by K1.
 
     Every other variant composes: per-head scores from the gathered q[row]
     and k[col], the global max ``gmax`` (differentiated through, as the
@@ -202,16 +207,15 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     att = func.att
     h, score = cfg.heads, cfg.attention_type
     if cfg.attention_norm_idx == 1:
-        # the softmax over columns (``norm1_fused_ok``; make_rhs sends no
-        # other column-normalised config here): K12 and K13, unshifted like
-        # the row softmax, with the same guard over the COLUMN
-        # denominators. The edge multiset is symmetric, so a node's row
-        # degree is its column degree.
+        # the softmax over columns (``norm1_fused_ok`` on a symmetric edge
+        # multiset; make_rhs sends no other column-normalised config here):
+        # K12 and K13, unshifted like the row softmax, with the same guard
+        # over the COLUMN denominators, so against the column degrees
         sp = (att.output_var, att.lengthscale) if score == "exp_kernel" else ()
         gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
         ax, den = make_fused_ax_norm1(g, h, False, score)(
             att.Q.w, att.Q.b, att.K.w, att.K.b, x, gmax, sp)
-        bad = den_guard(den, g.rowptr, per_row=False)
+        bad = den_guard(den, g.colptr, per_row=False)
         ax = torch.where(bad, torch.full_like(ax, torch.nan), ax)
         return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
     if not _mega_ok(cfg, g, exact_softmax):
@@ -234,13 +238,14 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     if use_sym and g.rev is not None and not exact_softmax:
         ax, den = make_fused_ax_sym(g, h, False, score)(qw, qb, kw, kb, x,
                                                         gmax, sp)
+    elif not exact_softmax:
+        ax, den = make_fused_ax_colplan(g, h, False, score)(qw, qb, kw, kb,
+                                                            x, gmax, sp)
     else:
-        shifts = None
-        if exact_softmax:
-            with torch.no_grad():
-                smax = fused_rowmax(g.rowptr, g.row, g.col, x.contiguous(),
-                                    qw, qb, kw, kb, heads=h)
-                shifts = smax[g.row.long()]
+        with torch.no_grad():
+            smax = fused_rowmax(g.rowptr, g.row, g.col, x.contiguous(), qw,
+                                qb, kw, kb, heads=h)
+            shifts = smax[g.row.long()]
         ax, den = fused_rhs_ax(g, h, False, score, qw, qb, kw, kb, x, gmax,
                                shifts, sp)
     if not exact_softmax:
@@ -320,12 +325,12 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
     * laplacian: alpha·(A_w x − x) [+ beta·x0] with A_w the frozen attention
       (or the normalised adjacency).
     * transformer: A_w is the head-mean attention recomputed from x. With
-      row normalisation it is the fused RHS (K6-K9, or the scores composed
-      and aggregated on K10/K11, see ``_transformer_rhs_fused``), with the
-      plain softmax over columns the fused K12-K14 (``norm1_fused_ok``);
-      otherwise (the other column-normalised variants,
-      ``fused_attention_agg=False`` or ``mix_features``) attention (K3/K4)
-      and SpMM (K1/K2) are composed.
+      row normalisation it is the fused RHS (K6-K9 and K17, or the scores
+      composed and aggregated on K10/K11, see ``_transformer_rhs_fused``),
+      with the plain softmax over the columns of a symmetric graph the
+      fused K12-K14 (``norm1_fused_ok``); otherwise (the other
+      column-normalised variants and graphs, ``fused_attention_agg=False``
+      or ``mix_features``) attention (K3/K4) and SpMM (K1/K2) are composed.
       ``mix_features`` aggregates the per-head values V x and maps their
       head mean back through Wout.
     * GAT: the same with the GAT layer's scores (``_gat_rhs_fused`` on
@@ -356,10 +361,11 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
     use_fused = fused_attention(cfg)
 
     if cfg.function == "transformer":
-        # the column softmax is fused for the fast solve over the whole
-        # graph only: the exact re-solve and a re-masked graph compose
+        # the column softmax is fused for the fast solve over the whole of
+        # a symmetric graph only: the exact re-solve, a re-masked graph and
+        # a directed graph compose (K3/K4 over the columns)
         use_fused = use_fused or (norm1_fused_ok(cfg) and not exact_softmax
-                                  and not g.masked)
+                                  and not g.masked and g.rev is not None)
 
         def rhs(func, aux: FuncAux, t, x):
             if use_fused:

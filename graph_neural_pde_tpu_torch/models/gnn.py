@@ -43,7 +43,6 @@ _NOT_PORTED = (
     ("rewire_KNN", "slice 4 item 16 (GNNKNN rewiring)"),
     ("fa_layer", "slice 4 item 16 (GNNKNN fa layer)"),
     ("edge_sampling", "slice 4 item 16 (edge sampling)"),
-    ("rewiring", "slice 4 item 15 (load-time rewiring)"),
     ("use_mlp", "slice 5 item 18 (encoder MLP)"),
     ("fc_out", "slice 5 item 18 (decoder fc)"),
     ("augment", "slice 5 item 18 (augmented state)"),
@@ -57,11 +56,17 @@ _NOT_PORTED = (
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every config
     outside the ported slices (ported: every tuned GRAND-l row, label
-    diffusion, and GRAND-nl with the transformer or GAT function over the
-    constant, attention, mixed and hard_attention blocks)."""
+    diffusion, GRAND-nl with the transformer or GAT function over the
+    constant, attention, mixed and hard_attention blocks, and the
+    ``two_hop`` and ``gdc`` rewirings, whose directed graphs every one of
+    these runs on)."""
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
+    if cfg.rewiring == "pos_enc_knn":
+        raise NotImplementedError(
+            "rewiring 'pos_enc_knn': ROADMAP Queue 1 slice 4 item 15 "
+            "(positional encodings)")
     if cfg.mesh_devices and cfg.mesh_devices > 1:
         raise NotImplementedError(
             "mesh_devices: ROADMAP Queue 1 slice 6 item 20 (multi-device)")

@@ -12,8 +12,17 @@ sorted by row (``sort_by_row``) the valid edges form the prefix
   valid slots, also when the edge multiset has duplicate multi-edges, maps
   self-loops and padding to themselves, and is ``None`` when the valid edge
   multiset is not symmetric. The SpMM's backward uses it for ``dx``.
+* the CSC view, for every row-sorted graph, directed or not: ``colptr``
+  int32[N + 1], the column pointer over the valid prefix; ``col_perm``
+  int32[capacity], the row-sorted slots in column order (stable, so each
+  column's edges keep their row order; padding maps to itself), and the
+  endpoints read in that order, ``row_by_col = row[col_perm]`` and
+  ``col_by_col = col[col_perm]``. A column-side pass (dx = A^T ct, the
+  column softmax, the sum of a per-edge array over columns) walks
+  ``colptr`` as a row pass walks ``rowptr``. It is the port of the JAX
+  package's column plan (``stripe.attach_col_plan``).
 
-Both are built on the host once, when the graph is prepared.
+All of it is built on the host once, when the graph is prepared.
 
 Conventions (torch_sparse.spmm semantics): ``out[row[e]] += weight[e] *
 x[col[e]]``; ``row`` indexes the output node, ``col`` the gathered node.
@@ -42,10 +51,13 @@ class Graph:
     rowptr   : int32[N + 1] or None — CSR pointer of a row-sorted graph
     rev      : int32[E_pad] or None — reverse-edge permutation (symmetric
                row-sorted graphs)
+    colptr, col_perm, row_by_col, col_by_col : the CSC view (row-sorted
+               graphs; see the module docstring)
     masked   : True when ``mask`` drops edges INSIDE the row-sorted valid
                prefix (hard attention's re-masked graph, ``with_mask``);
-               ``rowptr`` and ``rev`` still describe the whole prefix, so
-               every per-edge value must be zeroed on the dropped slots
+               ``rowptr``, ``rev`` and the CSC view still describe the
+               whole prefix, so every per-edge value must be zeroed on the
+               dropped slots before it is read through them
     """
 
     row: torch.Tensor
@@ -56,6 +68,10 @@ class Graph:
     rows_sorted: bool = False
     rowptr: Optional[torch.Tensor] = None
     rev: Optional[torch.Tensor] = None
+    colptr: Optional[torch.Tensor] = None
+    col_perm: Optional[torch.Tensor] = None
+    row_by_col: Optional[torch.Tensor] = None
+    col_by_col: Optional[torch.Tensor] = None
     sorted_valid: Optional[int] = None   # host copy of rowptr[-1]
     masked: bool = False
 
@@ -79,15 +95,17 @@ class Graph:
         return dataclasses.replace(self, mask=keep, masked=True)
 
     def to(self, device) -> "Graph":
-        def mv(t):
-            return None if t is None else t.to(device)
-        return dataclasses.replace(
-            self, row=mv(self.row), col=mv(self.col), weight=mv(self.weight),
-            mask=mv(self.mask), rowptr=mv(self.rowptr), rev=mv(self.rev))
+        """Every tensor field moved to ``device``: the fields are read off
+        the dataclass, so none can be left behind."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
 
     def sort_by_row(self) -> "Graph":
         """Stable-reorder edges by row with padding last (as the JAX
-        package does), then build ``rowptr`` and ``rev`` on the host."""
+        package does), then build ``rowptr``, ``rev`` and the CSC view on
+        the host."""
         n = self.num_nodes
         key = torch.where(self.mask, self.row, torch.full_like(self.row, n))
         order = torch.argsort(key, stable=True)
@@ -101,13 +119,37 @@ class Graph:
         counts = torch.bincount(row[mask].long(), minlength=n)
         rowptr = torch.zeros(n + 1, dtype=torch.int64, device=row.device)
         rowptr[1:] = torch.cumsum(counts, 0)
-        rev = reverse_edges(row.cpu().numpy(), col.cpu().numpy(),
-                            mask.cpu().numpy())
+        row_np, col_np = row.cpu().numpy(), col.cpu().numpy()
+        rev = reverse_edges(row_np, col_np, mask.cpu().numpy())
+        nv = int(rowptr[-1])
+        colptr, col_perm = column_order(col_np, nv, n)
+
+        def dev(a):
+            return torch.from_numpy(a).to(row.device)
+
         return Graph(row=row, col=col, weight=weight, mask=mask, num_nodes=n,
                      rows_sorted=True, rowptr=rowptr.to(torch.int32),
-                     rev=None if rev is None
-                     else torch.from_numpy(rev).to(row.device),
-                     sorted_valid=int(rowptr[-1]))
+                     rev=None if rev is None else dev(rev),
+                     colptr=dev(colptr), col_perm=dev(col_perm),
+                     row_by_col=dev(row_np[col_perm]),
+                     col_by_col=dev(col_np[col_perm]), sorted_valid=nv)
+
+
+def column_order(col: np.ndarray, n_valid: int, num_nodes: int):
+    """The CSC view of a row-sorted edge list whose valid edges are the
+    prefix ``[0, n_valid)``: ``(colptr int32[N + 1], col_perm
+    int32[capacity])``. ``col_perm`` lists the valid slots sorted by column,
+    stably (each column keeps its edges' row order, as
+    ``stripe.attach_col_plan`` orders them), then the padding slots, each
+    mapped to itself."""
+    col = np.asarray(col)
+    order = np.argsort(col[:n_valid], kind="stable")
+    col_perm = np.arange(col.shape[0], dtype=np.int32)
+    col_perm[:n_valid] = order
+    colptr = np.zeros(num_nodes + 1, np.int64)
+    colptr[1:] = np.cumsum(np.bincount(col[:n_valid].astype(np.int64),
+                                       minlength=num_nodes))
+    return colptr.astype(np.int32), col_perm
 
 
 def reverse_edges(row: np.ndarray, col: np.ndarray,
@@ -195,3 +237,16 @@ def get_rw_adj(g: Graph, *, norm_dim: int = 1,
     weight = torch.where(g.mask, g.weight * deg_inv[idx],
                          torch.zeros_like(g.weight))
     return g.with_weight(weight)
+
+
+def dense_adjacency(g: Graph, device=None) -> torch.Tensor:
+    """[N, N] float32 matrix with ``A[row, col] = weight`` summed over the
+    valid edges (duplicate edges add up), on ``device`` (the graph's by
+    default)."""
+    device = g.row.device if device is None else torch.device(device)
+    n = g.num_nodes
+    a = torch.zeros((n, n), dtype=torch.float32, device=device)
+    w = torch.where(g.mask, g.weight, torch.zeros_like(g.weight))
+    a.index_put_((g.row.long().to(device), g.col.long().to(device)),
+                 w.to(device=device, dtype=torch.float32), accumulate=True)
+    return a

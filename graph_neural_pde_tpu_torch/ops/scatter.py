@@ -1,9 +1,11 @@
 """Per-node normalisations of per-edge values (PyTorch port of
 ``ops/scatter.py``) over a row-sorted graph, on the K3/K4 kernels.
 
-A segment is a node's edges: its row (``norm_idx=0``) or, on a symmetric
-edge multiset, its column (``norm_idx=1``, read through the reverse-edge map
-``Graph.rev``). Values are [E] or [E, H] over the graph's padded slots;
+A segment is a node's edges: its row (``norm_idx=0``) or its column
+(``norm_idx=1``): on a symmetric edge multiset read through the reverse-edge
+map ``Graph.rev`` in row order, on a directed one over the CSC view
+(``colptr`` and ``col_perm``). Values are [E] or [E, H] over the graph's
+padded slots;
 padding slots never contribute and come out 0. Every function here is
 differentiable: the gradient is K4 (``kernels.segment_norm_bwd``).
 """
@@ -22,18 +24,33 @@ class _SegmentNorm(torch.autograd.Function):
     """out = segment_norm(s) with K4 as its backward. Residuals: out, den."""
 
     @staticmethod
-    def forward(ctx, s, rowptr, row, perm, mode):
-        out, den = segment_norm(rowptr, row, perm, s, mode)
-        ctx.save_for_backward(out, den, rowptr, row, perm)
+    def forward(ctx, s, segptr, seg, perm, mode):
+        out, den = segment_norm(segptr, seg, perm, s, mode)
+        ctx.save_for_backward(out, den, segptr, seg, perm)
         ctx.mode = mode
         return out
 
     @staticmethod
     def backward(ctx, g):
-        out, den, rowptr, row, perm = ctx.saved_tensors
-        ds = segment_norm_bwd(rowptr, row, perm, out, g.contiguous(), den,
+        out, den, segptr, seg, perm = ctx.saved_tensors
+        ds = segment_norm_bwd(segptr, seg, perm, out, g.contiguous(), den,
                               ctx.mode)
         return ds, None, None, None, None
+
+
+def segments(g: Graph, norm_idx: int):
+    """``(segptr, seg, perm)`` of K3/K4 for the rows (``norm_idx=0``) or
+    columns (``1``) of a row-sorted graph: the column segments through the
+    reverse edges where ``rev`` exists, over the CSC view otherwise."""
+    if not g.rows_sorted or g.rowptr is None:
+        raise ValueError("segment normalisation needs a row-sorted graph")
+    if norm_idx == 0:
+        return g.rowptr, g.row, None
+    if norm_idx != 1:
+        raise ValueError(f"attention_norm_idx {norm_idx} is not 0 or 1")
+    if g.rev is not None:
+        return g.rowptr, g.row, g.rev
+    return g.colptr, g.col_by_col, g.col_perm
 
 
 def segment_normalize(values: torch.Tensor, g: Graph, norm_idx: int,
@@ -41,19 +58,9 @@ def segment_normalize(values: torch.Tensor, g: Graph, norm_idx: int,
     """K3 over the rows (``norm_idx=0``) or columns (``1``) of ``g``:
     ``mode`` is ``"softmax"`` or ``"normalise"`` (see
     ``kernels.segment_norm``)."""
-    if not g.rows_sorted or g.rowptr is None:
-        raise ValueError("segment_normalize needs a row-sorted graph")
-    perm = None
-    if norm_idx == 1:
-        if g.rev is None:
-            raise NotImplementedError(
-                "column normalisation of a directed (non-symmetric) edge "
-                "multiset: ROADMAP Queue 2 K5 (column transpose)")
-        perm = g.rev
-    elif norm_idx != 0:
-        raise ValueError(f"attention_norm_idx {norm_idx} is not 0 or 1")
+    segptr, seg, perm = segments(g, norm_idx)
     s = values.reshape(values.shape[0], -1).float().contiguous()
-    out = _SegmentNorm.apply(s, g.rowptr, g.row, perm, mode)
+    out = _SegmentNorm.apply(s, segptr, seg, perm, mode)
     return out.reshape(values.shape)
 
 

@@ -9,7 +9,9 @@ of the framework, run once per ODE right-hand-side evaluation.
   ``torch.autograd.Function`` whose forward and backward are the
   hand-written kernels (``kernels.csr_spmm``, ``kernels.edge_dot``), with
   the whole-matvec symmetric VJP of the JAX package's
-  ``_make_stripe_spmm_sym``.
+  ``_make_stripe_spmm_sym`` on a symmetric edge multiset and, on a directed
+  one, dx = A^T ct as ``csr_spmm`` walked over the CSC view (the JAX
+  package's stripe scatter over its column plan).
 * :func:`spmm_multihead` and :func:`spmm_mean_heads` are the per-head and
   head-mean aggregations of ``mix_features``, on the same engine.
 """
@@ -37,56 +39,61 @@ def _check_sorted(g: Graph):
         raise ValueError("spmm needs a row-sorted graph (sort_by_row)")
 
 
-class _SymSpmm(torch.autograd.Function):
-    """out = A_w x on a symmetric row-sorted graph.
+def transpose_matvec(g: Graph, w: torch.Tensor,
+                     ct: torch.Tensor) -> torch.Tensor:
+    """``A_w^T ct``: ``out[n] = sum_{e: col[e]=n} w[e] ct[row[e]]``, one
+    ``csr_spmm`` launch. On a symmetric edge multiset it is a forward matvec
+    with the weights permuted to the reverse edges,
 
-    For an undirected edge multiset the transpose matvec is a forward
-    matvec with the weights permuted to the reverse edges:
+        sum_{e: col[e]=n} w[e] ct[row[e]] = sum_{e': row[e']=n} w[rev(e')] ct[col[e']],
 
-        dx[n] = sum_{e: col[e]=n} w[e] ct[row[e]]
-              = sum_{e': row[e']=n} w[rev(e')] ct[col[e']]
+    so the row walk serves; on a directed one the kernel walks the CSC view
+    (``colptr``, gathering ``ct[row_by_col]`` with the weights ``w[col_perm]``).
+    The weights are asymmetric (column normalisation, attention), which is
+    why both routes permute them. ``w`` must be 0 on dropped slots."""
+    if g.rev is not None:
+        return csr_spmm(g.rowptr, g.row, g.col, w[g.rev.long()], ct)
+    return csr_spmm(g.colptr, g.col_by_col, g.row_by_col,
+                    w[g.col_perm.long()], ct)
 
-    so ``dx`` is one more ``csr_spmm`` launch, and ``dw[e] = ct[row[e]] .
-    x[col[e]]`` is one ``edge_dot`` launch, zero on padding slots. The
-    weights are asymmetric (w[e] != w[rev(e)]: column normalisation and
-    attention), which is why ``dx`` must use ``w[rev]``. Residuals are the
-    inputs (x, w) only.
-    """
+
+class _Spmm(torch.autograd.Function):
+    """out = A_w x on a row-sorted graph: the forward is ``csr_spmm``; the
+    backward ``dx = A_w^T ct`` is one more ``csr_spmm`` launch
+    (:func:`transpose_matvec`), and ``dw[e] = ct[row[e]] . x[col[e]]`` one
+    ``edge_dot`` launch, zero on padding slots. Residuals are the inputs
+    (x, w) only."""
 
     @staticmethod
-    def forward(ctx, x, w, rowptr, row, col, rev, n_valid):
-        ctx.save_for_backward(x, w, rowptr, row, col, rev)
-        ctx.n_valid = n_valid
-        return csr_spmm(rowptr, row, col, w, x)
+    def forward(ctx, x, w, g, n_valid):
+        ctx.save_for_backward(x, w)
+        ctx.g, ctx.n_valid = g, n_valid
+        return csr_spmm(g.rowptr, g.row, g.col, w, x)
 
     @staticmethod
     def backward(ctx, ct):
-        x, w, rowptr, row, col, rev = ctx.saved_tensors
+        x, w = ctx.saved_tensors
+        g = ctx.g
         ct = ct.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = csr_spmm(rowptr, row, col, w[rev.long()], ct)
+            dx = transpose_matvec(g, w, ct)
         if ctx.needs_input_grad[1]:
-            dw = edge_dot(row, col, ct, x, ctx.n_valid)
-        return dx, dw, None, None, None, None, None
+            dw = edge_dot(g.row, g.col, ct, x, ctx.n_valid)
+        return dx, dw, None, None
 
 
 def make_spmm(g: Graph):
-    """``spmm_fn(x, w)`` over a prepared graph, running the CUDA kernels on
-    CUDA tensors (their plain versions on CPU tensors), differentiable in
-    both x and w. Valid edges must be the row-sorted prefix that
-    ``Graph.sort_by_row`` leaves; padding weights are never read."""
+    """``spmm_fn(x, w)`` over a prepared graph, directed or not, running
+    the CUDA kernels on CUDA tensors (their plain versions on CPU tensors),
+    differentiable in both x and w. Valid edges must be the row-sorted
+    prefix that ``Graph.sort_by_row`` leaves; padding weights are never
+    read."""
     _check_sorted(g)
-    if g.rev is None:
-        raise NotImplementedError(
-            "make_spmm: directed (non-symmetric) edge multisets need the "
-            "column-side transpose kernel, ROADMAP Queue 2 K5 "
-            "(make_col_gather)")
     n_valid = g.num_valid
 
     def spmm_fn(x, w):
-        return _SymSpmm.apply(x.contiguous(), w.contiguous(), g.rowptr,
-                              g.row, g.col, g.rev, n_valid)
+        return _Spmm.apply(x.contiguous(), w.contiguous(), g, n_valid)
 
     return spmm_fn
 

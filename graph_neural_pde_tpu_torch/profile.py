@@ -20,7 +20,7 @@ eval step and, for GNNEarly, the early-stop eval. Prints
 * device busy time (the union of kernel, memcpy and memset intervals) over
   the profiled wall time, and so the device's idle share;
 * device time by kernel, with launch counts, and the port's kernels' mean
-  device time per launch (K1-K4, K6-K16, matched by their ``__global__``
+  device time per launch (K1-K4, K6-K17, matched by their ``__global__``
   names);
 * the device time of PyTorch's indexing kernels (the per-edge gathers such
   as q[row] and k[col] of the composed attention scores, and their

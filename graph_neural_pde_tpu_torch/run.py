@@ -19,7 +19,9 @@ function on the blocked SpMM (K15/K16), best after ``--node_reorder rcm``
 (or ``degree``) has laid the graph's communities into node blocks.
 ``--dataset ogbn-arxiv-synthetic
 --use_best_params`` trains the architecture of the JAX package's
-``bench.py`` on its random graph at ogbn-arxiv's size.
+``bench.py`` on its random graph at ogbn-arxiv's size. ``--rewiring gdc``
+(or ``two_hop``) rewires the loaded graph into a directed one (GDC's dense
+diffusion runs on the card), and every model above trains over it.
 
 One deliberate deviation: the JAX CLI draws the citation graphs' random
 development split from an unseeded ``np.random.randint``; the port seeds it
@@ -54,7 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "the command line (best_params.py semantics)")
     for f in dataclasses.fields(Config):
         name = f"--{f.name}"
-        if f.type == "bool" or isinstance(f.default, bool):
+        if f.type in ("bool", "Optional[bool]") or isinstance(f.default,
+                                                              bool):
+            # --flag / --no-flag (e.g. --no-sym_backward: the column-plan
+            # backward of the fused RHS on a symmetric graph)
             parser.add_argument(name, action=argparse.BooleanOptionalAction,
                                 default=None)
         elif f.name in ("jacobian_norm2", "total_deriv", "kinetic_energy",
@@ -111,7 +116,7 @@ def setup(cfg: Config, data_dir: str = "./data", device="cuda") -> Setup:
         raise RuntimeError(
             "no CUDA device: the port trains on the card "
             "(run.main(cfg, device='cpu') runs it on the CPU)")
-    dataset = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc)
+    dataset = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc, device=device)
 
     # random development split for the citation graphs (reference
     # run_GNN.py:237-238), seeded from cfg.seed (see the module docstring)

@@ -505,7 +505,7 @@ class TestWrappers:
                                                             in ops[:4]],
                              heads=H)
         assert [k.launches for k in kernels.KERNELS] == before
-        assert len(kernels.KERNELS) == 15
+        assert len(kernels.KERNELS) == 16
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "heads", "score",
                                      "beltrami", "meta"])
@@ -534,13 +534,20 @@ class TestWrappers:
                                   heads=heads, score=score)
 
     def test_directed_graph_raises(self):
-        """x's gradient on a non-symmetric edge multiset needs the column
-        transpose kernel, which is still to port."""
+        """K9 reaches x's gradient through reverse edges: on a non-symmetric
+        edge multiset its op refuses, and the column-plan op (K8 and K17
+        over the CSC view) takes the graph."""
         from graph_neural_pde_tpu_torch.ops.graph import make_graph
         g = make_graph([0, 1, 2], [1, 2, 0], num_nodes=3).sort_by_row()
         assert g.rev is None
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="make_fused_ax_colplan"):
             kernels.make_fused_ax_sym(g, 1, False, "scaled_dot")
+        x = torch.randn(3, 2, requires_grad=True)
+        w = [torch.randn(2, 2, requires_grad=True) for _ in range(2)]
+        ax, _ = kernels.make_fused_ax_colplan(g, 1, False, "scaled_dot")(
+            w[0], torch.zeros(2), w[1], torch.zeros(2), x, torch.zeros(1))
+        torch.sum(ax ** 2).backward()
+        assert torch.isfinite(x.grad).all() and x.grad.abs().max() > 0
 
     @pytest.mark.parametrize("override", [
         dict(optimizer="adagrad"), dict(mesh_devices=2),

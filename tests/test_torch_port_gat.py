@@ -271,12 +271,21 @@ class TestDualScatterOp:
             kernels.dual_scatter(rowptr, row, col, u, x)
 
     def test_directed_graph_raises(self):
-        """x's gradient on a non-symmetric edge multiset needs the column
-        transpose kernel, which is still to port."""
-        g = make_graph([0, 1, 2], [1, 2, 0], num_nodes=3).sort_by_row()
+        """x's gradient on a non-symmetric edge multiset no longer raises:
+        K11 gives du, and K1 over the CSC view sums dx over the columns
+        (against the plain version, which sums over columns directly)."""
+        g = make_graph([0, 1, 2, 2], [1, 2, 0, 1], num_nodes=3).sort_by_row()
         assert g.rev is None
-        with pytest.raises(NotImplementedError, match="K5"):
-            kernels.dual_scatter_add(g, torch.ones(3, 1), torch.ones(3, 2))
+        u = torch.rand(4, 2, requires_grad=True)
+        x = torch.randn(3, 3, requires_grad=True)
+        num, den = kernels.dual_scatter_add(g, u, x)
+        ct_num, ct_den = torch.randn(3, 6), torch.randn(3, 2)
+        (torch.sum(num * ct_num) + torch.sum(den * ct_den)).backward()
+        du, dx = kernels.dual_gather_plain(g.rowptr, g.row, g.col,
+                                           u.detach(), x.detach(), ct_num,
+                                           ct_den)
+        assert torch.allclose(u.grad, du, rtol=1e-6, atol=1e-6)
+        assert torch.allclose(x.grad, dx, rtol=1e-6, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

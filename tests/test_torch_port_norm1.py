@@ -455,19 +455,23 @@ class TestOp:
 
     def test_directed_graph_raises(self):
         """Both the denominators and x's gradient reach an edge's column
-        through its reverse edge: a non-symmetric edge multiset needs the
-        column-side kernel, which is still to port."""
+        through its reverse edge: on a non-symmetric edge multiset the fused
+        op refuses, and ``make_rhs`` composes the column softmax over the
+        CSC view instead (K3/K4, K1/K2), equal to the exact re-solve's
+        composition."""
         g = make_graph([0, 1, 2], [1, 2, 0], num_nodes=3).sort_by_row()
         assert g.rev is None
-        with pytest.raises(NotImplementedError, match="K5"):
+        with pytest.raises(ValueError, match="CSC view"):
             kernels.make_fused_ax_norm1(g, 1, False, "scaled_dot")
         cfg = Config(**NL1).replace(hidden_dim=4, heads=1,
                                     self_loop_weight=0.0)
         func = tfunctions.ODEFunc(cfg, 4)
-        x = torch.zeros(3, 4)
+        x = torch.randn(3, 4, generator=torch.Generator().manual_seed(0))
         aux = tfunctions.FuncAux(None, x, g.weight)
-        with pytest.raises(NotImplementedError, match="K5"):
-            tfunctions.make_rhs(cfg, g)(func, aux, 0.0, x)
+        fast = tfunctions.make_rhs(cfg, g)(func, aux, 0.0, x)
+        exact = tfunctions.make_rhs(cfg, g, exact_softmax=True)(func, aux,
+                                                                 0.0, x)
+        assert torch.isfinite(fast).all() and torch.equal(fast, exact)
 
 
 # ---------------------------------------------------------------------------

@@ -186,11 +186,19 @@ class TestSegmentNormWrappers:
                                      "softmax")
 
     def test_column_segments_of_a_directed_graph_raise(self):
-        row, col, n = np.array([0, 1, 2]), np.array([1, 2, 0]), 3
+        """The column segments of a directed graph no longer raise: K3
+        walks the CSC view (``colptr``, ``col_perm``), equal to the softmax
+        over each column taken directly."""
+        row, col, n = np.array([0, 1, 2, 2]), np.array([1, 2, 0, 1]), 3
         tg = make_graph(row, col, num_nodes=n).sort_by_row()
         assert tg.rev is None
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsc.segment_softmax(torch.rand(tg.capacity, 1), tg, 1)
+        s = torch.rand(tg.capacity, 1)
+        got = tsc.segment_softmax(s, tg, 1)
+        c = tg.col.long()
+        for node in range(n):
+            sel = c == node
+            want = torch.softmax(s[sel, 0], dim=0)
+            assert torch.allclose(got[sel, 0], want, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("fn", ["softmax", "squareplus"])

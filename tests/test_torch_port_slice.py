@@ -207,7 +207,7 @@ def test_cli_parser_builds_config():
     dict(beltrami=True), dict(use_mlp=True),
     dict(fc_out=True),
     dict(augment=True), dict(kinetic_energy=0.1), dict(method="cheby"),
-    dict(optimizer="sgd"), dict(rewiring="gdc"),
+    dict(optimizer="sgd"), dict(rewiring="pos_enc_knn"),
     dict(mesh_devices=4), dict(rewire_KNN=True),
 ])
 def test_configs_outside_the_slice_raise(override):
