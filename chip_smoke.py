@@ -24,19 +24,24 @@ Phases, each of which must pass (any failure exits nonzero):
    per-edge shifts, folded), K7 ``fused_rowmax``, K8 ``fused_rhs_bwd`` and
    K9 ``fused_rhs_bwd_sym`` (every output; K8 and K9 against the plain
    version evaluated in float64 on the same float32 inputs, so that the
-   bound holds the kernel's rounding and not the reference's), for all four
-   score families on the Cora stand-in at D=16, ATT=16, H=4 and for
+   bound holds the kernel's rounding and not the reference's), for all five
+   score families (BLEND's exp_kernel_beltrami over block-structured packed
+   projections, as ``models.functions.pack_beltrami`` builds them, with its
+   two pairs of scalars) on the Cora stand-in at D=16, ATT=16, H=4, for
    scaled_dot at the two real shapes: the Cora stand-in at D=80, ATT=128,
-   H=8 and the arxiv-scale graph at D=128, ATT=32, H=2; two K9 launches
-   must be bit-identical. K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
+   H=8 and the arxiv-scale graph at D=128, ATT=32, H=2, and for
+   exp_kernel_beltrami at bench.py's BLEND widths on the arxiv-scale graph
+   (D=128, packed ATT=2 x 32, H=2); two K9 launches must be
+   bit-identical. K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
    also against its plain version in float64), at a small shape, the Cora
    stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2; two
    launches of each must be bit-identical. K12 ``norm1_den`` (the column
    denominators, and the same sum weighted by the cotangent), K13
    ``norm1_fwd`` and K14 ``norm1_bwd`` (every output, against the plain
-   version in float64), for all four score families on the Cora stand-in
-   at D=16, ATT=16, H=4 and for scaled_dot at the same two real shapes;
-   two launches of each must be bit-identical. K15 ``blocked_spmm``
+   version in float64), for all five score families on the Cora stand-in
+   at D=16, ATT=16, H=4, for scaled_dot at the same two real shapes and
+   for exp_kernel_beltrami at the arxiv-scale BLEND widths; two launches
+   of each must be bit-identical. K15 ``blocked_spmm``
    (forward, and dx on the transposed plan) and K16 ``blocked_sddmm`` over
    the block plan (1024-node blocks, 1024-slot chunks) of: the Cora
    stand-in after rcm at D=80, the ogbn-arxiv stand-in after rcm at D=162,
@@ -48,11 +53,15 @@ Phases, each of which must pass (any failure exits nonzero):
    ``fused_rhs_bwd_col`` (x[col]'s cotangent walked over the CSC view, and
    dKw, dKb from each column's summed dk) and K8 without its per-edge dxg
    (dq, dgmax), against their plain versions in float64,
-   for all four score families on a small random directed graph (2,000
+   for all five score families on a small random directed graph (2,000
    nodes) at D=16, ATT=16, H=4 and for scaled_dot on the Cora stand-in
    rewired by GDC on the card (the CLI's defaults) at D=80, ATT=128, H=8
    and on ogbn-arxiv-synthetic's random pairs one way only (169,343 nodes,
-   plus self-loops) at D=128, ATT=32, H=2, two K17 launches bit-identical;
+   plus self-loops) at D=128, ATT=32, H=2 (and exp_kernel_beltrami at
+   packed ATT=2 x 32), two K17 launches bit-identical; at (s)'s shape, the
+   Cora stand-in rewired by ``pos_enc_knn`` (DW64 by DeepWalk on the card;
+   hub columns), exp_kernel_beltrami at D=64+32, packed ATT=2 x 128, H=8:
+   K6, K8 (two launches bit-identical), K8 without dxg and K17;
    K1 as the column sum dx = A^T ct over the CSC view, K3/K4 over its
    columns, against ``index_add`` over the columns, and K11's du with its
    dx by K1 over the CSC view, on those two graphs.
@@ -66,7 +75,9 @@ Phases, each of which must pass (any failure exits nonzero):
    host's launch cost). Beside each time stands the least time the card
    could take for the same work (``bound``: the larger of the compulsory
    bytes over 3.35 TB/s and the float32 operations over 67 TFLOP/s, from
-   this run's shapes) and, where one PyTorch call computes the same
+   this run's shapes; exp_kernel_beltrami's packed projections counted
+   over their non-zero blocks, its per-edge terms at the packed width)
+   and, where one PyTorch call computes the same
    function, that call's time (``library``);
 4. end to end on small inputs, card against CPU (the plain versions, which
    the CPU test suite holds against the JAX package), from the same
@@ -80,7 +91,13 @@ Phases, each of which must pass (any failure exits nonzero):
    image model (one training forward and backward) on both engines, and
    the tuned Cora row and Cora GRAND-nl (the softmax, squareplus, the GAT
    function) over one GDC-rewired (directed) edge list, built once on the
-   card and handed to both devices;
+   card and handed to both devices; BLEND (a seeded positional encoding,
+   the dual encoder at widths 12 + 4, the split-space score): Cora GRAND-nl
+   over rows and over columns, the tuned Cora row's attention block, the
+   tuned ogbn-arxiv row's dual encoder; DeepWalk's skip-gram training
+   card against CPU from one start, the ``pos_enc_knn`` rewiring of the
+   300-node SBM from a DeepWalk encoding computed on the card (card and
+   CPU kNN agree), and Cora BLEND GRAND-nl over that directed graph;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after: tuned Cora for 1 training epoch (followed by an eval step
@@ -116,8 +133,16 @@ Phases, each of which must pass (any failure exits nonzero):
    view; (n) (b) over the same GDC graph, which must launch K6, K8 and K17
    and not K9; (o) (a) with ``sym_backward=False``, the JAX package's
    column-plan backward (K8 without dxg, K17, never K9), its epoch time
-   printed beside (a)'s. Each run must launch the kernels its path runs,
-   and all sixteen counters must grow.
+   printed beside (a)'s; (p) the tuned ogbn-arxiv row with ``beltrami``
+   (its DW64 encoding computed by DeepWalk on the card; GRAND-l with the
+   dual encoder at widths 64 + 98); (q) BLEND GRAND-nl at bench.py's
+   BLEND widths (feature 96, positions 32, split-space score) over
+   ogbn-arxiv-synthetic with bench.py's seeded N(0, 1) encoding of width
+   32 (read from the encodings' cache), K6 and K9; (r) (q) with the
+   softmax over columns, K12-K14; (s) (b) with BLEND over the Cora
+   stand-in rewired by ``pos_enc_knn`` from its DW64 encoding (computed on
+   the card in phase 3 and read from the cache), a directed graph: K6, K8 and K17, never K9. Each run must
+   launch the kernels its path runs, and all sixteen counters must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -135,7 +160,9 @@ import tempfile
 import time
 
 REL_BOUND = 1e-5
-SCORE_FAMILIES = ("scaled_dot", "cosine_sim", "pearson", "exp_kernel")
+SCORE_FAMILIES = ("scaled_dot", "cosine_sim", "pearson", "exp_kernel",
+                  "exp_kernel_beltrami")
+BELTRAMI = "exp_kernel_beltrami"
 
 
 def nvidia_smi() -> str:
@@ -540,11 +567,16 @@ def check_column_sum(shape_name, g, d, seed, dev="cuda"):
         lambda: torch.sparse.mm(csr_t, ct))]
 
 
-def rhs_operands(g, d, att, h, score, seed, dev):
+def rhs_operands(g, d, att, h, score, seed, dev, feat=None):
     """Seeded operands of one attention RHS evaluation on ``dev``: the
     graph moved there, a normal sampler, the CSR arrays, (x, Qw, qb, Kw,
-    kb, gmax) and the kernels' keyword arguments (with the exp_kernel
-    scalars)."""
+    kb, gmax) and the kernels' keyword arguments (with the score's
+    scalars). For exp_kernel_beltrami ``att`` is the packed width and the
+    projections are block-structured as ``models.functions.pack_beltrami``
+    builds them: the first ``feat`` of x's columns (features; 3/4 of them
+    by default) map to the first half of q and k, the rest (positions) to
+    the second half, with Kp drawn apart from Qp; var and ls hold the two
+    factors' scalars."""
     import torch
     dev = torch.device(dev)
     g = g.to(dev)
@@ -557,24 +589,45 @@ def rhs_operands(g, d, att, h, score, seed, dev):
     # projections with O(1) rows, so the scores stay O(1)
     x = randn(n, d)
     qw, kw = randn(d, att, scale=d ** -0.5), randn(d, att, scale=d ** -0.5)
+    if score == BELTRAMI:
+        feat = (3 * d) // 4 if feat is None else feat
+        for w in (qw, kw):
+            w[feat:, :att // 2] = 0.0
+            w[:feat, att // 2:] = 0.0
     qb, kb = randn(att, scale=0.1), randn(att, scale=0.1)
     gmax = torch.full((1,), 0.25, device=dev)
     sp = {}
     if score == "exp_kernel":
         sp = dict(var=torch.full((1,), 1.3, device=dev),
                   ls=torch.full((1,), 0.8, device=dev))
+    elif score == BELTRAMI:
+        sp = dict(var=torch.tensor([1.3, 0.9], device=dev),
+                  ls=torch.tensor([0.8, 1.4], device=dev))
     return (g, randn, (g.rowptr, g.row, g.col), (x, qw, qb, kw, kb, gmax),
             dict(heads=h, score=score, **sp))
 
 
+def projection_ops(d, att, score):
+    """float32 operations of one node's q (or k) projection, or of one
+    product of a dk row by Kw^T or x^T: 2 D ATT. Under exp_kernel_beltrami
+    ``att`` is the packed width and half of each packed weight is zero by
+    construction (features to the first half, positions to the second), so
+    the work needed is 2 (Dx + Dp) ATT/2 = D att."""
+    return d * att if score == BELTRAMI else 2 * d * att
+
+
 def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
-                        dev="cuda"):
+                        dev="cuda", feat=None):
     """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
     output) against their plain versions; two K9 launches must be
-    bit-identical. ``timed=False`` only compares."""
+    bit-identical. On a directed graph (no reverse-edge map) K9 does not
+    apply: two K8 launches must be bit-identical instead. ``timed=False``
+    only compares; ``feat`` as in ``rhs_operands``."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
-    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev,
+                                            feat)
+    symmetric = g.rev is not None
     n, nv, cap = g.num_nodes, g.num_valid, g.capacity
     alpha = torch.full((1,), 0.37, device=ops[0].device)
     shifts = randn(cap, h, scale=0.5)
@@ -603,7 +656,7 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     # float32 operations: every node's q and k projections, and per edge
     # the scores and the aggregation (see the note in csrc/fused_rhs.cu)
     base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
-    proj = 2 * d * att
+    proj = projection_ops(d, att, score)
     fwd_ops = 2 * n * proj + nv * (2 * att + 2 * h * d)
     node_b = 4 * n * (d + 2 * h)             # ct_ax, recip_p, ct_den
     cases = [
@@ -639,6 +692,8 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
           4 * n * proj + nv * (10 * att + 6 * d)),
          lambda: plain64(K.fused_rhs_bwd_sym_plain, **kw_f)),
     ]
+    if not symmetric:
+        cases.pop()
     if score == "scaled_dot":
         cases.insert(3, (
             "fused_rowmax", "row maxima of the scores",
@@ -650,26 +705,26 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
-    first = K.fused_rhs_bwd_sym(*csr, *ops, *cts, **kw_f)
-    again = K.fused_rhs_bwd_sym(*csr, *ops, *cts, **kw_f)
-    if not all(torch.equal(a, b) for a, b in zip(some(first), some(again))):
-        raise AssertionError(f"fused_rhs_bwd_sym {score} @ {shape_name}: two "
+    kname, _, kern = cases[-1][:3]     # K9, or K8 on a directed graph
+    if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+        raise AssertionError(f"{kname} {score} @ {shape_name}: two "
                              f"launches differ")
-    print(f"[kernels] fused_rhs_bwd_sym @ {shape_name} {score}: two launches "
+    print(f"[kernels] {kname} @ {shape_name} {score}: two launches "
           f"bit-identical in every output", flush=True)
     return rows
 
 
 def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
-                             timed=True, dev="cuda"):
+                             timed=True, dev="cuda", feat=None):
     """K17 (x[col]'s cotangent walked over the CSC view of a directed
     graph, and dkw, dkb from each column's summed dk) and K8 without its
     per-edge dxg (dq, dgmax), the two kernels of the column-plan backward, against their plain versions evaluated in float64
     on the same float32 inputs; two K17 launches must be bit-identical.
-    ``timed=False`` only compares."""
+    ``timed=False`` only compares; ``feat`` as in ``rhs_operands``."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
-    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev,
+                                            feat)
     if g.rev is not None:
         raise AssertionError(f"{shape_name}: not a directed graph")
     n, nv = g.num_nodes, g.num_valid
@@ -702,7 +757,7 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     # product of the column's summed dk by Kw^T and the node's term of
     # dKw = sum_n x_n^T dk_n (2 N proj). K8 without dxg forms no dk.
     base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
-    proj = 2 * d * att
+    proj = projection_ops(d, att, score)
     node_b = 4 * n * (d + 2 * h)
     cases = [
         ("fused_rhs_bwd_col", "dx, dkw, dkb over CSC",
@@ -833,7 +888,7 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     # projections, per edge one score (K14: two, and their derivatives)
     # and the dot products or accumulations over D
     base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
-    proj = 2 * d * att
+    proj = projection_ops(d, att, score)
     cases = [
         ("norm1_den", "column denominators",
          lambda: K.norm1_den(*csr, *ops, **kw_f),
@@ -964,11 +1019,13 @@ def attention_layer(model):
 
 def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                            early_stop_counts: bool = True,
-                           grad_floor: float = 1e-6, graph=None):
+                           grad_floor: float = 1e-6, graph=None,
+                           pos_dim: int = 0):
     """A tuned row (or ``base``) at reduced width on a 300-node SBM (over
     ``graph`` where one is given: a rewired edge list built once and handed
     to both devices): the card's kernel path against the CPU's plain path,
-    same weights and inputs. The early-stop eval integrates to 3T, far
+    same weights and inputs. A ``beltrami`` config runs at widths 12 + 4
+    with a seeded N(0, 1) positional encoding of width ``pos_dim``. The early-stop eval integrates to 3T, far
     into the steady state, where the error estimate is rounding noise: a
     config whose step counts differ there between two orders of summation
     passes
@@ -983,32 +1040,39 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     from graph_neural_pde_tpu_torch.training.train import cross_entropy_loss
     cfg = (base or best_params[row]).replace(
         hidden_dim=16, attention_dim=16, heads=4, input_dropout=0.0,
-        dropout=0.0)
+        dropout=0.0, feat_hidden_dim=12, pos_enc_hidden_dim=4)
     d = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=24,
                          seed=3, num_val=60)
     if graph is not None:
         d.graph = graph
     gen = torch.Generator().manual_seed(5)
+    pos = (torch.randn(300, pos_dim, generator=torch.Generator()
+                       .manual_seed(6)) if cfg.beltrami else None)
     results = {}
     state = None
     for dev in devices:
-        m = GNNEarlyModel(cfg, 24, 4, d.graph, device=dev)
+        m = GNNEarlyModel(cfg, 24, 4, d.graph, device=dev,
+                          pos_enc_dim=pos_dim)
         if state is None:
-            # random Q/K so the attention is not uniform (the GAT layer's
-            # W and a are drawn at random already)
+            # random Q/K (BLEND: Qx, Kx, Qp, Kp) so the attention is not
+            # uniform (the GAT layer's W and a are drawn at random already)
             with torch.no_grad():
                 att = attention_layer(m)
-                for lin in ((att.Q, att.K) if hasattr(att, "Q") else ()):
-                    lin.w.copy_(0.3 * torch.randn(lin.w.shape, generator=gen))
+                for name in ("Q", "K", "Qx", "Kx", "Qp", "Kp"):
+                    if hasattr(att, name):
+                        lin = getattr(att, name)
+                        lin.w.copy_(0.3 * torch.randn(lin.w.shape,
+                                                      generator=gen))
             state = {k: v.cpu().clone() for k, v in m.state_dict().items()}
         m.load_state_dict(state)
         x, y = d.x.to(dev), d.y.to(dev)
+        pe = pos.to(dev) if pos is not None else None
         masks = tuple(t.to(dev) for t in (d.train_mask, d.val_mask,
                                           d.test_mask))
-        logits, stats = m(x, training=True)
+        logits, stats = m(x, training=True, pos_encoding=pe)
         loss = cross_entropy_loss(logits, y, masks[0])
         loss.backward()
-        _, best, es_stats = m.apply_early(x, y, masks)
+        _, best, es_stats = m.apply_early(x, y, masks, pe)
         grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()
                  if p.grad is not None}
         results[dev] = (logits.detach().cpu(), float(loss.detach()), stats, best,
@@ -1112,6 +1176,57 @@ def small_gdc_graph():
     if g.sort_by_row().rev is not None:
         raise AssertionError("the GDC-rewired SBM is symmetric")
     return g
+
+
+def check_deepwalk_and_knn(data_dir: str):
+    """DeepWalk's skip-gram training (``rewiring.positional.sgns_train``)
+    card against CPU from one start on check_small_end_to_end's 300-node
+    SBM (12 steps of 65,536 pairs at a rate of 1, so that the embedding
+    moves by more than the tolerance: 1e-4 of scale; the gathers' gradient
+    is summed in another order on the card), then the ``pos_enc_knn``
+    rewiring of that SBM from a DeepWalk encoding computed on the card and
+    cached under ``data_dir``, card against CPU (the kNN search on each from
+    the same cached encoding: the same edge set). Returns the rewired host
+    graph, directed."""
+    import numpy as np
+    import torch
+    from graph_neural_pde_tpu_torch.config import Config
+    from graph_neural_pde_tpu_torch.data.synthetic import make_sbm_dataset
+    from graph_neural_pde_tpu_torch.rewiring import knn, positional
+    d = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=24,
+                         seed=3, num_val=60)
+    m = d.graph.mask.numpy()
+    row, col = d.graph.row.numpy()[m], d.graph.col.numpy()[m]
+    centers, contexts = positional.skipgram_pairs(
+        positional.random_walks(row, col, 300, seed=1), 5)
+    init = 0.1 * torch.randn(300, 16, generator=torch.Generator()
+                             .manual_seed(1))
+    t0 = time.perf_counter()
+    on_card = positional.sgns_train(init.cuda(), centers, contexts, 300,
+                                    seed=1, lr=1.0)
+    secs = time.perf_counter() - t0
+    on_cpu = positional.sgns_train(init, centers, contexts, 300, seed=1,
+                                   lr=1.0)
+    rel = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    moved = float(np.abs(on_cpu - init.numpy()).max()
+                  / np.abs(on_cpu).max())
+    if not rel < 1e-4 < moved:
+        raise AssertionError(f"DeepWalk on the card differs from the CPU by "
+                             f"{rel:.3e} of scale (moved {moved:.3e})")
+    cfg = Config(dataset="sbm300", pos_enc_type="DW16", gdc_k=8,
+                 rewiring="pos_enc_knn", edge_pad_multiple=1)
+    graphs = [knn.apply_pos_dist_rewire(d.graph, cfg, data_dir, device=dev)
+              for dev in ("cuda", "cpu")]  # the card computes and caches
+    edges = [set(zip(g.row.tolist(), g.col.tolist())) for g in graphs]
+    if edges[0] != edges[1]:
+        raise AssertionError("pos_enc_knn: card and CPU edge sets differ")
+    if graphs[0].sort_by_row().rev is not None:
+        raise AssertionError("the pos_enc_knn SBM is symmetric")
+    print(f"[small] DeepWalk sgns on the card vs cpu: {rel:.3e} of scale "
+          f"after 12 steps ({secs:.2f} s on the card, moved {moved:.3e}); "
+          f"pos_enc_knn over a DW16 encoding computed on the card: "
+          f"{len(edges[0])} edges, card and cpu agree", flush=True)
+    return graphs[0]
 
 
 def drive_image_path(label: str, cfg, data_dir: str, expected):
@@ -1228,6 +1343,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1317,6 +1433,14 @@ def main() -> int:
         rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
                                     bench.attention_dim, bench.heads,
                                     "scaled_dot", args.seed + 61)
+        # BLEND's split-space score at the bench's BLEND widths: D=128,
+        # packed q and k of 2 x 32 columns, 2 heads (paths (q) and (r))
+        rows += check_fused_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    2 * bench.attention_dim, bench.heads,
+                                    BELTRAMI, args.seed + 22)
+        rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    2 * bench.attention_dim, bench.heads,
+                                    BELTRAMI, args.seed + 62)
         del big
         torch.cuda.empty_cache()
         # directed graphs: K17 and K8 without dxg (four score families on a
@@ -1349,6 +1473,25 @@ def main() -> int:
                                       args.seed + 97)
         rows += check_dual_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
                                    nl.heads, args.seed + 104, timed=False)
+        # (s)'s graph and widths: the Cora stand-in rewired by pos_enc_knn
+        # (its DW64 encoding by DeepWalk on the card, cached in data_dir,
+        # where (s) reads it again), whose hub columns reach in-degrees of
+        # hundreds; BLEND at D = 64 + 32, packed ATT 2 x 128, H = 8: K6
+        # and K8 at their widest node tables, K8 without dxg and K17
+        t0 = time.perf_counter()
+        knn_g = prepared_graph("Cora", data_dir, rewiring="pos_enc_knn",
+                               pos_enc_type="DW64")
+        print(f"[kernels] Cora stand-in rewired by pos_enc_knn over DW64 "
+              f"on the card in {time.perf_counter() - t0:.2f} s: "
+              f"{knn_g.num_valid} edges with self loops", flush=True)
+        blend_d = nl.feat_hidden_dim + nl.pos_enc_hidden_dim
+        rows += check_fused_kernels("cora-knn", knn_g, blend_d,
+                                    2 * nl.attention_dim, nl.heads, BELTRAMI,
+                                    args.seed + 107, feat=nl.feat_hidden_dim)
+        rows += check_column_rhs_kernels("cora-knn", knn_g, blend_d,
+                                         2 * nl.attention_dim, nl.heads,
+                                         BELTRAMI, args.seed + 108,
+                                         feat=nl.feat_hidden_dim)
         t0 = time.perf_counter()
         big_dir = directed_random_graph(169_343, 1_166_243, args.seed)
         print(f"[kernels] directed arxiv-scale graph built on the host in "
@@ -1358,6 +1501,11 @@ def main() -> int:
                                          bench.hidden_dim, bench.attention_dim,
                                          bench.heads, "scaled_dot",
                                          args.seed + 98)
+        rows += check_column_rhs_kernels("arxiv-directed", big_dir,
+                                         bench.hidden_dim,
+                                         2 * bench.attention_dim,
+                                         bench.heads, BELTRAMI,
+                                         args.seed + 106)
         rows += check_column_sum("arxiv-directed", big_dir, bench.hidden_dim,
                                  args.seed + 99)
         for h in (1, 8):
@@ -1408,10 +1556,42 @@ def main() -> int:
                                base=nl.replace(function="GAT"),
                                graph=small_gdc, early_stop_counts=False,
                                grad_floor=1e-5)
+        # BLEND: the dual encoder and the split-space score, in the fused
+        # engines over rows (K6, K9) and columns (K12-K14), in the frozen
+        # attention of the tuned Cora row, over a pos_enc_knn graph (K6,
+        # K8 without dxg, K17), and the tuned ogbn-arxiv row's dual encoder
+        blend = dict(beltrami=True, attention_type="exp_kernel")
+        check_small_end_to_end("BLEND GRAND-nl", base=nl.replace(**blend),
+                               pos_dim=5)
+        check_small_end_to_end("BLEND GRAND-nl column softmax",
+                               base=nl1.replace(**blend), pos_dim=5)
+        check_small_end_to_end("BLEND Cora attention block",
+                               base=best_params["Cora"].replace(**blend),
+                               pos_dim=5)
+        check_small_end_to_end("tuned ogbn-arxiv with beltrami",
+                               base=best_params["ogbn-arxiv"].replace(
+                                   beltrami=True), pos_dim=8)
+        small_knn = check_deepwalk_and_knn(data_dir)
+        check_small_end_to_end("BLEND GRAND-nl over pos_enc_knn",
+                               base=nl.replace(**blend), graph=small_knn,
+                               pos_dim=16)
 
         # 5. the main paths
         fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
         dual = ("dual_scatter", "dual_gather")
+        # (q), (r): the BLEND architecture of bench.py (feature width 96,
+        # positions 32) over its random graph, with its seeded N(0, 1)
+        # encoding of width 32, read from the encodings' cache as a
+        # computed one would be
+        blend_bench = bench.replace(
+            epoch=2, seed=args.seed, beltrami=True,
+            attention_type="exp_kernel", feat_hidden_dim=96,
+            pos_enc_hidden_dim=32, pos_enc_type="DW32")
+        os.makedirs(os.path.join(data_dir, "pos_encodings"), exist_ok=True)
+        np.savez(os.path.join(data_dir, "pos_encodings",
+                              f"{bench.dataset}_DW32.npz"),
+                 pe=np.random.default_rng(7).normal(
+                     size=(169_343, 32)).astype(np.float32))
         paths = (
             ("tuned Cora", best_params["Cora"].replace(epoch=2),
              GRAND_L_KERNELS),
@@ -1452,6 +1632,15 @@ def main() -> int:
             ("GRAND-nl arxiv-scale sym_backward=False (o)",
              bench.replace(epoch=2, seed=args.seed, sym_backward=False),
              COLPLAN_KERNELS),
+            ("tuned ogbn-arxiv with beltrami, DW64 on the card (p)",
+             best_params["ogbn-arxiv"].replace(epoch=2, beltrami=True),
+             ("csr_spmm", "edge_dot", "segment_norm")),
+            ("BLEND GRAND-nl arxiv-scale (q)", blend_bench, fused),
+            ("BLEND GRAND-nl arxiv-scale column softmax (r)",
+             blend_bench.replace(attention_norm_idx=1), NORM1_KERNELS),
+            ("BLEND GRAND-nl Cora over pos_enc_knn (s)",
+             nl.replace(epoch=2, rewiring="pos_enc_knn", pos_enc_type="DW64",
+                        **blend), COLPLAN_KERNELS),
         )
         results, per_path = {}, {}
         launches = dict.fromkeys(ALL_KERNELS, 0)
@@ -1464,19 +1653,32 @@ def main() -> int:
             raise AssertionError(f"{label} launched K1/K2: "
                                  f"{per_path[label]}")
         # (m) ran over the directed graph built above from the same config
-        # (no rev: every column-side pass walked the CSC view); (n) and (o)
-        # took the column-plan backward, never K9
-        for label in paths[-2:]:
-            if per_path[label[0]]["fused_rhs_bwd_sym"]:
-                raise AssertionError(f"{label[0]} launched K9: "
-                                     f"{per_path[label[0]]}")
+        # (no rev: every column-side pass walked the CSC view); (n), (o)
+        # and (s) took the column-plan backward, never K9
+        label_m = "tuned Cora over GDC (m)"
+        label_o = "GRAND-nl arxiv-scale sym_backward=False (o)"
+        for label in ("GRAND-nl Cora over GDC (n)", label_o,
+                      "BLEND GRAND-nl Cora over pos_enc_knn (s)"):
+            if per_path[label]["fused_rhs_bwd_sym"]:
+                raise AssertionError(f"{label} launched K9: "
+                                     f"{per_path[label]}")
         print(f"[main] (m) trained over the GDC-rewired Cora stand-in: "
               f"{cora_gdc.num_valid} edges with self loops, no reverse-edge "
-              f"map; K3 {per_path[paths[-3][0]]['segment_norm']} and K4 "
-              f"{per_path[paths[-3][0]]['segment_norm_bwd']} launches over "
+              f"map; K3 {per_path[label_m]['segment_norm']} and K4 "
+              f"{per_path[label_m]['segment_norm_bwd']} launches over "
               f"its CSC view", flush=True)
+        # (s)'s graph, built above: each node's k nearest by DeepWalk
+        # distance, whose columns (in-degrees, K17's walks) are as uneven
+        # as the encodings' hubs make them
+        in_deg = (knn_g.colptr[1:] - knn_g.colptr[:-1]).float()
+        print(f"[main] (s) trained over the Cora stand-in rewired by "
+              f"pos_enc_knn: {knn_g.num_valid} edges with self loops, "
+              f"symmetric: {knn_g.rev is not None}; in-degree mean "
+              f"{float(in_deg.mean()):.1f}, median "
+              f"{float(in_deg.median()):.0f}, max {int(in_deg.max())}",
+              flush=True)
         epoch_a = results["GRAND-nl arxiv-scale (a)"].logs[0].runtime
-        epoch_o = results[paths[-1][0]].logs[0].runtime
+        epoch_o = results[label_o].logs[0].runtime
         print(f"[main] GRAND-nl arxiv-scale epoch: (a) K9 backward "
               f"{epoch_a:.4f} s, (o) K8 + K17 column-plan backward "
               f"{epoch_o:.4f} s ({epoch_o / epoch_a:.3f}x)", flush=True)

@@ -2,10 +2,13 @@
 
 The JAX package keeps parameters as a nested dict pytree, and the batch
 norm's running statistics in a second ``state`` pytree; the port's modules
-mirror its names (``m1``, ``m2``, ``block.func``, ``block.att`` with
-``Q``/``K``/``V``/``Wout`` and the exp_kernel's ``output_var`` /
-``lengthscale``, the GAT function's ``block.func.att`` with ``W``/``Wout``/
-``a``, the mixed block's ``block.gamma``, ``bn_in`` with ``scale``/``bias``;
+mirror its names (``m1``, or BLEND's dual encoder ``mx`` and ``mp``,
+``m2``, ``block.func``, ``block.att`` with ``Q``/``K``/``V``/``Wout`` and the
+exp_kernel's ``output_var`` / ``lengthscale``, or BLEND's ``Qx``/``Kx``/
+``Vx``/``Qp``/``Kp``/``Vp``/``Wout`` and ``output_var_x``/``lengthscale_x``/
+``output_var_p``/``lengthscale_p``, the GAT function's ``block.func.att``
+with ``W``/``Wout``/``a``, the mixed block's ``block.gamma``, ``bn_in`` with
+``scale``/``bias``;
 the image model's ``m2`` and ``block``;
 a block without an attention layer of its own simply has no ``block.att``
 in either package) and keep its

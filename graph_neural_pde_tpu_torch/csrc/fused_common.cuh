@@ -1,9 +1,19 @@
 // Device code shared by the fused attention kernels (fused_rhs.cu: K6-K9,
-// norm1.cu: K12-K14): the per-head score families and their derivatives,
+// K17, norm1.cu: K12-K14): the per-head score families and their derivatives,
 // the node projections into the q and k scratch tables, the warp-level sums
 // and the deterministic two-pass reduction of dKw / dKb. Each source that
 // includes this header gets its own copy (anonymous namespace), so the
 // sources still compile independently, one nvcc each.
+//
+// The score families are the reference's four and BLEND's split-space
+// exp_kernel_beltrami, the TPU kernels' _kernel_scores / _kernel_scores_bwd
+// (graph_neural_pde_tpu/ops/pallas/fused_rhs.py), which reach it through a
+// block-diagonal head selector over packed (Qx | Qp) operands. Here the
+// packing stays (q and k are [.., 2 A]: features, then positions) and the
+// lane that owns head h reads both of its halves; the derivative loops see
+// 2 H half-heads of d_k columns each, so a head's coefficients hold its
+// position half's beside its own (kCoef floats). It costs a second row of
+// A floats per gathered q or k and a second exp per head and edge.
 
 #pragma once
 
@@ -18,7 +28,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-16f;
 constexpr float kEpsNorm = 1e-5f;     // the reference's cosine/pearson floor
 
-enum Score { kScaledDot = 0, kCosine = 1, kPearson = 2, kExpKernel = 3 };
+enum Score {
+  kScaledDot = 0, kCosine = 1, kPearson = 2, kExpKernel = 3, kBeltrami = 4
+};
+
+// floats of coef a head holds: (P ds, Q ds, R ds, mq, mk) for its columns
+// of q and k and, for exp_kernel_beltrami, the same five for its position
+// half (the derivative loops index them by column: a / d_k)
+constexpr int kCoef = 10;
 
 struct Graph {
   const int* rowptr;
@@ -29,10 +46,36 @@ struct Graph {
 struct Proj {            // what a row walk reads beside the q and k tables
   const float* x;
   const float* gmax;
-  const float* var;      // exp_kernel only
-  const float* ls;
+  const float* var;      // exp_kernel [1]; exp_kernel_beltrami [2]: the
+  const float* ls;       // feature factor's, then the position factor's
   int dim, att, heads, score, square_plus;
 };
+
+// The score's scalars, read once by each warp.
+struct ScoreParams {
+  float var, ls, var_p, ls_p;
+};
+
+__device__ __forceinline__ ScoreParams score_params(const Proj& p) {
+  ScoreParams s = {1.0f, 1.0f, 1.0f, 1.0f};
+  if (p.score == kExpKernel || p.score == kBeltrami) {
+    s.var = p.var[0];
+    s.ls = p.ls[0];
+  }
+  if (p.score == kBeltrami) {
+    s.var_p = p.var[1];
+    s.ls_p = p.ls[1];
+  }
+  return s;
+}
+
+// The columns of q and k one head's score reads: att / heads, and for
+// exp_kernel_beltrami, whose q and k pack the feature projections (Qx, Kx:
+// heads slices of d_k) before the position projections (Qp, Kp), the d_k
+// of each half. Head h reads q[h d_k ..] and q[att / 2 + h d_k ..].
+__device__ __forceinline__ int head_width(const Proj& p) {
+  return p.att / (p.score == kBeltrami ? 2 * p.heads : p.heads);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -102,17 +145,23 @@ __device__ __forceinline__ void load_row(const float* __restrict__ table,
 
 // What the backward needs of one head's score: s itself and, for
 //   dq[a] = P (k[a] - mk) - Q (q[a] - mq),  dk[a] = P (q[a] - mq) - R (k[a] - mk)
-// per unit ds, the coefficients (P, Q, R) and the head means (pearson).
+// per unit ds, the coefficients (P, Q, R) and the head means (pearson);
+// the squared distances for the exp_kernel scalars' derivatives. For
+// exp_kernel_beltrami (P, Q, R) hold for the feature half and P = Q = R =
+// cp for the position half.
 struct HeadScore {
-  float s, p, q, r, mq, mk, dist;
+  float s, p, q, r, mq, mk, dist, cp, dist_p;
 };
 
-// Score of head `h` from q and k in shared memory: d_k serial terms in a
-// fixed order. exp_kernel reads var and ls.
+// Score of head `h` from q and k (shared or global memory): d_k serial
+// terms a half in a fixed order. exp_kernel and exp_kernel_beltrami read
+// their scalars from sc, the latter its position half at q + heads d_k:
+//   s = var^2 exp(-|dx|^2 / 2 ls^2) var_p^2 exp(-|dp|^2 / 2 ls_p^2).
 __device__ __forceinline__ HeadScore head_score(const float* q, const float* k,
-                                                int h, int d_k, int score,
-                                                float var, float ls) {
-  HeadScore o = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+                                                int h, int d_k, int heads,
+                                                int score,
+                                                const ScoreParams& sc) {
+  HeadScore o = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const float* qh = q + h * d_k;
   const float* kh = k + h * d_k;
   if (score == kScaledDot) {
@@ -123,15 +172,29 @@ __device__ __forceinline__ HeadScore head_score(const float* q, const float* k,
     o.p = 1.0f / root;
     return o;
   }
-  if (score == kExpKernel) {
+  if (score == kExpKernel || score == kBeltrami) {
     float dist = 0.0f;
     for (int j = 0; j < d_k; ++j) {
       const float df = qh[j] - kh[j];
       dist = fmaf(df, df, dist);
     }
-    o.s = var * var * expf(-dist / (2.0f * ls * ls));
+    float s = sc.var * sc.var * expf(-dist / (2.0f * sc.ls * sc.ls));
     o.dist = dist;
-    o.p = o.q = o.r = o.s / (ls * ls);
+    if (score == kBeltrami) {
+      const float* qp = qh + heads * d_k;
+      const float* kp = kh + heads * d_k;
+      float dist_p = 0.0f;
+      for (int j = 0; j < d_k; ++j) {
+        const float df = qp[j] - kp[j];
+        dist_p = fmaf(df, df, dist_p);
+      }
+      s = s * (sc.var_p * sc.var_p) *
+          expf(-dist_p / (2.0f * sc.ls_p * sc.ls_p));
+      o.dist_p = dist_p;
+      o.cp = s / (sc.ls_p * sc.ls_p);
+    }
+    o.s = s;
+    o.p = o.q = o.r = s / (sc.ls * sc.ls);
     return o;
   }
   if (score == kPearson) {
@@ -250,15 +313,25 @@ __global__ void node_project_kernel(const float* __restrict__ x,
   }
 }
 
+// A row's scalar sums over its edges and heads: ds (for dgmax) and the
+// terms of the score scalars' derivatives, (var, ls) for exp_kernel and
+// (var, ls, var_p, ls_p) for exp_kernel_beltrami.
+struct RowSums {
+  float ds, e0, e1, e2, e3;
+};
+constexpr int kRowSums = 5;
+
 // Lane h: from head h's score and the edge's cotangent factors, ds and the
-// coefficients of dq / dk, written to coef[h] = (P ds, Q ds, R ds, mq, mk);
-// adds the head's terms of the row's scalar sums. Returns u.
+// coefficients of dq / dk, written to coef[h] = (P ds, Q ds, R ds, mq, mk)
+// (with `coef` already at head h) and, for exp_kernel_beltrami, to the
+// position half's coef[heads + h]; adds the head's terms of the row's
+// scalar sums. Returns u.
 __device__ __forceinline__ float head_backward(const HeadScore& hs, float sm,
                                                int square_plus, float dot,
-                                               float rg, float ctd, float var,
-                                               float ls, int score,
-                                               float* coef, float* sum_ds,
-                                               float* sum_var, float* sum_ls) {
+                                               float rg, float ctd,
+                                               const ScoreParams& sc,
+                                               int score, int heads,
+                                               float* coef, RowSums* sums) {
   float u, duds;
   u_duds(sm, square_plus, &u, &duds);
   const float ds = fmaf(rg, dot, ctd) * duds;
@@ -267,25 +340,31 @@ __device__ __forceinline__ float head_backward(const HeadScore& hs, float sm,
   coef[2] = hs.r * ds;
   coef[3] = hs.mq;
   coef[4] = hs.mk;
-  *sum_ds += ds;
-  if (score == kExpKernel) {
-    *sum_var += ds * (2.0f * hs.s / var);
-    *sum_ls += ds * hs.s * hs.dist / (ls * ls * ls);
+  sums->ds += ds;
+  if (score == kExpKernel || score == kBeltrami) {
+    sums->e0 += ds * (2.0f * hs.s / sc.var);
+    sums->e1 += ds * hs.s * hs.dist / (sc.ls * sc.ls * sc.ls);
+  }
+  if (score == kBeltrami) {
+    float* cp = coef + 5 * heads;
+    cp[0] = cp[1] = cp[2] = hs.cp * ds;
+    cp[3] = cp[4] = 0.0f;
+    sums->e2 += ds * (2.0f * hs.s / sc.var_p);
+    sums->e3 += ds * hs.s * hs.dist_p / (sc.ls_p * sc.ls_p * sc.ls_p);
   }
   return u;
 }
 
+// row_sums[n] = the row's sums over its head lanes [kRowSums]
 __device__ __forceinline__ void write_row_sums(float* row_sums, int n,
-                                               int heads, int lane, float s0,
-                                               float s1, float s2) {
-  s0 = head_sum(s0, heads);
-  s1 = head_sum(s1, heads);
-  s2 = head_sum(s2, heads);
+                                               int heads, int lane,
+                                               const RowSums& s) {
+  const float t[kRowSums] = {head_sum(s.ds, heads), head_sum(s.e0, heads),
+                             head_sum(s.e1, heads), head_sum(s.e2, heads),
+                             head_sum(s.e3, heads)};
   if (lane == 0) {
-    float* r = row_sums + static_cast<size_t>(n) * 3;
-    r[0] = s0;
-    r[1] = s1;
-    r[2] = s2;
+    float* r = row_sums + static_cast<size_t>(n) * kRowSums;
+    for (int i = 0; i < kRowSums; ++i) r[i] = t[i];
   }
 }
 
@@ -294,8 +373,8 @@ __device__ __forceinline__ void write_row_sums(float* row_sums, int n,
 // (norm1_bwd, softmax over columns). Each edge (n, c) also evaluates its
 // reverse edge (c, n) from node rows gathered at c, so that x[col]'s
 // cotangent and dk land on the resident row and nothing is scattered.
-// smem is the block's dynamic shared memory, 5 D + 6 ATT + 10 H floats a
-// warp.
+// smem is the block's dynamic shared memory, 5 D + 6 ATT + 2 kCoef H floats
+// a warp.
 template <bool kColumnNorm>
 __device__ __forceinline__ void sym_backward_row(
     float* smem, Graph g, Proj p, const float* __restrict__ qtab,
@@ -307,8 +386,8 @@ __device__ __forceinline__ void sym_backward_row(
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
-  float* xn = smem + static_cast<size_t>(warp) * (5 * D + 6 * A + 10 * H);
+  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
+  float* xn = smem + static_cast<size_t>(warp) * (5 * D + 6 * A + 2 * kCoef * H);
   float* xc = xn + D;
   float* cta = xc + D;                          // ct_ax[n]
   float* ctc = cta + D;                         // ct_ax[c]
@@ -319,8 +398,8 @@ __device__ __forceinline__ void sym_backward_row(
   float* qc = ke + A;                           // q_c: the reverse edge's q
   float* dqa = qc + A;
   float* dkn = dqa + A;                         // sum of the reverse edges' dk
-  float* coef = dkn + A;                        // [H, 5] forward edge
-  float* coef_r = coef + 5 * H;                 // [H, 5] reverse edge
+  float* coef = dkn + A;                        // [H, kCoef] forward edge
+  float* coef_r = coef + kCoef * H;             // [H, kCoef] reverse edge
   load_row(p.x, n, D, lane, xn);
   load_row(ct_ax, n, D, lane, cta);
   for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
@@ -329,12 +408,11 @@ __device__ __forceinline__ void sym_backward_row(
   load_row(ktab, n, A, lane, kn);
   __syncwarp();
   const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 1.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const ScoreParams sc = score_params(p);
   const float rg = lane < H ? recip_p[static_cast<size_t>(n) * H + lane] : 0.0f;
   const float ctd = lane < H ? ct_den[static_cast<size_t>(n) * H + lane] : 0.0f;
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  RowSums sums = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
     load_row(p.x, c, D, lane, xc);
@@ -361,21 +439,21 @@ __device__ __forceinline__ void sym_backward_row(
       const float rg_r = kColumnNorm ? rg : rg_c;
       const float ctd_r = kColumnNorm ? ctd : ctd_c;
       // the edge (n, c): dq[n], and the sums over all edges
-      const HeadScore hs = head_score(q, ke, lane, d_k, p.score, var, ls);
-      head_backward(hs, hs.s - gmax, p.square_plus, dot, rg_f, ctd_f, var, ls,
-                    p.score, coef + 5 * lane, &s0, &s1, &s2);
+      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
+      head_backward(hs, hs.s - gmax, p.square_plus, dot, rg_f, ctd_f, sc,
+                    p.score, H, coef + 5 * lane, &sums);
       // its reverse (c, n): q_c against k_n; its x[col] cotangent lands on
       // x_n
-      const HeadScore hr = head_score(qc, kn, lane, d_k, p.score, var, ls);
-      float unused0 = 0.0f, unused1 = 0.0f, unused2 = 0.0f;
+      const HeadScore hr = head_score(qc, kn, lane, d_k, H, p.score, sc);
+      RowSums unused = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       w_r = rg_r * head_backward(hr, hr.s - gmax, p.square_plus, dot_r, rg_r,
-                                 ctd_r, var, ls, p.score, coef_r + 5 * lane,
-                                 &unused0, &unused1, &unused2);
+                                 ctd_r, sc, p.score, H, coef_r + 5 * lane,
+                                 &unused);
     }
     const float wsum_r = head_sum(w_r, H);
     __syncwarp();
     for (int a = lane; a < A; a += kWarp) {
-      const int h = a / d_k;
+      const int h = a / d_k;                    // a head or its position half
       const float* cf = coef + 5 * h;
       dqa[a] += cf[0] * (ke[a] - cf[4]) - cf[1] * (q[a] - cf[3]);
       const float* cr = coef_r + 5 * h;
@@ -392,7 +470,7 @@ __device__ __forceinline__ void sym_backward_row(
   project(dkn, kw_t, nullptr, A, D, lane, xc);  // xc: (sum of dk) Kw^T
   for (int d = lane; d < D; d += kWarp)
     dxrow[static_cast<size_t>(n) * D + d] = dxa[d] + xc[d];
-  write_row_sums(row_sums, n, H, lane, s0, s1, s2);
+  write_row_sums(row_sums, n, H, lane, sums);
 }
 
 // partial[p, d, a] = sum over block p's rows r of [x[idx[r]] | 1][d] b[r, a]
@@ -498,8 +576,8 @@ Proj make_proj(const void* x, const void* gmax, const void* var,
   p.dim = dim;
   p.att = att;
   p.heads = heads;
-  p.score = flags & 3;
-  p.square_plus = (flags >> 2) & 1;
+  p.score = flags & 7;
+  p.square_plus = (flags >> 3) & 1;
   return p;
 }
 
@@ -530,8 +608,8 @@ int launch_sym_backward(
     if (project)
       err = launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (5 * dim + 6 * att + 10 * heads);
+    const size_t bytes = sizeof(float) * kWarpsPerBlock *
+                         (5 * dim + 6 * att + 2 * kCoef * heads);
     err = allow_shared(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes, s>>>(

@@ -72,7 +72,7 @@ __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
+  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
   float* xn = smem + static_cast<size_t>(warp) * (2 * D + 2 * A + H * D);
   float* xc = xn + D;
   float* q = xc + D;
@@ -83,8 +83,7 @@ __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
   for (int i = lane; i < H * D; i += kWarp) acc[i] = 0.0f;
   __syncwarp();
   const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 0.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const ScoreParams sc = score_params(p);
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
   float den_h = 0.0f;                           // lane h: head h
   for (int e = start; e < end; ++e) {
@@ -94,7 +93,7 @@ __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
     __syncwarp();
     float u = 0.0f;
     if (lane < H) {
-      const HeadScore hs = head_score(q, ke, lane, d_k, p.score, var, ls);
+      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
       float sm = hs.s - gmax;
       if (shifts) sm -= shifts[static_cast<size_t>(e) * H + lane];
       float duds;
@@ -157,7 +156,8 @@ __global__ void fused_rowmax_kernel(Graph g, Proj p,
     load_row(ktab, g.col[e], A, lane, ke);
     __syncwarp();
     if (lane < H)
-      m = fmaxf(m, head_score(q, ke, lane, d_k, kScaledDot, 0.0f, 1.0f).s);
+      m = fmaxf(m, head_score(q, ke, lane, d_k, H, kScaledDot,
+                              ScoreParams{1.0f, 1.0f, 1.0f, 1.0f}).s);
     __syncwarp();
   }
   if (lane < H)
@@ -182,26 +182,25 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= g.n_rows) return;
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
-  float* dkw = smem + static_cast<size_t>(warp) * (3 * D + 4 * A + 5 * H);
+  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
+  float* dkw = smem + static_cast<size_t>(warp) * (3 * D + 4 * A + kCoef * H);
   float* xc = dkw + D;                          // dkw: this edge's dk Kw^T
   float* cta = xc + D;                          // ct_ax[n]
   float* q = cta + D;
   float* ke = q + A;
   float* dqa = ke + A;                          // dq[n] accumulator
   float* dke = dqa + A;                         // this edge's dk
-  float* coef = dke + A;                        // [H, 5]
+  float* coef = dke + A;                        // [H, kCoef]
   load_row(ct_ax, n, D, lane, cta);
   load_row(qtab, n, A, lane, q);
   for (int a = lane; a < A; a += kWarp) dqa[a] = 0.0f;
   __syncwarp();
   const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 1.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const ScoreParams sc = score_params(p);
   const float rg = lane < H ? recip_p[static_cast<size_t>(n) * H + lane] : 0.0f;
   const float ctd = lane < H ? ct_den[static_cast<size_t>(n) * H + lane] : 0.0f;
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  RowSums sums = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
     load_row(p.x, c, D, lane, xc);
@@ -212,16 +211,16 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
     const float dot = warp_sum(part);
     float w = 0.0f;
     if (lane < H) {
-      const HeadScore hs = head_score(q, ke, lane, d_k, p.score, var, ls);
+      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
       float sm = hs.s - gmax;
       if (shifts) sm -= shifts[static_cast<size_t>(e) * H + lane];
-      w = rg * head_backward(hs, sm, p.square_plus, dot, rg, ctd, var, ls,
-                             p.score, coef + 5 * lane, &s0, &s1, &s2);
+      w = rg * head_backward(hs, sm, p.square_plus, dot, rg, ctd, sc,
+                             p.score, H, coef + 5 * lane, &sums);
     }
     const float wsum = head_sum(w, H);          // sum_h u_h recip_p[n, h]
     __syncwarp();
     for (int a = lane; a < A; a += kWarp) {
-      const float* c = coef + 5 * (a / d_k);
+      const float* c = coef + 5 * (a / d_k);    // a head or its position half
       const float qq = q[a] - c[3], kk = ke[a] - c[4];
       dqa[a] += c[0] * kk - c[1] * qq;
       if (dxg != nullptr) {                     // without dxg: no dk at all
@@ -240,7 +239,7 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
   }
   for (int a = lane; a < A; a += kWarp)
     dq[static_cast<size_t>(n) * A + a] = dqa[a];
-  write_row_sums(row_sums, n, H, lane, s0, s1, s2);
+  write_row_sums(row_sums, n, H, lane, sums);
 }
 
 __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
@@ -293,23 +292,22 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
-  float* xn = smem + static_cast<size_t>(warp) * (4 * D + 3 * A + 5 * H);
+  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
+  float* xn = smem + static_cast<size_t>(warp) * (4 * D + 3 * A + kCoef * H);
   float* cta = xn + D;                          // ct_ax[r]
   float* dxa = cta + D;                         // sum of w_e ct_ax[r]
   float* dkw = dxa + D;                         // (sum of dk) Kw^T
   float* kn = dkw + D;                          // k_n
   float* q = kn + A;                            // q_r
   float* dka = q + A;                           // sum of dk_e
-  float* coef = dka + A;                        // [H, 5]
+  float* coef = dka + A;                        // [H, kCoef]
   load_row(p.x, n, D, lane, xn);
   load_row(ktab, n, A, lane, kn);
   for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
   for (int a = lane; a < A; a += kWarp) dka[a] = 0.0f;
   __syncwarp();
   const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 1.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const ScoreParams sc = score_params(p);
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
   for (int j = start; j < end; ++j) {
     const int r = g.col[j];
@@ -323,16 +321,15 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
     if (lane < H) {
       const float rg = recip_p[static_cast<size_t>(r) * H + lane];
       const float ctd = ct_den[static_cast<size_t>(r) * H + lane];
-      const HeadScore hs = head_score(q, kn, lane, d_k, p.score, var, ls);
-      float unused0 = 0.0f, unused1 = 0.0f, unused2 = 0.0f;
+      const HeadScore hs = head_score(q, kn, lane, d_k, H, p.score, sc);
+      RowSums unused = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       w = rg * head_backward(hs, hs.s - gmax, p.square_plus, dot, rg, ctd,
-                             var, ls, p.score, coef + 5 * lane, &unused0,
-                             &unused1, &unused2);
+                             sc, p.score, H, coef + 5 * lane, &unused);
     }
     const float wsum = head_sum(w, H);          // sum_h u_h recip_p[r, h]
     __syncwarp();
     for (int a = lane; a < A; a += kWarp) {
-      const float* cf = coef + 5 * (a / d_k);
+      const float* cf = coef + 5 * (a / d_k);   // a head or its position half
       dka[a] += cf[0] * (q[a] - cf[3]) - cf[2] * (kn[a] - cf[4]);
     }
     for (int d = lane; d < D; d += kWarp) dxa[d] = fmaf(wsum, cta[d], dxa[d]);
@@ -349,7 +346,9 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
 
 // Every entry point first fills the scratch tables qtab and ktab
 // [n_rows, att] (q = x Qw + qb, k = x Kw + kb), then walks the rows.
-// flags: bits 0-1 the score family, bit 2 squareplus.
+// flags: bits 0-2 the score family, bit 3 squareplus. var and ls hold one
+// element for exp_kernel and two (features, positions) for
+// exp_kernel_beltrami, whose att is the packed width of both halves.
 
 // Nullable: var, ls, shifts, alpha, num.
 extern "C" int gnpde_fused_rhs_fwd(
@@ -403,7 +402,7 @@ extern "C" int gnpde_fused_rowmax(const void* rowptr, const void* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-// kw_t is Kw^T [att, dim]. dke [n_slots, att] and row_sums [n_rows, 3] are
+// kw_t is Kw^T [att, dim]. dke [n_slots, att] and row_sums [n_rows, 5] are
 // scratch the wrapper reduces; partials [reduce_blocks, dim + 1, att] are
 // zero on entry. Nullable: var, ls, shifts and, together, dxg, dke and
 // partials: without them the walk forms dq and the row sums only (the
@@ -422,7 +421,7 @@ extern "C" int gnpde_fused_rhs_bwd(
         launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (3 * dim + 4 * att + 5 * heads);
+        sizeof(float) * kWarpsPerBlock * (3 * dim + 4 * att + kCoef * heads);
     err = allow_shared(fused_rhs_bwd_kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     fused_rhs_bwd_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
@@ -447,7 +446,7 @@ extern "C" int gnpde_fused_rhs_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// kw_t is Kw^T [att, dim]. dkn [n_rows, att] and row_sums [n_rows, 3] are
+// kw_t is Kw^T [att, dim]. dkn [n_rows, att] and row_sums [n_rows, 5] are
 // scratch the wrapper reduces; partials [reduce_blocks, dim + 1, att] are
 // zero on entry. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_sym(
@@ -481,7 +480,7 @@ extern "C" int gnpde_fused_rhs_bwd_col(
         launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_cols, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (4 * dim + 3 * att + 5 * heads);
+        sizeof(float) * kWarpsPerBlock * (4 * dim + 3 * att + kCoef * heads);
     err = allow_shared(fused_rhs_bwd_col_kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     fused_rhs_bwd_col_kernel<<<row_blocks(n_cols), kWarpsPerBlock * kWarp,

@@ -70,7 +70,7 @@ __global__ void norm1_den_kernel(Graph g, Proj p,
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
+  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
   float* kn = smem + static_cast<size_t>(warp) * (A + D + kWarp * H);
   float* xn = kn + A;                           // x_n, read with ct only
   float* acc = xn + D;                          // [H, 32]: a column a lane
@@ -79,8 +79,7 @@ __global__ void norm1_den_kernel(Graph g, Proj p,
   for (int h = 0; h < H; ++h) acc[h * kWarp + lane] = 0.0f;
   __syncwarp();
   const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 0.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const ScoreParams sc = score_params(p);
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
   for (int e = start + lane; e < end; e += kWarp) {
     const int c = g.col[e];
@@ -93,7 +92,7 @@ __global__ void norm1_den_kernel(Graph g, Proj p,
       for (int d = 0; d < D; ++d) weight = fmaf(cc[d], xn[d], weight);
     }
     for (int h = 0; h < H; ++h) {
-      const HeadScore hs = head_score(qc, kn, h, d_k, p.score, var, ls);
+      const HeadScore hs = head_score(qc, kn, h, d_k, H, p.score, sc);
       float u, duds;
       u_duds(hs.s - gmax, p.square_plus, &u, &duds);
       acc[h * kWarp + lane] += u * weight;
@@ -119,7 +118,7 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int n = blockIdx.x * kWarpsPerBlock + warp;
   if (n >= g.n_rows) return;
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
+  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
   float* xc = smem + static_cast<size_t>(warp) * (2 * D + 2 * A);
   float* acc = xc + D;                          // ax[n] accumulator
   float* q = acc + D;
@@ -128,8 +127,7 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
   for (int d = lane; d < D; d += kWarp) acc[d] = 0.0f;
   __syncwarp();
   const float gmax = *p.gmax;
-  const float var = p.score == kExpKernel ? *p.var : 0.0f;
-  const float ls = p.score == kExpKernel ? *p.ls : 1.0f;
+  const ScoreParams sc = score_params(p);
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
@@ -138,7 +136,7 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
     __syncwarp();
     float a = 0.0f;                             // lane h: u_eh / den[c, h]
     if (lane < H) {
-      const HeadScore hs = head_score(q, ke, lane, d_k, p.score, var, ls);
+      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
       float u, duds;
       u_duds(hs.s - gmax, p.square_plus, &u, &duds);
       a = u * recip[static_cast<size_t>(c) * H + lane];
@@ -175,8 +173,8 @@ __global__ void norm1_bwd_kernel(Graph g, Proj p,
 // With project != 0 an entry point first fills the scratch tables qtab and
 // ktab [n_rows, att] (q = x Qw + qb, k = x Kw + kb); with project == 0 it
 // reads them as an earlier launch on the same x, Qw, qb, Kw, kb left them.
-// Then it walks the rows. flags: bits 0-1 the score family, bit 2
-// squareplus.
+// Then it walks the rows. flags: bits 0-2 the score family, bit 3
+// squareplus; var and ls as gnpde_fused_rhs_fwd's.
 
 // out [n_rows, heads]: the column denominators, or with ct [n_rows, dim]
 // each term weighted by ct[c] . x[n]. Nullable: var, ls, ct.

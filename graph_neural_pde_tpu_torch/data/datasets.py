@@ -13,13 +13,14 @@ and the splits are bit-identical to the JAX package's for one seed.
 ``ogbn-arxiv-synthetic`` is the seeded random graph at ogbn-arxiv's size
 that the JAX package's ``bench.py`` measures on (nothing is read from disk).
 
-``cfg.rewiring`` (``two_hop`` or ``gdc``, ``rewiring/gdc.py``) rewires
-the loaded graph where the JAX package does: after the largest connected
-component, before training, and on the stand-in too; GDC's dense diffusion
-runs on ``device``. ``cfg.node_reorder`` (``rcm`` or ``degree``) then
+``cfg.rewiring`` (``two_hop`` or ``gdc``, ``rewiring/gdc.py``, or
+``pos_enc_knn``, ``rewiring/knn.py``) rewires the loaded graph where the JAX
+package does: after the largest connected component, before training, and
+on the stand-in too; GDC's dense diffusion, DeepWalk and the kNN search run
+on ``device``. ``cfg.node_reorder`` (``rcm`` or ``degree``) then
 relabels the loaded dataset (``ops.reorder``), the stand-in included, as the
-JAX package does. The geom-gcn loaders and the ``pos_enc_knn`` rewiring are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+JAX package does. The geom-gcn loaders are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -267,10 +268,11 @@ def _stand_in(cfg: Config, data_dir: str, pad: int) -> NodeDataset:
     return d
 
 
-def rewire(g, cfg: Config, device="cuda"):
-    """Load-time rewiring dispatch (the reference's data.py): ``two_hop``
-    or ``gdc``, each returning a rebuilt host Graph."""
-    from graph_neural_pde_tpu_torch.rewiring import gdc
+def rewire(g, cfg: Config, data_dir=None, device="cuda"):
+    """Load-time rewiring dispatch (the reference's data.py): ``two_hop``,
+    ``gdc`` or ``pos_enc_knn`` (whose positional encodings are cached under
+    ``data_dir``), each returning a rebuilt host Graph."""
+    from graph_neural_pde_tpu_torch.rewiring import gdc, knn
     rw = cfg.rewiring
     if rw == "two_hop":
         return gdc.two_hop(g, pad_multiple=cfg.edge_pad_multiple)
@@ -278,9 +280,7 @@ def rewire(g, cfg: Config, device="cuda"):
         return gdc.apply_gdc(g, cfg, pad_multiple=cfg.edge_pad_multiple,
                              device=device)
     if rw == "pos_enc_knn":
-        raise NotImplementedError(
-            "rewiring 'pos_enc_knn': ROADMAP Queue 1 slice 4 item 15 "
-            "(positional encodings)")
+        return knn.apply_pos_dist_rewire(g, cfg, data_dir, device=device)
     raise ValueError(f"unknown rewiring '{rw}'")
 
 
@@ -288,9 +288,9 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
                 synthetic_fallback: bool = True,
                 device="cuda") -> NodeDataset:
     """Load and preprocess a dataset (reference get_dataset semantics).
-    ``device`` is where GDC rewiring runs its dense diffusion: the card
-    unless the caller asks for the CPU (``run.setup`` passes the run's
-    device); nothing else of the load touches it."""
+    ``device`` is where the rewiring runs its dense diffusion, DeepWalk and
+    kNN search: the card unless the caller asks for the CPU (``run.setup``
+    passes the run's device); nothing else of the load touches it."""
     ds = cfg.dataset
     pad = cfg.edge_pad_multiple
     if ds == "ogbn-arxiv-synthetic":
@@ -316,7 +316,7 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
             raise
         d = _stand_in(cfg, data_dir, pad)
         if cfg.rewiring is not None:
-            d.graph = rewire(d.graph, cfg, device)
+            d.graph = rewire(d.graph, cfg, data_dir, device)
         return _maybe_reorder(d, cfg)
 
     if use_lcc:
@@ -331,7 +331,7 @@ def get_dataset(cfg: Config, data_dir: str, use_lcc: bool = False, *,
     g = make_graph(ei[0], ei[1], num_nodes=x.shape[0], pad_multiple=pad)
     if cfg.rewiring is not None:
         # after the LCC, before training (the reference's data.py)
-        g = rewire(g, cfg, device)
+        g = rewire(g, cfg, data_dir, device)
     d = NodeDataset(graph=g, x=torch.as_tensor(x),
                     y=torch.as_tensor(y, dtype=torch.int64),
                     train_mask=None, val_mask=None, test_mask=None,

@@ -33,6 +33,8 @@ class NodeDataset:
     name: str = "synthetic"
     # node order applied by ops.reorder (order[new_id] = old_id)
     reorder: Optional[np.ndarray] = None
+    # BLEND's positional encoding [N, pos_enc_dim] (run.setup sets it)
+    pos_encoding: Optional[torch.Tensor] = None
 
 
 def make_sbm_dataset(num_nodes=120, num_classes=3, num_features=16,

@@ -8,10 +8,21 @@ gives everything (``n`` a row, ``e`` its edges, ``c = col[e]``):
 
     q_n  = x_n Qw + qb                       [ATT]
     k_e  = x_c Kw + kb                       [ATT]
-    s_eh = score_h(q_n, k_e)                 (four families, below)
+    s_eh = score_h(q_n, k_e)                 (five families, below)
     u_eh = exp(s_eh - gmax - shift_eh)       (or squareplus of the same)
     den[n, h] = sum_e u_eh
     ax[n]     = (1/H) sum_h (sum_e u_eh x_c) / (den[n, h] + 1e-16)
+
+The families are the reference's four (scaled_dot, cosine_sim, pearson,
+exp_kernel with its ``var`` and ``ls``) and BLEND's split-space
+``exp_kernel_beltrami``, the product of a feature-space and a
+position-space Gaussian kernel. Its q and k pack both spaces side by side
+(``models.functions.pack_beltrami``: ATT = 2 A, the feature projection
+Qx in columns [0, A), the position projection Qp in [A, 2 A)); head h reads
+its d_k = A / H columns in each half, and ``var``, ``ls`` hold two elements
+each, the feature factor's and the position factor's:
+
+    s_eh = var_0^2 exp(-|qx - kx|^2 / 2 ls_0^2) var_1^2 exp(-|qp - kp|^2 / 2 ls_1^2)
 
 * K6 ``fused_rhs_fwd``     -> (ax, den[, num]) or, folded, the guarded
   ``f = alpha (ax - x)``; replaces ``ops/pallas/fused_rhs.py``
@@ -20,7 +31,7 @@ gives everything (``n`` a row, ``e`` its edges, ``c = col[e]``):
   scores (edgeless rows 0); replaces ``_rowmax_kernel`` / ``fused_rowmax``.
 * K8 ``fused_rhs_bwd``     -> (dq, per-edge dxg, dkw, dkb, dgmax, dvar, dls)
   from the cotangents, or without the per-edge dxg and dk (``want_dxg=False``:
-  dq, dgmax and the exp_kernel scalars); replaces ``_bwd_kernel`` /
+  dq, dgmax and the score scalars); replaces ``_bwd_kernel`` /
   ``_fused_bwd_mega_call``.
 * K9 ``fused_rhs_bwd_sym`` -> the same with x[col]'s cotangent reduced into
   ``dxrow[n]`` through each edge's reverse edge, for symmetric edge
@@ -50,7 +61,10 @@ import torch
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import column_sum
 
-SCORES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3}
+SCORES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3,
+          "exp_kernel_beltrami": 4}
+# the families with learnable scalars: elements of ``var`` and of ``ls``
+SCALARS = {"exp_kernel": 1, "exp_kernel_beltrami": 2}
 EPS = 1e-16
 EPS_NORM = 1e-5         # the reference's cosine / pearson norm floor
 MAX_DIM, MAX_ATT, MAX_HEADS = 256, 256, 32
@@ -58,16 +72,29 @@ MAX_SHARED_BYTES = 227 * 1024
 WARPS_PER_BLOCK = 4
 
 
+def head_slices(score: str, heads: int) -> int:
+    """How many d_k-wide slices a q or k row holds: one a head, and two a
+    head (features, then positions) for exp_kernel_beltrami."""
+    return 2 * heads if score == "exp_kernel_beltrami" else heads
+
+
 def edge_scores(src: torch.Tensor, dst: torch.Tensor, score: str,
                 var: Optional[torch.Tensor] = None,
                 ls: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-edge, per-head raw scores [E, H] from q/k rows [E, H, d_k]: the
-    four reference score families (``exp_kernel`` takes its ``output_var``
-    and ``lengthscale``)."""
+    """Per-edge, per-head raw scores [E, H] from q/k rows [E, S, d_k]
+    (``S = head_slices(score, H)``): the four reference score families
+    (``exp_kernel`` takes its ``output_var`` and ``lengthscale``) and
+    ``exp_kernel_beltrami`` (slices [0, H) the features, [H, 2 H) the
+    positions; ``var`` and ``ls`` [2], the two factors' scalars)."""
     d_k = src.shape[-1]
     if score == "exp_kernel":
         sq = torch.sum((src - dst) ** 2, dim=-1)
         return var ** 2 * torch.exp(-sq / (2.0 * ls ** 2))
+    if score == "exp_kernel_beltrami":
+        sq = torch.sum((src - dst) ** 2, dim=-1)
+        h = sq.shape[1] // 2
+        return (var[0] ** 2 * torch.exp(-sq[:, :h] / (2.0 * ls[0] ** 2))
+                * var[1] ** 2 * torch.exp(-sq[:, h:] / (2.0 * ls[1] ** 2)))
     if score == "scaled_dot":
         return torch.sum(src * dst, dim=-1) / math.sqrt(d_k)
     if score == "pearson":
@@ -112,8 +139,9 @@ def fused_rhs_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, *,
     nv, r, c = _edges(rowptr, row, col)
     n, d = x.shape
     xe = x[c]
-    src = (x @ qw + qb)[r].reshape(nv, heads, -1)
-    ke = (xe @ kw + kb).reshape(nv, heads, -1)
+    slices = head_slices(score, heads)
+    src = (x @ qw + qb)[r].reshape(nv, slices, -1)
+    ke = (xe @ kw + kb).reshape(nv, slices, -1)
     sm = edge_scores(src, ke, score, var, ls) - gmax
     if shifts is not None:
         sm = sm - shifts[:nv]
@@ -154,12 +182,13 @@ def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
         src = (x @ qw + qb)[r].detach().requires_grad_(True)
         ke = (xe @ kw + kb).detach().requires_grad_(True)
         wrt = [src, ke]
-        if score == "exp_kernel":
+        if score in SCALARS:
             var = var.detach().requires_grad_(True)
             ls = ls.detach().requires_grad_(True)
             wrt += [var, ls]
-        s = edge_scores(src.reshape(nv, heads, -1), ke.reshape(nv, heads, -1),
-                        score, var, ls)
+        slices = head_slices(score, heads)
+        s = edge_scores(src.reshape(nv, slices, -1),
+                        ke.reshape(nv, slices, -1), score, var, ls)
     sm = s.detach() - gmax
     if shifts is not None:
         sm = sm - shifts[:nv]
@@ -194,8 +223,8 @@ def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     The score's own derivative comes from autograd over
     :func:`edge_scores`. Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb,
     dgmax, dvar, dls); dxg, dkw and dkb are None without ``want_dxg``
-    (K17 forms dkw and dkb there), dvar and dls are None but for
-    ``exp_kernel``."""
+    (K17 forms dkw and dkb there), dvar and dls (shaped as var and ls) are
+    None but for ``exp_kernel`` and ``exp_kernel_beltrami``."""
     out = _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                      recip_p, ct_den, heads=heads, score=score, var=var,
                      ls=ls, shifts=shifts, square_plus=square_plus,
@@ -245,31 +274,29 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
     """Device, type, shape and contiguity of what the kernels read.
     ``extra`` is (name, tensor, shape) for the call's own float operands.
     The kernels are float32; on the CPU the plain versions also take
-    float64 operands (all of one type)."""
+    float64 operands (all of one type). For exp_kernel_beltrami ``att`` is
+    the packed width of both halves."""
     dev = x.device
     if score not in SCORES:
-        if score == "exp_kernel_beltrami":
-            raise NotImplementedError(
-                f"{name}: the split-space exp_kernel_beltrami score is not "
-                "ported (ROADMAP Queue 1 slice 4 item 15)")
         raise ValueError(f"{name}: unknown score family '{score}'")
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be [N, D]")
     n, d = x.shape
     att = qw.shape[-1]
-    if (heads < 1 or heads > MAX_HEADS or att % heads or att > MAX_ATT
-            or d > MAX_DIM):
+    if (heads < 1 or heads > MAX_HEADS or att % head_slices(score, heads)
+            or att > MAX_ATT or d > MAX_DIM):
         raise ValueError(f"{name}: state width {d}, attention_dim {att}, "
                          f"heads {heads} outside the kernel's range (width "
                          f"<= {MAX_DIM}, heads <= {MAX_HEADS} dividing "
-                         f"attention_dim <= {MAX_ATT})")
+                         f"attention_dim <= {MAX_ATT}, each half of it "
+                         "for exp_kernel_beltrami)")
     ints = (("rowptr", rowptr, (n + 1,)), ("row", row, None),
             ("col", col, row.shape))
     floats = [("x", x, (n, d)), ("qw", qw, (d, att)), ("qb", qb, (att,)),
               ("kw", kw, (d, att)), ("kb", kb, (att,)), *extra]
-    if score == "exp_kernel":
+    if score in SCALARS:
         if var is None or ls is None:
-            raise ValueError(f"{name}: exp_kernel needs var and ls")
+            raise ValueError(f"{name}: {score} needs var and ls")
         floats += [("var", var, None), ("ls", ls, None)]
     for t_name, t, shape in (*ints, *floats):
         if t.device != dev:
@@ -287,8 +314,9 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
         if t.dtype != (torch.float64 if wide else torch.float32):
             raise TypeError(f"{name}: {t_name} must be float32")
     for t_name, t in (("var", var), ("ls", ls)):
-        if score == "exp_kernel" and t.numel() != 1:
-            raise ValueError(f"{name}: {t_name} must hold one element")
+        if score in SCALARS and t.numel() != SCALARS[score]:
+            raise ValueError(f"{name}: {t_name} must hold {SCALARS[score]} "
+                             f"element(s) for {score}")
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"{name}: no kernel for {dev}")
 
@@ -312,7 +340,7 @@ def _node_tables(x: torch.Tensor, att: int) -> torch.Tensor:
 
 
 def _flags(score: str, square_plus: bool) -> int:
-    return SCORES[score] | (4 if square_plus else 0)
+    return SCORES[score] | (8 if square_plus else 0)
 
 
 def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
@@ -393,14 +421,20 @@ def _dk_sums(partials, d):
     return dk_sum[:d].contiguous(), dk_sum[d]
 
 
+ROW_SUMS = 5        # a row's ds and the score scalars' terms (see _row_totals)
+
+
 def _row_totals(row_sums, score, var, ls):
-    """Second pass of the scalar reductions: dgmax and the exp_kernel
-    scalars' gradients from the per-row sums, in a fixed order."""
-    tot = torch.sum(row_sums, dim=0)                      # [3]
+    """Second pass of the scalar reductions: dgmax and the score scalars'
+    gradients from the per-row sums [N, 5] (ds; then var, ls of the
+    feature factor and var, ls of the position factor), in a fixed
+    order."""
+    tot = torch.sum(row_sums, dim=0)                      # [5]
     dvar = dls = None
-    if score == "exp_kernel":
-        dvar = tot[1].reshape(var.shape)
-        dls = tot[2].reshape(ls.shape)
+    if score in SCALARS:
+        k = SCALARS[score]
+        dvar = tot[1:1 + 2 * k:2].reshape(var.shape)
+        dls = tot[2:2 + 2 * k:2].reshape(ls.shape)
     return -tot[0], dvar, dls
 
 
@@ -431,12 +465,12 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                                    ct_ax, recip_p, ct_den, **kwargs)
     n, d = x.shape
     att = qw.shape[1]
-    _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 5 * heads)
+    _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 10 * heads)
     dev = x.device
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
     # scratch: every slot's dk_e (0 on padding, which the reduction also
     # walks: the valid count stays on the device), and each row's sums of
-    # ds and of the exp_kernel scalars' terms
+    # ds and of the score scalars' terms
     dxg = dke = partials = None
     blocks = _reduce_blocks(cap)
     if want_dxg:
@@ -444,7 +478,7 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
         dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
         partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
                                device=dev)
-    row_sums = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     build.launch("fused_rhs_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
                  x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
@@ -477,14 +511,14 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                                        gmax, ct_ax, recip_p, ct_den, **kwargs)
     n, d = x.shape
     att = qw.shape[1]
-    _shared_bytes("fused_rhs_bwd_sym", 5 * d + 6 * att + 10 * heads)
+    _shared_bytes("fused_rhs_bwd_sym", 5 * d + 6 * att + 20 * heads)
     dev = x.device
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
     dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
     # scratch: dk summed per NODE (each row's reverse edges), and each
-    # row's sums of ds and of the exp_kernel scalars' terms
+    # row's sums of ds and of the score scalars' terms
     dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
-    row_sums = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     blocks = _reduce_blocks(n)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
@@ -524,7 +558,7 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
             recip_p, ct_den, heads=heads, score=score, var=var, ls=ls,
             square_plus=square_plus)
     att = qw.shape[1]
-    _shared_bytes("fused_rhs_bwd_col", 4 * d + 3 * att + 5 * heads)
+    _shared_bytes("fused_rhs_bwd_col", 4 * d + 3 * att + 10 * heads)
     dev = x.device
     dx = torch.empty((n, d), dtype=torch.float32, device=dev)
     dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
@@ -555,10 +589,17 @@ fused_rhs_bwd_col.launches = 0
 # differentiable ops (the JAX package's names)
 # ---------------------------------------------------------------------------
 
-def _score_params(score: str, score_params) -> Tuple:
+def score_scalars(score: str, score_params) -> Tuple:
+    """(var, ls) of the kernels from the model's scalars: exp_kernel's
+    (output_var, lengthscale), or exp_kernel_beltrami's (output_var_x,
+    lengthscale_x, output_var_p, lengthscale_p) as two pairs, each
+    concatenated (differentiably) into one [2] tensor."""
     if score == "exp_kernel":
         var, ls = score_params
         return var, ls
+    if score == "exp_kernel_beltrami":
+        var_x, ls_x, var_p, ls_p = (t.reshape(1) for t in score_params)
+        return torch.cat([var_x, var_p]), torch.cat([ls_x, ls_p])
     return None, None
 
 
@@ -579,7 +620,7 @@ class _FusedAx(torch.autograd.Function):
     * ``"sym"``: K9, x's whole gradient from the kernel (symmetric edge
       multisets);
     * ``"col"``: K8 without its per-edge dxg and dk for dq, dgmax and the
-      exp_kernel scalars, then K17 for x[col]'s cotangent, dkw and dkb
+      score scalars, then K17 for x[col]'s cotangent, dkw and dkb
       over the CSC view (any graph);
     * ``"dxg"``: K8 with the per-edge dxg, summed over columns by K1's walk
       in table mode, through the reverse edges or the CSC view (any graph;
@@ -645,7 +686,7 @@ def fused_rhs_ax(g, heads: int, square_plus: bool, score: str, qw, qb, kw,
     scalars through K8 and the column sum of its per-edge dxg. ``shifts``
     [E_pad, H] carry no gradient (ax is invariant to per-row shifts)."""
     _check_sorted(g, "fused_rhs_ax")
-    var, ls = _score_params(score, score_params)
+    var, ls = score_scalars(score, score_params)
     return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
                           shifts, g, "dxg", heads, square_plus, score)
 
@@ -662,7 +703,7 @@ def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str):
             "make_fused_ax_colplan")
 
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
-        var, ls = _score_params(score, score_params)
+        var, ls = score_scalars(score, score_params)
         return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
                               None, g, "sym", heads, square_plus, score)
 
@@ -679,7 +720,7 @@ def make_fused_ax_colplan(g, heads: int, square_plus: bool, score: str):
     _check_sorted(g, "make_fused_ax_colplan")
 
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
-        var, ls = _score_params(score, score_params)
+        var, ls = score_scalars(score, score_params)
         return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
                               None, g, "col", heads, square_plus, score)
 
@@ -711,7 +752,7 @@ def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
         bad = den_guard(den, rowptr, per_row=True)
         return alpha * (torch.where(bad, torch.full_like(ax, torch.nan), ax)
                         - x)
-    var, ls = _score_params(score, score_params)
+    var, ls = score_scalars(score, score_params)
     f, _, _ = fused_rhs_fwd(rowptr, row, col, x.contiguous(), qw, qb, kw, kb,
                             gmax, heads=heads, score=score, var=var, ls=ls,
                             alpha=alpha.reshape(1))

@@ -3,7 +3,7 @@ softmax normalised over COLUMNS (``attention_norm_idx = 1``).
 
 The aggregation reduces by row while the softmax groups by column
 (``n`` a node, ``e = (r, c)`` an edge, ``u_eh = exp(score_h(q_r, k_c) -
-gmax)`` or squareplus of the same, with q, k and the four score families of
+gmax)`` or squareplus of the same, with q, k and the five score families of
 ``kernels.fused_rhs``):
 
     den[n, h] = sum_{e: c = n} u_eh
@@ -40,9 +40,10 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
-    EPS, _bwd_extra, _bwd_plain, _check, _check_sorted, _dk_sums, _edges,
-    _flags, _node_sum, _node_tables, _ptr, _reduce_blocks, _row_totals,
-    _score_params, _shared_bytes, _u_duds, edge_scores)
+    EPS, ROW_SUMS, _bwd_extra, _bwd_plain, _check, _check_sorted, _dk_sums,
+    _edges, _flags, _node_sum, _node_tables, _ptr, _reduce_blocks,
+    _row_totals, _shared_bytes, _u_duds, edge_scores, head_slices,
+    score_scalars)
 
 
 # ---------------------------------------------------------------------------
@@ -57,8 +58,9 @@ def norm1_den_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
     ``ct_c . x_n`` when ``ct`` is given. Equal to the sum of ``u`` over the
     edges into n only on a symmetric edge multiset."""
     nv, r, c = _edges(rowptr, row, col)
-    q_rev = (x @ qw + qb)[c].reshape(nv, heads, -1)
-    k_rev = (x @ kw + kb)[r].reshape(nv, heads, -1)
+    slices = head_slices(score, heads)
+    q_rev = (x @ qw + qb)[c].reshape(nv, slices, -1)
+    k_rev = (x @ kw + kb)[r].reshape(nv, slices, -1)
     u, _ = _u_duds(edge_scores(q_rev, k_rev, score, var, ls) - gmax,
                    square_plus)
     if ct is not None:
@@ -73,8 +75,9 @@ def norm1_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *,
     ``(1/H) sum_h u_eh recip[c, h]`` and one ``index_add`` over rows."""
     nv, r, c = _edges(rowptr, row, col)
     xe = x[c]
-    src = (x @ qw + qb)[r].reshape(nv, heads, -1)
-    ke = (xe @ kw + kb).reshape(nv, heads, -1)
+    slices = head_slices(score, heads)
+    src = (x @ qw + qb)[r].reshape(nv, slices, -1)
+    ke = (xe @ kw + kb).reshape(nv, slices, -1)
     u, _ = _u_duds(edge_scores(src, ke, score, var, ls) - gmax, square_plus)
     w = torch.sum(u * recip[c], dim=1, keepdim=True) / heads
     return _node_sum(x.shape[0], r, w * xe)
@@ -94,7 +97,8 @@ def norm1_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
 
     the backward of K8/K9 with ``recip_p`` and ``ct_den`` read at the
     edge's column. Returns (dq [N, ATT], dxrow [N, D], dkw, dkb, dgmax,
-    dvar, dls); the last two are None but for ``exp_kernel``."""
+    dvar, dls); the last two are None but for ``exp_kernel`` and
+    ``exp_kernel_beltrami``."""
     dq, dxg, dkw, dkb, dgmax, dvar, dls = _bwd_plain(
         rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
         heads=heads, score=score, var=var, ls=ls, shifts=None,
@@ -207,13 +211,13 @@ def norm1_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                                square_plus=square_plus)
     n, d = x.shape
     att = qw.shape[1]
-    _shared_bytes("norm1_bwd", 5 * d + 6 * att + 10 * heads)
+    _shared_bytes("norm1_bwd", 5 * d + 6 * att + 20 * heads)
     dev = x.device
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
     dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
     # scratch, as K9's: dk summed per node, each row's scalar sums
     dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
-    row_sums = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     blocks = _reduce_blocks(n)
     tabs, kw_t = tabs or node_tables(x, att), kw.t().contiguous()
     partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
@@ -284,7 +288,7 @@ def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str):
     """``op(qw, qb, kw, kb, x, gmax, score_params) -> (ax [N, D], den
     [N, H])`` with ``den`` the per-COLUMN score mass, over the prepared
     graph ``g``, differentiable in qw, qb, kw, kb, x, gmax and the
-    exp_kernel scalars. ``g`` must hold a symmetric edge multiset: both the
+    score scalars. ``g`` must hold a symmetric edge multiset: both the
     denominators and x's gradient reach an edge's column through its
     reverse edge. The softmax over the columns of a directed graph is the
     composition over the CSC view (``models.functions.make_rhs``)."""
@@ -297,7 +301,7 @@ def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str):
     csr = (g.rowptr, g.row, g.col)
 
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
-        var, ls = _score_params(score, score_params)
+        var, ls = score_scalars(score, score_params)
         return _FusedAxNorm1.apply(qw, qb, kw, kb, x.contiguous(), gmax, var,
                                    ls, csr, heads, square_plus, score)
 

@@ -12,8 +12,14 @@ mean, which the attention block freezes once per forward. Normalisation is
 over rows (``attention_norm_idx=0``) or columns (``=1``), by softmax or
 squareplus, on the K3/K4 kernels (``ops.scatter``). ``GATAttention`` and
 ``apply_gat_attention`` are the GAT function's layer (W, Wout, a; LeakyReLU
-scores, always softmax). The Beltrami split-space scores raise
-``NotImplementedError`` naming their ROADMAP item.
+scores, always softmax).
+
+BLEND (``cfg.beltrami`` with ``attention_type="exp_kernel"``): the layer
+splits its input into features ‖ positions ‖ labels (``beltrami_split``),
+projects the features and labels by Qx / Kx / Vx and the positions by
+Qp / Kp / Vp, and scores with the split-space product kernel
+``exp_kernel_beltrami`` (``output_var_x``, ``lengthscale_x``,
+``output_var_p``, ``lengthscale_p``).
 """
 
 from __future__ import annotations
@@ -25,13 +31,29 @@ import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
-from graph_neural_pde_tpu_torch.kernels.fused_rhs import edge_scores
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import (edge_scores,
+                                                          head_slices,
+                                                          score_scalars)
 from graph_neural_pde_tpu_torch.models.layers import Linear
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.scatter import (segment_softmax,
                                                     segment_squareplus)
 
 ATTENTION_TYPES = ("scaled_dot", "cosine_sim", "pearson", "exp_kernel")
+BELTRAMI_SCALARS = ("output_var_x", "lengthscale_x", "output_var_p",
+                    "lengthscale_p")
+
+
+def is_beltrami(cfg: Config) -> bool:
+    """True when the transformer attention is BLEND's split-space kernel
+    (the JAX package's ``cfg.beltrami and attention_type == "exp_kernel"``;
+    other families score the whole state under ``beltrami`` too)."""
+    return cfg.beltrami and cfg.attention_type == "exp_kernel"
+
+
+def score_family(cfg: Config) -> str:
+    """The attention's score family as the kernels name it."""
+    return "exp_kernel_beltrami" if is_beltrami(cfg) else cfg.attention_type
 
 
 class TransformerAttention(nn.Module):
@@ -39,7 +61,10 @@ class TransformerAttention(nn.Module):
     Wout [d_k, in], and the exp_kernel's ``output_var`` and ``lengthscale``
     (one element each). Only Q, K and the exp_kernel scalars feed the
     GRAND-l attention; V and Wout are kept so that parameters round-trip
-    with the JAX package."""
+    with the JAX package. BLEND's split-space layer (``is_beltrami``) holds
+    Qx, Vx, Kx [in - pos_enc_hidden_dim, att_dim] over the features and
+    labels, Qp, Vp, Kp [pos_enc_hidden_dim, att_dim] over the positions,
+    Wout, and ``BELTRAMI_SCALARS``."""
 
     def __init__(self, cfg: Config, in_dim: int, *,
                  generator: Optional[torch.Generator] = None):
@@ -48,29 +73,65 @@ class TransformerAttention(nn.Module):
         if att_dim % h:
             raise ValueError(f"Number of heads ({h}) must be a factor of the "
                              f"dimension size ({att_dim})")
-        if cfg.beltrami:
-            raise NotImplementedError(
-                "beltrami attention: ROADMAP Queue 1 slice 4 item 15")
         if cfg.attention_type not in ATTENTION_TYPES:
             raise ValueError(
                 f"unknown attention_type '{cfg.attention_type}'")
         d_k = att_dim // h
-        if cfg.attention_type == "exp_kernel":
-            self.output_var = nn.Parameter(torch.ones(1))
-            self.lengthscale = nn.Parameter(torch.ones(1))
-        self.Q = Linear(in_dim, att_dim, "const1e-5", generator=generator)
-        self.V = Linear(in_dim, att_dim, "const1e-5", generator=generator)
-        self.K = Linear(in_dim, att_dim, "const1e-5", generator=generator)
+        if is_beltrami(cfg):
+            for name in BELTRAMI_SCALARS:
+                setattr(self, name, nn.Parameter(torch.ones(1)))
+            dims = {"x": in_dim - cfg.pos_enc_hidden_dim,
+                    "p": cfg.pos_enc_hidden_dim}
+            for side in ("x", "p"):
+                for m in ("Q", "V", "K"):
+                    setattr(self, m + side,
+                            Linear(dims[side], att_dim, "const1e-5",
+                                   generator=generator))
+        else:
+            if cfg.attention_type == "exp_kernel":
+                self.output_var = nn.Parameter(torch.ones(1))
+                self.lengthscale = nn.Parameter(torch.ones(1))
+            self.Q = Linear(in_dim, att_dim, "const1e-5", generator=generator)
+            self.V = Linear(in_dim, att_dim, "const1e-5", generator=generator)
+            self.K = Linear(in_dim, att_dim, "const1e-5", generator=generator)
         self.Wout = Linear(d_k, in_dim, "const1e-5", generator=generator)
 
 
-def _scores(att: TransformerAttention, cfg: Config, src: torch.Tensor,
-            dst: torch.Tensor) -> torch.Tensor:
-    """Per-edge, per-head raw scores [E, H] from gathered q/k [E, H, d_k]
-    (JAX ``attention._scores``)."""
-    return edge_scores(src, dst, cfg.attention_type,
-                       getattr(att, "output_var", None),
-                       getattr(att, "lengthscale", None))
+def beltrami_split(cfg: Config, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(features ‖ labels, positions) of a BLEND state laid out as
+    [features | positions | labels] (reference
+    function_transformer_attention.py:128-171)."""
+    fh = cfg.feat_hidden_dim
+    li = fh + cfg.pos_enc_hidden_dim
+    return torch.cat([x[:, :fh], x[:, li:]], dim=1), x[:, fh:li]
+
+
+def _project(lin, x: torch.Tensor) -> torch.Tensor:
+    # by the leaves: ``att`` may be a plain namespace of tensors (the
+    # continuous adjoint's ``FuncParams``)
+    return x @ lin.w + lin.b
+
+
+def query_key(att, cfg: Config, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The node projections q, k [N, att_dim]; for BLEND the packed
+    (Qx ‖ Qp), (Kx ‖ Kp) [N, 2 att_dim]."""
+    if is_beltrami(cfg):
+        feat, pos = beltrami_split(cfg, x)
+        return (torch.cat([_project(att.Qx, feat), _project(att.Qp, pos)], 1),
+                torch.cat([_project(att.Kx, feat), _project(att.Kp, pos)], 1))
+    return _project(att.Q, x), _project(att.K, x)
+
+
+def score_params(att, cfg: Config) -> Tuple:
+    """The score family's learnable scalars, as the fused kernels take
+    them: exp_kernel's (output_var, lengthscale), BLEND's four, or ()."""
+    if is_beltrami(cfg):
+        return tuple(getattr(att, n) for n in BELTRAMI_SCALARS)
+    if cfg.attention_type == "exp_kernel":
+        return att.output_var, att.lengthscale
+    return ()
 
 
 def transformer_scores(att: TransformerAttention, cfg: Config,
@@ -79,15 +140,13 @@ def transformer_scores(att: TransformerAttention, cfg: Config,
                        ) -> torch.Tensor:
     """Raw per-edge, per-head scores [E, H]: q and k are projected on
     nodes, gathered per edge (q[row], k[col]) and reduced per head."""
-    h = cfg.heads
-    d_k = cfg.attention_dim // h
-    # by the leaves: ``att`` may be a plain namespace of tensors (the
-    # continuous adjoint's ``FuncParams``)
-    q = x @ att.Q.w + att.Q.b
-    k = x @ att.K.w + att.K.b
-    src = q[g.row.long()].reshape(-1, h, d_k)
-    dst = k[g.col.long()].reshape(-1, h, d_k)
-    prods = _scores(att, cfg, src, dst)
+    score = score_family(cfg)
+    slices = head_slices(score, cfg.heads)
+    q, k = query_key(att, cfg, x)
+    src = q[g.row.long()].reshape(g.row.shape[0], slices, -1)
+    dst = k[g.col.long()].reshape(g.col.shape[0], slices, -1)
+    prods = edge_scores(src, dst, score,
+                        *score_scalars(score, score_params(att, cfg)))
     if cfg.reweight_attention and edge_weight is not None:
         prods = prods * edge_weight[:, None]
     return prods

@@ -10,7 +10,10 @@ and the GAT function. With column normalisation
 (``attention_norm_idx=1``) the transformer function's plain softmax runs on
 the fused column-normalised kernels (K12-K14) over a symmetric edge
 multiset. Every function runs on directed graphs too (GDC, two-hop): their
-column-side passes walk the graph's CSC view.
+column-side passes walk the graph's CSC view. BLEND's split-space attention
+(``models.attention.is_beltrami``) runs in every fused engine as the score
+family ``exp_kernel_beltrami`` over the block-structured projections of
+:func:`pack_beltrami`, and in every composition as its own scores.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
 from graph_neural_pde_tpu_torch.kernels.norm1 import make_fused_ax_norm1
 from graph_neural_pde_tpu_torch.models.attention import (
     GATAttention, TransformerAttention, apply_gat_attention,
-    apply_transformer_attention, gat_scores, transformer_scores)
+    apply_transformer_attention, gat_scores, is_beltrami, score_family,
+    score_params, transformer_scores)
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.scatter import global_max, segment_softmax
 from graph_neural_pde_tpu_torch.ops.spmm import (make_spmm, spmm_mean_heads,
@@ -82,15 +86,24 @@ class ODEFunc(nn.Module):
             self.att = GATAttention(cfg, in_dim, generator=generator)
 
 
-# the GAT layer's leaves, and the transformer attention layer's tensors in the JAX package's leaf order (a dict
-# pytree flattens by sorted key), without the exp_kernel scalars
+# the GAT layer's leaves, and the transformer attention layer's linear maps
+# and scalars, in the JAX package's leaf order (a dict pytree flattens by
+# sorted key)
 _GAT_LEAVES = ("W", "Wout", "a")
-_ATT_LEAVES = tuple((m, leaf) for m in ("K", "Q", "V", "Wout")
-                    for leaf in ("b", "w"))
+_ATT_MAPS = ("K", "Q", "V", "Wout")
+_BELTRAMI_MAPS = ("Kp", "Kx", "Qp", "Qx", "Vp", "Vx", "Wout")
+_ATT_SCALARS = ("lengthscale", "lengthscale_p", "lengthscale_x",
+                "output_var", "output_var_p", "output_var_x")
 
 
 def _is_gat(att) -> bool:
     return hasattr(att, "a")
+
+
+def _att_layout(att):
+    """(linear maps, scalars) of a transformer attention layer."""
+    maps = _BELTRAMI_MAPS if hasattr(att, "Qx") else _ATT_MAPS
+    return maps, tuple(n for n in _ATT_SCALARS if hasattr(att, n))
 
 
 def func_tensors(func: ODEFunc, inert: torch.Tensor) -> List[torch.Tensor]:
@@ -102,9 +115,10 @@ def func_tensors(func: ODEFunc, inert: torch.Tensor) -> List[torch.Tensor]:
     if att is not None and _is_gat(att):
         out += [getattr(att, leaf) for leaf in _GAT_LEAVES]
     elif att is not None:
-        out += [getattr(getattr(att, m), leaf) for m, leaf in _ATT_LEAVES]
-        if hasattr(att, "lengthscale"):
-            out += [att.lengthscale, att.output_var]
+        maps, scalars = _att_layout(att)
+        out += [getattr(getattr(att, m), leaf) for m in maps
+                for leaf in ("b", "w")]
+        out += [getattr(att, n) for n in scalars]
     return out + [func.beta_train]
 
 
@@ -115,13 +129,13 @@ def func_from_tensors(func: ODEFunc, tensors) -> FuncParams:
     if getattr(func, "att", None) is not None and _is_gat(func.att):
         att = SimpleNamespace(**dict(zip(_GAT_LEAVES, tensors[2:-1])))
     elif getattr(func, "att", None) is not None:
-        rest = list(tensors[2:-1])
-        att = SimpleNamespace(**{m: SimpleNamespace() for m in
-                                 ("K", "Q", "V", "Wout")})
-        for (m, leaf), t in zip(_ATT_LEAVES, rest):
-            setattr(getattr(att, m), leaf, t)
-        if len(rest) > len(_ATT_LEAVES):
-            att.lengthscale, att.output_var = rest[len(_ATT_LEAVES):]
+        maps, scalars = _att_layout(func.att)
+        rest = iter(tensors[2:-1])
+        att = SimpleNamespace()
+        for m in maps:
+            setattr(att, m, SimpleNamespace(b=next(rest), w=next(rest)))
+        for n in scalars:
+            setattr(att, n, next(rest))
     return FuncParams(tensors[1], tensors[-1], att)
 
 
@@ -164,6 +178,39 @@ def norm1_fused_ok(cfg: Config) -> bool:
 def check_function(cfg: Config) -> None:
     if cfg.function not in ("laplacian", "transformer", "GAT"):
         raise ValueError(f"unknown function '{cfg.function}'")
+    if cfg.function == "transformer" and cfg.mix_features and is_beltrami(cfg):
+        # the reference's split-space layer returns no values to mix
+        raise ValueError("mix_features takes no Beltrami attention (its "
+                         "layer has no value projection to aggregate)")
+
+
+def pack_beltrami(att, cfg: Config, d: int):
+    """(qw, qb, kw, kb) of the fused kernels for BLEND's split-space
+    attention over a state of width ``d`` laid out as [features | positions
+    | labels]: the block-structured [D, 2 ATT] projections whose columns
+    [0, ATT) map the features and labels through Qx (Kx) and columns
+    [ATT, 2 ATT) the positions through Qp (Kp), zero elsewhere, so that
+    ``x qw + qb`` is (Qx x_feat ‖ Qp x_pos), as ``_pack_proj`` of the JAX
+    package builds it. Differentiable in the six tensors it reads."""
+    fh = cfg.feat_hidden_dim
+    li = fh + cfg.pos_enc_hidden_dim
+
+    def pack(px, pp):
+        ad = px.w.shape[1]
+        left = torch.cat([px.w[:fh], px.w.new_zeros((li - fh, ad)),
+                          px.w[fh:]], 0)
+        right = torch.cat([pp.w.new_zeros((fh, ad)), pp.w,
+                           pp.w.new_zeros((d - li, ad))], 0)
+        return torch.cat([left, right], 1), torch.cat([px.b, pp.b])
+
+    return (*pack(att.Qx, att.Qp), *pack(att.Kx, att.Kp))
+
+
+def _projections(att, cfg: Config, d: int):
+    """(qw, qb, kw, kb) the fused kernels take."""
+    if is_beltrami(cfg):
+        return pack_beltrami(att, cfg, d)
+    return att.Q.w, att.Q.b, att.K.w, att.K.b
 
 
 def _mega_ok(cfg: Config, g: Graph, exact_softmax: bool) -> bool:
@@ -205,16 +252,16 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     reference's squareplus is), ``u`` by squareplus or exp, then numerators
     and denominators in one pass (K10, gradient K11)."""
     att = func.att
-    h, score = cfg.heads, cfg.attention_type
+    h, score = cfg.heads, score_family(cfg)
+    sp = score_params(att, cfg)
     if cfg.attention_norm_idx == 1:
         # the softmax over columns (``norm1_fused_ok`` on a symmetric edge
         # multiset; make_rhs sends no other column-normalised config here):
         # K12 and K13, unshifted like the row softmax, with the same guard
         # over the COLUMN denominators, so against the column degrees
-        sp = (att.output_var, att.lengthscale) if score == "exp_kernel" else ()
         gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
         ax, den = make_fused_ax_norm1(g, h, False, score)(
-            att.Q.w, att.Q.b, att.K.w, att.K.b, x, gmax, sp)
+            *_projections(att, cfg, x.shape[1]), x, gmax, sp)
         bad = den_guard(den, g.colptr, per_row=False)
         ax = torch.where(bad, torch.full_like(ax, torch.nan), ax)
         return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
@@ -228,8 +275,7 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         else:
             ax = _softmax_aggregate_guarded(cfg, g, prods, x, exact_softmax)
         return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
-    sp = (att.output_var, att.lengthscale) if score == "exp_kernel" else ()
-    qw, qb, kw, kb = att.Q.w, att.Q.b, att.K.w, att.K.b
+    qw, qb, kw, kb = _projections(att, cfg, x.shape[1])
     if eval_fold and not exact_softmax:
         f = fused_rhs_f(g, h, score, qw, qb, kw, kb, x, _alpha(cfg, func), sp)
         return _source(cfg, func, f, aux)

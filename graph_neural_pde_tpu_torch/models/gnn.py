@@ -1,10 +1,12 @@
 """The GRAND model: encoder → continuous-time ODE block → decoder (PyTorch
 port of ``models/gnn.py``).
 
-* encoder: dropout → m1 → optional label block (``use_labels``: the last
-  ``num_classes`` input columns, a one-hot label channel, bypass m1 and are
-  appended to its output) → optional batch norm (running statistics kept
-  in buffers between steps)
+* encoder: dropout → m1 (or, with ``beltrami``, BLEND's dual encoder: mx
+  over the features and mp over the positional encoding, concatenated) →
+  optional label block (``use_labels``: the last ``num_classes`` input
+  columns, a one-hot label channel, bypass the encoder and are appended to
+  its output) → optional batch norm (running statistics kept in buffers
+  between steps)
 * ODE block: see models.blocks — one solve
 * decoder: relu → dropout → m2
 
@@ -39,7 +41,6 @@ from graph_neural_pde_tpu_torch.training.train import OPTIMIZERS
 # Config switches outside the ported slices, with the ROADMAP item that
 # ports each (ROADMAP.md, Queue 1)
 _NOT_PORTED = (
-    ("beltrami", "slice 4 item 15 (Beltrami / positional encodings)"),
     ("rewire_KNN", "slice 4 item 16 (GNNKNN rewiring)"),
     ("fa_layer", "slice 4 item 16 (GNNKNN fa layer)"),
     ("edge_sampling", "slice 4 item 16 (edge sampling)"),
@@ -57,16 +58,13 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every config
     outside the ported slices (ported: every tuned GRAND-l row, label
     diffusion, GRAND-nl with the transformer or GAT function over the
-    constant, attention, mixed and hard_attention blocks, and the
-    ``two_hop`` and ``gdc`` rewirings, whose directed graphs every one of
-    these runs on)."""
+    constant, attention, mixed and hard_attention blocks, BLEND (``beltrami``:
+    the dual encoder and the split-space attention), and the ``two_hop``,
+    ``gdc`` and ``pos_enc_knn`` rewirings, whose directed graphs every one
+    of these runs on)."""
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
-    if cfg.rewiring == "pos_enc_knn":
-        raise NotImplementedError(
-            "rewiring 'pos_enc_knn': ROADMAP Queue 1 slice 4 item 15 "
-            "(positional encodings)")
     if cfg.mesh_devices and cfg.mesh_devices > 1:
         raise NotImplementedError(
             "mesh_devices: ROADMAP Queue 1 slice 6 item 20 (multi-device)")
@@ -92,12 +90,18 @@ class GNNModel(nn.Module):
     """Usage:
         model = GNNModel(cfg, num_features, num_classes, graph, device)
         logits, stats = model(x, training=True, generator=gen)
+
+    With ``beltrami`` the model takes the positional encoding of width
+    ``pos_enc_dim`` (``rewiring.positional.apply_beltrami``) beside x:
+    ``model(x, training=True, generator=gen, pos_encoding=pe)``.
     """
 
     def __init__(self, cfg: Config, num_features: int, num_classes: int,
-                 graph: Graph, device="cpu"):
+                 graph: Graph, device="cpu", pos_enc_dim: int = 0):
         super().__init__()
         check_supported(cfg)
+        if cfg.beltrami and pos_enc_dim:
+            cfg = cfg.replace(pos_enc_dim=pos_enc_dim)
         self.cfg = cfg
         self.num_features = num_features
         self.num_classes = num_classes
@@ -106,9 +110,15 @@ class GNNModel(nn.Module):
         self.spmm_fn, self.padded_nodes = build_spmm_engine(cfg, self.graph)
         gen = torch.Generator().manual_seed(cfg.seed)
         # width of the ODE state: the encoder's output plus the label block
-        self.core_dim = cfg.hidden_dim + (num_classes if cfg.use_labels
-                                          else 0)
-        self.m1 = Linear(num_features, cfg.hidden_dim, generator=gen)
+        enc_dim = (cfg.feat_hidden_dim + cfg.pos_enc_hidden_dim
+                   if cfg.beltrami else cfg.hidden_dim)
+        self.core_dim = enc_dim + (num_classes if cfg.use_labels else 0)
+        if cfg.beltrami:
+            self.mx = Linear(num_features, cfg.feat_hidden_dim, generator=gen)
+            self.mp = Linear(cfg.pos_enc_dim, cfg.pos_enc_hidden_dim,
+                             generator=gen)
+        else:
+            self.m1 = Linear(num_features, cfg.hidden_dim, generator=gen)
         self.m2 = Linear(self.core_dim, num_classes, generator=gen)
         self.block = ODEBlock(cfg, self.core_dim, generator=gen)
         if cfg.batch_norm:
@@ -116,17 +126,28 @@ class GNNModel(nn.Module):
         self.to(self.device)
 
     def encode(self, x, training: bool,
-               generator: Optional[torch.Generator] = None):
-        """Everything before the ODE solve: dropout → m1 → label block →
-        batch norm (a training forward moves its running statistics). With
-        ``use_labels`` ``x`` is [N, num_features + num_classes]
-        (``training.train.with_labels``)."""
+               generator: Optional[torch.Generator] = None,
+               pos_encoding: Optional[torch.Tensor] = None):
+        """Everything before the ODE solve: dropout → m1 (``beltrami``:
+        dropout → mx over x, dropout → mp over ``pos_encoding``,
+        concatenated) → label block → batch norm (a training forward moves
+        its running statistics). With ``use_labels`` ``x`` is
+        [N, num_features + num_classes] (``training.train.with_labels``)."""
+        cfg = self.cfg
         labels = None
-        if self.cfg.use_labels:
+        if cfg.use_labels:
             labels = x[:, -self.num_classes:]
             x = x[:, :-self.num_classes]
-        x = dropout(x, self.cfg.input_dropout, training, generator)
-        x = self.m1(x)
+        x = dropout(x, cfg.input_dropout, training, generator)
+        if cfg.beltrami:
+            if pos_encoding is None:
+                raise ValueError("beltrami: the model needs the positional "
+                                 "encoding (rewiring.positional."
+                                 "apply_beltrami)")
+            p = dropout(pos_encoding, cfg.input_dropout, training, generator)
+            x = torch.cat([self.mx(x), self.mp(p)], dim=1)
+        else:
+            x = self.m1(x)
         if labels is not None:
             x = torch.cat([x, labels], dim=-1)
         if self.cfg.batch_norm:
@@ -140,9 +161,10 @@ class GNNModel(nn.Module):
         return self.m2(z)
 
     def forward(self, x, training: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                pos_encoding: Optional[torch.Tensor] = None):
         """Full forward. Returns (logits, solver stats)."""
-        x0 = self.encode(x, training, generator)
+        x0 = self.encode(x, training, generator, pos_encoding)
         n = x0.shape[0]
         z, stats = block_forward(self.block, self.cfg, self.graph,
                                  pad_nodes(x0, self.padded_nodes), training,

@@ -24,10 +24,11 @@ from graph_neural_pde_tpu_torch.training.train import accuracy, with_labels
 class GNNEarlyModel(GNNModel):
 
     @torch.no_grad()
-    def apply_early(self, x, y, masks):
+    def apply_early(self, x, y, masks, pos_encoding=None):
         """Evaluation forward with in-integrator model selection.
 
-        y: int labels [N]; masks: (train_mask, val_mask, test_mask).
+        y: int labels [N]; masks: (train_mask, val_mask, test_mask);
+        ``pos_encoding`` the positional encoding of a ``beltrami`` model.
         Returns (logits at the extended T, best: BestSnapshot, stats).
         With ``use_labels`` every training node shows its label, as in
         ``Trainer.eval_step``.
@@ -35,7 +36,7 @@ class GNNEarlyModel(GNNModel):
         cfg = self.cfg
         if cfg.use_labels:
             x = with_labels(x, y, masks[0], self.num_classes)
-        x0 = self.encode(x, False)
+        x0 = self.encode(x, False, pos_encoding=pos_encoding)
         n = x0.shape[0]
         x0 = pad_nodes(x0, self.padded_nodes)
         aux, _ = build_aux(self.block, cfg, self.graph, x0, training=False)

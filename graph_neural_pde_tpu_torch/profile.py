@@ -11,7 +11,9 @@ training CLI's Config flags override it, e.g. ``--function transformer
 ``--no-fused_attention_agg`` composes it instead), ``--dataset
 ogbn-arxiv-synthetic`` takes ``bench.py``'s GRAND-nl architecture, and
 ``--spmm_impl pallas_blocked --node_reorder rcm`` the blocked SpMM, K15 and
-K16), runs one warm-up epoch, then profiles ``--epochs``
+K16; ``--gaussian_pos_enc SEED`` with ``--beltrami`` plants bench.py's
+BLEND encoding, see ``write_gaussian_pos_enc``), runs one warm-up epoch,
+then profiles ``--epochs``
 epochs with ``torch.profiler``. Each epoch is the CLI's: a train step, an
 eval step and, for GNNEarly, the early-stop eval. Prints
 
@@ -33,6 +35,7 @@ power limit, which it prints first.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import tempfile
 import time
@@ -40,9 +43,12 @@ from collections import defaultdict
 
 import torch
 from torch.autograd import DeviceType
+import numpy as np
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from graph_neural_pde_tpu_torch import kernels, run
+from graph_neural_pde_tpu_torch.config import Config
+from graph_neural_pde_tpu_torch.data.datasets import get_dataset
 
 PHASES = ("train_step", "eval_step", "early_stop_eval")
 # each wrapper's __global__ function is named <wrapper>_kernel
@@ -68,6 +74,21 @@ def _busy_us(intervals):
     return total
 
 
+def write_gaussian_pos_enc(cfg: Config, data_dir: str, seed: int) -> str:
+    """Write bench.py's BLEND encoding, N(0, 1) of width
+    ``cfg.pos_enc_hidden_dim`` from numpy's ``default_rng(seed)``, one row
+    per node of ``cfg.dataset``, as the ``.npz`` cache that
+    ``apply_beltrami`` reads for ``cfg.pos_enc_type``. Returns its path."""
+    n = get_dataset(cfg.replace(rewiring=None), data_dir,
+                    use_lcc=cfg.not_lcc, device="cpu").graph.num_nodes
+    path = os.path.join(data_dir, "pos_encodings",
+                        f"{cfg.dataset}_{cfg.pos_enc_type}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez(path, pe=np.random.default_rng(seed).normal(
+        size=(n, cfg.pos_enc_hidden_dim)).astype(np.float32))
+    return path
+
+
 def profile_epochs(s: run.Setup, epochs: int):
     """Run ``epochs`` profiled epochs; returns (phase seconds, profiler)."""
     phase_s = defaultdict(list)
@@ -84,11 +105,14 @@ def profile_epochs(s: run.Setup, epochs: int):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(epochs):
             timed("train_step",
-                  lambda: s.trainer.train_step(s.x, s.y, s.masks[0]))
-            timed("eval_step", lambda: s.trainer.eval_step(s.x, s.y, s.masks))
+                  lambda: s.trainer.train_step(s.x, s.y, s.masks[0],
+                                               pos_encoding=s.pos_encoding))
+            timed("eval_step", lambda: s.trainer.eval_step(
+                s.x, s.y, s.masks, s.pos_encoding))
             if not s.cfg.no_early:
                 timed("early_stop_eval",
-                      lambda: s.model.apply_early(s.x, s.y, s.masks))
+                      lambda: s.model.apply_early(s.x, s.y, s.masks,
+                                                  s.pos_encoding))
     return phase_s, prof
 
 
@@ -143,6 +167,10 @@ def main() -> None:
     ap = run.build_parser()
     ap.description = __doc__.split("\n")[0]
     ap.add_argument("--epochs", type=int, default=3)
+    ap.add_argument("--gaussian_pos_enc", type=int, default=None,
+                    metavar="SEED", help="with --beltrami: train over "
+                    "bench.py's seeded N(0, 1) encoding "
+                    "(write_gaussian_pos_enc), cached in the data directory")
     ap.set_defaults(dataset="Cora", use_best_params=True, data_dir=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -153,11 +181,17 @@ def main() -> None:
     print(f"nvidia-smi: {smi}", flush=True)
     cfg = run.config_from_args(args)
     with tempfile.TemporaryDirectory() as tmp:
-        s = run.setup(cfg, args.data_dir or tmp, device="cuda")
-        s.trainer.train_step(s.x, s.y, s.masks[0])        # warm-up epoch
-        s.trainer.eval_step(s.x, s.y, s.masks)
+        data_dir = args.data_dir or tmp
+        if args.gaussian_pos_enc is not None:
+            path = write_gaussian_pos_enc(cfg, data_dir, args.gaussian_pos_enc)
+            print(f"positional encoding: {path}", flush=True)
+        s = run.setup(cfg, data_dir, device="cuda")
+        pe = s.pos_encoding
+        s.trainer.train_step(s.x, s.y, s.masks[0],        # warm-up epoch
+                             pos_encoding=pe)
+        s.trainer.eval_step(s.x, s.y, s.masks, pe)
         if not cfg.no_early:
-            s.model.apply_early(s.x, s.y, s.masks)
+            s.model.apply_early(s.x, s.y, s.masks, pe)
         torch.cuda.synchronize()
         phase_s, prof = profile_epochs(s, args.epochs)
     summary = dict(dataset=cfg.dataset, function=cfg.function,

@@ -23,6 +23,14 @@ function on the blocked SpMM (K15/K16), best after ``--node_reorder rcm``
 (or ``two_hop``) rewires the loaded graph into a directed one (GDC's dense
 diffusion runs on the card), and every model above trains over it.
 
+BLEND: ``--beltrami --pos_enc_type GDC|DW64|DW128|DW256`` computes the
+positional encoding at set-up (``rewiring.positional.apply_beltrami``, on
+the card, cached under ``--data_dir``) and trains the dual encoder; with
+``--attention_type exp_kernel`` the attention is the split-space kernel,
+in the fused kernels for GRAND-nl (``--function transformer --block
+constant``). ``--rewiring pos_enc_knn`` rebuilds the graph from the
+encodings' nearest neighbours.
+
 One deliberate deviation: the JAX CLI draws the citation graphs' random
 development split from an unseeded ``np.random.randint``; the port seeds it
 from ``cfg.seed``, so a run is reproducible.
@@ -34,7 +42,7 @@ import argparse
 import dataclasses
 import time
 from dataclasses import dataclass, field
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +53,7 @@ from graph_neural_pde_tpu_torch.data.datasets import (get_dataset,
                                                       set_train_val_test_split)
 from graph_neural_pde_tpu_torch.models.gnn import GNNModel, check_supported
 from graph_neural_pde_tpu_torch.models.gnn_early import GNNEarlyModel
+from graph_neural_pde_tpu_torch.rewiring.positional import apply_beltrami
 from graph_neural_pde_tpu_torch.training.train import EpochLog, Trainer
 
 
@@ -94,13 +103,15 @@ class RunResult:
 
 @dataclass
 class Setup:
-    """A model, its trainer and its data on one device."""
+    """A model, its trainer and its data on one device (``pos_encoding``:
+    BLEND's positional encoding, None without ``beltrami``)."""
     cfg: Config
     model: GNNModel
     trainer: Trainer
     x: torch.Tensor
     y: torch.Tensor
     masks: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    pos_encoding: Optional[torch.Tensor] = None
 
 
 def setup(cfg: Config, data_dir: str = "./data", device="cuda") -> Setup:
@@ -117,6 +128,11 @@ def setup(cfg: Config, data_dir: str = "./data", device="cuda") -> Setup:
             "no CUDA device: the port trains on the card "
             "(run.main(cfg, device='cpu') runs it on the CPU)")
     dataset = get_dataset(cfg, data_dir, use_lcc=cfg.not_lcc, device=device)
+    if cfg.beltrami:
+        pe = apply_beltrami(dataset.graph, cfg, data_dir,
+                            node_order=dataset.reorder, device=device)
+        cfg = cfg.replace(pos_enc_dim=pe.shape[1])
+        dataset.pos_encoding = torch.as_tensor(pe)
 
     # random development split for the citation graphs (reference
     # run_GNN.py:237-238), seeded from cfg.seed (see the module docstring)
@@ -132,8 +148,10 @@ def setup(cfg: Config, data_dir: str = "./data", device="cuda") -> Setup:
                 dataset.graph, device=device)
     masks = tuple(m.to(device) for m in (dataset.train_mask,
                                          dataset.val_mask, dataset.test_mask))
+    pe = dataset.pos_encoding
     return Setup(cfg, model, Trainer(model), dataset.x.to(device),
-                 dataset.y.to(device), masks)
+                 dataset.y.to(device), masks,
+                 pe.to(device) if pe is not None else None)
 
 
 def main(cfg: Config, data_dir: str = "./data", verbose: bool = True,
@@ -145,20 +163,21 @@ def main(cfg: Config, data_dir: str = "./data", verbose: bool = True,
         name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else ""
         print(f"[device] {dev} {name}".rstrip(), flush=True)
     model, trainer, x, y, masks = s.model, s.trainer, s.x, s.y, s.masks
+    pe = s.pos_encoding
     result = RunResult(best={"val_acc": 0.0, "test_acc": 0.0,
                              "train_acc": 0.0, "epoch": 0,
                              "best_time": cfg.time})
     best = result.best
     for epoch in range(1, cfg.epoch):
         t0 = time.time()
-        loss, tstats = trainer.train_step(x, y, masks[0])
-        (tr, va, te), _, _ = trainer.eval_step(x, y, masks)
+        loss, tstats = trainer.train_step(x, y, masks[0], pos_encoding=pe)
+        (tr, va, te), _, _ = trainer.eval_step(x, y, masks, pe)
         best_time = cfg.time
         if va > best["val_acc"]:
             best.update(val_acc=va, test_acc=te, train_acc=tr, epoch=epoch,
                         best_time=cfg.time)
         if not cfg.no_early:
-            _, snap, _ = model.apply_early(x, y, masks)
+            _, snap, _ = model.apply_early(x, y, masks, pe)
             if snap.val > best["val_acc"]:
                 best.update(val_acc=snap.val, test_acc=snap.test,
                             train_acc=snap.train, epoch=epoch,

@@ -134,13 +134,15 @@ class Trainer:
         # continuous adjoint reports its backward solve's NFE itself
         self.bwd_evals_per_step = TABLEAUS[model.cfg.method].num_stages
 
-    def train_step(self, x, y, train_mask, label_mask=None):
+    def train_step(self, x, y, train_mask, label_mask=None,
+                   pos_encoding=None):
         """One optimizer step. Returns (loss, solver stats). With
         ``use_labels`` the training nodes are split into label-carrying
         and prediction nodes: ``label_mask`` [N] bool says which nodes
         show their label (by default each training node with probability
         ``label_rate``, drawn from the trainer's generator); the loss is
-        over all training nodes."""
+        over all training nodes. ``pos_encoding``: a ``beltrami`` model's
+        positional encoding."""
         if self.cfg.use_labels:
             if label_mask is None:
                 coin = torch.rand(train_mask.shape, generator=self.generator,
@@ -148,7 +150,8 @@ class Trainer:
                 label_mask = train_mask & (coin < self.cfg.label_rate)
             x = with_labels(x, y, label_mask, self.model.num_classes)
         self.model.zero_grad(set_to_none=True)
-        logits, stats = self.model(x, training=True, generator=self.generator)
+        logits, stats = self.model(x, training=True, generator=self.generator,
+                                   pos_encoding=pos_encoding)
         loss = cross_entropy_loss(logits, y, train_mask)
         loss.backward()
         self.optimizer.step()
@@ -158,20 +161,24 @@ class Trainer:
         return float(loss.detach()), stats
 
     @torch.no_grad()
-    def eval_step(self, x, y, masks):
+    def eval_step(self, x, y, masks, pos_encoding=None):
         """Returns ((train, val, test) accuracies, logits, solver stats).
         With ``use_labels`` every training node shows its label."""
         if self.cfg.use_labels:
             x = with_labels(x, y, masks[0], self.model.num_classes)
-        logits, stats = self.model(x, training=False)
+        logits, stats = self.model(x, training=False,
+                                   pos_encoding=pos_encoding)
         accs = tuple(float(accuracy(logits, y, m)) for m in masks)
         return accs, logits, stats
 
     def fit(self, data, *, epochs: Optional[int] = None, verbose: bool = True):
-        """Train for epochs 1 .. epochs-1 (the reference's loop bounds).
-        Returns (best, logs)."""
+        """Train for epochs 1 .. epochs-1 (the reference's loop bounds),
+        with ``data.pos_encoding`` where the data carries one. Returns
+        (best, logs)."""
         dev = self.model.device
         x, y = data.x.to(dev), data.y.to(dev)
+        pos = getattr(data, "pos_encoding", None)
+        pos = pos.to(dev) if pos is not None else None
         masks = tuple(m.to(dev) for m in (data.train_mask, data.val_mask,
                                           data.test_mask))
         epochs = epochs if epochs is not None else self.cfg.epoch
@@ -180,8 +187,8 @@ class Trainer:
         logs = []
         for epoch in range(1, epochs):
             t0 = time.time()
-            loss, tstats = self.train_step(x, y, masks[0])
-            (tr, va, te), _, _ = self.eval_step(x, y, masks)
+            loss, tstats = self.train_step(x, y, masks[0], pos_encoding=pos)
+            (tr, va, te), _, _ = self.eval_step(x, y, masks, pos)
             if va > best["val_acc"]:
                 best = {"val_acc": va, "test_acc": te, "train_acc": tr,
                         "epoch": epoch}

@@ -320,13 +320,15 @@ def test_get_dataset_rewires_the_cora_stand_in(tmp_path, rewiring):
 
 
 def test_rewiring_is_supported_but_pos_enc_knn():
-    for rw in ("gdc", "two_hop"):
+    """Every rewiring is supported; ``pos_enc_knn`` (tested with the
+    positional encodings, ``test_torch_port_beltrami.py``) needs a DeepWalk
+    or hyperbolic encoding type to measure distances in."""
+    for rw in ("gdc", "two_hop", "pos_enc_knn"):
         check_supported(best_params["Cora"].replace(rewiring=rw))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        check_supported(best_params["Cora"].replace(rewiring="pos_enc_knn"))
     from graph_neural_pde_tpu_torch.data.datasets import rewire
-    with pytest.raises(NotImplementedError, match="item 15"):
-        rewire(None, best_params["Cora"].replace(rewiring="pos_enc_knn"))
+    with pytest.raises(ValueError, match="DW"):
+        rewire(None, best_params["Cora"].replace(rewiring="pos_enc_knn",
+                                                 pos_enc_type="GDC"))
 
 
 # ---------------------------------------------------------------------------

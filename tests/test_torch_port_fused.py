@@ -514,6 +514,7 @@ class TestWrappers:
         qw, qb, kw_, kb, x = c.t_ops()
         heads, score, err = H, "scaled_dot", (TypeError, ValueError)
         rowptr, row, col = c.t_csr()
+        var = ls = None
         if bad == "dtype":
             x = x.double()
         elif bad == "shape":
@@ -523,7 +524,9 @@ class TestWrappers:
         elif bad == "score":
             score = "dot"
         elif bad == "beltrami":
-            score, err = "exp_kernel_beltrami", NotImplementedError
+            # the split-space score takes two elements of var and ls
+            score, err = "exp_kernel_beltrami", ValueError
+            var = ls = torch.ones(1)
         else:
             err = NotImplementedError
             rowptr, row, col, qw, qb, kw_, kb, x = (
@@ -531,7 +534,7 @@ class TestWrappers:
         gmax = torch.zeros(1, device=x.device)
         with pytest.raises(err):
             kernels.fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw_, kb, gmax,
-                                  heads=heads, score=score)
+                                  heads=heads, score=score, var=var, ls=ls)
 
     def test_directed_graph_raises(self):
         """K9 reaches x's gradient through reverse edges: on a non-symmetric
@@ -552,7 +555,7 @@ class TestWrappers:
     @pytest.mark.parametrize("override", [
         dict(optimizer="adagrad"), dict(mesh_devices=2),
         dict(fa_layer=True), dict(edge_sampling=True),
-        dict(dtype="bfloat16"), dict(beltrami=True)])
+        dict(dtype="bfloat16"), dict(use_mlp=True)])
     def test_unported_variants_raise(self, override):
         _, tcfg = _cfgs(**override)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

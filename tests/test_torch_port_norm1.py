@@ -430,6 +430,7 @@ class TestOp:
         (qw, qb, kw, kb, x, gmax), _ = _op_inputs(c, torch.float32)
         rowptr, row, col = c.tg.rowptr, c.tg.row, c.tg.col
         heads, score, err = 2, "scaled_dot", (TypeError, ValueError)
+        sp = {}
         if bad == "dtype":
             x = x.double()          # float64 only when every operand is
         elif bad == "shape":
@@ -439,7 +440,9 @@ class TestOp:
         elif bad == "score":
             score = "dot"
         elif bad == "beltrami":
-            score, err = "exp_kernel_beltrami", NotImplementedError
+            # the split-space score takes two elements of var and ls
+            score, err = "exp_kernel_beltrami", ValueError
+            sp = dict(var=torch.ones(1), ls=torch.ones(1))
         else:
             err = NotImplementedError
             rowptr, row, col, qw, qb, kw, kb, x, gmax = (
@@ -447,11 +450,11 @@ class TestOp:
                                        gmax))
         with pytest.raises(err):
             kernels.norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax,
-                              heads=heads, score=score)
+                              heads=heads, score=score, **sp)
         recip = torch.ones((x.shape[0], heads), device=x.device)
         with pytest.raises(err):
             kernels.norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax,
-                              recip, heads=heads, score=score)
+                              recip, heads=heads, score=score, **sp)
 
     def test_directed_graph_raises(self):
         """Both the denominators and x's gradient reach an edge's column

@@ -204,10 +204,10 @@ def test_cli_parser_builds_config():
 
 
 @pytest.mark.parametrize("override", [
-    dict(beltrami=True), dict(use_mlp=True),
+    dict(block="rewire_attention"), dict(use_mlp=True),
     dict(fc_out=True),
     dict(augment=True), dict(kinetic_energy=0.1), dict(method="cheby"),
-    dict(optimizer="sgd"), dict(rewiring="pos_enc_knn"),
+    dict(optimizer="sgd"), dict(method="explicit_adams"),
     dict(mesh_devices=4), dict(rewire_KNN=True),
 ])
 def test_configs_outside_the_slice_raise(override):
@@ -218,13 +218,13 @@ def test_configs_outside_the_slice_raise(override):
 
 def test_every_other_tuned_row_is_refused():
     """Every tuned row is ported, ogbn-arxiv and its label diffusion
-    included; the arxiv row's positional encoding (``pos_enc_type``, read
-    only with ``beltrami``) is still on the ROADMAP (item 15)."""
+    included, and so is the arxiv row with ``beltrami`` (its tuned
+    ``pos_enc_type`` and ``pos_enc_hidden_dim``, read only by BLEND's dual
+    encoder): no tuned row is refused."""
     for cfg in best_params.values():
         check_supported(cfg)
     check_supported(best_params["ogbn-arxiv"].replace(use_labels=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP .* item 15"):
-        check_supported(best_params["ogbn-arxiv"].replace(beltrami=True))
+    check_supported(best_params["ogbn-arxiv"].replace(beltrami=True))
 
 
 def test_port_runs_without_jax():
