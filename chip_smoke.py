@@ -64,7 +64,16 @@ Phases, each of which must pass (any failure exits nonzero):
    K6, K8 (two launches bit-identical), K8 without dxg and K17;
    K1 as the column sum dx = A^T ct over the CSC view, K3/K4 over its
    columns, against ``index_add`` over the columns, and K11's du with its
-   dx by K1 over the CSC view, on those two graphs.
+   dx by K1 over the CSC view, on those two graphs. Over a random per-edge
+   payload x_g [E, D] (the bench oracle's operand): K18
+   ``fused_aggregate`` (and with per-edge shifts), K19 ``fused_score_max``
+   (scaled_dot) and K8's per-head mode ``fused_rhs_bwd_heads`` (every
+   output, against the plain version in float64), for all five score
+   families on the Cora stand-in at D=16, ATT=16, H=4, for scaled_dot at
+   the bench oracle's shape (N=512, E=4096, D=128, ATT=64, H=2) and on the
+   arxiv-scale graph at D=128, ATT=32, H=2, and for exp_kernel_beltrami at
+   the packed BLEND widths there (D=128, ATT=2 x 32, H=2); two launches of
+   each bit-identical.
    Each check is timed: device time per call (torch.profiler after
    warm-up calls in the same session, mean of 20 calls; the device events
    of each call are counted by the launch they come from, and a session
@@ -141,8 +150,13 @@ Phases, each of which must pass (any failure exits nonzero):
    32 (read from the encodings' cache), K6 and K9; (r) (q) with the
    softmax over columns, K12-K14; (s) (b) with BLEND over the Cora
    stand-in rewired by ``pos_enc_knn`` from its DW64 encoding (computed on
-   the card in phase 3 and read from the cache), a directed graph: K6, K8 and K17, never K9. Each run must
-   launch the kernels its path runs, and all sixteen counters must grow.
+   the card in phase 3 and read from the cache), a directed graph: K6, K8
+   and K17, never K9; (t) the bench entry, ``graph_neural_pde_tpu_torch.
+   bench.main`` at full width: its oracles on the card (K18 with K19's
+   shift and K8's per-head mode among the kernels they hold), then its
+   forward, train-step and secondary timings, printing its JSON line. Each
+   run must launch the kernels its path runs, and all nineteen counters
+   must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -616,6 +630,33 @@ def projection_ops(d, att, score):
     return d * att if score == BELTRAMI else 2 * d * att
 
 
+def payload_ops(n, nv, d, att, h, score):
+    """float32 operations the work of K18, K19 and K8's per-head mode needs
+    over N nodes and E payload rows: (K18, K19, per-head mode).
+
+    For scaled_dot the score is linear in k_e, so Kw folds into the query
+    once a node: r_nh = Kw_h q_nh and s_eh = (<x_g[e], r_nh> + <q_nh,
+    kb_h>) / sqrt(d_k). Per edge that leaves H dots over D for the scores
+    and H axpys over D for num (K18: 4 H D); the scores alone (K19, whose
+    q is an input: 2 H D); backward, the scores, the H dots with ct_num,
+    sum_e ds_eh x_g[e] (whose product by Kw_h per node gives dq and by q_nh
+    gives dKw) and dxg = sum_h (u_eh ct_num[n, h] + ds_eh r_nh / sqrt(d_k))
+    (10 H D). Per node: q and the fold (K18), the fold (K19), q, the fold,
+    dq and dKw (backward), 2 D ATT each. The other families need each
+    edge's key (norms, means or distances of k_e): a projection per edge,
+    the scores (2 ATT) and num (2 H D); backward three products of D x ATT
+    an edge (k_e, dk_e Kw^T, x_g^T dk_e), the score's derivatives (~6 ATT)
+    and the dots and dxg's sum over heads (4 H D). K19 is scaled_dot only
+    (None otherwise)."""
+    proj = projection_ops(d, att, score)
+    if score == "scaled_dot":
+        return (n * (2 * proj + 2 * att) + nv * 4 * h * d,
+                n * (proj + 2 * att) + nv * 2 * h * d,
+                n * (4 * proj + 4 * att) + nv * 10 * h * d)
+    return (n * proj + nv * (proj + 2 * att + 2 * h * d), None,
+            n * proj + nv * (3 * proj + 6 * att + 4 * h * d))
+
+
 def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                         dev="cuda", feat=None):
     """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
@@ -711,6 +752,98 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                              f"launches differ")
     print(f"[kernels] {kname} @ {shape_name} {score}: two launches "
           f"bit-identical in every output", flush=True)
+    return rows
+
+
+def oracle_graph(seed: int, n: int = 512, e: int = 4096):
+    """The JAX bench oracle's graph (``bench.py:165-168``): ``e`` edges at
+    sorted uniform rows and uniform columns over ``n`` nodes, row-sorted
+    as the port's kernels read it."""
+    import numpy as np
+    from graph_neural_pde_tpu_torch.ops.graph import make_graph
+    rng = np.random.default_rng(seed)
+    row = np.sort(rng.integers(0, n, e))
+    return make_graph(row, rng.integers(0, n, e), num_nodes=n).sort_by_row()
+
+
+def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
+                            timed=True, dev="cuda"):
+    """K18 ``fused_aggregate`` (and with per-edge shifts), K19
+    ``fused_score_max`` (scaled_dot) and K8's per-head mode
+    ``fused_rhs_bwd_heads`` (every output, against the plain version in
+    float64 on the same float32 inputs) over a random per-edge payload x_g
+    [E_pad, D] against their plain versions; two launches of each must be
+    bit-identical. ``timed=False`` only compares."""
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    rowptr, row = csr[:2]
+    x, qw, qb, kw, kb, gmax = ops
+    n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    x_g = randn(cap, d)
+    shifts = randn(cap, h, scale=0.5)
+    ct_num = randn(n, h * d)
+    # den's cotangent positive, as in check_fused_kernels
+    ct_den = 1.0 + randn(n, h, scale=0.1)
+    q = (x @ qw + qb).contiguous()
+    agg = (rowptr, row, x, x_g, qw, qb, kw, kb, gmax)
+    bwd = agg + (ct_num, ct_den)
+
+    def plain64(**kw):
+        """K8's per-head plain version in float64 on the same inputs."""
+        kw = {k: (v.double() if torch.is_tensor(v) else v)
+              for k, v in kw.items()}
+        out = K.fused_rhs_bwd_heads_plain(
+            *(t.double() if t.is_floating_point() else t for t in bwd), **kw)
+        return tuple(o.float() for o in out if o is not None)
+
+    def some(out):
+        return tuple(o for o in out if o is not None)
+
+    # compulsory bytes: rowptr, x, the payload's valid rows, the
+    # projections' weights and the outputs; float32 operations as
+    # payload_ops counts them
+    agg_ops, max_ops, bwd_ops = payload_ops(n, nv, d, att, h, score)
+    base_bytes = 4 * (n + 1 + n * d + nv * d + 2 * d * att + 2 * att)
+    cases = [
+        ("fused_aggregate", "num, den",
+         lambda: K.fused_aggregate(*agg, **kw_f),
+         lambda: K.fused_aggregate_plain(*agg, **kw_f),
+         (base_bytes + 4 * n * (h * d + h), agg_ops), None),
+        ("fused_aggregate", "num, den with per-edge shifts",
+         lambda: K.fused_aggregate(*agg, shifts=shifts, **kw_f),
+         lambda: K.fused_aggregate_plain(*agg, shifts=shifts, **kw_f),
+         (base_bytes + 4 * (nv * h + n * (h * d + h)), agg_ops), None),
+        ("fused_rhs_bwd_heads", "dq, dxg, dkw, dkb, dgmax[, dvar, dls]",
+         lambda: some(K.fused_rhs_bwd_heads(*bwd, **kw_f)),
+         lambda: some(K.fused_rhs_bwd_heads_plain(*bwd, **kw_f)),
+         (base_bytes + 4 * (n * (h * d + h) + n * att + nv * d + d * att
+                            + att), bwd_ops),
+         lambda: plain64(**kw_f)),
+    ]
+    if score == "scaled_dot":
+        cases.insert(2, (
+            "fused_score_max", "global maximum of the scores",
+            lambda: K.fused_score_max(rowptr, row, q, x_g, kw, kb, heads=h),
+            lambda: K.fused_score_max_plain(rowptr, row, q, x_g, kw, kb,
+                                            heads=h),
+            (4 * (n + 1 + n * att + nv * d + d * att + att + 1), max_ops),
+            None))
+    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score} payload [E, D]"
+    rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
+                      reference=ref, timed=timed)
+            for kname, what, kern, plain, work, ref in cases]
+    for kname, what, kern, *_ in cases:
+        first, again = kern(), kern()
+        if not isinstance(first, tuple):
+            first, again = (first,), (again,)
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{kname} ({what}) {score} @ {shape_name}: "
+                                 f"two launches differ")
+    print(f"[kernels] fused_aggregate, fused_rhs_bwd_heads"
+          f"{', fused_score_max' if score == 'scaled_dot' else ''} @ "
+          f"{shape_name} {score}: two launches bit-identical in every output",
+          flush=True)
     return rows
 
 
@@ -1255,10 +1388,13 @@ GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
 BLOCKED_KERNELS = ("blocked_spmm", "blocked_sddmm")
 NORM1_KERNELS = ("norm1_den", "norm1_fwd", "norm1_bwd")
 COLPLAN_KERNELS = ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_bwd_col")
+AGGREGATE_KERNELS = ("fused_aggregate", "fused_score_max",
+                     "fused_rhs_bwd_heads")
 ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
                                  "fused_rhs_bwd", "fused_rhs_bwd_sym",
                                  "dual_scatter", "dual_gather") \
-    + NORM1_KERNELS + BLOCKED_KERNELS + ("fused_rhs_bwd_col",)
+    + NORM1_KERNELS + BLOCKED_KERNELS + ("fused_rhs_bwd_col",) \
+    + AGGREGATE_KERNELS
 
 
 def counted(label: str, expected, fn):
@@ -1385,6 +1521,14 @@ def main() -> int:
             rows += check_fused_kernels("cora-small", cora_g, 16, 16, 4,
                                         score, args.seed + 30 + i,
                                         timed=False)
+        # K18, K19 and K8's per-head mode over a random per-edge payload:
+        # every family small, scaled_dot at the bench oracle's shape
+        for i, score in enumerate(SCORE_FAMILIES):
+            rows += check_aggregate_kernels("cora-small", cora_g, 16, 16, 4,
+                                            score, args.seed + 110 + i,
+                                            timed=False)
+        rows += check_aggregate_kernels("bench-oracle", oracle_graph(0), 128,
+                                        64, 2, "scaled_dot", args.seed + 115)
         rows += check_dual_kernels("cora-small", cora_g, 16, 4,
                                    args.seed + 50, timed=False)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
@@ -1441,6 +1585,12 @@ def main() -> int:
         rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
                                     2 * bench.attention_dim, bench.heads,
                                     BELTRAMI, args.seed + 62)
+        rows += check_aggregate_kernels("arxiv-scale", big, bench.hidden_dim,
+                                        bench.attention_dim, bench.heads,
+                                        "scaled_dot", args.seed + 116)
+        rows += check_aggregate_kernels("arxiv-scale", big, bench.hidden_dim,
+                                        2 * bench.attention_dim, bench.heads,
+                                        BELTRAMI, args.seed + 117)
         del big
         torch.cuda.empty_cache()
         # directed graphs: K17 and K8 without dxg (four score families on a
@@ -1648,6 +1798,18 @@ def main() -> int:
             res, counts = drive_main_path(label, cfg, data_dir, expected)
             results[label] = res
             per_path[label] = counts
+        # (t) the bench entry at full width: its oracles (K1, K6, K8's
+        # per-head mode, K9, K10, K12-K14, K17-K19) and its timings; it
+        # prints its JSON line
+        from graph_neural_pde_tpu_torch import bench as bench_entry
+        label_t = "bench entry (t)"
+        _, per_path[label_t], secs = counted(
+            label_t, AGGREGATE_KERNELS + ("csr_spmm", "fused_rhs_fwd",
+                                          "fused_rhs_bwd_sym", "dual_scatter",
+                                          "fused_rhs_bwd_col", "norm1_bwd"),
+            lambda: bench_entry.main(device="cuda"))
+        print(f"[main] {label_t} in {secs:.2f} s; kernel launches "
+              f"{per_path[label_t]}", flush=True)
         label = "tuned Cora on the blocked engine after rcm (j)"
         if per_path[label]["csr_spmm"] or per_path[label]["edge_dot"]:
             raise AssertionError(f"{label} launched K1/K2: "
@@ -1757,7 +1919,10 @@ def main() -> int:
                "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297"),
                "blocked_spmm": ("blocked.cu", "spmm_blocked.py:76"),
                "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135"),
-               "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047")}
+               "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047"),
+               "fused_aggregate": ("fused_rhs.cu", "fused_rhs.py:208"),
+               "fused_score_max": ("fused_rhs.cu", "fused_rhs.py:569"),
+               "fused_rhs_bwd_heads": ("fused_rhs.cu", "fused_rhs.py:742")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

@@ -8,7 +8,8 @@ the fused attention RHS of the transformer function (GRAND-nl) with its
 backward passes, and the dual scatter of the composed attention RHS
 (squareplus, reweighted and GAT attention) with its gradient run as
 hand-written CUDA kernels (``kernels/``, sources in ``csrc/``); every other
-op is PyTorch.
+op is PyTorch. ``bench.py`` is the bench entry: the kernels against
+on-device oracles, then GRAND-nl's throughput at ogbn-arxiv scale.
 
 This package imports torch and numpy only, never jax and never the JAX
 package ``graph_neural_pde_tpu``, which stays in the repository as the

@@ -30,10 +30,16 @@ from graph_neural_pde_tpu_torch.kernels.edge_dot import (  # noqa: F401
     edge_dot_plain,
 )
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (  # noqa: F401
+    fused_aggregate,
+    fused_aggregate_plain,
+    fused_bwd_composition,
+    fused_rhs_aggregate,
     fused_rhs_ax,
     fused_rhs_bwd,
     fused_rhs_bwd_col,
     fused_rhs_bwd_col_plain,
+    fused_rhs_bwd_heads,
+    fused_rhs_bwd_heads_plain,
     fused_rhs_bwd_plain,
     fused_rhs_bwd_sym,
     fused_rhs_bwd_sym_plain,
@@ -42,6 +48,8 @@ from graph_neural_pde_tpu_torch.kernels.fused_rhs import (  # noqa: F401
     fused_rhs_fwd_plain,
     fused_rowmax,
     fused_rowmax_plain,
+    fused_score_max,
+    fused_score_max_plain,
     make_fused_ax_colplan,
     make_fused_ax_sym,
 )
@@ -64,4 +72,5 @@ from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
 KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
            dual_scatter, dual_gather, norm1_den, norm1_fwd, norm1_bwd,
-           fused_rhs_bwd_col, blocked_spmm, blocked_sddmm)
+           fused_rhs_bwd_col, fused_aggregate, fused_score_max,
+           fused_rhs_bwd_heads, blocked_spmm, blocked_sddmm)

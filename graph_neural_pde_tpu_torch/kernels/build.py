@@ -70,6 +70,15 @@ _ENTRY_POINTS = {
     # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dx, n_cols, dim,
     # att, heads, flags, stream
     "gnpde_fused_rhs_bwd_col": [_PTR] * 19 + [_INT] * 6 + [_PTR],
+    # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
+    # nullable), num, den, n_rows, dim, att, heads, flags, stream
+    "gnpde_fused_aggregate": [_PTR] * 13 + [_INT] * 5 + [_PTR],
+    # rowptr, q, xg, kw, kb, partial, out, n_rows, dim, att, heads, stream
+    "gnpde_fused_score_max": [_PTR] * 7 + [_INT] * 4 + [_PTR],
+    # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
+    # nullable), ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows,
+    # dim, att, heads, flags, n_slots, reduce_blocks, stream
+    "gnpde_fused_rhs_bwd_heads": [_PTR] * 17 + [_INT] * 7 + [_PTR],
     # The column-normalised RHS kernels (csrc/norm1.cu).
     # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, ct (the last three
     # nullable), qtab, ktab, out, n_rows, dim, att, heads, flags, project

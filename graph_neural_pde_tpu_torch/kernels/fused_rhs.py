@@ -1,5 +1,5 @@
-"""K6-K9: the fused attention right-hand side of GRAND-nl, its row maxima
-and its two backward passes.
+"""K6-K9, K17-K19: the fused attention right-hand side of GRAND-nl, its
+row maxima, its backward passes, and the same over a per-edge payload.
 
 One evaluation of the transformer ODE function recomputes multihead
 attention and aggregates with it. With row-normalised softmax the softmax
@@ -41,6 +41,16 @@ each, the feature factor's and the position factor's:
   view that recomputes each edge's cotangent from node tables, so that no
   per-edge array exists; replaces
   ``_bwd_dx_col_kernel`` / ``_bwd_dx_col_call``.
+* K18 ``fused_aggregate``  -> (num, den) with the keys projected from a
+  per-EDGE payload ``x_g`` [E_pad, D] (the TPU kernel's operand, which need
+  not be x[col]); replaces ``_rhs_kernel`` / ``_fused_call``.
+* K19 ``fused_score_max``  -> the global maximum of the scaled-dot scores
+  against that payload's keys; replaces ``_max_kernel`` /
+  ``_fused_score_max_impl``.
+* K8's per-head mode ``fused_rhs_bwd_heads`` -> the backward of K18 from
+  per-head cotangents ``ct_num`` [N, H·D] (K8 takes their head average
+  ``ct_ax`` with ``recip_p``); ``_bwd_kernel`` / ``_fused_bwd_mega_call``
+  with ``recip_p=None``.
 
 The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K17
 walks its CSC view); the kernels gather their node rows themselves (see
@@ -48,7 +58,10 @@ walks its CSC view); the kernels gather their node rows themselves (see
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 PyTorch version beside it, which defines the semantics. ``fused_rhs_ax``,
 ``make_fused_ax_sym``, ``make_fused_ax_colplan`` and ``fused_rhs_f`` keep
-the JAX package's names: the differentiable ops the models call.
+the JAX package's names: the differentiable ops the models call;
+``fused_rhs_aggregate`` (K18 and K8's per-head mode) and
+``fused_bwd_composition``, its hand-derived backward in torch ops, those
+the bench's oracles call.
 """
 
 from __future__ import annotations
@@ -142,10 +155,8 @@ def fused_rhs_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, *,
     slices = head_slices(score, heads)
     src = (x @ qw + qb)[r].reshape(nv, slices, -1)
     ke = (xe @ kw + kb).reshape(nv, slices, -1)
-    sm = edge_scores(src, ke, score, var, ls) - gmax
-    if shifts is not None:
-        sm = sm - shifts[:nv]
-    u, _ = _u_duds(sm, square_plus)
+    u, _ = _u_duds(_shifted(edge_scores(src, ke, score, var, ls), gmax,
+                            shifts, nv), square_plus)
     den = _node_sum(n, r, u)
     num = torch.stack([_node_sum(n, r, u[:, h, None] * xe)
                        for h in range(heads)], dim=1)          # [N, H, D]
@@ -169,6 +180,29 @@ def fused_rowmax_plain(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int):
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
 
+def _scores_vjp(src, ke, score, heads, var, ls):
+    """The scores [E, H] of the q rows ``src`` and k rows ``ke`` [E, ATT],
+    and their pullback: ``ds -> (dsrc, dke[, dvar, dls])``, the score's own
+    derivative by autograd over :func:`edge_scores`."""
+    with torch.enable_grad():
+        src = src.detach().requires_grad_(True)
+        ke = ke.detach().requires_grad_(True)
+        wrt = [src, ke]
+        if score in SCALARS:
+            var = var.detach().requires_grad_(True)
+            ls = ls.detach().requires_grad_(True)
+            wrt += [var, ls]
+        slices = head_slices(score, heads)
+        s = edge_scores(src.reshape(src.shape[0], slices, -1),
+                        ke.reshape(ke.shape[0], slices, -1), score, var, ls)
+    return s.detach(), lambda ds: torch.autograd.grad(s, wrt, ds)
+
+
+def _shifted(s, gmax, shifts, nv):
+    sm = s - gmax
+    return sm if shifts is None else sm - shifts[:nv]
+
+
 def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                ct_den, *, heads, score, var, ls, shifts, square_plus,
                by_col):
@@ -178,26 +212,14 @@ def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     nv, r, c = _edges(rowptr, row, col)
     n, d = x.shape
     xe = x[c]
-    with torch.enable_grad():
-        src = (x @ qw + qb)[r].detach().requires_grad_(True)
-        ke = (xe @ kw + kb).detach().requires_grad_(True)
-        wrt = [src, ke]
-        if score in SCALARS:
-            var = var.detach().requires_grad_(True)
-            ls = ls.detach().requires_grad_(True)
-            wrt += [var, ls]
-        slices = head_slices(score, heads)
-        s = edge_scores(src.reshape(nv, slices, -1),
-                        ke.reshape(nv, slices, -1), score, var, ls)
-    sm = s.detach() - gmax
-    if shifts is not None:
-        sm = sm - shifts[:nv]
-    u, duds = _u_duds(sm, square_plus)
+    s, pullback = _scores_vjp((x @ qw + qb)[r], xe @ kw + kb, score, heads,
+                              var, ls)
+    u, duds = _u_duds(_shifted(s, gmax, shifts, nv), square_plus)
     group = c if by_col else r
     rg = recip_p[group]
     dot = torch.sum(ct_ax[r] * xe, dim=1, keepdim=True)
     ds = (rg * dot + ct_den[group]) * duds
-    dsrc, dke, *dextra = torch.autograd.grad(s, wrt, ds)
+    dsrc, dke, *dextra = pullback(ds)
     dq = _node_sum(n, r, dsrc)
     dxg = torch.zeros((row.shape[0], d), dtype=x.dtype, device=x.device)
     dxg[:nv] = (torch.sum(u * rg, dim=1, keepdim=True) * ct_ax[r]
@@ -265,6 +287,73 @@ def fused_rhs_bwd_col_plain(colptr, col_by_col, row_by_col, x, qw, qb, kw,
     return _node_sum(x.shape[0], c, out[1][:nv]), out[2], out[3]
 
 
+def fused_aggregate_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
+                          heads: int, score: str, var=None, ls=None,
+                          shifts=None, square_plus: bool = False):
+    """Plain version of K18: ``(num [N, H·D], den [N, H])`` with the keys
+    projected from the per-edge payload ``x_g`` [E_pad, D] (edge e's row of
+    the row-sorted CSR prefix), not from a node table:
+
+        q_n = x_n[n] Qw + qb,  k_e = x_g[e] Kw + kb,  s_eh = score_h(q_n, k_e)
+        u_eh = exp(s_eh - gmax - shift_eh)     (or squareplus of the same)
+        num[n, h·D:(h+1)·D] = sum_e u_eh x_g[e],  den[n, h] = sum_e u_eh
+    """
+    nv, r, _ = _edges(rowptr, row, row)
+    n = x_n.shape[0]
+    xe = x_g[:nv]
+    slices = head_slices(score, heads)
+    src = (x_n @ qw + qb)[r].reshape(nv, slices, -1)
+    ke = (xe @ kw + kb).reshape(nv, slices, -1)
+    u, _ = _u_duds(_shifted(edge_scores(src, ke, score, var, ls), gmax,
+                            shifts, nv), square_plus)
+    num = torch.cat([_node_sum(n, r, u[:, h, None] * xe)
+                     for h in range(heads)], dim=1)
+    return num, _node_sum(n, r, u)
+
+
+def fused_score_max_plain(rowptr, row, q, x_g, kw, kb, *, heads: int):
+    """Plain version of K19: the largest scaled-dot score <q[row e], x_g[e]
+    Kw + kb>_h / sqrt(d_k) over every valid edge and head, as a one-element
+    tensor; 0 when it is not finite (an edgeless graph)."""
+    nv = int(rowptr[-1])
+    if nv == 0:
+        return torch.zeros(1, dtype=q.dtype, device=q.device)
+    src = q[row[:nv].long()].reshape(nv, heads, -1)
+    ke = (x_g[:nv] @ kw + kb).reshape(nv, heads, -1)
+    m = torch.amax(edge_scores(src, ke, "scaled_dot")).reshape(1)
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+
+
+def fused_rhs_bwd_heads_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax,
+                              ct_num, ct_den, *, heads: int, score: str,
+                              var=None, ls=None, square_plus: bool = False):
+    """Plain version of K8's per-head mode, the backward of K18 from the
+    per-head cotangents ``ct_num`` [N, H·D] and ``ct_den`` [N, H]:
+
+        du_eh = <ct_num[n, h], x_g[e]> + ct_den[n, h],  ds_eh = du_eh du/ds
+        dq[n] = sum_e ds . ds/dq,   dk_e = ds . ds/dk
+        dxg[e] = sum_h u_eh ct_num[n, h] + dk_e Kw^T
+        dkw = sum_e x_g[e]^T dk_e,  dkb = sum_e dk_e,  dgmax = -sum ds
+
+    Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb, dgmax, dvar, dls); dvar
+    and dls (shaped as var and ls) are None but for ``exp_kernel`` and
+    ``exp_kernel_beltrami``."""
+    nv, r, _ = _edges(rowptr, row, row)
+    n, d = x_n.shape
+    xe = x_g[:nv]
+    s, pullback = _scores_vjp((x_n @ qw + qb)[r], xe @ kw + kb, score, heads,
+                              var, ls)
+    u, duds = _u_duds(s - gmax, square_plus)
+    ctn = ct_num.reshape(n, heads, d)[r]                       # [E, H, D]
+    ds = (torch.sum(ctn * xe[:, None, :], dim=2) + ct_den[r]) * duds
+    dsrc, dke, *dextra = pullback(ds)
+    dxg = torch.zeros_like(x_g)
+    dxg[:nv] = torch.sum(u[:, :, None] * ctn, dim=1) + dke @ kw.T
+    dvar, dls = dextra if dextra else (None, None)
+    return (_node_sum(n, r, dsrc), dxg, xe.T @ dke, torch.sum(dke, dim=0),
+            -torch.sum(ds), dvar, dls)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -298,6 +387,17 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
         if var is None or ls is None:
             raise ValueError(f"{name}: {score} needs var and ls")
         floats += [("var", var, None), ("ls", ls, None)]
+    _check_operands(name, dev, ints, floats)
+    for t_name, t in (("var", var), ("ls", ls)):
+        if score in SCALARS and t.numel() != SCALARS[score]:
+            raise ValueError(f"{name}: {t_name} must hold {SCALARS[score]} "
+                             f"element(s) for {score}")
+
+
+def _check_operands(name, dev, ints, floats):
+    """Each (name, tensor, shape or None) of ``ints`` (int32) and
+    ``floats`` (float32; float64 also on the CPU, all of one type) on
+    ``dev``, contiguous and of its shape; a CPU or CUDA device."""
     for t_name, t, shape in (*ints, *floats):
         if t.device != dev:
             raise ValueError(f"{name}: {t_name} on {t.device}, x on {dev}")
@@ -309,14 +409,10 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
     for t_name, t, _ in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {t_name} must be int32")
-    wide = dev.type == "cpu" and x.dtype == torch.float64
+    wide = dev.type == "cpu" and floats[0][1].dtype == torch.float64
     for t_name, t, _ in floats:
         if t.dtype != (torch.float64 if wide else torch.float32):
             raise TypeError(f"{name}: {t_name} must be float32")
-    for t_name, t in (("var", var), ("ls", ls)):
-        if score in SCALARS and t.numel() != SCALARS[score]:
-            raise ValueError(f"{name}: {t_name} must hold {SCALARS[score]} "
-                             f"element(s) for {score}")
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"{name}: no kernel for {dev}")
 
@@ -578,11 +674,165 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     return (dx,) + _dk_sums(partials, d)
 
 
+# K18, K19 and K8's per-head mode run PAYLOAD_WARPS warps a block, which
+# share the block's copy of Qw and Kw (rows padded by one float), and keep
+# a group of GROUP_EDGES payload rows per warp in shared memory: the sums
+# of csrc/fused_rhs.cu's ``padded_weight_floats``, ``aggregate_warp_floats``
+# and their siblings.
+GROUP_EDGES, PAYLOAD_WARPS = 8, 8
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _payload_shared(name, d, att, warp_floats, weights):
+    """Raise unless ``weights`` padded [D, ATT] matrices and PAYLOAD_WARPS
+    slices of ``warp_floats`` fit in a block's shared memory."""
+    floats = weights * _round4(d * (att + 1)) + PAYLOAD_WARPS * warp_floats
+    if floats * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"{name}: state width {d} and attention_dim {att} "
+                         "need more shared memory than a block has (Qw and "
+                         "Kw are staged there)")
+
+
+def _payload_check(name, rowptr, row, x_n, x_g, qw, qb, kw, kb, heads, score,
+                   var, ls, extra):
+    _check(name, rowptr, row, row, x_n, qw, qb, kw, kb, heads, score, var, ls,
+           [("x_g", x_g, (row.shape[0], x_n.shape[1])), *extra])
+
+
+def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
+                    heads: int, score: str, var=None, ls=None, shifts=None,
+                    square_plus: bool = False):
+    """K18: ``(num [N, H·D], den [N, H])`` of the attention RHS over the
+    per-edge payload ``x_g`` [E_pad, D] (see :func:`fused_aggregate_plain`);
+    ``gmax`` a one-element tensor, ``shifts`` optional per-edge score
+    shifts [E_pad, H]. A warp walks a row, projects q_n from x_n's row and
+    its edges' keys from their payload rows, eight edges at a time (Qw and
+    Kw staged in shared memory, which must hold them: else it raises), and
+    sums in the row's edge order: two calls agree bit for bit. Not
+    differentiable by itself (see :func:`fused_rhs_aggregate`)."""
+    extra = [("gmax", gmax, None)]
+    if shifts is not None:
+        extra.append(("shifts", shifts, (row.shape[0], heads)))
+    _payload_check("fused_aggregate", rowptr, row, x_n, x_g, qw, qb, kw, kb,
+                   heads, score, var, ls, extra)
+    if x_n.device.type == "cpu":
+        return fused_aggregate_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb,
+                                     gmax, heads=heads, score=score, var=var,
+                                     ls=ls, shifts=shifts,
+                                     square_plus=square_plus)
+    n, d = x_n.shape
+    att = qw.shape[1]
+    g = GROUP_EDGES
+    _payload_shared("fused_aggregate", d, att,
+                    _round4(g * d + att + g * (att + 1) + heads * d
+                            + g * heads), 2)
+    dev = x_n.device
+    num = torch.empty((n, heads * d), dtype=torch.float32, device=dev)
+    den = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    build.launch("fused_aggregate", dev, rowptr.data_ptr(), x_g.data_ptr(),
+                 x_n.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 _ptr(shifts), num.data_ptr(), den.data_ptr(), n, d, att,
+                 heads, _flags(score, square_plus))
+    fused_aggregate.launches += 1
+    return num, den
+
+
+def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
+    """K19: the largest scaled-dot score of the query table ``q`` [N, ATT]
+    against the keys of the per-edge payload ``x_g`` [E_pad, D] over every
+    valid edge and head, a one-element tensor, 0 unless finite (see
+    :func:`fused_score_max_plain`): the shift the oracle hands K18. Each
+    block reduces its rows, one block the blocks' maxima; no atomics, two
+    calls agree bit for bit. Not differentiable."""
+    if q.dim() != 2 or x_g.dim() != 2:
+        raise ValueError("fused_score_max: q and x_g must be 2-D")
+    n, att = q.shape
+    d = x_g.shape[1]
+    if heads < 1 or heads > MAX_HEADS or att % heads or att > MAX_ATT \
+            or d > MAX_DIM:
+        raise ValueError(f"fused_score_max: width {d}, attention_dim {att}, "
+                         f"heads {heads} outside the kernel's range")
+    _check_operands("fused_score_max", q.device,
+                    (("rowptr", rowptr, (n + 1,)), ("row", row, None)),
+                    (("q", q, None), ("x_g", x_g, (row.shape[0], d)),
+                     ("kw", kw, (d, att)), ("kb", kb, (att,))))
+    if q.device.type == "cpu":
+        return fused_score_max_plain(rowptr, row, q, x_g, kw, kb,
+                                     heads=heads)
+    g = GROUP_EDGES
+    _payload_shared("fused_score_max", d, att,
+                    _round4(g * d + att + g * (att + 1)) + 1, 1)
+    blocks = -(-n // PAYLOAD_WARPS)
+    partial = torch.empty((max(blocks, 1),), dtype=torch.float32,
+                          device=q.device)
+    out = torch.empty((1,), dtype=torch.float32, device=q.device)
+    build.launch("fused_score_max", q.device, rowptr.data_ptr(),
+                 q.data_ptr(), x_g.data_ptr(), kw.data_ptr(), kb.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), n, d, att, heads)
+    fused_score_max.launches += 1
+    return out
+
+
+def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
+                        ct_den, *, heads: int, score: str, var=None, ls=None,
+                        square_plus: bool = False):
+    """K8's per-head-cotangent mode: the backward of K18 from ``ct_num``
+    [N, H·D] and ``ct_den`` [N, H] (see :func:`fused_rhs_bwd_heads_plain`
+    for the formulas and the return value). K8's row walk over the payload:
+    q_n and each edge's key are projected as K18 projects them; dkw, dkb,
+    dgmax and the score scalars are reduced in two passes with fixed
+    orders, so two calls agree bit for bit."""
+    n, d = x_n.shape
+    cap = row.shape[0]
+    extra = [("gmax", gmax, None), ("ct_num", ct_num, (n, heads * d)),
+             ("ct_den", ct_den, (n, heads))]
+    _payload_check("fused_rhs_bwd_heads", rowptr, row, x_n, x_g, qw, qb, kw,
+                   kb, heads, score, var, ls, extra)
+    if x_n.device.type == "cpu":
+        return fused_rhs_bwd_heads_plain(
+            rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num, ct_den,
+            heads=heads, score=score, var=var, ls=ls,
+            square_plus=square_plus)
+    att = qw.shape[1]
+    g = GROUP_EDGES
+    _payload_shared("fused_rhs_bwd_heads", d, att,
+                    _round4(g * d + g * att + 2 * att + g * (att + 1)
+                            + heads * (d + 1) + g * 10 * heads
+                            + 2 * g * heads), 2)
+    dev = x_n.device
+    dq = torch.empty((n, att), dtype=torch.float32, device=dev)
+    # padding slots keep dxg and dk_e at 0; the dkw / dkb reduction walks
+    # them too (the valid count stays on the device)
+    dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
+    dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
+    blocks = _reduce_blocks(cap)
+    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
+                           device=dev)
+    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
+    build.launch("fused_rhs_bwd_heads", dev, rowptr.data_ptr(),
+                 x_g.data_ptr(), x_n.data_ptr(), qw.data_ptr(), qb.data_ptr(),
+                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
+                 _ptr(ls), ct_num.data_ptr(), ct_den.data_ptr(),
+                 dq.data_ptr(), dxg.data_ptr(), dke.data_ptr(),
+                 row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
+                 _flags(score, square_plus), cap, blocks)
+    fused_rhs_bwd_heads.launches += 1
+    return ((dq, dxg) + _dk_sums(partials, d)
+            + _row_totals(row_sums, score, var, ls))
+
+
 fused_rhs_fwd.launches = 0
 fused_rowmax.launches = 0
 fused_rhs_bwd.launches = 0
 fused_rhs_bwd_sym.launches = 0
 fused_rhs_bwd_col.launches = 0
+fused_aggregate.launches = 0
+fused_score_max.launches = 0
+fused_rhs_bwd_heads.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -757,3 +1007,113 @@ def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
                             gmax, heads=heads, score=score, var=var, ls=ls,
                             alpha=alpha.reshape(1))
     return f
+
+
+class _FusedAggregate(torch.autograd.Function):
+    """(num, den) = K18, whose backward is K8's per-head mode followed by
+    the node-level products dqw = x_n^T dq, dqb = sum dq and dx_n = dq
+    Qw^T (plain matmuls, as the JAX package computes them outside its
+    kernel). Residuals: the inputs."""
+
+    @staticmethod
+    def forward(ctx, qw, qb, kw, kb, x_n, x_g, gmax, var, ls, g, heads,
+                square_plus, score):
+        num, den = fused_aggregate(
+            g.rowptr, g.row, x_n, x_g, qw, qb, kw, kb, gmax, heads=heads,
+            score=score, var=var, ls=ls, square_plus=square_plus)
+        ctx.save_for_backward(qw, qb, kw, kb, x_n, x_g, gmax, var, ls)
+        ctx.g = g
+        ctx.opts = (heads, square_plus, score)
+        return num, den
+
+    @staticmethod
+    def backward(ctx, ct_num, ct_den):
+        qw, qb, kw, kb, x_n, x_g, gmax, var, ls = ctx.saved_tensors
+        heads, square_plus, score = ctx.opts
+        dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_heads(
+            ctx.g.rowptr, ctx.g.row, x_n, x_g, qw, qb, kw, kb, gmax,
+            ct_num.contiguous(), ct_den.contiguous(), heads=heads,
+            score=score, var=var, ls=ls, square_plus=square_plus)
+        return (x_n.T @ dq, torch.sum(dq, dim=0), dkw, dkb, dq @ qw.T, dxg,
+                dgmax.reshape(gmax.shape), dvar, dls) + (None,) * 4
+
+
+def fused_rhs_aggregate(g, heads: int, square_plus: bool, score: str, qw, qb,
+                        kw, kb, x_n, x_g, gmax, score_params=()):
+    """(num [N, H·D], den [N, H]) of the fused attention RHS over the
+    row-sorted graph ``g`` and the per-edge payload ``x_g`` [E_pad, D] (see
+    :func:`fused_aggregate_plain`), differentiable in qw, qb, kw, kb, x_n,
+    x_g, gmax and the score's scalars (``score_params`` as
+    :func:`score_scalars` takes them): K18 forward, K8's per-head mode
+    backward. The JAX package's op of the same name returns den padded to
+    max(8, H) columns; this one returns its H columns."""
+    _check_sorted(g, "fused_rhs_aggregate")
+    var, ls = score_scalars(score, score_params)
+    return _FusedAggregate.apply(qw, qb, kw, kb, x_n.contiguous(),
+                                 x_g.contiguous(), gmax, var, ls, g, heads,
+                                 square_plus, score)
+
+
+def _scores_u(g, q, kw, kb, x_g, gmax, heads, square_plus, shifts=None):
+    """The forward's per-edge quantities for the composition below, per
+    head: (src [E, ATT], k_e [E, ATT], u, du/ds), u and du/ds lists of [E]
+    (scaled-dot scores; the JAX package's ``_scores_u``)."""
+    nv = int(g.rowptr[-1])
+    att = q.shape[1]
+    d_k = att // heads
+    src = q[g.row[:nv].long()]
+    k_e = x_g[:nv] @ kw + kb
+    us, dudsms = [], []
+    for h in range(heads):
+        sl = slice(h * d_k, (h + 1) * d_k)
+        sm = torch.sum(src[:, sl] * k_e[:, sl], dim=1) / math.sqrt(d_k) - gmax
+        if shifts is not None:
+            sm = sm - shifts[:nv, h]
+        if square_plus:
+            root = torch.sqrt(sm * sm + 4.0)
+            us.append((sm + root) * 0.5)
+            dudsms.append((1.0 + sm / root) * 0.5)
+        else:
+            us.append(torch.exp(sm))
+            dudsms.append(us[-1])
+    return src, k_e, us, dudsms
+
+
+def fused_bwd_composition(g, heads: int, square_plus: bool, res, cts):
+    """The hand-derived backward of :func:`fused_rhs_aggregate` for the
+    scaled-dot score in plain torch ops, head by head: the independent
+    oracle K8's per-head mode is held to (the JAX package's
+    ``_fused_bwd_composition``). ``res`` is (qw, qb, kw, kb, x_n, x_g,
+    gmax[, shifts]) and ``cts`` (ct_num [N, H·D], ct_den [N, H]). Returns
+    (dqw, dqb, dkw, dkb, dx_n, dx_g, dgmax)."""
+    qw, qb, kw, kb, x_n, x_g, gmax = res[:7]
+    shifts = res[7] if len(res) > 7 else None
+    ct_num, ct_den = cts
+    n, d = x_n.shape
+    att = qw.shape[1]
+    d_k = att // heads
+    nv = int(g.rowptr[-1])
+    r = g.row[:nv].long()
+    q = x_n @ qw + qb
+    src, k_e, us, dudsms = _scores_u(g, q, kw, kb, x_g, gmax, heads,
+                                     square_plus, shifts)
+    xf = x_g[:nv]
+    dgmax = torch.zeros((), dtype=x_n.dtype, device=x_n.device)
+    dsrc_cols, dke_cols = [], []
+    dxg_acc = torch.zeros_like(xf)
+    for h in range(heads):
+        sl = slice(h * d_k, (h + 1) * d_k)
+        dv_h = ct_num[r, h * d:(h + 1) * d]                      # [E, D]
+        ds = (torch.sum(dv_h * xf, dim=1) + ct_den[r, h]) * dudsms[h]
+        dgmax = dgmax - torch.sum(ds)
+        c = (ds / math.sqrt(d_k))[:, None]
+        dsrc_cols.append(c * k_e[:, sl])
+        dke_cols.append(c * src[:, sl])
+        dxg_acc = dxg_acc + us[h][:, None] * dv_h
+    dsrc = torch.cat(dsrc_cols, dim=1)
+    dk_e = torch.cat(dke_cols, dim=1)
+    dq = torch.zeros_like(q).index_add(0, r, dsrc)
+    dx_g = torch.zeros_like(x_g)
+    dx_g[:nv] = dxg_acc + dk_e @ kw.T
+    return (x_n.T @ dq, torch.sum(dq, dim=0), xf.T @ dk_e,
+            torch.sum(dk_e, dim=0), dq @ qw.T, dx_g, dgmax)
