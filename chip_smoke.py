@@ -73,7 +73,22 @@ Phases, each of which must pass (any failure exits nonzero):
    the bench oracle's shape (N=512, E=4096, D=128, ATT=64, H=2) and on the
    arxiv-scale graph at D=128, ATT=32, H=2, and for exp_kernel_beltrami at
    the packed BLEND widths there (D=128, ATT=2 x 32, H=2); two launches of
-   each bit-identical.
+   each bit-identical. The P6 pair on every rank of a 4-way split of the
+   row-sorted valid edges (``make_sharded_stripe_spmm``'s shards: rows
+   straddle ranks, most of a rank's row pointers are empty ranges) of the
+   arxiv-scale graph at D=128, on ranks 0 and 3 of one of the Cora
+   stand-in and on the whole Cora stand-in as one rank's shard at D=80:
+   K1 ``csr_spmm`` in table mode (the scatter of a per-edge payload;
+   yardstick ``torch.segment_reduce``) and K20 ``row_gather`` (its gather;
+   yardstick ``index_select``), two launches of each bit-identical. The
+   all-reduce schedules' edge shards at path (u)'s widths: K1 forward, K18,
+   K19 and K8's per-head mode on the Cora stand-in as one rank's shard
+   (D=80, ATT=128, H=8; K1's dx over the shard's CSC view too) and on each
+   rank of a 4-way split at arxiv scale (D=128, ATT=32, H=2). K21
+   ``smem_gather`` over probe 13's 2,703,360 indices from tables [T, 128]
+   in shared memory, float32 T = 8, 64, 448 and bfloat16 T = 512, bit for
+   bit against ``index_select``, and its refusal of a float32 table of 512
+   rows (256 KB).
    Each check is timed: device time per call (torch.profiler after
    warm-up calls in the same session, mean of 20 calls; the device events
    of each call are counted by the launch they come from, and a session
@@ -106,7 +121,11 @@ Phases, each of which must pass (any failure exits nonzero):
    tuned ogbn-arxiv row's dual encoder; DeepWalk's skip-gram training
    card against CPU from one start, the ``pos_enc_knn`` rewiring of the
    300-node SBM from a DeepWalk encoding computed on the card (card and
-   CPU kNN agree), and Cora BLEND GRAND-nl over that directed graph;
+   CPU kNN agree), and Cora BLEND GRAND-nl over that directed graph; the
+   tuned Cora row's attention block solved with the stripe spmm (the P6
+   pair per rank) and the all-reduce spmm over an in-process 4-way split
+   (``parallel.split_mesh``), card against CPU and against the unsharded
+   block;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after: tuned Cora for 1 training epoch (followed by an eval step
@@ -154,8 +173,23 @@ Phases, each of which must pass (any failure exits nonzero):
    and K17, never K9; (t) the bench entry, ``graph_neural_pde_tpu_torch.
    bench.main`` at full width: its oracles on the card (K18 with K19's
    shift and K8's per-head mode among the kernels they hold), then its
-   forward, train-step and secondary timings, printing its JSON line. Each
-   run must launch the kernels its path runs, and all nineteen counters
+   forward, train-step and secondary timings, printing its JSON line; (u)
+   the multi-device layer (``graph_neural_pde_tpu_torch.parallel``): first
+   a world of two NCCL ranks on card 0, in a process of its own, which
+   must end in NCCL's refusal of two ranks on one GPU, then over a world of
+   one NCCL rank the tuned Cora row's attention block at full width (hidden
+   80, squareplus over columns, dopri5) solved with ``spmm_fn`` from
+   ``make_sharded_stripe_spmm`` and from ``make_sharded_spmm_for`` in both
+   modes, each against the same block on the default engine (NFE, z,
+   every gradient), and the attention RHS through
+   ``make_sharded_fused_rhs_for`` in both modes (K18 per rank) against K6;
+   the per-rank bodies of a 4-way split at arxiv scale run rank by rank in
+   this process, their partials summed in rank order (the stripe spmm and
+   its dx, the all-reduce spmm and the attention RHS at (a)'s widths,
+   against K1 and K6 unsharded); and the gather probes
+   (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
+   and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
+   run must launch the kernels its path runs, and all twenty-one counters
    must grow.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -177,30 +211,6 @@ REL_BOUND = 1e-5
 SCORE_FAMILIES = ("scaled_dot", "cosine_sim", "pearson", "exp_kernel",
                   "exp_kernel_beltrami")
 BELTRAMI = "exp_kernel_beltrami"
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
 
 
 DEVICE_MS_TAG = "device_ms call"
@@ -295,23 +305,6 @@ def device_ms(fn, reps: int = 20, attempts: int = 3):
         f"the profiler lost events, so no time is read")
 
 
-def compare(name, got, want):
-    """Max abs error and max error relative to the largest reference entry;
-    raises above REL_BOUND."""
-    import torch
-    torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: non-finite kernel output")
-    abs_err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    rel = abs_err / max(scale, 1e-30)
-    if rel > REL_BOUND:
-        raise AssertionError(f"{name}: max error {abs_err:.3e} is "
-                             f"{rel:.3e} of max |ref| {scale:.3e} "
-                             f"> {REL_BOUND}")
-    return abs_err, rel
-
-
 def prepared_graph(row: str, data_dir: str, **overrides):
     """The tuned row's dataset (its SBM stand-in without raw files), with
     ``overrides`` (e.g. ``node_reorder``) on its config, prepared as its
@@ -340,24 +333,6 @@ def grid_graph(batch: int, h: int, w: int, diagonals: bool):
     from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
     return prepare_graph(image_config(),
                          batched_grid_graph(batch, h, w, diagonals))
-
-
-def arxiv_scale_graph(seed: int):
-    """Symmetric random graph at ogbn-arxiv's node count and ~2.3M directed
-    edges, prepared as the attention block prepares its graph."""
-    import numpy as np
-    from graph_neural_pde_tpu_torch.config import best_params
-    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
-    from graph_neural_pde_tpu_torch.ops.graph import make_graph
-    n, pairs = 169_343, 1_150_000
-    rng = np.random.default_rng(seed)
-    u = rng.integers(0, n, pairs)
-    v = rng.integers(0, n, pairs)
-    keep = u != v
-    u, v = u[keep], v[keep]
-    g = make_graph(np.concatenate([u, v]), np.concatenate([v, u]),
-                   num_nodes=n, pad_multiple=512)
-    return prepare_graph(best_params["Cora"], g)
 
 
 def directed_random_graph(n: int, pairs: int, seed: int):
@@ -447,10 +422,11 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
     same function; ``reference`` an optional stricter stand-in for the
     plain version in the comparison (the timed calls stay ``kern`` and
     ``plain``). ``timed=False`` only compares."""
+    from graph_neural_pde_tpu_torch.probes.gather import agree, time_ms
     got, want = kern(), (reference or plain)()
     if not isinstance(got, (tuple, list)):
         got, want = (got,), (want,)
-    errs = [compare(f"{kname} {what} [{i}] @ {shape_name} {dims}", g_, w_)
+    errs = [agree(f"{kname} {what} [{i}] @ {shape_name} {dims}", g_, w_)
             for i, (g_, w_) in enumerate(zip(got, want))]
     abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     head = (f"[kernels] {kname:17s} {what:34s} {shape_name:14s} {dims}: "
@@ -460,12 +436,12 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
     if not timed:
         print(head, flush=True)
         return row
-    call_k, call_p = median_ms(kern), median_ms(plain)
+    call_k, call_p = time_ms(kern), time_ms(plain)
     dev_k, dev_p = device_ms(kern), device_ms(plain)
     measured = dev_k is not None and dev_p is not None
     lib_ms = None
     if library is not None:
-        lib_ms = device_ms(library) if measured else median_ms(library)
+        lib_ms = device_ms(library) if measured else time_ms(library)
     n_bytes, flops = work
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
@@ -1383,6 +1359,424 @@ def drive_image_path(label: str, cfg, data_dir: str, expected):
     return hist, launches, peak
 
 
+def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
+                        dev="cuda"):
+    """The P6 pair on ranks of a ``world``-way split of ``g``'s row-sorted
+    valid edges (``make_sharded_stripe_spmm``'s shards, cut wherever the
+    ``np.linspace`` bounds fall, so rows straddle ranks and most of a
+    rank's N + 1 row pointers are empty ranges): K1 in table mode (the
+    scatter of a random per-edge payload) and K20 ``row_gather`` (its
+    gather), against their plain versions, with ``torch.segment_reduce``
+    and ``index_select`` as yardsticks; two launches of each bit-identical."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import (csr_spmm, csr_spmm_plain,
+                                                    row_gather,
+                                                    row_gather_plain)
+    from graph_neural_pde_tpu_torch.parallel import split_mesh
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import stripe_shards
+    dev = torch.device(dev)
+    shards = stripe_shards(split_mesh(world, dev), g)
+    rows = []
+    for r in ranks:
+        plan = shards[r].plan
+        n, e = plan.num_nodes, plan.n_valid
+        gen = torch.Generator(device=dev).manual_seed(seed + r)
+        vals = torch.randn((e, d), generator=gen, device=dev)
+        table = torch.randn((n, d), generator=gen, device=dev)
+        lengths = (plan.rowptr[1:] - plan.rowptr[:-1]).long()
+        csr = (plan.rowptr, plan.row, plan.slots, plan.valid)
+        # the segment sum reads the row pointer and the payload and writes
+        # [N, D] (K1 also reads the slot index and the mask, 8 B an edge,
+        # which the function does not need); the gather reads the row
+        # pointer and the table and writes [E, D]; no arithmetic but the
+        # sum's adds
+        cases = (
+            ("csr_spmm", "table mode: P6 scatter",
+             lambda: csr_spmm(*csr, vals, table=True),
+             lambda: csr_spmm_plain(*csr, vals),
+             (4 * (n + 1 + e * d + n * d), e * d),
+             lambda: torch.segment_reduce(vals, "sum", lengths=lengths)),
+            ("row_gather", "P6 gather table[row]",
+             lambda: row_gather(plan.rowptr, plan.row, table, e),
+             lambda: row_gather_plain(plan.rowptr, plan.row, table),
+             (4 * (n + 1 + n * d + e * d), 0),
+             lambda: torch.index_select(table, 0, plan.row.long())))
+        dims = f"rank {r} of {world} N={n} E={e} D={d}"
+        for kname, what, kern, plain, work, library in cases:
+            rows.append(time_case(kname, what, shape_name, dims, kern, plain,
+                                  work, library))
+            if not torch.equal(kern(), kern()):
+                raise AssertionError(f"{kname} {what} @ {shape_name} {dims}: "
+                                     f"two launches differ")
+        print(f"[kernels] csr_spmm (table mode), row_gather @ {shape_name} "
+              f"{dims}: two launches bit-identical", flush=True)
+    return rows
+
+
+def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
+                             column_sum=False, timed_ranks=(0,),
+                             dev="cuda"):
+    """The kernels of the all-reduce schedules on every rank's edge shard
+    of a ``world``-way split of ``g`` (``edge_shards``: the rank's slice
+    of the padded edge arrays, row-sorted into a sub-graph over all N
+    nodes without a reverse-edge map), at the widths path (u) gives them:
+    K1's forward (``make_sharded_spmm``) and, with ``column_sum``, its dx
+    over the shard's CSC view; with ``att`` and ``h``, K18, K19 and K8's
+    per-head mode (``make_sharded_fused_rhs``). Ranks outside
+    ``timed_ranks`` are only compared."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import csr_spmm, csr_spmm_plain
+    from graph_neural_pde_tpu_torch.parallel import split_mesh
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import edge_shards
+    dev = torch.device(dev)
+    rows = []
+    for r, shard in enumerate(edge_shards(split_mesh(world, dev), g.to(dev))):
+        sg, name, timed = shard.graph, f"{shape_name} edge shard {r}/{world}", \
+            r in timed_ranks
+        n, nv = sg.num_nodes, sg.num_valid
+        gen = torch.Generator(device=dev).manual_seed(seed + r)
+        x = torch.randn((n, d), generator=gen, device=dev)
+        w = torch.rand((sg.capacity,), generator=gen, device=dev) * sg.mask
+        csr = torch.sparse_csr_tensor(sg.rowptr, sg.col[:nv], w[:nv],
+                                      size=(n, n))
+        rows.append(time_case(
+            "csr_spmm", "forward A_w x over an edge shard", name,
+            f"N={n} E={nv} D={d}",
+            lambda: csr_spmm(sg.rowptr, sg.row, sg.col, w, x),
+            lambda: csr_spmm_plain(sg.rowptr, sg.row, sg.col, w, x),
+            (4 * (n + 1 + 2 * nv + 2 * n * d), 2 * nv * d),
+            lambda: csr @ x, timed=timed))
+        if column_sum:
+            rows += check_column_sum(name, sg, d, seed + world + r, dev=dev)
+        if att is not None:
+            rows += check_aggregate_kernels(name, sg, d, att, h,
+                                            "scaled_dot", seed + 2 * world + r,
+                                            timed=timed, dev=dev)
+    return rows
+
+
+SMEM_ROWS = 2_640 * 1_024       # probe 13's rows: 2,640 chunks x 1,024
+
+
+def check_smem_gather(seed, d=128, m=SMEM_ROWS, dev="cuda"):
+    """K21 ``smem_gather`` over probe 13's ``m`` random indices from tables
+    [T, D] staged in shared memory: float32 at T = 8, 64 and 448 (the
+    largest that fits in a block's 227 KB), bfloat16 at T = 512; each bit
+    for bit against its plain version (``index_select``, which is also the
+    yardstick) and relaunched bit-identical. A float32 table of 512 rows
+    (256 KB) must be refused."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import (smem_gather,
+                                                    smem_gather_plain)
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = []
+    for t, dtype in ((8, torch.float32), (64, torch.float32),
+                     (448, torch.float32), (512, torch.bfloat16)):
+        tab = torch.randn((t, d), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, t, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        es = tab.element_size()
+        name = str(dtype).split(".")[1]
+        rows.append(time_case(
+            "smem_gather", f"table [{t}, {d}] {name}", "probe13",
+            f"M={m} T={t} D={d}", lambda: smem_gather(idx, tab),
+            lambda: smem_gather_plain(idx, tab),
+            # reads the indices and the table once, writes [M, D]
+            (4 * m + es * t * d + es * m * d, 0),
+            lambda: torch.index_select(tab, 0, idx)))
+        first = smem_gather(idx, tab)
+        if not (torch.equal(first, smem_gather_plain(idx, tab))
+                and torch.equal(first, smem_gather(idx, tab))):
+            raise AssertionError(f"smem_gather T={t} {name}: not bit for bit")
+    big = torch.randn((512, d), generator=gen, device=dev)
+    try:
+        smem_gather(idx[:16] % 512, big)
+    except ValueError as err:
+        print(f"[kernels] smem_gather refuses a float32 table [512, {d}] as "
+              f"it should: {err}", flush=True)
+    else:
+        raise AssertionError("smem_gather took a 256 KB table")
+    print("[kernels] smem_gather: bit for bit against index_select, two "
+          "launches bit-identical", flush=True)
+    return rows
+
+
+def sharded_block_run(cfg, g, x, probe, spmm_fn, dev):
+    """The block of ``cfg`` (weights from seed 0, on ``dev``) solved over
+    ``g`` with ``spmm_fn`` (None: the default engine): (z, the gradients of
+    sum(z * probe) in x and every block parameter, NFE), on the host."""
+    import torch
+    from graph_neural_pde_tpu_torch.models.blocks import (ODEBlock,
+                                                          block_forward)
+    block = ODEBlock(cfg, x.shape[1],
+                     generator=torch.Generator().manual_seed(0)).to(dev)
+    x = x.detach().to(dev).requires_grad_()
+    z, stats = block_forward(block, cfg, g.to(dev), x, True, spmm_fn=spmm_fn)
+    leaves = [x] + list(block.parameters())
+    grads = torch.autograd.grad((z * probe.to(dev)).sum(), leaves,
+                                allow_unused=True)
+    return (z.detach().cpu(),
+            [torch.zeros(t.shape) if g_ is None else g_.cpu()
+             for t, g_ in zip(leaves, grads)], int(stats["nfe"]))
+
+
+def same_block(label, got, want):
+    """Two ``sharded_block_run`` results agree: NFE, z (rtol 1e-4) and every
+    gradient (rtol 1e-3, with 1e-5 of the largest gradient allowed
+    everywhere: a parameter whose true gradient is 0 holds rounding
+    noise)."""
+    import torch
+    (z, gs, nfe), (z0, gs0, nfe0) = got, want
+    if nfe != nfe0:
+        raise AssertionError(f"{label}: NFE {nfe} vs {nfe0}")
+    scale = float(z0.abs().max())
+    if not torch.allclose(z, z0, rtol=1e-4, atol=1e-5 * scale):
+        raise AssertionError(f"{label}: z differs by "
+                             f"{float((z - z0).abs().max()):.3e} (scale "
+                             f"{scale:.3e})")
+    top = max(float(g_.abs().max()) for g_ in gs0)
+    for i, (g_, g0) in enumerate(zip(gs, gs0)):
+        if not torch.allclose(g_, g0, rtol=1e-3, atol=1e-5 * top):
+            raise AssertionError(f"{label}: gradient {i} differs by "
+                                 f"{float((g_ - g0).abs().max()):.3e} "
+                                 f"(largest gradient {top:.3e})")
+    return float((z - z0).abs().max()) / scale
+
+
+def check_small_sharded_block(devices=("cpu", "cuda")):
+    """The tuned Cora row's attention block at reduced width on the
+    300-node SBM, solved with the stripe spmm (the P6 pair per rank) and
+    the all-reduce spmm over an in-process 4-way split: card against CPU,
+    and the card's against its unsharded block."""
+    import torch
+    from graph_neural_pde_tpu_torch.config import best_params
+    from graph_neural_pde_tpu_torch.data.synthetic import make_sbm_dataset
+    from graph_neural_pde_tpu_torch.models.blocks import prepare_graph
+    from graph_neural_pde_tpu_torch.ops.graph import pad_capacity
+    from graph_neural_pde_tpu_torch.parallel import split_mesh
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
+        make_sharded_spmm, make_sharded_stripe_spmm)
+    cfg = best_params["Cora"].replace(hidden_dim=16, attention_dim=16,
+                                      heads=4, input_dropout=0.0,
+                                      dropout=0.0)
+    d = make_sbm_dataset(num_nodes=300, num_classes=4, num_features=24,
+                         seed=3, num_val=60)
+    g = pad_capacity(prepare_graph(cfg, d.graph), 4).sort_by_row()
+    gen = torch.Generator().manual_seed(5)
+    x, probe = torch.randn(300, 16, generator=gen), torch.randn(
+        300, 16, generator=gen)
+    runs = {}
+    for dev in devices:
+        gd = g.to(dev)
+        for engine, make in (("stripe", make_sharded_stripe_spmm),
+                             ("allreduce", make_sharded_spmm),
+                             ("default", None)):
+            fn = None if make is None else make(split_mesh(4, dev), gd)
+            runs[dev, engine] = sharded_block_run(cfg, gd, x, probe, fn, dev)
+    cpu, card = devices
+    for engine in ("stripe", "allreduce"):
+        rel = same_block(f"sharded block ({engine}) {card} vs {cpu}",
+                         runs[card, engine], runs[cpu, engine])
+        rel0 = same_block(f"sharded block ({engine}) vs unsharded on {card}",
+                          runs[card, engine], runs[card, "default"])
+        print(f"[small] tuned Cora attention block, 4-way split, {engine}: "
+              f"{card} vs {cpu} {rel:.2e}, vs the unsharded block "
+              f"{rel0:.2e} of scale; NFE {runs[card, engine][2]}",
+              flush=True)
+
+
+def nccl_refuses_two_ranks_on_one_card(timeout=60):
+    """Start a world of two NCCL ranks on card 0 in a process of its own:
+    NCCL must refuse two ranks on one GPU ("Duplicate GPU detected"), which
+    is why the card check runs one NCCL rank and the in-process split. Any
+    other end (the world forms, another fault, no end within ``timeout``
+    seconds) fails the run. The process and its children are stopped in
+    every case."""
+    import signal
+    code = (
+        "import os, sys, torch, torch.distributed as dist, "
+        "torch.multiprocessing as mp\n"
+        "def rank(r, port):\n"
+        "    torch.cuda.set_device(0)\n"
+        "    dist.init_process_group('nccl', init_method="
+        "f'tcp://localhost:{port}', rank=r, world_size=2)\n"
+        "    t = torch.ones(1, device='cuda')\n"
+        "    dist.all_reduce(t)\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('all_reduce', float(t), flush=True)\n"
+        "if __name__ == '__main__':\n"
+        "    mp.spawn(rank, args=(int(sys.argv[1]),), nprocs=2)\n")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "two_ranks.py")
+        with open(script, "w") as f:
+            f.write(code)
+        proc = subprocess.Popen([sys.executable, script, str(free_port())],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            out = None
+        finally:
+            try:                        # the ranks, if any outlived it
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        if out is None:
+            proc.communicate()
+            raise AssertionError(f"two NCCL ranks on one card: no end within "
+                                 f"{timeout} s (stopped); expected NCCL's "
+                                 f"refusal")
+    lines = [ln for ln in out.splitlines() if "Duplicate GPU" in ln]
+    if proc.returncode == 0 or not lines:
+        raise AssertionError(f"two NCCL ranks on one card: exit code "
+                             f"{proc.returncode} without NCCL's refusal: "
+                             f"{out.strip()[-600:]}")
+    print(f"[sharded] two NCCL ranks on one card refused in "
+          f"{time.perf_counter() - t0:.1f} s (exit code {proc.returncode}): "
+          f"{lines[0].strip()}", flush=True)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def drive_sharded_cora(data_dir: str, seed: int, dev: str = "cuda"):
+    """(u), over a world of one NCCL rank: the tuned Cora row's attention
+    block at full width (hidden 80, squareplus over columns, dopri5) over
+    its stand-in, solved with ``spmm_fn`` from ``make_sharded_stripe_spmm``
+    and from ``make_sharded_spmm_for`` in both modes, each held against the
+    same block on the default engine, forward and backward; then GRAND-nl's
+    attention RHS at the Cora GRAND-nl widths (D=80, ATT=128, H=8) through
+    ``make_sharded_fused_rhs_for`` in both modes, forward against K6 and
+    the two schedules' gradients against each other."""
+    import torch
+    from graph_neural_pde_tpu_torch.probes.gather import agree
+    import torch.distributed as dist
+    from graph_neural_pde_tpu_torch.config import Config, best_params
+    from graph_neural_pde_tpu_torch.kernels import fused_rhs_fwd
+    from graph_neural_pde_tpu_torch.parallel import make_mesh
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
+        MODES, make_sharded_fused_rhs_for, make_sharded_spmm_for,
+        make_sharded_stripe_spmm)
+    cfg = best_params["Cora"]
+    dev = torch.device(dev)
+    g = prepared_graph("Cora", data_dir).to(dev)
+    mesh = make_mesh(1, dev, init_method=f"tcp://localhost:{free_port()}",
+                     rank=0, world_size=1)
+    try:
+        n, d = g.num_nodes, cfg.hidden_dim
+        gen = torch.Generator().manual_seed(seed)
+        x, probe = (torch.randn(n, d, generator=gen),
+                    torch.randn(n, d, generator=gen))
+        want = sharded_block_run(cfg, g, x, probe, None, dev)
+        for label, fn in (
+                ("make_sharded_stripe_spmm", make_sharded_stripe_spmm(mesh, g)),
+                *((f"make_sharded_spmm_for {m}", make_sharded_spmm_for(
+                    cfg.replace(shard_spmm_mode=m), mesh, g)) for m in MODES)):
+            rel = same_block(f"(u) {label}", sharded_block_run(
+                cfg, g, x, probe, fn, dev), want)
+            print(f"[sharded] tuned Cora attention block over one NCCL rank, "
+                  f"{label}: NFE {want[2]}, z within {rel:.2e} of scale of "
+                  f"the default engine's, gradients agree", flush=True)
+        nl = grand_nl_cora()
+        h, att = nl.heads, nl.attention_dim
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev) * scale
+
+        ops = [randn(d, att, scale=d ** -0.5), randn(att, scale=0.1),
+               randn(d, att, scale=d ** -0.5), randn(att, scale=0.1),
+               randn(n, d)]
+        ct = randn(n, d)
+        ax6 = fused_rhs_fwd(g.rowptr, g.row, g.col, ops[4], *ops[:4],
+                            torch.zeros(1, device=dev), heads=h,
+                            score="scaled_dot")[0]
+        grads = {}
+        for mode in MODES:
+            leaves = [t.clone().requires_grad_() for t in ops]
+            out = make_sharded_fused_rhs_for(Config(shard_spmm_mode=mode),
+                                             mesh, g, heads=h)(*leaves)
+            _, rel = agree(f"(u) make_sharded_fused_rhs_for {mode} vs K6",
+                             out.detach(), ax6)
+            grads[mode] = torch.autograd.grad((out * ct).sum(), leaves)
+            print(f"[sharded] fused RHS {mode} over one NCCL rank (N={n} "
+                  f"D={d} ATT={att} H={h}): within {rel:.2e} of scale of K6",
+                  flush=True)
+        top = max(float(t.abs().max()) for t in grads["allreduce"])
+        err = max(float((a - b).abs().max()) for a, b in
+                  zip(grads["stream"], grads["allreduce"]))
+        if not err <= REL_BOUND * top:
+            raise AssertionError(f"(u) fused RHS gradients: stream vs "
+                                 f"allreduce {err:.3e} > {REL_BOUND} x "
+                                 f"{top:.3e}")
+        print(f"[sharded] fused RHS gradients (qw, qb, kw, kb, x): stream vs "
+              f"allreduce within {err / top:.2e} of the largest", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
+    """(u), the in-process 4-way split at arxiv scale: every rank's body in
+    turn, the partials summed in rank order. The stripe spmm (K1 in table
+    mode and its K20 backward per rank) and the all-reduce spmm (K1 per
+    rank) at D=128 against K1 unsharded (dx against K1 over the reverse
+    edges), and the all-reduce attention RHS at (a)'s widths (D=128,
+    ATT=32, H=2; K18 per rank) against K6."""
+    import torch
+    from graph_neural_pde_tpu_torch.probes.gather import agree
+    from graph_neural_pde_tpu_torch.config import GRAND_NL_BENCH
+    from graph_neural_pde_tpu_torch.kernels import csr_spmm, fused_rhs_fwd
+    from graph_neural_pde_tpu_torch.ops.graph import pad_capacity
+    from graph_neural_pde_tpu_torch.ops.spmm import transpose_matvec
+    from graph_neural_pde_tpu_torch.parallel import split_mesh
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
+        make_sharded_fused_rhs, make_sharded_spmm, make_sharded_stripe_spmm)
+    dev = torch.device(dev)
+    mesh = split_mesh(4, dev)
+    g = big.to(dev)
+    padded = pad_capacity(big, 4).sort_by_row().to(dev)
+    n, d = g.num_nodes, GRAND_NL_BENCH.hidden_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    ct = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.rand((g.capacity,), generator=gen, device=dev) * g.mask
+    want = csr_spmm(g.rowptr, g.row, g.col, w, x)
+    xg = x.clone().requires_grad_()
+    got = make_sharded_stripe_spmm(mesh, g)(xg, w)
+    _, rel = agree("(u) stripe spmm, 4-way split, vs K1", got.detach(),
+                     want)
+    dx, = torch.autograd.grad((got * ct).sum(), [xg])
+    _, rel_dx = agree("(u) stripe spmm dx, 4-way split, vs K1",
+                        dx, transpose_matvec(g, w, ct))
+    w_pad = torch.cat([w, torch.zeros(padded.capacity - g.capacity,
+                                      device=dev)])
+    _, rel_ar = agree("(u) all-reduce spmm, 4-way split, vs K1",
+                        make_sharded_spmm(mesh, padded)(x, w_pad), want)
+    h, att = GRAND_NL_BENCH.heads, GRAND_NL_BENCH.attention_dim
+    ops = [torch.randn((d, att), generator=gen, device=dev) * d ** -0.5,
+           torch.randn((att,), generator=gen, device=dev) * 0.1,
+           torch.randn((d, att), generator=gen, device=dev) * d ** -0.5,
+           torch.randn((att,), generator=gen, device=dev) * 0.1]
+    ax6 = fused_rhs_fwd(g.rowptr, g.row, g.col, x, *ops,
+                        torch.zeros(1, device=dev), heads=h,
+                        score="scaled_dot")[0]
+    _, rel_f = agree("(u) fused RHS, 4-way split, vs K6",
+                       make_sharded_fused_rhs(mesh, padded, heads=h)(*ops, x),
+                       ax6)
+    print(f"[sharded] 4-way split at arxiv scale (N={n} E={g.num_valid}), "
+          f"partials summed in rank order: stripe spmm {rel:.2e} and its dx "
+          f"{rel_dx:.2e}, all-reduce spmm {rel_ar:.2e} of scale of K1; "
+          f"fused RHS (D={d} ATT={att} H={h}) {rel_f:.2e} of K6", flush=True)
+
+
 GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
                    "segment_norm_bwd")
 BLOCKED_KERNELS = ("blocked_spmm", "blocked_sddmm")
@@ -1394,7 +1788,11 @@ ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
                                  "fused_rhs_bwd", "fused_rhs_bwd_sym",
                                  "dual_scatter", "dual_gather") \
     + NORM1_KERNELS + BLOCKED_KERNELS + ("fused_rhs_bwd_col",) \
-    + AGGREGATE_KERNELS
+    + AGGREGATE_KERNELS + ("row_gather", "smem_gather")
+
+
+# K1's launches in table mode (P6's scatter), counted apart among its own
+TABLE_MODE = "csr_spmm table mode"
 
 
 def counted(label: str, expected, fn):
@@ -1405,11 +1803,13 @@ def counted(label: str, expected, fn):
     from graph_neural_pde_tpu_torch import kernels
     for k in kernels.KERNELS:
         k.launches = 0
+    kernels.csr_spmm.table_launches = 0
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches[TABLE_MODE] = kernels.csr_spmm.table_launches
     for name in expected:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on {label}")
@@ -1488,9 +1888,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from graph_neural_pde_tpu_torch.config import GRAND_NL_BENCH, best_params
     from graph_neural_pde_tpu_torch.kernels import build
+    from graph_neural_pde_tpu_torch.ops.graph import pad_capacity
+    from graph_neural_pde_tpu_torch.probes.gather import (arxiv_scale_graph,
+                                                          card)
 
     # 1. environment
-    smi = nvidia_smi()
+    smi = card()
     kind = torch.cuda.get_device_name(0)
     print(f"[env] nvidia-smi: {smi}", flush=True)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1591,7 +1994,31 @@ def main() -> int:
         rows += check_aggregate_kernels("arxiv-scale", big, bench.hidden_dim,
                                         2 * bench.attention_dim, bench.heads,
                                         BELTRAMI, args.seed + 117)
-        del big
+        # the P6 pair (K1 in table mode, K20) on every rank of a 4-way
+        # split at arxiv scale (path (u)'s split), on ranks 0 and 3 of one
+        # of the Cora stand-in, and on the one NCCL rank's whole shard of
+        # it at D=80 (path (u)'s sharded block); K21 at probe 13's shapes
+        d_cora = best_params["Cora"].hidden_dim
+        rows += check_shard_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    args.seed + 120, ranks=(0, 1, 2, 3))
+        rows += check_shard_kernels("cora-standin", cora_g, d_cora,
+                                    args.seed + 122)
+        rows += check_shard_kernels("cora-standin", cora_g, d_cora,
+                                    args.seed + 123, ranks=(0,), world=1)
+        rows += check_smem_gather(args.seed + 124)
+        # the all-reduce schedules' edge shards at path (u)'s widths: the
+        # one NCCL rank's Cora shard (K1 and its dx over the CSC view at
+        # D=80 in the block; K18 and K8's per-head mode at the Cora
+        # GRAND-nl widths in the attention RHS), and the 4-way split's
+        # shards at arxiv scale (K1 at D=128, K18 at (a)'s widths). The
+        # arxiv-scale graph stays for path (u)
+        rows += check_edge_shard_kernels(
+            "cora-standin", cora_g, 1, d_cora, args.seed + 125,
+            att=nl.attention_dim, h=nl.heads, column_sum=True)
+        rows += check_edge_shard_kernels(
+            "arxiv-scale", pad_capacity(big, 4).sort_by_row(), 4,
+            bench.hidden_dim, args.seed + 126, att=bench.attention_dim,
+            h=bench.heads)
         torch.cuda.empty_cache()
         # directed graphs: K17 and K8 without dxg (four score families on a
         # small random graph; the GDC-rewired Cora stand-in at (n)'s widths;
@@ -1721,6 +2148,8 @@ def main() -> int:
         check_small_end_to_end("tuned ogbn-arxiv with beltrami",
                                base=best_params["ogbn-arxiv"].replace(
                                    beltrami=True), pos_dim=8)
+        # the sharded tuned Cora block over an in-process 4-way split
+        check_small_sharded_block()
         small_knn = check_deepwalk_and_knn(data_dir)
         check_small_end_to_end("BLEND GRAND-nl over pos_enc_knn",
                                base=nl.replace(**blend), graph=small_knn,
@@ -1793,7 +2222,7 @@ def main() -> int:
                         **blend), COLPLAN_KERNELS),
         )
         results, per_path = {}, {}
-        launches = dict.fromkeys(ALL_KERNELS, 0)
+        launches = dict.fromkeys(ALL_KERNELS + (TABLE_MODE,), 0)
         for label, cfg, expected in paths:
             res, counts = drive_main_path(label, cfg, data_dir, expected)
             results[label] = res
@@ -1810,6 +2239,30 @@ def main() -> int:
             lambda: bench_entry.main(device="cuda"))
         print(f"[main] {label_t} in {secs:.2f} s; kernel launches "
               f"{per_path[label_t]}", flush=True)
+        # (u) the multi-device layer: NCCL refuses two ranks on one card,
+        # so a world of one NCCL rank drives every sharded function and the
+        # sharded tuned Cora block, and the 4-way split's per-rank bodies
+        # run rank by rank in this process; then the gather probes
+        from graph_neural_pde_tpu_torch.probes import gather as probes
+        nccl_refuses_two_ranks_on_one_card()
+        for label, expected, fn in (
+                ("sharded Cora over one NCCL rank (u)",
+                 ("csr_spmm", TABLE_MODE, "edge_dot", "segment_norm",
+                  "row_gather", "fused_aggregate", "fused_rhs_bwd_heads"),
+                 lambda: drive_sharded_cora(data_dir, args.seed + 130)),
+                ("4-way split at arxiv scale (u)",
+                 ("csr_spmm", TABLE_MODE, "row_gather", "fused_aggregate"),
+                 lambda: drive_split_arxiv(big, args.seed + 131)),
+                ("gather probes (u)",
+                 ("csr_spmm", TABLE_MODE, "row_gather", "smem_gather",
+                  "fused_rhs_fwd",
+                  "fused_rhs_bwd_sym", "norm1_fwd", "norm1_bwd"),
+                 lambda: probes.main([], graph=big))):
+            _, per_path[label], secs = counted(label, expected, fn)
+            print(f"[main] {label} in {secs:.2f} s; kernel launches "
+                  f"{per_path[label]}", flush=True)
+        del big
+        torch.cuda.empty_cache()
         label = "tuned Cora on the blocked engine after rcm (j)"
         if per_path[label]["csr_spmm"] or per_path[label]["edge_dot"]:
             raise AssertionError(f"{label} launched K1/K2: "
@@ -1922,7 +2375,10 @@ def main() -> int:
                "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047"),
                "fused_aggregate": ("fused_rhs.cu", "fused_rhs.py:208"),
                "fused_score_max": ("fused_rhs.cu", "fused_rhs.py:569"),
-               "fused_rhs_bwd_heads": ("fused_rhs.cu", "fused_rhs.py:742")}
+               "fused_rhs_bwd_heads": ("fused_rhs.cu", "fused_rhs.py:742"),
+               "row_gather": ("row_gather.cu", "stripe.py:767"),
+               "smem_gather": ("smem_gather.cu",
+                               "examples/perf_probe13_vmem_gather.py:85")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -1932,17 +2388,23 @@ def main() -> int:
         summary.append({
             "name": name, "route": "cuda",
             "source": f"graph_neural_pde_tpu_torch/csrc/{src}",
-            "replaces": pallas + replaces, "launches": launches[name],
+            "replaces": (replaces if replaces.startswith("examples/")
+                         else pallas + replaces),
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             # the bound is on this one: error over the largest reference entry
             "max_rel_err": max(r["max_rel_err"] for r in mine),
             **{k: main_shape[k] for k in keys},
             "shape": f"{main_shape['shape']} {main_shape['dims']}",
             "launches_by_path": {p: c[name] for p, c in per_path.items()},
+            **({"table_mode_launches": launches[TABLE_MODE],
+                "table_mode_launches_by_path": {
+                    p: c[TABLE_MODE] for p, c in per_path.items()}}
+               if name == "csr_spmm" else {}),
             "other_checks": [
                 {k: r[k] for k in ("check", "shape", "dims") + keys}
                 for r in timed[1:]]})
-    print(nvidia_smi(), flush=True)     # the card's name and power limit
+    print(card(), flush=True)     # the card's name and power limit
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -62,15 +62,28 @@ from graph_neural_pde_tpu_torch.kernels.norm1 import (  # noqa: F401
     norm1_fwd,
     norm1_fwd_plain,
 )
+from graph_neural_pde_tpu_torch.kernels.row_gather import (  # noqa: F401
+    row_gather,
+    row_gather_plain,
+)
 from graph_neural_pde_tpu_torch.kernels.segment_norm import (  # noqa: F401
     segment_norm,
     segment_norm_bwd,
     segment_norm_bwd_plain,
     segment_norm_plain,
 )
+from graph_neural_pde_tpu_torch.kernels.shard_scatter import (  # noqa: F401
+    ScatterPlan,
+    shard_scatter,
+)
+from graph_neural_pde_tpu_torch.kernels.smem_gather import (  # noqa: F401
+    smem_gather,
+    smem_gather_plain,
+)
 
 KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
            dual_scatter, dual_gather, norm1_den, norm1_fwd, norm1_bwd,
            fused_rhs_bwd_col, fused_aggregate, fused_score_max,
-           fused_rhs_bwd_heads, blocked_spmm, blocked_sddmm)
+           fused_rhs_bwd_heads, row_gather, smem_gather, blocked_spmm,
+           blocked_sddmm)

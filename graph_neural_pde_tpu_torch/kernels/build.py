@@ -96,6 +96,11 @@ _ENTRY_POINTS = {
     # chunk_rows, chunk_cols, row_local, col_local, a, b, out, capacity,
     # chunk, block_n, dim, lanes, stream
     "gnpde_blocked_sddmm": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # rowptr, table, out, n_rows, dim, stream (csrc/row_gather.cu)
+    "gnpde_row_gather": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    # idx, table, out, n_idx, t_rows, dim, dtype (0 float32, 1 bfloat16),
+    # stream (csrc/smem_gather.cu)
+    "gnpde_smem_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],
 }
 
 _lib = None

@@ -70,10 +70,12 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     build.launch("csr_spmm", x.device, rowptr.data_ptr(), col.data_ptr(),
                  w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d)
     csr_spmm.launches += 1
+    csr_spmm.table_launches += table
     return out
 
 
 csr_spmm.launches = 0
+csr_spmm.table_launches = 0     # the launches in table mode, among them
 
 
 def column_sum(g, table: torch.Tensor) -> torch.Tensor:

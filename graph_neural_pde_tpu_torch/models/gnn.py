@@ -67,7 +67,9 @@ def check_supported(cfg: Config) -> None:
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
     if cfg.mesh_devices and cfg.mesh_devices > 1:
         raise NotImplementedError(
-            "mesh_devices: ROADMAP Queue 1 slice 6 item 20 (multi-device)")
+            "mesh_devices: ROADMAP Queue 1 item 25 (--mesh_devices on the "
+            "CLI; the sharded aggregations are in "
+            "graph_neural_pde_tpu_torch.parallel)")
     if cfg.spmm_impl not in SPMM_IMPLS:
         raise ValueError(f"unknown spmm_impl {cfg.spmm_impl!r} (expected "
                          f"one of {SPMM_IMPLS})")

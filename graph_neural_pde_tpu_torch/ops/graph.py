@@ -198,6 +198,28 @@ def make_graph(row, col, weight=None, *, num_nodes: int,
         num_nodes=int(num_nodes))
 
 
+def pad_capacity(g: Graph, multiple: int) -> Graph:
+    """Grow the padded edge arrays so that ``capacity % multiple == 0``,
+    with invalid slots appended at the tail (the JAX package's
+    ``pad_capacity``). As there, ``rows_sorted`` is dropped, and with it
+    ``rowptr``, ``rev`` and the CSC view, which describe the old capacity:
+    ``sort_by_row`` (``prepare_graph``) rebuilds them."""
+    cap = g.capacity
+    new = _round_up(cap, multiple)
+    if new == cap:
+        return g
+    pad = new - cap
+    dev = g.row.device
+
+    def grow(t, fill):
+        return torch.cat([t, torch.full((pad,), fill, dtype=t.dtype,
+                                        device=dev)])
+
+    return Graph(row=grow(g.row, 0), col=grow(g.col, 0),
+                 weight=grow(g.weight, 0.0), mask=grow(g.mask, False),
+                 num_nodes=g.num_nodes)
+
+
 def add_remaining_self_loops(g: Graph, fill_value: float) -> Graph:
     """Add a self loop to every node, keeping existing loop weights.
 

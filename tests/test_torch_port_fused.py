@@ -505,7 +505,7 @@ class TestWrappers:
                                                             in ops[:4]],
                              heads=H)
         assert [k.launches for k in kernels.KERNELS] == before
-        assert len(kernels.KERNELS) == 19
+        assert len(kernels.KERNELS) == 21
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "heads", "score",
                                      "beltrami", "meta"])

@@ -272,6 +272,16 @@ def test_port_runs_without_jax():
         assert "graph_neural_pde_tpu_torch.kernels.dual_scatter" in sys.modules
         assert "graph_neural_pde_tpu_torch.kernels.norm1" in sys.modules
         assert "graph_neural_pde_tpu_torch.kernels.blocked" in sys.modules
+        assert "graph_neural_pde_tpu_torch.parallel.shard_spmm" in sys.modules
+        assert "graph_neural_pde_tpu_torch.probes.gather" in sys.modules
+        from graph_neural_pde_tpu_torch.parallel import split_mesh
+        from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
+            make_sharded_stripe_spmm)
+        from graph_neural_pde_tpu_torch.ops.spmm import spmm
+        g = GNNEarlyModel(cfg, 6, 3, d.graph).graph
+        f = make_sharded_stripe_spmm(split_mesh(2, "cpu"), g)
+        xs = torch.ones((40, 3))
+        assert torch.allclose(f(xs, g.weight), spmm(g, xs), atol=1e-6)
         bad = [k for k, mod in sys.modules.items() if mod is not None and (
             k.split(".")[0] in ("jax", "graph_neural_pde_tpu"))]
         assert not bad, bad
