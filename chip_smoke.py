@@ -88,7 +88,17 @@ Phases, each of which must pass (any failure exits nonzero):
    ``smem_gather`` over probe 13's 2,703,360 indices from tables [T, 128]
    in shared memory, float32 T = 8, 64, 448 and bfloat16 T = 512, bit for
    bit against ``index_select``, and its refusal of a float32 table of 512
-   rows (256 KB).
+   rows (256 KB). The bfloat16 payload (the JAX package's
+   ``rhs_payload_dtype="bfloat16"``): K1 forward, K1 as dx and K2 as dw on
+   bfloat16 tables (x, and for dx the cotangent, cast to bfloat16) on the
+   Cora stand-in at D=80 and the arxiv-scale graph at D=128; K6 (with its
+   numerators, folded) and K9 on the bfloat16 column table at the Cora
+   GRAND-nl widths (D=80, ATT=128, H=8), at the arxiv scale (D=128,
+   ATT=32, H=2) with the row side bfloat16 too (the bench's bf16 state;
+   untimed with a float32 row side), and, untimed, for all five families
+   at D=16, ATT=16, H=4; each
+   against its plain version on the same tables (K9's in float64 beside
+   the bfloat16 table), two launches bit-identical.
    Each check is timed: device time per call (torch.profiler after
    warm-up calls in the same session, mean of 20 calls; the device events
    of each call are counted by the launch they come from, and a session
@@ -115,7 +125,8 @@ Phases, each of which must pass (any failure exits nonzero):
    image model (one training forward and backward) on both engines, and
    the tuned Cora row and Cora GRAND-nl (the softmax, squareplus, the GAT
    function) over one GDC-rewired (directed) edge list, built once on the
-   card and handed to both devices; BLEND (a seeded positional encoding,
+   card and handed to both devices; the tuned Cora row and Cora GRAND-nl
+   with the bfloat16 payload (within two bfloat16 steps of scale); BLEND (a seeded positional encoding,
    the dual encoder at widths 12 + 4, the split-space score): Cora GRAND-nl
    over rows and over columns, the tuned Cora row's attention block, the
    tuned ogbn-arxiv row's dual encoder; DeepWalk's skip-gram training
@@ -125,10 +136,13 @@ Phases, each of which must pass (any failure exits nonzero):
    tuned Cora row's attention block solved with the stripe spmm (the P6
    pair per rank) and the all-reduce spmm over an in-process 4-way split
    (``parallel.split_mesh``), card against CPU and against the unsharded
-   block;
+   block. Where the logits of a check disagree, it reruns both sides and
+   a float64 CPU run from the same weights and prints each one's distance
+   from the others before it fails;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
-   just after: tuned Cora for 1 training epoch (followed by an eval step
+   just after (the bfloat16 launches of K1, K2, K6 and K9 counted apart
+   among their own): tuned Cora for 1 training epoch (followed by an eval step
    and the early-stop eval) twice, to record whether two runs agree bit
    for bit; tuned Computers (hard attention, continuous adjoint) and tuned
    Pubmed (row squareplus attention, continuous adjoint) for 1 epoch each;
@@ -173,7 +187,13 @@ Phases, each of which must pass (any failure exits nonzero):
    and K17, never K9; (t) the bench entry, ``graph_neural_pde_tpu_torch.
    bench.main`` at full width: its oracles on the card (K18 with K19's
    shift and K8's per-head mode among the kernels they hold), then its
-   forward, train-step and secondary timings, printing its JSON line; (u)
+   forward, train-step and secondary timings at bench.py's precision (the
+   bfloat16 payload and rk4 state: K1, K2, K6 and K9 on bfloat16 tables),
+   printing its JSON line; (v) ``config.GRAND_NL_BENCH`` at bench.py's
+   precision over ogbn-arxiv-synthetic at full width: the folded forward,
+   its logits against the float32 model's from the same weights, then 3
+   training steps under remat and 3 under the rk4 adjoint, each step's ms
+   printed (K6 and K9 on the bfloat16 column table); (u)
    the multi-device layer (``graph_neural_pde_tpu_torch.parallel``): first
    a world of two NCCL ranks on card 0, in a process of its own, which
    must end in NCCL's refusal of two ranks on one GPU, then over a world of
@@ -189,8 +209,10 @@ Phases, each of which must pass (any failure exits nonzero):
    against K1 and K6 unsharded); and the gather probes
    (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
    and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
-   run must launch the kernels its path runs, and all twenty-one counters
-   must grow.
+   run must launch the kernels its path runs, and all twenty-one counters,
+   and the four of the bfloat16 launches, must grow. The paths (a)-(s)
+   run ``GRAND_NL_BENCH``'s architecture in float32, as before the
+   bfloat16 mode.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -363,51 +385,76 @@ def gdc_graph(cfg, data_dir: str):
     return prepare_graph(cfg, d.graph)
 
 
-def check_kernels(shape_name, g, d, seed, dev="cuda"):
-    """K1 forward, K1 as dx, K2 as dw against their plain versions."""
+def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
+    """K1 forward, K1 as dx, K2 as dw against their plain versions; two
+    launches of each bit-identical. ``table=torch.bfloat16`` (the JAX
+    package's bf16 payload): x and, for dx, the cotangent are bfloat16
+    tables beside float32 weights, sums and outputs, and the plain versions
+    read the same tables. No single PyTorch call computes a float32-weighted
+    sum of bfloat16 rows in float32, so that mode times no library call."""
     import torch
     from graph_neural_pde_tpu_torch.kernels import (csr_spmm, csr_spmm_plain,
                                                     edge_dot, edge_dot_plain)
     dev = torch.device(dev)
+    table = table or torch.float32
+    tag = "" if table == torch.float32 else " bf16"
     g = g.to(dev)
     n, nv = g.num_nodes, g.num_valid
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randn((n, d), generator=gen, device=dev)
+    x = torch.randn((n, d), generator=gen, device=dev).to(table)
     ct = torch.randn((n, d), generator=gen, device=dev)
+    ct_t = ct.to(table)
     # asymmetric positive weights on valid slots, as the frozen attention
     w = torch.rand((g.capacity,), generator=gen, device=dev) * g.mask
     w_rev = w[g.rev.long()]
     row_l, col_l = g.row.long()[:nv], g.col.long()[:nv]
 
     def dx_plain():
-        return torch.zeros_like(ct).index_add(0, col_l,
-                                              ct[row_l] * w[:nv, None])
+        return torch.zeros_like(ct).index_add(
+            0, col_l, ct_t[row_l].float() * w[:nv, None])
 
     # the yardsticks: one PyTorch call each, used nowhere in the port
-    csr = torch.sparse_csr_tensor(g.rowptr, g.col[:nv], w[:nv], size=(n, n))
-    pattern = torch.sparse_csr_tensor(g.rowptr, g.col[:nv],
-                                      torch.zeros_like(w[:nv]), size=(n, n))
-    x_t = x.t().contiguous()
-    # K1 reads rowptr, col, w and x and writes out; K2 reads row, col and
-    # both tables and writes one float per edge; 2 flop per edge and feature
-    spmm_work = (4 * (n + 1 + 2 * nv + 2 * n * d), 2 * nv * d)
-    dot_work = (4 * (3 * nv + 2 * n * d), 2 * nv * d)
+    library = (None, None)
+    if not tag:
+        csr = torch.sparse_csr_tensor(g.rowptr, g.col[:nv], w[:nv],
+                                      size=(n, n))
+        pattern = torch.sparse_csr_tensor(g.rowptr, g.col[:nv],
+                                          torch.zeros_like(w[:nv]),
+                                          size=(n, n))
+        x_t = x.t().contiguous()
+        library = (lambda: csr @ x,
+                   lambda: torch.sparse.sampled_addmm(pattern, ct, x_t,
+                                                      beta=0.0))
+    # K1 reads rowptr, col, w and its table and writes out; K2 reads row,
+    # col and both tables and writes one float per edge; 2 flop per edge and
+    # feature
+    esz = x.element_size()
+    spmm_work = (4 * (n + 1 + 2 * nv + n * d) + esz * n * d, 2 * nv * d)
+    dot_work = (4 * (3 * nv + n * d) + esz * n * d, 2 * nv * d)
     cases = (
-        ("csr_spmm", "forward A_w x",
+        ("csr_spmm" + tag, "forward A_w x",
          lambda: csr_spmm(g.rowptr, g.row, g.col, w, x),
          lambda: csr_spmm_plain(g.rowptr, g.row, g.col, w, x), spmm_work,
-         lambda: csr @ x),
-        ("csr_spmm", "backward dx = A_w^T ct",
-         lambda: csr_spmm(g.rowptr, g.row, g.col, w_rev, ct), dx_plain,
+         library[0]),
+        ("csr_spmm" + tag, "backward dx = A_w^T ct",
+         lambda: csr_spmm(g.rowptr, g.row, g.col, w_rev, ct_t), dx_plain,
          spmm_work, None),
-        ("edge_dot", "backward dw = ct[row].x[col]",
+        ("edge_dot" + tag, "backward dw = ct[row].x[col]",
          lambda: edge_dot(g.row, g.col, ct, x, nv),
          lambda: edge_dot_plain(g.row, g.col, ct, x, nv), dot_work,
-         lambda: torch.sparse.sampled_addmm(pattern, ct, x_t, beta=0.0)),
+         library[1]),
     )
-    return [time_case(kname, what, shape_name, f"N={n} E={nv} D={d}", kern,
-                      plain, work, library)
-            for kname, what, kern, plain, work, library in cases]
+    rows = []
+    for kname, what, kern, plain, work, lib in cases:
+        rows.append(time_case(kname, what, shape_name,
+                              f"N={n} E={nv} D={d}{tag}", kern, plain, work,
+                              lib))
+        if not torch.equal(kern(), kern()):
+            raise AssertionError(f"{kname} {what} @ {shape_name}: two "
+                                 f"launches differ")
+    print(f"[kernels] csr_spmm / edge_dot{tag} @ {shape_name}: two launches "
+          f"bit-identical", flush=True)
+    return rows
 
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -634,33 +681,45 @@ def payload_ops(n, nv, d, att, h, score):
 
 
 def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
-                        dev="cuda", feat=None):
+                        dev="cuda", feat=None, payload=None, row_bf16=False):
     """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
-    output) against their plain versions; two K9 launches must be
+    output) against their plain versions; two launches of each must be
     bit-identical. On a directed graph (no reverse-edge map) K9 does not
-    apply: two K8 launches must be bit-identical instead. ``timed=False``
-    only compares; ``feat`` as in ``rhs_operands``."""
+    apply. ``timed=False`` only compares; ``feat`` as in ``rhs_operands``.
+
+    ``payload=torch.bfloat16`` (the JAX package's bf16 payload) checks the
+    kernels that take it, K6 with its numerators and folded, and K9: the
+    column table is x cast to bfloat16, its k table rounded as the package
+    rounds k_e, beside the row side x, float32 or (``row_bf16``, the bf16
+    ODE state) x itself in bfloat16; K9's plain version is evaluated in
+    float64 beside the same bfloat16 table."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev,
                                             feat)
+    bf16 = payload == torch.bfloat16
+    if row_bf16:
+        ops = (ops[0].to(torch.bfloat16),) + ops[1:]
+    kw_x = dict(xcol=ops[0].to(torch.bfloat16)) if bf16 else {}
     symmetric = g.rev is not None
     n, nv, cap = g.num_nodes, g.num_valid, g.capacity
-    alpha = torch.full((1,), 0.37, device=ops[0].device)
+    alpha = torch.full((1,), 0.37, device=ops[1].device)
     shifts = randn(cap, h, scale=0.5)
     ct_ax = randn(n, d)
     # den's cotangent positive, so that the sums over all edges (dgmax, the
     # exp_kernel scalars) do not cancel and their own size is a fair scale
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_f)
+    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_x, **kw_f)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
     cts = (ct_ax, recip_p, ct_den)
 
     def f64(t):
-        return t.double() if t.is_floating_point() else t
+        return (t.double() if t.is_floating_point()
+                and t.dtype != torch.bfloat16 else t)
 
     def plain64(fn, **kw):
-        """The plain version in float64 on the same float32 inputs."""
+        """The plain version in float64 on the same float32 inputs (the
+        bfloat16 tables as they are)."""
         kw = {k: (f64(v) if torch.is_tensor(v) else v) for k, v in kw.items()}
         out = fn(*csr, *map(f64, ops), *map(f64, cts), **kw)
         return tuple(o.float() for o in out if o is not None)
@@ -668,19 +727,25 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     def some(out):
         return tuple(o for o in out if o is not None)
 
-    # compulsory bytes: indices, x, the projections' weights (inputs read
-    # once, outputs written once; the scratch tables do not count);
-    # float32 operations: every node's q and k projections, and per edge
-    # the scores and the aggregation (see the note in csrc/fused_rhs.cu)
-    base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
+    # compulsory bytes: indices, the row side x and the column table (one
+    # tensor but for a float32 row side beside the bf16 payload), the
+    # projections' weights (inputs read once, outputs written once; the
+    # scratch tables do not count); float32 operations: every node's q and
+    # k projections, and per edge the scores and the aggregation (see the
+    # note in csrc/fused_rhs.cu)
+    x_bytes = ops[0].element_size() * n * d
+    if bf16 and not row_bf16:
+        x_bytes += 2 * n * d
+    base_bytes = 4 * (n + 1 + nv + 2 * d * att + 2 * att) + x_bytes
     proj = projection_ops(d, att, score)
     fwd_ops = 2 * n * proj + nv * (2 * att + 2 * h * d)
     node_b = 4 * n * (d + 2 * h)             # ct_ax, recip_p, ct_den
     cases = [
         ("fused_rhs_fwd", "ax, den, num",
-         lambda: some(K.fused_rhs_fwd(*csr, *ops, want_num=True, **kw_f)),
+         lambda: some(K.fused_rhs_fwd(*csr, *ops, want_num=True, **kw_x,
+                                      **kw_f)),
          lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, want_num=True,
-                                            **kw_f)),
+                                            **kw_x, **kw_f)),
          (base_bytes + 4 * n * (d + h + h * d), fwd_ops), None),
         ("fused_rhs_fwd", "ax, den with per-edge shifts",
          lambda: some(K.fused_rhs_fwd(*csr, *ops, shifts=shifts, **kw_f)),
@@ -688,8 +753,9 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                                             **kw_f)),
          (base_bytes + 4 * (nv * h + n * (d + h)), fwd_ops), None),
         ("fused_rhs_fwd", "folded f = alpha (ax - x)",
-         lambda: some(K.fused_rhs_fwd(*csr, *ops, alpha=alpha, **kw_f)),
-         lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, alpha=alpha,
+         lambda: some(K.fused_rhs_fwd(*csr, *ops, alpha=alpha, **kw_x,
+                                      **kw_f)),
+         lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, alpha=alpha, **kw_x,
                                             **kw_f)),
          (base_bytes + 4 * n * (d + h), fwd_ops + 2 * n * d), None),
         ("fused_rhs_bwd", "dq, dxg, dkw, dkb, dgmax[, dvar, dls]",
@@ -702,32 +768,41 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
           2 * n * proj + nv * (2 * proj + 6 * att + 4 * d)),
          lambda: plain64(K.fused_rhs_bwd_plain, shifts=shifts, **kw_f)),
         ("fused_rhs_bwd_sym", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
-         lambda: some(K.fused_rhs_bwd_sym(*csr, *ops, *cts, **kw_f)),
-         lambda: some(K.fused_rhs_bwd_sym_plain(*csr, *ops, *cts, **kw_f)),
+         lambda: some(K.fused_rhs_bwd_sym(*csr, *ops, *cts, **kw_x, **kw_f)),
+         lambda: some(K.fused_rhs_bwd_sym_plain(*csr, *ops, *cts, **kw_x,
+                                                **kw_f)),
          # per node q, k, dk Kw^T and x^T dk; per edge two scores' worth
          (base_bytes + node_b + 4 * (n * att + n * d + d * att),
           4 * n * proj + nv * (10 * att + 6 * d)),
-         lambda: plain64(K.fused_rhs_bwd_sym_plain, **kw_f)),
+         lambda: plain64(K.fused_rhs_bwd_sym_plain, **kw_x, **kw_f)),
     ]
     if not symmetric:
         cases.pop()
     if score == "scaled_dot":
         cases.insert(3, (
             "fused_rowmax", "row maxima of the scores",
-            lambda: K.fused_rowmax(*csr, *ops[:5], heads=h),
-            lambda: K.fused_rowmax_plain(*csr, *ops[:5], heads=h),
+            lambda: (K.fused_rowmax(*csr, *ops[:5], heads=h),),
+            lambda: (K.fused_rowmax_plain(*csr, *ops[:5], heads=h),),
             (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att),
             None))
-    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}"
-    rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
-                      reference=ref, timed=timed)
-            for kname, what, kern, plain, work, ref in cases]
-    kname, _, kern = cases[-1][:3]     # K9, or K8 on a directed graph
-    if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
-        raise AssertionError(f"{kname} {score} @ {shape_name}: two "
-                             f"launches differ")
-    print(f"[kernels] {kname} @ {shape_name} {score}: two launches "
-          f"bit-identical in every output", flush=True)
+    tag = ""
+    if bf16:
+        # the kernels without the mode (shifts, K7, K8) drop out
+        cases = [(kname + " bf16", *c) for kname, *c in cases
+                 if kname == "fused_rhs_bwd_sym" or (
+                     kname == "fused_rhs_fwd" and "shifts" not in c[0])]
+        tag = " row bf16" if row_bf16 else " bf16"
+    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    rows = []
+    for kname, what, kern, plain, work, ref in cases:
+        rows.append(time_case(kname, what, shape_name, dims, kern, plain,
+                              work, reference=ref, timed=timed))
+        if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+            raise AssertionError(f"{kname} {what} {score} @ {shape_name}: "
+                                 f"two launches differ")
+    print(f"[kernels] {', '.join(sorted({c[0] for c in cases}))} @ "
+          f"{shape_name} {score}{tag}: two launches bit-identical in every "
+          f"output", flush=True)
     return rows
 
 
@@ -1126,6 +1201,11 @@ def attention_layer(model):
     return func_att if func_att is not None else model.block.att
 
 
+# the bf16 payload's logits in check_small_end_to_end: the largest gap
+# between the card and the CPU, of the largest logit
+BF16_LOGITS = 3e-4
+
+
 def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                            early_stop_counts: bool = True,
                            grad_floor: float = 1e-6, graph=None,
@@ -1134,18 +1214,32 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     ``graph`` where one is given: a rewired edge list built once and handed
     to both devices): the card's kernel path against the CPU's plain path,
     same weights and inputs. A ``beltrami`` config runs at widths 12 + 4
-    with a seeded N(0, 1) positional encoding of width ``pos_dim``. The early-stop eval integrates to 3T, far
-    into the steady state, where the error estimate is rounding noise: a
-    config whose step counts differ there between two orders of summation
-    passes
+    with a seeded N(0, 1) positional encoding of width ``pos_dim``. The
+    early-stop eval integrates to 3T, far into the steady state, where the
+    error estimate is rounding noise: a config whose step counts differ
+    there between two orders of summation passes
     ``early_stop_counts=False`` and is held to the best snapshot instead
     (equal validation accuracy, t* within 1%). ``grad_floor`` is the
     rounding noise allowed in every gradient entry, as a share of the
-    largest gradient."""
+    largest gradient.
+
+    A config with the bfloat16 payload holds its logits within
+    ``BF16_LOGITS`` of their largest entry, and its loss and gradients as
+    above. It runs on a
+    fixed grid (rk4, the mode's route in the bench): on an
+    adaptive one the error estimate is bf16 rounding noise, so the step
+    sequence, and with it every gradient, hangs on the last bits of the
+    two devices' float32 sums. The card's side must have launched the
+    kernels' bfloat16 mode (K1, or K6 and K9), and the check prints the
+    largest gaps of the logits, the loss and each gradient leaf (of its own
+    scale) beside those of the CPU's float32-payload run, the control that
+    says the tolerances tell the two modes apart."""
     import torch
+    from graph_neural_pde_tpu_torch import kernels
     from graph_neural_pde_tpu_torch.config import best_params
     from graph_neural_pde_tpu_torch.data.synthetic import make_sbm_dataset
     from graph_neural_pde_tpu_torch.models.gnn_early import GNNEarlyModel
+    from graph_neural_pde_tpu_torch.solvers.api import FIXED_METHODS
     from graph_neural_pde_tpu_torch.training.train import cross_entropy_loss
     cfg = (base or best_params[row]).replace(
         hidden_dim=16, attention_dim=16, heads=4, input_dropout=0.0,
@@ -1157,9 +1251,14 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     gen = torch.Generator().manual_seed(5)
     pos = (torch.randn(300, pos_dim, generator=torch.Generator()
                        .manual_seed(6)) if cfg.beltrami else None)
-    results = {}
+    results, models = {}, {}
     state = None
+    # the inputs as they came, to tell on a failure whether a run moved them
+    inputs0 = (d.x.clone(), d.graph.weight.clone())
+    bf16 = cfg.rhs_payload_dtype == "bfloat16" or cfg.dtype == "bfloat16"
+    bf16_ran = {}
     for dev in devices:
+        before = {k.__name__: k.bf16_launches for k in kernels.BF16_KERNELS}
         m = GNNEarlyModel(cfg, 24, 4, d.graph, device=dev,
                           pos_enc_dim=pos_dim)
         if state is None:
@@ -1186,6 +1285,9 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                  if p.grad is not None}
         results[dev] = (logits.detach().cpu(), float(loss.detach()), stats, best,
                         es_stats, grads)
+        bf16_ran[dev] = {k.__name__: k.bf16_launches - before[k.__name__]
+                         for k in kernels.BF16_KERNELS}
+        models[dev] = m
     (lc, loss_c, st_c, best_c, es_c, g_c) = results[devices[0]]
     (lg, loss_g, st_g, best_g, es_g, g_g) = results[devices[1]]
     es_counts = ("accepted", "rejected", "nfe")
@@ -1193,6 +1295,20 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                           if cfg.adjoint else ())
     if [st_c[k] for k in counts] != [st_g[k] for k in counts]:
         raise AssertionError(f"solver steps differ: cpu {st_c} cuda {st_g}")
+    if bf16:
+        if cfg.method not in FIXED_METHODS:
+            raise ValueError(f"{row}: the bf16 check runs on a fixed grid")
+        if torch.device(devices[1]).type == "cuda":
+            # the card's side went through the kernels' bfloat16 mode
+            need = (("csr_spmm",) if cfg.function == "laplacian"
+                    else ("fused_rhs_fwd", "fused_rhs_bwd_sym"))
+            ran = bf16_ran[devices[1]]
+            if not all(ran[k] > 0 for k in need):
+                raise AssertionError(f"{row}: the bfloat16 kernels {need} "
+                                     f"did not all run on {devices[1]}: "
+                                     f"{ran}")
+        print_bf16_gaps(row, cfg, d, state, pos, pos_dim, lc, loss_c, g_c,
+                        lg, loss_g, g_g)
     if early_stop_counts:
         if [es_c[k] for k in es_counts] != [es_g[k] for k in es_counts]:
             raise AssertionError(f"early-stop steps differ: {es_c} vs {es_g}")
@@ -1200,7 +1316,54 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
             best_c.time, best_g.time, rel_tol=1e-2)):
         raise AssertionError(f"early-stop best differs: cpu {best_c} vs "
                              f"cuda {best_g}")
-    if not torch.allclose(lg, lc, rtol=1e-4, atol=1e-5):
+    if bf16:
+        # a bf16 rounding that flips between the two devices' float32 sums
+        # moves small logits as much as large ones: held at the logits'
+        # scale instead of elementwise, between the noise and the float32
+        # payload (on an H100: 7.8e-6 of scale on the tuned Cora row, as
+        # far as the CPU's float64 run, and 6.6e-5 on Cora GRAND-nl; the
+        # float32 payload's logits 1.3e-3 and 1.8e-3 of scale away)
+        close = (float((lg - lc).abs().max())
+                 <= BF16_LOGITS * float(lc.abs().max()))
+    else:
+        close = torch.allclose(lg, lc, rtol=1e-4, atol=1e-5)
+    if not close:
+        # say which side moved before raising: rerun both and a float64
+        # CPU run from the same weights (training-mode forwards)
+        def forward_logits(dev, dtype=torch.float32, grad=False, m=None):
+            if m is None:
+                m = GNNEarlyModel(cfg, 24, 4, d.graph, device=dev,
+                                  pos_enc_dim=pos_dim)
+                m.load_state_dict(state)
+                m = m.to(dtype)
+            pe = None if pos is None else pos.to(dev, dtype)
+            with torch.set_grad_enabled(grad):
+                out, st = m(d.x.to(dev, dtype), training=True,
+                            pos_encoding=pe)
+            print(f"[small] {row} rerun on {dev} {dtype} (autograd {grad}): "
+                  f"steps {dict((k, st[k]) for k in counts)}", flush=True)
+            return out.detach().cpu().double()
+
+        print(f"[small] {row}: the inputs moved by "
+              f"{float((d.x - inputs0[0]).abs().max()):.3e} (x), "
+              f"{float((d.graph.weight - inputs0[1]).abs().max()):.3e} "
+              f"(edge weights) since the check began", flush=True)
+        runs = {"cpu": lc.double(), "cuda": lg.double(),
+                "cpu rerun": forward_logits("cpu"),
+                "cpu rerun with autograd": forward_logits("cpu", grad=True),
+                "cpu model of the check again": forward_logits(
+                    "cpu", grad=True, m=models[devices[0]]),
+                "cuda rerun": forward_logits(devices[1])}
+        if not bf16 or cfg.function == "laplacian":
+            # the fused kernels' plain versions take no float64 row side
+            # beside a bfloat16 column table
+            runs["cpu float64"] = forward_logits("cpu", torch.float64)
+        names = list(runs)
+        for i, a in enumerate(names):
+            for b in names[i + 1:]:
+                print(f"[small] {row} logits: {a} vs {b} differ by "
+                      f"{float((runs[a] - runs[b]).abs().max()):.3e}",
+                      flush=True)
         raise AssertionError(
             f"logits differ between cuda and cpu by "
             f"{float((lg - lc).abs().max()):.3e} (largest logit "
@@ -1222,8 +1385,49 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     print(f"[small] {row} cuda vs cpu: loss {loss_g:.6f} vs {loss_c:.6f}, "
           f"steps {dict((k, st_g[k]) for k in counts)}, early-stop best val "
           f"{best_g.val:.4f} vs {best_c.val:.4f} at t* {best_g.time:.4f} vs "
-          f"{best_c.time:.4f}: agree (logits rtol 1e-4, grads rtol 1e-3)",
+          f"{best_c.time:.4f}: agree (logits "
+          f"{f'{BF16_LOGITS:g} of scale' if bf16 else 'rtol 1e-4'}, grads "
+          f"rtol 1e-3)",
           flush=True)
+
+
+def print_bf16_gaps(row, cfg, d, state, pos, pos_dim, lc, loss_c, g_c, lg,
+                    loss_g, g_g):
+    """The bf16 check's readings: the largest gaps between the card and the
+    CPU (logits and each gradient leaf of its own scale, the loss
+    relative), and the same gaps between the card and the CPU's run of the
+    float32 payload from the same weights, the control. Leaves under 1e-3
+    of the largest gradient are left out of the reading."""
+    import torch
+    from graph_neural_pde_tpu_torch.models.gnn_early import GNNEarlyModel
+    from graph_neural_pde_tpu_torch.training.train import cross_entropy_loss
+    m = GNNEarlyModel(cfg.replace(rhs_payload_dtype="float32",
+                                  dtype="float32"), 24, 4, d.graph,
+                      device="cpu", pos_enc_dim=pos_dim)
+    m.load_state_dict(state)
+    l32, _ = m(d.x, training=True, pos_encoding=pos)
+    loss32 = cross_entropy_loss(l32, d.y, d.train_mask)
+    loss32.backward()
+    g32 = {k: p.grad.detach() for k, p in m.named_parameters()
+           if p.grad is not None}
+
+    top = max(float(v.abs().max()) for v in g_c.values())
+
+    def gaps(logits, loss, grads):
+        # the leaves that are zero to rounding (K's bias under a row
+        # softmax) are held at grad_floor of the largest gradient instead
+        per_leaf = {k: float((g_g[k] - grads[k]).abs().max())
+                    / float(grads[k].abs().max()) for k in grads
+                    if float(g_c[k].abs().max()) > 1e-3 * top}
+        worst = max(per_leaf, key=per_leaf.get)
+        lgap = float((lg - logits).abs().max()) / float(logits.abs().max())
+        return (f"logits {lgap:.3e} of scale, loss "
+                f"{abs(loss_g - loss) / abs(loss):.3e}, "
+                f"largest leaf {per_leaf[worst]:.3e} of its scale ({worst})")
+
+    print(f"[small] {row}, the card against the CPU: "
+          f"{gaps(lc, loss_c, g_c)}; against the CPU's float32 payload "
+          f"(control): {gaps(l32.detach(), float(loss32), g32)}", flush=True)
 
 
 def check_small_image(engine: str, devices=("cpu", "cuda")):
@@ -1793,6 +1997,11 @@ ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
 
 # K1's launches in table mode (P6's scatter), counted apart among its own
 TABLE_MODE = "csr_spmm table mode"
+# the launches on bfloat16 tables (the bf16 payload), counted apart among
+# each kernel's own: "<kernel> bf16"
+BF16_NAMES = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
+                                         "fused_rhs_fwd",
+                                         "fused_rhs_bwd_sym"))
 
 
 def counted(label: str, expected, fn):
@@ -1803,6 +2012,8 @@ def counted(label: str, expected, fn):
     from graph_neural_pde_tpu_torch import kernels
     for k in kernels.KERNELS:
         k.launches = 0
+    for k in kernels.BF16_KERNELS:
+        k.bf16_launches = 0
     kernels.csr_spmm.table_launches = 0
     t0 = time.perf_counter()
     res = fn()
@@ -1810,6 +2021,8 @@ def counted(label: str, expected, fn):
     secs = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     launches[TABLE_MODE] = kernels.csr_spmm.table_launches
+    for k in kernels.BF16_KERNELS:
+        launches[f"{k.__name__} bf16"] = k.bf16_launches
     for name in expected:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on {label}")
@@ -1845,6 +2058,73 @@ def drive_poisoned_path(cfg, data_dir: str, seed: int):
     if not all(bool(torch.isfinite(g_).all()) for g_ in grads):
         raise AssertionError("poisoned path: non-finite gradient")
     return losses
+
+
+def drive_bench_precision(seed: int, steps: int = 3):
+    """(v) ``config.GRAND_NL_BENCH`` at bench.py's precision (the bfloat16
+    payload and rk4 state) at full width over ogbn-arxiv-synthetic, its
+    model and graph as the bench entry builds them: the folded eval
+    forward, its logits against the float32 model's from the same weights
+    (a difference of scale, printed; above 0.1 of the largest logit it
+    fails), then ``steps`` training steps under remat and ``steps`` under
+    the rk4 adjoint, each step's ms printed."""
+    import numpy as np
+    import torch
+    from graph_neural_pde_tpu_torch import bench as bench_entry
+    from graph_neural_pde_tpu_torch.config import FLOAT32
+    from graph_neural_pde_tpu_torch.models.gnn import GNNModel
+    from graph_neural_pde_tpu_torch.training.train import Trainer
+    model, x, g_raw, nf, nc = bench_entry.build_benchmark(seed=seed,
+                                                          device="cuda")
+    cfg = model.cfg
+    if not cfg.rhs_payload_dtype == cfg.dtype == "bfloat16":
+        raise AssertionError(f"(v) runs {cfg.rhs_payload_dtype} / "
+                             f"{cfg.dtype}, not bench.py's bfloat16")
+    state = model.state_dict()
+    m32 = GNNModel(cfg.replace(**FLOAT32), nf, nc, g_raw, device="cuda")
+    m32.load_state_dict(state)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, stats = model(x, training=False)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        logits32, stats32 = m32(x, training=False)
+    del m32
+    if logits.shape != (x.shape[0], nc) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"(v) logits {tuple(logits.shape)}, finite: "
+                             f"{bool(torch.isfinite(logits).all())}")
+    scale = float(logits32.abs().max())
+    diff = float((logits - logits32).abs().max())
+    print(f"[main] (v) folded forward at bench precision: {fwd_ms:.1f} ms "
+          f"(nfe {stats['nfe']}); logits against the float32 model's from "
+          f"the same weights: max difference {diff:.4e} of the largest "
+          f"{scale:.4e} ({diff / scale:.4e} of scale; nfe {stats32['nfe']})",
+          flush=True)
+    if diff > 0.1 * scale:
+        raise AssertionError("(v) bf16 logits far from the float32 ones")
+    rng = np.random.default_rng(seed + 1)
+    n = x.shape[0]
+    y = torch.as_tensor(rng.integers(0, nc, size=n), device="cuda")
+    mask = torch.as_tensor(rng.random(n) < 0.5, device="cuda")
+    for mode, over in (("remat", dict(remat=True)),
+                       ("adjoint", dict(adjoint=True, adjoint_method="rk4",
+                                        adjoint_step_size=1.0))):
+        m = GNNModel(cfg.replace(**over), nf, nc, g_raw, device="cuda")
+        m.load_state_dict(state)
+        trainer, ms, losses = Trainer(m), [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss, st = trainer.train_step(x, y, mask)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"(v) {mode}: loss {loss}")
+            losses.append(loss)
+        print(f"[main] (v) {steps} {mode} steps at bench precision: ms "
+              f"{[round(t, 2) for t in ms]}, losses {losses}, forward nfe "
+              f"{st['nfe']}, backward nfe {st['bwd_nfe']}", flush=True)
+        del m, trainer
 
 
 def drive_main_path(label: str, cfg, data_dir: str, expected):
@@ -1886,7 +2166,8 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from graph_neural_pde_tpu_torch.config import GRAND_NL_BENCH, best_params
+    from graph_neural_pde_tpu_torch.config import (FLOAT32, GRAND_NL_BENCH,
+                                                   best_params)
     from graph_neural_pde_tpu_torch.kernels import build
     from graph_neural_pde_tpu_torch.ops.graph import pad_capacity
     from graph_neural_pde_tpu_torch.probes.gather import (arxiv_scale_graph,
@@ -1916,10 +2197,26 @@ def main() -> int:
         rows += check_segment_kernels(
             "computers-standin", prepared_graph("Computers", data_dir),
             best_params["Computers"].heads, args.seed + 2)
-        nl, bench = grand_nl_cora(), GRAND_NL_BENCH
+        # bench.py's GRAND-nl architecture in float32: the paths and checks
+        # before the bfloat16 mode; (t) and (v) run its own precision
+        nl, bench = grand_nl_cora(), GRAND_NL_BENCH.replace(**FLOAT32)
         rows += check_fused_kernels("cora-standin", cora_g, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 20)
+        # the bfloat16 payload: K1 and K2 on bf16 tables at the tuned Cora
+        # row's width, K6 and K9 on the bf16 column table at the Cora
+        # GRAND-nl widths and, every family, small
+        bf16 = torch.bfloat16
+        rows += check_kernels("cora-standin", cora_g,
+                              best_params["Cora"].hidden_dim, args.seed + 140,
+                              table=bf16)
+        rows += check_fused_kernels("cora-standin", cora_g, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 141, payload=bf16)
+        for i, score in enumerate(SCORE_FAMILIES):
+            rows += check_fused_kernels("cora-small", cora_g, 16, 16, 4,
+                                        score, args.seed + 142 + i,
+                                        timed=False, payload=bf16)
         for i, score in enumerate(SCORE_FAMILIES):
             rows += check_fused_kernels("cora-small", cora_g, 16, 16, 4,
                                         score, args.seed + 30 + i,
@@ -1969,6 +2266,19 @@ def main() -> int:
         print(f"[kernels] arxiv-scale graph built on the host in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         rows += check_kernels("arxiv-scale", big, 128, args.seed + 1)
+        # the bfloat16 payload at arxiv scale: K1 / K2 at D=128; K6 / K9 at
+        # the bench's widths under its bf16 state (x itself bf16, timed), and
+        # with a float32 row side
+        rows += check_kernels("arxiv-scale", big, 128, args.seed + 150,
+                              table=bf16)
+        rows += check_fused_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    bench.attention_dim, bench.heads,
+                                    "scaled_dot", args.seed + 151,
+                                    payload=bf16, row_bf16=True)
+        rows += check_fused_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    bench.attention_dim, bench.heads,
+                                    "scaled_dot", args.seed + 152,
+                                    timed=False, payload=bf16)
         for h in (1, 8):
             rows += check_segment_kernels("arxiv-scale", big, h,
                                           args.seed + 3 + h)
@@ -2096,6 +2406,15 @@ def main() -> int:
 
         # 4. end to end on small inputs, card vs CPU
         check_small_end_to_end("Cora")
+        # the bfloat16 payload (float32 state) on the fixed grid: K1/K2 on
+        # bf16 tables in the tuned Cora row, K6/K9 on the bf16 column table
+        # in Cora GRAND-nl (see check_small_end_to_end)
+        bf16_rk4 = dict(rhs_payload_dtype="bfloat16", method="rk4",
+                        step_size=1.0)
+        check_small_end_to_end("Cora bf16 payload",
+                               base=best_params["Cora"].replace(**bf16_rk4))
+        check_small_end_to_end("Cora GRAND-nl bf16 payload",
+                               base=grand_nl_cora().replace(**bf16_rk4))
         check_small_end_to_end("Computers")
         check_small_end_to_end("Cora GRAND-nl", base=nl)
         # the composed RHS differentiates through the global score max, and
@@ -2222,7 +2541,7 @@ def main() -> int:
                         **blend), COLPLAN_KERNELS),
         )
         results, per_path = {}, {}
-        launches = dict.fromkeys(ALL_KERNELS + (TABLE_MODE,), 0)
+        launches = dict.fromkeys(ALL_KERNELS + (TABLE_MODE,) + BF16_NAMES, 0)
         for label, cfg, expected in paths:
             res, counts = drive_main_path(label, cfg, data_dir, expected)
             results[label] = res
@@ -2235,10 +2554,19 @@ def main() -> int:
         _, per_path[label_t], secs = counted(
             label_t, AGGREGATE_KERNELS + ("csr_spmm", "fused_rhs_fwd",
                                           "fused_rhs_bwd_sym", "dual_scatter",
-                                          "fused_rhs_bwd_col", "norm1_bwd"),
+                                          "fused_rhs_bwd_col", "norm1_bwd")
+            + BF16_NAMES,
             lambda: bench_entry.main(device="cuda"))
         print(f"[main] {label_t} in {secs:.2f} s; kernel launches "
               f"{per_path[label_t]}", flush=True)
+        # (v) bench.py's GRAND-nl at its precision: the bf16 column table
+        # in K6 and K9, the bf16 rk4 state
+        label_v = "GRAND-nl arxiv-scale at bench precision (v)"
+        _, per_path[label_v], secs = counted(
+            label_v, ("fused_rhs_fwd bf16", "fused_rhs_bwd_sym bf16"),
+            lambda: drive_bench_precision(args.seed))
+        print(f"[main] {label_v} in {secs:.2f} s; kernel launches "
+              f"{per_path[label_v]}", flush=True)
         # (u) the multi-device layer: NCCL refuses two ranks on one card,
         # so a world of one NCCL rank drives every sharded function and the
         # sharded tuned Cora block, and the 4-way split's per-rank bodies
@@ -2378,7 +2706,13 @@ def main() -> int:
                "fused_rhs_bwd_heads": ("fused_rhs.cu", "fused_rhs.py:742"),
                "row_gather": ("row_gather.cu", "stripe.py:767"),
                "smem_gather": ("smem_gather.cu",
-                               "examples/perf_probe13_vmem_gather.py:85")}
+                               "examples/perf_probe13_vmem_gather.py:85"),
+               # the bfloat16-table modes (the bf16 payload)
+               "csr_spmm bf16": ("csr_spmm.cu", "stripe.py:513"),
+               "edge_dot bf16": ("edge_dot.cu", "stripe.py:363"),
+               "fused_rhs_fwd bf16": ("fused_rhs.cu", "fused_rhs.py:280"),
+               "fused_rhs_bwd_sym bf16": ("fused_rhs.cu",
+                                          "fused_rhs.py:1341")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

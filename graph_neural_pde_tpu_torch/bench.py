@@ -22,9 +22,22 @@ self-loops) and prints ONE JSON line with the JAX bench's keys:
 * ``early_stop_*``: the early-stop evaluator's time, NFE and its time over
   the plain forward's.
 
-How it differs from the JAX bench. The port runs float32 throughout, so
-the oracles hold at 1e-4 of scale where the JAX bench's bfloat16 kernels
-hold at 3e-2. A failed oracle or secondary raises: nothing falls back to
+Precision. The model runs at the JAX bench's precision
+(``bench.py:93-95``): the bfloat16 payload and the bfloat16 rk4 state
+(``config.GRAND_NL_BENCH``). That holds for ``value``, ``train_*``,
+``train_grand_l_*``, the cosine_sim and BLEND forwards and ``early_stop_*``
+(whose solver keeps a float32 state, as the JAX package's does). The
+softmax over columns (``train_norm1_*`` and its forward) runs in float32:
+its kernels (K12-K14) do not take the bf16 payload yet (ROADMAP Queue 2
+B1). Nor does the exact re-solve (K7, K8): a bf16 solve whose softmax
+leaves float32's exp range raises ``NotImplementedError`` where the JAX
+bench re-solves (ROADMAP, Known limits).
+
+How it differs from the JAX bench. The oracles hold at 1e-4 of scale
+where the JAX bench's bfloat16 kernels hold at 3e-2: the oracle of the
+primary op reads the same bf16-rounded column table as the kernels, so
+only the order of float32 sums separates the two. A failed oracle or
+secondary raises: nothing falls back to
 an unfolded engine, no secondary's failure is caught, and no tunnel or
 compile-cache guard exists (nothing here compiles). ``vs_baseline`` (an
 estimated rate of another card) and the Chebyshev keys (its solver is
@@ -48,7 +61,7 @@ import time
 import numpy as np
 import torch
 
-from graph_neural_pde_tpu_torch.config import GRAND_NL_BENCH
+from graph_neural_pde_tpu_torch.config import FLOAT32, GRAND_NL_BENCH
 from graph_neural_pde_tpu_torch.data.synthetic import (
     make_random_graph_dataset)
 from graph_neural_pde_tpu_torch.kernels import (
@@ -67,7 +80,8 @@ def build_benchmark(num_nodes=169_343, num_edges=1_166_243, hidden=128,
                     attention_dim=32, heads=2, seed=0, device="cuda"):
     """The JAX bench's graph and features (the same numpy draws and
     symmetrisation, ``data.synthetic.make_random_graph_dataset``) and its
-    GRAND-nl model in float32 on ``device``. Returns (model, x, the raw
+    GRAND-nl model at its precision (bfloat16 payload and state) on
+    ``device``. Returns (model, x, the raw
     graph, num_features, num_classes)."""
     data = make_random_graph_dataset(num_nodes, num_edges, num_features=128,
                                      num_classes=40, seed=seed,
@@ -163,17 +177,33 @@ def _symmetric_pairs(rng, n, e):
     return rs[order], cs[order]
 
 
+def _bf16_st(t):
+    """``t`` rounded to bfloat16 in value, the identity in its gradient
+    (the kernels' backward takes each cast as the identity)."""
+    return t + (t.to(torch.bfloat16).float() - t).detach()
+
+
 def _normalised_ax(g, x, qw, qb, kw, kb, heads, score, sp, norm_cols,
-                   probe):
+                   probe, bf16=False):
     """sum(ax * probe) of the attention RHS composed of plain torch ops
     over the edges of ``g`` (the oracle the fused engines' autograd is held
-    to): softmax normalised over rows, or over columns (``norm_cols``)."""
+    to): softmax normalised over rows, or over columns (``norm_cols``).
+    With ``bf16`` the column side reads the bf16 payload as the kernels
+    do: values from x rounded to bfloat16, k = bf16(bf16(x_b Kw_b) + kb_b)
+    with Kw and kb rounded too, the product summed in float64."""
     n, d = x.shape
     nv = g.num_valid
     r, c = g.row[:nv].long(), g.col[:nv].long()
     q = x @ qw + qb
-    xg = x[c]
-    s = _torch_scores(q[r], xg @ kw + kb, heads, score, sp)
+    if bf16:
+        xb = _bf16_st(x)
+        prod = (xb.double() @ _bf16_st(kw).double()).float()
+        k = _bf16_st(_bf16_st(prod) + _bf16_st(kb))
+        xg, ke = xb[c], k[c]
+    else:
+        xg = x[c]
+        ke = xg @ kw + kb
+    s = _torch_scores(q[r], ke, heads, score, sp)
     uu = torch.exp(s)
     idx = c if norm_cols else r
     ax = 0.0
@@ -203,8 +233,11 @@ def verify_kernels_on_device(device="cuda") -> None:
     mode, against the hand-derived ``fused_bwd_composition``; K1 as the
     column sum over the CSC view (the column-plan dx) against numpy; the
     column-plan and symmetric engines' gradients (``make_fused_ax_colplan``,
-    ``make_fused_ax_sym``) against autograd of a torch composition; and the
-    folded epilogue (``fused_rhs_f``). Raises on the first that fails."""
+    ``make_fused_ax_sym``, the latter, the primary op, with the bfloat16
+    payload and against a composition that reads the same bf16-rounded
+    column table) against autograd of a torch composition; and the folded
+    epilogue (``fused_rhs_f``, float32 and bfloat16). Raises on the first
+    that fails."""
     dev = torch.device(device)
     rng = np.random.default_rng(0)
     n, e, d, att, heads = 512, 4096, 128, 64, 2
@@ -288,17 +321,20 @@ def verify_kernels_on_device(device="cuda") -> None:
     if g_s.rev is None:
         raise AssertionError("the symmetric toy graph has no reverse edges")
     probe_s = dev_t(rng.normal(size=(n, d)))
-    for label, graph, engine, weights in (
-            ("colplan e2e", g, op, probe),
-            ("sym e2e", g_s, make_fused_ax_sym(g_s, heads, False,
-                                               "scaled_dot"), probe_s)):
+    bf16 = torch.bfloat16
+    op_sym = make_fused_ax_sym(g_s, heads, False, "scaled_dot", bf16)
+    for label, graph, engine, weights, pay in (
+            ("colplan e2e", g, op, probe, False),
+            ("sym e2e (bf16 payload)", g_s, op_sym, probe_s, True)):
         leaves = [t.clone().requires_grad_(True)
                   for t in (qw_t, qb_t, kw_t, kb_t, x_t)]
         ax, _ = engine(*leaves, gmax0, ())
-        got = torch.autograd.grad(torch.sum(ax * weights), leaves)
-        want = torch.autograd.grad(
-            _normalised_ax(graph, leaves[4], *leaves[:4], heads,
-                           "scaled_dot", (), False, weights), leaves)
+        v_op = torch.sum(ax * weights)
+        v_ref = _normalised_ax(graph, leaves[4], *leaves[:4], heads,
+                               "scaled_dot", (), False, weights, pay)
+        _check(f"{label} fwd", v_op, v_ref)
+        got = torch.autograd.grad(v_op, leaves)
+        want = torch.autograd.grad(v_ref, leaves)
         _check_grads(label, names, got, want)
 
     # ---- the folded epilogue: f = alpha (ax - x) in K6's last write ----
@@ -307,10 +343,16 @@ def verify_kernels_on_device(device="cuda") -> None:
         f_fold = fused_rhs_f(g, heads, "scaled_dot", qw_t, qb_t, kw_t, kb_t,
                              x_t, alpha)
         ax_ref, _ = op(qw_t, qb_t, kw_t, kb_t, x_t, gmax0, ())
+        f_fold_b = fused_rhs_f(g_s, heads, "scaled_dot", qw_t, qb_t, kw_t,
+                               kb_t, x_t, alpha, payload_dtype=bf16)
+        ax_ref_b, _ = op_sym(qw_t, qb_t, kw_t, kb_t, x_t, gmax0, ())
     _check("folded epilogue f", f_fold, alpha * (ax_ref - x_t))
+    _check("folded epilogue f (bf16 payload)", f_fold_b,
+           alpha * (ax_ref_b - x_t))
     print("# kernels verified on-device (dual scatter K10, fused aggregate "
           "K18 with the score max K19, folded epilogue; K8's per-head "
-          "backward, col-plan dx by K1, col-plan + sym e2e gradient paths)",
+          "backward, col-plan dx by K1, col-plan + sym e2e gradient paths, "
+          "the latter with the bf16 payload)",
           file=sys.stderr)
 
 
@@ -463,9 +505,10 @@ def main(device="cuda", num_nodes=169_343, num_edges=1_166_243, hidden=128,
               f"rate={grand_l[mode][0] / 1e6:.1f}M", file=sys.stderr)
 
     # the softmax over columns (the tuned Cora, Citeseer and CoauthorCS
-    # rows' axis): one step under remat
-    m_n1 = GNNModel(cfg.replace(attention_norm_idx=1, remat=True), nf, nc,
-                    g_raw, device=dev)
+    # rows' axis): one step under remat, in float32 (K12-K14 do not take
+    # the bf16 payload yet)
+    m_n1 = GNNModel(cfg.replace(attention_norm_idx=1, remat=True, **FLOAT32),
+                    nf, nc, g_raw, device=dev)
     nfe_n1, dt_n1, _, bwd_n1 = _time_train(m_n1, x, y, mask, train_reps,
                                            train_batches)
     norm1_train = (nfe_n1 * e_valid / dt_n1, dt_n1 * 1e3)
@@ -493,8 +536,8 @@ def main(device="cuda", num_nodes=169_343, num_edges=1_166_243, hidden=128,
     beltrami_rate = nfe_b * e_valid / dt_b
     print(f"# beltrami exp_kernel secondary: {beltrami_rate / 1e6:.1f}M "
           f"({dt_b * 1e3:.0f} ms fwd, nfe={nfe_b})", file=sys.stderr)
-    m_n = GNNModel(cfg.replace(attention_norm_idx=1), nf, nc, g_raw,
-                   device=dev)
+    m_n = GNNModel(cfg.replace(attention_norm_idx=1, **FLOAT32), nf, nc,
+                   g_raw, device=dev)
     nfe_n, dt_n, _ = _time_forward(m_n, x, reps, batches)
     norm1_rate = nfe_n * e_valid / dt_n
     print(f"# norm_idx=1 secondary: {norm1_rate / 1e6:.1f}M "

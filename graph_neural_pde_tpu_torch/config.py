@@ -354,12 +354,18 @@ best_params = {
 
 # The GRAND-nl architecture that the JAX package's bench.py measures
 # (build_benchmark: constant block, transformer function, rk4 with step 1.0
-# to the tuned ogbn-arxiv T, hidden 128, attention_dim 32, 2 heads), here in
-# float32, over the seeded random graph ``ogbn-arxiv-synthetic``. Not a tuned
-# row: ``--use_best_params`` takes it for that dataset name only.
+# to the tuned ogbn-arxiv T, hidden 128, attention_dim 32, 2 heads) at its
+# precision, the bfloat16 payload and the bfloat16 fixed-grid state
+# (bench.py:93-95), over the seeded random graph ``ogbn-arxiv-synthetic``.
+# Not a tuned row: ``--use_best_params`` takes it for that dataset name
+# only. ``GRAND_NL_BENCH.replace(**FLOAT32)`` is the same model in float32.
 GRAND_NL_BENCH = Config(
     dataset="ogbn-arxiv-synthetic", block="constant", function="transformer",
     method="rk4", step_size=1.0, time=3.6760155951687636, hidden_dim=128,
     attention_dim=32, heads=2, self_loop_weight=1.0, add_source=False,
     input_dropout=0.0, dropout=0.0, max_nfe=1000, no_early=True,
-    adjoint=False, edge_pad_multiple=1024)
+    adjoint=False, edge_pad_multiple=1024, rhs_payload_dtype="bfloat16",
+    dtype="bfloat16")
+
+# the float32 payload and state, for ``Config.replace``
+FLOAT32 = {"rhs_payload_dtype": "float32", "dtype": "float32"}

@@ -27,7 +27,15 @@
 // forward matvec and the backward dx = A^T ct, which on a symmetric edge
 // multiset is a forward matvec with the weights permuted to the reverse
 // edges (w[rev]).
+//
+// The table x may be bfloat16 (the JAX package's rhs_payload_dtype, the
+// bf16 x[col] payload of ops/spmm.py's stripe engine): each gathered row
+// is then half the bytes, read in __nv_bfloat162 pairs, and converted to
+// float32 before the product; weights, sums and output stay float32. One
+// template serves both tables, and each output element is still summed by
+// one lane in edge order.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -36,10 +44,43 @@ constexpr int kWarp = 32;
 constexpr int kAccPerLane = 4;                   // 4 * 32 = 128 features/pass
 constexpr int kWarpsPerBlock = 8;
 
+// The features a lane owns in a pass of 128 starting at d0, two at a time
+// (accumulators k and k + 1), and their values in row xr (0 past dim).
+// float32: d0 + lane + 32 k, one 4-byte word a lane per 32 features.
+// bfloat16: the pair d0 + 2 (lane + 32 k / 2) and the next feature, read
+// as one __nv_bfloat162 when the row width is even (rows start on 4-byte
+// boundaries then), so a warp's 32 loads still span 64 consecutive
+// features in one 128-byte transaction.
+__device__ __forceinline__ int feature(const float*, int d0, int lane,
+                                       int k) {
+  return d0 + lane + kWarp * k;
+}
+
+__device__ __forceinline__ int feature(const __nv_bfloat16*, int d0,
+                                       int lane, int k) {
+  return d0 + 2 * (lane + kWarp * (k / 2)) + (k % 2);
+}
+
+__device__ __forceinline__ float2 load_pair(const float* xr, int d0,
+                                            int lane, int k, int dim) {
+  const int da = feature(xr, d0, lane, k), db = feature(xr, d0, lane, k + 1);
+  return make_float2(da < dim ? xr[da] : 0.0f, db < dim ? xr[db] : 0.0f);
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* xr, int d0,
+                                            int lane, int k, int dim) {
+  const int d = feature(xr, d0, lane, k);
+  if ((dim % 2) == 0 && d + 1 < dim)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + d));
+  return make_float2(d < dim ? __bfloat162float(xr[d]) : 0.0f,
+                     d + 1 < dim ? __bfloat162float(xr[d + 1]) : 0.0f);
+}
+
+template <typename T>
 __global__ void csr_spmm_kernel(const int* __restrict__ rowptr,
                                 const int* __restrict__ col,
                                 const float* __restrict__ w,
-                                const float* __restrict__ x,
+                                const T* __restrict__ x,
                                 float* __restrict__ out,
                                 int n_rows, int dim) {
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x / kWarp);
@@ -63,35 +104,49 @@ __global__ void csr_spmm_kernel(const int* __restrict__ rowptr,
       for (int j = 0; j < n; ++j) {
         const int cj = __shfl_sync(0xffffffffu, c, j);
         const float wj = __shfl_sync(0xffffffffu, we, j);
-        const float* xr = x + static_cast<size_t>(cj) * dim;
+        const T* xr = x + static_cast<size_t>(cj) * dim;
 #pragma unroll
-        for (int k = 0; k < kAccPerLane; ++k) {
-          const int d = d0 + lane + kWarp * k;
-          if (d < dim) acc[k] += wj * xr[d];
+        for (int k = 0; k < kAccPerLane; k += 2) {
+          const float2 v = load_pair(xr, d0, lane, k, dim);
+          acc[k] += wj * v.x;
+          acc[k + 1] += wj * v.y;
         }
       }
     }
     float* orow = out + static_cast<size_t>(row) * dim;
 #pragma unroll
     for (int k = 0; k < kAccPerLane; ++k) {
-      const int d = d0 + lane + kWarp * k;
+      const int d = feature(x, d0, lane, k);
       if (d < dim) orow[d] = acc[k];
     }
   }
 }
 
+template <typename T>
+void launch(const void* rowptr, const void* col, const void* w,
+            const void* x, void* out, int n_rows, int dim,
+            cudaStream_t stream) {
+  const int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  csr_spmm_kernel<T><<<blocks, kWarpsPerBlock * kWarp, 0, stream>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(col),
+      static_cast<const float*>(w), static_cast<const T*>(x),
+      static_cast<float*>(out), n_rows, dim);
+}
+
 }  // namespace
 
+// dtype: the table x, 0 for float32, 1 for bfloat16 (w and out are float32)
 extern "C" int gnpde_csr_spmm(const void* rowptr, const void* col,
                               const void* w, const void* x, void* out,
-                              int n_rows, int dim, void* stream) {
+                              int n_rows, int dim, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0 && dim > 0) {
-    const int blocks = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    csr_spmm_kernel<<<blocks, kWarpsPerBlock * kWarp, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rowptr), static_cast<const int*>(col),
-        static_cast<const float*>(w), static_cast<const float*>(x),
-        static_cast<float*>(out), n_rows, dim);
+    auto s = static_cast<cudaStream_t>(stream);
+    if (dtype == 0)
+      launch<float>(rowptr, col, w, x, out, n_rows, dim, s);
+    else
+      launch<__nv_bfloat16>(rowptr, col, w, x, out, n_rows, dim, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

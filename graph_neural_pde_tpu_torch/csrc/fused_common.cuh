@@ -17,6 +17,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -143,6 +144,41 @@ __device__ __forceinline__ void load_row(const float* __restrict__ table,
   for (int d = lane; d < dim; d += kWarp) out[d] = src[d];
 }
 
+// A bfloat16 row (the bf16 column table and k table of K6 and K9), widened
+// to float32: read as __nv_bfloat162 pairs when the width is even (rows
+// start on 4-byte boundaries then), so 32 lanes cover 64 values in one
+// 128-byte transaction, and stored as float2 pairs where `out` lies on an
+// 8-byte boundary (two values a lane in one conflict-free store).
+__device__ __forceinline__ void load_row(
+    const __nv_bfloat16* __restrict__ table, int row, int dim, int lane,
+    float* out) {
+  const __nv_bfloat16* src = table + static_cast<size_t>(row) * dim;
+  if ((dim % 2) == 0) {
+    const __nv_bfloat162* src2 = reinterpret_cast<const __nv_bfloat162*>(src);
+    const bool pairs = (reinterpret_cast<size_t>(out) % 8) == 0;
+    for (int j = lane; j < dim / 2; j += kWarp) {
+      const float2 v = __bfloat1622float2(src2[j]);
+      if (pairs) {
+        reinterpret_cast<float2*>(out)[j] = v;
+      } else {
+        out[2 * j] = v.x;
+        out[2 * j + 1] = v.y;
+      }
+    }
+  } else {
+    for (int d = lane; d < dim; d += kWarp) out[d] = __bfloat162float(src[d]);
+  }
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // What the backward needs of one head's score: s itself and, for
 //   dq[a] = P (k[a] - mk) - Q (q[a] - mq),  dk[a] = P (q[a] - mq) - R (k[a] - mk)
 // per unit ds, the coefficients (P, Q, R) and the head means (pearson);
@@ -238,22 +274,57 @@ __device__ __forceinline__ void u_duds(float sm, int square_plus, float* u,
 
 constexpr int kNodesPerWarp = 8;
 
+// How a table entry is summed and stored. float32: x W + b summed in
+// float32 from the bias. The bfloat16 k table: the JAX package's two
+// roundings of k_e = x[col] @ Kw.astype(bf16) + kb.astype(bf16) in
+// bfloat16 (the product rounded, then its sum with the bias), from W and b
+// that the wrapper has rounded to bfloat16 already. Its product is summed
+// in float64, where the products of bfloat16 values add up exactly at
+// these widths, so the rounding to bfloat16 does not depend on the order
+// of the sum: the plain version (a float64 matmul) rounds the same sums
+// the same way. A float32 sum's own rounding would decide a last bf16 bit
+// now and then, and a k off by one bf16 step moves every score it enters.
+template <typename TO> struct ProjAcc { using type = float; };
+template <> struct ProjAcc<__nv_bfloat16> { using type = double; };
+
+__device__ __forceinline__ float proj_fma(float x, float w, float acc) {
+  return fmaf(x, w, acc);
+}
+__device__ __forceinline__ double proj_fma(float x, float w, double acc) {
+  return fma(static_cast<double>(x), static_cast<double>(w), acc);
+}
+__device__ __forceinline__ float proj_start(const float*, float bias) {
+  return bias;
+}
+__device__ __forceinline__ double proj_start(const __nv_bfloat16*, float) {
+  return 0.0;
+}
+__device__ __forceinline__ void proj_store(float* out, float acc, float) {
+  *out = acc;
+}
+__device__ __forceinline__ void proj_store(__nv_bfloat16* out, double acc,
+                                           float bias) {
+  *out = __float2bfloat16_rn(round_bf16(__double2float_rn(acc)) + bias);
+}
+
 // out[n] = x[n] W + b for every node n: the q and k tables the row walks
 // gather from. A warp projects eight nodes at once, so each coalesced row
 // of W is loaded once for eight products; the nodes' x rows sit transposed
-// in shared memory (xs[d][i]) and are read as two float4 broadcasts.
-template <int J>
+// in shared memory (xs[d][i]) and are read as two float4 broadcasts. TO is
+// the table's type (see proj_store).
+template <int J, typename TO>
 __device__ __forceinline__ void node_project_j(const float* xs,
                                                const float* __restrict__ w,
                                                const float* __restrict__ b,
-                                               float* __restrict__ out,
+                                               TO* __restrict__ out,
                                                int n0, int n_rows, int dim,
                                                int att, int lane) {
-  float acc[kNodesPerWarp][J];
+  using Acc = typename ProjAcc<TO>::type;
+  Acc acc[kNodesPerWarp][J];
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int a = lane + kWarp * j;
-    const float bias = a < att ? __ldg(b + a) : 0.0f;
+    const Acc bias = proj_start(out, a < att ? __ldg(b + a) : 0.0f);
 #pragma unroll
     for (int i = 0; i < kNodesPerWarp; ++i) acc[i][j] = bias;
   }
@@ -269,7 +340,7 @@ __device__ __forceinline__ void node_project_j(const float* xs,
       const float wv = lane + kWarp * j < att ? __ldg(wr + kWarp * j) : 0.0f;
 #pragma unroll
       for (int i = 0; i < kNodesPerWarp; ++i)
-        acc[i][j] = fmaf(xv[i], wv, acc[i][j]);
+        acc[i][j] = proj_fma(xv[i], wv, acc[i][j]);
     }
   }
 #pragma unroll
@@ -279,15 +350,20 @@ __device__ __forceinline__ void node_project_j(const float* xs,
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int a = lane + kWarp * j;
-      if (a < att) out[static_cast<size_t>(n) * att + a] = acc[i][j];
+      if (a < att)
+        proj_store(out + static_cast<size_t>(n) * att + a, acc[i][j],
+                   __ldg(b + a));
     }
   }
 }
 
-__global__ void node_project_kernel(const float* __restrict__ x,
+// kJ: the accumulators a lane holds (att up to 32 kJ); the launch picks
+// the kernel of the call's width, so each holds only its own registers
+template <typename TX, typename TO, int kJ>
+__global__ void node_project_kernel(const TX* __restrict__ x,
                                     const float* __restrict__ w,
                                     const float* __restrict__ b,
-                                    float* __restrict__ out, int n_rows,
+                                    TO* __restrict__ out, int n_rows,
                                     int dim, int att) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -295,22 +371,12 @@ __global__ void node_project_kernel(const float* __restrict__ x,
   if (n0 >= n_rows) return;
   float* xs = smem + static_cast<size_t>(warp) * kNodesPerWarp * dim;
   for (int i = 0; i < kNodesPerWarp; ++i) {
-    const float* src =
-        x + static_cast<size_t>(min(n0 + i, n_rows - 1)) * dim;
+    const TX* src = x + static_cast<size_t>(min(n0 + i, n_rows - 1)) * dim;
     for (int d = lane; d < dim; d += kWarp)
-      xs[d * kNodesPerWarp + i] = src[d];
+      xs[d * kNodesPerWarp + i] = widen(src[d]);
   }
   __syncwarp();
-  switch ((att + kWarp - 1) / kWarp) {
-    case 1: node_project_j<1>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 2: node_project_j<2>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 3: node_project_j<3>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 4: node_project_j<4>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 5: node_project_j<5>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 6: node_project_j<6>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    case 7: node_project_j<7>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-    default: node_project_j<8>(xs, w, b, out, n0, n_rows, dim, att, lane); break;
-  }
+  node_project_j<kJ>(xs, w, b, out, n0, n_rows, dim, att, lane);
 }
 
 // A row's scalar sums over its edges and heads: ds (for dgmax) and the
@@ -373,12 +439,15 @@ __device__ __forceinline__ void write_row_sums(float* row_sums, int n,
 // (norm1_bwd, softmax over columns). Each edge (n, c) also evaluates its
 // reverse edge (c, n) from node rows gathered at c, so that x[col]'s
 // cotangent and dk land on the resident row and nothing is scattered.
-// smem is the block's dynamic shared memory, 5 D + 6 ATT + 2 kCoef H floats
-// a warp.
-template <bool kColumnNorm>
+// xcol is the column-side table the values and k were taken from (x
+// itself, or K9's bfloat16 copy of it, whose k table is bfloat16 too); the
+// row side is the q table. smem is the block's dynamic shared memory,
+// 5 D + 6 ATT + 2 kCoef H floats a warp.
+template <bool kColumnNorm, typename TC>
 __device__ __forceinline__ void sym_backward_row(
-    float* smem, Graph g, Proj p, const float* __restrict__ qtab,
-    const float* __restrict__ ktab, const float* __restrict__ kw_t,
+    float* smem, Graph g, Proj p, const TC* __restrict__ xcol,
+    const float* __restrict__ qtab, const TC* __restrict__ ktab,
+    const float* __restrict__ kw_t,
     const float* __restrict__ ct_ax, const float* __restrict__ recip_p,
     const float* __restrict__ ct_den, float* __restrict__ dq,
     float* __restrict__ dxrow, float* __restrict__ dkn_out,
@@ -400,7 +469,7 @@ __device__ __forceinline__ void sym_backward_row(
   float* dkn = dqa + A;                         // sum of the reverse edges' dk
   float* coef = dkn + A;                        // [H, kCoef] forward edge
   float* coef_r = coef + kCoef * H;             // [H, kCoef] reverse edge
-  load_row(p.x, n, D, lane, xn);
+  load_row(xcol, n, D, lane, xn);
   load_row(ct_ax, n, D, lane, cta);
   for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
   for (int a = lane; a < A; a += kWarp) dqa[a] = dkn[a] = 0.0f;
@@ -415,7 +484,7 @@ __device__ __forceinline__ void sym_backward_row(
   RowSums sums = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
-    load_row(p.x, c, D, lane, xc);
+    load_row(xcol, c, D, lane, xc);
     load_row(ct_ax, c, D, lane, ctc);
     load_row(ktab, c, A, lane, ke);
     load_row(qtab, c, A, lane, qc);
@@ -478,7 +547,8 @@ __device__ __forceinline__ void sym_backward_row(
 // and dKb (row dim). Each block owns a fixed row range and a 32 x 32 tile.
 // The chains are thousands of terms long, so each sum is compensated
 // (Kahan): its rounding error stays that of a single addition.
-__global__ void outer_reduce_kernel(const float* __restrict__ x,
+template <typename TX>
+__global__ void outer_reduce_kernel(const TX* __restrict__ x,
                                     const int* __restrict__ idx,
                                     const float* __restrict__ b,
                                     float* __restrict__ partial, int rows,
@@ -492,11 +562,11 @@ __global__ void outer_reduce_kernel(const float* __restrict__ x,
 #pragma unroll 4
   for (int r = r0; r < r1; ++r) {
     const float bv = a < att ? b[static_cast<size_t>(r) * att + a] : 0.0f;
-    const float* xr = x + static_cast<size_t>(idx ? idx[r] : r) * dim;
+    const TX* xr = x + static_cast<size_t>(idx ? idx[r] : r) * dim;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int d = d_base + 8 * k;
-      const float xv = d < dim ? xr[d] : (d == dim ? 1.0f : 0.0f);
+      const float xv = d < dim ? widen(xr[d]) : (d == dim ? 1.0f : 0.0f);
       const float term = xv * bv - lost[k];
       const float sum = acc[k] + term;
       lost[k] = (sum - acc[k]) - term;
@@ -525,10 +595,47 @@ int row_blocks(int n_rows) {
   return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
-// table[n] = x[n] w + b for every node, into the wrapper's scratch
+template <typename TX, typename TO, int kJ>
+cudaError_t launch_node_project_j(const void* x, const void* w,
+                                  const void* b, void* table, int n_rows,
+                                  int dim, int att, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * kWarpsPerBlock * kNodesPerWarp * dim;
+  cudaError_t err = allow_shared(node_project_kernel<TX, TO, kJ>, bytes);
+  if (err != cudaSuccess) return err;
+  const int groups = (n_rows + kNodesPerWarp - 1) / kNodesPerWarp;
+  node_project_kernel<TX, TO, kJ><<<row_blocks(groups),
+                                    kWarpsPerBlock * kWarp, bytes, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<TO*>(table), n_rows, dim,
+      att);
+  return cudaGetLastError();
+}
+
+// table[n] = x[n] w + b for every node, into the wrapper's scratch (TX
+// the type of x, TO the table's: see proj_store), by the kernel whose
+// accumulator count covers att
+template <typename TX = float, typename TO = float>
 cudaError_t launch_node_project(const void* x, const void* w, const void* b,
                                 void* table, int n_rows, int dim, int att,
-                                cudaStream_t stream);
+                                cudaStream_t stream) {
+  switch ((att + kWarp - 1) / kWarp) {
+#define GNPDE_NODE_PROJECT_J(J)                                              \
+  case J:                                                                    \
+    return launch_node_project_j<TX, TO, J>(x, w, b, table, n_rows, dim, att, \
+                                            stream);
+    GNPDE_NODE_PROJECT_J(1)
+    GNPDE_NODE_PROJECT_J(2)
+    GNPDE_NODE_PROJECT_J(3)
+    GNPDE_NODE_PROJECT_J(4)
+    GNPDE_NODE_PROJECT_J(5)
+    GNPDE_NODE_PROJECT_J(6)
+    GNPDE_NODE_PROJECT_J(7)
+#undef GNPDE_NODE_PROJECT_J
+    default:
+      return launch_node_project_j<TX, TO, 8>(x, w, b, table, n_rows, dim, att,
+                                              stream);
+  }
+}
 
 // both tables: q = x Qw + qb and k = x Kw + kb
 cudaError_t launch_tables(const void* x, const void* qw, const void* qb,
@@ -541,28 +648,40 @@ cudaError_t launch_tables(const void* x, const void* qw, const void* qb,
   return launch_node_project(x, kw, kb, ktab, n_rows, dim, att, stream);
 }
 
-cudaError_t launch_node_project(const void* x, const void* w, const void* b,
-                                void* table, int n_rows, int dim, int att,
-                                cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock * kNodesPerWarp * dim;
-  cudaError_t err = allow_shared(node_project_kernel, bytes);
+// The TABLES code of K6 and K9: 0 float32 (x is also the column table), 1
+// a float32 row side x beside a bfloat16 column table xcol, 2 both
+// bfloat16 (the bf16 ODE state: xcol is x).
+enum Tables { kTablesF32 = 0, kTablesF32Bf16 = 1, kTablesBf16 = 2 };
+
+// q from the row side, k from the column side: for the bfloat16 column
+// table a bfloat16 k table, rounded as the JAX package rounds k_e (kw and
+// kb come rounded to bfloat16 from the wrapper)
+cudaError_t launch_tables(int tables, const void* x, const void* xcol,
+                          const void* qw, const void* qb, const void* kw,
+                          const void* kb, void* qtab, void* ktab, int n_rows,
+                          int dim, int att, cudaStream_t stream) {
+  if (tables == kTablesF32)
+    return launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att,
+                         stream);
+  cudaError_t err =
+      tables == kTablesF32Bf16
+          ? launch_node_project<float, float>(x, qw, qb, qtab, n_rows, dim,
+                                              att, stream)
+          : launch_node_project<__nv_bfloat16, float>(x, qw, qb, qtab, n_rows,
+                                                      dim, att, stream);
   if (err != cudaSuccess) return err;
-  const int groups = (n_rows + kNodesPerWarp - 1) / kNodesPerWarp;
-  node_project_kernel<<<row_blocks(groups), kWarpsPerBlock * kWarp, bytes,
-                        stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<float*>(table), n_rows, dim,
-      att);
-  return cudaGetLastError();
+  return launch_node_project<__nv_bfloat16, __nv_bfloat16>(
+      xcol, kw, kb, ktab, n_rows, dim, att, stream);
 }
 
-void launch_outer_reduce(const float* x, const int* idx, const float* b,
+template <typename TX>
+void launch_outer_reduce(const TX* x, const int* idx, const float* b,
                          float* partial, int rows, int blocks, int dim,
                          int att, cudaStream_t stream) {
   if (rows <= 0) return;
   const int rows_per_block = (rows + blocks - 1) / blocks;
   const dim3 grid(blocks, (dim + 1 + 31) / 32, (att + 31) / 32);
-  outer_reduce_kernel<<<grid, dim3(32, 8), 0, stream>>>(
+  outer_reduce_kernel<TX><<<grid, dim3(32, 8), 0, stream>>>(
       x, idx, b, partial, rows, rows_per_block, dim, att);
 }
 
@@ -591,11 +710,15 @@ Graph make_graph(const void* rowptr, const void* col, int n_rows) {
 
 // The launches behind K9 and K14: the q and k tables (unless the caller
 // says they are filled already: project = 0), the row walk `kernel` (a
-// __global__ wrapper of sym_backward_row) and the first pass of the
-// dKw / dKb reduction over the per-node dk sums.
-template <typename Kernel>
+// __global__ wrapper of sym_backward_row over the column table of type TC)
+// and the first pass of the dKw / dKb reduction over the per-node dk sums
+// and the column table. `tables` as launch_tables takes it; with
+// kTablesF32, xcol is x. The walk reads x only as xcol, so p.x stays null
+// (x may be bfloat16).
+template <typename TC, typename Kernel>
 int launch_sym_backward(
-    Kernel kernel, int project, const void* rowptr, const void* col, const void* x,
+    Kernel kernel, int project, int tables, const void* rowptr,
+    const void* col, const void* x, const void* xcol,
     const void* qw, const void* qb, const void* kw, const void* kb,
     const void* gmax, const void* var, const void* ls, const void* ct_ax,
     const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
@@ -606,7 +729,8 @@ int launch_sym_backward(
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaSuccess;
     if (project)
-      err = launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows,
+                          dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const size_t bytes = sizeof(float) * kWarpsPerBlock *
                          (5 * dim + 6 * att + 2 * kCoef * heads);
@@ -614,15 +738,16 @@ int launch_sym_backward(
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes, s>>>(
         make_graph(rowptr, col, n_rows),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
+        make_proj(nullptr, gmax, var, ls, dim, att, heads, flags),
+        static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
+        static_cast<const TC*>(ktab),
         static_cast<const float*>(kw_t), static_cast<const float*>(ct_ax),
         static_cast<const float*>(recip_p), static_cast<const float*>(ct_den),
         static_cast<float*>(dq), static_cast<float*>(dxrow),
         static_cast<float*>(dkn), static_cast<float*>(row_sums));
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    launch_outer_reduce(static_cast<const float*>(x), nullptr,
+    launch_outer_reduce(static_cast<const TC*>(xcol), nullptr,
                         static_cast<const float*>(dkn),
                         static_cast<float*>(partials), n_rows, reduce_blocks,
                         dim, att, s);

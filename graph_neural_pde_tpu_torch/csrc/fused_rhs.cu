@@ -57,6 +57,18 @@
 // outer_reduce_kernel then forms per-block partial sums of [x_c | 1]^T dk
 // over fixed row ranges, and the wrapper adds the partials up in order. Two
 // launches on the same inputs therefore agree bit for bit.
+//
+// K6 and K9 also run on the JAX package's bfloat16 payload
+// (rhs_payload_dtype="bfloat16", make_fused_ax_sym and fused_rhs_f with
+// pay_dt): beside the row side x (float32, or bfloat16 under the bf16 ODE
+// state), which gives q, they take a bfloat16 column table xcol, which
+// gives the gathered values and the k table. The k table is bfloat16 too,
+// rounded as the JAX package's composition rounds k_e (the product of the
+// bf16 row with the bf16-rounded Kw, then its sum with the bf16-rounded kb,
+// each in bfloat16). So each edge gathers D + ATT bf16 values instead of
+// D + ATT floats; every sum, q, and every output stays float32. The same
+// templates serve both modes (TR the row side's type, TC the column
+// table's), and the sums keep their fixed order.
 
 #include "fused_common.cuh"
 
@@ -64,9 +76,12 @@ namespace {
 
 // ----------------------------------------------------------------------- K6
 
+template <typename TR, typename TC>
 __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
+                                     const TR* __restrict__ xrow,
+                                     const TC* __restrict__ xcol,
                                      const float* __restrict__ qtab,
-                                     const float* __restrict__ ktab,
+                                     const TC* __restrict__ ktab,
                                      const float* __restrict__ shifts,
                                      const float* __restrict__ alpha,
                                      float* __restrict__ out,
@@ -82,7 +97,7 @@ __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
   float* q = xc + D;
   float* ke = q + A;
   float* acc = ke + A;                          // [H, D] numerators
-  load_row(p.x, n, D, lane, xn);
+  load_row(xrow, n, D, lane, xn);
   load_row(qtab, n, A, lane, q);
   for (int i = lane; i < H * D; i += kWarp) acc[i] = 0.0f;
   __syncwarp();
@@ -92,7 +107,7 @@ __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
   float den_h = 0.0f;                           // lane h: head h
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
-    load_row(p.x, c, D, lane, xc);
+    load_row(xcol, c, D, lane, xc);
     load_row(ktab, c, A, lane, ke);
     __syncwarp();
     float u = 0.0f;
@@ -246,9 +261,11 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
   write_row_sums(row_sums, n, H, lane, sums);
 }
 
+template <typename TC>
 __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
+                                         const TC* __restrict__ xcol,
                                          const float* __restrict__ qtab,
-                                         const float* __restrict__ ktab,
+                                         const TC* __restrict__ ktab,
                                          const float* __restrict__ kw_t,
                                          const float* __restrict__ ct_ax,
                                          const float* __restrict__ recip_p,
@@ -258,7 +275,7 @@ __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
                                          float* __restrict__ dkn_out,
                                          float* __restrict__ row_sums) {
   extern __shared__ __align__(16) float smem[];
-  sym_backward_row<false>(smem, g, p, qtab, ktab, kw_t, ct_ax, recip_p,
+  sym_backward_row<false>(smem, g, p, xcol, qtab, ktab, kw_t, ct_ax, recip_p,
                           ct_den, dq, dxrow, dkn_out, row_sums);
 }
 
@@ -754,6 +771,25 @@ fused_rhs_bwd_heads_kernel(
   }
 }
 
+template <typename TR, typename TC>
+cudaError_t launch_fwd(Graph g, Proj p, const void* x, const void* xcol,
+                       const void* qtab, const void* ktab,
+                       const void* shifts, const void* alpha, void* out,
+                       void* den, void* num, cudaStream_t s) {
+  const size_t bytes = sizeof(float) * kWarpsPerBlock *
+                       (2 * p.dim + 2 * p.att + p.heads * p.dim);
+  cudaError_t err = allow_shared(fused_rhs_fwd_kernel<TR, TC>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_rhs_fwd_kernel<TR, TC><<<row_blocks(g.n_rows),
+                                 kWarpsPerBlock * kWarp, bytes, s>>>(
+      g, p, static_cast<const TR*>(x), static_cast<const TC*>(xcol),
+      static_cast<const float*>(qtab), static_cast<const TC*>(ktab),
+      static_cast<const float*>(shifts), static_cast<const float*>(alpha),
+      static_cast<float*>(out), static_cast<float*>(den),
+      static_cast<float*>(num));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point first fills the scratch tables qtab and ktab
@@ -761,31 +797,41 @@ fused_rhs_bwd_heads_kernel(
 // flags: bits 0-2 the score family, bit 3 squareplus. var and ls hold one
 // element for exp_kernel and two (features, positions) for
 // exp_kernel_beltrami, whose att is the packed width of both halves.
+// K6 and K9 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16: see
+// launch_tables) and the column table xcol, ignored with kTablesF32; with
+// a bfloat16 column table, ktab holds bfloat16 values and kw, kb are the
+// bf16-rounded projection.
 
 // Nullable: var, ls, shifts, alpha, num.
 extern "C" int gnpde_fused_rhs_fwd(
-    const void* rowptr, const void* col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* shifts, const void* alpha,
-    void* qtab, void* ktab, void* out, void* den, void* num, int n_rows,
-    int dim, int att, int heads, int flags, void* stream) {
+    const void* rowptr, const void* col, const void* x, const void* xcol,
+    const void* qw, const void* qb, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* shifts,
+    const void* alpha, void* qtab, void* ktab, void* out, void* den,
+    void* num, int n_rows, int dim, int att, int heads, int flags,
+    int tables, void* stream) {
+  if (tables != kTablesF32 && tables != kTablesF32Bf16 &&
+      tables != kTablesBf16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err =
-        launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
+                                    ktab, n_rows, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (2 * dim + 2 * att + heads * dim);
-    err = allow_shared(fused_rhs_fwd_kernel, bytes);
+    const Graph g = make_graph(rowptr, col, n_rows);
+    // p.x stays null: the walk reads x and xcol through their typed
+    // pointers, and x may be bfloat16
+    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    if (tables == kTablesF32)
+      err = launch_fwd<float, float>(g, p, x, x, qtab, ktab, shifts, alpha,
+                                     out, den, num, s);
+    else if (tables == kTablesF32Bf16)
+      err = launch_fwd<float, __nv_bfloat16>(g, p, x, xcol, qtab, ktab,
+                                             shifts, alpha, out, den, num, s);
+    else
+      err = launch_fwd<__nv_bfloat16, __nv_bfloat16>(
+          g, p, x, xcol, qtab, ktab, shifts, alpha, out, den, num, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_rhs_fwd_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
-                           s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<const float*>(shifts), static_cast<const float*>(alpha),
-        static_cast<float*>(out), static_cast<float*>(den),
-        static_cast<float*>(num));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -858,21 +904,32 @@ extern "C" int gnpde_fused_rhs_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// kw_t is Kw^T [att, dim]. dkn [n_rows, att] and row_sums [n_rows, 5] are
-// scratch the wrapper reduces; partials [reduce_blocks, dim + 1, att] are
-// zero on entry. Nullable: var, ls.
+// kw_t is Kw^T [att, dim] (of the bf16-rounded Kw with a bfloat16 column
+// table: the k table's derivative). dkn [n_rows, att] and row_sums
+// [n_rows, 5] are scratch the wrapper reduces; partials [reduce_blocks,
+// dim + 1, att] are zero on entry, and dKw is reduced over the column
+// table. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_sym(
-    const void* rowptr, const void* col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* ct_ax, const void* recip_p,
-    const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dq,
-    void* dxrow, void* dkn, void* row_sums, void* partials, int n_rows,
-    int dim, int att, int heads, int flags, int reduce_blocks, void* stream) {
-  return launch_sym_backward(fused_rhs_bwd_sym_kernel, 1, rowptr, col, x, qw,
-                             qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den,
-                             kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
-                             partials, n_rows, dim, att, heads, flags,
-                             reduce_blocks, stream);
+    const void* rowptr, const void* col, const void* x, const void* xcol,
+    const void* qw, const void* qb, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* ct_ax,
+    const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
+    void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
+    void* partials, int n_rows, int dim, int att, int heads, int flags,
+    int reduce_blocks, int tables, void* stream) {
+  if (tables == kTablesF32)
+    return launch_sym_backward<float>(
+        fused_rhs_bwd_sym_kernel<float>, 1, tables, rowptr, col, x, x, qw,
+        qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t, qtab, ktab,
+        dq, dxrow, dkn, row_sums, partials, n_rows, dim, att, heads, flags,
+        reduce_blocks, stream);
+  if (tables == kTablesF32Bf16 || tables == kTablesBf16)
+    return launch_sym_backward<__nv_bfloat16>(
+        fused_rhs_bwd_sym_kernel<__nv_bfloat16>, 1, tables, rowptr, col, x,
+        xcol, qw, qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t,
+        qtab, ktab, dq, dxrow, dkn, row_sums, partials, n_rows, dim, att,
+        heads, flags, reduce_blocks, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K17 over the CSC view: colptr [n_cols + 1] and row_by_col, the row of

@@ -153,6 +153,7 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
 // ---------------------------------------------------------------------- K14
 
 __global__ void norm1_bwd_kernel(Graph g, Proj p,
+                                 const float* __restrict__ xcol,
                                  const float* __restrict__ qtab,
                                  const float* __restrict__ ktab,
                                  const float* __restrict__ kw_t,
@@ -164,8 +165,8 @@ __global__ void norm1_bwd_kernel(Graph g, Proj p,
                                  float* __restrict__ dkn_out,
                                  float* __restrict__ row_sums) {
   extern __shared__ __align__(16) float smem[];
-  sym_backward_row<true>(smem, g, p, qtab, ktab, kw_t, ct_ax, recip_p, ct_den,
-                         dq, dxrow, dkn_out, row_sums);
+  sym_backward_row<true>(smem, g, p, xcol, qtab, ktab, kw_t, ct_ax, recip_p,
+                         ct_den, dq, dxrow, dkn_out, row_sums);
 }
 
 }  // namespace
@@ -242,7 +243,8 @@ extern "C" int gnpde_norm1_bwd(
     void* dxrow, void* dkn, void* row_sums, void* partials, int n_rows,
     int dim, int att, int heads, int flags, int reduce_blocks, int project,
     void* stream) {
-  return launch_sym_backward(norm1_bwd_kernel, project, rowptr, col, x, qw,
+  return launch_sym_backward<float>(norm1_bwd_kernel, project, kTablesF32,
+                             rowptr, col, x, x, qw,
                              qb, kw, kb, gmax, var, ls, ct_ax, recip_p,
                              ct_den, kw_t, qtab, ktab, dq, dxrow, dkn,
                              row_sums, partials, n_rows, dim, att, heads,

@@ -87,3 +87,6 @@ KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_bwd_col, fused_aggregate, fused_score_max,
            fused_rhs_bwd_heads, row_gather, smem_gather, blocked_spmm,
            blocked_sddmm)
+# the kernels with a bfloat16-table mode, whose ``bf16_launches`` count the
+# launches in it among their own
+BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rhs_bwd_sym)

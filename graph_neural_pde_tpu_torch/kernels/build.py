@@ -35,20 +35,24 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # argument types of every C entry point (device pointers, ints, the stream
 # last); each returns its cudaGetLastError() code
 _ENTRY_POINTS = {
-    # rowptr, col, w, x, out, n_rows, dim, stream
-    "gnpde_csr_spmm": [_PTR] * 5 + [_INT, _INT, _PTR],
-    # row, col, a, b, out, n_edges, dim, stream
-    "gnpde_edge_dot": [_PTR] * 5 + [_INT, _INT, _PTR],
+    # rowptr, col, w, x, out, n_rows, dim, dtype of x (0 float32, 1
+    # bfloat16), stream
+    "gnpde_csr_spmm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
+    # row, col, a, b, out, n_edges, dim, dtype of b (0 float32, 1
+    # bfloat16), stream
+    "gnpde_edge_dot": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
     # segptr, perm (nullable), s, out, den, n_rows, heads, mode, stream
     "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
     # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
     "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
     # The fused RHS kernels (csrc/fused_rhs.cu). qtab and ktab are scratch
-    # tables [n_rows, att]; kw_t is Kw transposed.
-    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, shifts, alpha (the last
-    # four nullable), qtab, ktab, out, den, num (nullable), n_rows, dim,
-    # att, heads, flags, stream
-    "gnpde_fused_rhs_fwd": [_PTR] * 17 + [_INT] * 5 + [_PTR],
+    # tables [n_rows, att]; kw_t is Kw transposed. K6 and K9 take a
+    # TABLES code: 0 float32 (x is the column table too), 1 x float32 with
+    # the bfloat16 column table xcol, 2 both bfloat16.
+    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts, alpha
+    # (the last four nullable), qtab, ktab, out, den, num (nullable),
+    # n_rows, dim, att, heads, flags, tables, stream
+    "gnpde_fused_rhs_fwd": [_PTR] * 18 + [_INT] * 6 + [_PTR],
     # rowptr, col, x, qw, qb, kw, kb, qtab, ktab, smax, n_rows, dim, att,
     # heads, stream
     "gnpde_fused_rowmax": [_PTR] * 10 + [_INT] * 4 + [_PTR],
@@ -57,10 +61,11 @@ _ENTRY_POINTS = {
     # (nullable), dke, row_sums, partials, n_rows, dim, att, heads, flags,
     # n_slots, reduce_blocks, stream
     "gnpde_fused_rhs_bwd": [_PTR] * 22 + [_INT] * 7 + [_PTR],
-    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
-    # ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn, row_sums,
-    # partials, n_rows, dim, att, heads, flags, reduce_blocks, stream
-    "gnpde_fused_rhs_bwd_sym": [_PTR] * 21 + [_INT] * 6 + [_PTR],
+    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
+    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn,
+    # row_sums, partials, n_rows, dim, att, heads, flags, reduce_blocks,
+    # tables, stream
+    "gnpde_fused_rhs_bwd_sym": [_PTR] * 22 + [_INT] * 7 + [_PTR],
     # rowptr, col, u, x, num, den, n_rows, dim, heads, stream
     "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 3 + [_PTR],
     # rowptr, col, rev, u, x, ct_num, ct_den, du, dx (rev and dx nullable
@@ -87,7 +92,8 @@ _ENTRY_POINTS = {
     # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
     # recip, qtab, ktab, out, n_rows, dim, att, heads, flags, project, stream
     "gnpde_norm1_fwd": [_PTR] * 14 + [_INT] * 6 + [_PTR],
-    # as gnpde_fused_rhs_bwd_sym, with project before the stream
+    # as gnpde_fused_rhs_bwd_sym without xcol and tables (float32), with
+    # project before the stream
     "gnpde_norm1_bwd": [_PTR] * 21 + [_INT] * 7 + [_PTR],
     # The blocked-plan kernels (csrc/blocked.cu).
     # rb_ptr, chunk_cols, seg_ptr, seg_row, seg_start, slot_ord, slot_col,

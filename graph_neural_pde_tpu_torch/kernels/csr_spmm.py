@@ -8,6 +8,10 @@ Replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
 On a CUDA tensor the wrapper launches the hand-written kernel or raises; on
 a CPU tensor it runs :func:`csr_spmm_plain`, the plain PyTorch version that
 defines the kernel's semantics.
+
+The table ``x`` is float32 or bfloat16 (the JAX package's bf16 payload,
+``rhs_payload_dtype``): a bf16 row is converted to float32 before its
+product with the float32 weight, and the sums and the output are float32.
 """
 
 from __future__ import annotations
@@ -16,15 +20,22 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 
+# the table dtypes K1 and K2 read, and their codes at the C entry points
+TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 def csr_spmm_plain(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
                    w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain version: gather, scale and ``index_add`` over the valid prefix
-    ``[0, rowptr[-1])`` of the row-sorted edge arrays. Differentiable."""
+    ``[0, rowptr[-1])`` of the row-sorted edge arrays (a bfloat16 ``x``
+    gathered, then widened to float32). Differentiable."""
     n_valid = int(rowptr[-1])
     r, c = row[:n_valid].long(), col[:n_valid].long()
-    vals = x[c] * w[:n_valid, None]
-    return torch.zeros((rowptr.shape[0] - 1, x.shape[1]), dtype=x.dtype,
+    xe = x[c]
+    if xe.dtype == torch.bfloat16:
+        xe = xe.float()
+    vals = xe * w[:n_valid, None]
+    return torch.zeros((rowptr.shape[0] - 1, x.shape[1]), dtype=vals.dtype,
                        device=x.device).index_add(0, r, vals)
 
 
@@ -38,8 +49,12 @@ def _check(rowptr, row, col, w, x, table):
             raise ValueError(f"csr_spmm: {name} must be contiguous")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("csr_spmm: x must be a contiguous [N, D] tensor")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError("csr_spmm: x and w must be float32")
+    # the plain version also takes float64 on the CPU (a float64 reference)
+    wide = dev.type == "cpu" and x.dtype == torch.float64
+    if not (x.dtype in TABLE_DTYPES and w.dtype == torch.float32 or wide
+            and w.dtype in (torch.float32, torch.float64)):
+        raise TypeError(f"csr_spmm: x must be float32 or bfloat16 and w "
+                        f"float32, not {x.dtype} and {w.dtype}")
     for name, t in (("rowptr", rowptr), ("row", row), ("col", col)):
         if t.dtype != torch.int32:
             raise TypeError(f"csr_spmm: {name} must be int32")
@@ -58,7 +73,8 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     ``[0, rowptr[-1])`` of ``row``/``col``/``w``. ``row`` is only read by the
     plain version. With ``table`` the gathered ``x`` is any table of rows
     that ``col`` indexes (a per-edge array summed over each row's reverse
-    edges), not the [N, D] node state. Not differentiable by itself (see
+    edges), not the [N, D] node state. ``x`` float32 or bfloat16; the
+    output is float32. Not differentiable by itself (see
     ``ops.spmm.make_spmm``)."""
     _check(rowptr, row, col, w, x, table)
     if x.device.type == "cpu":
@@ -68,14 +84,17 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     n, d = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
     build.launch("csr_spmm", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d)
+                 w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
+                 TABLE_DTYPES[x.dtype])
     csr_spmm.launches += 1
     csr_spmm.table_launches += table
+    csr_spmm.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
 csr_spmm.launches = 0
 csr_spmm.table_launches = 0     # the launches in table mode, among them
+csr_spmm.bf16_launches = 0      # the launches on a bfloat16 table, among them
 
 
 def column_sum(g, table: torch.Tensor) -> torch.Tensor:

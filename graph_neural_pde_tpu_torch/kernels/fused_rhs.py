@@ -52,6 +52,16 @@ each, the feature factor's and the position factor's:
   ``ct_ax`` with ``recip_p``); ``_bwd_kernel`` / ``_fused_bwd_mega_call``
   with ``recip_p=None``.
 
+K6 and K9 (and so ``make_fused_ax_sym`` and ``fused_rhs_f``) also take the
+JAX package's bfloat16 payload (``rhs_payload_dtype="bfloat16"``): a
+bfloat16 column table ``xcol`` (x cast once a call) beside the row side
+``x`` (float32, or bfloat16 under the bf16 ODE state). q comes from x in
+float32; the gathered values from ``xcol``; k from ``xcol`` as the JAX
+package's composition computes ``k_e = x[col] @ Kw.astype(bf16) +
+kb.astype(bf16)`` in bfloat16 (:func:`bf16_k_table`), and its derivative
+is the bf16-rounded Kw. Every sum and output stays float32; the
+backward treats each cast as the identity.
+
 The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K17
 walks its CSC view); the kernels gather their node rows themselves (see
 ``csrc/fused_rhs.cu`` for what bounds them on the H100). On a CUDA tensor a
@@ -139,6 +149,39 @@ def _node_sum(n: int, index: torch.Tensor, vals: torch.Tensor):
                        device=vals.device).index_add(0, index, vals)
 
 
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest even), back in its dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def bf16_k_table(xcol: torch.Tensor, kw: torch.Tensor,
+                 kb: torch.Tensor) -> torch.Tensor:
+    """k [N, ATT] of a bfloat16 column table, rounded as the JAX package's
+    bf16 payload rounds ``x[col] @ Kw.astype(bf16) + kb.astype(bf16)``:
+    the product of the bf16 rows with the bf16-rounded Kw, rounded to
+    bfloat16, then its sum with the bf16-rounded kb rounded again. The
+    product is summed in float64 (exact for products of bfloat16 values at
+    these widths, as the kernels sum it), so its rounding does not hang on
+    the order of a float32 sum. The values in Kw's dtype (float64 for a
+    float64 reference: the same values)."""
+    prod = (xcol.double() @ bf16_round(kw).double()).float()
+    k = bf16_round(bf16_round(prod) + bf16_round(kb).float())
+    return k.to(kw.dtype)
+
+
+def _col_side(x, xcol, kw, kb, c):
+    """What an edge reads at its column: (the row side x in the weights'
+    float type, the gathered values [E, D], the k rows [E, ATT], the Kw
+    that is k's derivative). Without ``xcol`` the float32 path: x[c] and its per-edge
+    projection; with it the bfloat16 column table and its k table."""
+    if xcol is None:
+        xe = x[c]
+        return x, xe, xe @ kw + kb, kw
+    wide = kw.dtype
+    return (x.to(wide), xcol.to(wide)[c], bf16_k_table(xcol, kw, kb)[c],
+            bf16_round(kw))
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -146,15 +189,16 @@ def _node_sum(n: int, index: torch.Tensor, vals: torch.Tensor):
 def fused_rhs_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, *,
                         heads: int, score: str, var=None, ls=None,
                         shifts=None, square_plus: bool = False, alpha=None,
-                        want_num: bool = False):
+                        want_num: bool = False, xcol=None):
     """Plain version of K6: gathers, a per-head loop of ``index_add`` sums
-    and the head-mean divide, in float32."""
+    and the head-mean divide, in float32 (with ``xcol`` the values and k
+    from that bfloat16 column table, see :func:`_col_side`)."""
     nv, r, c = _edges(rowptr, row, col)
     n, d = x.shape
-    xe = x[c]
+    x, xe, ke, _ = _col_side(x, xcol, kw, kb, c)
     slices = head_slices(score, heads)
     src = (x @ qw + qb)[r].reshape(nv, slices, -1)
-    ke = (xe @ kw + kb).reshape(nv, slices, -1)
+    ke = ke.reshape(nv, slices, -1)
     u, _ = _u_duds(_shifted(edge_scores(src, ke, score, var, ls), gmax,
                             shifts, nv), square_plus)
     den = _node_sum(n, r, u)
@@ -205,15 +249,16 @@ def _shifted(s, gmax, shifts, nv):
 
 def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                ct_den, *, heads, score, var, ls, shifts, square_plus,
-               by_col):
+               by_col, xcol=None):
     """The per-edge backward of both normalisations: ``recip_p`` and
     ``ct_den`` are read at each edge's softmax group, its row or
-    (``by_col``) its column. Returns fused_rhs_bwd_plain's tuple."""
+    (``by_col``) its column. Returns fused_rhs_bwd_plain's tuple; with
+    ``xcol`` (see :func:`_col_side`) dxg, dkw and dkb are those of the
+    bfloat16 column table's values and k."""
     nv, r, c = _edges(rowptr, row, col)
-    n, d = x.shape
-    xe = x[c]
-    s, pullback = _scores_vjp((x @ qw + qb)[r], xe @ kw + kb, score, heads,
-                              var, ls)
+    n, d = ct_ax.shape
+    x, xe, ke, kw = _col_side(x, xcol, kw, kb, c)
+    s, pullback = _scores_vjp((x @ qw + qb)[r], ke, score, heads, var, ls)
     u, duds = _u_duds(_shifted(s, gmax, shifts, nv), square_plus)
     group = c if by_col else r
     rg = recip_p[group]
@@ -221,7 +266,8 @@ def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     ds = (rg * dot + ct_den[group]) * duds
     dsrc, dke, *dextra = pullback(ds)
     dq = _node_sum(n, r, dsrc)
-    dxg = torch.zeros((row.shape[0], d), dtype=x.dtype, device=x.device)
+    dxg = torch.zeros((row.shape[0], d), dtype=ct_ax.dtype,
+                      device=x.device)
     dxg[:nv] = (torch.sum(u * rg, dim=1, keepdim=True) * ct_ax[r]
                 + dke @ kw.T)
     dvar, dls = dextra if dextra else (None, None)
@@ -256,13 +302,16 @@ def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 
 def fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                             recip_p, ct_den, *, heads: int, score: str,
-                            var=None, ls=None, square_plus: bool = False):
+                            var=None, ls=None, square_plus: bool = False,
+                            xcol=None):
     """Plain version of K9: K8's outputs with the per-edge ``dxg`` summed
     over columns into ``dxrow`` [N, D] (on a symmetric edge multiset the
-    kernel reaches the same sum through each edge's reverse edge)."""
-    dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_plain(
+    kernel reaches the same sum through each edge's reverse edge); with
+    ``xcol`` over the bfloat16 column table (:func:`_col_side`)."""
+    dq, dxg, dkw, dkb, dgmax, dvar, dls = _bwd_plain(
         rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-        heads=heads, score=score, var=var, ls=ls, square_plus=square_plus)
+        heads=heads, score=score, var=var, ls=ls, shifts=None,
+        square_plus=square_plus, by_col=False, xcol=xcol)
     nv, _, c = _edges(rowptr, row, col)
     return dq, _node_sum(x.shape[0], c, dxg[:nv]), dkw, dkb, dgmax, dvar, dls
 
@@ -359,12 +408,13 @@ def fused_rhs_bwd_heads_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax,
 # ---------------------------------------------------------------------------
 
 def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
-           var=None, ls=None, extra=()):
+           var=None, ls=None, extra=(), xcol=None):
     """Device, type, shape and contiguity of what the kernels read.
     ``extra`` is (name, tensor, shape) for the call's own float operands.
     The kernels are float32; on the CPU the plain versions also take
-    float64 operands (all of one type). For exp_kernel_beltrami ``att`` is
-    the packed width of both halves."""
+    float64 operands (all of one type). With a bfloat16 column table
+    ``xcol`` (K6, K9) x may be float32 or bfloat16. For
+    exp_kernel_beltrami ``att`` is the packed width of both halves."""
     dev = x.device
     if score not in SCORES:
         raise ValueError(f"{name}: unknown score family '{score}'")
@@ -383,6 +433,9 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
             ("col", col, row.shape))
     floats = [("x", x, (n, d)), ("qw", qw, (d, att)), ("qb", qb, (att,)),
               ("kw", kw, (d, att)), ("kb", kb, (att,)), *extra]
+    if xcol is not None:
+        _check_tables(name, x, xcol)
+        floats = floats[1:]
     if score in SCALARS:
         if var is None or ls is None:
             raise ValueError(f"{name}: {score} needs var and ls")
@@ -417,6 +470,38 @@ def _check_operands(name, dev, ints, floats):
         raise NotImplementedError(f"{name}: no kernel for {dev}")
 
 
+def _check_tables(name, x, xcol):
+    """The bfloat16 column table of K6 and K9 beside the row side x."""
+    if xcol.dtype != torch.bfloat16 or x.dtype not in (torch.float32,
+                                                       torch.bfloat16):
+        raise TypeError(f"{name}: the column table must be bfloat16 and x "
+                        f"float32 or bfloat16, not {xcol.dtype} and "
+                        f"{x.dtype}")
+    if xcol.device != x.device or xcol.shape != x.shape:
+        raise ValueError(f"{name}: the column table {tuple(xcol.shape)} on "
+                         f"{xcol.device} must match x {tuple(x.shape)} on "
+                         f"{x.device}")
+    if not (x.is_contiguous() and xcol.is_contiguous()):
+        raise ValueError(f"{name}: x and the column table must be "
+                         "contiguous")
+
+
+def _tables(x, xcol) -> int:
+    """The C entry points' TABLES code: 0 float32, 1 a float32 row side
+    beside a bfloat16 column table, 2 both bfloat16."""
+    if xcol is None:
+        return 0
+    return 1 if x.dtype == torch.float32 else 2
+
+
+def _col_projection(kw, kb, xcol):
+    """The Kw and kb a kernel's k table is projected with: as given, or
+    rounded to bfloat16 for a bfloat16 column table."""
+    if xcol is None:
+        return kw, kb
+    return bf16_round(kw).contiguous(), bf16_round(kb).contiguous()
+
+
 def _shared_bytes(name: str, floats_per_warp: int) -> None:
     if floats_per_warp * 4 * WARPS_PER_BLOCK > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: state width, attention_dim and heads "
@@ -442,27 +527,33 @@ def _flags(score: str, square_plus: bool) -> int:
 def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
                   score: str, var=None, ls=None, shifts=None,
                   square_plus: bool = False, alpha=None,
-                  want_num: bool = False):
+                  want_num: bool = False, xcol=None):
     """K6. Returns ``(ax [N, D], den [N, H], num)``; ``num`` [N, H·D], the
     per-head numerators the backward reads, only when ``want_num``. With
     ``alpha`` (a one-element tensor) the first output is instead the folded
     ``alpha (ax - x)``, NaN on every row whose ``den`` under- or overflowed
     (``den <= 0`` with edges, or non-finite). ``gmax`` is a one-element
-    tensor, ``shifts`` optional per-edge score shifts [E_pad, H]. ``row`` is
+    tensor, ``shifts`` optional per-edge score shifts [E_pad, H]. ``xcol``
+    is the bfloat16 column table (x cast to bfloat16; see the module
+    docstring), which the exact mode's ``shifts`` do not take. ``row`` is
     only read by the plain version. Not differentiable by itself."""
     n, d = x.shape
+    if xcol is not None and shifts is not None:
+        raise NotImplementedError(
+            "fused_rhs_fwd: per-edge shifts (the exact re-solve) with a "
+            "bfloat16 column table: ROADMAP Queue 2 B1 (K7)")
     extra = [("gmax", gmax, None)]
     if shifts is not None:
         extra.append(("shifts", shifts, (row.shape[0], heads)))
     if alpha is not None:
         extra.append(("alpha", alpha, None))
     _check("fused_rhs_fwd", rowptr, row, col, x, qw, qb, kw, kb, heads,
-           score, var, ls, extra)
+           score, var, ls, extra, xcol)
     kwargs = dict(heads=heads, score=score, var=var, ls=ls, shifts=shifts,
                   square_plus=square_plus, alpha=alpha, want_num=want_num)
     if x.device.type == "cpu":
         return fused_rhs_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
-                                   **kwargs)
+                                   xcol=xcol, **kwargs)
     att = qw.shape[1]
     _shared_bytes("fused_rhs_fwd", 2 * d + 2 * att + heads * d)
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
@@ -470,13 +561,16 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
     num = (torch.empty((n, heads * d), dtype=torch.float32, device=x.device)
            if want_num else None)
     tabs = _node_tables(x, att)
+    kw, kb = _col_projection(kw, kb, xcol)
     build.launch("fused_rhs_fwd", x.device, rowptr.data_ptr(),
-                 col.data_ptr(), x.data_ptr(), qw.data_ptr(), qb.data_ptr(),
-                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
-                 _ptr(ls), _ptr(shifts), _ptr(alpha), tabs[0].data_ptr(),
-                 tabs[1].data_ptr(), out.data_ptr(), den.data_ptr(),
-                 _ptr(num), n, d, att, heads, _flags(score, square_plus))
+                 col.data_ptr(), x.data_ptr(), _ptr(xcol), qw.data_ptr(),
+                 qb.data_ptr(), kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(),
+                 _ptr(var), _ptr(ls), _ptr(shifts), _ptr(alpha),
+                 tabs[0].data_ptr(), tabs[1].data_ptr(), out.data_ptr(),
+                 den.data_ptr(), _ptr(num), n, d, att, heads,
+                 _flags(score, square_plus), _tables(x, xcol))
     fused_rhs_fwd.launches += 1
+    fused_rhs_fwd.bf16_launches += xcol is not None
     return out, den, num
 
 
@@ -591,20 +685,25 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
 
 def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                       recip_p, ct_den, *, heads: int, score: str, var=None,
-                      ls=None, square_plus: bool = False):
+                      ls=None, square_plus: bool = False, xcol=None):
     """K9: the backward over a SYMMETRIC edge multiset (the caller checks
     ``Graph.rev is not None``): returns (dq, dxrow [N, D], dkw, dkb, dgmax,
     dvar, dls) with ``dxrow`` the whole x[col] cotangent. No per-edge array
     is written and no reverse-edge map is read: each edge (n, c) also
-    evaluates its reverse edge (c, n) from node rows gathered at c."""
+    evaluates its reverse edge (c, n) from node rows gathered at c. With
+    the bfloat16 column table ``xcol`` (K6's), ``dxrow`` is the cotangent
+    of that table's values and k (through the bf16-rounded Kw), taken as
+    x's, and dkw is reduced over the table."""
     _check("fused_rhs_bwd_sym", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
-           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0))
+           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0),
+           xcol)
     kwargs = dict(heads=heads, score=score, var=var, ls=ls,
                   square_plus=square_plus)
     if x.device.type == "cpu":
         return fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb,
-                                       gmax, ct_ax, recip_p, ct_den, **kwargs)
+                                       gmax, ct_ax, recip_p, ct_den,
+                                       xcol=xcol, **kwargs)
     n, d = x.shape
     att = qw.shape[1]
     _shared_bytes("fused_rhs_bwd_sym", 5 * d + 6 * att + 20 * heads)
@@ -616,18 +715,21 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
     row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     blocks = _reduce_blocks(n)
+    kw, kb = _col_projection(kw, kb, xcol)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
                            device=dev)
     build.launch("fused_rhs_bwd_sym", dev, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
-                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
-                 ct_ax.data_ptr(), recip_p.data_ptr(), ct_den.data_ptr(),
-                 kw_t.data_ptr(), tabs[0].data_ptr(), tabs[1].data_ptr(),
-                 dq.data_ptr(), dxrow.data_ptr(), dkn.data_ptr(),
-                 row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
-                 _flags(score, square_plus), blocks)
+                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
+                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
+                 _ptr(ls), ct_ax.data_ptr(), recip_p.data_ptr(),
+                 ct_den.data_ptr(), kw_t.data_ptr(), tabs[0].data_ptr(),
+                 tabs[1].data_ptr(), dq.data_ptr(), dxrow.data_ptr(),
+                 dkn.data_ptr(), row_sums.data_ptr(), partials.data_ptr(), n,
+                 d, att, heads, _flags(score, square_plus), blocks,
+                 _tables(x, xcol))
     fused_rhs_bwd_sym.launches += 1
+    fused_rhs_bwd_sym.bf16_launches += xcol is not None
     return ((dq, dxrow) + _dk_sums(partials, d)
             + _row_totals(row_sums, score, var, ls))
 
@@ -829,6 +931,9 @@ fused_rhs_fwd.launches = 0
 fused_rowmax.launches = 0
 fused_rhs_bwd.launches = 0
 fused_rhs_bwd_sym.launches = 0
+# the launches on a bfloat16 column table, among each one's own
+fused_rhs_fwd.bf16_launches = 0
+fused_rhs_bwd_sym.bf16_launches = 0
 fused_rhs_bwd_col.launches = 0
 fused_aggregate.launches = 0
 fused_score_max.launches = 0
@@ -877,27 +982,31 @@ class _FusedAx(torch.autograd.Function):
       the one backward that takes per-edge ``shifts``).
 
     Residuals: the inputs, ``den`` and the per-head numerators ``num`` that
-    K6 flushes when a gradient is wanted."""
+    K6 flushes when a gradient is wanted. With a ``payload`` dtype
+    (bfloat16, the ``sym`` engine only) K6 and K9 read the column table x
+    cast to it, recast in the backward rather than kept; ax and den are
+    float32 and x's gradient comes back in x's dtype."""
 
     @staticmethod
     def forward(ctx, qw, qb, kw, kb, x, gmax, var, ls, shifts, g, engine,
-                heads, square_plus, score):
+                heads, square_plus, score, payload):
         want = any(ctx.needs_input_grad)
         ax, den, num = fused_rhs_fwd(
             g.rowptr, g.row, g.col, x, qw, qb, kw, kb, gmax, heads=heads,
             score=score, var=var, ls=ls, shifts=shifts,
-            square_plus=square_plus, want_num=want)
+            square_plus=square_plus, want_num=want,
+            xcol=_column_table(x, payload))
         ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, shifts, den,
                               num)
         ctx.g = g
-        ctx.opts = (engine, heads, square_plus, score)
+        ctx.opts = (engine, heads, square_plus, score, payload)
         return ax, den
 
     @staticmethod
     def backward(ctx, ct_ax, ct_den_in):
         qw, qb, kw, kb, x, gmax, var, ls, shifts, den, num = ctx.saved_tensors
         g = ctx.g
-        engine, heads, square_plus, score = ctx.opts
+        engine, heads, square_plus, score, payload = ctx.opts
         ct_ax = ct_ax.contiguous()
         recip_p, ct_den = _node_cotangents(ct_ax, ct_den_in, num, den, heads)
         csr = (g.rowptr, g.row, g.col)
@@ -906,7 +1015,7 @@ class _FusedAx(torch.autograd.Function):
         if engine == "sym":
             dq, dx, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_sym(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                **kwargs)
+                xcol=_column_table(x, payload), **kwargs)
         elif engine == "col":
             dq, _, _, _, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
@@ -920,8 +1029,15 @@ class _FusedAx(torch.autograd.Function):
                 shifts=shifts, **kwargs)
             dx = column_sum(g, dxg)
         dx = dx + dq @ qw.T
-        return (x.T @ dq, torch.sum(dq, dim=0), dkw, dkb, dx,
-                dgmax.reshape(gmax.shape), dvar, dls) + (None,) * 6
+        return (x.float().T @ dq, torch.sum(dq, dim=0), dkw, dkb,
+                dx.to(x.dtype), dgmax.reshape(gmax.shape), dvar,
+                dls) + (None,) * 7
+
+
+def _column_table(x: torch.Tensor, payload) -> Optional[torch.Tensor]:
+    """K6's and K9's column table: None for the float32 path, else x cast
+    to the payload dtype (which the kernels' checks hold to bfloat16)."""
+    return None if payload is None else x.to(payload).contiguous()
 
 
 def _check_sorted(g, name: str) -> None:
@@ -938,13 +1054,17 @@ def fused_rhs_ax(g, heads: int, square_plus: bool, score: str, qw, qb, kw,
     _check_sorted(g, "fused_rhs_ax")
     var, ls = score_scalars(score, score_params)
     return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                          shifts, g, "dxg", heads, square_plus, score)
+                          shifts, g, "dxg", heads, square_plus, score, None)
 
 
-def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str):
+def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str,
+                      payload_dtype: torch.dtype = None):
     """``op(qw, qb, kw, kb, x, gmax, score_params) -> (ax, den)`` for a
     SYMMETRIC edge multiset, whose backward (K9) returns x's total gradient
-    with no reverse-edge map and no per-edge array."""
+    with no reverse-edge map and no per-edge array. ``payload_dtype``
+    (None or ``torch.bfloat16``, the JAX package's ``pay_dt``) is the dtype
+    of the column table K6 and K9 read; x is float32, or bfloat16 under the
+    bf16 ODE state."""
     _check_sorted(g, "make_fused_ax_sym")
     if g.rev is None:
         raise ValueError(
@@ -955,7 +1075,8 @@ def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str):
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
         var, ls = score_scalars(score, score_params)
         return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                              None, g, "sym", heads, square_plus, score)
+                              None, g, "sym", heads, square_plus, score,
+                              payload_dtype)
 
     return op
 
@@ -972,7 +1093,7 @@ def make_fused_ax_colplan(g, heads: int, square_plus: bool, score: str):
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
         var, ls = score_scalars(score, score_params)
         return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                              None, g, "col", heads, square_plus, score)
+                              None, g, "col", heads, square_plus, score, None)
 
     return op
 
@@ -987,25 +1108,33 @@ def den_guard(den: torch.Tensor, rowptr: torch.Tensor, per_row: bool):
 
 
 def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
-                score_params=()):
+                score_params=(), payload_dtype: torch.dtype = None):
     """f [N, D] = alpha (ax - x) with the per-row guard, folded into K6's
     final write: the no-grad solves' RHS. Under autograd it is the unfolded
     composition with the same per-row guard, so a stray gradient through an
-    eval-mode model is K8's."""
+    eval-mode model is K8's (K9's with a payload dtype, whose column table
+    K6 reads as :func:`make_fused_ax_sym` does). f is float32."""
     _check_sorted(g, "fused_rhs_f")
     rowptr, row, col = g.rowptr, g.row, g.col
     gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
     tensors = (qw, qb, kw, kb, x, alpha, *score_params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        ax, den = fused_rhs_ax(g, heads, False, score, qw, qb, kw, kb, x,
-                               gmax, None, score_params)
+        if payload_dtype is None:
+            ax, den = fused_rhs_ax(g, heads, False, score, qw, qb, kw, kb, x,
+                                   gmax, None, score_params)
+        else:
+            ax, den = make_fused_ax_sym(g, heads, False, score,
+                                        payload_dtype)(qw, qb, kw, kb, x,
+                                                       gmax, score_params)
         bad = den_guard(den, rowptr, per_row=True)
         return alpha * (torch.where(bad, torch.full_like(ax, torch.nan), ax)
                         - x)
     var, ls = score_scalars(score, score_params)
-    f, _, _ = fused_rhs_fwd(rowptr, row, col, x.contiguous(), qw, qb, kw, kb,
+    x = x.contiguous()
+    f, _, _ = fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb,
                             gmax, heads=heads, score=score, var=var, ls=ls,
-                            alpha=alpha.reshape(1))
+                            alpha=alpha.reshape(1),
+                            xcol=_column_table(x, payload_dtype))
     return f
 
 
@@ -1046,8 +1175,13 @@ def fused_rhs_aggregate(g, heads: int, square_plus: bool, score: str, qw, qb,
     x_g, gmax and the score's scalars (``score_params`` as
     :func:`score_scalars` takes them): K18 forward, K8's per-head mode
     backward. The JAX package's op of the same name returns den padded to
-    max(8, H) columns; this one returns its H columns."""
+    max(8, H) columns; this one returns its H columns. A bfloat16 payload
+    raises: K18, K19 and the per-head mode take none yet."""
     _check_sorted(g, "fused_rhs_aggregate")
+    if torch.bfloat16 in (x_n.dtype, x_g.dtype):
+        raise NotImplementedError(
+            "fused_rhs_aggregate: a bfloat16 payload (K18, K19, K8's "
+            "per-head mode): ROADMAP Queue 2 B1")
     var, ls = score_scalars(score, score_params)
     return _FusedAggregate.apply(qw, qb, kw, kb, x_n.contiguous(),
                                  x_g.contiguous(), gmax, var, ls, g, heads,

@@ -40,6 +40,7 @@ from graph_neural_pde_tpu_torch.models.attention import (
 from graph_neural_pde_tpu_torch.models.functions import (FuncAux, ODEFunc,
                                                          func_from_tensors,
                                                          func_tensors,
+                                                         laplacian_payload,
                                                          make_rhs,
                                                          rhs_may_poison)
 from graph_neural_pde_tpu_torch.ops.graph import Graph, get_rw_adj
@@ -47,7 +48,8 @@ from graph_neural_pde_tpu_torch.ops.plan import (build_block_plan,
                                                  transpose_plan)
 from graph_neural_pde_tpu_torch.ops.scatter import normalize_attention
 from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
-from graph_neural_pde_tpu_torch.solvers.api import (SolverOptions, odeint,
+from graph_neural_pde_tpu_torch.solvers.api import (FIXED_METHODS,
+                                                    SolverOptions, odeint,
                                                     odeint_adjoint)
 
 BLOCK_NAMES = ("constant", "attention", "mixed", "hard_attention")
@@ -68,7 +70,8 @@ def build_spmm_engine(cfg: Config, g: Graph) -> Tuple[Callable, int]:
     """The laplacian aggregation engine of a prepared graph, and the node
     count the ODE state is padded to.
 
-    * ``xla``: ``ops.spmm.make_spmm`` over the row-sorted graph (K1/K2).
+    * ``xla``: ``ops.spmm.make_spmm`` over the row-sorted graph (K1/K2),
+      reading x in the bfloat16 payload where the laplacian asks for it.
     * ``pallas_blocked``: the blocked plan pair of the graph's valid edges
       (``kernels.blocked``: K15, its dx on the transposed plan, K16 for dw),
       for the laplacian function only, as in the JAX package. The plan pads
@@ -78,12 +81,13 @@ def build_spmm_engine(cfg: Config, g: Graph) -> Tuple[Callable, int]:
       order and reaches plan order with one gather through a host-built
       slot map, and returns dw in the graph's order.
     """
+    pay = laplacian_payload(cfg)
     if cfg.spmm_impl != "pallas_blocked" or cfg.function != "laplacian":
-        return make_spmm(g), g.num_nodes
+        return make_spmm(g, pay), g.num_nodes
     if cfg.rewire_KNN or cfg.edge_sampling or cfg.fa_layer:
         print("[spmm] pallas_blocked disabled: runtime rewiring would stale "
               "the static block plan", file=sys.stderr)
-        return make_spmm(g), g.num_nodes
+        return make_spmm(g, pay), g.num_nodes
     mask = g.mask.cpu().numpy()
     slots = np.nonzero(mask)[0]
     plan, tags = build_block_plan(
@@ -243,7 +247,8 @@ def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
     and the solve is then repeated with the exact per-row softmax."""
     aux, keep = build_aux(block, cfg, g, x, training)
     if keep is not None:
-        spmm_fn = _masked_spmm(spmm_fn or make_spmm(g), keep)
+        spmm_fn = _masked_spmm(spmm_fn or make_spmm(g, laplacian_payload(cfg)),
+                               keep)
         g = g.with_mask(keep)
 
     def solve(exact_softmax: bool):
@@ -257,15 +262,34 @@ def block_forward(block: ODEBlock, cfg: Config, g: Graph, x: torch.Tensor,
     return z, stats
 
 
+def low_precision_state(cfg: Config) -> bool:
+    """True when the solve carries a bfloat16 state: ``dtype="bfloat16"``
+    on a fixed grid (an adaptive controller's error estimate in bfloat16
+    would thrash its step size, so adaptive methods keep float32, as in
+    the JAX package)."""
+    return cfg.dtype == "bfloat16" and cfg.method in FIXED_METHODS
+
+
 def _solve(block: ODEBlock, cfg: Config, aux: FuncAux, rhs: Callable,
            x: torch.Tensor, training: bool) -> Tuple[torch.Tensor, dict]:
+    """The solve of ``block_forward``. Under the bfloat16 state
+    (:func:`low_precision_state`) the state starts as x cast to bfloat16,
+    each RHS output is cast to the state's dtype, every stage sum rounds
+    back to bfloat16 (``solvers.rk.axpy``), and z comes back in float32,
+    as the JAX package's ``block_forward`` runs its fixed-grid solves."""
     opts = SolverOptions.from_config(cfg)
+    lowp = low_precision_state(cfg)
+    state0 = x.to(torch.bfloat16) if lowp else x
+
+    def as_state(out, y):
+        return out.to(y.dtype) if lowp else out
 
     if not (cfg.adjoint and training):
         def func(t, y):
-            return rhs(block.func, aux, t, y)
+            return as_state(rhs(block.func, aux, t, y), y)
 
-        return odeint(func, x, 0.0, cfg.time, opts)
+        z, stats = odeint(func, state0, 0.0, cfg.time, opts)
+        return (z.float() if lowp else z), stats
 
     # The continuous adjoint integrates a cotangent for every parameter
     # tensor of the RHS, in the JAX package's leaf order: attention, x0,
@@ -282,8 +306,9 @@ def _solve(block: ODEBlock, cfg: Config, aux: FuncAux, rhs: Callable,
 
     def func_p(t, y, p):
         att, p = (p[0], p[1:]) if has_att else (None, p)
-        return rhs(func_from_tensors(block.func, p[2:]),
-                   FuncAux(att, p[0], p[1]), t, y)
+        return as_state(rhs(func_from_tensors(block.func, p[2:]),
+                            FuncAux(att, p[0], p[1]), t, y), y)
 
-    return odeint_adjoint(func_p, x, params, 0.0, cfg.time, opts,
-                          SolverOptions.from_config(cfg, adjoint=True))
+    z, stats = odeint_adjoint(func_p, state0, params, 0.0, cfg.time, opts,
+                              SolverOptions.from_config(cfg, adjoint=True))
+    return (z.float() if lowp else z), stats

@@ -14,6 +14,14 @@ column-side passes walk the graph's CSC view. BLEND's split-space attention
 (``models.attention.is_beltrami``) runs in every fused engine as the score
 family ``exp_kernel_beltrami`` over the block-structured projections of
 :func:`pack_beltrami`, and in every composition as its own scores.
+
+``rhs_payload_dtype="bfloat16"`` (:func:`payload_dtype`) makes the
+laplacian's aggregation (K1/K2) and the transformer's plain row softmax
+over a symmetric graph (K6/K9, ``make_fused_ax_sym`` and ``fused_rhs_f``)
+read their gathered column tables in bfloat16, where the JAX package sets
+its ``pay_dt``; ``models.gnn.check_supported`` refuses the mode on every
+other route, and ``make_rhs`` on the routes a graph or a re-solve reaches
+at run time.
 """
 
 from __future__ import annotations
@@ -150,6 +158,68 @@ def _source(cfg: Config, func, f: torch.Tensor, aux: FuncAux):
     return f
 
 
+def payload_dtype(cfg: Config) -> Optional[torch.dtype]:
+    """The dtype of the gathered column tables: ``torch.bfloat16`` for
+    ``rhs_payload_dtype="bfloat16"`` (the JAX package's ``pay_dt``), else
+    None (the state's own dtype)."""
+    return torch.bfloat16 if cfg.rhs_payload_dtype == "bfloat16" else None
+
+
+def low_precision(cfg: Config) -> bool:
+    """True when the bfloat16 payload or the bfloat16 state is asked for."""
+    return cfg.rhs_payload_dtype == "bfloat16" or cfg.dtype == "bfloat16"
+
+
+def bf16_refusal(cfg: Config) -> Optional[str]:
+    """The route of ``cfg`` whose kernels do not take the bfloat16 payload
+    or state yet (ROADMAP Queue 2 B1), or None. The mode runs on the
+    laplacian's K1/K2 and on the transformer's plain row softmax over a
+    symmetric graph (K6/K9); :func:`make_rhs` also refuses what a graph or
+    a re-solve reaches at run time (a directed graph, the exact re-solve)."""
+    if not low_precision(cfg):
+        return None
+    if cfg.function == "laplacian":
+        if cfg.spmm_impl == "pallas_blocked":
+            return "the blocked engine (K15/K16)"
+        return None
+    if cfg.function == "GAT":
+        return "the GAT RHS (K10/K11)"
+    if not fused_attention(cfg) and cfg.attention_norm_idx == 1:
+        return "the softmax over columns (K12-K14, or K1-K4 composed)"
+    if not fused_attention(cfg):
+        return "the composed transformer RHS (K1-K4)"
+    if cfg.square_plus or cfg.reweight_attention:
+        return "squareplus or reweighted attention (K10/K11)"
+    if cfg.block == "hard_attention":
+        return "hard attention over the function's layer (K10/K11)"
+    if cfg.sym_backward is False:
+        return "the column-plan backward (K8 + K17)"
+    return None
+
+
+def _refuse_bf16(cfg: Config, g: Graph, exact_softmax: bool) -> None:
+    """Raise where make_rhs would reach a kernel without the bfloat16
+    mode: :func:`bf16_refusal`'s routes, and, at run time, the transformer
+    RHS's exact re-solve and a directed graph's column-plan backward."""
+    if not low_precision(cfg):
+        return
+    route = bf16_refusal(cfg)
+    if route is None and cfg.function == "transformer":
+        if exact_softmax:
+            route = "the exact re-solve of a poisoned solve (K7, K8)"
+        elif g.rev is None:
+            route = "a directed graph's column-plan backward (K8 + K17)"
+    if route is not None:
+        raise NotImplementedError(
+            f"bfloat16 payload or state on {route}: ROADMAP Queue 2 B1")
+
+
+def laplacian_payload(cfg: Config) -> Optional[torch.dtype]:
+    """The payload dtype of the SpMM engine (K1/K2): the JAX package routes
+    its bf16 payload through the laplacian aggregation only."""
+    return payload_dtype(cfg) if cfg.function == "laplacian" else None
+
+
 def fused_attention(cfg: Config) -> bool:
     """True when the transformer or GAT RHS folds the row normalisation
     into the aggregation (K6-K9 for the transformer's plain softmax,
@@ -254,6 +324,10 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     att = func.att
     h, score = cfg.heads, score_family(cfg)
     sp = score_params(att, cfg)
+    # the column table's dtype, as the JAX package sets pay_dt: the bf16
+    # payload, or a bf16 state's own
+    pay = payload_dtype(cfg) or (torch.bfloat16
+                                 if x.dtype == torch.bfloat16 else None)
     if cfg.attention_norm_idx == 1:
         # the softmax over columns (``norm1_fused_ok`` on a symmetric edge
         # multiset; make_rhs sends no other column-normalised config here):
@@ -277,13 +351,14 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
     qw, qb, kw, kb = _projections(att, cfg, x.shape[1])
     if eval_fold and not exact_softmax:
-        f = fused_rhs_f(g, h, score, qw, qb, kw, kb, x, _alpha(cfg, func), sp)
+        f = fused_rhs_f(g, h, score, qw, qb, kw, kb, x, _alpha(cfg, func), sp,
+                        payload_dtype=pay)
         return _source(cfg, func, f, aux)
     gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
     use_sym = cfg.sym_backward if cfg.sym_backward is not None else True
     if use_sym and g.rev is not None and not exact_softmax:
-        ax, den = make_fused_ax_sym(g, h, False, score)(qw, qb, kw, kb, x,
-                                                        gmax, sp)
+        ax, den = make_fused_ax_sym(g, h, False, score, pay)(qw, qb, kw, kb,
+                                                             x, gmax, sp)
     elif not exact_softmax:
         ax, den = make_fused_ax_colplan(g, h, False, score)(qw, qb, kw, kb,
                                                             x, gmax, sp)
@@ -391,8 +466,9 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
     ``rhs_may_poison``). ``eval_fold`` folds alpha·(ax − x) and a per-row
     guard into K6's final write on no-grad solves."""
     check_function(cfg)
+    _refuse_bf16(cfg, g, exact_softmax)
     if spmm_fn is None:
-        spmm_fn = make_spmm(g)
+        spmm_fn = make_spmm(g, laplacian_payload(cfg))
 
     if cfg.function == "laplacian":
 

@@ -32,7 +32,8 @@ from graph_neural_pde_tpu_torch.models.blocks import (SPMM_IMPLS, ODEBlock,
                                                       build_spmm_engine,
                                                       check_block,
                                                       prepare_graph)
-from graph_neural_pde_tpu_torch.models.functions import check_function
+from graph_neural_pde_tpu_torch.models.functions import (bf16_refusal,
+                                                         check_function)
 from graph_neural_pde_tpu_torch.models.layers import BatchNorm, Linear, dropout
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.solvers.api import check_method
@@ -61,7 +62,10 @@ def check_supported(cfg: Config) -> None:
     constant, attention, mixed and hard_attention blocks, BLEND (``beltrami``:
     the dual encoder and the split-space attention), and the ``two_hop``,
     ``gdc`` and ``pos_enc_knn`` rewirings, whose directed graphs every one
-    of these runs on)."""
+    of these runs on). The bfloat16 payload and fixed-grid state run on the
+    laplacian (K1/K2) and on the transformer's plain row softmax over a
+    symmetric graph (K6/K9); ``functions.bf16_refusal`` names the routes
+    that raise."""
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
@@ -73,10 +77,14 @@ def check_supported(cfg: Config) -> None:
     if cfg.spmm_impl not in SPMM_IMPLS:
         raise ValueError(f"unknown spmm_impl {cfg.spmm_impl!r} (expected "
                          f"one of {SPMM_IMPLS})")
-    if cfg.dtype != "float32" or cfg.rhs_payload_dtype != "float32":
+    for field in ("dtype", "rhs_payload_dtype"):
+        if getattr(cfg, field) not in ("float32", "bfloat16"):
+            raise ValueError(f"{field} {getattr(cfg, field)!r} (float32 or "
+                             "bfloat16)")
+    route = bf16_refusal(cfg)
+    if route is not None:
         raise NotImplementedError(
-            "bfloat16 state or payload: the port's kernels are float32 "
-            "(ROADMAP Queue 3)")
+            f"bfloat16 payload or state on {route}: ROADMAP Queue 2 B1")
     check_function(cfg)
     if cfg.optimizer not in OPTIMIZERS:
         raise NotImplementedError(

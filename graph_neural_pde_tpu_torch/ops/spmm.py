@@ -12,6 +12,10 @@ of the framework, run once per ODE right-hand-side evaluation.
   ``_make_stripe_spmm_sym`` on a symmetric edge multiset and, on a directed
   one, dx = A^T ct as ``csr_spmm`` walked over the CSC view (the JAX
   package's stripe scatter over its column plan).
+  With ``payload_dtype=torch.bfloat16`` (the JAX package's
+  ``rhs_payload_dtype="bfloat16"``, ``make_stripe_spmm(g, plan,
+  payload_dtype)``) each matvec reads the x table in bfloat16 and its dx
+  the cotangent in bfloat16, both with float32 weights and sums.
 * :func:`spmm_multihead` and :func:`spmm_mean_heads` are the per-head and
   head-mean aggregations of ``mix_features``, on the same engine.
 """
@@ -62,38 +66,52 @@ class _Spmm(torch.autograd.Function):
     backward ``dx = A_w^T ct`` is one more ``csr_spmm`` launch
     (:func:`transpose_matvec`), and ``dw[e] = ct[row[e]] . x[col[e]]`` one
     ``edge_dot`` launch, zero on padding slots. Residuals are the inputs
-    (x, w) only."""
+    (x, w) only.
+
+    With a ``payload`` dtype the gathered tables are cast to it once a
+    matvec, as the JAX package's ``_make_stripe_spmm_sym`` gathers
+    ``x.astype(payload)[col]`` and ``ct.astype(payload)[col]``: the
+    forward reads x in it, dx the cotangent, dw x again (beside the float32
+    ``ct[row]``). Weights, sums and the output stay float32, and dx comes
+    back in x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, w, g, n_valid):
+    def forward(ctx, x, w, g, n_valid, payload):
         ctx.save_for_backward(x, w)
-        ctx.g, ctx.n_valid = g, n_valid
-        return csr_spmm(g.rowptr, g.row, g.col, w, x)
+        ctx.g, ctx.n_valid, ctx.payload = g, n_valid, payload
+        return csr_spmm(g.rowptr, g.row, g.col, w, _cast(x, payload))
 
     @staticmethod
     def backward(ctx, ct):
         x, w = ctx.saved_tensors
-        g = ctx.g
+        g, payload = ctx.g, ctx.payload
         ct = ct.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = transpose_matvec(g, w, ct)
+            dx = transpose_matvec(g, w, _cast(ct, payload)).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = edge_dot(g.row, g.col, ct, x, ctx.n_valid)
-        return dx, dw, None, None
+            dw = edge_dot(g.row, g.col, ct, _cast(x, payload), ctx.n_valid)
+        return dx, dw, None, None, None
 
 
-def make_spmm(g: Graph):
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if dtype is None else t.to(dtype).contiguous()
+
+
+def make_spmm(g: Graph, payload_dtype: torch.dtype = None):
     """``spmm_fn(x, w)`` over a prepared graph, directed or not, running
     the CUDA kernels on CUDA tensors (their plain versions on CPU tensors),
     differentiable in both x and w. Valid edges must be the row-sorted
     prefix that ``Graph.sort_by_row`` leaves; padding weights are never
-    read."""
+    read. ``payload_dtype`` (None or ``torch.bfloat16``) is the dtype the
+    x and cotangent tables are read in (see ``_Spmm``); x itself may be
+    float32 or bfloat16, and the output is float32."""
     _check_sorted(g)
     n_valid = g.num_valid
 
     def spmm_fn(x, w):
-        return _Spmm.apply(x.contiguous(), w.contiguous(), g, n_valid)
+        return _Spmm.apply(x.contiguous(), w.contiguous(), g, n_valid,
+                           payload_dtype)
 
     return spmm_fn
 

@@ -37,8 +37,9 @@ Slot order: a per-edge ``w`` is in the slot order of the graph handed to
 the factory (the port's row-sorted order for a prepared graph). The JAX
 package's ``block_n``, ``chunk``, the last-chunk padding and the ``axis_name``
 arguments are TPU or ``shard_map`` artifacts and have no counterpart;
-``payload_dtype`` other than float32 raises, as every kernel of the port
-is float32.
+``payload_dtype`` other than float32 raises, and so does a config with the
+bfloat16 payload or state in the ``_for`` dispatchers: the per-rank kernels
+take no bfloat16 table yet (ROADMAP Queue 2 B1).
 """
 
 from __future__ import annotations
@@ -188,8 +189,8 @@ def make_sharded_stripe_spmm(mesh: Mesh, g: Graph, *, payload_dtype=None
     replicated. The shards are ``spmm_fn.shards``."""
     if payload_dtype not in (None, torch.float32, "float32"):
         raise NotImplementedError(
-            f"payload_dtype {payload_dtype}: the port's kernels are float32 "
-            f"(ROADMAP Queue 3)")
+            f"payload_dtype {payload_dtype}: the per-rank kernels (K1 in "
+            f"table mode, K20) are float32 (ROADMAP Queue 2 B1)")
     shards = stripe_shards(mesh, g)
 
     def spmm_fn(x, w):
@@ -459,6 +460,11 @@ def make_sharded_fused_rhs_stream(mesh: Mesh, g: Graph, *, heads: int,
 # ---------------------------------------------------------------------------
 
 def _mode(cfg) -> str:
+    if "bfloat16" in (getattr(cfg, "rhs_payload_dtype", "float32"),
+                      getattr(cfg, "dtype", "float32")):
+        raise NotImplementedError(
+            "the bfloat16 payload or state on the sharded aggregations (K1 "
+            "in table mode, K20, K18): ROADMAP Queue 2 B1")
     mode = getattr(cfg, "shard_spmm_mode", "allreduce")
     if mode not in MODES:
         raise ValueError(f"shard_spmm_mode={mode!r} not in {MODES}")

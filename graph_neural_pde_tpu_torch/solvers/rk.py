@@ -29,8 +29,17 @@ def leaves(state) -> tuple:
 
 
 def axpy(s, x, y):
-    """y + s * x"""
-    return tmap(lambda xi, yi: yi + s * xi, x, y)
+    """y + s * x. A bfloat16 leaf (the bf16 fixed-grid state) is summed in
+    float32 and rounded back once, as the JAX package's fixed-grid axpy
+    computes ``(y + (dt * c) * k).astype(y.dtype)``: ``s`` as a 1-element
+    tensor promotes the product and the sum to float32 inside their own
+    kernels (a 0-d one would round the product to bfloat16)."""
+    def one(xi, yi):
+        if yi.dtype == torch.bfloat16:
+            return (yi + torch.as_tensor(s, device=yi.device).reshape(1)
+                    * xi).to(yi.dtype)
+        return yi + s * xi
+    return tmap(one, x, y)
 
 
 def lincomb(coeffs, xs):

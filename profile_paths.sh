@@ -2,8 +2,9 @@
 # Profiles the GRAND-nl and BLEND paths of chip_smoke.py on one CUDA card,
 # one `python3 -m graph_neural_pde_tpu_torch.profile` run each (a warm-up
 # epoch, then --epochs 3), in this order:
-#   (a) GRAND-nl at bench.py's widths over ogbn-arxiv-synthetic, softmax
-#       over rows; (q) (a) as BLEND at bench.py's BLEND widths (features 96,
+#   (v) GRAND-nl at bench.py's widths and precision (the bfloat16 payload
+#       and rk4 state) over ogbn-arxiv-synthetic, softmax over rows;
+#   (a) (v) in float32; (q) (a) as BLEND at bench.py's BLEND widths (features 96,
 #       positions 32) over its seeded N(0, 1) encoding of width 32;
 #   (h) (a) over columns; (r) (q) over columns;
 #   (n) GRAND-nl over the GDC-rewired Cora stand-in;
@@ -19,7 +20,8 @@
 set -euo pipefail
 cd "$(dirname "$0")"
 P="python3 -m graph_neural_pde_tpu_torch.profile --epochs 3 $*"
-ARXIV="--dataset ogbn-arxiv-synthetic"
+BENCH="--dataset ogbn-arxiv-synthetic"
+ARXIV="$BENCH --rhs_payload_dtype float32 --dtype float32"
 BLEND="--beltrami --attention_type exp_kernel --feat_hidden_dim 96
        --pos_enc_hidden_dim 32 --pos_enc_type DW32 --gaussian_pos_enc 7"
 NL="--dataset Cora --function transformer --block constant
@@ -29,6 +31,7 @@ run() {
     shift
     $P "$@"
 }
+run "(v)" $BENCH
 run "(a)" $ARXIV
 run "(q)" $ARXIV $BLEND
 run "(h)" $ARXIV --attention_norm_idx 1

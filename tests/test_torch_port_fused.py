@@ -555,7 +555,7 @@ class TestWrappers:
     @pytest.mark.parametrize("override", [
         dict(optimizer="adagrad"), dict(mesh_devices=2),
         dict(fa_layer=True), dict(edge_sampling=True),
-        dict(dtype="bfloat16"), dict(use_mlp=True)])
+        dict(dtype="bfloat16", square_plus=True), dict(use_mlp=True)])
     def test_unported_variants_raise(self, override):
         _, tcfg = _cfgs(**override)
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -238,7 +238,7 @@ class TestWrappers:
         xt, wt = torch.tensor(x), torch.tensor(w)
         rowptr = tg.rowptr
         if bad == "dtype":
-            xt = xt.double()
+            xt = xt.half()
         elif bad == "shape":
             rowptr = rowptr[:-1]
         else:
