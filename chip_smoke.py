@@ -92,13 +92,20 @@ Phases, each of which must pass (any failure exits nonzero):
    ``rhs_payload_dtype="bfloat16"``): K1 forward, K1 as dx and K2 as dw on
    bfloat16 tables (x, and for dx the cotangent, cast to bfloat16) on the
    Cora stand-in at D=80 and the arxiv-scale graph at D=128; K6 (with its
-   numerators, folded) and K9 on the bfloat16 column table at the Cora
-   GRAND-nl widths (D=80, ATT=128, H=8), at the arxiv scale (D=128,
-   ATT=32, H=2) with the row side bfloat16 too (the bench's bf16 state;
-   untimed with a float32 row side), and, untimed, for all five families
-   at D=16, ATT=16, H=4; each
-   against its plain version on the same tables (K9's in float64 beside
-   the bfloat16 table), two launches bit-identical.
+   numerators, with the exact mode's shifts, folded), K7, K8 and K9 on the
+   bfloat16 column table at the Cora GRAND-nl widths (D=80, ATT=128, H=8),
+   at the arxiv scale (D=128, ATT=32, H=2) with the row side bfloat16 too
+   (the bench's bf16 state; untimed with a float32 row side), and,
+   untimed, for all five families at D=16, ATT=16, H=4; on directed
+   graphs K6 (shifted too), K7, K8 and the column-plan backward (K8
+   without dxg, K17) on the bfloat16 column table: the GDC-rewired Cora
+   stand-in at D=80, ATT=128, H=8, the directed arxiv-scale graph at
+   D=128, ATT=32, H=2 with both row sides (the bf16 one timed), the
+   ``pos_enc_knn`` Cora graph at BLEND's (s) widths (K8 without dxg, K17)
+   and, untimed, all five families on the small random directed graph;
+   each against its plain version on the same tables (K8's, K9's and
+   K17's in float64 beside the bfloat16 table), two launches
+   bit-identical.
    Each check is timed: device time per call (torch.profiler after
    warm-up calls in the same session, mean of 20 calls; the device events
    of each call are counted by the launch they come from, and a session
@@ -126,7 +133,11 @@ Phases, each of which must pass (any failure exits nonzero):
    the tuned Cora row and Cora GRAND-nl (the softmax, squareplus, the GAT
    function) over one GDC-rewired (directed) edge list, built once on the
    card and handed to both devices; the tuned Cora row and Cora GRAND-nl
-   with the bfloat16 payload (within two bfloat16 steps of scale); BLEND (a seeded positional encoding,
+   with the bfloat16 payload, and Cora GRAND-nl with ``sym_backward=False``
+   (the column-plan backward) with the payload and at bench.py's
+   precision (the bf16 state too), all on rk4 (logits within 3e-4 of
+   their scale under the payload, within one bf16 step, 2^-8, of theirs
+   and of each gradient leaf's under the bf16 state); BLEND (a seeded positional encoding,
    the dual encoder at widths 12 + 4, the split-space score): Cora GRAND-nl
    over rows and over columns, the tuned Cora row's attention block, the
    tuned ogbn-arxiv row's dual encoder; DeepWalk's skip-gram training
@@ -141,8 +152,9 @@ Phases, each of which must pass (any failure exits nonzero):
    from the others before it fails;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
-   just after (the bfloat16 launches of K1, K2, K6 and K9 counted apart
-   among their own): tuned Cora for 1 training epoch (followed by an eval step
+   just after (the bfloat16 launches of K1, K2, K6, K7, K8, K9 and K17,
+   and K6's shifted ones, counted apart among their own): tuned Cora for
+   1 training epoch (followed by an eval step
    and the early-stop eval) twice, to record whether two runs agree bit
    for bit; tuned Computers (hard attention, continuous adjoint) and tuned
    Pubmed (row squareplus attention, continuous adjoint) for 1 epoch each;
@@ -152,8 +164,8 @@ Phases, each of which must pass (any failure exits nonzero):
    block) for 1 epoch with the early-stop eval; (c) the same model with Q
    and K drawn so large that the unshifted softmax overflows, which must
    poison, re-solve with the exact softmax and stay finite; (d) the tuned
-   Cora row as GRAND-nl as tuned, with squareplus attention, for 3 epochs;
-   (e) the same row with the GAT function for 3 epochs; (f) (a)'s
+   Cora row as GRAND-nl as tuned, with squareplus attention, for 1 epoch;
+   (e) the same row with the GAT function for 1 epoch; (f) (a)'s
    architecture with squareplus attention for 1 epoch, printing the peak
    device memory; (g) the tuned Cora row as GRAND-nl with the softmax
    normalised over columns, as the row's ``attention_norm_idx=1`` says
@@ -193,7 +205,13 @@ Phases, each of which must pass (any failure exits nonzero):
    precision over ogbn-arxiv-synthetic at full width: the folded forward,
    its logits against the float32 model's from the same weights, then 3
    training steps under remat and 3 under the rk4 adjoint, each step's ms
-   printed (K6 and K9 on the bfloat16 column table); (u)
+   printed (K6 and K9 on the bfloat16 column table); (w) (v) with
+   ``sym_backward=False``: 3 remat steps, each step's ms printed, K6, K8
+   and K17 on the bfloat16 column table, never K9; (x) the forced poison
+   at bench.py's precision (the bf16 payload and rk4 state) on Cora
+   GRAND-nl and on ``GRAND_NL_BENCH`` at arxiv scale, 1 epoch each, which
+   must re-solve on the bfloat16 column table (K7, K6 shifted, K8 with
+   dxg) and stay finite, loss and gradients; (u)
    the multi-device layer (``graph_neural_pde_tpu_torch.parallel``): first
    a world of two NCCL ranks on card 0, in a process of its own, which
    must end in NCCL's refusal of two ranks on one GPU, then over a world of
@@ -210,9 +228,9 @@ Phases, each of which must pass (any failure exits nonzero):
    (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
    and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
    run must launch the kernels its path runs, and all twenty-one counters,
-   and the four of the bfloat16 launches, must grow. The paths (a)-(s)
-   run ``GRAND_NL_BENCH``'s architecture in float32, as before the
-   bfloat16 mode.
+   and the eight of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
+   K8, K9, K17), must grow. The paths (a)-(s) run ``GRAND_NL_BENCH``'s
+   architecture in float32, as before the bfloat16 mode.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -687,12 +705,13 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     bit-identical. On a directed graph (no reverse-edge map) K9 does not
     apply. ``timed=False`` only compares; ``feat`` as in ``rhs_operands``.
 
-    ``payload=torch.bfloat16`` (the JAX package's bf16 payload) checks the
-    kernels that take it, K6 with its numerators and folded, and K9: the
-    column table is x cast to bfloat16, its k table rounded as the package
-    rounds k_e, beside the row side x, float32 or (``row_bf16``, the bf16
-    ODE state) x itself in bfloat16; K9's plain version is evaluated in
-    float64 beside the same bfloat16 table."""
+    ``payload=torch.bfloat16`` (the JAX package's bf16 payload) checks
+    every one of them on the bf16 tables: the column table is x cast to
+    bfloat16, its k table rounded as the package rounds k_e, beside the row
+    side x, float32 or (``row_bf16``, the bf16 ODE state) x itself in
+    bfloat16; K8's and K9's plain versions are evaluated in float64 beside
+    the same bfloat16 table. K6 with the exact mode's shifts is named
+    "fused_rhs_fwd bf16 shifted" there (its launches are counted apart)."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev,
@@ -748,9 +767,10 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                                             **kw_x, **kw_f)),
          (base_bytes + 4 * n * (d + h + h * d), fwd_ops), None),
         ("fused_rhs_fwd", "ax, den with per-edge shifts",
-         lambda: some(K.fused_rhs_fwd(*csr, *ops, shifts=shifts, **kw_f)),
+         lambda: some(K.fused_rhs_fwd(*csr, *ops, shifts=shifts, **kw_x,
+                                      **kw_f)),
          lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, shifts=shifts,
-                                            **kw_f)),
+                                            **kw_x, **kw_f)),
          (base_bytes + 4 * (nv * h + n * (d + h)), fwd_ops), None),
         ("fused_rhs_fwd", "folded f = alpha (ax - x)",
          lambda: some(K.fused_rhs_fwd(*csr, *ops, alpha=alpha, **kw_x,
@@ -760,13 +780,14 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
          (base_bytes + 4 * n * (d + h), fwd_ops + 2 * n * d), None),
         ("fused_rhs_bwd", "dq, dxg, dkw, dkb, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd(*csr, *ops, *cts, shifts=shifts,
-                                      **kw_f)),
+                                      **kw_x, **kw_f)),
          lambda: some(K.fused_rhs_bwd_plain(*csr, *ops, *cts, shifts=shifts,
-                                            **kw_f)),
+                                            **kw_x, **kw_f)),
          # per edge still dk_e Kw^T and x_c^T dk_e
          (base_bytes + node_b + 4 * (nv * h + n * att + nv * d + d * att),
           2 * n * proj + nv * (2 * proj + 6 * att + 4 * d)),
-         lambda: plain64(K.fused_rhs_bwd_plain, shifts=shifts, **kw_f)),
+         lambda: plain64(K.fused_rhs_bwd_plain, shifts=shifts, **kw_x,
+                         **kw_f)),
         ("fused_rhs_bwd_sym", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd_sym(*csr, *ops, *cts, **kw_x, **kw_f)),
          lambda: some(K.fused_rhs_bwd_sym_plain(*csr, *ops, *cts, **kw_x,
@@ -781,16 +802,14 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     if score == "scaled_dot":
         cases.insert(3, (
             "fused_rowmax", "row maxima of the scores",
-            lambda: (K.fused_rowmax(*csr, *ops[:5], heads=h),),
-            lambda: (K.fused_rowmax_plain(*csr, *ops[:5], heads=h),),
+            lambda: (K.fused_rowmax(*csr, *ops[:5], heads=h, **kw_x),),
+            lambda: (K.fused_rowmax_plain(*csr, *ops[:5], heads=h, **kw_x),),
             (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att),
             None))
     tag = ""
     if bf16:
-        # the kernels without the mode (shifts, K7, K8) drop out
-        cases = [(kname + " bf16", *c) for kname, *c in cases
-                 if kname == "fused_rhs_bwd_sym" or (
-                     kname == "fused_rhs_fwd" and "shifts" not in c[0])]
+        cases = [(kname + (" bf16 shifted" if "shifts" in c[0] else " bf16"),
+                  *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
     rows = []
@@ -899,33 +918,41 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
 
 
 def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
-                             timed=True, dev="cuda", feat=None):
+                             timed=True, dev="cuda", feat=None, payload=None,
+                             row_bf16=False):
     """K17 (x[col]'s cotangent walked over the CSC view of a directed
     graph, and dkw, dkb from each column's summed dk) and K8 without its
-    per-edge dxg (dq, dgmax), the two kernels of the column-plan backward, against their plain versions evaluated in float64
-    on the same float32 inputs; two K17 launches must be bit-identical.
-    ``timed=False`` only compares; ``feat`` as in ``rhs_operands``."""
+    per-edge dxg (dq, dgmax), the two kernels of the column-plan backward,
+    against their plain versions evaluated in float64 on the same float32
+    inputs; two launches of each must be bit-identical. ``timed=False``
+    only compares; ``feat`` as in ``rhs_operands``; ``payload`` and
+    ``row_bf16`` as in ``check_fused_kernels`` (the bfloat16 column table,
+    the plain versions in float64 beside it)."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev,
                                             feat)
     if g.rev is not None:
         raise AssertionError(f"{shape_name}: not a directed graph")
+    bf16 = payload == torch.bfloat16
+    if row_bf16:
+        ops = (ops[0].to(torch.bfloat16),) + ops[1:]
+    kw_x = dict(xcol=ops[0].to(torch.bfloat16)) if bf16 else {}
     n, nv = g.num_nodes, g.num_valid
     csc = (g.colptr, g.col_by_col, g.row_by_col)
     ct_ax = randn(n, d)
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_f)
+    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_x, **kw_f)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
     cts = (ct_ax, recip_p, ct_den)
 
     def f64(t):
-        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
-            else t
+        return (t.double() if torch.is_tensor(t) and t.is_floating_point()
+                and t.dtype != torch.bfloat16 else t)
 
     def plain64(fn, index, **kw):
         out = fn(*index, *map(f64, ops), *map(f64, cts),
-                 **{k: f64(v) for k, v in {**kw_f, **kw}.items()})
+                 **{k: f64(v) for k, v in {**kw_f, **kw_x, **kw}.items()})
         if torch.is_tensor(out):
             return out.float()
         return tuple(o.float() for o in out if o is not None)
@@ -940,35 +967,46 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     # K17 adds the accumulation over D per edge (2 D) and, per node, the
     # product of the column's summed dk by Kw^T and the node's term of
     # dKw = sum_n x_n^T dk_n (2 N proj). K8 without dxg forms no dk.
-    base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
+    # with the bf16 payload the row side x and the column table (one tensor
+    # but for a float32 row side beside it), as in check_fused_kernels
+    x_bytes = ops[0].element_size() * n * d
+    if bf16 and not row_bf16:
+        x_bytes += 2 * n * d
+    base_bytes = 4 * (n + 1 + nv + 2 * d * att + 2 * att) + x_bytes
     proj = projection_ops(d, att, score)
     node_b = 4 * n * (d + 2 * h)
     cases = [
         ("fused_rhs_bwd_col", "dx, dkw, dkb over CSC",
-         lambda: K.fused_rhs_bwd_col(*csc, *ops, *cts, **kw_f),
-         lambda: K.fused_rhs_bwd_col_plain(*csc, *ops, *cts, **kw_f),
+         lambda: K.fused_rhs_bwd_col(*csc, *ops, *cts, **kw_x, **kw_f),
+         lambda: K.fused_rhs_bwd_col_plain(*csc, *ops, *cts, **kw_x,
+                                           **kw_f),
          (base_bytes + node_b + 4 * (n * d + d * att + att),
           4 * n * proj + nv * (6 * att + 4 * d)),
          lambda: plain64(K.fused_rhs_bwd_col_plain, csc)),
         ("fused_rhs_bwd", "without dxg (dq, dgmax)",
          lambda: some(K.fused_rhs_bwd(*csr, *ops, *cts, want_dxg=False,
-                                      **kw_f)),
+                                      **kw_x, **kw_f)),
          lambda: some(K.fused_rhs_bwd_plain(*csr, *ops, *cts,
-                                            want_dxg=False, **kw_f)),
+                                            want_dxg=False, **kw_x, **kw_f)),
          (base_bytes + node_b + 4 * n * att,
           2 * n * proj + nv * (6 * att + 2 * d)),
          lambda: plain64(K.fused_rhs_bwd_plain, csr, want_dxg=False)),
     ]
-    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}"
+    tag = ""
+    if bf16:
+        cases = [(kname + " bf16", *c) for kname, *c in cases]
+        tag = " row bf16" if row_bf16 else " bf16"
+    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
-    if not all(torch.equal(a, b) for a, b in zip(cases[0][2](),
-                                                 cases[0][2]())):
-        raise AssertionError(f"fused_rhs_bwd_col {score} @ {shape_name}: "
-                             f"two launches differ")
-    print(f"[kernels] fused_rhs_bwd_col @ {shape_name} {score}: two "
-          f"launches bit-identical in every output", flush=True)
+    for kname, what, kern, *_ in cases:
+        if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
+            raise AssertionError(f"{kname} ({what}) {score} @ {shape_name}: "
+                                 f"two launches differ")
+    print(f"[kernels] fused_rhs_bwd_col, fused_rhs_bwd without dxg @ "
+          f"{shape_name} {score}{tag}: two launches bit-identical in every "
+          f"output", flush=True)
     return rows
 
 
@@ -1204,6 +1242,11 @@ def attention_layer(model):
 # the bf16 payload's logits in check_small_end_to_end: the largest gap
 # between the card and the CPU, of the largest logit
 BF16_LOGITS = 3e-4
+# the same under the bf16 fixed-grid state, whose every stage sum rounds to
+# bfloat16: one bf16 step (2^-8) of the logits' scale, and of each
+# gradient leaf's; a rounding that flips between the two devices' float32
+# sums moves a state element by one step
+BF16_STATE_STEP = 2.0 ** -8
 
 
 def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
@@ -1225,12 +1268,15 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
 
     A config with the bfloat16 payload holds its logits within
     ``BF16_LOGITS`` of their largest entry, and its loss and gradients as
-    above. It runs on a
+    above; with the bfloat16 state too (``dtype="bfloat16"``), its logits
+    and each gradient leaf within ``BF16_STATE_STEP`` of their scale. It
+    runs on a
     fixed grid (rk4, the mode's route in the bench): on an
     adaptive one the error estimate is bf16 rounding noise, so the step
     sequence, and with it every gradient, hangs on the last bits of the
     two devices' float32 sums. The card's side must have launched the
-    kernels' bfloat16 mode (K1, or K6 and K9), and the check prints the
+    kernels' bfloat16 mode (K1; K6 and K9; or, with ``sym_backward=False``,
+    K6, K8 and K17), and the check prints the
     largest gaps of the logits, the loss and each gradient leaf (of its own
     scale) beside those of the CPU's float32-payload run, the control that
     says the tolerances tell the two modes apart."""
@@ -1256,6 +1302,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     # the inputs as they came, to tell on a failure whether a run moved them
     inputs0 = (d.x.clone(), d.graph.weight.clone())
     bf16 = cfg.rhs_payload_dtype == "bfloat16" or cfg.dtype == "bfloat16"
+    state_bf16 = cfg.dtype == "bfloat16" and cfg.method in FIXED_METHODS
+    logits_limit = BF16_STATE_STEP if state_bf16 else BF16_LOGITS
     bf16_ran = {}
     for dev in devices:
         before = {k.__name__: k.bf16_launches for k in kernels.BF16_KERNELS}
@@ -1300,8 +1348,12 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
             raise ValueError(f"{row}: the bf16 check runs on a fixed grid")
         if torch.device(devices[1]).type == "cuda":
             # the card's side went through the kernels' bfloat16 mode
-            need = (("csr_spmm",) if cfg.function == "laplacian"
-                    else ("fused_rhs_fwd", "fused_rhs_bwd_sym"))
+            if cfg.function == "laplacian":
+                need = ("csr_spmm",)
+            elif cfg.sym_backward is False:
+                need = COLPLAN_KERNELS
+            else:
+                need = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
             ran = bf16_ran[devices[1]]
             if not all(ran[k] > 0 for k in need):
                 raise AssertionError(f"{row}: the bfloat16 kernels {need} "
@@ -1324,7 +1376,7 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
         # far as the CPU's float64 run, and 6.6e-5 on Cora GRAND-nl; the
         # float32 payload's logits 1.3e-3 and 1.8e-3 of scale away)
         close = (float((lg - lc).abs().max())
-                 <= BF16_LOGITS * float(lc.abs().max()))
+                 <= logits_limit * float(lc.abs().max()))
     else:
         close = torch.allclose(lg, lc, rtol=1e-4, atol=1e-5)
     if not close:
@@ -1374,10 +1426,11 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     # only rounding noise: grad_floor of the largest gradient is allowed
     # everywhere
     top = max(float(v.abs().max()) for v in g_c.values())
+    leaf_atol = BF16_STATE_STEP if state_bf16 else 1e-4
     for k in g_c:
         scale = float(g_c[k].abs().max())
         if not torch.allclose(g_g[k], g_c[k], rtol=1e-3,
-                              atol=1e-4 * scale + grad_floor * top):
+                              atol=leaf_atol * scale + grad_floor * top):
             raise AssertionError(
                 f"gradient {k} differs between cuda and cpu by "
                 f"{float((g_g[k] - g_c[k]).abs().max()):.3e} (leaf scale "
@@ -1386,7 +1439,7 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
           f"steps {dict((k, st_g[k]) for k in counts)}, early-stop best val "
           f"{best_g.val:.4f} vs {best_c.val:.4f} at t* {best_g.time:.4f} vs "
           f"{best_c.time:.4f}: agree (logits "
-          f"{f'{BF16_LOGITS:g} of scale' if bf16 else 'rtol 1e-4'}, grads "
+          f"{f'{logits_limit:g} of scale' if bf16 else 'rtol 1e-4'}, grads "
           f"rtol 1e-3)",
           flush=True)
 
@@ -1998,10 +2051,18 @@ ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
 # K1's launches in table mode (P6's scatter), counted apart among its own
 TABLE_MODE = "csr_spmm table mode"
 # the launches on bfloat16 tables (the bf16 payload), counted apart among
-# each kernel's own: "<kernel> bf16"
-BF16_NAMES = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
-                                         "fused_rhs_fwd",
-                                         "fused_rhs_bwd_sym"))
+# each kernel's own: "<kernel> bf16", and K6's with the exact mode's shifts
+# apart again
+SHIFTED_BF16 = "fused_rhs_fwd bf16 shifted"
+BF16_NAMES = tuple(f"{k} bf16" for k in (
+    "csr_spmm", "edge_dot", "fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd",
+    "fused_rhs_bwd_sym", "fused_rhs_bwd_col")) + (SHIFTED_BF16,)
+# those the bench entry (t) launches: the primary op and the column-plan
+# oracles
+BENCH_BF16 = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
+                                         "fused_rhs_fwd", "fused_rhs_bwd",
+                                         "fused_rhs_bwd_sym",
+                                         "fused_rhs_bwd_col"))
 
 
 def counted(label: str, expected, fn):
@@ -2014,6 +2075,7 @@ def counted(label: str, expected, fn):
         k.launches = 0
     for k in kernels.BF16_KERNELS:
         k.bf16_launches = 0
+    kernels.fused_rhs_fwd.bf16_shifted_launches = 0
     kernels.csr_spmm.table_launches = 0
     t0 = time.perf_counter()
     res = fn()
@@ -2023,6 +2085,7 @@ def counted(label: str, expected, fn):
     launches[TABLE_MODE] = kernels.csr_spmm.table_launches
     for k in kernels.BF16_KERNELS:
         launches[f"{k.__name__} bf16"] = k.bf16_launches
+    launches[SHIFTED_BF16] = kernels.fused_rhs_fwd.bf16_shifted_launches
     for name in expected:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on {label}")
@@ -2032,10 +2095,12 @@ def counted(label: str, expected, fn):
 def drive_poisoned_path(cfg, data_dir: str, seed: int):
     """The forced poison: ``cfg``'s model with Q and K redrawn so large
     that the unshifted softmax overflows at every evaluation. Each solve
-    (train, eval and early-stop eval, ``cfg.epoch - 1`` epochs) must detect
-    the poison, re-solve with the exact softmax (over rows: K7's row
-    maxima, K6 with shifts, K8 in the backward; over columns: the composed
-    attention on K3/K4 and K1/K2) and come back finite."""
+    (train, eval and, where the model has one, early-stop eval,
+    ``cfg.epoch - 1`` epochs) must detect the poison, re-solve with the
+    exact softmax (over rows: K7's row maxima, K6 with shifts, K8 in the
+    backward, on the bfloat16 column table under the bf16 payload or
+    state; over columns: the composed attention on K3/K4 and K1/K2) and
+    come back finite."""
     import torch
     from graph_neural_pde_tpu_torch import run
     s = run.setup(cfg, data_dir, device="cuda")
@@ -2048,7 +2113,8 @@ def drive_poisoned_path(cfg, data_dir: str, seed: int):
     for _ in range(1, cfg.epoch):
         loss, stats = s.trainer.train_step(s.x, s.y, s.masks[0])
         accs, logits, _ = s.trainer.eval_step(s.x, s.y, s.masks)
-        zT, snap, _ = s.model.apply_early(s.x, s.y, s.masks)
+        zT = (s.model.apply_early(s.x, s.y, s.masks)[0]
+              if hasattr(s.model, "apply_early") else logits)
         if not (math.isfinite(loss) and bool(torch.isfinite(logits).all())
                 and bool(torch.isfinite(zT).all()) and stats["nfe"] > 0):
             raise AssertionError(f"poisoned path did not recover: loss "
@@ -2060,27 +2126,64 @@ def drive_poisoned_path(cfg, data_dir: str, seed: int):
     return losses
 
 
-def drive_bench_precision(seed: int, steps: int = 3):
+def drive_bench_precision(seed: int, steps: int = 3, label: str = "(v)",
+                          modes=("remat", "adjoint"), forward=True, **over):
     """(v) ``config.GRAND_NL_BENCH`` at bench.py's precision (the bfloat16
     payload and rk4 state) at full width over ogbn-arxiv-synthetic, its
     model and graph as the bench entry builds them: the folded eval
     forward, its logits against the float32 model's from the same weights
     (a difference of scale, printed; above 0.1 of the largest logit it
     fails), then ``steps`` training steps under remat and ``steps`` under
-    the rk4 adjoint, each step's ms printed."""
+    the rk4 adjoint, each step's ms printed. ``over`` changes the model's
+    config (``sym_backward=False``: path (w), the column-plan backward, its
+    ``modes`` remat alone and no ``forward`` check)."""
     import numpy as np
     import torch
     from graph_neural_pde_tpu_torch import bench as bench_entry
-    from graph_neural_pde_tpu_torch.config import FLOAT32
     from graph_neural_pde_tpu_torch.models.gnn import GNNModel
     from graph_neural_pde_tpu_torch.training.train import Trainer
     model, x, g_raw, nf, nc = bench_entry.build_benchmark(seed=seed,
                                                           device="cuda")
-    cfg = model.cfg
+    cfg = model.cfg.replace(**over)
     if not cfg.rhs_payload_dtype == cfg.dtype == "bfloat16":
-        raise AssertionError(f"(v) runs {cfg.rhs_payload_dtype} / "
+        raise AssertionError(f"{label} runs {cfg.rhs_payload_dtype} / "
                              f"{cfg.dtype}, not bench.py's bfloat16")
     state = model.state_dict()
+    if forward:
+        bench_forward(model, x, cfg, state, g_raw, nf, nc)
+    del model
+    rng = np.random.default_rng(seed + 1)
+    n = x.shape[0]
+    y = torch.as_tensor(rng.integers(0, nc, size=n), device="cuda")
+    mask = torch.as_tensor(rng.random(n) < 0.5, device="cuda")
+    modes_over = {"remat": dict(remat=True),
+                  "adjoint": dict(adjoint=True, adjoint_method="rk4",
+                                  adjoint_step_size=1.0)}
+    for mode in modes:
+        m = GNNModel(cfg.replace(**modes_over[mode]), nf, nc, g_raw,
+                     device="cuda")
+        m.load_state_dict(state)
+        trainer, ms, losses = Trainer(m), [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            loss, st = trainer.train_step(x, y, mask)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"{label} {mode}: loss {loss}")
+            losses.append(loss)
+        print(f"[main] {label} {steps} {mode} steps at bench precision: ms "
+              f"{[round(t, 2) for t in ms]}, losses {losses}, forward nfe "
+              f"{st['nfe']}, backward nfe {st['bwd_nfe']}", flush=True)
+        del m, trainer
+
+
+def bench_forward(model, x, cfg, state, g_raw, nf, nc):
+    """(v)'s folded eval forward at bench precision, its logits against
+    those of the float32 model from the same weights."""
+    import torch
+    from graph_neural_pde_tpu_torch.config import FLOAT32
+    from graph_neural_pde_tpu_torch.models.gnn import GNNModel
     m32 = GNNModel(cfg.replace(**FLOAT32), nf, nc, g_raw, device="cuda")
     m32.load_state_dict(state)
     with torch.no_grad():
@@ -2103,28 +2206,6 @@ def drive_bench_precision(seed: int, steps: int = 3):
           flush=True)
     if diff > 0.1 * scale:
         raise AssertionError("(v) bf16 logits far from the float32 ones")
-    rng = np.random.default_rng(seed + 1)
-    n = x.shape[0]
-    y = torch.as_tensor(rng.integers(0, nc, size=n), device="cuda")
-    mask = torch.as_tensor(rng.random(n) < 0.5, device="cuda")
-    for mode, over in (("remat", dict(remat=True)),
-                       ("adjoint", dict(adjoint=True, adjoint_method="rk4",
-                                        adjoint_step_size=1.0))):
-        m = GNNModel(cfg.replace(**over), nf, nc, g_raw, device="cuda")
-        m.load_state_dict(state)
-        trainer, ms, losses = Trainer(m), [], []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            loss, st = trainer.train_step(x, y, mask)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            if not math.isfinite(loss):
-                raise AssertionError(f"(v) {mode}: loss {loss}")
-            losses.append(loss)
-        print(f"[main] (v) {steps} {mode} steps at bench precision: ms "
-              f"{[round(t, 2) for t in ms]}, losses {losses}, forward nfe "
-              f"{st['nfe']}, backward nfe {st['bwd_nfe']}", flush=True)
-        del m, trainer
 
 
 def drive_main_path(label: str, cfg, data_dir: str, expected):
@@ -2352,6 +2433,20 @@ def main() -> int:
         rows += check_column_rhs_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
                                          nl.attention_dim, nl.heads,
                                          "scaled_dot", args.seed + 95)
+        # the column-plan backward and the exact re-solve on the bfloat16
+        # column table: every family small (untimed), the GDC graph at
+        # (n)'s widths with a float32 row side
+        for i, score in enumerate(SCORE_FAMILIES):
+            rows += check_column_rhs_kernels("directed-small", small_dir, 16,
+                                             16, 4, score, args.seed + 160 + i,
+                                             timed=False, payload=bf16)
+        rows += check_fused_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 165, payload=bf16)
+        rows += check_column_rhs_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
+                                         nl.attention_dim, nl.heads,
+                                         "scaled_dot", args.seed + 166,
+                                         payload=bf16)
         rows += check_column_sum("cora-gdc", cora_gdc,
                                  best_params["Cora"].hidden_dim,
                                  args.seed + 96)
@@ -2379,6 +2474,11 @@ def main() -> int:
                                          2 * nl.attention_dim, nl.heads,
                                          BELTRAMI, args.seed + 108,
                                          feat=nl.feat_hidden_dim)
+        rows += check_column_rhs_kernels("cora-knn", knn_g, blend_d,
+                                         2 * nl.attention_dim, nl.heads,
+                                         BELTRAMI, args.seed + 167,
+                                         feat=nl.feat_hidden_dim,
+                                         payload=bf16)
         t0 = time.perf_counter()
         big_dir = directed_random_graph(169_343, 1_166_243, args.seed)
         print(f"[kernels] directed arxiv-scale graph built on the host in "
@@ -2393,6 +2493,20 @@ def main() -> int:
                                          2 * bench.attention_dim,
                                          bench.heads, BELTRAMI,
                                          args.seed + 106)
+        # at bench precision (the bf16 state: x itself bf16, timed) and
+        # with a float32 row side (untimed): K6 (shifted too), K7, K8 and
+        # K17 on the bfloat16 column table
+        for row_b16, timed, sd in ((True, True, 168), (False, False, 170)):
+            rows += check_fused_kernels("arxiv-directed", big_dir,
+                                        bench.hidden_dim, bench.attention_dim,
+                                        bench.heads, "scaled_dot",
+                                        args.seed + sd, timed=timed,
+                                        payload=bf16, row_bf16=row_b16)
+            rows += check_column_rhs_kernels(
+                "arxiv-directed", big_dir, bench.hidden_dim,
+                bench.attention_dim, bench.heads, "scaled_dot",
+                args.seed + sd + 1, timed=timed, payload=bf16,
+                row_bf16=row_b16)
         rows += check_column_sum("arxiv-directed", big_dir, bench.hidden_dim,
                                  args.seed + 99)
         for h in (1, 8):
@@ -2415,6 +2529,14 @@ def main() -> int:
                                base=best_params["Cora"].replace(**bf16_rk4))
         check_small_end_to_end("Cora GRAND-nl bf16 payload",
                                base=grand_nl_cora().replace(**bf16_rk4))
+        # the column-plan backward (K6, K8 and K17 on the bf16 column
+        # table) with the payload, and at bench.py's precision (the bf16
+        # rk4 state too)
+        colplan = grand_nl_cora().replace(sym_backward=False, **bf16_rk4)
+        check_small_end_to_end("Cora GRAND-nl colplan bf16 payload",
+                               base=colplan)
+        check_small_end_to_end("Cora GRAND-nl colplan bench precision",
+                               base=colplan.replace(dtype="bfloat16"))
         check_small_end_to_end("Computers")
         check_small_end_to_end("Cora GRAND-nl", base=nl)
         # the composed RHS differentiates through the global score max, and
@@ -2503,8 +2625,8 @@ def main() -> int:
                                                        seed=args.seed), fused),
             ("GRAND-nl Cora (b)", nl.replace(epoch=2), fused),
             ("GRAND-nl Cora squareplus (d)",
-             nl.replace(square_plus=True, epoch=4), dual),
-            ("GAT Cora (e)", nl.replace(function="GAT", epoch=4), dual),
+             nl.replace(square_plus=True, epoch=2), dual),
+            ("GAT Cora (e)", nl.replace(function="GAT", epoch=2), dual),
             ("GRAND-nl arxiv-scale squareplus (f)",
              bench.replace(square_plus=True, epoch=2, seed=args.seed), dual),
             ("GRAND-nl Cora column softmax (g)", nl1.replace(epoch=2),
@@ -2555,7 +2677,7 @@ def main() -> int:
             label_t, AGGREGATE_KERNELS + ("csr_spmm", "fused_rhs_fwd",
                                           "fused_rhs_bwd_sym", "dual_scatter",
                                           "fused_rhs_bwd_col", "norm1_bwd")
-            + BF16_NAMES,
+            + BENCH_BF16,
             lambda: bench_entry.main(device="cuda"))
         print(f"[main] {label_t} in {secs:.2f} s; kernel launches "
               f"{per_path[label_t]}", flush=True)
@@ -2567,6 +2689,21 @@ def main() -> int:
             lambda: drive_bench_precision(args.seed))
         print(f"[main] {label_v} in {secs:.2f} s; kernel launches "
               f"{per_path[label_v]}", flush=True)
+        # (w) (o) at bench.py's precision: the column-plan backward (K8
+        # without dxg, K17) on the bf16 column table, never K9
+        label_w = ("GRAND-nl arxiv-scale sym_backward=False at bench "
+                   "precision (w)")
+        _, per_path[label_w], secs = counted(
+            label_w, ("fused_rhs_fwd bf16", "fused_rhs_bwd bf16",
+                      "fused_rhs_bwd_col bf16"),
+            lambda: drive_bench_precision(args.seed, label="(w)",
+                                          modes=("remat",), forward=False,
+                                          sym_backward=False))
+        if per_path[label_w]["fused_rhs_bwd_sym"]:
+            raise AssertionError(f"{label_w} launched K9: "
+                                 f"{per_path[label_w]}")
+        print(f"[main] {label_w} in {secs:.2f} s; kernel launches "
+              f"{per_path[label_w]}", flush=True)
         # (u) the multi-device layer: NCCL refuses two ranks on one card,
         # so a world of one NCCL rank drives every sharded function and the
         # sharded tuned Cora block, and the 4-way split's per-rank bodies
@@ -2663,7 +2800,17 @@ def main() -> int:
             ("GRAND-nl Cora column softmax forced poison (g)",
              nl1.replace(time=2.0),
              ("norm1_den", "norm1_fwd", "segment_norm", "segment_norm_bwd",
-              "csr_spmm", "edge_dot")))
+              "csr_spmm", "edge_dot")),
+            # (x) the forced poison at bench.py's precision (the bf16
+            # payload and rk4 state): the exact re-solve on the bfloat16
+            # column table, K7, K6 shifted and K8 with dxg
+            ("GRAND-nl Cora forced poison at bench precision (x)",
+             nl.replace(rhs_payload_dtype="bfloat16", dtype="bfloat16",
+                        method="rk4", step_size=1.0),
+             ("fused_rowmax bf16", SHIFTED_BF16, "fused_rhs_bwd bf16")),
+            ("GRAND-nl arxiv-scale forced poison at bench precision (x)",
+             GRAND_NL_BENCH.replace(seed=args.seed),
+             ("fused_rowmax bf16", SHIFTED_BF16, "fused_rhs_bwd bf16")))
         for label, cfg, expected in poisoned:
             losses, counts, secs = counted(
                 label, expected,
@@ -2712,7 +2859,12 @@ def main() -> int:
                "edge_dot bf16": ("edge_dot.cu", "stripe.py:363"),
                "fused_rhs_fwd bf16": ("fused_rhs.cu", "fused_rhs.py:280"),
                "fused_rhs_bwd_sym bf16": ("fused_rhs.cu",
-                                          "fused_rhs.py:1341")}
+                                          "fused_rhs.py:1341"),
+               SHIFTED_BF16: ("fused_rhs.cu", "fused_rhs.py:280"),
+               "fused_rowmax bf16": ("fused_rhs.cu", "fused_rhs.py:654"),
+               "fused_rhs_bwd bf16": ("fused_rhs.cu", "fused_rhs.py:742"),
+               "fused_rhs_bwd_col bf16": ("fused_rhs.cu",
+                                          "fused_rhs.py:1047")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

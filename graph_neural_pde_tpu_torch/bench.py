@@ -29,14 +29,13 @@ Precision. The model runs at the JAX bench's precision
 (whose solver keeps a float32 state, as the JAX package's does). The
 softmax over columns (``train_norm1_*`` and its forward) runs in float32:
 its kernels (K12-K14) do not take the bf16 payload yet (ROADMAP Queue 2
-B1). Nor does the exact re-solve (K7, K8): a bf16 solve whose softmax
-leaves float32's exp range raises ``NotImplementedError`` where the JAX
-bench re-solves (ROADMAP, Known limits).
+B1).
 
 How it differs from the JAX bench. The oracles hold at 1e-4 of scale
-where the JAX bench's bfloat16 kernels hold at 3e-2: the oracle of the
-primary op reads the same bf16-rounded column table as the kernels, so
-only the order of float32 sums separates the two. A failed oracle or
+where the JAX bench's bfloat16 kernels hold at 3e-2: the oracles of the
+primary op and of the column-plan engine read the same bf16-rounded
+column table as the kernels, so only the order of float32 sums separates
+the two. A failed oracle or
 secondary raises: nothing falls back to
 an unfolded engine, no secondary's failure is caught, and no tunnel or
 compile-cache guard exists (nothing here compiles). ``vs_baseline`` (an
@@ -232,12 +231,12 @@ def verify_kernels_on_device(device="cuda") -> None:
     against numpy; the backward of ``fused_rhs_aggregate``, K8's per-head
     mode, against the hand-derived ``fused_bwd_composition``; K1 as the
     column sum over the CSC view (the column-plan dx) against numpy; the
-    column-plan and symmetric engines' gradients (``make_fused_ax_colplan``,
-    ``make_fused_ax_sym``, the latter, the primary op, with the bfloat16
-    payload and against a composition that reads the same bf16-rounded
-    column table) against autograd of a torch composition; and the folded
-    epilogue (``fused_rhs_f``, float32 and bfloat16). Raises on the first
-    that fails."""
+    column-plan and symmetric engines' gradients (``make_fused_ax_colplan``
+    and ``make_fused_ax_sym``, the primary op, both with the bfloat16
+    payload, as the JAX bench runs them, and against a composition that
+    reads the same bf16-rounded column table) against autograd of a torch
+    composition; and the folded epilogue (``fused_rhs_f``, float32 and
+    bfloat16). Raises on the first that fails."""
     dev = torch.device(device)
     rng = np.random.default_rng(0)
     n, e, d, att, heads = 512, 4096, 128, 64, 2
@@ -315,23 +314,23 @@ def verify_kernels_on_device(device="cuda") -> None:
     # ---- the column-plan and symmetric gradients, end to end -----------
     probe = dev_t(rng.normal(size=(n, d)))
     names = ("dqw", "dqb", "dkw", "dkb", "dx")
-    op = make_fused_ax_colplan(g, heads, False, "scaled_dot")
+    bf16 = torch.bfloat16
+    op = make_fused_ax_colplan(g, heads, False, "scaled_dot", bf16)
     rs, cs = _symmetric_pairs(rng, n, e)
     g_s = _sorted_graph(rs, cs, n, dev)
     if g_s.rev is None:
         raise AssertionError("the symmetric toy graph has no reverse edges")
     probe_s = dev_t(rng.normal(size=(n, d)))
-    bf16 = torch.bfloat16
     op_sym = make_fused_ax_sym(g_s, heads, False, "scaled_dot", bf16)
-    for label, graph, engine, weights, pay in (
-            ("colplan e2e", g, op, probe, False),
-            ("sym e2e (bf16 payload)", g_s, op_sym, probe_s, True)):
+    for label, graph, engine, weights in (
+            ("colplan e2e (bf16 payload)", g, op, probe),
+            ("sym e2e (bf16 payload)", g_s, op_sym, probe_s)):
         leaves = [t.clone().requires_grad_(True)
                   for t in (qw_t, qb_t, kw_t, kb_t, x_t)]
         ax, _ = engine(*leaves, gmax0, ())
         v_op = torch.sum(ax * weights)
         v_ref = _normalised_ax(graph, leaves[4], *leaves[:4], heads,
-                               "scaled_dot", (), False, weights, pay)
+                               "scaled_dot", (), False, weights, bf16=True)
         _check(f"{label} fwd", v_op, v_ref)
         got = torch.autograd.grad(v_op, leaves)
         want = torch.autograd.grad(v_ref, leaves)
@@ -342,7 +341,8 @@ def verify_kernels_on_device(device="cuda") -> None:
     with torch.no_grad():
         f_fold = fused_rhs_f(g, heads, "scaled_dot", qw_t, qb_t, kw_t, kb_t,
                              x_t, alpha)
-        ax_ref, _ = op(qw_t, qb_t, kw_t, kb_t, x_t, gmax0, ())
+        ax_ref, _ = make_fused_ax_colplan(g, heads, False, "scaled_dot")(
+            qw_t, qb_t, kw_t, kb_t, x_t, gmax0, ())
         f_fold_b = fused_rhs_f(g_s, heads, "scaled_dot", qw_t, qb_t, kw_t,
                                kb_t, x_t, alpha, payload_dtype=bf16)
         ax_ref_b, _ = op_sym(qw_t, qb_t, kw_t, kb_t, x_t, gmax0, ())
@@ -351,8 +351,8 @@ def verify_kernels_on_device(device="cuda") -> None:
            alpha * (ax_ref_b - x_t))
     print("# kernels verified on-device (dual scatter K10, fused aggregate "
           "K18 with the score max K19, folded epilogue; K8's per-head "
-          "backward, col-plan dx by K1, col-plan + sym e2e gradient paths, "
-          "the latter with the bf16 payload)",
+          "backward, col-plan dx by K1, col-plan + sym e2e gradient paths "
+          "with the bf16 payload)",
           file=sys.stderr)
 
 
@@ -397,11 +397,12 @@ def _torch_scores(src, ke, heads, score, sp):
 def verify_score_families_on_device(device="cuda") -> None:
     """The score families beyond scaled_dot through the column-plan engine
     (cosine_sim, pearson, exp_kernel, exp_kernel_beltrami with their
-    scalars) and the softmax over columns (``make_fused_ax_norm1``, K12-K14:
-    scaled_dot and cosine_sim), each forward value and gradient against
-    autograd of the torch composition, on a symmetric toy graph on
-    ``device`` (the JAX bench's ``bench.py:441-581``). Raises on the first
-    that fails."""
+    scalars) with the bfloat16 payload, and the softmax over columns
+    (``make_fused_ax_norm1``, K12-K14: scaled_dot and cosine_sim) in
+    float32, each forward value and gradient against autograd of the torch
+    composition (reading the same bf16-rounded column table where the
+    engine does), on a symmetric toy graph on ``device`` (the JAX bench's
+    ``bench.py:441-581``). Raises on the first that fails."""
     dev = torch.device(device)
     rng = np.random.default_rng(1)
     n, e, d, att, heads = 512, 4096, 128, 64, 2
@@ -427,16 +428,17 @@ def verify_score_families_on_device(device="cuda") -> None:
                                       (att_w,)))
         sp = tuple(torch.tensor([v], device=dev)
                    for v in scalars.get(score, ()))
-        make = make_fused_ax_norm1 if norm_cols else make_fused_ax_colplan
-        op = make(g, heads, False, score)
+        op = (make_fused_ax_norm1(g, heads, False, score) if norm_cols
+              else make_fused_ax_colplan(g, heads, False, score,
+                                         torch.bfloat16))
         leaves = [t.clone().requires_grad_(True)
                   for t in (*weights, x_nodes, *sp)]
         w_l, x_l, sp_l = leaves[:4], leaves[4], tuple(leaves[5:])
         ax, _ = op(*w_l, x_l, gmax0, sp_l)
         v_op = torch.sum(ax * probe)
         v_ref = _normalised_ax(g, x_l, *w_l, heads, score, sp_l, norm_cols,
-                               probe)
-        label = f"norm1/{score}" if norm_cols else score
+                               probe, bf16=not norm_cols)
+        label = f"norm1/{score}" if norm_cols else f"{score} (bf16 payload)"
         _check(f"{label} fwd", v_op, v_ref)
         got = torch.autograd.grad(v_op, leaves)
         want = torch.autograd.grad(v_ref, leaves)

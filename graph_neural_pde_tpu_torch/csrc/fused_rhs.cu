@@ -58,17 +58,21 @@
 // over fixed row ranges, and the wrapper adds the partials up in order. Two
 // launches on the same inputs therefore agree bit for bit.
 //
-// K6 and K9 also run on the JAX package's bfloat16 payload
-// (rhs_payload_dtype="bfloat16", make_fused_ax_sym and fused_rhs_f with
-// pay_dt): beside the row side x (float32, or bfloat16 under the bf16 ODE
-// state), which gives q, they take a bfloat16 column table xcol, which
-// gives the gathered values and the k table. The k table is bfloat16 too,
-// rounded as the JAX package's composition rounds k_e (the product of the
-// bf16 row with the bf16-rounded Kw, then its sum with the bf16-rounded kb,
-// each in bfloat16). So each edge gathers D + ATT bf16 values instead of
-// D + ATT floats; every sum, q, and every output stays float32. The same
-// templates serve both modes (TR the row side's type, TC the column
-// table's), and the sums keep their fixed order.
+// K6-K9 and K17 also run on the JAX package's bfloat16 payload
+// (rhs_payload_dtype="bfloat16": make_fused_ax_sym, make_fused_ax_colplan,
+// fused_rhs_f and the exact re-solve with pay_dt): beside the row side x
+// (float32, or bfloat16 under the bf16 ODE state), which gives q, they take
+// a bfloat16 column table xcol, which gives the gathered values and the k
+// table. The k table is bfloat16 too, rounded as the JAX package's
+// composition rounds k_e (the product of the bf16 row with the bf16-rounded
+// Kw, then its sum with the bf16-rounded kb, each in bfloat16). So each
+// edge gathers D + ATT bf16 values instead of D + ATT floats (K17: each
+// column its own row once); q, every cotangent, every sum and every output
+// stays float32, and dKw is reduced over the column table. The same
+// templates serve both modes (TR the row side's type where the walk reads
+// it, TC the column table's), and the sums keep their fixed order. K7 and
+// K8 build their tables over the same q and k as K6, so the exact mode's
+// shifts are the row maxima of the very scores K6 shifts.
 
 #include "fused_common.cuh"
 
@@ -157,9 +161,10 @@ __global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
 
 // ----------------------------------------------------------------------- K7
 
+template <typename TC>
 __global__ void fused_rowmax_kernel(Graph g, Proj p,
                                     const float* __restrict__ qtab,
-                                    const float* __restrict__ ktab,
+                                    const TC* __restrict__ ktab,
                                     float* __restrict__ smax) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
@@ -185,9 +190,11 @@ __global__ void fused_rowmax_kernel(Graph g, Proj p,
 
 // ------------------------------------------------------------- K8 and K9
 
+template <typename TC>
 __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
+                                     const TC* __restrict__ xcol,
                                      const float* __restrict__ qtab,
-                                     const float* __restrict__ ktab,
+                                     const TC* __restrict__ ktab,
                                      const float* __restrict__ kw_t,
                                      const float* __restrict__ shifts,
                                      const float* __restrict__ ct_ax,
@@ -222,7 +229,7 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
   RowSums sums = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
-    load_row(p.x, c, D, lane, xc);
+    load_row(xcol, c, D, lane, xc);
     load_row(ktab, c, A, lane, ke);
     __syncwarp();
     float part = 0.0f;
@@ -300,9 +307,11 @@ __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
 // bounds it is the two gathered rows per edge, as for K9's reverse side.
 // Each output element is summed by one lane in the column's edge order: no
 // atomics, two launches agree bit for bit.
+template <typename TC>
 __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
+                                         const TC* __restrict__ xcol,
                                          const float* __restrict__ qtab,
-                                         const float* __restrict__ ktab,
+                                         const TC* __restrict__ ktab,
                                          const float* __restrict__ kw_t,
                                          const float* __restrict__ ct_ax,
                                          const float* __restrict__ recip_p,
@@ -322,7 +331,7 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
   float* q = kn + A;                            // q_r
   float* dka = q + A;                           // sum of dk_e
   float* coef = dka + A;                        // [H, kCoef]
-  load_row(p.x, n, D, lane, xn);
+  load_row(xcol, n, D, lane, xn);
   load_row(ktab, n, A, lane, kn);
   for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
   for (int a = lane; a < A; a += kWarp) dka[a] = 0.0f;
@@ -790,6 +799,95 @@ cudaError_t launch_fwd(Graph g, Proj p, const void* x, const void* xcol,
   return cudaGetLastError();
 }
 
+bool valid_tables(int tables) {
+  return tables == kTablesF32 || tables == kTablesF32Bf16 ||
+         tables == kTablesBf16;
+}
+
+// K7 over the q table and the k table of type TC (see launch_tables)
+template <typename TC>
+cudaError_t launch_rowmax(Graph g, Proj p, const void* qtab,
+                          const void* ktab, void* smax, cudaStream_t s) {
+  const size_t bytes = sizeof(float) * kWarpsPerBlock * (2 * p.att);
+  cudaError_t err = allow_shared(fused_rowmax_kernel<TC>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_rowmax_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp,
+                            bytes, s>>>(
+      g, p, static_cast<const float*>(qtab), static_cast<const TC*>(ktab),
+      static_cast<float*>(smax));
+  return cudaGetLastError();
+}
+
+// K8's operands beside the graph and the tables (see gnpde_fused_rhs_bwd)
+struct Bwd {
+  const void *shifts, *ct_ax, *recip_p, *ct_den, *kw_t;
+  void *dq, *dxg, *dke, *row_sums, *partials;
+  int n_slots, reduce_blocks;
+};
+
+// K8's walk over the column table xcol of type TC (its k table too), then,
+// with dxg, the first pass of dKw / dKb over the column table's rows at
+// each slot's column
+template <typename TC>
+cudaError_t launch_bwd(Graph g, Proj p, const void* xcol, const void* qtab,
+                       const void* ktab, const Bwd& b, cudaStream_t s) {
+  const size_t bytes = sizeof(float) * kWarpsPerBlock *
+                       (3 * p.dim + 4 * p.att + kCoef * p.heads);
+  cudaError_t err = allow_shared(fused_rhs_bwd_kernel<TC>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_rhs_bwd_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp,
+                             bytes, s>>>(
+      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
+      static_cast<const TC*>(ktab), static_cast<const float*>(b.kw_t),
+      static_cast<const float*>(b.shifts), static_cast<const float*>(b.ct_ax),
+      static_cast<const float*>(b.recip_p),
+      static_cast<const float*>(b.ct_den), static_cast<float*>(b.dq),
+      static_cast<float*>(b.dxg), static_cast<float*>(b.dke),
+      static_cast<float*>(b.row_sums));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (b.dxg != nullptr)
+    launch_outer_reduce(static_cast<const TC*>(xcol), g.col,
+                        static_cast<const float*>(b.dke),
+                        static_cast<float*>(b.partials), b.n_slots,
+                        b.reduce_blocks, p.dim, p.att, s);
+  return cudaGetLastError();
+}
+
+// K17's operands beside the graph and the tables (see
+// gnpde_fused_rhs_bwd_col)
+struct Col {
+  const void *ct_ax, *recip_p, *ct_den, *kw_t;
+  void *dx, *dkn, *partials;
+  int reduce_blocks;
+};
+
+// K17's walk over the column table xcol of type TC (its k table too), then
+// the first pass of dKw / dKb over the column table's rows
+template <typename TC>
+cudaError_t launch_bwd_col(Graph g, Proj p, const void* xcol,
+                           const void* qtab, const void* ktab, const Col& c,
+                           cudaStream_t s) {
+  const size_t bytes = sizeof(float) * kWarpsPerBlock *
+                       (4 * p.dim + 3 * p.att + kCoef * p.heads);
+  cudaError_t err = allow_shared(fused_rhs_bwd_col_kernel<TC>, bytes);
+  if (err != cudaSuccess) return err;
+  fused_rhs_bwd_col_kernel<TC><<<row_blocks(g.n_rows),
+                                 kWarpsPerBlock * kWarp, bytes, s>>>(
+      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
+      static_cast<const TC*>(ktab), static_cast<const float*>(c.kw_t),
+      static_cast<const float*>(c.ct_ax), static_cast<const float*>(c.recip_p),
+      static_cast<const float*>(c.ct_den), static_cast<float*>(c.dx),
+      static_cast<float*>(c.dkn));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  launch_outer_reduce(static_cast<const TC*>(xcol), nullptr,
+                      static_cast<const float*>(c.dkn),
+                      static_cast<float*>(c.partials), g.n_rows,
+                      c.reduce_blocks, p.dim, p.att, s);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Every entry point first fills the scratch tables qtab and ktab
@@ -797,10 +895,10 @@ cudaError_t launch_fwd(Graph g, Proj p, const void* x, const void* xcol,
 // flags: bits 0-2 the score family, bit 3 squareplus. var and ls hold one
 // element for exp_kernel and two (features, positions) for
 // exp_kernel_beltrami, whose att is the packed width of both halves.
-// K6 and K9 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16: see
-// launch_tables) and the column table xcol, ignored with kTablesF32; with
-// a bfloat16 column table, ktab holds bfloat16 values and kw, kb are the
-// bf16-rounded projection.
+// K6-K9 and K17 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16:
+// see launch_tables) and the column table xcol, ignored with kTablesF32;
+// with a bfloat16 column table, ktab holds bfloat16 values and kw, kb are
+// the bf16-rounded projection.
 
 // Nullable: var, ls, shifts, alpha, num.
 extern "C" int gnpde_fused_rhs_fwd(
@@ -810,9 +908,7 @@ extern "C" int gnpde_fused_rhs_fwd(
     const void* alpha, void* qtab, void* ktab, void* out, void* den,
     void* num, int n_rows, int dim, int att, int heads, int flags,
     int tables, void* stream) {
-  if (tables != kTablesF32 && tables != kTablesF32Bf16 &&
-      tables != kTablesBf16)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
@@ -837,69 +933,58 @@ extern "C" int gnpde_fused_rhs_fwd(
 }
 
 extern "C" int gnpde_fused_rowmax(const void* rowptr, const void* col,
-                                  const void* x, const void* qw,
-                                  const void* qb, const void* kw,
-                                  const void* kb, void* qtab, void* ktab,
-                                  void* smax, int n_rows, int dim, int att,
-                                  int heads, void* stream) {
+                                  const void* x, const void* xcol,
+                                  const void* qw, const void* qb,
+                                  const void* kw, const void* kb, void* qtab,
+                                  void* ktab, void* smax, int n_rows, int dim,
+                                  int att, int heads, int tables,
+                                  void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err =
-        launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
+                                    ktab, n_rows, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes = sizeof(float) * kWarpsPerBlock * (2 * att);
-    err = allow_shared(fused_rowmax_kernel, bytes);
+    const Graph g = make_graph(rowptr, col, n_rows);
+    const Proj p = make_proj(nullptr, nullptr, nullptr, nullptr, dim, att,
+                             heads, kScaledDot);
+    err = tables == kTablesF32
+              ? launch_rowmax<float>(g, p, qtab, ktab, smax, s)
+              : launch_rowmax<__nv_bfloat16>(g, p, qtab, ktab, smax, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_rowmax_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
-                          s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(x, nullptr, nullptr, nullptr, dim, att, heads, kScaledDot),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<float*>(smax));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// kw_t is Kw^T [att, dim]. dke [n_slots, att] and row_sums [n_rows, 5] are
-// scratch the wrapper reduces; partials [reduce_blocks, dim + 1, att] are
-// zero on entry. Nullable: var, ls, shifts and, together, dxg, dke and
-// partials: without them the walk forms dq and the row sums only (the
-// column-plan backward, where K17 forms dKw and dKb per column).
+// kw_t is Kw^T [att, dim] (of the bf16-rounded Kw with a bfloat16 column
+// table: the k table's derivative). dke [n_slots, att] and row_sums
+// [n_rows, 5] are scratch the wrapper reduces; partials [reduce_blocks,
+// dim + 1, att] are zero on entry, and dKw is reduced over the column
+// table. Nullable: var, ls, shifts and, together, dxg, dke and partials:
+// without them the walk forms dq and the row sums only (the column-plan
+// backward, where K17 forms dKw and dKb per column).
 extern "C" int gnpde_fused_rhs_bwd(
-    const void* rowptr, const void* col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* shifts, const void* ct_ax,
-    const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
-    void* ktab, void* dq, void* dxg, void* dke, void* row_sums,
-    void* partials, int n_rows, int dim, int att, int heads, int flags,
-    int n_slots, int reduce_blocks, void* stream) {
+    const void* rowptr, const void* col, const void* x, const void* xcol,
+    const void* qw, const void* qb, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* shifts,
+    const void* ct_ax, const void* recip_p, const void* ct_den,
+    const void* kw_t, void* qtab, void* ktab, void* dq, void* dxg, void* dke,
+    void* row_sums, void* partials, int n_rows, int dim, int att, int heads,
+    int flags, int n_slots, int reduce_blocks, int tables, void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err =
-        launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
+                                    ktab, n_rows, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (3 * dim + 4 * att + kCoef * heads);
-    err = allow_shared(fused_rhs_bwd_kernel, bytes);
+    const Graph g = make_graph(rowptr, col, n_rows);
+    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    const Bwd b = {shifts, ct_ax, recip_p, ct_den, kw_t, dq, dxg, dke,
+                   row_sums, partials, n_slots, reduce_blocks};
+    err = tables == kTablesF32
+              ? launch_bwd<float>(g, p, x, qtab, ktab, b, s)
+              : launch_bwd<__nv_bfloat16>(g, p, xcol, qtab, ktab, b, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_rhs_bwd_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
-                           s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<const float*>(kw_t), static_cast<const float*>(shifts),
-        static_cast<const float*>(ct_ax), static_cast<const float*>(recip_p),
-        static_cast<const float*>(ct_den), static_cast<float*>(dq),
-        static_cast<float*>(dxg), static_cast<float*>(dke),
-        static_cast<float*>(row_sums));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dxg != nullptr)
-      launch_outer_reduce(static_cast<const float*>(x),
-                          static_cast<const int*>(col),
-                          static_cast<const float*>(dke),
-                          static_cast<float*>(partials), n_slots,
-                          reduce_blocks, dim, att, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -933,39 +1018,33 @@ extern "C" int gnpde_fused_rhs_bwd_sym(
 }
 
 // K17 over the CSC view: colptr [n_cols + 1] and row_by_col, the row of
-// each edge in column order. kw_t is Kw^T [att, dim]. dkn [n_cols, att]
-// (each column's summed dk) is scratch the wrapper reduces; partials
-// [reduce_blocks, dim + 1, att] are zero on entry. Nullable: var, ls.
+// each edge in column order. kw_t is Kw^T [att, dim] (of the bf16-rounded
+// Kw with a bfloat16 column table). dkn [n_cols, att] (each column's
+// summed dk) is scratch the wrapper reduces over the column table;
+// partials [reduce_blocks, dim + 1, att] are zero on entry. Nullable: var,
+// ls.
 extern "C" int gnpde_fused_rhs_bwd_col(
-    const void* colptr, const void* row_by_col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* ct_ax, const void* recip_p,
-    const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dx,
-    void* dkn, void* partials, int n_cols, int dim, int att, int heads,
-    int flags, int reduce_blocks, void* stream) {
+    const void* colptr, const void* row_by_col, const void* x,
+    const void* xcol, const void* qw, const void* qb, const void* kw,
+    const void* kb, const void* gmax, const void* var, const void* ls,
+    const void* ct_ax, const void* recip_p, const void* ct_den,
+    const void* kw_t, void* qtab, void* ktab, void* dx, void* dkn,
+    void* partials, int n_cols, int dim, int att, int heads, int flags,
+    int reduce_blocks, int tables, void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_cols > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err =
-        launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_cols, dim, att, s);
+    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
+                                    ktab, n_cols, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (4 * dim + 3 * att + kCoef * heads);
-    err = allow_shared(fused_rhs_bwd_col_kernel, bytes);
+    const Graph g = make_graph(colptr, row_by_col, n_cols);
+    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    const Col c = {ct_ax, recip_p, ct_den, kw_t, dx, dkn, partials,
+                   reduce_blocks};
+    err = tables == kTablesF32
+              ? launch_bwd_col<float>(g, p, x, qtab, ktab, c, s)
+              : launch_bwd_col<__nv_bfloat16>(g, p, xcol, qtab, ktab, c, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_rhs_bwd_col_kernel<<<row_blocks(n_cols), kWarpsPerBlock * kWarp,
-                               bytes, s>>>(
-        make_graph(colptr, row_by_col, n_cols),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<const float*>(kw_t), static_cast<const float*>(ct_ax),
-        static_cast<const float*>(recip_p), static_cast<const float*>(ct_den),
-        static_cast<float*>(dx), static_cast<float*>(dkn));
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    launch_outer_reduce(static_cast<const float*>(x), nullptr,
-                        static_cast<const float*>(dkn),
-                        static_cast<float*>(partials), n_cols, reduce_blocks,
-                        dim, att, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

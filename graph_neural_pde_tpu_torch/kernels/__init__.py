@@ -88,5 +88,7 @@ KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_bwd_heads, row_gather, smem_gather, blocked_spmm,
            blocked_sddmm)
 # the kernels with a bfloat16-table mode, whose ``bf16_launches`` count the
-# launches in it among their own
-BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rhs_bwd_sym)
+# launches in it among their own (``fused_rhs_fwd.bf16_shifted_launches``
+# those of them with the exact mode's shifts)
+BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rowmax,
+                fused_rhs_bwd, fused_rhs_bwd_sym, fused_rhs_bwd_col)

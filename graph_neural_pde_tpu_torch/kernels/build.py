@@ -46,21 +46,21 @@ _ENTRY_POINTS = {
     # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
     "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
     # The fused RHS kernels (csrc/fused_rhs.cu). qtab and ktab are scratch
-    # tables [n_rows, att]; kw_t is Kw transposed. K6 and K9 take a
+    # tables [n_rows, att]; kw_t is Kw transposed. K6-K9 and K17 take a
     # TABLES code: 0 float32 (x is the column table too), 1 x float32 with
     # the bfloat16 column table xcol, 2 both bfloat16.
     # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts, alpha
     # (the last four nullable), qtab, ktab, out, den, num (nullable),
     # n_rows, dim, att, heads, flags, tables, stream
     "gnpde_fused_rhs_fwd": [_PTR] * 18 + [_INT] * 6 + [_PTR],
-    # rowptr, col, x, qw, qb, kw, kb, qtab, ktab, smax, n_rows, dim, att,
-    # heads, stream
-    "gnpde_fused_rowmax": [_PTR] * 10 + [_INT] * 4 + [_PTR],
-    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
-    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg
+    # rowptr, col, x, xcol, qw, qb, kw, kb, qtab, ktab, smax, n_rows, dim,
+    # att, heads, tables, stream
+    "gnpde_fused_rowmax": [_PTR] * 11 + [_INT] * 5 + [_PTR],
+    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts (the last
+    # three nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg
     # (nullable), dke, row_sums, partials, n_rows, dim, att, heads, flags,
-    # n_slots, reduce_blocks, stream
-    "gnpde_fused_rhs_bwd": [_PTR] * 22 + [_INT] * 7 + [_PTR],
+    # n_slots, reduce_blocks, tables, stream
+    "gnpde_fused_rhs_bwd": [_PTR] * 23 + [_INT] * 8 + [_PTR],
     # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
     # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn,
     # row_sums, partials, n_rows, dim, att, heads, flags, reduce_blocks,
@@ -71,10 +71,11 @@ _ENTRY_POINTS = {
     # rowptr, col, rev, u, x, ct_num, ct_den, du, dx (rev and dx nullable
     # together), n_rows, dim, heads, stream
     "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 3 + [_PTR],
-    # colptr, row_by_col, x, qw, qb, kw, kb, gmax, var, ls (the last two
-    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dx, n_cols, dim,
-    # att, heads, flags, stream
-    "gnpde_fused_rhs_bwd_col": [_PTR] * 19 + [_INT] * 6 + [_PTR],
+    # colptr, row_by_col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last
+    # two nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dx, dkn,
+    # partials, n_cols, dim, att, heads, flags, reduce_blocks, tables,
+    # stream
+    "gnpde_fused_rhs_bwd_col": [_PTR] * 20 + [_INT] * 7 + [_PTR],
     # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
     # nullable), num, den, n_rows, dim, att, heads, flags, stream
     "gnpde_fused_aggregate": [_PTR] * 13 + [_INT] * 5 + [_PTR],

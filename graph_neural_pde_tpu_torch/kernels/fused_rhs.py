@@ -52,15 +52,18 @@ each, the feature factor's and the position factor's:
   ``ct_ax`` with ``recip_p``); ``_bwd_kernel`` / ``_fused_bwd_mega_call``
   with ``recip_p=None``.
 
-K6 and K9 (and so ``make_fused_ax_sym`` and ``fused_rhs_f``) also take the
-JAX package's bfloat16 payload (``rhs_payload_dtype="bfloat16"``): a
-bfloat16 column table ``xcol`` (x cast once a call) beside the row side
-``x`` (float32, or bfloat16 under the bf16 ODE state). q comes from x in
-float32; the gathered values from ``xcol``; k from ``xcol`` as the JAX
-package's composition computes ``k_e = x[col] @ Kw.astype(bf16) +
-kb.astype(bf16)`` in bfloat16 (:func:`bf16_k_table`), and its derivative
-is the bf16-rounded Kw. Every sum and output stays float32; the
-backward treats each cast as the identity.
+K6-K9 and K17 (and so ``make_fused_ax_sym``, ``make_fused_ax_colplan``,
+``fused_rhs_ax`` and ``fused_rhs_f``) also take the JAX package's bfloat16
+payload (``rhs_payload_dtype="bfloat16"``): a bfloat16 column table
+``xcol`` (x cast once a call) beside the row side ``x`` (float32, or
+bfloat16 under the bf16 ODE state). q comes from x in float32; the
+gathered values from ``xcol``; k from ``xcol`` as the JAX package's
+composition computes ``k_e = x[col] @ Kw.astype(bf16) + kb.astype(bf16)``
+in bfloat16 (:func:`bf16_k_table`), and its derivative is the bf16-rounded
+Kw. Every cotangent, sum and output stays float32; the backward treats
+each cast as the identity (the JAX package's own autodiff rounds the
+cotangent of x[col] to bfloat16 and sums it there, and its Pallas column
+plan packs its node table to bfloat16: neither is mirrored).
 
 The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K17
 walks its CSC view); the kernels gather their node rows themselves (see
@@ -211,13 +214,16 @@ def fused_rhs_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, *,
     return out, den, (num.reshape(n, heads * d) if want_num else None)
 
 
-def fused_rowmax_plain(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int):
-    """Plain version of K7: scaled-dot scores and a scatter max per row."""
+def fused_rowmax_plain(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
+                       xcol=None):
+    """Plain version of K7: scaled-dot scores and a scatter max per row
+    (with ``xcol`` the k rows of that bfloat16 column table, as K6 reads
+    them: see :func:`_col_side`)."""
     nv, r, c = _edges(rowptr, row, col)
     n = x.shape[0]
+    x, _, ke, _ = _col_side(x, xcol, kw, kb, c)
     src = (x @ qw + qb)[r].reshape(nv, heads, -1)
-    ke = (x[c] @ kw + kb).reshape(nv, heads, -1)
-    s = edge_scores(src, ke, "scaled_dot")
+    s = edge_scores(src, ke.reshape(nv, heads, -1), "scaled_dot")
     m = torch.full((n, heads), -torch.inf, dtype=x.dtype, device=x.device)
     m = m.scatter_reduce(0, r[:, None].expand_as(s), s, "amax",
                          include_self=True)
@@ -278,7 +284,7 @@ def _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
 def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                         recip_p, ct_den, *, heads: int, score: str, var=None,
                         ls=None, shifts=None, square_plus: bool = False,
-                        want_dxg: bool = True):
+                        want_dxg: bool = True, xcol=None):
     """Plain version of K8. With ``recip_p = 1 / (H (den + 1e-16))`` and
     ``ct_den`` the total cotangent of ``den``:
 
@@ -292,11 +298,13 @@ def fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     :func:`edge_scores`. Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb,
     dgmax, dvar, dls); dxg, dkw and dkb are None without ``want_dxg``
     (K17 forms dkw and dkb there), dvar and dls (shaped as var and ls) are
-    None but for ``exp_kernel`` and ``exp_kernel_beltrami``."""
+    None but for ``exp_kernel`` and ``exp_kernel_beltrami``. With ``xcol``
+    x_c and k_e come from that bfloat16 column table (:func:`_col_side`),
+    Kw is its bf16-rounded self, and dxg, dkw and dkb are the table's."""
     out = _bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                      recip_p, ct_den, heads=heads, score=score, var=var,
                      ls=ls, shifts=shifts, square_plus=square_plus,
-                     by_col=False)
+                     by_col=False, xcol=xcol)
     return out if want_dxg else (out[0], None, None, None) + out[4:]
 
 
@@ -319,7 +327,7 @@ def fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 def fused_rhs_bwd_col_plain(colptr, col_by_col, row_by_col, x, qw, qb, kw,
                             kb, gmax, ct_ax, recip_p, ct_den, *, heads: int,
                             score: str, var=None, ls=None,
-                            square_plus: bool = False):
+                            square_plus: bool = False, xcol=None):
     """Plain version of K17: K8's per-edge ``dxg`` (softmax groups the rows)
     over the edges in column order, summed per column into dx [N, D]:
 
@@ -327,11 +335,12 @@ def fused_rhs_bwd_col_plain(colptr, col_by_col, row_by_col, x, qw, qb, kw,
                                   + dk_e Kw^T,            r = row[e]
 
     (the caller adds ``dq Qw^T``), and K8's ``dkw = sum_e x_c^T dk_e`` and
-    ``dkb = sum_e dk_e``. Returns (dx, dkw, dkb)."""
+    ``dkb = sum_e dk_e``; with ``xcol`` over that bfloat16 column table
+    (:func:`_col_side`). Returns (dx, dkw, dkb)."""
     out = _bwd_plain(colptr, row_by_col, col_by_col, x, qw, qb, kw, kb,
                      gmax, ct_ax, recip_p, ct_den, heads=heads, score=score,
                      var=var, ls=ls, shifts=None, square_plus=square_plus,
-                     by_col=False)
+                     by_col=False, xcol=xcol)
     nv, _, c = _edges(colptr, row_by_col, col_by_col)
     return _node_sum(x.shape[0], c, out[1][:nv]), out[2], out[3]
 
@@ -413,7 +422,7 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
     ``extra`` is (name, tensor, shape) for the call's own float operands.
     The kernels are float32; on the CPU the plain versions also take
     float64 operands (all of one type). With a bfloat16 column table
-    ``xcol`` (K6, K9) x may be float32 or bfloat16. For
+    ``xcol`` (K6-K9, K17) x may be float32 or bfloat16. For
     exp_kernel_beltrami ``att`` is the packed width of both halves."""
     dev = x.device
     if score not in SCORES:
@@ -471,7 +480,8 @@ def _check_operands(name, dev, ints, floats):
 
 
 def _check_tables(name, x, xcol):
-    """The bfloat16 column table of K6 and K9 beside the row side x."""
+    """The bfloat16 column table of K6-K9 and K17 beside the row side
+    x."""
     if xcol.dtype != torch.bfloat16 or x.dtype not in (torch.float32,
                                                        torch.bfloat16):
         raise TypeError(f"{name}: the column table must be bfloat16 and x "
@@ -533,15 +543,11 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
     ``alpha`` (a one-element tensor) the first output is instead the folded
     ``alpha (ax - x)``, NaN on every row whose ``den`` under- or overflowed
     (``den <= 0`` with edges, or non-finite). ``gmax`` is a one-element
-    tensor, ``shifts`` optional per-edge score shifts [E_pad, H]. ``xcol``
-    is the bfloat16 column table (x cast to bfloat16; see the module
-    docstring), which the exact mode's ``shifts`` do not take. ``row`` is
-    only read by the plain version. Not differentiable by itself."""
+    tensor, ``shifts`` optional per-edge score shifts [E_pad, H] (the
+    exact mode's, K7's row maxima). ``xcol`` is the bfloat16 column table
+    (x cast to bfloat16; see the module docstring). ``row`` is only read
+    by the plain version. Not differentiable by itself."""
     n, d = x.shape
-    if xcol is not None and shifts is not None:
-        raise NotImplementedError(
-            "fused_rhs_fwd: per-edge shifts (the exact re-solve) with a "
-            "bfloat16 column table: ROADMAP Queue 2 B1 (K7)")
     extra = [("gmax", gmax, None)]
     if shifts is not None:
         extra.append(("shifts", shifts, (row.shape[0], heads)))
@@ -571,27 +577,35 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
                  _flags(score, square_plus), _tables(x, xcol))
     fused_rhs_fwd.launches += 1
     fused_rhs_fwd.bf16_launches += xcol is not None
+    fused_rhs_fwd.bf16_shifted_launches += (xcol is not None
+                                            and shifts is not None)
     return out, den, num
 
 
-def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int):
+def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
+                 xcol=None):
     """K7: [N, H] per-row maxima of the scaled-dot scores, 0 on edgeless
-    rows: the shifts of the exact softmax. Not differentiable."""
+    rows: the shifts of the exact softmax. With the bfloat16 column table
+    ``xcol`` the keys are K6's (its bf16 k table), so each row's largest
+    shifted score is exactly 0. Not differentiable."""
     _check("fused_rowmax", rowptr, row, col, x, qw, qb, kw, kb, heads,
-           "scaled_dot")
+           "scaled_dot", xcol=xcol)
     if x.device.type == "cpu":
         return fused_rowmax_plain(rowptr, row, col, x, qw, qb, kw, kb,
-                                  heads=heads)
+                                  heads=heads, xcol=xcol)
     n, d = x.shape
     att = qw.shape[1]
     _shared_bytes("fused_rowmax", 2 * att)
     smax = torch.empty((n, heads), dtype=torch.float32, device=x.device)
     tabs = _node_tables(x, att)
+    kw, kb = _col_projection(kw, kb, xcol)
     build.launch("fused_rowmax", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
-                 kb.data_ptr(), tabs[0].data_ptr(), tabs[1].data_ptr(),
-                 smax.data_ptr(), n, d, att, heads)
+                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
+                 kw.data_ptr(), kb.data_ptr(), tabs[0].data_ptr(),
+                 tabs[1].data_ptr(), smax.data_ptr(), n, d, att, heads,
+                 _tables(x, xcol))
     fused_rowmax.launches += 1
+    fused_rowmax.bf16_launches += xcol is not None
     return smax
 
 
@@ -638,18 +652,21 @@ def _reduce_blocks(rows: int) -> int:
 def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                   ct_den, *, heads: int, score: str, var=None, ls=None,
                   shifts=None, square_plus: bool = False,
-                  want_dxg: bool = True):
+                  want_dxg: bool = True, xcol=None):
     """K8: the general backward (see :func:`fused_rhs_bwd_plain` for the
     formulas and the return value). Without ``want_dxg`` it forms neither
     the per-edge dxg nor dk_e, and so neither dkw nor dkb: the form that
-    K17 completes. The reductions over all edges take two passes with
-    fixed orders, so two calls agree bit for bit."""
+    K17 completes. With the bfloat16 column table ``xcol`` (K6's) it reads
+    the gathered values and k there, and dxg and dkw are that table's.
+    The reductions over all edges take two passes with fixed orders, so
+    two calls agree bit for bit."""
     cap = row.shape[0]
     _check("fused_rhs_bwd", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
-           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, shifts, cap))
+           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, shifts, cap),
+           xcol)
     kwargs = dict(heads=heads, score=score, var=var, ls=ls, shifts=shifts,
-                  square_plus=square_plus, want_dxg=want_dxg)
+                  square_plus=square_plus, want_dxg=want_dxg, xcol=xcol)
     if x.device.type == "cpu":
         return fused_rhs_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
                                    ct_ax, recip_p, ct_den, **kwargs)
@@ -669,16 +686,19 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
         partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
                                device=dev)
     row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
+    kw, kb = _col_projection(kw, kb, xcol)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     build.launch("fused_rhs_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
-                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
-                 _ptr(shifts), ct_ax.data_ptr(), recip_p.data_ptr(),
-                 ct_den.data_ptr(), kw_t.data_ptr(), tabs[0].data_ptr(),
-                 tabs[1].data_ptr(), dq.data_ptr(), _ptr(dxg), _ptr(dke),
-                 row_sums.data_ptr(), _ptr(partials), n, d, att, heads,
-                 _flags(score, square_plus), cap, blocks)
+                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
+                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
+                 _ptr(ls), _ptr(shifts), ct_ax.data_ptr(),
+                 recip_p.data_ptr(), ct_den.data_ptr(), kw_t.data_ptr(),
+                 tabs[0].data_ptr(), tabs[1].data_ptr(), dq.data_ptr(),
+                 _ptr(dxg), _ptr(dke), row_sums.data_ptr(), _ptr(partials),
+                 n, d, att, heads, _flags(score, square_plus), cap, blocks,
+                 _tables(x, xcol))
     fused_rhs_bwd.launches += 1
+    fused_rhs_bwd.bf16_launches += xcol is not None
     dk = _dk_sums(partials, d) if want_dxg else (None, None)
     return (dq, dxg) + dk + _row_totals(row_sums, score, var, ls)
 
@@ -736,7 +756,8 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 
 def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
                       gmax, ct_ax, recip_p, ct_den, *, heads: int, score: str,
-                      var=None, ls=None, square_plus: bool = False):
+                      var=None, ls=None, square_plus: bool = False,
+                      xcol=None):
     """K17: (dx [N, D], dkw, dkb), x[col]'s cotangent summed per column
     and the key projection's gradients (see :func:`fused_rhs_bwd_col_plain`),
     on any graph: one warp walks a column's edges in the CSC view
@@ -744,17 +765,20 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     each edge's score and cotangent from the node rows of its row (q,
     ct_ax, recip_p, ct_den), and multiplies the column's summed dk by Kw^T
     once; dkw and dkb are reduced from the summed dk over nodes, as K9's
-    are. ``col_by_col`` is only read by the plain version. No atomics: two
-    calls agree bit for bit."""
+    are. With the bfloat16 column table ``xcol`` (K6's) the column's own
+    row and k come from that table and its k table, and dx is the table's
+    cotangent (through the bf16-rounded Kw), taken as x's; dkw is reduced
+    over the table. ``col_by_col`` is only read by the plain version. No
+    atomics: two calls agree bit for bit."""
     n, d = x.shape
     _check("fused_rhs_bwd_col", colptr, col_by_col, row_by_col, x, qw, qb,
            kw, kb, heads, score, var, ls,
-           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0))
+           _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0), xcol)
     if x.device.type == "cpu":
         return fused_rhs_bwd_col_plain(
             colptr, col_by_col, row_by_col, x, qw, qb, kw, kb, gmax, ct_ax,
             recip_p, ct_den, heads=heads, score=score, var=var, ls=ls,
-            square_plus=square_plus)
+            square_plus=square_plus, xcol=xcol)
     att = qw.shape[1]
     _shared_bytes("fused_rhs_bwd_col", 4 * d + 3 * att + 10 * heads)
     dev = x.device
@@ -763,16 +787,18 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     blocks = _reduce_blocks(n)
     partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
                            device=dev)
+    kw, kb = _col_projection(kw, kb, xcol)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     build.launch("fused_rhs_bwd_col", dev, colptr.data_ptr(),
-                 row_by_col.data_ptr(), x.data_ptr(), qw.data_ptr(),
-                 qb.data_ptr(), kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(),
-                 _ptr(var), _ptr(ls), ct_ax.data_ptr(), recip_p.data_ptr(),
-                 ct_den.data_ptr(), kw_t.data_ptr(), tabs[0].data_ptr(),
-                 tabs[1].data_ptr(), dx.data_ptr(), dkn.data_ptr(),
-                 partials.data_ptr(), n, d, att, heads,
-                 _flags(score, square_plus), blocks)
+                 row_by_col.data_ptr(), x.data_ptr(), _ptr(xcol),
+                 qw.data_ptr(), qb.data_ptr(), kw.data_ptr(), kb.data_ptr(),
+                 gmax.data_ptr(), _ptr(var), _ptr(ls), ct_ax.data_ptr(),
+                 recip_p.data_ptr(), ct_den.data_ptr(), kw_t.data_ptr(),
+                 tabs[0].data_ptr(), tabs[1].data_ptr(), dx.data_ptr(),
+                 dkn.data_ptr(), partials.data_ptr(), n, d, att, heads,
+                 _flags(score, square_plus), blocks, _tables(x, xcol))
     fused_rhs_bwd_col.launches += 1
+    fused_rhs_bwd_col.bf16_launches += xcol is not None
     return (dx,) + _dk_sums(partials, d)
 
 
@@ -931,10 +957,15 @@ fused_rhs_fwd.launches = 0
 fused_rowmax.launches = 0
 fused_rhs_bwd.launches = 0
 fused_rhs_bwd_sym.launches = 0
-# the launches on a bfloat16 column table, among each one's own
-fused_rhs_fwd.bf16_launches = 0
-fused_rhs_bwd_sym.bf16_launches = 0
 fused_rhs_bwd_col.launches = 0
+# the launches on a bfloat16 column table, among each one's own (K6's with
+# the exact mode's shifts counted apart again)
+fused_rhs_fwd.bf16_launches = 0
+fused_rhs_fwd.bf16_shifted_launches = 0
+fused_rowmax.bf16_launches = 0
+fused_rhs_bwd.bf16_launches = 0
+fused_rhs_bwd_sym.bf16_launches = 0
+fused_rhs_bwd_col.bf16_launches = 0
 fused_aggregate.launches = 0
 fused_score_max.launches = 0
 fused_rhs_bwd_heads.launches = 0
@@ -983,9 +1014,9 @@ class _FusedAx(torch.autograd.Function):
 
     Residuals: the inputs, ``den`` and the per-head numerators ``num`` that
     K6 flushes when a gradient is wanted. With a ``payload`` dtype
-    (bfloat16, the ``sym`` engine only) K6 and K9 read the column table x
-    cast to it, recast in the backward rather than kept; ax and den are
-    float32 and x's gradient comes back in x's dtype."""
+    (bfloat16) every kernel of the engine reads the column table x cast to
+    it, recast in the backward rather than kept; ax and den are float32
+    and x's gradient comes back in x's dtype."""
 
     @staticmethod
     def forward(ctx, qw, qb, kw, kb, x, gmax, var, ls, shifts, g, engine,
@@ -995,7 +1026,7 @@ class _FusedAx(torch.autograd.Function):
             g.rowptr, g.row, g.col, x, qw, qb, kw, kb, gmax, heads=heads,
             score=score, var=var, ls=ls, shifts=shifts,
             square_plus=square_plus, want_num=want,
-            xcol=_column_table(x, payload))
+            xcol=column_table(x, payload))
         ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, shifts, den,
                               num)
         ctx.g = g
@@ -1015,18 +1046,19 @@ class _FusedAx(torch.autograd.Function):
         if engine == "sym":
             dq, dx, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_sym(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                xcol=_column_table(x, payload), **kwargs)
+                xcol=column_table(x, payload), **kwargs)
         elif engine == "col":
+            xcol = column_table(x, payload)
             dq, _, _, _, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                want_dxg=False, **kwargs)
+                want_dxg=False, xcol=xcol, **kwargs)
             dx, dkw, dkb = fused_rhs_bwd_col(
                 g.colptr, g.col_by_col, g.row_by_col, x, qw, qb, kw, kb,
-                gmax, ct_ax, recip_p, ct_den, **kwargs)
+                gmax, ct_ax, recip_p, ct_den, xcol=xcol, **kwargs)
         else:
             dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                shifts=shifts, **kwargs)
+                shifts=shifts, xcol=column_table(x, payload), **kwargs)
             dx = column_sum(g, dxg)
         dx = dx + dq @ qw.T
         return (x.float().T @ dq, torch.sum(dq, dim=0), dkw, dkb,
@@ -1034,8 +1066,8 @@ class _FusedAx(torch.autograd.Function):
                 dls) + (None,) * 7
 
 
-def _column_table(x: torch.Tensor, payload) -> Optional[torch.Tensor]:
-    """K6's and K9's column table: None for the float32 path, else x cast
+def column_table(x: torch.Tensor, payload) -> Optional[torch.Tensor]:
+    """The kernels' column table: None for the float32 path, else x cast
     to the payload dtype (which the kernels' checks hold to bfloat16)."""
     return None if payload is None else x.to(payload).contiguous()
 
@@ -1046,15 +1078,18 @@ def _check_sorted(g, name: str) -> None:
 
 
 def fused_rhs_ax(g, heads: int, square_plus: bool, score: str, qw, qb, kw,
-                 kb, x, gmax, shifts=None, score_params=()):
+                 kb, x, gmax, shifts=None, score_params=(),
+                 payload_dtype: torch.dtype = None):
     """(ax [N, D], den [N, H]) over the prepared graph ``g``, directed or
     not, differentiable in qw, qb, kw, kb, x, gmax and the exp_kernel
     scalars through K8 and the column sum of its per-edge dxg. ``shifts``
-    [E_pad, H] carry no gradient (ax is invariant to per-row shifts)."""
+    [E_pad, H] carry no gradient (ax is invariant to per-row shifts).
+    ``payload_dtype`` as :func:`make_fused_ax_sym` takes it."""
     _check_sorted(g, "fused_rhs_ax")
     var, ls = score_scalars(score, score_params)
     return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                          shifts, g, "dxg", heads, square_plus, score, None)
+                          shifts, g, "dxg", heads, square_plus, score,
+                          payload_dtype)
 
 
 def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str,
@@ -1081,19 +1116,23 @@ def make_fused_ax_sym(g, heads: int, square_plus: bool, score: str,
     return op
 
 
-def make_fused_ax_colplan(g, heads: int, square_plus: bool, score: str):
+def make_fused_ax_colplan(g, heads: int, square_plus: bool, score: str,
+                          payload_dtype: torch.dtype = None):
     """``op(qw, qb, kw, kb, x, gmax, score_params) -> (ax, den)`` over ANY
     prepared graph (directed included), whose backward never forms a
     per-edge array: K8 without dxg for dq, dgmax and the exp_kernel
     scalars, K17 over the CSC view for x's gradient and dkw, dkb (the JAX
     package's column-plan backward, with the dkw reduction moved from the
-    edges of P11 to K17's per-column sums)."""
+    edges of P11 to K17's per-column sums). ``payload_dtype`` as
+    :func:`make_fused_ax_sym` takes it: K6, K8 and K17 read the bfloat16
+    column table."""
     _check_sorted(g, "make_fused_ax_colplan")
 
     def op(qw, qb, kw, kb, x, gmax, score_params=()):
         var, ls = score_scalars(score, score_params)
         return _FusedAx.apply(qw, qb, kw, kb, x.contiguous(), gmax, var, ls,
-                              None, g, "col", heads, square_plus, score, None)
+                              None, g, "col", heads, square_plus, score,
+                              payload_dtype)
 
     return op
 
@@ -1112,20 +1151,15 @@ def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
     """f [N, D] = alpha (ax - x) with the per-row guard, folded into K6's
     final write: the no-grad solves' RHS. Under autograd it is the unfolded
     composition with the same per-row guard, so a stray gradient through an
-    eval-mode model is K8's (K9's with a payload dtype, whose column table
-    K6 reads as :func:`make_fused_ax_sym` does). f is float32."""
+    eval-mode model is K8's (on the column table of ``payload_dtype`` too),
+    on any graph. f is float32."""
     _check_sorted(g, "fused_rhs_f")
     rowptr, row, col = g.rowptr, g.row, g.col
     gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
     tensors = (qw, qb, kw, kb, x, alpha, *score_params)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        if payload_dtype is None:
-            ax, den = fused_rhs_ax(g, heads, False, score, qw, qb, kw, kb, x,
-                                   gmax, None, score_params)
-        else:
-            ax, den = make_fused_ax_sym(g, heads, False, score,
-                                        payload_dtype)(qw, qb, kw, kb, x,
-                                                       gmax, score_params)
+        ax, den = fused_rhs_ax(g, heads, False, score, qw, qb, kw, kb, x,
+                               gmax, None, score_params, payload_dtype)
         bad = den_guard(den, rowptr, per_row=True)
         return alpha * (torch.where(bad, torch.full_like(ax, torch.nan), ax)
                         - x)
@@ -1134,7 +1168,7 @@ def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
     f, _, _ = fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb,
                             gmax, heads=heads, score=score, var=var, ls=ls,
                             alpha=alpha.reshape(1),
-                            xcol=_column_table(x, payload_dtype))
+                            xcol=column_table(x, payload_dtype))
     return f
 
 

@@ -17,11 +17,13 @@ family ``exp_kernel_beltrami`` over the block-structured projections of
 
 ``rhs_payload_dtype="bfloat16"`` (:func:`payload_dtype`) makes the
 laplacian's aggregation (K1/K2) and the transformer's plain row softmax
-over a symmetric graph (K6/K9, ``make_fused_ax_sym`` and ``fused_rhs_f``)
-read their gathered column tables in bfloat16, where the JAX package sets
-its ``pay_dt``; ``models.gnn.check_supported`` refuses the mode on every
-other route, and ``make_rhs`` on the routes a graph or a re-solve reaches
-at run time.
+(K6-K9 and K17: ``make_fused_ax_sym``, ``make_fused_ax_colplan`` on a
+directed graph or with ``sym_backward=False``, ``fused_rhs_f``, and the
+exact re-solve's ``fused_rowmax`` and ``fused_rhs_ax``) read their gathered
+column tables in bfloat16, where the JAX package sets its ``pay_dt``;
+``models.gnn.check_supported`` refuses the mode on every other route, and
+``make_rhs`` on the one a re-solve reaches at run time (the exact softmax
+of the families other than scaled_dot, which composes).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from torch import nn
 from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.kernels.dual_scatter import dual_scatter_add
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
-    SCORES, den_guard, fused_rhs_ax, fused_rhs_f, fused_rowmax,
+    SCORES, column_table, den_guard, fused_rhs_ax, fused_rhs_f, fused_rowmax,
     make_fused_ax_colplan, make_fused_ax_sym)
 from graph_neural_pde_tpu_torch.kernels.norm1 import make_fused_ax_norm1
 from graph_neural_pde_tpu_torch.models.attention import (
@@ -173,9 +175,10 @@ def low_precision(cfg: Config) -> bool:
 def bf16_refusal(cfg: Config) -> Optional[str]:
     """The route of ``cfg`` whose kernels do not take the bfloat16 payload
     or state yet (ROADMAP Queue 2 B1), or None. The mode runs on the
-    laplacian's K1/K2 and on the transformer's plain row softmax over a
-    symmetric graph (K6/K9); :func:`make_rhs` also refuses what a graph or
-    a re-solve reaches at run time (a directed graph, the exact re-solve)."""
+    laplacian's K1/K2 and on the transformer's plain row softmax over any
+    graph (K6-K9 and K17, the exact re-solve of scaled_dot included);
+    :func:`make_rhs` also refuses what a re-solve reaches at run time (the
+    composed exact softmax of the other families)."""
     if not low_precision(cfg):
         return None
     if cfg.function == "laplacian":
@@ -192,23 +195,20 @@ def bf16_refusal(cfg: Config) -> Optional[str]:
         return "squareplus or reweighted attention (K10/K11)"
     if cfg.block == "hard_attention":
         return "hard attention over the function's layer (K10/K11)"
-    if cfg.sym_backward is False:
-        return "the column-plan backward (K8 + K17)"
     return None
 
 
 def _refuse_bf16(cfg: Config, g: Graph, exact_softmax: bool) -> None:
     """Raise where make_rhs would reach a kernel without the bfloat16
     mode: :func:`bf16_refusal`'s routes, and, at run time, the transformer
-    RHS's exact re-solve and a directed graph's column-plan backward."""
+    RHS's exact re-solve where it composes (every family but scaled_dot,
+    or a re-masked graph: K10/K11)."""
     if not low_precision(cfg):
         return
     route = bf16_refusal(cfg)
-    if route is None and cfg.function == "transformer":
-        if exact_softmax:
-            route = "the exact re-solve of a poisoned solve (K7, K8)"
-        elif g.rev is None:
-            route = "a directed graph's column-plan backward (K8 + K17)"
+    if (route is None and cfg.function == "transformer"
+            and not _mega_ok(cfg, g, exact_softmax)):
+        route = "the exact re-solve of a poisoned solve, composed (K10/K11)"
     if route is not None:
         raise NotImplementedError(
             f"bfloat16 payload or state on {route}: ROADMAP Queue 2 B1")
@@ -315,7 +315,9 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     ``block_forward`` then re-solves once with ``exact_softmax``, which
     shifts every edge by its row's true score max (K7) so that no exp can
     leave the range; its gradient is K8 with the per-edge dxg, summed over
-    columns by K1.
+    columns by K1. Every one of these kernels reads the bfloat16 column
+    table under the bf16 payload or state, where the JAX package passes
+    its ``pay_dt``.
 
     Every other variant composes: per-head scores from the gathered q[row]
     and k[col], the global max ``gmax`` (differentiated through, as the
@@ -360,15 +362,16 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         ax, den = make_fused_ax_sym(g, h, False, score, pay)(qw, qb, kw, kb,
                                                              x, gmax, sp)
     elif not exact_softmax:
-        ax, den = make_fused_ax_colplan(g, h, False, score)(qw, qb, kw, kb,
-                                                            x, gmax, sp)
+        ax, den = make_fused_ax_colplan(g, h, False, score, pay)(
+            qw, qb, kw, kb, x, gmax, sp)
     else:
         with torch.no_grad():
-            smax = fused_rowmax(g.rowptr, g.row, g.col, x.contiguous(), qw,
-                                qb, kw, kb, heads=h)
+            xc = x.contiguous()
+            smax = fused_rowmax(g.rowptr, g.row, g.col, xc, qw, qb, kw, kb,
+                                heads=h, xcol=column_table(xc, pay))
             shifts = smax[g.row.long()]
         ax, den = fused_rhs_ax(g, h, False, score, qw, qb, kw, kb, x, gmax,
-                               shifts, sp)
+                               shifts, sp, payload_dtype=pay)
     if not exact_softmax:
         bad = den_guard(den, g.rowptr, per_row=False)
         ax = torch.where(bad, torch.full_like(ax, torch.nan), ax)

@@ -540,7 +540,6 @@ BF = dict(rhs_payload_dtype="bfloat16", dtype="bfloat16")
 
 class TestRefusals:
     @pytest.mark.parametrize("override", [
-        dict(sym_backward=False),                      # colplan K8 + K17
         dict(attention_norm_idx=1),                    # columns K12-K14
         dict(square_plus=True),                        # composed K10/K11
         dict(reweight_attention=True),                 # composed K10/K11
@@ -560,46 +559,76 @@ class TestRefusals:
         dict(function="laplacian"), dict(function="laplacian",
                                          block="attention"),
         dict(attention_type="exp_kernel"), dict(dtype="float32"),
-        dict(**FLOAT32)])
+        dict(**FLOAT32),
+        dict(sym_backward=False)])                     # colplan K8 + K17
     def test_check_supported_accepts(self, override):
         check_supported(GRAND_NL_BENCH.replace(**override))
 
     def test_runtime_routes_raise(self, graphs):
-        """The exact re-solve (K7, K8) and a directed graph (K8 + K17)
-        raise when make_rhs reaches them, before any kernel runs."""
-        with pytest.raises(NotImplementedError, match="Queue 2 B1"):
-            tfunctions.make_rhs(graphs.tcfg, graphs.tg, exact_softmax=True)
+        """The one route a re-solve still reaches without the mode raises
+        when make_rhs reaches it, before any kernel runs: the exact softmax
+        of a family other than scaled_dot composes (K10/K11). The exact
+        re-solve of scaled_dot (K7, K6 shifted, K8) and a directed graph
+        (K8 + K17) build and run on the bf16 column table
+        (tests/test_torch_port_bf16_col.py holds their values)."""
+        exp_cfg = graphs.tcfg.replace(attention_type="exp_kernel")
+        with pytest.raises(NotImplementedError,
+                           match="exact re-solve.*Queue 2 B1"):
+            tfunctions.make_rhs(exp_cfg, graphs.tg, exact_softmax=True)
+        tfunctions.make_rhs(exp_cfg, graphs.tg)
         directed = make_random_graph_dataset(40, 80, num_features=4,
                                              num_classes=2, seed=0).graph
         from graph_neural_pde_tpu_torch.ops.graph import make_graph
         g = make_graph(directed.row[:30], directed.col[:30],
                        num_nodes=40).sort_by_row()
         assert g.rev is None
-        with pytest.raises(NotImplementedError, match="Queue 2 B1"):
-            tfunctions.make_rhs(graphs.tcfg, g)
+        c = Fused(graphs, "scaled_dot")
+        func = tfunctions.ODEFunc(graphs.tcfg, D)
+        x = torch.tensor(c.x[:40], requires_grad=True)
+        aux = tfunctions.FuncAux(None, x.detach(), g.weight)
+        for exact in (False, True):
+            out = tfunctions.make_rhs(graphs.tcfg, g, exact_softmax=exact)(
+                func, aux, 0.0, x)
+            torch.sum(out).backward()
+            assert torch.isfinite(out).all() and torch.isfinite(x.grad).all()
 
     @pytest.mark.parametrize("state,training", [
         ("float32", False), ("bfloat16", False), ("bfloat16", True)])
     def test_poisoned_solve_raises(self, graphs, state, training,
                                    monkeypatch):
-        """A solve whose fast softmax poisons (Q far outside exp's range)
-        reaches the exact re-solve (K7, K8), which has no bfloat16 mode:
-        block_forward raises there, after the fast solve, rather than
-        returning NaN or re-solving in float32."""
+        """A solve whose fast softmax poisons: with scaled_dot scores (Q far
+        outside exp's range) block_forward re-solves on the bf16 column
+        table (K7, K6 shifted, K8) and comes back finite; with exp_kernel
+        scores (output_var far outside it) the re-solve composes (K10/K11,
+        no bfloat16 mode yet), and block_forward raises there, after the
+        fast solve, rather than returning NaN or re-solving in float32."""
         cfg = graphs.tcfg.replace(dtype=state, method="rk4", step_size=0.5,
                                   time=1.0)
         c = Fused(graphs, "scaled_dot", seed=7)
-        block = tblocks.ODEBlock(cfg, D)
-        with torch.no_grad():
-            block.func.att.Q.w.copy_(torch.tensor(400.0 * c.qw))
         calls = []
         real = tfunctions.make_rhs
         monkeypatch.setattr(
             tblocks, "make_rhs",
             lambda *a, **kw: calls.append(kw["exact_softmax"]) or real(*a, **kw))
+        block = tblocks.ODEBlock(cfg, D)
+        with torch.no_grad():
+            block.func.att.Q.w.copy_(torch.tensor(400.0 * c.qw))
+        x = torch.tensor(c.x, requires_grad=training)
+        z, _ = tblocks.block_forward(block, cfg, graphs.tg, x, training)
+        assert calls == [False, True]
+        assert torch.isfinite(z).all()
+        if training:
+            torch.sum(z).backward()
+            assert torch.isfinite(x.grad).all()
+        calls.clear()
+        cfg_e = cfg.replace(attention_type="exp_kernel")
+        block = tblocks.ODEBlock(cfg_e, D)
+        with torch.no_grad():
+            block.func.att.output_var.fill_(20.0)
+            block.func.att.lengthscale.fill_(100.0)
         with pytest.raises(NotImplementedError,
                            match="exact re-solve.*Queue 2 B1"):
-            tblocks.block_forward(block, cfg, graphs.tg, torch.tensor(c.x),
+            tblocks.block_forward(block, cfg_e, graphs.tg, torch.tensor(c.x),
                                   training)
         assert calls == [False, True]
 
@@ -624,8 +653,9 @@ class TestRefusals:
                 make(GRAND_NL_BENCH, mesh, tg, **kw_)
 
     def test_kernels_refuse_what_they_lack(self, graphs):
-        """K8 refuses a bfloat16 x, and K6 the exact mode's shifts beside a
-        bfloat16 column table: nothing falls back to float32."""
+        """K8 refuses a bfloat16 x without its column table, K6-K8 and K17
+        any column table but a bfloat16 one (float16 here): nothing falls
+        back to float32."""
         tg = graphs.tg
         c = Fused(graphs, "scaled_dot")
         qw, qb, kw, kb, x = c.t_ops()
@@ -636,14 +666,22 @@ class TestRefusals:
             kernels.fused_rhs_bwd(tg.rowptr, tg.row, tg.col, xb, qw, qb, kw,
                                   kb, torch.zeros(1), ct, rp, rp, heads=H,
                                   score="scaled_dot")
-        with pytest.raises(NotImplementedError, match="Queue 2 B1"):
-            kernels.fused_rhs_fwd(tg.rowptr, tg.row, tg.col, x, qw, qb, kw,
-                                  kb, torch.zeros(1), heads=H,
-                                  score="scaled_dot",
-                                  shifts=torch.zeros(tg.capacity, H),
-                                  xcol=xb)
+        x16 = x.to(torch.float16)
         with pytest.raises(TypeError):
             kernels.fused_rhs_fwd(tg.rowptr, tg.row, tg.col, x, qw, qb, kw,
                                   kb, torch.zeros(1), heads=H,
                                   score="scaled_dot",
-                                  xcol=x.to(torch.float16))
+                                  shifts=torch.zeros(tg.capacity, H),
+                                  xcol=x16)
+        with pytest.raises(TypeError):
+            kernels.fused_rowmax(tg.rowptr, tg.row, tg.col, x, qw, qb, kw,
+                                 kb, heads=H, xcol=x16)
+        with pytest.raises(TypeError):
+            kernels.fused_rhs_bwd(tg.rowptr, tg.row, tg.col, x, qw, qb, kw,
+                                  kb, torch.zeros(1), ct, rp, rp, heads=H,
+                                  score="scaled_dot", xcol=x16)
+        with pytest.raises(TypeError):
+            kernels.fused_rhs_bwd_col(tg.colptr, tg.col_by_col,
+                                      tg.row_by_col, x, qw, qb, kw, kb,
+                                      torch.zeros(1), ct, rp, rp, heads=H,
+                                      score="scaled_dot", xcol=x16)
