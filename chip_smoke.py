@@ -103,9 +103,13 @@ Phases, each of which must pass (any failure exits nonzero):
    D=128, ATT=32, H=2 with both row sides (the bf16 one timed), the
    ``pos_enc_knn`` Cora graph at BLEND's (s) widths (K8 without dxg, K17)
    and, untimed, all five families on the small random directed graph;
-   each against its plain version on the same tables (K8's, K9's and
-   K17's in float64 beside the bfloat16 table), two launches
-   bit-identical.
+   K12 (both modes), K13 and K14 on the bfloat16 column table at the Cora
+   GRAND-nl widths (a float32 row side timed, a bfloat16 one untimed), at
+   the arxiv scale (D=128, ATT=32, H=2) and the arxiv BLEND widths (packed
+   ATT=2 x 32) with the bench's bf16 row side (timed) and a float32 one
+   (untimed), and all five families small (untimed); each against its
+   plain version on the same tables (K8's, K9's, K14's and K17's in
+   float64 beside the bfloat16 table), two launches bit-identical.
    Each check is timed: device time per call (torch.profiler after
    warm-up calls in the same session, mean of 20 calls; the device events
    of each call are counted by the launch they come from, and a session
@@ -134,8 +138,9 @@ Phases, each of which must pass (any failure exits nonzero):
    function) over one GDC-rewired (directed) edge list, built once on the
    card and handed to both devices; the tuned Cora row and Cora GRAND-nl
    with the bfloat16 payload, and Cora GRAND-nl with ``sym_backward=False``
-   (the column-plan backward) with the payload and at bench.py's
-   precision (the bf16 state too), all on rk4 (logits within 3e-4 of
+   (the column-plan backward) and with the softmax over columns (K12-K14),
+   each with the payload and at bench.py's precision (the bf16 state too),
+   all on rk4 (logits within 3e-4 of
    their scale under the payload, within one bf16 step, 2^-8, of theirs
    and of each gradient leaf's under the bf16 state); BLEND (a seeded positional encoding,
    the dual encoder at widths 12 + 4, the split-space score): Cora GRAND-nl
@@ -152,8 +157,9 @@ Phases, each of which must pass (any failure exits nonzero):
    from the others before it fails;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
-   just after (the bfloat16 launches of K1, K2, K6, K7, K8, K9 and K17,
-   and K6's shifted ones, counted apart among their own): tuned Cora for
+   just after (the bfloat16 launches of K1, K2, K6, K7, K8, K9, K12, K13,
+   K14 and K17, and K6's shifted ones, counted apart among their own):
+   tuned Cora for
    1 training epoch (followed by an eval step
    and the early-stop eval) twice, to record whether two runs agree bit
    for bit; tuned Computers (hard attention, continuous adjoint) and tuned
@@ -200,7 +206,8 @@ Phases, each of which must pass (any failure exits nonzero):
    bench.main`` at full width: its oracles on the card (K18 with K19's
    shift and K8's per-head mode among the kernels they hold), then its
    forward, train-step and secondary timings at bench.py's precision (the
-   bfloat16 payload and rk4 state: K1, K2, K6 and K9 on bfloat16 tables),
+   bfloat16 payload and rk4 state: K1, K2, K6, K9 and K12-K14 on bfloat16
+   tables),
    printing its JSON line; (v) ``config.GRAND_NL_BENCH`` at bench.py's
    precision over ogbn-arxiv-synthetic at full width: the folded forward,
    its logits against the float32 model's from the same weights, then 3
@@ -211,7 +218,12 @@ Phases, each of which must pass (any failure exits nonzero):
    at bench.py's precision (the bf16 payload and rk4 state) on Cora
    GRAND-nl and on ``GRAND_NL_BENCH`` at arxiv scale, 1 epoch each, which
    must re-solve on the bfloat16 column table (K7, K6 shifted, K8 with
-   dxg) and stay finite, loss and gradients; (u)
+   dxg) and stay finite, loss and gradients; (y) (v) with the softmax
+   over columns: 3 remat steps, each step's ms printed, K12-K14 on the
+   bfloat16 column table; (z) the forced poison over columns at bench.py's
+   precision on Cora GRAND-nl at T = 2, which must poison in K12/K13 on the
+   bfloat16 column table, re-solve on the composed exact softmax over
+   columns (K3/K4, K1/K2 on the bf16 state) and stay finite; (u)
    the multi-device layer (``graph_neural_pde_tpu_torch.parallel``): first
    a world of two NCCL ranks on card 0, in a process of its own, which
    must end in NCCL's refusal of two ranks on one GPU, then over a world of
@@ -228,9 +240,10 @@ Phases, each of which must pass (any failure exits nonzero):
    (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
    and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
    run must launch the kernels its path runs, and all twenty-one counters,
-   and the eight of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
-   K8, K9, K17), must grow. The paths (a)-(s) run ``GRAND_NL_BENCH``'s
-   architecture in float32, as before the bfloat16 mode.
+   and the eleven of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
+   K8, K9, K12, K13, K14, K17), must grow. The paths (a)-(s) run
+   ``GRAND_NL_BENCH``'s architecture in float32, as before the bfloat16
+   mode.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1079,60 +1092,81 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
 
 
 def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
-                        dev="cuda"):
+                        dev="cuda", payload=None, row_bf16=False):
     """K12 (both modes), K13 and K14 (every output, against the plain
     version in float64) against their plain versions; two launches of each
-    must be bit-identical. ``timed=False`` only compares."""
+    must be bit-identical. ``timed=False`` only compares.
+
+    ``payload=torch.bfloat16`` (the JAX package's bf16 payload, the only
+    mode its norm-1 kernels run in) checks them on the bf16 tables, named
+    "<kernel> bf16": the column table is x cast to bfloat16, its k table
+    rounded as the package rounds k_e, beside the row side x, float32 or
+    (``row_bf16``, the bf16 ODE state) x itself in bfloat16; K14's plain
+    version is evaluated in float64 beside the same bfloat16 table."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
+    bf16 = payload == torch.bfloat16
+    if row_bf16:
+        ops = (ops[0].to(torch.bfloat16),) + ops[1:]
+    kw_x = dict(xcol=ops[0].to(torch.bfloat16)) if bf16 else {}
     n, nv = g.num_nodes, g.num_valid
     ct_ax = randn(n, d)
     # den's cotangent positive, as in check_fused_kernels
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw_f) + 1e-16)).contiguous()
+    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw_x, **kw_f) + 1e-16)
+             ).contiguous()
     cts = (ct_ax, (recip / h).contiguous(), ct_den)
 
     def f64(t):
-        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
-            else t
+        return (t.double() if torch.is_tensor(t) and t.is_floating_point()
+                and t.dtype != torch.bfloat16 else t)
 
     def bwd64():
-        out = K.norm1_bwd_plain(*csr, *map(f64, ops), *map(f64, cts),
-                                **{k: f64(v) for k, v in kw_f.items()})
+        kw = {k: f64(v) for k, v in {**kw_x, **kw_f}.items()}
+        out = K.norm1_bwd_plain(*csr, *map(f64, ops), *map(f64, cts), **kw)
         return tuple(o.float() for o in out if o is not None)
 
     def some(out):
         return tuple(o for o in out if o is not None)
 
     # compulsory bytes and float32 operations as in check_fused_kernels:
-    # indices, x and the projections' weights; every node's q and k
-    # projections, per edge one score (K14: two, and their derivatives)
-    # and the dot products or accumulations over D
-    base_bytes = 4 * (n + 1 + nv + n * d + 2 * d * att + 2 * att)
+    # indices, the row side x and the column table (one tensor but for a
+    # float32 row side beside the bf16 payload; a bf16 element 2 bytes)
+    # and the projections' weights; every node's q and k projections, per
+    # edge one score (K14: two, and their derivatives) and the dot products
+    # or accumulations over D
+    x_bytes = ops[0].element_size() * n * d
+    if bf16 and not row_bf16:
+        x_bytes += 2 * n * d
+    base_bytes = 4 * (n + 1 + nv + 2 * d * att + 2 * att) + x_bytes
     proj = projection_ops(d, att, score)
     cases = [
         ("norm1_den", "column denominators",
-         lambda: K.norm1_den(*csr, *ops, **kw_f),
-         lambda: K.norm1_den_plain(*csr, *ops, **kw_f),
+         lambda: K.norm1_den(*csr, *ops, **kw_x, **kw_f),
+         lambda: K.norm1_den_plain(*csr, *ops, **kw_x, **kw_f),
          (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att), None),
         ("norm1_den", "weighted by ct[c] . x[n]",
-         lambda: K.norm1_den(*csr, *ops, ct=ct_ax, **kw_f),
-         lambda: K.norm1_den_plain(*csr, *ops, ct=ct_ax, **kw_f),
+         lambda: K.norm1_den(*csr, *ops, ct=ct_ax, **kw_x, **kw_f),
+         lambda: K.norm1_den_plain(*csr, *ops, ct=ct_ax, **kw_x, **kw_f),
          (base_bytes + 4 * n * (d + h),
           2 * n * proj + nv * (2 * att + 2 * d)), None),
         ("norm1_fwd", "ax",
-         lambda: K.norm1_fwd(*csr, *ops, recip, **kw_f),
-         lambda: K.norm1_fwd_plain(*csr, *ops, recip, **kw_f),
+         lambda: K.norm1_fwd(*csr, *ops, recip, **kw_x, **kw_f),
+         lambda: K.norm1_fwd_plain(*csr, *ops, recip, **kw_x, **kw_f),
          (base_bytes + 4 * n * (h + d),
           2 * n * proj + nv * (2 * att + 2 * d + 2 * h)), None),
         ("norm1_bwd", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
-         lambda: some(K.norm1_bwd(*csr, *ops, *cts, **kw_f)),
-         lambda: some(K.norm1_bwd_plain(*csr, *ops, *cts, **kw_f)),
+         lambda: some(K.norm1_bwd(*csr, *ops, *cts, **kw_x, **kw_f)),
+         lambda: some(K.norm1_bwd_plain(*csr, *ops, *cts, **kw_x, **kw_f)),
          (base_bytes + 4 * (n * (d + 2 * h) + n * att + n * d + d * att),
           4 * n * proj + nv * (10 * att + 6 * d)), bwd64),
     ]
-    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}"
+    tag = ""
+    if bf16:
+        cases = [(kname + " bf16", *c) for kname, *c in cases]
+        tag = " row bf16" if row_bf16 else " bf16"
+    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
@@ -1143,8 +1177,9 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{kname} ({what}) {score} @ {shape_name}: "
                                  f"two launches differ")
-    print(f"[kernels] norm1_den, norm1_fwd, norm1_bwd @ {shape_name} {score}: "
-          f"two launches bit-identical in every output", flush=True)
+    print(f"[kernels] norm1_den, norm1_fwd, norm1_bwd @ {shape_name} "
+          f"{score}{tag}: two launches bit-identical in every output",
+          flush=True)
     return rows
 
 
@@ -1242,6 +1277,20 @@ def attention_layer(model):
 # the bf16 payload's logits in check_small_end_to_end: the largest gap
 # between the card and the CPU, of the largest logit
 BF16_LOGITS = 3e-4
+# the softmax over columns under the bf16 payload: the card's and the CPU's
+# float32 states differ in their last bits, each such difference flips a
+# bf16 rounding of x[col] now and then (2^-8 of an element), and attention
+# normalised over columns, not row-stochastic, grows what a flip moves. On
+# an H100 the Cora GRAND-nl row measured 5.632e-4 of scale, each side
+# bit-identical on rerun, where the float32 payload lies 1.281e-3 away; its
+# gradient leaves 9.037e-4 of their scale at most (the float32 payload's
+# 2.436e-3), and the same flips leave every gradient entry a noise of up to
+# 2.9e-5 of the largest gradient (m1.w; alpha_train's, whose own scale is
+# 2.9e-4 of the largest, 8.8e-6 of it): the rounding noise allowed in
+# every entry there (check_small_end_to_end's grad_floor)
+BF16_COLUMN_LOGITS = 1e-3
+BF16_COLUMN_LEAF = 2e-3
+BF16_COLUMN_FLOOR = 1e-4
 # the same under the bf16 fixed-grid state, whose every stage sum rounds to
 # bfloat16: one bf16 step (2^-8) of the logits' scale, and of each
 # gradient leaf's; a rounding that flips between the two devices' float32
@@ -1268,15 +1317,16 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
 
     A config with the bfloat16 payload holds its logits within
     ``BF16_LOGITS`` of their largest entry, and its loss and gradients as
-    above; with the bfloat16 state too (``dtype="bfloat16"``), its logits
+    above (over columns ``BF16_COLUMN_LOGITS``, and each gradient leaf
+    within ``BF16_COLUMN_LEAF`` of its scale); with the bfloat16 state too (``dtype="bfloat16"``), its logits
     and each gradient leaf within ``BF16_STATE_STEP`` of their scale. It
     runs on a
     fixed grid (rk4, the mode's route in the bench): on an
     adaptive one the error estimate is bf16 rounding noise, so the step
     sequence, and with it every gradient, hangs on the last bits of the
     two devices' float32 sums. The card's side must have launched the
-    kernels' bfloat16 mode (K1; K6 and K9; or, with ``sym_backward=False``,
-    K6, K8 and K17), and the check prints the
+    kernels' bfloat16 mode (K1; K6 and K9; with ``sym_backward=False``,
+    K6, K8 and K17; over columns K12-K14), and the check prints the
     largest gaps of the logits, the loss and each gradient leaf (of its own
     scale) beside those of the CPU's float32-payload run, the control that
     says the tolerances tell the two modes apart."""
@@ -1303,7 +1353,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     inputs0 = (d.x.clone(), d.graph.weight.clone())
     bf16 = cfg.rhs_payload_dtype == "bfloat16" or cfg.dtype == "bfloat16"
     state_bf16 = cfg.dtype == "bfloat16" and cfg.method in FIXED_METHODS
-    logits_limit = BF16_STATE_STEP if state_bf16 else BF16_LOGITS
+    logits_limit = (BF16_STATE_STEP if state_bf16 else BF16_COLUMN_LOGITS
+                    if cfg.attention_norm_idx == 1 else BF16_LOGITS)
     bf16_ran = {}
     for dev in devices:
         before = {k.__name__: k.bf16_launches for k in kernels.BF16_KERNELS}
@@ -1350,6 +1401,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
             # the card's side went through the kernels' bfloat16 mode
             if cfg.function == "laplacian":
                 need = ("csr_spmm",)
+            elif cfg.attention_norm_idx == 1:
+                need = NORM1_KERNELS
             elif cfg.sym_backward is False:
                 need = COLPLAN_KERNELS
             else:
@@ -1426,7 +1479,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     # only rounding noise: grad_floor of the largest gradient is allowed
     # everywhere
     top = max(float(v.abs().max()) for v in g_c.values())
-    leaf_atol = BF16_STATE_STEP if state_bf16 else 1e-4
+    leaf_atol = (BF16_STATE_STEP if state_bf16 else BF16_COLUMN_LEAF
+                 if bf16 and cfg.attention_norm_idx == 1 else 1e-4)
     for k in g_c:
         scale = float(g_c[k].abs().max())
         if not torch.allclose(g_g[k], g_c[k], rtol=1e-3,
@@ -2056,13 +2110,15 @@ TABLE_MODE = "csr_spmm table mode"
 SHIFTED_BF16 = "fused_rhs_fwd bf16 shifted"
 BF16_NAMES = tuple(f"{k} bf16" for k in (
     "csr_spmm", "edge_dot", "fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd",
-    "fused_rhs_bwd_sym", "fused_rhs_bwd_col")) + (SHIFTED_BF16,)
-# those the bench entry (t) launches: the primary op and the column-plan
-# oracles
+    "fused_rhs_bwd_sym", "fused_rhs_bwd_col", "norm1_den", "norm1_fwd",
+    "norm1_bwd")) + (SHIFTED_BF16,)
+# those the bench entry (t) launches: the primary op, the column-plan
+# oracles and the softmax over columns (its oracles and keys)
 BENCH_BF16 = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
                                          "fused_rhs_fwd", "fused_rhs_bwd",
                                          "fused_rhs_bwd_sym",
-                                         "fused_rhs_bwd_col"))
+                                         "fused_rhs_bwd_col", "norm1_den",
+                                         "norm1_fwd", "norm1_bwd"))
 
 
 def counted(label: str, expected, fn):
@@ -2321,6 +2377,20 @@ def main() -> int:
             rows += check_norm1_kernels("cora-small", cora_g, 16, 16, 4,
                                         score, args.seed + 70 + i,
                                         timed=False)
+        # K12-K14 on the bfloat16 column table at the Cora GRAND-nl widths,
+        # with a float32 row side (timed) and a bfloat16 one, and every
+        # family small
+        rows += check_norm1_kernels("cora-standin", cora_g, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 180, payload=bf16)
+        rows += check_norm1_kernels("cora-standin", cora_g, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 181, timed=False,
+                                    payload=bf16, row_bf16=True)
+        for i, score in enumerate(SCORE_FAMILIES):
+            rows += check_norm1_kernels("cora-small", cora_g, 16, 16, 4,
+                                        score, args.seed + 182 + i,
+                                        timed=False, payload=bf16)
         # the blocked engine's shapes: reordered Cora and ogbn-arxiv
         # stand-ins at their rows' widths, the image CLI's batches (64
         # MNIST-shaped grids, D=1; 64 CIFAR-shaped grids with diagonals,
@@ -2379,6 +2449,16 @@ def main() -> int:
         rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
                                     2 * bench.attention_dim, bench.heads,
                                     BELTRAMI, args.seed + 62)
+        # K12-K14 on the bfloat16 column table at (y)'s widths and at the
+        # BLEND widths: under the bench's bf16 state (x itself bf16, timed)
+        # and with a float32 row side (untimed)
+        for att_w, score, sd in ((bench.attention_dim, "scaled_dot", 190),
+                                 (2 * bench.attention_dim, BELTRAMI, 192)):
+            for row_b16, timed in ((True, True), (False, False)):
+                rows += check_norm1_kernels(
+                    "arxiv-scale", big, bench.hidden_dim, att_w,
+                    bench.heads, score, args.seed + sd + (not row_b16),
+                    timed=timed, payload=bf16, row_bf16=row_b16)
         rows += check_aggregate_kernels("arxiv-scale", big, bench.hidden_dim,
                                         bench.attention_dim, bench.heads,
                                         "scaled_dot", args.seed + 116)
@@ -2537,6 +2617,15 @@ def main() -> int:
                                base=colplan)
         check_small_end_to_end("Cora GRAND-nl colplan bench precision",
                                base=colplan.replace(dtype="bfloat16"))
+        # the softmax over columns (K12-K14 on the bf16 column table) with
+        # the payload, and at bench.py's precision
+        cols_bf16 = grand_nl_cora().replace(attention_norm_idx=1, **bf16_rk4)
+        check_small_end_to_end("Cora GRAND-nl column softmax bf16 payload",
+                               base=cols_bf16, grad_floor=BF16_COLUMN_FLOOR)
+        check_small_end_to_end(
+            "Cora GRAND-nl column softmax bench precision",
+            base=cols_bf16.replace(dtype="bfloat16"),
+            grad_floor=BF16_COLUMN_FLOOR)
         check_small_end_to_end("Computers")
         check_small_end_to_end("Cora GRAND-nl", base=nl)
         # the composed RHS differentiates through the global score max, and
@@ -2704,6 +2793,17 @@ def main() -> int:
                                  f"{per_path[label_w]}")
         print(f"[main] {label_w} in {secs:.2f} s; kernel launches "
               f"{per_path[label_w]}", flush=True)
+        # (y) (h) at bench.py's precision: the softmax over columns, K12-K14
+        # on the bf16 column table
+        label_y = ("GRAND-nl arxiv-scale column softmax at bench precision "
+                   "(y)")
+        _, per_path[label_y], secs = counted(
+            label_y, tuple(f"{k} bf16" for k in NORM1_KERNELS),
+            lambda: drive_bench_precision(args.seed, label="(y)",
+                                          modes=("remat",), forward=False,
+                                          attention_norm_idx=1))
+        print(f"[main] {label_y} in {secs:.2f} s; kernel launches "
+              f"{per_path[label_y]}", flush=True)
         # (u) the multi-device layer: NCCL refuses two ranks on one card,
         # so a world of one NCCL rank drives every sharded function and the
         # sharded tuned Cora block, and the 4-way split's per-rank bodies
@@ -2810,7 +2910,17 @@ def main() -> int:
              ("fused_rowmax bf16", SHIFTED_BF16, "fused_rhs_bwd bf16")),
             ("GRAND-nl arxiv-scale forced poison at bench precision (x)",
              GRAND_NL_BENCH.replace(seed=args.seed),
-             ("fused_rowmax bf16", SHIFTED_BF16, "fused_rhs_bwd bf16")))
+             ("fused_rowmax bf16", SHIFTED_BF16, "fused_rhs_bwd bf16")),
+            # (z) (g) at bench.py's precision: the fast solve poisons in K12
+            # and K13 on the bfloat16 column table, the re-solve composes
+            # the exact column softmax over the bf16 state (K3/K4, K1/K2 on
+            # the bf16 table); T = 2 as in (g)
+            ("GRAND-nl Cora column softmax forced poison at bench precision "
+             "(z)",
+             nl1.replace(rhs_payload_dtype="bfloat16", dtype="bfloat16",
+                         method="rk4", step_size=1.0, time=2.0),
+             ("norm1_den bf16", "norm1_fwd bf16", "segment_norm",
+              "segment_norm_bwd", "csr_spmm bf16", "edge_dot bf16")))
         for label, cfg, expected in poisoned:
             losses, counts, secs = counted(
                 label, expected,
@@ -2864,7 +2974,10 @@ def main() -> int:
                "fused_rowmax bf16": ("fused_rhs.cu", "fused_rhs.py:654"),
                "fused_rhs_bwd bf16": ("fused_rhs.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_col bf16": ("fused_rhs.cu",
-                                          "fused_rhs.py:1047")}
+                                          "fused_rhs.py:1047"),
+               "norm1_den bf16": ("norm1.cu", "fused_rhs.py:2070"),
+               "norm1_fwd bf16": ("norm1.cu", "fused_rhs.py:2189"),
+               "norm1_bwd bf16": ("norm1.cu", "fused_rhs.py:2297")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

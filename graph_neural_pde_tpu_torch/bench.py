@@ -24,18 +24,16 @@ self-loops) and prints ONE JSON line with the JAX bench's keys:
 
 Precision. The model runs at the JAX bench's precision
 (``bench.py:93-95``): the bfloat16 payload and the bfloat16 rk4 state
-(``config.GRAND_NL_BENCH``). That holds for ``value``, ``train_*``,
-``train_grand_l_*``, the cosine_sim and BLEND forwards and ``early_stop_*``
-(whose solver keeps a float32 state, as the JAX package's does). The
-softmax over columns (``train_norm1_*`` and its forward) runs in float32:
-its kernels (K12-K14) do not take the bf16 payload yet (ROADMAP Queue 2
-B1).
+(``config.GRAND_NL_BENCH``). That holds for every key: ``value``,
+``train_*``, ``train_grand_l_*``, ``train_norm1_*``, the cosine_sim, BLEND
+and column-softmax forwards and ``early_stop_*`` (whose solver keeps a
+float32 state, as the JAX package's does).
 
 How it differs from the JAX bench. The oracles hold at 1e-4 of scale
 where the JAX bench's bfloat16 kernels hold at 3e-2: the oracles of the
-primary op and of the column-plan engine read the same bf16-rounded
-column table as the kernels, so only the order of float32 sums separates
-the two. A failed oracle or
+primary op, of the column-plan engine and of the softmax over columns read
+the same bf16-rounded column table as the kernels, so only the order of
+float32 sums separates the two. A failed oracle or
 secondary raises: nothing falls back to
 an unfolded engine, no secondary's failure is caught, and no tunnel or
 compile-cache guard exists (nothing here compiles). ``vs_baseline`` (an
@@ -60,7 +58,7 @@ import time
 import numpy as np
 import torch
 
-from graph_neural_pde_tpu_torch.config import FLOAT32, GRAND_NL_BENCH
+from graph_neural_pde_tpu_torch.config import GRAND_NL_BENCH
 from graph_neural_pde_tpu_torch.data.synthetic import (
     make_random_graph_dataset)
 from graph_neural_pde_tpu_torch.kernels import (
@@ -189,7 +187,8 @@ def _normalised_ax(g, x, qw, qb, kw, kb, heads, score, sp, norm_cols,
     to): softmax normalised over rows, or over columns (``norm_cols``).
     With ``bf16`` the column side reads the bf16 payload as the kernels
     do: values from x rounded to bfloat16, k = bf16(bf16(x_b Kw_b) + kb_b)
-    with Kw and kb rounded too, the product summed in float64."""
+    with Kw and kb rounded too, the product summed in float64; over columns
+    the denominators sum the scores of that same table."""
     n, d = x.shape
     nv = g.num_valid
     r, c = g.row[:nv].long(), g.col[:nv].long()
@@ -397,12 +396,12 @@ def _torch_scores(src, ke, heads, score, sp):
 def verify_score_families_on_device(device="cuda") -> None:
     """The score families beyond scaled_dot through the column-plan engine
     (cosine_sim, pearson, exp_kernel, exp_kernel_beltrami with their
-    scalars) with the bfloat16 payload, and the softmax over columns
-    (``make_fused_ax_norm1``, K12-K14: scaled_dot and cosine_sim) in
-    float32, each forward value and gradient against autograd of the torch
-    composition (reading the same bf16-rounded column table where the
-    engine does), on a symmetric toy graph on ``device`` (the JAX bench's
-    ``bench.py:441-581``). Raises on the first that fails."""
+    scalars) and the softmax over columns (``make_fused_ax_norm1``,
+    K12-K14: scaled_dot and cosine_sim), both with the bfloat16 payload,
+    each forward value and gradient against autograd of the torch
+    composition reading the same bf16-rounded column table, on a symmetric
+    toy graph on ``device`` (the JAX bench's ``bench.py:441-581``). Raises
+    on the first that fails."""
     dev = torch.device(device)
     rng = np.random.default_rng(1)
     n, e, d, att, heads = 512, 4096, 128, 64, 2
@@ -428,17 +427,16 @@ def verify_score_families_on_device(device="cuda") -> None:
                                       (att_w,)))
         sp = tuple(torch.tensor([v], device=dev)
                    for v in scalars.get(score, ()))
-        op = (make_fused_ax_norm1(g, heads, False, score) if norm_cols
-              else make_fused_ax_colplan(g, heads, False, score,
-                                         torch.bfloat16))
+        make = make_fused_ax_norm1 if norm_cols else make_fused_ax_colplan
+        op = make(g, heads, False, score, torch.bfloat16)
         leaves = [t.clone().requires_grad_(True)
                   for t in (*weights, x_nodes, *sp)]
         w_l, x_l, sp_l = leaves[:4], leaves[4], tuple(leaves[5:])
         ax, _ = op(*w_l, x_l, gmax0, sp_l)
         v_op = torch.sum(ax * probe)
         v_ref = _normalised_ax(g, x_l, *w_l, heads, score, sp_l, norm_cols,
-                               probe, bf16=not norm_cols)
-        label = f"norm1/{score}" if norm_cols else f"{score} (bf16 payload)"
+                               probe, bf16=True)
+        label = f"{'norm1/' if norm_cols else ''}{score} (bf16 payload)"
         _check(f"{label} fwd", v_op, v_ref)
         got = torch.autograd.grad(v_op, leaves)
         want = torch.autograd.grad(v_ref, leaves)
@@ -507,10 +505,9 @@ def main(device="cuda", num_nodes=169_343, num_edges=1_166_243, hidden=128,
               f"rate={grand_l[mode][0] / 1e6:.1f}M", file=sys.stderr)
 
     # the softmax over columns (the tuned Cora, Citeseer and CoauthorCS
-    # rows' axis): one step under remat, in float32 (K12-K14 do not take
-    # the bf16 payload yet)
-    m_n1 = GNNModel(cfg.replace(attention_norm_idx=1, remat=True, **FLOAT32),
-                    nf, nc, g_raw, device=dev)
+    # rows' axis): one step under remat
+    m_n1 = GNNModel(cfg.replace(attention_norm_idx=1, remat=True), nf, nc,
+                    g_raw, device=dev)
     nfe_n1, dt_n1, _, bwd_n1 = _time_train(m_n1, x, y, mask, train_reps,
                                            train_batches)
     norm1_train = (nfe_n1 * e_valid / dt_n1, dt_n1 * 1e3)
@@ -538,8 +535,8 @@ def main(device="cuda", num_nodes=169_343, num_edges=1_166_243, hidden=128,
     beltrami_rate = nfe_b * e_valid / dt_b
     print(f"# beltrami exp_kernel secondary: {beltrami_rate / 1e6:.1f}M "
           f"({dt_b * 1e3:.0f} ms fwd, nfe={nfe_b})", file=sys.stderr)
-    m_n = GNNModel(cfg.replace(attention_norm_idx=1, **FLOAT32), nf, nc,
-                   g_raw, device=dev)
+    m_n = GNNModel(cfg.replace(attention_norm_idx=1), nf, nc, g_raw,
+                   device=dev)
     nfe_n, dt_n, _ = _time_forward(m_n, x, reps, batches)
     norm1_rate = nfe_n * e_valid / dt_n
     print(f"# norm_idx=1 secondary: {norm1_rate / 1e6:.1f}M "

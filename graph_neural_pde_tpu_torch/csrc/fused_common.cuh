@@ -440,7 +440,8 @@ __device__ __forceinline__ void write_row_sums(float* row_sums, int n,
 // reverse edge (c, n) from node rows gathered at c, so that x[col]'s
 // cotangent and dk land on the resident row and nothing is scattered.
 // xcol is the column-side table the values and k were taken from (x
-// itself, or K9's bfloat16 copy of it, whose k table is bfloat16 too); the
+// itself, or the bfloat16 copy of it that K9 and K14 read under the bf16
+// payload, whose k table is bfloat16 too); the
 // row side is the q table. smem is the block's dynamic shared memory,
 // 5 D + 6 ATT + 2 kCoef H floats a warp.
 template <bool kColumnNorm, typename TC>
@@ -648,10 +649,15 @@ cudaError_t launch_tables(const void* x, const void* qw, const void* qb,
   return launch_node_project(x, kw, kb, ktab, n_rows, dim, att, stream);
 }
 
-// The TABLES code of K6 and K9: 0 float32 (x is also the column table), 1
-// a float32 row side x beside a bfloat16 column table xcol, 2 both
-// bfloat16 (the bf16 ODE state: xcol is x).
+// The TABLES code of K6-K9, K12-K14 and K17: 0 float32 (x is also the
+// column table), 1 a float32 row side x beside a bfloat16 column table
+// xcol, 2 both bfloat16 (the bf16 ODE state: xcol is x).
 enum Tables { kTablesF32 = 0, kTablesF32Bf16 = 1, kTablesBf16 = 2 };
+
+bool valid_tables(int tables) {
+  return tables == kTablesF32 || tables == kTablesF32Bf16 ||
+         tables == kTablesBf16;
+}
 
 // q from the row side, k from the column side: for the bfloat16 column
 // table a bfloat16 k table, rounded as the JAX package rounds k_e (kw and

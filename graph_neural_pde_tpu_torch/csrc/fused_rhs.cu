@@ -799,11 +799,6 @@ cudaError_t launch_fwd(Graph g, Proj p, const void* x, const void* xcol,
   return cudaGetLastError();
 }
 
-bool valid_tables(int tables) {
-  return tables == kTablesF32 || tables == kTablesF32Bf16 ||
-         tables == kTablesBf16;
-}
-
 // K7 over the q table and the k table of type TC (see launch_tables)
 template <typename TC>
 cudaError_t launch_rowmax(Graph g, Proj p, const void* qtab,

@@ -10,9 +10,23 @@
 // pack x as bf16 pairs with 1/den in the same 128-lane gather row, permute
 // every node-side operand to the pairs' decode order and do each gather and
 // sum as a one-hot matmul. None of that is carried over: a gather is cheap
-// here, so these kernels are float32, take any state width and head count
-// that fit a block's shared memory, and read 1/den and den's cotangent as
-// plain [N, H] node tables.
+// here, so these kernels take any state width and head count that fit a
+// block's shared memory, and read 1/den and den's cotangent as plain
+// [N, H] float32 node tables.
+//
+// The JAX package runs P14-P16 only under its bfloat16 payload
+// (rhs_payload_dtype="bfloat16"). K12-K14 take it as K6-K9 do (see
+// fused_rhs.cu): beside the row side x (float32, or bfloat16 under the
+// bf16 ODE state), which gives q, a bfloat16 column table xcol gives the
+// gathered values and the bfloat16 k table. The mirror trick needs K12 to
+// score each reverse edge exactly as K13 scores it, so both read the same
+// tables: q from the row side at the gathered node, k from the column side
+// at the resident one (never the other way round, or den stops being the
+// mass of K13's scores and the attention is no longer column-stochastic).
+// K12's weight ct[c] . x[n] reads x[n] from the column table, the value
+// the forward aggregated. Every cotangent, sum and output stays float32,
+// and K14 reduces dKw over the column table. One template serves both
+// modes (TC the column table's type); the sums keep their fixed order.
 //
 // For an edge e = (r, c): s_eh = score_h(q[r], k[c]), u_eh = exp(s_eh - gmax)
 // (or squareplus), and
@@ -61,9 +75,11 @@ namespace {
 
 // ---------------------------------------------------------------------- K12
 
+template <typename TC>
 __global__ void norm1_den_kernel(Graph g, Proj p,
+                                 const TC* __restrict__ xcol,
                                  const float* __restrict__ qtab,
-                                 const float* __restrict__ ktab,
+                                 const TC* __restrict__ ktab,
                                  const float* __restrict__ ct,
                                  float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
@@ -74,8 +90,11 @@ __global__ void norm1_den_kernel(Graph g, Proj p,
   float* kn = smem + static_cast<size_t>(warp) * (A + D + kWarp * H);
   float* xn = kn + A;                           // x_n, read with ct only
   float* acc = xn + D;                          // [H, 32]: a column a lane
+  // k and x at the resident node from the column side (K13's k table and
+  // values at the same node), q at the gathered node from the row side:
+  // the very score K13 gives the edge (c, n)
   load_row(ktab, n, A, lane, kn);
-  if (ct) load_row(p.x, n, D, lane, xn);
+  if (ct) load_row(xcol, n, D, lane, xn);
   for (int h = 0; h < H; ++h) acc[h * kWarp + lane] = 0.0f;
   __syncwarp();
   const float gmax = *p.gmax;
@@ -109,9 +128,11 @@ __global__ void norm1_den_kernel(Graph g, Proj p,
 
 // ---------------------------------------------------------------------- K13
 
+template <typename TC>
 __global__ void norm1_fwd_kernel(Graph g, Proj p,
+                                 const TC* __restrict__ xcol,
                                  const float* __restrict__ qtab,
-                                 const float* __restrict__ ktab,
+                                 const TC* __restrict__ ktab,
                                  const float* __restrict__ recip,
                                  float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
@@ -131,7 +152,7 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
   const int start = g.rowptr[n], end = g.rowptr[n + 1];
   for (int e = start; e < end; ++e) {
     const int c = g.col[e];
-    load_row(p.x, c, D, lane, xc);
+    load_row(xcol, c, D, lane, xc);
     load_row(ktab, c, A, lane, ke);
     __syncwarp();
     float a = 0.0f;                             // lane h: u_eh / den[c, h]
@@ -152,10 +173,11 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
 
 // ---------------------------------------------------------------------- K14
 
+template <typename TC>
 __global__ void norm1_bwd_kernel(Graph g, Proj p,
-                                 const float* __restrict__ xcol,
+                                 const TC* __restrict__ xcol,
                                  const float* __restrict__ qtab,
-                                 const float* __restrict__ ktab,
+                                 const TC* __restrict__ ktab,
                                  const float* __restrict__ kw_t,
                                  const float* __restrict__ ct_ax,
                                  const float* __restrict__ recip_p,
@@ -165,42 +187,79 @@ __global__ void norm1_bwd_kernel(Graph g, Proj p,
                                  float* __restrict__ dkn_out,
                                  float* __restrict__ row_sums) {
   extern __shared__ __align__(16) float smem[];
-  sym_backward_row<true>(smem, g, p, xcol, qtab, ktab, kw_t, ct_ax, recip_p,
-                         ct_den, dq, dxrow, dkn_out, row_sums);
+  sym_backward_row<true, TC>(smem, g, p, xcol, qtab, ktab, kw_t, ct_ax,
+                             recip_p, ct_den, dq, dxrow, dkn_out, row_sums);
+}
+
+// K12's walk over the column table xcol of type TC (its k table too)
+template <typename TC>
+cudaError_t launch_den(Graph g, Proj p, const void* xcol, const void* qtab,
+                       const void* ktab, const void* ct, void* out,
+                       cudaStream_t s) {
+  const size_t bytes =
+      sizeof(float) * kWarpsPerBlock * (p.att + p.dim + kWarp * p.heads);
+  cudaError_t err = allow_shared(norm1_den_kernel<TC>, bytes);
+  if (err != cudaSuccess) return err;
+  norm1_den_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp, bytes,
+                         s>>>(
+      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
+      static_cast<const TC*>(ktab), static_cast<const float*>(ct),
+      static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// K13's walk over the column table xcol of type TC (its k table too)
+template <typename TC>
+cudaError_t launch_fwd(Graph g, Proj p, const void* xcol, const void* qtab,
+                       const void* ktab, const void* recip, void* out,
+                       cudaStream_t s) {
+  const size_t bytes = sizeof(float) * kWarpsPerBlock * (2 * p.dim + 2 * p.att);
+  cudaError_t err = allow_shared(norm1_fwd_kernel<TC>, bytes);
+  if (err != cudaSuccess) return err;
+  norm1_fwd_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp, bytes,
+                         s>>>(
+      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
+      static_cast<const TC*>(ktab), static_cast<const float*>(recip),
+      static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // With project != 0 an entry point first fills the scratch tables qtab and
-// ktab [n_rows, att] (q = x Qw + qb, k = x Kw + kb); with project == 0 it
-// reads them as an earlier launch on the same x, Qw, qb, Kw, kb left them.
-// Then it walks the rows. flags: bits 0-2 the score family, bit 3
-// squareplus; var and ls as gnpde_fused_rhs_fwd's.
+// ktab [n_rows, att] (q = x Qw + qb from the row side x, k = xcol Kw + kb
+// from the column table); with project == 0 it reads them as an earlier
+// launch on the same operands left them. Then it walks the rows. flags:
+// bits 0-2 the score family, bit 3 squareplus; var and ls as
+// gnpde_fused_rhs_fwd's. `tables` as K6-K9 take it (kTablesF32: xcol is
+// ignored and x is the column table; kTablesF32Bf16, kTablesBf16: the
+// bfloat16 column table xcol beside a float32 or bfloat16 x, its k table
+// bfloat16, kw and kb the bf16-rounded projection).
 
 // out [n_rows, heads]: the column denominators, or with ct [n_rows, dim]
-// each term weighted by ct[c] . x[n]. Nullable: var, ls, ct.
+// each term weighted by ct[c] . xcol[n]. Nullable: var, ls, ct.
 extern "C" int gnpde_norm1_den(
-    const void* rowptr, const void* col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* ct, void* qtab, void* ktab,
-    void* out, int n_rows, int dim, int att, int heads, int flags,
-    int project, void* stream) {
+    const void* rowptr, const void* col, const void* x, const void* xcol,
+    const void* qw, const void* qb, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* ct,
+    void* qtab, void* ktab, void* out, int n_rows, int dim, int att,
+    int heads, int flags, int project, int tables, void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaSuccess;
     if (project)
-      err = launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows,
+                          dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (att + dim + kWarp * heads);
-    err = allow_shared(norm1_den_kernel, bytes);
+    const Graph g = make_graph(rowptr, col, n_rows);
+    // p.x stays null: the walk reads the column table through its typed
+    // pointer
+    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    err = tables == kTablesF32
+              ? launch_den<float>(g, p, x, qtab, ktab, ct, out, s)
+              : launch_den<__nv_bfloat16>(g, p, xcol, qtab, ktab, ct, out, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    norm1_den_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
-                       s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<const float*>(ct), static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -208,45 +267,53 @@ extern "C" int gnpde_norm1_den(
 // out [n_rows, dim] = ax; recip [n_rows, heads] = 1 / (den + 1e-16).
 // Nullable: var, ls.
 extern "C" int gnpde_norm1_fwd(
-    const void* rowptr, const void* col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* recip, void* qtab,
-    void* ktab, void* out, int n_rows, int dim, int att, int heads, int flags,
-    int project, void* stream) {
+    const void* rowptr, const void* col, const void* x, const void* xcol,
+    const void* qw, const void* qb, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* recip,
+    void* qtab, void* ktab, void* out, int n_rows, int dim, int att,
+    int heads, int flags, int project, int tables, void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaSuccess;
     if (project)
-      err = launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, s);
+      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows,
+                          dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes =
-        sizeof(float) * kWarpsPerBlock * (2 * dim + 2 * att);
-    err = allow_shared(norm1_fwd_kernel, bytes);
+    const Graph g = make_graph(rowptr, col, n_rows);
+    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    err = tables == kTablesF32
+              ? launch_fwd<float>(g, p, x, qtab, ktab, recip, out, s)
+              : launch_fwd<__nv_bfloat16>(g, p, xcol, qtab, ktab, recip, out,
+                                          s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    norm1_fwd_kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes,
-                       s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(x, gmax, var, ls, dim, att, heads, flags),
-        static_cast<const float*>(qtab), static_cast<const float*>(ktab),
-        static_cast<const float*>(recip), static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// recip_p [n_rows, heads] = 1 / (H (den + 1e-16)); the other arguments as
-// gnpde_fused_rhs_bwd_sym's. Nullable: var, ls.
+// recip_p [n_rows, heads] = 1 / (H (den + 1e-16)); kw_t is Kw^T [att, dim]
+// (of the bf16-rounded Kw with a bfloat16 column table); dKw is reduced
+// over the column table; the other arguments as gnpde_fused_rhs_bwd_sym's.
+// Nullable: var, ls.
 extern "C" int gnpde_norm1_bwd(
-    const void* rowptr, const void* col, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* ct_ax, const void* recip_p,
-    const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dq,
-    void* dxrow, void* dkn, void* row_sums, void* partials, int n_rows,
-    int dim, int att, int heads, int flags, int reduce_blocks, int project,
-    void* stream) {
-  return launch_sym_backward<float>(norm1_bwd_kernel, project, kTablesF32,
-                             rowptr, col, x, x, qw,
-                             qb, kw, kb, gmax, var, ls, ct_ax, recip_p,
-                             ct_den, kw_t, qtab, ktab, dq, dxrow, dkn,
-                             row_sums, partials, n_rows, dim, att, heads,
-                             flags, reduce_blocks, stream);
+    const void* rowptr, const void* col, const void* x, const void* xcol,
+    const void* qw, const void* qb, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* ct_ax,
+    const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
+    void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
+    void* partials, int n_rows, int dim, int att, int heads, int flags,
+    int reduce_blocks, int project, int tables, void* stream) {
+  if (tables == kTablesF32)
+    return launch_sym_backward<float>(
+        norm1_bwd_kernel<float>, project, tables, rowptr, col, x, x, qw, qb,
+        kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq,
+        dxrow, dkn, row_sums, partials, n_rows, dim, att, heads, flags,
+        reduce_blocks, stream);
+  if (tables == kTablesF32Bf16 || tables == kTablesBf16)
+    return launch_sym_backward<__nv_bfloat16>(
+        norm1_bwd_kernel<__nv_bfloat16>, project, tables, rowptr, col, x,
+        xcol, qw, qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t,
+        qtab, ktab, dq, dxrow, dkn, row_sums, partials, n_rows, dim, att,
+        heads, flags, reduce_blocks, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -85,17 +85,18 @@ _ENTRY_POINTS = {
     # nullable), ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows,
     # dim, att, heads, flags, n_slots, reduce_blocks, stream
     "gnpde_fused_rhs_bwd_heads": [_PTR] * 17 + [_INT] * 7 + [_PTR],
-    # The column-normalised RHS kernels (csrc/norm1.cu).
-    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls, ct (the last three
-    # nullable), qtab, ktab, out, n_rows, dim, att, heads, flags, project
-    # (0: qtab and ktab are filled already), stream
-    "gnpde_norm1_den": [_PTR] * 14 + [_INT] * 6 + [_PTR],
-    # rowptr, col, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
-    # recip, qtab, ktab, out, n_rows, dim, att, heads, flags, project, stream
-    "gnpde_norm1_fwd": [_PTR] * 14 + [_INT] * 6 + [_PTR],
-    # as gnpde_fused_rhs_bwd_sym without xcol and tables (float32), with
-    # project before the stream
-    "gnpde_norm1_bwd": [_PTR] * 21 + [_INT] * 7 + [_PTR],
+    # The column-normalised RHS kernels (csrc/norm1.cu), with K6-K9's
+    # TABLES code (xcol the bfloat16 column table, ignored with 0).
+    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, ct (the last
+    # three nullable), qtab, ktab, out, n_rows, dim, att, heads, flags,
+    # project (0: qtab and ktab are filled already), tables, stream
+    "gnpde_norm1_den": [_PTR] * 15 + [_INT] * 7 + [_PTR],
+    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
+    # nullable), recip, qtab, ktab, out, n_rows, dim, att, heads, flags,
+    # project, tables, stream
+    "gnpde_norm1_fwd": [_PTR] * 15 + [_INT] * 7 + [_PTR],
+    # as gnpde_fused_rhs_bwd_sym, with project before tables
+    "gnpde_norm1_bwd": [_PTR] * 22 + [_INT] * 8 + [_PTR],
     # The blocked-plan kernels (csrc/blocked.cu).
     # rb_ptr, chunk_cols, seg_ptr, seg_row, seg_start, slot_ord, slot_col,
     # w, x, out, n_blocks, block_n, dim, tile, stream

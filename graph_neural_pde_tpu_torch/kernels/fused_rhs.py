@@ -422,7 +422,7 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
     ``extra`` is (name, tensor, shape) for the call's own float operands.
     The kernels are float32; on the CPU the plain versions also take
     float64 operands (all of one type). With a bfloat16 column table
-    ``xcol`` (K6-K9, K17) x may be float32 or bfloat16. For
+    ``xcol`` (K6-K9, K12-K14, K17) x may be float32 or bfloat16. For
     exp_kernel_beltrami ``att`` is the packed width of both halves."""
     dev = x.device
     if score not in SCORES:
@@ -480,8 +480,8 @@ def _check_operands(name, dev, ints, floats):
 
 
 def _check_tables(name, x, xcol):
-    """The bfloat16 column table of K6-K9 and K17 beside the row side
-    x."""
+    """The bfloat16 column table of K6-K9, K12-K14 and K17 beside the row
+    side x."""
     if xcol.dtype != torch.bfloat16 or x.dtype not in (torch.float32,
                                                        torch.bfloat16):
         raise TypeError(f"{name}: the column table must be bfloat16 and x "

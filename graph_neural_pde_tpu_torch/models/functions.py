@@ -16,14 +16,19 @@ family ``exp_kernel_beltrami`` over the block-structured projections of
 :func:`pack_beltrami`, and in every composition as its own scores.
 
 ``rhs_payload_dtype="bfloat16"`` (:func:`payload_dtype`) makes the
-laplacian's aggregation (K1/K2) and the transformer's plain row softmax
+laplacian's aggregation (K1/K2), the transformer's plain row softmax
 (K6-K9 and K17: ``make_fused_ax_sym``, ``make_fused_ax_colplan`` on a
 directed graph or with ``sym_backward=False``, ``fused_rhs_f``, and the
-exact re-solve's ``fused_rowmax`` and ``fused_rhs_ax``) read their gathered
-column tables in bfloat16, where the JAX package sets its ``pay_dt``;
-``models.gnn.check_supported`` refuses the mode on every other route, and
-``make_rhs`` on the one a re-solve reaches at run time (the exact softmax
-of the families other than scaled_dot, which composes).
+exact re-solve's ``fused_rowmax`` and ``fused_rhs_ax``) and its plain
+softmax over the columns of a symmetric graph at widths up to 128
+(K12-K14: ``make_fused_ax_norm1``) read their gathered column tables in
+bfloat16, where the JAX package sets its ``pay_dt``. The composed softmax
+over columns (the exact re-solve, a directed or re-masked graph) applies
+no payload, as the JAX package's composition does, and runs under the
+bf16 state too. ``models.gnn.check_supported`` refuses the mode on every
+other route, and ``make_rhs`` on the one a re-solve reaches at run time
+(the exact softmax over rows of the families other than scaled_dot, which
+composes).
 """
 
 from __future__ import annotations
@@ -160,6 +165,11 @@ def _source(cfg: Config, func, f: torch.Tensor, aux: FuncAux):
     return f
 
 
+# the widest state the JAX package's column-softmax engine takes (its
+# ``make_rhs`` composes above it, without the payload)
+NORM1_PAYLOAD_MAX_DIM = 128
+
+
 def payload_dtype(cfg: Config) -> Optional[torch.dtype]:
     """The dtype of the gathered column tables: ``torch.bfloat16`` for
     ``rhs_payload_dtype="bfloat16"`` (the JAX package's ``pay_dt``), else
@@ -175,10 +185,12 @@ def low_precision(cfg: Config) -> bool:
 def bf16_refusal(cfg: Config) -> Optional[str]:
     """The route of ``cfg`` whose kernels do not take the bfloat16 payload
     or state yet (ROADMAP Queue 2 B1), or None. The mode runs on the
-    laplacian's K1/K2 and on the transformer's plain row softmax over any
-    graph (K6-K9 and K17, the exact re-solve of scaled_dot included);
-    :func:`make_rhs` also refuses what a re-solve reaches at run time (the
-    composed exact softmax of the other families)."""
+    laplacian's K1/K2, on the transformer's plain row softmax over any
+    graph (K6-K9 and K17, the exact re-solve of scaled_dot included) and on
+    its plain softmax over columns (:func:`norm1_fused_ok`: K12-K14, and the
+    composition that its exact re-solve and a directed or re-masked graph
+    take); :func:`make_rhs` also refuses what a re-solve reaches at run time
+    (the composed exact softmax over rows of the other families)."""
     if not low_precision(cfg):
         return None
     if cfg.function == "laplacian":
@@ -187,8 +199,12 @@ def bf16_refusal(cfg: Config) -> Optional[str]:
         return None
     if cfg.function == "GAT":
         return "the GAT RHS (K10/K11)"
-    if not fused_attention(cfg) and cfg.attention_norm_idx == 1:
-        return "the softmax over columns (K12-K14, or K1-K4 composed)"
+    if cfg.attention_norm_idx == 1:
+        if norm1_fused_ok(cfg):
+            return None
+        return ("the composed softmax or squareplus over columns "
+                "(squareplus, reweighted, mix_features or unfused: K1-K4, "
+                "item 4)")
     if not fused_attention(cfg):
         return "the composed transformer RHS (K1-K4)"
     if cfg.square_plus or cfg.reweight_attention:
@@ -201,12 +217,15 @@ def bf16_refusal(cfg: Config) -> Optional[str]:
 def _refuse_bf16(cfg: Config, g: Graph, exact_softmax: bool) -> None:
     """Raise where make_rhs would reach a kernel without the bfloat16
     mode: :func:`bf16_refusal`'s routes, and, at run time, the transformer
-    RHS's exact re-solve where it composes (every family but scaled_dot,
-    or a re-masked graph: K10/K11)."""
+    RHS's exact re-solve over rows where it composes (every family but
+    scaled_dot, or a re-masked graph: K10/K11). Over columns the re-solve
+    and a directed or re-masked graph compose on K1-K4, which take the
+    mode as the JAX package's composition does."""
     if not low_precision(cfg):
         return
     route = bf16_refusal(cfg)
     if (route is None and cfg.function == "transformer"
+            and cfg.attention_norm_idx == 0
             and not _mega_ok(cfg, g, exact_softmax)):
         route = "the exact re-solve of a poisoned solve, composed (K10/K11)"
     if route is not None:
@@ -233,11 +252,13 @@ def norm1_fused_ok(cfg: Config) -> bool:
     """True when the column-normalised (``attention_norm_idx=1``)
     transformer RHS runs on the fused kernels K12-K14
     (``kernels.norm1.make_fused_ax_norm1``): the plain softmax of one of
-    the four in-kernel score families. ``make_rhs`` still sends the exact
-    re-solve, a re-masked graph and a directed graph (no ``rev``: the JAX
-    package asks for a symmetric plan) to the composition. The JAX
-    package's predicate also asks for its bfloat16 payload, which the
-    float32 port does not have."""
+    the four in-kernel score families (and BLEND's split-space score).
+    ``make_rhs`` still sends the exact re-solve, a re-masked graph and a
+    directed graph (no ``rev``: the JAX package asks for a symmetric plan)
+    to the composition. The JAX package's predicate also asks for its
+    bfloat16 payload, without which it composes; the port runs K12-K14 in
+    float32 there, and in their bf16 mode under the payload or the bf16
+    state at widths up to 128 (``_transformer_rhs_fused``)."""
     return (cfg.fused_attention_agg and not cfg.mix_features
             and cfg.attention_norm_idx == 1
             and cfg.function == "transformer"
@@ -315,9 +336,9 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     ``block_forward`` then re-solves once with ``exact_softmax``, which
     shifts every edge by its row's true score max (K7) so that no exp can
     leave the range; its gradient is K8 with the per-edge dxg, summed over
-    columns by K1. Every one of these kernels reads the bfloat16 column
-    table under the bf16 payload or state, where the JAX package passes
-    its ``pay_dt``.
+    columns by K1. Every one of these kernels (K12-K14 at widths up to 128)
+    reads the bfloat16 column table under the bf16 payload or state, where
+    the JAX package passes its ``pay_dt``.
 
     Every other variant composes: per-head scores from the gathered q[row]
     and k[col], the global max ``gmax`` (differentiated through, as the
@@ -334,9 +355,15 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         # the softmax over columns (``norm1_fused_ok`` on a symmetric edge
         # multiset; make_rhs sends no other column-normalised config here):
         # K12 and K13, unshifted like the row softmax, with the same guard
-        # over the COLUMN denominators, so against the column degrees
+        # over the COLUMN denominators, so against the column degrees. The
+        # JAX package's engine takes widths up to 128 and composes above,
+        # without the payload: there the column table is x itself (a
+        # bfloat16 state's in float32)
+        if x.shape[1] > NORM1_PAYLOAD_MAX_DIM:
+            pay = None
+            x = x.float() if x.dtype == torch.bfloat16 else x
         gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
-        ax, den = make_fused_ax_norm1(g, h, False, score)(
+        ax, den = make_fused_ax_norm1(g, h, False, score, pay)(
             *_projections(att, cfg, x.shape[1]), x, gmax, sp)
         bad = den_guard(den, g.colptr, per_row=False)
         ax = torch.where(bad, torch.full_like(ax, torch.nan), ax)
@@ -497,8 +524,12 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
                 return _transformer_rhs_fused(func, aux, x, cfg, g,
                                               exact_softmax, eval_fold)
             att = func.att
+            # a bfloat16 state is projected in float32, as the JAX
+            # package's composition promotes it; the aggregation reads it
+            # as it is
             attention = apply_transformer_attention(
-                att, cfg, x, g, edge_weight=aux.edge_weight)
+                att, cfg, x.float() if x.dtype == torch.bfloat16 else x, g,
+                edge_weight=aux.edge_weight)
             if cfg.mix_features:
                 v = (x @ att.V.w + att.V.b).reshape(x.shape[0], cfg.heads, -1)
                 vx = torch.mean(spmm_multihead(g, attention, v, spmm_fn),

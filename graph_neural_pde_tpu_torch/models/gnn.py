@@ -63,8 +63,9 @@ def check_supported(cfg: Config) -> None:
     the dual encoder and the split-space attention), and the ``two_hop``,
     ``gdc`` and ``pos_enc_knn`` rewirings, whose directed graphs every one
     of these runs on). The bfloat16 payload and fixed-grid state run on the
-    laplacian (K1/K2) and on the transformer's plain row softmax over any
-    graph (K6-K9 and K17, the exact re-solve included);
+    laplacian (K1/K2), on the transformer's plain row softmax over any
+    graph (K6-K9 and K17, the exact re-solve included) and on its plain
+    softmax over columns (K12-K14, its re-solve composed);
     ``functions.bf16_refusal`` names the routes that raise."""
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):

@@ -540,7 +540,7 @@ BF = dict(rhs_payload_dtype="bfloat16", dtype="bfloat16")
 
 class TestRefusals:
     @pytest.mark.parametrize("override", [
-        dict(attention_norm_idx=1),                    # columns K12-K14
+        dict(attention_norm_idx=1, square_plus=True),  # composed K1-K4
         dict(square_plus=True),                        # composed K10/K11
         dict(reweight_attention=True),                 # composed K10/K11
         dict(function="GAT"),                          # K10/K11
@@ -560,7 +560,8 @@ class TestRefusals:
                                          block="attention"),
         dict(attention_type="exp_kernel"), dict(dtype="float32"),
         dict(**FLOAT32),
-        dict(sym_backward=False)])                     # colplan K8 + K17
+        dict(sym_backward=False),                      # colplan K8 + K17
+        dict(attention_norm_idx=1)])                   # columns K12-K14
     def test_check_supported_accepts(self, override):
         check_supported(GRAND_NL_BENCH.replace(**override))
 
