@@ -73,7 +73,11 @@ Phases, each of which must pass (any failure exits nonzero):
    the bench oracle's shape (N=512, E=4096, D=128, ATT=64, H=2) and on the
    arxiv-scale graph at D=128, ATT=32, H=2, and for exp_kernel_beltrami at
    the packed BLEND widths there (D=128, ATT=2 x 32, H=2); two launches of
-   each bit-identical. The P6 pair on every rank of a 4-way split of the
+   each bit-identical; and the same over a bfloat16 payload beside a
+   float32 and a bfloat16 row side (the payload's bf16 mode: the plain
+   versions widen the rows, k_e unrounded): all five families small
+   (untimed), the bench oracle's shape, the arxiv-scale graph at
+   D=128, ATT=32, H=2 and at the BLEND widths (timed). The P6 pair on every rank of a 4-way split of the
    row-sorted valid edges (``make_sharded_stripe_spmm``'s shards: rows
    straddle ranks, most of a rank's row pointers are empty ranges) of the
    arxiv-scale graph at D=128, on ranks 0 and 3 of one of the Cora
@@ -84,7 +88,8 @@ Phases, each of which must pass (any failure exits nonzero):
    all-reduce schedules' edge shards at path (u)'s widths: K1 forward, K18,
    K19 and K8's per-head mode on the Cora stand-in as one rank's shard
    (D=80, ATT=128, H=8; K1's dx over the shard's CSC view too) and on each
-   rank of a 4-way split at arxiv scale (D=128, ATT=32, H=2). K21
+   rank of a 4-way split at arxiv scale (D=128, ATT=32, H=2), in float32
+   and under the bf16 ODE state (x and the payload bfloat16). K21
    ``smem_gather`` over probe 13's 2,703,360 indices from tables [T, 128]
    in shared memory, float32 T = 8, 64, 448 and bfloat16 T = 512, bit for
    bit against ``index_select``, and its refusal of a float32 table of 512
@@ -111,12 +116,12 @@ Phases, each of which must pass (any failure exits nonzero):
    plain version on the same tables (K8's, K9's, K14's and K17's in
    float64 beside the bfloat16 table), two launches bit-identical.
    Each check is timed: device time per call (torch.profiler after
-   warm-up calls in the same session, mean of 20 calls; the device events
+   warm-up calls in the same session, mean of 10 calls; the device events
    of each call are counted by the launch they come from, and a session
    whose calls differ lost events: it is measured again, three sessions in
    all, or the check fails; all device work of the call, so the wrapper's
    output memset counts) and time per call seen from the host
-   (CUDA events around one call, median of 20; at small shapes this is the
+   (CUDA events around one call, median of 10; at small shapes this is the
    host's launch cost). Beside each time stands the least time the card
    could take for the same work (``bound``: the larger of the compulsory
    bytes over 3.35 TB/s and the float32 operations over 67 TFLOP/s, from
@@ -158,7 +163,8 @@ Phases, each of which must pass (any failure exits nonzero):
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after (the bfloat16 launches of K1, K2, K6, K7, K8, K9, K12, K13,
-   K14 and K17, and K6's shifted ones, counted apart among their own):
+   K14, K17, K18, K19 and K8's per-head mode, and K6's shifted ones,
+   counted apart among their own):
    tuned Cora for
    1 training epoch (followed by an eval step
    and the early-stop eval) twice, to record whether two runs agree bit
@@ -204,7 +210,8 @@ Phases, each of which must pass (any failure exits nonzero):
    the card in phase 3 and read from the cache), a directed graph: K6, K8
    and K17, never K9; (t) the bench entry, ``graph_neural_pde_tpu_torch.
    bench.main`` at full width: its oracles on the card (K18 with K19's
-   shift and K8's per-head mode among the kernels they hold), then its
+   shift and K8's per-head mode among the kernels they hold, over the
+   bfloat16 payload as the JAX bench's oracle runs them), then its
    forward, train-step and secondary timings at bench.py's precision (the
    bfloat16 payload and rk4 state: K1, K2, K6, K9 and K12-K14 on bfloat16
    tables),
@@ -232,16 +239,20 @@ Phases, each of which must pass (any failure exits nonzero):
    ``make_sharded_stripe_spmm`` and from ``make_sharded_spmm_for`` in both
    modes, each against the same block on the default engine (NFE, z,
    every gradient), and the attention RHS through
-   ``make_sharded_fused_rhs_for`` in both modes (K18 per rank) against K6;
-   the per-rank bodies of a 4-way split at arxiv scale run rank by rank in
-   this process, their partials summed in rank order (the stripe spmm and
-   its dx, the all-reduce spmm and the attention RHS at (a)'s widths,
-   against K1 and K6 unsharded); and the gather probes
+   ``make_sharded_fused_rhs_for`` in both modes (K18 per rank) against K6,
+   then both dispatchers in both modes under the bf16 ODE state (K1, K18
+   and K8's per-head mode on the bfloat16 x and payload) against
+   ``make_spmm`` on the bf16 x and K6 on x widened; the per-rank bodies of
+   a 4-way split at arxiv scale run rank by rank in this process, their
+   partials summed in rank order (the stripe spmm and its dx, the
+   all-reduce spmm and the attention RHS at (a)'s widths, float32 and
+   under the bf16 state, against K1 and K6 unsharded); and the gather
+   probes
    (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
    and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
    run must launch the kernels its path runs, and all twenty-one counters,
-   and the eleven of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
-   K8, K9, K12, K13, K14, K17), must grow. The paths (a)-(s) run
+   and the fourteen of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
+   K8, K9, K12, K13, K14, K17, K18, K19, K8's per-head mode), must grow. The paths (a)-(s) run
    ``GRAND_NL_BENCH``'s architecture in float32, as before the bfloat16
    mode.
 
@@ -490,6 +501,10 @@ def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
+# calls each timing of phase 3 takes, device time and host time alike: the
+# host's work around them (the profiler sessions above all) is most of
+# phase 3's time, and the device times of 10 calls agree with 20's
+TIMED_CALLS = 10
 
 
 def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
@@ -514,12 +529,13 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
     if not timed:
         print(head, flush=True)
         return row
-    call_k, call_p = time_ms(kern), time_ms(plain)
-    dev_k, dev_p = device_ms(kern), device_ms(plain)
+    call_k, call_p = (time_ms(f, reps=TIMED_CALLS) for f in (kern, plain))
+    dev_k, dev_p = (device_ms(f, reps=TIMED_CALLS) for f in (kern, plain))
     measured = dev_k is not None and dev_p is not None
     lib_ms = None
     if library is not None:
-        lib_ms = device_ms(library) if measured else time_ms(library)
+        lib_ms = (device_ms(library, reps=TIMED_CALLS) if measured
+                  else time_ms(library, reps=TIMED_CALLS))
     n_bytes, flops = work
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
@@ -850,25 +866,36 @@ def oracle_graph(seed: int, n: int = 512, e: int = 4096):
 
 
 def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
-                            timed=True, dev="cuda"):
+                            timed=True, dev="cuda", payload=None,
+                            row_bf16=False):
     """K18 ``fused_aggregate`` (and with per-edge shifts), K19
     ``fused_score_max`` (scaled_dot) and K8's per-head mode
     ``fused_rhs_bwd_heads`` (every output, against the plain version in
-    float64 on the same float32 inputs) over a random per-edge payload x_g
+    float64 on the same inputs) over a random per-edge payload x_g
     [E_pad, D] against their plain versions; two launches of each must be
-    bit-identical. ``timed=False`` only compares."""
+    bit-identical. ``timed=False`` only compares.
+
+    ``payload=torch.bfloat16`` (the JAX package's bf16 payload) draws x_g
+    in bfloat16, beside node rows x in float32 or (``row_bf16``, the bf16
+    ODE state) in bfloat16; the plain versions widen them where they read
+    them, and the rows are named "<kernel> bf16"."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
     rowptr, row = csr[:2]
     x, qw, qb, kw, kb, gmax = ops
     n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    bf16 = payload == torch.bfloat16
     x_g = randn(cap, d)
+    if bf16:
+        x_g = x_g.to(torch.bfloat16)
+    if row_bf16:
+        x = x.to(torch.bfloat16)
     shifts = randn(cap, h, scale=0.5)
     ct_num = randn(n, h * d)
     # den's cotangent positive, as in check_fused_kernels
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    q = (x @ qw + qb).contiguous()
+    q = (x.float() @ qw + qb).contiguous()
     agg = (rowptr, row, x, x_g, qw, qb, kw, kb, gmax)
     bwd = agg + (ct_num, ct_den)
 
@@ -883,11 +910,13 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
     def some(out):
         return tuple(o for o in out if o is not None)
 
-    # compulsory bytes: rowptr, x, the payload's valid rows, the
-    # projections' weights and the outputs; float32 operations as
-    # payload_ops counts them
+    # compulsory bytes: rowptr, x, the payload's valid rows (at their
+    # element sizes), the projections' weights and the outputs; float32
+    # operations as payload_ops counts them
     agg_ops, max_ops, bwd_ops = payload_ops(n, nv, d, att, h, score)
-    base_bytes = 4 * (n + 1 + n * d + nv * d + 2 * d * att + 2 * att)
+    xg_bytes = x_g.element_size() * nv * d
+    base_bytes = (4 * (n + 1 + 2 * d * att + 2 * att)
+                  + x.element_size() * n * d + xg_bytes)
     cases = [
         ("fused_aggregate", "num, den",
          lambda: K.fused_aggregate(*agg, **kw_f),
@@ -910,9 +939,14 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
             lambda: K.fused_score_max(rowptr, row, q, x_g, kw, kb, heads=h),
             lambda: K.fused_score_max_plain(rowptr, row, q, x_g, kw, kb,
                                             heads=h),
-            (4 * (n + 1 + n * att + nv * d + d * att + att + 1), max_ops),
+            (4 * (n + 1 + n * att + d * att + att + 1) + xg_bytes, max_ops),
             None))
-    dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score} payload [E, D]"
+    tag = ""
+    if bf16:
+        cases = [(kname + " bf16", *c) for kname, *c in cases]
+        tag = " row bf16" if row_bf16 else " f32 row"
+    dims = (f"N={n} E={nv} D={d} ATT={att} H={h} {score} payload [E, D]"
+            f"{' bf16' if bf16 else ''}{tag}")
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
@@ -925,8 +959,8 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
                                  f"two launches differ")
     print(f"[kernels] fused_aggregate, fused_rhs_bwd_heads"
           f"{', fused_score_max' if score == 'scaled_dot' else ''} @ "
-          f"{shape_name} {score}: two launches bit-identical in every output",
-          flush=True)
+          f"{shape_name} {score}{' bf16 payload' if bf16 else ''}{tag}: two "
+          f"launches bit-identical in every output", flush=True)
     return rows
 
 
@@ -1726,7 +1760,7 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
 
 def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
                              column_sum=False, timed_ranks=(0,),
-                             dev="cuda"):
+                             dev="cuda", state_bf16=False):
     """The kernels of the all-reduce schedules on every rank's edge shard
     of a ``world``-way split of ``g`` (``edge_shards``: the rank's slice
     of the padded edge arrays, row-sorted into a sub-graph over all N
@@ -1734,7 +1768,9 @@ def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
     K1's forward (``make_sharded_spmm``) and, with ``column_sum``, its dx
     over the shard's CSC view; with ``att`` and ``h``, K18, K19 and K8's
     per-head mode (``make_sharded_fused_rhs``). Ranks outside
-    ``timed_ranks`` are only compared."""
+    ``timed_ranks`` are only compared. ``state_bf16``: under the bf16 ODE
+    state, as the dispatchers run it, K1 reads x in bfloat16 and K18, K19
+    and K8's per-head mode the bfloat16 x and payload x[col]."""
     import torch
     from graph_neural_pde_tpu_torch.kernels import csr_spmm, csr_spmm_plain
     from graph_neural_pde_tpu_torch.parallel import split_mesh
@@ -1748,21 +1784,26 @@ def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
         gen = torch.Generator(device=dev).manual_seed(seed + r)
         x = torch.randn((n, d), generator=gen, device=dev)
         w = torch.rand((sg.capacity,), generator=gen, device=dev) * sg.mask
+        xt = x.to(torch.bfloat16) if state_bf16 else x
         csr = torch.sparse_csr_tensor(sg.rowptr, sg.col[:nv], w[:nv],
                                       size=(n, n))
         rows.append(time_case(
-            "csr_spmm", "forward A_w x over an edge shard", name,
-            f"N={n} E={nv} D={d}",
-            lambda: csr_spmm(sg.rowptr, sg.row, sg.col, w, x),
-            lambda: csr_spmm_plain(sg.rowptr, sg.row, sg.col, w, x),
-            (4 * (n + 1 + 2 * nv + 2 * n * d), 2 * nv * d),
+            "csr_spmm bf16" if state_bf16 else "csr_spmm",
+            "forward A_w x over an edge shard", name,
+            f"N={n} E={nv} D={d}{' bf16' if state_bf16 else ''}",
+            lambda: csr_spmm(sg.rowptr, sg.row, sg.col, w, xt),
+            lambda: csr_spmm_plain(sg.rowptr, sg.row, sg.col, w, xt),
+            (4 * (n + 1 + 2 * nv + n * d) + xt.element_size() * n * d,
+             2 * nv * d),
             lambda: csr @ x, timed=timed))
         if column_sum:
             rows += check_column_sum(name, sg, d, seed + world + r, dev=dev)
         if att is not None:
-            rows += check_aggregate_kernels(name, sg, d, att, h,
-                                            "scaled_dot", seed + 2 * world + r,
-                                            timed=timed, dev=dev)
+            rows += check_aggregate_kernels(
+                name, sg, d, att, h, "scaled_dot", seed + 2 * world + r,
+                timed=timed, dev=dev,
+                payload=torch.bfloat16 if state_bf16 else None,
+                row_bf16=state_bf16)
     return rows
 
 
@@ -1966,7 +2007,11 @@ def drive_sharded_cora(data_dir: str, seed: int, dev: str = "cuda"):
     same block on the default engine, forward and backward; then GRAND-nl's
     attention RHS at the Cora GRAND-nl widths (D=80, ATT=128, H=8) through
     ``make_sharded_fused_rhs_for`` in both modes, forward against K6 and
-    the two schedules' gradients against each other."""
+    the two schedules' gradients against each other; then both dispatchers
+    in both modes under the bf16 ODE state (x bfloat16; K1, K18 and K8's
+    per-head mode read it and its payload in bfloat16), against the
+    unsharded port at the same precision (``make_spmm`` on the bf16 x, K6
+    on x widened, which is what JAX's type promotion computes)."""
     import torch
     from graph_neural_pde_tpu_torch.probes.gather import agree
     import torch.distributed as dist
@@ -2030,8 +2075,92 @@ def drive_sharded_cora(data_dir: str, seed: int, dev: str = "cuda"):
                                  f"{top:.3e}")
         print(f"[sharded] fused RHS gradients (qw, qb, kw, kb, x): stream vs "
               f"allreduce within {err / top:.2e} of the largest", flush=True)
+        drive_sharded_bf16_state(mesh, g, ops, ct, h, seed + 2)
     finally:
         dist.destroy_process_group()
+
+
+# x's bfloat16 gradient under the bf16 state: both schedules sum it partly
+# in bfloat16 (autograd of the bf16 gather, as the JAX package's autodiff;
+# ROADMAP R10), in other orders: four bf16 steps of its scale
+BF16_SUM = 2.0 ** -6
+
+
+def drive_sharded_bf16_state(mesh, g, ops, ct, h, seed):
+    """(u)'s dispatchers under the bf16 ODE state over ``mesh``: x (the
+    last of ``ops``) rounded to bfloat16, the config's payload and state
+    bfloat16. ``make_sharded_spmm_for`` in both modes against ``make_spmm``
+    on the same bf16 x (K1 on the bf16 table), forward and dx (bfloat16,
+    its dtype checked); ``make_sharded_fused_rhs_for`` in both modes (K18
+    and K8's per-head mode on the bf16 x and payload, all-reduce) against
+    K6 on x widened to float32 (JAX's promotion), its gradients stream
+    against all-reduce (x's within BF16_SUM)."""
+    import torch
+    from graph_neural_pde_tpu_torch.config import Config
+    from graph_neural_pde_tpu_torch.kernels import fused_rhs_fwd
+    from graph_neural_pde_tpu_torch.ops.spmm import make_spmm
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
+        MODES, make_sharded_fused_rhs_for, make_sharded_spmm_for)
+    from graph_neural_pde_tpu_torch.probes.gather import agree
+    dev = ops[4].device
+    state = dict(dtype="bfloat16", rhs_payload_dtype="bfloat16")
+    xb = ops[4].to(torch.bfloat16)
+    n, d = xb.shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((g.capacity,), generator=gen, device=dev) * g.mask
+
+    def spmm_run(fn):
+        x = xb.clone().requires_grad_()
+        out = fn(x, w)
+        dx, = torch.autograd.grad((out * ct).sum(), [x])
+        if dx.dtype != torch.bfloat16 or out.dtype != torch.float32:
+            raise AssertionError(f"(u) bf16 state: out {out.dtype}, dx "
+                                 f"{dx.dtype}")
+        return out.detach(), dx
+
+    want, want_dx = spmm_run(make_spmm(g))
+    for mode in MODES:
+        out, dx = spmm_run(make_sharded_spmm_for(
+            Config(shard_spmm_mode=mode, **state), mesh, g))
+        _, rel = agree(f"(u) make_sharded_spmm_for {mode} bf16 state vs K1",
+                       out, want)
+        err = float((dx.float() - want_dx.float()).abs().max())
+        top = float(want_dx.float().abs().max())
+        if not err <= BF16_SUM * top:
+            raise AssertionError(f"(u) spmm {mode} bf16 state dx: {err:.3e} "
+                                 f"> {BF16_SUM} x {top:.3e}")
+        print(f"[sharded] spmm {mode} under the bf16 state (N={n} D={d}): "
+              f"within {rel:.2e} of scale of K1 on the bf16 table, dx "
+              f"(bfloat16) within {err / top:.2e}", flush=True)
+    ax6 = fused_rhs_fwd(g.rowptr, g.row, g.col, xb.float(), *ops[:4],
+                        torch.zeros(1, device=dev), heads=h,
+                        score="scaled_dot")[0]
+    grads = {}
+    for mode in MODES:
+        leaves = [t.clone().requires_grad_() for t in ops[:4]] + [
+            xb.clone().requires_grad_()]
+        out = make_sharded_fused_rhs_for(Config(shard_spmm_mode=mode, **state),
+                                         mesh, g, heads=h)(*leaves)
+        _, rel = agree(f"(u) make_sharded_fused_rhs_for {mode} bf16 state "
+                       f"vs K6", out.detach(), ax6)
+        grads[mode] = torch.autograd.grad((out * ct).sum(), leaves)
+        if grads[mode][4].dtype != torch.bfloat16:
+            raise AssertionError(f"(u) fused {mode} bf16 state: dx "
+                                 f"{grads[mode][4].dtype}")
+        print(f"[sharded] fused RHS {mode} under the bf16 state: within "
+              f"{rel:.2e} of scale of K6 on the widened state", flush=True)
+    top = max(float(t.abs().max()) for t in grads["allreduce"][:4])
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(grads["stream"][:4], grads["allreduce"][:4]))
+    a, b = (grads[m][4].float() for m in ("stream", "allreduce"))
+    err_x, top_x = float((a - b).abs().max()), float(b.abs().max())
+    if not (err <= REL_BOUND * top and err_x <= BF16_SUM * top_x):
+        raise AssertionError(f"(u) fused RHS bf16 state gradients: stream vs "
+                             f"allreduce {err:.3e} of {top:.3e}, x "
+                             f"{err_x:.3e} of {top_x:.3e}")
+    print(f"[sharded] fused RHS gradients under the bf16 state: stream vs "
+          f"allreduce within {err / top:.2e} of the largest (qw, qb, kw, "
+          f"kb), x (bfloat16) within {err_x / top_x:.2e}", flush=True)
 
 
 def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
@@ -2040,7 +2169,8 @@ def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
     mode and its K20 backward per rank) and the all-reduce spmm (K1 per
     rank) at D=128 against K1 unsharded (dx against K1 over the reverse
     edges), and the all-reduce attention RHS at (a)'s widths (D=128,
-    ATT=32, H=2; K18 per rank) against K6."""
+    ATT=32, H=2; K18 per rank) against K6, in float32 and under the bf16
+    ODE state (K18 on the bf16 x and payload; K6 on x widened)."""
     import torch
     from graph_neural_pde_tpu_torch.probes.gather import agree
     from graph_neural_pde_tpu_torch.config import GRAND_NL_BENCH
@@ -2082,10 +2212,20 @@ def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
     _, rel_f = agree("(u) fused RHS, 4-way split, vs K6",
                        make_sharded_fused_rhs(mesh, padded, heads=h)(*ops, x),
                        ax6)
+    # the bf16 ODE state: every rank's K18 on the bf16 x and payload,
+    # against K6 on x widened (JAX's promotion)
+    xb = x.to(torch.bfloat16)
+    ax6_b = fused_rhs_fwd(g.rowptr, g.row, g.col, xb.float(), *ops,
+                          torch.zeros(1, device=dev), heads=h,
+                          score="scaled_dot")[0]
+    _, rel_b = agree("(u) fused RHS, 4-way split, bf16 state, vs K6",
+                     make_sharded_fused_rhs(mesh, padded, heads=h)(*ops, xb),
+                     ax6_b)
     print(f"[sharded] 4-way split at arxiv scale (N={n} E={g.num_valid}), "
           f"partials summed in rank order: stripe spmm {rel:.2e} and its dx "
           f"{rel_dx:.2e}, all-reduce spmm {rel_ar:.2e} of scale of K1; "
-          f"fused RHS (D={d} ATT={att} H={h}) {rel_f:.2e} of K6", flush=True)
+          f"fused RHS (D={d} ATT={att} H={h}) {rel_f:.2e} of K6, under the "
+          f"bf16 state {rel_b:.2e}", flush=True)
 
 
 GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
@@ -2111,14 +2251,16 @@ SHIFTED_BF16 = "fused_rhs_fwd bf16 shifted"
 BF16_NAMES = tuple(f"{k} bf16" for k in (
     "csr_spmm", "edge_dot", "fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd",
     "fused_rhs_bwd_sym", "fused_rhs_bwd_col", "norm1_den", "norm1_fwd",
-    "norm1_bwd")) + (SHIFTED_BF16,)
+    "norm1_bwd") + AGGREGATE_KERNELS) + (SHIFTED_BF16,)
 # those the bench entry (t) launches: the primary op, the column-plan
-# oracles and the softmax over columns (its oracles and keys)
+# oracles, the softmax over columns (its oracles and keys) and the
+# aggregate oracles over the bf16 payload
 BENCH_BF16 = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
                                          "fused_rhs_fwd", "fused_rhs_bwd",
                                          "fused_rhs_bwd_sym",
                                          "fused_rhs_bwd_col", "norm1_den",
-                                         "norm1_fwd", "norm1_bwd"))
+                                         "norm1_fwd", "norm1_bwd")
+                   + AGGREGATE_KERNELS)
 
 
 def counted(label: str, expected, fn):
@@ -2311,6 +2453,12 @@ def main() -> int:
                                                           card)
 
     # 1. environment
+    t_run = time.perf_counter()
+
+    def phase_done(name):
+        print(f"[phase] {name} done at {time.perf_counter() - t_run:.1f} s",
+              flush=True)
+
     smi = card()
     kind = torch.cuda.get_device_name(0)
     print(f"[env] nvidia-smi: {smi}", flush=True)
@@ -2327,6 +2475,7 @@ def main() -> int:
           flush=True)
 
     with tempfile.TemporaryDirectory() as data_dir:
+        phase_done("2 (build)")
         # 3. kernels against their plain versions
         cora_g = prepared_graph("Cora", data_dir)
         rows = check_kernels("cora-standin", cora_g,
@@ -2366,6 +2515,19 @@ def main() -> int:
                                             timed=False)
         rows += check_aggregate_kernels("bench-oracle", oracle_graph(0), 128,
                                         64, 2, "scaled_dot", args.seed + 115)
+        # ... and over a bfloat16 payload (the JAX bench's oracle feeds P8,
+        # P9 and P11 one) beside a float32 and a bfloat16 row side: every
+        # family small, the oracle's shape timed
+        for i, score in enumerate(SCORE_FAMILIES):
+            for row_b16 in (False, True):
+                rows += check_aggregate_kernels(
+                    "cora-small", cora_g, 16, 16, 4, score,
+                    args.seed + 200 + 2 * i + row_b16, timed=False,
+                    payload=bf16, row_bf16=row_b16)
+        for row_b16 in (False, True):
+            rows += check_aggregate_kernels(
+                "bench-oracle", oracle_graph(0), 128, 64, 2, "scaled_dot",
+                args.seed + 210 + row_b16, payload=bf16, row_bf16=row_b16)
         rows += check_dual_kernels("cora-small", cora_g, 16, 4,
                                    args.seed + 50, timed=False)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
@@ -2465,6 +2627,15 @@ def main() -> int:
         rows += check_aggregate_kernels("arxiv-scale", big, bench.hidden_dim,
                                         2 * bench.attention_dim, bench.heads,
                                         BELTRAMI, args.seed + 117)
+        # ... over the bfloat16 payload at (a)'s and the BLEND widths, with
+        # the bench's bf16 row side and a float32 one
+        for att_w, score, sd in ((bench.attention_dim, "scaled_dot", 212),
+                                 (2 * bench.attention_dim, BELTRAMI, 214)):
+            for row_b16 in (True, False):
+                rows += check_aggregate_kernels(
+                    "arxiv-scale", big, bench.hidden_dim, att_w, bench.heads,
+                    score, args.seed + sd + row_b16, payload=bf16,
+                    row_bf16=row_b16)
         # the P6 pair (K1 in table mode, K20) on every rank of a 4-way
         # split at arxiv scale (path (u)'s split), on ranks 0 and 3 of one
         # of the Cora stand-in, and on the one NCCL rank's whole shard of
@@ -2490,6 +2661,15 @@ def main() -> int:
             "arxiv-scale", pad_capacity(big, 4).sort_by_row(), 4,
             bench.hidden_dim, args.seed + 126, att=bench.attention_dim,
             h=bench.heads)
+        # ... and under the bf16 ODE state (K1, K18, K19 and K8's per-head
+        # mode on the bf16 x and payload), as (u) runs the dispatchers
+        rows += check_edge_shard_kernels(
+            "cora-standin", cora_g, 1, d_cora, args.seed + 216,
+            att=nl.attention_dim, h=nl.heads, state_bf16=True)
+        rows += check_edge_shard_kernels(
+            "arxiv-scale", pad_capacity(big, 4).sort_by_row(), 4,
+            bench.hidden_dim, args.seed + 217, att=bench.attention_dim,
+            h=bench.heads, state_bf16=True)
         torch.cuda.empty_cache()
         # directed graphs: K17 and K8 without dxg (four score families on a
         # small random graph; the GDC-rewired Cora stand-in at (n)'s widths;
@@ -2598,6 +2778,7 @@ def main() -> int:
         del big_dir
         torch.cuda.empty_cache()
 
+        phase_done("3 (kernels)")
         # 4. end to end on small inputs, card vs CPU
         check_small_end_to_end("Cora")
         # the bfloat16 payload (float32 state) on the fixed grid: K1/K2 on
@@ -2685,6 +2866,7 @@ def main() -> int:
                                base=nl.replace(**blend), graph=small_knn,
                                pos_dim=16)
 
+        phase_done("4 (end to end, card against CPU)")
         # 5. the main paths
         fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
         dual = ("dual_scatter", "dual_gather")
@@ -2813,10 +2995,13 @@ def main() -> int:
         for label, expected, fn in (
                 ("sharded Cora over one NCCL rank (u)",
                  ("csr_spmm", TABLE_MODE, "edge_dot", "segment_norm",
-                  "row_gather", "fused_aggregate", "fused_rhs_bwd_heads"),
+                  "row_gather", "fused_aggregate", "fused_rhs_bwd_heads",
+                  "csr_spmm bf16", "fused_aggregate bf16",
+                  "fused_rhs_bwd_heads bf16"),
                  lambda: drive_sharded_cora(data_dir, args.seed + 130)),
                 ("4-way split at arxiv scale (u)",
-                 ("csr_spmm", TABLE_MODE, "row_gather", "fused_aggregate"),
+                 ("csr_spmm", TABLE_MODE, "row_gather", "fused_aggregate",
+                  "fused_aggregate bf16"),
                  lambda: drive_split_arxiv(big, args.seed + 131)),
                 ("gather probes (u)",
                  ("csr_spmm", TABLE_MODE, "row_gather", "smem_gather",
@@ -2958,9 +3143,9 @@ def main() -> int:
                "blocked_spmm": ("blocked.cu", "spmm_blocked.py:76"),
                "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135"),
                "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047"),
-               "fused_aggregate": ("fused_rhs.cu", "fused_rhs.py:208"),
-               "fused_score_max": ("fused_rhs.cu", "fused_rhs.py:569"),
-               "fused_rhs_bwd_heads": ("fused_rhs.cu", "fused_rhs.py:742"),
+               "fused_aggregate": ("fused_payload.cu", "fused_rhs.py:208"),
+               "fused_score_max": ("fused_payload.cu", "fused_rhs.py:569"),
+               "fused_rhs_bwd_heads": ("fused_payload.cu", "fused_rhs.py:742"),
                "row_gather": ("row_gather.cu", "stripe.py:767"),
                "smem_gather": ("smem_gather.cu",
                                "examples/perf_probe13_vmem_gather.py:85"),
@@ -2977,7 +3162,13 @@ def main() -> int:
                                           "fused_rhs.py:1047"),
                "norm1_den bf16": ("norm1.cu", "fused_rhs.py:2070"),
                "norm1_fwd bf16": ("norm1.cu", "fused_rhs.py:2189"),
-               "norm1_bwd bf16": ("norm1.cu", "fused_rhs.py:2297")}
+               "norm1_bwd bf16": ("norm1.cu", "fused_rhs.py:2297"),
+               "fused_aggregate bf16": ("fused_payload.cu",
+                                        "fused_rhs.py:208"),
+               "fused_score_max bf16": ("fused_payload.cu",
+                                        "fused_rhs.py:569"),
+               "fused_rhs_bwd_heads bf16": ("fused_payload.cu",
+                                            "fused_rhs.py:742")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -3003,6 +3194,7 @@ def main() -> int:
             "other_checks": [
                 {k: r[k] for k in ("check", "shape", "dims") + keys}
                 for r in timed[1:]]})
+    phase_done("5 (main paths)")
     print(card(), flush=True)     # the card's name and power limit
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,7 @@ struct Graph {
   int n_rows;
 };
 
-struct Proj {            // what a row walk reads beside the q and k tables
-  const float* x;
+struct Proj {            // what a row walk reads beside its rows and tables
   const float* gmax;
   const float* var;      // exp_kernel [1]; exp_kernel_beltrami [2]: the
   const float* ls;       // feature factor's, then the position factor's
@@ -691,10 +690,9 @@ void launch_outer_reduce(const TX* x, const int* idx, const float* b,
       x, idx, b, partial, rows, rows_per_block, dim, att);
 }
 
-Proj make_proj(const void* x, const void* gmax, const void* var,
-               const void* ls, int dim, int att, int heads, int flags) {
+Proj make_proj(const void* gmax, const void* var, const void* ls, int dim,
+               int att, int heads, int flags) {
   Proj p;
-  p.x = static_cast<const float*>(x);
   p.gmax = static_cast<const float*>(gmax);
   p.var = static_cast<const float*>(var);
   p.ls = static_cast<const float*>(ls);
@@ -719,8 +717,8 @@ Graph make_graph(const void* rowptr, const void* col, int n_rows) {
 // __global__ wrapper of sym_backward_row over the column table of type TC)
 // and the first pass of the dKw / dKb reduction over the per-node dk sums
 // and the column table. `tables` as launch_tables takes it; with
-// kTablesF32, xcol is x. The walk reads x only as xcol, so p.x stays null
-// (x may be bfloat16).
+// kTablesF32, xcol is x. The walk reads x only as xcol (x may be
+// bfloat16).
 template <typename TC, typename Kernel>
 int launch_sym_backward(
     Kernel kernel, int project, int tables, const void* rowptr,
@@ -744,7 +742,7 @@ int launch_sym_backward(
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes, s>>>(
         make_graph(rowptr, col, n_rows),
-        make_proj(nullptr, gmax, var, ls, dim, att, heads, flags),
+        make_proj(gmax, var, ls, dim, att, heads, flags),
         static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
         static_cast<const TC*>(ktab),
         static_cast<const float*>(kw_t), static_cast<const float*>(ct_ax),

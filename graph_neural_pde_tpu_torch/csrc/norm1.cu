@@ -253,9 +253,7 @@ extern "C" int gnpde_norm1_den(
                           dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const Graph g = make_graph(rowptr, col, n_rows);
-    // p.x stays null: the walk reads the column table through its typed
-    // pointer
-    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
     err = tables == kTablesF32
               ? launch_den<float>(g, p, x, qtab, ktab, ct, out, s)
               : launch_den<__nv_bfloat16>(g, p, xcol, qtab, ktab, ct, out, s);
@@ -281,7 +279,7 @@ extern "C" int gnpde_norm1_fwd(
                           dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const Graph g = make_graph(rowptr, col, n_rows);
-    const Proj p = make_proj(nullptr, gmax, var, ls, dim, att, heads, flags);
+    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
     err = tables == kTablesF32
               ? launch_fwd<float>(g, p, x, qtab, ktab, recip, out, s)
               : launch_fwd<__nv_bfloat16>(g, p, xcol, qtab, ktab, recip, out,

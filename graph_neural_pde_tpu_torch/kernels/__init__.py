@@ -92,4 +92,5 @@ KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
 # those of them with the exact mode's shifts)
 BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rowmax,
                 fused_rhs_bwd, fused_rhs_bwd_sym, fused_rhs_bwd_col,
-                norm1_den, norm1_fwd, norm1_bwd)
+                norm1_den, norm1_fwd, norm1_bwd, fused_aggregate,
+                fused_score_max, fused_rhs_bwd_heads)

@@ -76,15 +76,20 @@ _ENTRY_POINTS = {
     # partials, n_cols, dim, att, heads, flags, reduce_blocks, tables,
     # stream
     "gnpde_fused_rhs_bwd_col": [_PTR] * 20 + [_INT] * 7 + [_PTR],
+    # The per-edge payload kernels (csrc/fused_payload.cu).
+    # K18, K19 and K8's per-head mode take the same TABLES code for the
+    # node rows x and the per-edge payload xg: 0 both float32, 1 x float32
+    # and xg bfloat16, 2 both bfloat16 (K19, which reads no x: 0 or 1).
     # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
-    # nullable), num, den, n_rows, dim, att, heads, flags, stream
-    "gnpde_fused_aggregate": [_PTR] * 13 + [_INT] * 5 + [_PTR],
-    # rowptr, q, xg, kw, kb, partial, out, n_rows, dim, att, heads, stream
-    "gnpde_fused_score_max": [_PTR] * 7 + [_INT] * 4 + [_PTR],
-    # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
-    # nullable), ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows,
-    # dim, att, heads, flags, n_slots, reduce_blocks, stream
-    "gnpde_fused_rhs_bwd_heads": [_PTR] * 17 + [_INT] * 7 + [_PTR],
+    # nullable), num, den, n_rows, dim, att, heads, flags, tables, stream
+    "gnpde_fused_aggregate": [_PTR] * 13 + [_INT] * 6 + [_PTR],
+    # rowptr, q, xg, kw, kb, partial, out, n_rows, dim, att, heads, tables,
+    # stream
+    "gnpde_fused_score_max": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
+    # ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows, dim, att,
+    # heads, flags, n_slots, reduce_blocks, tables, stream
+    "gnpde_fused_rhs_bwd_heads": [_PTR] * 17 + [_INT] * 8 + [_PTR],
     # The column-normalised RHS kernels (csrc/norm1.cu), with K6-K9's
     # TABLES code (xcol the bfloat16 column table, ignored with 0).
     # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, ct (the last

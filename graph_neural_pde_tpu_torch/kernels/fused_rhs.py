@@ -65,9 +65,23 @@ each cast as the identity (the JAX package's own autodiff rounds the
 cotangent of x[col] to bfloat16 and sums it there, and its Pallas column
 plan packs its node table to bfloat16: neither is mirrored).
 
+K18, K19 and K8's per-head mode (and so ``fused_rhs_aggregate``) take the
+payload's bfloat16 mode as the JAX package's P8, P9 and P11 take it: a
+bfloat16 ``x_g`` beside a float32 or (the bf16 ODE state) bfloat16
+``x_n``. Each row is widened to float32 where it is read, and k_e =
+x_g[e] Kw + kb is projected from the widened row with the float32 Kw and
+kb and NOT rounded (unlike :func:`bf16_k_table`): every definition of the
+op in the JAX package outside Pallas computes it so (``_scores_u``,
+``_fused_bwd_composition``, the bench's oracle, the sharded RHS by type
+promotion), and so does its Pallas kernel at ``dtype=float32``. Sums,
+cotangents and outputs stay float32; ``fused_rhs_aggregate`` returns the
+gradients of x_n and x_g in their own dtypes, each cast once at the end,
+as the JAX package's ``_fused_bwd`` does.
+
 The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K17
 walks its CSC view); the kernels gather their node rows themselves (see
-``csrc/fused_rhs.cu`` for what bounds them on the H100). On a CUDA tensor a
+``csrc/fused_rhs.cu`` and ``csrc/fused_payload.cu`` for what bounds them
+on the H100). On a CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 PyTorch version beside it, which defines the semantics. ``fused_rhs_ax``,
 ``make_fused_ax_sym``, ``make_fused_ax_colplan`` and ``fused_rhs_f`` keep
@@ -355,10 +369,13 @@ def fused_aggregate_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
         q_n = x_n[n] Qw + qb,  k_e = x_g[e] Kw + kb,  s_eh = score_h(q_n, k_e)
         u_eh = exp(s_eh - gmax - shift_eh)     (or squareplus of the same)
         num[n, h·D:(h+1)·D] = sum_e u_eh x_g[e],  den[n, h] = sum_e u_eh
+
+    A bfloat16 x_n or x_g is widened to the weights' type where it is
+    read; k_e is not rounded.
     """
     nv, r, _ = _edges(rowptr, row, row)
     n = x_n.shape[0]
-    xe = x_g[:nv]
+    x_n, xe = x_n.to(qw.dtype), x_g[:nv].to(qw.dtype)
     slices = head_slices(score, heads)
     src = (x_n @ qw + qb)[r].reshape(nv, slices, -1)
     ke = (xe @ kw + kb).reshape(nv, slices, -1)
@@ -372,12 +389,13 @@ def fused_aggregate_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
 def fused_score_max_plain(rowptr, row, q, x_g, kw, kb, *, heads: int):
     """Plain version of K19: the largest scaled-dot score <q[row e], x_g[e]
     Kw + kb>_h / sqrt(d_k) over every valid edge and head, as a one-element
-    tensor; 0 when it is not finite (an edgeless graph)."""
+    tensor; 0 when it is not finite (an edgeless graph). A bfloat16 x_g
+    is widened to the weights' type."""
     nv = int(rowptr[-1])
     if nv == 0:
         return torch.zeros(1, dtype=q.dtype, device=q.device)
     src = q[row[:nv].long()].reshape(nv, heads, -1)
-    ke = (x_g[:nv] @ kw + kb).reshape(nv, heads, -1)
+    ke = (x_g[:nv].to(kw.dtype) @ kw + kb).reshape(nv, heads, -1)
     m = torch.amax(edge_scores(src, ke, "scaled_dot")).reshape(1)
     return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
@@ -395,17 +413,18 @@ def fused_rhs_bwd_heads_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax,
 
     Returns (dq [N, ATT], dxg [E_pad, D], dkw, dkb, dgmax, dvar, dls); dvar
     and dls (shaped as var and ls) are None but for ``exp_kernel`` and
-    ``exp_kernel_beltrami``."""
+    ``exp_kernel_beltrami``. A bfloat16 x_n or x_g is widened to the
+    weights' type (dxg is of that type too)."""
     nv, r, _ = _edges(rowptr, row, row)
     n, d = x_n.shape
-    xe = x_g[:nv]
+    x_n, xe = x_n.to(qw.dtype), x_g[:nv].to(qw.dtype)
     s, pullback = _scores_vjp((x_n @ qw + qb)[r], xe @ kw + kb, score, heads,
                               var, ls)
     u, duds = _u_duds(s - gmax, square_plus)
     ctn = ct_num.reshape(n, heads, d)[r]                       # [E, H, D]
     ds = (torch.sum(ctn * xe[:, None, :], dim=2) + ct_den[r]) * duds
     dsrc, dke, *dextra = pullback(ds)
-    dxg = torch.zeros_like(x_g)
+    dxg = xe.new_zeros((x_g.shape[0], d))
     dxg[:nv] = torch.sum(u[:, :, None] * ctn, dim=1) + dke @ kw.T
     dvar, dls = dextra if dextra else (None, None)
     return (_node_sum(n, r, dsrc), dxg, xe.T @ dke, torch.sum(dke, dim=0),
@@ -417,12 +436,13 @@ def fused_rhs_bwd_heads_plain(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax,
 # ---------------------------------------------------------------------------
 
 def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
-           var=None, ls=None, extra=(), xcol=None):
+           var=None, ls=None, extra=(), xcol=None, xcol_shape=None):
     """Device, type, shape and contiguity of what the kernels read.
     ``extra`` is (name, tensor, shape) for the call's own float operands.
     The kernels are float32; on the CPU the plain versions also take
     float64 operands (all of one type). With a bfloat16 column table
-    ``xcol`` (K6-K9, K12-K14, K17) x may be float32 or bfloat16. For
+    ``xcol`` (K6-K9, K12-K14, K17; of x's shape, or ``xcol_shape``: K18's
+    and K8's per-head bfloat16 payload) x may be float32 or bfloat16. For
     exp_kernel_beltrami ``att`` is the packed width of both halves."""
     dev = x.device
     if score not in SCORES:
@@ -443,7 +463,7 @@ def _check(name, rowptr, row, col, x, qw, qb, kw, kb, heads, score,
     floats = [("x", x, (n, d)), ("qw", qw, (d, att)), ("qb", qb, (att,)),
               ("kw", kw, (d, att)), ("kb", kb, (att,)), *extra]
     if xcol is not None:
-        _check_tables(name, x, xcol)
+        _check_tables(name, x, xcol, xcol_shape)
         floats = floats[1:]
     if score in SCALARS:
         if var is None or ls is None:
@@ -479,20 +499,21 @@ def _check_operands(name, dev, ints, floats):
         raise NotImplementedError(f"{name}: no kernel for {dev}")
 
 
-def _check_tables(name, x, xcol):
-    """The bfloat16 column table of K6-K9, K12-K14 and K17 beside the row
-    side x."""
+def _check_tables(name, x, xcol, shape=None):
+    """The bfloat16 column table of K6-K9, K12-K14 and K17 (of x's shape)
+    or the bfloat16 payload of K18, K19 and K8's per-head mode (of
+    ``shape``) beside the row side x (K19: q, float32)."""
+    shape = tuple(x.shape if shape is None else shape)
     if xcol.dtype != torch.bfloat16 or x.dtype not in (torch.float32,
                                                        torch.bfloat16):
-        raise TypeError(f"{name}: the column table must be bfloat16 and x "
-                        f"float32 or bfloat16, not {xcol.dtype} and "
+        raise TypeError(f"{name}: the bfloat16 table must be bfloat16 and "
+                        f"x float32 or bfloat16, not {xcol.dtype} and "
                         f"{x.dtype}")
-    if xcol.device != x.device or xcol.shape != x.shape:
-        raise ValueError(f"{name}: the column table {tuple(xcol.shape)} on "
-                         f"{xcol.device} must match x {tuple(x.shape)} on "
-                         f"{x.device}")
+    if xcol.device != x.device or tuple(xcol.shape) != shape:
+        raise ValueError(f"{name}: the bfloat16 table {tuple(xcol.shape)} "
+                         f"on {xcol.device} must be {shape} on {x.device}")
     if not (x.is_contiguous() and xcol.is_contiguous()):
-        raise ValueError(f"{name}: x and the column table must be "
+        raise ValueError(f"{name}: x and the bfloat16 table must be "
                          "contiguous")
 
 
@@ -805,7 +826,7 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
 # K18, K19 and K8's per-head mode run PAYLOAD_WARPS warps a block, which
 # share the block's copy of Qw and Kw (rows padded by one float), and keep
 # a group of GROUP_EDGES payload rows per warp in shared memory: the sums
-# of csrc/fused_rhs.cu's ``padded_weight_floats``, ``aggregate_warp_floats``
+# of csrc/fused_payload.cu's ``padded_weight_floats``, ``aggregate_warp_floats``
 # and their siblings.
 GROUP_EDGES, PAYLOAD_WARPS = 8, 8
 
@@ -826,8 +847,22 @@ def _payload_shared(name, d, att, warp_floats, weights):
 
 def _payload_check(name, rowptr, row, x_n, x_g, qw, qb, kw, kb, heads, score,
                    var, ls, extra):
-    _check(name, rowptr, row, row, x_n, qw, qb, kw, kb, heads, score, var, ls,
-           [("x_g", x_g, (row.shape[0], x_n.shape[1])), *extra])
+    """The operands of K18 and K8's per-head mode: the payload x_g
+    [E_pad, D] float32 beside a float32 x_n, or bfloat16 beside a float32
+    or bfloat16 x_n; everything else float32."""
+    shape = (row.shape[0], x_n.shape[1])
+    if x_g.dtype == torch.bfloat16:
+        _check(name, rowptr, row, row, x_n, qw, qb, kw, kb, heads, score,
+               var, ls, extra, xcol=x_g, xcol_shape=shape)
+    else:
+        _check(name, rowptr, row, row, x_n, qw, qb, kw, kb, heads, score,
+               var, ls, [("x_g", x_g, shape), *extra])
+
+
+def _payload_tables(x_n, x_g) -> int:
+    """The TABLES code of K18, K19 and K8's per-head mode (see
+    :func:`_tables`): the payload takes the column table's place."""
+    return _tables(x_n, x_g if x_g.dtype == torch.bfloat16 else None)
 
 
 def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
@@ -839,8 +874,10 @@ def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
     shifts [E_pad, H]. A warp walks a row, projects q_n from x_n's row and
     its edges' keys from their payload rows, eight edges at a time (Qw and
     Kw staged in shared memory, which must hold them: else it raises), and
-    sums in the row's edge order: two calls agree bit for bit. Not
-    differentiable by itself (see :func:`fused_rhs_aggregate`)."""
+    sums in the row's edge order: two calls agree bit for bit. ``x_g`` may
+    be bfloat16 beside a float32 or bfloat16 ``x_n`` (see the module
+    docstring); num and den are float32. Not differentiable by itself (see
+    :func:`fused_rhs_aggregate`)."""
     extra = [("gmax", gmax, None)]
     if shifts is not None:
         extra.append(("shifts", shifts, (row.shape[0], heads)))
@@ -864,8 +901,9 @@ def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
                  x_n.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
                  kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
                  _ptr(shifts), num.data_ptr(), den.data_ptr(), n, d, att,
-                 heads, _flags(score, square_plus))
+                 heads, _flags(score, square_plus), _payload_tables(x_n, x_g))
     fused_aggregate.launches += 1
+    fused_aggregate.bf16_launches += x_g.dtype == torch.bfloat16
     return num, den
 
 
@@ -875,7 +913,8 @@ def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
     valid edge and head, a one-element tensor, 0 unless finite (see
     :func:`fused_score_max_plain`): the shift the oracle hands K18. Each
     block reduces its rows, one block the blocks' maxima; no atomics, two
-    calls agree bit for bit. Not differentiable."""
+    calls agree bit for bit. ``x_g`` may be bfloat16 (widened where it is
+    read); q and the weights are float32. Not differentiable."""
     if q.dim() != 2 or x_g.dim() != 2:
         raise ValueError("fused_score_max: q and x_g must be 2-D")
     n, att = q.shape
@@ -884,10 +923,14 @@ def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
             or d > MAX_DIM:
         raise ValueError(f"fused_score_max: width {d}, attention_dim {att}, "
                          f"heads {heads} outside the kernel's range")
+    floats = [("q", q, None), ("kw", kw, (d, att)), ("kb", kb, (att,))]
+    if x_g.dtype == torch.bfloat16:
+        _check_tables("fused_score_max", q, x_g, (row.shape[0], d))
+    else:
+        floats.insert(1, ("x_g", x_g, (row.shape[0], d)))
     _check_operands("fused_score_max", q.device,
                     (("rowptr", rowptr, (n + 1,)), ("row", row, None)),
-                    (("q", q, None), ("x_g", x_g, (row.shape[0], d)),
-                     ("kw", kw, (d, att)), ("kb", kb, (att,))))
+                    floats)
     if q.device.type == "cpu":
         return fused_score_max_plain(rowptr, row, q, x_g, kw, kb,
                                      heads=heads)
@@ -900,8 +943,10 @@ def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
     out = torch.empty((1,), dtype=torch.float32, device=q.device)
     build.launch("fused_score_max", q.device, rowptr.data_ptr(),
                  q.data_ptr(), x_g.data_ptr(), kw.data_ptr(), kb.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), n, d, att, heads)
+                 partial.data_ptr(), out.data_ptr(), n, d, att, heads,
+                 _payload_tables(q, x_g))
     fused_score_max.launches += 1
+    fused_score_max.bf16_launches += x_g.dtype == torch.bfloat16
     return out
 
 
@@ -913,7 +958,9 @@ def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
     for the formulas and the return value). K8's row walk over the payload:
     q_n and each edge's key are projected as K18 projects them; dkw, dkb,
     dgmax and the score scalars are reduced in two passes with fixed
-    orders, so two calls agree bit for bit."""
+    orders, so two calls agree bit for bit. ``x_g`` may be bfloat16 beside
+    a float32 or bfloat16 ``x_n``; every output is float32 and dkw is
+    reduced over the payload as it is."""
     n, d = x_n.shape
     cap = row.shape[0]
     extra = [("gmax", gmax, None), ("ct_num", ct_num, (n, heads * d)),
@@ -947,8 +994,10 @@ def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
                  _ptr(ls), ct_num.data_ptr(), ct_den.data_ptr(),
                  dq.data_ptr(), dxg.data_ptr(), dke.data_ptr(),
                  row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
-                 _flags(score, square_plus), cap, blocks)
+                 _flags(score, square_plus), cap, blocks,
+                 _payload_tables(x_n, x_g))
     fused_rhs_bwd_heads.launches += 1
+    fused_rhs_bwd_heads.bf16_launches += x_g.dtype == torch.bfloat16
     return ((dq, dxg) + _dk_sums(partials, d)
             + _row_totals(row_sums, score, var, ls))
 
@@ -958,8 +1007,8 @@ fused_rowmax.launches = 0
 fused_rhs_bwd.launches = 0
 fused_rhs_bwd_sym.launches = 0
 fused_rhs_bwd_col.launches = 0
-# the launches on a bfloat16 column table, among each one's own (K6's with
-# the exact mode's shifts counted apart again)
+# the launches on a bfloat16 column table or payload, among each one's own
+# (K6's with the exact mode's shifts counted apart again)
 fused_rhs_fwd.bf16_launches = 0
 fused_rhs_fwd.bf16_shifted_launches = 0
 fused_rowmax.bf16_launches = 0
@@ -969,6 +1018,9 @@ fused_rhs_bwd_col.bf16_launches = 0
 fused_aggregate.launches = 0
 fused_score_max.launches = 0
 fused_rhs_bwd_heads.launches = 0
+fused_aggregate.bf16_launches = 0
+fused_score_max.bf16_launches = 0
+fused_rhs_bwd_heads.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1176,7 +1228,9 @@ class _FusedAggregate(torch.autograd.Function):
     """(num, den) = K18, whose backward is K8's per-head mode followed by
     the node-level products dqw = x_n^T dq, dqb = sum dq and dx_n = dq
     Qw^T (plain matmuls, as the JAX package computes them outside its
-    kernel). Residuals: the inputs."""
+    kernel). Residuals: the inputs. Under the payload's bfloat16 mode the
+    gradients of x_n and x_g come back in their dtypes, each cast once
+    from its float32 sum, as the JAX package's ``_fused_bwd`` casts them."""
 
     @staticmethod
     def forward(ctx, qw, qb, kw, kb, x_n, x_g, gmax, var, ls, g, heads,
@@ -1197,7 +1251,8 @@ class _FusedAggregate(torch.autograd.Function):
             ctx.g.rowptr, ctx.g.row, x_n, x_g, qw, qb, kw, kb, gmax,
             ct_num.contiguous(), ct_den.contiguous(), heads=heads,
             score=score, var=var, ls=ls, square_plus=square_plus)
-        return (x_n.T @ dq, torch.sum(dq, dim=0), dkw, dkb, dq @ qw.T, dxg,
+        return (x_n.to(dq.dtype).T @ dq, torch.sum(dq, dim=0), dkw, dkb,
+                (dq @ qw.T).to(x_n.dtype), dxg.to(x_g.dtype),
                 dgmax.reshape(gmax.shape), dvar, dls) + (None,) * 4
 
 
@@ -1209,13 +1264,11 @@ def fused_rhs_aggregate(g, heads: int, square_plus: bool, score: str, qw, qb,
     x_g, gmax and the score's scalars (``score_params`` as
     :func:`score_scalars` takes them): K18 forward, K8's per-head mode
     backward. The JAX package's op of the same name returns den padded to
-    max(8, H) columns; this one returns its H columns. A bfloat16 payload
-    raises: K18, K19 and the per-head mode take none yet."""
+    max(8, H) columns; this one returns its H columns. ``x_g`` may be
+    bfloat16 (the payload dtype) beside a float32 or bfloat16 ``x_n``: num
+    and den are float32, and the gradients of x_n and x_g come back in
+    their dtypes (see the module docstring)."""
     _check_sorted(g, "fused_rhs_aggregate")
-    if torch.bfloat16 in (x_n.dtype, x_g.dtype):
-        raise NotImplementedError(
-            "fused_rhs_aggregate: a bfloat16 payload (K18, K19, K8's "
-            "per-head mode): ROADMAP Queue 2 B1")
     var, ls = score_scalars(score, score_params)
     return _FusedAggregate.apply(qw, qb, kw, kb, x_n.contiguous(),
                                  x_g.contiguous(), gmax, var, ls, g, heads,
@@ -1230,7 +1283,7 @@ def _scores_u(g, q, kw, kb, x_g, gmax, heads, square_plus, shifts=None):
     att = q.shape[1]
     d_k = att // heads
     src = q[g.row[:nv].long()]
-    k_e = x_g[:nv] @ kw + kb
+    k_e = x_g[:nv].to(kw.dtype) @ kw + kb
     us, dudsms = [], []
     for h in range(heads):
         sl = slice(h * d_k, (h + 1) * d_k)
@@ -1253,8 +1306,11 @@ def fused_bwd_composition(g, heads: int, square_plus: bool, res, cts):
     oracle K8's per-head mode is held to (the JAX package's
     ``_fused_bwd_composition``). ``res`` is (qw, qb, kw, kb, x_n, x_g,
     gmax[, shifts]) and ``cts`` (ct_num [N, H·D], ct_den [N, H]). Returns
-    (dqw, dqb, dkw, dkb, dx_n, dx_g, dgmax)."""
-    qw, qb, kw, kb, x_n, x_g, gmax = res[:7]
+    (dqw, dqb, dkw, dkb, dx_n, dx_g, dgmax). A bfloat16 x_n or x_g is
+    widened to the weights' type, and dx_n and dx_g are cast back to their
+    inputs' dtypes, as the JAX composition casts them."""
+    qw, qb, kw, kb, x_n_in, x_g_in, gmax = res[:7]
+    x_n, x_g = x_n_in.to(qw.dtype), x_g_in.to(qw.dtype)
     shifts = res[7] if len(res) > 7 else None
     ct_num, ct_den = cts
     n, d = x_n.shape
@@ -1284,4 +1340,5 @@ def fused_bwd_composition(g, heads: int, square_plus: bool, res, cts):
     dx_g = torch.zeros_like(x_g)
     dx_g[:nv] = dxg_acc + dk_e @ kw.T
     return (x_n.T @ dq, torch.sum(dq, dim=0), xf.T @ dk_e,
-            torch.sum(dk_e, dim=0), dq @ qw.T, dx_g, dgmax)
+            torch.sum(dk_e, dim=0), (dq @ qw.T).to(x_n_in.dtype),
+            dx_g.to(x_g_in.dtype), dgmax)

@@ -195,10 +195,10 @@ def bf16_refusal(cfg: Config) -> Optional[str]:
         return None
     if cfg.function == "laplacian":
         if cfg.spmm_impl == "pallas_blocked":
-            return "the blocked engine (K15/K16)"
+            return "the blocked engine (K15/K16, item 6)"
         return None
     if cfg.function == "GAT":
-        return "the GAT RHS (K10/K11)"
+        return "the GAT RHS (K10/K11, item 4)"
     if cfg.attention_norm_idx == 1:
         if norm1_fused_ok(cfg):
             return None
@@ -206,11 +206,11 @@ def bf16_refusal(cfg: Config) -> Optional[str]:
                 "(squareplus, reweighted, mix_features or unfused: K1-K4, "
                 "item 4)")
     if not fused_attention(cfg):
-        return "the composed transformer RHS (K1-K4)"
+        return "the composed transformer RHS (K1-K4, item 4)"
     if cfg.square_plus or cfg.reweight_attention:
-        return "squareplus or reweighted attention (K10/K11)"
+        return "squareplus or reweighted attention (K10/K11, item 4)"
     if cfg.block == "hard_attention":
-        return "hard attention over the function's layer (K10/K11)"
+        return "hard attention over the function's layer (K10/K11, item 4)"
     return None
 
 
@@ -227,7 +227,8 @@ def _refuse_bf16(cfg: Config, g: Graph, exact_softmax: bool) -> None:
     if (route is None and cfg.function == "transformer"
             and cfg.attention_norm_idx == 0
             and not _mega_ok(cfg, g, exact_softmax)):
-        route = "the exact re-solve of a poisoned solve, composed (K10/K11)"
+        route = ("the exact re-solve of a poisoned solve, composed (K10/K11, "
+                 "item 4)")
     if route is not None:
         raise NotImplementedError(
             f"bfloat16 payload or state on {route}: ROADMAP Queue 2 B1")

@@ -36,10 +36,22 @@ by rank in one process.
 Slot order: a per-edge ``w`` is in the slot order of the graph handed to
 the factory (the port's row-sorted order for a prepared graph). The JAX
 package's ``block_n``, ``chunk``, the last-chunk padding and the ``axis_name``
-arguments are TPU or ``shard_map`` artifacts and have no counterpart;
-``payload_dtype`` other than float32 raises, and so does a config with the
-bfloat16 payload or state in the ``_for`` dispatchers: the per-rank kernels
-take no bfloat16 table yet (ROADMAP Queue 2 B1).
+arguments are TPU or ``shard_map`` artifacts and have no counterpart.
+
+Precision. The JAX functions read no payload dtype but the stripe spmm's:
+the dispatchers ignore ``rhs_payload_dtype`` (the bfloat16 payload beside
+a float32 state runs float32 here too), and a bfloat16 x (the bf16 ODE
+state) meets float32 weights, which JAX's type promotion widens at each
+use. So here: K1 reads the bfloat16 x as its table, K18 and K8's per-head
+mode read the bfloat16 x and its gathered payload x[col], and the ring
+buckets widen x where JAX widens it (its projections; the products with w
+and u promote by themselves); every sum, partial and output is float32.
+The gradient of a bfloat16 x comes back in bfloat16. The JAX package's
+autodiff rounds each edge's cotangent of x[col] to bfloat16 and sums it
+there (ROADMAP R10); K1 and K8's per-head mode sum it in float32 and
+round once, the ring buckets' autograd as JAX does. ``payload_dtype``
+bfloat16 in :func:`make_sharded_stripe_spmm` raises: K1 in table mode and
+K20 take no bfloat16 table yet (ROADMAP Queue 2 B1 item 6).
 """
 
 from __future__ import annotations
@@ -190,7 +202,7 @@ def make_sharded_stripe_spmm(mesh: Mesh, g: Graph, *, payload_dtype=None
     if payload_dtype not in (None, torch.float32, "float32"):
         raise NotImplementedError(
             f"payload_dtype {payload_dtype}: the per-rank kernels (K1 in "
-            f"table mode, K20) are float32 (ROADMAP Queue 2 B1)")
+            f"table mode, K20) are float32 (ROADMAP Queue 2 B1 item 6)")
     shards = stripe_shards(mesh, g)
 
     def spmm_fn(x, w):
@@ -211,9 +223,10 @@ def make_sharded_stripe_spmm(mesh: Mesh, g: Graph, *, payload_dtype=None
 def fused_rhs_body(shard: EdgeShard, x, qw, qb, kw, kb, *, heads: int,
                    square_plus: bool) -> torch.Tensor:
     """A rank's partial ``[num | den]`` [N, H·D + H] of the attention RHS
-    over its edges: K18 with gmax = 0 over the payload ``x[col]``."""
+    over its edges: K18 with gmax = 0 over the payload ``x[col]`` (in x's
+    dtype; the partial is float32)."""
     x_g = torch.index_select(x, 0, shard.col)
-    gmax = torch.zeros(1, dtype=x.dtype, device=x.device)
+    gmax = torch.zeros(1, dtype=qw.dtype, device=x.device)
     num, den = fused_rhs_aggregate(shard.graph, heads, square_plus,
                                    "scaled_dot", qw, qb, kw, kb, x, x_g, gmax)
     return torch.cat([num, den], dim=1)
@@ -362,11 +375,12 @@ def _stream(mesh: Mesh, x: torch.Tensor, n: int, blk: int, shards,
 def stream_bucket(shard: StreamShard, k: int, x_blk: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """A rank's bucket k: ``sum_e w[slot e] x_blk[coll e]`` into its local
-    rows [blk, D]."""
+    rows [blk, D], in the product's dtype (float32 for a bfloat16 block, as
+    JAX promotes it)."""
     wk = w[shard.slot[k]]
     wv = torch.where(shard.mask[k], wk, torch.zeros_like(wk))
     vals = torch.index_select(x_blk, 0, shard.coll[k]) * wv[:, None]
-    return torch.zeros_like(x_blk).index_add(0, shard.rowl[k], vals)
+    return vals.new_zeros(x_blk.shape).index_add(0, shard.rowl[k], vals)
 
 
 def make_sharded_spmm_stream(mesh: Mesh, g: Graph) -> Callable:
@@ -407,17 +421,17 @@ def fused_rhs_bucket(shard: StreamShard, k: int, q: torch.Tensor,
                      square_plus: bool) -> torch.Tensor:
     """A rank's bucket k of the attention RHS: ``[num | den]`` [blk, H·D +
     H] over its resident queries ``q`` [blk, H, d_k] and the keys of the
-    block it holds, projected once for the block."""
+    block it holds, projected once for the block (a bfloat16 block widened
+    to the weights' dtype there, as JAX promotes it)."""
     blk, d = x_blk.shape
-    kproj = (x_blk @ kw + kb).reshape(blk, heads, -1)
+    kproj = (x_blk.to(kw.dtype) @ kw + kb).reshape(blk, heads, -1)
     rl, cl = shard.rowl[k], shard.coll[k]
     u = _scores_u(q[rl], kproj[cl], square_plus)
     u = torch.where(shard.mask[k][:, None], u, torch.zeros_like(u))
     x_g = torch.index_select(x_blk, 0, cl)
     vals = torch.cat([(u[:, :, None] * x_g[:, None, :]).reshape(-1, heads * d),
                       u], dim=1)
-    return torch.zeros((blk, heads * d + heads), dtype=x_blk.dtype,
-                       device=x_blk.device).index_add(0, rl, vals)
+    return vals.new_zeros((blk, heads * d + heads)).index_add(0, rl, vals)
 
 
 def make_sharded_fused_rhs_stream(mesh: Mesh, g: Graph, *, heads: int,
@@ -439,7 +453,8 @@ def make_sharded_fused_rhs_stream(mesh: Mesh, g: Graph, *, heads: int,
         qs = {}
 
         def first(s, xb):
-            qs[s.rank] = (xb @ qw + qb).reshape(b.blk, heads, -1)
+            qs[s.rank] = (xb.to(qw.dtype) @ qw + qb).reshape(b.blk, heads,
+                                                             -1)
             return fused_rhs_bucket(s, 0, qs[s.rank], xb, kw, kb,
                                     heads=heads, square_plus=square_plus)
 
@@ -460,11 +475,8 @@ def make_sharded_fused_rhs_stream(mesh: Mesh, g: Graph, *, heads: int,
 # ---------------------------------------------------------------------------
 
 def _mode(cfg) -> str:
-    if "bfloat16" in (getattr(cfg, "rhs_payload_dtype", "float32"),
-                      getattr(cfg, "dtype", "float32")):
-        raise NotImplementedError(
-            "the bfloat16 payload or state on the sharded aggregations (K1 "
-            "in table mode, K20, K18): ROADMAP Queue 2 B1")
+    """``cfg.shard_spmm_mode``, the one field the dispatchers read (see
+    the module docstring on precision)."""
     mode = getattr(cfg, "shard_spmm_mode", "allreduce")
     if mode not in MODES:
         raise ValueError(f"shard_spmm_mode={mode!r} not in {MODES}")

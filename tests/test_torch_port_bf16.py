@@ -635,23 +635,32 @@ class TestRefusals:
 
     def test_aggregate_and_sharded_routes_raise(self, graphs):
         """K18 / K19 / K8's per-head mode (``fused_rhs_aggregate``) and the
-        shard functions' dispatchers refuse the mode rather than run it in
-        float32."""
+        shard functions' dispatchers take the mode now (ROADMAP Queue 2 B1
+        item 3): the op runs on a bfloat16 payload, float32 out, the x_g
+        gradient in bfloat16, and both dispatchers build under the bench's
+        bf16 config. The stripe spmm's bfloat16 payload still raises,
+        naming its item (6). Values: tests/test_torch_port_bf16_aggregate.py
+        and tests/test_torch_port_parallel.py."""
         from graph_neural_pde_tpu_torch.parallel.mesh import split_mesh
         from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
-            make_sharded_fused_rhs_for, make_sharded_spmm_for)
+            make_sharded_fused_rhs_for, make_sharded_spmm_for,
+            make_sharded_stripe_spmm)
         tg = graphs.tg
         c = Fused(graphs, "scaled_dot")
         qw, qb, kw, kb, x = c.t_ops()
-        x_g = x[tg.col.long()].to(torch.bfloat16)
-        with pytest.raises(NotImplementedError, match="Queue 2 B1"):
-            kernels.fused_rhs_aggregate(tg, H, False, "scaled_dot", qw, qb,
-                                        kw, kb, x, x_g, torch.zeros(1))
+        x_g = x[tg.col.long()].to(torch.bfloat16).requires_grad_(True)
+        num, den = kernels.fused_rhs_aggregate(tg, H, False, "scaled_dot",
+                                               qw, qb, kw, kb, x, x_g,
+                                               torch.zeros(1))
+        assert num.dtype == den.dtype == torch.float32
+        assert torch.isfinite(num).all() and torch.isfinite(den).all()
+        num.sum().backward()
+        assert x_g.grad.dtype == torch.bfloat16
         mesh = split_mesh(2, "cpu")
-        for make in (make_sharded_spmm_for, make_sharded_fused_rhs_for):
-            kw_ = {} if make is make_sharded_spmm_for else {"heads": H}
-            with pytest.raises(NotImplementedError, match="Queue 2 B1"):
-                make(GRAND_NL_BENCH, mesh, tg, **kw_)
+        make_sharded_spmm_for(GRAND_NL_BENCH, mesh, tg)
+        make_sharded_fused_rhs_for(GRAND_NL_BENCH, mesh, tg, heads=H)
+        with pytest.raises(NotImplementedError, match="Queue 2 B1 item 6"):
+            make_sharded_stripe_spmm(mesh, tg, payload_dtype=torch.bfloat16)
 
     def test_kernels_refuse_what_they_lack(self, graphs):
         """K8 refuses a bfloat16 x without its column table, K6-K8 and K17

@@ -13,7 +13,10 @@ in-process split.
 Tolerances, of the reference's largest entry: 1e-5 against the float32 XLA
 functions, forward and gradients (the sums run in other orders); 2e-2
 forward and 3e-2 gradients against the JAX stripe kernel (P6) in interpret
-mode, its own test's bounds (``test_multichip.py``). Per-edge arrays are in
+mode, its own test's bounds (``test_multichip.py``); under the bf16 ODE
+state, x's bfloat16 gradient at 2^-6 against the float32 sum and 2^-5
+against the JAX package's bfloat16 one (both packages sum it partly in
+bfloat16: ROADMAP R10). Per-edge arrays are in
 the slot order of the graph each side was handed; the two packages' graphs
 hold the same arrays slot for slot.
 """
@@ -44,6 +47,9 @@ N, E = 67, 400
 TIGHT = 1e-5          # against the float32 XLA functions
 STRIPE = 2e-2         # against the JAX stripe kernel, forward
 STRIPE_GRAD = 3e-2    # and gradients
+# x's bfloat16 gradient, summed in bfloat16 in part (R10): against the
+# float32 sum, and against the JAX package's own bfloat16 sum
+BF16_SUM = {"float32": 2.0 ** -6, "bfloat16": 2.0 ** -5}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -304,6 +310,92 @@ def test_dispatchers_match_jax(world, worlds, inputs):
         for i, want in enumerate(wants):
             close(replicated(res, f"fused_for_{mode}_d{i}"), want, TIGHT,
                   f"{mode} fused d{i}", scale=top)
+
+
+def jvjp(f, args, probe):
+    """f's output and the gradients of sum(f * probe) in every argument,
+    in one jitted call."""
+    def run(*a):
+        out, vjp = jax.vjp(f, *a)
+        return out, vjp(probe)
+    return jax.jit(run)(*args)
+
+
+def j_bf16(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def f32(a):
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_dispatchers_bf16_state_match_jax(world, worlds, inputs):
+    """Both dispatchers in both modes on a bfloat16 x (the bf16 ODE
+    state): forward and gradients against the JAX dispatchers on the same
+    bf16 x. JAX promotes x to float32 at each use, so the outputs and the
+    gradients of w and of the projections are float32 sums: 1e-5 of scale
+    (the outputs are those of x widened, bit for bit, in JAX). x's
+    gradient is bfloat16 on both sides, and both round each edge's
+    cotangent of x[col] to bfloat16 and sum it there (JAX's autodiff, the
+    port's autograd of its bf16 gather, and the all-reduce of bf16
+    partials; ROADMAP R10), where K1 and K8's per-head mode sum in float32:
+    it is held against jax.grad at x widened to float32 (the float32 sum:
+    2^-6 of scale; measured up to 7.4e-3) and against JAX's own bfloat16
+    gradient (2^-5; measured up to 2.0e-2, where JAX's own distance from
+    the float32 sum reaches 1.3e-2). Prints the measured differences."""
+    res, inp = worlds[world], inputs
+    mesh, g = j_make_mesh(world), j_graph(inp)
+    w = jnp.asarray(inp["w"])
+    probe, probe_f = jnp.asarray(inp["probe"]), jnp.asarray(inp["probe_f"])
+    params = j_params(inp)
+    for mode in ("allreduce", "stream"):
+        cfg = JConfig(shard_spmm_mode=mode)
+        f = JS.make_sharded_spmm_for(cfg, mesh, g)
+        got = [replicated(res, f"bf16_spmm_{mode}{k}")
+               for k in ("", "_dx", "_dw")]
+        refs = [jvjp(f, (x, w), probe)
+                for x in (j_bf16(inp["x"]), j_bf16(inp["x"]).astype(
+                    jnp.float32))]
+        for out, (dx, dw) in refs:
+            close(got[0], out, TIGHT, f"{mode} spmm")
+            close(got[2], dw, TIGHT, f"{mode} spmm dw")
+            rel = close(got[1], f32(dx), BF16_SUM[dx.dtype.name], "spmm dx")
+            print(f"world {world} {mode} spmm dx against JAX's "
+                  f"{dx.dtype.name} gradient: {rel:.3e} of scale")
+        f = JS.make_sharded_fused_rhs_for(cfg, mesh, g, heads=2)
+        got = [replicated(res, f"bf16_fused_{mode}")] + [
+            replicated(res, f"bf16_fused_{mode}_d{i}") for i in range(5)]
+        refs = [jvjp(f, params + (x,), probe_f)
+                for x in (j_bf16(inp["xf"]), j_bf16(inp["xf"]).astype(
+                    jnp.float32))]
+        for out, wants in refs:
+            close(got[0], out, TIGHT, f"{mode} fused")
+            top = max(float(jnp.abs(g_).max()) for g_ in wants[:4])
+            for i in range(4):
+                close(got[1 + i], wants[i], TIGHT, f"{mode} fused d{i}",
+                      scale=top)
+            dx = wants[4]
+            rel = close(got[5], f32(dx), BF16_SUM[dx.dtype.name], "fused dx")
+            print(f"world {world} {mode} fused dx against JAX's "
+                  f"{dx.dtype.name} gradient: {rel:.3e} of scale")
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_dispatchers_payload_only_run_float32(world, worlds):
+    """Under the bfloat16 payload with a float32 state the dispatchers run
+    as in float32, bit for bit (the JAX dispatchers ignore the payload):
+    forward and every gradient."""
+    res = worlds[world]
+    for mode in ("allreduce", "stream"):
+        for kind, f32_key, grads_ in (("spmm", f"spmm_for_{mode}",
+                                       ("_dx", "_dw")),
+                                      ("fused", f"fused_for_{mode}",
+                                       tuple(f"_d{i}" for i in range(5)))):
+            for suffix in ("",) + grads_:
+                np.testing.assert_array_equal(
+                    replicated(res, f"pay_{kind}_{mode}{suffix}"),
+                    replicated(res, f32_key + suffix))
 
 
 def test_unknown_mode_raises():

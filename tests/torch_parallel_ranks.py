@@ -33,8 +33,12 @@ def leaf(a, grad=True):
 
 
 def grads(loss, leaves):
+    """Each leaf's gradient as a numpy array (a bfloat16 one widened to
+    float32; its dtype must be the leaf's)."""
     gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return [np.zeros(t.shape, np.float32) if g is None else g.numpy()
+    for t, g in zip(leaves, gs):
+        assert g is None or g.dtype == t.dtype, (g.dtype, t.dtype)
+    return [np.zeros(t.shape, np.float32) if g is None else g.float().numpy()
             for t, g in zip(leaves, gs)]
 
 
@@ -162,6 +166,38 @@ def _fused_checks(mesh, inp, res):
             res[f"fused_for_{mode}_d{i}"] = gr
 
 
+def _precision_checks(mesh, inp, res):
+    """Both dispatchers in both modes under the bf16 ODE state (x the
+    inputs rounded to bfloat16, the config's payload and state bfloat16)
+    and under the bfloat16 payload alone (float32 x, which they run as
+    float32, as the JAX dispatchers ignore the payload)."""
+    from graph_neural_pde_tpu_torch.config import Config
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
+        MODES, make_sharded_fused_rhs_for, make_sharded_spmm_for)
+    g = base_graph(inp)
+    w, probe = leaf(inp["w"]), leaf(inp["probe"], False)
+    params = [leaf(inp[k]) for k in ("qw", "qb", "kw", "kb")]
+    probe_f = leaf(inp["probe_f"], False)
+    states = {"bf16": dict(dtype="bfloat16", rhs_payload_dtype="bfloat16"),
+              "pay": dict(rhs_payload_dtype="bfloat16")}
+    for tag, over in states.items():
+        wide = torch.float32 if tag == "pay" else torch.bfloat16
+        for mode in MODES:
+            cfg = Config(shard_spmm_mode=mode, **over)
+            x = torch.tensor(inp["x"]).to(wide).requires_grad_(True)
+            out = make_sharded_spmm_for(cfg, mesh, g)(x, w)
+            res[f"{tag}_spmm_{mode}"] = out.detach().numpy()
+            res[f"{tag}_spmm_{mode}_dx"], res[f"{tag}_spmm_{mode}_dw"] = \
+                grads((out * probe).sum(), [x, w])
+            x = torch.tensor(inp["xf"]).to(wide).requires_grad_(True)
+            out = make_sharded_fused_rhs_for(cfg, mesh, g,
+                                             heads=HEADS)(*params, x)
+            res[f"{tag}_fused_{mode}"] = out.detach().numpy()
+            for i, gr in enumerate(grads((out * probe_f).sum(),
+                                         params + [x])):
+                res[f"{tag}_fused_{mode}_d{i}"] = gr
+
+
 def _stream_spmm(mesh, g):
     """The ring schedule through its dispatcher: whole in, whole out."""
     from graph_neural_pde_tpu_torch.config import Config
@@ -198,6 +234,7 @@ def _rank_main(rank: int, world: int, workdir: str):
     res = {}
     _spmm_checks(mesh, inp, res)
     _fused_checks(mesh, inp, res)
+    _precision_checks(mesh, inp, res)
     _block_checks(mesh, inp, res)
     np.savez(os.path.join(workdir, f"rank{rank}.npz"), **res)
     dist.barrier()
