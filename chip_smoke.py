@@ -34,8 +34,10 @@ Phases, each of which must pass (any failure exits nonzero):
    (D=128, packed ATT=2 x 32, H=2); two K9 launches must be
    bit-identical. K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
    also against its plain version in float64), at a small shape, the Cora
-   stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2; two
-   launches of each must be bit-identical. K12 ``norm1_den`` (the column
+   stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2, with a
+   float32 table and with the bfloat16 column table (the composed RHS's
+   bf16 payload; timed beside float32 in the same run); two launches of
+   each must be bit-identical. K12 ``norm1_den`` (the column
    denominators, and the same sum weighted by the cotangent), K13
    ``norm1_fwd`` and K14 ``norm1_bwd`` (every output, against the plain
    version in float64), for all five score families on the Cora stand-in
@@ -84,7 +86,11 @@ Phases, each of which must pass (any failure exits nonzero):
    stand-in and on the whole Cora stand-in as one rank's shard at D=80:
    K1 ``csr_spmm`` in table mode (the scatter of a per-edge payload;
    yardstick ``torch.segment_reduce``) and K20 ``row_gather`` (its gather;
-   yardstick ``index_select``), two launches of each bit-identical. The
+   yardstick ``index_select``), two launches of each bit-identical; and,
+   on ranks 0 and 3 of the arxiv split and the whole Cora stand-in, the
+   stripe spmm's bfloat16 payload: K1 in table mode on a bfloat16 payload
+   and K20 writing bfloat16 rows (yardstick ``index_select`` and the
+   cast). The
    all-reduce schedules' edge shards at path (u)'s widths: K1 forward, K18,
    K19 and K8's per-head mode on the Cora stand-in as one rank's shard
    (D=80, ATT=128, H=8; K1's dx over the shard's CSC view too) and on each
@@ -145,7 +151,8 @@ Phases, each of which must pass (any failure exits nonzero):
    with the bfloat16 payload, and Cora GRAND-nl with ``sym_backward=False``
    (the column-plan backward) and with the softmax over columns (K12-K14),
    each with the payload and at bench.py's precision (the bf16 state too),
-   all on rk4 (logits within 3e-4 of
+   and Cora GRAND-nl with squareplus and as the GAT function the same way
+   (K10/K11 on the bfloat16 column table), all on rk4 (logits within 3e-4 of
    their scale under the payload, within one bf16 step, 2^-8, of theirs
    and of each gradient leaf's under the bf16 state); BLEND (a seeded positional encoding,
    the dual encoder at widths 12 + 4, the split-space score): Cora GRAND-nl
@@ -230,7 +237,18 @@ Phases, each of which must pass (any failure exits nonzero):
    bfloat16 column table; (z) the forced poison over columns at bench.py's
    precision on Cora GRAND-nl at T = 2, which must poison in K12/K13 on the
    bfloat16 column table, re-solve on the composed exact softmax over
-   columns (K3/K4, K1/K2 on the bf16 state) and stay finite; (u)
+   columns (K3/K4, K1/K2 on the bf16 state) and stay finite; (A) (f) at
+   bench.py's precision: 3 remat steps, each step's ms printed beside (f)'s
+   float32 epoch, K10/K11 on the bfloat16 column table; (B) (e) at
+   bench.py's precision for 1 epoch (s_dst and K10/K11 on the bfloat16
+   table), and the exp_kernel family's forced poison at that precision at
+   T = 2 (output_var 20: every score near 400), which must poison in K6 on
+   the bfloat16 table, re-solve on the composed exact softmax (K3/K4,
+   K10/K11 on the bf16 table) and stay finite; (C), inside (u), the stripe
+   spmm under the bfloat16 payload: the Cora block on rk4 over the one
+   NCCL rank against the block on the payload's semantics in torch ops
+   (its gap to ``make_spmm``'s payload printed), and the arxiv split's
+   rank bodies and their dx against K1 unsharded; (u)
    the multi-device layer (``graph_neural_pde_tpu_torch.parallel``): first
    a world of two NCCL ranks on card 0, in a process of its own, which
    must end in NCCL's refusal of two ranks on one GPU, then over a world of
@@ -251,8 +269,9 @@ Phases, each of which must pass (any failure exits nonzero):
    (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
    and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
    run must launch the kernels its path runs, and all twenty-one counters,
-   and the fourteen of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
-   K8, K9, K12, K13, K14, K17, K18, K19, K8's per-head mode), must grow. The paths (a)-(s) run
+   and the eighteen of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
+   K8, K9, K10, K11, K12, K13, K14, K17, K18, K19, K8's per-head mode, K20
+   and K1 in table mode), must grow. The paths (a)-(s) run
    ``GRAND_NL_BENCH``'s architecture in float32, as before the bfloat16
    mode.
 
@@ -1057,13 +1076,17 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     return rows
 
 
-def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
+def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda",
+                       table=None):
     """K10 and K11 against their plain versions (K11 also against the plain
     version evaluated in float64 on the same float32 inputs); two launches
     of each must be bit-identical. On a directed graph (no ``rev``) K11
     writes du only and dx is K1 over the CSC view in table mode
     (``column_head_sum``), checked as one call. ``timed=False`` only
-    compares."""
+    compares. ``table=torch.bfloat16``: both read x as the bfloat16 column
+    table (the bf16 payload; u, the cotangents and the outputs float32),
+    the plain versions the same table, K11's float64 reference its values
+    widened; their rows are named "<kernel> bf16"."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     from graph_neural_pde_tpu_torch.kernels.dual_scatter import \
@@ -1076,9 +1099,12 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
     u = (torch.rand((g.capacity, h), generator=gen, device=dev) + 0.05) \
         * g.mask[:, None]
     x = torch.randn((n, d), generator=gen, device=dev)
+    if table is not None:
+        x = x.to(table)
     ct_num = torch.randn((n, h * d), generator=gen, device=dev)
     ct_den = torch.randn((n, h), generator=gen, device=dev)
     csr = (g.rowptr, g.row, g.col)
+    tag = "" if table is None else " bf16"
 
     def gather64():
         out = K.dual_gather_plain(*csr, u.double(), x.double(),
@@ -1088,11 +1114,12 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
     # K10 reads rowptr, col, u and x and writes num and den; K11 reads
     # rowptr, col, rev, u, x and both cotangents and writes du and dx. 2
     # flop per edge, head and feature in K10, twice that in K11 (the dot
-    # products of du, the sums of dx)
-    scatter_work = (4 * (n + 1 + nv + nv * h + n * d + n * h * d + n * h),
+    # products of du, the sums of dx); a bf16 element of x is 2 bytes
+    xb = x.element_size() * n * d
+    scatter_work = (4 * (n + 1 + nv + nv * h + n * h * d + n * h) + xb,
                     2 * nv * h * d + nv * h)
-    gather_work = (4 * (n + 1 + 2 * nv + 2 * nv * h + 2 * n * d + n * h * d
-                        + n * h), 4 * nv * h * d)
+    gather_work = (4 * (n + 1 + 2 * nv + 2 * nv * h + n * d + n * h * d
+                        + n * h) + xb, 4 * nv * h * d)
 
     def gather():
         du, dx = K.dual_gather(*csr, g.rev, u, x, ct_num, ct_den)
@@ -1103,15 +1130,15 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
         return du, dx
 
     cases = (
-        ("dual_scatter", "num, den",
+        ("dual_scatter" + tag, "num, den",
          lambda: K.dual_scatter(*csr, u, x),
          lambda: K.dual_scatter_plain(*csr, u, x), scatter_work, None),
-        ("dual_gather", "du, dx" if g.rev is not None
+        ("dual_gather" + tag, "du, dx" if g.rev is not None
          else "du; dx by K1 over CSC", gather,
          lambda: K.dual_gather_plain(*csr, u, x, ct_num, ct_den),
          gather_work, gather64),
     )
-    dims = f"N={n} E={nv} D={d} H={h}"
+    dims = f"N={n} E={nv} D={d} H={h}{tag}"
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
@@ -1120,8 +1147,8 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda"):
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{kname} @ {shape_name}: two launches "
                                  f"differ")
-    print(f"[kernels] dual_scatter, dual_gather @ {shape_name} H={h}: two "
-          f"launches bit-identical in every output", flush=True)
+    print(f"[kernels] dual_scatter, dual_gather{tag} @ {shape_name} H={h}: "
+          f"two launches bit-identical in every output", flush=True)
     return rows
 
 
@@ -1360,7 +1387,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     sequence, and with it every gradient, hangs on the last bits of the
     two devices' float32 sums. The card's side must have launched the
     kernels' bfloat16 mode (K1; K6 and K9; with ``sym_backward=False``,
-    K6, K8 and K17; over columns K12-K14), and the check prints the
+    K6, K8 and K17; over columns K12-K14; squareplus and GAT K10 and K11),
+    and the check prints the
     largest gaps of the logits, the loss and each gradient leaf (of its own
     scale) beside those of the CPU's float32-payload run, the control that
     says the tolerances tell the two modes apart."""
@@ -1437,6 +1465,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                 need = ("csr_spmm",)
             elif cfg.attention_norm_idx == 1:
                 need = NORM1_KERNELS
+            elif cfg.function == "GAT" or cfg.square_plus:
+                need = ("dual_scatter", "dual_gather")
             elif cfg.sym_backward is False:
                 need = COLPLAN_KERNELS
             else:
@@ -1705,14 +1735,18 @@ def drive_image_path(label: str, cfg, data_dir: str, expected):
 
 
 def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
-                        dev="cuda"):
+                        dev="cuda", bf16=False):
     """The P6 pair on ranks of a ``world``-way split of ``g``'s row-sorted
     valid edges (``make_sharded_stripe_spmm``'s shards, cut wherever the
     ``np.linspace`` bounds fall, so rows straddle ranks and most of a
     rank's N + 1 row pointers are empty ranges): K1 in table mode (the
     scatter of a random per-edge payload) and K20 ``row_gather`` (its
     gather), against their plain versions, with ``torch.segment_reduce``
-    and ``index_select`` as yardsticks; two launches of each bit-identical."""
+    and ``index_select`` as yardsticks; two launches of each bit-identical.
+    ``bf16``: the stripe spmm's bfloat16 payload, K1 in table mode over a
+    bfloat16 payload (float32 sums; no one PyTorch call sums a bf16 table
+    into float32) and K20 writing bfloat16 rows (yardstick ``index_select``
+    and the cast), rows "csr_spmm table mode bf16" and "row_gather bf16"."""
     import torch
     from graph_neural_pde_tpu_torch.kernels import (csr_spmm, csr_spmm_plain,
                                                     row_gather,
@@ -1721,6 +1755,7 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
     from graph_neural_pde_tpu_torch.parallel.shard_spmm import stripe_shards
     dev = torch.device(dev)
     shards = stripe_shards(split_mesh(world, dev), g)
+    bf = torch.bfloat16
     rows = []
     for r in ranks:
         plan = shards[r].plan
@@ -1734,19 +1769,34 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
         # [N, D] (K1 also reads the slot index and the mask, 8 B an edge,
         # which the function does not need); the gather reads the row
         # pointer and the table and writes [E, D]; no arithmetic but the
-        # sum's adds
-        cases = (
-            ("csr_spmm", "table mode: P6 scatter",
-             lambda: csr_spmm(*csr, vals, table=True),
-             lambda: csr_spmm_plain(*csr, vals),
-             (4 * (n + 1 + e * d + n * d), e * d),
-             lambda: torch.segment_reduce(vals, "sum", lengths=lengths)),
-            ("row_gather", "P6 gather table[row]",
-             lambda: row_gather(plan.rowptr, plan.row, table, e),
-             lambda: row_gather_plain(plan.rowptr, plan.row, table),
-             (4 * (n + 1 + n * d + e * d), 0),
-             lambda: torch.index_select(table, 0, plan.row.long())))
-        dims = f"rank {r} of {world} N={n} E={e} D={d}"
+        # sum's adds; a bf16 element is 2 bytes
+        if bf16:
+            vals = vals.to(bf)
+            cases = (
+                ("csr_spmm table mode bf16", "P6 scatter of a bf16 payload",
+                 lambda: csr_spmm(*csr, vals, table=True),
+                 lambda: csr_spmm_plain(*csr, vals),
+                 (4 * (n + 1 + n * d) + 2 * e * d, e * d), None),
+                ("row_gather bf16", "P6 gather bf16(table[row])",
+                 lambda: row_gather(plan.rowptr, plan.row, table, e,
+                                    out_dtype=bf),
+                 lambda: row_gather_plain(plan.rowptr, plan.row, table, bf),
+                 (4 * (n + 1 + n * d) + 2 * e * d, 0),
+                 lambda: torch.index_select(table, 0,
+                                            plan.row.long()).to(bf)))
+        else:
+            cases = (
+                ("csr_spmm", "table mode: P6 scatter",
+                 lambda: csr_spmm(*csr, vals, table=True),
+                 lambda: csr_spmm_plain(*csr, vals),
+                 (4 * (n + 1 + e * d + n * d), e * d),
+                 lambda: torch.segment_reduce(vals, "sum", lengths=lengths)),
+                ("row_gather", "P6 gather table[row]",
+                 lambda: row_gather(plan.rowptr, plan.row, table, e),
+                 lambda: row_gather_plain(plan.rowptr, plan.row, table),
+                 (4 * (n + 1 + n * d + e * d), 0),
+                 lambda: torch.index_select(table, 0, plan.row.long())))
+        dims = f"rank {r} of {world} N={n} E={e} D={d}{' bf16' if bf16 else ''}"
         for kname, what, kern, plain, work, library in cases:
             rows.append(time_case(kname, what, shape_name, dims, kern, plain,
                                   work, library))
@@ -2041,6 +2091,7 @@ def drive_sharded_cora(data_dir: str, seed: int, dev: str = "cuda"):
             print(f"[sharded] tuned Cora attention block over one NCCL rank, "
                   f"{label}: NFE {want[2]}, z within {rel:.2e} of scale of "
                   f"the default engine's, gradients agree", flush=True)
+        drive_sharded_stripe_bf16(mesh, g, cfg, x, probe, dev)
         nl = grand_nl_cora()
         h, att = nl.heads, nl.attention_dim
         gen = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -2078,6 +2129,65 @@ def drive_sharded_cora(data_dir: str, seed: int, dev: str = "cuda"):
         drive_sharded_bf16_state(mesh, g, ops, ct, h, seed + 2)
     finally:
         dist.destroy_process_group()
+
+
+# the stripe spmm's bf16 payload rounds each product x_b[col] * w_b to
+# bfloat16, make_spmm's payload (K1 reading the bf16 x beside float32
+# weights) does not: their blocks' z may lie this far apart, of its scale
+STRIPE_PRODUCT_GAP = 1e-2
+
+
+def stripe_casts_spmm(g):
+    """``spmm_fn(x, w)`` with the stripe spmm's bfloat16-payload semantics
+    in plain torch ops over the whole graph: x and w rounded to bfloat16
+    (the identity in the gradient), their product rounded again, its
+    cotangent rounded to bfloat16 (what K20 writes), every sum float32."""
+    import torch
+    bf = torch.bfloat16
+    r, c = g.row.long(), g.col.long()
+
+    def rounded(t):
+        t = t.float()
+        return t + (t.to(bf).float() - t).detach()
+
+    def spmm_fn(x, w):
+        vals = (rounded(x)[c] * rounded(w)[:, None]).to(bf).float()
+        vals = vals * g.mask[:, None]
+        return torch.zeros((g.num_nodes, x.shape[1]), device=x.device,
+                           dtype=torch.float32).index_add(0, r, vals)
+
+    return spmm_fn
+
+
+def drive_sharded_stripe_bf16(mesh, g, cfg, x, probe, dev):
+    """(C), (u)'s stripe spmm under the bfloat16 payload over ``mesh``:
+    ``cfg``'s block with the payload on a fixed grid (rk4, so that rounding
+    noise moves no step) solved with ``make_sharded_stripe_spmm(...,
+    payload_dtype=bf16)`` (K1 in table mode on the bf16 products, K20
+    writing their bf16 gradient) against the same block on
+    :func:`stripe_casts_spmm` (``same_block``), and its z's gap to the
+    block on the default engine, ``make_spmm`` with the payload, printed
+    (within ``STRIPE_PRODUCT_GAP``)."""
+    import torch
+    from graph_neural_pde_tpu_torch.parallel.shard_spmm import \
+        make_sharded_stripe_spmm
+    cfg_b = cfg.replace(method="rk4", step_size=1.0,
+                        rhs_payload_dtype="bfloat16")
+    got = sharded_block_run(cfg_b, g, x, probe, make_sharded_stripe_spmm(
+        mesh, g, payload_dtype=torch.bfloat16), dev)
+    rel = same_block("(u) make_sharded_stripe_spmm bf16 payload", got,
+                     sharded_block_run(cfg_b, g, x, probe,
+                                       stripe_casts_spmm(g), dev))
+    z_k1 = sharded_block_run(cfg_b, g, x, probe, None, dev)[0]
+    gap = float((got[0] - z_k1).abs().max()) / float(z_k1.abs().max())
+    if not gap <= STRIPE_PRODUCT_GAP:
+        raise AssertionError(f"(u) stripe spmm bf16 payload: z {gap:.3e} of "
+                             f"scale from make_spmm's payload")
+    print(f"[sharded] tuned Cora attention block over one NCCL rank, "
+          f"make_sharded_stripe_spmm with the bf16 payload (rk4, NFE "
+          f"{got[2]}): z within {rel:.2e} of scale of the block on its "
+          f"semantics in torch ops, gradients agree; {gap:.3e} of scale "
+          f"from make_spmm's payload (products unrounded)", flush=True)
 
 
 # x's bfloat16 gradient under the bf16 state: both schedules sum it partly
@@ -2197,6 +2307,30 @@ def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
     dx, = torch.autograd.grad((got * ct).sum(), [xg])
     _, rel_dx = agree("(u) stripe spmm dx, 4-way split, vs K1",
                         dx, transpose_matvec(g, w, ct))
+    # (C) under the bf16 payload: each rank's bf16 products x_b[col] * w_b
+    # (K1 in table mode, K20 writing the bf16 cotangent rows) against K1
+    # unsharded in table mode over the same products, and dx against K1
+    # over the reverse edges on the cotangent rounded to bfloat16 with the
+    # rounded weights
+    bf = torch.bfloat16
+    nv = g.num_valid
+    xg = x.clone().requires_grad_()
+    got_b = make_sharded_stripe_spmm(mesh, g, payload_dtype=bf)(xg, w)
+    prods = (x.to(bf).float()[g.col[:nv].long()]
+             * w[:nv].to(bf).float()[:, None]).to(bf)
+    want_b = csr_spmm(g.rowptr, g.row[:nv],
+                      torch.arange(nv, dtype=torch.int32, device=dev),
+                      torch.ones(nv, device=dev), prods, table=True)
+    _, rel_b = agree("(u) stripe spmm bf16 payload, 4-way split, vs K1",
+                     got_b.detach(), want_b)
+    dx_b, = torch.autograd.grad((got_b * ct).sum(), [xg])
+    _, rel_dx_b = agree("(u) stripe spmm bf16 payload dx, 4-way split, vs K1",
+                        dx_b, transpose_matvec(g, w.to(bf).float(),
+                                               ct.to(bf)))
+    print(f"[sharded] 4-way split at arxiv scale, stripe spmm under the bf16 "
+          f"payload: {rel_b:.2e} of scale of K1 in table mode over the same "
+          f"bf16 products, dx {rel_dx_b:.2e} of K1 on the rounded cotangent",
+          flush=True)
     w_pad = torch.cat([w, torch.zeros(padded.capacity - g.capacity,
                                       device=dev)])
     _, rel_ar = agree("(u) all-reduce spmm, 4-way split, vs K1",
@@ -2242,8 +2376,10 @@ ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
     + AGGREGATE_KERNELS + ("row_gather", "smem_gather")
 
 
-# K1's launches in table mode (P6's scatter), counted apart among its own
+# K1's launches in table mode (P6's scatter), counted apart among its own,
+# and those of them on a bfloat16 table (the stripe spmm's bf16 payload)
 TABLE_MODE = "csr_spmm table mode"
+TABLE_BF16 = "csr_spmm table mode bf16"
 # the launches on bfloat16 tables (the bf16 payload), counted apart among
 # each kernel's own: "<kernel> bf16", and K6's with the exact mode's shifts
 # apart again
@@ -2251,7 +2387,9 @@ SHIFTED_BF16 = "fused_rhs_fwd bf16 shifted"
 BF16_NAMES = tuple(f"{k} bf16" for k in (
     "csr_spmm", "edge_dot", "fused_rhs_fwd", "fused_rowmax", "fused_rhs_bwd",
     "fused_rhs_bwd_sym", "fused_rhs_bwd_col", "norm1_den", "norm1_fwd",
-    "norm1_bwd") + AGGREGATE_KERNELS) + (SHIFTED_BF16,)
+    "norm1_bwd") + AGGREGATE_KERNELS + ("dual_scatter", "dual_gather",
+                                        "row_gather")) + (SHIFTED_BF16,
+                                                          TABLE_BF16)
 # those the bench entry (t) launches: the primary op, the column-plan
 # oracles, the softmax over columns (its oracles and keys) and the
 # aggregate oracles over the bf16 payload
@@ -2275,6 +2413,7 @@ def counted(label: str, expected, fn):
         k.bf16_launches = 0
     kernels.fused_rhs_fwd.bf16_shifted_launches = 0
     kernels.csr_spmm.table_launches = 0
+    kernels.csr_spmm.table_bf16_launches = 0
     t0 = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
@@ -2284,6 +2423,7 @@ def counted(label: str, expected, fn):
     for k in kernels.BF16_KERNELS:
         launches[f"{k.__name__} bf16"] = k.bf16_launches
     launches[SHIFTED_BF16] = kernels.fused_rhs_fwd.bf16_shifted_launches
+    launches[TABLE_BF16] = kernels.csr_spmm.table_bf16_launches
     for name in expected:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on {label}")
@@ -2297,16 +2437,23 @@ def drive_poisoned_path(cfg, data_dir: str, seed: int):
     ``cfg.epoch - 1`` epochs) must detect the poison, re-solve with the
     exact softmax (over rows: K7's row maxima, K6 with shifts, K8 in the
     backward, on the bfloat16 column table under the bf16 payload or
-    state; over columns: the composed attention on K3/K4 and K1/K2) and
-    come back finite."""
+    state; over columns: the composed attention on K3/K4 and K1/K2; the
+    exp_kernel family, bounded by output_var^2, composes over rows too: K3
+    and K10/K11) and come back finite. An exp_kernel model keeps its Q and
+    K and takes output_var 20 and lengthscale 100 instead: every score
+    near 400, far past exp's range."""
     import torch
     from graph_neural_pde_tpu_torch import run
     s = run.setup(cfg, data_dir, device="cuda")
     gen = torch.Generator().manual_seed(seed)
     att = attention_layer(s.model)
     with torch.no_grad():
-        for lin in (att.Q, att.K):
-            lin.w.copy_(10.0 * torch.randn(lin.w.shape, generator=gen))
+        if cfg.attention_type == "exp_kernel":
+            att.output_var.fill_(20.0)
+            att.lengthscale.fill_(100.0)
+        else:
+            for lin in (att.Q, att.K):
+                lin.w.copy_(10.0 * torch.randn(lin.w.shape, generator=gen))
     losses = []
     for _ in range(1, cfg.epoch):
         loss, stats = s.trainer.train_step(s.x, s.y, s.masks[0])
@@ -2334,7 +2481,8 @@ def drive_bench_precision(seed: int, steps: int = 3, label: str = "(v)",
     fails), then ``steps`` training steps under remat and ``steps`` under
     the rk4 adjoint, each step's ms printed. ``over`` changes the model's
     config (``sym_backward=False``: path (w), the column-plan backward, its
-    ``modes`` remat alone and no ``forward`` check)."""
+    ``modes`` remat alone and no ``forward`` check). Returns each mode's
+    step times (ms)."""
     import numpy as np
     import torch
     from graph_neural_pde_tpu_torch import bench as bench_entry
@@ -2357,6 +2505,7 @@ def drive_bench_precision(seed: int, steps: int = 3, label: str = "(v)",
     modes_over = {"remat": dict(remat=True),
                   "adjoint": dict(adjoint=True, adjoint_method="rk4",
                                   adjoint_step_size=1.0)}
+    step_ms = {}
     for mode in modes:
         m = GNNModel(cfg.replace(**modes_over[mode]), nf, nc, g_raw,
                      device="cuda")
@@ -2373,7 +2522,9 @@ def drive_bench_precision(seed: int, steps: int = 3, label: str = "(v)",
         print(f"[main] {label} {steps} {mode} steps at bench precision: ms "
               f"{[round(t, 2) for t in ms]}, losses {losses}, forward nfe "
               f"{st['nfe']}, backward nfe {st['bwd_nfe']}", flush=True)
+        step_ms[mode] = ms
         del m, trainer
+    return step_ms
 
 
 def bench_forward(model, x, cfg, state, g_raw, nf, nc):
@@ -2532,6 +2683,12 @@ def main() -> int:
                                    args.seed + 50, timed=False)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
                                    nl.heads, args.seed + 51)
+        # K10 and K11 on the bfloat16 column table: small (untimed), and
+        # timed at the Cora GRAND-nl widths beside the float32 check above
+        rows += check_dual_kernels("cora-small", cora_g, 16, 4,
+                                   args.seed + 220, timed=False, table=bf16)
+        rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
+                                   nl.heads, args.seed + 221, table=bf16)
         rows += check_norm1_kernels("cora-standin", cora_g, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 60)
@@ -2600,6 +2757,8 @@ def main() -> int:
                                     "scaled_dot", args.seed + 21)
         rows += check_dual_kernels("arxiv-scale", big, bench.hidden_dim,
                                    bench.heads, args.seed + 52)
+        rows += check_dual_kernels("arxiv-scale", big, bench.hidden_dim,
+                                   bench.heads, args.seed + 222, table=bf16)
         rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
                                     bench.attention_dim, bench.heads,
                                     "scaled_dot", args.seed + 61)
@@ -2647,6 +2806,13 @@ def main() -> int:
                                     args.seed + 122)
         rows += check_shard_kernels("cora-standin", cora_g, d_cora,
                                     args.seed + 123, ranks=(0,), world=1)
+        # ... under the stripe spmm's bfloat16 payload: K1 in table mode on
+        # a bf16 payload, K20 writing bf16 rows
+        rows += check_shard_kernels("arxiv-scale", big, bench.hidden_dim,
+                                    args.seed + 223, ranks=(0, 3), bf16=True)
+        rows += check_shard_kernels("cora-standin", cora_g, d_cora,
+                                    args.seed + 224, ranks=(0,), world=1,
+                                    bf16=True)
         rows += check_smem_gather(args.seed + 124)
         # the all-reduce schedules' edge shards at path (u)'s widths: the
         # one NCCL rank's Cora shard (K1 and its dx over the CSC view at
@@ -2817,6 +2983,19 @@ def main() -> int:
                                early_stop_counts=False, grad_floor=1e-5)
         check_small_end_to_end("Cora GAT", base=nl.replace(function="GAT"),
                                early_stop_counts=False, grad_floor=1e-5)
+        # squareplus and GAT with the bf16 payload and at bench.py's
+        # precision: k (GAT: s_dst) from the bf16 column table, K10/K11 on
+        # it (tolerances as the bf16 checks above, grad_floor as the
+        # float32 ones)
+        for label, over in (("Cora GRAND-nl squareplus",
+                             dict(square_plus=True)),
+                            ("Cora GAT", dict(function="GAT"))):
+            composed = nl.replace(**over, **bf16_rk4)
+            check_small_end_to_end(f"{label} bf16 payload", base=composed,
+                                   early_stop_counts=False, grad_floor=1e-5)
+            check_small_end_to_end(f"{label} bench precision",
+                                   base=composed.replace(dtype="bfloat16"),
+                                   early_stop_counts=False, grad_floor=1e-5)
         # the row's own normalisation axis: the softmax over columns
         nl1 = nl.replace(attention_norm_idx=1)
         check_small_end_to_end("Cora GRAND-nl column softmax", base=nl1)
@@ -2932,6 +3111,11 @@ def main() -> int:
             ("BLEND GRAND-nl Cora over pos_enc_knn (s)",
              nl.replace(epoch=2, rewiring="pos_enc_knn", pos_enc_type="DW64",
                         **blend), COLPLAN_KERNELS),
+            # (B) (e) at bench.py's precision: s_dst and K10/K11 on the
+            # bfloat16 column table
+            ("GAT Cora at bench precision (B)",
+             nl.replace(function="GAT", epoch=2, dtype="bfloat16",
+                        **bf16_rk4), ("dual_scatter bf16", "dual_gather bf16")),
         )
         results, per_path = {}, {}
         launches = dict.fromkeys(ALL_KERNELS + (TABLE_MODE,) + BF16_NAMES, 0)
@@ -2986,6 +3170,19 @@ def main() -> int:
                                           attention_norm_idx=1))
         print(f"[main] {label_y} in {secs:.2f} s; kernel launches "
               f"{per_path[label_y]}", flush=True)
+        # (A) (f) at bench.py's precision: squareplus, k from the bf16
+        # column table, K10/K11 on it
+        label_a = ("GRAND-nl arxiv-scale squareplus at bench precision (A)")
+        step_ms, per_path[label_a], secs = counted(
+            label_a, ("dual_scatter bf16", "dual_gather bf16"),
+            lambda: drive_bench_precision(args.seed, label="(A)",
+                                          modes=("remat",), forward=False,
+                                          square_plus=True))
+        epoch_f = results["GRAND-nl arxiv-scale squareplus (f)"].logs[0]
+        print(f"[main] {label_a} in {secs:.2f} s: remat steps "
+              f"{[round(t, 2) for t in step_ms['remat']]} ms beside (f)'s "
+              f"float32 epoch {epoch_f.runtime * 1e3:.2f} ms; kernel "
+              f"launches {per_path[label_a]}", flush=True)
         # (u) the multi-device layer: NCCL refuses two ranks on one card,
         # so a world of one NCCL rank drives every sharded function and the
         # sharded tuned Cora block, and the 4-way split's per-rank bodies
@@ -2997,11 +3194,11 @@ def main() -> int:
                  ("csr_spmm", TABLE_MODE, "edge_dot", "segment_norm",
                   "row_gather", "fused_aggregate", "fused_rhs_bwd_heads",
                   "csr_spmm bf16", "fused_aggregate bf16",
-                  "fused_rhs_bwd_heads bf16"),
+                  "fused_rhs_bwd_heads bf16", TABLE_BF16, "row_gather bf16"),
                  lambda: drive_sharded_cora(data_dir, args.seed + 130)),
                 ("4-way split at arxiv scale (u)",
                  ("csr_spmm", TABLE_MODE, "row_gather", "fused_aggregate",
-                  "fused_aggregate bf16"),
+                  "fused_aggregate bf16", TABLE_BF16, "row_gather bf16"),
                  lambda: drive_split_arxiv(big, args.seed + 131)),
                 ("gather probes (u)",
                  ("csr_spmm", TABLE_MODE, "row_gather", "smem_gather",
@@ -3100,6 +3297,15 @@ def main() -> int:
             # and K13 on the bfloat16 column table, the re-solve composes
             # the exact column softmax over the bf16 state (K3/K4, K1/K2 on
             # the bf16 table); T = 2 as in (g)
+            # (B) the exp_kernel family's forced poison at bench.py's
+            # precision at T = 2: the fast solve poisons in K6 on the bf16
+            # column table, the exact re-solve composes (K3/K4, K10/K11 on
+            # the bf16 table)
+            ("GRAND-nl Cora exp_kernel forced poison at bench precision (B)",
+             nl.replace(attention_type="exp_kernel", dtype="bfloat16",
+                        time=2.0, **bf16_rk4),
+             ("fused_rhs_fwd bf16", "segment_norm", "segment_norm_bwd",
+              "dual_scatter bf16", "dual_gather bf16")),
             ("GRAND-nl Cora column softmax forced poison at bench precision "
              "(z)",
              nl1.replace(rhs_payload_dtype="bfloat16", dtype="bfloat16",
@@ -3168,7 +3374,11 @@ def main() -> int:
                "fused_score_max bf16": ("fused_payload.cu",
                                         "fused_rhs.py:569"),
                "fused_rhs_bwd_heads bf16": ("fused_payload.cu",
-                                            "fused_rhs.py:742")}
+                                            "fused_rhs.py:742"),
+               "dual_scatter bf16": ("dual_scatter.cu", "stripe.py:599"),
+               "dual_gather bf16": ("dual_scatter.cu", "stripe.py:655"),
+               TABLE_BF16: ("csr_spmm.cu", "stripe.py:746"),
+               "row_gather bf16": ("row_gather.cu", "stripe.py:767")}
     summary = []
     for name, (src, replaces) in sources.items():
         mine = [r for r in rows if r["kernel"] == name]

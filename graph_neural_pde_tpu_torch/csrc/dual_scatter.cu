@@ -40,7 +40,16 @@
 // an [N * H, D] table. There are no atomics: every output element is
 // summed by one lane in edge order, so two launches agree bit for bit,
 // which the solver's replay of accepted steps relies on.
+//
+// The gathered table x may be bfloat16 (the JAX package's
+// rhs_payload_dtype: the composed RHS's x[col] payload, P4/P5 under
+// pay_dt). Both kernels are templates on the table's type; each gathered
+// element is widened to float32 as it is loaded, and u, the cotangents, the
+// sums and every output stay float32. On the TPU the stripe kernels also
+// round u and the products u * x[col] to bfloat16; here only the table is
+// rounded, as the JAX package's XLA composition rounds it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,6 +62,14 @@ constexpr int kHeadsPerPass = 8;
 constexpr int kAccPerLane = 4;                   // 4 * 32 = 128 features/pass
 constexpr int kMaxAccPerLane = 8;                // K11: dim <= 256
 
+__device__ __forceinline__ float widen(const float* t, size_t i) {
+  return t[i];
+}
+
+__device__ __forceinline__ float widen(const __nv_bfloat16* t, size_t i) {
+  return __bfloat162float(t[i]);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off /= 2)
@@ -60,10 +77,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <typename TX>
 __global__ void dual_scatter_kernel(const int* __restrict__ rowptr,
                                     const int* __restrict__ col,
                                     const float* __restrict__ u,
-                                    const float* __restrict__ x,
+                                    const TX* __restrict__ x,
                                     float* __restrict__ num,
                                     float* __restrict__ den,
                                     int n_rows, int dim, int heads) {
@@ -92,12 +110,12 @@ __global__ void dual_scatter_kernel(const int* __restrict__ rowptr,
         for (int j = 0; j < n; ++j) {
           const int cj = __shfl_sync(kFull, c, j);
           const float* ue = u + static_cast<size_t>(e0 + j) * heads + h0;
-          const float* xr = x + static_cast<size_t>(cj) * dim;
+          const TX* xr = x + static_cast<size_t>(cj) * dim;
           float xv[kAccPerLane];
 #pragma unroll
           for (int k = 0; k < kAccPerLane; ++k) {
             const int d = d0 + lane + kWarp * k;
-            xv[k] = d < dim ? xr[d] : 0.0f;
+            xv[k] = d < dim ? widen(xr, d) : 0.0f;
           }
 #pragma unroll
           for (int h = 0; h < kHeadsPerPass; ++h) {
@@ -126,11 +144,12 @@ __global__ void dual_scatter_kernel(const int* __restrict__ rowptr,
   }
 }
 
+template <typename TX>
 __global__ void dual_gather_kernel(const int* __restrict__ rowptr,
                                    const int* __restrict__ col,
                                    const int* __restrict__ rev,
                                    const float* __restrict__ u,
-                                   const float* __restrict__ x,
+                                   const TX* __restrict__ x,
                                    const float* __restrict__ ct_num,
                                    const float* __restrict__ ct_den,
                                    float* __restrict__ du,
@@ -163,12 +182,12 @@ __global__ void dual_gather_kernel(const int* __restrict__ rowptr,
     for (int j = 0; j < n; ++j) {
       const int cj = __shfl_sync(kFull, c, j);
       const int rj = __shfl_sync(kFull, r, j);
-      const float* xr = x + static_cast<size_t>(cj) * dim;
+      const TX* xr = x + static_cast<size_t>(cj) * dim;
       float xv[kMaxAccPerLane];
 #pragma unroll
       for (int k = 0; k < kMaxAccPerLane; ++k) {
         const int d = lane + kWarp * k;
-        xv[k] = d < dim ? xr[d] : 0.0f;
+        xv[k] = d < dim ? widen(xr, d) : 0.0f;
       }
       float mine = 0.0f;                         // lane h keeps du[e, h]
       for (int h = 0; h < heads; ++h) {
@@ -205,49 +224,84 @@ __global__ void dual_gather_kernel(const int* __restrict__ rowptr,
   }
 }
 
+template <typename TX>
+void launch_scatter(const void* rowptr, const void* col, const void* u,
+                    const void* x, void* num, void* den, int n_rows, int dim,
+                    int heads, cudaStream_t stream) {
+  const int blocks = (n_rows + kScatterWarps - 1) / kScatterWarps;
+  dual_scatter_kernel<TX><<<blocks, kScatterWarps * kWarp, 0, stream>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(col),
+      static_cast<const float*>(u), static_cast<const TX*>(x),
+      static_cast<float*>(num), static_cast<float*>(den), n_rows, dim,
+      heads);
+}
+
+template <typename TX>
+int launch_gather(const void* rowptr, const void* col, const void* rev,
+                  const void* u, const void* x, const void* ct_num,
+                  const void* ct_den, void* du, void* dx, int n_rows, int dim,
+                  int heads, cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * kGatherWarps * heads * dim;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dual_gather_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (n_rows + kGatherWarps - 1) / kGatherWarps;
+  dual_gather_kernel<TX><<<blocks, kGatherWarps * kWarp, bytes, stream>>>(
+      static_cast<const int*>(rowptr), static_cast<const int*>(col),
+      static_cast<const int*>(rev), static_cast<const float*>(u),
+      static_cast<const TX*>(x), static_cast<const float*>(ct_num),
+      static_cast<const float*>(ct_den), static_cast<float*>(du),
+      static_cast<float*>(dx), n_rows, dim, heads);
+  return 0;
+}
+
 }  // namespace
 
+// tables: the gathered table x, 0 for float32, 1 for bfloat16 (u, num and
+// den are float32)
 extern "C" int gnpde_dual_scatter(const void* rowptr, const void* col,
                                   const void* u, const void* x, void* num,
                                   void* den, int n_rows, int dim, int heads,
-                                  void* stream) {
+                                  int tables, void* stream) {
+  if (tables != 0 && tables != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0 && dim > 0 && heads > 0) {
-    const int blocks = (n_rows + kScatterWarps - 1) / kScatterWarps;
-    dual_scatter_kernel<<<blocks, kScatterWarps * kWarp, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rowptr), static_cast<const int*>(col),
-        static_cast<const float*>(u), static_cast<const float*>(x),
-        static_cast<float*>(num), static_cast<float*>(den), n_rows, dim,
-        heads);
+    auto s = static_cast<cudaStream_t>(stream);
+    if (tables == 0)
+      launch_scatter<float>(rowptr, col, u, x, num, den, n_rows, dim, heads,
+                            s);
+    else
+      launch_scatter<__nv_bfloat16>(rowptr, col, u, x, num, den, n_rows,
+                                    dim, heads, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The wrapper bounds dim by 256 and heads by 32 and checks that four rows
 // of ct_num fit a block's shared memory. rev and dx are null together (a
-// directed graph: du only).
+// directed graph: du only). tables as gnpde_dual_scatter (x only; u, the
+// cotangents, du and dx are float32).
 extern "C" int gnpde_dual_gather(const void* rowptr, const void* col,
                                  const void* rev, const void* u,
                                  const void* x, const void* ct_num,
                                  const void* ct_den, void* du, void* dx,
-                                 int n_rows, int dim, int heads,
+                                 int n_rows, int dim, int heads, int tables,
                                  void* stream) {
+  if (tables != 0 && tables != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0 && dim > 0 && heads > 0) {
-    const size_t bytes = sizeof(float) * kGatherWarps * heads * dim;
-    if (bytes > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          dual_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(bytes));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const int blocks = (n_rows + kGatherWarps - 1) / kGatherWarps;
-    dual_gather_kernel<<<blocks, kGatherWarps * kWarp, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(rowptr), static_cast<const int*>(col),
-        static_cast<const int*>(rev), static_cast<const float*>(u),
-        static_cast<const float*>(x), static_cast<const float*>(ct_num),
-        static_cast<const float*>(ct_den), static_cast<float*>(du),
-        static_cast<float*>(dx), n_rows, dim, heads);
+    auto s = static_cast<cudaStream_t>(stream);
+    const int err =
+        tables == 0
+            ? launch_gather<float>(rowptr, col, rev, u, x, ct_num, ct_den, du,
+                                   dx, n_rows, dim, heads, s)
+            : launch_gather<__nv_bfloat16>(rowptr, col, rev, u, x, ct_num,
+                                           ct_den, du, dx, n_rows, dim,
+                                           heads, s);
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

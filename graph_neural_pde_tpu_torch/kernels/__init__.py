@@ -89,8 +89,11 @@ KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            blocked_sddmm)
 # the kernels with a bfloat16-table mode, whose ``bf16_launches`` count the
 # launches in it among their own (``fused_rhs_fwd.bf16_shifted_launches``
-# those of them with the exact mode's shifts)
+# those of them with the exact mode's shifts, ``csr_spmm.
+# table_bf16_launches`` those of K1's in table mode; K20's bf16 mode writes
+# bfloat16 rows)
 BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rowmax,
                 fused_rhs_bwd, fused_rhs_bwd_sym, fused_rhs_bwd_col,
                 norm1_den, norm1_fwd, norm1_bwd, fused_aggregate,
-                fused_score_max, fused_rhs_bwd_heads)
+                fused_score_max, fused_rhs_bwd_heads, dual_scatter,
+                dual_gather, row_gather)

@@ -66,11 +66,13 @@ _ENTRY_POINTS = {
     # row_sums, partials, n_rows, dim, att, heads, flags, reduce_blocks,
     # tables, stream
     "gnpde_fused_rhs_bwd_sym": [_PTR] * 22 + [_INT] * 7 + [_PTR],
-    # rowptr, col, u, x, num, den, n_rows, dim, heads, stream
-    "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 3 + [_PTR],
+    # rowptr, col, u, x, num, den, n_rows, dim, heads, dtype of x (0
+    # float32, 1 bfloat16), stream
+    "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # rowptr, col, rev, u, x, ct_num, ct_den, du, dx (rev and dx nullable
-    # together), n_rows, dim, heads, stream
-    "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 3 + [_PTR],
+    # together), n_rows, dim, heads, dtype of x (0 float32, 1 bfloat16),
+    # stream
+    "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 4 + [_PTR],
     # colptr, row_by_col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last
     # two nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dx, dkn,
     # partials, n_cols, dim, att, heads, flags, reduce_blocks, tables,
@@ -109,8 +111,9 @@ _ENTRY_POINTS = {
     # chunk_rows, chunk_cols, row_local, col_local, a, b, out, capacity,
     # chunk, block_n, dim, lanes, stream
     "gnpde_blocked_sddmm": [_PTR] * 7 + [_INT] * 5 + [_PTR],
-    # rowptr, table, out, n_rows, dim, stream (csrc/row_gather.cu)
-    "gnpde_row_gather": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    # rowptr, table, out, n_rows, dim, dtype of out (0 float32, 1
+    # bfloat16), stream (csrc/row_gather.cu)
+    "gnpde_row_gather": [_PTR] * 3 + [_INT] * 3 + [_PTR],
     # idx, table, out, n_idx, t_rows, dim, dtype (0 float32, 1 bfloat16),
     # stream (csrc/smem_gather.cu)
     "gnpde_smem_gather": [_PTR] * 3 + [_INT] * 4 + [_PTR],

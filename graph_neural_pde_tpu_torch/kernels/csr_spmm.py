@@ -89,12 +89,14 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     csr_spmm.launches += 1
     csr_spmm.table_launches += table
     csr_spmm.bf16_launches += x.dtype == torch.bfloat16
+    csr_spmm.table_bf16_launches += table and x.dtype == torch.bfloat16
     return out
 
 
 csr_spmm.launches = 0
 csr_spmm.table_launches = 0     # the launches in table mode, among them
 csr_spmm.bf16_launches = 0      # the launches on a bfloat16 table, among them
+csr_spmm.table_bf16_launches = 0    # those in table mode, among those
 
 
 def column_sum(g, table: torch.Tensor) -> torch.Tensor:

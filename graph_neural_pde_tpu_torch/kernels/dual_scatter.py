@@ -21,6 +21,11 @@ around them (see the source note in ``csrc/dual_scatter.cu``). On a CUDA
 tensor a wrapper launches its kernel or raises; on a CPU tensor it runs the
 plain PyTorch version beside it, which defines the semantics.
 :func:`dual_scatter_add` is the differentiable op the models call.
+
+The table ``x`` is float32 or bfloat16 (the JAX package's bf16 payload,
+``rhs_payload_dtype``: its ``x.astype(bf16)[col]``): a bf16 row is widened
+to float32 as it is gathered. ``u``, the cotangents, the sums and every
+output stay float32, as the JAX package's XLA composition keeps them.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
-from graph_neural_pde_tpu_torch.kernels.csr_spmm import csr_spmm
+from graph_neural_pde_tpu_torch.kernels.csr_spmm import TABLE_DTYPES, csr_spmm
 
 MAX_DIM, MAX_HEADS = 256, 32
 MAX_SHARED_BYTES = 227 * 1024
@@ -42,6 +47,11 @@ def _edges(rowptr, row, col):
     return n_valid, row[:n_valid].long(), col[:n_valid].long()
 
 
+def _gathered(x, c, dtype):
+    """x[c], a bfloat16 table's rows widened to ``dtype`` (u's)."""
+    return x[c].to(dtype)
+
+
 def dual_scatter_plain(rowptr: torch.Tensor, row: torch.Tensor,
                        col: torch.Tensor, u: torch.Tensor, x: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -49,10 +59,10 @@ def dual_scatter_plain(rowptr: torch.Tensor, row: torch.Tensor,
     over the valid prefix ``[0, rowptr[-1])``."""
     nv, r, c = _edges(rowptr, row, col)
     n, (h, d) = rowptr.shape[0] - 1, (u.shape[1], x.shape[1])
-    vals = u[:nv, :, None] * x[c][:, None, :]                  # [E, H, D]
-    num = torch.zeros((n, h, d), dtype=x.dtype, device=x.device).index_add(
+    vals = u[:nv, :, None] * _gathered(x, c, u.dtype)[:, None, :]  # [E, H, D]
+    num = torch.zeros((n, h, d), dtype=u.dtype, device=x.device).index_add(
         0, r, vals)
-    den = torch.zeros((n, h), dtype=x.dtype, device=x.device).index_add(
+    den = torch.zeros((n, h), dtype=u.dtype, device=x.device).index_add(
         0, r, u[:nv])
     return num.reshape(n, h * d), den
 
@@ -69,10 +79,11 @@ def dual_gather_plain(rowptr: torch.Tensor, row: torch.Tensor,
     h, d = u.shape[1], x.shape[1]
     cte = ct_num[r].reshape(nv, h, d)
     du = torch.zeros_like(u)
-    du[:nv] = torch.einsum("ehd,ed->eh", cte, x[c]) + ct_den[r]
+    du[:nv] = (torch.einsum("ehd,ed->eh", cte, _gathered(x, c, u.dtype))
+               + ct_den[r])
     if not want_dx:
         return du, None
-    dx = torch.zeros_like(x).index_add(
+    dx = torch.zeros(x.shape, dtype=u.dtype, device=x.device).index_add(
         0, c, torch.einsum("eh,ehd->ed", u[:nv], cte))
     return du, dx
 
@@ -105,13 +116,20 @@ def _check(name, rowptr, row, col, u, x, extra=(), rev=None):
     for t_name, t, _ in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {t_name} must be int32")
-    # the kernels are float32; the plain versions also take float64
+    # the kernels are float32 beside a float32 or bfloat16 table; the plain
+    # versions also take float64 throughout
     allowed = ((torch.float32,) if dev.type != "cpu"
                else (torch.float32, torch.float64))
-    for t_name, t, _ in floats:
-        if t.dtype != x.dtype or t.dtype not in allowed:
-            raise TypeError(f"{name}: {t_name} is {t.dtype}; every float "
-                            f"operand must be float32")
+    if u.dtype not in allowed:
+        raise TypeError(f"{name}: u is {u.dtype}; it must be float32")
+    if x.dtype != u.dtype and not (x.dtype == torch.bfloat16
+                                   and u.dtype == torch.float32):
+        raise TypeError(f"{name}: the table x is {x.dtype}; it must be "
+                        f"float32 or bfloat16 beside a float32 u")
+    for t_name, t, _ in extra:
+        if t.dtype != u.dtype:
+            raise TypeError(f"{name}: {t_name} is {t.dtype}; it must be "
+                            f"u's {u.dtype}")
     if dev.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"{name}: no kernel for {dev}")
 
@@ -121,8 +139,9 @@ def dual_scatter(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: ``(num [N, H*D], den [N, H])`` over a row-sorted graph whose
     valid edges are the prefix ``[0, rowptr[-1])``; ``u`` is [E_pad, H].
-    ``row`` is only read by the plain version. Not differentiable by itself
-    (see :func:`dual_scatter_add`)."""
+    ``row`` is only read by the plain version. ``x`` float32 or bfloat16;
+    the outputs are float32. Not differentiable by itself (see
+    :func:`dual_scatter_add`)."""
     _check("dual_scatter", rowptr, row, col, u, x)
     if x.device.type == "cpu":
         return dual_scatter_plain(rowptr, row, col, u, x)
@@ -132,8 +151,9 @@ def dual_scatter(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     den = torch.empty((n, h), dtype=torch.float32, device=x.device)
     build.launch("dual_scatter", x.device, rowptr.data_ptr(), col.data_ptr(),
                  u.data_ptr(), x.data_ptr(), num.data_ptr(), den.data_ptr(),
-                 n, d, h)
+                 n, d, h, TABLE_DTYPES[x.dtype])
     dual_scatter.launches += 1
+    dual_scatter.bf16_launches += x.dtype == torch.bfloat16
     return num, den
 
 
@@ -146,7 +166,8 @@ def dual_gather(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     ``rev`` (``Graph.rev``) of a SYMMETRIC edge multiset. With ``rev=None``
     (a directed graph) it returns ``(du, None)``: see
     :func:`column_head_sum` for that ``dx``. ``row`` is only read by the
-    plain version."""
+    plain version. ``x`` float32 or bfloat16; ``du`` and ``dx`` are
+    float32."""
     n, d = x.shape
     h = u.shape[1]
     _check("dual_gather", rowptr, row, col, u, x,
@@ -160,12 +181,14 @@ def dual_gather(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
             f"{4 * GATHER_WARPS_PER_BLOCK * h * d} bytes of shared memory, "
             f"more than a block's {MAX_SHARED_BYTES}")
     du = torch.zeros_like(u)                   # padding slots stay 0
-    dx = None if rev is None else torch.empty_like(x)
+    dx = None if rev is None else torch.empty((n, d), dtype=torch.float32,
+                                              device=x.device)
     build.launch("dual_gather", x.device, rowptr.data_ptr(), col.data_ptr(),
                  _ptr(rev), u.data_ptr(), x.data_ptr(),
                  ct_num.data_ptr(), ct_den.data_ptr(), du.data_ptr(),
-                 _ptr(dx), n, d, h)
+                 _ptr(dx), n, d, h, TABLE_DTYPES[x.dtype])
     dual_gather.launches += 1
+    dual_gather.bf16_launches += x.dtype == torch.bfloat16
     return du, dx
 
 
@@ -192,37 +215,50 @@ def column_head_sum(g, u: torch.Tensor, ct_num: torch.Tensor
 
 dual_scatter.launches = 0
 dual_gather.launches = 0
+dual_scatter.bf16_launches = 0  # the launches on a bfloat16 table, among them
+dual_gather.bf16_launches = 0
 
 
 class _DualScatter(torch.autograd.Function):
-    """(num, den) = K10 with K11 as its backward. Residuals: u and x."""
+    """(num, den) = K10 with K11 as its backward, over the table ``x`` cast
+    to ``payload`` (None: x as it is). The cast is the identity in the
+    gradient: x's gradient is summed in float32 and cast once to x's dtype.
+    Residuals: u and the table."""
 
     @staticmethod
-    def forward(ctx, u, x, g):
-        ctx.save_for_backward(u, x)
-        ctx.g = g
-        return dual_scatter(g.rowptr, g.row, g.col, u, x)
+    def forward(ctx, u, x, g, payload):
+        table = x if payload is None else x.to(payload).contiguous()
+        ctx.save_for_backward(u, table)
+        ctx.g, ctx.x_dtype = g, x.dtype
+        return dual_scatter(g.rowptr, g.row, g.col, u, table)
 
     @staticmethod
     def backward(ctx, ct_num, ct_den):
-        u, x = ctx.saved_tensors
+        u, table = ctx.saved_tensors
         g = ctx.g
         ct_num = ct_num.contiguous()
-        du, dx = dual_gather(g.rowptr, g.row, g.col, g.rev, u, x, ct_num,
+        du, dx = dual_gather(g.rowptr, g.row, g.col, g.rev, u, table, ct_num,
                              ct_den.contiguous())
         if dx is None:
             dx = column_head_sum(g, u, ct_num)
-        return du, dx, None
+        return du, dx.to(ctx.x_dtype), None, None
 
 
-def dual_scatter_add(g, u: torch.Tensor, x: torch.Tensor
+def dual_scatter_add(g, u: torch.Tensor, x: torch.Tensor,
+                     payload_dtype: Optional[torch.dtype] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(num [N, H*D], den [N, H])`` over the prepared graph ``g``,
     directed or not, differentiable in ``u`` and ``x`` through K11 (and, on
     a directed graph, K1 over the CSC view for ``dx``): the JAX package's
     ``stripe_scatter_add2`` with the x[col] gather and the outer product
-    folded in."""
+    folded in. ``payload_dtype`` (None or ``torch.bfloat16``) is the dtype
+    the gathered table is read in, as ``kernels.fused_rhs.column_table``
+    casts it (a bfloat16 x is read as it is)."""
     if not g.rows_sorted or g.rowptr is None:
         raise ValueError("dual_scatter_add needs a row-sorted graph "
                          "(sort_by_row)")
-    return _DualScatter.apply(u.contiguous(), x.contiguous(), g)
+    if payload_dtype not in (None, torch.bfloat16):
+        raise TypeError(f"dual_scatter_add: payload {payload_dtype}; the "
+                        f"kernels read a float32 or bfloat16 table")
+    return _DualScatter.apply(u.contiguous(), x.contiguous(), g,
+                              payload_dtype)

@@ -171,6 +171,12 @@ def bf16_round(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def bf16_round_st(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 in value, in its dtype; the identity in the
+    gradient (the kernels' backward takes every cast so)."""
+    return t + (bf16_round(t) - t).detach()
+
+
 def bf16_k_table(xcol: torch.Tensor, kw: torch.Tensor,
                  kb: torch.Tensor) -> torch.Tensor:
     """k [N, ATT] of a bfloat16 column table, rounded as the JAX package's

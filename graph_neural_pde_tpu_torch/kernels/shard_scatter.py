@@ -16,6 +16,12 @@ plan is its CSR row pointer, built on the host (:class:`ScatterPlan`).
   for ``col`` and ``w`` and a dedicated segment sum would not.
 * The backward is K20 ``row_gather``. The index operands get no gradient.
 
+``vals`` is float32 or bfloat16 (the bf16 payload,
+``make_traced_scatter_add(vals_dtype=bf16)``): K1 reads the bfloat16 table
+and sums in float32, and K20 writes the gradient in ``vals``' dtype, each
+row of the float32 cotangent rounded once, as P6's one-hot product of
+bf16-rounded rows gives it.
+
 On CUDA tensors both run their kernels or raise; on CPU tensors their
 plain versions.
 """
@@ -69,12 +75,13 @@ class ScatterPlan:
 
 
 class _ShardScatter(torch.autograd.Function):
-    """out = K1 in table mode over the plan; d vals = K20 of the output's
-    cotangent (zero past the valid prefix). No residual but the plan."""
+    """out = K1 in table mode over the plan (float32); d vals = K20 of the
+    output's cotangent in vals' dtype (zero past the valid prefix). No
+    residual but the plan."""
 
     @staticmethod
     def forward(ctx, vals, plan):
-        ctx.plan = plan
+        ctx.plan, ctx.vals_dtype = plan, vals.dtype
         return csr_spmm(plan.rowptr, plan.row, plan.slots, plan.valid, vals,
                         table=True)
 
@@ -82,12 +89,13 @@ class _ShardScatter(torch.autograd.Function):
     def backward(ctx, ct):
         plan = ctx.plan
         return row_gather(plan.rowptr, plan.row, ct.contiguous(),
-                          plan.n_valid), None
+                          plan.n_valid, out_dtype=ctx.vals_dtype), None
 
 
 def shard_scatter(plan: ScatterPlan, vals: torch.Tensor) -> torch.Tensor:
-    """Per-node sums [N, D] of the per-edge payload ``vals`` [E, D] over
-    the plan's valid prefix, differentiable in ``vals``."""
+    """Per-node sums [N, D] (float32) of the per-edge payload ``vals``
+    [E, D] (float32 or bfloat16) over the plan's valid prefix,
+    differentiable in ``vals``."""
     if vals.shape[0] != plan.row.shape[0]:
         raise ValueError(f"shard_scatter: {vals.shape[0]} payload rows for "
                          f"a plan of {plan.row.shape[0]} slots")

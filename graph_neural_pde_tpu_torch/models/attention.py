@@ -20,6 +20,13 @@ projects the features and labels by Qx / Kx / Vx and the positions by
 Qp / Kp / Vp, and scores with the split-space product kernel
 ``exp_kernel_beltrami`` (``output_var_x``, ``lengthscale_x``,
 ``output_var_p``, ``lengthscale_p``).
+
+A bfloat16 state is projected in float32, as JAX's type promotion widens
+it against the float32 weights. Under the bfloat16 payload
+(``payload`` of :func:`transformer_scores` and :func:`gat_scores`, the
+JAX package's ``pay_dt``) the column side is projected from the bf16 table
+and rounded as the JAX package rounds it; every rounding is the identity
+in the gradient, as the kernels' backward takes it.
 """
 
 from __future__ import annotations
@@ -31,7 +38,10 @@ import torch
 from torch import nn
 
 from graph_neural_pde_tpu_torch.config import Config
-from graph_neural_pde_tpu_torch.kernels.fused_rhs import (edge_scores,
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import (bf16_k_table,
+                                                          bf16_round,
+                                                          bf16_round_st,
+                                                          edge_scores,
                                                           head_slices,
                                                           score_scalars)
 from graph_neural_pde_tpu_torch.models.layers import Linear
@@ -134,15 +144,40 @@ def score_params(att, cfg: Config) -> Tuple:
     return ()
 
 
+def widen_state(x: torch.Tensor) -> torch.Tensor:
+    """A bfloat16 state in float32 (JAX's promotion against the float32
+    weights); any other x as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
+def _st(a: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """``value`` in value, ``a`` in the gradient."""
+    return a + (value - a).detach()
+
+
 def transformer_scores(att: TransformerAttention, cfg: Config,
                        x: torch.Tensor, g: Graph,
-                       edge_weight: Optional[torch.Tensor] = None
+                       edge_weight: Optional[torch.Tensor] = None,
+                       payload: Optional[torch.dtype] = None
                        ) -> torch.Tensor:
     """Raw per-edge, per-head scores [E, H]: q and k are projected on
-    nodes, gathered per edge (q[row], k[col]) and reduced per head."""
+    nodes, gathered per edge (q[row], k[col]) and reduced per head.
+
+    With ``payload`` (``torch.bfloat16``: the composed fused RHS under the
+    bf16 payload or state) the four in-kernel families take k as the JAX
+    package's ``_transformer_rhs_fused`` forms it from the bf16 table,
+    ``x_b[col] @ Kw_b + kb_b`` rounded twice (``bf16_k_table``; its
+    gradient that of ``x_b Kw_b + kb_b``, each cast the identity), and q in
+    float32; BLEND's split-space score is computed unrounded, as the JAX
+    package computes it there."""
     score = score_family(cfg)
     slices = head_slices(score, cfg.heads)
-    q, k = query_key(att, cfg, x)
+    xw = widen_state(x)
+    q, k = query_key(att, cfg, xw)
+    if payload is not None and not is_beltrami(cfg):
+        kw, kb = att.K.w, att.K.b
+        lin = bf16_round_st(xw) @ bf16_round_st(kw) + bf16_round_st(kb)
+        k = _st(lin, bf16_k_table(x.to(payload), kw, kb))
     src = q[g.row.long()].reshape(g.row.shape[0], slices, -1)
     dst = k[g.col.long()].reshape(g.col.shape[0], slices, -1)
     prods = edge_scores(src, dst, score,
@@ -199,19 +234,34 @@ class GATAttention(nn.Module):
         self.a = normal(2 * d_k, 1)
 
 
-def gat_scores(att, cfg: Config, x: torch.Tensor, g: Graph
+def gat_scores(att, cfg: Config, x: torch.Tensor, g: Graph,
+               payload: Optional[torch.dtype] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(LeakyReLU scores [E, H], wx [N, att_dim]). The GAT score
     ``a . [Wx_row | Wx_col]`` is separable: ``s_src[row] + s_dst[col]``
     with both terms projected on the nodes, so each edge gathers two [H]
-    rows (the JAX package's ``_gat_rhs_fused``)."""
+    rows (the JAX package's ``_gat_rhs_fused``).
+
+    With ``payload`` (``torch.bfloat16``) ``s_dst`` is the JAX package's
+    ``x_b[col] @ w_dst_b``, W folded with ``a_dst`` per head and the
+    product of the bf16 table with it rounded once (summed in float64,
+    exact for these products, as ``bf16_k_table`` sums k); its gradient is
+    that of ``x_b w_dst_b``, each cast the identity."""
     h = cfg.heads
     d_k = cfg.attention_dim // h
-    wx = x @ att.W                                          # [N, att_dim]
+    xw = widen_state(x)
+    wx = xw @ att.W                                         # [N, att_dim]
     hh = wx.reshape(-1, h, d_k)
     a_vec = att.a[:, 0]
     s_src = torch.einsum("nhd,d->nh", hh, a_vec[:d_k])
-    s_dst = torch.einsum("nhd,d->nh", hh, a_vec[d_k:])
+    if payload is None:
+        s_dst = torch.einsum("nhd,d->nh", hh, a_vec[d_k:])
+    else:
+        w_dst = torch.einsum("dhf,f->dh",
+                             att.W.reshape(xw.shape[1], h, d_k), a_vec[d_k:])
+        prod = (x.to(payload).double() @ bf16_round(w_dst).double()).float()
+        s_dst = _st(bf16_round_st(xw) @ bf16_round_st(w_dst),
+                    bf16_round(prod).to(w_dst.dtype))
     scores = torch.nn.functional.leaky_relu(
         s_src[g.row.long()] + s_dst[g.col.long()], cfg.leaky_relu_slope)
     return scores, wx
@@ -221,6 +271,6 @@ def apply_gat_attention(att, cfg: Config, x: torch.Tensor, g: Graph
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(attention [E, H], wx [N, att_dim]): GAT scores, LeakyReLU and the
     per-segment softmax (reference function_GAT_attention.py:105-115; GAT
-    never takes squareplus)."""
+    never takes squareplus). A bfloat16 x is projected in float32."""
     scores, wx = gat_scores(att, cfg, x, g)
     return segment_softmax(scores.float(), g, cfg.attention_norm_idx), wx

@@ -36,7 +36,7 @@ from graph_neural_pde_tpu_torch.kernels.blocked import \
     make_spmm as make_blocked_spmm
 from graph_neural_pde_tpu_torch.models.attention import (
     TransformerAttention, apply_gat_attention, apply_transformer_attention,
-    frozen_mean_attention)
+    frozen_mean_attention, widen_state)
 from graph_neural_pde_tpu_torch.models.functions import (FuncAux, ODEFunc,
                                                          func_from_tensors,
                                                          func_tensors,
@@ -79,7 +79,12 @@ def build_spmm_engine(cfg: Config, g: Graph) -> Tuple[Callable, int]:
       stays row-sorted for everything else (the attention freeze walks its
       ``rowptr``); the engine takes the per-edge weights in the graph's slot
       order and reaches plan order with one gather through a host-built
-      slot map, and returns dw in the graph's order.
+      slot map, and returns dw in the graph's order. It takes no payload,
+      and it widens a bfloat16 state to float32 before K15/K16 (x's
+      gradient comes back in bfloat16): that is the JAX package's own
+      semantics there, not a fallback, since its blocked kernels cast
+      every table they read to float32 and its ``make_rhs`` hands the
+      payload only to the default engine.
     """
     pay = laplacian_payload(cfg)
     if cfg.spmm_impl != "pallas_blocked" or cfg.function != "laplacian":
@@ -105,8 +110,12 @@ def build_spmm_engine(cfg: Config, g: Graph) -> Tuple[Callable, int]:
         to_plan=torch.as_tensor(to_plan.astype(np.int32), device=dev),
         from_plan=torch.as_tensor(from_plan.astype(np.int32), device=dev),
         mask=g.mask)
-    spmm_fn = make_blocked_spmm(PlanPair(plan, bwd, t_perm, t_valid), dev,
+    blocked = make_blocked_spmm(PlanPair(plan, bwd, t_perm, t_valid), dev,
                                 edge_map=edge_map)
+
+    def spmm_fn(x, w):
+        return blocked(widen_state(x), w)
+
     return spmm_fn, plan.num_nodes
 
 
@@ -118,8 +127,8 @@ def prepare_graph(cfg: Config, g: Graph) -> Graph:
     of the constant block (data_norm != 'rw') is not ported yet."""
     if cfg.block == "constant" and cfg.data_norm != "rw":
         raise NotImplementedError(
-            "constant block with data_norm='gcn': ROADMAP Queue 1 slice 1 "
-            "item 4 (gcn_norm_fill_val)")
+            "constant block with data_norm='gcn': ROADMAP Queue 1 item 22 "
+            "(gcn_norm_fill_val)")
     g = get_rw_adj(g, norm_dim=1, fill_value=cfg.self_loop_weight)
     return g.sort_by_row()
 

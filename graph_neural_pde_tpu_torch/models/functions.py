@@ -19,16 +19,18 @@ family ``exp_kernel_beltrami`` over the block-structured projections of
 laplacian's aggregation (K1/K2), the transformer's plain row softmax
 (K6-K9 and K17: ``make_fused_ax_sym``, ``make_fused_ax_colplan`` on a
 directed graph or with ``sym_backward=False``, ``fused_rhs_f``, and the
-exact re-solve's ``fused_rowmax`` and ``fused_rhs_ax``) and its plain
+exact re-solve's ``fused_rowmax`` and ``fused_rhs_ax``), its plain
 softmax over the columns of a symmetric graph at widths up to 128
-(K12-K14: ``make_fused_ax_norm1``) read their gathered column tables in
-bfloat16, where the JAX package sets its ``pay_dt``. The composed softmax
-over columns (the exact re-solve, a directed or re-masked graph) applies
-no payload, as the JAX package's composition does, and runs under the
-bf16 state too. ``models.gnn.check_supported`` refuses the mode on every
-other route, and ``make_rhs`` on the one a re-solve reaches at run time
-(the exact softmax over rows of the families other than scaled_dot, which
-composes).
+(K12-K14: ``make_fused_ax_norm1``) and the composed row RHS of the
+transformer and GAT functions (squareplus, reweighted attention, a
+re-masked graph, the exact re-solve of the other families: k or s_dst
+from the bf16 table and K10/K11 over it) read their gathered column tables
+in bfloat16, where the JAX package sets its ``pay_dt``; the bfloat16 state
+reads its own x there. The composed routes without the fused aggregate
+(``mix_features``, ``fused_attention_agg=False``, the softmax over columns
+outside ``norm1_fused_ok`` and its exact re-solve, a directed or re-masked
+graph over columns) apply no payload, as the JAX package's composition
+does, and widen a bfloat16 state where JAX's type promotion widens it.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from graph_neural_pde_tpu_torch.kernels.norm1 import make_fused_ax_norm1
 from graph_neural_pde_tpu_torch.models.attention import (
     GATAttention, TransformerAttention, apply_gat_attention,
     apply_transformer_attention, gat_scores, is_beltrami, score_family,
-    score_params, transformer_scores)
+    score_params, transformer_scores, widen_state)
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.ops.scatter import global_max, segment_softmax
 from graph_neural_pde_tpu_torch.ops.spmm import (make_spmm, spmm_mean_heads,
@@ -177,61 +179,12 @@ def payload_dtype(cfg: Config) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.rhs_payload_dtype == "bfloat16" else None
 
 
-def low_precision(cfg: Config) -> bool:
-    """True when the bfloat16 payload or the bfloat16 state is asked for."""
-    return cfg.rhs_payload_dtype == "bfloat16" or cfg.dtype == "bfloat16"
-
-
-def bf16_refusal(cfg: Config) -> Optional[str]:
-    """The route of ``cfg`` whose kernels do not take the bfloat16 payload
-    or state yet (ROADMAP Queue 2 B1), or None. The mode runs on the
-    laplacian's K1/K2, on the transformer's plain row softmax over any
-    graph (K6-K9 and K17, the exact re-solve of scaled_dot included) and on
-    its plain softmax over columns (:func:`norm1_fused_ok`: K12-K14, and the
-    composition that its exact re-solve and a directed or re-masked graph
-    take); :func:`make_rhs` also refuses what a re-solve reaches at run time
-    (the composed exact softmax over rows of the other families)."""
-    if not low_precision(cfg):
-        return None
-    if cfg.function == "laplacian":
-        if cfg.spmm_impl == "pallas_blocked":
-            return "the blocked engine (K15/K16, item 6)"
-        return None
-    if cfg.function == "GAT":
-        return "the GAT RHS (K10/K11, item 4)"
-    if cfg.attention_norm_idx == 1:
-        if norm1_fused_ok(cfg):
-            return None
-        return ("the composed softmax or squareplus over columns "
-                "(squareplus, reweighted, mix_features or unfused: K1-K4, "
-                "item 4)")
-    if not fused_attention(cfg):
-        return "the composed transformer RHS (K1-K4, item 4)"
-    if cfg.square_plus or cfg.reweight_attention:
-        return "squareplus or reweighted attention (K10/K11, item 4)"
-    if cfg.block == "hard_attention":
-        return "hard attention over the function's layer (K10/K11, item 4)"
-    return None
-
-
-def _refuse_bf16(cfg: Config, g: Graph, exact_softmax: bool) -> None:
-    """Raise where make_rhs would reach a kernel without the bfloat16
-    mode: :func:`bf16_refusal`'s routes, and, at run time, the transformer
-    RHS's exact re-solve over rows where it composes (every family but
-    scaled_dot, or a re-masked graph: K10/K11). Over columns the re-solve
-    and a directed or re-masked graph compose on K1-K4, which take the
-    mode as the JAX package's composition does."""
-    if not low_precision(cfg):
-        return
-    route = bf16_refusal(cfg)
-    if (route is None and cfg.function == "transformer"
-            and cfg.attention_norm_idx == 0
-            and not _mega_ok(cfg, g, exact_softmax)):
-        route = ("the exact re-solve of a poisoned solve, composed (K10/K11, "
-                 "item 4)")
-    if route is not None:
-        raise NotImplementedError(
-            f"bfloat16 payload or state on {route}: ROADMAP Queue 2 B1")
+def table_dtype(cfg: Config, x: torch.Tensor) -> Optional[torch.dtype]:
+    """The dtype the attention RHS's gathered column table is read in, as
+    the JAX package sets pay_dt: the bf16 payload, or a bf16 state's own;
+    None for x as it is."""
+    return payload_dtype(cfg) or (torch.bfloat16
+                                  if x.dtype == torch.bfloat16 else None)
 
 
 def laplacian_payload(cfg: Config) -> Optional[torch.dtype]:
@@ -344,14 +297,15 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     Every other variant composes: per-head scores from the gathered q[row]
     and k[col], the global max ``gmax`` (differentiated through, as the
     reference's squareplus is), ``u`` by squareplus or exp, then numerators
-    and denominators in one pass (K10, gradient K11)."""
+    and denominators in one pass (K10, gradient K11). Under the bf16
+    payload or state, k comes from the bf16 table as the JAX package
+    rounds it (``transformer_scores``) and K10/K11 read that table; u and
+    every sum stay float32, as the JAX package's XLA aggregate keeps them
+    (its stripe kernels round u and the products too)."""
     att = func.att
     h, score = cfg.heads, score_family(cfg)
     sp = score_params(att, cfg)
-    # the column table's dtype, as the JAX package sets pay_dt: the bf16
-    # payload, or a bf16 state's own
-    pay = payload_dtype(cfg) or (torch.bfloat16
-                                 if x.dtype == torch.bfloat16 else None)
+    pay = table_dtype(cfg, x)
     if cfg.attention_norm_idx == 1:
         # the softmax over columns (``norm1_fused_ok`` on a symmetric edge
         # multiset; make_rhs sends no other column-normalised config here):
@@ -362,7 +316,7 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         # bfloat16 state's in float32)
         if x.shape[1] > NORM1_PAYLOAD_MAX_DIM:
             pay = None
-            x = x.float() if x.dtype == torch.bfloat16 else x
+            x = widen_state(x)
         gmax = torch.zeros((1,), dtype=torch.float32, device=x.device)
         ax, den = make_fused_ax_norm1(g, h, False, score, pay)(
             *_projections(att, cfg, x.shape[1]), x, gmax, sp)
@@ -370,14 +324,16 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         ax = torch.where(bad, torch.full_like(ax, torch.nan), ax)
         return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
     if not _mega_ok(cfg, g, exact_softmax):
-        prods = transformer_scores(att, cfg, x, g, aux.edge_weight).float()
+        prods = transformer_scores(att, cfg, x, g, aux.edge_weight,
+                                   payload=pay).float()
         if cfg.square_plus:
             sm = prods - global_max(prods, g.mask)
             u = (sm + torch.sqrt(sm * sm + 4.0)) / 2.0
             u = torch.where(g.mask[:, None], u, torch.zeros_like(u))
-            ax = _fused_normalized_aggregate(cfg, g, u, x)
+            ax = _fused_normalized_aggregate(cfg, g, u, x, pay)
         else:
-            ax = _softmax_aggregate_guarded(cfg, g, prods, x, exact_softmax)
+            ax = _softmax_aggregate_guarded(cfg, g, prods, x, exact_softmax,
+                                            pay)
         return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
     qw, qb, kw, kb = _projections(att, cfg, x.shape[1])
     if eval_fold and not exact_softmax:
@@ -408,7 +364,8 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
 
 
 def _softmax_aggregate_guarded(cfg: Config, g: Graph, prods: torch.Tensor,
-                               x: torch.Tensor, exact_softmax: bool):
+                               x: torch.Tensor, exact_softmax: bool,
+                               payload: Optional[torch.dtype] = None):
     """Softmax aggregation of raw scores ``prods`` [E, H], exact up to a
     NaN-poisoned underflow escape.
 
@@ -417,27 +374,31 @@ def _softmax_aggregate_guarded(cfg: Config, g: Graph, prods: torch.Tensor,
     ~88 below the global max), which poisons the whole output with NaN, by
     a device ``any`` and a select, never a host sync; ``block_forward``
     detects it after the solve and re-solves with ``exact_softmax``, the
-    per-row softmax (K3) fed to the same aggregate."""
+    per-row softmax (K3) fed to the same aggregate. ``payload`` as
+    :func:`_fused_normalized_aggregate` takes it."""
     m = g.mask[:, None]
     if exact_softmax:
         att = segment_softmax(prods, g, 0)
         att = torch.where(m, att, torch.zeros_like(att))
-        return _fused_normalized_aggregate(cfg, g, att, x)
+        return _fused_normalized_aggregate(cfg, g, att, x, payload)
     u = torch.exp(prods - global_max(prods, g.mask))
     u = torch.where(m, u, torch.zeros_like(u))
     underflowed = torch.any((u == 0.0) & m)
-    ax = _fused_normalized_aggregate(cfg, g, u, x)
+    ax = _fused_normalized_aggregate(cfg, g, u, x, payload)
     return torch.where(underflowed, torch.full_like(ax, torch.nan), ax)
 
 
 def _fused_normalized_aggregate(cfg: Config, g: Graph, u: torch.Tensor,
-                                x: torch.Tensor) -> torch.Tensor:
+                                x: torch.Tensor,
+                                payload: Optional[torch.dtype] = None
+                                ) -> torch.Tensor:
     """Shared tail of the composed paths: per-head numerators and
     denominators from one aggregation pass (K10), then the mean over heads
     of ``num_h / (den_h + 1e-16)``. ``u`` [E, H] is unnormalised, positive
-    and 0 on masked and padding slots."""
+    and 0 on masked and padding slots. ``payload`` (``torch.bfloat16``) is
+    the dtype K10/K11 read x[col] in; the result is float32."""
     h, d = cfg.heads, x.shape[1]
-    num, den = dual_scatter_add(g, u, x)
+    num, den = dual_scatter_add(g, u, x, payload)
     recip = 1.0 / (den + 1e-16)
     out = num[:, :d] * recip[:, 0:1]
     for hh in range(1, h):
@@ -450,9 +411,12 @@ def _gat_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
     """GAT RHS with separable scores (``models.attention.gat_scores``) and
     the softmax folded into the aggregation (K10/K11). GAT never takes
     squareplus: the exp path and its poison guard run whatever
-    ``cfg.square_plus`` says."""
-    scores, _ = gat_scores(func.att, cfg, x, g)
-    ax = _softmax_aggregate_guarded(cfg, g, scores.float(), x, exact_softmax)
+    ``cfg.square_plus`` says. Under the bf16 payload or state ``s_dst`` and
+    the aggregate read the bf16 table, as the JAX package's ``pay_dt``."""
+    pay = table_dtype(cfg, x)
+    scores, _ = gat_scores(func.att, cfg, x, g, payload=pay)
+    ax = _softmax_aggregate_guarded(cfg, g, scores.float(), x, exact_softmax,
+                                    pay)
     return _source(cfg, func, _alpha(cfg, func) * (ax - x), aux)
 
 
@@ -497,7 +461,6 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
     ``rhs_may_poison``). ``eval_fold`` folds alpha·(ax − x) and a per-row
     guard into K6's final write on no-grad solves."""
     check_function(cfg)
-    _refuse_bf16(cfg, g, exact_softmax)
     if spmm_fn is None:
         spmm_fn = make_spmm(g, laplacian_payload(cfg))
 
@@ -525,14 +488,16 @@ def make_rhs(cfg: Config, g: Graph, spmm_fn: Optional[Callable] = None,
                 return _transformer_rhs_fused(func, aux, x, cfg, g,
                                               exact_softmax, eval_fold)
             att = func.att
-            # a bfloat16 state is projected in float32, as the JAX
-            # package's composition promotes it; the aggregation reads it
-            # as it is
+            # no payload here, as in the JAX package's composition; a
+            # bfloat16 state is projected in float32, as its type promotion
+            # widens it, and the aggregation reads it as it is (K1 on the
+            # bf16 table)
+            xw = widen_state(x)
             attention = apply_transformer_attention(
-                att, cfg, x.float() if x.dtype == torch.bfloat16 else x, g,
-                edge_weight=aux.edge_weight)
+                att, cfg, xw, g, edge_weight=aux.edge_weight)
             if cfg.mix_features:
-                v = (x @ att.V.w + att.V.b).reshape(x.shape[0], cfg.heads, -1)
+                v = (xw @ att.V.w + att.V.b).reshape(x.shape[0], cfg.heads,
+                                                     -1)
                 vx = torch.mean(spmm_multihead(g, attention, v, spmm_fn),
                                 dim=1)                           # [N, d_k]
                 ax = vx @ att.Wout.w + att.Wout.b

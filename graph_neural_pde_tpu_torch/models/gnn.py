@@ -32,8 +32,7 @@ from graph_neural_pde_tpu_torch.models.blocks import (SPMM_IMPLS, ODEBlock,
                                                       build_spmm_engine,
                                                       check_block,
                                                       prepare_graph)
-from graph_neural_pde_tpu_torch.models.functions import (bf16_refusal,
-                                                         check_function)
+from graph_neural_pde_tpu_torch.models.functions import check_function
 from graph_neural_pde_tpu_torch.models.layers import BatchNorm, Linear, dropout
 from graph_neural_pde_tpu_torch.ops.graph import Graph
 from graph_neural_pde_tpu_torch.solvers.api import check_method
@@ -62,11 +61,10 @@ def check_supported(cfg: Config) -> None:
     constant, attention, mixed and hard_attention blocks, BLEND (``beltrami``:
     the dual encoder and the split-space attention), and the ``two_hop``,
     ``gdc`` and ``pos_enc_knn`` rewirings, whose directed graphs every one
-    of these runs on). The bfloat16 payload and fixed-grid state run on the
-    laplacian (K1/K2), on the transformer's plain row softmax over any
-    graph (K6-K9 and K17, the exact re-solve included) and on its plain
-    softmax over columns (K12-K14, its re-solve composed);
-    ``functions.bf16_refusal`` names the routes that raise."""
+    of these runs on). The bfloat16 payload and fixed-grid state run on
+    every one of these routes, as the JAX package runs them (see
+    ``models.functions``; the blocked engine ignores the payload and
+    widens the state, as its kernels do)."""
     for field, item in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{field}: ROADMAP Queue 1 {item}")
@@ -82,10 +80,6 @@ def check_supported(cfg: Config) -> None:
         if getattr(cfg, field) not in ("float32", "bfloat16"):
             raise ValueError(f"{field} {getattr(cfg, field)!r} (float32 or "
                              "bfloat16)")
-    route = bf16_refusal(cfg)
-    if route is not None:
-        raise NotImplementedError(
-            f"bfloat16 payload or state on {route}: ROADMAP Queue 2 B1")
     check_function(cfg)
     if cfg.optimizer not in OPTIMIZERS:
         raise NotImplementedError(

@@ -49,21 +49,29 @@ and u promote by themselves); every sum, partial and output is float32.
 The gradient of a bfloat16 x comes back in bfloat16. The JAX package's
 autodiff rounds each edge's cotangent of x[col] to bfloat16 and sums it
 there (ROADMAP R10); K1 and K8's per-head mode sum it in float32 and
-round once, the ring buckets' autograd as JAX does. ``payload_dtype``
-bfloat16 in :func:`make_sharded_stripe_spmm` raises: K1 in table mode and
-K20 take no bfloat16 table yet (ROADMAP Queue 2 B1 item 6).
+round once, the ring buckets' autograd as JAX does.
+:func:`make_sharded_stripe_spmm` takes the JAX function's
+``payload_dtype``: with bfloat16 each rank's payload is the bf16 product
+``x_b[col] * w_b`` (the JAX ``_shard_body``'s casts), K1 sums it in table
+mode in float32, and K20 hands back its gradient as the float32
+cotangent's rows rounded to bfloat16 once (what P6's gather returns).
+From there every cast is the identity and every product and sum of the
+gradient float32, as the bf16 payload's kernels take it elsewhere; the
+JAX package's autodiff forms the products of x's and w's gradients in
+bfloat16 and sums them there (ROADMAP, "Deliberate differences").
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from graph_neural_pde_tpu_torch.kernels.fused_rhs import fused_rhs_aggregate
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import (bf16_round_st,
+                                                          fused_rhs_aggregate)
 from graph_neural_pde_tpu_torch.kernels.shard_scatter import (ScatterPlan,
                                                               shard_scatter)
 from graph_neural_pde_tpu_torch.ops.graph import Graph
@@ -185,12 +193,27 @@ def stripe_shards(mesh: Mesh, g: Graph) -> List[StripeShard]:
             for r in mesh.ranks]
 
 
-def stripe_body(shard: StripeShard, x: torch.Tensor, w: torch.Tensor
-                ) -> torch.Tensor:
+def stripe_body(shard: StripeShard, x: torch.Tensor, w: torch.Tensor,
+                payload_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """A rank's partial ``A_w x`` [N, D]: the payload ``x[col] * w`` of its
-    edges, summed per row by the P6 pair. ``w`` is the whole array."""
-    vals = torch.index_select(x, 0, shard.col) * w[shard.lo:shard.hi, None]
+    edges, summed per row by the P6 pair. ``w`` is the whole array. With
+    ``payload_dtype`` (bfloat16, the one payload the JAX function takes
+    beside float32) the payload is the product of x and w cast to it,
+    rounded to it (the JAX ``_shard_body``'s bf16 product; a
+    product of two bf16 values is exact in float32, so rounding it once
+    gives that value), and the casts are the identity in the gradient;
+    the partial is float32."""
+    w = w[shard.lo:shard.hi, None]
+    if payload_dtype is None:
+        vals = torch.index_select(x, 0, shard.col) * w
+    else:
+        vals = (torch.index_select(bf16_round_st(x.float()), 0, shard.col)
+                * bf16_round_st(w.float())).to(payload_dtype)
     return shard_scatter(shard.plan, vals)
+
+
+_PAYLOADS = {None: None, "float32": None, torch.float32: None,
+             "bfloat16": torch.bfloat16, torch.bfloat16: torch.bfloat16}
 
 
 def make_sharded_stripe_spmm(mesh: Mesh, g: Graph, *, payload_dtype=None
@@ -198,11 +221,12 @@ def make_sharded_stripe_spmm(mesh: Mesh, g: Graph, *, payload_dtype=None
     """``spmm_fn(x, w) -> A_w x`` [N, D] over a row-sorted graph, each rank
     summing its slice of the valid edges with the P6 pair, one all-reduce.
     x and w (the whole [capacity] array in ``g``'s slot order) are
-    replicated. The shards are ``spmm_fn.shards``."""
-    if payload_dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError(
-            f"payload_dtype {payload_dtype}: the per-rank kernels (K1 in "
-            f"table mode, K20) are float32 (ROADMAP Queue 2 B1 item 6)")
+    replicated. ``payload_dtype`` None or float32, or bfloat16 (see
+    :func:`stripe_body`). The shards are ``spmm_fn.shards``."""
+    if payload_dtype not in _PAYLOADS:
+        raise TypeError(f"payload_dtype {payload_dtype}: float32 or "
+                        f"bfloat16")
+    pay = _PAYLOADS[payload_dtype]
     shards = stripe_shards(mesh, g)
 
     def spmm_fn(x, w):
@@ -210,7 +234,8 @@ def make_sharded_stripe_spmm(mesh: Mesh, g: Graph, *, payload_dtype=None
             raise ValueError(f"w of {w.shape[0]} slots for a graph of "
                              f"{g.capacity}")
         x, w = enter_replicated(mesh, x), enter_replicated(mesh, w)
-        return psum_replicated(mesh, [stripe_body(s, x, w) for s in shards])
+        return psum_replicated(mesh, [stripe_body(s, x, w, pay)
+                                      for s in shards])
 
     spmm_fn.shards = shards
     return spmm_fn

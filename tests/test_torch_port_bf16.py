@@ -3,8 +3,8 @@ package: the plain versions of K1 ``csr_spmm`` and K2 ``edge_dot`` on a
 bfloat16 table and ``make_spmm`` with its payload; ``make_fused_ax_sym``
 (K6 + K9) and ``fused_rhs_f`` (K6 folded) with the bfloat16 column table;
 three training steps of ``config.GRAND_NL_BENCH`` at a small width, with
-the payload alone and with the bf16 rk4 state; and the routes that refuse
-the mode.
+the payload alone and with the bf16 rk4 state; that every route takes the
+mode; and what the kernels refuse.
 
 References, each at its stated tolerance of the reference array's scale:
 
@@ -532,7 +532,7 @@ class TestBenchTraining:
 
 
 # ---------------------------------------------------------------------------
-# the routes that refuse the mode
+# every route takes the mode
 # ---------------------------------------------------------------------------
 
 BF = dict(rhs_payload_dtype="bfloat16", dtype="bfloat16")
@@ -540,6 +540,15 @@ BF = dict(rhs_payload_dtype="bfloat16", dtype="bfloat16")
 
 class TestRefusals:
     @pytest.mark.parametrize("override", [
+        dict(), dict(rhs_payload_dtype="float32"), dict(method="dopri5"),
+        dict(function="laplacian"), dict(function="laplacian",
+                                         block="attention"),
+        dict(attention_type="exp_kernel"), dict(dtype="float32"),
+        dict(**FLOAT32),
+        dict(sym_backward=False),                      # colplan K8 + K17
+        dict(attention_norm_idx=1),                    # columns K12-K14
+        # the routes that refused the mode until B1 items 4 and 6 were
+        # ported
         dict(attention_norm_idx=1, square_plus=True),  # composed K1-K4
         dict(square_plus=True),                        # composed K10/K11
         dict(reweight_attention=True),                 # composed K10/K11
@@ -549,33 +558,27 @@ class TestRefusals:
         dict(block="hard_attention"),                  # K10/K11
         dict(function="laplacian", spmm_impl="pallas_blocked"),  # K15/K16
     ])
-    def test_check_supported_raises(self, override):
-        cfg = GRAND_NL_BENCH.replace(**override)
-        with pytest.raises(NotImplementedError, match="Queue 2 B1"):
-            check_supported(cfg)
-
-    @pytest.mark.parametrize("override", [
-        dict(), dict(rhs_payload_dtype="float32"), dict(method="dopri5"),
-        dict(function="laplacian"), dict(function="laplacian",
-                                         block="attention"),
-        dict(attention_type="exp_kernel"), dict(dtype="float32"),
-        dict(**FLOAT32),
-        dict(sym_backward=False),                      # colplan K8 + K17
-        dict(attention_norm_idx=1)])                   # columns K12-K14
     def test_check_supported_accepts(self, override):
         check_supported(GRAND_NL_BENCH.replace(**override))
 
     def test_runtime_routes_raise(self, graphs):
-        """The one route a re-solve still reaches without the mode raises
-        when make_rhs reaches it, before any kernel runs: the exact softmax
-        of a family other than scaled_dot composes (K10/K11). The exact
-        re-solve of scaled_dot (K7, K6 shifted, K8) and a directed graph
-        (K8 + K17) build and run on the bf16 column table
-        (tests/test_torch_port_bf16_col.py holds their values)."""
+        """The route a re-solve reaches at run time takes the mode (it
+        refused it before B1 item 4): the exact softmax of a family other
+        than scaled_dot composes on K10/K11 over the bf16 column table and
+        comes back finite, values and gradients. The exact re-solve of
+        scaled_dot (K7, K6 shifted, K8) and a directed graph (K8 + K17)
+        build and run on the bf16 column table too
+        (tests/test_torch_port_bf16_col.py holds their values,
+        tests/test_torch_port_bf16_composed.py the composed ones)."""
         exp_cfg = graphs.tcfg.replace(attention_type="exp_kernel")
-        with pytest.raises(NotImplementedError,
-                           match="exact re-solve.*Queue 2 B1"):
-            tfunctions.make_rhs(exp_cfg, graphs.tg, exact_softmax=True)
+        c = Fused(graphs, "scaled_dot")
+        func = tfunctions.ODEFunc(exp_cfg, D)
+        x = torch.tensor(c.x, requires_grad=True)
+        aux = tfunctions.FuncAux(None, x.detach(), graphs.tg.weight)
+        out = tfunctions.make_rhs(exp_cfg, graphs.tg, exact_softmax=True)(
+            func, aux, 0.0, x)
+        torch.sum(out).backward()
+        assert torch.isfinite(out).all() and torch.isfinite(x.grad).all()
         tfunctions.make_rhs(exp_cfg, graphs.tg)
         directed = make_random_graph_dataset(40, 80, num_features=4,
                                              num_classes=2, seed=0).graph
@@ -583,7 +586,6 @@ class TestRefusals:
         g = make_graph(directed.row[:30], directed.col[:30],
                        num_nodes=40).sort_by_row()
         assert g.rev is None
-        c = Fused(graphs, "scaled_dot")
         func = tfunctions.ODEFunc(graphs.tcfg, D)
         x = torch.tensor(c.x[:40], requires_grad=True)
         aux = tfunctions.FuncAux(None, x.detach(), g.weight)
@@ -597,12 +599,14 @@ class TestRefusals:
         ("float32", False), ("bfloat16", False), ("bfloat16", True)])
     def test_poisoned_solve_raises(self, graphs, state, training,
                                    monkeypatch):
-        """A solve whose fast softmax poisons: with scaled_dot scores (Q far
-        outside exp's range) block_forward re-solves on the bf16 column
-        table (K7, K6 shifted, K8) and comes back finite; with exp_kernel
-        scores (output_var far outside it) the re-solve composes (K10/K11,
-        no bfloat16 mode yet), and block_forward raises there, after the
-        fast solve, rather than returning NaN or re-solving in float32."""
+        """A solve whose fast softmax poisons re-solves under the mode:
+        with scaled_dot scores (Q far outside exp's range) on the bf16
+        column table (K7, K6 shifted, K8), with exp_kernel scores
+        (output_var far outside it), which it refused before B1 item 4,
+        on the composed exact softmax (K3, then K10/K11 on the bf16 column
+        table). Both come back finite, and in training so do the
+        gradients (tests/test_torch_port_bf16_composed.py holds the
+        exp_kernel re-solve against the JAX block)."""
         cfg = graphs.tcfg.replace(dtype=state, method="rk4", step_size=0.5,
                                   time=1.0)
         c = Fused(graphs, "scaled_dot", seed=7)
@@ -627,20 +631,26 @@ class TestRefusals:
         with torch.no_grad():
             block.func.att.output_var.fill_(20.0)
             block.func.att.lengthscale.fill_(100.0)
-        with pytest.raises(NotImplementedError,
-                           match="exact re-solve.*Queue 2 B1"):
-            tblocks.block_forward(block, cfg_e, graphs.tg, torch.tensor(c.x),
-                                  training)
+        x = torch.tensor(c.x, requires_grad=training)
+        z, _ = tblocks.block_forward(block, cfg_e, graphs.tg, x, training)
         assert calls == [False, True]
+        assert torch.isfinite(z).all()
+        if training:
+            torch.sum(z).backward()
+            assert torch.isfinite(x.grad).all()
+            assert all(torch.isfinite(p.grad).all()
+                       for p in block.parameters() if p.grad is not None)
 
     def test_aggregate_and_sharded_routes_raise(self, graphs):
         """K18 / K19 / K8's per-head mode (``fused_rhs_aggregate``) and the
-        shard functions' dispatchers take the mode now (ROADMAP Queue 2 B1
-        item 3): the op runs on a bfloat16 payload, float32 out, the x_g
-        gradient in bfloat16, and both dispatchers build under the bench's
-        bf16 config. The stripe spmm's bfloat16 payload still raises,
-        naming its item (6). Values: tests/test_torch_port_bf16_aggregate.py
-        and tests/test_torch_port_parallel.py."""
+        shard functions take the mode (ROADMAP Queue 2 B1 items 3 and 6):
+        the op runs on a bfloat16 payload, float32 out, the x_g gradient in
+        bfloat16; both dispatchers build under the bench's bf16 config; and
+        the stripe spmm, which refused its bfloat16 payload before item 6,
+        runs on it (K1 in table mode on the bf16 payload, K20 writing its
+        bf16 gradient), float32 out, finite values and gradients. Values:
+        tests/test_torch_port_bf16_aggregate.py and
+        tests/test_torch_port_parallel.py."""
         from graph_neural_pde_tpu_torch.parallel.mesh import split_mesh
         from graph_neural_pde_tpu_torch.parallel.shard_spmm import (
             make_sharded_fused_rhs_for, make_sharded_spmm_for,
@@ -659,13 +669,19 @@ class TestRefusals:
         mesh = split_mesh(2, "cpu")
         make_sharded_spmm_for(GRAND_NL_BENCH, mesh, tg)
         make_sharded_fused_rhs_for(GRAND_NL_BENCH, mesh, tg, heads=H)
-        with pytest.raises(NotImplementedError, match="Queue 2 B1 item 6"):
-            make_sharded_stripe_spmm(mesh, tg, payload_dtype=torch.bfloat16)
+        spmm_fn = make_sharded_stripe_spmm(mesh, tg,
+                                           payload_dtype=torch.bfloat16)
+        xs = x.clone().requires_grad_(True)
+        w = (tg.weight * tg.mask).requires_grad_(True)
+        out = spmm_fn(xs, w)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        torch.sum(out * torch.tensor(c.probe)).backward()
+        assert torch.isfinite(xs.grad).all() and torch.isfinite(w.grad).all()
 
     def test_kernels_refuse_what_they_lack(self, graphs):
-        """K8 refuses a bfloat16 x without its column table, K6-K8 and K17
-        any column table but a bfloat16 one (float16 here): nothing falls
-        back to float32."""
+        """K8 refuses a bfloat16 x without its column table, K6-K8, K17
+        and K10/K11 any column table but a bfloat16 one (float16 here), and
+        K10 a bfloat16 u: nothing falls back to float32."""
         tg = graphs.tg
         c = Fused(graphs, "scaled_dot")
         qw, qb, kw, kb, x = c.t_ops()
@@ -695,3 +711,16 @@ class TestRefusals:
                                       tg.row_by_col, x, qw, qb, kw, kb,
                                       torch.zeros(1), ct, rp, rp, heads=H,
                                       score="scaled_dot", xcol=x16)
+        # K10 and K11 read a float32 or bfloat16 table beside a float32 u,
+        # and their op takes no float16 payload
+        u = torch.rand(tg.capacity, H) * tg.mask[:, None]
+        csr = (tg.rowptr, tg.row, tg.col)
+        with pytest.raises(TypeError):
+            kernels.dual_scatter(*csr, u, x16)
+        with pytest.raises(TypeError):
+            kernels.dual_gather(*csr, tg.rev, u, x16, torch.zeros(N, H * D),
+                                rp)
+        with pytest.raises(TypeError):
+            kernels.dual_scatter(*csr, u.to(torch.bfloat16), xb)
+        with pytest.raises(TypeError):
+            kernels.dual_scatter_add(tg, u, x, torch.float16)

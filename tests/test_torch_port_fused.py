@@ -555,7 +555,7 @@ class TestWrappers:
     @pytest.mark.parametrize("override", [
         dict(optimizer="adagrad"), dict(mesh_devices=2),
         dict(fa_layer=True), dict(edge_sampling=True),
-        dict(dtype="bfloat16", square_plus=True), dict(use_mlp=True)])
+        dict(rewire_KNN=True), dict(use_mlp=True)])
     def test_unported_variants_raise(self, override):
         _, tcfg = _cfgs(**override)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -567,5 +567,6 @@ class TestWrappers:
                    dict(attention_type="pearson"), dict(block="attention"),
                    dict(function="GAT"), dict(mix_features=True),
                    dict(square_plus=True), dict(reweight_attention=True),
-                   dict(block="hard_attention")):
+                   dict(block="hard_attention"),
+                   dict(dtype="bfloat16", square_plus=True)):
             check_supported(_cfgs(**kw)[1])

@@ -50,6 +50,10 @@ STRIPE_GRAD = 3e-2    # and gradients
 # x's bfloat16 gradient, summed in bfloat16 in part (R10): against the
 # float32 sum, and against the JAX package's own bfloat16 sum
 BF16_SUM = {"float32": 2.0 ** -6, "bfloat16": 2.0 ** -5}
+# the gradients of the stripe spmm under its bfloat16 payload against the
+# JAX package's autodiff, which forms their products in bfloat16 and sums
+# them there (the port in float32)
+STRIPE_BF16_GRAD = 2.0 ** -5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -235,6 +239,73 @@ def test_stripe_spmm_matches_jax(world, worlds, inputs):
     bounds = np.linspace(0, int(tp.num_valid), world + 1).astype(int)
     np.testing.assert_array_equal(lo_hi, np.stack([bounds[:-1],
                                                    bounds[1:]], 1))
+
+
+def _bf16(a):
+    """``a`` rounded to bfloat16 in value, the identity in the gradient."""
+    return a + jax.lax.stop_gradient(
+        a.astype(jnp.bfloat16).astype(jnp.float32) - a)
+
+
+@jax.custom_vjp
+def _cotangent_to_bf16(a):
+    """The identity, whose cotangent is rounded to bfloat16 (what P6's
+    gather hands back under the bf16 payload)."""
+    return a
+
+
+_cotangent_to_bf16.defvjp(
+    lambda a: (a, None),
+    lambda _, ct: (ct.astype(jnp.bfloat16).astype(jnp.float32),))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_stripe_spmm_bf16_payload_matches_jax(world, worlds, inputs):
+    """P6 per rank under the bfloat16 payload (B1 item 6): each rank's
+    payload the bf16 product ``x_b[col] * w_b``, K1 in table mode summing
+    it in float32, K20 writing ct[row] rounded to bfloat16. The output
+    against the JAX ``make_sharded_stripe_spmm(payload_dtype=bf16)`` on a
+    mesh of the same size (its Pallas scatter in interpret mode, whose
+    one-hot products of bf16 values are exact) at 1e-5 of scale; both
+    gradients against a jnp composition with the same forward casts and
+    the cotangent of the payload rounded as P6's gather rounds it, every
+    other cast the identity (1e-5), and against the JAX stripe's own
+    autodiff, which forms the gradients' products in bfloat16 and sums
+    them there, at ``STRIPE_BF16_GRAD`` of their scale (the gaps
+    printed)."""
+    res, inp = worlds[world], inputs
+    jcfg = JConfig(block="constant", function="laplacian",
+                   self_loop_weight=1.0)
+    g = j_prepare(jcfg, j_graph(inp))
+    cap = g.capacity
+    x, probe = jnp.asarray(inp["x"]), jnp.asarray(inp["probe"])
+    w = jnp.asarray(inp["w_prepared"][:cap])
+    stripe = JS.make_sharded_stripe_spmm(j_make_mesh(world), g, block_n=8,
+                                         chunk=16, payload_dtype=jnp.bfloat16)
+
+    def composition(x_, w_):
+        vals = _bf16(_bf16(x_)[g.col] * _bf16(w_)[:, None])
+        vals = _cotangent_to_bf16(jnp.where(g.mask[:, None], vals, 0.0))
+        return jax.ops.segment_sum(vals, g.row, num_segments=N)
+
+    out = replicated(res, "stripe_bf16_out")
+    rel = close(out, stripe(x, w), TIGHT, "bf16 out vs stripe")
+    close(out, composition(x, w), TIGHT, "bf16 out vs composition")
+    dx, dw = (replicated(res, "stripe_bf16_dx"),
+              replicated(res, "stripe_bf16_dw"))
+    assert not dw[cap:].any()
+    # eager: under jit XLA may drop a bf16 rounding that is cast straight
+    # back to float32
+    cdx, cdw = jax.grad(lambda *a: jnp.sum(composition(*a) * probe),
+                        (0, 1))(x, w)
+    close(dx, cdx, TIGHT, "bf16 dx vs composition")
+    close(dw[:cap], cdw, TIGHT, "bf16 dw vs composition")
+    jdx, jdw = jgrad(stripe, (x, w), (0, 1), probe)
+    rel_x = close(dx, jdx, STRIPE_BF16_GRAD, "bf16 dx vs stripe")
+    rel_w = close(dw[:cap], jdw, STRIPE_BF16_GRAD, "bf16 dw vs stripe")
+    print(f"world {world}: stripe spmm under the bf16 payload vs the JAX "
+          f"one: out {rel:.2e}, its autodiff's dx {rel_x:.2e}, dw "
+          f"{rel_w:.2e} of scale")
 
 
 def j_params(inp):
@@ -502,11 +573,11 @@ def test_make_mesh_refuses_what_it_cannot_build(tmp_path):
             torch.distributed.destroy_process_group()
     with pytest.raises(ValueError, match="cuda"):
         split_mesh(2, "xla")
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         S.make_sharded_stripe_spmm(split_mesh(2, "cpu"),
                                    make_graph([0], [0], num_nodes=1)
                                    .sort_by_row(),
-                                   payload_dtype=torch.bfloat16)
+                                   payload_dtype=torch.float16)
 
 
 def test_replicate_moves_every_tensor():

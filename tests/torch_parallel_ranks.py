@@ -128,6 +128,13 @@ def _spmm_checks(mesh, inp, res):
     res["stripe_out"] = out.detach().numpy()
     res["stripe_dx"], res["stripe_dw"] = grads((out * probe).sum(), [x, wp])
     res["stripe_lo_hi"] = np.array([f.shards[0].lo, f.shards[0].hi])
+    # the bfloat16 payload: each rank's bf16 products x_b[col] * w_b, K1 in
+    # table mode on them, K20 writing their bf16 gradient
+    f = make_sharded_stripe_spmm(mesh, gp, payload_dtype=torch.bfloat16)
+    out = f(x, wp)
+    res["stripe_bf16_out"] = out.detach().numpy()
+    res["stripe_bf16_dx"], res["stripe_bf16_dw"] = grads((out * probe).sum(),
+                                                         [x, wp])
 
 
 def _fused_checks(mesh, inp, res):
