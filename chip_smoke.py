@@ -50,13 +50,17 @@ Phases, each of which must pass (any failure exits nonzero):
    the image CLI's batches (64 MNIST-shaped 28 x 28 grids, D=1; 64
    CIFAR-shaped 32 x 32 grids with diagonals, D=3) and an 8-neighbour
    412 x 411 grid (ogbn-arxiv's node count) at D=128, each with K1 and K2
-   on the same row-sorted graph beside it; two launches of each must be
-   bit-identical. On directed graphs (no reverse-edge map): K17
-   ``fused_rhs_bwd_col`` (x[col]'s cotangent walked over the CSC view, and
-   dKw, dKb from each column's summed dk) and K8 without its per-edge dxg
+   on the same row-sorted graph beside it (the library calls: the forward
+   and dx by ``torch.sparse.mm`` on the CSR and on its transpose); two
+   launches of each must be bit-identical. On directed graphs (no
+   reverse-edge map): K17 ``fused_rhs_bwd_col`` (x[col]'s cotangent walked
+   over the CSC view's column pieces, and dKw, dKb from each column's
+   summed dk; the pieces' count and the longest column printed, and the
+   time beside that of pieces of 64 edges) and K8 without its per-edge dxg
    (dq, dgmax), against their plain versions in float64,
    for all five score families on a small random directed graph (2,000
-   nodes) at D=16, ATT=16, H=4 and for scaled_dot on the Cora stand-in
+   nodes, pieces of 4 edges, so that most columns take K17's second pass)
+   at D=16, ATT=16, H=4 and for scaled_dot on the Cora stand-in
    rewired by GDC on the card (the CLI's defaults) at D=80, ATT=128, H=8
    and on ogbn-arxiv-synthetic's random pairs one way only (169,343 nodes,
    plus self-loops) at D=128, ATT=32, H=2 (and exp_kernel_beltrami at
@@ -985,7 +989,7 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
 
 def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
                              timed=True, dev="cuda", feat=None, payload=None,
-                             row_bf16=False):
+                             row_bf16=False, piece=None):
     """K17 (x[col]'s cotangent walked over the CSC view of a directed
     graph, and dkw, dkb from each column's summed dk) and K8 without its
     per-edge dxg (dq, dgmax), the two kernels of the column-plan backward,
@@ -993,9 +997,12 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     inputs; two launches of each must be bit-identical. ``timed=False``
     only compares; ``feat`` as in ``rhs_operands``; ``payload`` and
     ``row_bf16`` as in ``check_fused_kernels`` (the bfloat16 column table,
-    the plain versions in float64 beside it)."""
+    the plain versions in float64 beside it). K17 walks the graph's column
+    pieces, or pieces of ``piece`` edges (short ones put the second pass
+    to work on a small graph)."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
+    from graph_neural_pde_tpu_torch.ops.graph import column_pieces
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev,
                                             feat)
     if g.rev is not None:
@@ -1041,9 +1048,16 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     base_bytes = 4 * (n + 1 + nv + 2 * d * att + 2 * att) + x_bytes
     proj = projection_ops(d, att, score)
     node_b = 4 * n * (d + 2 * h)
+    pieces = g.col_pieces if piece is None else column_pieces(g.colptr, piece)
+    print(f"[kernels] fused_rhs_bwd_col pieces @ {shape_name}: "
+          f"{pieces.n_pieces} pieces of at most {pieces.piece} edges over "
+          f"{n} columns, {pieces.n_multi} columns of several pieces "
+          f"({pieces.n_slots} partial rows), longest column "
+          f"{pieces.longest} edges", flush=True)
     cases = [
         ("fused_rhs_bwd_col", "dx, dkw, dkb over CSC",
-         lambda: K.fused_rhs_bwd_col(*csc, *ops, *cts, **kw_x, **kw_f),
+         lambda: K.fused_rhs_bwd_col(*csc, *ops, *cts, pieces=pieces, **kw_x,
+                                     **kw_f),
          lambda: K.fused_rhs_bwd_col_plain(*csc, *ops, *cts, **kw_x,
                                            **kw_f),
          (base_bytes + node_b + 4 * (n * d + d * att + att),
@@ -1066,6 +1080,16 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
+    if timed:
+        # the piece length against its alternative, same inputs and call
+        other = column_pieces(g.colptr, 64 if pieces.piece == 32 else 32)
+        alt = device_ms(lambda: K.fused_rhs_bwd_col(
+            *csc, *ops, *cts, pieces=other, **kw_x, **kw_f), reps=TIMED_CALLS)
+        alt = "not measured" if alt is None else f"{alt:.4f} ms"
+        print(f"[kernels] fused_rhs_bwd_col @ {shape_name} {score}{tag}: "
+              f"pieces of {other.piece} edges ({other.n_pieces} pieces) "
+              f"{alt} beside {pieces.piece} edges' {rows[0]['ms']:.4f} ms",
+              flush=True)
     for kname, what, kern, *_ in cases:
         if not all(torch.equal(a, b) for a, b in zip(kern(), kern())):
             raise AssertionError(f"{kname} ({what}) {score} @ {shape_name}: "
@@ -1281,12 +1305,15 @@ def check_blocked_kernels(shape_name, g, d, seed, block_n=1024, chunk=1024,
     pattern = torch.sparse_coo_tensor(
         idx, torch.ones(idx.shape[1], device=dev), (npad, npad)) \
         .coalesce().to_sparse_csr()
+    # dx = A^T ct: the same matrix transposed, weights unpermuted
+    csr_t = torch.sparse_coo_tensor(idx.flip(0), w[fwd.valid], (npad, npad)) \
+        .coalesce().to_sparse_csr()
     x_t = x.t().contiguous()
     nslots = int(plans.fwd.valid.sum())
-    # K15 reads per valid slot its two local ids and its weight, x once,
-    # and writes out; K16 reads two local ids per slot, both tables, and
-    # writes one float per slot (padding included); 2 flop per slot and
-    # feature
+    # K15 reads per valid slot its slot index, its column and its weight,
+    # x once, and writes out; K16 reads two local ids per slot, both
+    # tables, and writes one float per slot (padding included); 2 flop per
+    # slot and feature
     spmm_work = (4 * (3 * nslots + 2 * npad * d), 2 * nslots * d)
     dot_work = (4 * (3 * cap + 2 * npad * d), 2 * cap * d)
     cases = (
@@ -1296,7 +1323,8 @@ def check_blocked_kernels(shape_name, g, d, seed, block_n=1024, chunk=1024,
          lambda: torch.sparse.mm(csr, x)),
         ("blocked_spmm", "backward dx, transposed plan",
          lambda: K.blocked_spmm(bwd, w_t, ct),
-         lambda: K.blocked_spmm_plain(bwd, w_t, ct), spmm_work, None),
+         lambda: K.blocked_spmm_plain(bwd, w_t, ct), spmm_work,
+         lambda: torch.sparse.mm(csr_t, ct)),
         ("blocked_sddmm", "backward dw = ct[row].x[col]",
          lambda: K.blocked_sddmm(fwd, ct, x),
          lambda: K.blocked_sddmm_plain(fwd, ct, x), dot_work,
@@ -2855,7 +2883,7 @@ def main() -> int:
         for i, score in enumerate(SCORE_FAMILIES):
             rows += check_column_rhs_kernels("directed-small", small_dir, 16,
                                              16, 4, score, args.seed + 91 + i,
-                                             timed=False)
+                                             timed=False, piece=4)
         rows += check_column_rhs_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
                                          nl.attention_dim, nl.heads,
                                          "scaled_dot", args.seed + 95)
@@ -2865,7 +2893,8 @@ def main() -> int:
         for i, score in enumerate(SCORE_FAMILIES):
             rows += check_column_rhs_kernels("directed-small", small_dir, 16,
                                              16, 4, score, args.seed + 160 + i,
-                                             timed=False, payload=bf16)
+                                             timed=False, payload=bf16,
+                                             piece=4)
         rows += check_fused_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 165, payload=bf16)

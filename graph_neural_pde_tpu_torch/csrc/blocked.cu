@@ -14,34 +14,39 @@
 // On the TPU each grid step turns one chunk's gather and scatter into
 // one-hot matmuls against node blocks held in VMEM (4 * B * D flops per
 // slot), because a TPU has no fast indexed access. Hopper has it, so
-// these kernels index directly and keep only the blocking: one CTA owns a
-// row block and walks its chunks, with the chunk's column block of x in
-// shared memory.
+// these kernels index directly.
 //
-// What bounds them on the H100: memory traffic. K15 moves each x row of a
-// column block once per bucket (staged), 12 bytes of index and weight per
-// valid slot, and writes each output row once; 2 flops per slot and
-// feature. K16 reads two rows per slot (D * 4 bytes each) for 2 * D flops.
-// Both sit two orders of magnitude below the card's ridge point.
+// What bounds them on the H100: memory traffic. K15 reads each valid
+// slot's weight and indices (12 bytes) and one x row per slot, mostly from
+// the 50 MB L2 (after a bandwidth-reducing order such as rcm, a row block's
+// columns fall in a few column blocks), and writes each output row once;
+// 2 flops per slot and feature. K16 reads two rows per slot (D * 4 bytes
+// each) for 2 * D flops. Both sit two orders of magnitude below the card's
+// ridge point, so what decides their time is how many loads are in flight.
 //
-// K15's design. A CTA owns one row block and a tile of DT features (DT in
-// {1, 2, 4, 8, 16}, the smallest power of two covering D, at most 16, and
-// halved until two [B, DT] float tiles fit 96 KB, so that two CTAs share
-// an SM: B = 1024 takes DT = 8, 64 KB, past the 48 KB default, so the
-// launch raises the kernel's dynamic shared-memory limit). The x tile of
-// the chunk's column block is staged in shared memory when the column
-// block changes; the output tile of the row block accumulates in shared
-// memory and is written once at the end. Slots are not walked in plan
-// order: the host sorts each chunk's valid slots by row
-// (kernels/blocked.py, blocked_layout), so a chunk is a set of row
-// segments with distinct rows. Threads take
-// (segment, feature) pairs, features fastest, so that the image paths'
-// D = 1 and D = 3 put the threads over slots and the wide paths over
-// features. Each pair sums its segment in slot order in a register and
-// adds it to its output element; the distinct rows of a chunk make that
-// free of conflicts, and a barrier between chunks orders the chunks. No
-// atomics: every output element is summed in a fixed order, so two
-// launches are bit-identical. Padding slots (weight 0) are skipped.
+// K15's design: a walk over rows. The first version gave a CTA a row block
+// and a tile of at most 16 features, walked the block's chunks in series
+// with two barriers each, staged x's column block in shared memory and
+// read each slot's indices once per feature tile: 30 CTAs on 132 SMs for
+// Cora at B = 1024, 4-23x slower than a CSR walk on the same graph. Here
+// the host turns the plan into a CSR over its valid slots
+// (kernels/blocked.py, blocked_layout): each padded node row lists its
+// slots in plan order (chunk by chunk, then by slot), each with its global
+// column and its slot index for w. A group of G lanes owns a row (G the
+// power of two covering the row's D / V vectors, at most 32: one lane for
+// the image paths' D = 1, four for D = 3, a full warp at D = 80 and D =
+// 128), reads x rows as V-float vectors (16-byte loads where D % 4 == 0
+// and x lies on a 16-byte boundary, else 8 or 4), stages G slots' (column,
+// weight) at a time with one load a lane and broadcasts them by shuffle
+// within the group, sums all of the row's features in registers in slot
+// order, and writes the row once. Nothing is shared between rows, so there
+// is no barrier, no shared memory and no limit on block_n; the blocking
+// still buys locality in L2. Staging x's column block in shared memory
+// (a CTA's rows of one row block walking its buckets) was measured for
+// D <= 16: no faster at the image paths' D = 1 and 3, several times
+// slower at D = 16, where a block_n x D tile serves 16 rows; so x is read
+// through the caches. No atomics: every output element is summed by one
+// lane in a fixed order, so two launches are bit-identical.
 //
 // K16's design: a group of L lanes per slot (L the largest power of two
 // <= D, at most 32), lanes strided over the features, and the group
@@ -54,77 +59,120 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVecsPerLane = 4;     // a pass covers G * V * 4 features
 
-template <int DT>
-__global__ void blocked_spmm_kernel(
-    const int* __restrict__ rb_ptr,      // [n_blocks + 1] chunk ranges
-    const int* __restrict__ chunk_cols,  // [n_chunks]
-    const int* __restrict__ seg_ptr,     // [n_chunks + 1] segment ranges
-    const int* __restrict__ seg_row,     // [n_seg] row_local
-    const int* __restrict__ seg_start,   // [n_seg + 1] ranges of slot_ord
-    const int* __restrict__ slot_ord,    // [n_slots] plan slot
-    const int* __restrict__ slot_col,    // [n_slots] col_local of the slot
+template <int V> struct Vec;
+template <> struct Vec<1> { using T = float; };
+template <> struct Vec<2> { using T = float2; };
+template <> struct Vec<4> { using T = float4; };
+
+__device__ __forceinline__ void axpy(float a, float x, float& y) {
+  y = fmaf(a, x, y);
+}
+__device__ __forceinline__ void axpy(float a, const float2& x, float2& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+}
+__device__ __forceinline__ void axpy(float a, const float4& x, float4& y) {
+  y.x = fmaf(a, x.x, y.x);
+  y.y = fmaf(a, x.y, y.y);
+  y.z = fmaf(a, x.z, y.z);
+  y.w = fmaf(a, x.w, y.w);
+}
+
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <> __device__ __forceinline__ float2 zero<float2>() {
+  return make_float2(0.0f, 0.0f);
+}
+template <> __device__ __forceinline__ float4 zero<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// One group of G lanes per row of the slot CSR; x and out are [n_rows,
+// dim] read and written as dim / V vectors of V floats.
+template <int G, int V>
+__global__ void __launch_bounds__(kThreads) blocked_spmm_kernel(
+    const int* __restrict__ rowptr,      // [n_rows + 1] over the slots
+    const int* __restrict__ slot,        // [n_valid] plan slot (for w)
+    const int* __restrict__ col,         // [n_valid] global column
     const float* __restrict__ w,         // [capacity]
-    const float* __restrict__ x,         // [N_pad, dim]
-    float* __restrict__ out,             // [N_pad, dim]
-    int block_n, int dim) {
-  extern __shared__ float smem[];
-  float* xs = smem;                                    // [block_n, DT]
-  float* acc = smem + static_cast<size_t>(block_n) * DT;
-  const int rb = blockIdx.x;
-  const int d0 = blockIdx.y * DT;
-  const int tile = block_n * DT;
-  for (int i = threadIdx.x; i < tile; i += kThreads) acc[i] = 0.0f;
-
-  int staged = -1;
-  for (int c = rb_ptr[rb]; c < rb_ptr[rb + 1]; ++c) {
-    const int s0 = seg_ptr[c], s1 = seg_ptr[c + 1];
-    if (s0 == s1) continue;                            // padding only
-    const int cb = chunk_cols[c];
-    if (cb != staged) {
-      __syncthreads();                                 // xs still in use
-      const float* xb = x + static_cast<size_t>(cb) * block_n * dim;
-      for (int i = threadIdx.x; i < tile; i += kThreads) {
-        const int r = i / DT, d = d0 + i % DT;
-        xs[i] = d < dim ? xb[static_cast<size_t>(r) * dim + d] : 0.0f;
+    const float* __restrict__ x, float* __restrict__ out, int n_rows,
+    int dim) {
+  using T = typename Vec<V>::T;
+  const int lane = threadIdx.x % G;
+  const int row = (blockIdx.x * kThreads + threadIdx.x) / G;
+  if (row >= n_rows) return;            // whole groups leave together
+  // the group's lanes: a group never straddles a warp
+  const unsigned group =
+      G == 32 ? 0xffffffffu
+              : ((1u << (G % 32)) - 1u) << (threadIdx.x % 32 / G * G);
+  const int start = rowptr[row], end = rowptr[row + 1];
+  const int vecs = dim / V;
+  const T* xv = reinterpret_cast<const T*>(x);
+  T* orow = reinterpret_cast<T*>(out) + static_cast<size_t>(row) * vecs;
+  for (int v0 = 0; v0 < vecs; v0 += G * kVecsPerLane) {
+    T acc[kVecsPerLane];
+#pragma unroll
+    for (int k = 0; k < kVecsPerLane; ++k) acc[k] = zero<T>();
+    for (int e0 = start; e0 < end; e0 += G) {
+      int c = 0;
+      float we = 0.0f;
+      if (e0 + lane < end) {
+        c = col[e0 + lane];
+        we = w[slot[e0 + lane]];
       }
-      staged = cb;
+      const int n = min(G, end - e0);
+      for (int j = 0; j < n; ++j) {
+        const int cj = __shfl_sync(group, c, j, G);
+        const float wj = __shfl_sync(group, we, j, G);
+        const T* xr = xv + static_cast<size_t>(cj) * vecs;
+#pragma unroll
+        for (int k = 0; k < kVecsPerLane; ++k) {
+          const int v = v0 + lane + G * k;
+          if (v < vecs) axpy(wj, xr[v], acc[k]);
+        }
+      }
     }
-    __syncthreads();                   // xs staged, last chunk's acc done
-    const int items = (s1 - s0) * DT;
-    for (int it = threadIdx.x; it < items; it += kThreads) {
-      const int s = s0 + it / DT, j = it % DT;
-      float sum = 0.0f;
-      for (int k = seg_start[s]; k < seg_start[s + 1]; ++k)
-        sum += w[slot_ord[k]] * xs[slot_col[k] * DT + j];
-      acc[seg_row[s] * DT + j] += sum;
+#pragma unroll
+    for (int k = 0; k < kVecsPerLane; ++k) {
+      const int v = v0 + lane + G * k;
+      if (v < vecs) orow[v] = acc[k];
     }
-  }
-  __syncthreads();
-  float* ob = out + static_cast<size_t>(rb) * block_n * dim;
-  for (int i = threadIdx.x; i < tile; i += kThreads) {
-    const int r = i / DT, d = d0 + i % DT;
-    if (d < dim) ob[static_cast<size_t>(r) * dim + d] = acc[i];
   }
 }
 
-template <int DT>
-cudaError_t launch_spmm(const int* rb_ptr, const int* chunk_cols,
-                        const int* seg_ptr, const int* seg_row,
-                        const int* seg_start, const int* slot_ord,
-                        const int* slot_col, const float* w, const float* x,
-                        float* out, int n_blocks, int block_n, int dim,
-                        cudaStream_t stream) {
-  const size_t bytes = 2 * static_cast<size_t>(block_n) * DT * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      blocked_spmm_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(n_blocks, (dim + DT - 1) / DT);
-  blocked_spmm_kernel<DT><<<grid, kThreads, bytes, stream>>>(
-      rb_ptr, chunk_cols, seg_ptr, seg_row, seg_start, slot_ord, slot_col,
-      w, x, out, block_n, dim);
+template <int G, int V>
+cudaError_t launch_spmm(const int* rowptr, const int* slot, const int* col,
+                        const float* w, const float* x, float* out,
+                        int n_rows, int dim, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(n_rows) * G;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  blocked_spmm_kernel<G, V><<<blocks, kThreads, 0, stream>>>(
+      rowptr, slot, col, w, x, out, n_rows, dim);
   return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_spmm_v(int lanes, const int* rowptr, const int* slot,
+                          const int* col, const float* w, const float* x,
+                          float* out, int n_rows, int dim,
+                          cudaStream_t stream) {
+  switch (lanes) {
+#define GNPDE_SPMM_G(G)                                                      \
+  case G:                                                                    \
+    return launch_spmm<G, V>(rowptr, slot, col, w, x, out, n_rows, dim,     \
+                             stream);
+    GNPDE_SPMM_G(1)
+    GNPDE_SPMM_G(2)
+    GNPDE_SPMM_G(4)
+    GNPDE_SPMM_G(8)
+    GNPDE_SPMM_G(16)
+    GNPDE_SPMM_G(32)
+#undef GNPDE_SPMM_G
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int L>
@@ -171,36 +219,29 @@ cudaError_t launch_sddmm(const int* chunk_rows, const int* chunk_cols,
 
 }  // namespace
 
-// tile: DT, chosen by the wrapper (1, 2, 4, 8 or 16)
-extern "C" int gnpde_blocked_spmm(
-    const void* rb_ptr, const void* chunk_cols, const void* seg_ptr,
-    const void* seg_row, const void* seg_start, const void* slot_ord,
-    const void* slot_col, const void* w, const void* x, void* out,
-    int n_blocks, int block_n, int dim, int tile, void* stream) {
-  if (n_blocks <= 0 || dim <= 0) return static_cast<int>(cudaGetLastError());
-  const auto* rp = static_cast<const int*>(rb_ptr);
-  const auto* cc = static_cast<const int*>(chunk_cols);
-  const auto* sp = static_cast<const int*>(seg_ptr);
-  const auto* sr = static_cast<const int*>(seg_row);
-  const auto* ss = static_cast<const int*>(seg_start);
-  const auto* so = static_cast<const int*>(slot_ord);
-  const auto* sc = static_cast<const int*>(slot_col);
+// lanes: G, vec: V, chosen by the wrapper (G in 1, 2, 4, ..., 32; V in
+// 1, 2, 4 dividing dim, with x and out on V * 4-byte boundaries)
+extern "C" int gnpde_blocked_spmm(const void* rowptr, const void* slot,
+                                  const void* col, const void* w,
+                                  const void* x, void* out, int n_rows,
+                                  int dim, int lanes, int vec, void* stream) {
+  if (n_rows <= 0 || dim <= 0) return static_cast<int>(cudaGetLastError());
+  if (dim % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* rp = static_cast<const int*>(rowptr);
+  const auto* sl = static_cast<const int*>(slot);
+  const auto* cl = static_cast<const int*>(col);
   const auto* wf = static_cast<const float*>(w);
   const auto* xf = static_cast<const float*>(x);
   auto* of = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  switch (tile) {
-    case 1: err = launch_spmm<1>(rp, cc, sp, sr, ss, so, sc, wf, xf, of,
-                                 n_blocks, block_n, dim, st); break;
-    case 2: err = launch_spmm<2>(rp, cc, sp, sr, ss, so, sc, wf, xf, of,
-                                 n_blocks, block_n, dim, st); break;
-    case 4: err = launch_spmm<4>(rp, cc, sp, sr, ss, so, sc, wf, xf, of,
-                                 n_blocks, block_n, dim, st); break;
-    case 8: err = launch_spmm<8>(rp, cc, sp, sr, ss, so, sc, wf, xf, of,
-                                 n_blocks, block_n, dim, st); break;
-    case 16: err = launch_spmm<16>(rp, cc, sp, sr, ss, so, sc, wf, xf, of,
-                                   n_blocks, block_n, dim, st); break;
+  switch (vec) {
+    case 1: err = launch_spmm_v<1>(lanes, rp, sl, cl, wf, xf, of, n_rows, dim,
+                                   st); break;
+    case 2: err = launch_spmm_v<2>(lanes, rp, sl, cl, wf, xf, of, n_rows, dim,
+                                   st); break;
+    case 4: err = launch_spmm_v<4>(lanes, rp, sl, cl, wf, xf, of, n_rows, dim,
+                                   st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);

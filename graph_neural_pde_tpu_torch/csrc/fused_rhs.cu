@@ -12,9 +12,10 @@
 // plan of padded edge chunks and do every gather, scatter and per-head sum
 // as a one-hot or selector matmul, because a TPU core has no fast indexed
 // access and runs its grid in order. Neither holds here: these kernels walk
-// the CSR rowptr (K17 the CSC colptr), gather their node rows themselves
-// and keep every per-row sum in the warp that owns the row, so no [E, .]
-// operand is read and, but for K8's per-edge outputs, none is written.
+// the CSR rowptr (K17 the CSC view, cut into column pieces), gather their
+// node rows themselves and keep every per-row sum in the warp that owns the
+// row (K17: the piece), so no [E, .] operand is read and, but for K8's
+// per-edge outputs, none is written.
 //
 // For row n with edges e to columns c (see kernels/fused_rhs.py for the
 // full formulas):
@@ -40,13 +41,13 @@
 // arithmetic per edge is 2 ATT + 2 H D flop. K8 alone still multiplies per
 // edge (dxg[e] needs dk_e Kw^T) and is bound by that.
 //
-// Design: one warp per row, four warps a block. Lanes span ATT for the
-// node projections (Kw / Qw are read through the L1 as coalesced rows),
-// lane h owns head h for the scores and their derivatives (d_k serial
-// terms, so the order of every sum is fixed), lanes span D for the
-// aggregation. The per-head numerators, the row's q, the edge's x_c and
-// k_c live in the warp's slice of dynamic shared memory. There are no
-// atomics anywhere.
+// Design: one warp per row (K17: per column piece, see its note), four
+// warps a block. Lanes span ATT for the node projections (Kw / Qw are read
+// through the L1 as coalesced rows), lane h owns head h for the scores and
+// their derivatives (d_k serial terms, so the order of every sum is
+// fixed), lanes span D for the aggregation. The per-head numerators, the
+// row's q, the edge's x_c and k_c live in the warp's slice of dynamic
+// shared memory. There are no atomics anywhere.
 // Sums over all edges (dKw, dKb, dgmax and the exp_kernel scalars) are
 // taken in two passes with a fixed order: K8 writes each edge's dk_e, K9
 // each node's dk summed over its reverse edges, K17 each column's dk
@@ -291,21 +292,46 @@ __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
 // and dk_e = ds . ds/dk recomputed from q_r and k_n: the x[col] cotangent of
 // the row-normalised RHS, which K8 writes per edge. The TPU kernel
 // (_bwd_dx_col_kernel) gathers one packed bf16 node table per edge in
-// column-plan order and scatters by a one-hot matmul into its node block;
-// here a warp owns a column of the CSC view (g.rowptr is colptr, g.col is
-// row_by_col): it loads x_n and k_n once, gathers q_r and ct_ax[r] (ATT + D
-// floats) and 2 H scalars per edge, and accumulates two sums in shared
-// memory: (sum_h u recip) ct_ax[r] over D and dk_e over ATT. The summed dk
-// is multiplied by Kw^T once per column, so the per-edge work is 2 ATT + 4 D
-// + O(H d_k) flop and no per-edge product by Kw remains (K8's cost). The
-// summed dk is also written per column, and dKw / dKb are reduced from it
-// over nodes, as K9 does: K8 then forms neither dk_e nor its reduction over
-// the edges in this backward. What
-// bounds it is the two gathered rows per edge, as for K9's reverse side.
-// Each output element is summed by one lane in the column's edge order: no
-// atomics, two launches agree bit for bit.
+// column-plan order and scatters by a one-hot matmul into its node block.
+// Here each edge gathers q_r and ct_ax[r] (ATT + D floats) and 2 H scalars
+// of its row, beside x_n and k_n read once per walk, and accumulates two
+// sums: (sum_h u recip) ct_ax[r] over D and dk_e over ATT. The summed dk is
+// multiplied by Kw^T once per column, so the per-edge work is 2 ATT + 4 D +
+// O(H d_k) flop and no per-edge product by Kw remains (K8's cost); it is
+// also written per column, and dKw / dKb are reduced from it over nodes,
+// as K9 does.
+//
+// What bounds it: the per-edge chain. Each edge waits on two gathered rows
+// and then runs H lanes' serial score terms and a head sum, so a walk
+// costs its length in series (the first version gave a warp a whole
+// column and lasted as long as the graph's largest in-degree: 2.6 ms on a
+// kNN graph with hub columns of in-degree 972). The design cuts the walks
+// short, so that a hub's edges are spread over many warps and the other
+// warps on the SM hide each one's latency:
+// * pass 1 (fused_rhs_bwd_col_kernel): one warp per piece of at most
+//   COL_PIECE edges of one column (ops/graph.py, column_pieces). A column
+//   of one piece is finished there; a piece of a longer column writes its
+//   partial sums (D + ATT floats) to its row of the wrapper's scratch;
+// * pass 2 (fused_rhs_bwd_col_merge_kernel): one warp per column of
+//   several pieces adds its pieces' partials in piece order, multiplies
+//   the summed dk by Kw^T and writes dx and the summed dk.
+// Each output element is summed in a fixed order (edges within a piece,
+// pieces within a column): no atomics, two launches agree bit for bit.
+
+// The pieces of the CSC view's columns (ops/graph.py, ColPieces)
+struct Pieces {
+  const int *ptr, *col, *slot, *multi_col, *multi_ptr;
+  int n_pieces, n_multi;
+};
+
+// shared floats of a pass-1 warp: x_n, ct_ax[r], the two sums, (sum dk)
+// Kw^T, k_n, q_r and the heads' coefficients
+__host__ __device__ constexpr int piece_floats(int dim, int att, int heads) {
+  return 4 * dim + 3 * att + kCoef * heads;
+}
+
 template <typename TC>
-__global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
+__global__ void fused_rhs_bwd_col_kernel(Graph g, Pieces pc, Proj p,
                                          const TC* __restrict__ xcol,
                                          const float* __restrict__ qtab,
                                          const TC* __restrict__ ktab,
@@ -314,13 +340,14 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
                                          const float* __restrict__ recip_p,
                                          const float* __restrict__ ct_den,
                                          float* __restrict__ dx,
-                                         float* __restrict__ dkn_out) {
+                                         float* __restrict__ dkn_out,
+                                         float* __restrict__ part) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;                    // whole warp leaves together
+  const int pi = blockIdx.x * kWarpsPerBlock + warp;
+  if (pi >= pc.n_pieces) return;                // whole warp leaves together
   const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  float* xn = smem + static_cast<size_t>(warp) * (4 * D + 3 * A + kCoef * H);
+  float* xn = smem + static_cast<size_t>(warp) * piece_floats(D, A, H);
   float* cta = xn + D;                          // ct_ax[r]
   float* dxa = cta + D;                         // sum of w_e ct_ax[r]
   float* dkw = dxa + D;                         // (sum of dk) Kw^T
@@ -328,22 +355,23 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
   float* q = kn + A;                            // q_r
   float* dka = q + A;                           // sum of dk_e
   float* coef = dka + A;                        // [H, kCoef]
+  const int n = pc.col[pi], slot = pc.slot[pi];
+  const int start = pc.ptr[pi], end = pc.ptr[pi + 1];
   load_row(xcol, n, D, lane, xn);
   load_row(ktab, n, A, lane, kn);
   for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
   for (int a = lane; a < A; a += kWarp) dka[a] = 0.0f;
-  __syncwarp();
   const float gmax = *p.gmax;
   const ScoreParams sc = score_params(p);
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
   for (int j = start; j < end; ++j) {
     const int r = g.col[j];
     load_row(ct_ax, r, D, lane, cta);
     load_row(qtab, r, A, lane, q);
     __syncwarp();
-    float part = 0.0f;
-    for (int d = lane; d < D; d += kWarp) part = fmaf(cta[d], xn[d], part);
-    const float dot = warp_sum(part);           // ct_ax[r] . x_n
+    float part_dot = 0.0f;
+    for (int d = lane; d < D; d += kWarp)
+      part_dot = fmaf(cta[d], xn[d], part_dot);
+    const float dot = warp_sum(part_dot);       // ct_ax[r] . x_n
     float w = 0.0f;
     if (lane < H) {
       const float rg = recip_p[static_cast<size_t>(r) * H + lane];
@@ -362,11 +390,50 @@ __global__ void fused_rhs_bwd_col_kernel(Graph g, Proj p,
     for (int d = lane; d < D; d += kWarp) dxa[d] = fmaf(wsum, cta[d], dxa[d]);
     __syncwarp();                               // cta, q and coef are reused
   }
+  if (slot >= 0) {                              // a piece of a longer column
+    float* pr = part + static_cast<size_t>(slot) * (D + A);
+    for (int d = lane; d < D; d += kWarp) pr[d] = dxa[d];
+    for (int a = lane; a < A; a += kWarp) pr[D + a] = dka[a];
+    return;
+  }
+  __syncwarp();
   for (int a = lane; a < A; a += kWarp)
     dkn_out[static_cast<size_t>(n) * A + a] = dka[a];
   project(dka, kw_t, nullptr, A, D, lane, dkw);
   for (int d = lane; d < D; d += kWarp)
     dx[static_cast<size_t>(n) * D + d] = dxa[d] + dkw[d];
+}
+
+// a column of several pieces: its partials summed in piece order, then as
+// the end of fused_rhs_bwd_col_kernel (shared per warp: the summed dk,
+// then its product by Kw^T)
+__global__ void fused_rhs_bwd_col_merge_kernel(
+    Pieces pc, Proj p, const float* __restrict__ kw_t,
+    const float* __restrict__ part, float* __restrict__ dx,
+    float* __restrict__ dkn_out) {
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= pc.n_multi) return;                  // whole warp leaves together
+  const int D = p.dim, A = p.att, W = D + A;
+  float* dka = smem + static_cast<size_t>(warp) * W;
+  float* dkw = dka + A;
+  const int n = pc.multi_col[m];
+  const int s0 = pc.multi_ptr[m], s1 = pc.multi_ptr[m + 1];
+  for (int a = lane; a < A; a += kWarp) {
+    float sum = 0.0f;
+    for (int s = s0; s < s1; ++s)
+      sum += part[static_cast<size_t>(s) * W + D + a];
+    dka[a] = sum;
+    dkn_out[static_cast<size_t>(n) * A + a] = sum;
+  }
+  __syncwarp();
+  project(dka, kw_t, nullptr, A, D, lane, dkw);
+  for (int d = lane; d < D; d += kWarp) {
+    float sum = 0.0f;
+    for (int s = s0; s < s1; ++s) sum += part[static_cast<size_t>(s) * W + d];
+    dx[static_cast<size_t>(n) * D + d] = sum + dkw[d];
+  }
 }
 
 template <typename TR, typename TC>
@@ -438,33 +505,45 @@ cudaError_t launch_bwd(Graph g, Proj p, const void* xcol, const void* qtab,
   return cudaGetLastError();
 }
 
-// K17's operands beside the graph and the tables (see
+// K17's operands beside the graph, the pieces and the tables (see
 // gnpde_fused_rhs_bwd_col)
 struct Col {
   const void *ct_ax, *recip_p, *ct_den, *kw_t;
-  void *dx, *dkn, *partials;
+  void *dx, *dkn, *part, *partials;
   int reduce_blocks;
 };
 
-// K17's walk over the column table xcol of type TC (its k table too), then
-// the first pass of dKw / dKb over the column table's rows
+// K17's two passes over the column table xcol of type TC (its k table
+// too), then the first pass of dKw / dKb over the column table's rows
 template <typename TC>
-cudaError_t launch_bwd_col(Graph g, Proj p, const void* xcol,
+cudaError_t launch_bwd_col(Graph g, Pieces pc, Proj p, const void* xcol,
                            const void* qtab, const void* ktab, const Col& c,
                            cudaStream_t s) {
   const size_t bytes = sizeof(float) * kWarpsPerBlock *
-                       (4 * p.dim + 3 * p.att + kCoef * p.heads);
+                       piece_floats(p.dim, p.att, p.heads);
   cudaError_t err = allow_shared(fused_rhs_bwd_col_kernel<TC>, bytes);
   if (err != cudaSuccess) return err;
-  fused_rhs_bwd_col_kernel<TC><<<row_blocks(g.n_rows),
+  fused_rhs_bwd_col_kernel<TC><<<row_blocks(pc.n_pieces),
                                  kWarpsPerBlock * kWarp, bytes, s>>>(
-      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
+      g, pc, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
       static_cast<const TC*>(ktab), static_cast<const float*>(c.kw_t),
       static_cast<const float*>(c.ct_ax), static_cast<const float*>(c.recip_p),
       static_cast<const float*>(c.ct_den), static_cast<float*>(c.dx),
-      static_cast<float*>(c.dkn));
+      static_cast<float*>(c.dkn), static_cast<float*>(c.part));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  if (pc.n_multi > 0) {
+    const size_t merge = sizeof(float) * kWarpsPerBlock * (p.dim + p.att);
+    err = allow_shared(fused_rhs_bwd_col_merge_kernel, merge);
+    if (err != cudaSuccess) return err;
+    fused_rhs_bwd_col_merge_kernel<<<row_blocks(pc.n_multi),
+                                     kWarpsPerBlock * kWarp, merge, s>>>(
+        pc, p, static_cast<const float*>(c.kw_t),
+        static_cast<const float*>(c.part), static_cast<float*>(c.dx),
+        static_cast<float*>(c.dkn));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   launch_outer_reduce(static_cast<const TC*>(xcol), nullptr,
                       static_cast<const float*>(c.dkn),
                       static_cast<float*>(c.partials), g.n_rows,
@@ -599,33 +678,44 @@ extern "C" int gnpde_fused_rhs_bwd_sym(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K17 over the CSC view: colptr [n_cols + 1] and row_by_col, the row of
-// each edge in column order. kw_t is Kw^T [att, dim] (of the bf16-rounded
-// Kw with a bfloat16 column table). dkn [n_cols, att] (each column's
-// summed dk) is scratch the wrapper reduces over the column table;
-// partials [reduce_blocks, dim + 1, att] are zero on entry. Nullable: var,
-// ls.
+// K17 over the CSC view's column pieces (ops/graph.py, ColPieces):
+// piece_ptr [n_pieces + 1] (edge ranges of row_by_col, the row of each edge
+// in column order), piece_col and piece_slot [n_pieces], multi_col
+// [n_multi] and multi_ptr [n_multi + 1]. kw_t is Kw^T [att, dim] (of the
+// bf16-rounded Kw with a bfloat16 column table). dkn [n_cols, att] (each
+// column's summed dk) is scratch the wrapper reduces over the column
+// table; part [multi_ptr[n_multi], dim + att] is the pieces' partial sums
+// (nullable without multi-piece columns); partials [reduce_blocks, dim +
+// 1, att] are zero on entry. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_col(
-    const void* colptr, const void* row_by_col, const void* x,
-    const void* xcol, const void* qw, const void* qb, const void* kw,
-    const void* kb, const void* gmax, const void* var, const void* ls,
-    const void* ct_ax, const void* recip_p, const void* ct_den,
-    const void* kw_t, void* qtab, void* ktab, void* dx, void* dkn,
-    void* partials, int n_cols, int dim, int att, int heads, int flags,
-    int reduce_blocks, int tables, void* stream) {
+    const void* piece_ptr, const void* piece_col, const void* piece_slot,
+    const void* multi_col, const void* multi_ptr, const void* row_by_col,
+    const void* x, const void* xcol, const void* qw, const void* qb,
+    const void* kw, const void* kb, const void* gmax, const void* var,
+    const void* ls, const void* ct_ax, const void* recip_p,
+    const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dx,
+    void* dkn, void* part, void* partials, int n_cols, int n_pieces,
+    int n_multi, int dim, int att, int heads, int flags, int reduce_blocks,
+    int tables, void* stream) {
   if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_cols > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
                                     ktab, n_cols, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const Graph g = make_graph(colptr, row_by_col, n_cols);
+    const Graph g = make_graph(nullptr, row_by_col, n_cols);
+    const Pieces pc = {static_cast<const int*>(piece_ptr),
+                       static_cast<const int*>(piece_col),
+                       static_cast<const int*>(piece_slot),
+                       static_cast<const int*>(multi_col),
+                       static_cast<const int*>(multi_ptr), n_pieces, n_multi};
     const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
-    const Col c = {ct_ax, recip_p, ct_den, kw_t, dx, dkn, partials,
+    const Col c = {ct_ax, recip_p, ct_den, kw_t, dx, dkn, part, partials,
                    reduce_blocks};
     err = tables == kTablesF32
-              ? launch_bwd_col<float>(g, p, x, qtab, ktab, c, s)
-              : launch_bwd_col<__nv_bfloat16>(g, p, xcol, qtab, ktab, c, s);
+              ? launch_bwd_col<float>(g, pc, p, x, qtab, ktab, c, s)
+              : launch_bwd_col<__nv_bfloat16>(g, pc, p, xcol, qtab, ktab, c,
+                                              s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

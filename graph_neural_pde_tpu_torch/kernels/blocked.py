@@ -33,10 +33,6 @@ from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.ops.plan import (BlockPlan, build_block_plan,
                                                  transpose_plan)
 
-# K15 stages two [block_n, tile] float32 tiles in shared memory; the tile
-# is halved until they fit this budget (two CTAs per SM)
-SMEM_BUDGET = 96 * 1024
-
 
 def _i32(a, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
@@ -44,15 +40,14 @@ def _i32(a, device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class BlockedLayout:
-    """A BlockPlan's arrays on one device, with the order K15 walks them.
+    """A BlockPlan's arrays on one device, with the rows K15 walks.
 
     Per slot: ``row_local``, ``col_local``, ``valid``; per chunk:
-    ``chunk_rows``, ``chunk_cols``. K15's walk (host-built, see
-    :func:`blocked_layout`): ``rb_ptr`` [n_blocks + 1], the chunks of each
-    row block; ``seg_ptr`` [n_chunks + 1], the row segments of each chunk;
-    ``seg_row`` [n_seg], a segment's row_local; ``seg_start``
-    [n_seg + 1], a segment's range of ``slot_ord``, the valid slots sorted
-    by (chunk, row_local); ``slot_col`` their col_local."""
+    ``chunk_rows``, ``chunk_cols`` (K16 and the plain versions read
+    these). K15's row walk (host-built, see :func:`blocked_layout`): a CSR
+    over the plan's valid slots, ``rowptr`` [N_pad + 1]; for each padded
+    node row its slots in plan order (chunk by chunk, then by slot), with
+    each slot's index ``slot`` (for w) and its global column ``col``."""
 
     block_n: int
     chunk: int
@@ -62,12 +57,9 @@ class BlockedLayout:
     valid: torch.Tensor
     chunk_rows: torch.Tensor
     chunk_cols: torch.Tensor
-    rb_ptr: torch.Tensor
-    seg_ptr: torch.Tensor
-    seg_row: torch.Tensor
-    seg_start: torch.Tensor
-    slot_ord: torch.Tensor
-    slot_col: torch.Tensor
+    rowptr: torch.Tensor
+    slot: torch.Tensor
+    col: torch.Tensor
 
     @property
     def capacity(self) -> int:
@@ -79,19 +71,13 @@ class BlockedLayout:
 
 
 def blocked_layout(plan: BlockPlan, device="cpu") -> BlockedLayout:
-    """Move a plan to ``device`` with K15's walk order (one-off host work:
-    a stable sort of the valid slots by (chunk, row_local))."""
+    """Move a plan to ``device`` with K15's row walk (one-off host work: a
+    stable sort of the valid slots, in plan order, by global row)."""
     slots = np.nonzero(plan.valid)[0]
-    chunk_of = slots // plan.chunk
-    order = np.lexsort((plan.row_local[slots], chunk_of))
-    slots, chunk_of = slots[order], chunk_of[order]
-    rows = plan.row_local[slots]
-    new = np.ones(slots.shape[0], bool)
-    new[1:] = (chunk_of[1:] != chunk_of[:-1]) | (rows[1:] != rows[:-1])
-    heads = np.nonzero(new)[0]
-    seg_ptr = np.searchsorted(chunk_of[heads], np.arange(plan.n_chunks + 1))
-    rb_ptr = np.searchsorted(plan.chunk_rows,
-                             np.arange(plan.num_nodes // plan.block_n + 1))
+    slots = slots[np.argsort(plan.row[slots], kind="stable")]
+    rowptr = np.zeros(plan.num_nodes + 1, np.int64)
+    rowptr[1:] = np.cumsum(np.bincount(plan.row[slots],
+                                       minlength=plan.num_nodes))
     return BlockedLayout(
         block_n=plan.block_n, chunk=plan.chunk, num_nodes=plan.num_nodes,
         row_local=_i32(plan.row_local, device),
@@ -99,11 +85,8 @@ def blocked_layout(plan: BlockPlan, device="cpu") -> BlockedLayout:
         valid=torch.as_tensor(plan.valid, device=device),
         chunk_rows=_i32(plan.chunk_rows, device),
         chunk_cols=_i32(plan.chunk_cols, device),
-        rb_ptr=_i32(rb_ptr, device), seg_ptr=_i32(seg_ptr, device),
-        seg_row=_i32(rows[heads], device),
-        seg_start=_i32(np.append(heads, slots.shape[0]), device),
-        slot_ord=_i32(slots, device),
-        slot_col=_i32(plan.col_local[slots], device))
+        rowptr=_i32(rowptr, device), slot=_i32(slots, device),
+        col=_i32(plan.col[slots], device))
 
 
 def _global_ids(lay: BlockedLayout):
@@ -162,17 +145,14 @@ def _pow2_at_most(n: int, cap: int) -> int:
     return p
 
 
-def spmm_tile(block_n: int, dim: int) -> int:
-    """K15's feature tile: the smallest power of two covering ``dim``, at
-    most 16, halved until two [block_n, tile] float32 tiles fit
-    ``SMEM_BUDGET``."""
-    tile = min(16, 1 << max(dim - 1, 0).bit_length())
-    while tile > 1 and 2 * block_n * tile * 4 > SMEM_BUDGET:
-        tile //= 2
-    if 2 * block_n * tile * 4 > SMEM_BUDGET:
-        raise ValueError(f"blocked_spmm: block_n {block_n} exceeds shared "
-                         "memory")
-    return tile
+def spmm_lanes(dim: int, address: int = 0):
+    """K15's (lanes G, vector width V) for rows of ``dim`` floats in a
+    table at ``address``: V the widest of 4, 2, 1 floats that divides dim
+    and whose V * 4 bytes divide the address (16-byte loads where dim % 4
+    == 0), G the smallest power of two covering dim / V vectors, at most
+    32."""
+    vec = next(v for v in (4, 2, 1) if dim % v == 0 and address % (4 * v) == 0)
+    return min(32, 1 << max(dim // vec - 1, 0).bit_length()), vec
 
 
 def blocked_spmm(lay: BlockedLayout, w: torch.Tensor,
@@ -185,12 +165,11 @@ def blocked_spmm(lay: BlockedLayout, w: torch.Tensor,
     if x.device.type != "cuda":
         raise NotImplementedError(f"blocked_spmm: no kernel for {x.device}")
     out = torch.empty_like(x)
-    build.launch("blocked_spmm", x.device, lay.rb_ptr.data_ptr(),
-                 lay.chunk_cols.data_ptr(), lay.seg_ptr.data_ptr(),
-                 lay.seg_row.data_ptr(), lay.seg_start.data_ptr(),
-                 lay.slot_ord.data_ptr(), lay.slot_col.data_ptr(),
-                 w.data_ptr(), x.data_ptr(), out.data_ptr(), lay.n_blocks,
-                 lay.block_n, x.shape[1], spmm_tile(lay.block_n, x.shape[1]))
+    lanes, vec = spmm_lanes(x.shape[1], x.data_ptr())
+    build.launch("blocked_spmm", x.device, lay.rowptr.data_ptr(),
+                 lay.slot.data_ptr(), lay.col.data_ptr(), w.data_ptr(),
+                 x.data_ptr(), out.data_ptr(), lay.num_nodes, x.shape[1],
+                 lanes, vec)
     blocked_spmm.launches += 1
     return out
 

@@ -73,11 +73,13 @@ _ENTRY_POINTS = {
     # together), n_rows, dim, heads, dtype of x (0 float32, 1 bfloat16),
     # stream
     "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 4 + [_PTR],
-    # colptr, row_by_col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last
-    # two nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dx, dkn,
-    # partials, n_cols, dim, att, heads, flags, reduce_blocks, tables,
-    # stream
-    "gnpde_fused_rhs_bwd_col": [_PTR] * 20 + [_INT] * 7 + [_PTR],
+    # piece_ptr, piece_col, piece_slot, multi_col, multi_ptr (the CSC
+    # view's column pieces), row_by_col, x, xcol, qw, qb, kw, kb, gmax, var,
+    # ls (the last two nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab,
+    # dx, dkn, part (nullable without multi-piece columns), partials,
+    # n_cols, n_pieces, n_multi, dim, att, heads, flags, reduce_blocks,
+    # tables, stream
+    "gnpde_fused_rhs_bwd_col": [_PTR] * 25 + [_INT] * 9 + [_PTR],
     # The per-edge payload kernels (csrc/fused_payload.cu).
     # K18, K19 and K8's per-head mode take the same TABLES code for the
     # node rows x and the per-edge payload xg: 0 both float32, 1 x float32
@@ -105,9 +107,9 @@ _ENTRY_POINTS = {
     # as gnpde_fused_rhs_bwd_sym, with project before tables
     "gnpde_norm1_bwd": [_PTR] * 22 + [_INT] * 8 + [_PTR],
     # The blocked-plan kernels (csrc/blocked.cu).
-    # rb_ptr, chunk_cols, seg_ptr, seg_row, seg_start, slot_ord, slot_col,
-    # w, x, out, n_blocks, block_n, dim, tile, stream
-    "gnpde_blocked_spmm": [_PTR] * 10 + [_INT] * 4 + [_PTR],
+    # rowptr, slot, col (the plan's valid slots by row), w, x, out, n_rows,
+    # dim, lanes, vec, stream
+    "gnpde_blocked_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
     # chunk_rows, chunk_cols, row_local, col_local, a, b, out, capacity,
     # chunk, block_n, dim, lanes, stream
     "gnpde_blocked_sddmm": [_PTR] * 7 + [_INT] * 5 + [_PTR],

@@ -38,8 +38,9 @@ each, the feature factor's and the position factor's:
   multisets; replaces ``_bwd_sym_kernel`` / ``_fused_bwd_mega_sym_call``.
 * K17 ``fused_rhs_bwd_col`` -> x[col]'s cotangent summed per column, and
   dkw, dkb from each column's summed dk, on any graph: a walk over the CSC
-  view that recomputes each edge's cotangent from node tables, so that no
-  per-edge array exists; replaces
+  view, its columns cut into pieces of at most ``COL_PIECE`` edges, that
+  recomputes each edge's cotangent from node tables, so that no per-edge
+  array exists; replaces
   ``_bwd_dx_col_kernel`` / ``_bwd_dx_col_call``.
 * K18 ``fused_aggregate``  -> (num, den) with the keys projected from a
   per-EDGE payload ``x_g`` [E_pad, D] (the TPU kernel's operand, which need
@@ -100,6 +101,7 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import column_sum
+from graph_neural_pde_tpu_torch.ops.graph import ColPieces, column_pieces
 
 SCORES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3,
           "exp_kernel_beltrami": 4}
@@ -784,19 +786,23 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
                       gmax, ct_ax, recip_p, ct_den, *, heads: int, score: str,
                       var=None, ls=None, square_plus: bool = False,
-                      xcol=None):
+                      xcol=None, pieces: Optional[ColPieces] = None):
     """K17: (dx [N, D], dkw, dkb), x[col]'s cotangent summed per column
     and the key projection's gradients (see :func:`fused_rhs_bwd_col_plain`),
-    on any graph: one warp walks a column's edges in the CSC view
-    (``colptr``, ``row_by_col``), computes the column's k once, recomputes
-    each edge's score and cotangent from the node rows of its row (q,
-    ct_ax, recip_p, ct_den), and multiplies the column's summed dk by Kw^T
-    once; dkw and dkb are reduced from the summed dk over nodes, as K9's
-    are. With the bfloat16 column table ``xcol`` (K6's) the column's own
-    row and k come from that table and its k table, and dx is the table's
-    cotangent (through the bf16-rounded Kw), taken as x's; dkw is reduced
-    over the table. ``col_by_col`` is only read by the plain version. No
-    atomics: two calls agree bit for bit."""
+    on any graph. It walks the CSC view (``colptr``, ``row_by_col``) cut
+    into ``pieces`` of at most ``COL_PIECE`` edges of one column
+    (``Graph.col_pieces``; built from ``colptr`` when None, a copy to the
+    host): one warp a piece computes the column's k once, recomputes each
+    edge's score and cotangent from the node rows of its row (q, ct_ax,
+    recip_p, ct_den) and sums them; a column of one piece is finished
+    there, the partial sums of a longer column's pieces are added in piece
+    order by a second pass. The column's summed dk is multiplied by Kw^T
+    once; dkw and dkb are reduced from it over nodes, as K9's are. With
+    the bfloat16 column table ``xcol`` (K6's) the column's own row and k
+    come from that table and its k table, and dx is the table's cotangent
+    (through the bf16-rounded Kw), taken as x's; dkw is reduced over the
+    table. ``col_by_col`` is only read by the plain version. No atomics:
+    two calls agree bit for bit."""
     n, d = x.shape
     _check("fused_rhs_bwd_col", colptr, col_by_col, row_by_col, x, qw, qb,
            kw, kb, heads, score, var, ls,
@@ -809,20 +815,29 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     att = qw.shape[1]
     _shared_bytes("fused_rhs_bwd_col", 4 * d + 3 * att + 10 * heads)
     dev = x.device
+    pc = column_pieces(colptr) if pieces is None else pieces
+    if pc.ptr.device != dev or pc.n_pieces < n:
+        raise ValueError("fused_rhs_bwd_col: the column pieces must be those "
+                         f"of this CSC view, on {dev}")
     dx = torch.empty((n, d), dtype=torch.float32, device=dev)
     dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
+    part = (torch.empty((pc.n_slots, d + att), dtype=torch.float32,
+                        device=dev) if pc.n_multi else None)
     blocks = _reduce_blocks(n)
     partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
                            device=dev)
     kw, kb = _col_projection(kw, kb, xcol)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
-    build.launch("fused_rhs_bwd_col", dev, colptr.data_ptr(),
+    build.launch("fused_rhs_bwd_col", dev, pc.ptr.data_ptr(),
+                 pc.col.data_ptr(), pc.slot.data_ptr(),
+                 pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr(),
                  row_by_col.data_ptr(), x.data_ptr(), _ptr(xcol),
                  qw.data_ptr(), qb.data_ptr(), kw.data_ptr(), kb.data_ptr(),
                  gmax.data_ptr(), _ptr(var), _ptr(ls), ct_ax.data_ptr(),
                  recip_p.data_ptr(), ct_den.data_ptr(), kw_t.data_ptr(),
                  tabs[0].data_ptr(), tabs[1].data_ptr(), dx.data_ptr(),
-                 dkn.data_ptr(), partials.data_ptr(), n, d, att, heads,
+                 dkn.data_ptr(), _ptr(part), partials.data_ptr(), n,
+                 pc.n_pieces, pc.n_multi, d, att, heads,
                  _flags(score, square_plus), blocks, _tables(x, xcol))
     fused_rhs_bwd_col.launches += 1
     fused_rhs_bwd_col.bf16_launches += xcol is not None
@@ -1112,7 +1127,8 @@ class _FusedAx(torch.autograd.Function):
                 want_dxg=False, xcol=xcol, **kwargs)
             dx, dkw, dkb = fused_rhs_bwd_col(
                 g.colptr, g.col_by_col, g.row_by_col, x, qw, qb, kw, kb,
-                gmax, ct_ax, recip_p, ct_den, xcol=xcol, **kwargs)
+                gmax, ct_ax, recip_p, ct_den, xcol=xcol,
+                pieces=g.col_pieces, **kwargs)
         else:
             dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,

@@ -21,6 +21,10 @@ sorted by row (``sort_by_row``) the valid edges form the prefix
   column softmax, the sum of a per-edge array over columns) walks
   ``colptr`` as a row pass walks ``rowptr``. It is the port of the JAX
   package's column plan (``stripe.attach_col_plan``).
+* ``col_pieces`` — the CSC view's columns cut into pieces of at most
+  ``COL_PIECE`` edges (:class:`ColPieces`), which the column walk of the
+  fused RHS's backward (K17) spreads over warps, so that a hub column
+  costs no more than ``COL_PIECE`` edges in series.
 
 All of it is built on the host once, when the graph is prepared.
 
@@ -37,8 +41,83 @@ import numpy as np
 import torch
 
 
+# edges of a column piece in K17's walk: 32 measured faster than 64 on a kNN
+# graph's hub columns and no slower elsewhere (PERF.md, section 6)
+COL_PIECE = 32
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ColPieces:
+    """The CSC view's columns cut into pieces of at most ``piece`` edges,
+    in column order (see :func:`column_pieces`).
+
+    ptr   : int32[P + 1] — piece p holds the CSC edges [ptr[p], ptr[p + 1])
+    col   : int32[P] — its column (every column owns at least one piece)
+    slot  : int32[P] — its row of partial sums when its column has several
+            pieces (those rows are numbered in piece order), else -1
+    multi_col : int32[M] — the columns of several pieces, in order
+    multi_ptr : int32[M + 1] — column ``multi_col[m]``'s partial rows are
+                [multi_ptr[m], multi_ptr[m + 1])
+    and host ints: the piece length, P, M, the partial rows (multi_ptr[M])
+    and the longest column's edge count."""
+
+    ptr: torch.Tensor
+    col: torch.Tensor
+    slot: torch.Tensor
+    multi_col: torch.Tensor
+    multi_ptr: torch.Tensor
+    piece: int
+    n_multi: int
+    n_slots: int
+    longest: int
+
+    @property
+    def n_pieces(self) -> int:
+        return self.col.shape[0]
+
+    def to(self, device) -> "ColPieces":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+def column_pieces(colptr, piece: int = COL_PIECE, device=None) -> ColPieces:
+    """Cut every column of a CSC view (``colptr`` [N + 1], numpy or a
+    tensor) into pieces of at most ``piece`` edges: column n of degree d
+    gets max(1, ceil(d / piece)) pieces, in column order, so the pieces
+    cover the edges [0, colptr[N]) once and in order. Host-built, on
+    ``device`` (colptr's by default)."""
+    if piece < 1:
+        raise ValueError(f"column_pieces: piece {piece} < 1")
+    if device is None:
+        device = colptr.device if torch.is_tensor(colptr) else "cpu"
+    if torch.is_tensor(colptr):
+        colptr = colptr.cpu().numpy()
+    colptr = np.asarray(colptr, np.int64)
+    deg = np.diff(colptr)
+    count = np.maximum(1, -(-deg // piece))
+    first = np.cumsum(count) - count                   # a column's 1st piece
+    col = np.repeat(np.arange(deg.shape[0]), count)
+    j = np.arange(col.shape[0]) - first[col]           # index in its column
+    ptr = np.append(colptr[col] + j * piece, colptr[-1])
+    multi = count > 1
+    slot = np.full(col.shape[0], -1, np.int64)
+    slot[multi[col]] = np.arange(int(count[multi].sum()))
+    multi_ptr = np.append(0, np.cumsum(count[multi]))
+
+    def dev(a):
+        return torch.as_tensor(a.astype(np.int32), device=device)
+
+    return ColPieces(ptr=dev(ptr), col=dev(col), slot=dev(slot),
+                     multi_col=dev(np.nonzero(multi)[0]),
+                     multi_ptr=dev(multi_ptr), piece=piece,
+                     n_multi=int(multi.sum()), n_slots=int(multi_ptr[-1]),
+                     longest=int(deg.max(initial=0)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +132,7 @@ class Graph:
                row-sorted graphs)
     colptr, col_perm, row_by_col, col_by_col : the CSC view (row-sorted
                graphs; see the module docstring)
+    col_pieces : the CSC view's column pieces (:class:`ColPieces`)
     masked   : True when ``mask`` drops edges INSIDE the row-sorted valid
                prefix (hard attention's re-masked graph, ``with_mask``);
                ``rowptr``, ``rev`` and the CSC view still describe the
@@ -72,6 +152,7 @@ class Graph:
     col_perm: Optional[torch.Tensor] = None
     row_by_col: Optional[torch.Tensor] = None
     col_by_col: Optional[torch.Tensor] = None
+    col_pieces: Optional[ColPieces] = None
     sorted_valid: Optional[int] = None   # host copy of rowptr[-1]
     masked: bool = False
 
@@ -95,17 +176,18 @@ class Graph:
         return dataclasses.replace(self, mask=keep, masked=True)
 
     def to(self, device) -> "Graph":
-        """Every tensor field moved to ``device``: the fields are read off
-        the dataclass, so none can be left behind."""
+        """Every tensor field (and the column pieces) moved to ``device``:
+        the fields are read off the dataclass, so none can be left
+        behind."""
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            if isinstance(getattr(self, f.name), (torch.Tensor, ColPieces))})
 
     def sort_by_row(self) -> "Graph":
         """Stable-reorder edges by row with padding last (as the JAX
-        package does), then build ``rowptr``, ``rev`` and the CSC view on
-        the host."""
+        package does), then build ``rowptr``, ``rev`` and the CSC view with
+        its column pieces on the host."""
         n = self.num_nodes
         key = torch.where(self.mask, self.row, torch.full_like(self.row, n))
         order = torch.argsort(key, stable=True)
@@ -132,7 +214,9 @@ class Graph:
                      rev=None if rev is None else dev(rev),
                      colptr=dev(colptr), col_perm=dev(col_perm),
                      row_by_col=dev(row_np[col_perm]),
-                     col_by_col=dev(col_np[col_perm]), sorted_valid=nv)
+                     col_by_col=dev(col_np[col_perm]),
+                     col_pieces=column_pieces(colptr, device=row.device),
+                     sorted_valid=nv)
 
 
 def column_order(col: np.ndarray, n_valid: int, num_nodes: int):

@@ -2,9 +2,8 @@
 the CPU: the block plan and its transpose (slot for slot), the plain
 versions of K15 ``blocked_spmm`` and K16 ``blocked_sddmm`` against the
 Pallas calls in float32 interpret mode, the gradients of ``spmm_blocked``
-against the JAX custom VJP, ``gradcheck``, the walk order K15 takes
-(emulated here, since the kernel runs only on the card), the node orders
-and ``reorder_dataset``, the engine the models build, and three epochs of
+against the JAX custom VJP, ``gradcheck``, the node orders and
+``reorder_dataset``, the engine the models build, and three epochs of
 the tuned Cora row with ``spmm_impl="pallas_blocked", node_reorder="rcm"``.
 
 Blocks and chunks are small (128, or less) in both packages: JAX's
@@ -188,59 +187,6 @@ def test_gradcheck():
     w = torch.tensor(tp.fwd.weight, dtype=torch.float64, requires_grad=True)
     assert torch.autograd.gradcheck(
         lambda a, b: blocked.spmm_blocked(tp, a, b), (x, w))
-
-
-def _walk(lay, w, x):
-    """K15's loop in numpy: row blocks, their chunks, each chunk's row
-    segments summed in slot order (csrc/blocked.cu)."""
-    w, x = w.numpy(), x.numpy()
-    out = np.zeros_like(x)
-    b = lay.block_n
-    a = {k: getattr(lay, k).numpy() for k in
-         ("rb_ptr", "chunk_cols", "seg_ptr", "seg_row", "seg_start",
-          "slot_ord", "slot_col", "chunk_rows")}
-    for rb in range(lay.n_blocks):
-        acc = np.zeros((b, x.shape[1]), x.dtype)
-        for c in range(a["rb_ptr"][rb], a["rb_ptr"][rb + 1]):
-            assert a["chunk_rows"][c] == rb
-            xs = x[a["chunk_cols"][c] * b:(a["chunk_cols"][c] + 1) * b]
-            seg = range(a["seg_ptr"][c], a["seg_ptr"][c + 1])
-            rows = a["seg_row"][list(seg)]
-            assert np.unique(rows).shape == rows.shape   # distinct rows
-            for s in seg:
-                ks = range(a["seg_start"][s], a["seg_start"][s + 1])
-                assert all(k // lay.chunk == c for k in a["slot_ord"][ks])
-                acc[a["seg_row"][s]] += sum(
-                    w[a["slot_ord"][k]] * xs[a["slot_col"][k]] for k in ks)
-        out[rb * b:(rb + 1) * b] = acc
-    return out
-
-
-def test_kernel_walk_order_covers_the_plan():
-    """The host-built order K15 walks (row blocks, chunks, row segments)
-    visits every valid slot once and reproduces the plain version."""
-    _, tp = _pair(8, block_n=128, chunk=64)
-    for plan in (tp.fwd, tp.bwd):
-        lay = blocked.blocked_layout(plan)
-        slots = lay.slot_ord.numpy()
-        np.testing.assert_array_equal(np.sort(slots),
-                                      np.nonzero(plan.valid)[0])
-        rng = np.random.default_rng(9)
-        x = torch.tensor(rng.normal(size=(plan.num_nodes, 3)),
-                         dtype=torch.float32)
-        w = torch.tensor(plan.weight)
-        want = blocked.blocked_spmm_plain(lay, w, x).numpy()
-        assert _rel(_walk(lay, w, x), want) < 1e-6
-
-
-@pytest.mark.parametrize("block_n,dim,tile", [
-    (1024, 1, 1), (1024, 3, 4), (1024, 80, 8), (128, 162, 16),
-    (4096, 128, 2)])
-def test_spmm_tile(block_n, dim, tile):
-    """K15's feature tile: covers small D, and two [block_n, tile] float32
-    tiles fit the shared-memory budget."""
-    assert blocked.spmm_tile(block_n, dim) == tile
-    assert 2 * block_n * tile * 4 <= blocked.SMEM_BUDGET
 
 
 def test_cpu_runs_plain_versions_without_launching():
