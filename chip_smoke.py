@@ -32,7 +32,12 @@ Phases, each of which must pass (any failure exits nonzero):
    H=8 and the arxiv-scale graph at D=128, ATT=32, H=2, and for
    exp_kernel_beltrami at bench.py's BLEND widths on the arxiv-scale graph
    (D=128, packed ATT=2 x 32, H=2); two K9 launches must be
-   bit-identical. K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
+   bit-identical; K6-K9 and K12-K14 also over the Cora stand-in with a
+   hub row of degree 360 at D=80, ATT=128, H=8, whose row K9 and K14 cut
+   into pieces that a second pass merges. Before each K9 and K14 check a
+   line prints the walk's design (``kernels.fused_rhs.sym_design``: its
+   register tiles and how a head is summed) and the graph's row pieces.
+   K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
    also against its plain version in float64), at a small shape, the Cora
    stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2, with a
    float32 table and with the bfloat16 column table (the composed RHS's
@@ -440,6 +445,22 @@ def directed_random_graph(n: int, pairs: int, seed: int):
     return prepare_graph(best_params["Cora"], g)
 
 
+def hub_graph(g, degree: int, seed: int):
+    """``g``'s valid edges with node 0 joined both ways to ``degree`` other
+    nodes drawn from ``seed``: a symmetric graph whose row 0 is a hub far
+    longer than the row pieces K9 and K14 cut (``Graph.col_pieces``)."""
+    import numpy as np
+    from graph_neural_pde_tpu_torch.ops.graph import make_graph
+    nv = g.num_valid
+    row, col = g.row[:nv].cpu().numpy(), g.col[:nv].cpu().numpy()
+    rng = np.random.default_rng(seed)
+    peers = rng.choice(np.arange(1, g.num_nodes), degree, replace=False)
+    hub = np.zeros(degree, row.dtype)
+    return make_graph(np.concatenate([row, hub, peers]),
+                      np.concatenate([col, peers, hub]),
+                      num_nodes=g.num_nodes, pad_multiple=512).sort_by_row()
+
+
 def gdc_graph(cfg, data_dir: str):
     """``cfg``'s dataset (its stand-in without raw files) rewired by GDC,
     the dense diffusion on the card, and prepared as its block prepares
@@ -750,6 +771,17 @@ def payload_ops(n, nv, d, att, h, score):
             n * proj + nv * (3 * proj + 6 * att + 4 * h * d))
 
 
+def print_walk_design(kname, shape_name, dims, g, d, att, h, score):
+    """The design variant K9's or K14's walk runs at these widths
+    (``kernels.fused_rhs.sym_design``) over ``g``'s row pieces."""
+    from graph_neural_pde_tpu_torch.kernels.fused_rhs import sym_design
+    pc = g.col_pieces
+    print(f"[kernels] {kname} walk @ {shape_name} {dims}: "
+          f"{sym_design(d, att, h, score)} over {pc.n_pieces} row "
+          f"pieces of at most {pc.piece} edges ({pc.n_multi} rows of "
+          f"several, longest row {pc.longest} edges)", flush=True)
+
+
 def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                         dev="cuda", feat=None, payload=None, row_bf16=False):
     """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
@@ -841,7 +873,9 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
          lambda: plain64(K.fused_rhs_bwd_plain, shifts=shifts, **kw_x,
                          **kw_f)),
         ("fused_rhs_bwd_sym", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
-         lambda: some(K.fused_rhs_bwd_sym(*csr, *ops, *cts, **kw_x, **kw_f)),
+         lambda: some(K.fused_rhs_bwd_sym(*csr, *ops, *cts,
+                                          pieces=g.col_pieces, **kw_x,
+                                          **kw_f)),
          lambda: some(K.fused_rhs_bwd_sym_plain(*csr, *ops, *cts, **kw_x,
                                                 **kw_f)),
          # per node q, k, dk Kw^T and x^T dk; per edge two scores' worth
@@ -864,6 +898,9 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                   *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    if symmetric:
+        print_walk_design("fused_rhs_bwd_sym", shape_name, dims, g, d, att,
+                          h, score)
     rows = []
     for kname, what, kern, plain, work, ref in cases:
         rows.append(time_case(kname, what, shape_name, dims, kern, plain,
@@ -1242,7 +1279,8 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
          (base_bytes + 4 * n * (h + d),
           2 * n * proj + nv * (2 * att + 2 * d + 2 * h)), None),
         ("norm1_bwd", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
-         lambda: some(K.norm1_bwd(*csr, *ops, *cts, **kw_x, **kw_f)),
+         lambda: some(K.norm1_bwd(*csr, *ops, *cts, pieces=g.col_pieces,
+                                  **kw_x, **kw_f)),
          lambda: some(K.norm1_bwd_plain(*csr, *ops, *cts, **kw_x, **kw_f)),
          (base_bytes + 4 * (n * (d + 2 * h) + n * att + n * d + d * att),
           4 * n * proj + nv * (10 * att + 6 * d)), bwd64),
@@ -1252,6 +1290,7 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
         cases = [(kname + " bf16", *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    print_walk_design("norm1_bwd", shape_name, dims, g, d, att, h, score)
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
@@ -2668,6 +2707,15 @@ def main() -> int:
         rows += check_fused_kernels("cora-standin", cora_g, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 20)
+        # the same widths over the Cora stand-in with a hub row of degree
+        # 360: K9 and K14 cut it into row pieces and merge them
+        cora_hub = hub_graph(cora_g, 360, args.seed + 230)
+        rows += check_fused_kernels("cora-hub", cora_hub, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 231)
+        rows += check_norm1_kernels("cora-hub", cora_hub, nl.hidden_dim,
+                                    nl.attention_dim, nl.heads, "scaled_dot",
+                                    args.seed + 232)
         # the bfloat16 payload: K1 and K2 on bf16 tables at the tuned Cora
         # row's width, K6 and K9 on the bf16 column table at the Cora
         # GRAND-nl widths and, every family, small

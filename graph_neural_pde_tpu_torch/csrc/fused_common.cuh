@@ -433,115 +433,6 @@ __device__ __forceinline__ void write_row_sums(float* row_sums, int n,
   }
 }
 
-// One row n of the backward over a SYMMETRIC edge multiset: K9
-// (fused_rhs_bwd_sym, softmax over rows) and, with kColumnNorm, K14
-// (norm1_bwd, softmax over columns). Each edge (n, c) also evaluates its
-// reverse edge (c, n) from node rows gathered at c, so that x[col]'s
-// cotangent and dk land on the resident row and nothing is scattered.
-// xcol is the column-side table the values and k were taken from (x
-// itself, or the bfloat16 copy of it that K9 and K14 read under the bf16
-// payload, whose k table is bfloat16 too); the
-// row side is the q table. smem is the block's dynamic shared memory,
-// 5 D + 6 ATT + 2 kCoef H floats a warp.
-template <bool kColumnNorm, typename TC>
-__device__ __forceinline__ void sym_backward_row(
-    float* smem, Graph g, Proj p, const TC* __restrict__ xcol,
-    const float* __restrict__ qtab, const TC* __restrict__ ktab,
-    const float* __restrict__ kw_t,
-    const float* __restrict__ ct_ax, const float* __restrict__ recip_p,
-    const float* __restrict__ ct_den, float* __restrict__ dq,
-    float* __restrict__ dxrow, float* __restrict__ dkn_out,
-    float* __restrict__ row_sums) {
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  float* xn = smem + static_cast<size_t>(warp) * (5 * D + 6 * A + 2 * kCoef * H);
-  float* xc = xn + D;
-  float* cta = xc + D;                          // ct_ax[n]
-  float* ctc = cta + D;                         // ct_ax[c]
-  float* dxa = ctc + D;                         // dxrow[n] accumulator
-  float* q = dxa + D;                           // q_n
-  float* kn = q + A;                            // k_n: the reverse edges' k
-  float* ke = kn + A;                           // k_c
-  float* qc = ke + A;                           // q_c: the reverse edge's q
-  float* dqa = qc + A;
-  float* dkn = dqa + A;                         // sum of the reverse edges' dk
-  float* coef = dkn + A;                        // [H, kCoef] forward edge
-  float* coef_r = coef + kCoef * H;             // [H, kCoef] reverse edge
-  load_row(xcol, n, D, lane, xn);
-  load_row(ct_ax, n, D, lane, cta);
-  for (int d = lane; d < D; d += kWarp) dxa[d] = 0.0f;
-  for (int a = lane; a < A; a += kWarp) dqa[a] = dkn[a] = 0.0f;
-  load_row(qtab, n, A, lane, q);
-  load_row(ktab, n, A, lane, kn);
-  __syncwarp();
-  const float gmax = *p.gmax;
-  const ScoreParams sc = score_params(p);
-  const float rg = lane < H ? recip_p[static_cast<size_t>(n) * H + lane] : 0.0f;
-  const float ctd = lane < H ? ct_den[static_cast<size_t>(n) * H + lane] : 0.0f;
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  RowSums sums = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int e = start; e < end; ++e) {
-    const int c = g.col[e];
-    load_row(xcol, c, D, lane, xc);
-    load_row(ct_ax, c, D, lane, ctc);
-    load_row(ktab, c, A, lane, ke);
-    load_row(qtab, c, A, lane, qc);
-    __syncwarp();
-    float part = 0.0f, part_r = 0.0f;
-    for (int d = lane; d < D; d += kWarp) {
-      part = fmaf(cta[d], xc[d], part);
-      part_r = fmaf(ctc[d], xn[d], part_r);
-    }
-    const float dot = warp_sum(part);           // ct_ax[n] . x_c
-    const float dot_r = warp_sum(part_r);       // ct_ax[c] . x_n
-    float w_r = 0.0f;
-    if (lane < H) {
-      // the softmax group of the edge (n, c) is its row n, that of its
-      // reverse (c, n) the row c; normalised over columns, the other way
-      // round
-      const float rg_c = recip_p[static_cast<size_t>(c) * H + lane];
-      const float ctd_c = ct_den[static_cast<size_t>(c) * H + lane];
-      const float rg_f = kColumnNorm ? rg_c : rg;
-      const float ctd_f = kColumnNorm ? ctd_c : ctd;
-      const float rg_r = kColumnNorm ? rg : rg_c;
-      const float ctd_r = kColumnNorm ? ctd : ctd_c;
-      // the edge (n, c): dq[n], and the sums over all edges
-      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
-      head_backward(hs, hs.s - gmax, p.square_plus, dot, rg_f, ctd_f, sc,
-                    p.score, H, coef + 5 * lane, &sums);
-      // its reverse (c, n): q_c against k_n; its x[col] cotangent lands on
-      // x_n
-      const HeadScore hr = head_score(qc, kn, lane, d_k, H, p.score, sc);
-      RowSums unused = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      w_r = rg_r * head_backward(hr, hr.s - gmax, p.square_plus, dot_r, rg_r,
-                                 ctd_r, sc, p.score, H, coef_r + 5 * lane,
-                                 &unused);
-    }
-    const float wsum_r = head_sum(w_r, H);
-    __syncwarp();
-    for (int a = lane; a < A; a += kWarp) {
-      const int h = a / d_k;                    // a head or its position half
-      const float* cf = coef + 5 * h;
-      dqa[a] += cf[0] * (ke[a] - cf[4]) - cf[1] * (q[a] - cf[3]);
-      const float* cr = coef_r + 5 * h;
-      dkn[a] += cr[0] * (qc[a] - cr[3]) - cr[2] * (kn[a] - cr[4]);
-    }
-    for (int d = lane; d < D; d += kWarp) dxa[d] = fmaf(wsum_r, ctc[d], dxa[d]);
-    __syncwarp();
-  }
-  for (int a = lane; a < A; a += kWarp) {
-    dq[static_cast<size_t>(n) * A + a] = dqa[a];
-    dkn_out[static_cast<size_t>(n) * A + a] = dkn[a];
-  }
-  __syncwarp();
-  project(dkn, kw_t, nullptr, A, D, lane, xc);  // xc: (sum of dk) Kw^T
-  for (int d = lane; d < D; d += kWarp)
-    dxrow[static_cast<size_t>(n) * D + d] = dxa[d] + xc[d];
-  write_row_sums(row_sums, n, H, lane, sums);
-}
-
 // partial[p, d, a] = sum over block p's rows r of [x[idx[r]] | 1][d] b[r, a]
 // (idx null: r itself), d in [0, dim]: the first pass of dKw (rows < dim)
 // and dKb (row dim). Each block owns a fixed row range and a 32 x 32 tile.
@@ -712,49 +603,839 @@ Graph make_graph(const void* rowptr, const void* col, int n_rows) {
   return g;
 }
 
+// ------------------------------------------------------------------------
+// K9 (fused_rhs_bwd_sym, softmax over rows) and K14 (norm1_bwd, over
+// columns): the backward over a SYMMETRIC edge multiset, in place of the
+// TPU kernels P13 _bwd_sym_kernel and P16 _norm1_bwd_kernel
+// (graph_neural_pde_tpu/ops/pallas/fused_rhs.py). Each edge (n, c) of row
+// n also evaluates its reverse edge (c, n) from node rows gathered at c,
+// so that x[col]'s cotangent and dk land on the resident row and nothing
+// is scattered (P13's and P16's one-pass design: no per-edge array, no
+// reverse-edge map). Per edge the walk gathers x_c and ct_ax[c] (D
+// values each), k_c and q_c (ATT each) and the node's (recip_p, ct_den)
+// of every head, and scores two edges.
+//
+// What bounds it on the H100: the latency of those gathers and the
+// per-edge chain behind them, times the warps an SM keeps in flight. The
+// first version gathered each row into shared memory by a loop of its
+// own, so an edge waited on six memory round trips in series
+// (col[e], four rows, then the 2 H scalars), and then scored the heads on
+// H lanes, d_k serial terms through shared memory each: 80 registers, 24
+// resident warps an SM, 4.24 ms at arxiv scale for the walk alone, 35x
+// the 0.12 ms bound of the whole call (PERF.md, section 6).
+//
+// Design (register-resident, lane-parallel):
+// * A warp walks one edge at a time. In D tile t lane l owns the four
+//   columns 4 (32 t + l) .. + 3 of every D-wide row, read as one 16-byte
+//   load (8 bytes for a bfloat16 table), in A tile j the column 32 j + l
+//   of every q or k row: KD and KA tiles, template sizes. The resident
+//   row's x_n, ct_ax[n], q_n, k_n and its accumulators live in registers;
+//   an edge's four rows and its (recip_p, ct_den) row (one [N, H] float2
+//   table the wrapper packs) are loaded into registers together, one round
+//   trip, and the column indices of 32 edges come in one coalesced load.
+// * Heads are scored on all lanes: a head's terms are summed over its d_k
+//   lanes by a segmented butterfly (both edges' sums in flight together),
+//   so every lane holds its head's score, forms u, du/ds and the
+//   coefficients of its own column, and the heads' sums (the reverse
+//   edges' weight sum_h u recip_p, dgmax's ds and the score scalars'
+//   terms) are a fold over the head groups. exp_kernel_beltrami's
+//   position half reads its head's feature distance from the tile A / 2
+//   columns on (or the lane A / 2 on, when A <= 32). A d_k that is not a
+//   power of two, or a beltrami half that fits neither, sums each head's
+//   terms in column order through a per-warp buffer of A floats.
+// * Registers set the warps in flight, so a kernel holds one class of
+//   score families (cosine_sim and pearson, kNormed, need six sums and
+//   four means a tile; the others two or four) and its launch bounds cap
+//   the registers (sym_min_blocks).
+// * Rows are cut into pieces of at most COL_PIECE edges (ops/graph.py,
+//   column_pieces of rowptr, which on a symmetric graph is the CSC view's
+//   own column_pieces); a warp walks a piece, a row of one piece is
+//   finished there, a longer row's pieces write partial sums that the
+//   merge pass (sym_merge_rows) adds in piece order.
+// Each output is summed in a fixed order (edges in a piece, then pieces in
+// order; every butterfly and fold is the same on every run): no atomics,
+// two launches agree bit for bit. The row's product (sum dk) Kw^T, read by
+// lanes spanning D, and the two-pass dKw / dKb reduction
+// (outer_reduce_kernel over the per-node dk sums) stay as they were.
+
+// The pieces of a walk's rows or columns (ops/graph.py, ColPieces):
+// piece p holds the edges [ptr[p], ptr[p + 1]) of row or column col[p];
+// slot[p] >= 0 is its row of partial sums when that row has several
+// pieces, and the second pass adds multi_col[m]'s partial rows
+// [multi_ptr[m], multi_ptr[m + 1]).
+struct Pieces {
+  const int *ptr, *col, *slot, *multi_col, *multi_ptr;
+  int n_pieces, n_multi;
+};
+
+// What K9 and K14's walk reads beside its pieces and tables, and writes
+struct SymIO {
+  const int* col;          // each edge's column
+  const float* ct_ax;      // [N, D]
+  const float2* rc;        // [N, H]: (recip_p, ct_den)
+  const float* kw_t;       // Kw^T [ATT, D]
+  float* dq;               // [N, ATT]
+  float* dxrow;            // [N, D]
+  float* dkn;              // [N, ATT]: dk summed over each node's reverse edges
+  float* row_sums;         // [N, kRowSums]
+  float* part;             // [slots, D + 2 ATT + kRowSums]: pieces' partials
+  int vec;                 // D % 4 == 0 and the D-wide rows 16-byte aligned
+};
+
+__host__ __device__ constexpr int sym_part_floats(int dim, int att) {
+  return dim + 2 * att + kRowSums;
+}
+
+__device__ __forceinline__ float4 zero4() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// columns c0 .. c0 + 3 of a D-wide row (zero beyond D): one 16-byte load
+// where `vec` (D % 4 == 0, aligned rows), else four guarded loads
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int c0,
+                                        int dim, bool vec) {
+  if (vec)
+    return c0 < dim ? __ldg(reinterpret_cast<const float4*>(row + c0))
+                    : zero4();
+  float4 v;
+  v.x = c0 < dim ? __ldg(row + c0) : 0.0f;
+  v.y = c0 + 1 < dim ? __ldg(row + c0 + 1) : 0.0f;
+  v.z = c0 + 2 < dim ? __ldg(row + c0 + 2) : 0.0f;
+  v.w = c0 + 3 < dim ? __ldg(row + c0 + 3) : 0.0f;
+  return v;
+}
+
+// the same of a bfloat16 row, widened: one 8-byte load where `vec`
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* __restrict__ row,
+                                        int c0, int dim, bool vec) {
+  if (vec) {
+    if (c0 >= dim) return zero4();
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(row + c0));
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  float4 v;
+  v.x = c0 < dim ? __bfloat162float(row[c0]) : 0.0f;
+  v.y = c0 + 1 < dim ? __bfloat162float(row[c0 + 1]) : 0.0f;
+  v.z = c0 + 2 < dim ? __bfloat162float(row[c0 + 2]) : 0.0f;
+  v.w = c0 + 3 < dim ? __bfloat162float(row[c0 + 3]) : 0.0f;
+  return v;
+}
+
+__device__ __forceinline__ void store4(float* row, int c0, int dim, bool vec,
+                                       float4 v) {
+  if (vec) {
+    if (c0 < dim) *reinterpret_cast<float4*>(row + c0) = v;
+    return;
+  }
+  if (c0 < dim) row[c0] = v.x;
+  if (c0 + 1 < dim) row[c0 + 1] = v.y;
+  if (c0 + 2 < dim) row[c0 + 2] = v.z;
+  if (c0 + 3 < dim) row[c0 + 3] = v.w;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ float4 axpy4(float s, float4 x, float4 y) {
+  return make_float4(fmaf(s, x.x, y.x), fmaf(s, x.y, y.y), fmaf(s, x.z, y.z),
+                     fmaf(s, x.w, y.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// How a warp sums a head's terms: over d_k lanes of one tile (d_k a power
+// of two <= 32), over the 32 lanes of d_k / 32 tiles (a power of two >
+// 32), or through the warp's buffer (any other d_k, or a beltrami position
+// half neither a tile nor a lane offset away).
+enum HeadSum { kLaneHeads = 0, kTileHeads = 1, kBufferHeads = 2 };
+
+// A lane's view of the heads, tile by tile (bit j of each mask for tile j)
+template <int KA>
+struct LaneHeads {
+  int d_k, mode, span;     // span: tiles a head covers (kTileHeads)
+  int fold;                // the fold over head groups starts at this offset
+  int half;                // beltrami: the position half's tile offset, or 0
+                           // (A <= 32: its lane offset A / 2)
+  unsigned valid;          // the column is < A
+  unsigned feat;           // and in a feature slice (every slice but
+                           // beltrami's position halves)
+  unsigned once;           // and counts its head once in the fold
+  int head[KA];            // the head of the column's slice
+};
+
+template <int KA>
+__device__ __forceinline__ LaneHeads<KA> make_heads(const Proj& p, int lane) {
+  LaneHeads<KA> h;
+  const int A = p.att, H = p.heads;
+  h.d_k = head_width(p);
+  const bool pow2 = (h.d_k & (h.d_k - 1)) == 0;
+  const bool belt = p.score == kBeltrami;
+  const bool paired = !belt || (A / 2) % kWarp == 0 || A <= kWarp;
+  h.mode = !pow2 || !paired ? kBufferHeads
+                            : (h.d_k <= kWarp ? kLaneHeads : kTileHeads);
+  h.span = h.mode == kTileHeads ? h.d_k / kWarp : 1;
+  h.fold = h.mode == kLaneHeads ? h.d_k : (h.mode == kTileHeads ? kWarp : 1);
+  h.half = belt && A > kWarp ? A / 2 / kWarp : 0;
+  h.valid = h.feat = h.once = 0u;
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int a = kWarp * j + lane, slice = a / h.d_k;
+    const bool v = a < A, f = v && slice < H;
+    const bool first = h.mode == kLaneHeads  ? true
+                       : h.mode == kTileHeads ? j % h.span == 0
+                                              : a % h.d_k == 0;
+    h.valid |= static_cast<unsigned>(v) << j;
+    h.feat |= static_cast<unsigned>(f) << j;
+    h.once |= static_cast<unsigned>(f && first) << j;
+    h.head[j] = v ? slice % H : 0;
+  }
+  return h;
+}
+
+__device__ __forceinline__ bool bit(unsigned mask, int j) {
+  return (mask >> j) & 1u;
+}
+
+// In place, for each of NV values a tile: the sum of the value over the
+// lane's slice (d_k columns), the same in every lane of the slice. buf:
+// the warp's A floats (kBufferHeads only).
+template <int KA, int NV>
+__device__ __forceinline__ void slice_sums(const LaneHeads<KA>& h,
+                                           float (&v)[NV][KA], float* buf,
+                                           int lane, int att) {
+  if (h.mode == kBufferHeads) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+#pragma unroll
+      for (int j = 0; j < KA; ++j)
+        if (bit(h.valid, j)) buf[kWarp * j + lane] = v[i][j];
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        const int a = kWarp * j + lane;
+        float s = 0.0f;
+        if (a < att) {
+          const float* b = buf + (a / h.d_k) * h.d_k;
+          for (int t = 0; t < h.d_k; ++t) s += b[t];
+        }
+        v[i][j] = s;
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  if (h.mode == kTileHeads) {             // a head's tiles, in the lane first
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      float s[KA];
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        s[j] = 0.0f;
+#pragma unroll
+        for (int t = 0; t < KA; ++t)
+          if (t / h.span == j / h.span) s[j] += v[i][t];
+      }
+#pragma unroll
+      for (int j = 0; j < KA; ++j) v[i][j] = s[j];
+    }
+  }
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        const float t = __shfl_xor_sync(kFull, v[i][j], o);
+        if (o < h.d_k) v[i][j] += t;
+      }
+  }
+}
+
+// For each tile, the slice sums s of the lane's beltrami partner half:
+// the same head's position half for a feature column, and back
+template <int KA>
+__device__ __forceinline__ void partner(const LaneHeads<KA>& h,
+                                        const float (&s)[KA], float (&out)[KA],
+                                        float* buf, int lane,
+                                        int att) {
+  const int half = att / 2;
+  if (h.mode == kBufferHeads) {
+#pragma unroll
+    for (int j = 0; j < KA; ++j)
+      if (bit(h.valid, j)) buf[kWarp * j + lane] = s[j];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const int a = kWarp * j + lane;
+      out[j] = a < att ? buf[bit(h.feat, j) ? a + half : a - half] : 0.0f;
+    }
+    __syncwarp();
+  } else if (h.half > 0) {                // the same lane, h.half tiles on
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const int jp = bit(h.feat, j) ? j + h.half : j - h.half;
+      float v = 0.0f;
+#pragma unroll
+      for (int t = 0; t < KA; ++t)
+        if (t == jp) v = s[t];
+      out[j] = v;
+    }
+  } else {                                // A <= G: A / 2 lanes on
+    const bool f = bit(h.feat, 0);
+    const int src = lane < att ? (f ? lane + half : lane - half) : lane;
+#pragma unroll
+    for (int j = 0; j < KA; ++j)
+      out[j] = __shfl_sync(kFull, s[j], src);
+  }
+}
+
+// the sum over the heads of a per-lane value: a fold over the slices of
+// the warp (lanes d_k apart) after each lane added up its tiles' `once`
+// values; the same in every lane
+__device__ __forceinline__ float head_fold(float v, int fold) {
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const float t = __shfl_xor_sync(kFull, v, o);
+    if (o >= fold) v += t;
+  }
+  return v;
+}
+
+// The score's constants, read once by each warp: 1 / sqrt(d_k), 1 / d_k,
+// and for exp_kernel (the position factor's for exp_kernel_beltrami, _p)
+// -1 / (2 ls^2), 1 / ls^2, 1 / ls^3 and 2 / var, var^2
+struct ScoreConsts {
+  float root, inv_dk, ex, il2, il3, iv2, v2, ex_p, il2_p, il3_p, iv2_p,
+      v2_p;
+};
+
+__device__ __forceinline__ ScoreConsts score_consts(const ScoreParams& sc,
+                                                    int d_k) {
+  ScoreConsts c;
+  c.root = 1.0f / sqrtf(static_cast<float>(d_k));
+  c.inv_dk = 1.0f / static_cast<float>(d_k);
+  c.ex = -1.0f / (2.0f * sc.ls * sc.ls);
+  c.il2 = 1.0f / (sc.ls * sc.ls);
+  c.il3 = c.il2 / sc.ls;
+  c.iv2 = 2.0f / sc.var;
+  c.v2 = sc.var * sc.var;
+  c.ex_p = -1.0f / (2.0f * sc.ls_p * sc.ls_p);
+  c.il2_p = 1.0f / (sc.ls_p * sc.ls_p);
+  c.il3_p = c.il2_p / sc.ls_p;
+  c.iv2_p = 2.0f / sc.var_p;
+  c.v2_p = sc.var_p * sc.var_p;
+  return c;
+}
+
+// The slice sums an edge's two scores need, all heads and both
+// directions at once (forward: q_n against k_c; reverse: q_c against
+// k_n), so that their butterflies are in flight together. Without
+// kNormed: scaled_dot v[0..1] the two dot products; exp_kernel(_beltrami)
+// v[0..1] the squared distances and, for beltrami, v[2..3] the partner
+// half's. With kNormed (cosine_sim, pearson): v[0..2] (q.k, q.q, k.k)
+// forward and v[3..5] reverse over the centred columns, pearson's means
+// m[0..3] (q_n, k_c, q_c, k_n), else 0.
+template <int KA, bool kNormed>
+__device__ __forceinline__ void edge_sums(
+    const LaneHeads<KA>& h, const Proj& p, const ScoreConsts& k,
+    const float (&qn)[KA], const float (&kc)[KA], const float (&qc)[KA],
+    const float (&kn)[KA], float* buf, int lane,
+    float (&v)[kNormed ? 6 : 4][KA], float (&m)[4][KA]) {
+  const int A = p.att;
+  if constexpr (!kNormed) {
+    float t[2][KA];
+    const bool dot = p.score == kScaledDot;
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const float df = qn[j] - kc[j], dr = qc[j] - kn[j];
+      t[0][j] = dot ? qn[j] * kc[j] : df * df;
+      t[1][j] = dot ? qc[j] * kn[j] : dr * dr;
+    }
+    slice_sums<KA, 2>(h, t, buf, lane, A);
+    if (p.score == kBeltrami) {
+      float w[KA];
+      partner<KA>(h, t[0], w, buf, lane, A);
+#pragma unroll
+      for (int j = 0; j < KA; ++j) v[2][j] = w[j];
+      partner<KA>(h, t[1], w, buf, lane, A);
+#pragma unroll
+      for (int j = 0; j < KA; ++j) v[3][j] = w[j];
+    }
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      v[0][j] = t[0][j];
+      v[1][j] = t[1][j];
+    }
+  } else {
+    if (p.score == kPearson) {              // the head means first
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        m[0][j] = qn[j];
+        m[1][j] = kc[j];
+        m[2][j] = qc[j];
+        m[3][j] = kn[j];
+      }
+      slice_sums<KA, 4>(h, m, buf, lane, A);
+#pragma unroll
+      for (int j = 0; j < KA; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) m[i][j] *= k.inv_dk;
+    }
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const float a = qn[j] - m[0][j], b = kc[j] - m[1][j];
+      const float c = qc[j] - m[2][j], d = kn[j] - m[3][j];
+      v[0][j] = a * b;
+      v[1][j] = a * a;
+      v[2][j] = b * b;
+      v[3][j] = c * d;
+      v[4][j] = c * c;
+      v[5][j] = d * d;
+    }
+    slice_sums<KA, 6>(h, v, buf, lane, A);
+  }
+}
+
+// One direction's score at one lane's column and, per unit ds, the
+// coefficients of dq = P (k - mk) - Q (q - mq) and dk = P (q - mq) -
+// R (k - mk) (exp_kernel_beltrami's position half: P = Q = R = s / ls_p^2),
+// and the distances of the exp_kernel scalars' derivatives
+struct TileScore {
+  float s, p, q, r, dist, dist_p;
+};
+
+// v: the column's slice sums (edge_sums); e: 0 the forward direction, 1
+// the reverse; feat: the column is in a feature slice (every column but
+// beltrami's position halves)
+template <bool kNormed>
+__device__ __forceinline__ TileScore tile_score(int score,
+                                                const ScoreConsts& k,
+                                                const float* v, int e,
+                                                bool feat) {
+  TileScore o = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (!kNormed) {
+    if (score == kScaledDot) {
+      o.s = v[e] * k.root;
+      o.p = k.root;
+      return o;
+    }
+    const bool belt = score == kBeltrami;
+    const float own = v[e], other = belt ? v[2 + e] : 0.0f;
+    o.dist = feat ? own : other;
+    o.s = k.v2 * expf(o.dist * k.ex);
+    if (belt) {
+      o.dist_p = feat ? other : own;
+      o.s = o.s * k.v2_p * expf(o.dist_p * k.ex_p);
+    }
+    o.p = o.q = o.r = o.s * (feat ? k.il2 : k.il2_p);
+    return o;
+  } else {
+    const float sp = v[3 * e], ss = v[3 * e + 1], kk = v[3 * e + 2];
+    const float rs = sqrtf(ss), rk = sqrtf(kk);
+    const float ns = fmaxf(rs, kEpsNorm), nk = fmaxf(rk, kEpsNorm);
+    o.p = 1.0f / (ns * nk);
+    o.s = sp * o.p;
+    // the clamped norm has no derivative: its term drops out below it
+    o.q = rs > kEpsNorm ? o.s / fmaxf(ss, kEpsNorm * kEpsNorm) : 0.0f;
+    o.r = rk > kEpsNorm ? o.s / fmaxf(kk, kEpsNorm * kEpsNorm) : 0.0f;
+    return o;
+  }
+}
+
+// The end of a row: dq and the summed dk written, dxrow[n] = dxa + (sum
+// dk) Kw^T with lanes spanning D (dk broadcast from its lane, Kw^T's rows
+// read as coalesced 16-byte loads), and the row's scalar sums
+template <int KD, int KA>
+__device__ __forceinline__ void finish_row(const SymIO& io, int n, int D,
+                                           int A, int lane,
+                                           const float4 (&dxa)[KD],
+                                           const float (&dqa)[KA],
+                                           const float (&dka)[KA],
+                                           const float (&sums)[kRowSums]) {
+  const bool vec = io.vec;
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int a = kWarp * j + lane;
+    if (a < A) {
+      io.dq[static_cast<size_t>(n) * A + a] = dqa[j];
+      io.dkn[static_cast<size_t>(n) * A + a] = dka[j];
+    }
+  }
+  float4 acc[KD];
+#pragma unroll
+  for (int t = 0; t < KD; ++t) acc[t] = zero4();
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int cols = min(kWarp, A - kWarp * j);   // the tile's valid columns
+#pragma unroll 8
+    for (int l = 0; l < cols; ++l) {
+      const float v = __shfl_sync(kFull, dka[j], l);
+      const float* wr = io.kw_t + static_cast<size_t>(kWarp * j + l) * D;
+#pragma unroll
+      for (int t = 0; t < KD; ++t)
+        acc[t] = axpy4(v, load4(wr, 4 * (kWarp * t + lane), D, vec), acc[t]);
+    }
+  }
+  float* out = io.dxrow + static_cast<size_t>(n) * D;
+#pragma unroll
+  for (int t = 0; t < KD; ++t)
+    store4(out, 4 * (kWarp * t + lane), D, vec, add4(dxa[t], acc[t]));
+  if (lane == 0) {
+    float* rs = io.row_sums + static_cast<size_t>(n) * kRowSums;
+#pragma unroll
+    for (int i = 0; i < kRowSums; ++i) rs[i] = sums[i];
+  }
+}
+
+// An edge's gathered rows at its column c: x_c and ct_ax[c] (lanes
+// spanning D), k_c, q_c and (recip_p, ct_den) of the column's head (lanes
+// spanning A), every load issued before the first use
+template <int KD, int KA>
+struct EdgeRows {
+  float4 xc[KD], ctc[KD];
+  float kc[KA], qc[KA];
+  float2 rcc[KA];
+};
+
+template <int KD, int KA, typename TC>
+__device__ __forceinline__ EdgeRows<KD, KA> load_edge(
+    int c, int lane, int D, int A, int H, bool vec, const LaneHeads<KA>& h,
+    const TC* __restrict__ xcol, const float* __restrict__ qtab,
+    const TC* __restrict__ ktab, const SymIO& io) {
+  EdgeRows<KD, KA> e;
+#pragma unroll
+  for (int t = 0; t < KD; ++t) {
+    const int c0 = 4 * (kWarp * t + lane);
+    e.xc[t] = load4(xcol + static_cast<size_t>(c) * D, c0, D, vec);
+    e.ctc[t] = load4(io.ct_ax + static_cast<size_t>(c) * D, c0, D, vec);
+  }
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int a = kWarp * j + lane;
+    const bool v = bit(h.valid, j);
+    e.kc[j] = v ? widen(ktab[static_cast<size_t>(c) * A + a]) : 0.0f;
+    e.qc[j] = v ? __ldg(qtab + static_cast<size_t>(c) * A + a) : 0.0f;
+    e.rcc[j] = v ? __ldg(io.rc + static_cast<size_t>(c) * H + h.head[j])
+                 : make_float2(0.0f, 0.0f);
+  }
+  return e;
+}
+
+// Blocks of K9 and K14's walk an SM keeps resident, for __launch_bounds__:
+// 6, 5 and 4 (registers capped at 80, 102 and 128 a thread, a few bytes
+// spilled) for 1, 2 and 4 attention tiles; measured faster at every shape
+// of PERF.md than the uncapped 95, 123 and 152 registers (24, 20 and 16
+// resident warps instead of 20, 16 and 12; PERF.md, section 6). Eight
+// tiles keep their registers.
+__host__ __device__ constexpr int sym_min_blocks(int ka) {
+  return ka == 1 ? 6 : ka == 2 ? 5 : ka == 4 ? 4 : 1;
+}
+
+// One piece of a row n of the symmetric backward (see the note above):
+// kColumnNorm swaps the softmax groups (K14: the edge (n, c) reads
+// recip_p and ct_den at its column c, its reverse (c, n) at n); kNormed
+// takes cosine_sim and pearson, else scaled_dot, exp_kernel and
+// exp_kernel_beltrami; xcol is the column-side table the values and k
+// come from (x itself, or the bfloat16 copy K9 and K14 read under the
+// bf16 payload, whose k table is bfloat16 too); the row side is the q
+// table. smem: the block's dynamic shared memory, A floats a warp
+// (kBufferHeads only).
+template <bool kColumnNorm, typename TC, int KD, int KA, bool kNormed>
+__device__ __forceinline__ void sym_backward_piece(
+    float* smem, Pieces pc, Proj p, SymIO io, const TC* __restrict__ xcol,
+    const float* __restrict__ qtab, const TC* __restrict__ ktab) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int pi = blockIdx.x * kWarpsPerBlock + warp;
+  if (pi >= pc.n_pieces) return;              // whole warp leaves together
+  const int D = p.dim, A = p.att, H = p.heads;
+  const bool vec = io.vec;
+  const int n = pc.col[pi], slot = pc.slot[pi];
+  const int start = pc.ptr[pi], end = pc.ptr[pi + 1];
+  float* buf = smem + static_cast<size_t>(warp) * A;
+  const LaneHeads<KA> h = make_heads<KA>(p, lane);
+  const float gmax = *p.gmax;
+  const ScoreConsts skc = score_consts(score_params(p), h.d_k);
+  constexpr int kV = kNormed ? 6 : 4;           // slice sums an edge
+
+  // the resident row n, and its accumulators
+  float4 xn[KD], cta[KD], dxa[KD];
+#pragma unroll
+  for (int t = 0; t < KD; ++t) {
+    const int c0 = 4 * (kWarp * t + lane);
+    xn[t] = load4(xcol + static_cast<size_t>(n) * D, c0, D, vec);
+    cta[t] = load4(io.ct_ax + static_cast<size_t>(n) * D, c0, D, vec);
+    dxa[t] = zero4();
+  }
+  float qn[KA], kn[KA], dqa[KA], dka[KA];
+  float2 rn[KA];
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int a = kWarp * j + lane;
+    const bool v = bit(h.valid, j);
+    qn[j] = v ? __ldg(qtab + static_cast<size_t>(n) * A + a) : 0.0f;
+    kn[j] = v ? widen(ktab[static_cast<size_t>(n) * A + a]) : 0.0f;
+    rn[j] = v ? __ldg(io.rc + static_cast<size_t>(n) * H + h.head[j])
+              : make_float2(0.0f, 0.0f);
+    dqa[j] = dka[j] = 0.0f;
+  }
+  float sums[kRowSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+
+  for (int base = start; base < end; base += kWarp) {
+    const int cnt = min(kWarp, end - base);
+    const int cols = lane < cnt ? __ldg(io.col + base + lane) : n;
+    for (int i = 0; i < cnt; ++i) {
+      const EdgeRows<KD, KA> er = load_edge<KD, KA>(
+          __shfl_sync(kFull, cols, i), lane, D, A, H, vec, h, xcol, qtab,
+          ktab, io);
+      float dot = 0.0f, dot_r = 0.0f;
+#pragma unroll
+      for (int t = 0; t < KD; ++t) {
+        dot = dot4(cta[t], er.xc[t], dot);       // ct_ax[n] . x_c
+        dot_r = dot4(er.ctc[t], xn[t], dot_r);   // ct_ax[c] . x_n
+      }
+      dot = warp_sum(dot);
+      dot_r = warp_sum(dot_r);
+      float v[kV][KA] = {}, m[4][KA] = {};
+      edge_sums<KA, kNormed>(h, p, skc, qn, er.kc, er.qc, kn, buf, lane, v,
+                             m);
+      float w = 0.0f;                         // the reverse edges' weight
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        float vj[kV];
+#pragma unroll
+        for (int i2 = 0; i2 < kV; ++i2) vj[i2] = v[i2][j];
+        const bool ft = bit(h.feat, j);
+        const TileScore cf = tile_score<kNormed>(p.score, skc, vj, 0, ft);
+        const TileScore cr = tile_score<kNormed>(p.score, skc, vj, 1, ft);
+        // the softmax group of the edge (n, c) is its row n, that of its
+        // reverse (c, n) the row c; normalised over columns, the other way
+        // round
+        const float2 rf = kColumnNorm ? er.rcc[j] : rn[j];
+        const float2 rr = kColumnNorm ? rn[j] : er.rcc[j];
+        float u, duds;
+        u_duds(cf.s - gmax, p.square_plus, &u, &duds);
+        const float ds = fmaf(rf.x, dot, rf.y) * duds;
+        float ur, dudr;
+        u_duds(cr.s - gmax, p.square_plus, &ur, &dudr);
+        const float dr = fmaf(rr.x, dot_r, rr.y) * dudr;
+        dqa[j] += cf.p * ds * (er.kc[j] - m[1][j]) -
+                  cf.q * ds * (qn[j] - m[0][j]);
+        dka[j] += cr.p * dr * (er.qc[j] - m[2][j]) -
+                  cr.r * dr * (kn[j] - m[3][j]);
+        if (bit(h.once, j)) {
+          sums[0] += ds;
+          if (!kNormed && p.score != kScaledDot) {
+            sums[1] += ds * (cf.s * skc.iv2);
+            sums[2] += ds * cf.s * cf.dist * skc.il3;
+          }
+          if (!kNormed && p.score == kBeltrami) {
+            sums[3] += ds * (cf.s * skc.iv2_p);
+            sums[4] += ds * cf.s * cf.dist_p * skc.il3_p;
+          }
+          w += rr.x * ur;
+        }
+      }
+      w = head_fold(w, h.fold);               // sum_h u_h recip_p[c, h]
+#pragma unroll
+      for (int t = 0; t < KD; ++t) dxa[t] = axpy4(w, er.ctc[t], dxa[t]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowSums; ++i) sums[i] = head_fold(sums[i], h.fold);
+  if (slot < 0) {
+    finish_row<KD, KA>(io, n, D, A, lane, dxa, dqa, dka, sums);
+    return;
+  }
+  // a piece of a longer row: its partial sums
+  float* pr = io.part + static_cast<size_t>(slot) * sym_part_floats(D, A);
+#pragma unroll
+  for (int t = 0; t < KD; ++t)
+    store4(pr, 4 * (kWarp * t + lane), D, false, dxa[t]);
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const int a = kWarp * j + lane;
+    if (a < A) {
+      pr[D + a] = dqa[j];
+      pr[D + A + a] = dka[j];
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kRowSums; ++i) pr[D + 2 * A + i] = sums[i];
+  }
+}
+
+// A row of several pieces: their partial sums added in piece order, then
+// finished as a row of one piece is (a warp a row; the second pass of K9
+// and K14 when a row has several pieces)
+template <int KD, int KA>
+__device__ __forceinline__ void sym_merge_rows(Pieces pc, Proj p, SymIO io) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= pc.n_multi) return;                // whole warp leaves together
+  const int D = p.dim, A = p.att, W = sym_part_floats(D, A);
+  const int n = pc.multi_col[m];
+  float4 dxa[KD];
+  float dqa[KA], dka[KA];
+  float sums[kRowSums] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int t = 0; t < KD; ++t) dxa[t] = zero4();
+#pragma unroll
+  for (int j = 0; j < KA; ++j) dqa[j] = dka[j] = 0.0f;
+  for (int s = pc.multi_ptr[m]; s < pc.multi_ptr[m + 1]; ++s) {
+    const float* pr = io.part + static_cast<size_t>(s) * W;
+#pragma unroll
+    for (int t = 0; t < KD; ++t)
+      dxa[t] = add4(dxa[t], load4(pr, 4 * (kWarp * t + lane), D, false));
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const int a = kWarp * j + lane;
+      if (a < A) {
+        dqa[j] += pr[D + a];
+        dka[j] += pr[D + A + a];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRowSums; ++i) sums[i] += pr[D + 2 * A + i];
+  }
+  finish_row<KD, KA>(io, n, D, A, lane, dxa, dqa, dka, sums);
+}
+
+// K9 and K14's walk, the merge of multi-piece rows and the first pass of
+// dKw / dKb, once the q and k tables hold every node's projections. Walk
+// names each file's __global__ wrappers: Walk::walk<TC, KD, KA, kNormed>()
+// and Walk::merge<KD, KA>().
+template <typename Walk, typename TC, int KD, int KA, bool kNormed>
+cudaError_t launch_walk_k(const Pieces& pc, const Proj& p, const SymIO& io,
+                          const void* xcol, const void* qtab,
+                          const void* ktab, cudaStream_t s) {
+  const auto kernel = Walk::template walk<TC, KD, KA, kNormed>();
+  // each warp's buffer of att floats, read only where make_heads picks
+  // kBufferHeads
+  const size_t bytes = sizeof(float) * kWarpsPerBlock * p.att;
+  cudaError_t err = allow_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<row_blocks(pc.n_pieces), kWarpsPerBlock * kWarp, bytes, s>>>(
+      pc, p, io, static_cast<const TC*>(xcol),
+      static_cast<const float*>(qtab), static_cast<const TC*>(ktab));
+  return cudaGetLastError();
+}
+
+// the register tiles: KD = ceil(D / 128) <= 2, KA = ceil(att / 32) rounded
+// up to 1, 2, 4 or 8 (cosine_sim and pearson, kNormed: 2 or 8)
+#define GNPDE_SYM_TILES(CALL)                                                \
+  if (p.dim <= 128) {                                                        \
+    if (p.att <= 32) return CALL(1, 1);                                      \
+    if (p.att <= 64) return CALL(1, 2);                                      \
+    if (p.att <= 128) return CALL(1, 4);                                     \
+    return CALL(1, 8);                                                       \
+  }                                                                          \
+  if (p.att <= 32) return CALL(2, 1);                                        \
+  if (p.att <= 64) return CALL(2, 2);                                        \
+  if (p.att <= 128) return CALL(2, 4);                                       \
+  return CALL(2, 8);
+
+template <typename Walk, typename TC>
+cudaError_t launch_walk(const Pieces& pc, const Proj& p, const SymIO& io,
+                        const void* xcol, const void* qtab, const void* ktab,
+                        cudaStream_t s) {
+  if (p.score == kCosine || p.score == kPearson) {
+#define GNPDE_WALK_NORMED(KD, KA) \
+  launch_walk_k<Walk, TC, KD, KA, true>(pc, p, io, xcol, qtab, ktab, s)
+    if (p.dim <= 128)
+      return p.att <= 64 ? GNPDE_WALK_NORMED(1, 2) : GNPDE_WALK_NORMED(1, 8);
+    return p.att <= 64 ? GNPDE_WALK_NORMED(2, 2) : GNPDE_WALK_NORMED(2, 8);
+#undef GNPDE_WALK_NORMED
+  }
+#define GNPDE_WALK(KD, KA) \
+  launch_walk_k<Walk, TC, KD, KA, false>(pc, p, io, xcol, qtab, ktab, s)
+  GNPDE_SYM_TILES(GNPDE_WALK)
+#undef GNPDE_WALK
+}
+
+template <typename Walk, int KD, int KA>
+cudaError_t launch_merge_k(const Pieces& pc, const Proj& p, const SymIO& io,
+                           cudaStream_t s) {
+  Walk::template merge<KD, KA>()<<<row_blocks(pc.n_multi),
+                                   kWarpsPerBlock * kWarp, 0, s>>>(pc, p, io);
+  return cudaGetLastError();
+}
+
+template <typename Walk>
+cudaError_t launch_merge(const Pieces& pc, const Proj& p, const SymIO& io,
+                         cudaStream_t s) {
+  if (pc.n_multi == 0) return cudaSuccess;
+#define GNPDE_MERGE(KD, KA) launch_merge_k<Walk, KD, KA>(pc, p, io, s)
+  GNPDE_SYM_TILES(GNPDE_MERGE)
+#undef GNPDE_MERGE
+}
+
 // The launches behind K9 and K14: the q and k tables (unless the caller
-// says they are filled already: project = 0), the row walk `kernel` (a
-// __global__ wrapper of sym_backward_row over the column table of type TC)
-// and the first pass of the dKw / dKb reduction over the per-node dk sums
-// and the column table. `tables` as launch_tables takes it; with
-// kTablesF32, xcol is x. The walk reads x only as xcol (x may be
-// bfloat16).
-template <typename TC, typename Kernel>
+// says they are filled already: project = 0), the walk over the row
+// pieces, the merge of multi-piece rows and the first pass of the dKw /
+// dKb reduction over the per-node dk sums and the column table. `tables`
+// as launch_tables takes it; with kTablesF32, xcol is x. The walk reads x
+// only as xcol (x may be bfloat16).
+template <typename Walk>
 int launch_sym_backward(
-    Kernel kernel, int project, int tables, const void* rowptr,
-    const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* ct_ax,
-    const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
-    void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
-    void* partials, int n_rows, int dim, int att, int heads, int flags,
-    int reduce_blocks, void* stream) {
+    int project, int tables, const void* piece_ptr, const void* piece_row,
+    const void* piece_slot, const void* multi_row, const void* multi_ptr,
+    const void* col, const void* x, const void* xcol, const void* qw,
+    const void* qb, const void* kw, const void* kb, const void* gmax,
+    const void* var, const void* ls, const void* ct_ax, const void* rc,
+    const void* kw_t, void* qtab, void* ktab, void* dq, void* dxrow,
+    void* dkn, void* row_sums, void* part, void* partials, int n_rows,
+    int n_pieces, int n_multi, int dim, int att, int heads, int flags,
+    int reduce_blocks, int vec, void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaSuccess;
     if (project)
-      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows,
-                          dim, att, s);
+      err = launch_tables(tables, x, tables == kTablesF32 ? x : xcol, qw, qb,
+                          kw, kb, qtab, ktab, n_rows, dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t bytes = sizeof(float) * kWarpsPerBlock *
-                         (5 * dim + 6 * att + 2 * kCoef * heads);
-    err = allow_shared(kernel, bytes);
+    const Pieces pc = {static_cast<const int*>(piece_ptr),
+                       static_cast<const int*>(piece_row),
+                       static_cast<const int*>(piece_slot),
+                       static_cast<const int*>(multi_row),
+                       static_cast<const int*>(multi_ptr), n_pieces, n_multi};
+    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
+    const SymIO io = {static_cast<const int*>(col),
+                      static_cast<const float*>(ct_ax),
+                      static_cast<const float2*>(rc),
+                      static_cast<const float*>(kw_t),
+                      static_cast<float*>(dq),
+                      static_cast<float*>(dxrow),
+                      static_cast<float*>(dkn),
+                      static_cast<float*>(row_sums),
+                      static_cast<float*>(part),
+                      vec};
+    const void* table = tables == kTablesF32 ? x : xcol;
+    err = tables == kTablesF32
+              ? launch_walk<Walk, float>(pc, p, io, table, qtab, ktab, s)
+              : launch_walk<Walk, __nv_bfloat16>(pc, p, io, table, qtab,
+                                                 ktab, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<row_blocks(n_rows), kWarpsPerBlock * kWarp, bytes, s>>>(
-        make_graph(rowptr, col, n_rows),
-        make_proj(gmax, var, ls, dim, att, heads, flags),
-        static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
-        static_cast<const TC*>(ktab),
-        static_cast<const float*>(kw_t), static_cast<const float*>(ct_ax),
-        static_cast<const float*>(recip_p), static_cast<const float*>(ct_den),
-        static_cast<float*>(dq), static_cast<float*>(dxrow),
-        static_cast<float*>(dkn), static_cast<float*>(row_sums));
-    err = cudaGetLastError();
+    err = launch_merge<Walk>(pc, p, io, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    launch_outer_reduce(static_cast<const TC*>(xcol), nullptr,
-                        static_cast<const float*>(dkn),
-                        static_cast<float*>(partials), n_rows, reduce_blocks,
-                        dim, att, s);
+    if (tables == kTablesF32)
+      launch_outer_reduce(static_cast<const float*>(table), nullptr,
+                          static_cast<const float*>(dkn),
+                          static_cast<float*>(partials), n_rows,
+                          reduce_blocks, dim, att, s);
+    else
+      launch_outer_reduce(static_cast<const __nv_bfloat16*>(table), nullptr,
+                          static_cast<const float*>(dkn),
+                          static_cast<float*>(partials), n_rows,
+                          reduce_blocks, dim, att, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

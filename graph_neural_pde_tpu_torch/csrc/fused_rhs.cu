@@ -41,13 +41,15 @@
 // arithmetic per edge is 2 ATT + 2 H D flop. K8 alone still multiplies per
 // edge (dxg[e] needs dk_e Kw^T) and is bound by that.
 //
-// Design: one warp per row (K17: per column piece, see its note), four
-// warps a block. Lanes span ATT for the node projections (Kw / Qw are read
-// through the L1 as coalesced rows), lane h owns head h for the scores and
-// their derivatives (d_k serial terms, so the order of every sum is
-// fixed), lanes span D for the aggregation. The per-head numerators, the
-// row's q, the edge's x_c and k_c live in the warp's slice of dynamic
-// shared memory. There are no atomics anywhere.
+// Design: one warp per row (K17: per column piece, see its note; K9: per
+// row piece, its walk in fused_common.cuh), four warps a block. Lanes span
+// ATT for the node projections (Kw / Qw are read through the L1 as
+// coalesced rows), lane h owns head h for the scores and their
+// derivatives (d_k serial terms, so the order of every sum is fixed),
+// lanes span D for the aggregation. The per-head numerators, the row's q,
+// the edge's x_c and k_c live in the warp's slice of dynamic shared
+// memory. K9 keeps its rows in registers instead and scores every head on
+// all lanes (sym_backward_piece). There are no atomics anywhere.
 // Sums over all edges (dKw, dKb, dgmax and the exp_kernel scalars) are
 // taken in two passes with a fixed order: K8 writes each edge's dk_e, K9
 // each node's dk summed over its reverse edges, K17 each column's dk
@@ -266,23 +268,31 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
   write_row_sums(row_sums, n, H, lane, sums);
 }
 
-template <typename TC>
-__global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
-                                         const TC* __restrict__ xcol,
-                                         const float* __restrict__ qtab,
-                                         const TC* __restrict__ ktab,
-                                         const float* __restrict__ kw_t,
-                                         const float* __restrict__ ct_ax,
-                                         const float* __restrict__ recip_p,
-                                         const float* __restrict__ ct_den,
-                                         float* __restrict__ dq,
-                                         float* __restrict__ dxrow,
-                                         float* __restrict__ dkn_out,
-                                         float* __restrict__ row_sums) {
+// K9: the symmetric walk of fused_common.cuh (sym_backward_piece) with the
+// softmax over rows, and its merge of multi-piece rows
+template <typename TC, int KD, int KA, bool kNormed>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
+                                  sym_min_blocks(KA))
+    fused_rhs_bwd_sym_kernel(Pieces pc, Proj p, SymIO io,
+                             const TC* __restrict__ xcol,
+                             const float* __restrict__ qtab,
+                             const TC* __restrict__ ktab) {
   extern __shared__ __align__(16) float smem[];
-  sym_backward_row<false>(smem, g, p, xcol, qtab, ktab, kw_t, ct_ax, recip_p,
-                          ct_den, dq, dxrow, dkn_out, row_sums);
+  sym_backward_piece<false, TC, KD, KA, kNormed>(smem, pc, p, io, xcol,
+                                                qtab, ktab);
 }
+
+template <int KD, int KA>
+__global__ void fused_rhs_bwd_sym_merge_kernel(Pieces pc, Proj p, SymIO io) {
+  sym_merge_rows<KD, KA>(pc, p, io);
+}
+
+struct SymRows {
+  template <typename TC, int KD, int KA, bool kNormed>
+  static auto walk() { return fused_rhs_bwd_sym_kernel<TC, KD, KA, kNormed>; }
+  template <int KD, int KA>
+  static auto merge() { return fused_rhs_bwd_sym_merge_kernel<KD, KA>; }
+};
 
 // ---------------------------------------------------------------------- K17
 //
@@ -317,12 +327,6 @@ __global__ void fused_rhs_bwd_sym_kernel(Graph g, Proj p,
 //   the summed dk by Kw^T and writes dx and the summed dk.
 // Each output element is summed in a fixed order (edges within a piece,
 // pieces within a column): no atomics, two launches agree bit for bit.
-
-// The pieces of the CSC view's columns (ops/graph.py, ColPieces)
-struct Pieces {
-  const int *ptr, *col, *slot, *multi_col, *multi_ptr;
-  int n_pieces, n_multi;
-};
 
 // shared floats of a pass-1 warp: x_n, ct_ax[r], the two sums, (sum dk)
 // Kw^T, k_n, q_r and the heads' coefficients
@@ -650,32 +654,32 @@ extern "C" int gnpde_fused_rhs_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// kw_t is Kw^T [att, dim] (of the bf16-rounded Kw with a bfloat16 column
-// table: the k table's derivative). dkn [n_rows, att] and row_sums
-// [n_rows, 5] are scratch the wrapper reduces; partials [reduce_blocks,
-// dim + 1, att] are zero on entry, and dKw is reduced over the column
-// table. Nullable: var, ls.
+// K9 over the row pieces piece_ptr, piece_row, piece_slot [n_pieces]
+// and multi_row, multi_ptr [n_multi (+ 1)] (ops/graph.py, ColPieces of
+// rowptr) and the CSR columns col. rc [n_rows, heads, 2] holds each
+// node's (recip_p, ct_den) per head; kw_t is Kw^T [att, dim] (of the
+// bf16-rounded Kw with a bfloat16 column table: the k table's
+// derivative). dkn [n_rows, att] and row_sums [n_rows, 5] are scratch the
+// wrapper reduces; part [multi_ptr[n_multi], dim + 2 att + 5] holds the
+// pieces' partial sums (nullable without multi-piece rows); partials
+// [reduce_blocks, dim + 1, att] are zero on entry, and dKw is reduced over
+// the column table. vec: dim % 4 == 0 and x, xcol, ct_ax, kw_t, dxrow
+// 16-byte aligned. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_sym(
-    const void* rowptr, const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* ct_ax,
-    const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
-    void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
-    void* partials, int n_rows, int dim, int att, int heads, int flags,
-    int reduce_blocks, int tables, void* stream) {
-  if (tables == kTablesF32)
-    return launch_sym_backward<float>(
-        fused_rhs_bwd_sym_kernel<float>, 1, tables, rowptr, col, x, x, qw,
-        qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t, qtab, ktab,
-        dq, dxrow, dkn, row_sums, partials, n_rows, dim, att, heads, flags,
-        reduce_blocks, stream);
-  if (tables == kTablesF32Bf16 || tables == kTablesBf16)
-    return launch_sym_backward<__nv_bfloat16>(
-        fused_rhs_bwd_sym_kernel<__nv_bfloat16>, 1, tables, rowptr, col, x,
-        xcol, qw, qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t,
-        qtab, ktab, dq, dxrow, dkn, row_sums, partials, n_rows, dim, att,
-        heads, flags, reduce_blocks, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    const void* piece_ptr, const void* piece_row, const void* piece_slot,
+    const void* multi_row, const void* multi_ptr, const void* col,
+    const void* x, const void* xcol, const void* qw, const void* qb,
+    const void* kw, const void* kb, const void* gmax, const void* var,
+    const void* ls, const void* ct_ax, const void* rc, const void* kw_t,
+    void* qtab, void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
+    void* part, void* partials, int n_rows, int n_pieces, int n_multi,
+    int dim, int att, int heads, int flags, int reduce_blocks, int vec,
+    int tables, void* stream) {
+  return launch_sym_backward<SymRows>(
+      1, tables, piece_ptr, piece_row, piece_slot, multi_row, multi_ptr, col,
+      x, xcol, qw, qb, kw, kb, gmax, var, ls, ct_ax, rc, kw_t, qtab, ktab, dq,
+      dxrow, dkn, row_sums, part, partials, n_rows, n_pieces, n_multi, dim,
+      att, heads, flags, reduce_blocks, vec, stream);
 }
 
 // K17 over the CSC view's column pieces (ops/graph.py, ColPieces):

@@ -63,11 +63,16 @@
 //   1/H sum_h u_eh / den[c, h] is one sum over the head lanes, and the row's
 //   ax accumulates in shared memory with lanes spanning D: no per-head
 //   numerators are kept.
-// * K14: K9's row walk (sym_backward_row in fused_common.cuh) with the
-//   softmax groups swapped: the edge (n, c) reads 1/den and den's
-//   cotangent at its column c, its reverse (c, n) at the resident row n.
-//   dKw, dKb, dgmax and the exp_kernel scalars go through the same two-pass
-//   reduction as K9's.
+// * K14: K9's walk (sym_backward_piece in fused_common.cuh, which replaces
+//   P16 _norm1_bwd_kernel here as it replaces P13 for K9) with the softmax
+//   groups swapped: the edge (n, c) reads 1/den and den's cotangent at its
+//   column c, its reverse (c, n) at the resident row n. What bounds it is
+//   K9's: the latency of six gathers an edge and the chain behind them
+//   (the first version waited on six round trips in series and scored on
+//   H lanes); the walk now keeps the rows in registers, loads an edge's
+//   rows together, scores every head on all lanes and cuts rows into
+//   pieces (see fused_common.cuh). dKw, dKb, dgmax and the exp_kernel
+//   scalars go through the same two-pass reduction as K9's.
 
 #include "fused_common.cuh"
 
@@ -173,23 +178,31 @@ __global__ void norm1_fwd_kernel(Graph g, Proj p,
 
 // ---------------------------------------------------------------------- K14
 
-template <typename TC>
-__global__ void norm1_bwd_kernel(Graph g, Proj p,
-                                 const TC* __restrict__ xcol,
-                                 const float* __restrict__ qtab,
-                                 const TC* __restrict__ ktab,
-                                 const float* __restrict__ kw_t,
-                                 const float* __restrict__ ct_ax,
-                                 const float* __restrict__ recip_p,
-                                 const float* __restrict__ ct_den,
-                                 float* __restrict__ dq,
-                                 float* __restrict__ dxrow,
-                                 float* __restrict__ dkn_out,
-                                 float* __restrict__ row_sums) {
+// K14: the symmetric walk of fused_common.cuh (sym_backward_piece) with
+// the softmax groups swapped, and its merge of multi-piece rows
+template <typename TC, int KD, int KA, bool kNormed>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
+                                  sym_min_blocks(KA))
+    norm1_bwd_kernel(Pieces pc, Proj p, SymIO io,
+                     const TC* __restrict__ xcol,
+                     const float* __restrict__ qtab,
+                     const TC* __restrict__ ktab) {
   extern __shared__ __align__(16) float smem[];
-  sym_backward_row<true, TC>(smem, g, p, xcol, qtab, ktab, kw_t, ct_ax,
-                             recip_p, ct_den, dq, dxrow, dkn_out, row_sums);
+  sym_backward_piece<true, TC, KD, KA, kNormed>(smem, pc, p, io, xcol, qtab,
+                                               ktab);
 }
+
+template <int KD, int KA>
+__global__ void norm1_bwd_merge_kernel(Pieces pc, Proj p, SymIO io) {
+  sym_merge_rows<KD, KA>(pc, p, io);
+}
+
+struct SymColumns {
+  template <typename TC, int KD, int KA, bool kNormed>
+  static auto walk() { return norm1_bwd_kernel<TC, KD, KA, kNormed>; }
+  template <int KD, int KA>
+  static auto merge() { return norm1_bwd_merge_kernel<KD, KA>; }
+};
 
 // K12's walk over the column table xcol of type TC (its k table too)
 template <typename TC>
@@ -289,29 +302,24 @@ extern "C" int gnpde_norm1_fwd(
   return static_cast<int>(cudaGetLastError());
 }
 
-// recip_p [n_rows, heads] = 1 / (H (den + 1e-16)); kw_t is Kw^T [att, dim]
-// (of the bf16-rounded Kw with a bfloat16 column table); dKw is reduced
-// over the column table; the other arguments as gnpde_fused_rhs_bwd_sym's.
+// K14: rc [n_rows, heads, 2] holds each node's (recip_p, ct_den) per head,
+// recip_p = 1 / (H (den + 1e-16)); kw_t is Kw^T [att, dim] (of the
+// bf16-rounded Kw with a bfloat16 column table); dKw is reduced over the
+// column table; the other arguments as gnpde_fused_rhs_bwd_sym's.
 // Nullable: var, ls.
 extern "C" int gnpde_norm1_bwd(
-    const void* rowptr, const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* ct_ax,
-    const void* recip_p, const void* ct_den, const void* kw_t, void* qtab,
-    void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
-    void* partials, int n_rows, int dim, int att, int heads, int flags,
-    int reduce_blocks, int project, int tables, void* stream) {
-  if (tables == kTablesF32)
-    return launch_sym_backward<float>(
-        norm1_bwd_kernel<float>, project, tables, rowptr, col, x, x, qw, qb,
-        kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq,
-        dxrow, dkn, row_sums, partials, n_rows, dim, att, heads, flags,
-        reduce_blocks, stream);
-  if (tables == kTablesF32Bf16 || tables == kTablesBf16)
-    return launch_sym_backward<__nv_bfloat16>(
-        norm1_bwd_kernel<__nv_bfloat16>, project, tables, rowptr, col, x,
-        xcol, qw, qb, kw, kb, gmax, var, ls, ct_ax, recip_p, ct_den, kw_t,
-        qtab, ktab, dq, dxrow, dkn, row_sums, partials, n_rows, dim, att,
-        heads, flags, reduce_blocks, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+    const void* piece_ptr, const void* piece_row, const void* piece_slot,
+    const void* multi_row, const void* multi_ptr, const void* col,
+    const void* x, const void* xcol, const void* qw, const void* qb,
+    const void* kw, const void* kb, const void* gmax, const void* var,
+    const void* ls, const void* ct_ax, const void* rc, const void* kw_t,
+    void* qtab, void* ktab, void* dq, void* dxrow, void* dkn, void* row_sums,
+    void* part, void* partials, int n_rows, int n_pieces, int n_multi,
+    int dim, int att, int heads, int flags, int reduce_blocks, int vec,
+    int project, int tables, void* stream) {
+  return launch_sym_backward<SymColumns>(
+      project, tables, piece_ptr, piece_row, piece_slot, multi_row, multi_ptr,
+      col, x, xcol, qw, qb, kw, kb, gmax, var, ls, ct_ax, rc, kw_t, qtab,
+      ktab, dq, dxrow, dkn, row_sums, part, partials, n_rows, n_pieces,
+      n_multi, dim, att, heads, flags, reduce_blocks, vec, stream);
 }

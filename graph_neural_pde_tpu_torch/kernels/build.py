@@ -61,11 +61,14 @@ _ENTRY_POINTS = {
     # (nullable), dke, row_sums, partials, n_rows, dim, att, heads, flags,
     # n_slots, reduce_blocks, tables, stream
     "gnpde_fused_rhs_bwd": [_PTR] * 23 + [_INT] * 8 + [_PTR],
-    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
-    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxrow, dkn,
-    # row_sums, partials, n_rows, dim, att, heads, flags, reduce_blocks,
-    # tables, stream
-    "gnpde_fused_rhs_bwd_sym": [_PTR] * 22 + [_INT] * 7 + [_PTR],
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces), col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
+    # nullable), ct_ax, rc (each node's (recip_p, ct_den) per head), kw_t,
+    # qtab, ktab, dq, dxrow, dkn, row_sums, part (nullable without
+    # multi-piece rows), partials, n_rows, n_pieces, n_multi, dim, att,
+    # heads, flags, reduce_blocks, vec (dim % 4 == 0 and the D-wide rows
+    # 16-byte aligned), tables, stream
+    "gnpde_fused_rhs_bwd_sym": [_PTR] * 26 + [_INT] * 10 + [_PTR],
     # rowptr, col, u, x, num, den, n_rows, dim, heads, dtype of x (0
     # float32, 1 bfloat16), stream
     "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 4 + [_PTR],
@@ -105,7 +108,7 @@ _ENTRY_POINTS = {
     # project, tables, stream
     "gnpde_norm1_fwd": [_PTR] * 15 + [_INT] * 7 + [_PTR],
     # as gnpde_fused_rhs_bwd_sym, with project before tables
-    "gnpde_norm1_bwd": [_PTR] * 22 + [_INT] * 8 + [_PTR],
+    "gnpde_norm1_bwd": [_PTR] * 26 + [_INT] * 11 + [_PTR],
     # The blocked-plan kernels (csrc/blocked.cu).
     # rowptr, slot, col (the plan's valid slots by row), w, x, out, n_rows,
     # dim, lanes, vec, stream

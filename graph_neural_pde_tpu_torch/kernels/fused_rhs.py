@@ -732,9 +732,90 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     return (dq, dxg) + dk + _row_totals(row_sums, score, var, ls)
 
 
+def sym_design(d: int, att: int, heads: int, score: str) -> dict:
+    """What K9 and K14's walk runs at these widths (csrc/fused_common.cuh,
+    launch_walk and make_heads): its register tiles (``kd`` 16-byte
+    column groups of a D-wide row and ``ka`` columns of a q or k row a
+    lane, the kernel's template sizes) and how a head's terms are summed
+    (``"lanes"``: a butterfly over d_k lanes; ``"tiles"``: over the 32
+    lanes of d_k / 32 tiles; ``"buffer"``: in column order through the
+    warp's buffer). One warp walks one edge of a row piece at a time."""
+    d_k = att // head_slices(score, heads)
+    belt = score == "exp_kernel_beltrami"
+    paired = not belt or (att // 2) % 32 == 0 or att <= 32
+    pow2 = d_k & (d_k - 1) == 0
+    kd = 1 if d <= 128 else 2
+    if score in ("cosine_sim", "pearson"):
+        ka = 2 if att <= 64 else 8
+    else:
+        ka = 1 if att <= 32 else 2 if att <= 64 else 4 if att <= 128 else 8
+    return dict(kd=kd, ka=ka,
+                head_sum=("buffer" if not pow2 or not paired
+                          else "lanes" if d_k <= 32 else "tiles"))
+
+
+def sym_node_table(recip_p: torch.Tensor, ct_den: torch.Tensor):
+    """The [N, H, 2] float32 table of each node's (recip_p, ct_den) per
+    head, which K9 and K14 read at an edge's column in one 8-byte load a
+    head."""
+    return torch.stack((recip_p, ct_den), dim=-1).contiguous()
+
+
+def _sym_walk(name, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
+              ct_den, qtab, ktab, project, *, heads, score, var, ls,
+              square_plus, xcol, pieces):
+    """The launch behind K9 and K14 (``name``) on CUDA tensors: the walk
+    over the rows' ``pieces`` (:func:`~graph_neural_pde_tpu_torch.ops.graph.
+    column_pieces` of ``rowptr``, built here when None: a copy to the
+    host), the merge of multi-piece rows, and the reductions' second
+    passes. ``qtab``, ``ktab`` the node tables
+    [N, ATT] (filled by the launch unless ``project`` is 0). Returns
+    (dq, dxrow, dkw, dkb, dgmax, dvar, dls)."""
+    n, d = x.shape
+    att = qw.shape[1]
+    dev = x.device
+    pc = column_pieces(rowptr) if pieces is None else pieces
+    if pc.ptr.device != dev or pc.n_pieces < n:
+        raise ValueError(f"{name}: the row pieces must be those of this "
+                         f"graph's rowptr, on {dev}")
+    dq = torch.empty((n, att), dtype=torch.float32, device=dev)
+    dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
+    # scratch: dk summed per NODE (each row's reverse edges), each row's
+    # sums of ds and of the score scalars' terms, the pieces' partial sums
+    dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
+    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
+    part = (torch.empty((pc.n_slots, d + 2 * att + ROW_SUMS),
+                        dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
+    blocks = _reduce_blocks(n)
+    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
+                           device=dev)
+    kw, kb = _col_projection(kw, kb, xcol)
+    kw_t = kw.t().contiguous()
+    rc = sym_node_table(recip_p, ct_den)
+    table = x if xcol is None else xcol
+    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (table, ct_ax, kw_t, dxrow)))
+    build.launch(name, dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+                 pc.slot.data_ptr(), pc.multi_col.data_ptr(),
+                 pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                 _ptr(xcol), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 ct_ax.data_ptr(), rc.data_ptr(), kw_t.data_ptr(),
+                 qtab.data_ptr(), ktab.data_ptr(), dq.data_ptr(),
+                 dxrow.data_ptr(), dkn.data_ptr(), row_sums.data_ptr(),
+                 _ptr(part), partials.data_ptr(), n, pc.n_pieces,
+                 pc.n_multi, d, att, heads, _flags(score, square_plus),
+                 blocks, vec, *(() if project is None else (project,)),
+                 _tables(x, xcol))
+    return ((dq, dxrow) + _dk_sums(partials, d)
+            + _row_totals(row_sums, score, var, ls))
+
+
 def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                       recip_p, ct_den, *, heads: int, score: str, var=None,
-                      ls=None, square_plus: bool = False, xcol=None):
+                      ls=None, square_plus: bool = False, xcol=None,
+                      pieces: Optional[ColPieces] = None):
     """K9: the backward over a SYMMETRIC edge multiset (the caller checks
     ``Graph.rev is not None``): returns (dq, dxrow [N, D], dkw, dkb, dgmax,
     dvar, dls) with ``dxrow`` the whole x[col] cotangent. No per-edge array
@@ -742,7 +823,11 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     evaluates its reverse edge (c, n) from node rows gathered at c. With
     the bfloat16 column table ``xcol`` (K6's), ``dxrow`` is the cotangent
     of that table's values and k (through the bf16-rounded Kw), taken as
-    x's, and dkw is reduced over the table."""
+    x's, and dkw is reduced over the table. ``pieces``: the rows cut into
+    pieces (``ops.graph.column_pieces`` of ``rowptr``; on a symmetric
+    graph ``Graph.col_pieces``, whose ``colptr`` is ``rowptr``), built
+    from ``rowptr`` when None. Every sum has a fixed order: two calls
+    agree bit for bit."""
     _check("fused_rhs_bwd_sym", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
            _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0),
@@ -753,34 +838,13 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
         return fused_rhs_bwd_sym_plain(rowptr, row, col, x, qw, qb, kw, kb,
                                        gmax, ct_ax, recip_p, ct_den,
                                        xcol=xcol, **kwargs)
-    n, d = x.shape
-    att = qw.shape[1]
-    _shared_bytes("fused_rhs_bwd_sym", 5 * d + 6 * att + 20 * heads)
-    dev = x.device
-    dq = torch.empty((n, att), dtype=torch.float32, device=dev)
-    dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
-    # scratch: dk summed per NODE (each row's reverse edges), and each
-    # row's sums of ds and of the score scalars' terms
-    dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
-    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
-    blocks = _reduce_blocks(n)
-    kw, kb = _col_projection(kw, kb, xcol)
-    tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
-    build.launch("fused_rhs_bwd_sym", dev, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
-                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
-                 _ptr(ls), ct_ax.data_ptr(), recip_p.data_ptr(),
-                 ct_den.data_ptr(), kw_t.data_ptr(), tabs[0].data_ptr(),
-                 tabs[1].data_ptr(), dq.data_ptr(), dxrow.data_ptr(),
-                 dkn.data_ptr(), row_sums.data_ptr(), partials.data_ptr(), n,
-                 d, att, heads, _flags(score, square_plus), blocks,
-                 _tables(x, xcol))
+    tabs = _node_tables(x, qw.shape[1])
+    out = _sym_walk("fused_rhs_bwd_sym", rowptr, col, x, qw, qb, kw, kb,
+                    gmax, ct_ax, recip_p, ct_den, tabs[0], tabs[1], None,
+                    xcol=xcol, pieces=pieces, **kwargs)
     fused_rhs_bwd_sym.launches += 1
     fused_rhs_bwd_sym.bf16_launches += xcol is not None
-    return ((dq, dxrow) + _dk_sums(partials, d)
-            + _row_totals(row_sums, score, var, ls))
+    return out
 
 
 def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
@@ -1119,7 +1183,8 @@ class _FusedAx(torch.autograd.Function):
         if engine == "sym":
             dq, dx, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_sym(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                xcol=column_table(x, payload), **kwargs)
+                xcol=column_table(x, payload), pieces=g.col_pieces,
+                **kwargs)
         elif engine == "col":
             xcol = column_table(x, payload)
             dq, _, _, _, dgmax, dvar, dls = fused_rhs_bwd(

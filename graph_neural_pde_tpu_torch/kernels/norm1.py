@@ -48,10 +48,10 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
-    EPS, ROW_SUMS, _bwd_extra, _bwd_plain, _check, _check_sorted, _col_side,
-    _col_projection, _dk_sums, _edges, _flags, _node_sum, _node_tables, _ptr,
-    _reduce_blocks, _row_totals, _shared_bytes, _tables, _u_duds,
-    column_table, edge_scores, head_slices, score_scalars)
+    EPS, _bwd_extra, _bwd_plain, _check, _check_sorted, _col_side,
+    _col_projection, _edges, _flags, _node_sum, _node_tables, _ptr,
+    _shared_bytes, _sym_walk, _tables, _u_duds, column_table, edge_scores,
+    head_slices, score_scalars)
 
 
 # ---------------------------------------------------------------------------
@@ -218,48 +218,30 @@ def norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *, heads: int,
 
 def norm1_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
               ct_den, *, heads: int, score: str, var=None, ls=None,
-              square_plus: bool = False, tabs=None, xcol=None):
+              square_plus: bool = False, tabs=None, xcol=None, pieces=None):
     """K14: the backward over a SYMMETRIC edge multiset (see
-    :func:`norm1_bwd_plain` for the formulas and the return value). With
-    ``xcol``, ``dxrow`` is the cotangent of that table's values and k
-    (through the bf16-rounded Kw), taken as x's, and dkw is reduced over
-    the table. The reductions over all edges take two passes with fixed
-    orders, so two calls agree bit for bit."""
+    :func:`norm1_bwd_plain` for the formulas and the return value): K9's
+    walk with the softmax groups swapped. With ``xcol``, ``dxrow`` is the
+    cotangent of that table's values and k (through the bf16-rounded Kw),
+    taken as x's, and dkw is reduced over the table. ``pieces`` as
+    :func:`~graph_neural_pde_tpu_torch.kernels.fused_rhs.fused_rhs_bwd_sym`
+    takes them. The reductions over all edges take two
+    passes with fixed orders, so two calls agree bit for bit."""
     _check("norm1_bwd", rowptr, row, col, x, qw, qb, kw, kb, heads, score,
            var, ls, _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None,
                                0), xcol)
+    kwargs = dict(heads=heads, score=score, var=var, ls=ls,
+                  square_plus=square_plus)
     if x.device.type == "cpu":
         return norm1_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
-                               ct_ax, recip_p, ct_den, heads=heads,
-                               score=score, var=var, ls=ls,
-                               square_plus=square_plus, xcol=xcol)
-    n, d = x.shape
-    att = qw.shape[1]
-    _shared_bytes("norm1_bwd", 5 * d + 6 * att + 20 * heads)
-    dev = x.device
-    dq = torch.empty((n, att), dtype=torch.float32, device=dev)
-    dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
-    # scratch, as K9's: dk summed per node, each row's scalar sums
-    dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
-    row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
-    blocks = _reduce_blocks(n)
-    kw, kb = _col_projection(kw, kb, xcol)
-    tabs, kw_t = tabs or node_tables(x, att), kw.t().contiguous()
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
-    build.launch("norm1_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
-                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
-                 _ptr(ls), ct_ax.data_ptr(), recip_p.data_ptr(),
-                 ct_den.data_ptr(), kw_t.data_ptr(), tabs.q.data_ptr(),
-                 tabs.k.data_ptr(), dq.data_ptr(), dxrow.data_ptr(),
-                 dkn.data_ptr(), row_sums.data_ptr(), partials.data_ptr(), n,
-                 d, att, heads, _flags(score, square_plus), blocks,
-                 tabs.project(), _tables(x, xcol))
+                               ct_ax, recip_p, ct_den, xcol=xcol, **kwargs)
+    tabs = tabs or node_tables(x, qw.shape[1])
+    out = _sym_walk("norm1_bwd", rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax,
+                    recip_p, ct_den, tabs.q, tabs.k, tabs.project(),
+                    xcol=xcol, pieces=pieces, **kwargs)
     norm1_bwd.launches += 1
     norm1_bwd.bf16_launches += xcol is not None
-    return ((dq, dxrow) + _dk_sums(partials, d)
-            + _row_totals(row_sums, score, var, ls))
+    return out
 
 
 norm1_den.launches = 0
@@ -287,7 +269,7 @@ class _FusedAxNorm1(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qw, qb, kw, kb, x, gmax, var, ls, csr, heads,
-                square_plus, score, payload):
+                square_plus, score, payload, pieces):
         kwargs = dict(heads=heads, score=score, var=var, ls=ls,
                       square_plus=square_plus, xcol=column_table(x, payload))
         tabs = node_tables(x, qw.shape[1])       # K12 fills, K13 reuses
@@ -297,6 +279,7 @@ class _FusedAxNorm1(torch.autograd.Function):
                        **kwargs)
         ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, den, *csr)
         ctx.opts = (heads, square_plus, score, payload)
+        ctx.pieces = pieces
         return ax, den
 
     @staticmethod
@@ -313,11 +296,12 @@ class _FusedAxNorm1(torch.autograd.Function):
         ct_den = (ct_den_in - m * recip * recip / heads).contiguous()
         dq, dx, dkw, dkb, dgmax, dvar, dls = norm1_bwd(
             *csr, x, qw, qb, kw, kb, gmax, ct_ax,
-            (recip / heads).contiguous(), ct_den, tabs=tabs, **kwargs)
+            (recip / heads).contiguous(), ct_den, tabs=tabs,
+            pieces=ctx.pieces, **kwargs)
         dx = dx + dq @ qw.T
         return (x.to(dq.dtype).T @ dq, torch.sum(dq, dim=0), dkw, dkb,
                 dx.to(x.dtype), dgmax.reshape(gmax.shape), dvar,
-                dls) + (None,) * 5
+                dls) + (None,) * 6
 
 
 def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str,
@@ -344,6 +328,6 @@ def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str,
         var, ls = score_scalars(score, score_params)
         return _FusedAxNorm1.apply(qw, qb, kw, kb, x.contiguous(), gmax, var,
                                    ls, csr, heads, square_plus, score,
-                                   payload_dtype)
+                                   payload_dtype, g.col_pieces)
 
     return op

@@ -250,11 +250,12 @@ def gather_answer(report: Report, dev, seed: int, graph=None, d=128, att=32,
                                                             **kw)),
         "K9 fused_rhs_bwd_sym": time_ms(
             lambda: K.fused_rhs_bwd_sym(*csr, *ops, ct_ax, recip_p, ct_den,
-                                        **kw)),
+                                        pieces=g.col_pieces, **kw)),
         "K13 norm1_fwd": time_ms(lambda: K.norm1_fwd(*csr, *ops, recip,
                                                      **kw)),
         "K14 norm1_bwd": time_ms(
-            lambda: K.norm1_bwd(*csr, *ops, ct_ax, recip1, ct_den, **kw)),
+            lambda: K.norm1_bwd(*csr, *ops, ct_ax, recip1, ct_den,
+                                pieces=g.col_pieces, **kw)),
     }
     for label, ms in times.items():
         report(f"arxiv scale N={n} E={nv} D={d} ATT={att} H={h}: {label}",
