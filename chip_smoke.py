@@ -33,10 +33,17 @@ Phases, each of which must pass (any failure exits nonzero):
    exp_kernel_beltrami at bench.py's BLEND widths on the arxiv-scale graph
    (D=128, packed ATT=2 x 32, H=2); two K9 launches must be
    bit-identical; K6-K9 and K12-K14 also over the Cora stand-in with a
-   hub row of degree 360 at D=80, ATT=128, H=8, whose row K9 and K14 cut
-   into pieces that a second pass merges. Before each K9 and K14 check a
-   line prints the walk's design (``kernels.fused_rhs.sym_design``: its
-   register tiles and how a head is summed) and the graph's row pieces.
+   hub row of degree 360 at D=80, ATT=128, H=8, whose row K6, K9, K13
+   and K14 cut into pieces that a second pass merges (there and on the
+   kNN graph below the row pieces must include rows of several). Before
+   each check of K6, K9, K13 and K14 a line prints the walk's design
+   (``kernels.fused_rhs.fwd_design`` and ``sym_design``: its register
+   tiles, how a head is summed, K6's heads in registers) and the graph's
+   row pieces. On graphs whose rows hold one edge each (the Cora stand-in
+   at D=80, ATT=128, H=8 and 20,000 nodes at D=128, ATT=32, H=2), float32
+   and on the bfloat16 column table, K6 shifted by K7's row maxima with
+   gmax = 0 must give den exactly 1.0 in every row and head: K7 scores
+   each edge as K6 does, bit for bit.
    K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
    also against its plain version in float64), at a small shape, the Cora
    stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2, with a
@@ -280,9 +287,11 @@ Phases, each of which must pass (any failure exits nonzero):
    run must launch the kernels its path runs, and all twenty-one counters,
    and the eighteen of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
    K8, K9, K10, K11, K12, K13, K14, K17, K18, K19, K8's per-head mode, K20
-   and K1 in table mode), must grow. The paths (a)-(s) run
-   ``GRAND_NL_BENCH``'s architecture in float32, as before the bfloat16
-   mode.
+   and K1 in table mode), must grow; no run may have built row pieces on
+   the fly (the walks of K6, K9, K13 and K14 take the graph's own
+   ``Graph.row_pieces``: their ``piece_builds`` stay 0). The paths
+   (a)-(s) run ``GRAND_NL_BENCH``'s architecture in float32, as before the
+   bfloat16 mode.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -771,23 +780,34 @@ def payload_ops(n, nv, d, att, h, score):
             n * proj + nv * (3 * proj + 6 * att + 4 * h * d))
 
 
-def print_walk_design(kname, shape_name, dims, g, d, att, h, score):
-    """The design variant K9's or K14's walk runs at these widths
-    (``kernels.fused_rhs.sym_design``) over ``g``'s row pieces."""
-    from graph_neural_pde_tpu_torch.kernels.fused_rhs import sym_design
-    pc = g.col_pieces
-    print(f"[kernels] {kname} walk @ {shape_name} {dims}: "
-          f"{sym_design(d, att, h, score)} over {pc.n_pieces} row "
-          f"pieces of at most {pc.piece} edges ({pc.n_multi} rows of "
-          f"several, longest row {pc.longest} edges)", flush=True)
+def print_walk_design(kname, shape_name, dims, g, d, att, h, score,
+                      multi_rows=False):
+    """The design variant the walk of K6 or K13 (``kernels.fused_rhs.
+    fwd_design``), or of K9 or K14 (``sym_design``), runs at these widths
+    over ``g``'s row pieces; with ``multi_rows``, fails unless some row
+    has several pieces (the walk's merge pass runs)."""
+    from graph_neural_pde_tpu_torch.kernels.fused_rhs import (fwd_design,
+                                                              sym_design)
+    pc = g.row_pieces
+    design = (fwd_design if kname in ("fused_rhs_fwd", "norm1_fwd")
+              else sym_design)(d, att, h, score)
+    print(f"[kernels] {kname} walk @ {shape_name} {dims}: {design} over "
+          f"{pc.n_pieces} row pieces of at most {pc.piece} edges "
+          f"({pc.n_multi} rows of several, longest row {pc.longest} edges)",
+          flush=True)
+    if multi_rows and pc.n_multi == 0:
+        raise AssertionError(f"{kname} @ {shape_name}: no row of several "
+                             "pieces, the merge pass does not run")
 
 
 def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
-                        dev="cuda", feat=None, payload=None, row_bf16=False):
+                        dev="cuda", feat=None, payload=None, row_bf16=False,
+                        multi_rows=False):
     """K6 (plain with numerators, shifted, folded), K7, K8 and K9 (every
     output) against their plain versions; two launches of each must be
     bit-identical. On a directed graph (no reverse-edge map) K9 does not
-    apply. ``timed=False`` only compares; ``feat`` as in ``rhs_operands``.
+    apply. ``timed=False`` only compares; ``feat`` as in ``rhs_operands``;
+    ``multi_rows`` as in ``check_norm1_kernels`` (K6's and K9's merge).
 
     ``payload=torch.bfloat16`` (the JAX package's bf16 payload) checks
     every one of them on the bf16 tables: the column table is x cast to
@@ -812,7 +832,9 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     # den's cotangent positive, so that the sums over all edges (dgmax, the
     # exp_kernel scalars) do not cancel and their own size is a fair scale
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_x, **kw_f)
+    # the row pieces K6 and K9 walk: the graph's own, as on every path
+    kw_p = dict(pieces=g.row_pieces)
+    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_x, **kw_p, **kw_f)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
     cts = (ct_ax, recip_p, ct_den)
 
@@ -846,19 +868,19 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     cases = [
         ("fused_rhs_fwd", "ax, den, num",
          lambda: some(K.fused_rhs_fwd(*csr, *ops, want_num=True, **kw_x,
-                                      **kw_f)),
+                                      **kw_p, **kw_f)),
          lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, want_num=True,
                                             **kw_x, **kw_f)),
          (base_bytes + 4 * n * (d + h + h * d), fwd_ops), None),
         ("fused_rhs_fwd", "ax, den with per-edge shifts",
          lambda: some(K.fused_rhs_fwd(*csr, *ops, shifts=shifts, **kw_x,
-                                      **kw_f)),
+                                      **kw_p, **kw_f)),
          lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, shifts=shifts,
                                             **kw_x, **kw_f)),
          (base_bytes + 4 * (nv * h + n * (d + h)), fwd_ops), None),
         ("fused_rhs_fwd", "folded f = alpha (ax - x)",
          lambda: some(K.fused_rhs_fwd(*csr, *ops, alpha=alpha, **kw_x,
-                                      **kw_f)),
+                                      **kw_p, **kw_f)),
          lambda: some(K.fused_rhs_fwd_plain(*csr, *ops, alpha=alpha, **kw_x,
                                             **kw_f)),
          (base_bytes + 4 * n * (d + h), fwd_ops + 2 * n * d), None),
@@ -874,7 +896,7 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                          **kw_f)),
         ("fused_rhs_bwd_sym", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd_sym(*csr, *ops, *cts,
-                                          pieces=g.col_pieces, **kw_x,
+                                          **kw_p, **kw_x,
                                           **kw_f)),
          lambda: some(K.fused_rhs_bwd_sym_plain(*csr, *ops, *cts, **kw_x,
                                                 **kw_f)),
@@ -898,6 +920,8 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
                   *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    print_walk_design("fused_rhs_fwd", shape_name, dims, g, d, att, h, score,
+                      multi_rows)
     if symmetric:
         print_walk_design("fused_rhs_bwd_sym", shape_name, dims, g, d, att,
                           h, score)
@@ -912,6 +936,41 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
           f"{shape_name} {score}{tag}: two launches bit-identical in every "
           f"output", flush=True)
     return rows
+
+
+def check_exact_shifts(shape_name, n, d, att, h, seed, dev="cuda"):
+    """K7's row maxima as K6's shifts (the exact mode) over a graph whose
+    rows hold one edge each, with gmax = 0: each row's shifted score is
+    then exactly 0 and its den exactly 1.0 in every head, provided K7
+    scores each edge as K6 does, bit for bit. Float32, and on the bfloat16
+    column table beside a float32 row side; fails on any other den."""
+    import numpy as np
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    from graph_neural_pde_tpu_torch.ops.graph import make_graph
+    rng = np.random.default_rng(seed)
+    g = make_graph(np.arange(n), rng.permutation(n),
+                   num_nodes=n).sort_by_row()
+    g, _, csr, ops, kw_f = rhs_operands(g, d, att, h, "scaled_dot", seed,
+                                        dev)
+    ops = ops[:5] + (torch.zeros(1, device=ops[0].device),)
+    for table in ("float32", "bfloat16"):
+        kw_x = ({} if table == "float32"
+                else dict(xcol=ops[0].to(torch.bfloat16)))
+        smax = K.fused_rowmax(*csr, *ops[:5], heads=h, **kw_x)
+        shifts = smax[g.row.long()].contiguous()
+        _, den, _ = K.fused_rhs_fwd(*csr, *ops, shifts=shifts,
+                                    pieces=g.row_pieces, **kw_x, **kw_f)
+        off = int((den != 1.0).sum())
+        if off:
+            raise AssertionError(
+                f"K7 / K6 exact shifts @ {shape_name} {table}: den is not "
+                f"exactly 1.0 in {off} of {den.numel()} rows and heads "
+                f"(furthest {float((den - 1.0).abs().max()):.3e})")
+        print(f"[kernels] fused_rowmax as fused_rhs_fwd's shifts @ "
+              f"{shape_name} N={n} D={d} ATT={att} H={h} {table}, one edge "
+              f"a row, gmax 0: den exactly 1.0 in every row and head",
+              flush=True)
 
 
 def oracle_graph(seed: int, n: int = 512, e: int = 4096):
@@ -1052,7 +1111,8 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     csc = (g.colptr, g.col_by_col, g.row_by_col)
     ct_ax = randn(n, d)
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_x, **kw_f)
+    _, den, _ = K.fused_rhs_fwd(*csr, *ops, pieces=g.row_pieces, **kw_x,
+                                **kw_f)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
     cts = (ct_ax, recip_p, ct_den)
 
@@ -1214,10 +1274,13 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda",
 
 
 def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
-                        dev="cuda", payload=None, row_bf16=False):
+                        dev="cuda", payload=None, row_bf16=False,
+                        multi_rows=False):
     """K12 (both modes), K13 and K14 (every output, against the plain
     version in float64) against their plain versions; two launches of each
-    must be bit-identical. ``timed=False`` only compares.
+    must be bit-identical. ``timed=False`` only compares; ``multi_rows``
+    asserts that the row pieces cut some row into several, so that the
+    merge passes of K13 and K14 run.
 
     ``payload=torch.bfloat16`` (the JAX package's bf16 payload, the only
     mode its norm-1 kernels run in) checks them on the bf16 tables, named
@@ -1274,12 +1337,13 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
          (base_bytes + 4 * n * (d + h),
           2 * n * proj + nv * (2 * att + 2 * d)), None),
         ("norm1_fwd", "ax",
-         lambda: K.norm1_fwd(*csr, *ops, recip, **kw_x, **kw_f),
+         lambda: K.norm1_fwd(*csr, *ops, recip, pieces=g.row_pieces, **kw_x,
+                             **kw_f),
          lambda: K.norm1_fwd_plain(*csr, *ops, recip, **kw_x, **kw_f),
          (base_bytes + 4 * n * (h + d),
           2 * n * proj + nv * (2 * att + 2 * d + 2 * h)), None),
         ("norm1_bwd", "dq, dxrow, dkw, dkb, dgmax[, dvar, dls]",
-         lambda: some(K.norm1_bwd(*csr, *ops, *cts, pieces=g.col_pieces,
+         lambda: some(K.norm1_bwd(*csr, *ops, *cts, pieces=g.row_pieces,
                                   **kw_x, **kw_f)),
          lambda: some(K.norm1_bwd_plain(*csr, *ops, *cts, **kw_x, **kw_f)),
          (base_bytes + 4 * (n * (d + 2 * h) + n * att + n * d + d * att),
@@ -1290,6 +1354,8 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
         cases = [(kname + " bf16", *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    print_walk_design("norm1_fwd", shape_name, dims, g, d, att, h, score,
+                      multi_rows)
     print_walk_design("norm1_bwd", shape_name, dims, g, d, att, h, score)
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
@@ -2172,7 +2238,7 @@ def drive_sharded_cora(data_dir: str, seed: int, dev: str = "cuda"):
         ct = randn(n, d)
         ax6 = fused_rhs_fwd(g.rowptr, g.row, g.col, ops[4], *ops[:4],
                             torch.zeros(1, device=dev), heads=h,
-                            score="scaled_dot")[0]
+                            score="scaled_dot", pieces=g.row_pieces)[0]
         grads = {}
         for mode in MODES:
             leaves = [t.clone().requires_grad_() for t in ops]
@@ -2311,7 +2377,7 @@ def drive_sharded_bf16_state(mesh, g, ops, ct, h, seed):
               f"(bfloat16) within {err / top:.2e}", flush=True)
     ax6 = fused_rhs_fwd(g.rowptr, g.row, g.col, xb.float(), *ops[:4],
                         torch.zeros(1, device=dev), heads=h,
-                        score="scaled_dot")[0]
+                        score="scaled_dot", pieces=g.row_pieces)[0]
     grads = {}
     for mode in MODES:
         leaves = [t.clone().requires_grad_() for t in ops[:4]] + [
@@ -2409,7 +2475,7 @@ def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
            torch.randn((att,), generator=gen, device=dev) * 0.1]
     ax6 = fused_rhs_fwd(g.rowptr, g.row, g.col, x, *ops,
                         torch.zeros(1, device=dev), heads=h,
-                        score="scaled_dot")[0]
+                        score="scaled_dot", pieces=g.row_pieces)[0]
     _, rel_f = agree("(u) fused RHS, 4-way split, vs K6",
                        make_sharded_fused_rhs(mesh, padded, heads=h)(*ops, x),
                        ax6)
@@ -2418,7 +2484,7 @@ def drive_split_arxiv(big, seed: int, dev: str = "cuda"):
     xb = x.to(torch.bfloat16)
     ax6_b = fused_rhs_fwd(g.rowptr, g.row, g.col, xb.float(), *ops,
                           torch.zeros(1, device=dev), heads=h,
-                          score="scaled_dot")[0]
+                          score="scaled_dot", pieces=g.row_pieces)[0]
     _, rel_b = agree("(u) fused RHS, 4-way split, bf16 state, vs K6",
                      make_sharded_fused_rhs(mesh, padded, heads=h)(*ops, xb),
                      ax6_b)
@@ -2470,7 +2536,8 @@ BENCH_BF16 = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
 
 def counted(label: str, expected, fn):
     """Run ``fn`` with every kernel launch counter set to 0 just before and
-    read just after; each kernel in ``expected`` must have been launched.
+    read just after; each kernel in ``expected`` must have been launched,
+    and no walk over row pieces may have built its pieces on the fly.
     Returns (fn's result, launch counts, seconds)."""
     import torch
     from graph_neural_pde_tpu_torch import kernels
@@ -2478,6 +2545,8 @@ def counted(label: str, expected, fn):
         k.launches = 0
     for k in kernels.BF16_KERNELS:
         k.bf16_launches = 0
+    for k in kernels.ROW_WALKS:
+        k.piece_builds = 0
     kernels.fused_rhs_fwd.bf16_shifted_launches = 0
     kernels.csr_spmm.table_launches = 0
     kernels.csr_spmm.table_bf16_launches = 0
@@ -2485,6 +2554,11 @@ def counted(label: str, expected, fn):
     res = fn()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    built = {k.__name__: k.piece_builds for k in kernels.ROW_WALKS
+             if k.piece_builds}
+    if built:
+        raise AssertionError(f"{label}: row pieces built on the fly instead "
+                             f"of the graph's own: {built}")
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     launches[TABLE_MODE] = kernels.csr_spmm.table_launches
     for k in kernels.BF16_KERNELS:
@@ -2712,10 +2786,15 @@ def main() -> int:
         cora_hub = hub_graph(cora_g, 360, args.seed + 230)
         rows += check_fused_kernels("cora-hub", cora_hub, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
-                                    args.seed + 231)
+                                    args.seed + 231, multi_rows=True)
         rows += check_norm1_kernels("cora-hub", cora_hub, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
-                                    args.seed + 232)
+                                    args.seed + 232, multi_rows=True)
+        # the exact mode's shifts: K7's maxima against K6's scores
+        check_exact_shifts("cora-one-edge", cora_g.num_nodes, nl.hidden_dim,
+                           nl.attention_dim, nl.heads, args.seed + 233)
+        check_exact_shifts("arxiv-one-edge", 20_000, bench.hidden_dim,
+                           bench.attention_dim, bench.heads, args.seed + 234)
         # the bfloat16 payload: K1 and K2 on bf16 tables at the tuned Cora
         # row's width, K6 and K9 on the bf16 column table at the Cora
         # GRAND-nl widths and, every family, small
@@ -2972,7 +3051,8 @@ def main() -> int:
         blend_d = nl.feat_hidden_dim + nl.pos_enc_hidden_dim
         rows += check_fused_kernels("cora-knn", knn_g, blend_d,
                                     2 * nl.attention_dim, nl.heads, BELTRAMI,
-                                    args.seed + 107, feat=nl.feat_hidden_dim)
+                                    args.seed + 107, feat=nl.feat_hidden_dim,
+                                    multi_rows=True)
         rows += check_column_rhs_kernels("cora-knn", knn_g, blend_d,
                                          2 * nl.attention_dim, nl.heads,
                                          BELTRAMI, args.seed + 108,
@@ -3414,8 +3494,8 @@ def main() -> int:
                "edge_dot": ("edge_dot.cu", "stripe.py:363"),
                "segment_norm": ("segment_norm.cu", "stripe.py:412"),
                "segment_norm_bwd": ("segment_norm.cu", "stripe.py:412"),
-               "fused_rhs_fwd": ("fused_rhs.cu", "fused_rhs.py:280"),
-               "fused_rowmax": ("fused_rhs.cu", "fused_rhs.py:654"),
+               "fused_rhs_fwd": ("fused_fwd.cu", "fused_rhs.py:280"),
+               "fused_rowmax": ("fused_fwd.cu", "fused_rhs.py:654"),
                "fused_rhs_bwd": ("fused_rhs.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_sym": ("fused_rhs.cu", "fused_rhs.py:1341"),
                "dual_scatter": ("dual_scatter.cu", "stripe.py:599"),
@@ -3435,11 +3515,11 @@ def main() -> int:
                # the bfloat16-table modes (the bf16 payload)
                "csr_spmm bf16": ("csr_spmm.cu", "stripe.py:513"),
                "edge_dot bf16": ("edge_dot.cu", "stripe.py:363"),
-               "fused_rhs_fwd bf16": ("fused_rhs.cu", "fused_rhs.py:280"),
+               "fused_rhs_fwd bf16": ("fused_fwd.cu", "fused_rhs.py:280"),
                "fused_rhs_bwd_sym bf16": ("fused_rhs.cu",
                                           "fused_rhs.py:1341"),
-               SHIFTED_BF16: ("fused_rhs.cu", "fused_rhs.py:280"),
-               "fused_rowmax bf16": ("fused_rhs.cu", "fused_rhs.py:654"),
+               SHIFTED_BF16: ("fused_fwd.cu", "fused_rhs.py:280"),
+               "fused_rowmax bf16": ("fused_fwd.cu", "fused_rhs.py:654"),
                "fused_rhs_bwd bf16": ("fused_rhs.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_col bf16": ("fused_rhs.cu",
                                           "fused_rhs.py:1047"),

@@ -1,6 +1,7 @@
-// Device code shared by the fused attention kernels (fused_rhs.cu: K6-K9,
-// K17, norm1.cu: K12-K14): the per-head score families and their derivatives,
-// the node projections into the q and k scratch tables, the warp-level sums
+// Device code shared by the fused attention kernels (fused_fwd.cu: K6, K7;
+// fused_rhs.cu: K8, K9, K17; norm1.cu: K12-K14): the per-head score families
+// and their derivatives, the node projections into the q and k scratch
+// tables, the warp-level sums, the row walks of K9 / K14 and of K6 / K13,
 // and the deterministic two-pass reduction of dKw / dKb. Each source that
 // includes this header gets its own copy (anonymous namespace), so the
 // sources still compile independently, one nvcc each.
@@ -1436,6 +1437,527 @@ int launch_sym_backward(
                           static_cast<const float*>(dkn),
                           static_cast<float*>(partials), n_rows,
                           reduce_blocks, dim, att, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------------
+// K6 (fused_rhs_fwd, the softmax over rows) and K13 (norm1_fwd, over
+// columns): the forward walk over row pieces, in place of the TPU kernels
+// P7 _rhs_kernel_ax and P15 _norm1_fwd_kernel
+// (graph_neural_pde_tpu/ops/pallas/fused_rhs.py). Per edge (n, c) of row n
+// the walk gathers x_c (D values) and k_c (ATT), scores every head against
+// the resident q_n and adds u_eh x_c into the row's sums: K6 one sum a
+// head (the numerators num[n, h], beside the denominators den[n, h]), K13
+// one sum, each edge weighted by sum_h u_eh recip[c, h] (1 / den at the
+// column, gathered with the edge's rows).
+//
+// What bounds it on the H100: the latency of those gathers and of the
+// chain behind them, times the warps an SM keeps in flight. The first
+// version gave a warp a whole row and copied each edge's x_c and k_c into
+// shared memory by a loop of its own after col[e] (K13 read recip[c] only
+// after the score), scored the heads on H lanes, d_k serial FMAs through
+// shared memory each, and kept K6's [H, D] numerators in shared memory:
+// 1.53 ms at arxiv scale against a bound of 0.107 (PERF.md, section 6).
+//
+// Design (one direction of sym_backward_piece's):
+// * One warp walks one piece of at most COL_PIECE edges of a row
+//   (Graph.row_pieces), one edge at a time, in K9's lane layout (KD
+//   16-byte column groups of a D-wide row, KA columns of a q or k row a
+//   lane). q_n and every sum live in registers; an edge's x_c, k_c and
+//   its per-head scalar (K6's shift, K13's recip[c, h]) are loaded
+//   together, the column indices of 32 edges in one coalesced load.
+// * A head's terms are summed over its lanes by slice_sums' segmented
+//   butterfly (both score shapes: the scaled dot or squared distance, and
+//   cosine_sim's and pearson's three centred sums); lane h < H then takes
+//   head h's sums by one shuffle a tile (exp_kernel_beltrami: its feature
+//   and its position half's) and forms the score and u, so each exp is
+//   taken once an edge and head (fwd_score).
+// * K6 keeps den_h in lane h and the numerators of KH heads in registers,
+//   each edge's u_h broadcast from lane h; a row of more heads walks its
+//   piece again for each further group of KH. K13 sums sum_h u_h recip_h
+//   over the head lanes by a butterfly and keeps one D-wide sum.
+// * A row of one piece is finished in the walk (K6: recip, ax = 1/H sum_h
+//   num_h recip_h, den, num and the fold alpha (ax - x) with its guard;
+//   K13: the 1/H scale). The pieces of a longer row write their partial
+//   sums, which fwd_merge_rows adds in piece order before the same finish.
+// Every sum has a fixed order (edges in a piece, then pieces in order;
+// every butterfly the same on every run): no atomics, two launches agree
+// bit for bit. K7 scores through the same fwd_score, so its row maxima
+// are maxima of the very scores K6 shifts, and the exact mode's largest
+// shifted score of a row is exactly 0.
+
+// What K6 and K13's walk reads beside its pieces and tables, and writes
+struct FwdIO {
+  const int* col;          // each edge's column
+  const void* xrow;        // K6's fold: the row side x [N, D], float32 or
+  int xrow_bf16;           // (xrow_bf16) bfloat16
+  const float* shifts;     // K6: per-edge score shifts [E, H], or null
+  const float* alpha;      // K6: the fold's alpha [1], or null
+  const float* recip;      // K13: 1 / (den + 1e-16) [N, H] at the columns
+  float* out;              // [N, D]: ax, or K6's folded alpha (ax - x)
+  float* den;              // K6: [N, H]
+  float* num;              // K6: [N, H D], or null
+  float* part;             // [slots, fwd_part_floats]: pieces' partials
+  int vec;                 // D % 4 == 0 and the D-wide rows 16-byte aligned
+};
+
+// a piece's partial sums: K6 its H numerators [H, D] and H denominators,
+// K13 its D-wide sum
+__host__ __device__ constexpr int fwd_part_floats(bool column_norm, int dim,
+                                                  int heads) {
+  return column_norm ? dim : heads * dim + heads;
+}
+
+// Where lane h < H finds head h's slice sums after slice_sums: the first
+// column of its feature slice, h d_k, and for exp_kernel_beltrami of its
+// position slice, A / 2 + h d_k (tile and lane of each; lanes >= H read
+// head 0's)
+struct HeadLane {
+  int tile, src, tile_p, src_p;
+};
+
+__device__ __forceinline__ HeadLane head_lane(const Proj& p, int d_k,
+                                              int lane) {
+  const int a = (lane < p.heads ? lane : 0) * d_k, ap = p.att / 2 + a;
+  return {a / kWarp, a % kWarp, ap / kWarp, ap % kWarp};
+}
+
+// v[tile] of lane src, read by every lane at its own (tile, src): one
+// shuffle a tile
+template <int KA>
+__device__ __forceinline__ float lane_gather(const float (&v)[KA], int tile,
+                                             int src) {
+  float r = 0.0f;
+#pragma unroll
+  for (int j = 0; j < KA; ++j) {
+    const float t = __shfl_sync(kFull, v[j], src);
+    if (j == tile) r = t;
+  }
+  return r;
+}
+
+// The raw score of head `lane` (lanes < H) of q_n against k_c: the forward
+// half of edge_sums, then tile_score at the head's lane. The products are
+// rounded by __fmul_rn, so that no contraction into a neighbouring add
+// lets K6's and K7's scores of one edge differ in a last bit.
+template <int KA, bool kNormed>
+__device__ __forceinline__ float fwd_score(const LaneHeads<KA>& h,
+                                           const HeadLane& hl, const Proj& p,
+                                           const ScoreConsts& k,
+                                           const float (&qn)[KA],
+                                           const float (&kc)[KA], float* buf,
+                                           int lane) {
+  const int A = p.att;
+  if constexpr (!kNormed) {
+    float t[1][KA];
+    const bool dot = p.score == kScaledDot;
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const float df = qn[j] - kc[j];
+      t[0][j] = dot ? __fmul_rn(qn[j], kc[j]) : __fmul_rn(df, df);
+    }
+    slice_sums<KA, 1>(h, t, buf, lane, A);
+    const float own = lane_gather<KA>(t[0], hl.tile, hl.src);
+    const float other = p.score == kBeltrami
+                            ? lane_gather<KA>(t[0], hl.tile_p, hl.src_p)
+                            : 0.0f;
+    const float v[4] = {own, 0.0f, other, 0.0f};
+    return tile_score<false>(p.score, k, v, 0, true).s;
+  } else {
+    float m[2][KA] = {};
+    if (p.score == kPearson) {              // the head means first
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        m[0][j] = qn[j];
+        m[1][j] = kc[j];
+      }
+      slice_sums<KA, 2>(h, m, buf, lane, A);
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        m[0][j] *= k.inv_dk;
+        m[1][j] *= k.inv_dk;
+      }
+    }
+    float v[3][KA];
+#pragma unroll
+    for (int j = 0; j < KA; ++j) {
+      const float a = qn[j] - m[0][j], b = kc[j] - m[1][j];
+      v[0][j] = __fmul_rn(a, b);
+      v[1][j] = __fmul_rn(a, a);
+      v[2][j] = __fmul_rn(b, b);
+    }
+    slice_sums<KA, 3>(h, v, buf, lane, A);
+    const float w[3] = {lane_gather<KA>(v[0], hl.tile, hl.src),
+                        lane_gather<KA>(v[1], hl.tile, hl.src),
+                        lane_gather<KA>(v[2], hl.tile, hl.src)};
+    return tile_score<true>(p.score, k, w, 0, true).s;
+  }
+}
+
+// the sum over the head lanes [0, H) of a value that is 0 on the others:
+// a butterfly over the lanes of the first power of two >= H, read from
+// lane 0 by every lane
+__device__ __forceinline__ float head_lanes_sum(float v, int heads) {
+  for (int o = 1; o < heads; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+  return __shfl_sync(kFull, v, 0);
+}
+
+__device__ __forceinline__ float4 scale4(float4 v, float s) {
+  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
+}
+
+// ax += num_h recip_h, column by column (fmaf, the heads in order)
+__device__ __forceinline__ float4 fma4(float4 a, float s, float4 acc) {
+  return make_float4(fmaf(a.x, s, acc.x), fmaf(a.y, s, acc.y),
+                     fmaf(a.z, s, acc.z), fmaf(a.w, s, acc.w));
+}
+
+// The end of a row of K6: den written by its head lanes, then ax / H, or
+// the fold alpha (ax / H - x_n), NaN over the whole row when a head's den
+// under- or overflowed (den <= 0 on a row with edges, or not finite).
+// ax holds sum_h num_h recip_h.
+template <int KD>
+__device__ __forceinline__ void fwd_finish_rhs(const FwdIO& io, int n, int D,
+                                               int H, int lane, bool edges,
+                                               float den,
+                                               const float4 (&ax)[KD]) {
+  if (lane < H) io.den[static_cast<size_t>(n) * H + lane] = den;
+  const bool vec = io.vec;
+  bool bad = false;
+  float alpha = 0.0f;
+  if (io.alpha != nullptr) {
+    bad = __any_sync(kFull, lane < H && ((den <= 0.0f && edges) ||
+                                         !isfinite(den)));
+    alpha = __ldg(io.alpha);
+  }
+  const float scale = 1.0f / H;
+#pragma unroll
+  for (int t = 0; t < KD; ++t) {
+    const int c0 = 4 * (kWarp * t + lane);
+    float4 v = scale4(ax[t], scale);
+    if (io.alpha != nullptr) {
+      const size_t at = static_cast<size_t>(n) * D;
+      const float4 xn =
+          io.xrow_bf16
+              ? load4(static_cast<const __nv_bfloat16*>(io.xrow) + at, c0, D,
+                      vec)
+              : load4(static_cast<const float*>(io.xrow) + at, c0, D, vec);
+      v = bad ? make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F,
+                            CUDART_NAN_F)
+              : make_float4(alpha * (v.x - xn.x), alpha * (v.y - xn.y),
+                            alpha * (v.z - xn.z), alpha * (v.w - xn.w));
+    }
+    store4(io.out + static_cast<size_t>(n) * D, c0, D, vec, v);
+  }
+}
+
+// One piece of a row n of the forward walk (see the note above):
+// kColumnNorm K13, else K6; kNormed takes cosine_sim and pearson, else
+// scaled_dot, exp_kernel and exp_kernel_beltrami; KH: the heads K6 sums at
+// once (K13: 1); xcol is the column-side table the values and k come from
+// (x itself, or the bfloat16 copy under the bf16 payload, whose k table is
+// bfloat16 too); the row side is the q table. smem: the block's dynamic
+// shared memory, A floats a warp (kBufferHeads only).
+template <bool kColumnNorm, typename TC, int KD, int KA, bool kNormed, int KH>
+__device__ __forceinline__ void fwd_walk_piece(
+    float* smem, Pieces pc, Proj p, FwdIO io, const TC* __restrict__ xcol,
+    const float* __restrict__ qtab, const TC* __restrict__ ktab) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int pi = blockIdx.x * kWarpsPerBlock + warp;
+  if (pi >= pc.n_pieces) return;              // whole warp leaves together
+  const int D = p.dim, A = p.att, H = p.heads;
+  const bool vec = io.vec, head = lane < H;
+  const int n = pc.col[pi], slot = pc.slot[pi];
+  const int start = pc.ptr[pi], end = pc.ptr[pi + 1];
+  float* buf = smem + static_cast<size_t>(warp) * A;
+  const LaneHeads<KA> h = make_heads<KA>(p, lane);
+  const HeadLane hl = head_lane(p, h.d_k, lane);
+  const float gmax = *p.gmax;
+  const ScoreConsts skc = score_consts(score_params(p), h.d_k);
+  float qn[KA];
+#pragma unroll
+  for (int j = 0; j < KA; ++j)
+    qn[j] = bit(h.valid, j)
+                ? __ldg(qtab + static_cast<size_t>(n) * A + kWarp * j + lane)
+                : 0.0f;
+  constexpr int kSums = kColumnNorm ? 1 : KH;
+  const int W = fwd_part_floats(kColumnNorm, D, H);
+  float* pr = slot >= 0 ? io.part + static_cast<size_t>(slot) * W : nullptr;
+  float den = 0.0f;                     // K6, lane h: head h's sum of u
+  float4 ax[KD];                        // K6: sum_h num_h recip_h
+#pragma unroll
+  for (int t = 0; t < KD; ++t) ax[t] = zero4();
+  const int groups = kColumnNorm ? 1 : (H + KH - 1) / KH;
+  for (int g = 0; g < groups; ++g) {
+    const int g0 = g * KH;
+    float4 acc[kSums][KD];
+#pragma unroll
+    for (int i = 0; i < kSums; ++i)
+#pragma unroll
+      for (int t = 0; t < KD; ++t) acc[i][t] = zero4();
+    for (int base = start; base < end; base += kWarp) {
+      const int cnt = min(kWarp, end - base);
+      const int cols = lane < cnt ? __ldg(io.col + base + lane) : n;
+      for (int i = 0; i < cnt; ++i) {
+        const int c = __shfl_sync(kFull, cols, i);
+        // the edge's rows and its per-head scalar, every load started
+        // before the first use
+        float4 xc[KD];
+#pragma unroll
+        for (int t = 0; t < KD; ++t)
+          xc[t] = load4(xcol + static_cast<size_t>(c) * D,
+                        4 * (kWarp * t + lane), D, vec);
+        float kc[KA];
+#pragma unroll
+        for (int j = 0; j < KA; ++j)
+          kc[j] = bit(h.valid, j)
+                      ? widen(ktab[static_cast<size_t>(c) * A + kWarp * j +
+                                   lane])
+                      : 0.0f;
+        float hv = 0.0f;
+        if (kColumnNorm) {
+          if (head) hv = __ldg(io.recip + static_cast<size_t>(c) * H + lane);
+        } else if (io.shifts != nullptr && head) {
+          hv = __ldg(io.shifts + static_cast<size_t>(base + i) * H + lane);
+        }
+        const float s =
+            fwd_score<KA, kNormed>(h, hl, p, skc, qn, kc, buf, lane);
+        float u, duds;
+        u_duds(kColumnNorm ? s - gmax : (s - gmax) - hv, p.square_plus, &u,
+               &duds);
+        u = head ? u : 0.0f;
+        if constexpr (kColumnNorm) {
+          const float w = head_lanes_sum(u * hv, H);  // sum_h u_h recip_h
+#pragma unroll
+          for (int t = 0; t < KD; ++t) acc[0][t] = axpy4(w, xc[t], acc[0][t]);
+        } else {
+          if (g == 0) den += u;
+#pragma unroll
+          for (int hh = 0; hh < KH; ++hh) {
+            if (g0 + hh >= H) break;
+            const float uh = __shfl_sync(kFull, u, g0 + hh);
+#pragma unroll
+            for (int t = 0; t < KD; ++t)
+              acc[hh][t] = axpy4(uh, xc[t], acc[hh][t]);
+          }
+        }
+      }
+    }
+    if constexpr (kColumnNorm) {
+#pragma unroll
+      for (int t = 0; t < KD; ++t) {
+        const int c0 = 4 * (kWarp * t + lane);
+        if (pr != nullptr)
+          store4(pr, c0, D, false, acc[0][t]);
+        else
+          store4(io.out + static_cast<size_t>(n) * D, c0, D, vec,
+                 scale4(acc[0][t], 1.0f / H));
+      }
+    } else {
+      if (pr != nullptr && g == 0 && head) pr[H * D + lane] = den;
+      const float recip = 1.0f / (den + kEps);
+#pragma unroll
+      for (int hh = 0; hh < KH; ++hh) {
+        const int hg = g0 + hh;
+        if (hg >= H) break;
+        if (pr != nullptr) {                  // a piece of a longer row
+#pragma unroll
+          for (int t = 0; t < KD; ++t)
+            store4(pr + hg * D, 4 * (kWarp * t + lane), D, false,
+                   acc[hh][t]);
+          continue;
+        }
+        const float rh = __shfl_sync(kFull, recip, hg);
+#pragma unroll
+        for (int t = 0; t < KD; ++t) {
+          ax[t] = fma4(acc[hh][t], rh, ax[t]);
+          if (io.num != nullptr)
+            store4(io.num + (static_cast<size_t>(n) * H + hg) * D,
+                   4 * (kWarp * t + lane), D, vec, acc[hh][t]);
+        }
+      }
+    }
+  }
+  if constexpr (!kColumnNorm) {
+    if (pr == nullptr)
+      fwd_finish_rhs<KD>(io, n, D, H, lane, end > start, den, ax);
+  }
+}
+
+// A row of several pieces: their partial sums added in piece order, then
+// finished as a row of one piece is (a warp a row; the second pass of K6
+// and K13 when a row has several pieces)
+template <bool kColumnNorm, int KD>
+__device__ __forceinline__ void fwd_merge_rows(Pieces pc, Proj p, FwdIO io) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int m = blockIdx.x * kWarpsPerBlock + warp;
+  if (m >= pc.n_multi) return;                // whole warp leaves together
+  const int D = p.dim, H = p.heads, W = fwd_part_floats(kColumnNorm, D, H);
+  const bool vec = io.vec;
+  const int n = pc.multi_col[m];
+  const int s0 = pc.multi_ptr[m], s1 = pc.multi_ptr[m + 1];
+  if constexpr (kColumnNorm) {
+#pragma unroll
+    for (int t = 0; t < KD; ++t) {
+      const int c0 = 4 * (kWarp * t + lane);
+      float4 acc = zero4();
+      for (int s = s0; s < s1; ++s)
+        acc = add4(acc, load4(io.part + static_cast<size_t>(s) * W, c0, D,
+                              false));
+      store4(io.out + static_cast<size_t>(n) * D, c0, D, vec,
+             scale4(acc, 1.0f / H));
+    }
+  } else {
+    float den = 0.0f;
+    if (lane < H)
+      for (int s = s0; s < s1; ++s)
+        den += io.part[static_cast<size_t>(s) * W + H * D + lane];
+    const float recip = 1.0f / (den + kEps);
+    float4 ax[KD];
+#pragma unroll
+    for (int t = 0; t < KD; ++t) ax[t] = zero4();
+    for (int hg = 0; hg < H; ++hg) {
+      const float rh = __shfl_sync(kFull, recip, hg);
+#pragma unroll
+      for (int t = 0; t < KD; ++t) {
+        const int c0 = 4 * (kWarp * t + lane);
+        float4 num = zero4();
+        for (int s = s0; s < s1; ++s)
+          num = add4(num, load4(io.part + static_cast<size_t>(s) * W + hg * D,
+                                c0, D, false));
+        ax[t] = fma4(num, rh, ax[t]);
+        if (io.num != nullptr)
+          store4(io.num + (static_cast<size_t>(n) * H + hg) * D, c0, D, vec,
+                 num);
+      }
+    }
+    fwd_finish_rhs<KD>(io, n, D, H, lane, true, den, ax);
+  }
+}
+
+// Blocks of K6 and K13's walk an SM keeps resident, for __launch_bounds__
+// (kh: K6's heads in registers, 1 for K13; tc: bytes of a column-table
+// value). The walk waits on its gathers, so warps in flight pay more than
+// the few bytes a cap spills (PERF.md, section 6): with 1 or 2 attention
+// tiles, registers are capped at 48 (10 blocks, 40 warps) for K6 over a
+// float32 table and at 40 (12, 48 warps) for K6 over the bfloat16 table and
+// for K13; with 4 tiles at 64 (8), with 8 at 80 (6); K6 with 8 heads in
+// registers at 80 (6) up to 4 tiles, and uncapped (4 blocks: its 118-128)
+// at 8 (118-119 registers), where a cap cost the kNN graph 15%.
+__host__ __device__ constexpr int fwd_min_blocks(int ka, int kh, int tc) {
+  return kh == 8    ? (ka == 8 ? 4 : 6)
+         : ka <= 2  ? (kh == 2 && tc == 4 ? 10 : 12)
+         : ka == 4  ? 8
+                    : 6;
+}
+
+// The walk and its merge once the q and k tables hold every node's
+// projections. Walk names each file's __global__ wrappers:
+// Walk::walk<TC, KD, KA, kNormed, KH>() and Walk::merge<KD>(), and
+// Walk::kColumnNorm.
+template <typename Walk, typename TC, int KD, int KA, bool kNormed, int KH>
+cudaError_t launch_fwd_walk_k(const Pieces& pc, const Proj& p,
+                              const FwdIO& io, const void* xcol,
+                              const void* qtab, const void* ktab,
+                              cudaStream_t s) {
+  const auto kernel = Walk::template walk<TC, KD, KA, kNormed, KH>();
+  const size_t bytes = sizeof(float) * kWarpsPerBlock * p.att;
+  cudaError_t err = allow_shared(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<row_blocks(pc.n_pieces), kWarpsPerBlock * kWarp, bytes, s>>>(
+      pc, p, io, static_cast<const TC*>(xcol),
+      static_cast<const float*>(qtab), static_cast<const TC*>(ktab));
+  return cudaGetLastError();
+}
+
+// K6's numerators in registers: 2 heads at once, or 8 (KD = 1) when the
+// row has more; K13 sums once
+template <typename Walk, typename TC, int KD, int KA, bool kNormed>
+cudaError_t launch_fwd_heads(const Pieces& pc, const Proj& p,
+                             const FwdIO& io, const void* xcol,
+                             const void* qtab, const void* ktab,
+                             cudaStream_t s) {
+  if constexpr (Walk::kColumnNorm) {
+    return launch_fwd_walk_k<Walk, TC, KD, KA, kNormed, 1>(pc, p, io, xcol,
+                                                           qtab, ktab, s);
+  } else {
+    if constexpr (KD == 1) {
+      if (p.heads > 2)
+        return launch_fwd_walk_k<Walk, TC, KD, KA, kNormed, 8>(
+            pc, p, io, xcol, qtab, ktab, s);
+    }
+    return launch_fwd_walk_k<Walk, TC, KD, KA, kNormed, 2>(pc, p, io, xcol,
+                                                           qtab, ktab, s);
+  }
+}
+
+template <typename Walk, typename TC>
+cudaError_t launch_fwd_walk(const Pieces& pc, const Proj& p, const FwdIO& io,
+                            const void* xcol, const void* qtab,
+                            const void* ktab, cudaStream_t s) {
+  if (p.score == kCosine || p.score == kPearson) {
+#define GNPDE_FWD_NORMED(KD, KA) \
+  launch_fwd_heads<Walk, TC, KD, KA, true>(pc, p, io, xcol, qtab, ktab, s)
+    if (p.dim <= 128)
+      return p.att <= 64 ? GNPDE_FWD_NORMED(1, 2) : GNPDE_FWD_NORMED(1, 8);
+    return p.att <= 64 ? GNPDE_FWD_NORMED(2, 2) : GNPDE_FWD_NORMED(2, 8);
+#undef GNPDE_FWD_NORMED
+  }
+#define GNPDE_FWD(KD, KA) \
+  launch_fwd_heads<Walk, TC, KD, KA, false>(pc, p, io, xcol, qtab, ktab, s)
+  GNPDE_SYM_TILES(GNPDE_FWD)
+#undef GNPDE_FWD
+}
+
+template <typename Walk>
+cudaError_t launch_fwd_merge(const Pieces& pc, const Proj& p,
+                             const FwdIO& io, cudaStream_t s) {
+  if (pc.n_multi == 0) return cudaSuccess;
+  if (p.dim <= 128)
+    Walk::template merge<1>()<<<row_blocks(pc.n_multi),
+                                kWarpsPerBlock * kWarp, 0, s>>>(pc, p, io);
+  else
+    Walk::template merge<2>()<<<row_blocks(pc.n_multi),
+                                kWarpsPerBlock * kWarp, 0, s>>>(pc, p, io);
+  return cudaGetLastError();
+}
+
+// The launches behind K6 and K13: the q and k tables (unless the caller
+// says they are filled already: project = 0), the walk over the row
+// pieces and the merge of multi-piece rows. `tables` as launch_tables
+// takes it; with kTablesF32, xcol is x.
+template <typename Walk>
+int launch_forward(int project, int tables, const void* piece_ptr,
+                   const void* piece_row, const void* piece_slot,
+                   const void* multi_row, const void* multi_ptr,
+                   const void* x, const void* xcol, const void* qw,
+                   const void* qb, const void* kw, const void* kb,
+                   void* qtab, void* ktab, const Proj& p, FwdIO io,
+                   int n_rows, int n_pieces, int n_multi, void* stream) {
+  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaError_t err = cudaSuccess;
+    if (project)
+      err = launch_tables(tables, x, tables == kTablesF32 ? x : xcol, qw, qb,
+                          kw, kb, qtab, ktab, n_rows, p.dim, p.att, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const Pieces pc = {static_cast<const int*>(piece_ptr),
+                       static_cast<const int*>(piece_row),
+                       static_cast<const int*>(piece_slot),
+                       static_cast<const int*>(multi_row),
+                       static_cast<const int*>(multi_ptr), n_pieces, n_multi};
+    io.xrow = x;
+    io.xrow_bf16 = tables == kTablesBf16;
+    const void* table = tables == kTablesF32 ? x : xcol;
+    err = tables == kTablesF32
+              ? launch_fwd_walk<Walk, float>(pc, p, io, table, qtab, ktab, s)
+              : launch_fwd_walk<Walk, __nv_bfloat16>(pc, p, io, table, qtab,
+                                                     ktab, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = launch_fwd_merge<Walk>(pc, p, io, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,9 @@
-// K6 fused_rhs_fwd, K7 fused_rowmax, K8 fused_rhs_bwd, K9 fused_rhs_bwd_sym,
-// K17 fused_rhs_bwd_col: one evaluation of the GRAND-nl attention
-// right-hand side over a row-sorted CSR graph, its per-row score maxima, and
-// its backward passes (the same over a per-edge payload, K18, K19 and K8's
-// per-head mode, is fused_payload.cu).
+// K8 fused_rhs_bwd, K9 fused_rhs_bwd_sym, K17 fused_rhs_bwd_col: the
+// backward passes of one evaluation of the GRAND-nl attention right-hand
+// side over a row-sorted CSR graph. Its forward, K6 fused_rhs_fwd, and its
+// per-row score maxima, K7 fused_rowmax, are fused_fwd.cu (they share this
+// note and the device code of fused_common.cuh); the same over a per-edge
+// payload, K18, K19 and K8's per-head mode, is fused_payload.cu.
 //
 // Replace the TPU kernels of graph_neural_pde_tpu/ops/pallas/fused_rhs.py:
 // _rhs_kernel_ax / _fused_ax_call (K6), _rowmax_kernel / fused_rowmax (K7),
@@ -12,10 +13,10 @@
 // plan of padded edge chunks and do every gather, scatter and per-head sum
 // as a one-hot or selector matmul, because a TPU core has no fast indexed
 // access and runs its grid in order. Neither holds here: these kernels walk
-// the CSR rowptr (K17 the CSC view, cut into column pieces), gather their
-// node rows themselves and keep every per-row sum in the warp that owns the
-// row (K17: the piece), so no [E, .] operand is read and, but for K8's
-// per-edge outputs, none is written.
+// the CSR rowptr (K6 and K9 its row pieces, K17 the CSC view cut into
+// column pieces), gather their node rows themselves and keep every per-row
+// sum in the warp that owns the row (K6, K9, K17: the piece), so no [E, .]
+// operand is read and, but for K8's per-edge outputs, none is written.
 //
 // For row n with edges e to columns c (see kernels/fused_rhs.py for the
 // full formulas):
@@ -41,15 +42,15 @@
 // arithmetic per edge is 2 ATT + 2 H D flop. K8 alone still multiplies per
 // edge (dxg[e] needs dk_e Kw^T) and is bound by that.
 //
-// Design: one warp per row (K17: per column piece, see its note; K9: per
-// row piece, its walk in fused_common.cuh), four warps a block. Lanes span
-// ATT for the node projections (Kw / Qw are read through the L1 as
-// coalesced rows), lane h owns head h for the scores and their
-// derivatives (d_k serial terms, so the order of every sum is fixed),
-// lanes span D for the aggregation. The per-head numerators, the row's q,
-// the edge's x_c and k_c live in the warp's slice of dynamic shared
-// memory. K9 keeps its rows in registers instead and scores every head on
-// all lanes (sym_backward_piece). There are no atomics anywhere.
+// Design: K6 and K9 walk row pieces in registers and score every head on
+// all lanes (fwd_walk_piece and sym_backward_piece in fused_common.cuh);
+// K7, K8 and K17 (per column piece, see its note) keep one warp a row,
+// four warps a block. Lanes span ATT for the node projections (Kw / Qw are
+// read through the L1 as coalesced rows); in K8 and K17 lane h owns head h
+// for the scores and their derivatives (d_k serial terms, so the order of
+// every sum is fixed) and lanes span D for the sums, which live with the
+// row's q and the edge's x_c and k_c in the warp's slice of dynamic shared
+// memory. There are no atomics anywhere.
 // Sums over all edges (dKw, dKb, dgmax and the exp_kernel scalars) are
 // taken in two passes with a fixed order: K8 writes each edge's dk_e, K9
 // each node's dk summed over its reverse edges, K17 each column's dk
@@ -69,124 +70,15 @@
 // edge gathers D + ATT bf16 values instead of D + ATT floats (K17: each
 // column its own row once); q, every cotangent, every sum and every output
 // stays float32, and dKw is reduced over the column table. The same
-// templates serve both modes (TR the row side's type where the walk reads
-// it, TC the column table's), and the sums keep their fixed order. K7 and
-// K8 build their tables over the same q and k as K6, so the exact mode's
-// shifts are the row maxima of the very scores K6 shifts.
+// templates serve both modes (TC the column table's type; K6 reads the row
+// side only for its fold, as a float32 or bfloat16 row), and the sums keep
+// their fixed order. K7 and K8 build their tables over the same q and k as
+// K6, so the exact mode's shifts are the row maxima of the very scores K6
+// shifts.
 
 #include "fused_common.cuh"
 
 namespace {
-
-// ----------------------------------------------------------------------- K6
-
-template <typename TR, typename TC>
-__global__ void fused_rhs_fwd_kernel(Graph g, Proj p,
-                                     const TR* __restrict__ xrow,
-                                     const TC* __restrict__ xcol,
-                                     const float* __restrict__ qtab,
-                                     const TC* __restrict__ ktab,
-                                     const float* __restrict__ shifts,
-                                     const float* __restrict__ alpha,
-                                     float* __restrict__ out,
-                                     float* __restrict__ den,
-                                     float* __restrict__ num) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  float* xn = smem + static_cast<size_t>(warp) * (2 * D + 2 * A + H * D);
-  float* xc = xn + D;
-  float* q = xc + D;
-  float* ke = q + A;
-  float* acc = ke + A;                          // [H, D] numerators
-  load_row(xrow, n, D, lane, xn);
-  load_row(qtab, n, A, lane, q);
-  for (int i = lane; i < H * D; i += kWarp) acc[i] = 0.0f;
-  __syncwarp();
-  const float gmax = *p.gmax;
-  const ScoreParams sc = score_params(p);
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  float den_h = 0.0f;                           // lane h: head h
-  for (int e = start; e < end; ++e) {
-    const int c = g.col[e];
-    load_row(xcol, c, D, lane, xc);
-    load_row(ktab, c, A, lane, ke);
-    __syncwarp();
-    float u = 0.0f;
-    if (lane < H) {
-      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
-      float sm = hs.s - gmax;
-      if (shifts) sm -= shifts[static_cast<size_t>(e) * H + lane];
-      float duds;
-      u_duds(sm, p.square_plus, &u, &duds);
-      den_h += u;
-    }
-    for (int h = 0; h < H; ++h) {
-      const float uh = __shfl_sync(kFull, u, h);
-      float* ah = acc + h * D;
-      for (int d = lane; d < D; d += kWarp) ah[d] = fmaf(uh, xc[d], ah[d]);
-    }
-    __syncwarp();                               // xc and ke are reused
-  }
-  const float recip = lane < H ? 1.0f / (den_h + kEps) : 0.0f;
-  bool bad = false;
-  if (alpha) {
-    const bool mine = lane < H && ((den_h <= 0.0f && end > start) ||
-                                   !isfinite(den_h));
-    bad = __any_sync(kFull, mine);
-  }
-  const float scale = 1.0f / H;
-  for (int d0 = 0; d0 < D; d0 += kWarp) {
-    const int d = d0 + lane;
-    float ax = 0.0f;
-    for (int h = 0; h < H; ++h) {
-      const float rh = __shfl_sync(kFull, recip, h);
-      if (d < D) ax = fmaf(acc[h * D + d], rh, ax);
-    }
-    ax *= scale;
-    if (d < D) {
-      float v = ax;
-      if (alpha) v = bad ? CUDART_NAN_F : *alpha * (ax - xn[d]);
-      out[static_cast<size_t>(n) * D + d] = v;
-    }
-  }
-  if (lane < H) den[static_cast<size_t>(n) * H + lane] = den_h;
-  if (num) {
-    float* nr = num + static_cast<size_t>(n) * H * D;
-    for (int i = lane; i < H * D; i += kWarp) nr[i] = acc[i];
-  }
-}
-
-// ----------------------------------------------------------------------- K7
-
-template <typename TC>
-__global__ void fused_rowmax_kernel(Graph g, Proj p,
-                                    const float* __restrict__ qtab,
-                                    const TC* __restrict__ ktab,
-                                    float* __restrict__ smax) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;
-  const int A = p.att, H = p.heads, d_k = A / H;
-  float* q = smem + static_cast<size_t>(warp) * (2 * A);
-  float* ke = q + A;
-  load_row(qtab, n, A, lane, q);
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  float m = -CUDART_INF_F;
-  for (int e = start; e < end; ++e) {
-    load_row(ktab, g.col[e], A, lane, ke);
-    __syncwarp();
-    if (lane < H)
-      m = fmaxf(m, head_score(q, ke, lane, d_k, H, kScaledDot,
-                              ScoreParams{1.0f, 1.0f, 1.0f, 1.0f}).s);
-    __syncwarp();
-  }
-  if (lane < H)
-    smax[static_cast<size_t>(n) * H + lane] = isfinite(m) ? m : 0.0f;
-}
 
 // ------------------------------------------------------------- K8 and K9
 
@@ -440,39 +332,6 @@ __global__ void fused_rhs_bwd_col_merge_kernel(
   }
 }
 
-template <typename TR, typename TC>
-cudaError_t launch_fwd(Graph g, Proj p, const void* x, const void* xcol,
-                       const void* qtab, const void* ktab,
-                       const void* shifts, const void* alpha, void* out,
-                       void* den, void* num, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock *
-                       (2 * p.dim + 2 * p.att + p.heads * p.dim);
-  cudaError_t err = allow_shared(fused_rhs_fwd_kernel<TR, TC>, bytes);
-  if (err != cudaSuccess) return err;
-  fused_rhs_fwd_kernel<TR, TC><<<row_blocks(g.n_rows),
-                                 kWarpsPerBlock * kWarp, bytes, s>>>(
-      g, p, static_cast<const TR*>(x), static_cast<const TC*>(xcol),
-      static_cast<const float*>(qtab), static_cast<const TC*>(ktab),
-      static_cast<const float*>(shifts), static_cast<const float*>(alpha),
-      static_cast<float*>(out), static_cast<float*>(den),
-      static_cast<float*>(num));
-  return cudaGetLastError();
-}
-
-// K7 over the q table and the k table of type TC (see launch_tables)
-template <typename TC>
-cudaError_t launch_rowmax(Graph g, Proj p, const void* qtab,
-                          const void* ktab, void* smax, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock * (2 * p.att);
-  cudaError_t err = allow_shared(fused_rowmax_kernel<TC>, bytes);
-  if (err != cudaSuccess) return err;
-  fused_rowmax_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp,
-                            bytes, s>>>(
-      g, p, static_cast<const float*>(qtab), static_cast<const TC*>(ktab),
-      static_cast<float*>(smax));
-  return cudaGetLastError();
-}
-
 // K8's operands beside the graph and the tables (see gnpde_fused_rhs_bwd)
 struct Bwd {
   const void *shifts, *ct_ax, *recip_p, *ct_den, *kw_t;
@@ -562,64 +421,10 @@ cudaError_t launch_bwd_col(Graph g, Pieces pc, Proj p, const void* xcol,
 // flags: bits 0-2 the score family, bit 3 squareplus. var and ls hold one
 // element for exp_kernel and two (features, positions) for
 // exp_kernel_beltrami, whose att is the packed width of both halves.
-// K6-K9 and K17 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16:
+// K8, K9 and K17 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16:
 // see launch_tables) and the column table xcol, ignored with kTablesF32;
 // with a bfloat16 column table, ktab holds bfloat16 values and kw, kb are
 // the bf16-rounded projection.
-
-// Nullable: var, ls, shifts, alpha, num.
-extern "C" int gnpde_fused_rhs_fwd(
-    const void* rowptr, const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* shifts,
-    const void* alpha, void* qtab, void* ktab, void* out, void* den,
-    void* num, int n_rows, int dim, int att, int heads, int flags,
-    int tables, void* stream) {
-  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
-                                    ktab, n_rows, dim, att, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Graph g = make_graph(rowptr, col, n_rows);
-    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
-    if (tables == kTablesF32)
-      err = launch_fwd<float, float>(g, p, x, x, qtab, ktab, shifts, alpha,
-                                     out, den, num, s);
-    else if (tables == kTablesF32Bf16)
-      err = launch_fwd<float, __nv_bfloat16>(g, p, x, xcol, qtab, ktab,
-                                             shifts, alpha, out, den, num, s);
-    else
-      err = launch_fwd<__nv_bfloat16, __nv_bfloat16>(
-          g, p, x, xcol, qtab, ktab, shifts, alpha, out, den, num, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int gnpde_fused_rowmax(const void* rowptr, const void* col,
-                                  const void* x, const void* xcol,
-                                  const void* qw, const void* qb,
-                                  const void* kw, const void* kb, void* qtab,
-                                  void* ktab, void* smax, int n_rows, int dim,
-                                  int att, int heads, int tables,
-                                  void* stream) {
-  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
-                                    ktab, n_rows, dim, att, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Graph g = make_graph(rowptr, col, n_rows);
-    const Proj p = make_proj(nullptr, nullptr, nullptr, dim, att,
-                             heads, kScaledDot);
-    err = tables == kTablesF32
-              ? launch_rowmax<float>(g, p, qtab, ktab, smax, s)
-              : launch_rowmax<__nv_bfloat16>(g, p, qtab, ktab, smax, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // kw_t is Kw^T [att, dim] (of the bf16-rounded Kw with a bfloat16 column
 // table: the k table's derivative). dke [n_slots, att] and row_sums

@@ -41,9 +41,9 @@
 // the numerator of den's cotangent). It needs rowptr and col only, no
 // reverse-edge map.
 //
-// What bounds them on the H100: the gathers, as for K6-K9. K12 reads q[c]
-// (ATT floats) per edge, with ct also ct[c] (D floats); K13 x[c], k[c] and
-// 1/den[c]; K14 x[c], ct[c], q[c], k[c], 1/den[c] and den's cotangent at c.
+// What bounds them on the H100: the gathers, as for K6-K9, and the latency
+// of the chain behind each. K12 reads q[c] (ATT floats) per edge, with ct
+// also ct[c] (D floats); K13 x[c], k[c] and 1/den[c]; K14 x[c], ct[c], q[c], k[c], 1/den[c] and den's cotangent at c.
 // The arithmetic per edge is 2 ATT flop per score and 2 D per dot product
 // or accumulation.
 //
@@ -51,18 +51,22 @@
 // the scratch tables q and k (node_project_kernel), unless its caller hands
 // it tables that an earlier launch on the same inputs filled (K12 then K13
 // in the forward, K12 then K14 in the backward: project = 0 in the second);
-// one warp owns one row, and nothing is atomic: two launches agree bit for
-// bit.
+// one warp owns one row (K13 and K14: one row piece), and nothing is
+// atomic: two launches agree bit for bit.
 // * K12: the row's edges are split over the lanes. A lane scores its edge
 //   for every head from q[c] in global memory against k[n] in shared
 //   memory, adds into its own column of a [H, 32] accumulator in shared
 //   memory, and a butterfly sum per head closes the row. Rows are short
 //   (9-15 edges on average), so per-edge work across lanes keeps more of
 //   the warp busy than K7's one lane per head does.
-// * K13: K6's row walk. Lane h scores head h, the edge's weight
-//   1/H sum_h u_eh / den[c, h] is one sum over the head lanes, and the row's
-//   ax accumulates in shared memory with lanes spanning D: no per-head
-//   numerators are kept.
+// * K13: K6's walk (fwd_walk_piece in fused_common.cuh, which replaces
+//   P15 _norm1_fwd_kernel here as it replaces P7 for K6) over columns: an
+//   edge reads 1/den[c, h] with its rows, its weight 1/H sum_h u_eh /
+//   den[c, h] is one butterfly over the head lanes, and the row keeps one
+//   D-wide sum in registers, no per-head numerators. It walks row pieces
+//   and merges multi-piece rows as K6 does. Its scores are summed over
+//   each head's lanes, K12's serially by one lane: the two can differ in
+//   a last bit, far inside the tolerance of the attention's column sums.
 // * K14: K9's walk (sym_backward_piece in fused_common.cuh, which replaces
 //   P16 _norm1_bwd_kernel here as it replaces P13 for K9) with the softmax
 //   groups swapped: the edge (n, c) reads 1/den and den's cotangent at its
@@ -133,48 +137,32 @@ __global__ void norm1_den_kernel(Graph g, Proj p,
 
 // ---------------------------------------------------------------------- K13
 
-template <typename TC>
-__global__ void norm1_fwd_kernel(Graph g, Proj p,
-                                 const TC* __restrict__ xcol,
-                                 const float* __restrict__ qtab,
-                                 const TC* __restrict__ ktab,
-                                 const float* __restrict__ recip,
-                                 float* __restrict__ out) {
+// K13: the forward walk of fused_common.cuh (fwd_walk_piece) over columns,
+// and its merge of multi-piece rows
+template <typename TC, int KD, int KA, bool kNormed, int KH>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp,
+                                  fwd_min_blocks(KA, KH, sizeof(TC)))
+    norm1_fwd_kernel(Pieces pc, Proj p, FwdIO io,
+                     const TC* __restrict__ xcol,
+                     const float* __restrict__ qtab,
+                     const TC* __restrict__ ktab) {
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;
-  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  float* xc = smem + static_cast<size_t>(warp) * (2 * D + 2 * A);
-  float* acc = xc + D;                          // ax[n] accumulator
-  float* q = acc + D;
-  float* ke = q + A;
-  load_row(qtab, n, A, lane, q);
-  for (int d = lane; d < D; d += kWarp) acc[d] = 0.0f;
-  __syncwarp();
-  const float gmax = *p.gmax;
-  const ScoreParams sc = score_params(p);
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  for (int e = start; e < end; ++e) {
-    const int c = g.col[e];
-    load_row(xcol, c, D, lane, xc);
-    load_row(ktab, c, A, lane, ke);
-    __syncwarp();
-    float a = 0.0f;                             // lane h: u_eh / den[c, h]
-    if (lane < H) {
-      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
-      float u, duds;
-      u_duds(hs.s - gmax, p.square_plus, &u, &duds);
-      a = u * recip[static_cast<size_t>(c) * H + lane];
-    }
-    const float w = head_sum(a, H);
-    for (int d = lane; d < D; d += kWarp) acc[d] = fmaf(w, xc[d], acc[d]);
-    __syncwarp();                               // xc and ke are reused
-  }
-  const float scale = 1.0f / H;
-  for (int d = lane; d < D; d += kWarp)
-    out[static_cast<size_t>(n) * D + d] = acc[d] * scale;
+  fwd_walk_piece<true, TC, KD, KA, kNormed, KH>(smem, pc, p, io, xcol, qtab,
+                                               ktab);
 }
+
+template <int KD>
+__global__ void norm1_fwd_merge_kernel(Pieces pc, Proj p, FwdIO io) {
+  fwd_merge_rows<true, KD>(pc, p, io);
+}
+
+struct FwdColumns {
+  static constexpr bool kColumnNorm = true;
+  template <typename TC, int KD, int KA, bool kNormed, int KH>
+  static auto walk() { return norm1_fwd_kernel<TC, KD, KA, kNormed, KH>; }
+  template <int KD>
+  static auto merge() { return norm1_fwd_merge_kernel<KD>; }
+};
 
 // ---------------------------------------------------------------------- K14
 
@@ -221,22 +209,6 @@ cudaError_t launch_den(Graph g, Proj p, const void* xcol, const void* qtab,
   return cudaGetLastError();
 }
 
-// K13's walk over the column table xcol of type TC (its k table too)
-template <typename TC>
-cudaError_t launch_fwd(Graph g, Proj p, const void* xcol, const void* qtab,
-                       const void* ktab, const void* recip, void* out,
-                       cudaStream_t s) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock * (2 * p.dim + 2 * p.att);
-  cudaError_t err = allow_shared(norm1_fwd_kernel<TC>, bytes);
-  if (err != cudaSuccess) return err;
-  norm1_fwd_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp, bytes,
-                         s>>>(
-      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
-      static_cast<const TC*>(ktab), static_cast<const float*>(recip),
-      static_cast<float*>(out));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // With project != 0 an entry point first fills the scratch tables qtab and
@@ -275,31 +247,30 @@ extern "C" int gnpde_norm1_den(
   return static_cast<int>(cudaGetLastError());
 }
 
-// out [n_rows, dim] = ax; recip [n_rows, heads] = 1 / (den + 1e-16).
-// Nullable: var, ls.
+// K13 over the row pieces (as gnpde_fused_rhs_fwd takes them): out
+// [n_rows, dim] = ax from recip [n_rows, heads] = 1 / (den + 1e-16); part
+// [multi_ptr[n_multi], dim] holds the pieces' partial sums (nullable
+// without multi-piece rows); vec: dim % 4 == 0 and x, xcol, out 16-byte
+// aligned. Nullable: var, ls.
 extern "C" int gnpde_norm1_fwd(
-    const void* rowptr, const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* recip,
-    void* qtab, void* ktab, void* out, int n_rows, int dim, int att,
-    int heads, int flags, int project, int tables, void* stream) {
-  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaSuccess;
-    if (project)
-      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows,
-                          dim, att, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Graph g = make_graph(rowptr, col, n_rows);
-    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
-    err = tables == kTablesF32
-              ? launch_fwd<float>(g, p, x, qtab, ktab, recip, out, s)
-              : launch_fwd<__nv_bfloat16>(g, p, xcol, qtab, ktab, recip, out,
-                                          s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+    const void* piece_ptr, const void* piece_row, const void* piece_slot,
+    const void* multi_row, const void* multi_ptr, const void* col,
+    const void* x, const void* xcol, const void* qw, const void* qb,
+    const void* kw, const void* kb, const void* gmax, const void* var,
+    const void* ls, const void* recip, void* qtab, void* ktab, void* out,
+    void* part, int n_rows, int n_pieces, int n_multi, int dim, int att,
+    int heads, int flags, int vec, int project, int tables, void* stream) {
+  FwdIO io = {};
+  io.col = static_cast<const int*>(col);
+  io.recip = static_cast<const float*>(recip);
+  io.out = static_cast<float*>(out);
+  io.part = static_cast<float*>(part);
+  io.vec = vec;
+  return launch_forward<FwdColumns>(
+      project, tables, piece_ptr, piece_row, piece_slot, multi_row,
+      multi_ptr, x, xcol, qw, qb, kw, kb, qtab, ktab,
+      make_proj(gmax, var, ls, dim, att, heads, flags), io, n_rows, n_pieces,
+      n_multi, stream);
 }
 
 // K14: rc [n_rows, heads, 2] holds each node's (recip_p, ct_den) per head,

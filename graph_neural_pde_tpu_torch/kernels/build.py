@@ -45,14 +45,18 @@ _ENTRY_POINTS = {
     "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
     # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
     "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
-    # The fused RHS kernels (csrc/fused_rhs.cu). qtab and ktab are scratch
-    # tables [n_rows, att]; kw_t is Kw transposed. K6-K9 and K17 take a
-    # TABLES code: 0 float32 (x is the column table too), 1 x float32 with
-    # the bfloat16 column table xcol, 2 both bfloat16.
-    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts, alpha
-    # (the last four nullable), qtab, ktab, out, den, num (nullable),
-    # n_rows, dim, att, heads, flags, tables, stream
-    "gnpde_fused_rhs_fwd": [_PTR] * 18 + [_INT] * 6 + [_PTR],
+    # The fused RHS kernels (csrc/fused_fwd.cu: K6, K7; csrc/fused_rhs.cu:
+    # K8, K9, K17). qtab and ktab are scratch tables [n_rows, att]; kw_t is
+    # Kw transposed. K6-K9 and K17 take a TABLES code: 0 float32 (x is the
+    # column table too), 1 x float32 with the bfloat16 column table xcol, 2
+    # both bfloat16.
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces), col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts, alpha
+    # (the last four nullable), qtab, ktab, out, den, num (nullable), part
+    # (nullable without multi-piece rows), n_rows, n_pieces, n_multi, dim,
+    # att, heads, flags, vec (dim % 4 == 0 and the D-wide rows 16-byte
+    # aligned), tables, stream
+    "gnpde_fused_rhs_fwd": [_PTR] * 23 + [_INT] * 9 + [_PTR],
     # rowptr, col, x, xcol, qw, qb, kw, kb, qtab, ktab, smax, n_rows, dim,
     # att, heads, tables, stream
     "gnpde_fused_rowmax": [_PTR] * 11 + [_INT] * 5 + [_PTR],
@@ -103,10 +107,12 @@ _ENTRY_POINTS = {
     # three nullable), qtab, ktab, out, n_rows, dim, att, heads, flags,
     # project (0: qtab and ktab are filled already), tables, stream
     "gnpde_norm1_den": [_PTR] * 15 + [_INT] * 7 + [_PTR],
-    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
-    # nullable), recip, qtab, ktab, out, n_rows, dim, att, heads, flags,
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces), col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
+    # nullable), recip, qtab, ktab, out, part (nullable without multi-piece
+    # rows), n_rows, n_pieces, n_multi, dim, att, heads, flags, vec,
     # project, tables, stream
-    "gnpde_norm1_fwd": [_PTR] * 15 + [_INT] * 7 + [_PTR],
+    "gnpde_norm1_fwd": [_PTR] * 20 + [_INT] * 10 + [_PTR],
     # as gnpde_fused_rhs_bwd_sym, with project before tables
     "gnpde_norm1_bwd": [_PTR] * 26 + [_INT] * 11 + [_PTR],
     # The blocked-plan kernels (csrc/blocked.cu).

@@ -79,10 +79,12 @@ cotangents and outputs stay float32; ``fused_rhs_aggregate`` returns the
 gradients of x_n and x_g in their own dtypes, each cast once at the end,
 as the JAX package's ``_fused_bwd`` does.
 
-The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K17
-walks its CSC view); the kernels gather their node rows themselves (see
-``csrc/fused_rhs.cu`` and ``csrc/fused_payload.cu`` for what bounds them
-on the H100). On a CUDA tensor a
+The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K6
+and K9 walk its rows cut into ``Graph.row_pieces``, K17 its CSC view's
+column pieces); the kernels gather their node rows themselves (see
+``csrc/fused_rhs.cu``, ``csrc/fused_fwd.cu``, ``csrc/fused_common.cuh``
+and ``csrc/fused_payload.cu`` for what bounds them on the H100). On a
+CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 PyTorch version beside it, which defines the semantics. ``fused_rhs_ax``,
 ``make_fused_ax_sym``, ``make_fused_ax_colplan`` and ``fused_rhs_f`` keep
@@ -563,10 +565,33 @@ def _flags(score: str, square_plus: bool) -> int:
     return SCORES[score] | (8 if square_plus else 0)
 
 
+def _row_pieces(fn, rowptr, pieces: Optional[ColPieces], n: int, dev):
+    """The row pieces a walk over rows takes on CUDA tensors (K6, K9, K13,
+    K14): the graph's own (``Graph.row_pieces``, which every model path
+    hands over), or, when None, ``column_pieces(rowptr)`` built here, a
+    copy to the host that the wrapper ``fn`` counts
+    (``fn.piece_builds``)."""
+    if pieces is None:
+        pieces = column_pieces(rowptr)
+        fn.piece_builds += 1
+    if pieces.ptr.device != dev or pieces.n_pieces < n:
+        raise ValueError(f"{fn.__name__}: the row pieces must be those of "
+                         f"this graph's rowptr, on {dev}")
+    return pieces
+
+
+def _aligned(d: int, *tensors) -> int:
+    """1 when the D-wide rows of every tensor given start on 16-byte
+    boundaries (d % 4 == 0, aligned storage): the walks' ``vec``."""
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors
+                                  if t is not None))
+
+
 def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
                   score: str, var=None, ls=None, shifts=None,
                   square_plus: bool = False, alpha=None,
-                  want_num: bool = False, xcol=None):
+                  want_num: bool = False, xcol=None,
+                  pieces: Optional[ColPieces] = None):
     """K6. Returns ``(ax [N, D], den [N, H], num)``; ``num`` [N, H·D], the
     per-head numerators the backward reads, only when ``want_num``. With
     ``alpha`` (a one-element tensor) the first output is instead the folded
@@ -574,8 +599,12 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
     (``den <= 0`` with edges, or non-finite). ``gmax`` is a one-element
     tensor, ``shifts`` optional per-edge score shifts [E_pad, H] (the
     exact mode's, K7's row maxima). ``xcol`` is the bfloat16 column table
-    (x cast to bfloat16; see the module docstring). ``row`` is only read
-    by the plain version. Not differentiable by itself."""
+    (x cast to bfloat16; see the module docstring). ``pieces``: the rows
+    cut into pieces of at most ``COL_PIECE`` edges (``Graph.row_pieces``),
+    which the kernel's warps walk (``csrc/fused_common.cuh``,
+    ``fwd_walk_piece``); built from ``rowptr`` when None. ``row`` is only
+    read by the plain version. Every sum has a fixed order: two calls
+    agree bit for bit. Not differentiable by itself."""
     n, d = x.shape
     extra = [("gmax", gmax, None)]
     if shifts is not None:
@@ -590,20 +619,27 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
         return fused_rhs_fwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
                                    xcol=xcol, **kwargs)
     att = qw.shape[1]
-    _shared_bytes("fused_rhs_fwd", 2 * d + 2 * att + heads * d)
-    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    den = torch.empty((n, heads), dtype=torch.float32, device=x.device)
-    num = (torch.empty((n, heads * d), dtype=torch.float32, device=x.device)
+    dev = x.device
+    pc = _row_pieces(fused_rhs_fwd, rowptr, pieces, n, dev)
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    den = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    num = (torch.empty((n, heads * d), dtype=torch.float32, device=dev)
            if want_num else None)
+    # scratch: the pieces' partial sums, H numerators and H denominators
+    part = (torch.empty((pc.n_slots, heads * (d + 1)), dtype=torch.float32,
+                        device=dev) if pc.n_multi else None)
     tabs = _node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
-    build.launch("fused_rhs_fwd", x.device, rowptr.data_ptr(),
-                 col.data_ptr(), x.data_ptr(), _ptr(xcol), qw.data_ptr(),
-                 qb.data_ptr(), kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(),
-                 _ptr(var), _ptr(ls), _ptr(shifts), _ptr(alpha),
-                 tabs[0].data_ptr(), tabs[1].data_ptr(), out.data_ptr(),
-                 den.data_ptr(), _ptr(num), n, d, att, heads,
-                 _flags(score, square_plus), _tables(x, xcol))
+    build.launch("fused_rhs_fwd", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+                 pc.slot.data_ptr(), pc.multi_col.data_ptr(),
+                 pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                 _ptr(xcol), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 _ptr(shifts), _ptr(alpha), tabs[0].data_ptr(),
+                 tabs[1].data_ptr(), out.data_ptr(), den.data_ptr(),
+                 _ptr(num), _ptr(part), n, pc.n_pieces, pc.n_multi, d, att,
+                 heads, _flags(score, square_plus),
+                 _aligned(d, x, xcol, out, num), _tables(x, xcol))
     fused_rhs_fwd.launches += 1
     fused_rhs_fwd.bf16_launches += xcol is not None
     fused_rhs_fwd.bf16_shifted_launches += (xcol is not None
@@ -614,9 +650,10 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
 def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
                  xcol=None):
     """K7: [N, H] per-row maxima of the scaled-dot scores, 0 on edgeless
-    rows: the shifts of the exact softmax. With the bfloat16 column table
-    ``xcol`` the keys are K6's (its bf16 k table), so each row's largest
-    shifted score is exactly 0. Not differentiable."""
+    rows: the shifts of the exact softmax. Its kernel scores each edge as
+    K6's does (the same tables, with the bfloat16 column table ``xcol``
+    K6's bf16 k table, and the same order of every sum), so each row's
+    largest shifted score is exactly 0. Not differentiable."""
     _check("fused_rowmax", rowptr, row, col, x, qw, qb, kw, kb, heads,
            "scaled_dot", xcol=xcol)
     if x.device.type == "cpu":
@@ -624,7 +661,6 @@ def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
                                   heads=heads, xcol=xcol)
     n, d = x.shape
     att = qw.shape[1]
-    _shared_bytes("fused_rowmax", 2 * att)
     smax = torch.empty((n, heads), dtype=torch.float32, device=x.device)
     tabs = _node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
@@ -754,6 +790,17 @@ def sym_design(d: int, att: int, heads: int, score: str) -> dict:
                           else "lanes" if d_k <= 32 else "tiles"))
 
 
+def fwd_design(d: int, att: int, heads: int, score: str) -> dict:
+    """What K6 and K13's forward walk runs at these widths
+    (csrc/fused_common.cuh, launch_fwd_walk and launch_fwd_heads): K9's
+    tiles and way of summing a head (:func:`sym_design`), and ``kh``, the
+    heads whose numerators K6 keeps in registers at once (2, or 8 at D <=
+    128 when the row has more than 2; a row of more heads than ``kh``
+    walks its piece once a group of ``kh``)."""
+    design = sym_design(d, att, heads, score)
+    return dict(design, kh=2 if heads <= 2 or design["kd"] == 2 else 8)
+
+
 def sym_node_table(recip_p: torch.Tensor, ct_den: torch.Tensor):
     """The [N, H, 2] float32 table of each node's (recip_p, ct_den) per
     head, which K9 and K14 read at an edge's column in one 8-byte load a
@@ -761,23 +808,18 @@ def sym_node_table(recip_p: torch.Tensor, ct_den: torch.Tensor):
     return torch.stack((recip_p, ct_den), dim=-1).contiguous()
 
 
-def _sym_walk(name, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
+def _sym_walk(fn, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
               ct_den, qtab, ktab, project, *, heads, score, var, ls,
               square_plus, xcol, pieces):
-    """The launch behind K9 and K14 (``name``) on CUDA tensors: the walk
-    over the rows' ``pieces`` (:func:`~graph_neural_pde_tpu_torch.ops.graph.
-    column_pieces` of ``rowptr``, built here when None: a copy to the
-    host), the merge of multi-piece rows, and the reductions' second
-    passes. ``qtab``, ``ktab`` the node tables
-    [N, ATT] (filled by the launch unless ``project`` is 0). Returns
-    (dq, dxrow, dkw, dkb, dgmax, dvar, dls)."""
+    """The launch behind K9 and K14 (the wrapper ``fn``) on CUDA tensors:
+    the walk over the rows' ``pieces`` (:func:`_row_pieces`), the merge of
+    multi-piece rows, and the reductions' second passes. ``qtab``,
+    ``ktab`` the node tables [N, ATT] (filled by the launch unless
+    ``project`` is 0). Returns (dq, dxrow, dkw, dkb, dgmax, dvar, dls)."""
     n, d = x.shape
     att = qw.shape[1]
     dev = x.device
-    pc = column_pieces(rowptr) if pieces is None else pieces
-    if pc.ptr.device != dev or pc.n_pieces < n:
-        raise ValueError(f"{name}: the row pieces must be those of this "
-                         f"graph's rowptr, on {dev}")
+    pc = _row_pieces(fn, rowptr, pieces, n, dev)
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
     dxrow = torch.empty((n, d), dtype=torch.float32, device=dev)
     # scratch: dk summed per NODE (each row's reverse edges), each row's
@@ -794,9 +836,8 @@ def _sym_walk(name, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     kw_t = kw.t().contiguous()
     rc = sym_node_table(recip_p, ct_den)
     table = x if xcol is None else xcol
-    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (table, ct_ax, kw_t, dxrow)))
-    build.launch(name, dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+    vec = _aligned(d, table, ct_ax, kw_t, dxrow)
+    build.launch(fn.__name__, dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
                  pc.slot.data_ptr(), pc.multi_col.data_ptr(),
                  pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
                  _ptr(xcol), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
@@ -824,10 +865,9 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
     the bfloat16 column table ``xcol`` (K6's), ``dxrow`` is the cotangent
     of that table's values and k (through the bf16-rounded Kw), taken as
     x's, and dkw is reduced over the table. ``pieces``: the rows cut into
-    pieces (``ops.graph.column_pieces`` of ``rowptr``; on a symmetric
-    graph ``Graph.col_pieces``, whose ``colptr`` is ``rowptr``), built
-    from ``rowptr`` when None. Every sum has a fixed order: two calls
-    agree bit for bit."""
+    pieces (``Graph.row_pieces``), built from ``rowptr`` when None (see
+    :func:`fused_rhs_fwd`). Every sum has a fixed order: two calls agree
+    bit for bit."""
     _check("fused_rhs_bwd_sym", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
            _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, None, 0),
@@ -839,7 +879,7 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
                                        gmax, ct_ax, recip_p, ct_den,
                                        xcol=xcol, **kwargs)
     tabs = _node_tables(x, qw.shape[1])
-    out = _sym_walk("fused_rhs_bwd_sym", rowptr, col, x, qw, qb, kw, kb,
+    out = _sym_walk(fused_rhs_bwd_sym, rowptr, col, x, qw, qb, kw, kb,
                     gmax, ct_ax, recip_p, ct_den, tabs[0], tabs[1], None,
                     xcol=xcol, pieces=pieces, **kwargs)
     fused_rhs_bwd_sym.launches += 1
@@ -1106,6 +1146,10 @@ fused_rhs_bwd_heads.launches = 0
 fused_aggregate.bf16_launches = 0
 fused_score_max.bf16_launches = 0
 fused_rhs_bwd_heads.bf16_launches = 0
+# the row pieces the walks over rows built from rowptr because their caller
+# handed none (a copy to the host; 0 on every model path)
+fused_rhs_fwd.piece_builds = 0
+fused_rhs_bwd_sym.piece_builds = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1163,7 +1207,7 @@ class _FusedAx(torch.autograd.Function):
             g.rowptr, g.row, g.col, x, qw, qb, kw, kb, gmax, heads=heads,
             score=score, var=var, ls=ls, shifts=shifts,
             square_plus=square_plus, want_num=want,
-            xcol=column_table(x, payload))
+            xcol=column_table(x, payload), pieces=g.row_pieces)
         ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, shifts, den,
                               num)
         ctx.g = g
@@ -1183,7 +1227,7 @@ class _FusedAx(torch.autograd.Function):
         if engine == "sym":
             dq, dx, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_sym(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                xcol=column_table(x, payload), pieces=g.col_pieces,
+                xcol=column_table(x, payload), pieces=g.row_pieces,
                 **kwargs)
         elif engine == "col":
             xcol = column_table(x, payload)
@@ -1307,7 +1351,8 @@ def fused_rhs_f(g, heads: int, score: str, qw, qb, kw, kb, x, alpha,
     f, _, _ = fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb,
                             gmax, heads=heads, score=score, var=var, ls=ls,
                             alpha=alpha.reshape(1),
-                            xcol=column_table(x, payload_dtype))
+                            xcol=column_table(x, payload_dtype),
+                            pieces=g.row_pieces)
     return f
 
 

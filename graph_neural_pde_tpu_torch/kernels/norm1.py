@@ -48,10 +48,10 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
-    EPS, _bwd_extra, _bwd_plain, _check, _check_sorted, _col_side,
+    EPS, _aligned, _bwd_extra, _bwd_plain, _check, _check_sorted, _col_side,
     _col_projection, _edges, _flags, _node_sum, _node_tables, _ptr,
-    _shared_bytes, _sym_walk, _tables, _u_duds, column_table, edge_scores,
-    head_slices, score_scalars)
+    _row_pieces, _shared_bytes, _sym_walk, _tables, _u_duds, column_table,
+    edge_scores, head_slices, score_scalars)
 
 
 # ---------------------------------------------------------------------------
@@ -188,9 +188,12 @@ def norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
 
 def norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *, heads: int,
               score: str, var=None, ls=None, square_plus: bool = False,
-              tabs=None, xcol=None):
-    """K13: ``ax`` [N, D] from ``recip = 1 / (den + 1e-16)`` [N, H]. Not
-    differentiable by itself (see :func:`make_fused_ax_norm1`)."""
+              tabs=None, xcol=None, pieces=None):
+    """K13: ``ax`` [N, D] from ``recip = 1 / (den + 1e-16)`` [N, H], K6's
+    walk over the row ``pieces`` (``Graph.row_pieces``; as
+    :func:`~graph_neural_pde_tpu_torch.kernels.fused_rhs.fused_rhs_fwd`
+    takes them). Two calls agree bit for bit. Not differentiable by itself
+    (see :func:`make_fused_ax_norm1`)."""
     n, d = x.shape
     _check("norm1_fwd", rowptr, row, col, x, qw, qb, kw, kb, heads, score,
            var, ls, [("gmax", gmax, None), ("recip", recip, (n, heads))],
@@ -200,16 +203,23 @@ def norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *, heads: int,
                                recip, heads=heads, score=score, var=var,
                                ls=ls, square_plus=square_plus, xcol=xcol)
     att = qw.shape[1]
-    _shared_bytes("norm1_fwd", 2 * d + 2 * att)
-    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    dev = x.device
+    pc = _row_pieces(norm1_fwd, rowptr, pieces, n, dev)
+    out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    # scratch: the pieces' partial sums
+    part = (torch.empty((pc.n_slots, d), dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
     tabs = tabs or node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
-    build.launch("norm1_fwd", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
-                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
-                 _ptr(ls), recip.data_ptr(), tabs.q.data_ptr(),
-                 tabs.k.data_ptr(), out.data_ptr(), n, d, att, heads,
-                 _flags(score, square_plus), tabs.project(),
+    build.launch("norm1_fwd", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+                 pc.slot.data_ptr(), pc.multi_col.data_ptr(),
+                 pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                 _ptr(xcol), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 recip.data_ptr(), tabs.q.data_ptr(), tabs.k.data_ptr(),
+                 out.data_ptr(), _ptr(part), n, pc.n_pieces, pc.n_multi, d,
+                 att, heads, _flags(score, square_plus),
+                 _aligned(d, x, xcol, out), tabs.project(),
                  _tables(x, xcol))
     norm1_fwd.launches += 1
     norm1_fwd.bf16_launches += xcol is not None
@@ -236,7 +246,7 @@ def norm1_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
         return norm1_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax,
                                ct_ax, recip_p, ct_den, xcol=xcol, **kwargs)
     tabs = tabs or node_tables(x, qw.shape[1])
-    out = _sym_walk("norm1_bwd", rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax,
+    out = _sym_walk(norm1_bwd, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax,
                     recip_p, ct_den, tabs.q, tabs.k, tabs.project(),
                     xcol=xcol, pieces=pieces, **kwargs)
     norm1_bwd.launches += 1
@@ -251,6 +261,10 @@ norm1_bwd.launches = 0
 norm1_den.bf16_launches = 0
 norm1_fwd.bf16_launches = 0
 norm1_bwd.bf16_launches = 0
+# the row pieces K13 and K14 built from rowptr because their caller handed
+# none (0 on every model path)
+norm1_fwd.piece_builds = 0
+norm1_bwd.piece_builds = 0
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +290,7 @@ class _FusedAxNorm1(torch.autograd.Function):
         den = norm1_den(*csr, x, qw, qb, kw, kb, gmax, tabs=tabs, **kwargs)
         recip = 1.0 / (den + EPS)
         ax = norm1_fwd(*csr, x, qw, qb, kw, kb, gmax, recip, tabs=tabs,
-                       **kwargs)
+                       pieces=pieces, **kwargs)
         ctx.save_for_backward(qw, qb, kw, kb, x, gmax, var, ls, den, *csr)
         ctx.opts = (heads, square_plus, score, payload)
         ctx.pieces = pieces
@@ -328,6 +342,6 @@ def make_fused_ax_norm1(g, heads: int, square_plus: bool, score: str,
         var, ls = score_scalars(score, score_params)
         return _FusedAxNorm1.apply(qw, qb, kw, kb, x.contiguous(), gmax, var,
                                    ls, csr, heads, square_plus, score,
-                                   payload_dtype, g.col_pieces)
+                                   payload_dtype, g.row_pieces)
 
     return op

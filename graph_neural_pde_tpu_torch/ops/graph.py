@@ -25,6 +25,10 @@ sorted by row (``sort_by_row``) the valid edges form the prefix
   ``COL_PIECE`` edges (:class:`ColPieces`), which the column walk of the
   fused RHS's backward (K17) spreads over warps, so that a hub column
   costs no more than ``COL_PIECE`` edges in series.
+* ``row_pieces`` — the CSR rows cut the same way (``column_pieces`` of
+  ``rowptr``), which the fused RHS's row walks (K6, K9, K13, K14) spread
+  over warps. On a symmetric edge multiset ``colptr`` is ``rowptr`` and
+  the two are equal; on a directed graph they differ.
 
 All of it is built on the host once, when the graph is prepared.
 
@@ -41,8 +45,9 @@ import numpy as np
 import torch
 
 
-# edges of a column piece in K17's walk: 32 measured faster than 64 on a kNN
-# graph's hub columns and no slower elsewhere (PERF.md, section 6)
+# edges of a column piece in K17's walk and of a row piece in the row walks:
+# 32 measured faster than 64 on a kNN graph's hub columns and no slower
+# elsewhere (PERF.md, section 6)
 COL_PIECE = 32
 
 
@@ -133,6 +138,7 @@ class Graph:
     colptr, col_perm, row_by_col, col_by_col : the CSC view (row-sorted
                graphs; see the module docstring)
     col_pieces : the CSC view's column pieces (:class:`ColPieces`)
+    row_pieces : the CSR rows' pieces (:class:`ColPieces` of ``rowptr``)
     masked   : True when ``mask`` drops edges INSIDE the row-sorted valid
                prefix (hard attention's re-masked graph, ``with_mask``);
                ``rowptr``, ``rev`` and the CSC view still describe the
@@ -153,6 +159,7 @@ class Graph:
     row_by_col: Optional[torch.Tensor] = None
     col_by_col: Optional[torch.Tensor] = None
     col_pieces: Optional[ColPieces] = None
+    row_pieces: Optional[ColPieces] = None
     sorted_valid: Optional[int] = None   # host copy of rowptr[-1]
     masked: bool = False
 
@@ -176,9 +183,9 @@ class Graph:
         return dataclasses.replace(self, mask=keep, masked=True)
 
     def to(self, device) -> "Graph":
-        """Every tensor field (and the column pieces) moved to ``device``:
-        the fields are read off the dataclass, so none can be left
-        behind."""
+        """Every tensor field (and the column and row pieces) moved to
+        ``device``: the fields are read off the dataclass, so none can be
+        left behind."""
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
@@ -186,8 +193,8 @@ class Graph:
 
     def sort_by_row(self) -> "Graph":
         """Stable-reorder edges by row with padding last (as the JAX
-        package does), then build ``rowptr``, ``rev`` and the CSC view with
-        its column pieces on the host."""
+        package does), then build ``rowptr``, ``rev``, the CSC view with
+        its column pieces and the rows' pieces on the host."""
         n = self.num_nodes
         key = torch.where(self.mask, self.row, torch.full_like(self.row, n))
         order = torch.argsort(key, stable=True)
@@ -216,6 +223,7 @@ class Graph:
                      row_by_col=dev(row_np[col_perm]),
                      col_by_col=dev(col_np[col_perm]),
                      col_pieces=column_pieces(colptr, device=row.device),
+                     row_pieces=column_pieces(rowptr, device=row.device),
                      sorted_valid=nv)
 
 

@@ -239,7 +239,8 @@ def gather_answer(report: Report, dev, seed: int, graph=None, d=128, att=32,
     csr = (g.rowptr, g.row, g.col)
     kw = dict(heads=h, score="scaled_dot")
     ct_ax, ct_den = randn(n, d), 1.0 + randn(n, h, scale=0.1)
-    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw)
+    kw_p = dict(kw, pieces=g.row_pieces)
+    _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_p)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
     recip = (1.0 / (K.norm1_den(*csr, *ops, **kw) + 1e-16)).contiguous()
     recip1 = (recip / h).contiguous()
@@ -247,15 +248,14 @@ def gather_answer(report: Report, dev, seed: int, graph=None, d=128, att=32,
     times = {
         "x[col] gather": time_ms(lambda: torch.index_select(x, 0, col)),
         "K6 fused_rhs_fwd": time_ms(lambda: K.fused_rhs_fwd(*csr, *ops,
-                                                            **kw)),
+                                                            **kw_p)),
         "K9 fused_rhs_bwd_sym": time_ms(
             lambda: K.fused_rhs_bwd_sym(*csr, *ops, ct_ax, recip_p, ct_den,
-                                        pieces=g.col_pieces, **kw)),
+                                        **kw_p)),
         "K13 norm1_fwd": time_ms(lambda: K.norm1_fwd(*csr, *ops, recip,
-                                                     **kw)),
+                                                     **kw_p)),
         "K14 norm1_bwd": time_ms(
-            lambda: K.norm1_bwd(*csr, *ops, ct_ax, recip1, ct_den,
-                                pieces=g.col_pieces, **kw)),
+            lambda: K.norm1_bwd(*csr, *ops, ct_ax, recip1, ct_den, **kw_p)),
     }
     for label, ms in times.items():
         report(f"arxiv scale N={n} E={nv} D={d} ATT={att} H={h}: {label}",

@@ -46,7 +46,7 @@ from pathlib import Path
 
 SHAPES = ("cora", "arxiv", "blend")
 # the walk's variants beside its default, the rows cut into pieces of at
-# most COL_PIECE edges (Graph.col_pieces): edges a piece, or None for
+# most COL_PIECE edges (Graph.row_pieces): edges a piece, or None for
 # whole rows
 VARIANTS = {"whole rows": None, "pieces of 8": 8}
 WALK_KERNELS = ("fused_rhs_bwd_sym", "norm1_bwd", "sym_merge")
@@ -69,9 +69,12 @@ def _resident_warps(regs: int) -> int:
     return 4 * min(64 // 4, by_regs // 4)
 
 
-def report(tag: str, out_dir: Path) -> None:
-    """ptxas's report and SASS counts of the walk's kernels, from the
-    tree's own library build (``kernels.build.build(verbose=True)``)."""
+def report(tag: str, out_dir: Path, kernels=WALK_KERNELS,
+           stem: str = "sym_walk") -> None:
+    """ptxas's report and SASS counts of the kernels whose names hold one
+    of ``kernels``, from the tree's own library build
+    (``kernels.build.build(verbose=True)``); the SASS goes to
+    ``out_dir/<stem>_sass_<tag>.txt.gz``."""
     from graph_neural_pde_tpu_torch.kernels import build
     cuobjdump = str(Path(build._nvcc()).with_name("cuobjdump"))
     if build.library_path().exists():
@@ -89,7 +92,7 @@ def report(tag: str, out_dir: Path) -> None:
     entries = re.split(r"Compiling entry function '", text)[1:]
     for block in entries:
         name = block.split("'", 1)[0]
-        if not any(k in name for k in WALK_KERNELS):
+        if not any(k in name for k in kernels):
             continue
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
@@ -102,11 +105,11 @@ def report(tag: str, out_dir: Path) -> None:
               flush=True)
     functions = re.split(r"\n\s*Function : ", sass)[1:]
     out_dir.mkdir(parents=True, exist_ok=True)
-    dump = out_dir / f"sym_walk_sass_{tag}.txt.gz"
+    dump = out_dir / f"{stem}_sass_{tag}.txt.gz"
     with gzip.open(dump, "wt") as f:
         for fn in functions:
             name = fn.split("\n", 1)[0].strip()
-            if not any(k in name for k in WALK_KERNELS):
+            if not any(k in name for k in kernels):
                 continue
             f.write(f"Function : {fn}\n")
             ops = collections.Counter(
@@ -118,7 +121,7 @@ def report(tag: str, out_dir: Path) -> None:
                                          "BRA") if ops[k]}
             print(f"[sass] {tag} {name}: {sum(ops.values())} instructions; "
                   f"{kinds}", flush=True)
-    print(f"[sass] {tag}: the walk's SASS in {dump}", flush=True)
+    print(f"[sass] {tag}: the kernels' SASS in {dump}", flush=True)
 
 
 def _operands(g, d, att, h, score, seed, dev):
@@ -214,7 +217,7 @@ def time_walks(graphs, args, dev, line: str) -> None:
                 want = [o.float() for o in plain(
                     *csr, *map(f64, ops), *map(f64, cts[kname]),
                     **{k: f64(v) for k, v in kw.items()}) if o is not None]
-                runs = {"default": dict(pieces=g.col_pieces)
+                runs = {"default": dict(pieces=g.row_pieces)
                         if takes_pieces else {}}
                 for vname, piece in variants.items():
                     runs[vname] = dict(pieces=column_pieces(

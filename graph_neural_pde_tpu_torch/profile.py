@@ -55,7 +55,9 @@ PHASES = ("train_step", "eval_step", "early_stop_eval")
 KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS)
 # a wrapper's second pass: its time counts to the wrapper, its launches not
 SECOND_PASSES = {"fused_rhs_bwd_col": "fused_rhs_bwd_col_merge_kernel",
+                 "fused_rhs_fwd": "fused_rhs_fwd_merge_kernel",
                  "fused_rhs_bwd_sym": "fused_rhs_bwd_sym_merge_kernel",
+                 "norm1_fwd": "norm1_fwd_merge_kernel",
                  "norm1_bwd": "norm1_bwd_merge_kernel"}
 # PyTorch's gather (x[index]) and its backward (index_put with accumulate:
 # a radix sort of the indices, then a segmented sum)
