@@ -33,10 +33,11 @@ Phases, each of which must pass (any failure exits nonzero):
    exp_kernel_beltrami at bench.py's BLEND widths on the arxiv-scale graph
    (D=128, packed ATT=2 x 32, H=2); two K9 launches must be
    bit-identical; K6-K9 and K12-K14 also over the Cora stand-in with a
-   hub row of degree 360 at D=80, ATT=128, H=8, whose row K6, K9, K13
-   and K14 cut into pieces that a second pass merges (there and on the
-   kNN graph below the row pieces must include rows of several). Before
-   each check of K6, K9, K13 and K14 a line prints the walk's design
+   hub row of degree 360 at D=80, ATT=128, H=8, whose row K6, K8 without
+   dxg, K9 and K12-K14 cut into pieces that a second pass merges (there
+   and on the kNN graph below the row pieces must include rows of
+   several). Before each check of K6, K9 and K12-K14, and of K8 without
+   dxg, a line prints the walk's design
    (``kernels.fused_rhs.fwd_design`` and ``sym_design``: its register
    tiles, how a head is summed, K6's heads in registers) and the graph's
    row pieces. On graphs whose rows hold one edge each (the Cora stand-in
@@ -182,7 +183,13 @@ Phases, each of which must pass (any failure exits nonzero):
    (``parallel.split_mesh``), card against CPU and against the unsharded
    block. Where the logits of a check disagree, it reruns both sides and
    a float64 CPU run from the same weights and prints each one's distance
-   from the others before it fails;
+   from the others before it fails. Each check records its first forward
+   on each device (``ForwardRecorder``: the encoder's output, the frozen
+   attention, every solver stage's time, state and output, the prepared
+   graph's views); where the logits disagree it records the CPU model
+   object's forward again, prints where that and the card's first forward
+   part from the CPU's first (``compare_forwards``) and saves the three
+   under ``chiprun_out/``;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after (the bfloat16 launches of K1, K2, K6, K7, K8, K9, K12, K13,
@@ -284,11 +291,12 @@ Phases, each of which must pass (any failure exits nonzero):
    probes
    (``graph_neural_pde_tpu_torch.probes.gather``), which print their lines
    and the gather's time at arxiv scale beside K6, K9, K13 and K14. Each
-   run must launch the kernels its path runs, and all twenty-one counters,
-   and the eighteen of the bfloat16 launches (K1, K2, K6, K6 shifted, K7,
-   K8, K9, K10, K11, K12, K13, K14, K17, K18, K19, K8's per-head mode, K20
-   and K1 in table mode), must grow; no run may have built row pieces on
-   the fly (the walks of K6, K9, K13 and K14 take the graph's own
+   run must launch the kernels its path runs, and all twenty-two counters
+   (K8 with and without dxg apart), and the nineteen of the bfloat16
+   launches (K1, K2, K6, K6 shifted, K7, K8 with and without dxg, K9,
+   K10, K11, K12, K13, K14, K17, K18, K19, K8's per-head mode, K20 and K1
+   in table mode), must grow; no run may have built row pieces on the fly
+   (the walks of K6, K8 without dxg, K9 and K12-K14 take the graph's own
    ``Graph.row_pieces``: their ``piece_builds`` stay 0). The paths
    (a)-(s) run ``GRAND_NL_BENCH``'s architecture in float32, as before the
    bfloat16 mode.
@@ -783,12 +791,14 @@ def payload_ops(n, nv, d, att, h, score):
 def print_walk_design(kname, shape_name, dims, g, d, att, h, score,
                       multi_rows=False):
     """The design variant the walk of K6 or K13 (``kernels.fused_rhs.
-    fwd_design``), or of K9 or K14 (``sym_design``), runs at these widths
-    over ``g``'s row pieces; with ``multi_rows``, fails unless some row
-    has several pieces (the walk's merge pass runs)."""
+    fwd_design``), or of K9, K14, K12 or K8 without dxg (``sym_design``),
+    runs at these widths over ``g``'s row pieces; with ``multi_rows``,
+    fails unless some row has several pieces (the walk's merge pass
+    runs)."""
     from graph_neural_pde_tpu_torch.kernels.fused_rhs import (fwd_design,
                                                               sym_design)
     pc = g.row_pieces
+    # K12 and K8 without dxg take K9's tiles (K12's plain mode: KD unused)
     design = (fwd_design if kname in ("fused_rhs_fwd", "norm1_fwd")
               else sym_design)(d, att, h, score)
     print(f"[kernels] {kname} walk @ {shape_name} {dims}: {design} over "
@@ -807,7 +817,8 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     output) against their plain versions; two launches of each must be
     bit-identical. On a directed graph (no reverse-edge map) K9 does not
     apply. ``timed=False`` only compares; ``feat`` as in ``rhs_operands``;
-    ``multi_rows`` as in ``check_norm1_kernels`` (K6's and K9's merge).
+    ``multi_rows`` as in ``check_norm1_kernels`` (K6's and K9's merge; on
+    a symmetric graph also K8 without dxg over the same row pieces).
 
     ``payload=torch.bfloat16`` (the JAX package's bf16 payload) checks
     every one of them on the bf16 tables: the column table is x cast to
@@ -907,6 +918,19 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     ]
     if not symmetric:
         cases.pop()
+    elif multi_rows:
+        # K8 without dxg over the same row pieces, whose merge must run
+        cases.append((
+            ROWS, "dq, dgmax[, dvar, dls]",
+            lambda: some(K.fused_rhs_bwd(*csr, *ops, *cts, want_dxg=False,
+                                         **kw_p, **kw_x, **kw_f)),
+            lambda: some(K.fused_rhs_bwd_plain(*csr, *ops, *cts,
+                                               want_dxg=False, **kw_x,
+                                               **kw_f)),
+            (base_bytes + node_b + 4 * n * att,
+             2 * n * proj + nv * (6 * att + 2 * d)),
+            lambda: plain64(K.fused_rhs_bwd_plain, want_dxg=False, **kw_x,
+                            **kw_f)))
     if score == "scaled_dot":
         cases.insert(3, (
             "fused_rowmax", "row maxima of the scores",
@@ -925,6 +949,9 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     if symmetric:
         print_walk_design("fused_rhs_bwd_sym", shape_name, dims, g, d, att,
                           h, score)
+        if multi_rows:
+            print_walk_design(ROWS, shape_name, dims, g, d, att, h, score,
+                              multi_rows)
     rows = []
     for kname, what, kern, plain, work, ref in cases:
         rows.append(time_case(kname, what, shape_name, dims, kern, plain,
@@ -1085,7 +1112,7 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
 
 def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
                              timed=True, dev="cuda", feat=None, payload=None,
-                             row_bf16=False, piece=None):
+                             row_bf16=False, piece=None, multi_rows=False):
     """K17 (x[col]'s cotangent walked over the CSC view of a directed
     graph, and dkw, dkb from each column's summed dk) and K8 without its
     per-edge dxg (dq, dgmax), the two kernels of the column-plan backward,
@@ -1095,7 +1122,9 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     ``row_bf16`` as in ``check_fused_kernels`` (the bfloat16 column table,
     the plain versions in float64 beside it). K17 walks the graph's column
     pieces, or pieces of ``piece`` edges (short ones put the second pass
-    to work on a small graph)."""
+    to work on a small graph). K8 without dxg walks the graph's row
+    pieces; ``multi_rows`` asserts that some row has several, so that its
+    merge pass runs."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     from graph_neural_pde_tpu_torch.ops.graph import column_pieces
@@ -1160,9 +1189,9 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
          (base_bytes + node_b + 4 * (n * d + d * att + att),
           4 * n * proj + nv * (6 * att + 4 * d)),
          lambda: plain64(K.fused_rhs_bwd_col_plain, csc)),
-        ("fused_rhs_bwd", "without dxg (dq, dgmax)",
+        (ROWS, "dq, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd(*csr, *ops, *cts, want_dxg=False,
-                                      **kw_x, **kw_f)),
+                                      pieces=g.row_pieces, **kw_x, **kw_f)),
          lambda: some(K.fused_rhs_bwd_plain(*csr, *ops, *cts,
                                             want_dxg=False, **kw_x, **kw_f)),
          (base_bytes + node_b + 4 * n * att,
@@ -1174,6 +1203,8 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
         cases = [(kname + " bf16", *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    print_walk_design(ROWS, shape_name, dims, g, d, att, h, score,
+                      multi_rows)
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
@@ -1280,7 +1311,7 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     version in float64) against their plain versions; two launches of each
     must be bit-identical. ``timed=False`` only compares; ``multi_rows``
     asserts that the row pieces cut some row into several, so that the
-    merge passes of K13 and K14 run.
+    merge passes of K12, K13 and K14 run.
 
     ``payload=torch.bfloat16`` (the JAX package's bf16 payload, the only
     mode its norm-1 kernels run in) checks them on the bf16 tables, named
@@ -1299,13 +1330,18 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     ct_ax = randn(n, d)
     # den's cotangent positive, as in check_fused_kernels
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw_x, **kw_f) + 1e-16)
+    kw_p = dict(pieces=g.row_pieces)
+    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw_p, **kw_x, **kw_f) + 1e-16)
              ).contiguous()
     cts = (ct_ax, (recip / h).contiguous(), ct_den)
 
     def f64(t):
         return (t.double() if torch.is_tensor(t) and t.is_floating_point()
                 and t.dtype != torch.bfloat16 else t)
+
+    def den64(**extra):
+        kw = {k: f64(v) for k, v in {**kw_x, **kw_f, **extra}.items()}
+        return K.norm1_den_plain(*csr, *map(f64, ops), **kw).float()
 
     def bwd64():
         kw = {k: f64(v) for k, v in {**kw_x, **kw_f}.items()}
@@ -1328,14 +1364,15 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     proj = projection_ops(d, att, score)
     cases = [
         ("norm1_den", "column denominators",
-         lambda: K.norm1_den(*csr, *ops, **kw_x, **kw_f),
+         lambda: K.norm1_den(*csr, *ops, **kw_p, **kw_x, **kw_f),
          lambda: K.norm1_den_plain(*csr, *ops, **kw_x, **kw_f),
-         (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att), None),
+         (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att), den64),
         ("norm1_den", "weighted by ct[c] . x[n]",
-         lambda: K.norm1_den(*csr, *ops, ct=ct_ax, **kw_x, **kw_f),
+         lambda: K.norm1_den(*csr, *ops, ct=ct_ax, **kw_p, **kw_x, **kw_f),
          lambda: K.norm1_den_plain(*csr, *ops, ct=ct_ax, **kw_x, **kw_f),
          (base_bytes + 4 * n * (d + h),
-          2 * n * proj + nv * (2 * att + 2 * d)), None),
+          2 * n * proj + nv * (2 * att + 2 * d)),
+         lambda: den64(ct=ct_ax)),
         ("norm1_fwd", "ax",
          lambda: K.norm1_fwd(*csr, *ops, recip, pieces=g.row_pieces, **kw_x,
                              **kw_f),
@@ -1354,6 +1391,8 @@ def check_norm1_kernels(shape_name, g, d, att, h, score, seed, timed=True,
         cases = [(kname + " bf16", *c) for kname, *c in cases]
         tag = " row bf16" if row_bf16 else " bf16"
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
+    print_walk_design("norm1_den", shape_name, dims, g, d, att, h, score,
+                      multi_rows)
     print_walk_design("norm1_fwd", shape_name, dims, g, d, att, h, score,
                       multi_rows)
     print_walk_design("norm1_bwd", shape_name, dims, g, d, att, h, score)
@@ -1492,6 +1531,128 @@ BF16_COLUMN_FLOOR = 1e-4
 BF16_STATE_STEP = 2.0 ** -8
 
 
+class ForwardRecorder:
+    """Records what a model's forward computes on its way, while entered:
+    the encoder's output (the block's input), the frozen attention that
+    ``models.blocks.build_aux`` hands the solve, every right-hand-side
+    evaluation of the solver (its time, state and output, in the solver's
+    order: the stages of every trial step) and the block's output, each
+    copied to the host; and the prepared graph's views (every tensor
+    attribute of ``model.graph``) as they stand when the forward begins.
+    ``compare`` says where two recorded forwards first part."""
+
+    def __init__(self, model):
+        self.model = model
+        self.record = None
+
+    def __enter__(self):
+        from graph_neural_pde_tpu_torch.models import blocks, gnn
+        rec = self.record = {"graph": graph_views(self.model.graph),
+                             "attention": [], "stages": []}
+        self._saved = (blocks.build_aux, blocks.odeint, gnn.block_forward)
+        build_aux, odeint, block_forward = self._saved
+
+        def host(t):
+            return t.detach().to("cpu", copy=True)
+
+        def rec_build_aux(*a, **kw):
+            aux, keep = build_aux(*a, **kw)
+            if aux.attention is not None:
+                rec["attention"].append(host(aux.attention))
+            return aux, keep
+
+        def rec_odeint(func, y0, *a, **kw):
+            def rec_func(t, y):
+                out = func(t, y)
+                rec["stages"].append((float(t), host(y), host(out)))
+                return out
+            return odeint(rec_func, y0, *a, **kw)
+
+        def rec_block_forward(block, cfg, g, x, *a, **kw):
+            rec["block_in"] = host(x)
+            z, stats = block_forward(block, cfg, g, x, *a, **kw)
+            rec["block_out"] = host(z)
+            return z, stats
+
+        blocks.build_aux, blocks.odeint = rec_build_aux, rec_odeint
+        gnn.block_forward = rec_block_forward
+        return self
+
+    def __exit__(self, *exc):
+        from graph_neural_pde_tpu_torch.models import blocks, gnn
+        blocks.build_aux, blocks.odeint, gnn.block_forward = self._saved
+        return False
+
+
+def graph_views(g) -> dict:
+    """Every tensor a prepared graph holds (its CSR, the CSC view, the
+    reverse-edge map, the row and column pieces), copied to the host."""
+    import torch
+    views = {}
+    for name, v in sorted(vars(g).items()):
+        if torch.is_tensor(v):
+            views[name] = v.detach().to("cpu", copy=True)
+        elif hasattr(v, "__dict__"):
+            for sub, t in sorted(vars(v).items()):
+                if torch.is_tensor(t):
+                    views[f"{name}.{sub}"] = t.detach().to("cpu", copy=True)
+    return views
+
+
+def compare_forwards(label: str, a: dict, b: dict, names=("a", "b")):
+    """Prints where the recorded forwards ``a`` and ``b`` first part: the
+    graph views they read, the block's input, the frozen attention, each
+    solver stage's time, state and output (the first stage that differs
+    and the largest gaps), the block's output. Returns the lines."""
+    lines = []
+
+    def gap(x, y):
+        if x.shape != y.shape:
+            return f"shapes {tuple(x.shape)} vs {tuple(y.shape)}"
+        if x.dtype.is_floating_point:
+            d = float((x.double() - y.double()).abs().max()) if x.numel() \
+                else 0.0
+            return None if d == 0.0 else f"{d:.3e}"
+        return None if torch_equal(x, y) else "differ"
+
+    for k in sorted(set(a["graph"]) | set(b["graph"])):
+        if k not in a["graph"] or k not in b["graph"]:
+            lines.append(f"graph view {k} only in one forward")
+            continue
+        g_ = gap(a["graph"][k], b["graph"][k])
+        if g_:
+            lines.append(f"graph view {k}: {g_}")
+    for k in ("block_in", "block_out"):
+        if k in a and k in b:
+            lines.append(f"{k}: {gap(a[k], b[k]) or 'bit-identical'}")
+    for i, (x, y) in enumerate(zip(a["attention"], b["attention"])):
+        lines.append(f"frozen attention {i}: {gap(x, y) or 'bit-identical'}")
+    sa, sb = a["stages"], b["stages"]
+    lines.append(f"solver stages: {len(sa)} vs {len(sb)}")
+    first = None
+    for i, ((ta, ya, oa), (tb, yb, ob)) in enumerate(zip(sa, sb)):
+        gy, go = gap(ya, yb), gap(oa, ob)
+        if ta != tb or gy or go:
+            if first is None:
+                first = i
+                lines.append(f"first stage that differs: {i} at t {ta!r} vs "
+                             f"{tb!r}: state {gy or 'bit-identical'}, output "
+                             f"{go or 'bit-identical'}")
+            elif i - first < 8 or i == len(sa) - 1:
+                lines.append(f"stage {i} t {ta:.6g}: state {gy or '='}, "
+                             f"output {go or '='}")
+    if first is None:
+        lines.append("every solver stage bit-identical")
+    for line in lines:
+        print(f"[small] {label} {names[0]} vs {names[1]}: {line}", flush=True)
+    return lines
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return bool(torch.equal(x, y))
+
+
 def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                            early_stop_counts: bool = True,
                            grad_floor: float = 1e-6, graph=None,
@@ -1542,7 +1703,7 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     gen = torch.Generator().manual_seed(5)
     pos = (torch.randn(300, pos_dim, generator=torch.Generator()
                        .manual_seed(6)) if cfg.beltrami else None)
-    results, models = {}, {}
+    results, models, records = {}, {}, {}
     state = None
     # the inputs as they came, to tell on a failure whether a run moved them
     inputs0 = (d.x.clone(), d.graph.weight.clone())
@@ -1553,6 +1714,7 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
     bf16_ran = {}
     for dev in devices:
         before = {k.__name__: k.bf16_launches for k in kernels.BF16_KERNELS}
+        before[ROWS] = kernels.fused_rhs_bwd.bf16_rows_launches
         m = GNNEarlyModel(cfg, 24, 4, d.graph, device=dev,
                           pos_enc_dim=pos_dim)
         if state is None:
@@ -1571,7 +1733,10 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
         pe = pos.to(dev) if pos is not None else None
         masks = tuple(t.to(dev) for t in (d.train_mask, d.val_mask,
                                           d.test_mask))
-        logits, stats = m(x, training=True, pos_encoding=pe)
+        # the first forward's intermediates, kept for the diagnostic below
+        with ForwardRecorder(m) as recorder:
+            logits, stats = m(x, training=True, pos_encoding=pe)
+        records[dev] = recorder.record
         loss = cross_entropy_loss(logits, y, masks[0])
         loss.backward()
         _, best, es_stats = m.apply_early(x, y, masks, pe)
@@ -1581,6 +1746,8 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
                         es_stats, grads)
         bf16_ran[dev] = {k.__name__: k.bf16_launches - before[k.__name__]
                          for k in kernels.BF16_KERNELS}
+        bf16_ran[dev][ROWS] = (kernels.fused_rhs_bwd.bf16_rows_launches
+                               - before[ROWS])
         models[dev] = m
     (lc, loss_c, st_c, best_c, es_c, g_c) = results[devices[0]]
     (lg, loss_g, st_g, best_g, es_g, g_g) = results[devices[1]]
@@ -1650,11 +1817,29 @@ def check_small_end_to_end(row: str, base=None, devices=("cpu", "cuda"),
               f"{float((d.x - inputs0[0]).abs().max()):.3e} (x), "
               f"{float((d.graph.weight - inputs0[1]).abs().max()):.3e} "
               f"(edge weights) since the check began", flush=True)
+        # the check's own CPU model object again, its intermediates
+        # recorded: where does it part from the first forward, and where
+        # from the card's?
+        with ForwardRecorder(models[devices[0]]) as recorder:
+            again = forward_logits("cpu", grad=True, m=models[devices[0]])
+        compare_forwards(row, records[devices[0]], recorder.record,
+                         ("first cpu forward", "cpu model again"))
+        compare_forwards(row, records[devices[0]], records[devices[1]],
+                         ("first cpu forward", "first cuda forward"))
+        dump = os.path.join("chiprun_out", "small_check_"
+                            + "".join(ch if ch.isalnum() else "_"
+                                      for ch in row)
+                            + f"_{os.getpid()}.pt")
+        os.makedirs(os.path.dirname(dump), exist_ok=True)
+        torch.save({"first cpu forward": records[devices[0]],
+                    "cpu model again": recorder.record,
+                    "first cuda forward": records[devices[1]]}, dump)
+        print(f"[small] {row}: the three forwards' intermediates in {dump}",
+              flush=True)
         runs = {"cpu": lc.double(), "cuda": lg.double(),
                 "cpu rerun": forward_logits("cpu"),
                 "cpu rerun with autograd": forward_logits("cpu", grad=True),
-                "cpu model of the check again": forward_logits(
-                    "cpu", grad=True, m=models[devices[0]]),
+                "cpu model of the check again": again,
                 "cuda rerun": forward_logits(devices[1])}
         if not bf16 or cfg.function == "laplacian":
             # the fused kernels' plain versions take no float64 row side
@@ -2499,11 +2684,16 @@ GRAND_L_KERNELS = ("csr_spmm", "edge_dot", "segment_norm",
                    "segment_norm_bwd")
 BLOCKED_KERNELS = ("blocked_spmm", "blocked_sddmm")
 NORM1_KERNELS = ("norm1_den", "norm1_fwd", "norm1_bwd")
-COLPLAN_KERNELS = ("fused_rhs_fwd", "fused_rhs_bwd", "fused_rhs_bwd_col")
+# K8 without dxg (csrc/fused_bwd_rows.cu, the column plan's row side):
+# its launches counted apart from K8's with dxg, and those on the bf16
+# column table apart again
+ROWS = "fused_rhs_bwd without dxg"
+ROWS_BF16 = f"{ROWS} bf16"
+COLPLAN_KERNELS = ("fused_rhs_fwd", ROWS, "fused_rhs_bwd_col")
 AGGREGATE_KERNELS = ("fused_aggregate", "fused_score_max",
                      "fused_rhs_bwd_heads")
 ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
-                                 "fused_rhs_bwd", "fused_rhs_bwd_sym",
+                                 "fused_rhs_bwd", ROWS, "fused_rhs_bwd_sym",
                                  "dual_scatter", "dual_gather") \
     + NORM1_KERNELS + BLOCKED_KERNELS + ("fused_rhs_bwd_col",) \
     + AGGREGATE_KERNELS + ("row_gather", "smem_gather")
@@ -2522,12 +2712,13 @@ BF16_NAMES = tuple(f"{k} bf16" for k in (
     "fused_rhs_bwd_sym", "fused_rhs_bwd_col", "norm1_den", "norm1_fwd",
     "norm1_bwd") + AGGREGATE_KERNELS + ("dual_scatter", "dual_gather",
                                         "row_gather")) + (SHIFTED_BF16,
-                                                          TABLE_BF16)
+                                                          TABLE_BF16,
+                                                          ROWS_BF16)
 # those the bench entry (t) launches: the primary op, the column-plan
 # oracles, the softmax over columns (its oracles and keys) and the
 # aggregate oracles over the bf16 payload
 BENCH_BF16 = tuple(f"{k} bf16" for k in ("csr_spmm", "edge_dot",
-                                         "fused_rhs_fwd", "fused_rhs_bwd",
+                                         "fused_rhs_fwd", ROWS,
                                          "fused_rhs_bwd_sym",
                                          "fused_rhs_bwd_col", "norm1_den",
                                          "norm1_fwd", "norm1_bwd")
@@ -2548,6 +2739,8 @@ def counted(label: str, expected, fn):
     for k in kernels.ROW_WALKS:
         k.piece_builds = 0
     kernels.fused_rhs_fwd.bf16_shifted_launches = 0
+    kernels.fused_rhs_bwd.rows_launches = 0
+    kernels.fused_rhs_bwd.bf16_rows_launches = 0
     kernels.csr_spmm.table_launches = 0
     kernels.csr_spmm.table_bf16_launches = 0
     t0 = time.perf_counter()
@@ -2561,6 +2754,8 @@ def counted(label: str, expected, fn):
                              f"of the graph's own: {built}")
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     launches[TABLE_MODE] = kernels.csr_spmm.table_launches
+    launches[ROWS] = kernels.fused_rhs_bwd.rows_launches
+    launches[ROWS_BF16] = kernels.fused_rhs_bwd.bf16_rows_launches
     for k in kernels.BF16_KERNELS:
         launches[f"{k.__name__} bf16"] = k.bf16_launches
     launches[SHIFTED_BF16] = kernels.fused_rhs_fwd.bf16_shifted_launches
@@ -3056,7 +3251,8 @@ def main() -> int:
         rows += check_column_rhs_kernels("cora-knn", knn_g, blend_d,
                                          2 * nl.attention_dim, nl.heads,
                                          BELTRAMI, args.seed + 108,
-                                         feat=nl.feat_hidden_dim)
+                                         feat=nl.feat_hidden_dim,
+                                         multi_rows=True)
         rows += check_column_rhs_kernels("cora-knn", knn_g, blend_d,
                                          2 * nl.attention_dim, nl.heads,
                                          BELTRAMI, args.seed + 167,
@@ -3306,7 +3502,7 @@ def main() -> int:
         label_w = ("GRAND-nl arxiv-scale sym_backward=False at bench "
                    "precision (w)")
         _, per_path[label_w], secs = counted(
-            label_w, ("fused_rhs_fwd bf16", "fused_rhs_bwd bf16",
+            label_w, ("fused_rhs_fwd bf16", ROWS_BF16,
                       "fused_rhs_bwd_col bf16"),
             lambda: drive_bench_precision(args.seed, label="(w)",
                                           modes=("remat",), forward=False,
@@ -3497,10 +3693,11 @@ def main() -> int:
                "fused_rhs_fwd": ("fused_fwd.cu", "fused_rhs.py:280"),
                "fused_rowmax": ("fused_fwd.cu", "fused_rhs.py:654"),
                "fused_rhs_bwd": ("fused_rhs.cu", "fused_rhs.py:742"),
+               ROWS: ("fused_bwd_rows.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_sym": ("fused_rhs.cu", "fused_rhs.py:1341"),
                "dual_scatter": ("dual_scatter.cu", "stripe.py:599"),
                "dual_gather": ("dual_scatter.cu", "stripe.py:655"),
-               "norm1_den": ("norm1.cu", "fused_rhs.py:2070"),
+               "norm1_den": ("norm1_den.cu", "fused_rhs.py:2070"),
                "norm1_fwd": ("norm1.cu", "fused_rhs.py:2189"),
                "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297"),
                "blocked_spmm": ("blocked.cu", "spmm_blocked.py:76"),
@@ -3521,9 +3718,10 @@ def main() -> int:
                SHIFTED_BF16: ("fused_fwd.cu", "fused_rhs.py:280"),
                "fused_rowmax bf16": ("fused_fwd.cu", "fused_rhs.py:654"),
                "fused_rhs_bwd bf16": ("fused_rhs.cu", "fused_rhs.py:742"),
+               ROWS_BF16: ("fused_bwd_rows.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_col bf16": ("fused_rhs.cu",
                                           "fused_rhs.py:1047"),
-               "norm1_den bf16": ("norm1.cu", "fused_rhs.py:2070"),
+               "norm1_den bf16": ("norm1_den.cu", "fused_rhs.py:2070"),
                "norm1_fwd bf16": ("norm1.cu", "fused_rhs.py:2189"),
                "norm1_bwd bf16": ("norm1.cu", "fused_rhs.py:2297"),
                "fused_aggregate bf16": ("fused_payload.cu",

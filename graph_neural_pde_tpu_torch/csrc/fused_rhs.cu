@@ -7,7 +7,8 @@
 //
 // Replace the TPU kernels of graph_neural_pde_tpu/ops/pallas/fused_rhs.py:
 // _rhs_kernel_ax / _fused_ax_call (K6), _rowmax_kernel / fused_rowmax (K7),
-// _bwd_kernel / _fused_bwd_mega_call (K8's separable mode), _bwd_sym_kernel
+// _bwd_kernel / _fused_bwd_mega_call (K8's separable mode; without its
+// per-edge dxg, the column plan's row side, fused_bwd_rows.cu), _bwd_sym_kernel
 // / _fused_bwd_mega_sym_call (K9) and _bwd_dx_col_kernel / _bwd_dx_col_call
 // (K17, the column-plan dx of make_fused_ax_colplan). Those walk a stripe
 // plan of padded edge chunks and do every gather, scatter and per-head sum
@@ -39,12 +40,13 @@
 // x[c] (D floats) and k[c] (ATT floats), K9 also ct_ax[c] and q[c], rows
 // that mostly come from the 50 MB L2 at Cora's size and from device
 // memory at arxiv scale, where the x table alone is 87 MB; the
-// arithmetic per edge is 2 ATT + 2 H D flop. K8 alone still multiplies per
-// edge (dxg[e] needs dk_e Kw^T) and is bound by that.
+// arithmetic per edge is 2 ATT + 2 H D flop. K8 with dxg alone still
+// multiplies per edge (dxg[e] needs dk_e Kw^T) and is bound by that.
 //
-// Design: K6 and K9 walk row pieces in registers and score every head on
-// all lanes (fwd_walk_piece and sym_backward_piece in fused_common.cuh);
-// K7, K8 and K17 (per column piece, see its note) keep one warp a row,
+// Design: K6, K9 and K8 without dxg walk row pieces in registers and score
+// every head on all lanes (fwd_walk_piece and sym_backward_piece in
+// fused_common.cuh, fused_bwd_rows.cu); K7, K8 with dxg and K17 (per
+// column piece, see its note) keep one warp a row,
 // four warps a block. Lanes span ATT for the node projections (Kw / Qw are
 // read through the L1 as coalesced rows); in K8 and K17 lane h owns head h
 // for the scores and their derivatives (d_k serial terms, so the order of
@@ -141,19 +143,15 @@ __global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
       const float* c = coef + 5 * (a / d_k);    // a head or its position half
       const float qq = q[a] - c[3], kk = ke[a] - c[4];
       dqa[a] += c[0] * kk - c[1] * qq;
-      if (dxg != nullptr) {                     // without dxg: no dk at all
-        const float dk = c[0] * qq - c[2] * kk;
-        dke[a] = dk;
-        dke_out[static_cast<size_t>(e) * A + a] = dk;
-      }
+      const float dk = c[0] * qq - c[2] * kk;
+      dke[a] = dk;
+      dke_out[static_cast<size_t>(e) * A + a] = dk;
     }
     __syncwarp();
-    if (dxg != nullptr) {
-      project(dke, kw_t, nullptr, A, D, lane, dkw);
-      float* xo = dxg + static_cast<size_t>(e) * D;
-      for (int d = lane; d < D; d += kWarp) xo[d] = fmaf(wsum, cta[d], dkw[d]);
-      __syncwarp();
-    }
+    project(dke, kw_t, nullptr, A, D, lane, dkw);
+    float* xo = dxg + static_cast<size_t>(e) * D;
+    for (int d = lane; d < D; d += kWarp) xo[d] = fmaf(wsum, cta[d], dkw[d]);
+    __syncwarp();
   }
   for (int a = lane; a < A; a += kWarp)
     dq[static_cast<size_t>(n) * A + a] = dqa[a];
@@ -339,9 +337,9 @@ struct Bwd {
   int n_slots, reduce_blocks;
 };
 
-// K8's walk over the column table xcol of type TC (its k table too), then,
-// with dxg, the first pass of dKw / dKb over the column table's rows at
-// each slot's column
+// K8's walk over the column table xcol of type TC (its k table too), then
+// the first pass of dKw / dKb over the column table's rows at each slot's
+// column
 template <typename TC>
 cudaError_t launch_bwd(Graph g, Proj p, const void* xcol, const void* qtab,
                        const void* ktab, const Bwd& b, cudaStream_t s) {
@@ -360,11 +358,10 @@ cudaError_t launch_bwd(Graph g, Proj p, const void* xcol, const void* qtab,
       static_cast<float*>(b.row_sums));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (b.dxg != nullptr)
-    launch_outer_reduce(static_cast<const TC*>(xcol), g.col,
-                        static_cast<const float*>(b.dke),
-                        static_cast<float*>(b.partials), b.n_slots,
-                        b.reduce_blocks, p.dim, p.att, s);
+  launch_outer_reduce(static_cast<const TC*>(xcol), g.col,
+                      static_cast<const float*>(b.dke),
+                      static_cast<float*>(b.partials), b.n_slots,
+                      b.reduce_blocks, p.dim, p.att, s);
   return cudaGetLastError();
 }
 
@@ -430,9 +427,9 @@ cudaError_t launch_bwd_col(Graph g, Pieces pc, Proj p, const void* xcol,
 // table: the k table's derivative). dke [n_slots, att] and row_sums
 // [n_rows, 5] are scratch the wrapper reduces; partials [reduce_blocks,
 // dim + 1, att] are zero on entry, and dKw is reduced over the column
-// table. Nullable: var, ls, shifts and, together, dxg, dke and partials:
-// without them the walk forms dq and the row sums only (the column-plan
-// backward, where K17 forms dKw and dKb per column).
+// table. Nullable: var, ls, shifts. K8 without dxg (the column-plan
+// backward, where K17 forms x's gradient, dKw and dKb per column) is
+// gnpde_fused_rhs_bwd_rows (fused_bwd_rows.cu).
 extern "C" int gnpde_fused_rhs_bwd(
     const void* rowptr, const void* col, const void* x, const void* xcol,
     const void* qw, const void* qb, const void* kw, const void* kb,
@@ -441,7 +438,9 @@ extern "C" int gnpde_fused_rhs_bwd(
     const void* kw_t, void* qtab, void* ktab, void* dq, void* dxg, void* dke,
     void* row_sums, void* partials, int n_rows, int dim, int att, int heads,
     int flags, int n_slots, int reduce_blocks, int tables, void* stream) {
-  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_tables(tables) || dxg == nullptr || dke == nullptr ||
+      partials == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
@@ -495,7 +494,9 @@ extern "C" int gnpde_fused_rhs_bwd_sym(
 // column's summed dk) is scratch the wrapper reduces over the column
 // table; part [multi_ptr[n_multi], dim + att] is the pieces' partial sums
 // (nullable without multi-piece columns); partials [reduce_blocks, dim +
-// 1, att] are zero on entry. Nullable: var, ls.
+// 1, att] are zero on entry. With project == 0 the q and k tables are read
+// as an earlier launch on the same operands left them (K8 without dxg's,
+// in the column-plan backward), else filled first. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_col(
     const void* piece_ptr, const void* piece_col, const void* piece_slot,
     const void* multi_col, const void* multi_ptr, const void* row_by_col,
@@ -505,12 +506,14 @@ extern "C" int gnpde_fused_rhs_bwd_col(
     const void* ct_den, const void* kw_t, void* qtab, void* ktab, void* dx,
     void* dkn, void* part, void* partials, int n_cols, int n_pieces,
     int n_multi, int dim, int att, int heads, int flags, int reduce_blocks,
-    int tables, void* stream) {
+    int project, int tables, void* stream) {
   if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
   if (n_cols > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
-                                    ktab, n_cols, dim, att, s);
+    cudaError_t err = cudaSuccess;
+    if (project)
+      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_cols,
+                          dim, att, s);
     if (err != cudaSuccess) return static_cast<int>(err);
     const Graph g = make_graph(nullptr, row_by_col, n_cols);
     const Pieces pc = {static_cast<const int*>(piece_ptr),

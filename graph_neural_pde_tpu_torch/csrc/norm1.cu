@@ -4,7 +4,8 @@
 // is symmetric.
 //
 // Replace the TPU kernels of graph_neural_pde_tpu/ops/pallas/fused_rhs.py:
-// _norm1_rev_kernel / _norm1_rev_call (K12, both of its modes),
+// _norm1_rev_kernel / _norm1_rev_call (K12, both of its modes; its kernel
+// is norm1_den.cu),
 // _norm1_fwd_kernel / _norm1_fwd_call (K13) and _norm1_bwd_kernel /
 // _norm1_bwd_call (K14). Those ride a stripe plan of padded edge chunks,
 // pack x as bf16 pairs with 1/den in the same 128-lane gather row, permute
@@ -51,22 +52,18 @@
 // the scratch tables q and k (node_project_kernel), unless its caller hands
 // it tables that an earlier launch on the same inputs filled (K12 then K13
 // in the forward, K12 then K14 in the backward: project = 0 in the second);
-// one warp owns one row (K13 and K14: one row piece), and nothing is
-// atomic: two launches agree bit for bit.
-// * K12: the row's edges are split over the lanes. A lane scores its edge
-//   for every head from q[c] in global memory against k[n] in shared
-//   memory, adds into its own column of a [H, 32] accumulator in shared
-//   memory, and a butterfly sum per head closes the row. Rows are short
-//   (9-15 edges on average), so per-edge work across lanes keeps more of
-//   the warp busy than K7's one lane per head does.
+// one warp owns one row piece, and nothing is atomic: two launches agree
+// bit for bit.
+// * K12 (norm1_den.cu, a source of its own): K13's walk with the roles of
+//   the rows swapped, k[n] (and x[n]) resident and q[c] (and ct[c])
+//   gathered, every head scored on all lanes by the same fwd_score, so
+//   that each edge's u is bit for bit the u K13 forms for its reverse.
 // * K13: K6's walk (fwd_walk_piece in fused_common.cuh, which replaces
 //   P15 _norm1_fwd_kernel here as it replaces P7 for K6) over columns: an
 //   edge reads 1/den[c, h] with its rows, its weight 1/H sum_h u_eh /
 //   den[c, h] is one butterfly over the head lanes, and the row keeps one
 //   D-wide sum in registers, no per-head numerators. It walks row pieces
-//   and merges multi-piece rows as K6 does. Its scores are summed over
-//   each head's lanes, K12's serially by one lane: the two can differ in
-//   a last bit, far inside the tolerance of the attention's column sums.
+//   and merges multi-piece rows as K6 does.
 // * K14: K9's walk (sym_backward_piece in fused_common.cuh, which replaces
 //   P16 _norm1_bwd_kernel here as it replaces P13 for K9) with the softmax
 //   groups swapped: the edge (n, c) reads 1/den and den's cotangent at its
@@ -81,59 +78,6 @@
 #include "fused_common.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------- K12
-
-template <typename TC>
-__global__ void norm1_den_kernel(Graph g, Proj p,
-                                 const TC* __restrict__ xcol,
-                                 const float* __restrict__ qtab,
-                                 const TC* __restrict__ ktab,
-                                 const float* __restrict__ ct,
-                                 float* __restrict__ out) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;                    // whole warp leaves together
-  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  float* kn = smem + static_cast<size_t>(warp) * (A + D + kWarp * H);
-  float* xn = kn + A;                           // x_n, read with ct only
-  float* acc = xn + D;                          // [H, 32]: a column a lane
-  // k and x at the resident node from the column side (K13's k table and
-  // values at the same node), q at the gathered node from the row side:
-  // the very score K13 gives the edge (c, n)
-  load_row(ktab, n, A, lane, kn);
-  if (ct) load_row(xcol, n, D, lane, xn);
-  for (int h = 0; h < H; ++h) acc[h * kWarp + lane] = 0.0f;
-  __syncwarp();
-  const float gmax = *p.gmax;
-  const ScoreParams sc = score_params(p);
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  for (int e = start + lane; e < end; e += kWarp) {
-    const int c = g.col[e];
-    // the reverse edge (c, n): q at the gathered node, k at the resident
-    const float* qc = qtab + static_cast<size_t>(c) * A;
-    float weight = 1.0f;
-    if (ct) {
-      const float* cc = ct + static_cast<size_t>(c) * D;
-      weight = 0.0f;
-      for (int d = 0; d < D; ++d) weight = fmaf(cc[d], xn[d], weight);
-    }
-    for (int h = 0; h < H; ++h) {
-      const HeadScore hs = head_score(qc, kn, h, d_k, H, p.score, sc);
-      float u, duds;
-      u_duds(hs.s - gmax, p.square_plus, &u, &duds);
-      acc[h * kWarp + lane] += u * weight;
-    }
-  }
-  __syncwarp();
-  float mine = 0.0f;                            // lane h: head h
-  for (int h = 0; h < H; ++h) {
-    const float total = warp_sum(acc[h * kWarp + lane]);
-    if (lane == h) mine = total;
-  }
-  if (lane < H) out[static_cast<size_t>(n) * H + lane] = mine;
-}
 
 // ---------------------------------------------------------------------- K13
 
@@ -192,23 +136,6 @@ struct SymColumns {
   static auto merge() { return norm1_bwd_merge_kernel<KD, KA>; }
 };
 
-// K12's walk over the column table xcol of type TC (its k table too)
-template <typename TC>
-cudaError_t launch_den(Graph g, Proj p, const void* xcol, const void* qtab,
-                       const void* ktab, const void* ct, void* out,
-                       cudaStream_t s) {
-  const size_t bytes =
-      sizeof(float) * kWarpsPerBlock * (p.att + p.dim + kWarp * p.heads);
-  cudaError_t err = allow_shared(norm1_den_kernel<TC>, bytes);
-  if (err != cudaSuccess) return err;
-  norm1_den_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp, bytes,
-                         s>>>(
-      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
-      static_cast<const TC*>(ktab), static_cast<const float*>(ct),
-      static_cast<float*>(out));
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // With project != 0 an entry point first fills the scratch tables qtab and
@@ -220,32 +147,6 @@ cudaError_t launch_den(Graph g, Proj p, const void* xcol, const void* qtab,
 // ignored and x is the column table; kTablesF32Bf16, kTablesBf16: the
 // bfloat16 column table xcol beside a float32 or bfloat16 x, its k table
 // bfloat16, kw and kb the bf16-rounded projection).
-
-// out [n_rows, heads]: the column denominators, or with ct [n_rows, dim]
-// each term weighted by ct[c] . xcol[n]. Nullable: var, ls, ct.
-extern "C" int gnpde_norm1_den(
-    const void* rowptr, const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* ct,
-    void* qtab, void* ktab, void* out, int n_rows, int dim, int att,
-    int heads, int flags, int project, int tables, void* stream) {
-  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = cudaSuccess;
-    if (project)
-      err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows,
-                          dim, att, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Graph g = make_graph(rowptr, col, n_rows);
-    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
-    err = tables == kTablesF32
-              ? launch_den<float>(g, p, x, qtab, ktab, ct, out, s)
-              : launch_den<__nv_bfloat16>(g, p, xcol, qtab, ktab, ct, out, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K13 over the row pieces (as gnpde_fused_rhs_fwd takes them): out
 // [n_rows, dim] = ax from recip [n_rows, heads] = 1 / (den + 1e-16); part

@@ -90,7 +90,9 @@ KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
 # the kernels with a bfloat16-table mode, whose ``bf16_launches`` count the
 # launches in it among their own (``fused_rhs_fwd.bf16_shifted_launches``
 # those of them with the exact mode's shifts, ``csr_spmm.
-# table_bf16_launches`` those of K1's in table mode; K20's bf16 mode writes
+# table_bf16_launches`` those of K1's in table mode, ``fused_rhs_bwd.
+# bf16_rows_launches`` those of K8 without dxg, whose launches
+# ``rows_launches`` counts apart from ``launches``; K20's bf16 mode writes
 # bfloat16 rows)
 BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rowmax,
                 fused_rhs_bwd, fused_rhs_bwd_sym, fused_rhs_bwd_col,
@@ -99,4 +101,5 @@ BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rowmax,
                 dual_gather, row_gather)
 # the walks over row pieces, whose ``piece_builds`` count the calls that
 # built the pieces from rowptr because none were handed over
-ROW_WALKS = (fused_rhs_fwd, fused_rhs_bwd_sym, norm1_fwd, norm1_bwd)
+ROW_WALKS = (fused_rhs_fwd, fused_rhs_bwd, fused_rhs_bwd_sym, norm1_den,
+             norm1_fwd, norm1_bwd)

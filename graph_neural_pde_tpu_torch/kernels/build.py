@@ -61,10 +61,18 @@ _ENTRY_POINTS = {
     # att, heads, tables, stream
     "gnpde_fused_rowmax": [_PTR] * 11 + [_INT] * 5 + [_PTR],
     # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts (the last
-    # three nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg
-    # (nullable), dke, row_sums, partials, n_rows, dim, att, heads, flags,
-    # n_slots, reduce_blocks, tables, stream
+    # three nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg,
+    # dke, row_sums, partials, n_rows, dim, att, heads, flags, n_slots,
+    # reduce_blocks, tables, stream
     "gnpde_fused_rhs_bwd": [_PTR] * 23 + [_INT] * 8 + [_PTR],
+    # K8 without dxg (csrc/fused_bwd_rows.cu): piece_ptr, piece_row,
+    # piece_slot, multi_row, multi_ptr (the rows' pieces), col, x, xcol,
+    # qw, qb, kw, kb, gmax, var, ls, shifts (the last three nullable),
+    # ct_ax, recip_p, ct_den, qtab, ktab, dq, row_sums, part (nullable
+    # without multi-piece rows), n_rows, n_pieces, n_multi, dim, att,
+    # heads, flags, vec, project (0: qtab and ktab are filled already),
+    # tables, stream
+    "gnpde_fused_rhs_bwd_rows": [_PTR] * 24 + [_INT] * 10 + [_PTR],
     # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
     # pieces), col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
     # nullable), ct_ax, rc (each node's (recip_p, ct_den) per head), kw_t,
@@ -85,8 +93,8 @@ _ENTRY_POINTS = {
     # ls (the last two nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab,
     # dx, dkn, part (nullable without multi-piece columns), partials,
     # n_cols, n_pieces, n_multi, dim, att, heads, flags, reduce_blocks,
-    # tables, stream
-    "gnpde_fused_rhs_bwd_col": [_PTR] * 25 + [_INT] * 9 + [_PTR],
+    # project (0: qtab and ktab are filled already), tables, stream
+    "gnpde_fused_rhs_bwd_col": [_PTR] * 25 + [_INT] * 10 + [_PTR],
     # The per-edge payload kernels (csrc/fused_payload.cu).
     # K18, K19 and K8's per-head mode take the same TABLES code for the
     # node rows x and the per-edge payload xg: 0 both float32, 1 x float32
@@ -101,12 +109,15 @@ _ENTRY_POINTS = {
     # ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows, dim, att,
     # heads, flags, n_slots, reduce_blocks, tables, stream
     "gnpde_fused_rhs_bwd_heads": [_PTR] * 17 + [_INT] * 8 + [_PTR],
-    # The column-normalised RHS kernels (csrc/norm1.cu), with K6-K9's
-    # TABLES code (xcol the bfloat16 column table, ignored with 0).
-    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, ct (the last
-    # three nullable), qtab, ktab, out, n_rows, dim, att, heads, flags,
+    # The column-normalised RHS kernels (csrc/norm1_den.cu, csrc/norm1.cu),
+    # with K6-K9's TABLES code (xcol the bfloat16 column table, ignored
+    # with 0).
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces), col, x, xcol, qw, qb, kw, kb, gmax, var, ls, ct (the last
+    # three nullable), qtab, ktab, out, part (nullable without multi-piece
+    # rows), n_rows, n_pieces, n_multi, dim, att, heads, flags, vec,
     # project (0: qtab and ktab are filled already), tables, stream
-    "gnpde_norm1_den": [_PTR] * 15 + [_INT] * 7 + [_PTR],
+    "gnpde_norm1_den": [_PTR] * 20 + [_INT] * 10 + [_PTR],
     # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
     # pieces), col, x, xcol, qw, qb, kw, kb, gmax, var, ls (the last two
     # nullable), recip, qtab, ktab, out, part (nullable without multi-piece

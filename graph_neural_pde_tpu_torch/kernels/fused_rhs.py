@@ -31,7 +31,8 @@ each, the feature factor's and the position factor's:
   scores (edgeless rows 0); replaces ``_rowmax_kernel`` / ``fused_rowmax``.
 * K8 ``fused_rhs_bwd``     -> (dq, per-edge dxg, dkw, dkb, dgmax, dvar, dls)
   from the cotangents, or without the per-edge dxg and dk (``want_dxg=False``:
-  dq, dgmax and the score scalars); replaces ``_bwd_kernel`` /
+  dq, dgmax and the score scalars, a walk over the row pieces of its own,
+  ``csrc/fused_bwd_rows.cu``); replaces ``_bwd_kernel`` /
   ``_fused_bwd_mega_call``.
 * K9 ``fused_rhs_bwd_sym`` -> the same with x[col]'s cotangent reduced into
   ``dxrow[n]`` through each edge's reverse edge, for symmetric edge
@@ -561,16 +562,38 @@ def _node_tables(x: torch.Tensor, att: int) -> torch.Tensor:
                        device=x.device)
 
 
+class NodeTables:
+    """The kernels' scratch: every node's q and k projections [N, ATT],
+    which a row walk gathers per edge (the k table in bfloat16 beside a
+    bfloat16 column table, in the first half of its float32 storage). The
+    first launch that takes the tables fills them (``project()`` answers 1
+    once), later launches on the same operands reuse them."""
+
+    def __init__(self, x: torch.Tensor, att: int):
+        self.q, self.k = _node_tables(x, att)
+        self.filled = False
+
+    def project(self) -> int:
+        first, self.filled = not self.filled, True
+        return int(first)
+
+
+def node_tables(x: torch.Tensor, att: int):
+    """Tables for the launches of one forward or one backward pass over
+    ``x`` (None on the CPU: the plain versions keep no scratch)."""
+    return NodeTables(x, att) if x.device.type == "cuda" else None
+
+
 def _flags(score: str, square_plus: bool) -> int:
     return SCORES[score] | (8 if square_plus else 0)
 
 
 def _row_pieces(fn, rowptr, pieces: Optional[ColPieces], n: int, dev):
-    """The row pieces a walk over rows takes on CUDA tensors (K6, K9, K13,
-    K14): the graph's own (``Graph.row_pieces``, which every model path
-    hands over), or, when None, ``column_pieces(rowptr)`` built here, a
-    copy to the host that the wrapper ``fn`` counts
-    (``fn.piece_builds``)."""
+    """The row pieces a walk over rows takes on CUDA tensors (K6, K8
+    without dxg, K9, K12-K14): the graph's own (``Graph.row_pieces``,
+    which every model path hands over), or, when None,
+    ``column_pieces(rowptr)`` built here, a copy to the host that the
+    wrapper ``fn`` counts (``fn.piece_builds``)."""
     if pieces is None:
         pieces = column_pieces(rowptr)
         fn.piece_builds += 1
@@ -717,14 +740,23 @@ def _reduce_blocks(rows: int) -> int:
 def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                   ct_den, *, heads: int, score: str, var=None, ls=None,
                   shifts=None, square_plus: bool = False,
-                  want_dxg: bool = True, xcol=None):
+                  want_dxg: bool = True, xcol=None,
+                  pieces: Optional[ColPieces] = None, tabs=None):
     """K8: the general backward (see :func:`fused_rhs_bwd_plain` for the
     formulas and the return value). Without ``want_dxg`` it forms neither
     the per-edge dxg nor dk_e, and so neither dkw nor dkb: the form that
-    K17 completes. With the bfloat16 column table ``xcol`` (K6's) it reads
-    the gathered values and k there, and dxg and dkw are that table's.
-    The reductions over all edges take two passes with fixed orders, so
-    two calls agree bit for bit."""
+    K17 completes. That form walks the rows cut into ``pieces``
+    (``Graph.row_pieces``; built from ``rowptr`` when None, see
+    :func:`fused_rhs_fwd`) in a kernel of its own
+    (``csrc/fused_bwd_rows.cu``), counted in
+    ``fused_rhs_bwd.rows_launches`` (``bf16_rows_launches`` on the
+    bfloat16 column table), and takes ``tabs`` (CUDA only): the q and k
+    tables of a :func:`node_tables` call, which it fills for K17 to read.
+    The mode with dxg walks whole rows and counts in ``launches`` and
+    ``bf16_launches``. With the bfloat16 column table ``xcol`` (K6's) it
+    reads the gathered values and k there, and dxg and dkw are that
+    table's. The reductions over all edges take two passes with fixed
+    orders, so two calls agree bit for bit."""
     cap = row.shape[0]
     _check("fused_rhs_bwd", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
@@ -737,21 +769,42 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                                    ct_ax, recip_p, ct_den, **kwargs)
     n, d = x.shape
     att = qw.shape[1]
-    _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 10 * heads)
     dev = x.device
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
-    # scratch: every slot's dk_e (0 on padding, which the reduction also
-    # walks: the valid count stays on the device), and each row's sums of
-    # ds and of the score scalars' terms
-    dxg = dke = partials = None
-    blocks = _reduce_blocks(cap)
-    if want_dxg:
-        dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
-        dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
-        partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                               device=dev)
+    # scratch: each row's sums of ds and of the score scalars' terms
     row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     kw, kb = _col_projection(kw, kb, xcol)
+    if not want_dxg:
+        pc = _row_pieces(fused_rhs_bwd, rowptr, pieces, n, dev)
+        # scratch: the pieces' partial sums, dq and the row sums
+        part = (torch.empty((pc.n_slots, att + ROW_SUMS),
+                            dtype=torch.float32, device=dev)
+                if pc.n_multi else None)
+        tabs = tabs or node_tables(x, att)
+        table = x if xcol is None else xcol
+        build.launch("fused_rhs_bwd_rows", dev, pc.ptr.data_ptr(),
+                     pc.col.data_ptr(), pc.slot.data_ptr(),
+                     pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr(),
+                     col.data_ptr(), x.data_ptr(), _ptr(xcol), qw.data_ptr(),
+                     qb.data_ptr(), kw.data_ptr(), kb.data_ptr(),
+                     gmax.data_ptr(), _ptr(var), _ptr(ls), _ptr(shifts),
+                     ct_ax.data_ptr(), recip_p.data_ptr(), ct_den.data_ptr(),
+                     tabs.q.data_ptr(), tabs.k.data_ptr(), dq.data_ptr(),
+                     row_sums.data_ptr(), _ptr(part), n, pc.n_pieces,
+                     pc.n_multi, d, att, heads, _flags(score, square_plus),
+                     _aligned(d, table, ct_ax), tabs.project(),
+                     _tables(x, xcol))
+        fused_rhs_bwd.rows_launches += 1
+        fused_rhs_bwd.bf16_rows_launches += xcol is not None
+        return (dq, None, None, None) + _row_totals(row_sums, score, var, ls)
+    _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 10 * heads)
+    # scratch: every slot's dk_e (0 on padding, which the reduction also
+    # walks: the valid count stays on the device)
+    blocks = _reduce_blocks(cap)
+    dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
+    dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
+    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
+                           device=dev)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     build.launch("fused_rhs_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
                  x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
@@ -759,13 +812,13 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                  _ptr(ls), _ptr(shifts), ct_ax.data_ptr(),
                  recip_p.data_ptr(), ct_den.data_ptr(), kw_t.data_ptr(),
                  tabs[0].data_ptr(), tabs[1].data_ptr(), dq.data_ptr(),
-                 _ptr(dxg), _ptr(dke), row_sums.data_ptr(), _ptr(partials),
-                 n, d, att, heads, _flags(score, square_plus), cap, blocks,
-                 _tables(x, xcol))
+                 dxg.data_ptr(), dke.data_ptr(), row_sums.data_ptr(),
+                 partials.data_ptr(), n, d, att, heads,
+                 _flags(score, square_plus), cap, blocks, _tables(x, xcol))
     fused_rhs_bwd.launches += 1
     fused_rhs_bwd.bf16_launches += xcol is not None
-    dk = _dk_sums(partials, d) if want_dxg else (None, None)
-    return (dq, dxg) + dk + _row_totals(row_sums, score, var, ls)
+    return ((dq, dxg) + _dk_sums(partials, d)
+            + _row_totals(row_sums, score, var, ls))
 
 
 def sym_design(d: int, att: int, heads: int, score: str) -> dict:
@@ -890,7 +943,8 @@ def fused_rhs_bwd_sym(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax,
 def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
                       gmax, ct_ax, recip_p, ct_den, *, heads: int, score: str,
                       var=None, ls=None, square_plus: bool = False,
-                      xcol=None, pieces: Optional[ColPieces] = None):
+                      xcol=None, pieces: Optional[ColPieces] = None,
+                      tabs=None):
     """K17: (dx [N, D], dkw, dkb), x[col]'s cotangent summed per column
     and the key projection's gradients (see :func:`fused_rhs_bwd_col_plain`),
     on any graph. It walks the CSC view (``colptr``, ``row_by_col``) cut
@@ -905,8 +959,11 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     the bfloat16 column table ``xcol`` (K6's) the column's own row and k
     come from that table and its k table, and dx is the table's cotangent
     (through the bf16-rounded Kw), taken as x's; dkw is reduced over the
-    table. ``col_by_col`` is only read by the plain version. No atomics:
-    two calls agree bit for bit."""
+    table. ``tabs`` (CUDA only): the q and k tables of a
+    :func:`node_tables` call, which K8 without dxg filled on the same
+    operands (the column-plan backward), or None: projected here.
+    ``col_by_col`` is only read by the plain version. No atomics: two
+    calls agree bit for bit."""
     n, d = x.shape
     _check("fused_rhs_bwd_col", colptr, col_by_col, row_by_col, x, qw, qb,
            kw, kb, heads, score, var, ls,
@@ -931,7 +988,7 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
                            device=dev)
     kw, kb = _col_projection(kw, kb, xcol)
-    tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
+    tabs, kw_t = tabs or node_tables(x, att), kw.t().contiguous()
     build.launch("fused_rhs_bwd_col", dev, pc.ptr.data_ptr(),
                  pc.col.data_ptr(), pc.slot.data_ptr(),
                  pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr(),
@@ -939,10 +996,11 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
                  qw.data_ptr(), qb.data_ptr(), kw.data_ptr(), kb.data_ptr(),
                  gmax.data_ptr(), _ptr(var), _ptr(ls), ct_ax.data_ptr(),
                  recip_p.data_ptr(), ct_den.data_ptr(), kw_t.data_ptr(),
-                 tabs[0].data_ptr(), tabs[1].data_ptr(), dx.data_ptr(),
+                 tabs.q.data_ptr(), tabs.k.data_ptr(), dx.data_ptr(),
                  dkn.data_ptr(), _ptr(part), partials.data_ptr(), n,
                  pc.n_pieces, pc.n_multi, d, att, heads,
-                 _flags(score, square_plus), blocks, _tables(x, xcol))
+                 _flags(score, square_plus), blocks, tabs.project(),
+                 _tables(x, xcol))
     fused_rhs_bwd_col.launches += 1
     fused_rhs_bwd_col.bf16_launches += xcol is not None
     return (dx,) + _dk_sums(partials, d)
@@ -1138,6 +1196,10 @@ fused_rhs_fwd.bf16_launches = 0
 fused_rhs_fwd.bf16_shifted_launches = 0
 fused_rowmax.bf16_launches = 0
 fused_rhs_bwd.bf16_launches = 0
+# K8's launches without dxg (its walk over row pieces), counted apart from
+# those with dxg, and those of them on a bfloat16 column table
+fused_rhs_bwd.rows_launches = 0
+fused_rhs_bwd.bf16_rows_launches = 0
 fused_rhs_bwd_sym.bf16_launches = 0
 fused_rhs_bwd_col.bf16_launches = 0
 fused_aggregate.launches = 0
@@ -1149,6 +1211,7 @@ fused_rhs_bwd_heads.bf16_launches = 0
 # the row pieces the walks over rows built from rowptr because their caller
 # handed none (a copy to the host; 0 on every model path)
 fused_rhs_fwd.piece_builds = 0
+fused_rhs_bwd.piece_builds = 0
 fused_rhs_bwd_sym.piece_builds = 0
 
 
@@ -1231,13 +1294,15 @@ class _FusedAx(torch.autograd.Function):
                 **kwargs)
         elif engine == "col":
             xcol = column_table(x, payload)
+            tabs = node_tables(x, qw.shape[1])   # K8 fills, K17 reuses
             dq, _, _, _, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                want_dxg=False, xcol=xcol, **kwargs)
+                want_dxg=False, xcol=xcol, pieces=g.row_pieces, tabs=tabs,
+                **kwargs)
             dx, dkw, dkb = fused_rhs_bwd_col(
                 g.colptr, g.col_by_col, g.row_by_col, x, qw, qb, kw, kb,
                 gmax, ct_ax, recip_p, ct_den, xcol=xcol,
-                pieces=g.col_pieces, **kwargs)
+                pieces=g.col_pieces, tabs=tabs, **kwargs)
         else:
             dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,

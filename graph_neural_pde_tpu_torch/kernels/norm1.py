@@ -26,9 +26,10 @@ SYMMETRIC edge multiset they come out of another row walk: the edges into
 
 The TPU engine's bf16 pair packing, its 128-lane ``x | recip`` gather rows
 and its column permutation are not carried over: the kernels take any
-width and head count that fit a block's shared memory
-(``csrc/norm1.cu``). The JAX package runs its norm-1 kernels only under its
-bfloat16 payload; the three wrappers take it as K6-K9 do
+width and head count within the walks' register tiles
+(``csrc/norm1_den.cu``, ``csrc/norm1.cu``). The JAX package runs its
+norm-1 kernels only under its bfloat16 payload; the three wrappers take
+it as K6-K9 do
 (``kernels.fused_rhs``): a bfloat16 column table ``xcol`` (x cast once a
 call) beside the row side ``x`` (float32, or bfloat16 under the bf16 ODE
 state). q comes from x, the gathered values and the bfloat16 k table
@@ -49,9 +50,9 @@ import torch
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
     EPS, _aligned, _bwd_extra, _bwd_plain, _check, _check_sorted, _col_side,
-    _col_projection, _edges, _flags, _node_sum, _node_tables, _ptr,
-    _row_pieces, _shared_bytes, _sym_walk, _tables, _u_duds, column_table,
-    edge_scores, head_slices, score_scalars)
+    _col_projection, _edges, _flags, _node_sum, _ptr, _row_pieces, _sym_walk,
+    _tables, _u_duds, column_table, edge_scores, head_slices, node_tables,
+    score_scalars)
 
 
 # ---------------------------------------------------------------------------
@@ -124,35 +125,16 @@ def norm1_bwd_plain(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
 # wrappers
 # ---------------------------------------------------------------------------
 
-class NodeTables:
-    """The kernels' scratch: every node's q and k projections [N, ATT],
-    which a row walk gathers per edge (the k table in bfloat16 beside a
-    bfloat16 column table, in the first half of its float32 storage). The
-    first launch that takes the tables fills them (``project()`` answers 1
-    once), later launches on the same operands reuse them."""
-
-    def __init__(self, x: torch.Tensor, att: int):
-        self.q, self.k = _node_tables(x, att)
-        self.filled = False
-
-    def project(self) -> int:
-        first, self.filled = not self.filled, True
-        return int(first)
-
-
-def node_tables(x: torch.Tensor, att: int):
-    """Tables for the launches of one forward or one backward pass over
-    ``x`` (None on the CPU: the plain versions keep no scratch)."""
-    return NodeTables(x, att) if x.device.type == "cuda" else None
-
-
 def norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
               score: str, var=None, ls=None, square_plus: bool = False,
-              ct=None, tabs=None, xcol=None):
+              ct=None, tabs=None, xcol=None, pieces=None):
     """K12: [N, H] column denominators of a SYMMETRIC edge multiset (the
     caller checks ``Graph.rev is not None``), or with ``ct`` [N, D] the
     same sum weighted by ``ct_c . x_n``. ``gmax`` is a one-element tensor.
-    ``row`` is only read by the plain version. Not differentiable.
+    The kernel walks the row ``pieces`` (``Graph.row_pieces``; as
+    :func:`norm1_fwd` takes them) and scores each edge as K13 scores its
+    reverse, bit for bit. ``row`` is only read by the plain version. Two
+    calls agree bit for bit. Not differentiable.
 
     ``xcol`` (all three wrappers): the bfloat16 column table, x cast to
     bfloat16 (see the module docstring); x is then float32 or bfloat16.
@@ -171,16 +153,24 @@ def norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
                                square_plus=square_plus, ct=ct, xcol=xcol)
     n, d = x.shape
     att = qw.shape[1]
-    _shared_bytes("norm1_den", att + d + 32 * heads)
-    out = torch.empty((n, heads), dtype=torch.float32, device=x.device)
+    dev = x.device
+    pc = _row_pieces(norm1_den, rowptr, pieces, n, dev)
+    out = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    # scratch: the pieces' partial sums
+    part = (torch.empty((pc.n_slots, heads), dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
     tabs = tabs or node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
-    build.launch("norm1_den", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
-                 kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
-                 _ptr(ls), _ptr(ct), tabs.q.data_ptr(), tabs.k.data_ptr(),
-                 out.data_ptr(), n, d, att, heads, _flags(score, square_plus),
-                 tabs.project(), _tables(x, xcol))
+    table = x if xcol is None else xcol
+    build.launch("norm1_den", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+                 pc.slot.data_ptr(), pc.multi_col.data_ptr(),
+                 pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                 _ptr(xcol), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
+                 _ptr(ct), tabs.q.data_ptr(), tabs.k.data_ptr(),
+                 out.data_ptr(), _ptr(part), n, pc.n_pieces, pc.n_multi, d,
+                 att, heads, _flags(score, square_plus),
+                 _aligned(d, table, ct), tabs.project(), _tables(x, xcol))
     norm1_den.launches += 1
     norm1_den.bf16_launches += xcol is not None
     return out
@@ -261,8 +251,9 @@ norm1_bwd.launches = 0
 norm1_den.bf16_launches = 0
 norm1_fwd.bf16_launches = 0
 norm1_bwd.bf16_launches = 0
-# the row pieces K13 and K14 built from rowptr because their caller handed
+# the row pieces K12-K14 built from rowptr because their caller handed
 # none (0 on every model path)
+norm1_den.piece_builds = 0
 norm1_fwd.piece_builds = 0
 norm1_bwd.piece_builds = 0
 
@@ -287,7 +278,8 @@ class _FusedAxNorm1(torch.autograd.Function):
         kwargs = dict(heads=heads, score=score, var=var, ls=ls,
                       square_plus=square_plus, xcol=column_table(x, payload))
         tabs = node_tables(x, qw.shape[1])       # K12 fills, K13 reuses
-        den = norm1_den(*csr, x, qw, qb, kw, kb, gmax, tabs=tabs, **kwargs)
+        den = norm1_den(*csr, x, qw, qb, kw, kb, gmax, tabs=tabs,
+                        pieces=pieces, **kwargs)
         recip = 1.0 / (den + EPS)
         ax = norm1_fwd(*csr, x, qw, qb, kw, kb, gmax, recip, tabs=tabs,
                        pieces=pieces, **kwargs)
@@ -306,7 +298,7 @@ class _FusedAxNorm1(torch.autograd.Function):
         recip = 1.0 / (den + EPS)
         tabs = node_tables(x, qw.shape[1])       # K12 fills, K14 reuses
         m = norm1_den(*csr, x, qw, qb, kw, kb, gmax, ct=ct_ax, tabs=tabs,
-                      **kwargs)
+                      pieces=ctx.pieces, **kwargs)
         ct_den = (ct_den_in - m * recip * recip / heads).contiguous()
         dq, dx, dkw, dkb, dgmax, dvar, dls = norm1_bwd(
             *csr, x, qw, qb, kw, kb, gmax, ct_ax,

@@ -242,7 +242,7 @@ def gather_answer(report: Report, dev, seed: int, graph=None, d=128, att=32,
     kw_p = dict(kw, pieces=g.row_pieces)
     _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_p)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
-    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw) + 1e-16)).contiguous()
+    recip = (1.0 / (K.norm1_den(*csr, *ops, **kw_p) + 1e-16)).contiguous()
     recip1 = (recip / h).contiguous()
     col = g.col[:nv].long()
     times = {

@@ -51,12 +51,16 @@ from graph_neural_pde_tpu_torch.config import Config
 from graph_neural_pde_tpu_torch.data.datasets import get_dataset
 
 PHASES = ("train_step", "eval_step", "early_stop_eval")
-# each wrapper's __global__ function is named <wrapper>_kernel
-KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS)
+# each wrapper's __global__ function is named <wrapper>_kernel; K8 without
+# dxg, fused_rhs_bwd_rows_kernel, is listed apart from K8 with dxg
+KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS) + (
+    "fused_rhs_bwd_rows",)
 # a wrapper's second pass: its time counts to the wrapper, its launches not
 SECOND_PASSES = {"fused_rhs_bwd_col": "fused_rhs_bwd_col_merge_kernel",
                  "fused_rhs_fwd": "fused_rhs_fwd_merge_kernel",
+                 "fused_rhs_bwd_rows": "fused_rhs_bwd_rows_merge_kernel",
                  "fused_rhs_bwd_sym": "fused_rhs_bwd_sym_merge_kernel",
+                 "norm1_den": "norm1_den_merge_kernel",
                  "norm1_fwd": "norm1_fwd_merge_kernel",
                  "norm1_bwd": "norm1_bwd_merge_kernel"}
 # PyTorch's gather (x[index]) and its backward (index_put with accumulate:
