@@ -15,7 +15,15 @@ Phases, each of which must pass (any failure exits nonzero):
    (weights permuted to the reverse edges, against A^T ct by index_add over
    columns) and K2 ``edge_dot`` as ``dw``, at two shapes: the prepared Cora
    stand-in at D=80 and an arxiv-scale symmetric random graph (169,343
-   nodes, ~2.3M directed edges plus self-loops) at D=128. K3
+   nodes, ~2.3M directed edges plus self-loops) at D=128; K1 (node state
+   and every table mode) and K2 everywhere against their plain versions
+   evaluated in float64 on the same inputs, a line before each check
+   printing the lane group and vector width ``kernels.lanes`` picks, K1 in
+   table mode also as K11's dx (``column_head_sum``, timed on the Cora
+   stand-in at H=8 and at arxiv scale at H=2), and after the kernel checks
+   one line for every timed shape at which K1 or K2 is slower than its
+   library call (``torch.sparse.mm``, ``sampled_addmm``; slow does not
+   fail, wrong does). K3
    ``segment_norm`` (softmax and normalise, over rows and over columns
    through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
    rows and columns), on the prepared Computers stand-in at H=4 and the
@@ -488,6 +496,29 @@ def gdc_graph(cfg, data_dir: str):
     return prepare_graph(cfg, d.graph)
 
 
+def plain64(fn, *args):
+    """A plain version evaluated in float64 on the same inputs (a bfloat16
+    table widened exactly), its output back in float32: the reference the
+    K1 and K2 checks hold the kernels to."""
+    import torch
+
+    def up(t):
+        return (t.double() if torch.is_tensor(t) and t.is_floating_point()
+                else t)
+    return lambda: fn(*map(up, args)).float()
+
+
+def print_lanes(kname, shape_name, d, *tables):
+    """The lane group and vector width the wrapper of K1 (``csr_spmm``) or
+    K2 (``edge_dot``) picks for these tables (``kernels.lanes``)."""
+    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+    group, vec = lanes(kname, d, *tables)
+    name = "G" if kname == "csr_spmm" else "L"
+    print(f"[lanes] {kname} @ {shape_name} row width {d} "
+          f"({', '.join(str(t.dtype).split('.')[1] for t in tables)}): "
+          f"{name}={group} V={vec}", flush=True)
+
+
 def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
     """K1 forward, K1 as dx, K2 as dw against their plain versions; two
     launches of each bit-identical. ``table=torch.bfloat16`` (the JAX
@@ -512,9 +543,10 @@ def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
     w_rev = w[g.rev.long()]
     row_l, col_l = g.row.long()[:nv], g.col.long()[:nv]
 
-    def dx_plain():
-        return torch.zeros_like(ct).index_add(
-            0, col_l, ct_t[row_l].float() * w[:nv, None])
+    def dx_plain(wide=False):
+        f = torch.float64 if wide else torch.float32
+        return torch.zeros_like(ct, dtype=f).index_add(
+            0, col_l, ct_t[row_l].to(f) * w[:nv, None].to(f)).float()
 
     # the yardsticks: one PyTorch call each, used nowhere in the port
     library = (None, None)
@@ -538,26 +570,46 @@ def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
         ("csr_spmm" + tag, "forward A_w x",
          lambda: csr_spmm(g.rowptr, g.row, g.col, w, x),
          lambda: csr_spmm_plain(g.rowptr, g.row, g.col, w, x), spmm_work,
-         library[0]),
+         library[0], plain64(csr_spmm_plain, g.rowptr, g.row, g.col, w, x)),
         ("csr_spmm" + tag, "backward dx = A_w^T ct",
          lambda: csr_spmm(g.rowptr, g.row, g.col, w_rev, ct_t), dx_plain,
-         spmm_work, None),
+         spmm_work, None, lambda: dx_plain(wide=True)),
         ("edge_dot" + tag, "backward dw = ct[row].x[col]",
          lambda: edge_dot(g.row, g.col, ct, x, nv),
          lambda: edge_dot_plain(g.row, g.col, ct, x, nv), dot_work,
-         library[1]),
+         library[1], plain64(edge_dot_plain, g.row, g.col, ct, x, nv)),
     )
+    print_lanes("csr_spmm", shape_name, d, x)
+    print_lanes("edge_dot", shape_name, d, ct, x)
     rows = []
-    for kname, what, kern, plain, work, lib in cases:
+    for kname, what, kern, plain, work, lib, ref in cases:
         rows.append(time_case(kname, what, shape_name,
                               f"N={n} E={nv} D={d}{tag}", kern, plain, work,
-                              lib))
+                              lib, reference=ref))
         if not torch.equal(kern(), kern()):
             raise AssertionError(f"{kname} {what} @ {shape_name}: two "
                                  f"launches differ")
     print(f"[kernels] csr_spmm / edge_dot{tag} @ {shape_name}: two launches "
           f"bit-identical", flush=True)
     return rows
+
+
+def print_slower_than_library(rows):
+    """One line for every timed shape at which K1 or K2 took longer than
+    its library call. A slow kernel does not fail the run: its times are
+    written down."""
+    slower = [r for r in rows
+              if r["kernel"].split()[0] in ("csr_spmm", "edge_dot")
+              and r.get("library_ms") is not None
+              and r["ms"] > r["library_ms"]]
+    for r in slower:
+        print(f"[slower than library] {r['kernel']} {r['check']} @ "
+              f"{r['shape']} {r['dims']}: kernel {r['ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)",
+              flush=True)
+    if not slower:
+        print("[slower than library] no timed shape of K1 or K2",
+              flush=True)
 
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -703,13 +755,69 @@ def check_column_sum(shape_name, g, d, seed, dev="cuda"):
     if not torch.equal(kern(), kern()):
         raise AssertionError(f"csr_spmm over CSC @ {shape_name}: two "
                              f"launches differ")
+    print_lanes("csr_spmm", shape_name, d, ct)
     return [time_case(
         "csr_spmm", "column sum dx = A_w^T ct over CSC", shape_name,
         f"N={n} E={nv} D={d}", kern,
         lambda: torch.zeros_like(ct).index_add(0, col_l,
                                                ct[row_l] * w[:nv, None]),
         (4 * (n + 1 + 2 * nv + 2 * n * d), 2 * nv * d),
-        lambda: torch.sparse.mm(csr_t, ct))]
+        lambda: torch.sparse.mm(csr_t, ct),
+        reference=lambda: torch.zeros_like(ct, dtype=torch.float64)
+        .index_add(0, col_l, ct[row_l].double() * w[:nv, None].double())
+        .float())]
+
+
+def check_head_sum(shape_name, g, d, h, seed, dev="cuda"):
+    """K1 in table mode as K11's dx (``column_head_sum``): the heads'
+    cotangents read as the [N*H, D/H] table and summed over the CSC view,
+    weighted by the attention u, against its plain version in float64; two
+    launches must be bit-identical, and ``column_head_sum`` must return the
+    launch's output bit for bit. The launch is timed on the arguments
+    ``column_head_sum`` builds, as the library call ``torch.sparse.mm`` of
+    the same [N, N*H] matrix is on its prebuilt CSR."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import csr_spmm, csr_spmm_plain
+    from graph_neural_pde_tpu_torch.kernels.dual_scatter import \
+        column_head_sum
+    dev = torch.device(dev)
+    g = g.to(dev)
+    n, nv = g.num_nodes, g.num_valid
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # positive attention, 0 on padding, as squareplus gives
+    u = (torch.rand((g.capacity, h), generator=gen, device=dev) + 0.05) \
+        * g.mask[:, None]
+    ct_num = torch.randn((n, d), generator=gen, device=dev)
+    # column_head_sum's launch, spelled out for the plain versions
+    heads = torch.arange(h, dtype=torch.int32, device=dev)
+    idx = (g.row_by_col[:, None] * h + heads).reshape(-1)
+    seg = g.col_by_col.repeat_interleave(h)
+    w = u[g.col_perm.long()].reshape(-1).contiguous()
+    table = ct_num.view(n * h, d // h)
+    csr = ((g.colptr * h).contiguous(), seg, idx, w)
+    mat = torch.sparse_csr_tensor(csr[0], idx[:nv * h], w[:nv * h],
+                                  size=(n, n * h))
+
+    def kern():
+        return csr_spmm(*csr, table, table=True)
+
+    if not torch.equal(kern(), kern()):
+        raise AssertionError(f"csr_spmm as K11's dx @ {shape_name}: two "
+                             f"launches differ")
+    if not torch.equal(column_head_sum(g, u, ct_num), kern()):
+        raise AssertionError(f"column_head_sum @ {shape_name}: not K1's "
+                             f"launch on the table")
+    print_lanes("csr_spmm", shape_name, d // h, table)
+    # reads the column pointer, per head and edge the table row and the
+    # weight, the table once, and writes [N, D/H]; 2 flop per edge, head
+    # and column of the table
+    return [time_case(
+        "csr_spmm", "table mode: K11's dx over CSC", shape_name,
+        f"N={n} E={nv} D={d} H={h} table width {d // h}", kern,
+        lambda: csr_spmm_plain(*csr, table),
+        (4 * (n + 1 + 2 * nv * h + n * d + n * (d // h)), 2 * nv * d),
+        lambda: torch.sparse.mm(mat, table),
+        reference=plain64(csr_spmm_plain, *csr, table))]
 
 
 def rhs_operands(g, d, att, h, score, seed, dev, feat=None):
@@ -2094,30 +2202,34 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
                 ("csr_spmm table mode bf16", "P6 scatter of a bf16 payload",
                  lambda: csr_spmm(*csr, vals, table=True),
                  lambda: csr_spmm_plain(*csr, vals),
-                 (4 * (n + 1 + n * d) + 2 * e * d, e * d), None),
+                 (4 * (n + 1 + n * d) + 2 * e * d, e * d), None,
+                 plain64(csr_spmm_plain, *csr, vals)),
                 ("row_gather bf16", "P6 gather bf16(table[row])",
                  lambda: row_gather(plan.rowptr, plan.row, table, e,
                                     out_dtype=bf),
                  lambda: row_gather_plain(plan.rowptr, plan.row, table, bf),
                  (4 * (n + 1 + n * d) + 2 * e * d, 0),
                  lambda: torch.index_select(table, 0,
-                                            plan.row.long()).to(bf)))
+                                            plan.row.long()).to(bf), None))
         else:
             cases = (
                 ("csr_spmm", "table mode: P6 scatter",
                  lambda: csr_spmm(*csr, vals, table=True),
                  lambda: csr_spmm_plain(*csr, vals),
                  (4 * (n + 1 + e * d + n * d), e * d),
-                 lambda: torch.segment_reduce(vals, "sum", lengths=lengths)),
+                 lambda: torch.segment_reduce(vals, "sum", lengths=lengths),
+                 plain64(csr_spmm_plain, *csr, vals)),
                 ("row_gather", "P6 gather table[row]",
                  lambda: row_gather(plan.rowptr, plan.row, table, e),
                  lambda: row_gather_plain(plan.rowptr, plan.row, table),
                  (4 * (n + 1 + n * d + e * d), 0),
-                 lambda: torch.index_select(table, 0, plan.row.long())))
+                 lambda: torch.index_select(table, 0, plan.row.long()),
+                 None))
         dims = f"rank {r} of {world} N={n} E={e} D={d}{' bf16' if bf16 else ''}"
-        for kname, what, kern, plain, work, library in cases:
+        print_lanes("csr_spmm", f"{shape_name} {dims}", d, vals)
+        for kname, what, kern, plain, work, library, ref in cases:
             rows.append(time_case(kname, what, shape_name, dims, kern, plain,
-                                  work, library))
+                                  work, library, reference=ref))
             if not torch.equal(kern(), kern()):
                 raise AssertionError(f"{kname} {what} @ {shape_name} {dims}: "
                                      f"two launches differ")
@@ -2155,6 +2267,7 @@ def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
         xt = x.to(torch.bfloat16) if state_bf16 else x
         csr = torch.sparse_csr_tensor(sg.rowptr, sg.col[:nv], w[:nv],
                                       size=(n, n))
+        print_lanes("csr_spmm", name, d, xt)
         rows.append(time_case(
             "csr_spmm bf16" if state_bf16 else "csr_spmm",
             "forward A_w x over an edge shard", name,
@@ -2163,7 +2276,9 @@ def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
             lambda: csr_spmm_plain(sg.rowptr, sg.row, sg.col, w, xt),
             (4 * (n + 1 + 2 * nv + n * d) + xt.element_size() * n * d,
              2 * nv * d),
-            lambda: csr @ x, timed=timed))
+            lambda: csr @ x, timed=timed,
+            reference=plain64(csr_spmm_plain, sg.rowptr, sg.row, sg.col, w,
+                              xt)))
         if column_sum:
             rows += check_column_sum(name, sg, d, seed + world + r, dev=dev)
         if att is not None:
@@ -3033,6 +3148,10 @@ def main() -> int:
                                    args.seed + 50, timed=False)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
                                    nl.heads, args.seed + 51)
+        # K1 in table mode as K11's dx at the Cora GRAND-nl widths (H=8:
+        # a table of width 10)
+        rows += check_head_sum("cora-standin", cora_g, nl.hidden_dim,
+                               nl.heads, args.seed + 53)
         # K10 and K11 on the bfloat16 column table: small (untimed), and
         # timed at the Cora GRAND-nl widths beside the float32 check above
         rows += check_dual_kernels("cora-small", cora_g, 16, 4,
@@ -3107,6 +3226,9 @@ def main() -> int:
                                     "scaled_dot", args.seed + 21)
         rows += check_dual_kernels("arxiv-scale", big, bench.hidden_dim,
                                    bench.heads, args.seed + 52)
+        # ... and at (f)'s (H=2: width 64)
+        rows += check_head_sum("arxiv-scale", big, bench.hidden_dim,
+                               bench.heads, args.seed + 54)
         rows += check_dual_kernels("arxiv-scale", big, bench.hidden_dim,
                                    bench.heads, args.seed + 222, table=bf16)
         rows += check_norm1_kernels("arxiv-scale", big, bench.hidden_dim,
@@ -3297,6 +3419,7 @@ def main() -> int:
         del big_dir
         torch.cuda.empty_cache()
 
+        print_slower_than_library(rows)
         phase_done("3 (kernels)")
         # 4. end to end on small inputs, card vs CPU
         check_small_end_to_end("Cora")

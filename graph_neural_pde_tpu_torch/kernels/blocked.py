@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
+from graph_neural_pde_tpu_torch.kernels.lanes import lanes
 from graph_neural_pde_tpu_torch.ops.plan import (BlockPlan, build_block_plan,
                                                  transpose_plan)
 
@@ -147,12 +148,11 @@ def _pow2_at_most(n: int, cap: int) -> int:
 
 def spmm_lanes(dim: int, address: int = 0):
     """K15's (lanes G, vector width V) for rows of ``dim`` floats in a
-    table at ``address``: V the widest of 4, 2, 1 floats that divides dim
-    and whose V * 4 bytes divide the address (16-byte loads where dim % 4
-    == 0), G the smallest power of two covering dim / V vectors, at most
-    32."""
-    vec = next(v for v in (4, 2, 1) if dim % v == 0 and address % (4 * v) == 0)
-    return min(32, 1 << max(dim // vec - 1, 0).bit_length()), vec
+    table at ``address`` (``kernels.lanes``): V the widest of 4, 2, 1
+    floats that divides dim and whose V * 4 bytes divide the address
+    (16-byte loads where dim % 4 == 0), G the smallest power of two
+    covering dim / V vectors, at most 32."""
+    return lanes("blocked_spmm", dim, (address, torch.float32))
 
 
 def blocked_spmm(lay: BlockedLayout, w: torch.Tensor,
@@ -165,11 +165,11 @@ def blocked_spmm(lay: BlockedLayout, w: torch.Tensor,
     if x.device.type != "cuda":
         raise NotImplementedError(f"blocked_spmm: no kernel for {x.device}")
     out = torch.empty_like(x)
-    lanes, vec = spmm_lanes(x.shape[1], x.data_ptr())
+    group, vec = spmm_lanes(x.shape[1], x.data_ptr())
     build.launch("blocked_spmm", x.device, lay.rowptr.data_ptr(),
                  lay.slot.data_ptr(), lay.col.data_ptr(), w.data_ptr(),
                  x.data_ptr(), out.data_ptr(), lay.num_nodes, x.shape[1],
-                 lanes, vec)
+                 group, vec)
     blocked_spmm.launches += 1
     return out
 

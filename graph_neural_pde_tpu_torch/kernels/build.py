@@ -35,12 +35,12 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # argument types of every C entry point (device pointers, ints, the stream
 # last); each returns its cudaGetLastError() code
 _ENTRY_POINTS = {
-    # rowptr, col, w, x, out, n_rows, dim, dtype of x (0 float32, 1
-    # bfloat16), stream
-    "gnpde_csr_spmm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
-    # row, col, a, b, out, n_edges, dim, dtype of b (0 float32, 1
-    # bfloat16), stream
-    "gnpde_edge_dot": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
+    # rowptr, col, w, x, out, n_rows, dim, lanes, vec (kernels/lanes.py),
+    # dtype of x (0 float32, 1 bfloat16), stream
+    "gnpde_csr_spmm": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    # row, col, a, b, out, n_valid, n_slots, dim, lanes, vec
+    # (kernels/lanes.py), dtype of b (0 float32, 1 bfloat16), stream
+    "gnpde_edge_dot": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     # segptr, perm (nullable), s, out, den, n_rows, heads, mode, stream
     "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
     # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream

@@ -4,7 +4,8 @@
 
 Replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
 ``_scatter_w_kernel`` / ``_stripe_scatter_w_call`` (see the source note in
-``csrc/csr_spmm.cu`` for what bounds it on the H100 and how it is laid out).
+``csrc/csr_spmm.cu`` for what bounds it on the H100 and how it is laid out;
+``kernels.lanes`` picks each row's group of lanes and its vector width).
 On a CUDA tensor the wrapper launches the hand-written kernel or raises; on
 a CPU tensor it runs :func:`csr_spmm_plain`, the plain PyTorch version that
 defines the kernel's semantics.
@@ -19,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
+from graph_neural_pde_tpu_torch.kernels.lanes import lanes
 
 # the table dtypes K1 and K2 read, and their codes at the C entry points
 TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,9 +85,10 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
         raise NotImplementedError(f"csr_spmm: no kernel for {x.device}")
     n, d = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    group, vec = lanes("csr_spmm", d, x)
     build.launch("csr_spmm", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
-                 TABLE_DTYPES[x.dtype])
+                 w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d, group,
+                 vec, TABLE_DTYPES[x.dtype])
     csr_spmm.launches += 1
     csr_spmm.table_launches += table
     csr_spmm.bf16_launches += x.dtype == torch.bfloat16

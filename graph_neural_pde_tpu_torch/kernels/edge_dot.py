@@ -6,7 +6,8 @@
 Replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
 ``_gather_kernel`` / ``_stripe_gather_call`` together with the elementwise
 dot ``graph_neural_pde_tpu/ops/spmm.py:129-133`` applies to its output (see
-the source note in ``csrc/edge_dot.cu``). On a CUDA tensor the wrapper
+the source note in ``csrc/edge_dot.cu``; ``kernels.lanes`` picks each
+edge's group of lanes and its vector width). On a CUDA tensor the wrapper
 launches the hand-written kernel or raises; on a CPU tensor it runs
 :func:`edge_dot_plain`. ``b`` is float32 or bfloat16 (the bf16 x[col]
 payload, whose weight gradient dots the float32 ``ct[row]`` with it); its
@@ -19,6 +20,7 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import TABLE_DTYPES
+from graph_neural_pde_tpu_torch.kernels.lanes import lanes
 
 
 def edge_dot_plain(row: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
@@ -65,10 +67,12 @@ def edge_dot(row: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
         return edge_dot_plain(row, col, a, b, n_valid)
     if a.device.type != "cuda":
         raise NotImplementedError(f"edge_dot: no kernel for {a.device}")
-    out = torch.zeros(row.shape, dtype=torch.float32, device=a.device)
+    # the kernel writes the padding slots' zeros itself
+    out = torch.empty(row.shape, dtype=torch.float32, device=a.device)
+    group, vec = lanes("edge_dot", a.shape[1], a, b)
     build.launch("edge_dot", a.device, row.data_ptr(), col.data_ptr(),
                  a.data_ptr(), b.data_ptr(), out.data_ptr(), n_valid,
-                 a.shape[1], TABLE_DTYPES[b.dtype])
+                 row.shape[0], a.shape[1], group, vec, TABLE_DTYPES[b.dtype])
     edge_dot.launches += 1
     edge_dot.bf16_launches += b.dtype == torch.bfloat16
     return out
