@@ -21,9 +21,9 @@ Phases, each of which must pass (any failure exits nonzero):
    printing the lane group and vector width ``kernels.lanes`` picks, K1 in
    table mode also as K11's dx (``column_head_sum``, timed on the Cora
    stand-in at H=8 and at arxiv scale at H=2), and after the kernel checks
-   one line for every timed shape at which K1 or K2 is slower than its
-   library call (``torch.sparse.mm``, ``sampled_addmm``; slow does not
-   fail, wrong does). K3
+   one line for every timed shape at which K1, K2, K10 or K11 is slower
+   than its library call (``torch.sparse.mm``, ``sampled_addmm``; slow
+   does not fail, wrong does). K3
    ``segment_norm`` (softmax and normalise, over rows and over columns
    through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
    rows and columns), on the prepared Computers stand-in at H=4 and the
@@ -54,11 +54,15 @@ Phases, each of which must pass (any failure exits nonzero):
    gmax = 0 must give den exactly 1.0 in every row and head: K7 scores
    each edge as K6 does, bit for bit.
    K10 ``dual_scatter`` and K11 ``dual_gather`` (K11
-   also against its plain version in float64), at a small shape, the Cora
-   stand-in at D=80, H=8 and the arxiv-scale graph at D=128, H=2, with a
-   float32 table and with the bfloat16 column table (the composed RHS's
-   bf16 payload; timed beside float32 in the same run); two launches of
-   each must be bit-identical. K12 ``norm1_den`` (the column
+   also against its plain version in float64), at a small shape (D=16,
+   H=4), the Cora stand-in at D=80, H=8 (also over the hub row of degree
+   360, which both cut into row pieces) and the arxiv-scale graph at
+   D=128, H=2, with a float32 table and with the bfloat16 column table (the
+   composed RHS's bf16 payload; timed beside float32 in the same run), the
+   float32 ones timed beside their library calls (K10: ``torch.sparse.mm``
+   of the [N*H, N] CSR by [x | 1]; K11: ``sampled_addmm`` for du plus
+   ``torch.sparse.mm`` of the transposed CSR for dx, each printed); two
+   launches of each must be bit-identical. K12 ``norm1_den`` (the column
    denominators, and the same sum weighted by the cotangent), K13
    ``norm1_fwd`` and K14 ``norm1_bwd`` (every output, against the plain
    version in float64), for all five score families on the Cora stand-in
@@ -192,12 +196,14 @@ Phases, each of which must pass (any failure exits nonzero):
    block. Where the logits of a check disagree, it reruns both sides and
    a float64 CPU run from the same weights and prints each one's distance
    from the others before it fails. Each check records its first forward
-   on each device (``ForwardRecorder``: the encoder's output, the frozen
-   attention, every solver stage's time, state and output, the prepared
-   graph's views); where the logits disagree it records the CPU model
-   object's forward again, prints where that and the card's first forward
-   part from the CPU's first (``compare_forwards``) and saves the three
-   under ``chiprun_out/``;
+   on each device (``ForwardRecorder``: the encoder's output, every call
+   of the frozen attention's CPU ops with its inputs and outputs, the
+   frozen attention, every solver stage's time, state and output, the
+   prepared graph's views); where the logits disagree it records the CPU
+   model object's forward again, prints where that and the card's first
+   forward part from the CPU's first (``compare_forwards``: the first
+   attention op whose call differs among them) and saves the three under
+   ``chiprun_out/`` of the working directory;
 5. main paths, each through ``graph_neural_pde_tpu_torch.run`` at full
    width, every kernel launch counter reset just before each run and read
    just after (the bfloat16 launches of K1, K2, K6, K7, K8, K9, K12, K13,
@@ -594,12 +600,15 @@ def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
     return rows
 
 
+LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "dual_scatter", "dual_gather")
+
+
 def print_slower_than_library(rows):
-    """One line for every timed shape at which K1 or K2 took longer than
-    its library call. A slow kernel does not fail the run: its times are
-    written down."""
+    """One line for every timed shape at which K1, K2, K10 or K11 took
+    longer than its library call. A slow kernel does not fail the run: its
+    times are written down."""
     slower = [r for r in rows
-              if r["kernel"].split()[0] in ("csr_spmm", "edge_dot")
+              if r["kernel"].split()[0] in LIBRARY_CHECKED
               and r.get("library_ms") is not None
               and r["ms"] > r["library_ms"]]
     for r in slower:
@@ -608,7 +617,7 @@ def print_slower_than_library(rows):
               f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)",
               flush=True)
     if not slower:
-        print("[slower than library] no timed shape of K1 or K2",
+        print("[slower than library] no timed shape of K1, K2, K10 or K11",
               flush=True)
 
 
@@ -1336,6 +1345,37 @@ def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
     return rows
 
 
+def dual_library(g, u, x, ct_num, ct_den):
+    """K10's and K11's functions as single PyTorch calls, used nowhere in
+    the port (the library yardstick; float32): K10 is ``torch.sparse.mm``
+    of the CSR [N*H, N] whose row n*H + h holds u[e, h] at col[e] for row
+    n's edges, times ``[x | 1]`` (columns 0..D-1 num in K10's layout,
+    column D den); K11's du is ``torch.sparse.sampled_addmm`` over the same
+    pattern carrying ct_den[row, h], of ct_num viewed [N*H, D] and x^T; its
+    dx ``torch.sparse.mm`` of that CSR's transpose by ct_num viewed [N*H,
+    D]. Returns the three calls (the CSRs built here, outside them)."""
+    import torch
+    n, nv, d = g.num_nodes, g.num_valid, x.shape[1]
+    h = u.shape[1]
+    r, c = g.row[:nv].long(), g.col[:nv].long()
+    heads = torch.arange(h, device=u.device)
+    rh = (r[:, None] * h + heads).reshape(-1)
+    cc = c[:, None].expand(nv, h).reshape(-1)
+
+    def csr(rows, cols, vals, size):
+        return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
+                                       size).coalesce().to_sparse_csr()
+
+    a = csr(rh, cc, u[:nv].reshape(-1), (n * h, n))
+    pattern = csr(rh, cc, ct_den[r].reshape(-1), (n * h, n))
+    a_t = csr(cc, rh, u[:nv].reshape(-1), (n, n * h))
+    x1 = torch.cat([x, torch.ones((n, 1), device=x.device)], 1)
+    ct_v, x_t = ct_num.view(n * h, d), x.t().contiguous()
+    return (lambda: torch.sparse.mm(a, x1),
+            lambda: torch.sparse.sampled_addmm(pattern, ct_v, x_t),
+            lambda: torch.sparse.mm(a_t, ct_v))
+
+
 def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda",
                        table=None):
     """K10 and K11 against their plain versions (K11 also against the plain
@@ -1346,7 +1386,11 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda",
     compares. ``table=torch.bfloat16``: both read x as the bfloat16 column
     table (the bf16 payload; u, the cotangents and the outputs float32),
     the plain versions the same table, K11's float64 reference its values
-    widened; their rows are named "<kernel> bf16"."""
+    widened; their rows are named "<kernel> bf16". The kernels walk the
+    graph's pieces as ``dual_scatter_add`` hands them over (K10
+    ``Graph.scatter_pieces``, K11 ``Graph.row_pieces``). Timed in float32,
+    each beside its library call (``dual_library``; K11's du and dx calls
+    summed, each printed)."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     from graph_neural_pde_tpu_torch.kernels.dual_scatter import \
@@ -1381,28 +1425,46 @@ def check_dual_kernels(shape_name, g, d, h, seed, timed=True, dev="cuda",
     gather_work = (4 * (n + 1 + 2 * nv + 2 * nv * h + n * d + n * h * d
                         + n * h) + xb, 4 * nv * h * d)
 
+    pieces = g.row_pieces
+
     def gather():
-        du, dx = K.dual_gather(*csr, g.rev, u, x, ct_num, ct_den)
+        du, dx = K.dual_gather(*csr, g.rev, u, x, ct_num, ct_den,
+                               pieces=pieces)
         if g.rev is None:
             if dx is not None:
                 raise AssertionError("dual_gather formed dx without rev")
             dx = column_head_sum(g, u, ct_num)
         return du, dx
 
+    library = (None, None)
+    if timed and table is None:
+        k10_lib, du_lib, dx_lib = dual_library(g, u, x, ct_num, ct_den)
+
+        def k11_lib():
+            return du_lib(), dx_lib()
+
+        library = (k10_lib, k11_lib)
+        parts = [device_ms(f, reps=TIMED_CALLS) for f in (du_lib, dx_lib)]
+        if None not in parts:
+            print(f"[kernels] dual_gather library @ {shape_name}: du "
+                  f"(sampled_addmm) {parts[0]:.4f} ms + dx (sparse.mm of "
+                  f"the transpose) {parts[1]:.4f} ms = "
+                  f"{parts[0] + parts[1]:.4f} ms", flush=True)
     cases = (
         ("dual_scatter" + tag, "num, den",
-         lambda: K.dual_scatter(*csr, u, x),
-         lambda: K.dual_scatter_plain(*csr, u, x), scatter_work, None),
+         lambda: K.dual_scatter(*csr, u, x, pieces=g.scatter_pieces),
+         lambda: K.dual_scatter_plain(*csr, u, x), scatter_work, None,
+         library[0]),
         ("dual_gather" + tag, "du, dx" if g.rev is not None
          else "du; dx by K1 over CSC", gather,
          lambda: K.dual_gather_plain(*csr, u, x, ct_num, ct_den),
-         gather_work, gather64),
+         gather_work, gather64, library[1]),
     )
     dims = f"N={n} E={nv} D={d} H={h}{tag}"
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
-                      reference=ref, timed=timed)
-            for kname, what, kern, plain, work, ref in cases]
-    for kname, _, kern, _, _, _ in cases:
+                      library=lib, reference=ref, timed=timed)
+            for kname, what, kern, plain, work, ref, lib in cases]
+    for kname, _, kern, _, _, _, _ in cases:
         first, again = kern(), kern()
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{kname} @ {shape_name}: two launches "
@@ -1639,29 +1701,60 @@ BF16_COLUMN_FLOOR = 1e-4
 BF16_STATE_STEP = 2.0 ** -8
 
 
+# the CPU ops of the frozen attention (models/attention.py's
+# frozen_mean_attention) that ForwardRecorder records, each by its module
+# and name: the projections, the scores of the gathered q[row] and k[col]
+# rows (inputs too), squareplus's global maximum and the segment
+# normalisation (K3's plain version on the CPU), in call order
+ATTENTION_OPS = (("attention", "query_key"), ("attention", "edge_scores"),
+                 ("scatter", "global_max"), ("scatter", "segment_normalize"))
+
+
 class ForwardRecorder:
     """Records what a model's forward computes on its way, while entered:
-    the encoder's output (the block's input), the frozen attention that
-    ``models.blocks.build_aux`` hands the solve, every right-hand-side
-    evaluation of the solver (its time, state and output, in the solver's
-    order: the stages of every trial step) and the block's output, each
-    copied to the host; and the prepared graph's views (every tensor
-    attribute of ``model.graph``) as they stand when the forward begins.
-    ``compare`` says where two recorded forwards first part."""
+    the encoder's output (the block's input), every call of the frozen
+    attention's ops (``ATTENTION_OPS``: each call's tensor inputs and
+    outputs), the frozen attention that ``models.blocks.build_aux`` hands
+    the solve, every right-hand-side evaluation of the solver (its time,
+    state and output, in the solver's order: the stages of every trial
+    step) and the block's output, each copied to the host; and the
+    prepared graph's views (every tensor attribute of ``model.graph``) as
+    they stand when the forward begins. ``compare_forwards`` says where
+    two recorded forwards first part."""
 
     def __init__(self, model):
         self.model = model
         self.record = None
 
     def __enter__(self):
-        from graph_neural_pde_tpu_torch.models import blocks, gnn
+        import torch
+        from graph_neural_pde_tpu_torch.models import attention, blocks, gnn
+        from graph_neural_pde_tpu_torch.ops import scatter
         rec = self.record = {"graph": graph_views(self.model.graph),
-                             "attention": [], "stages": []}
+                             "attention": [], "stages": [], "ops": []}
         self._saved = (blocks.build_aux, blocks.odeint, gnn.block_forward)
         build_aux, odeint, block_forward = self._saved
+        modules = {"attention": attention, "scatter": scatter}
+        self._ops = [(modules[m], name, getattr(modules[m], name))
+                     for m, name in ATTENTION_OPS]
 
         def host(t):
             return t.detach().to("cpu", copy=True)
+
+        def tensors(v):
+            if isinstance(v, (tuple, list)):
+                return [t for x in v for t in tensors(x)]
+            return [host(v)] if isinstance(v, torch.Tensor) else []
+
+        def recorded(name, fn):
+            def op(*a, **kw):
+                out = fn(*a, **kw)
+                rec["ops"].append((name, tensors(a), tensors(out)))
+                return out
+            return op
+
+        for mod, name, fn in self._ops:
+            setattr(mod, name, recorded(name, fn))
 
         def rec_build_aux(*a, **kw):
             aux, keep = build_aux(*a, **kw)
@@ -1689,6 +1782,8 @@ class ForwardRecorder:
     def __exit__(self, *exc):
         from graph_neural_pde_tpu_torch.models import blocks, gnn
         blocks.build_aux, blocks.odeint, gnn.block_forward = self._saved
+        for mod, name, fn in self._ops:
+            setattr(mod, name, fn)
         return False
 
 
@@ -1733,6 +1828,20 @@ def compare_forwards(label: str, a: dict, b: dict, names=("a", "b")):
     for k in ("block_in", "block_out"):
         if k in a and k in b:
             lines.append(f"{k}: {gap(a[k], b[k]) or 'bit-identical'}")
+    oa, ob = a.get("ops", []), b.get("ops", [])
+    lines.append(f"attention ops: {len(oa)} vs {len(ob)} calls")
+    for i, ((na, ia, ra), (nb, ib, rb)) in enumerate(zip(oa, ob)):
+        gi = [gap(x, y) for x, y in zip(ia, ib)]
+        go = [gap(x, y) for x, y in zip(ra, rb)]
+        if na != nb or any(gi) or any(go):
+            lines.append(f"first attention op that differs: call {i} "
+                         f"{na} vs {nb}: inputs "
+                         f"{[g_ or '=' for g_ in gi]}, outputs "
+                         f"{[g_ or '=' for g_ in go]}")
+            break
+    else:
+        if oa:
+            lines.append("every attention op call bit-identical")
     for i, (x, y) in enumerate(zip(a["attention"], b["attention"])):
         lines.append(f"frozen attention {i}: {gap(x, y) or 'bit-identical'}")
     sa, sb = a["stages"], b["stages"]
@@ -3144,10 +3253,14 @@ def main() -> int:
             rows += check_aggregate_kernels(
                 "bench-oracle", oracle_graph(0), 128, 64, 2, "scaled_dot",
                 args.seed + 210 + row_b16, payload=bf16, row_bf16=row_b16)
-        rows += check_dual_kernels("cora-small", cora_g, 16, 4,
-                                   args.seed + 50, timed=False)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
                                    nl.heads, args.seed + 51)
+        rows += check_dual_kernels("cora-small", cora_g, 16, 4,
+                                   args.seed + 50)
+        # ... over the hub row of degree 360, which the kernels cut into
+        # row pieces and merge
+        rows += check_dual_kernels("cora-hub", cora_hub, nl.hidden_dim,
+                                   nl.heads, args.seed + 55)
         # K1 in table mode as K11's dx at the Cora GRAND-nl widths (H=8:
         # a table of width 10)
         rows += check_head_sum("cora-standin", cora_g, nl.hidden_dim,
@@ -3819,7 +3932,7 @@ def main() -> int:
                ROWS: ("fused_bwd_rows.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_sym": ("fused_rhs.cu", "fused_rhs.py:1341"),
                "dual_scatter": ("dual_scatter.cu", "stripe.py:599"),
-               "dual_gather": ("dual_scatter.cu", "stripe.py:655"),
+               "dual_gather": ("dual_gather.cu", "stripe.py:655"),
                "norm1_den": ("norm1_den.cu", "fused_rhs.py:2070"),
                "norm1_fwd": ("norm1.cu", "fused_rhs.py:2189"),
                "norm1_bwd": ("norm1.cu", "fused_rhs.py:2297"),
@@ -3854,7 +3967,7 @@ def main() -> int:
                "fused_rhs_bwd_heads bf16": ("fused_payload.cu",
                                             "fused_rhs.py:742"),
                "dual_scatter bf16": ("dual_scatter.cu", "stripe.py:599"),
-               "dual_gather bf16": ("dual_scatter.cu", "stripe.py:655"),
+               "dual_gather bf16": ("dual_gather.cu", "stripe.py:655"),
                TABLE_BF16: ("csr_spmm.cu", "stripe.py:746"),
                "row_gather bf16": ("row_gather.cu", "stripe.py:767")}
     summary = []

@@ -276,7 +276,8 @@ def verify_kernels_on_device(device="cuda") -> None:
     tab = rng.normal(size=(n, d))
     u = np.abs(rng.normal(size=(cap, heads)))
     u[e:] = 0.0
-    num, den = dual_scatter(g.rowptr, g.row, g.col, dev_t(u), dev_t(tab))
+    num, den = dual_scatter(g.rowptr, g.row, g.col, dev_t(u), dev_t(tab),
+                            pieces=g.scatter_pieces)
     wn = np.zeros((n, heads * d))
     for h in range(heads):
         np.add.at(wn[:, h * d:(h + 1) * d], row, u[:e, h, None] * tab[col])

@@ -61,6 +61,7 @@ namespace {
 using gnpde_rows::kRawRegs;
 using gnpde_rows::load;
 using gnpde_rows::Raw;
+using gnpde_rows::store;
 using gnpde_rows::widen;
 
 // The edges whose x rows a lane loads before it adds their products, at
@@ -77,22 +78,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxVecsPerLane = 4;  // a pass covers G * V * 4 features
 constexpr int kBatch = GNPDE_CSR_BATCH;
 constexpr int kBatchRegs = GNPDE_CSR_BATCH_REGS;
-
-// V float32 sums to out row o at vector index v (out is the wrapper's own
-// allocation: every row starts on a V-float boundary when V divides D).
-template <int V>
-__device__ __forceinline__ void store(float* o, int v, const float (&a)[V]) {
-  if constexpr (V == 1) {
-    o[v] = a[0];
-  } else if constexpr (V == 2) {
-    reinterpret_cast<float2*>(o)[v] = make_float2(a[0], a[1]);
-  } else {
-    float4* q = reinterpret_cast<float4*>(o) + v * (V / 4);
-#pragma unroll
-    for (int i = 0; i < V / 4; ++i)
-      q[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
-  }
-}
 
 // One group of G lanes per row; each lane sums K vectors of V features a
 // pass (vectors v0 + lane + G k). A round stages P = G * R (col, w) pairs,

@@ -1,5 +1,6 @@
-// Rows of a node table read as vectors: the loads K1 csr_spmm
-// (csr_spmm.cu) and K2 edge_dot (edge_dot.cu) share. A vector is V
+// Rows of a node table read as vectors: the loads and stores K1 csr_spmm
+// (csr_spmm.cu), K2 edge_dot (edge_dot.cu), K10 dual_scatter and K11
+// dual_gather (dual_scatter.cu) share. A vector is V
 // elements of a float32 or bfloat16 row, loaded in one instruction of V *
 // sizeof(T) bytes (the row and the table lie on that boundary; the
 // wrappers pick V with kernels/lanes.py) and widened to float32 where it
@@ -72,6 +73,36 @@ __device__ __forceinline__ void widen(uint4 b, float* o) {
   widen(b.y, o + 2);
   widen(b.z, o + 4);
   widen(b.w, o + 6);
+}
+
+// V float32 sums to row o at vector index v (o lies on a V-float
+// boundary, or on a 16-byte one for V = 8).
+template <int V>
+__device__ __forceinline__ void store(float* o, int v, const float (&a)[V]) {
+  if constexpr (V == 1) {
+    o[v] = a[0];
+  } else if constexpr (V == 2) {
+    reinterpret_cast<float2*>(o)[v] = make_float2(a[0], a[1]);
+  } else {
+    float4* q = reinterpret_cast<float4*>(o) + v * (V / 4);
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      q[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+  }
+}
+
+// V float32s of row r at vector index v, as store lays them (V / 4
+// 16-byte loads for V = 8), through the read-only data cache.
+template <int V>
+__device__ __forceinline__ void load_floats(const float* r, int v,
+                                            float (&a)[V]) {
+  if constexpr (V <= 4) {
+    widen(load<float, V>(r, v), a);
+  } else {
+    const float4* q = reinterpret_cast<const float4*>(r) + v * (V / 4);
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) widen(__ldg(q + i), a + 4 * i);
+  }
 }
 
 }  // namespace gnpde_rows

@@ -81,13 +81,17 @@ _ENTRY_POINTS = {
     # heads, flags, reduce_blocks, vec (dim % 4 == 0 and the D-wide rows
     # 16-byte aligned), tables, stream
     "gnpde_fused_rhs_bwd_sym": [_PTR] * 26 + [_INT] * 10 + [_PTR],
-    # rowptr, col, u, x, num, den, n_rows, dim, heads, dtype of x (0
-    # float32, 1 bfloat16), stream
-    "gnpde_dual_scatter": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    # rowptr, col, rev, u, x, ct_num, ct_den, du, dx (rev and dx nullable
-    # together), n_rows, dim, heads, dtype of x (0 float32, 1 bfloat16),
-    # stream
-    "gnpde_dual_gather": [_PTR] * 9 + [_INT] * 4 + [_PTR],
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces), col, u, x, num, den, part (nullable without multi-piece
+    # rows), n_rows, n_pieces, n_multi, dim, heads, lanes, vec
+    # (kernels/lanes.py), dtype of x (0 float32, 1 bfloat16), stream
+    "gnpde_dual_scatter": [_PTR] * 11 + [_INT] * 8 + [_PTR],
+    # the rows' pieces as above, col, rev, u, x, ct_num, ct_den, du, dx,
+    # part (rev and dx nullable together; part nullable without dx or
+    # without multi-piece rows), n_rows, n_pieces, n_multi, n_slots (du's
+    # rows), dim, heads, lanes, vec (the du walk's), dx_lanes, dx_vec (the
+    # dx walk's), dtype of x, stream
+    "gnpde_dual_gather": [_PTR] * 14 + [_INT] * 11 + [_PTR],
     # piece_ptr, piece_col, piece_slot, multi_col, multi_ptr (the CSC
     # view's column pieces), row_by_col, x, xcol, qw, qb, kw, kb, gmax, var,
     # ls (the last two nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab,

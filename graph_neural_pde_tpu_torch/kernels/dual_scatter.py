@@ -17,9 +17,12 @@ masked edges) over a row-sorted graph and ``x`` [N, D] the node state:
 K10 replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
 ``_scatter2_kernel`` / ``_stripe_scatter2_call``, K11 its gradient
 ``_gather2_kernel`` / ``_stripe_gather2_call`` with the products XLA forms
-around them (see the source note in ``csrc/dual_scatter.cu``). On a CUDA
-tensor a wrapper launches its kernel or raises; on a CPU tensor it runs the
-plain PyTorch version beside it, which defines the semantics.
+around them (see the source note in ``csrc/dual_scatter.cu``). Both walk
+the rows cut into pieces (K10 ``Graph.scatter_pieces``, K11
+``Graph.row_pieces``) on groups of lanes sized by the row width
+(``kernels.lanes``). On a CUDA tensor a wrapper launches
+its kernel or raises; on a CPU tensor it runs the plain PyTorch version
+beside it, which defines the semantics.
 :func:`dual_scatter_add` is the differentiable op the models call.
 
 The table ``x`` is float32 or bfloat16 (the JAX package's bf16 payload,
@@ -36,10 +39,11 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import TABLE_DTYPES, csr_spmm
+from graph_neural_pde_tpu_torch.kernels.fused_rhs import _row_pieces
+from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+from graph_neural_pde_tpu_torch.ops.graph import SCATTER_WHOLE, ColPieces
 
 MAX_DIM, MAX_HEADS = 256, 32
-MAX_SHARED_BYTES = 227 * 1024
-GATHER_WARPS_PER_BLOCK = 4
 
 
 def _edges(rowptr, row, col):
@@ -134,24 +138,48 @@ def _check(name, rowptr, row, col, u, x, extra=(), rev=None):
         raise NotImplementedError(f"{name}: no kernel for {dev}")
 
 
+def _piece_ptrs(pc: ColPieces):
+    return (pc.ptr.data_ptr(), pc.col.data_ptr(), pc.slot.data_ptr(),
+            pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr())
+
+
+def scatter_part_floats(d: int, h: int) -> int:
+    """The floats of one partial row of K10 (H*D num, then H den), rounded
+    up to 16 bytes (``csrc/dual_scatter.cu``, ``scatter_part_stride``)."""
+    return -(-h * (d + 1) // 4) * 4
+
+
 def dual_scatter(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
-                 u: torch.Tensor, x: torch.Tensor
+                 u: torch.Tensor, x: torch.Tensor,
+                 pieces: Optional[ColPieces] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10: ``(num [N, H*D], den [N, H])`` over a row-sorted graph whose
     valid edges are the prefix ``[0, rowptr[-1])``; ``u`` is [E_pad, H].
-    ``row`` is only read by the plain version. ``x`` float32 or bfloat16;
-    the outputs are float32. Not differentiable by itself (see
-    :func:`dual_scatter_add`)."""
+    ``row`` is only read by the plain version. ``pieces``: the rows longer
+    than ``SCATTER_WHOLE`` edges cut into pieces of ``COL_PIECE``, the
+    rest whole (``Graph.scatter_pieces``), which the kernel's lane groups
+    walk; built from ``rowptr`` when None.
+    ``x`` float32 or bfloat16; the outputs are float32. Every sum has a
+    fixed order: two calls agree bit for bit. Not differentiable by itself
+    (see :func:`dual_scatter_add`)."""
     _check("dual_scatter", rowptr, row, col, u, x)
     if x.device.type == "cpu":
         return dual_scatter_plain(rowptr, row, col, u, x)
     n, d = x.shape
     h = u.shape[1]
-    num = torch.empty((n, h * d), dtype=torch.float32, device=x.device)
-    den = torch.empty((n, h), dtype=torch.float32, device=x.device)
-    build.launch("dual_scatter", x.device, rowptr.data_ptr(), col.data_ptr(),
+    dev = x.device
+    pc = _row_pieces(dual_scatter, rowptr, pieces, n, dev, SCATTER_WHOLE)
+    num = torch.empty((n, h * d), dtype=torch.float32, device=dev)
+    den = torch.empty((n, h), dtype=torch.float32, device=dev)
+    # scratch: the pieces' partial sums of the rows of several pieces
+    part = (torch.empty((pc.n_slots, scatter_part_floats(d, h)),
+                        dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
+    group, vec = lanes("dual_scatter", d, x, heads=h)
+    build.launch("dual_scatter", dev, *_piece_ptrs(pc), col.data_ptr(),
                  u.data_ptr(), x.data_ptr(), num.data_ptr(), den.data_ptr(),
-                 n, d, h, TABLE_DTYPES[x.dtype])
+                 _ptr(part), n, pc.n_pieces, pc.n_multi, d, h, group, vec,
+                 TABLE_DTYPES[x.dtype])
     dual_scatter.launches += 1
     dual_scatter.bf16_launches += x.dtype == torch.bfloat16
     return num, den
@@ -159,15 +187,20 @@ def dual_scatter(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
 
 def dual_gather(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
                 rev: Optional[torch.Tensor], u: torch.Tensor, x: torch.Tensor,
-                ct_num: torch.Tensor, ct_den: torch.Tensor
+                ct_num: torch.Tensor, ct_den: torch.Tensor,
+                pieces: Optional[ColPieces] = None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K11: ``(du [E_pad, H], dx [N, D])``, the gradient of K10 given its
-    outputs' cotangents, with ``dx`` reached through the reverse-edge map
+    outputs' cotangents (two walks behind one launch call: du, then dx on
+    a symmetric graph), with ``dx`` reached through the reverse-edge map
     ``rev`` (``Graph.rev``) of a SYMMETRIC edge multiset. With ``rev=None``
     (a directed graph) it returns ``(du, None)``: see
     :func:`column_head_sum` for that ``dx``. ``row`` is only read by the
-    plain version. ``x`` float32 or bfloat16; ``du`` and ``dx`` are
-    float32."""
+    plain version; ``pieces``: the rows cut into pieces of at most
+    ``COL_PIECE`` edges (``Graph.row_pieces``), built from ``rowptr`` when
+    None. ``x``
+    float32 or bfloat16; ``du`` and ``dx`` are float32, ``du`` 0 on the
+    padding slots (the kernel writes them)."""
     n, d = x.shape
     h = u.shape[1]
     _check("dual_gather", rowptr, row, col, u, x,
@@ -175,18 +208,22 @@ def dual_gather(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
     if x.device.type == "cpu":
         return dual_gather_plain(rowptr, row, col, u, x, ct_num, ct_den,
                                  want_dx=rev is not None)
-    if 4 * GATHER_WARPS_PER_BLOCK * h * d > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"dual_gather: heads {h} x state width {d} needs "
-            f"{4 * GATHER_WARPS_PER_BLOCK * h * d} bytes of shared memory, "
-            f"more than a block's {MAX_SHARED_BYTES}")
-    du = torch.zeros_like(u)                   # padding slots stay 0
+    dev = x.device
+    pc = _row_pieces(dual_gather, rowptr, pieces, n, dev)
+    du = torch.empty_like(u)                   # the kernel writes every slot
     dx = None if rev is None else torch.empty((n, d), dtype=torch.float32,
-                                              device=x.device)
-    build.launch("dual_gather", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 _ptr(rev), u.data_ptr(), x.data_ptr(),
-                 ct_num.data_ptr(), ct_den.data_ptr(), du.data_ptr(),
-                 _ptr(dx), n, d, h, TABLE_DTYPES[x.dtype])
+                                              device=dev)
+    # scratch: the partial rows of dx of the rows of several pieces
+    part = (torch.empty((pc.n_slots, d), dtype=torch.float32, device=dev)
+            if pc.n_multi and rev is not None else None)
+    # the du walk's lanes read x beside ct_num, the dx walk's ct_num alone
+    group, vec = lanes("dual_gather", d, x, ct_num)
+    dx_group, dx_vec = lanes("dual_gather", d, ct_num)
+    build.launch("dual_gather", dev, *_piece_ptrs(pc), col.data_ptr(),
+                 _ptr(rev), u.data_ptr(), x.data_ptr(), ct_num.data_ptr(),
+                 ct_den.data_ptr(), du.data_ptr(), _ptr(dx), _ptr(part), n,
+                 pc.n_pieces, pc.n_multi, u.shape[0], d, h, group, vec,
+                 dx_group, dx_vec, TABLE_DTYPES[x.dtype])
     dual_gather.launches += 1
     dual_gather.bf16_launches += x.dtype == torch.bfloat16
     return du, dx
@@ -217,6 +254,10 @@ dual_scatter.launches = 0
 dual_gather.launches = 0
 dual_scatter.bf16_launches = 0  # the launches on a bfloat16 table, among them
 dual_gather.bf16_launches = 0
+# the calls that built the row pieces from rowptr because none were handed
+# over
+dual_scatter.piece_builds = 0
+dual_gather.piece_builds = 0
 
 
 class _DualScatter(torch.autograd.Function):
@@ -230,7 +271,8 @@ class _DualScatter(torch.autograd.Function):
         table = x if payload is None else x.to(payload).contiguous()
         ctx.save_for_backward(u, table)
         ctx.g, ctx.x_dtype = g, x.dtype
-        return dual_scatter(g.rowptr, g.row, g.col, u, table)
+        return dual_scatter(g.rowptr, g.row, g.col, u, table,
+                            pieces=g.scatter_pieces)
 
     @staticmethod
     def backward(ctx, ct_num, ct_den):
@@ -238,7 +280,7 @@ class _DualScatter(torch.autograd.Function):
         g = ctx.g
         ct_num = ct_num.contiguous()
         du, dx = dual_gather(g.rowptr, g.row, g.col, g.rev, u, table, ct_num,
-                             ct_den.contiguous())
+                             ct_den.contiguous(), pieces=g.row_pieces)
         if dx is None:
             dx = column_head_sum(g, u, ct_num)
         return du, dx.to(ctx.x_dtype), None, None

@@ -588,14 +588,15 @@ def _flags(score: str, square_plus: bool) -> int:
     return SCORES[score] | (8 if square_plus else 0)
 
 
-def _row_pieces(fn, rowptr, pieces: Optional[ColPieces], n: int, dev):
+def _row_pieces(fn, rowptr, pieces: Optional[ColPieces], n: int, dev,
+                whole: int = 0):
     """The row pieces a walk over rows takes on CUDA tensors (K6, K8
-    without dxg, K9, K12-K14): the graph's own (``Graph.row_pieces``,
-    which every model path hands over), or, when None,
-    ``column_pieces(rowptr)`` built here, a copy to the host that the
-    wrapper ``fn`` counts (``fn.piece_builds``)."""
+    without dxg, K9-K14): the graph's own (``Graph.row_pieces``, K10's
+    ``Graph.scatter_pieces``, which every model path hands over), or, when
+    None, ``column_pieces(rowptr, whole=whole)`` built here, a copy to the
+    host that the wrapper ``fn`` counts (``fn.piece_builds``)."""
     if pieces is None:
-        pieces = column_pieces(rowptr)
+        pieces = column_pieces(rowptr, whole=whole)
         fn.piece_builds += 1
     if pieces.ptr.device != dev or pieces.n_pieces < n:
         raise ValueError(f"{fn.__name__}: the row pieces must be those of "

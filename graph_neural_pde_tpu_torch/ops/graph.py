@@ -29,6 +29,10 @@ sorted by row (``sort_by_row``) the valid edges form the prefix
   ``rowptr``), which the fused RHS's row walks (K6, K9, K13, K14) spread
   over warps. On a symmetric edge multiset ``colptr`` is ``rowptr`` and
   the two are equal; on a directed graph they differ.
+* ``scatter_pieces`` — the CSR rows longer than ``SCATTER_WHOLE`` edges
+  cut into pieces of ``COL_PIECE``, the rest whole, which K10
+  ``dual_scatter`` walks: its partial rows are H * D floats, so only rows
+  longer than that are cut.
 
 All of it is built on the host once, when the graph is prepared.
 
@@ -49,6 +53,12 @@ import torch
 # 32 measured faster than 64 on a kNN graph's hub columns and no slower
 # elsewhere (PERF.md, section 6)
 COL_PIECE = 32
+# K10's walk takes rows of up to these edges whole and cuts longer ones
+# into pieces of COL_PIECE: on the GDC-rewired Cora stand-in (rows of 64
+# edges on average) whole rows took 0.0425 ms against 0.0508 in pieces of
+# 32, while a hub row of 360 edges took 0.0891 whole, 0.0348 in pieces of
+# 128 and 0.0131 in pieces of 32 (PERF.md, section 6)
+SCATTER_WHOLE = 128
 
 
 def _round_up(x: int, m: int) -> int:
@@ -91,12 +101,13 @@ class ColPieces:
             if isinstance(getattr(self, f.name), torch.Tensor)})
 
 
-def column_pieces(colptr, piece: int = COL_PIECE, device=None) -> ColPieces:
+def column_pieces(colptr, piece: int = COL_PIECE, device=None,
+                  whole: int = 0) -> ColPieces:
     """Cut every column of a CSC view (``colptr`` [N + 1], numpy or a
     tensor) into pieces of at most ``piece`` edges: column n of degree d
-    gets max(1, ceil(d / piece)) pieces, in column order, so the pieces
-    cover the edges [0, colptr[N]) once and in order. Host-built, on
-    ``device`` (colptr's by default)."""
+    gets max(1, ceil(d / piece)) pieces (one where d <= ``whole``), in
+    column order, so the pieces cover the edges [0, colptr[N]) once and in
+    order. Host-built, on ``device`` (colptr's by default)."""
     if piece < 1:
         raise ValueError(f"column_pieces: piece {piece} < 1")
     if device is None:
@@ -105,7 +116,7 @@ def column_pieces(colptr, piece: int = COL_PIECE, device=None) -> ColPieces:
         colptr = colptr.cpu().numpy()
     colptr = np.asarray(colptr, np.int64)
     deg = np.diff(colptr)
-    count = np.maximum(1, -(-deg // piece))
+    count = np.where(deg <= whole, 1, np.maximum(1, -(-deg // piece)))
     first = np.cumsum(count) - count                   # a column's 1st piece
     col = np.repeat(np.arange(deg.shape[0]), count)
     j = np.arange(col.shape[0]) - first[col]           # index in its column
@@ -139,6 +150,7 @@ class Graph:
                graphs; see the module docstring)
     col_pieces : the CSC view's column pieces (:class:`ColPieces`)
     row_pieces : the CSR rows' pieces (:class:`ColPieces` of ``rowptr``)
+    scatter_pieces : the same, rows of up to ``SCATTER_WHOLE`` edges whole
     masked   : True when ``mask`` drops edges INSIDE the row-sorted valid
                prefix (hard attention's re-masked graph, ``with_mask``);
                ``rowptr``, ``rev`` and the CSC view still describe the
@@ -160,6 +172,7 @@ class Graph:
     col_by_col: Optional[torch.Tensor] = None
     col_pieces: Optional[ColPieces] = None
     row_pieces: Optional[ColPieces] = None
+    scatter_pieces: Optional[ColPieces] = None
     sorted_valid: Optional[int] = None   # host copy of rowptr[-1]
     masked: bool = False
 
@@ -224,6 +237,8 @@ class Graph:
                      col_by_col=dev(col_np[col_perm]),
                      col_pieces=column_pieces(colptr, device=row.device),
                      row_pieces=column_pieces(rowptr, device=row.device),
+                     scatter_pieces=column_pieces(rowptr, device=row.device,
+                                                  whole=SCATTER_WHOLE),
                      sorted_valid=nv)
 
 

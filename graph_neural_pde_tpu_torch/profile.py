@@ -55,14 +55,18 @@ PHASES = ("train_step", "eval_step", "early_stop_eval")
 # dxg, fused_rhs_bwd_rows_kernel, is listed apart from K8 with dxg
 KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS) + (
     "fused_rhs_bwd_rows",)
-# a wrapper's second pass: its time counts to the wrapper, its launches not
+# a wrapper's second pass (or passes): its time counts to the wrapper, its
+# launches not
 SECOND_PASSES = {"fused_rhs_bwd_col": "fused_rhs_bwd_col_merge_kernel",
                  "fused_rhs_fwd": "fused_rhs_fwd_merge_kernel",
                  "fused_rhs_bwd_rows": "fused_rhs_bwd_rows_merge_kernel",
                  "fused_rhs_bwd_sym": "fused_rhs_bwd_sym_merge_kernel",
                  "norm1_den": "norm1_den_merge_kernel",
                  "norm1_fwd": "norm1_fwd_merge_kernel",
-                 "norm1_bwd": "norm1_bwd_merge_kernel"}
+                 "norm1_bwd": "norm1_bwd_merge_kernel",
+                 "dual_scatter": "dual_scatter_merge_kernel",
+                 "dual_gather": ("dual_gather_dx_kernel",
+                                 "dual_gather_merge_kernel")}
 # PyTorch's gather (x[index]) and its backward (index_put with accumulate:
 # a radix sort of the indices, then a segmented sum)
 INDEX_KERNELS = ("index_elementwise_kernel", "vectorized_gather_kernel",
@@ -146,9 +150,11 @@ def summarise(phase_s, prof, epochs: int) -> dict:
         needle = f"{label}_kernel"
         hits = [(n, c, t) for n, (c, t) in by_name.items() if needle in n]
         launches = sum(c for _, c, _ in hits)
-        second = SECOND_PASSES.get(label)
+        second = SECOND_PASSES.get(label, ())
+        second = (second,) if isinstance(second, str) else second
         total = sum(t for _, _, t in hits) + sum(
-            t for n, (_, t) in by_name.items() if second and second in n)
+            t for n, (_, t) in by_name.items()
+            if any(s in n for s in second))
         ours[label] = {"launches_per_epoch": launches / epochs,
                        "device_us_per_launch": total / max(launches, 1),
                        "device_ms_per_epoch": total / epochs / 1e3}
