@@ -11,7 +11,21 @@ Phases, each of which must pass (any failure exits nonzero):
    csrc`` (nvcc, sm_90a) and prints the build time;
 3. kernels against their plain PyTorch versions, on the card, at max error
    <= 1e-5 of the largest reference entry (float32; the sums only run in
-   another order). K1 ``csr_spmm`` forward, K1 as the backward ``dx``
+   another order). First the two dense products every fused kernel runs
+   (``kernels.dense``, ``csrc/dense.cuh``), against their plain versions
+   evaluated in float64 on the same inputs: the node projections
+   ``node_project`` (both tables) in the three TABLES modes (float32; a
+   float32 x beside the bfloat16 column table; both bfloat16), the
+   bfloat16 k table bit for bit, at arxiv scale (169,343 nodes) at (a)'s
+   widths D=128, ATT=32 and at BLEND's ATT=2 x 32, and at Cora's 2,708
+   nodes at D=80, ATT=128 and kNN Cora BLEND's D=64+32, ATT=2 x 128
+   (beside two ``torch.addmm`` calls); the dKw / dKb reduction
+   ``outer_reduce`` over the nodes at the same widths (a bfloat16 table
+   too at arxiv scale; beside ``torch.mm(x.T, dk)`` and ``dk.sum(0)``),
+   over the bench oracle's payload rows (K8's per-head form) and, with
+   the directed graphs below, over the arxiv-scale directed graph's slots
+   gathered through its column index (K8 with dxg's form); two launches
+   of each bit-identical. K1 ``csr_spmm`` forward, K1 as the backward ``dx``
    (weights permuted to the reverse edges, against A^T ct by index_add over
    columns) and K2 ``edge_dot`` as ``dw``, at two shapes: the prepared Cora
    stand-in at D=80 and an arxiv-scale symmetric random graph (169,343
@@ -21,9 +35,10 @@ Phases, each of which must pass (any failure exits nonzero):
    printing the lane group and vector width ``kernels.lanes`` picks, K1 in
    table mode also as K11's dx (``column_head_sum``, timed on the Cora
    stand-in at H=8 and at arxiv scale at H=2), and after the kernel checks
-   one line for every timed shape at which K1, K2, K10 or K11 is slower
-   than its library call (``torch.sparse.mm``, ``sampled_addmm``; slow
-   does not fail, wrong does). K3
+   one line for every timed shape at which K1, K2, K10, K11, the node
+   projections or the dKw reduction is slower than its library call
+   (``torch.sparse.mm``, ``sampled_addmm``, ``torch.addmm``, ``torch.mm``;
+   slow does not fail, wrong does). K3
    ``segment_norm`` (softmax and normalise, over rows and over columns
    through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
    rows and columns), on the prepared Computers stand-in at H=4 and the
@@ -309,7 +324,9 @@ Phases, each of which must pass (any failure exits nonzero):
    (K8 with and without dxg apart), and the nineteen of the bfloat16
    launches (K1, K2, K6, K6 shifted, K7, K8 with and without dxg, K9,
    K10, K11, K12, K13, K14, K17, K18, K19, K8's per-head mode, K20 and K1
-   in table mode), must grow; no run may have built row pieces on the fly
+   in table mode), must grow, and so must those of the node projections
+   and the dKw reduction, which every fused kernel's launch runs (on (a),
+   (q), (r), (s) and (v) each); no run may have built row pieces on the fly
    (the walks of K6, K8 without dxg, K9 and K12-K14 take the graph's own
    ``Graph.row_pieces``: their ``piece_builds`` stay 0). The paths
    (a)-(s) run ``GRAND_NL_BENCH``'s architecture in float32, as before the
@@ -600,13 +617,110 @@ def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
     return rows
 
 
-LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "dual_scatter", "dual_gather")
+def check_dense_kernels(shape_name, n, d, att, seed, modes=(0, 1, 2),
+                        reduce_bf16=False, dev="cuda"):
+    """The node projections (``kernels.dense.node_project``) in the TABLES
+    ``modes`` (0 float32; 1 a float32 x beside the bfloat16 column table;
+    2 both bfloat16) and the reduction ``outer_reduce`` over the N nodes
+    (K9, K14, K17's form; also over a bfloat16 table with
+    ``reduce_bf16``), each against its plain version evaluated in float64
+    on the same inputs (1e-5 of scale), the bfloat16 k table bit for bit,
+    two launches bit-identical. Library calls: two ``torch.addmm`` for the
+    float32 tables, ``torch.mm(x.T, dk)`` and ``dk.sum(0)`` for the
+    reduction over a float32 table."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.dense import (
+        bf16_round, node_project, node_tables_plain, outer_reduce)
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x32 = torch.randn((n, d), generator=gen, device=dev)
+    qw, kw = (torch.randn((d, att), generator=gen, device=dev) / math.sqrt(d)
+              for _ in range(2))
+    qb, kb = (0.1 * torch.randn((att,), generator=gen, device=dev)
+              for _ in range(2))
+    bf = torch.bfloat16
+    rows = []
+    for mode in modes:
+        x = x32 if mode < 2 else x32.to(bf)
+        xcol = None if mode == 0 else x32.to(bf)
+        k_w, k_b = (kw, kb) if mode == 0 else (bf16_round(kw), bf16_round(kb))
+        want = node_tables_plain(x.double(), xcol, qw.double(), qb.double(),
+                                 k_w.double(), k_b.double())
+        got = node_project(x, qw, qb, kw, kb, xcol=xcol)
+        if mode and not torch.equal(got[1], want[1]):
+            raise AssertionError(f"node_project @ {shape_name} mode {mode}: "
+                                 "the bfloat16 k table differs from the "
+                                 "plain version's bits")
+        again = node_project(x, qw, qb, kw, kb, xcol=xcol)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"node_project @ {shape_name} mode {mode}: "
+                                 "two launches differ")
+        esz = x.element_size()
+        work = (n * d * esz + (2 * n * d if mode == 1 else 0)
+                + 2 * (d + 1) * att * 4
+                + n * att * (8 if mode == 0 else 6), 4 * n * d * att)
+        library = ((lambda: (torch.addmm(qb, x32, qw),
+                             torch.addmm(kb, x32, kw))) if mode == 0
+                   else None)
+        tag = {0: "", 1: " f32 x, bf16 xcol", 2: " bf16"}[mode]
+        rows.append(time_case(
+            "node_project", f"q, k tables mode {mode}", shape_name,
+            f"N={n} D={d} ATT={att}{tag}",
+            lambda: node_project(x, qw, qb, kw, kb, xcol=xcol),
+            lambda: node_tables_plain(x, xcol, qw, qb, k_w, k_b), work,
+            library, reference=lambda: want))
+    print(f"[kernels] node_project @ {shape_name}: modes {modes} within "
+          f"{REL_BOUND:g} of scale, the bf16 k table bit for bit, two "
+          "launches bit-identical", flush=True)
+    dk = torch.randn((n, att), generator=gen, device=dev)
+    for table in (torch.float32,) + ((bf,) if reduce_bf16 else ()):
+        x = x32.to(table)
+        tag = "" if table == torch.float32 else " bf16 x"
+        rows.append(check_outer_reduce(shape_name, x, None, dk, tag))
+    return rows
+
+
+def check_outer_reduce(shape_name, x, idx, dk, tag="", timed=True):
+    """``outer_reduce`` over dk's rows of x (gathered through ``idx``, or
+    x's rows) against its plain version in float64 (1e-5 of scale); two
+    launches bit-identical. The library call (float32 x, not gathered):
+    ``torch.mm(x.T, dk)`` and ``dk.sum(0)``."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.dense import (
+        outer_reduce, outer_reduce_plain, reduce_blocks, sm_count)
+    rows, att = dk.shape
+    d = x.shape[1]
+    want = outer_reduce_plain(x.double(), idx, dk.double())
+    got, again = outer_reduce(x, idx, dk), outer_reduce(x, idx, dk)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"outer_reduce @ {shape_name}{tag}: two "
+                             "launches differ")
+    work = (rows * d * x.element_size() + (4 * rows if idx is not None
+                                           else 0)
+            + rows * att * 4 + (d + 1) * att * 4,
+            2 * rows * d * att + rows * att)
+    library = None
+    if idx is None and x.dtype == torch.float32:
+        xr = x[:rows]
+        library = lambda: (torch.mm(xr.t(), dk), dk.sum(0))  # noqa: E731
+    blocks = reduce_blocks(rows, d, att, sm_count(x.device))
+    return time_case(
+        "outer_reduce", "[x | 1]^T dk" + (" gathered" if idx is not None
+                                          else ""), shape_name,
+        f"rows={rows} D={d} ATT={att}{tag} ({blocks} blocks)",
+        lambda: outer_reduce(x, idx, dk),
+        lambda: outer_reduce_plain(x, idx, dk), work, library,
+        reference=lambda: tuple(t.float() for t in want), timed=timed)
+
+
+LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "dual_scatter", "dual_gather",
+                   "node_project", "outer_reduce")
 
 
 def print_slower_than_library(rows):
-    """One line for every timed shape at which K1, K2, K10 or K11 took
-    longer than its library call. A slow kernel does not fail the run: its
-    times are written down."""
+    """One line for every timed shape at which K1, K2, K10, K11, the node
+    projections or the dKw reduction took longer than its library call. A
+    slow kernel does not fail the run: its times are written down."""
     slower = [r for r in rows
               if r["kernel"].split()[0] in LIBRARY_CHECKED
               and r.get("library_ms") is not None
@@ -617,8 +731,8 @@ def print_slower_than_library(rows):
               f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)",
               flush=True)
     if not slower:
-        print("[slower than library] no timed shape of K1, K2, K10 or K11",
-              flush=True)
+        print("[slower than library] no timed shape of K1, K2, K10, K11, "
+              "node_project or outer_reduce", flush=True)
 
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -2916,11 +3030,14 @@ ROWS_BF16 = f"{ROWS} bf16"
 COLPLAN_KERNELS = ("fused_rhs_fwd", ROWS, "fused_rhs_bwd_col")
 AGGREGATE_KERNELS = ("fused_aggregate", "fused_score_max",
                      "fused_rhs_bwd_heads")
+# the node projections and the dKw reduction every fused kernel runs
+# (csrc/dense.cuh)
+DENSE = ("node_project", "outer_reduce")
 ALL_KERNELS = GRAND_L_KERNELS + ("fused_rhs_fwd", "fused_rowmax",
                                  "fused_rhs_bwd", ROWS, "fused_rhs_bwd_sym",
                                  "dual_scatter", "dual_gather") \
     + NORM1_KERNELS + BLOCKED_KERNELS + ("fused_rhs_bwd_col",) \
-    + AGGREGATE_KERNELS + ("row_gather", "smem_gather")
+    + AGGREGATE_KERNELS + ("row_gather", "smem_gather") + DENSE
 
 
 # K1's launches in table mode (P6's scatter), counted apart among its own,
@@ -2956,7 +3073,7 @@ def counted(label: str, expected, fn):
     Returns (fn's result, launch counts, seconds)."""
     import torch
     from graph_neural_pde_tpu_torch import kernels
-    for k in kernels.KERNELS:
+    for k in kernels.KERNELS + kernels.DENSE_KERNELS:
         k.launches = 0
     for k in kernels.BF16_KERNELS:
         k.bf16_launches = 0
@@ -2976,7 +3093,8 @@ def counted(label: str, expected, fn):
     if built:
         raise AssertionError(f"{label}: row pieces built on the fly instead "
                              f"of the graph's own: {built}")
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches = {k.__name__: k.launches
+                for k in kernels.KERNELS + kernels.DENSE_KERNELS}
     launches[TABLE_MODE] = kernels.csr_spmm.table_launches
     launches[ROWS] = kernels.fused_rhs_bwd.rows_launches
     launches[ROWS_BF16] = kernels.fused_rhs_bwd.bf16_rows_launches
@@ -3188,15 +3306,40 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as data_dir:
         phase_done("2 (build)")
         # 3. kernels against their plain versions
+        # the node projections and the dKw reduction of every fused kernel:
+        # (a)'s widths (D=128, ATT=32) at arxiv scale first, then BLEND's
+        # (ATT=2 x 32), the Cora GRAND-nl widths (D=80, ATT=128) and kNN
+        # Cora BLEND's (D=64+32, ATT=2 x 128) at Cora's node count
+        nl, bench = grand_nl_cora(), GRAND_NL_BENCH.replace(**FLOAT32)
+        n_arxiv, n_cora = 169_343, 2_708
+        rows = check_dense_kernels("arxiv-scale", n_arxiv, bench.hidden_dim,
+                                   bench.attention_dim, args.seed + 240,
+                                   reduce_bf16=True)
+        rows += check_dense_kernels("arxiv-scale", n_arxiv, bench.hidden_dim,
+                                    2 * bench.attention_dim, args.seed + 241,
+                                    modes=(0, 2))
+        rows += check_dense_kernels("cora-standin", n_cora, nl.hidden_dim,
+                                    nl.attention_dim, args.seed + 242)
+        rows += check_dense_kernels(
+            "cora-knn", n_cora, nl.feat_hidden_dim + nl.pos_enc_hidden_dim,
+            2 * nl.attention_dim, args.seed + 243, modes=(0, 1))
+        # ... and K8's per-head form over the bench oracle's payload rows
+        og = oracle_graph(0)
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 244)
+        rows.append(check_outer_reduce(
+            "bench-oracle", torch.randn((og.capacity, 128), generator=gen,
+                                        device="cuda"), None,
+            torch.randn((og.capacity, 64), generator=gen, device="cuda"),
+            " per edge"))
         cora_g = prepared_graph("Cora", data_dir)
-        rows = check_kernels("cora-standin", cora_g,
-                             best_params["Cora"].hidden_dim, args.seed)
+        rows += check_kernels("cora-standin", cora_g,
+                              best_params["Cora"].hidden_dim, args.seed)
         rows += check_segment_kernels(
             "computers-standin", prepared_graph("Computers", data_dir),
             best_params["Computers"].heads, args.seed + 2)
-        # bench.py's GRAND-nl architecture in float32: the paths and checks
-        # before the bfloat16 mode; (t) and (v) run its own precision
-        nl, bench = grand_nl_cora(), GRAND_NL_BENCH.replace(**FLOAT32)
+        # bench.py's GRAND-nl architecture in float32 (bench): the paths
+        # and checks before the bfloat16 mode; (t) and (v) run its own
+        # precision
         rows += check_fused_kernels("cora-standin", cora_g, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 20)
@@ -3523,6 +3666,16 @@ def main() -> int:
                 row_bf16=row_b16)
         rows += check_column_sum("arxiv-directed", big_dir, bench.hidden_dim,
                                  args.seed + 99)
+        # the dKw reduction gathered through the column index over the
+        # slots, K8 with dxg's form
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 245)
+        slot_col = big_dir.col.to("cuda")
+        rows.append(check_outer_reduce(
+            "arxiv-directed", torch.randn((big_dir.num_nodes,
+                                           bench.hidden_dim), generator=gen,
+                                          device="cuda"), slot_col,
+            torch.randn((slot_col.numel(), bench.attention_dim),
+                        generator=gen, device="cuda"), " slots"))
         for h in (1, 8):
             rows += check_segment_kernels("arxiv-directed", big_dir, h,
                                           args.seed + 100 + h)
@@ -3636,7 +3789,7 @@ def main() -> int:
 
         phase_done("4 (end to end, card against CPU)")
         # 5. the main paths
-        fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym")
+        fused = ("fused_rhs_fwd", "fused_rhs_bwd_sym") + DENSE
         dual = ("dual_scatter", "dual_gather")
         # (q), (r): the BLEND architecture of bench.py (feature width 96,
         # positions 32) over its random graph, with its seeded N(0, 1)
@@ -3696,10 +3849,11 @@ def main() -> int:
              ("csr_spmm", "edge_dot", "segment_norm")),
             ("BLEND GRAND-nl arxiv-scale (q)", blend_bench, fused),
             ("BLEND GRAND-nl arxiv-scale column softmax (r)",
-             blend_bench.replace(attention_norm_idx=1), NORM1_KERNELS),
+             blend_bench.replace(attention_norm_idx=1),
+             NORM1_KERNELS + DENSE),
             ("BLEND GRAND-nl Cora over pos_enc_knn (s)",
              nl.replace(epoch=2, rewiring="pos_enc_knn", pos_enc_type="DW64",
-                        **blend), COLPLAN_KERNELS),
+                        **blend), COLPLAN_KERNELS + DENSE),
             # (B) (e) at bench.py's precision: s_dst and K10/K11 on the
             # bfloat16 column table
             ("GAT Cora at bench precision (B)",
@@ -3729,7 +3883,8 @@ def main() -> int:
         # in K6 and K9, the bf16 rk4 state
         label_v = "GRAND-nl arxiv-scale at bench precision (v)"
         _, per_path[label_v], secs = counted(
-            label_v, ("fused_rhs_fwd bf16", "fused_rhs_bwd_sym bf16"),
+            label_v,
+            ("fused_rhs_fwd bf16", "fused_rhs_bwd_sym bf16") + DENSE,
             lambda: drive_bench_precision(args.seed))
         print(f"[main] {label_v} in {secs:.2f} s; kernel launches "
               f"{per_path[label_v]}", flush=True)
@@ -3945,6 +4100,10 @@ def main() -> int:
                "row_gather": ("row_gather.cu", "stripe.py:767"),
                "smem_gather": ("smem_gather.cu",
                                "examples/perf_probe13_vmem_gather.py:85"),
+               # inside the fused kernels: q_blk / k_e of P7, P13, P15, and
+               # P11's, P13's, P16's dkw_ref products
+               "node_project": ("dense.cuh", "fused_rhs.py:235"),
+               "outer_reduce": ("dense.cuh", "fused_rhs.py:872"),
                # the bfloat16-table modes (the bf16 payload)
                "csr_spmm bf16": ("csr_spmm.cu", "stripe.py:513"),
                "edge_dot bf16": ("edge_dot.cu", "stripe.py:363"),

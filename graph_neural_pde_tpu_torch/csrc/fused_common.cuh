@@ -1,10 +1,10 @@
 // Device code shared by the fused attention kernels (fused_fwd.cu: K6, K7;
 // fused_rhs.cu: K8, K9, K17; norm1.cu: K12-K14): the per-head score families
-// and their derivatives, the node projections into the q and k scratch
-// tables, the warp-level sums, the row walks of K9 / K14 and of K6 / K13,
-// and the deterministic two-pass reduction of dKw / dKb. Each source that
-// includes this header gets its own copy (anonymous namespace), so the
-// sources still compile independently, one nvcc each.
+// and their derivatives, the warp-level sums and the row walks of K9 / K14
+// and of K6 / K13; the node projections into the q and k scratch tables and
+// the deterministic two-pass reduction of dKw / dKb are dense.cuh's. Each
+// source that includes this header gets its own copy (anonymous
+// namespace), so the sources still compile independently, one nvcc each.
 //
 // The score families are the reference's four and BLEND's split-space
 // exp_kernel_beltrami, the TPU kernels' _kernel_scores / _kernel_scores_bwd
@@ -21,6 +21,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "dense.cuh"
 
 namespace {
 
@@ -170,15 +172,6 @@ __device__ __forceinline__ void load_row(
   }
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // What the backward needs of one head's score: s itself and, for
 //   dq[a] = P (k[a] - mk) - Q (q[a] - mq),  dk[a] = P (q[a] - mq) - R (k[a] - mk)
 // per unit ds, the coefficients (P, Q, R) and the head means (pearson);
@@ -272,113 +265,6 @@ __device__ __forceinline__ void u_duds(float sm, int square_plus, float* u,
   }
 }
 
-constexpr int kNodesPerWarp = 8;
-
-// How a table entry is summed and stored. float32: x W + b summed in
-// float32 from the bias. The bfloat16 k table: the JAX package's two
-// roundings of k_e = x[col] @ Kw.astype(bf16) + kb.astype(bf16) in
-// bfloat16 (the product rounded, then its sum with the bias), from W and b
-// that the wrapper has rounded to bfloat16 already. Its product is summed
-// in float64, where the products of bfloat16 values add up exactly at
-// these widths, so the rounding to bfloat16 does not depend on the order
-// of the sum: the plain version (a float64 matmul) rounds the same sums
-// the same way. A float32 sum's own rounding would decide a last bf16 bit
-// now and then, and a k off by one bf16 step moves every score it enters.
-template <typename TO> struct ProjAcc { using type = float; };
-template <> struct ProjAcc<__nv_bfloat16> { using type = double; };
-
-__device__ __forceinline__ float proj_fma(float x, float w, float acc) {
-  return fmaf(x, w, acc);
-}
-__device__ __forceinline__ double proj_fma(float x, float w, double acc) {
-  return fma(static_cast<double>(x), static_cast<double>(w), acc);
-}
-__device__ __forceinline__ float proj_start(const float*, float bias) {
-  return bias;
-}
-__device__ __forceinline__ double proj_start(const __nv_bfloat16*, float) {
-  return 0.0;
-}
-__device__ __forceinline__ void proj_store(float* out, float acc, float) {
-  *out = acc;
-}
-__device__ __forceinline__ void proj_store(__nv_bfloat16* out, double acc,
-                                           float bias) {
-  *out = __float2bfloat16_rn(round_bf16(__double2float_rn(acc)) + bias);
-}
-
-// out[n] = x[n] W + b for every node n: the q and k tables the row walks
-// gather from. A warp projects eight nodes at once, so each coalesced row
-// of W is loaded once for eight products; the nodes' x rows sit transposed
-// in shared memory (xs[d][i]) and are read as two float4 broadcasts. TO is
-// the table's type (see proj_store).
-template <int J, typename TO>
-__device__ __forceinline__ void node_project_j(const float* xs,
-                                               const float* __restrict__ w,
-                                               const float* __restrict__ b,
-                                               TO* __restrict__ out,
-                                               int n0, int n_rows, int dim,
-                                               int att, int lane) {
-  using Acc = typename ProjAcc<TO>::type;
-  Acc acc[kNodesPerWarp][J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int a = lane + kWarp * j;
-    const Acc bias = proj_start(out, a < att ? __ldg(b + a) : 0.0f);
-#pragma unroll
-    for (int i = 0; i < kNodesPerWarp; ++i) acc[i][j] = bias;
-  }
-  for (int d = 0; d < dim; ++d) {
-    const float4* xv4 =
-        reinterpret_cast<const float4*>(xs + d * kNodesPerWarp);
-    const float4 lo = xv4[0], hi = xv4[1];
-    const float xv[kNodesPerWarp] = {lo.x, lo.y, lo.z, lo.w,
-                                     hi.x, hi.y, hi.z, hi.w};
-    const float* wr = w + static_cast<size_t>(d) * att + lane;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float wv = lane + kWarp * j < att ? __ldg(wr + kWarp * j) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < kNodesPerWarp; ++i)
-        acc[i][j] = proj_fma(xv[i], wv, acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kNodesPerWarp; ++i) {
-    const int n = n0 + i;
-    if (n >= n_rows) break;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int a = lane + kWarp * j;
-      if (a < att)
-        proj_store(out + static_cast<size_t>(n) * att + a, acc[i][j],
-                   __ldg(b + a));
-    }
-  }
-}
-
-// kJ: the accumulators a lane holds (att up to 32 kJ); the launch picks
-// the kernel of the call's width, so each holds only its own registers
-template <typename TX, typename TO, int kJ>
-__global__ void node_project_kernel(const TX* __restrict__ x,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ b,
-                                    TO* __restrict__ out, int n_rows,
-                                    int dim, int att) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n0 = (blockIdx.x * kWarpsPerBlock + warp) * kNodesPerWarp;
-  if (n0 >= n_rows) return;
-  float* xs = smem + static_cast<size_t>(warp) * kNodesPerWarp * dim;
-  for (int i = 0; i < kNodesPerWarp; ++i) {
-    const TX* src = x + static_cast<size_t>(min(n0 + i, n_rows - 1)) * dim;
-    for (int d = lane; d < dim; d += kWarp)
-      xs[d * kNodesPerWarp + i] = widen(src[d]);
-  }
-  __syncwarp();
-  node_project_j<kJ>(xs, w, b, out, n0, n_rows, dim, att, lane);
-}
-
 // A row's scalar sums over its edges and heads: ds (for dgmax) and the
 // terms of the score scalars' derivatives, (var, ls) for exp_kernel and
 // (var, ls, var_p, ls_p) for exp_kernel_beltrami.
@@ -434,152 +320,8 @@ __device__ __forceinline__ void write_row_sums(float* row_sums, int n,
   }
 }
 
-// partial[p, d, a] = sum over block p's rows r of [x[idx[r]] | 1][d] b[r, a]
-// (idx null: r itself), d in [0, dim]: the first pass of dKw (rows < dim)
-// and dKb (row dim). Each block owns a fixed row range and a 32 x 32 tile.
-// The chains are thousands of terms long, so each sum is compensated
-// (Kahan): its rounding error stays that of a single addition.
-template <typename TX>
-__global__ void outer_reduce_kernel(const TX* __restrict__ x,
-                                    const int* __restrict__ idx,
-                                    const float* __restrict__ b,
-                                    float* __restrict__ partial, int rows,
-                                    int rows_per_block, int dim, int att) {
-  const int a = blockIdx.z * 32 + threadIdx.x;
-  const int d_base = blockIdx.y * 32 + threadIdx.y;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float lost[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-  for (int r = r0; r < r1; ++r) {
-    const float bv = a < att ? b[static_cast<size_t>(r) * att + a] : 0.0f;
-    const TX* xr = x + static_cast<size_t>(idx ? idx[r] : r) * dim;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int d = d_base + 8 * k;
-      const float xv = d < dim ? widen(xr[d]) : (d == dim ? 1.0f : 0.0f);
-      const float term = xv * bv - lost[k];
-      const float sum = acc[k] + term;
-      lost[k] = (sum - acc[k]) - term;
-      acc[k] = sum;
-    }
-  }
-  if (a >= att) return;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int d = d_base + 8 * k;
-    if (d <= dim)
-      partial[(static_cast<size_t>(blockIdx.x) * (dim + 1) + d) * att + a] =
-          acc[k];
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_shared(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 int row_blocks(int n_rows) {
   return (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-}
-
-template <typename TX, typename TO, int kJ>
-cudaError_t launch_node_project_j(const void* x, const void* w,
-                                  const void* b, void* table, int n_rows,
-                                  int dim, int att, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock * kNodesPerWarp * dim;
-  cudaError_t err = allow_shared(node_project_kernel<TX, TO, kJ>, bytes);
-  if (err != cudaSuccess) return err;
-  const int groups = (n_rows + kNodesPerWarp - 1) / kNodesPerWarp;
-  node_project_kernel<TX, TO, kJ><<<row_blocks(groups),
-                                    kWarpsPerBlock * kWarp, bytes, stream>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<TO*>(table), n_rows, dim,
-      att);
-  return cudaGetLastError();
-}
-
-// table[n] = x[n] w + b for every node, into the wrapper's scratch (TX
-// the type of x, TO the table's: see proj_store), by the kernel whose
-// accumulator count covers att
-template <typename TX = float, typename TO = float>
-cudaError_t launch_node_project(const void* x, const void* w, const void* b,
-                                void* table, int n_rows, int dim, int att,
-                                cudaStream_t stream) {
-  switch ((att + kWarp - 1) / kWarp) {
-#define GNPDE_NODE_PROJECT_J(J)                                              \
-  case J:                                                                    \
-    return launch_node_project_j<TX, TO, J>(x, w, b, table, n_rows, dim, att, \
-                                            stream);
-    GNPDE_NODE_PROJECT_J(1)
-    GNPDE_NODE_PROJECT_J(2)
-    GNPDE_NODE_PROJECT_J(3)
-    GNPDE_NODE_PROJECT_J(4)
-    GNPDE_NODE_PROJECT_J(5)
-    GNPDE_NODE_PROJECT_J(6)
-    GNPDE_NODE_PROJECT_J(7)
-#undef GNPDE_NODE_PROJECT_J
-    default:
-      return launch_node_project_j<TX, TO, 8>(x, w, b, table, n_rows, dim, att,
-                                              stream);
-  }
-}
-
-// both tables: q = x Qw + qb and k = x Kw + kb
-cudaError_t launch_tables(const void* x, const void* qw, const void* qb,
-                          const void* kw, const void* kb, void* qtab,
-                          void* ktab, int n_rows, int dim, int att,
-                          cudaStream_t stream) {
-  cudaError_t err = launch_node_project(x, qw, qb, qtab, n_rows, dim, att,
-                                        stream);
-  if (err != cudaSuccess) return err;
-  return launch_node_project(x, kw, kb, ktab, n_rows, dim, att, stream);
-}
-
-// The TABLES code of K6-K9, K12-K14 and K17: 0 float32 (x is also the
-// column table), 1 a float32 row side x beside a bfloat16 column table
-// xcol, 2 both bfloat16 (the bf16 ODE state: xcol is x).
-enum Tables { kTablesF32 = 0, kTablesF32Bf16 = 1, kTablesBf16 = 2 };
-
-bool valid_tables(int tables) {
-  return tables == kTablesF32 || tables == kTablesF32Bf16 ||
-         tables == kTablesBf16;
-}
-
-// q from the row side, k from the column side: for the bfloat16 column
-// table a bfloat16 k table, rounded as the JAX package rounds k_e (kw and
-// kb come rounded to bfloat16 from the wrapper)
-cudaError_t launch_tables(int tables, const void* x, const void* xcol,
-                          const void* qw, const void* qb, const void* kw,
-                          const void* kb, void* qtab, void* ktab, int n_rows,
-                          int dim, int att, cudaStream_t stream) {
-  if (tables == kTablesF32)
-    return launch_tables(x, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att,
-                         stream);
-  cudaError_t err =
-      tables == kTablesF32Bf16
-          ? launch_node_project<float, float>(x, qw, qb, qtab, n_rows, dim,
-                                              att, stream)
-          : launch_node_project<__nv_bfloat16, float>(x, qw, qb, qtab, n_rows,
-                                                      dim, att, stream);
-  if (err != cudaSuccess) return err;
-  return launch_node_project<__nv_bfloat16, __nv_bfloat16>(
-      xcol, kw, kb, ktab, n_rows, dim, att, stream);
-}
-
-template <typename TX>
-void launch_outer_reduce(const TX* x, const int* idx, const float* b,
-                         float* partial, int rows, int blocks, int dim,
-                         int att, cudaStream_t stream) {
-  if (rows <= 0) return;
-  const int rows_per_block = (rows + blocks - 1) / blocks;
-  const dim3 grid(blocks, (dim + 1 + 31) / 32, (att + 31) / 32);
-  outer_reduce_kernel<TX><<<grid, dim3(32, 8), 0, stream>>>(
-      x, idx, b, partial, rows, rows_per_block, dim, att);
 }
 
 Proj make_proj(const void* gmax, const void* var, const void* ls, int dim,
@@ -655,9 +397,9 @@ Graph make_graph(const void* rowptr, const void* col, int n_rows) {
 //   merge pass (sym_merge_rows) adds in piece order.
 // Each output is summed in a fixed order (edges in a piece, then pieces in
 // order; every butterfly and fold is the same on every run): no atomics,
-// two launches agree bit for bit. The row's product (sum dk) Kw^T, read by
-// lanes spanning D, and the two-pass dKw / dKb reduction
-// (outer_reduce_kernel over the per-node dk sums) stay as they were.
+// two launches agree bit for bit. The row's product (sum dk) Kw^T is read by
+// lanes spanning D; dKw / dKb take two passes (dense.cuh's
+// outer_reduce_kernel over the per-node dk sums, then the wrapper's sum).
 
 // The pieces of a walk's rows or columns (ops/graph.py, ColPieces):
 // piece p holds the edges [ptr[p], ptr[p + 1]) of row or column col[p];

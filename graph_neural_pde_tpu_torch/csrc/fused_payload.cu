@@ -593,7 +593,8 @@ extern "C" int gnpde_fused_score_max(
 // [n_rows, heads dim], ct_den [n_rows, heads]. dxg [n_slots, dim] and dke
 // [n_slots, att] are zero on entry (padding slots stay 0), row_sums
 // [n_rows, 5] is scratch the wrapper reduces, partials [reduce_blocks,
-// dim + 1, att] are zero on entry, and dKw is reduced over the payload.
+// dim + 1, att] are written whole (dense.cuh's outer_reduce_kernel), and
+// dKw is reduced over the payload.
 // Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_heads(
     const void* rowptr, const void* xg, const void* x, const void* qw,

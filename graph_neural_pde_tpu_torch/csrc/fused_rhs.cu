@@ -426,8 +426,8 @@ cudaError_t launch_bwd_col(Graph g, Pieces pc, Proj p, const void* xcol,
 // kw_t is Kw^T [att, dim] (of the bf16-rounded Kw with a bfloat16 column
 // table: the k table's derivative). dke [n_slots, att] and row_sums
 // [n_rows, 5] are scratch the wrapper reduces; partials [reduce_blocks,
-// dim + 1, att] are zero on entry, and dKw is reduced over the column
-// table. Nullable: var, ls, shifts. K8 without dxg (the column-plan
+// dim + 1, att] are written whole (dense.cuh's outer_reduce_kernel), and
+// dKw is reduced over the column table. Nullable: var, ls, shifts. K8 without dxg (the column-plan
 // backward, where K17 forms x's gradient, dKw and dKb per column) is
 // gnpde_fused_rhs_bwd_rows (fused_bwd_rows.cu).
 extern "C" int gnpde_fused_rhs_bwd(
@@ -466,7 +466,7 @@ extern "C" int gnpde_fused_rhs_bwd(
 // derivative). dkn [n_rows, att] and row_sums [n_rows, 5] are scratch the
 // wrapper reduces; part [multi_ptr[n_multi], dim + 2 att + 5] holds the
 // pieces' partial sums (nullable without multi-piece rows); partials
-// [reduce_blocks, dim + 1, att] are zero on entry, and dKw is reduced over
+// [reduce_blocks, dim + 1, att] are written whole, and dKw is reduced over
 // the column table. vec: dim % 4 == 0 and x, xcol, ct_ax, kw_t, dxrow
 // 16-byte aligned. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_sym(
@@ -494,7 +494,7 @@ extern "C" int gnpde_fused_rhs_bwd_sym(
 // column's summed dk) is scratch the wrapper reduces over the column
 // table; part [multi_ptr[n_multi], dim + att] is the pieces' partial sums
 // (nullable without multi-piece columns); partials [reduce_blocks, dim +
-// 1, att] are zero on entry. With project == 0 the q and k tables are read
+// 1, att] are written whole. With project == 0 the q and k tables are read
 // as an earlier launch on the same operands left them (K8 without dxg's,
 // in the column-plan backward), else filled first. Nullable: var, ls.
 extern "C" int gnpde_fused_rhs_bwd_col(

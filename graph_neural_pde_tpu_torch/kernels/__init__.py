@@ -17,6 +17,12 @@ from graph_neural_pde_tpu_torch.kernels.csr_spmm import (  # noqa: F401
     csr_spmm,
     csr_spmm_plain,
 )
+from graph_neural_pde_tpu_torch.kernels.dense import (  # noqa: F401
+    node_project,
+    node_tables_plain,
+    outer_reduce,
+    outer_reduce_plain,
+)
 from graph_neural_pde_tpu_torch.kernels.dual_scatter import (  # noqa: F401
     column_head_sum,
     dual_gather,
@@ -87,6 +93,9 @@ KERNELS = (csr_spmm, edge_dot, segment_norm, segment_norm_bwd,
            fused_rhs_bwd_col, fused_aggregate, fused_score_max,
            fused_rhs_bwd_heads, row_gather, smem_gather, blocked_spmm,
            blocked_sddmm)
+# the dense products every fused kernel runs (csrc/dense.cuh): their
+# launches inside the fused entry points count too (dense.count_fused)
+DENSE_KERNELS = (node_project, outer_reduce)
 # the kernels with a bfloat16-table mode, whose ``bf16_launches`` count the
 # launches in it among their own (``fused_rhs_fwd.bf16_shifted_launches``
 # those of them with the exact mode's shifts, ``csr_spmm.

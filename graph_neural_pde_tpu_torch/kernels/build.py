@@ -130,6 +130,12 @@ _ENTRY_POINTS = {
     "gnpde_norm1_fwd": [_PTR] * 20 + [_INT] * 10 + [_PTR],
     # as gnpde_fused_rhs_bwd_sym, with project before tables
     "gnpde_norm1_bwd": [_PTR] * 26 + [_INT] * 11 + [_PTR],
+    # The dense products of the fused kernels alone (csrc/dense.cu).
+    # x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, tables, stream
+    "gnpde_node_tables": [_PTR] * 8 + [_INT] * 4 + [_PTR],
+    # x, idx (nullable), dk, partials, rows, dim, att, blocks, dtype of x
+    # (0 float32, 1 bfloat16), stream
+    "gnpde_outer_reduce": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     # The blocked-plan kernels (csrc/blocked.cu).
     # rowptr, slot, col (the plan's valid slots by row), w, x, out, n_rows,
     # dim, lanes, vec, stream

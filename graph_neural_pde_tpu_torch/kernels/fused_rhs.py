@@ -104,6 +104,8 @@ import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import column_sum
+from graph_neural_pde_tpu_torch.kernels.dense import (  # noqa: F401
+    bf16_k_table, bf16_round, count_fused, dk_sums, reduce_blocks, sm_count)
 from graph_neural_pde_tpu_torch.ops.graph import ColPieces, column_pieces
 
 SCORES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3,
@@ -171,30 +173,10 @@ def _node_sum(n: int, index: torch.Tensor, vals: torch.Tensor):
                        device=vals.device).index_add(0, index, vals)
 
 
-def bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to bfloat16 (to nearest even), back in its dtype."""
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
 def bf16_round_st(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to bfloat16 in value, in its dtype; the identity in the
     gradient (the kernels' backward takes every cast so)."""
     return t + (bf16_round(t) - t).detach()
-
-
-def bf16_k_table(xcol: torch.Tensor, kw: torch.Tensor,
-                 kb: torch.Tensor) -> torch.Tensor:
-    """k [N, ATT] of a bfloat16 column table, rounded as the JAX package's
-    bf16 payload rounds ``x[col] @ Kw.astype(bf16) + kb.astype(bf16)``:
-    the product of the bf16 rows with the bf16-rounded Kw, rounded to
-    bfloat16, then its sum with the bf16-rounded kb rounded again. The
-    product is summed in float64 (exact for products of bfloat16 values at
-    these widths, as the kernels sum it), so its rounding does not hang on
-    the order of a float32 sum. The values in Kw's dtype (float64 for a
-    float64 reference: the same values)."""
-    prod = (xcol.double() @ bf16_round(kw).double()).float()
-    k = bf16_round(bf16_round(prod) + bf16_round(kb).float())
-    return k.to(kw.dtype)
 
 
 def _col_side(x, xcol, kw, kb, c):
@@ -665,6 +647,7 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
                  heads, _flags(score, square_plus),
                  _aligned(d, x, xcol, out, num), _tables(x, xcol))
     fused_rhs_fwd.launches += 1
+    count_fused(_tables(x, xcol), 1)
     fused_rhs_fwd.bf16_launches += xcol is not None
     fused_rhs_fwd.bf16_shifted_launches += (xcol is not None
                                             and shifts is not None)
@@ -694,6 +677,7 @@ def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
                  tabs[1].data_ptr(), smax.data_ptr(), n, d, att, heads,
                  _tables(x, xcol))
     fused_rowmax.launches += 1
+    count_fused(_tables(x, xcol), 1)
     fused_rowmax.bf16_launches += xcol is not None
     return smax
 
@@ -705,13 +689,6 @@ def _bwd_extra(x, heads, gmax, ct_ax, recip_p, ct_den, shifts, cap):
     if shifts is not None:
         extra.append(("shifts", shifts, (cap, heads)))
     return extra
-
-
-def _dk_sums(partials, d):
-    """Second pass of the dkw / dkb reduction: the per-block partial sums
-    of [x | 1]^T dk added up in a fixed order."""
-    dk_sum = torch.sum(partials, dim=0)                   # [D + 1, ATT]
-    return dk_sum[:d].contiguous(), dk_sum[d]
 
 
 ROW_SUMS = 5        # a row's ds and the score scalars' terms (see _row_totals)
@@ -731,11 +708,14 @@ def _row_totals(row_sums, score, var, ls):
     return -tot[0], dvar, dls
 
 
-def _reduce_blocks(rows: int) -> int:
-    """Blocks over the rows of the [x_c | 1]^T dk reduction (their partial
-    sums are the second pass's input): short row ranges, so that enough
-    blocks are in flight to hide the gathers' latency."""
-    return max(1, min(2048, -(-rows // 64)))
+def _partials(rows: int, d: int, att: int, dev):
+    """The first pass's partial tiles of the [x | 1]^T dk reduction (its
+    row ranges :func:`~graph_neural_pde_tpu_torch.kernels.dense.
+    reduce_blocks`), each written whole by the kernel: (blocks, [blocks,
+    D + 1, ATT])."""
+    blocks = reduce_blocks(rows, d, att, sm_count(dev))
+    return blocks, torch.empty((blocks, d + 1, att), dtype=torch.float32,
+                               device=dev)
 
 
 def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
@@ -783,6 +763,7 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                 if pc.n_multi else None)
         tabs = tabs or node_tables(x, att)
         table = x if xcol is None else xcol
+        project = tabs.project()
         build.launch("fused_rhs_bwd_rows", dev, pc.ptr.data_ptr(),
                      pc.col.data_ptr(), pc.slot.data_ptr(),
                      pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr(),
@@ -793,19 +774,17 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                      tabs.q.data_ptr(), tabs.k.data_ptr(), dq.data_ptr(),
                      row_sums.data_ptr(), _ptr(part), n, pc.n_pieces,
                      pc.n_multi, d, att, heads, _flags(score, square_plus),
-                     _aligned(d, table, ct_ax), tabs.project(),
-                     _tables(x, xcol))
+                     _aligned(d, table, ct_ax), project, _tables(x, xcol))
         fused_rhs_bwd.rows_launches += 1
+        count_fused(_tables(x, xcol), project)
         fused_rhs_bwd.bf16_rows_launches += xcol is not None
         return (dq, None, None, None) + _row_totals(row_sums, score, var, ls)
     _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 10 * heads)
     # scratch: every slot's dk_e (0 on padding, which the reduction also
     # walks: the valid count stays on the device)
-    blocks = _reduce_blocks(cap)
+    blocks, partials = _partials(cap, d, att, dev)
     dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
     dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
     build.launch("fused_rhs_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
                  x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
@@ -817,8 +796,9 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                  partials.data_ptr(), n, d, att, heads,
                  _flags(score, square_plus), cap, blocks, _tables(x, xcol))
     fused_rhs_bwd.launches += 1
+    count_fused(_tables(x, xcol), 1, reduce=True)
     fused_rhs_bwd.bf16_launches += xcol is not None
-    return ((dq, dxg) + _dk_sums(partials, d)
+    return ((dq, dxg) + dk_sums(partials, d)
             + _row_totals(row_sums, score, var, ls))
 
 
@@ -883,9 +863,7 @@ def _sym_walk(fn, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     part = (torch.empty((pc.n_slots, d + 2 * att + ROW_SUMS),
                         dtype=torch.float32, device=dev)
             if pc.n_multi else None)
-    blocks = _reduce_blocks(n)
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
+    blocks, partials = _partials(n, d, att, dev)
     kw, kb = _col_projection(kw, kb, xcol)
     kw_t = kw.t().contiguous()
     rc = sym_node_table(recip_p, ct_den)
@@ -903,7 +881,9 @@ def _sym_walk(fn, rowptr, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                  pc.n_multi, d, att, heads, _flags(score, square_plus),
                  blocks, vec, *(() if project is None else (project,)),
                  _tables(x, xcol))
-    return ((dq, dxrow) + _dk_sums(partials, d)
+    count_fused(_tables(x, xcol), 1 if project is None else project,
+                reduce=True)
+    return ((dq, dxrow) + dk_sums(partials, d)
             + _row_totals(row_sums, score, var, ls))
 
 
@@ -985,11 +965,10 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     dkn = torch.empty((n, att), dtype=torch.float32, device=dev)
     part = (torch.empty((pc.n_slots, d + att), dtype=torch.float32,
                         device=dev) if pc.n_multi else None)
-    blocks = _reduce_blocks(n)
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
+    blocks, partials = _partials(n, d, att, dev)
     kw, kb = _col_projection(kw, kb, xcol)
     tabs, kw_t = tabs or node_tables(x, att), kw.t().contiguous()
+    project = tabs.project()
     build.launch("fused_rhs_bwd_col", dev, pc.ptr.data_ptr(),
                  pc.col.data_ptr(), pc.slot.data_ptr(),
                  pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr(),
@@ -1000,11 +979,12 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
                  tabs.q.data_ptr(), tabs.k.data_ptr(), dx.data_ptr(),
                  dkn.data_ptr(), _ptr(part), partials.data_ptr(), n,
                  pc.n_pieces, pc.n_multi, d, att, heads,
-                 _flags(score, square_plus), blocks, tabs.project(),
+                 _flags(score, square_plus), blocks, project,
                  _tables(x, xcol))
     fused_rhs_bwd_col.launches += 1
+    count_fused(_tables(x, xcol), project, reduce=True)
     fused_rhs_bwd_col.bf16_launches += xcol is not None
-    return (dx,) + _dk_sums(partials, d)
+    return (dx,) + dk_sums(partials, d)
 
 
 # K18, K19 and K8's per-head mode run PAYLOAD_WARPS warps a block, which
@@ -1168,9 +1148,7 @@ def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
     # them too (the valid count stays on the device)
     dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
     dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
-    blocks = _reduce_blocks(cap)
-    partials = torch.zeros((blocks, d + 1, att), dtype=torch.float32,
-                           device=dev)
+    blocks, partials = _partials(cap, d, att, dev)
     row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     build.launch("fused_rhs_bwd_heads", dev, rowptr.data_ptr(),
                  x_g.data_ptr(), x_n.data_ptr(), qw.data_ptr(), qb.data_ptr(),
@@ -1181,8 +1159,9 @@ def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
                  _flags(score, square_plus), cap, blocks,
                  _payload_tables(x_n, x_g))
     fused_rhs_bwd_heads.launches += 1
+    count_fused(0, 0, reduce=True)
     fused_rhs_bwd_heads.bf16_launches += x_g.dtype == torch.bfloat16
-    return ((dq, dxg) + _dk_sums(partials, d)
+    return ((dq, dxg) + dk_sums(partials, d)
             + _row_totals(row_sums, score, var, ls))
 
 

@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
+from graph_neural_pde_tpu_torch.kernels.dense import count_fused
 from graph_neural_pde_tpu_torch.kernels.fused_rhs import (
     EPS, _aligned, _bwd_extra, _bwd_plain, _check, _check_sorted, _col_side,
     _col_projection, _edges, _flags, _node_sum, _ptr, _row_pieces, _sym_walk,
@@ -162,6 +163,7 @@ def norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
     tabs = tabs or node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
     table = x if xcol is None else xcol
+    project = tabs.project()
     build.launch("norm1_den", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
                  pc.slot.data_ptr(), pc.multi_col.data_ptr(),
                  pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
@@ -170,8 +172,9 @@ def norm1_den(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
                  _ptr(ct), tabs.q.data_ptr(), tabs.k.data_ptr(),
                  out.data_ptr(), _ptr(part), n, pc.n_pieces, pc.n_multi, d,
                  att, heads, _flags(score, square_plus),
-                 _aligned(d, table, ct), tabs.project(), _tables(x, xcol))
+                 _aligned(d, table, ct), project, _tables(x, xcol))
     norm1_den.launches += 1
+    count_fused(_tables(x, xcol), project)
     norm1_den.bf16_launches += xcol is not None
     return out
 
@@ -201,6 +204,7 @@ def norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *, heads: int,
             if pc.n_multi else None)
     tabs = tabs or node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
+    project = tabs.project()
     build.launch("norm1_fwd", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
                  pc.slot.data_ptr(), pc.multi_col.data_ptr(),
                  pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
@@ -209,9 +213,9 @@ def norm1_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, recip, *, heads: int,
                  recip.data_ptr(), tabs.q.data_ptr(), tabs.k.data_ptr(),
                  out.data_ptr(), _ptr(part), n, pc.n_pieces, pc.n_multi, d,
                  att, heads, _flags(score, square_plus),
-                 _aligned(d, x, xcol, out), tabs.project(),
-                 _tables(x, xcol))
+                 _aligned(d, x, xcol, out), project, _tables(x, xcol))
     norm1_fwd.launches += 1
+    count_fused(_tables(x, xcol), project)
     norm1_fwd.bf16_launches += xcol is not None
     return out
 

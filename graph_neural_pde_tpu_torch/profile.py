@@ -54,7 +54,7 @@ PHASES = ("train_step", "eval_step", "early_stop_eval")
 # each wrapper's __global__ function is named <wrapper>_kernel; K8 without
 # dxg, fused_rhs_bwd_rows_kernel, is listed apart from K8 with dxg
 KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS) + (
-    "fused_rhs_bwd_rows",)
+    "fused_rhs_bwd_rows",) + tuple(k.__name__ for k in kernels.DENSE_KERNELS)
 # a wrapper's second pass (or passes): its time counts to the wrapper, its
 # launches not
 SECOND_PASSES = {"fused_rhs_bwd_col": "fused_rhs_bwd_col_merge_kernel",
