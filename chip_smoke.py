@@ -38,7 +38,8 @@ Phases, each of which must pass (any failure exits nonzero):
    one line for every timed shape at which K1, K2, K10, K11, the node
    projections or the dKw reduction is slower than its library call
    (``torch.sparse.mm``, ``sampled_addmm``, ``torch.addmm``, ``torch.mm``;
-   slow does not fail, wrong does). K3
+   slow does not fail, wrong does), and one for every timed shape at which
+   K7 or K8 with dxg is slower than its plain version. K3
    ``segment_norm`` (softmax and normalise, over rows and over columns
    through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
    rows and columns), on the prepared Computers stand-in at H=4 and the
@@ -56,14 +57,15 @@ Phases, each of which must pass (any failure exits nonzero):
    exp_kernel_beltrami at bench.py's BLEND widths on the arxiv-scale graph
    (D=128, packed ATT=2 x 32, H=2); two K9 launches must be
    bit-identical; K6-K9 and K12-K14 also over the Cora stand-in with a
-   hub row of degree 360 at D=80, ATT=128, H=8, whose row K6, K8 without
-   dxg, K9 and K12-K14 cut into pieces that a second pass merges (there
-   and on the kNN graph below the row pieces must include rows of
-   several). Before each check of K6, K9 and K12-K14, and of K8 without
-   dxg, a line prints the walk's design
-   (``kernels.fused_rhs.fwd_design`` and ``sym_design``: its register
-   tiles, how a head is summed, K6's heads in registers) and the graph's
-   row pieces. On graphs whose rows hold one edge each (the Cora stand-in
+   hub row of degree 360 at D=80, ATT=128, H=8, whose row K6, K7, K8 (with
+   and without dxg), K9 and K12-K14 cut into pieces that a second pass
+   merges (there and on the kNN graph below the row pieces must include
+   rows of several). Before each check of K6-K9 and K12-K14 a line prints
+   the walk's design (``kernels.fused_rhs.fwd_design``, ``sym_design``,
+   ``rowmax_design`` and ``dxg_design``: its register tiles, how a head
+   is summed, K6's heads in registers, K7's edges a batch, the tile of K8's
+   dxg pass on the tensor cores) and the graph's row pieces. On graphs
+   whose rows hold one edge each (the Cora stand-in
    at D=80, ATT=128, H=8 and 20,000 nodes at D=128, ATT=32, H=2), float32
    and on the bfloat16 column table, K6 shifted by K7's row maxima with
    gmax = 0 must give den exactly 1.0 in every row and head: K7 scores
@@ -109,8 +111,9 @@ Phases, each of which must pass (any failure exits nonzero):
    hub columns), exp_kernel_beltrami at D=64+32, packed ATT=2 x 128, H=8:
    K6, K8 (two launches bit-identical), K8 without dxg and K17;
    K1 as the column sum dx = A^T ct over the CSC view, K3/K4 over its
-   columns, against ``index_add`` over the columns, and K11's du with its
-   dx by K1 over the CSC view, on those two graphs. Over a random per-edge
+   columns, against ``index_add`` over the columns, and K10 with K11's du
+   and its dx by K1 over the CSC view, on those two graphs (timed beside
+   their plain versions and library calls). Over a random per-edge
    payload x_g [E, D] (the bench oracle's operand): K18
    ``fused_aggregate`` (and with per-edge shifts), K19 ``fused_score_max``
    (scaled_dot) and K8's per-head mode ``fused_rhs_bwd_heads`` (every
@@ -735,6 +738,24 @@ def print_slower_than_library(rows):
               "node_project or outer_reduce", flush=True)
 
 
+def print_slower_than_plain(rows, names=("fused_rhs_bwd", "fused_rowmax")):
+    """One line for every timed shape at which K8 with dxg or K7 (float32
+    or on the bfloat16 column table) took longer than its plain version,
+    or one line saying that none did. Slow does not fail the run."""
+    slower = [r for r in rows if r["kernel"].split()[0] in names
+              and ROWS not in r["kernel"] and "ms" in r
+              and r["ms"] >= r["plain_ms"]]
+    for r in slower:
+        print(f"[slower than plain] {r['kernel']} @ {r['shape']} "
+              f"{r['dims']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms", flush=True)
+    if not slower:
+        timed = sum(1 for r in rows if r["kernel"].split()[0] in names
+                    and ROWS not in r["kernel"] and "ms" in r)
+        print(f"[slower than plain] none of the {timed} timed shapes of "
+              f"{' and '.join(names)}", flush=True)
+
+
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 # calls each timing of phase 3 takes, device time and host time alike: the
@@ -1022,16 +1043,24 @@ def payload_ops(n, nv, d, att, h, score):
 def print_walk_design(kname, shape_name, dims, g, d, att, h, score,
                       multi_rows=False):
     """The design variant the walk of K6 or K13 (``kernels.fused_rhs.
-    fwd_design``), or of K9, K14, K12 or K8 without dxg (``sym_design``),
-    runs at these widths over ``g``'s row pieces; with ``multi_rows``,
-    fails unless some row has several pieces (the walk's merge pass
-    runs)."""
-    from graph_neural_pde_tpu_torch.kernels.fused_rhs import (fwd_design,
+    fwd_design``), of K9, K14, K12 or K8 without dxg (``sym_design``), of
+    K8 with dxg (``dxg_design``: the walk's tiles and the dxg pass's
+    tensor-core tile) or of K7 (``rowmax_design``) runs at these widths
+    over ``g``'s row pieces; with ``multi_rows``, fails unless some row
+    has several pieces (the walk's merge pass runs)."""
+    from graph_neural_pde_tpu_torch.kernels.fused_rhs import (dxg_design,
+                                                              fwd_design,
+                                                              rowmax_design,
                                                               sym_design)
     pc = g.row_pieces
     # K12 and K8 without dxg take K9's tiles (K12's plain mode: KD unused)
-    design = (fwd_design if kname in ("fused_rhs_fwd", "norm1_fwd")
-              else sym_design)(d, att, h, score)
+    if kname.startswith("fused_rowmax"):
+        design = rowmax_design(att, h)
+    elif kname.split()[0] == "fused_rhs_bwd" and ROWS not in kname:
+        design = dxg_design(d, att, h, score)
+    else:
+        design = (fwd_design if kname in ("fused_rhs_fwd", "norm1_fwd")
+                  else sym_design)(d, att, h, score)
     print(f"[kernels] {kname} walk @ {shape_name} {dims}: {design} over "
           f"{pc.n_pieces} row pieces of at most {pc.piece} edges "
           f"({pc.n_multi} rows of several, longest row {pc.longest} edges)",
@@ -1074,7 +1103,7 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     # den's cotangent positive, so that the sums over all edges (dgmax, the
     # exp_kernel scalars) do not cancel and their own size is a fair scale
     ct_den = 1.0 + randn(n, h, scale=0.1)
-    # the row pieces K6 and K9 walk: the graph's own, as on every path
+    # the row pieces K6-K9 walk: the graph's own, as on every path
     kw_p = dict(pieces=g.row_pieces)
     _, den, _ = K.fused_rhs_fwd(*csr, *ops, **kw_x, **kw_p, **kw_f)
     recip_p = (1.0 / (h * (den + 1e-16))).contiguous()
@@ -1128,7 +1157,7 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
          (base_bytes + 4 * n * (d + h), fwd_ops + 2 * n * d), None),
         ("fused_rhs_bwd", "dq, dxg, dkw, dkb, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd(*csr, *ops, *cts, shifts=shifts,
-                                      **kw_x, **kw_f)),
+                                      **kw_p, **kw_x, **kw_f)),
          lambda: some(K.fused_rhs_bwd_plain(*csr, *ops, *cts, shifts=shifts,
                                             **kw_x, **kw_f)),
          # per edge still dk_e Kw^T and x_c^T dk_e
@@ -1165,7 +1194,8 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     if score == "scaled_dot":
         cases.insert(3, (
             "fused_rowmax", "row maxima of the scores",
-            lambda: (K.fused_rowmax(*csr, *ops[:5], heads=h, **kw_x),),
+            lambda: (K.fused_rowmax(*csr, *ops[:5], heads=h, **kw_p,
+                                    **kw_x),),
             lambda: (K.fused_rowmax_plain(*csr, *ops[:5], heads=h, **kw_x),),
             (base_bytes + 4 * n * h, 2 * n * proj + nv * 2 * att),
             None))
@@ -1177,6 +1207,11 @@ def check_fused_kernels(shape_name, g, d, att, h, score, seed, timed=True,
     dims = f"N={n} E={nv} D={d} ATT={att} H={h} {score}{tag}"
     print_walk_design("fused_rhs_fwd", shape_name, dims, g, d, att, h, score,
                       multi_rows)
+    print_walk_design("fused_rhs_bwd", shape_name, dims, g, d, att, h, score,
+                      multi_rows)
+    if score == "scaled_dot":
+        print_walk_design("fused_rowmax", shape_name, dims, g, d, att, h,
+                          score, multi_rows)
     if symmetric:
         print_walk_design("fused_rhs_bwd_sym", shape_name, dims, g, d, att,
                           h, score)
@@ -1215,7 +1250,8 @@ def check_exact_shifts(shape_name, n, d, att, h, seed, dev="cuda"):
     for table in ("float32", "bfloat16"):
         kw_x = ({} if table == "float32"
                 else dict(xcol=ops[0].to(torch.bfloat16)))
-        smax = K.fused_rowmax(*csr, *ops[:5], heads=h, **kw_x)
+        smax = K.fused_rowmax(*csr, *ops[:5], heads=h, pieces=g.row_pieces,
+                              **kw_x)
         shifts = smax[g.row.long()].contiguous()
         _, den, _ = K.fused_rhs_fwd(*csr, *ops, shifts=shifts,
                                     pieces=g.row_pieces, **kw_x, **kw_f)
@@ -3609,7 +3645,7 @@ def main() -> int:
                                       best_params["Cora"].heads,
                                       args.seed + 97)
         rows += check_dual_kernels("cora-gdc", cora_gdc, nl.hidden_dim,
-                                   nl.heads, args.seed + 104, timed=False)
+                                   nl.heads, args.seed + 104)
         # (s)'s graph and widths: the Cora stand-in rewired by pos_enc_knn
         # (its DW64 encoding by DeepWalk on the card, cached in data_dir,
         # where (s) reads it again), whose hub columns reach in-degrees of
@@ -3681,11 +3717,12 @@ def main() -> int:
                                           args.seed + 100 + h)
         rows += check_dual_kernels("arxiv-directed", big_dir,
                                    bench.hidden_dim, bench.heads,
-                                   args.seed + 105, timed=False)
+                                   args.seed + 105)
         del big_dir
         torch.cuda.empty_cache()
 
         print_slower_than_library(rows)
+        print_slower_than_plain(rows)
         phase_done("3 (kernels)")
         # 4. end to end on small inputs, card vs CPU
         check_small_end_to_end("Cora")
@@ -4083,7 +4120,7 @@ def main() -> int:
                "segment_norm_bwd": ("segment_norm.cu", "stripe.py:412"),
                "fused_rhs_fwd": ("fused_fwd.cu", "fused_rhs.py:280"),
                "fused_rowmax": ("fused_fwd.cu", "fused_rhs.py:654"),
-               "fused_rhs_bwd": ("fused_rhs.cu", "fused_rhs.py:742"),
+               "fused_rhs_bwd": ("fused_bwd_edges.cu", "fused_rhs.py:742"),
                ROWS: ("fused_bwd_rows.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_sym": ("fused_rhs.cu", "fused_rhs.py:1341"),
                "dual_scatter": ("dual_scatter.cu", "stripe.py:599"),
@@ -4112,7 +4149,8 @@ def main() -> int:
                                           "fused_rhs.py:1341"),
                SHIFTED_BF16: ("fused_fwd.cu", "fused_rhs.py:280"),
                "fused_rowmax bf16": ("fused_fwd.cu", "fused_rhs.py:654"),
-               "fused_rhs_bwd bf16": ("fused_rhs.cu", "fused_rhs.py:742"),
+               "fused_rhs_bwd bf16": ("fused_bwd_edges.cu",
+                                      "fused_rhs.py:742"),
                ROWS_BF16: ("fused_bwd_rows.cu", "fused_rhs.py:742"),
                "fused_rhs_bwd_col bf16": ("fused_rhs.cu",
                                           "fused_rhs.py:1047"),

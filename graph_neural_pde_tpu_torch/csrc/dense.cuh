@@ -494,13 +494,31 @@ __device__ __forceinline__ void mma_stage(const MmaTile& t, float* xs,
   }
 }
 
+// What a projection stores: its sums as they are (the node tables). An
+// epilogue reads what it needs of an output row n once a tile (row(n),
+// issued with the tile's first stage, so that its loads overlap the
+// products) and then changes a lane's NT pairs of sums of that row,
+// columns c, c + 1 of n8 tile nt at c = c0 + 8 nt (apply).
+struct PlainStore {
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  template <int NT>
+  __device__ __forceinline__ void apply(const Row&, int,
+                                        float2 (&)[NT]) const {}
+};
+
+// The product of the tile's rows by the resident columns, started from the
+// bias (b0, b1 nullable: zero) and stored through the epilogue epi (see
+// PlainStore).
+template <typename Epi>
 __device__ __forceinline__ void project_mma(const MmaTile& t,
                                             const float* __restrict__ b0,
                                             const float* __restrict__ b1,
                                             float* __restrict__ out0,
                                             float* __restrict__ out1,
                                             int first_tile, int step,
-                                            int n_tiles, unsigned char* smem) {
+                                            int n_tiles, unsigned char* smem,
+                                            const Epi& epi) {
   constexpr int MT = 2, NT = 4;      // m16 tiles and n8 tiles a warp
   constexpr int kW = kMmaW, kStages = kProjStages, kRows = kMmaRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -519,8 +537,8 @@ __device__ __forceinline__ void project_mma(const MmaTile& t,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = t.c0 + n_base + nt * 8 + 2 * t4 + h;
-      bias[nt][h] =
-          c < t.cols ? __ldg((c < t.att ? b0 : b1) + c % t.att) : 0.0f;
+      const float* b = c < t.att ? b0 : b1;
+      bias[nt][h] = c < t.cols && b != nullptr ? __ldg(b + c % t.att) : 0.0f;
     }
   float acc[MT][NT][4];
 #pragma unroll
@@ -529,6 +547,7 @@ __device__ __forceinline__ void project_mma(const MmaTile& t,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = bias[nt][e % 2];
+  typename Epi::Row rows[MT][2];                // the tile's output rows
   mma_weights(t, ws, ksteps * kProjDepth);
   cp_async_commit();
 #pragma unroll
@@ -540,6 +559,14 @@ __device__ __forceinline__ void project_mma(const MmaTile& t,
     cp_async_commit();
   }
   for (int i = 0; i < total; ++i) {
+    if (i % ksteps == 0) {                      // a tile's first stage
+      const int n0 = (first_tile + (i / ksteps) * step) * kRows;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          rows[mt][h] = epi.row(n0 + m_base + mt * 16 + g + 8 * h);
+    }
     const int ahead = i + kStages - 1;
     if (ahead < total)
       mma_stage(t, xs0 + (ahead % kStages) * kXFloats,
@@ -602,27 +629,32 @@ __device__ __forceinline__ void project_mma(const MmaTile& t,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int n = n0 + m_base + mt * 16 + g + 8 * h;
+          const int c0 = t.c0 + n_base + 2 * t4;
+          float2 v[NT];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            v[nt] = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+            acc[mt][nt][2 * h] = bias[nt][0];
+            acc[mt][nt][2 * h + 1] = bias[nt][1];
+          }
+          if (n >= t.n_rows) continue;
+          epi.apply(rows[mt][h], c0, v);
 #pragma unroll
           for (int nt = 0; nt < NT; ++nt) {
             // an even column and its neighbour: one table (att is even
             // where t.vec), one 8-byte store
-            const int c = t.c0 + n_base + nt * 8 + 2 * t4;
+            const int c = c0 + nt * 8;
             float* o = (c < t.att ? out0 : out1) +
                        static_cast<size_t>(n) * t.att + c % t.att;
-            const float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-            if (n < t.n_rows) {
-              if (t.vec && c + 1 < t.cols) {
-                *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
-              } else {
-                if (c < t.cols) o[0] = v0;
-                if (c + 1 < t.cols)
-                  (c + 1 < t.att ? out0 : out1)[static_cast<size_t>(n) *
-                                                    t.att +
-                                                (c + 1) % t.att] = v1;
-              }
+            if (t.vec && c + 1 < t.cols) {
+              *reinterpret_cast<float2*>(o) = v[nt];
+            } else {
+              if (c < t.cols) o[0] = v[nt].x;
+              if (c + 1 < t.cols)
+                (c + 1 < t.att ? out0 : out1)[static_cast<size_t>(n) *
+                                                  t.att +
+                                              (c + 1) % t.att] = v[nt].y;
             }
-            acc[mt][nt][2 * h] = bias[nt][0];
-            acc[mt][nt][2 * h + 1] = bias[nt][1];
           }
         }
     }
@@ -653,7 +685,7 @@ __global__ void __launch_bounds__(kDenseThreads, 2)
     t.c0 = task * kMmaCols;
     project_mma(t, p.t0.b, p.t1.b, static_cast<float*>(p.t0.out),
                 static_cast<float*>(p.t1.out), tile, p.step, p.n_tiles,
-                dense_smem);
+                dense_smem, PlainStore());
   } else {
     const int table = task / p.groups;
     ProjTile t;

@@ -1,7 +1,8 @@
 // Device code shared by the fused attention kernels (fused_fwd.cu: K6, K7;
-// fused_rhs.cu: K8, K9, K17; norm1.cu: K12-K14): the per-head score families
-// and their derivatives, the warp-level sums and the row walks of K9 / K14
-// and of K6 / K13; the node projections into the q and k scratch tables and
+// fused_rhs.cu: K9, K17; fused_bwd_rows.cuh: K8; norm1.cu: K12-K14): the
+// per-head score families and their derivatives, the warp-level sums and
+// the row walks of K9 / K14 and of K6 / K13; the node projections into the
+// q and k scratch tables and
 // the deterministic two-pass reduction of dKw / dKb are dense.cuh's. Each
 // source that includes this header gets its own copy (anonymous
 // namespace), so the sources still compile independently, one nvcc each.
@@ -305,19 +306,6 @@ __device__ __forceinline__ float head_backward(const HeadScore& hs, float sm,
     sums->e3 += ds * hs.s * hs.dist_p / (sc.ls_p * sc.ls_p * sc.ls_p);
   }
   return u;
-}
-
-// row_sums[n] = the row's sums over its head lanes [kRowSums]
-__device__ __forceinline__ void write_row_sums(float* row_sums, int n,
-                                               int heads, int lane,
-                                               const RowSums& s) {
-  const float t[kRowSums] = {head_sum(s.ds, heads), head_sum(s.e0, heads),
-                             head_sum(s.e1, heads), head_sum(s.e2, heads),
-                             head_sum(s.e3, heads)};
-  if (lane == 0) {
-    float* r = row_sums + static_cast<size_t>(n) * kRowSums;
-    for (int i = 0; i < kRowSums; ++i) r[i] = t[i];
-  }
 }
 
 int row_blocks(int n_rows) {

@@ -1,14 +1,15 @@
-// K8 fused_rhs_bwd, K9 fused_rhs_bwd_sym, K17 fused_rhs_bwd_col: the
-// backward passes of one evaluation of the GRAND-nl attention right-hand
-// side over a row-sorted CSR graph. Its forward, K6 fused_rhs_fwd, and its
-// per-row score maxima, K7 fused_rowmax, are fused_fwd.cu (they share this
-// note and the device code of fused_common.cuh); the same over a per-edge
-// payload, K18, K19 and K8's per-head mode, is fused_payload.cu.
+// K9 fused_rhs_bwd_sym, K17 fused_rhs_bwd_col: backward passes of one
+// evaluation of the GRAND-nl attention right-hand side over a row-sorted
+// CSR graph. Its forward, K6 fused_rhs_fwd, and its per-row score maxima,
+// K7 fused_rowmax, are fused_fwd.cu; the general backward, K8
+// fused_rhs_bwd, is fused_bwd_rows.cu without its per-edge dxg and
+// fused_bwd_edges.cu with it (they share this note and the device code of
+// fused_common.cuh); the same over a per-edge payload, K18, K19 and K8's
+// per-head mode, is fused_payload.cu.
 //
 // Replace the TPU kernels of graph_neural_pde_tpu/ops/pallas/fused_rhs.py:
 // _rhs_kernel_ax / _fused_ax_call (K6), _rowmax_kernel / fused_rowmax (K7),
-// _bwd_kernel / _fused_bwd_mega_call (K8's separable mode; without its
-// per-edge dxg, the column plan's row side, fused_bwd_rows.cu), _bwd_sym_kernel
+// _bwd_kernel / _fused_bwd_mega_call (K8's separable mode), _bwd_sym_kernel
 // / _fused_bwd_mega_sym_call (K9) and _bwd_dx_col_kernel / _bwd_dx_col_call
 // (K17, the column-plan dx of make_fused_ax_colplan). Those walk a stripe
 // plan of padded edge chunks and do every gather, scatter and per-head sum
@@ -16,8 +17,9 @@
 // access and runs its grid in order. Neither holds here: these kernels walk
 // the CSR rowptr (K6 and K9 its row pieces, K17 the CSC view cut into
 // column pieces), gather their node rows themselves and keep every per-row
-// sum in the warp that owns the row (K6, K9, K17: the piece), so no [E, .]
-// operand is read and, but for K8's per-edge outputs, none is written.
+// sum in the warp that owns the row piece (K17: the column piece), so no
+// [E, .] operand is read and, but for K8's per-edge outputs, none is
+// written.
 //
 // For row n with edges e to columns c (see kernels/fused_rhs.py for the
 // full formulas):
@@ -41,18 +43,17 @@
 // that mostly come from the 50 MB L2 at Cora's size and from device
 // memory at arxiv scale, where the x table alone is 87 MB; the
 // arithmetic per edge is 2 ATT + 2 H D flop. K8 with dxg alone still
-// multiplies per edge (dxg[e] needs dk_e Kw^T) and is bound by that.
+// multiplies per edge (dxg[e] needs dk_e Kw^T): on the tensor cores, in a
+// pass of its own (fused_bwd_edges.cu).
 //
-// Design: K6, K9 and K8 without dxg walk row pieces in registers and score
-// every head on all lanes (fwd_walk_piece and sym_backward_piece in
-// fused_common.cuh, fused_bwd_rows.cu); K7, K8 with dxg and K17 (per
-// column piece, see its note) keep one warp a row,
-// four warps a block. Lanes span ATT for the node projections (Kw / Qw are
-// read through the L1 as coalesced rows); in K8 and K17 lane h owns head h
-// for the scores and their derivatives (d_k serial terms, so the order of
-// every sum is fixed) and lanes span D for the sums, which live with the
-// row's q and the edge's x_c and k_c in the warp's slice of dynamic shared
-// memory. There are no atomics anywhere.
+// Design: K6, K7, K9 and K8 walk row pieces in registers and score every
+// head on all lanes (fwd_walk_piece and sym_backward_piece in
+// fused_common.cuh, fused_bwd_rows.cuh, K7 in fused_fwd.cu), four warps a
+// block. K17 keeps a warp a column piece (see its note): lane h owns head
+// h for the scores and their derivatives (d_k serial terms, so the order
+// of every sum is fixed) and lanes span D for the sums, which live with
+// the row's q and the edge's x_c and k_c in the warp's slice of dynamic
+// shared memory. There are no atomics anywhere.
 // Sums over all edges (dKw, dKb, dgmax and the exp_kernel scalars) are
 // taken in two passes with a fixed order: K8 writes each edge's dk_e, K9
 // each node's dk summed over its reverse edges, K17 each column's dk
@@ -82,81 +83,7 @@
 
 namespace {
 
-// ------------------------------------------------------------- K8 and K9
-
-template <typename TC>
-__global__ void fused_rhs_bwd_kernel(Graph g, Proj p,
-                                     const TC* __restrict__ xcol,
-                                     const float* __restrict__ qtab,
-                                     const TC* __restrict__ ktab,
-                                     const float* __restrict__ kw_t,
-                                     const float* __restrict__ shifts,
-                                     const float* __restrict__ ct_ax,
-                                     const float* __restrict__ recip_p,
-                                     const float* __restrict__ ct_den,
-                                     float* __restrict__ dq,
-                                     float* __restrict__ dxg,
-                                     float* __restrict__ dke_out,
-                                     float* __restrict__ row_sums) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kWarpsPerBlock + warp;
-  if (n >= g.n_rows) return;
-  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  float* dkw = smem + static_cast<size_t>(warp) * (3 * D + 4 * A + kCoef * H);
-  float* xc = dkw + D;                          // dkw: this edge's dk Kw^T
-  float* cta = xc + D;                          // ct_ax[n]
-  float* q = cta + D;
-  float* ke = q + A;
-  float* dqa = ke + A;                          // dq[n] accumulator
-  float* dke = dqa + A;                         // this edge's dk
-  float* coef = dke + A;                        // [H, kCoef]
-  load_row(ct_ax, n, D, lane, cta);
-  load_row(qtab, n, A, lane, q);
-  for (int a = lane; a < A; a += kWarp) dqa[a] = 0.0f;
-  __syncwarp();
-  const float gmax = *p.gmax;
-  const ScoreParams sc = score_params(p);
-  const float rg = lane < H ? recip_p[static_cast<size_t>(n) * H + lane] : 0.0f;
-  const float ctd = lane < H ? ct_den[static_cast<size_t>(n) * H + lane] : 0.0f;
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  RowSums sums = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  for (int e = start; e < end; ++e) {
-    const int c = g.col[e];
-    load_row(xcol, c, D, lane, xc);
-    load_row(ktab, c, A, lane, ke);
-    __syncwarp();
-    float part = 0.0f;
-    for (int d = lane; d < D; d += kWarp) part = fmaf(cta[d], xc[d], part);
-    const float dot = warp_sum(part);
-    float w = 0.0f;
-    if (lane < H) {
-      const HeadScore hs = head_score(q, ke, lane, d_k, H, p.score, sc);
-      float sm = hs.s - gmax;
-      if (shifts) sm -= shifts[static_cast<size_t>(e) * H + lane];
-      w = rg * head_backward(hs, sm, p.square_plus, dot, rg, ctd, sc,
-                             p.score, H, coef + 5 * lane, &sums);
-    }
-    const float wsum = head_sum(w, H);          // sum_h u_h recip_p[n, h]
-    __syncwarp();
-    for (int a = lane; a < A; a += kWarp) {
-      const float* c = coef + 5 * (a / d_k);    // a head or its position half
-      const float qq = q[a] - c[3], kk = ke[a] - c[4];
-      dqa[a] += c[0] * kk - c[1] * qq;
-      const float dk = c[0] * qq - c[2] * kk;
-      dke[a] = dk;
-      dke_out[static_cast<size_t>(e) * A + a] = dk;
-    }
-    __syncwarp();
-    project(dke, kw_t, nullptr, A, D, lane, dkw);
-    float* xo = dxg + static_cast<size_t>(e) * D;
-    for (int d = lane; d < D; d += kWarp) xo[d] = fmaf(wsum, cta[d], dkw[d]);
-    __syncwarp();
-  }
-  for (int a = lane; a < A; a += kWarp)
-    dq[static_cast<size_t>(n) * A + a] = dqa[a];
-  write_row_sums(row_sums, n, H, lane, sums);
-}
+// ---------------------------------------------------------------------- K9
 
 // K9: the symmetric walk of fused_common.cuh (sym_backward_piece) with the
 // softmax over rows, and its merge of multi-piece rows
@@ -330,41 +257,6 @@ __global__ void fused_rhs_bwd_col_merge_kernel(
   }
 }
 
-// K8's operands beside the graph and the tables (see gnpde_fused_rhs_bwd)
-struct Bwd {
-  const void *shifts, *ct_ax, *recip_p, *ct_den, *kw_t;
-  void *dq, *dxg, *dke, *row_sums, *partials;
-  int n_slots, reduce_blocks;
-};
-
-// K8's walk over the column table xcol of type TC (its k table too), then
-// the first pass of dKw / dKb over the column table's rows at each slot's
-// column
-template <typename TC>
-cudaError_t launch_bwd(Graph g, Proj p, const void* xcol, const void* qtab,
-                       const void* ktab, const Bwd& b, cudaStream_t s) {
-  const size_t bytes = sizeof(float) * kWarpsPerBlock *
-                       (3 * p.dim + 4 * p.att + kCoef * p.heads);
-  cudaError_t err = allow_shared(fused_rhs_bwd_kernel<TC>, bytes);
-  if (err != cudaSuccess) return err;
-  fused_rhs_bwd_kernel<TC><<<row_blocks(g.n_rows), kWarpsPerBlock * kWarp,
-                             bytes, s>>>(
-      g, p, static_cast<const TC*>(xcol), static_cast<const float*>(qtab),
-      static_cast<const TC*>(ktab), static_cast<const float*>(b.kw_t),
-      static_cast<const float*>(b.shifts), static_cast<const float*>(b.ct_ax),
-      static_cast<const float*>(b.recip_p),
-      static_cast<const float*>(b.ct_den), static_cast<float*>(b.dq),
-      static_cast<float*>(b.dxg), static_cast<float*>(b.dke),
-      static_cast<float*>(b.row_sums));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  launch_outer_reduce(static_cast<const TC*>(xcol), g.col,
-                      static_cast<const float*>(b.dke),
-                      static_cast<float*>(b.partials), b.n_slots,
-                      b.reduce_blocks, p.dim, p.att, s);
-  return cudaGetLastError();
-}
-
 // K17's operands beside the graph, the pieces and the tables (see
 // gnpde_fused_rhs_bwd_col)
 struct Col {
@@ -418,45 +310,10 @@ cudaError_t launch_bwd_col(Graph g, Pieces pc, Proj p, const void* xcol,
 // flags: bits 0-2 the score family, bit 3 squareplus. var and ls hold one
 // element for exp_kernel and two (features, positions) for
 // exp_kernel_beltrami, whose att is the packed width of both halves.
-// K8, K9 and K17 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16:
+// K9 and K17 take `tables` (kTablesF32, kTablesF32Bf16, kTablesBf16:
 // see launch_tables) and the column table xcol, ignored with kTablesF32;
 // with a bfloat16 column table, ktab holds bfloat16 values and kw, kb are
 // the bf16-rounded projection.
-
-// kw_t is Kw^T [att, dim] (of the bf16-rounded Kw with a bfloat16 column
-// table: the k table's derivative). dke [n_slots, att] and row_sums
-// [n_rows, 5] are scratch the wrapper reduces; partials [reduce_blocks,
-// dim + 1, att] are written whole (dense.cuh's outer_reduce_kernel), and
-// dKw is reduced over the column table. Nullable: var, ls, shifts. K8 without dxg (the column-plan
-// backward, where K17 forms x's gradient, dKw and dKb per column) is
-// gnpde_fused_rhs_bwd_rows (fused_bwd_rows.cu).
-extern "C" int gnpde_fused_rhs_bwd(
-    const void* rowptr, const void* col, const void* x, const void* xcol,
-    const void* qw, const void* qb, const void* kw, const void* kb,
-    const void* gmax, const void* var, const void* ls, const void* shifts,
-    const void* ct_ax, const void* recip_p, const void* ct_den,
-    const void* kw_t, void* qtab, void* ktab, void* dq, void* dxg, void* dke,
-    void* row_sums, void* partials, int n_rows, int dim, int att, int heads,
-    int flags, int n_slots, int reduce_blocks, int tables, void* stream) {
-  if (!valid_tables(tables) || dxg == nullptr || dke == nullptr ||
-      partials == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaError_t err = launch_tables(tables, x, xcol, qw, qb, kw, kb, qtab,
-                                    ktab, n_rows, dim, att, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Graph g = make_graph(rowptr, col, n_rows);
-    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
-    const Bwd b = {shifts, ct_ax, recip_p, ct_den, kw_t, dq, dxg, dke,
-                   row_sums, partials, n_slots, reduce_blocks};
-    err = tables == kTablesF32
-              ? launch_bwd<float>(g, p, x, qtab, ktab, b, s)
-              : launch_bwd<__nv_bfloat16>(g, p, xcol, qtab, ktab, b, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // K9 over the row pieces piece_ptr, piece_row, piece_slot [n_pieces]
 // and multi_row, multi_ptr [n_multi (+ 1)] (ops/graph.py, ColPieces of

@@ -46,7 +46,8 @@ _ENTRY_POINTS = {
     # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
     "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
     # The fused RHS kernels (csrc/fused_fwd.cu: K6, K7; csrc/fused_rhs.cu:
-    # K8, K9, K17). qtab and ktab are scratch tables [n_rows, att]; kw_t is
+    # K9, K17; csrc/fused_bwd_rows.cu, csrc/fused_bwd_edges.cu: K8 without
+    # and with dxg). qtab and ktab are scratch tables [n_rows, att]; kw_t is
     # Kw transposed. K6-K9 and K17 take a TABLES code: 0 float32 (x is the
     # column table too), 1 x float32 with the bfloat16 column table xcol, 2
     # both bfloat16.
@@ -57,14 +58,19 @@ _ENTRY_POINTS = {
     # att, heads, flags, vec (dim % 4 == 0 and the D-wide rows 16-byte
     # aligned), tables, stream
     "gnpde_fused_rhs_fwd": [_PTR] * 23 + [_INT] * 9 + [_PTR],
-    # rowptr, col, x, xcol, qw, qb, kw, kb, qtab, ktab, smax, n_rows, dim,
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces), col, x, xcol, qw, qb, kw, kb, qtab, ktab, smax, part
+    # (nullable without multi-piece rows), n_rows, n_pieces, n_multi, dim,
     # att, heads, tables, stream
-    "gnpde_fused_rowmax": [_PTR] * 11 + [_INT] * 5 + [_PTR],
-    # rowptr, col, x, xcol, qw, qb, kw, kb, gmax, var, ls, shifts (the last
-    # three nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg,
-    # dke, row_sums, partials, n_rows, dim, att, heads, flags, n_slots,
-    # reduce_blocks, tables, stream
-    "gnpde_fused_rhs_bwd": [_PTR] * 23 + [_INT] * 8 + [_PTR],
+    "gnpde_fused_rowmax": [_PTR] * 16 + [_INT] * 7 + [_PTR],
+    # K8 with dxg (csrc/fused_bwd_edges.cu): piece_ptr, piece_row,
+    # piece_slot, multi_row, multi_ptr (the rows' pieces), row, col, x,
+    # xcol, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
+    # nullable), ct_ax, recip_p, ct_den, kw_t, qtab, ktab, dq, dxg, dke, w,
+    # row_sums, part (nullable without multi-piece rows), partials, n_rows,
+    # n_pieces, n_multi, dim, att, heads, flags, n_slots, reduce_blocks,
+    # vec, tables, stream
+    "gnpde_fused_rhs_bwd": [_PTR] * 30 + [_INT] * 11 + [_PTR],
     # K8 without dxg (csrc/fused_bwd_rows.cu): piece_ptr, piece_row,
     # piece_slot, multi_row, multi_ptr (the rows' pieces), col, x, xcol,
     # qw, qb, kw, kb, gmax, var, ls, shifts (the last three nullable),

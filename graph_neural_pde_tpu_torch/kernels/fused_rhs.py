@@ -28,12 +28,14 @@ each, the feature factor's and the position factor's:
   ``f = alpha (ax - x)``; replaces ``ops/pallas/fused_rhs.py``
   ``_rhs_kernel_ax`` / ``_fused_ax_call``.
 * K7 ``fused_rowmax``      -> per-row, per-head maxima of the scaled-dot
-  scores (edgeless rows 0); replaces ``_rowmax_kernel`` / ``fused_rowmax``.
+  scores (edgeless rows 0), over K6's row pieces; replaces
+  ``_rowmax_kernel`` / ``fused_rowmax``.
 * K8 ``fused_rhs_bwd``     -> (dq, per-edge dxg, dkw, dkb, dgmax, dvar, dls)
-  from the cotangents, or without the per-edge dxg and dk (``want_dxg=False``:
-  dq, dgmax and the score scalars, a walk over the row pieces of its own,
-  ``csrc/fused_bwd_rows.cu``); replaces ``_bwd_kernel`` /
-  ``_fused_bwd_mega_call``.
+  from the cotangents (a walk over the row pieces that also writes each
+  edge's dk_e, then dxg on the tensor cores, ``csrc/fused_bwd_edges.cu``),
+  or without the per-edge dxg and dk (``want_dxg=False``: dq, dgmax and
+  the score scalars, the same walk alone, ``csrc/fused_bwd_rows.cu``);
+  replaces ``_bwd_kernel`` / ``_fused_bwd_mega_call``.
 * K9 ``fused_rhs_bwd_sym`` -> the same with x[col]'s cotangent reduced into
   ``dxrow[n]`` through each edge's reverse edge, for symmetric edge
   multisets; replaces ``_bwd_sym_kernel`` / ``_fused_bwd_mega_sym_call``.
@@ -80,11 +82,12 @@ cotangents and outputs stay float32; ``fused_rhs_aggregate`` returns the
 gradients of x_n and x_g in their own dtypes, each cast once at the end,
 as the JAX package's ``_fused_bwd`` does.
 
-The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K6
-and K9 walk its rows cut into ``Graph.row_pieces``, K17 its CSC view's
-column pieces); the kernels gather their node rows themselves (see
-``csrc/fused_rhs.cu``, ``csrc/fused_fwd.cu``, ``csrc/fused_common.cuh``
-and ``csrc/fused_payload.cu`` for what bounds them on the H100). On a
+The graph is the row-sorted CSR prefix ``Graph.sort_by_row`` leaves (K6-K9
+walk its rows cut into ``Graph.row_pieces``, K17 its CSC view's column
+pieces); the kernels gather their node rows themselves (see
+``csrc/fused_rhs.cu``, ``csrc/fused_fwd.cu``, ``csrc/fused_common.cuh``,
+``csrc/fused_bwd_rows.cuh``, ``csrc/fused_bwd_edges.cu`` and
+``csrc/fused_payload.cu`` for what bounds them on the H100). On a
 CUDA tensor a
 wrapper launches its kernel or raises; on a CPU tensor it runs the plain
 PyTorch version beside it, which defines the semantics. ``fused_rhs_ax``,
@@ -655,12 +658,15 @@ def fused_rhs_fwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, *, heads: int,
 
 
 def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
-                 xcol=None):
+                 xcol=None, pieces: Optional[ColPieces] = None):
     """K7: [N, H] per-row maxima of the scaled-dot scores, 0 on edgeless
-    rows: the shifts of the exact softmax. Its kernel scores each edge as
-    K6's does (the same tables, with the bfloat16 column table ``xcol``
-    K6's bf16 k table, and the same order of every sum), so each row's
-    largest shifted score is exactly 0. Not differentiable."""
+    rows: the shifts of the exact softmax. Its kernel walks the rows cut
+    into ``pieces`` (``Graph.row_pieces``; built from ``rowptr`` when None,
+    see :func:`fused_rhs_fwd`) and scores each edge as K6's does (the same
+    tables, with the bfloat16 column table ``xcol`` K6's bf16 k table, and
+    the same order of every sum), so each row's largest shifted score is
+    exactly 0; the pieces of a longer row are merged in piece order. Not
+    differentiable."""
     _check("fused_rowmax", rowptr, row, col, x, qw, qb, kw, kb, heads,
            "scaled_dot", xcol=xcol)
     if x.device.type == "cpu":
@@ -668,14 +674,21 @@ def fused_rowmax(rowptr, row, col, x, qw, qb, kw, kb, *, heads: int,
                                   heads=heads, xcol=xcol)
     n, d = x.shape
     att = qw.shape[1]
-    smax = torch.empty((n, heads), dtype=torch.float32, device=x.device)
+    dev = x.device
+    pc = _row_pieces(fused_rowmax, rowptr, pieces, n, dev)
+    smax = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    # scratch: the pieces' maxima
+    part = (torch.empty((pc.n_slots, heads), dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
     tabs = _node_tables(x, att)
     kw, kb = _col_projection(kw, kb, xcol)
-    build.launch("fused_rowmax", x.device, rowptr.data_ptr(), col.data_ptr(),
-                 x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
-                 kw.data_ptr(), kb.data_ptr(), tabs[0].data_ptr(),
-                 tabs[1].data_ptr(), smax.data_ptr(), n, d, att, heads,
-                 _tables(x, xcol))
+    build.launch("fused_rowmax", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+                 pc.slot.data_ptr(), pc.multi_col.data_ptr(),
+                 pc.multi_ptr.data_ptr(), col.data_ptr(), x.data_ptr(),
+                 _ptr(xcol), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
+                 kb.data_ptr(), tabs[0].data_ptr(), tabs[1].data_ptr(),
+                 smax.data_ptr(), _ptr(part), n, pc.n_pieces, pc.n_multi, d,
+                 att, heads, _tables(x, xcol))
     fused_rowmax.launches += 1
     count_fused(_tables(x, xcol), 1)
     fused_rowmax.bf16_launches += xcol is not None
@@ -724,20 +737,23 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                   want_dxg: bool = True, xcol=None,
                   pieces: Optional[ColPieces] = None, tabs=None):
     """K8: the general backward (see :func:`fused_rhs_bwd_plain` for the
-    formulas and the return value). Without ``want_dxg`` it forms neither
-    the per-edge dxg nor dk_e, and so neither dkw nor dkb: the form that
-    K17 completes. That form walks the rows cut into ``pieces``
+    formulas and the return value), over the rows cut into ``pieces``
     (``Graph.row_pieces``; built from ``rowptr`` when None, see
-    :func:`fused_rhs_fwd`) in a kernel of its own
-    (``csrc/fused_bwd_rows.cu``), counted in
-    ``fused_rhs_bwd.rows_launches`` (``bf16_rows_launches`` on the
-    bfloat16 column table), and takes ``tabs`` (CUDA only): the q and k
-    tables of a :func:`node_tables` call, which it fills for K17 to read.
-    The mode with dxg walks whole rows and counts in ``launches`` and
-    ``bf16_launches``. With the bfloat16 column table ``xcol`` (K6's) it
-    reads the gathered values and k there, and dxg and dkw are that
-    table's. The reductions over all edges take two passes with fixed
-    orders, so two calls agree bit for bit."""
+    :func:`fused_rhs_fwd`). Without ``want_dxg`` it forms neither the
+    per-edge dxg nor dk_e, and so neither dkw nor dkb: the form that K17
+    completes, counted in ``fused_rhs_bwd.rows_launches``
+    (``bf16_rows_launches`` on the bfloat16 column table), which takes
+    ``tabs`` (CUDA only): the q and k tables of a :func:`node_tables`
+    call, which it fills for K17 to read. With dxg (the exact re-solve's
+    backward, counted in ``launches`` and ``bf16_launches``) the same walk
+    (``csrc/fused_bwd_rows.cuh``) also writes each edge's dk_e and w_e =
+    sum_h u_eh recip_p[n, h], a pass on the tensor cores forms dxg[e] =
+    w_e ct_ax[n] + dk_e Kw^T for every slot (zeros past the valid edges)
+    and dkw, dkb are reduced over the slots (``csrc/fused_bwd_edges.cu``).
+    With the bfloat16 column table ``xcol`` (K6's) it reads the gathered
+    values and k there, and dxg and dkw are that table's. The reductions
+    over all edges take two passes with fixed orders, so two calls agree
+    bit for bit."""
     cap = row.shape[0]
     _check("fused_rhs_bwd", rowptr, row, col, x, qw, qb, kw, kb, heads,
            score, var, ls,
@@ -755,14 +771,14 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
     # scratch: each row's sums of ds and of the score scalars' terms
     row_sums = torch.empty((n, ROW_SUMS), dtype=torch.float32, device=dev)
     kw, kb = _col_projection(kw, kb, xcol)
+    pc = _row_pieces(fused_rhs_bwd, rowptr, pieces, n, dev)
+    # scratch: the pieces' partial sums, dq and the row sums
+    part = (torch.empty((pc.n_slots, att + ROW_SUMS), dtype=torch.float32,
+                        device=dev) if pc.n_multi else None)
+    table = x if xcol is None else xcol
+    vec = _aligned(d, table, ct_ax)
     if not want_dxg:
-        pc = _row_pieces(fused_rhs_bwd, rowptr, pieces, n, dev)
-        # scratch: the pieces' partial sums, dq and the row sums
-        part = (torch.empty((pc.n_slots, att + ROW_SUMS),
-                            dtype=torch.float32, device=dev)
-                if pc.n_multi else None)
         tabs = tabs or node_tables(x, att)
-        table = x if xcol is None else xcol
         project = tabs.project()
         build.launch("fused_rhs_bwd_rows", dev, pc.ptr.data_ptr(),
                      pc.col.data_ptr(), pc.slot.data_ptr(),
@@ -774,27 +790,31 @@ def fused_rhs_bwd(rowptr, row, col, x, qw, qb, kw, kb, gmax, ct_ax, recip_p,
                      tabs.q.data_ptr(), tabs.k.data_ptr(), dq.data_ptr(),
                      row_sums.data_ptr(), _ptr(part), n, pc.n_pieces,
                      pc.n_multi, d, att, heads, _flags(score, square_plus),
-                     _aligned(d, table, ct_ax), project, _tables(x, xcol))
+                     vec, project, _tables(x, xcol))
         fused_rhs_bwd.rows_launches += 1
         count_fused(_tables(x, xcol), project)
         fused_rhs_bwd.bf16_rows_launches += xcol is not None
         return (dq, None, None, None) + _row_totals(row_sums, score, var, ls)
-    _shared_bytes("fused_rhs_bwd", 3 * d + 4 * att + 10 * heads)
-    # scratch: every slot's dk_e (0 on padding, which the reduction also
-    # walks: the valid count stays on the device)
+    # dxg is written whole; dke (zeroed on the padding by the kernel) and
+    # w are scratch, and so are the partial tiles of dkw, dkb
     blocks, partials = _partials(cap, d, att, dev)
-    dxg = torch.zeros((cap, d), dtype=torch.float32, device=dev)
-    dke = torch.zeros((cap, att), dtype=torch.float32, device=dev)
+    dxg = torch.empty((cap, d), dtype=torch.float32, device=dev)
+    dke = torch.empty((cap, att), dtype=torch.float32, device=dev)
+    w = torch.empty((cap,), dtype=torch.float32, device=dev)
     tabs, kw_t = _node_tables(x, att), kw.t().contiguous()
-    build.launch("fused_rhs_bwd", dev, rowptr.data_ptr(), col.data_ptr(),
+    build.launch("fused_rhs_bwd", dev, pc.ptr.data_ptr(), pc.col.data_ptr(),
+                 pc.slot.data_ptr(), pc.multi_col.data_ptr(),
+                 pc.multi_ptr.data_ptr(), row.data_ptr(), col.data_ptr(),
                  x.data_ptr(), _ptr(xcol), qw.data_ptr(), qb.data_ptr(),
                  kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(var),
                  _ptr(ls), _ptr(shifts), ct_ax.data_ptr(),
                  recip_p.data_ptr(), ct_den.data_ptr(), kw_t.data_ptr(),
                  tabs[0].data_ptr(), tabs[1].data_ptr(), dq.data_ptr(),
-                 dxg.data_ptr(), dke.data_ptr(), row_sums.data_ptr(),
-                 partials.data_ptr(), n, d, att, heads,
-                 _flags(score, square_plus), cap, blocks, _tables(x, xcol))
+                 dxg.data_ptr(), dke.data_ptr(), w.data_ptr(),
+                 row_sums.data_ptr(), _ptr(part), partials.data_ptr(), n,
+                 pc.n_pieces, pc.n_multi, d, att, heads,
+                 _flags(score, square_plus), cap, blocks, vec,
+                 _tables(x, xcol))
     fused_rhs_bwd.launches += 1
     count_fused(_tables(x, xcol), 1, reduce=True)
     fused_rhs_bwd.bf16_launches += xcol is not None
@@ -833,6 +853,35 @@ def fwd_design(d: int, att: int, heads: int, score: str) -> dict:
     walks its piece once a group of ``kh``)."""
     design = sym_design(d, att, heads, score)
     return dict(design, kh=2 if heads <= 2 or design["kd"] == 2 else 8)
+
+
+# K7's edges whose k rows are in flight at once (csrc/fused_fwd.cu,
+# kRowmaxBatch)
+ROWMAX_BATCH = 4
+# the dxg pass's tile (csrc/dense.cuh: kMmaRows edges, kMmaCols columns of
+# D, kProjDepth columns of ATT a stage)
+DXG_ROWS, DXG_COLS, DXG_DEPTH = 128, 64, 32
+
+
+def rowmax_design(att: int, heads: int) -> dict:
+    """What K7's walk runs at these widths (csrc/fused_fwd.cu,
+    launch_rowmax): K6's ``ka`` and way of summing a head
+    (:func:`sym_design`, scaled_dot) and ``batch``, the edges of a row
+    piece whose k rows are loaded and summed together."""
+    design = sym_design(1, att, heads, "scaled_dot")
+    return dict(ka=design["ka"], head_sum=design["head_sum"],
+                batch=ROWMAX_BATCH)
+
+
+def dxg_design(d: int, att: int, heads: int, score: str) -> dict:
+    """What K8 with dxg runs at these widths: its walk's tiles
+    (:func:`sym_design`, the walk of K8 without dxg) and the dxg pass's
+    tensor-core tile (csrc/fused_bwd_edges.cu, launch_edge_project):
+    ``rows`` edges by ``cols`` columns of D, ``groups`` column groups of D,
+    ``ksteps`` stages of ``DXG_DEPTH`` columns of ATT (Kw^T resident)."""
+    return dict(sym_design(d, att, heads, score), rows=DXG_ROWS,
+                cols=DXG_COLS, groups=-(-d // DXG_COLS),
+                ksteps=-(-att // DXG_DEPTH))
 
 
 def sym_node_table(recip_p: torch.Tensor, ct_den: torch.Tensor):
@@ -1191,6 +1240,7 @@ fused_rhs_bwd_heads.bf16_launches = 0
 # the row pieces the walks over rows built from rowptr because their caller
 # handed none (a copy to the host; 0 on every model path)
 fused_rhs_fwd.piece_builds = 0
+fused_rowmax.piece_builds = 0
 fused_rhs_bwd.piece_builds = 0
 fused_rhs_bwd_sym.piece_builds = 0
 
@@ -1286,7 +1336,8 @@ class _FusedAx(torch.autograd.Function):
         else:
             dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd(
                 *csr, x, qw, qb, kw, kb, gmax, ct_ax, recip_p, ct_den,
-                shifts=shifts, xcol=column_table(x, payload), **kwargs)
+                shifts=shifts, xcol=column_table(x, payload),
+                pieces=g.row_pieces, **kwargs)
             dx = column_sum(g, dxg)
         dx = dx + dq @ qw.T
         return (x.float().T @ dq, torch.sum(dq, dim=0), dkw, dkb,

@@ -352,7 +352,8 @@ def _transformer_rhs_fused(func, aux: FuncAux, x: torch.Tensor, cfg: Config,
         with torch.no_grad():
             xc = x.contiguous()
             smax = fused_rowmax(g.rowptr, g.row, g.col, xc, qw, qb, kw, kb,
-                                heads=h, xcol=column_table(xc, pay))
+                                heads=h, xcol=column_table(xc, pay),
+                                pieces=g.row_pieces)
             shifts = smax[g.row.long()]
         ax, den = fused_rhs_ax(g, h, False, score, qw, qb, kw, kb, x, gmax,
                                shifts, sp, payload_dtype=pay)

@@ -57,7 +57,13 @@ KERNEL_NAMES = tuple(k.__name__ for k in kernels.KERNELS) + (
     "fused_rhs_bwd_rows",) + tuple(k.__name__ for k in kernels.DENSE_KERNELS)
 # a wrapper's second pass (or passes): its time counts to the wrapper, its
 # launches not
-SECOND_PASSES = {"fused_rhs_bwd_col": "fused_rhs_bwd_col_merge_kernel",
+# a wrapper whose first kernel is not named <wrapper>_kernel: K8 with dxg's
+# walk (K8 without dxg is "fused_rhs_bwd_rows")
+FIRST_PASS = {"fused_rhs_bwd": "fused_rhs_bwd_edges_kernel"}
+SECOND_PASSES = {"fused_rhs_bwd": ("fused_rhs_bwd_edges_merge_kernel",
+                                   "edge_project_kernel"),
+                 "fused_rowmax": "fused_rowmax_merge_kernel",
+                 "fused_rhs_bwd_col": "fused_rhs_bwd_col_merge_kernel",
                  "fused_rhs_fwd": "fused_rhs_fwd_merge_kernel",
                  "fused_rhs_bwd_rows": "fused_rhs_bwd_rows_merge_kernel",
                  "fused_rhs_bwd_sym": "fused_rhs_bwd_sym_merge_kernel",
@@ -147,7 +153,7 @@ def summarise(phase_s, prof, epochs: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     ours = {}
     for label in KERNEL_NAMES:
-        needle = f"{label}_kernel"
+        needle = FIRST_PASS.get(label, f"{label}_kernel")
         hits = [(n, c, t) for n, (c, t) in by_name.items() if needle in n]
         launches = sum(c for _, c, _ in hits)
         second = SECOND_PASSES.get(label, ())
