@@ -1280,7 +1280,7 @@ def oracle_graph(seed: int, n: int = 512, e: int = 4096):
 
 def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
                             timed=True, dev="cuda", payload=None,
-                            row_bf16=False):
+                            row_bf16=False, square_plus=False):
     """K18 ``fused_aggregate`` (and with per-edge shifts), K19
     ``fused_score_max`` (scaled_dot) and K8's per-head mode
     ``fused_rhs_bwd_heads`` (every output, against the plain version in
@@ -1291,7 +1291,8 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
     ``payload=torch.bfloat16`` (the JAX package's bf16 payload) draws x_g
     in bfloat16, beside node rows x in float32 or (``row_bf16``, the bf16
     ODE state) in bfloat16; the plain versions widen them where they read
-    them, and the rows are named "<kernel> bf16"."""
+    them, and the rows are named "<kernel> bf16". ``square_plus``: u is
+    squareplus of the shifted score, not its exp."""
     import torch
     from graph_neural_pde_tpu_torch import kernels as K
     g, randn, csr, ops, kw_f = rhs_operands(g, d, att, h, score, seed, dev)
@@ -1311,11 +1312,14 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
     q = (x.float() @ qw + qb).contiguous()
     agg = (rowptr, row, x, x_g, qw, qb, kw, kb, gmax)
     bwd = agg + (ct_num, ct_den)
+    # K18's and the per-head mode's walks take the graph's row pieces
+    kw_f = dict(kw_f, pieces=g.scatter_pieces, square_plus=square_plus)
+    kw_p = {k: v for k, v in kw_f.items() if k != "pieces"}
 
     def plain64(**kw):
         """K8's per-head plain version in float64 on the same inputs."""
         kw = {k: (v.double() if torch.is_tensor(v) else v)
-              for k, v in kw.items()}
+              for k, v in kw.items() if k != "pieces"}
         out = K.fused_rhs_bwd_heads_plain(
             *(t.double() if t.is_floating_point() else t for t in bwd), **kw)
         return tuple(o.float() for o in out if o is not None)
@@ -1333,15 +1337,15 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
     cases = [
         ("fused_aggregate", "num, den",
          lambda: K.fused_aggregate(*agg, **kw_f),
-         lambda: K.fused_aggregate_plain(*agg, **kw_f),
+         lambda: K.fused_aggregate_plain(*agg, **kw_p),
          (base_bytes + 4 * n * (h * d + h), agg_ops), None),
         ("fused_aggregate", "num, den with per-edge shifts",
          lambda: K.fused_aggregate(*agg, shifts=shifts, **kw_f),
-         lambda: K.fused_aggregate_plain(*agg, shifts=shifts, **kw_f),
+         lambda: K.fused_aggregate_plain(*agg, shifts=shifts, **kw_p),
          (base_bytes + 4 * (nv * h + n * (h * d + h)), agg_ops), None),
         ("fused_rhs_bwd_heads", "dq, dxg, dkw, dkb, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd_heads(*bwd, **kw_f)),
-         lambda: some(K.fused_rhs_bwd_heads_plain(*bwd, **kw_f)),
+         lambda: some(K.fused_rhs_bwd_heads_plain(*bwd, **kw_p)),
          (base_bytes + 4 * (n * (h * d + h) + n * att + nv * d + d * att
                             + att), bwd_ops),
          lambda: plain64(**kw_f)),
@@ -1354,15 +1358,24 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
                                             heads=h),
             (4 * (n + 1 + n * att + d * att + att + 1) + xg_bytes, max_ops),
             None))
-    tag = ""
+    tag = " squareplus" if square_plus else ""
     if bf16:
         cases = [(kname + " bf16", *c) for kname, *c in cases]
-        tag = " row bf16" if row_bf16 else " f32 row"
+        tag += " row bf16" if row_bf16 else " f32 row"
     dims = (f"N={n} E={nv} D={d} ATT={att} H={h} {score} payload [E, D]"
             f"{' bf16' if bf16 else ''}{tag}")
+    if score == "scaled_dot":
+        print_payload_design(shape_name, dims, g, x_g, h, att)
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       reference=ref, timed=timed)
             for kname, what, kern, plain, work, ref in cases]
+    if score == "scaled_dot" and timed:
+        print(f"[payload] launches of one call by pass @ {shape_name} "
+              f"{dims}: fused_aggregate "
+              f"{launches_by_pass(lambda: K.fused_aggregate(*agg, **kw_f))}; "
+              f"fused_rhs_bwd_heads "
+              f"{launches_by_pass(lambda: K.fused_rhs_bwd_heads(*bwd, **kw_f))}",
+              flush=True)
     for kname, what, kern, *_ in cases:
         first, again = kern(), kern()
         if not isinstance(first, tuple):
@@ -1375,6 +1388,48 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
           f"{shape_name} {score}{' bf16 payload' if bf16 else ''}{tag}: two "
           f"launches bit-identical in every output", flush=True)
     return rows
+
+
+def print_payload_design(shape_name, dims, g, x_g, h, att):
+    """The scaled-dot payload walks' design at these widths over ``g``:
+    the lane group and vector width (``kernels/lanes.py``, payload_walk),
+    the row pieces (``Graph.scatter_pieces``) and the per-head mode's node
+    pass (``kernels/fused_rhs.py``, node_design and node_ranges)."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.dense import sm_count
+    from graph_neural_pde_tpu_torch.kernels.fused_rhs import (node_design,
+                                                              node_ranges)
+    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+    group, vec = lanes("payload_walk", x_g.shape[1], x_g, heads=h)
+    pc = g.scatter_pieces
+    node = node_design(x_g.shape[1], att, h)
+    ranges = node_ranges(g.num_nodes, x_g.shape[1], att, h,
+                         sm_count(torch.device("cuda")))
+    print(f"[payload] design @ {shape_name} {dims}: fold in the walk, lanes "
+          f"G={group} V={vec}, {pc.n_pieces} row pieces ({pc.n_multi} rows "
+          f"of several, longest row {pc.longest} edges); node pass "
+          f"{ranges} ranges x {h * node['col_blocks']} blocks of "
+          f"{node['threads']} threads, R={node['rows']} JC={node['cols']}, "
+          f"{node['shared']} B shared", flush=True)
+
+
+def launches_by_pass(fn) -> dict:
+    """The launches one call of ``fn`` (K18 or the per-head mode) makes by
+    pass: the walk (with its merge), q's projection, and the per-head
+    mode's node pass (dq, dKw, dKb, dgmax)."""
+    from graph_neural_pde_tpu_torch import kernels
+    counters = {"walk": [kernels.fused_aggregate, kernels.fused_rhs_bwd_heads],
+                "node_project": [kernels.node_project],
+                "node_pass": [kernels.fused_rhs_bwd_heads]}
+    attr = {"walk": "walk_launches", "node_project": "launches",
+            "node_pass": "node_launches"}
+
+    def total(key):
+        return sum(getattr(k, attr[key]) for k in counters[key])
+
+    before = {key: total(key) for key in counters}
+    fn()
+    return {key: total(key) - before[key] for key in counters}
 
 
 def check_column_rhs_kernels(shape_name, g, d, att, h, score, seed,
@@ -3419,6 +3474,19 @@ def main() -> int:
                                             timed=False)
         rows += check_aggregate_kernels("bench-oracle", oracle_graph(0), 128,
                                         64, 2, "scaled_dot", args.seed + 115)
+        # ... at the Cora GRAND-nl widths over the hub row of degree 360,
+        # which the scaled-dot walks cut into row pieces and merge, and
+        # with squareplus in place of the exp (small, and over the hub)
+        rows += check_aggregate_kernels("cora-hub", cora_hub, nl.hidden_dim,
+                                        nl.attention_dim, nl.heads,
+                                        "scaled_dot", args.seed + 118)
+        for name, graph, d_sp, att_sp, h_sp in (
+                ("cora-small", cora_g, 16, 16, 4),
+                ("cora-hub", cora_hub, nl.hidden_dim, nl.attention_dim,
+                 nl.heads)):
+            rows += check_aggregate_kernels(name, graph, d_sp, att_sp, h_sp,
+                                            "scaled_dot", args.seed + 119,
+                                            timed=False, square_plus=True)
         # ... and over a bfloat16 payload (the JAX bench's oracle feeds P8,
         # P9 and P11 one) beside a float32 and a bfloat16 row side: every
         # family small, the oracle's shape timed
@@ -3722,7 +3790,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         print_slower_than_library(rows)
-        print_slower_than_plain(rows)
+        print_slower_than_plain(rows, names=("fused_rhs_bwd", "fused_rowmax",
+                                             "fused_aggregate",
+                                             "fused_rhs_bwd_heads"))
         phase_done("3 (kernels)")
         # 4. end to end on small inputs, card vs CPU
         check_small_end_to_end("Cora")
@@ -4131,9 +4201,9 @@ def main() -> int:
                "blocked_spmm": ("blocked.cu", "spmm_blocked.py:76"),
                "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135"),
                "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047"),
-               "fused_aggregate": ("fused_payload.cu", "fused_rhs.py:208"),
+               "fused_aggregate": ("payload_fwd.cu", "fused_rhs.py:208"),
                "fused_score_max": ("fused_payload.cu", "fused_rhs.py:569"),
-               "fused_rhs_bwd_heads": ("fused_payload.cu", "fused_rhs.py:742"),
+               "fused_rhs_bwd_heads": ("payload_bwd.cu", "fused_rhs.py:742"),
                "row_gather": ("row_gather.cu", "stripe.py:767"),
                "smem_gather": ("smem_gather.cu",
                                "examples/perf_probe13_vmem_gather.py:85"),
@@ -4157,11 +4227,11 @@ def main() -> int:
                "norm1_den bf16": ("norm1_den.cu", "fused_rhs.py:2070"),
                "norm1_fwd bf16": ("norm1.cu", "fused_rhs.py:2189"),
                "norm1_bwd bf16": ("norm1.cu", "fused_rhs.py:2297"),
-               "fused_aggregate bf16": ("fused_payload.cu",
+               "fused_aggregate bf16": ("payload_fwd.cu",
                                         "fused_rhs.py:208"),
                "fused_score_max bf16": ("fused_payload.cu",
                                         "fused_rhs.py:569"),
-               "fused_rhs_bwd_heads bf16": ("fused_payload.cu",
+               "fused_rhs_bwd_heads bf16": ("payload_bwd.cu",
                                             "fused_rhs.py:742"),
                "dual_scatter bf16": ("dual_scatter.cu", "stripe.py:599"),
                "dual_gather bf16": ("dual_gather.cu", "stripe.py:655"),

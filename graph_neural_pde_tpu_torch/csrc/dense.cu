@@ -24,6 +24,28 @@ extern "C" int gnpde_node_tables(const void* x, const void* xcol,
   return static_cast<int>(cudaGetLastError());
 }
 
+// out [n_rows, att] float32 = x W + b for x [n_rows, dim] of type dtype (0
+// float32, 1 bfloat16), w [dim, att] and b [att]: one table on
+// node_tables' tiles (the q of the per-edge payload kernels).
+extern "C" int gnpde_dense_project(const void* x, const void* w,
+                                   const void* b, void* out, int n_rows,
+                                   int dim, int att, int dtype,
+                                   void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0) return static_cast<int>(cudaGetLastError());
+  ProjLaunch p = {};
+  p.x = x;
+  p.n_rows = n_rows;
+  p.dim = dim;
+  p.att = att;
+  p.t0 = proj_table(w, b, out, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 0 ? launch_project<float>(p, 1, s)
+                               : launch_project<__nv_bfloat16>(p, 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // partials [blocks, dim + 1, att]: block p's sums over its contiguous
 // range of rows r of [x[idx[r]] | 1]^T dk[r] (idx nullable: x[r]), every
 // element written; x of type dtype (0 float32, 1 bfloat16).

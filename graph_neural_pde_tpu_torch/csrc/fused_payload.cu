@@ -8,7 +8,10 @@
 // non-separable branch / _fused_bwd_mega_call with recip_p=None (the
 // backward of fused_rhs_aggregate). Kept apart from fused_rhs.cu (K6-K9,
 // K17), whose walks over node tables they share only fused_common.cuh with,
-// so that the two compile side by side.
+// so that the two compile side by side. For the scaled-dot score K18 and
+// the per-head mode run payload_fwd.cu / payload_bwd.cu instead (Kw folded
+// into each row's query: no edge's key); the walks here serve the four
+// families whose scores need each edge's key, and K19.
 //
 // K18, K19 and K8's per-head mode take the payload's bfloat16 mode too
 // (the JAX package's _fused_call / _fused_score_max_impl /

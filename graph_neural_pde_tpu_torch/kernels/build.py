@@ -119,6 +119,20 @@ _ENTRY_POINTS = {
     # ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows, dim, att,
     # heads, flags, n_slots, reduce_blocks, tables, stream
     "gnpde_fused_rhs_bwd_heads": [_PTR] * 17 + [_INT] * 8 + [_PTR],
+    # K18 and K8's per-head mode for the scaled-dot score (csrc/
+    # payload_fwd.cu, csrc/payload_bwd.cu: Kw folded into each row's
+    # query). piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the
+    # rows' pieces, Graph.scatter_pieces), xg, q, kwt (Kw^T), kb, gmax,
+    # shifts (nullable), num, den, part (nullable without multi-piece
+    # rows), n_rows, n_pieces, n_multi, dim, att, heads, square_plus, lanes,
+    # vec (kernels/lanes.py, payload_walk), dtype of xg (0 float32, 1
+    # bfloat16), stream
+    "gnpde_payload_aggregate": [_PTR] * 14 + [_INT] * 10 + [_PTR],
+    # the rows' pieces as above, xg, q, kwt, kw, kb, gmax, ct_num, ct_den,
+    # dxg, ab ([a | b] a row), part, dq, node_part, node_bsum, dkw, dkb,
+    # dgmax, n_rows, n_pieces, n_multi, n_slots, dim, att, heads,
+    # square_plus, lanes, vec, dtype of xg, ranges (the node pass's), stream
+    "gnpde_payload_bwd": [_PTR] * 22 + [_INT] * 12 + [_PTR],
     # The column-normalised RHS kernels (csrc/norm1_den.cu, csrc/norm1.cu),
     # with K6-K9's TABLES code (xcol the bfloat16 column table, ignored
     # with 0).
@@ -139,6 +153,9 @@ _ENTRY_POINTS = {
     # The dense products of the fused kernels alone (csrc/dense.cu).
     # x, xcol, qw, qb, kw, kb, qtab, ktab, n_rows, dim, att, tables, stream
     "gnpde_node_tables": [_PTR] * 8 + [_INT] * 4 + [_PTR],
+    # x, w, b, out, n_rows, dim, att, dtype of x (0 float32, 1 bfloat16),
+    # stream: one table, out = x w + b
+    "gnpde_dense_project": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     # x, idx (nullable), dk, partials, rows, dim, att, blocks, dtype of x
     # (0 float32, 1 bfloat16), stream
     "gnpde_outer_reduce": [_PTR] * 4 + [_INT] * 5 + [_PTR],

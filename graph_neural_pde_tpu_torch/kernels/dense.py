@@ -305,5 +305,26 @@ def outer_reduce(x, idx, dk, blocks: Optional[int] = None):
     return dk_sums(partials, d)
 
 
+def project(x, w, b):
+    """One table on the node projections' tile: ``out = x W + b`` [N, C]
+    float32 for x [N, K] float32 or bfloat16, W [K, C] and b [C] float32
+    (the q of the per-edge payload kernels' scaled-dot walks). On a CPU
+    tensor the plain product. Counted in ``node_project.launches``."""
+    n, k = x.shape
+    c = w.shape[1]
+    _check("project", x, [("w", w), ("b", b)])
+    if tuple(w.shape) != (k, c) or tuple(b.shape) != (c,):
+        raise ValueError(f"project: w {tuple(w.shape)} and b "
+                         f"{tuple(b.shape)} for x of {k} columns")
+    if x.device.type == "cpu":
+        return x.to(w.dtype) @ w + b
+    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    build.launch("dense_project", x.device, x.data_ptr(), w.data_ptr(),
+                 b.data_ptr(), out.data_ptr(), n, k, c,
+                 int(x.dtype == torch.bfloat16))
+    node_project.launches += 1
+    return out
+
+
 node_project.launches = 0
 outer_reduce.launches = 0

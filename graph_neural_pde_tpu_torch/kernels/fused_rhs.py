@@ -47,14 +47,18 @@ each, the feature factor's and the position factor's:
   ``_bwd_dx_col_kernel`` / ``_bwd_dx_col_call``.
 * K18 ``fused_aggregate``  -> (num, den) with the keys projected from a
   per-EDGE payload ``x_g`` [E_pad, D] (the TPU kernel's operand, which need
-  not be x[col]); replaces ``_rhs_kernel`` / ``_fused_call``.
+  not be x[col]); replaces ``_rhs_kernel`` / ``_fused_call``. For the
+  scaled-dot score no key is formed: Kw folds into each row's query
+  (``csrc/payload_walk.cuh``) and the walk reads each payload row once.
 * K19 ``fused_score_max``  -> the global maximum of the scaled-dot scores
   against that payload's keys; replaces ``_max_kernel`` /
   ``_fused_score_max_impl``.
 * K8's per-head mode ``fused_rhs_bwd_heads`` -> the backward of K18 from
   per-head cotangents ``ct_num`` [N, H·D] (K8 takes their head average
   ``ct_ax`` with ``recip_p``); ``_bwd_kernel`` / ``_fused_bwd_mega_call``
-  with ``recip_p=None``.
+  with ``recip_p=None``. For the scaled-dot score on K18's fold: dxg and
+  each row's [a | b] in one walk, dq and dKw head by head in a node pass
+  (:func:`node_design`).
 
 K6-K9 and K17 (and so ``make_fused_ax_sym``, ``make_fused_ax_colplan``,
 ``fused_rhs_ax`` and ``fused_rhs_f``) also take the JAX package's bfloat16
@@ -108,8 +112,11 @@ import torch
 from graph_neural_pde_tpu_torch.kernels import build
 from graph_neural_pde_tpu_torch.kernels.csr_spmm import column_sum
 from graph_neural_pde_tpu_torch.kernels.dense import (  # noqa: F401
-    bf16_k_table, bf16_round, count_fused, dk_sums, reduce_blocks, sm_count)
-from graph_neural_pde_tpu_torch.ops.graph import ColPieces, column_pieces
+    bf16_k_table, bf16_round, count_fused, dk_sums, project, reduce_blocks,
+    sm_count)
+from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+from graph_neural_pde_tpu_torch.ops.graph import (SCATTER_WHOLE, ColPieces,
+                                                 column_pieces)
 
 SCORES = {"scaled_dot": 0, "cosine_sim": 1, "pearson": 2, "exp_kernel": 3,
           "exp_kernel_beltrami": 4}
@@ -1078,18 +1085,149 @@ def _payload_tables(x_n, x_g) -> int:
     return _tables(x_n, x_g if x_g.dtype == torch.bfloat16 else None)
 
 
+# K18 and K8's per-head mode over the scaled-dot score walk the payload
+# once with Kw folded into each row's query (csrc/payload_walk.cuh,
+# payload_fwd.cu, payload_bwd.cu): r_nh = Kw_h q_nh / sqrt(d_k), c_nh =
+# <q_nh, kb_h> / sqrt(d_k), s_eh = <x_g[e], r_nh> + c_nh. The other
+# families need each edge's key and keep the walk of fused_payload.cu.
+
+
+def payload_stride(d: int, heads: int) -> int:
+    """S: the floats of a row's [a | b] and of a piece's partial row,
+    H (D + 1) rounded up to 16 bytes (``csrc/payload_walk.cuh``,
+    ``payload_stride``)."""
+    return -(-heads * (d + 1) // 4) * 4
+
+
+# the node pass of K8's per-head mode (csrc/payload_bwd.cu): nodes a
+# stage, a head's columns a block at most, ranges of at least NODE_MIN
+# nodes; an SM's shared memory and registers (what bounds the blocks
+# resident on it), a thread's registers at most by rows (the kernel's
+# launch bounds: 64 at 8 rows)
+NODE_TILE, NODE_COLS, NODE_MIN = 32, 32, 64
+SM_SHARED_BYTES, SM_REGISTERS = 228 * 1024, 65536
+NODE_REGISTERS = {8: 64, 16: 128}
+
+
+def node_design(d: int, att: int, heads: int) -> dict:
+    """The node pass's block (``payload_bwd.cu``, ``launch_node_pass``):
+    JC = ``cols`` of a head's d_k columns (``col_blocks`` blocks a head),
+    R = ``rows`` of the D + 1 rows of [Kw_h | kb_h] a thread (8, or 16
+    where 8 would take more than 512 threads), C = ``chunks`` of them,
+    the threads (C JC rounded up to a warp), the shared memory (two
+    stages of NODE_TILE nodes' rows and q columns, and dq's shares) and
+    the blocks an SM holds."""
+    dk = att // heads
+    cols = min(dk, NODE_COLS)
+    rows = 8 if -(-(d + 1) // 8) * cols <= 512 else 16
+    chunks = -(-(d + 1) // rows)
+    threads = -(-chunks * cols // 32) * 32
+    shared = 4 * NODE_TILE * (2 * (chunks * rows + cols) + chunks * cols)
+    per_sm = max(1, min(SM_SHARED_BYTES // (shared + 1024), 2048 // threads,
+                        SM_REGISTERS // (NODE_REGISTERS[rows] * threads)))
+    return dict(cols=cols, col_blocks=-(-dk // cols), rows=rows,
+                chunks=chunks, threads=threads, shared=shared, per_sm=per_sm)
+
+
+def node_ranges(n: int, d: int, att: int, heads: int, sms: int) -> int:
+    """The node pass's ranges of nodes (each a block per head and column
+    block): one wave of the blocks the SMs hold, each range at least
+    NODE_MIN nodes."""
+    des = node_design(d, att, heads)
+    blocks = heads * des["col_blocks"]
+    return max(1, min(-(-des["per_sm"] * sms // blocks), -(-n // NODE_MIN)))
+
+
+def _piece_args(pc: ColPieces):
+    return (pc.ptr.data_ptr(), pc.col.data_ptr(), pc.slot.data_ptr(),
+            pc.multi_col.data_ptr(), pc.multi_ptr.data_ptr())
+
+
+def _aggregate_walk(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, heads, shifts,
+                    square_plus, pieces):
+    """K18 for the scaled-dot score: q on the node projections' tile, then
+    the fold's walk (payload_fwd.cu)."""
+    n, d = x_n.shape
+    att = qw.shape[1]
+    dev = x_n.device
+    pc = _row_pieces(fused_aggregate, rowptr, pieces, n, dev, SCATTER_WHOLE)
+    q, kwt = project(x_n, qw, qb), kw.t().contiguous()
+    num = torch.empty((n, heads * d), dtype=torch.float32, device=dev)
+    den = torch.empty((n, heads), dtype=torch.float32, device=dev)
+    part = (torch.empty((pc.n_slots, payload_stride(d, heads)),
+                        dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
+    group, vec = lanes("payload_walk", d, x_g,
+                       *[t for t in (kwt, num, part) if t is not None],
+                       heads=heads)
+    build.launch("payload_aggregate", dev, *_piece_args(pc), x_g.data_ptr(),
+                 q.data_ptr(), kwt.data_ptr(), kb.data_ptr(), gmax.data_ptr(), _ptr(shifts), num.data_ptr(),
+                 den.data_ptr(), _ptr(part), n, pc.n_pieces, pc.n_multi, d,
+                 att, heads, int(square_plus), group, vec,
+                 int(x_g.dtype == torch.bfloat16))
+    fused_aggregate.walk_launches += 1
+    return num, den
+
+
+def _bwd_heads_walk(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, ct_num, ct_den,
+                    heads, square_plus, pieces):
+    """K8's per-head mode for the scaled-dot score: q on the node
+    projections' tile, then one call (payload_bwd.cu): the fold's walk
+    writing dxg whole and each row's [a | b], and the node pass forming dq,
+    dKw, dKb head by head and dgmax = -sum b (:func:`node_design`)."""
+    n, d = x_n.shape
+    att = qw.shape[1]
+    cap = x_g.shape[0]
+    dev = x_n.device
+    stride = payload_stride(d, heads)
+    pc = _row_pieces(fused_rhs_bwd_heads, rowptr, pieces, n, dev,
+                     SCATTER_WHOLE)
+    q, kwt = project(x_n, qw, qb), kw.t().contiguous()
+    ranges = node_ranges(n, d, att, heads, sm_count(dev))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    # every element of these is written by the walk or the node pass: no
+    # memset
+    dxg, ab, dq = empty(cap, d), empty(n, stride), empty(n, att)
+    part = empty(pc.n_slots, stride) if pc.n_multi else None
+    node_part, node_bsum = empty(ranges, d + 1, att), empty(ranges, heads)
+    dkw, dkb, dgmax = empty(d, att), empty(att), empty()
+    group, vec = lanes("payload_walk", d, x_g,
+                       *[t for t in (kwt, ct_num, dxg, ab, part)
+                         if t is not None], heads=heads)
+    build.launch("payload_bwd", dev, *_piece_args(pc), x_g.data_ptr(),
+                 q.data_ptr(), kwt.data_ptr(), kw.data_ptr(), kb.data_ptr(),
+                 gmax.data_ptr(), ct_num.data_ptr(), ct_den.data_ptr(),
+                 dxg.data_ptr(), ab.data_ptr(), _ptr(part), dq.data_ptr(),
+                 node_part.data_ptr(), node_bsum.data_ptr(), dkw.data_ptr(),
+                 dkb.data_ptr(), dgmax.data_ptr(), n, pc.n_pieces,
+                 pc.n_multi, cap, d, att, heads, int(square_plus), group,
+                 vec, int(x_g.dtype == torch.bfloat16), ranges)
+    fused_rhs_bwd_heads.walk_launches += 1
+    fused_rhs_bwd_heads.node_launches += 1
+    return dq, dxg, dkw, dkb, dgmax, None, None
+
+
 def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
                     heads: int, score: str, var=None, ls=None, shifts=None,
-                    square_plus: bool = False):
+                    square_plus: bool = False,
+                    pieces: Optional[ColPieces] = None):
     """K18: ``(num [N, H·D], den [N, H])`` of the attention RHS over the
     per-edge payload ``x_g`` [E_pad, D] (see :func:`fused_aggregate_plain`);
     ``gmax`` a one-element tensor, ``shifts`` optional per-edge score
-    shifts [E_pad, H]. A warp walks a row, projects q_n from x_n's row and
-    its edges' keys from their payload rows, eight edges at a time (Qw and
-    Kw staged in shared memory, which must hold them: else it raises), and
-    sums in the row's edge order: two calls agree bit for bit. ``x_g`` may
-    be bfloat16 beside a float32 or bfloat16 ``x_n`` (see the module
-    docstring); num and den are float32. Not differentiable by itself (see
+    shifts [E_pad, H]. For the scaled-dot score Kw folds into each row's
+    query (``csrc/payload_walk.cuh``): q on the node projections' tile,
+    then lane groups sized by the row width fold each row and walk
+    ``pieces`` (``Graph.scatter_pieces``; built from rowptr when None, a
+    copy to the host counted in ``piece_builds``), reading each payload
+    row once. The other families walk a row a warp, projecting q_n
+    and each edge's key, eight edges at a time (Qw and Kw staged in shared
+    memory, which must hold them: else it raises). Every sum runs in the
+    row's edge order: two calls agree bit for bit. ``x_g`` may be bfloat16
+    beside a float32 or bfloat16 ``x_n`` (see the module docstring); num
+    and den are float32. Not differentiable by itself (see
     :func:`fused_rhs_aggregate`)."""
     extra = [("gmax", gmax, None)]
     if shifts is not None:
@@ -1101,6 +1239,21 @@ def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
                                      gmax, heads=heads, score=score, var=var,
                                      ls=ls, shifts=shifts,
                                      square_plus=square_plus)
+    if score == "scaled_dot":
+        num, den = _aggregate_walk(rowptr, x_n, x_g, qw, qb, kw, kb, gmax,
+                                   heads, shifts, square_plus, pieces)
+    else:
+        num, den = _aggregate_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax,
+                                   heads, score, var, ls, shifts,
+                                   square_plus)
+    fused_aggregate.launches += 1
+    fused_aggregate.bf16_launches += x_g.dtype == torch.bfloat16
+    return num, den
+
+
+def _aggregate_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, heads, score,
+                    var, ls, shifts, square_plus):
+    """K18 for the families that need each edge's key (fused_payload.cu)."""
     n, d = x_n.shape
     att = qw.shape[1]
     g = GROUP_EDGES
@@ -1115,8 +1268,6 @@ def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
                  kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
                  _ptr(shifts), num.data_ptr(), den.data_ptr(), n, d, att,
                  heads, _flags(score, square_plus), _payload_tables(x_n, x_g))
-    fused_aggregate.launches += 1
-    fused_aggregate.bf16_launches += x_g.dtype == torch.bfloat16
     return num, den
 
 
@@ -1165,15 +1316,21 @@ def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
 
 def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
                         ct_den, *, heads: int, score: str, var=None, ls=None,
-                        square_plus: bool = False):
+                        square_plus: bool = False,
+                        pieces: Optional[ColPieces] = None):
     """K8's per-head-cotangent mode: the backward of K18 from ``ct_num``
     [N, H·D] and ``ct_den`` [N, H] (see :func:`fused_rhs_bwd_heads_plain`
-    for the formulas and the return value). K8's row walk over the payload:
-    q_n and each edge's key are projected as K18 projects them; dkw, dkb,
-    dgmax and the score scalars are reduced in two passes with fixed
-    orders, so two calls agree bit for bit. ``x_g`` may be bfloat16 beside
-    a float32 or bfloat16 ``x_n``; every output is float32 and dkw is
-    reduced over the payload as it is."""
+    for the formulas and the return value). For the scaled-dot score, K18's
+    fold (``pieces`` as :func:`fused_aggregate` takes them): one walk
+    writes every slot of dxg (no memset) and each row's [a | b] (a_nh =
+    sum_e ds_eh x_g[e], b_nh = sum_e ds_eh), and a node pass forms dq_nh =
+    (Kw_h^T a_nh + b_nh kb_h) / sqrt(d_k) and reduces dkw, dkb over the
+    nodes head by head (:func:`node_design`), dgmax = -sum b. The other
+    families run K8's row walk over the payload, projecting q_n and each
+    edge's key as K18 does, with dkw, dkb reduced over the payload's slots.
+    Every reduction has a fixed order: two calls agree bit for bit.
+    ``x_g`` may be bfloat16 beside a float32 or bfloat16 ``x_n``; every
+    output is float32."""
     n, d = x_n.shape
     cap = row.shape[0]
     extra = [("gmax", gmax, None), ("ct_num", ct_num, (n, heads * d)),
@@ -1185,6 +1342,22 @@ def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
             rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num, ct_den,
             heads=heads, score=score, var=var, ls=ls,
             square_plus=square_plus)
+    if score == "scaled_dot":
+        out = _bwd_heads_walk(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
+                              ct_den, heads, square_plus, pieces)
+    else:
+        out = _bwd_heads_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
+                              ct_den, heads, score, var, ls, square_plus, cap)
+    fused_rhs_bwd_heads.launches += 1
+    fused_rhs_bwd_heads.bf16_launches += x_g.dtype == torch.bfloat16
+    return out
+
+
+def _bwd_heads_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, ct_num, ct_den,
+                    heads, score, var, ls, square_plus, cap):
+    """K8's per-head mode for the families that need each edge's key
+    (fused_payload.cu), dkw reduced over the payload's slots."""
+    n, d = x_n.shape
     att = qw.shape[1]
     g = GROUP_EDGES
     _payload_shared("fused_rhs_bwd_heads", d, att,
@@ -1207,9 +1380,7 @@ def fused_rhs_bwd_heads(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, ct_num,
                  row_sums.data_ptr(), partials.data_ptr(), n, d, att, heads,
                  _flags(score, square_plus), cap, blocks,
                  _payload_tables(x_n, x_g))
-    fused_rhs_bwd_heads.launches += 1
     count_fused(0, 0, reduce=True)
-    fused_rhs_bwd_heads.bf16_launches += x_g.dtype == torch.bfloat16
     return ((dq, dxg) + dk_sums(partials, d)
             + _row_totals(row_sums, score, var, ls))
 
@@ -1237,12 +1408,22 @@ fused_rhs_bwd_heads.launches = 0
 fused_aggregate.bf16_launches = 0
 fused_score_max.bf16_launches = 0
 fused_rhs_bwd_heads.bf16_launches = 0
+# the scaled-dot fold's launches by pass, among K18's and the per-head
+# mode's own: the walks (each with its merge) and the per-head mode's node
+# pass (dq, dKw, dKb, dgmax: two kernels); q is a launch of the node
+# projections' tile, counted in node_project.launches
+fused_aggregate.walk_launches = 0
+fused_rhs_bwd_heads.walk_launches = 0
+fused_rhs_bwd_heads.node_launches = 0
 # the row pieces the walks over rows built from rowptr because their caller
 # handed none (a copy to the host; 0 on every model path)
 fused_rhs_fwd.piece_builds = 0
 fused_rowmax.piece_builds = 0
 fused_rhs_bwd.piece_builds = 0
 fused_rhs_bwd_sym.piece_builds = 0
+# (K18's and the per-head mode's: the bench's oracle hands K18 none)
+fused_aggregate.piece_builds = 0
+fused_rhs_bwd_heads.piece_builds = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1465,7 +1646,8 @@ class _FusedAggregate(torch.autograd.Function):
                 square_plus, score):
         num, den = fused_aggregate(
             g.rowptr, g.row, x_n, x_g, qw, qb, kw, kb, gmax, heads=heads,
-            score=score, var=var, ls=ls, square_plus=square_plus)
+            score=score, var=var, ls=ls, square_plus=square_plus,
+            pieces=g.scatter_pieces)
         ctx.save_for_backward(qw, qb, kw, kb, x_n, x_g, gmax, var, ls)
         ctx.g = g
         ctx.opts = (heads, square_plus, score)
@@ -1478,7 +1660,8 @@ class _FusedAggregate(torch.autograd.Function):
         dq, dxg, dkw, dkb, dgmax, dvar, dls = fused_rhs_bwd_heads(
             ctx.g.rowptr, ctx.g.row, x_n, x_g, qw, qb, kw, kb, gmax,
             ct_num.contiguous(), ct_den.contiguous(), heads=heads,
-            score=score, var=var, ls=ls, square_plus=square_plus)
+            score=score, var=var, ls=ls, square_plus=square_plus,
+            pieces=ctx.g.scatter_pieces)
         return (x_n.to(dq.dtype).T @ dq, torch.sum(dq, dim=0), dkw, dkb,
                 (dq @ qw.T).to(x_n.dtype), dxg.to(x_g.dtype),
                 dgmax.reshape(gmax.shape), dvar, dls) + (None,) * 4

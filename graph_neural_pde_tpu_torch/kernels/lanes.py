@@ -36,6 +36,15 @@ their C entry points and refuse any pair that they were not built for.
   heads' sums take half the registers of 16-byte ones (measured on an
   H100, ``probes/lanes.py``, ``PERF.md``).
 
+* K18 and K8's per-head mode over the scaled-dot fold (``payload_walk``,
+  ``csrc/payload_walk.cuh``): K10's groups over the payload x_g (one lane
+  a 16-byte vector up to ``DUAL_ONE_VECTOR["dual_scatter"]`` vectors, two
+  above, at least ``DUAL_MIN_LANES["dual_scatter"]`` lanes; a bfloat16
+  payload of more than ``DUAL_WIDE_HEADS`` heads in 8-byte vectors at 32
+  lanes, so that 8 heads take one pass), where the float32 tables read
+  beside it in vectors of V floats (Kw^T, ct_num, the outputs) lie on
+  16-byte boundaries too; else single elements at 32 lanes.
+
 K1 and K15 sum a row's vectors in registers, at most ``VECS_PER_LANE`` a
 lane a pass, so a pass covers G * V * 4 features; wider rows take more
 passes over the row's edges. K1 takes as many as its row needs (D / V /
@@ -65,7 +74,8 @@ DUAL_MIN_LANES = {"dual_scatter": 8, "dual_gather": 4}
 # K10 on a bfloat16 table: above these heads, 8-byte vectors at 32 lanes
 DUAL_WIDE_HEADS = 4
 DUAL_KERNELS = ("dual_scatter", "dual_gather")
-KERNELS = ("blocked_spmm", "csr_spmm", "edge_dot") + DUAL_KERNELS
+KERNELS = ("blocked_spmm", "csr_spmm", "edge_dot", "payload_walk") \
+    + DUAL_KERNELS
 
 Table = Union[torch.Tensor, Tuple[int, torch.dtype]]
 
@@ -104,11 +114,14 @@ def lanes(kernel: str, dim: int, *tables: Table,
     rows of ``dim`` elements in ``tables`` (tensors or (address, dtype)
     pairs; float32 at address 0 when none is given). K1 and K15 pass the
     table they gather, K2 both tables it dots, K10 x (with its ``heads``),
-    K11's du walk x and ct_num, its dx walk ct_num."""
+    K11's du walk x and ct_num, its dx walk ct_num, the payload walks x_g
+    and the float32 tables they read or write in vectors (with ``heads``)."""
     if kernel not in KERNELS:
         raise ValueError(f"lanes: no lane groups for {kernel!r}")
     if kernel in DUAL_KERNELS:
         return _dual_lanes(kernel, dim, heads, *tables)
+    if kernel == "payload_walk":
+        return _payload_lanes(dim, heads, *tables)
     vec = vector_width(dim, *tables)
     vecs = max(dim // vec, 1)
     if kernel == "edge_dot":
@@ -143,3 +156,14 @@ def _dual_lanes(kernel: str, dim: int, heads: int,
     if vecs > DUAL_ONE_VECTOR[kernel]:
         vecs = -(-vecs // 2)
     return min(32, max(DUAL_MIN_LANES[kernel], _pow2_at_least(vecs))), wide
+
+
+def _payload_lanes(dim: int, heads: int, x: Table = (0, torch.float32),
+                   *floats: Table) -> Tuple[int, int]:
+    """The payload walks' (G, V): K10's over the payload ``x`` where every
+    float32 table of ``floats`` lies on a 16-byte boundary (they are read
+    in vectors of V floats, 16 bytes at least), else single elements at
+    32 lanes."""
+    if any(_address(t)[0] % MAX_VECTOR_BYTES for t in floats):
+        return 32, 1
+    return _dual_lanes("dual_scatter", dim, heads, x)
