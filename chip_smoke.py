@@ -32,14 +32,18 @@ Phases, each of which must pass (any failure exits nonzero):
    nodes, ~2.3M directed edges plus self-loops) at D=128; K1 (node state
    and every table mode) and K2 everywhere against their plain versions
    evaluated in float64 on the same inputs, a line before each check
-   printing the lane group and vector width ``kernels.lanes`` picks, K1 in
-   table mode also as K11's dx (``column_head_sum``, timed on the Cora
-   stand-in at H=8 and at arxiv scale at H=2), and after the kernel checks
-   one line for every timed shape at which K1, K2, K10, K11, the node
-   projections or the dKw reduction is slower than its library call
-   (``torch.sparse.mm``, ``sampled_addmm``, ``torch.addmm``, ``torch.mm``;
-   slow does not fail, wrong does), and one for every timed shape at which
-   K7 or K8 with dxg is slower than its plain version. K3
+   printing the lane group and vector width ``kernels.lanes`` picks (and
+   K1's walk, from the mean row length), K1 in table mode also as K11's dx
+   (``column_head_sum``, timed on the Cora stand-in at H=8 and at arxiv
+   scale at H=2). A kernel timed beside a library call is timed with it in
+   alternating profiler sessions (``LIBRARY_SESSIONS`` each, the library
+   call's device kernels named once per shape), and after the kernel
+   checks one line names every timed shape at which K1, K2, K3, K10, K11,
+   K15, K16, the node projections or the dKw reduction is slower than its
+   library call by the sessions' medians (``torch.sparse.mm``,
+   ``sampled_addmm``, ``torch.sparse.softmax``, ``torch.addmm``,
+   ``torch.mm``; slow does not fail, wrong does), and one for every timed
+   shape at which K7 or K8 with dxg is slower than its plain version. K3
    ``segment_norm`` (softmax and normalise, over rows and over columns
    through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
    rows and columns), on the prepared Computers stand-in at H=4 and the
@@ -125,8 +129,9 @@ Phases, each of which must pass (any failure exits nonzero):
    each bit-identical; and the same over a bfloat16 payload beside a
    float32 and a bfloat16 row side (the payload's bf16 mode: the plain
    versions widen the rows, k_e unrounded): all five families small
-   (untimed), the bench oracle's shape, the arxiv-scale graph at
-   D=128, ATT=32, H=2 and at the BLEND widths (timed). The P6 pair on every rank of a 4-way split of the
+   (untimed), the bench oracle's shape, the Cora stand-in and the same
+   with a hub row at D=80, ATT=128, H=8, the arxiv-scale graph at D=128,
+   ATT=32, H=2 and at the BLEND widths (timed). The P6 pair on every rank of a 4-way split of the
    row-sorted valid edges (``make_sharded_stripe_spmm``'s shards: rows
    straddle ranks, most of a rank's row pointers are empty ranges) of the
    arxiv-scale graph at D=128, on ranks 0 and 3 of one of the Cora
@@ -534,15 +539,23 @@ def plain64(fn, *args):
     return lambda: fn(*map(up, args)).float()
 
 
-def print_lanes(kname, shape_name, d, *tables):
-    """The lane group and vector width the wrapper of K1 (``csr_spmm``) or
-    K2 (``edge_dot``) picks for these tables (``kernels.lanes``)."""
-    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
-    group, vec = lanes(kname, d, *tables)
+def print_lanes(kname, shape_name, d, *tables, mean_row=None):
+    """The lane group and vector width the wrapper of K1 (``csr_spmm``),
+    K2 (``edge_dot``) or K16 (``blocked_sddmm``, K2's) picks for these
+    tables (``kernels.lanes``), and K1's staging depth for rows of
+    ``mean_row`` edges on average (``csr_design``)."""
+    from graph_neural_pde_tpu_torch.kernels.lanes import csr_design, lanes
+    stage = ""
+    if kname == "csr_spmm":
+        group, vec, s = csr_design(d, mean_row, *tables)
+        stage = f" S={s} (mean row {mean_row:.2f} edges)"
+    else:
+        group, vec = lanes("edge_dot" if kname == "blocked_sddmm" else kname,
+                           d, *tables)
     name = "G" if kname == "csr_spmm" else "L"
     print(f"[lanes] {kname} @ {shape_name} row width {d} "
           f"({', '.join(str(t.dtype).split('.')[1] for t in tables)}): "
-          f"{name}={group} V={vec}", flush=True)
+          f"{name}={group} V={vec}{stage}", flush=True)
 
 
 def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
@@ -594,18 +607,18 @@ def check_kernels(shape_name, g, d, seed, dev="cuda", table=None):
     dot_work = (4 * (3 * nv + n * d) + esz * n * d, 2 * nv * d)
     cases = (
         ("csr_spmm" + tag, "forward A_w x",
-         lambda: csr_spmm(g.rowptr, g.row, g.col, w, x),
+         lambda: csr_spmm(g.rowptr, g.row, g.col, w, x, n_edges=nv),
          lambda: csr_spmm_plain(g.rowptr, g.row, g.col, w, x), spmm_work,
          library[0], plain64(csr_spmm_plain, g.rowptr, g.row, g.col, w, x)),
         ("csr_spmm" + tag, "backward dx = A_w^T ct",
-         lambda: csr_spmm(g.rowptr, g.row, g.col, w_rev, ct_t), dx_plain,
-         spmm_work, None, lambda: dx_plain(wide=True)),
+         lambda: csr_spmm(g.rowptr, g.row, g.col, w_rev, ct_t, n_edges=nv),
+         dx_plain, spmm_work, None, lambda: dx_plain(wide=True)),
         ("edge_dot" + tag, "backward dw = ct[row].x[col]",
          lambda: edge_dot(g.row, g.col, ct, x, nv),
          lambda: edge_dot_plain(g.row, g.col, ct, x, nv), dot_work,
          library[1], plain64(edge_dot_plain, g.row, g.col, ct, x, nv)),
     )
-    print_lanes("csr_spmm", shape_name, d, x)
+    print_lanes("csr_spmm", shape_name, d, x, mean_row=nv / n)
     print_lanes("edge_dot", shape_name, d, ct, x)
     rows = []
     for kname, what, kern, plain, work, lib, ref in cases:
@@ -716,13 +729,16 @@ def check_outer_reduce(shape_name, x, idx, dk, tag="", timed=True):
         reference=lambda: tuple(t.float() for t in want), timed=timed)
 
 
-LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "dual_scatter", "dual_gather",
+LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "segment_norm", "dual_scatter",
+                   "dual_gather", "blocked_spmm", "blocked_sddmm",
                    "node_project", "outer_reduce")
 
 
 def print_slower_than_library(rows):
-    """One line for every timed shape at which K1, K2, K10, K11, the node
-    projections or the dKw reduction took longer than its library call. A
+    """One line for every timed shape at which a kernel of
+    ``LIBRARY_CHECKED`` (K1, K2, K3, K10, K11, K15, K16, the node
+    projections or the dKw reduction) took longer than its library call,
+    each the median of ``LIBRARY_SESSIONS`` profiler sessions in turns. A
     slow kernel does not fail the run: its times are written down."""
     slower = [r for r in rows
               if r["kernel"].split()[0] in LIBRARY_CHECKED
@@ -731,11 +747,11 @@ def print_slower_than_library(rows):
     for r in slower:
         print(f"[slower than library] {r['kernel']} {r['check']} @ "
               f"{r['shape']} {r['dims']}: kernel {r['ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)",
-              flush=True)
+              f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x; "
+              f"medians)", flush=True)
     if not slower:
-        print("[slower than library] no timed shape of K1, K2, K10, K11, "
-              "node_project or outer_reduce", flush=True)
+        print(f"[slower than library] no timed shape of "
+              f"{', '.join(LIBRARY_CHECKED)} (medians)", flush=True)
 
 
 def print_slower_than_plain(rows, names=("fused_rhs_bwd", "fused_rowmax")):
@@ -762,6 +778,42 @@ PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
 # host's work around them (the profiler sessions above all) is most of
 # phase 3's time, and the device times of 10 calls agree with 20's
 TIMED_CALLS = 10
+# profiler sessions each of a kernel and its library call is timed in, in
+# turns; their medians are compared (a library call's time has swung by 2x
+# between runs, while its sessions in one process agree to 0.2%: PERF.md)
+LIBRARY_SESSIONS = 3
+
+
+def device_kernel_names(fn):
+    """Names of the device events (kernels, memsets, copies) that calls of
+    ``fn`` put on the card, in first-seen order: one profiler session of 25
+    ms of calls (its first moments may lose events; the calls repeat)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0, calls = time.perf_counter(), 0
+        while calls < 3 or time.perf_counter() - t0 < 0.025:
+            fn()
+            torch.cuda.synchronize()
+            calls += 1
+    names = []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.name not in names:
+            names.append(e.name)
+    return names
+
+
+def library_sessions(kern, library, first_ms):
+    """Device times of ``kern`` (its first session already taken,
+    ``first_ms``) and ``library`` in ``LIBRARY_SESSIONS`` profiler sessions
+    each, in turns: (kernel's, library's)."""
+    ks, ls = [first_ms], []
+    for i in range(LIBRARY_SESSIONS):
+        ls.append(device_ms(library, reps=TIMED_CALLS))
+        if i + 1 < LIBRARY_SESSIONS:
+            ks.append(device_ms(kern, reps=TIMED_CALLS))
+    return ks, ls
 
 
 def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
@@ -786,13 +838,25 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
     if not timed:
         print(head, flush=True)
         return row
+    import statistics
     call_k, call_p = (time_ms(f, reps=TIMED_CALLS) for f in (kern, plain))
     dev_k, dev_p = (device_ms(f, reps=TIMED_CALLS) for f in (kern, plain))
     measured = dev_k is not None and dev_p is not None
-    lib_ms = None
-    if library is not None:
-        lib_ms = (device_ms(library, reps=TIMED_CALLS) if measured
-                  else time_ms(library, reps=TIMED_CALLS))
+    lib_ms = lib_fastest = None
+    if library is not None and measured:
+        # the kernel and its library call in turns, medians compared
+        print(f"[library] {kname} {what} @ {shape_name}: device kernels "
+              f"{device_kernel_names(library)}", flush=True)
+        ks, ls = library_sessions(kern, library, dev_k)
+        dev_k, lib_ms = statistics.median(ks), statistics.median(ls)
+        lib_fastest = min(ls)
+        print(f"[library] {kname} {what} @ {shape_name} {dims}: sessions "
+              f"kernel {' '.join(f'{t:.4f}' for t in ks)} (median "
+              f"{dev_k:.4f}), library {' '.join(f'{t:.4f}' for t in ls)} "
+              f"(median {lib_ms:.4f}, fastest {lib_fastest:.4f}) ms",
+              flush=True)
+    elif library is not None:
+        lib_ms = time_ms(library, reps=TIMED_CALLS)
     n_bytes, flops = work
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
@@ -805,7 +869,8 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
           flush=True)
     return dict(row, ms=dev_k if measured else call_k,
                 plain_ms=dev_p if measured else call_p, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms,
+                library_fastest_ms=lib_fastest)
 
 
 def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
@@ -894,12 +959,12 @@ def check_column_sum(shape_name, g, d, seed, dev="cuda"):
                                     size=(n, n))
 
     def kern():
-        return csr_spmm(*csc, w_col, ct)
+        return csr_spmm(*csc, w_col, ct, n_edges=nv)
 
     if not torch.equal(kern(), kern()):
         raise AssertionError(f"csr_spmm over CSC @ {shape_name}: two "
                              f"launches differ")
-    print_lanes("csr_spmm", shape_name, d, ct)
+    print_lanes("csr_spmm", shape_name, d, ct, mean_row=nv / n)
     return [time_case(
         "csr_spmm", "column sum dx = A_w^T ct over CSC", shape_name,
         f"N={n} E={nv} D={d}", kern,
@@ -943,7 +1008,7 @@ def check_head_sum(shape_name, g, d, h, seed, dev="cuda"):
                                   size=(n, n * h))
 
     def kern():
-        return csr_spmm(*csr, table, table=True)
+        return csr_spmm(*csr, table, table=True, n_edges=nv * h)
 
     if not torch.equal(kern(), kern()):
         raise AssertionError(f"csr_spmm as K11's dx @ {shape_name}: two "
@@ -951,7 +1016,7 @@ def check_head_sum(shape_name, g, d, h, seed, dev="cuda"):
     if not torch.equal(column_head_sum(g, u, ct_num), kern()):
         raise AssertionError(f"column_head_sum @ {shape_name}: not K1's "
                              f"launch on the table")
-    print_lanes("csr_spmm", shape_name, d // h, table)
+    print_lanes("csr_spmm", shape_name, d // h, table, mean_row=nv * h / n)
     # reads the column pointer, per head and edge the table row and the
     # weight, the table once, and writes [N, D/H]; 2 flop per edge, head
     # and column of the table
@@ -1852,6 +1917,7 @@ def check_blocked_kernels(shape_name, g, d, seed, block_n=1024, chunk=1024,
     occ = plan_occupancy(plans.fwd)
     dims = (f"N={g.num_nodes} N_pad={npad} slots={nslots} cap={cap} D={d} "
             f"B={block_n} buckets={occ['buckets']}")
+    print_lanes("blocked_sddmm", shape_name, d, ct, x)
     rows = [time_case(kname, what, shape_name, dims, kern, plain, work,
                       library)
             for kname, what, kern, plain, work, library in cases]
@@ -2514,7 +2580,7 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
             vals = vals.to(bf)
             cases = (
                 ("csr_spmm table mode bf16", "P6 scatter of a bf16 payload",
-                 lambda: csr_spmm(*csr, vals, table=True),
+                 lambda: csr_spmm(*csr, vals, table=True, n_edges=e),
                  lambda: csr_spmm_plain(*csr, vals),
                  (4 * (n + 1 + n * d) + 2 * e * d, e * d), None,
                  plain64(csr_spmm_plain, *csr, vals)),
@@ -2528,7 +2594,7 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
         else:
             cases = (
                 ("csr_spmm", "table mode: P6 scatter",
-                 lambda: csr_spmm(*csr, vals, table=True),
+                 lambda: csr_spmm(*csr, vals, table=True, n_edges=e),
                  lambda: csr_spmm_plain(*csr, vals),
                  (4 * (n + 1 + e * d + n * d), e * d),
                  lambda: torch.segment_reduce(vals, "sum", lengths=lengths),
@@ -2540,7 +2606,8 @@ def check_shard_kernels(shape_name, g, d, seed, ranks=(0, 3), world=4,
                  lambda: torch.index_select(table, 0, plan.row.long()),
                  None))
         dims = f"rank {r} of {world} N={n} E={e} D={d}{' bf16' if bf16 else ''}"
-        print_lanes("csr_spmm", f"{shape_name} {dims}", d, vals)
+        print_lanes("csr_spmm", f"{shape_name} {dims}", d, vals,
+                    mean_row=e / n)
         for kname, what, kern, plain, work, library, ref in cases:
             rows.append(time_case(kname, what, shape_name, dims, kern, plain,
                                   work, library, reference=ref))
@@ -2581,12 +2648,12 @@ def check_edge_shard_kernels(shape_name, g, world, d, seed, att=None, h=None,
         xt = x.to(torch.bfloat16) if state_bf16 else x
         csr = torch.sparse_csr_tensor(sg.rowptr, sg.col[:nv], w[:nv],
                                       size=(n, n))
-        print_lanes("csr_spmm", name, d, xt)
+        print_lanes("csr_spmm", name, d, xt, mean_row=nv / n)
         rows.append(time_case(
             "csr_spmm bf16" if state_bf16 else "csr_spmm",
             "forward A_w x over an edge shard", name,
             f"N={n} E={nv} D={d}{' bf16' if state_bf16 else ''}",
-            lambda: csr_spmm(sg.rowptr, sg.row, sg.col, w, xt),
+            lambda: csr_spmm(sg.rowptr, sg.row, sg.col, w, xt, n_edges=nv),
             lambda: csr_spmm_plain(sg.rowptr, sg.row, sg.col, w, xt),
             (4 * (n + 1 + 2 * nv + n * d) + xt.element_size() * n * d,
              2 * nv * d),
@@ -3500,6 +3567,14 @@ def main() -> int:
             rows += check_aggregate_kernels(
                 "bench-oracle", oracle_graph(0), 128, 64, 2, "scaled_dot",
                 args.seed + 210 + row_b16, payload=bf16, row_bf16=row_b16)
+        # ... and at the Cora GRAND-nl widths, on the stand-in and over the
+        # hub row, timed with their bounds
+        for name, graph in (("cora-standin", cora_g), ("cora-hub", cora_hub)):
+            for row_b16 in (False, True):
+                rows += check_aggregate_kernels(
+                    name, graph, nl.hidden_dim, nl.attention_dim, nl.heads,
+                    "scaled_dot", args.seed + 212 + row_b16, payload=bf16,
+                    row_bf16=row_b16)
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
                                    nl.heads, args.seed + 51)
         rows += check_dual_kernels("cora-small", cora_g, 16, 4,

@@ -7,7 +7,8 @@
 //      plan's valid slots s (rb, cb: the row and column block of s's
 //      chunk); out is [N_pad, D], N_pad a multiple of B.
 // K16: out[s] = a[rb*B + row_local[s]] . b[cb*B + col_local[s]] for every
-//      slot, padding included (there row_local = col_local = 0).
+//      slot, padding included (there row_local = col_local = 0, so a
+//      chunk's padding slots all hold a[rb*B] . b[cb*B]).
 //
 // Replace the TPU kernels graph_neural_pde_tpu/ops/pallas/spmm_blocked.py
 // _spmm_kernel / _spmm_call (P17) and _sddmm_kernel / _sddmm_call (P18).
@@ -20,9 +21,10 @@
 // slot's weight and indices (12 bytes) and one x row per slot, mostly from
 // the 50 MB L2 (after a bandwidth-reducing order such as rcm, a row block's
 // columns fall in a few column blocks), and writes each output row once;
-// 2 flops per slot and feature. K16 reads two rows per slot (D * 4 bytes
-// each) for 2 * D flops. Both sit two orders of magnitude below the card's
-// ridge point, so what decides their time is how many loads are in flight.
+// 2 flops per slot and feature. K16 reads two rows per valid slot (D * 4
+// bytes each) for 2 * D flops, and writes every slot. Both sit two orders
+// of magnitude below the card's ridge point, so what decides their time is
+// how many loads are in flight.
 //
 // K15's design: a walk over rows. The first version gave a CTA a row block
 // and a tile of at most 16 features, walked the block's chunks in series
@@ -48,15 +50,42 @@
 // through the caches. No atomics: every output element is summed by one
 // lane in a fixed order, so two launches are bit-identical.
 //
-// K16's design: a group of L lanes per slot (L the largest power of two
-// <= D, at most 32), lanes strided over the features, and the group
-// reduces its partial sums with a fixed xor-shuffle butterfly. D = 1 and
-// D = 3 give one and two lanes per slot, so a warp covers 32 or 16 slots
-// instead of idling 31 lanes.
+// K16's design: K2's SDDMM (csrc/edge_dot.cu) over K15's slot CSR. The
+// first version gave every slot, padding included, a group of lanes
+// strided over the features with 4-byte loads, found both rows of each
+// slot through its chunk's block ids, and computed each padding slot's
+// dot one by one: 1.4-4x K2's time on the same graphs. Here a group of L
+// lanes (kernels/lanes.py's edge_dot entry: one at D = 1 and 3, four at
+// D = 80, eight at D = 128 and 162) takes a valid slot, the valid slots in
+// the order of K15's slot CSR, each with its global row and column and its
+// plan slot (blocked_layout's row, col, slot): neighbouring groups take
+// one row's slots, so a[row] comes from L1, as K2's edges do, and b[col]
+// from the L2. The lanes read both rows as vectors of V floats (16-byte
+// loads where D and the addresses allow, csrc/row_vectors.cuh), lane l
+// summing the vectors l, l + L, ... in order, and the group adds its
+// partial sums by an xor butterfly of log2(L) levels; lane 0 writes
+// out[slot]. After the slot groups, one warp a chunk computes the chunk's
+// padding value a[rb B] . b[cb B] once and writes it to the chunk's
+// padding slots, the suffix after its chunk_valid valid ones (ops/plan.py
+// puts a bucket's edges before its padding), so the grid holds no padding
+// slot (30% of the MNIST batch's, 52% of the arxiv stand-in's after rcm).
+// Measured on the H100 and left out (probes/lanes.py, PERF.md): the valid
+// slots in the plan's own order (a row's slots fall in the chunks of its
+// several column blocks, so fewer neighbours share a[row]: 0.0296 against
+// 0.0225 ms on the arxiv stand-in after rcm), every slot in plan order
+// with the padding groups idle, and a group a row holding a[row] in
+// registers (a row's slots then wait on each other: 0.0120 against 0.0029
+// ms on Cora after rcm). No atomics: a slot's sum order is fixed by (L,
+// V), so two launches are bit-identical.
 
 #include <cuda_runtime.h>
 
+#include "row_vectors.cuh"
+
 namespace {
+
+using gnpde_rows::load_plain;
+using gnpde_rows::widen;
 
 constexpr int kThreads = 256;
 constexpr int kVecsPerLane = 4;     // a pass covers G * V * 4 features
@@ -175,45 +204,104 @@ cudaError_t launch_spmm_v(int lanes, const int* rowptr, const int* slot,
   }
 }
 
-template <int L>
-__global__ void blocked_sddmm_kernel(
-    const int* __restrict__ chunk_rows, const int* __restrict__ chunk_cols,
-    const int* __restrict__ row_local, const int* __restrict__ col_local,
-    const float* __restrict__ a, const float* __restrict__ b,
-    float* __restrict__ out, int capacity, int chunk, int block_n,
-    int dim) {
-  const int lane = threadIdx.x % L;
-  const long long s =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) / L;
-  // a group of L lanes never straddles a warp, so the shuffles below see
-  // only lanes of the same slot; groups past the end still shuffle
-  const bool live = s < capacity;
+// K16's dot of one slot's rows on a group of L lanes: lane l sums the
+// vectors l, l + L, ... of a[row] . b[col] in order with fused multiply-adds
+// (K2's order, csrc/edge_dot.cu); the caller's butterfly adds the lanes.
+template <int L, int V>
+__device__ __forceinline__ float lane_dot(const float* __restrict__ ar,
+                                          const float* __restrict__ br,
+                                          int vecs, int lane) {
   float acc = 0.0f;
-  if (live) {
-    const int c = static_cast<int>(s / chunk);
-    const float* ar = a + (static_cast<size_t>(chunk_rows[c]) * block_n
-                           + row_local[s]) * dim;
-    const float* br = b + (static_cast<size_t>(chunk_cols[c]) * block_n
-                           + col_local[s]) * dim;
-    for (int d = lane; d < dim; d += L) acc += ar[d] * br[d];
-  }
+#pragma unroll 4
+  for (int v = lane; v < vecs; v += L) {
+    float av[V], bv[V];
+    widen(load_plain<float, V>(ar, v), av);
+    widen(load_plain<float, V>(br, v), bv);
 #pragma unroll
-  for (int off = L / 2; off > 0; off /= 2)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (live && lane == 0) out[s] = acc;
+    for (int i = 0; i < V; ++i) acc = fmaf(av[i], bv[i], acc);
+  }
+  return acc;
 }
 
 template <int L>
-cudaError_t launch_sddmm(const int* chunk_rows, const int* chunk_cols,
-                         const int* row_local, const int* col_local,
-                         const float* a, const float* b, float* out,
-                         int capacity, int chunk, int block_n, int dim,
+__device__ __forceinline__ float group_sum(float acc) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+// The padding warps, after the slot groups: warp c computes chunk c's
+// padding value a[rb B] . b[cb B] once (its 32 lanes in K2's order) and
+// writes it to the chunk's padding slots, the suffix after its
+// chunk_valid[c] valid ones. Warps of chunks without padding leave.
+__device__ __forceinline__ void pad_chunk(
+    long long c, const int* __restrict__ chunk_rows,
+    const int* __restrict__ chunk_cols, const int* __restrict__ chunk_valid,
+    const float* __restrict__ a, const float* __restrict__ b,
+    float* __restrict__ out, int n_chunks, int chunk, int block_n, int dim) {
+  if (c >= n_chunks) return;
+  const int nv = chunk_valid[c];
+  if (nv >= chunk) return;                  // the warp leaves together
+  const int lane = threadIdx.x % 32;
+  const float* ar = a + static_cast<size_t>(chunk_rows[c]) * block_n * dim;
+  const float* br = b + static_cast<size_t>(chunk_cols[c]) * block_n * dim;
+  const float pad = group_sum<32>(lane_dot<32, 1>(ar, br, dim, lane));
+  float* o = out + c * chunk;
+  for (int s = nv + lane; s < chunk; s += 32) o[s] = pad;
+}
+
+// K16: a group of L lanes a valid slot, in the order of K15's slot CSR,
+// then the padding warps.
+template <int L, int V>
+__global__ void __launch_bounds__(kThreads) blocked_sddmm_kernel(
+    const int* __restrict__ row, const int* __restrict__ col,
+    const int* __restrict__ slot, const int* __restrict__ chunk_rows,
+    const int* __restrict__ chunk_cols, const int* __restrict__ chunk_valid,
+    const float* __restrict__ a, const float* __restrict__ b,
+    float* __restrict__ out, int n_valid, int n_chunks, int chunk,
+    int block_n, int dim) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads
+                      + threadIdx.x;
+  const long long slot_threads =
+      (static_cast<long long>(n_valid) * L + 31) / 32 * 32;
+  if (t >= slot_threads) {                  // whole warps
+    pad_chunk((t - slot_threads) / 32, chunk_rows, chunk_cols, chunk_valid,
+              a, b, out, n_chunks, chunk, block_n, dim);
+    return;
+  }
+  const int lane = threadIdx.x % L;
+  const long long i = t / L;
+  // a group never straddles a warp, so the butterfly sees only the lanes
+  // of one slot; groups past the valid slots still shuffle
+  const bool live = i < n_valid;
+  float acc = 0.0f;
+  int s = 0;
+  if (live) {
+    const int r = row[i], c = col[i];
+    s = slot[i];
+    acc = lane_dot<L, V>(a + static_cast<size_t>(r) * dim,
+                         b + static_cast<size_t>(c) * dim, dim / V, lane);
+  }
+  acc = group_sum<L>(acc);
+  if (live && lane == 0) out[s] = acc;
+}
+
+template <int L, int V>
+cudaError_t launch_sddmm(const int* row, const int* col, const int* slot,
+                         const int* chunk_rows, const int* chunk_cols,
+                         const int* chunk_valid, const float* a,
+                         const float* b, float* out, int n_valid,
+                         int n_chunks, int chunk, int block_n, int dim,
                          cudaStream_t stream) {
-  const long long threads = static_cast<long long>(capacity) * L;
+  // the slot groups' warps, then a warp a chunk
+  const long long threads =
+      (static_cast<long long>(n_valid) * L + 31) / 32 * 32
+      + 32LL * n_chunks;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  blocked_sddmm_kernel<L><<<blocks, kThreads, 0, stream>>>(
-      chunk_rows, chunk_cols, row_local, col_local, a, b, out, capacity,
-      chunk, block_n, dim);
+  blocked_sddmm_kernel<L, V><<<blocks, kThreads, 0, stream>>>(
+      row, col, slot, chunk_rows, chunk_cols, chunk_valid, a, b, out,
+      n_valid, n_chunks, chunk, block_n, dim);
   return cudaGetLastError();
 }
 
@@ -247,35 +335,44 @@ extern "C" int gnpde_blocked_spmm(const void* rowptr, const void* slot,
   return static_cast<int>(err);
 }
 
-// lanes: L, chosen by the wrapper (1, 2, 4, 8, 16 or 32)
+// row, col, slot: each valid slot's global row and column and its plan
+// slot, in the order of K15's slot CSR (kernels/blocked.py,
+// blocked_layout); chunk_valid: each chunk's valid slots, a prefix of the
+// chunk; lanes: L, vec: V, chosen by the wrapper (kernels/lanes.py's
+// edge_dot entry: L in 1, 2, 4, ..., 32; V in 1, 2, 4 dividing dim, with a
+// and b on V * 4-byte boundaries)
 extern "C" int gnpde_blocked_sddmm(
-    const void* chunk_rows, const void* chunk_cols, const void* row_local,
-    const void* col_local, const void* a, const void* b, void* out,
-    int capacity, int chunk, int block_n, int dim, int lanes, void* stream) {
-  if (capacity <= 0) return static_cast<int>(cudaGetLastError());
+    const void* row, const void* col, const void* slot,
+    const void* chunk_rows, const void* chunk_cols, const void* chunk_valid,
+    const void* a, const void* b, void* out, int n_valid, int n_chunks,
+    int chunk, int block_n, int dim, int lanes, int vec, void* stream) {
+  if (n_chunks <= 0) return static_cast<int>(cudaGetLastError());
+  if (vec <= 0 || dim % vec != 0 || chunk <= 0 || n_valid < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* rw = static_cast<const int*>(row);
+  const auto* cl = static_cast<const int*>(col);
+  const auto* sl = static_cast<const int*>(slot);
   const auto* cr = static_cast<const int*>(chunk_rows);
   const auto* cc = static_cast<const int*>(chunk_cols);
-  const auto* rl = static_cast<const int*>(row_local);
-  const auto* cl = static_cast<const int*>(col_local);
+  const auto* cv = static_cast<const int*>(chunk_valid);
   const auto* af = static_cast<const float*>(a);
   const auto* bf = static_cast<const float*>(b);
   auto* of = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (lanes) {
-    case 1: err = launch_sddmm<1>(cr, cc, rl, cl, af, bf, of, capacity,
-                                  chunk, block_n, dim, st); break;
-    case 2: err = launch_sddmm<2>(cr, cc, rl, cl, af, bf, of, capacity,
-                                  chunk, block_n, dim, st); break;
-    case 4: err = launch_sddmm<4>(cr, cc, rl, cl, af, bf, of, capacity,
-                                  chunk, block_n, dim, st); break;
-    case 8: err = launch_sddmm<8>(cr, cc, rl, cl, af, bf, of, capacity,
-                                  chunk, block_n, dim, st); break;
-    case 16: err = launch_sddmm<16>(cr, cc, rl, cl, af, bf, of, capacity,
-                                    chunk, block_n, dim, st); break;
-    case 32: err = launch_sddmm<32>(cr, cc, rl, cl, af, bf, of, capacity,
-                                    chunk, block_n, dim, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+#define GNPDE_SDDMM(L, V)                                                   \
+  if (lanes == L && vec == V)                                               \
+    return static_cast<int>(launch_sddmm<L, V>(rw, cl, sl, cr, cc, cv, af,  \
+                                               bf, of, n_valid, n_chunks,   \
+                                               chunk, block_n, dim, st));
+#define GNPDE_SDDMM_V(L) \
+  GNPDE_SDDMM(L, 1) GNPDE_SDDMM(L, 2) GNPDE_SDDMM(L, 4)
+  GNPDE_SDDMM_V(1)
+  GNPDE_SDDMM_V(2)
+  GNPDE_SDDMM_V(4)
+  GNPDE_SDDMM_V(8)
+  GNPDE_SDDMM_V(16)
+  GNPDE_SDDMM_V(32)
+#undef GNPDE_SDDMM_V
+#undef GNPDE_SDDMM
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,14 +37,29 @@
 // its own row. This is K15's row walk (csrc/blocked.cu) over the graph's
 // own CSR, with the edge batch added.
 //
+// The chooser (kernels/lanes.py's csr_design) also reads the mean row
+// length, which the caller knows without reading rowptr back from the
+// card: on rows longer than the group's G lanes a round stages S = 4
+// (col, w) pairs a lane, so that a long row's index loads come in a
+// quarter of the dependent rounds (K11's dx on Cora, 72 table rows a
+// column at G = 8: 11% faster); else S = 1 (or as many as the batch
+// needs). Measured on the H100 and left out (probes/lanes.py, PERF.md):
+// persistent groups that stage the next row's pairs while the current
+// row's x rows are in flight, and batches of 8 edges in 32 registers. Both
+// take more registers (97 and 80-88 against 64, so fewer warps an SM) and
+// lose at every shape, the column sum of a directed arxiv-sized graph
+// (about 8 edges a column) among them: its x rows are random reads from a
+// table (87 MB) larger than the L2, which the row walk already keeps in
+// flight; cache hints on the loads and stores moved it by 1% or less.
+//
 // There are no atomics: every output element is summed by one lane, in
-// edge order, with one fused multiply-add an edge, whatever G and V are,
-// so the result is bit-for-bit reproducible from run to run (the solver's
-// replay of accepted steps relies on it) and equal to the first version's.
-// The same kernel serves the forward matvec, the backward dx = A^T ct
-// (on a symmetric edge multiset a forward matvec with the weights permuted
-// to the reverse edges, w[rev]; else a walk over the CSC view) and the
-// table mode, whose x is any table of rows that col indexes.
+// edge order, with one fused multiply-add an edge, whatever G, V and S
+// are, so the result is bit-for-bit reproducible from run to run (the
+// solver's replay of accepted steps relies on it) and equal to the first
+// version's. The same kernel serves the forward matvec, the backward dx =
+// A^T ct (on a symmetric edge multiset a forward matvec with the weights
+// permuted to the reverse edges, w[rev]; else a walk over the CSC view)
+// and the table mode, whose x is any table of rows that col indexes.
 //
 // The table x may be bfloat16 (the JAX package's rhs_payload_dtype, the
 // bf16 x[col] payload of ops/spmm.py's stripe engine): a vector is then 8,
@@ -81,10 +96,11 @@ constexpr int kBatchRegs = GNPDE_CSR_BATCH_REGS;
 
 // One group of G lanes per row; each lane sums K vectors of V features a
 // pass (vectors v0 + lane + G k). A round stages P = G * R (col, w) pairs,
-// R a lane; the group then loads the x rows of U edges (vectors raw, U
-// chosen so that U * K vectors take at most kBatchRegs registers, at most
-// kBatch edges) before it adds their products, in edge order.
-template <typename T, int G, int V, int K>
+// R a lane (at least S, and at least U / G); the group then loads the x
+// rows of U edges (vectors raw, U chosen so that U * K vectors take at
+// most kBatchRegs registers, at most kBatch edges) before it adds their
+// products, in edge order.
+template <typename T, int G, int V, int K, int S>
 __global__ void __launch_bounds__(kThreads) csr_spmm_kernel(
     const int* __restrict__ rowptr, const int* __restrict__ col,
     const float* __restrict__ w, const T* __restrict__ x,
@@ -92,7 +108,8 @@ __global__ void __launch_bounds__(kThreads) csr_spmm_kernel(
   using RawT = typename Raw<T, V>::type;
   constexpr int kU = kBatchRegs / (K * kRawRegs<T, V>);
   constexpr int U = kU < 1 ? 1 : (kU > kBatch ? kBatch : kU);
-  constexpr int R = G >= U ? 1 : U / G;
+  constexpr int R0 = G >= U ? 1 : U / G;    // the pairs the batch needs
+  constexpr int R = R0 > S ? R0 : S;
   constexpr int P = G * R;
   const int lane = threadIdx.x % G;
   const int row = (blockIdx.x * kThreads + threadIdx.x) / G;
@@ -164,17 +181,35 @@ __global__ void __launch_bounds__(kThreads) csr_spmm_kernel(
   }
 }
 
-template <typename T, int G, int V, int K>
+template <typename T, int G, int V, int K, int S>
 cudaError_t launch(const void* rowptr, const void* col, const void* w,
                    const void* x, void* out, int n_rows, int dim,
                    cudaStream_t stream) {
   const long long threads = static_cast<long long>(n_rows) * G;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  csr_spmm_kernel<T, G, V, K><<<blocks, kThreads, 0, stream>>>(
+  csr_spmm_kernel<T, G, V, K, S><<<blocks, kThreads, 0, stream>>>(
       static_cast<const int*>(rowptr), static_cast<const int*>(col),
       static_cast<const float*>(w), static_cast<const T*>(x),
       static_cast<float*>(out), n_rows, dim);
   return cudaGetLastError();
+}
+
+// S: the (col, w) pairs a lane stages a round, at least: 1, or 4 on rows
+// longer than the group (kernels/lanes.py's csr_design)
+template <typename T, int G, int V, int K>
+cudaError_t launch_s(const void* rowptr, const void* col, const void* w,
+                     const void* x, void* out, int n_rows, int dim,
+                     int stage, cudaStream_t stream) {
+  switch (stage) {
+    case 1:
+      return launch<T, G, V, K, 1>(rowptr, col, w, x, out, n_rows, dim,
+                                   stream);
+    case 4:
+      return launch<T, G, V, K, 4>(rowptr, col, w, x, out, n_rows, dim,
+                                   stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // K: the vectors a lane sums a pass, the row's D / V vectors over the
@@ -182,28 +217,32 @@ cudaError_t launch(const void* rowptr, const void* col, const void* w,
 template <typename T, int G, int V>
 cudaError_t launch_k(const void* rowptr, const void* col, const void* w,
                      const void* x, void* out, int n_rows, int dim,
-                     cudaStream_t stream) {
+                     int stage, cudaStream_t stream) {
   switch (min((dim / V + G - 1) / G, kMaxVecsPerLane)) {
     case 1:
-      return launch<T, G, V, 1>(rowptr, col, w, x, out, n_rows, dim, stream);
+      return launch_s<T, G, V, 1>(rowptr, col, w, x, out, n_rows, dim,
+                                  stage, stream);
     case 2:
-      return launch<T, G, V, 2>(rowptr, col, w, x, out, n_rows, dim, stream);
+      return launch_s<T, G, V, 2>(rowptr, col, w, x, out, n_rows, dim,
+                                  stage, stream);
     case 3:
-      return launch<T, G, V, 3>(rowptr, col, w, x, out, n_rows, dim, stream);
+      return launch_s<T, G, V, 3>(rowptr, col, w, x, out, n_rows, dim,
+                                  stage, stream);
     default:
-      return launch<T, G, V, kMaxVecsPerLane>(rowptr, col, w, x, out, n_rows,
-                                              dim, stream);
+      return launch_s<T, G, V, kMaxVecsPerLane>(rowptr, col, w, x, out,
+                                                n_rows, dim, stage, stream);
   }
 }
 
 template <typename T, int V>
 cudaError_t launch_v(int lanes, const void* rowptr, const void* col,
                      const void* w, const void* x, void* out, int n_rows,
-                     int dim, cudaStream_t stream) {
+                     int dim, int stage, cudaStream_t stream) {
   switch (lanes) {
 #define GNPDE_CSR_G(G)                                                      \
   case G:                                                                   \
-    return launch_k<T, G, V>(rowptr, col, w, x, out, n_rows, dim, stream);
+    return launch_k<T, G, V>(rowptr, col, w, x, out, n_rows, dim, stage,    \
+                             stream);
     GNPDE_CSR_G(1)
     GNPDE_CSR_G(2)
     GNPDE_CSR_G(4)
@@ -218,14 +257,15 @@ cudaError_t launch_v(int lanes, const void* rowptr, const void* col,
 
 }  // namespace
 
-// lanes: G, vec: V, chosen by the wrapper (kernels/lanes.py: G in 1, 2, 4,
-// ..., 32; V dividing dim, 1, 2 or 4 floats or 1, 2, 4 or 8 bfloat16s,
-// with x on a V-element boundary); dtype: the table x, 0 for float32, 1
-// for bfloat16 (w and out are float32)
+// lanes: G, vec: V, stage: S, chosen by the wrapper (kernels/lanes.py's
+// csr_design: G in 1, 2, 4, ..., 32; V dividing dim, 1, 2 or 4 floats or
+// 1, 2, 4 or 8 bfloat16s, with x on a V-element boundary; S 1 or 4);
+// dtype: the table x, 0 for float32, 1 for bfloat16 (w and out are
+// float32)
 extern "C" int gnpde_csr_spmm(const void* rowptr, const void* col,
                               const void* w, const void* x, void* out,
                               int n_rows, int dim, int lanes, int vec,
-                              int dtype, void* stream) {
+                              int stage, int dtype, void* stream) {
   if ((dtype != 0 && dtype != 1) || vec <= 0 || dim % vec != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0 || dim <= 0) return static_cast<int>(cudaGetLastError());
@@ -234,23 +274,27 @@ extern "C" int gnpde_csr_spmm(const void* rowptr, const void* col,
   if (dtype == 0) {
     switch (vec) {
       case 1: err = launch_v<float, 1>(lanes, rowptr, col, w, x, out, n_rows,
-                                       dim, s); break;
+                                       dim, stage, s); break;
       case 2: err = launch_v<float, 2>(lanes, rowptr, col, w, x, out, n_rows,
-                                       dim, s); break;
+                                       dim, stage, s); break;
       case 4: err = launch_v<float, 4>(lanes, rowptr, col, w, x, out, n_rows,
-                                       dim, s); break;
+                                       dim, stage, s); break;
       default: break;
     }
   } else {
     switch (vec) {
       case 1: err = launch_v<__nv_bfloat16, 1>(lanes, rowptr, col, w, x, out,
-                                               n_rows, dim, s); break;
+                                               n_rows, dim, stage, s);
+              break;
       case 2: err = launch_v<__nv_bfloat16, 2>(lanes, rowptr, col, w, x, out,
-                                               n_rows, dim, s); break;
+                                               n_rows, dim, stage, s);
+              break;
       case 4: err = launch_v<__nv_bfloat16, 4>(lanes, rowptr, col, w, x, out,
-                                               n_rows, dim, s); break;
+                                               n_rows, dim, stage, s);
+              break;
       case 8: err = launch_v<__nv_bfloat16, 8>(lanes, rowptr, col, w, x, out,
-                                               n_rows, dim, s); break;
+                                               n_rows, dim, stage, s);
+              break;
       default: break;
     }
   }

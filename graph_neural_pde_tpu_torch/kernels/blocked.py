@@ -5,7 +5,9 @@ blocked edge plan (``ops.plan``), and the differentiable blocked SpMM the
 * K15: ``out[rb·B + row_local[s]] += w[s] · x[cb·B + col_local[s]]`` over
   the plan's valid slots; x and out are [N_pad, D] float32, w [capacity].
 * K16: ``out[s] = a[rb·B + row_local[s]] · b[cb·B + col_local[s]]`` for
-  every slot (padding slots read node rb·B and cb·B), [capacity] float32.
+  every slot (padding slots read node rb·B and cb·B), [capacity] float32;
+  the kernel walks the valid slots in K15's row order, each with its
+  global row and column, and writes each chunk's padding value once.
 
 They replace the TPU kernels ``graph_neural_pde_tpu/ops/pallas/
 spmm_blocked.py`` ``_spmm_kernel`` / ``_spmm_call`` (P17) and
@@ -45,10 +47,13 @@ class BlockedLayout:
 
     Per slot: ``row_local``, ``col_local``, ``valid``; per chunk:
     ``chunk_rows``, ``chunk_cols`` (K16 and the plain versions read
-    these). K15's row walk (host-built, see :func:`blocked_layout`): a CSR
+    these) and ``chunk_valid``, its valid slots, which come first in the
+    chunk (K16 computes the padding value of the slots after them once a
+    chunk). K15's row walk (host-built, see :func:`blocked_layout`): a CSR
     over the plan's valid slots, ``rowptr`` [N_pad + 1]; for each padded
     node row its slots in plan order (chunk by chunk, then by slot), with
-    each slot's index ``slot`` (for w) and its global column ``col``."""
+    each slot's index ``slot`` (for w), its global column ``col`` and, for
+    K16's walk over the same slots, its global row ``row``."""
 
     block_n: int
     chunk: int
@@ -58,9 +63,11 @@ class BlockedLayout:
     valid: torch.Tensor
     chunk_rows: torch.Tensor
     chunk_cols: torch.Tensor
+    chunk_valid: torch.Tensor
     rowptr: torch.Tensor
     slot: torch.Tensor
     col: torch.Tensor
+    row: torch.Tensor
 
     @property
     def capacity(self) -> int:
@@ -79,6 +86,10 @@ def blocked_layout(plan: BlockPlan, device="cpu") -> BlockedLayout:
     rowptr = np.zeros(plan.num_nodes + 1, np.int64)
     rowptr[1:] = np.cumsum(np.bincount(plan.row[slots],
                                        minlength=plan.num_nodes))
+    by_chunk = plan.valid.reshape(plan.n_chunks, plan.chunk)
+    chunk_valid = by_chunk.sum(1)
+    # K16 takes the padding slots to be each chunk's suffix (ops/plan.py)
+    assert (by_chunk == (np.arange(plan.chunk) < chunk_valid[:, None])).all()
     return BlockedLayout(
         block_n=plan.block_n, chunk=plan.chunk, num_nodes=plan.num_nodes,
         row_local=_i32(plan.row_local, device),
@@ -86,8 +97,9 @@ def blocked_layout(plan: BlockPlan, device="cpu") -> BlockedLayout:
         valid=torch.as_tensor(plan.valid, device=device),
         chunk_rows=_i32(plan.chunk_rows, device),
         chunk_cols=_i32(plan.chunk_cols, device),
-        rowptr=_i32(rowptr, device), slot=_i32(slots, device),
-        col=_i32(plan.col[slots], device))
+        chunk_valid=_i32(chunk_valid, device), rowptr=_i32(rowptr, device),
+        slot=_i32(slots, device), col=_i32(plan.col[slots], device),
+        row=_i32(plan.row[slots], device))
 
 
 def _global_ids(lay: BlockedLayout):
@@ -139,13 +151,6 @@ def _check(name, lay, tensors, w=None):
                          f"{tuple(w.shape)}")
 
 
-def _pow2_at_most(n: int, cap: int) -> int:
-    p = 1
-    while p * 2 <= min(n, cap):
-        p *= 2
-    return p
-
-
 def spmm_lanes(dim: int, address: int = 0):
     """K15's (lanes G, vector width V) for rows of ``dim`` floats in a
     table at ``address`` (``kernels.lanes``): V the widest of 4, 2, 1
@@ -182,12 +187,16 @@ def blocked_sddmm(lay: BlockedLayout, a: torch.Tensor,
         return blocked_sddmm_plain(lay, a, b)
     if a.device.type != "cuda":
         raise NotImplementedError(f"blocked_sddmm: no kernel for {a.device}")
+    # the kernel writes every slot, the padding ones included
     out = torch.empty(lay.capacity, dtype=torch.float32, device=a.device)
-    build.launch("blocked_sddmm", a.device, lay.chunk_rows.data_ptr(),
-                 lay.chunk_cols.data_ptr(), lay.row_local.data_ptr(),
-                 lay.col_local.data_ptr(), a.data_ptr(), b.data_ptr(),
-                 out.data_ptr(), lay.capacity, lay.chunk, lay.block_n,
-                 a.shape[1], _pow2_at_most(a.shape[1], 32))
+    # K2's lanes: a slot's dot is K2's edge dot
+    group, vec = lanes("edge_dot", a.shape[1], a, b)
+    build.launch("blocked_sddmm", a.device, lay.row.data_ptr(),
+                 lay.col.data_ptr(), lay.slot.data_ptr(),
+                 lay.chunk_rows.data_ptr(), lay.chunk_cols.data_ptr(),
+                 lay.chunk_valid.data_ptr(), a.data_ptr(), b.data_ptr(),
+                 out.data_ptr(), lay.slot.shape[0], lay.chunk_rows.shape[0],
+                 lay.chunk, lay.block_n, a.shape[1], group, vec)
     blocked_sddmm.launches += 1
     return out
 

@@ -35,9 +35,9 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # argument types of every C entry point (device pointers, ints, the stream
 # last); each returns its cudaGetLastError() code
 _ENTRY_POINTS = {
-    # rowptr, col, w, x, out, n_rows, dim, lanes, vec (kernels/lanes.py),
-    # dtype of x (0 float32, 1 bfloat16), stream
-    "gnpde_csr_spmm": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+    # rowptr, col, w, x, out, n_rows, dim, lanes, vec, stage (kernels/
+    # lanes.py's csr_design), dtype of x (0 float32, 1 bfloat16), stream
+    "gnpde_csr_spmm": [_PTR] * 5 + [_INT] * 6 + [_PTR],
     # row, col, a, b, out, n_valid, n_slots, dim, lanes, vec
     # (kernels/lanes.py), dtype of b (0 float32, 1 bfloat16), stream
     "gnpde_edge_dot": [_PTR] * 5 + [_INT] * 6 + [_PTR],
@@ -163,9 +163,10 @@ _ENTRY_POINTS = {
     # rowptr, slot, col (the plan's valid slots by row), w, x, out, n_rows,
     # dim, lanes, vec, stream
     "gnpde_blocked_spmm": [_PTR] * 6 + [_INT] * 4 + [_PTR],
-    # chunk_rows, chunk_cols, row_local, col_local, a, b, out, capacity,
-    # chunk, block_n, dim, lanes, stream
-    "gnpde_blocked_sddmm": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # row, col, slot (the valid slots in K15's order), chunk_rows,
+    # chunk_cols, chunk_valid, a, b, out, n_valid, n_chunks, chunk, block_n,
+    # dim, lanes, vec (kernels/lanes.py's edge_dot entry), stream
+    "gnpde_blocked_sddmm": [_PTR] * 9 + [_INT] * 7 + [_PTR],
     # rowptr, table, out, n_rows, dim, dtype of out (0 float32, 1
     # bfloat16), stream (csrc/row_gather.cu)
     "gnpde_row_gather": [_PTR] * 3 + [_INT] * 3 + [_PTR],

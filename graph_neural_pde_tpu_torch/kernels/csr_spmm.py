@@ -17,10 +17,12 @@ product with the float32 weight, and the sums and the output are float32.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
-from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+from graph_neural_pde_tpu_torch.kernels.lanes import csr_design
 
 # the table dtypes K1 and K2 read, and their codes at the C entry points
 TABLE_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,14 +71,17 @@ def _check(rowptr, row, col, w, x, table):
 
 
 def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
-             w: torch.Tensor, x: torch.Tensor, table: bool = False
-             ) -> torch.Tensor:
+             w: torch.Tensor, x: torch.Tensor, table: bool = False,
+             n_edges: Optional[int] = None) -> torch.Tensor:
     """``A_w x`` over a row-sorted graph whose valid edges are the prefix
     ``[0, rowptr[-1])`` of ``row``/``col``/``w``. ``row`` is only read by the
     plain version. With ``table`` the gathered ``x`` is any table of rows
     that ``col`` indexes (a per-edge array summed over each row's reverse
     edges), not the [N, D] node state. ``x`` float32 or bfloat16; the
-    output is float32. Not differentiable by itself (see
+    output is float32. ``n_edges``: the valid edges, as the caller knows
+    them (a graph's ``num_valid``), whose mean over the rows sets the
+    kernel's staging depth (``kernels.lanes.csr_design``); by default the
+    length of ``col``, an upper bound. Not differentiable by itself (see
     ``ops.spmm.make_spmm``)."""
     _check(rowptr, row, col, w, x, table)
     if x.device.type == "cpu":
@@ -85,10 +90,11 @@ def csr_spmm(rowptr: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
         raise NotImplementedError(f"csr_spmm: no kernel for {x.device}")
     n, d = rowptr.shape[0] - 1, x.shape[1]
     out = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    group, vec = lanes("csr_spmm", d, x)
+    edges = col.shape[0] if n_edges is None else n_edges
+    group, vec, stage = csr_design(d, edges / max(n, 1), x)
     build.launch("csr_spmm", x.device, rowptr.data_ptr(), col.data_ptr(),
                  w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d, group,
-                 vec, TABLE_DTYPES[x.dtype])
+                 vec, stage, TABLE_DTYPES[x.dtype])
     csr_spmm.launches += 1
     csr_spmm.table_launches += table
     csr_spmm.bf16_launches += x.dtype == torch.bfloat16
@@ -111,6 +117,7 @@ def column_sum(g, table: torch.Tensor) -> torch.Tensor:
     w = g.mask.to(table.dtype)
     if g.rev is not None:
         return csr_spmm(g.rowptr, g.row, g.rev, w[g.rev.long()], table,
-                        table=True)
+                        table=True, n_edges=g.num_valid)
     return csr_spmm(g.colptr, g.col_by_col, g.col_perm,
-                    w[g.col_perm.long()], table, table=True)
+                    w[g.col_perm.long()], table, table=True,
+                    n_edges=g.num_valid)

@@ -247,7 +247,7 @@ def column_head_sum(g, u: torch.Tensor, ct_num: torch.Tensor
     seg = g.col_by_col.repeat_interleave(h)
     w = u[g.col_perm.long()].reshape(-1).contiguous()
     return csr_spmm(g.colptr * h, seg, idx, w, ct_num.view(n * h, hd // h),
-                    table=True)
+                    table=True, n_edges=g.num_valid * h)
 
 
 dual_scatter.launches = 0

@@ -49,6 +49,12 @@ K1 and K15 sum a row's vectors in registers, at most ``VECS_PER_LANE`` a
 lane a pass, so a pass covers G * V * 4 features; wider rows take more
 passes over the row's edges. K1 takes as many as its row needs (D / V /
 G, rounded up), K2 as many as D / V / L.
+
+K1's staging depth follows the rows (:func:`csr_design`): from the mean
+row length, the edges over the rows, which the caller knows (a graph's
+``num_valid``) without reading ``rowptr`` back from the card, a round
+stages ``CSR_LONG_STAGE`` (col, w) pairs a lane where the rows are longer
+than the group's lanes, else one (or as many as its batch needs).
 """
 
 from __future__ import annotations
@@ -73,6 +79,9 @@ DUAL_ONE_VECTOR = {"dual_scatter": 32, "dual_gather": 24}
 DUAL_MIN_LANES = {"dual_scatter": 8, "dual_gather": 4}
 # K10 on a bfloat16 table: above these heads, 8-byte vectors at 32 lanes
 DUAL_WIDE_HEADS = 4
+# K1: the (col, w) pairs a lane stages a round on rows longer than the
+# group (csrc/csr_spmm.cu's S)
+CSR_LONG_STAGE = 4
 DUAL_KERNELS = ("dual_scatter", "dual_gather")
 KERNELS = ("blocked_spmm", "csr_spmm", "edge_dot", "payload_walk") \
     + DUAL_KERNELS
@@ -133,6 +142,16 @@ def lanes(kernel: str, dim: int, *tables: Table,
         if vecs > CSR_ONE_VECTOR:
             vecs = -(-vecs // 2)
     return min(32, _pow2_at_least(vecs)), vec
+
+
+def csr_design(dim: int, mean_row: float, *tables: Table
+               ) -> Tuple[int, int, int]:
+    """K1's (lanes G, vector width V, stage S): :func:`lanes`'s (G, V),
+    and ``CSR_LONG_STAGE`` (col, w) pairs a lane a round where the rows
+    hold more edges than the group has lanes on average (``mean_row``:
+    the edges over the rows), else 1."""
+    group, vec = lanes("csr_spmm", dim, *tables)
+    return group, vec, CSR_LONG_STAGE if mean_row > group else 1
 
 
 def _dual_lanes(kernel: str, dim: int, heads: int,

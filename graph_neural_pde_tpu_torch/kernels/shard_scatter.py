@@ -83,7 +83,7 @@ class _ShardScatter(torch.autograd.Function):
     def forward(ctx, vals, plan):
         ctx.plan, ctx.vals_dtype = plan, vals.dtype
         return csr_spmm(plan.rowptr, plan.row, plan.slots, plan.valid, vals,
-                        table=True)
+                        table=True, n_edges=plan.n_valid)
 
     @staticmethod
     def backward(ctx, ct):

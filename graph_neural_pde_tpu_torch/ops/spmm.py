@@ -56,9 +56,10 @@ def transpose_matvec(g: Graph, w: torch.Tensor,
     The weights are asymmetric (column normalisation, attention), which is
     why both routes permute them. ``w`` must be 0 on dropped slots."""
     if g.rev is not None:
-        return csr_spmm(g.rowptr, g.row, g.col, w[g.rev.long()], ct)
+        return csr_spmm(g.rowptr, g.row, g.col, w[g.rev.long()], ct,
+                        n_edges=g.num_valid)
     return csr_spmm(g.colptr, g.col_by_col, g.row_by_col,
-                    w[g.col_perm.long()], ct)
+                    w[g.col_perm.long()], ct, n_edges=g.num_valid)
 
 
 class _Spmm(torch.autograd.Function):
@@ -79,7 +80,8 @@ class _Spmm(torch.autograd.Function):
     def forward(ctx, x, w, g, n_valid, payload):
         ctx.save_for_backward(x, w)
         ctx.g, ctx.n_valid, ctx.payload = g, n_valid, payload
-        return csr_spmm(g.rowptr, g.row, g.col, w, _cast(x, payload))
+        return csr_spmm(g.rowptr, g.row, g.col, w, _cast(x, payload),
+                        n_edges=n_valid)
 
     @staticmethod
     def backward(ctx, ct):

@@ -134,7 +134,7 @@ def probe1(report: Report, dev, seed: int):
 
         def scatter():
             return K.csr_spmm(plan.rowptr, plan.row, plan.slots, plan.valid,
-                              vals, table=True)
+                              vals, table=True, n_edges=plan.n_valid)
 
         def segment_reduce():
             return torch.segment_reduce(vals, "sum", lengths=lengths)

@@ -1,31 +1,45 @@
-"""K1 ``csr_spmm``, K2 ``edge_dot``, K10 ``dual_scatter`` and K11
-``dual_gather`` on the card: their lane groups, what the compiler made of
-them, and their times at every shape of their ``PERF.md`` rows, beside
-another tree's kernels in the same process.
+"""K1 ``csr_spmm``, K2 ``edge_dot``, K16 ``blocked_sddmm``, K10
+``dual_scatter`` and K11 ``dual_gather`` on the card: their lane groups,
+what the compiler made of them, and their times at every shape of their
+``PERF.md`` rows, beside another tree's kernels and the library calls in
+the same process.
 
     python graph_neural_pde_tpu_torch/probes/lanes.py [--root DIR]
         [--tag T] [--out DIR] [--shapes mnist,cifar,...,dual-arxiv]
-        [--seed N] [--no-candidates] [--variants] [--paths l,cora,d,e,f]
-        [--epochs N]
+        [--seed N] [--no-candidates] [--variants] [--sessions N]
+        [--paths l,cora,d,e,f,j] [--epochs N]
 
 * The sources of the kernels asked for (``csrc/csr_spmm.cu``,
-  ``csrc/edge_dot.cu``; ``csrc/dual_scatter.cu``, ``csrc/dual_gather.cu``
-  for the ``dual-*`` shapes) of this checkout and, with ``--root DIR``, of
-  the checkout at DIR (the parent commit unpacked beside this one) are
-  each compiled alone with ``nvcc -Xptxas -v`` into a small library under
-  ``build/probes``, all at once, and called through their C entry
-  points, whose argument lists are read from the sources: the other
-  tree's wrappers are emulated (K2's and K11's zeroed outputs included),
-  so both trees run on the same inputs in one process. ptxas's
-  registers, stack and spills of every instantiation are printed.
-* At each K1 / K2 shape: K1 (the node state, or K11's dx as a table over
-  the CSC view) and K2 (dw, padding slots included) held against their
-  plain versions in float64 (1e-5 of scale), relaunched (bit-identical),
-  the new output compared bit for bit with the other tree's, and timed as
-  whole calls (device time from torch.profiler, ``chip_smoke.py``'s
-  ``device_ms``: K2's memset in the other tree counts), the other tree
-  before and after this one's; beside them the library call
-  (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``) on float32 tables.
+  ``csrc/edge_dot.cu``, ``csrc/blocked.cu``; ``csrc/dual_scatter.cu``,
+  ``csrc/dual_gather.cu`` for the ``dual-*`` shapes) of this checkout and,
+  with ``--root DIR``, of the checkout at DIR (the parent commit unpacked
+  beside this one) are each compiled alone with ``nvcc -Xptxas -v`` into
+  a small library under ``build/probes``, all at once, and called through
+  their C entry points, whose argument lists are read from the sources:
+  the other tree's wrappers are emulated (its own lane choosers, K2's and
+  K11's zeroed outputs), so both trees run on the same inputs in one
+  process. ptxas's registers, stack and spills of every instantiation are
+  printed.
+* At each K1 shape: K1 over the node state (``rows``, with K2's dw
+  beside it), as the column sum dx = A_w^T ct over a directed graph's CSC
+  view (``columns``: GDC Cora, arxiv's pairs one way only), as K11's dx in
+  table mode (``table``: ``column_head_sum``'s [N*H, D/H] table over the
+  CSC view) and as P6's table-mode scatter on ranks 0 and 3 of a 4-way
+  split (``ranks``), each held against its plain version in float64 (1e-5
+  of scale), relaunched (bit-identical), compared bit for bit with the
+  other tree's, and timed as whole calls (device time from
+  torch.profiler, ``chip_smoke.py``'s ``device_ms``), the other tree
+  before and after this one's, beside the library call
+  (``torch.sparse.mm``, ``torch.segment_reduce``) on float32 tables. At
+  the ``SESSION_SHAPES`` (the column sum at arxiv dir. and K11's dx at
+  arxiv) the parent's K1, this K1 and ``torch.sparse.mm`` are then timed
+  in ``--sessions`` profiler sessions each, in turns, the order reversed
+  every other round, each session printed, and the library call's device
+  kernels named.
+* At the five blocked shapes (``BLOCKED_SHAPES``): K16 over the graph's
+  block plan (block_n = chunk = 1024) the same way, padding slots
+  included, beside ``torch.sparse.sampled_addmm``; K2 on the same
+  row-sorted graph just before it.
 * At each ``dual-*`` shape (``DUAL_SHAPES``: D=16 H=4, the Cora stand-in
   D=80 H=8, the same with a hub row of degree 360, the GDC-rewired Cora
   stand-in, arxiv scale D=128 H=2 and its pairs one way only; float32 and
@@ -33,30 +47,33 @@ another tree's kernels in the same process.
   directed graph), beside their library calls (``run_dual``), and also
   walked over whole rows in place of ``Graph.row_pieces``.
 * Unless ``--no-candidates``, every lane group that covers the row in one
-  pass (K1, K10, K11) or at most a warp (K2) is timed beside the
-  chooser's pick (``kernels/lanes.py``): the measurement that sets the
-  chooser.
-* ``--paths l,cora,d,e,f``: instead of the above, the model paths of the
+  pass (K1, K10, K11) or at most a warp (K2, K16) is timed beside the
+  chooser's pick (``kernels/lanes.py``), and K1 also at the other staging
+  depth: the measurements that set the choosers.
+* ``--paths l,cora,d,e,f,j``: instead of the above, the model paths of the
   tree at ``--root`` (this checkout by default; its kernels built in it),
   ``profile_paths``: K1's and K2's launches and device ms per batch of the
   image CLI on the default engine (l), and per epoch of the tuned Cora
-  row, (d), (e) and (f), with K1's launches in table mode and K10's and
-  K11's launches and ms.
-* ``--variants``: K1 also built with other edge batches
-  (``K1_VARIANTS``: ``-D`` values of ``csrc/csr_spmm.cu``'s
-  ``GNPDE_CSR_BATCH`` and ``GNPDE_CSR_BATCH_REGS``), K10 and K11 with
-  other batches, heads a pass and du and dx in two walks
-  (``DUAL_VARIANTS``), timed at the chooser's lanes.
+  row, (d), (e), (f) and (j) (the tuned Cora row on the blocked engine
+  after rcm), with K1's launches in table mode and K10's, K11's, K15's and
+  K16's launches and ms.
+* ``--variants``: K1 also built with other edge batches (``K1_VARIANTS``:
+  ``-D`` values of ``csrc/csr_spmm.cu``'s ``GNPDE_CSR_BATCH`` and
+  ``GNPDE_CSR_BATCH_REGS``), K10 and K11 with other batches, heads a pass
+  and du and dx in two walks (``DUAL_VARIANTS``), timed at the choosers'
+  picks.
 
 Shapes: the image CLI's batches (64 MNIST grids, D=1; 64 CIFAR grids with
 diagonals, D=3), the Cora and ogbn-arxiv stand-ins after rcm (D=80,
 D=162), an 8-neighbour 412 x 411 grid (D=128), the Cora stand-in (D=80,
-also on a bfloat16 table), the arxiv-scale graph (D=128, also bf16), and
-K11's dx in table mode on the Cora stand-in (H=8: width 10) and at arxiv
-scale (H=2: width 64); the ``dual-*`` shapes above. Every line names the
-card and its power limit; the numbers and ptxas's report also go to
-``--out``/lanes_<tag>.json (by default ``build/probes``). Without a CUDA
-device it exits nonzero.
+also on a bfloat16 table), the arxiv-scale graph (D=128, also bf16), K11's
+dx in table mode on the Cora stand-in (H=8: width 10) and at arxiv scale
+(H=2: width 64), the column sums of the GDC-rewired Cora stand-in (D=80)
+and of arxiv's pairs one way only (arxiv dir., D=128), and P6's scatter
+on two ranks of the arxiv-scale 4-way split (D=128); the ``dual-*``
+shapes above. Every line names the card and its power limit; the numbers
+and ptxas's report also go to ``--out``/lanes_<tag>.json (by default
+``build/probes``). Without a CUDA device it exits nonzero.
 """
 
 from __future__ import annotations
@@ -76,11 +93,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 LIB_DIR = ROOT / "build" / "probes"
-SOURCES = ("csr_spmm", "edge_dot")
+SOURCES = ("csr_spmm", "edge_dot", "blocked")
 # K10 and K11's sources (the parent's K11 is in dual_scatter.cu)
 DUAL_SOURCES = ("dual_scatter", "dual_gather")
 SHAPES = ("mnist", "cifar", "cora-rcm", "arxiv-rcm", "grid", "cora",
-          "arxiv", "cora-table", "arxiv-table")
+          "arxiv", "cora-table", "arxiv-table", "cora-gdc", "arxiv-dir",
+          "arxiv-ranks")
+# K16 runs at these K1 / K2 shapes (chip_smoke.py's blocked graphs)
+BLOCKED_SHAPES = ("mnist", "cifar", "cora-rcm", "arxiv-rcm", "grid")
+# K1 and torch.sparse.mm in alternating profiler sessions (Part 0)
+SESSION_SHAPES = ("arxiv-dir", "arxiv-table")
 # K10 / K11: graph, D, H, the tables timed ("dual-arxiv-dir": directed, K11
 # writes du only)
 DUAL_SHAPES = {"dual-small": ("cora", 16, 4, ("f32", "bf16")),
@@ -93,9 +115,9 @@ REL = 1e-5
 POW2 = (1, 2, 4, 8, 16, 32)
 # K1 built with other edge batches (csrc/csr_spmm.cu): the batch of edges
 # whose x rows load at once, at most, and the registers they may take
-K1_VARIANTS = {"no batch": ("GNPDE_CSR_BATCH=1",),
-               "batch in 8 registers": ("GNPDE_CSR_BATCH_REGS=8",),
-               "batch in 32 registers": ("GNPDE_CSR_BATCH_REGS=32",)}
+K1_VARIANTS = {"batch in 8 registers": ("GNPDE_CSR_BATCH_REGS=8",),
+               "batch of 8 in 32 registers": ("GNPDE_CSR_BATCH=8",
+                                              "GNPDE_CSR_BATCH_REGS=32")}
 # K10 / K11 built with other values of csrc/dual_common.cuh's,
 # dual_scatter.cu's and dual_gather.cu's defines: (sources, defines)
 DUAL_VARIANTS = {
@@ -201,16 +223,29 @@ def report_ptxas(tag: str, log: str) -> list:
     return rows
 
 
-def build_trees(trees) -> None:
+def build_trees(trees, optional=()) -> list:
+    """Every tree's sources built at once; a tree of ``optional`` (the
+    variants) that fails to build is reported and left out, any other
+    failure raises with the first errors of every failed source. Returns
+    the trees built."""
     procs = {(t.tag, s): subprocess.Popen(
         t.cmds[s], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for t in trees for s in t.sources}
     logs = {k: p.communicate()[0] for k, p in procs.items()}
-    for k, p in procs.items():
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {k}:\n{logs[k]}")
-    for t in trees:
+    failed = {k for k, p in procs.items() if p.returncode}
+    errors = {k: [ln for ln in logs[k].splitlines() if "error" in ln][:12]
+              for k in failed}
+    for k in failed:
+        print(f"[build] nvcc failed for {k}: " + "\n".join(errors[k]),
+              flush=True)
+    fatal = [k for k in failed if not any(t.tag == k[0] for t in optional)]
+    if fatal:
+        raise RuntimeError(f"nvcc failed for {fatal}")
+    built = [t for t in trees
+             if not any((t.tag, s) in failed for s in t.sources)]
+    for t in built:
         t.load({s: logs[(t.tag, s)] for s in t.sources})
+    return built
 
 
 def image_config():
@@ -255,34 +290,154 @@ def graphs_for(shapes, data_dir: str, seed: int, dev, cs=None):
     }
     made = {}
     for s in shapes:
-        key = (DUAL_SHAPES[s][0] if s in DUAL_SHAPES
-               else s.replace("-table", ""))
+        key = DUAL_SHAPES[s][0] if s in DUAL_SHAPES else shape_dims(s)[0]
         if key not in made:
             made[key] = makers[key]().to(dev)
     return made
 
 
-# graph, D (or D and H in table mode), the table dtypes timed
+# K1's shapes: graph, D, K11's heads (table mode), and what K1 walks:
+# "rows" the node state over the CSR (with K2's dw beside it), "columns"
+# the column sum dx = A_w^T ct over the CSC view, "table" K11's dx as
+# column_head_sum lays it out (the [N*H, D/H] table over the CSC view),
+# "ranks" P6's table-mode scatter on ranks 0 and 3 of a 4-way split
 def shape_dims(name):
     from graph_neural_pde_tpu_torch.config import best_params
-    return {"mnist": ("mnist", 1, None), "cifar": ("cifar", 3, None),
-            "cora-rcm": ("cora-rcm", best_params["Cora"].hidden_dim, None),
-            "arxiv-rcm": ("arxiv-rcm", best_params["ogbn-arxiv"].hidden_dim,
-                          None),
-            "grid": ("grid", 128, None), "cora": ("cora", 80, None),
-            "arxiv": ("arxiv", 128, None), "cora-table": ("cora", 80, 8),
-            "arxiv-table": ("arxiv", 128, 2)}[name]
+    return {"mnist": ("mnist", 1, None, "rows"),
+            "cifar": ("cifar", 3, None, "rows"),
+            "cora-rcm": ("cora-rcm", best_params["Cora"].hidden_dim, None,
+                         "rows"),
+            "arxiv-rcm": ("arxiv-rcm",
+                          best_params["ogbn-arxiv"].hidden_dim, None,
+                          "rows"),
+            "grid": ("grid", 128, None, "rows"),
+            "cora": ("cora", 80, None, "rows"),
+            "arxiv": ("arxiv", 128, None, "rows"),
+            "cora-table": ("cora", 80, 8, "table"),
+            "arxiv-table": ("arxiv", 128, 2, "table"),
+            "cora-gdc": ("cora-gdc", 80, None, "columns"),
+            "arxiv-dir": ("arxiv-dir", 128, None, "columns"),
+            "arxiv-ranks": ("arxiv", 128, None, "ranks")}[name]
 
 
 def candidates(kernel: str, dim: int, vec: int):
     """Lane groups to time beside the chooser's: K1's that cover the row
-    in one pass, K2's up to a warp."""
+    in one pass, K2's (and K16's) up to a warp."""
     from graph_neural_pde_tpu_torch.kernels.lanes import VECS_PER_LANE
     vecs = max(dim // vec, 1)
     if kernel == "csr_spmm":
         one_pass = [g for g in POW2 if g * VECS_PER_LANE >= vecs]
         return one_pass or [32]
     return [g for g in POW2 if g <= max(vecs, 1)]
+
+
+def k1_operands(shape, g, gen, dev):
+    """K1's operand sets at one shape: (tag, (rowptr, row, col, w, x), rows,
+    width, valid edges, library call or None). The library calls:
+    ``torch.sparse.mm`` of the CSR (rows), of the transposed CSR (columns),
+    of the [N, N*H] matrix (table); ``torch.segment_reduce`` (ranks)."""
+    import torch
+    _, d, heads, walk = shape_dims(shape)
+    n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    sets = []
+    if walk == "rows":
+        w = torch.rand((cap,), generator=gen, device=dev) * g.mask
+        x32 = torch.randn((n, d), generator=gen, device=dev)
+        mat = torch.sparse_csr_tensor(g.rowptr, g.col[:nv], w[:nv],
+                                      size=(n, n))
+        sets.append(("", (g.rowptr, g.row, g.col, w, x32), n, d, nv,
+                     lambda: mat @ x32))
+        if shape in ("cora", "arxiv"):
+            xb = x32.to(torch.bfloat16)
+            sets.append((" bf16", (g.rowptr, g.row, g.col, w, xb), n, d, nv,
+                         None))
+    elif walk == "columns":
+        ct = torch.randn((n, d), generator=gen, device=dev)
+        w = torch.rand((cap,), generator=gen, device=dev) * g.mask
+        w_col = w[g.col_perm.long()]
+        mat = torch.sparse_csr_tensor(g.colptr, g.row_by_col[:nv],
+                                      w_col[:nv], size=(n, n))
+        sets.append(("", (g.colptr, g.col_by_col, g.row_by_col, w_col, ct),
+                     n, d, nv, lambda: torch.sparse.mm(mat, ct)))
+    elif walk == "table":
+        u = ((torch.rand((cap, heads), generator=gen, device=dev) + 0.05)
+             * g.mask[:, None])
+        ct_num = torch.randn((n, d), generator=gen, device=dev)
+        hs = torch.arange(heads, dtype=torch.int32, device=dev)
+        idx = (g.row_by_col[:, None] * heads + hs).reshape(-1)
+        seg = g.col_by_col.repeat_interleave(heads)
+        wt = u[g.col_perm.long()].reshape(-1).contiguous()
+        x = ct_num.view(n * heads, d // heads)
+        ptr = (g.colptr * heads).contiguous()
+        mat = torch.sparse_csr_tensor(ptr, idx[:nv * heads],
+                                      wt[:nv * heads], size=(n, n * heads))
+        sets.append(("", (ptr, seg, idx, wt, x), n, d // heads, nv * heads,
+                     lambda: torch.sparse.mm(mat, x)))
+    else:
+        from graph_neural_pde_tpu_torch.parallel import split_mesh
+        from graph_neural_pde_tpu_torch.parallel.shard_spmm import \
+            stripe_shards
+        shards = stripe_shards(split_mesh(4, dev), g)
+        for r in (0, 3):
+            plan = shards[r].plan
+            vals = torch.randn((plan.n_valid, d), generator=gen, device=dev)
+            lengths = (plan.rowptr[1:] - plan.rowptr[:-1]).long()
+            sets.append((f" rank {r}", (plan.rowptr, plan.row, plan.slots,
+                                        plan.valid, vals),
+                         plan.num_nodes, d, plan.n_valid,
+                         lambda vals=vals, lengths=lengths:
+                         torch.segment_reduce(vals, "sum",
+                                              lengths=lengths)))
+    return sets
+
+
+def sessions(label_fns, n, cs, line, tag):
+    """Part 0's yardstick: each (label, fn) timed in ``n`` profiler
+    sessions (``chip_smoke.py``'s ``device_ms``, 20 calls each) in turns,
+    the order reversed every other round; every session's time printed,
+    and each label's first, median, fastest and slowest."""
+    import statistics
+    times = {label: [] for label, _ in label_fns}
+    for i in range(n):
+        order = label_fns if i % 2 == 0 else label_fns[::-1]
+        for label, fn in order:
+            ms = cs.device_ms(fn, reps=20)
+            times[label].append(ms)
+            turn = "forward" if i % 2 == 0 else "reversed"
+            print(f"[sessions] {tag} round {i} ({turn} order) {label}: "
+                  f"{ms:.4f} ms [{line}]", flush=True)
+    summary = {}
+    for label, ts in times.items():
+        summary[label] = dict(sessions=ts, first=ts[0],
+                              median=statistics.median(ts), fastest=min(ts),
+                              slowest=max(ts))
+        print(f"[sessions] {tag} {label}: first {ts[0]:.4f}, median "
+              f"{statistics.median(ts):.4f}, fastest {min(ts):.4f}, "
+              f"slowest {max(ts):.4f} ms over {n} sessions [{line}]",
+              flush=True)
+    return summary
+
+
+def k1_call(tree, csr, rows, width, dt, group=None, vec=None, stage=None):
+    """One K1 launch of ``tree`` on ``csr`` through its own C entry point,
+    with the arguments it takes (an older one takes no staging depth, or
+    no lanes either); the tree's own chooser where ``group`` is None."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+    rowptr, _, col, w, x = csr
+    o = torch.empty((rows, width), device=x.device)
+    ptrs = (rowptr.data_ptr(), col.data_ptr(), w.data_ptr(), x.data_ptr(),
+            o.data_ptr())
+    arity = len(tree.args["csr_spmm"])
+    if arity == 12:
+        tree.call("csr_spmm", *ptrs, rows, width, group, vec, stage, dt)
+    elif arity == 11:
+        if group is None:       # the lanes alone, as its wrapper chose them
+            group, vec = lanes("csr_spmm", width, x)
+        tree.call("csr_spmm", *ptrs, rows, width, group, vec, dt)
+    else:
+        tree.call("csr_spmm", *ptrs, rows, width, dt)
+    return o
 
 
 def main(argv=None) -> int:
@@ -294,6 +449,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-candidates", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--sessions", type=int, default=5)
     ap.add_argument("--paths", default=None)
     ap.add_argument("--epochs", type=int, default=3)
     args = ap.parse_args(argv)
@@ -308,13 +464,15 @@ def main(argv=None) -> int:
     if args.paths is not None:
         return profile_paths(args, tree)
     from graph_neural_pde_tpu_torch.kernels import build
-    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
     from graph_neural_pde_tpu_torch.kernels.csr_spmm import csr_spmm_plain
     from graph_neural_pde_tpu_torch.kernels.edge_dot import edge_dot_plain
+    from graph_neural_pde_tpu_torch.kernels.lanes import (CSR_LONG_STAGE,
+                                                          csr_design)
     from graph_neural_pde_tpu_torch.probes.gather import card, time_ms
     cs = _chip_smoke()
     line = card()
-    print(f"[lanes] {torch.cuda.get_device_name(0)}; {line}", flush=True)
+    print(f"[lanes] {torch.cuda.get_device_name(0)}; {line}; torch "
+          f"{torch.__version__} CUDA {torch.version.cuda}", flush=True)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     LIB_DIR.mkdir(parents=True, exist_ok=True)
@@ -337,7 +495,10 @@ def main(argv=None) -> int:
                          DUAL_VARIANTS.items()
                          if args.variants and dual_shapes else ())]
     t0 = time.perf_counter()
-    build_trees(trees + variants + dual_variants)
+    built = build_trees(trees + variants + dual_variants,
+                        optional=variants + dual_variants)
+    variants = [t for t in variants if t in built]
+    dual_variants = [t for t in dual_variants if t in built]
     print(f"[build] {', '.join(t.tag for t in trees)}: "
           f"{', '.join(sources)} built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -349,9 +510,15 @@ def main(argv=None) -> int:
                             cs)
     for gname, g in graphs.items():
         deg = (g.rowptr[1:] - g.rowptr[:-1]).float()
+        cols = ""
+        if g.colptr is not None:
+            cdeg = (g.colptr[1:] - g.colptr[:-1]).float()
+            cols = (f", column length mean {cdeg.mean().item():.2f} max "
+                    f"{int(cdeg.max().item())}")
         print(f"[lanes] graph {gname}: N={g.num_nodes} E={g.num_valid} "
-              f"capacity {g.capacity}, degree mean {deg.mean().item():.2f} "
-              f"max {int(deg.max().item())}", flush=True)
+              f"capacity {g.capacity}, row length mean "
+              f"{deg.mean().item():.2f} max {int(deg.max().item())}{cols}",
+              flush=True)
 
     def record(**row):
         row["card"] = line
@@ -364,67 +531,43 @@ def main(argv=None) -> int:
         ms = cs.device_ms(fn, reps=20)
         return ms if ms is not None else time_ms(fn)
 
+    def bracket(runs):
+        """The other tree first and last around ``runs``."""
+        return ([("other", other) + (None,) * (len(runs[0]) - 2)] if other
+                else []) + runs + (
+            [("other again", other) + (None,) * (len(runs[0]) - 2)]
+            if other else [])
+
     for shape in shapes:
-        gname, d, heads = shape_dims(shape)
+        gname, d, heads, walk_kind = shape_dims(shape)
         g = graphs[gname]
         n, nv, cap = g.num_nodes, g.num_valid, g.capacity
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        modes = (torch.float32, torch.bfloat16) if shape in (
-            "cora", "arxiv") else (torch.float32,)
-        for table in modes:
-            tag = "" if table == torch.float32 else " bf16"
-            if heads is None:
-                x = torch.randn((n, d), generator=gen, device=dev).to(table)
-                w = torch.rand((cap,), generator=gen, device=dev) * g.mask
-                csr = (g.rowptr, g.row, g.col, w, x)
-                width, rows = d, n
-            else:
-                # K11's dx as column_head_sum lays it out (kernels/
-                # dual_scatter.py): the [N*H, D/H] table over the CSC view
-                u = ((torch.rand((cap, heads), generator=gen, device=dev)
-                      + 0.05) * g.mask[:, None])
-                ct_num = torch.randn((n, d), generator=gen, device=dev)
-                hs = torch.arange(heads, dtype=torch.int32, device=dev)
-                idx = (g.row_by_col[:, None] * heads + hs).reshape(-1)
-                seg = g.col_by_col.repeat_interleave(heads)
-                wt = u[g.col_perm.long()].reshape(-1).contiguous()
-                x = ct_num.view(n * heads, d // heads)
-                csr = ((g.colptr * heads).contiguous(), seg, idx, wt, x)
-                width, rows = d // heads, n
-            rowptr, _, col, w_, x_ = csr
-            want = csr_spmm_plain(*csr[:3], w_.double(),
+        for tag, csr, rows, width, edges, lib_fn in k1_operands(shape, g,
+                                                               gen, dev):
+            x_ = csr[4]
+            dt = 0 if x_.dtype == torch.float32 else 1
+            want = csr_spmm_plain(*csr[:3], csr[3].double(),
                                   x_.float().double()).float()
-            dims = (f"N={n} E={nv} D={d}" + (f" H={heads} table width "
-                                             f"{width}" if heads else "")
-                    + tag)
-            dt = 0 if table == torch.float32 else 1
-            outs = {}
-
-            def k1(tree, group=None, vec=None):
-                o = torch.empty((rows, width), device=dev)
-                ptrs = (rowptr.data_ptr(), col.data_ptr(), w_.data_ptr(),
-                        x_.data_ptr(), o.data_ptr())
-                if tree.new_api("csr_spmm"):
-                    tree.call("csr_spmm", *ptrs, rows, width, group, vec, dt)
-                else:
-                    tree.call("csr_spmm", *ptrs, rows, width, dt)
-                return o
-
-            g1, v1 = lanes("csr_spmm", width, x_)
-            print(f"[lanes] K1 {shape}{tag}: chooser G={g1} V={v1} "
-                  f"(row width {width})", flush=True)
-            runs = [("pr", mine, g1, v1)]
-            runs += [(t.tag, t, g1, v1) for t in variants]
+            dims = (f"rows={rows} E={edges} D={d}"
+                    + (f" H={heads} table width {width}" if heads else "")
+                    + f" ({walk_kind}){tag}")
+            g1, v1, s1 = csr_design(width, edges / rows, x_)
+            print(f"[lanes] K1 {shape}{tag}: chooser G={g1} V={v1} S={s1} "
+                  f"(row width {width}, mean row {edges / rows:.2f} edges)",
+                  flush=True)
+            s_other = CSR_LONG_STAGE if s1 == 1 else 1
+            runs = [("pr", mine, g1, v1, s1),
+                    (f"pr S={s_other}", mine, g1, v1, s_other)]
+            runs += [(t.tag, t, g1, v1, s1) for t in variants]
             if not args.no_candidates:
-                runs += [(f"pr G={c}", mine, c, v1)
+                runs += [(f"pr G={c}", mine, c, v1, s1)
                          for c in candidates("csr_spmm", width, v1)
                          if c != g1]
-            times = {}
-            order = ([("other", other, None, None)] if other else []) + runs \
-                + ([("other again", other, None, None)] if other else [])
-            for label, tree, grp, vec in order:
-                def call(tree=tree, grp=grp, vec=vec):
-                    return k1(tree, grp, vec)
+            times, outs = {}, {}
+            for label, tree, grp, vec, stg in bracket(runs):
+                def call(tree=tree, grp=grp, vec=vec, stg=stg):
+                    return k1_call(tree, csr, rows, width, dt, grp, vec, stg)
                 got = call()
                 err, rel = cs_agree(f"K1 {label} {shape}{tag}", got, want)
                 if not torch.equal(got, call()):
@@ -432,99 +575,209 @@ def main(argv=None) -> int:
                                          "launches differ")
                 outs[label] = got
                 times[label] = timed(call)
-                print(f"[lanes] K1 {label} @ {shape} {dims} G={grp} V={vec}: "
-                      f"{times[label]:.4f} ms (rel err {rel:.2e}, relaunch "
-                      f"bit-identical) [{line}]", flush=True)
-            lib = None
-            if table == torch.float32:
-                mat = torch.sparse_csr_tensor(rowptr, col[:int(rowptr[-1])],
-                                              w_[:int(rowptr[-1])],
-                                              size=(rows, x_.shape[0]))
-                lib = timed(lambda: mat @ x_)
-            same = (torch.equal(outs["pr"], outs["other"]) if other
-                    else None)
+                print(f"[lanes] K1 {label} @ {shape} {dims} G={grp} V={vec} "
+                      f"S={stg}: {times[label]:.4f} ms (rel err {rel:.2e}, "
+                      f"relaunch bit-identical) [{line}]", flush=True)
+            lib = timed(lib_fn) if lib_fn is not None else None
+            same = {label: torch.equal(o, outs["other"])
+                    for label, o in outs.items()} if other else None
             print(f"[lanes] K1 {shape}{tag}: chooser {times['pr']:.4f} ms"
                   + (f", other tree {times['other']:.4f} / "
-                     f"{times['other again']:.4f} ms, outputs bit-identical "
-                     f"to it: {same}" if other else "")
+                     f"{times['other again']:.4f} ms, every output "
+                     f"bit-identical to it: {all(same.values())}"
+                     if other else "")
                   + (f", library {lib:.4f} ms" if lib is not None else "")
                   + f" [{line}]", flush=True)
-            record(kernel="csr_spmm", shape=shape + tag, dims=dims,
-                   group=g1, vec=v1, ms=times, library_ms=lib,
-                   same_as_other=same)
-            if heads is not None:
-                continue
-            # K2: dw = ct[row] . x[col] over every slot
-            ct = torch.randn((n, d), generator=gen, device=dev)
-            want2 = edge_dot_plain(g.row, g.col, ct.double(),
-                                   x.float().double(), nv).float()
-
-            def k2(tree, group=None, vec=None):
-                ptrs = (g.row.data_ptr(), g.col.data_ptr(), ct.data_ptr(),
-                        x.data_ptr())
-                if tree.new_api("edge_dot"):
-                    o = torch.empty((cap,), device=dev)
-                    tree.call("edge_dot", *ptrs, o.data_ptr(), nv, cap, d,
-                              group, vec, dt)
-                else:
-                    o = torch.zeros((cap,), device=dev)
-                    tree.call("edge_dot", *ptrs, o.data_ptr(), nv, d, dt)
-                return o
-
-            l2, v2 = lanes("edge_dot", d, ct, x)
-            print(f"[lanes] K2 {shape}{tag}: chooser L={l2} V={v2}",
-                  flush=True)
-            runs = [("pr", mine, l2, v2)]
-            if not args.no_candidates:
-                runs += [(f"pr L={c}", mine, c, v2)
-                         for c in candidates("edge_dot", d, v2) if c != l2]
-            order = ([("other", other, None, None)] if other else []) + runs \
-                + ([("other again", other, None, None)] if other else [])
-            times, outs = {}, {}
-            for label, tree, grp, vec in order:
-                def call(tree=tree, grp=grp, vec=vec):
-                    return k2(tree, grp, vec)
-                got = call()
-                err, rel = cs_agree(f"K2 {label} {shape}{tag}", got, want2)
-                if nv < cap and bool((got[nv:] != 0).any()):
-                    raise AssertionError(f"K2 {label} @ {shape}: nonzero "
-                                         "padding slots")
-                if not torch.equal(got, call()):
-                    raise AssertionError(f"K2 {label} @ {shape}{tag}: two "
-                                         "launches differ")
-                outs[label] = got
-                times[label] = timed(call)
-                print(f"[lanes] K2 {label} @ {shape} {dims} L={grp} V={vec}: "
-                      f"{times[label]:.4f} ms (rel err {rel:.2e}, relaunch "
-                      f"bit-identical) [{line}]", flush=True)
-            lib = None
-            if table == torch.float32:
-                pattern = torch.sparse_csr_tensor(
-                    g.rowptr, g.col[:nv], torch.zeros((nv,), device=dev),
-                    size=(n, n))
-                x_t = x.t().contiguous()
-                lib = timed(lambda: torch.sparse.sampled_addmm(
-                    pattern, ct, x_t, beta=0.0))
-            diff = (float((outs["pr"] - outs["other"]).abs().max())
-                    if other else None)
-            print(f"[lanes] K2 {shape}{tag}: chooser {times['pr']:.4f} ms"
-                  + (f", other tree {times['other']:.4f} / "
-                     f"{times['other again']:.4f} ms, largest difference "
-                     f"from it {diff:.3e}" if other else "")
-                  + (f", library {lib:.4f} ms" if lib is not None else "")
-                  + f" [{line}]", flush=True)
-            record(kernel="edge_dot", shape=shape + tag, dims=dims,
-                   group=l2, vec=v2, ms=times, library_ms=lib,
-                   max_diff_from_other=diff)
+            row = record(kernel="csr_spmm", shape=shape + tag, dims=dims,
+                         group=g1, vec=v1, stage=s1, ms=times,
+                         library_ms=lib, same_as_other=same)
+            if lib_fn is not None and shape in SESSION_SHAPES \
+                    and args.sessions:
+                names = cs.device_kernel_names(lib_fn)
+                print(f"[sessions] {shape}{tag}: the library call's device "
+                      f"kernels {names}", flush=True)
+                fns = ([("parent K1", lambda: k1_call(other, csr, rows,
+                                                      width, dt))]
+                       if other else [])
+                fns += [("K1", lambda: k1_call(mine, csr, rows, width, dt,
+                                               g1, v1, s1)),
+                        ("torch.sparse.mm", lib_fn)]
+                row["sessions"] = sessions(fns, args.sessions, cs, line,
+                                           shape + tag)
+                row["library_kernels"] = names
+        if walk_kind != "rows":
+            continue
+        x = torch.randn((n, d), generator=gen, device=dev)
+        ct = torch.randn((n, d), generator=gen, device=dev)
+        run_k2(shape, g, d, ct, x, mine, other, args, line, record, timed,
+               bracket)
+        if shape in BLOCKED_SHAPES:
+            run_k16(shape, g, d, ct, x, mine, other, args, line, record,
+                    timed, bracket)
     for shape in dual_shapes:
         run_dual(shape, graphs[DUAL_SHAPES[shape][0]], mine, other,
                  dual_variants, args, line, cs, record, timed)
     dump = out / f"lanes_{args.tag}.json"
     dump.write_text(json.dumps(dict(
-        ptxas=[r for t in trees + dual_variants for r in t.ptxas],
+        ptxas=[r for t in trees + variants + dual_variants
+               for r in t.ptxas],
         results=results), indent=1))
     print(f"[lanes] results in {dump}", flush=True)
     return 0
+
+
+def run_k2(shape, g, d, ct, x, mine, other, args, line, record, timed,
+           bracket):
+    """K2's dw = ct[row] . x[col] over every slot of a row-sorted graph,
+    the chooser's L and each candidate, beside the other tree's and
+    ``torch.sparse.sampled_addmm``."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.edge_dot import edge_dot_plain
+    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+    dev = x.device
+    n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    want = edge_dot_plain(g.row, g.col, ct.double(), x.double(), nv).float()
+    dims = f"N={n} E={nv} D={d}"
+
+    def k2(tree, group=None, vec=None):
+        ptrs = (g.row.data_ptr(), g.col.data_ptr(), ct.data_ptr(),
+                x.data_ptr())
+        if group is None:           # K2's chooser, the same in both trees
+            group, vec = lanes("edge_dot", d, ct, x)
+        if tree.new_api("edge_dot"):
+            o = torch.empty((cap,), device=dev)
+            tree.call("edge_dot", *ptrs, o.data_ptr(), nv, cap, d, group,
+                      vec, 0)
+        else:
+            o = torch.zeros((cap,), device=dev)
+            tree.call("edge_dot", *ptrs, o.data_ptr(), nv, d, 0)
+        return o
+
+    l2, v2 = lanes("edge_dot", d, ct, x)
+    print(f"[lanes] K2 {shape}: chooser L={l2} V={v2}", flush=True)
+    runs = [("pr", mine, l2, v2)]
+    if not args.no_candidates:
+        runs += [(f"pr L={c}", mine, c, v2)
+                 for c in candidates("edge_dot", d, v2) if c != l2]
+    times, outs = {}, {}
+    for label, tree, grp, vec in bracket(runs):
+        def call(tree=tree, grp=grp, vec=vec):
+            return k2(tree, grp, vec)
+        got = call()
+        err, rel = cs_agree(f"K2 {label} {shape}", got, want)
+        if nv < cap and bool((got[nv:] != 0).any()):
+            raise AssertionError(f"K2 {label} @ {shape}: nonzero padding "
+                                 "slots")
+        if not torch.equal(got, call()):
+            raise AssertionError(f"K2 {label} @ {shape}: two launches "
+                                 "differ")
+        outs[label] = got
+        times[label] = timed(call)
+        print(f"[lanes] K2 {label} @ {shape} {dims} L={grp} V={vec}: "
+              f"{times[label]:.4f} ms (rel err {rel:.2e}, relaunch "
+              f"bit-identical) [{line}]", flush=True)
+    pattern = torch.sparse_csr_tensor(g.rowptr, g.col[:nv],
+                                      torch.zeros((nv,), device=dev),
+                                      size=(n, n))
+    x_t = x.t().contiguous()
+    lib = timed(lambda: torch.sparse.sampled_addmm(pattern, ct, x_t,
+                                                   beta=0.0))
+    diff = (float((outs["pr"] - outs["other"]).abs().max()) if other
+            else None)
+    print(f"[lanes] K2 {shape}: chooser {times['pr']:.4f} ms"
+          + (f", other tree {times['other']:.4f} / "
+             f"{times['other again']:.4f} ms, largest difference from it "
+             f"{diff:.3e}" if other else "")
+          + f", library {lib:.4f} ms [{line}]", flush=True)
+    record(kernel="edge_dot", shape=shape, dims=dims, group=l2, vec=v2,
+           ms=times, library_ms=lib, max_diff_from_other=diff)
+
+
+def run_k16(shape, g, d, ct, x, mine, other, args, line, record, timed,
+            bracket):
+    """K16 over the block plan of the graph's valid edges (block_n = chunk
+    = 1024, as ``chip_smoke.py`` plans them): held to its plain version in
+    float64 (1e-5 of scale, padding slots included), relaunched
+    bit-identical; the chooser's L and every candidate, the other tree's,
+    and ``torch.sparse.sampled_addmm`` on the same pattern."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.blocked import (
+        blocked_layout, blocked_sddmm_plain, make_plan_pair)
+    from graph_neural_pde_tpu_torch.kernels.lanes import lanes
+    from graph_neural_pde_tpu_torch.ops.reorder import plan_occupancy
+    dev = x.device
+    nv = g.num_valid
+    plans = make_plan_pair(g.row[:nv].cpu().numpy(),
+                           g.col[:nv].cpu().numpy(), num_nodes=g.num_nodes,
+                           block_n=1024, chunk=1024)
+    lay = blocked_layout(plans.fwd, dev)
+    npad, cap = lay.num_nodes, lay.capacity
+    n_chunks = lay.chunk_rows.shape[0]
+    a = torch.zeros((npad, d), device=dev)
+    b = torch.zeros((npad, d), device=dev)
+    a[:g.num_nodes], b[:g.num_nodes] = ct, x
+    want = blocked_sddmm_plain(lay, a.double(), b.double()).float()
+    n_pad = int(cap - lay.slot.shape[0])
+    occ = plan_occupancy(plans.fwd)
+    dims = (f"N_pad={npad} slots={cap - n_pad} cap={cap} ({n_pad} "
+            f"padding, {occ['n_chunks']} chunks) D={d}")
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+
+    def k16(tree, group=None, vec=None):
+        o = torch.empty((cap,), device=dev)
+        if len(tree.args["blocked_sddmm"]) == 13:   # every slot, no vectors
+            tree.call("blocked_sddmm", ptr(lay.chunk_rows),
+                      ptr(lay.chunk_cols), ptr(lay.row_local),
+                      ptr(lay.col_local), ptr(a), ptr(b), ptr(o), cap,
+                      lay.chunk, lay.block_n, d,
+                      1 << (min(d, 32).bit_length() - 1))
+        else:
+            tree.call("blocked_sddmm", ptr(lay.row), ptr(lay.col),
+                      ptr(lay.slot), ptr(lay.chunk_rows),
+                      ptr(lay.chunk_cols), ptr(lay.chunk_valid), ptr(a),
+                      ptr(b), ptr(o), lay.slot.shape[0], n_chunks,
+                      lay.chunk, lay.block_n, d, group, vec)
+        return o
+
+    l16, v16 = lanes("edge_dot", d, a, b)       # K16's: K2's
+    print(f"[k16] {shape}: chooser L={l16} V={v16}; {dims}", flush=True)
+    runs = [("pr", mine, l16, v16)]
+    if not args.no_candidates:
+        runs += [(f"pr L={c}", mine, c, v16)
+                 for c in candidates("edge_dot", d, v16) if c != l16]
+    times, outs = {}, {}
+    for label, tree, grp, vec in bracket(runs):
+        def call(tree=tree, grp=grp, vec=vec):
+            return k16(tree, grp, vec)
+        got = call()
+        err, rel = cs_agree(f"K16 {label} {shape}", got, want)
+        if not torch.equal(got, call()):
+            raise AssertionError(f"K16 {label} @ {shape}: two launches "
+                                 "differ")
+        outs[label] = got
+        times[label] = timed(call)
+        print(f"[k16] K16 {label} @ {shape} {dims} L={grp} V={vec}: "
+              f"{times[label]:.4f} ms (rel err {rel:.2e}, relaunch "
+              f"bit-identical) [{line}]", flush=True)
+    vrows = torch.as_tensor(plans.fwd.row[plans.fwd.valid], device=dev)
+    vcols = torch.as_tensor(plans.fwd.col[plans.fwd.valid], device=dev)
+    idx = torch.stack([vrows.long(), vcols.long()])
+    pattern = torch.sparse_coo_tensor(
+        idx, torch.ones(idx.shape[1], device=dev), (npad, npad)) \
+        .coalesce().to_sparse_csr()
+    b_t = b.t().contiguous()
+    lib = timed(lambda: torch.sparse.sampled_addmm(pattern, a, b_t,
+                                                   beta=0.0))
+    diff = (float((outs["pr"] - outs["other"]).abs().max()) if other
+            else None)
+    print(f"[k16] K16 {shape}: chooser {times['pr']:.4f} ms"
+          + (f", other tree {times['other']:.4f} / "
+             f"{times['other again']:.4f} ms, largest difference from it "
+             f"{diff:.3e}" if other else "")
+          + f", library {lib:.4f} ms [{line}]", flush=True)
+    record(kernel="blocked_sddmm", shape=shape, dims=dims, group=l16,
+           vec=v16, ms=times, library_ms=lib, max_diff_from_other=diff,
+           padding_slots=n_pad, chunks=n_chunks)
 
 
 def dual_candidates(dim: int, vec: int):
@@ -712,12 +965,13 @@ def profile_paths(args, tree: Path) -> int:
     """K1 and K2 on the model paths of the tree at ``tree``: (l), the image
     CLI on the default engine (``train_image``, one epoch of 4 batches of
     64 stand-in MNIST images, after one such call), per batch; the tuned
-    Cora row and (d), (e), (f) (``chip_smoke.py``'s GRAND-nl squareplus and
+    Cora row, (d), (e), (f) (``chip_smoke.py``'s GRAND-nl squareplus and
     GAT on the Cora stand-in, squareplus at bench.py's widths in float32 on
-    ogbn-arxiv-synthetic) per epoch, ``profile.py``'s epochs after one
-    warm-up epoch: launches and device ms of K1, K2, K10 and K11 (each
-    with its second pass's time, ``profile.SECOND_PASSES``), and K1's
-    launches in table mode (its wrapper's count)."""
+    ogbn-arxiv-synthetic) and (j) (the tuned Cora row on the blocked engine
+    after rcm) per epoch, ``profile.py``'s epochs after one warm-up epoch:
+    launches and device ms of K1, K2, K10, K11, K15 and K16 where the path
+    runs them (each with its second pass's time, ``profile.SECOND_PASSES``),
+    and K1's launches in table mode (its wrapper's count)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -735,7 +989,9 @@ def profile_paths(args, tree: Path) -> int:
                                      square_plus=False)
     cfgs = {"cora": best_params["Cora"], "d": nl.replace(square_plus=True),
             "e": nl.replace(function="GAT"),
-            "f": GRAND_NL_BENCH.replace(square_plus=True, **FLOAT32)}
+            "f": GRAND_NL_BENCH.replace(square_plus=True, **FLOAT32),
+            "j": best_params["Cora"].replace(spmm_impl="pallas_blocked",
+                                             node_reorder="rcm")}
     k1 = kernels.csr_spmm
     results = []
     with tempfile.TemporaryDirectory() as data_dir:
@@ -770,21 +1026,16 @@ def profile_paths(args, tree: Path) -> int:
                 summ = prof.summarise(phase_s, p, args.epochs)
                 ks = summ["kernels"]
                 row = dict(path=name, per="epoch",
-                           k1_launches=ks["csr_spmm"]["launches_per_epoch"],
-                           k1_ms=ks["csr_spmm"]["device_ms_per_epoch"],
                            k1_table_launches=(k1.table_launches - before)
                            / args.epochs,
-                           k2_launches=ks["edge_dot"]["launches_per_epoch"],
-                           k2_ms=ks["edge_dot"]["device_ms_per_epoch"],
-                           k10_launches=ks["dual_scatter"][
-                               "launches_per_epoch"],
-                           k10_ms=ks["dual_scatter"]["device_ms_per_epoch"],
-                           k11_launches=ks["dual_gather"][
-                               "launches_per_epoch"],
-                           k11_ms=ks["dual_gather"]["device_ms_per_epoch"],
                            epoch_ms=summ["wall_ms_per_epoch"],
                            device_busy_ms=summ["device_busy_ms_per_epoch"],
                            idle_share=summ["device_idle_share"])
+                for tag, kname in PATH_KERNELS:
+                    if kname in ks:
+                        row[f"{tag}_launches"] = ks[kname][
+                            "launches_per_epoch"]
+                        row[f"{tag}_ms"] = ks[kname]["device_ms_per_epoch"]
             row.update(tree=args.tag, card=line)
             results.append(row)
             print(f"[paths] {args.tag} ({name}) per {row['per']}: "
@@ -798,6 +1049,12 @@ def profile_paths(args, tree: Path) -> int:
     dump.write_text(json.dumps(results, indent=1))
     print(f"[paths] results in {dump}", flush=True)
     return 0
+
+
+# the kernels --paths reports, each launches and device ms per epoch
+PATH_KERNELS = (("k1", "csr_spmm"), ("k2", "edge_dot"),
+                ("k10", "dual_scatter"), ("k11", "dual_gather"),
+                ("k15", "blocked_spmm"), ("k16", "blocked_sddmm"))
 
 
 def cs_agree(name, got, want):
