@@ -38,17 +38,22 @@ Phases, each of which must pass (any failure exits nonzero):
    scale at H=2). A kernel timed beside a library call is timed with it in
    alternating profiler sessions (``LIBRARY_SESSIONS`` each, the library
    call's device kernels named once per shape), and after the kernel
-   checks one line names every timed shape at which K1, K2, K3, K10, K11,
-   K15, K16, the node projections or the dKw reduction is slower than its
-   library call by the sessions' medians (``torch.sparse.mm``,
-   ``sampled_addmm``, ``torch.sparse.softmax``, ``torch.addmm``,
-   ``torch.mm``; slow does not fail, wrong does), and one for every timed
-   shape at which K7 or K8 with dxg is slower than its plain version. K3
-   ``segment_norm`` (softmax and normalise, over rows and over columns
-   through the reverse-edge map) and K4 ``segment_norm_bwd`` (both modes,
-   rows and columns), on the prepared Computers stand-in at H=4 and the
-   arxiv-scale graph at H=1 and H=8; two K3 launches on the same input must
-   be bit-identical. K6 ``fused_rhs_fwd`` (plain with its numerators, with
+   checks one line names every timed shape at which K1, K2, K3, K4, K10,
+   K11, K15, K16, the node projections or the dKw reduction is slower than
+   its library call by the sessions' medians (``torch.sparse.mm``,
+   ``sampled_addmm``, ``torch.sparse.softmax`` and its backward,
+   ``torch.addmm``, ``torch.mm``; slow does not fail, wrong does), and one
+   for every timed shape at which K7 or K8 with dxg is slower than its
+   plain version. K3 ``segment_norm`` (softmax and normalise, over rows and
+   over columns through the reverse-edge map) and K4 ``segment_norm_bwd``
+   (both modes, rows and columns), on the prepared Cora stand-in at the
+   tuned row's H=8 (the main path's shape; first, so that the closing line
+   reads it), the same with a hub row of degree 360 (cora-hub), the
+   Computers stand-in at H=4 and the arxiv-scale graph at H=1 and H=8, a
+   line before each naming ``segment_design``'s lane group and vector width
+   and the segments' pieces; two launches of K3 and of K4 on the same input
+   must be bit-identical, and neither may put a memset (or any device
+   operation but their own kernels) on the card. K6 ``fused_rhs_fwd`` (plain with its numerators, with
    per-edge shifts, folded), K7 ``fused_rowmax``, K8 ``fused_rhs_bwd`` and
    K9 ``fused_rhs_bwd_sym`` (every output; K8 and K9 against the plain
    version evaluated in float64 on the same float32 inputs, so that the
@@ -729,14 +734,15 @@ def check_outer_reduce(shape_name, x, idx, dk, tag="", timed=True):
         reference=lambda: tuple(t.float() for t in want), timed=timed)
 
 
-LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "segment_norm", "dual_scatter",
-                   "dual_gather", "blocked_spmm", "blocked_sddmm",
-                   "node_project", "outer_reduce")
+LIBRARY_CHECKED = ("csr_spmm", "edge_dot", "segment_norm",
+                   "segment_norm_bwd", "dual_scatter", "dual_gather",
+                   "blocked_spmm", "blocked_sddmm", "node_project",
+                   "outer_reduce")
 
 
 def print_slower_than_library(rows):
     """One line for every timed shape at which a kernel of
-    ``LIBRARY_CHECKED`` (K1, K2, K3, K10, K11, K15, K16, the node
+    ``LIBRARY_CHECKED`` (K1, K2, K3, K4, K10, K11, K15, K16, the node
     projections or the dKw reduction) took longer than its library call,
     each the median of ``LIBRARY_SESSIONS`` profiler sessions in turns. A
     slow kernel does not fail the run: its times are written down."""
@@ -877,13 +883,19 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
     """K3 in both modes and K4 in both modes, against their plain versions
     (``index_add`` over each edge's row or column), over rows and over
     columns: through the reverse-edge map ``rev`` on a symmetric graph,
-    over the CSC view (``colptr``, ``col_perm``) on a directed one; two K3
-    launches on one input must be bit-identical."""
+    over the CSC view (``colptr``, ``col_perm``) on a directed one; two
+    launches of K3 and of K4 on one input must be bit-identical, and
+    neither may put a memset or a fill on the card (they write their
+    padding). A
+    line before each layout prints ``segment_design``'s (G, V) and the
+    pieces. Library calls in softmax mode: ``torch.sparse.softmax`` for K3,
+    its backward ``torch._sparse_softmax_backward_data`` for K4."""
     import torch
     from graph_neural_pde_tpu_torch.kernels import (segment_norm,
                                                     segment_norm_bwd,
                                                     segment_norm_bwd_plain,
                                                     segment_norm_plain)
+    from graph_neural_pde_tpu_torch.kernels.lanes import segment_design
     dev = torch.device(dev)
     g = g.to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -892,49 +904,81 @@ def check_segment_kernels(shape_name, g, h, seed, dev="cuda"):
     # normalise takes positive weights (squareplus values, attention)
     weights = torch.rand((g.capacity, h), generator=gen, device=dev) + 0.05
     if g.rev is not None:
-        layouts = (("rows", (g.rowptr, g.row, None)),
-                   ("columns", (g.rowptr, g.row, g.rev)))
+        layouts = (("rows", (g.rowptr, g.row, None), g.row_segments),
+                   ("columns", (g.rowptr, g.row, g.rev), g.row_segments))
     else:
         layouts = (("columns over CSC",
-                    (g.colptr, g.col_by_col, g.col_perm)),)
+                    (g.colptr, g.col_by_col, g.col_perm), g.col_segments),)
+    n, nv, cap = g.num_nodes, g.num_valid, g.capacity
+    for seg, _, pc in layouts:
+        group, vec = segment_design(h, pc.n_edges / max(n, 1), scores,
+                                    piece=pc.piece)
+        print(f"[segment] {shape_name} {seg} H={h}: G={group} V={vec} (mean "
+              f"segment {pc.n_edges / max(n, 1):.2f}); {pc.n_pieces} pieces "
+              f"of <= {pc.piece}, {pc.n_multi} segments of several "
+              f"({pc.n_slots} pieces), the longest {pc.longest}",
+              flush=True)
     rows = []
     for mode, s in (("softmax", scores), ("normalise", weights)):
-        for seg, args in layouts:
+        for seg, args, pc in layouts:
             perm = args[2]
-            first, den = segment_norm(*args, s, mode)
-            again = segment_norm(*args, s, mode)
+            first, den = segment_norm(*args, s, mode, pc)
+            again = segment_norm(*args, s, mode, pc)
+            ds = segment_norm_bwd(*args, first, ct, den, mode, pc)
             if not (torch.equal(first, again[0]) and torch.equal(den,
-                                                                 again[1])):
+                                                                 again[1])
+                    and torch.equal(ds, segment_norm_bwd(
+                        *args, first, ct, den, mode, pc))):
                 raise AssertionError(f"segment_norm {mode} {seg} @ "
                                      f"{shape_name}: two launches differ")
-            n, nv = g.num_nodes, g.num_valid
+            # their own kernels only: no memset, no fill of the outputs
+            others = [name for name in device_kernel_names(
+                lambda: (segment_norm(*args, s, mode, pc),
+                         segment_norm_bwd(*args, first, ct, den, mode, pc)))
+                if "segment_norm" not in name]
+            if others:
+                raise AssertionError(f"segment_norm {mode} {seg} @ "
+                                     f"{shape_name}: device operations "
+                                     f"besides K3 / K4: {others}")
             dims = f"N={n} E={nv} H={h}"
             idx = n + 1 + (nv if perm is not None else 0)
-            # K3 reads s and writes out and den; K4 reads out, g and den and
-            # writes ds; a handful of operations per edge and head
-            library = None
-            if mode == "softmax" and (perm is None or g.rev is None):
+            # K3 reads s and writes out (padding too) and den; K4 reads out
+            # and g (and den, normalising) and writes ds; a handful of
+            # operations per edge and head
+            library = library_bwd = None
+            if mode == "softmax":
                 # the softmax over each row (each column: dim 0) of an
                 # [N, N, H] sparse tensor; coalescing (set-up, untimed)
                 # sums duplicate edges' scores
                 coo = torch.sparse_coo_tensor(
                     torch.stack([g.row[:nv].long(), g.col[:nv].long()]),
                     s[:nv], (n, n, h)).coalesce()
+                dim = 1 if perm is None else 0
+                soft = torch.sparse.softmax(coo, dim=dim)
+                gcoo = torch.sparse_coo_tensor(
+                    soft.indices(), ct[:soft.values().shape[0]],
+                    soft.shape).coalesce()
 
-                def library(coo=coo, dim=1 if perm is None else 0):
+                def library(coo=coo, dim=dim):
                     return torch.sparse.softmax(coo, dim=dim)
+
+                def library_bwd(gcoo=gcoo, soft=soft, dim=dim, coo=coo):
+                    return torch._sparse_softmax_backward_data(gcoo, soft,
+                                                               dim, coo)
             rows.append(time_case(
                 "segment_norm", f"{mode} over {seg}", shape_name, dims,
-                lambda: segment_norm(*args, s, mode)[0],
+                lambda: segment_norm(*args, s, mode, pc)[0],
                 lambda: segment_norm_plain(*args, s, mode)[0],
-                (4 * (idx + 2 * nv * h + n * h), 4 * nv * h), library))
+                (4 * (idx + nv * h + cap * h + n * h), 4 * nv * h), library))
             rows.append(time_case(
                 "segment_norm_bwd", f"{mode} over {seg}", shape_name, dims,
-                lambda: segment_norm_bwd(*args, first, ct, den, mode),
+                lambda: segment_norm_bwd(*args, first, ct, den, mode, pc),
                 lambda: segment_norm_bwd_plain(*args, first, ct, den, mode),
-                (4 * (idx + 3 * nv * h + n * h), 5 * nv * h)))
-    print(f"[kernels] segment_norm @ {shape_name} H={h}: two launches "
-          f"bit-identical in every mode", flush=True)
+                (4 * (idx + 2 * nv * h + cap * h
+                      + (n * h if mode != "softmax" else 0)), 5 * nv * h),
+                library_bwd))
+    print(f"[kernels] segment_norm @ {shape_name} H={h}: two launches of K3 "
+          f"and of K4 bit-identical in every mode, no memset", flush=True)
     return rows
 
 
@@ -3492,6 +3536,18 @@ def main() -> int:
         cora_g = prepared_graph("Cora", data_dir)
         rows += check_kernels("cora-standin", cora_g,
                               best_params["Cora"].hidden_dim, args.seed)
+        # the Cora stand-in with a hub row of degree 360 ("cora-hub"): K9
+        # and K14 cut it into row pieces and merge them, and so do K3 / K4
+        cora_hub = hub_graph(cora_g, 360, args.seed + 230)
+        # K3 / K4 at the main path's shape: the tuned Cora row normalises
+        # its attention over columns (rev) at its H; and on cora-hub, whose
+        # hub's segment takes several pieces
+        rows += check_segment_kernels("cora-standin", cora_g,
+                                      best_params["Cora"].heads,
+                                      args.seed + 246)
+        rows += check_segment_kernels("cora-hub", cora_hub,
+                                      best_params["Cora"].heads,
+                                      args.seed + 247)
         rows += check_segment_kernels(
             "computers-standin", prepared_graph("Computers", data_dir),
             best_params["Computers"].heads, args.seed + 2)
@@ -3501,9 +3557,7 @@ def main() -> int:
         rows += check_fused_kernels("cora-standin", cora_g, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 20)
-        # the same widths over the Cora stand-in with a hub row of degree
-        # 360: K9 and K14 cut it into row pieces and merge them
-        cora_hub = hub_graph(cora_g, 360, args.seed + 230)
+        # the same widths over cora-hub
         rows += check_fused_kernels("cora-hub", cora_hub, nl.hidden_dim,
                                     nl.attention_dim, nl.heads, "scaled_dot",
                                     args.seed + 231, multi_rows=True)

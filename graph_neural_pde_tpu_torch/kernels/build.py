@@ -41,10 +41,15 @@ _ENTRY_POINTS = {
     # row, col, a, b, out, n_valid, n_slots, dim, lanes, vec
     # (kernels/lanes.py), dtype of b (0 float32, 1 bfloat16), stream
     "gnpde_edge_dot": [_PTR] * 5 + [_INT] * 6 + [_PTR],
-    # segptr, perm (nullable), s, out, den, n_rows, heads, mode, stream
-    "gnpde_segment_norm": [_PTR] * 5 + [_INT, _INT, _INT, _PTR],
-    # segptr, perm (nullable), out, g, den, ds, n_rows, heads, mode, stream
-    "gnpde_segment_norm_bwd": [_PTR] * 6 + [_INT, _INT, _INT, _PTR],
+    # piece_ptr, piece_seg, piece_slot, multi_piece (the segments'
+    # pieces), segptr, perm (nullable), s, out, den, part (nullable without
+    # multi-piece segments), n_segs, n_pieces, n_slots, piece (the
+    # pieces' members, at most), capacity, heads, mode, lanes, vec
+    # (kernels/lanes.py's segment_design), stream
+    "gnpde_segment_norm": [_PTR] * 10 + [_INT] * 9 + [_PTR],
+    # the segments' pieces as above, segptr, perm, out, g, den, ds, part,
+    # then the same ints, stream
+    "gnpde_segment_norm_bwd": [_PTR] * 11 + [_INT] * 9 + [_PTR],
     # The fused RHS kernels (csrc/fused_fwd.cu: K6, K7; csrc/fused_rhs.cu:
     # K9, K17; csrc/fused_bwd_rows.cu, csrc/fused_bwd_edges.cu: K8 without
     # and with dxg). qtab and ktab are scratch tables [n_rows, att]; kw_t is

@@ -55,10 +55,24 @@ row length, the edges over the rows, which the caller knows (a graph's
 ``num_valid``) without reading ``rowptr`` back from the card, a round
 stages ``CSR_LONG_STAGE`` (col, w) pairs a lane where the rows are longer
 than the group's lanes, else one (or as many as its batch needs).
+
+K3 and K4 (``segment_norm``, ``segment_norm_bwd``; :func:`segment_design`)
+give a group of G lanes a piece of at most P members of a segment (P of
+``SEGMENT_PIECES``: the graph's ``row_segments`` / ``col_segments``), each
+lane P / G members' heads in registers (at most ``SEGMENT_MEMBERS``), read
+and written as vectors of V floats. G follows the mean segment length
+(the segments' members over the segments, known on the host) and the
+heads of a pass HP: where a member's HP values take 4 registers or more, the
+smallest power of two at least the mean (fewer members a lane, so fewer
+registers); at HP of 1 or 2, the largest at most the mean (fewer idle
+lanes); 4 to 32 either way (measured on an H100 against every other group,
+``probes/segment_walk.py``, ``PERF.md``). V is the widest of 4, 2, 1 floats
+that divides H, is at most HP and on whose boundary every table lies.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple, Union
 
 import torch
@@ -82,6 +96,17 @@ DUAL_WIDE_HEADS = 4
 # K1: the (col, w) pairs a lane stages a round on rows longer than the
 # group (csrc/csr_spmm.cu's S)
 CSR_LONG_STAGE = 4
+# K3 / K4: the members of a piece (ops/graph.py's COL_PIECE and
+# SEGMENT_LONG_PIECE), the members a lane holds, at most, and the lane
+# groups and vectors csrc/segment_norm.cu was built for
+SEGMENT_PIECES = (32, 64)
+SEGMENT_MEMBERS = 8
+SEGMENT_LANES = (4, 8, 16, 32)
+SEGMENT_VECTORS = (4, 2, 1)
+SEGMENT_HEADS_PER_PASS = 8
+# K3 / K4: from these heads a pass, the wider group of the two around the
+# mean segment
+SEGMENT_WIDE_PASS = 4
 DUAL_KERNELS = ("dual_scatter", "dual_gather")
 KERNELS = ("blocked_spmm", "csr_spmm", "edge_dot", "payload_walk") \
     + DUAL_KERNELS
@@ -186,3 +211,29 @@ def _payload_lanes(dim: int, heads: int, x: Table = (0, torch.float32),
     if any(_address(t)[0] % MAX_VECTOR_BYTES for t in floats):
         return 32, 1
     return _dual_lanes("dual_scatter", dim, heads, x)
+
+
+def segment_design(heads: int, mean_len: float, *tables: Table,
+                   piece: int = SEGMENT_PIECES[0]) -> Tuple[int, int]:
+    """K3 / K4's (lanes G, vector width V) over segments of ``mean_len``
+    members on average, in pieces of ``piece`` members, with ``heads``
+    values a member in the float32 ``tables``: G the smallest power of two
+    at least ``mean_len`` where a pass takes ``SEGMENT_WIDE_PASS`` heads or
+    more, else the largest at most it, ``SEGMENT_LANES[0]`` to
+    ``SEGMENT_LANES[-1]`` and at least ``piece / SEGMENT_MEMBERS``; V the
+    widest of
+    ``SEGMENT_VECTORS`` that divides ``heads``, is at most the heads of a
+    pass (``heads`` rounded up to a power of two, at most
+    ``SEGMENT_HEADS_PER_PASS``) and on whose boundary every table lies."""
+    if heads < 1 or piece not in SEGMENT_PIECES:
+        raise ValueError(f"segment_design: {heads} heads in pieces of "
+                         f"{piece}")
+    per_pass = min(SEGMENT_HEADS_PER_PASS, _pow2_at_least(heads))
+    vec = next(v for v in SEGMENT_VECTORS
+               if v <= per_pass and heads % v == 0
+               and not any(_address(t)[0] % (4 * v) for t in tables))
+    group = (_pow2_at_least(math.ceil(mean_len))
+             if per_pass >= SEGMENT_WIDE_PASS
+             else _pow2_at_most(int(mean_len)))
+    least = max(SEGMENT_LANES[0], piece // SEGMENT_MEMBERS)
+    return min(SEGMENT_LANES[-1], max(least, group)), vec

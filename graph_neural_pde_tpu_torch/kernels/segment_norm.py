@@ -20,6 +20,13 @@ members are the slots ``perm[i]`` for ``i`` in ``[segptr[n], segptr[n+1])``
 Both return ``(out [E, H], den [N, H])``; slots outside the segments are 0.
 K4 takes ``out``, the cotangent ``g`` and ``den`` and returns ``ds``.
 
+On the card both walk the segments cut into pieces of 32 or 64 members
+(``pieces``: ``ops.graph.ColPieces`` of ``segptr``, ``Graph.row_segments``
+or ``Graph.col_segments``, which ``ops.scatter.segment_pieces`` picks), a
+group of lanes a piece, with the lanes and vector width of
+``lanes.segment_design``; they write the padding
+slots themselves, so the outputs are allocated without a memset.
+
 Replaces the TPU kernel ``graph_neural_pde_tpu/ops/pallas/stripe.py``
 ``_scatter_kernel`` / ``_stripe_scatter_call`` (P3) where it forms, with
 P2's row gather, ``stripe_segment_softmax`` / ``_squareplus`` and the
@@ -37,6 +44,8 @@ from typing import Optional, Tuple
 import torch
 
 from graph_neural_pde_tpu_torch.kernels import build
+from graph_neural_pde_tpu_torch.kernels.lanes import (SEGMENT_PIECES,
+                                                      segment_design)
 
 MODES = {"softmax": 0, "normalise": 1}
 EPS = 1e-16
@@ -125,23 +134,50 @@ def _check(name, segptr, seg, perm, vals, mode, den=None):
 _ptr = build.ptr
 
 
+def _launch_args(name, segptr, pieces, n_heads, tables):
+    """The pieces' arguments of a launch (after checking that they cut
+    ``segptr``'s segments as the kernel was built to walk them) and
+    ``segment_design``'s (G, V) for the float32 ``tables``."""
+    n = segptr.shape[0] - 1
+    if pieces is None:
+        raise ValueError(f"{name}: a launch needs the segments' pieces "
+                         "(ops.scatter.segment_pieces)")
+    if pieces.piece not in SEGMENT_PIECES or pieces.ptr.shape[0] != \
+            pieces.n_pieces + 1 or pieces.ptr.device != segptr.device:
+        raise ValueError(f"{name}: pieces of {pieces.piece} members on "
+                         f"{pieces.ptr.device}; the kernel walks pieces of "
+                         f"{SEGMENT_PIECES} on {segptr.device}")
+    group, vec = segment_design(n_heads, pieces.n_edges / max(n, 1),
+                                *(t for t in tables if t is not None),
+                                piece=pieces.piece)
+    return (pieces.ptr.data_ptr(), pieces.col.data_ptr(),
+            pieces.slot.data_ptr(), pieces.multi_piece.data_ptr()), \
+        (pieces.n_pieces, pieces.n_slots, pieces.piece), (group, vec)
+
+
 def segment_norm(segptr: torch.Tensor, seg: torch.Tensor,
                  perm: Optional[torch.Tensor], s: torch.Tensor,
-                 mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+                 mode: str, pieces=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-segment softmax or normalisation of ``s`` [E, H]; returns
-    ``(out, den)``. ``seg`` is only read by the plain version. Not
-    differentiable by itself (see ``ops.scatter``)."""
+    ``(out, den)``. ``seg`` is only read by the plain version, ``pieces``
+    (``ColPieces`` of ``segptr``) only by the kernel. Not differentiable by
+    itself (see ``ops.scatter``)."""
     _check("segment_norm", segptr, seg, perm, s, mode)
     if s.device.type == "cpu":
         return segment_norm_plain(segptr, seg, perm, s, mode)
     if s.device.type != "cuda":
         raise NotImplementedError(f"segment_norm: no kernel for {s.device}")
     n, h = segptr.shape[0] - 1, s.shape[1]
-    out = torch.zeros_like(s)
+    out = torch.empty_like(s)
     den = torch.empty((n, h), dtype=torch.float32, device=s.device)
-    build.launch("segment_norm", s.device, segptr.data_ptr(), _ptr(perm),
-                 s.data_ptr(), out.data_ptr(), den.data_ptr(), n, h,
-                 MODES[mode])
+    part = (torch.empty((pieces.n_slots, 2 * h), dtype=torch.float32,
+                        device=s.device) if pieces is not None and pieces.n_slots
+            else None)
+    pc, counts, design = _launch_args("segment_norm", segptr, pieces, h,
+                                      (s, out, den, part))
+    build.launch("segment_norm", s.device, *pc, segptr.data_ptr(),
+                 _ptr(perm), s.data_ptr(), out.data_ptr(), den.data_ptr(),
+                 _ptr(part), n, *counts, s.shape[0], h, MODES[mode], *design)
     segment_norm.launches += 1
     return out, den
 
@@ -149,7 +185,7 @@ def segment_norm(segptr: torch.Tensor, seg: torch.Tensor,
 def segment_norm_bwd(segptr: torch.Tensor, seg: torch.Tensor,
                      perm: Optional[torch.Tensor], out: torch.Tensor,
                      g: torch.Tensor, den: torch.Tensor,
-                     mode: str) -> torch.Tensor:
+                     mode: str, pieces=None) -> torch.Tensor:
     """Gradient of :func:`segment_norm` with respect to ``s``, given its
     ``out`` and ``den`` and the cotangent ``g`` of ``out``."""
     _check("segment_norm_bwd", segptr, seg, perm, g, mode, den)
@@ -162,10 +198,17 @@ def segment_norm_bwd(segptr: torch.Tensor, seg: torch.Tensor,
     if g.device.type != "cuda":
         raise NotImplementedError(
             f"segment_norm_bwd: no kernel for {g.device}")
-    ds = torch.zeros_like(g)
-    build.launch("segment_norm_bwd", g.device, segptr.data_ptr(), _ptr(perm),
-                 out.data_ptr(), g.data_ptr(), den.data_ptr(), ds.data_ptr(),
-                 segptr.shape[0] - 1, g.shape[1], MODES[mode])
+    n, h = segptr.shape[0] - 1, g.shape[1]
+    ds = torch.empty_like(g)
+    part = (torch.empty((pieces.n_slots, h), dtype=torch.float32,
+                        device=g.device) if pieces is not None and pieces.n_slots
+            else None)
+    pc, counts, design = _launch_args("segment_norm_bwd", segptr, pieces, h,
+                                      (out, g, den, ds, part))
+    build.launch("segment_norm_bwd", g.device, *pc, segptr.data_ptr(),
+                 _ptr(perm), out.data_ptr(), g.data_ptr(), den.data_ptr(),
+                 ds.data_ptr(), _ptr(part), n, *counts, g.shape[0], h,
+                 MODES[mode], *design)
     segment_norm_bwd.launches += 1
     return ds
 

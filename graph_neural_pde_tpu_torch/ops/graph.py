@@ -33,6 +33,10 @@ sorted by row (``sort_by_row``) the valid edges form the prefix
   cut into pieces of ``COL_PIECE``, the rest whole, which K10
   ``dual_scatter`` walks: its partial rows are H * D floats, so only rows
   longer than that are cut.
+* ``row_segments`` / ``col_segments`` — the rows' and the CSC view's
+  pieces that K3 / K4 (``segment_norm``) walk: ``row_pieces`` /
+  ``col_pieces``, or pieces of ``SEGMENT_LONG_PIECE`` where the mean
+  segment is longer than ``COL_PIECE`` (:func:`segment_piece`).
 
 All of it is built on the host once, when the graph is prepared.
 
@@ -59,6 +63,20 @@ COL_PIECE = 32
 # 32, while a hub row of 360 edges took 0.0891 whole, 0.0348 in pieces of
 # 128 and 0.0131 in pieces of 32 (PERF.md, section 6)
 SCATTER_WHOLE = 128
+# K3 / K4's pieces where the mean segment is longer than COL_PIECE: on the
+# GDC-rewired Cora stand-in (columns of 64 edges) pieces of 64 took 0.0091
+# ms against 0.0211 in pieces of 32, every segment of two pieces merged by
+# a second pass; on graphs of shorter segments they were slower (PERF.md,
+# section 6)
+SEGMENT_LONG_PIECE = 64
+
+
+def segment_piece(n_edges: int, n_segments: int) -> int:
+    """The members of a piece of K3 / K4's walk over ``n_segments``
+    segments of ``n_edges`` members: ``COL_PIECE``, or
+    ``SEGMENT_LONG_PIECE`` where the mean segment is longer."""
+    return (SEGMENT_LONG_PIECE if n_edges > COL_PIECE * max(n_segments, 1)
+            else COL_PIECE)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -77,18 +95,21 @@ class ColPieces:
     multi_col : int32[M] — the columns of several pieces, in order
     multi_ptr : int32[M + 1] — column ``multi_col[m]``'s partial rows are
                 [multi_ptr[m], multi_ptr[m + 1])
-    and host ints: the piece length, P, M, the partial rows (multi_ptr[M])
-    and the longest column's edge count."""
+    multi_piece : int32[multi_ptr[M]] — the piece of each partial row
+    and host ints: the piece length, P, M, the partial rows (multi_ptr[M]),
+    the longest column's edge count and the edges (colptr[N])."""
 
     ptr: torch.Tensor
     col: torch.Tensor
     slot: torch.Tensor
     multi_col: torch.Tensor
     multi_ptr: torch.Tensor
+    multi_piece: torch.Tensor
     piece: int
     n_multi: int
     n_slots: int
     longest: int
+    n_edges: int
 
     @property
     def n_pieces(self) -> int:
@@ -131,9 +152,11 @@ def column_pieces(colptr, piece: int = COL_PIECE, device=None,
 
     return ColPieces(ptr=dev(ptr), col=dev(col), slot=dev(slot),
                      multi_col=dev(np.nonzero(multi)[0]),
-                     multi_ptr=dev(multi_ptr), piece=piece,
+                     multi_ptr=dev(multi_ptr),
+                     multi_piece=dev(np.nonzero(slot >= 0)[0]), piece=piece,
                      n_multi=int(multi.sum()), n_slots=int(multi_ptr[-1]),
-                     longest=int(deg.max(initial=0)))
+                     longest=int(deg.max(initial=0)),
+                     n_edges=int(colptr[-1]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +174,9 @@ class Graph:
     col_pieces : the CSC view's column pieces (:class:`ColPieces`)
     row_pieces : the CSR rows' pieces (:class:`ColPieces` of ``rowptr``)
     scatter_pieces : the same, rows of up to ``SCATTER_WHOLE`` edges whole
+    row_segments, col_segments : K3 / K4's pieces of the rows and of the
+               CSC view (``row_pieces`` / ``col_pieces`` or pieces of
+               ``segment_piece``'s length)
     masked   : True when ``mask`` drops edges INSIDE the row-sorted valid
                prefix (hard attention's re-masked graph, ``with_mask``);
                ``rowptr``, ``rev`` and the CSC view still describe the
@@ -173,6 +199,8 @@ class Graph:
     col_pieces: Optional[ColPieces] = None
     row_pieces: Optional[ColPieces] = None
     scatter_pieces: Optional[ColPieces] = None
+    row_segments: Optional[ColPieces] = None
+    col_segments: Optional[ColPieces] = None
     sorted_valid: Optional[int] = None   # host copy of rowptr[-1]
     masked: bool = False
 
@@ -229,16 +257,24 @@ class Graph:
         def dev(a):
             return torch.from_numpy(a).to(row.device)
 
+        col_pieces = column_pieces(colptr, device=row.device)
+        row_pieces = column_pieces(rowptr, device=row.device)
+        seg = segment_piece(nv, n)
+        if seg != COL_PIECE:
+            row_segments = column_pieces(rowptr, seg, device=row.device)
+            col_segments = column_pieces(colptr, seg, device=row.device)
+        else:
+            row_segments, col_segments = row_pieces, col_pieces
         return Graph(row=row, col=col, weight=weight, mask=mask, num_nodes=n,
                      rows_sorted=True, rowptr=rowptr.to(torch.int32),
                      rev=None if rev is None else dev(rev),
                      colptr=dev(colptr), col_perm=dev(col_perm),
                      row_by_col=dev(row_np[col_perm]),
                      col_by_col=dev(col_np[col_perm]),
-                     col_pieces=column_pieces(colptr, device=row.device),
-                     row_pieces=column_pieces(rowptr, device=row.device),
+                     col_pieces=col_pieces, row_pieces=row_pieces,
                      scatter_pieces=column_pieces(rowptr, device=row.device,
                                                   whole=SCATTER_WHOLE),
+                     row_segments=row_segments, col_segments=col_segments,
                      sorted_valid=nv)
 
 

@@ -24,18 +24,18 @@ class _SegmentNorm(torch.autograd.Function):
     """out = segment_norm(s) with K4 as its backward. Residuals: out, den."""
 
     @staticmethod
-    def forward(ctx, s, segptr, seg, perm, mode):
-        out, den = segment_norm(segptr, seg, perm, s, mode)
+    def forward(ctx, s, segptr, seg, perm, mode, pieces):
+        out, den = segment_norm(segptr, seg, perm, s, mode, pieces)
         ctx.save_for_backward(out, den, segptr, seg, perm)
-        ctx.mode = mode
+        ctx.mode, ctx.pieces = mode, pieces
         return out
 
     @staticmethod
     def backward(ctx, g):
         out, den, segptr, seg, perm = ctx.saved_tensors
         ds = segment_norm_bwd(segptr, seg, perm, out, g.contiguous(), den,
-                              ctx.mode)
-        return ds, None, None, None, None
+                              ctx.mode, ctx.pieces)
+        return ds, None, None, None, None, None
 
 
 def segments(g: Graph, norm_idx: int):
@@ -53,6 +53,15 @@ def segments(g: Graph, norm_idx: int):
     return g.colptr, g.col_by_col, g.col_perm
 
 
+def segment_pieces(g: Graph, norm_idx: int):
+    """The pieces K3/K4 walk ``segments(g, norm_idx)``'s segments in: the
+    rows' (``Graph.row_segments``, over ``rowptr``) for the rows and for
+    the columns through ``rev``, the CSC view's (``Graph.col_segments``)
+    otherwise."""
+    return (g.col_segments if norm_idx == 1 and g.rev is None
+            else g.row_segments)
+
+
 def segment_normalize(values: torch.Tensor, g: Graph, norm_idx: int,
                       mode: str) -> torch.Tensor:
     """K3 over the rows (``norm_idx=0``) or columns (``1``) of ``g``:
@@ -60,7 +69,8 @@ def segment_normalize(values: torch.Tensor, g: Graph, norm_idx: int,
     ``kernels.segment_norm``)."""
     segptr, seg, perm = segments(g, norm_idx)
     s = values.reshape(values.shape[0], -1).float().contiguous()
-    out = _SegmentNorm.apply(s, segptr, seg, perm, mode)
+    out = _SegmentNorm.apply(s, segptr, seg, perm, mode,
+                             segment_pieces(g, norm_idx))
     return out.reshape(values.shape)
 
 

@@ -71,6 +71,8 @@ SECOND_PASSES = {"fused_rhs_bwd": ("fused_rhs_bwd_edges_merge_kernel",
                  "norm1_fwd": "norm1_fwd_merge_kernel",
                  "norm1_bwd": "norm1_bwd_merge_kernel",
                  "dual_scatter": "dual_scatter_merge_kernel",
+                 "segment_norm": "segment_norm_merge_kernel",
+                 "segment_norm_bwd": "segment_norm_bwd_merge_kernel",
                  "dual_gather": ("dual_gather_dx_kernel",
                                  "dual_gather_merge_kernel")}
 # PyTorch's gather (x[index]) and its backward (index_put with accumulate:
