@@ -136,8 +136,12 @@ Phases, each of which must pass (any failure exits nonzero):
    versions widen the rows, k_e unrounded): all five families small
    (untimed), the bench oracle's shape, the Cora stand-in and the same
    with a hub row at D=80, ATT=128, H=8, the arxiv-scale graph at D=128,
-   ATT=32, H=2 and at the BLEND widths (timed). The P6 pair on every rank of a 4-way split of the
-   row-sorted valid edges (``make_sharded_stripe_spmm``'s shards: rows
+   ATT=32, H=2 and at the BLEND widths (timed); K19 walks the graph's
+   row pieces as K18 does, and K18 of the four key families is timed at
+   the Cora GRAND-nl widths over the hub row (D=80, ATT=128, H=8),
+   float32 and bfloat16 payloads. The P6 pair on every rank of a 4-way
+   split of the row-sorted valid edges (``make_sharded_stripe_spmm``'s
+   shards: rows
    straddle ranks, most of a rank's row pointers are empty ranges) of the
    arxiv-scale graph at D=128, on ranks 0 and 3 of one of the Cora
    stand-in and on the whole Cora stand-in as one rank's shard at D=80:
@@ -761,9 +765,11 @@ def print_slower_than_library(rows):
 
 
 def print_slower_than_plain(rows, names=("fused_rhs_bwd", "fused_rowmax")):
-    """One line for every timed shape at which K8 with dxg or K7 (float32
-    or on the bfloat16 column table) took longer than its plain version,
-    or one line saying that none did. Slow does not fail the run."""
+    """One line for every timed shape at which a kernel of ``names`` (K8
+    with dxg and K7 by default; the run adds K18, K19 and K8's per-head
+    mode), float32 or on bfloat16 tables, took longer than its plain
+    version, or one line saying that none did. Slow does not fail the
+    run."""
     slower = [r for r in rows if r["kernel"].split()[0] in names
               and ROWS not in r["kernel"] and "ms" in r
               and r["ms"] >= r["plain_ms"]]
@@ -780,6 +786,7 @@ def print_slower_than_plain(rows, names=("fused_rhs_bwd", "fused_rowmax")):
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12          # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12        # TF32 on the tensor cores, dense
 # calls each timing of phase 3 takes, device time and host time alike: the
 # host's work around them (the profiler sessions above all) is most of
 # phase 3's time, and the device times of 10 calls agree with 20's
@@ -826,8 +833,10 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
               reference=None, timed=True):
     """Check one kernel call against its plain version and time both.
     ``work`` is (compulsory bytes, float32 operations) of the call, from
-    its shapes; ``library`` an optional single PyTorch call computing the
-    same function; ``reference`` an optional stricter stand-in for the
+    its shapes, and for a kernel with products on the tensor cores a third
+    count, their operations as TF32 products (the operations bound is
+    then the larger of the two counts' times at their rates); ``library``
+    an optional single PyTorch call computing the same function; ``reference`` an optional stricter stand-in for the
     plain version in the comparison (the timed calls stay ``kern`` and
     ``plain``). ``timed=False`` only compares."""
     from graph_neural_pde_tpu_torch.probes.gather import agree, time_ms
@@ -863,15 +872,20 @@ def time_case(kname, what, shape_name, dims, kern, plain, work, library=None,
               flush=True)
     elif library is not None:
         lib_ms = time_ms(library, reps=TIMED_CALLS)
-    n_bytes, flops = work
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    n_bytes, flops, *tensor = work
+    tc_flops = tensor[0] if tensor else 0
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(flops / PEAK_F32_FLOPS, tc_flops / PEAK_TF32_FLOPS) * 1e3
     bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    tc_txt = (f" + {tc_flops / 1e9:.3f} GFLOP of TF32 products"
+              if tc_flops else "")
     dev_txt = (f"device {dev_k:.4f} ms, plain {dev_p:.4f} ms; "
                if measured else "device time not measured; ")
     lib_txt = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     print(f"{head}; {dev_txt}per call kernel {call_k:.4f} ms, plain "
           f"{call_p:.4f} ms; bound {bound_ms:.5f} ms by {bound_by} "
-          f"({n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP){lib_txt}",
+          f"({n_bytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP{tc_txt})"
+          f"{lib_txt}",
           flush=True)
     return dict(row, ms=dev_k if measured else call_k,
                 plain_ms=dev_p if measured else call_p, bound_ms=bound_ms,
@@ -1135,18 +1149,28 @@ def payload_ops(n, nv, d, att, h, score):
     gives dKw) and dxg = sum_h (u_eh ct_num[n, h] + ds_eh r_nh / sqrt(d_k))
     (10 H D). Per node: q and the fold (K18), the fold (K19), q, the fold,
     dq and dKw (backward), 2 D ATT each. The other families need each
-    edge's key (norms, means or distances of k_e): a projection per edge,
-    the scores (2 ATT) and num (2 H D); backward three products of D x ATT
-    an edge (k_e, dk_e Kw^T, x_g^T dk_e), the score's derivatives (~6 ATT)
-    and the dots and dxg's sum over heads (4 H D). K19 is scaled_dot only
-    (None otherwise)."""
+    edge's key (norms, means or distances of k_e): K18 projects it on the
+    tensor cores (:func:`key_tile_ops`), and leaves q, the scores (2 ATT)
+    and num (2 H D) here; backward three products of D x ATT an edge (k_e,
+    dk_e Kw^T, x_g^T dk_e), the score's derivatives (~6 ATT) and the dots
+    and dxg's sum over heads (4 H D). K19 is scaled_dot only (None
+    otherwise)."""
     proj = projection_ops(d, att, score)
     if score == "scaled_dot":
         return (n * (2 * proj + 2 * att) + nv * 4 * h * d,
                 n * (proj + 2 * att) + nv * 2 * h * d,
                 n * (4 * proj + 4 * att) + nv * 10 * h * d)
-    return (n * proj + nv * (proj + 2 * att + 2 * h * d), None,
+    return (n * proj + nv * (2 * att + 2 * h * d), None,
             n * proj + nv * (3 * proj + 6 * att + 4 * h * d))
+
+
+def key_tile_ops(nv, d, att, score, elem):
+    """Operations of K18's key tile for the families that need each edge's
+    key, as TF32 products on the tensor cores: an edge's projection
+    (:func:`projection_ops`) as three products (3xTF32: the high parts, and
+    each high part by the other's low part), or two over a bfloat16
+    payload (``elem`` 2), whose rows are TF32 values already."""
+    return nv * projection_ops(d, att, score) * (2 if elem == 2 else 3)
 
 
 def print_walk_design(kname, shape_name, dims, g, d, att, h, score,
@@ -1389,13 +1413,16 @@ def oracle_graph(seed: int, n: int = 512, e: int = 4096):
 
 def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
                             timed=True, dev="cuda", payload=None,
-                            row_bf16=False, square_plus=False):
+                            row_bf16=False, square_plus=False,
+                            kernels=None):
     """K18 ``fused_aggregate`` (and with per-edge shifts), K19
     ``fused_score_max`` (scaled_dot) and K8's per-head mode
     ``fused_rhs_bwd_heads`` (every output, against the plain version in
     float64 on the same inputs) over a random per-edge payload x_g
     [E_pad, D] against their plain versions; two launches of each must be
-    bit-identical. ``timed=False`` only compares.
+    bit-identical. Each walks the graph's row pieces (``scatter_pieces``).
+    ``timed=False`` only compares; ``kernels`` names the kernels checked
+    (default: all of them).
 
     ``payload=torch.bfloat16`` (the JAX package's bf16 payload) draws x_g
     in bfloat16, beside node rows x in float32 or (``row_bf16``, the bf16
@@ -1440,6 +1467,9 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
     # element sizes), the projections' weights and the outputs; float32
     # operations as payload_ops counts them
     agg_ops, max_ops, bwd_ops = payload_ops(n, nv, d, att, h, score)
+    # the key families' keys: TF32 products on the tensor cores
+    agg_ops = ((agg_ops,) if score == "scaled_dot" else
+               (agg_ops, key_tile_ops(nv, d, att, score, x_g.element_size())))
     xg_bytes = x_g.element_size() * nv * d
     base_bytes = (4 * (n + 1 + 2 * d * att + 2 * att)
                   + x.element_size() * n * d + xg_bytes)
@@ -1447,11 +1477,11 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
         ("fused_aggregate", "num, den",
          lambda: K.fused_aggregate(*agg, **kw_f),
          lambda: K.fused_aggregate_plain(*agg, **kw_p),
-         (base_bytes + 4 * n * (h * d + h), agg_ops), None),
+         (base_bytes + 4 * n * (h * d + h), *agg_ops), None),
         ("fused_aggregate", "num, den with per-edge shifts",
          lambda: K.fused_aggregate(*agg, shifts=shifts, **kw_f),
          lambda: K.fused_aggregate_plain(*agg, shifts=shifts, **kw_p),
-         (base_bytes + 4 * (nv * h + n * (h * d + h)), agg_ops), None),
+         (base_bytes + 4 * (nv * h + n * (h * d + h)), *agg_ops), None),
         ("fused_rhs_bwd_heads", "dq, dxg, dkw, dkb, dgmax[, dvar, dls]",
          lambda: some(K.fused_rhs_bwd_heads(*bwd, **kw_f)),
          lambda: some(K.fused_rhs_bwd_heads_plain(*bwd, **kw_p)),
@@ -1462,11 +1492,14 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
     if score == "scaled_dot":
         cases.insert(2, (
             "fused_score_max", "global maximum of the scores",
-            lambda: K.fused_score_max(rowptr, row, q, x_g, kw, kb, heads=h),
+            lambda: K.fused_score_max(rowptr, row, q, x_g, kw, kb, heads=h,
+                                      pieces=g.scatter_pieces),
             lambda: K.fused_score_max_plain(rowptr, row, q, x_g, kw, kb,
                                             heads=h),
             (4 * (n + 1 + n * att + d * att + att + 1) + xg_bytes, max_ops),
             None))
+    if kernels is not None:
+        cases = [c for c in cases if c[0] in kernels]
     tag = " squareplus" if square_plus else ""
     if bf16:
         cases = [(kname + " bf16", *c) for kname, *c in cases]
@@ -1492,8 +1525,7 @@ def check_aggregate_kernels(shape_name, g, d, att, h, score, seed,
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
             raise AssertionError(f"{kname} ({what}) {score} @ {shape_name}: "
                                  f"two launches differ")
-    print(f"[kernels] fused_aggregate, fused_rhs_bwd_heads"
-          f"{', fused_score_max' if score == 'scaled_dot' else ''} @ "
+    print(f"[kernels] {', '.join(sorted({c[0] for c in cases}))} @ "
           f"{shape_name} {score}{' bf16 payload' if bf16 else ''}{tag}: two "
           f"launches bit-identical in every output", flush=True)
     return rows
@@ -3629,6 +3661,17 @@ def main() -> int:
                     name, graph, nl.hidden_dim, nl.attention_dim, nl.heads,
                     "scaled_dot", args.seed + 212 + row_b16, payload=bf16,
                     row_bf16=row_b16)
+        # ... K18 of the four families that need each edge's key (the
+        # tensor-core key tile over windows of row pieces), timed at the
+        # Cora GRAND-nl widths over the hub row (BLEND's score packing its
+        # two halves into the same ATT), float32 and bf16 payloads (after
+        # the main paths' shapes, which the closing line reports)
+        for i, score in enumerate(SCORE_FAMILIES[1:]):
+            for payload_k in (None, torch.bfloat16):
+                rows += check_aggregate_kernels(
+                    "cora-hub", cora_hub, nl.hidden_dim, nl.attention_dim,
+                    nl.heads, score, args.seed + 240 + i,
+                    payload=payload_k, kernels=("fused_aggregate",))
         rows += check_dual_kernels("cora-standin", cora_g, nl.hidden_dim,
                                    nl.heads, args.seed + 51)
         rows += check_dual_kernels("cora-small", cora_g, 16, 4,
@@ -3921,6 +3964,7 @@ def main() -> int:
         print_slower_than_library(rows)
         print_slower_than_plain(rows, names=("fused_rhs_bwd", "fused_rowmax",
                                              "fused_aggregate",
+                                             "fused_score_max",
                                              "fused_rhs_bwd_heads"))
         phase_done("3 (kernels)")
         # 4. end to end on small inputs, card vs CPU
@@ -4331,7 +4375,7 @@ def main() -> int:
                "blocked_sddmm": ("blocked.cu", "spmm_blocked.py:135"),
                "fused_rhs_bwd_col": ("fused_rhs.cu", "fused_rhs.py:1047"),
                "fused_aggregate": ("payload_fwd.cu", "fused_rhs.py:208"),
-               "fused_score_max": ("fused_payload.cu", "fused_rhs.py:569"),
+               "fused_score_max": ("payload_fwd.cu", "fused_rhs.py:569"),
                "fused_rhs_bwd_heads": ("payload_bwd.cu", "fused_rhs.py:742"),
                "row_gather": ("row_gather.cu", "stripe.py:767"),
                "smem_gather": ("smem_gather.cu",
@@ -4358,7 +4402,7 @@ def main() -> int:
                "norm1_bwd bf16": ("norm1.cu", "fused_rhs.py:2297"),
                "fused_aggregate bf16": ("payload_fwd.cu",
                                         "fused_rhs.py:208"),
-               "fused_score_max bf16": ("fused_payload.cu",
+               "fused_score_max bf16": ("payload_fwd.cu",
                                         "fused_rhs.py:569"),
                "fused_rhs_bwd_heads bf16": ("payload_bwd.cu",
                                             "fused_rhs.py:742"),

@@ -297,9 +297,11 @@ def verify_kernels_on_device(device="cuda") -> None:
     vals = x_g.double().cpu().numpy()
     qw_t, qb_t, kw_t, kb_t = map(dev_t, (qw, qb, kw, kb))
     q_t = x_t @ qw_t + qb_t
-    gm = fused_score_max(g.rowptr, g.row, q_t, x_g, kw_t, kb_t, heads=heads)
+    gm = fused_score_max(g.rowptr, g.row, q_t, x_g, kw_t, kb_t, heads=heads,
+                         pieces=g.scatter_pieces)
     fn, fd = fused_aggregate(g.rowptr, g.row, x_t, x_g, qw_t, qb_t, kw_t,
-                             kb_t, gm, heads=heads, score="scaled_dot")
+                             kb_t, gm, heads=heads, score="scaled_dot",
+                             pieces=g.scatter_pieces)
     src = (x_nodes @ qw + qb)[row]
     k_e = vals[:e] @ kw + kb
     s = (src * k_e).reshape(-1, heads, d_k).sum(-1) / np.sqrt(d_k)

@@ -52,6 +52,8 @@
 
 #include <cstdint>
 
+#include "cp_async.cuh"
+
 namespace {
 
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -83,20 +85,6 @@ bool valid_tables(int tables) {
 
 constexpr int kDenseThreads = 256;               // eight warps a block
 constexpr int kDenseWarps = kDenseThreads / 32;
-
-// 16-byte copies global -> shared, completed in groups
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// wait until at most N groups (the stages after the next) are in flight
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 template <typename T> __device__ __forceinline__ T dense_zero();
 template <> __device__ __forceinline__ float dense_zero<float>() {

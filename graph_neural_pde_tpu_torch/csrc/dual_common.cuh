@@ -1,9 +1,9 @@
 // Device code shared by K10 dual_scatter (dual_scatter.cu) and K11
 // dual_gather (dual_gather.cu): the row pieces, the loads of u's heads,
-// the transposed butterfly that sums a group's heads, the merge of the
-// pieces' partial rows and the dispatch of a call to the instantiation of
-// its lane group, vector width, vectors a lane and heads a pass (the
-// design is in dual_scatter.cu's note). Each source that includes this
+// the transposed butterfly that sums a group's heads and the dispatch of
+// a call to the instantiation of its lane group, vector width, vectors a
+// lane and heads a pass (the design is in dual_scatter.cu's note); the
+// merge of the pieces' partial rows is piece_merge.cuh's. Each source that includes this
 // header gets its own copy (anonymous namespace), so the sources still
 // compile independently, one nvcc each.
 
@@ -14,6 +14,7 @@
 
 #include <cstdint>
 
+#include "piece_merge.cuh"
 #include "row_vectors.cuh"
 
 namespace {
@@ -35,7 +36,6 @@ constexpr int kMaxBatch = 4;
 
 constexpr int kThreads = 256;
 constexpr int kMaxHeadsPerPass = 8;
-constexpr int kMergeThreads = 256;
 
 // The rows cut into pieces (ops/graph.py, ColPieces of rowptr)
 struct Pieces {
@@ -161,45 +161,6 @@ __device__ __forceinline__ bool writes_head(int lane) {
   } else {
     return lane % (G / HP) == 0;
   }
-}
-
-// A row of several pieces: its partial rows (width floats each, stride
-// apart: the first width_a to out_a's row of width_a, the rest to out_b's)
-// added in piece order, a thread an element. Each source wraps it in a
-// kernel of its own name (the profiler counts its time to the source's
-// kernel, not its launches).
-__device__ __forceinline__ void merge_partials(
-    const Pieces& pc, const float* __restrict__ part, int stride, int width,
-    float* __restrict__ out_a, int width_a, float* __restrict__ out_b) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kMergeThreads + threadIdx.x;
-  const long long m = t / width;
-  const int i = static_cast<int>(t % width);
-  if (m >= pc.n_multi) return;
-  float s = 0.0f;
-  for (int p = pc.multi_ptr[m]; p < pc.multi_ptr[m + 1]; ++p)
-    s += part[static_cast<size_t>(p) * stride + i];
-  const size_t row = pc.multi_row[m];
-  if (i < width_a)
-    out_a[row * width_a + i] = s;
-  else
-    out_b[row * (width - width_a) + (i - width_a)] = s;
-}
-
-using MergeKernel = void (*)(Pieces, const float*, int, int, float*, int,
-                             float*);
-
-cudaError_t merge(MergeKernel kernel, const Pieces& pc, const void* part,
-                  int stride, int width, void* out_a, int width_a,
-                  void* out_b, cudaStream_t s) {
-  if (pc.n_multi == 0) return cudaSuccess;
-  const long long threads = static_cast<long long>(pc.n_multi) * width;
-  const int blocks =
-      static_cast<int>((threads + kMergeThreads - 1) / kMergeThreads);
-  kernel<<<blocks, kMergeThreads, 0, s>>>(
-      pc, static_cast<const float*>(part), stride, width,
-      static_cast<float*>(out_a), width_a, static_cast<float*>(out_b));
-  return cudaGetLastError();
 }
 
 template <int G>

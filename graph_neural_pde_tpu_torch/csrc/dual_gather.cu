@@ -247,7 +247,8 @@ __global__ void __launch_bounds__(kMergeThreads)
 dual_gather_merge_kernel(
     Pieces pc, const float* __restrict__ part, int stride, int width,
     float* __restrict__ out_a, int width_a, float* __restrict__ out_b) {
-  merge_partials(pc, part, stride, width, out_a, width_a, out_b);
+  merge_partials(pc.multi_ptr, pc.multi_row, pc.n_multi, part, stride,
+                 width, out_a, width_a, out_b);
 }
 
 }  // namespace

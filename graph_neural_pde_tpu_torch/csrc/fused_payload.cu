@@ -1,33 +1,63 @@
-// K18 fused_aggregate, K19 fused_score_max and K8's per-head mode
-// fused_rhs_bwd_heads: the GRAND-nl attention right-hand side's numerators
-// and denominators over a per-EDGE payload x_g [n_slots, D] (row-sorted,
-// edge e at row e) instead of x[col], its global score maximum, and its
+// K18 fused_aggregate and K8's per-head mode fused_rhs_bwd_heads for the
+// four score families whose scores need each edge's key (cosine_sim,
+// pearson, exp_kernel, exp_kernel_beltrami): the GRAND-nl attention
+// right-hand side's numerators and denominators over a per-EDGE payload
+// x_g [n_slots, D] (row-sorted, edge e at row e) instead of x[col], and its
 // backward from per-head cotangents. Replace the TPU kernels of
 // graph_neural_pde_tpu/ops/pallas/fused_rhs.py: _rhs_kernel / _fused_call
-// (K18), _max_kernel / _fused_score_max_impl (K19) and _bwd_kernel's
-// non-separable branch / _fused_bwd_mega_call with recip_p=None (the
-// backward of fused_rhs_aggregate). Kept apart from fused_rhs.cu (K6-K9,
-// K17), whose walks over node tables they share only fused_common.cuh with,
-// so that the two compile side by side. For the scaled-dot score K18 and
-// the per-head mode run payload_fwd.cu / payload_bwd.cu instead (Kw folded
-// into each row's query: no edge's key); the walks here serve the four
-// families whose scores need each edge's key, and K19.
+// (K18) and _bwd_kernel's non-separable branch / _fused_bwd_mega_call with
+// recip_p=None (the backward of fused_rhs_aggregate). Kept apart from
+// fused_rhs.cu (K6-K9, K17), whose walks over node tables they share only
+// fused_common.cuh with, so that the two compile side by side. For the
+// scaled-dot score K18 and the per-head mode run payload_fwd.cu /
+// payload_bwd.cu instead (Kw folded into each row's query: no edge's key),
+// and so does K19 fused_score_max.
 //
-// K18, K19 and K8's per-head mode take the payload's bfloat16 mode too
-// (the JAX package's _fused_call / _fused_score_max_impl /
-// _fused_bwd_mega_call over a bfloat16 x_g): the payload rows of type TX
-// and (K18, the per-head mode) the node row of type TR are widened to
-// float32 as they are loaded into the same shared-memory layout, and k_e
-// is projected from the widened row with the float32 Kw and kb and is not
-// rounded, as every route of the JAX package computes it there. Every
-// cotangent, sum and output stays float32; the per-head mode's dKw is
-// reduced over the bfloat16 payload.
+// Both take the payload's bfloat16 mode too (the JAX package's _fused_call
+// / _fused_bwd_mega_call over a bfloat16 x_g): the payload rows of type TX
+// are widened to float32 where they are read, and k_e is projected from
+// the widened row with the float32 Kw and kb and is not rounded, as every
+// route of the JAX package computes it there. Every cotangent, sum and
+// output stays float32; the per-head mode's dKw is reduced over the
+// bfloat16 payload.
 //
-// What bounds them on the H100: the same issue-bound row walks as K6-K9,
-// plus the per-edge key projection (x_g is no node table, so k_e =
-// x_g[e] Kw + kb is projected per edge, as the TPU kernels do).
+// K18 (payload_keys_kernel). What bounds it on the H100: at arxiv scale
+// (2.47 M edges, D = 128, BLEND's ATT = 2 x 32) the payload is 1.26 GB
+// (0.38 ms at 3.35 TB/s), and projecting every edge's key takes 2 E D ATT
+// = 40 GFLOP, 121 GFLOP of TF32 products as 3xTF32: on the SIMT float32
+// pipes (67 TFLOP/s) the projection alone would take 0.6 ms, so it runs
+// on the tensor cores. The design:
+// * The blocks, one wave of them, each take a window of consecutive row
+//   pieces (Graph.scatter_pieces: rows of up to SCATTER_WHOLE edges whole,
+//   longer ones in pieces of COL_PIECE): block b the pieces that start in
+//   edges [b W, (b + 1) W), W the edges over the blocks (a warp's search
+//   over the pieces' starts), so that its edges are contiguous, about W.
+// * Once a block, Kw is split into its high and low TF32 parts (dense.cuh's
+//   tf32_split) and kept in shared memory in the order of the m16n8k8
+//   B fragments: one 16-byte load gives a lane both parts of its fragment.
+// * The window's payload rows are staged in shared memory by cp.async, a
+//   tile of up to CAP rows (kernels/fused_rhs.py's key_design) after
+//   another, the next tile's (and its edges' row numbers) arriving in a
+//   second buffer while one is used; q's rows of a tile are prefetched
+//   into L1 before its keys are formed. The tile's keys K = X Kw + kb are
+//   3xTF32 products
+//   on the tensor cores (a bfloat16 row is a TF32 value already: two
+//   products), two k8 steps a partial sum added to the sum started from
+//   kb, as dense.cuh's node projections do; the keys go to shared memory.
+// * A thread an (edge, head) pair scores it from the key tile and q_n
+//   (the node projections' table) with head_score, the families'
+//   arithmetic unchanged, and forms u.
+// * A thread a column h D + d of num (and, at d = 0, den's column h)
+//   walks the tile's edges in order, adding u_eh x_g[e, d] (and u_eh) from
+//   the staged rows, and writes each piece's sums when the piece ends: to
+//   the row, or, for a row of several pieces, to the piece's partial row,
+//   which a merge kernel adds in piece order. A piece that runs past the
+//   tile carries its sums to the next.
+// So x_g is read from device memory once, every sum runs in edge order,
+// and nothing is zeroed first: two launches agree bit for bit.
 //
-// Design: a warp owns a row and takes its edges kGroup at a time:
+// K8's per-head mode (fused_rhs_bwd_heads_kernel): a warp owns a row and
+// takes its edges kGroup at a time:
 //   * it loads the group's payload rows with kGroup loads in flight a lane
 //     (a row's edges are contiguous, so each load is coalesced) into shared
 //     memory, transposed ([D, kGroup]);
@@ -35,16 +65,15 @@
 //     element of Kw read from shared memory serves kGroup products;
 //   * lane l scores the pair (edge l / H, head l % H) of the group, so all
 //     kGroup H scores run side by side;
-//   * K18 adds u x_g into the row's [H, D] numerators, a lane per column,
-//     in edge order; K8's per-head mode forms each edge's dk and then the
-//     group's dk Kw^T as one more group product.
+//   * it forms each edge's dk and then the group's dk Kw^T as one more
+//     group product.
 // The block (kPayloadWarps warps) stages Qw and Kw in shared memory first,
 // each row padded by one float, so that a column can be read without bank
-// conflicts too (K19 stages Kw only); q_n = x_n Qw + qb is projected by the
-// warp that owns row n (K19 reads q from its table). Every sum runs in a
-// fixed order: no atomics.
+// conflicts too; q_n = x_n Qw + qb is projected by the warp that owns row
+// n. Every sum runs in a fixed order: no atomics.
 
 #include "fused_common.cuh"
+#include "piece_merge.cuh"
 
 namespace {
 
@@ -176,13 +205,6 @@ __device__ __forceinline__ void load_group(const TX* __restrict__ xg,
 __host__ __device__ __forceinline__ int padded_weight_floats(int d, int a) {
   return round4(d * (a + 1));
 }
-__host__ __device__ __forceinline__ int aggregate_warp_floats(int d, int a,
-                                                              int h) {
-  return round4(kGroup * d + a + kGroup * (a + 1) + h * d + kGroup * h);
-}
-__host__ __device__ __forceinline__ int score_max_warp_floats(int d, int a) {
-  return round4(kGroup * d + a + kGroup * (a + 1));
-}
 __host__ __device__ __forceinline__ int bwd_heads_warp_floats(int d, int a,
                                                               int h) {
   return round4(kGroup * d + a * kGroup + 2 * a + kGroup * (a + 1) +
@@ -194,149 +216,411 @@ __host__ __device__ __forceinline__ int bwd_heads_warp_floats(int d, int a,
 // num[n, h D + d] = sum_e u_eh x_g[e, d] and den[n, h] = sum_e u_eh over
 // the edges e of row n, u_eh = exp(s_eh - gmax - shift_eh) (or
 // squareplus), s_eh the score of q_n and k_e = x_g[e] Kw + kb; each sum in
-// the row's edge order. The node rows x_n of type TR, the payload of type
-// TX (see the note above K6 on the bfloat16 mode).
-template <typename TR, typename TX>
-__global__ void __launch_bounds__(kPayloadWarps * kWarp, 2)
-fused_aggregate_kernel(Graph g, Proj p, const TR* __restrict__ xn,
-                       const TX* __restrict__ xg,
-                       const float* __restrict__ qw,
-                       const float* __restrict__ qb,
-                       const float* __restrict__ kw,
-                       const float* __restrict__ kb,
-                       const float* __restrict__ shifts,
-                       float* __restrict__ num, float* __restrict__ den) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = p.dim, A = p.att, H = p.heads, d_k = head_width(p);
-  const int wsk = A + 1, ks = A + 1;            // padded row strides
-  float* qw_s = smem;
-  float* kw_s = qw_s + padded_weight_floats(D, A);
-  stage_weights(qw, kw, qw_s, kw_s, D, A);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int n = blockIdx.x * kPayloadWarps + warp;
-  if (n >= g.n_rows) return;                    // after the block's barrier
-  float* xs = kw_s + padded_weight_floats(D, A) +
-              static_cast<size_t>(warp) * aggregate_warp_floats(D, A, H);
-  float* q = xs + kGroup * D;
-  float* ke = q + A;                            // [kGroup, A + 1]
-  float* acc = ke + kGroup * ks;                // [H, D] numerators
-  float* uu = acc + H * D;                      // [kGroup, H]
-  load_row(xn, n, D, lane, xs);
-  __syncwarp();
-  group_project<1>(xs, qw_s, wsk, 1, qb, D, A, lane, 1, q, A);
-  for (int i = lane; i < H * D; i += kWarp) acc[i] = 0.0f;
-  const float gmax = *p.gmax;
-  const ScoreParams sc = score_params(p);
-  const int start = g.rowptr[n], end = g.rowptr[n + 1];
-  float den_h = 0.0f;                           // lane h: head h
-  for (int e0 = start; e0 < end; e0 += kGroup) {
-    const int count = min(kGroup, end - e0);
-    load_group(xg, e0, count, D, lane, xs);
-    group_project<kGroup>(xs, kw_s, wsk, 1, kb, D, A, lane, count, ke, ks);
-    for (int l = lane; l < count * H; l += kWarp) {
-      const int i = l / H, h = l % H;
-      const HeadScore hs = head_score(q, ke + i * ks, h, d_k, H, p.score, sc);
-      float sm = hs.s - gmax;
-      if (shifts) sm -= shifts[static_cast<size_t>(e0 + i) * H + h];
-      float u, duds;
-      u_duds(sm, p.square_plus, &u, &duds);
-      uu[l] = u;
+// the row's edge order (see the note at the top for the design).
+
+constexpr int kKeyThreads = 256;
+constexpr int kKeyWarps = kKeyThreads / kWarp;
+constexpr int kKeyGroup = 2;                  // n8 tiles a warp's item
+
+// What the walk reads and writes. The pieces are fused_common.cuh's
+// (`col` the piece's row, `multi_col` the rows of several pieces).
+struct KeyArgs {
+  Pieces pc;
+  Proj p;
+  const int* row;          // [n_slots]: each edge's row
+  const void* xg;          // [n_slots, dim] of T
+  const float* q;          // [n_rows, att]: x_n Qw + qb
+  const float* kw;         // [dim, att]
+  const float* kb;         // [att]
+  const float* shifts;     // [n_slots, heads], nullable
+  float* num;              // [n_rows, heads dim]
+  float* den;              // [n_rows, heads]
+  float* part;             // [partial rows, stride]: [num | den] a piece
+  int cap, window, stride, vec;
+};
+
+// The block's shared memory, in bytes: the split Kw in fragment order, two
+// buffers of CAP staged payload rows of xs elements (16 bytes past a
+// multiple of 128, so that a warp's A-fragment loads fall in 32 banks) and
+// of their edges' rows (the next tile's arrive while one is used), CAP
+// keys of a8 + 1 floats, CAP edges' u, the carried sums of [num | den]
+// (stride floats) and the window's two piece bounds.
+// kernels/fused_rhs.py's key_shared sums the same.
+struct KeyLayout {
+  int d8, a8, xs, ks, w, x, rows, k, u, carry, total;
+};
+
+__host__ __device__ __forceinline__ KeyLayout key_layout(int dim, int att,
+                                                         int heads, int cap,
+                                                         int elem) {
+  KeyLayout l;
+  l.d8 = (dim + 7) / 8 * 8;
+  l.a8 = (att + 7) / 8 * 8;
+  const int align = 128 / elem;
+  l.xs = (dim + align - 1) / align * align + 16 / elem;
+  l.ks = l.a8 + 1;
+  l.w = 8 * l.d8 * l.a8;
+  l.x = l.w;                                  // two buffers each
+  l.rows = l.x + 2 * cap * l.xs * elem;
+  l.k = l.rows + 2 * 4 * cap;
+  l.u = l.k + 4 * cap * l.ks;
+  l.carry = l.u + 4 * cap * heads;
+  l.total = l.carry + 4 * payload_stride(dim, heads) + 16;
+  return l;
+}
+
+// Kw's high and low TF32 parts for B fragment (k8 step ks, n8 tile nt) of
+// lane (g, t) at wf[(ks n_tiles + nt) 32 + lane] = (hi of Kw[8 ks + t, 8 nt
+// + g], hi of Kw[8 ks + t + 4, ..], lo of the same two); zero past D, ATT
+__device__ __forceinline__ void split_weights(const float* __restrict__ kw,
+                                              int dim, int att,
+                                              const KeyLayout& l,
+                                              uint4* wf) {
+  const int n_tiles = l.a8 / 8, frags = (l.d8 / 8) * n_tiles * 32;
+  for (int i = threadIdx.x; i < frags; i += kKeyThreads) {
+    const int lane = i % 32, f = i / 32;
+    const int ks = f / n_tiles, nt = f % n_tiles;
+    const int c = 8 * nt + lane / 4, k = 8 * ks + lane % 4;
+    const float w0 = k < dim && c < att ? kw[static_cast<size_t>(k) * att + c]
+                                        : 0.0f;
+    const float w1 = k + 4 < dim && c < att
+                         ? kw[static_cast<size_t>(k + 4) * att + c]
+                         : 0.0f;
+    uint32_t h0, s0, h1, s1;
+    tf32_split(w0, &h0, &s0);
+    tf32_split(w1, &h1, &s1);
+    wf[i] = make_uint4(h0, h1, s0, s1);
+  }
+}
+
+// The first piece of [0, n) whose start is at least `target` (n: none),
+// by the 32 lanes of a warp: each round samples 32 starts of the range
+// left, so a few rounds of loads in series find it
+__device__ __forceinline__ int first_piece_from(const int* __restrict__ ptr,
+                                                int n, int target,
+                                                int lane) {
+  int lo = 0, hi = n;               // the starts before lo are < target,
+  while (hi - lo > 32) {            // those from hi on are not
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + lane * step;
+    const bool below = i < hi && __ldg(ptr + i) < target;
+    const int c = __popc(__ballot_sync(0xffffffffu, below));
+    if (c == 0) return lo;
+    const int next = lo + c * step;
+    lo = lo + (c - 1) * step + 1;
+    hi = min(hi, next);
+  }
+  const bool below = lo + lane < hi && __ldg(ptr + lo + lane) < target;
+  return lo + __popc(__ballot_sync(0xffffffffu, below));
+}
+
+// the payload rows [s0, s0 + cnt) into xs (rows of l.xs elements; columns
+// past dim were zeroed once) and their edges' rows into rows: 16-byte
+// cp.async copies where `vec` (else plain loads), one group committed and
+// not waited for
+template <typename T>
+__device__ __forceinline__ void stage_rows(const KeyArgs& a,
+                                           const KeyLayout& l, T* xs,
+                                           int* rows, int s0, int cnt) {
+  const T* xg = static_cast<const T*>(a.xg);
+  const int dim = a.p.dim;
+  for (int i = threadIdx.x; i < cnt; i += kKeyThreads)
+    cp_async4(rows + i, a.row + s0 + i);
+  if (a.vec) {
+    constexpr int kPer = 16 / sizeof(T);
+    const int chunks = dim / kPer;
+    for (int i = threadIdx.x; i < cnt * chunks; i += kKeyThreads) {
+      const int r = i / chunks, c = (i % chunks) * kPer;
+      cp_async16(xs + r * l.xs + c,
+                 xg + static_cast<size_t>(s0 + r) * dim + c);
     }
-    __syncwarp();
-    if (lane < H)
-      for (int i = 0; i < count; ++i) den_h += uu[i * H + lane];
-    for (int d = lane; d < D; d += kWarp) {
-      const float4* x4 = reinterpret_cast<const float4*>(xs + d * kGroup);
-      const float4 lo = x4[0], hi = x4[1];
-      const float xv[kGroup] = {lo.x, lo.y, lo.z, lo.w,
-                                hi.x, hi.y, hi.z, hi.w};
-      for (int h = 0; h < H; ++h) {
-        float a = acc[h * D + d];
-        for (int i = 0; i < count; ++i) a = fmaf(uu[i * H + h], xv[i], a);
-        acc[h * D + d] = a;
+  } else {
+    for (int i = threadIdx.x; i < cnt * dim; i += kKeyThreads) {
+      const int r = i / dim, c = i % dim;
+      xs[r * l.xs + c] = xg[static_cast<size_t>(s0 + r) * dim + c];
+    }
+  }
+  cp_async_commit();
+}
+
+// q's rows of the tile's edges into the SM's L1 (the scores read them
+// after the keys' products): a row where it differs from the edge before
+__device__ __forceinline__ void prefetch_q(const KeyArgs& a,
+                                           const int* rows, int cnt) {
+  const int bytes = 4 * a.p.att;
+  for (int i = threadIdx.x; i < cnt; i += kKeyThreads) {
+    if (i > 0 && rows[i] == rows[i - 1]) continue;
+    const char* p = reinterpret_cast<const char*>(
+        a.q + static_cast<size_t>(rows[i]) * a.p.att);
+    for (int off = 0; off < bytes; off += 128)
+      asm volatile("prefetch.global.L1 [%0];" ::"l"(p + off));
+  }
+}
+
+// the keys of the tile's cnt rows: items of one m16 tile by kKeyGroup n8
+// tiles on the warps, two k8 steps a partial sum (each mma.sync rounds its
+// sum toward zero: dense.cuh's project_mma) in two chains, big x big and
+// the small terms, added to the sum started from kb
+template <typename T>
+__device__ __forceinline__ void project_keys(const KeyArgs& a,
+                                             const KeyLayout& l, const T* xs,
+                                             const uint4* wf, float* kt,
+                                             int cnt) {
+  constexpr bool kExact = sizeof(T) == 2;     // bfloat16 rows: TF32 values
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane / 4, t = lane % 4;
+  const int n_tiles = l.a8 / 8, steps = l.d8 / 8;
+  const int groups = (n_tiles + kKeyGroup - 1) / kKeyGroup;
+  const int items = (cnt + 15) / 16 * groups;
+  for (int item = warp; item < items; item += kKeyWarps) {
+    const int m0 = item / groups * 16, n0 = item % groups * kKeyGroup;
+    float acc[kKeyGroup][4];
+#pragma unroll
+    for (int j = 0; j < kKeyGroup; ++j) {
+      const int c = 8 * (n0 + j) + 2 * t;
+      const float b0 = c < a.p.att ? __ldg(a.kb + c) : 0.0f;
+      const float b1 = c + 1 < a.p.att ? __ldg(a.kb + c + 1) : 0.0f;
+      acc[j][0] = acc[j][2] = b0;
+      acc[j][1] = acc[j][3] = b1;
+    }
+    const T* x0 = xs + (m0 + g) * l.xs + t;
+    const T* x1 = x0 + 8 * l.xs;
+    for (int k0 = 0; k0 < steps; k0 += 2) {
+      float big[kKeyGroup][4], small[kKeyGroup][4];
+#pragma unroll
+      for (int j = 0; j < kKeyGroup; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[j][e] = small[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int ks = k0 + kk;
+        if (ks >= steps) break;
+        const float xv[4] = {widen(x0[8 * ks]), widen(x1[8 * ks]),
+                             widen(x0[8 * ks + 4]), widen(x1[8 * ks + 4])};
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (kExact) {
+            ab[i] = __float_as_uint(xv[i]);
+            as[i] = 0u;
+          } else {
+            tf32_split(xv[i], &ab[i], &as[i]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kKeyGroup; ++j) {
+          if (n0 + j >= n_tiles) break;
+          const uint4 w = wf[(ks * n_tiles + n0 + j) * 32 + lane];
+          const uint32_t bb[2] = {w.x, w.y}, bs[2] = {w.z, w.w};
+          if (!kExact) mma_tf32(small[j], as, bb);
+          mma_tf32(small[j], ab, bs);
+          mma_tf32(big[j], ab, bb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kKeyGroup; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] += big[j][e] + small[j][e];
+    }
+#pragma unroll
+    for (int j = 0; j < kKeyGroup; ++j) {
+      if (n0 + j >= n_tiles) break;
+      float* o = kt + (m0 + g) * l.ks + 8 * (n0 + j) + 2 * t;
+      o[0] = acc[j][0];
+      o[1] = acc[j][1];
+      o[8 * l.ks] = acc[j][2];
+      o[8 * l.ks + 1] = acc[j][3];
+    }
+  }
+}
+
+// column c of piece q's [num | den] sums to its row, or to its partial row
+__device__ __forceinline__ void flush_piece(const KeyArgs& a, int q, int c,
+                                            float v) {
+  const int slot = __ldg(a.pc.slot + q);
+  const int hd = a.p.heads * a.p.dim;
+  if (slot >= 0) {
+    a.part[static_cast<size_t>(slot) * a.stride + c] = v;
+  } else {
+    const size_t row = __ldg(a.pc.col + q);
+    if (c < hd)
+      a.num[row * hd + c] = v;
+    else
+      a.den[row * a.p.heads + (c - hd)] = v;
+  }
+}
+
+// The walk of the block's window of row pieces (the note at the top) over
+// a payload of type T: each tile of staged payload rows [s0, s0 + cnt) at
+// x gets its keys from form_keys(x, s0, cnt), which writes them to the
+// key tile (l.k) before the block's next barrier
+template <typename T, typename FormKeys>
+__device__ __forceinline__ void walk_window(const KeyArgs& a,
+                                            const KeyLayout& l,
+                                            unsigned char* smem,
+                                            FormKeys form_keys) {
+  const int D = a.p.dim, A = a.p.att, H = a.p.heads;
+  const int d_k = head_width(a.p), hd = H * D;
+  T* xs = reinterpret_cast<T*>(smem + l.x);
+  int* rows = reinterpret_cast<int*>(smem + l.rows);
+  const float* kt = reinterpret_cast<const float*>(smem + l.k);
+  float* ut = reinterpret_cast<float*>(smem + l.u);
+  float* carry = reinterpret_cast<float*>(smem + l.carry);
+  int* bounds = reinterpret_cast<int*>(smem + l.carry +
+                                       4 * payload_stride(D, H));
+  for (int i = threadIdx.x; i < 2 * a.cap * l.xs; i += kKeyThreads)
+    xs[i] = dense_zero<T>();                  // the columns past D stay 0
+  const float gmax = __ldg(a.p.gmax);
+  const ScoreParams sc = score_params(a.p);
+  const int* ptr = a.pc.ptr;
+  const int n_pieces = a.pc.n_pieces;
+  // the block's window: the pieces that start in edges [b W, (b + 1) W)
+  if (threadIdx.x < kWarp) {
+    const int lane = threadIdx.x;
+    const int b = blockIdx.x;
+    const int p0 = first_piece_from(ptr, n_pieces, b * a.window, lane);
+    const int p1 = b + 1 == gridDim.x
+                       ? n_pieces
+                       : first_piece_from(ptr, n_pieces, (b + 1) * a.window,
+                                          lane);
+    if (lane == 0) {
+      bounds[0] = p0;
+      bounds[1] = p1;
+    }
+  }
+  __syncthreads();                            // also: the weights, zeros
+  const int p0 = bounds[0], p1 = bounds[1];
+  if (p0 >= p1) return;                       // the same for the block
+  const int e_end = __ldg(ptr + p1);
+  int s0 = __ldg(ptr + p0), first = p0;       // the tile's first open piece
+  bool carried = false;                       // it began in an earlier tile
+  int buf = 0;                                // the tile's row buffer
+  const int tile = a.cap * l.xs;
+  stage_rows<T>(a, l, xs, rows, s0, min(a.cap, e_end - s0));
+  do {
+    const int cnt = min(a.cap, e_end - s0);
+    const int s_end = s0 + cnt;
+    const bool last = s_end >= e_end;
+    const T* x = xs + buf * tile;
+    const int* erow = rows + buf * a.cap;
+    // the next tile's rows arrive in the other buffers meanwhile
+    if (!last)
+      stage_rows<T>(a, l, xs + (buf ^ 1) * tile, rows + (buf ^ 1) * a.cap,
+                    s_end, min(a.cap, e_end - s_end));
+    else
+      cp_async_commit();
+    cp_async_wait<1>();                       // this tile's rows
+    if (cnt > 0) {
+      __syncthreads();
+      prefetch_q(a, erow, cnt);
+      form_keys(x, s0, cnt);
+      __syncthreads();
+      for (int i = threadIdx.x; i < cnt * H; i += kKeyThreads) {
+        const int e = i / H, h = i % H;
+        const int row = erow[e];
+        const HeadScore hs =
+            head_score(a.q + static_cast<size_t>(row) * A, kt + e * l.ks, h,
+                       d_k, H, a.p.score, sc);
+        float sm = hs.s - gmax;
+        if (a.shifts)
+          sm -= __ldg(a.shifts + static_cast<size_t>(s0 + e) * H + h);
+        float u, duds;
+        u_duds(sm, a.p.square_plus, &u, &duds);
+        ut[i] = u;
+      }
+      __syncthreads();
+    }
+    // a thread a column h D + d of num (and, where d = 0, den's column of
+    // head h beside it) walks the tile's edges in order, piece by piece: a
+    // piece that ends in the tile is written, one that runs past it
+    // carries its sums to the next tile
+    for (int c = threadIdx.x; c < hd; c += kKeyThreads) {
+      const int h = c / D, d = c % D;
+      float acc = carried ? carry[c] : 0.0f;
+      float dacc = carried ? carry[hd + h] : 0.0f;
+      int q = first, e = 0;
+      for (;;) {
+        const int q_end = __ldg(ptr + q + 1);
+        const int stop = min(q_end, s_end) - s0;
+#pragma unroll 4
+        for (; e < stop; ++e) {
+          const float u = ut[e * H + h];
+          acc = fmaf(u, widen(x[e * l.xs + d]), acc);
+          dacc += u;
+        }
+        if (q_end > s_end) {                  // on into the next tile
+          carry[c] = acc;
+          if (d == 0) carry[hd + h] = dacc;
+          break;
+        }
+        flush_piece(a, q, c, acc);
+        if (d == 0) flush_piece(a, q, hd + h, dacc);
+        acc = dacc = 0.0f;
+        if (++q >= p1) break;                 // the window's last piece
       }
     }
-    __syncwarp();                               // xs, ke and uu are reused
-  }
-  if (lane < H) den[static_cast<size_t>(n) * H + lane] = den_h;
-  float* nr = num + static_cast<size_t>(n) * H * D;
-  for (int i = lane; i < H * D; i += kWarp) nr[i] = acc[i];
-}
-
-// ---------------------------------------------------------------------- K19
-//
-// The largest scaled-dot score <q[n], x_g[e] Kw + kb>_h / sqrt(d_k) over
-// every edge and head: each block writes its rows' maximum to partial[b],
-// score_max_finish_kernel reduces the partials in one block. A NaN score
-// wins, as in the plain version; a maximum does not depend on the order of
-// its terms, so two launches agree bit for bit.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
-}
-
-template <typename TX>
-__global__ void __launch_bounds__(kPayloadWarps * kWarp, 2)
-fused_score_max_kernel(Graph g, Proj p, const float* __restrict__ qtab,
-                       const TX* __restrict__ xg,
-                       const float* __restrict__ kw,
-                       const float* __restrict__ kb,
-                       float* __restrict__ partial) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = p.dim, A = p.att, H = p.heads, d_k = A / H;
-  const int wsk = A + 1, ks = A + 1;
-  float* kw_s = smem;
-  stage_weights(kw, nullptr, kw_s, nullptr, D, A);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  float* xs = kw_s + padded_weight_floats(D, A) +
-              static_cast<size_t>(warp) * score_max_warp_floats(D, A);
-  float* q = xs + kGroup * D;
-  float* ke = q + A;
-  float* block_max = kw_s + padded_weight_floats(D, A) +
-                     kPayloadWarps * score_max_warp_floats(D, A);
-  const int n = blockIdx.x * kPayloadWarps + warp;
-  float m = -CUDART_INF_F;
-  if (n < g.n_rows) {                           // no early return: a barrier
-    load_row(qtab, n, A, lane, q);              // follows
-    const ScoreParams unit = {1.0f, 1.0f, 1.0f, 1.0f};
-    const int start = g.rowptr[n], end = g.rowptr[n + 1];
-    for (int e0 = start; e0 < end; e0 += kGroup) {
-      const int count = min(kGroup, end - e0);
-      load_group(xg, e0, count, D, lane, xs);
-      group_project<kGroup>(xs, kw_s, wsk, 1, kb, D, A, lane, count, ke, ks);
-      for (int l = lane; l < count * H; l += kWarp)
-        m = max_nan(m, head_score(q, ke + (l / H) * ks, l % H, d_k, H,
-                                  kScaledDot, unit).s);
-      __syncwarp();
+    if (!last) {
+      while (__ldg(ptr + first + 1) <= s_end) ++first;
+      carried = __ldg(ptr + first) < s_end;
     }
-  }
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1)
-    m = max_nan(m, __shfl_xor_sync(kFull, m, o));
-  if (lane == 0) block_max[warp] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float b = block_max[0];
-    for (int w = 1; w < kPayloadWarps; ++w) b = max_nan(b, block_max[w]);
-    partial[blockIdx.x] = b;
-  }
+    s0 = s_end;
+    buf ^= 1;
+    __syncthreads();                          // the tiles are reused
+  } while (s0 < e_end);
+  cp_async_wait<0>();
 }
 
-// out[0] = the maximum of partial[0 .. count), 0 unless it is finite (an
-// edgeless graph: -inf)
-__global__ void score_max_finish_kernel(const float* __restrict__ partial,
-                                        int count, float* __restrict__ out) {
-  __shared__ float red[256];
-  float m = -CUDART_INF_F;
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    m = max_nan(m, partial[i]);
-  red[threadIdx.x] = m;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s)
-      red[threadIdx.x] = max_nan(red[threadIdx.x], red[threadIdx.x + s]);
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = isfinite(red[0]) ? red[0] : 0.0f;
+// K18 for the key families over windows of row pieces (the note at the
+// top): Kw's TF32 parts split into shared memory once, then the window's
+// walk with each tile's keys projected on the tensor cores; T the
+// payload's type
+template <typename T>
+__global__ void __launch_bounds__(kKeyThreads, 2)
+payload_keys_kernel(KeyArgs a) {
+  extern __shared__ __align__(16) unsigned char key_smem[];
+  const KeyLayout l =
+      key_layout(a.p.dim, a.p.att, a.p.heads, a.cap, sizeof(T));
+  const uint4* wf = reinterpret_cast<const uint4*>(key_smem);
+  float* kt = reinterpret_cast<float*>(key_smem + l.k);
+  split_weights(a.kw, a.p.dim, a.p.att, l, reinterpret_cast<uint4*>(key_smem));
+  walk_window<T>(a, l, key_smem, [&](const T* x, int, int cnt) {
+    project_keys<T>(a, l, x, wf, kt, cnt);
+  });
+}
+
+// The second pass over the rows of several pieces (merge_partials)
+__global__ void __launch_bounds__(kMergeThreads)
+payload_keys_merge_kernel(
+    Pieces pc, const float* __restrict__ part, int stride, int width,
+    float* __restrict__ out_a, int width_a, float* __restrict__ out_b) {
+  merge_partials(pc.multi_ptr, pc.multi_col, pc.n_multi, part, stride,
+                 width, out_a, width_a, out_b);
+}
+
+// One wave of resident blocks (by the block's shared memory and
+// registers), at most one a tile of edges; block b walks the pieces that
+// start in edges [b W, (b + 1) W), W the edges over the blocks
+template <typename T>
+cudaError_t launch_keys(const KeyArgs& a, int n_edges, cudaStream_t s) {
+  const int D = a.p.dim, H = a.p.heads;
+  const KeyLayout l = key_layout(D, a.p.att, H, a.cap, sizeof(T));
+  auto kernel = payload_keys_kernel<T>;
+  cudaError_t err = allow_shared(kernel, l.total);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kKeyThreads, l.total);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = min(per_sm * dense_sms(), max(1, (n_edges + a.cap - 1) /
+                                                        a.cap));
+  KeyArgs b = a;
+  b.window = max(1, (n_edges + grid - 1) / grid);
+  kernel<<<grid, kKeyThreads, l.total, s>>>(b);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return merge(payload_keys_merge_kernel, a.pc, a.part, a.stride,
+               H * (D + 1), a.num, H * D, a.den, s);
 }
 
 // ------------------------------------------------------- K8, per-head mode
@@ -450,47 +734,6 @@ int payload_blocks(int n_rows) {
   return (n_rows + kPayloadWarps - 1) / kPayloadWarps;
 }
 
-// K18 over the node rows x of type TR and the payload xg of type TX
-template <typename TR, typename TX>
-cudaError_t launch_aggregate(Graph g, Proj p, const void* x, const void* xg,
-                             const void* qw, const void* qb, const void* kw,
-                             const void* kb, const void* shifts, void* num,
-                             void* den, cudaStream_t s) {
-  const size_t bytes =
-      sizeof(float) * (2 * padded_weight_floats(p.dim, p.att) +
-                       kPayloadWarps *
-                           aggregate_warp_floats(p.dim, p.att, p.heads));
-  cudaError_t err = allow_shared(fused_aggregate_kernel<TR, TX>, bytes);
-  if (err != cudaSuccess) return err;
-  fused_aggregate_kernel<TR, TX><<<payload_blocks(g.n_rows),
-                                   kPayloadWarps * kWarp, bytes, s>>>(
-      g, p, static_cast<const TR*>(x), static_cast<const TX*>(xg),
-      static_cast<const float*>(qw), static_cast<const float*>(qb),
-      static_cast<const float*>(kw), static_cast<const float*>(kb),
-      static_cast<const float*>(shifts), static_cast<float*>(num),
-      static_cast<float*>(den));
-  return cudaGetLastError();
-}
-
-// K19 over the payload xg of type TX
-template <typename TX>
-cudaError_t launch_score_max(Graph g, Proj p, const void* q, const void* xg,
-                             const void* kw, const void* kb, void* partial,
-                             cudaStream_t s) {
-  const size_t bytes =
-      sizeof(float) * (padded_weight_floats(p.dim, p.att) +
-                       kPayloadWarps * score_max_warp_floats(p.dim, p.att) +
-                       kPayloadWarps);
-  cudaError_t err = allow_shared(fused_score_max_kernel<TX>, bytes);
-  if (err != cudaSuccess) return err;
-  fused_score_max_kernel<TX><<<payload_blocks(g.n_rows),
-                               kPayloadWarps * kWarp, bytes, s>>>(
-      g, p, static_cast<const float*>(q), static_cast<const TX*>(xg),
-      static_cast<const float*>(kw), static_cast<const float*>(kb),
-      static_cast<float*>(partial));
-  return cudaGetLastError();
-}
-
 // K8's per-head operands beside the graph, the rows and the weights (see
 // gnpde_fused_rhs_bwd_heads)
 struct Heads {
@@ -530,71 +773,62 @@ cudaError_t launch_bwd_heads(Graph g, Proj p, const void* x, const void* xg,
 
 }  // namespace
 
-// K18, K19 and K8's per-head mode take `tables` as K6-K9 do, for the
-// node rows x and the per-edge payload xg: kTablesF32 both float32,
-// kTablesF32Bf16 x float32 and xg bfloat16, kTablesBf16 both bfloat16
-// (K19 reads no node row: kTablesF32 or kTablesF32Bf16). The weights, q,
-// gmax, every cotangent and every output are float32.
-
-// K18 over the per-edge payload xg [n_slots, dim] (edge e at row e of the
-// row-sorted CSR prefix): num [n_rows, heads dim], den [n_rows, heads].
-// Nullable: var, ls, shifts.
-extern "C" int gnpde_fused_aggregate(
-    const void* rowptr, const void* xg, const void* x, const void* qw,
-    const void* qb, const void* kw, const void* kb, const void* gmax,
-    const void* var, const void* ls, const void* shifts, void* num, void* den,
-    int n_rows, int dim, int att, int heads, int flags, int tables,
-    void* stream) {
-  if (!valid_tables(tables)) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rows > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const Graph g = make_graph(rowptr, nullptr, n_rows);
-    const Proj p = make_proj(gmax, var, ls, dim, att, heads, flags);
-    cudaError_t err;
-    if (tables == kTablesF32)
-      err = launch_aggregate<float, float>(g, p, x, xg, qw, qb, kw, kb,
-                                           shifts, num, den, s);
-    else if (tables == kTablesF32Bf16)
-      err = launch_aggregate<float, __nv_bfloat16>(g, p, x, xg, qw, qb, kw,
-                                                   kb, shifts, num, den, s);
-    else
-      err = launch_aggregate<__nv_bfloat16, __nv_bfloat16>(
-          g, p, x, xg, qw, qb, kw, kb, shifts, num, den, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K19: out[0], the largest scaled-dot score of q [n_rows, att] against the
-// per-edge keys xg Kw + kb (0 unless finite). partial [max(1, n_rows / 8
-// rounded up)] is scratch.
-extern "C" int gnpde_fused_score_max(
-    const void* rowptr, const void* q, const void* xg, const void* kw,
-    const void* kb, void* partial, void* out, int n_rows, int dim, int att,
-    int heads, int tables, void* stream) {
-  if (tables != kTablesF32 && tables != kTablesF32Bf16)
+// K18 for the key families over the row pieces piece_ptr, piece_row,
+// piece_slot [n_pieces] and multi_row, multi_ptr [n_multi (+ 1)]
+// (ops/graph.py, Graph.scatter_pieces) and the per-edge payload xg
+// [n_slots, dim] (float32, or bfloat16: tables 1), row [n_slots] each
+// edge's row: num [n_rows, heads dim], den [n_rows, heads]. q [n_rows,
+// att] = x_n Qw + qb; kw [dim, att], kb [att]; var, ls, shifts [n_slots,
+// heads] nullable; part [multi_ptr[n_multi], S] (S = heads (dim + 1)
+// rounded up to a multiple of 4; nullable without multi-piece rows).
+// n_edges: the edges the pieces cover (ptr[n_pieces]); cap: payload rows a
+// tile (kernels/fused_rhs.py, key_design); vec: dim * the element size a
+// multiple of 16 and xg on a 16-byte boundary (cp.async).
+extern "C" int gnpde_payload_keys(
+    const void* piece_ptr, const void* piece_row, const void* piece_slot,
+    const void* multi_row, const void* multi_ptr, const void* row,
+    const void* xg, const void* q, const void* kw, const void* kb,
+    const void* gmax, const void* var, const void* ls, const void* shifts,
+    void* num, void* den, void* part, int n_rows, int n_pieces,
+    int n_multi, int dim, int att, int heads, int flags, int n_edges,
+    int cap, int vec, int tables, void* stream) {
+  if (n_rows <= 0 || n_pieces <= 0) return static_cast<int>(cudaGetLastError());
+  if (dim <= 0 || heads <= 0 || cap <= 0 || cap % 16 != 0 || n_edges < 0 ||
+      (tables != 0 && tables != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rows > 0) {
-    const Graph g = make_graph(rowptr, nullptr, n_rows);
-    const Proj p = make_proj(nullptr, nullptr, nullptr, dim, att,
-                             heads, kScaledDot);
-    const cudaError_t err =
-        tables == kTablesF32
-            ? launch_score_max<float>(g, p, q, xg, kw, kb, partial, s)
-            : launch_score_max<__nv_bfloat16>(g, p, q, xg, kw, kb, partial,
-                                              s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  score_max_finish_kernel<<<1, 256, 0, s>>>(static_cast<const float*>(partial),
-                                            payload_blocks(n_rows),
-                                            static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  KeyArgs a;
+  a.pc = {static_cast<const int*>(piece_ptr),
+          static_cast<const int*>(piece_row),
+          static_cast<const int*>(piece_slot),
+          static_cast<const int*>(multi_row),
+          static_cast<const int*>(multi_ptr), n_pieces, n_multi};
+  a.p = make_proj(gmax, var, ls, dim, att, heads, flags);
+  a.row = static_cast<const int*>(row);
+  a.xg = xg;
+  a.q = static_cast<const float*>(q);
+  a.kw = static_cast<const float*>(kw);
+  a.kb = static_cast<const float*>(kb);
+  a.shifts = static_cast<const float*>(shifts);
+  a.num = static_cast<float*>(num);
+  a.den = static_cast<float*>(den);
+  a.part = static_cast<float*>(part);
+  a.cap = cap;
+  a.window = 1;                               // set by launch_keys
+  a.stride = payload_stride(dim, heads);
+  a.vec = vec;
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = tables == 0
+                              ? launch_keys<float>(a, n_edges, s)
+                              : launch_keys<__nv_bfloat16>(a, n_edges, s);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// K8's per-head mode over the per-edge payload xg [n_slots, dim]: ct_num
-// [n_rows, heads dim], ct_den [n_rows, heads]. dxg [n_slots, dim] and dke
-// [n_slots, att] are zero on entry (padding slots stay 0), row_sums
+// K8's per-head mode over the per-edge payload xg [n_slots, dim], with
+// `tables` as K6-K9 take it for the node rows x and the payload: kTablesF32
+// both float32, kTablesF32Bf16 x float32 and xg bfloat16, kTablesBf16 both
+// bfloat16 (the weights, gmax, every cotangent and every output are
+// float32). ct_num [n_rows, heads dim], ct_den [n_rows, heads]. dxg
+// [n_slots, dim] and dke [n_slots, att] are zero on entry (padding slots stay 0), row_sums
 // [n_rows, 5] is scratch the wrapper reduces, partials [reduce_blocks,
 // dim + 1, att] are written whole (dense.cuh's outer_reduce_kernel), and
 // dKw is reduced over the payload.

@@ -25,6 +25,7 @@
 // ranges' partials in order. So two launches agree bit for bit, and
 // nothing is zeroed.
 
+#include "cp_async.cuh"
 #include "payload_walk.cuh"
 
 namespace {
@@ -203,7 +204,8 @@ __global__ void __launch_bounds__(kMergeThreads)
 payload_bwd_merge_kernel(
     Pieces pc, const float* __restrict__ part, int stride, int width,
     float* __restrict__ out_a, int width_a, float* __restrict__ out_b) {
-  merge_partials(pc, part, stride, width, out_a, width_a, out_b);
+  merge_partials(pc.multi_ptr, pc.multi_row, pc.n_multi, part, stride,
+                 width, out_a, width_a, out_b);
 }
 
 constexpr int kNodeTile = 32;      // nodes a stage of the node pass
@@ -223,21 +225,6 @@ struct NodeArgs {
   int cols, col_blocks;  // JC columns a block, d_k / JC blocks a head
   float scale;
 };
-
-// 4 bytes global -> shared without waiting, or 0 where !valid
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Stage nodes n0 .. n0 + kNodeTile - 1 (those before end; 0 past it):
 // their [a_h | b_h | 0] rows (rows_pad floats) in as and their q_h

@@ -121,12 +121,6 @@ struct PayloadArgs {
   float scale;           // 1 / sqrt(d_k)
 };
 
-// S: the floats of a row of ab and of the partial rows, H D + H rounded up
-// to 16 bytes
-__host__ __device__ constexpr int payload_stride(int dim, int heads) {
-  return (heads * (dim + 1) + 3) / 4 * 4;
-}
-
 // The arguments every payload kernel takes, the rest null
 PayloadArgs payload_args(const void* xg, const void* q, const void* kwt,
                          const void* kb, const void* gmax,

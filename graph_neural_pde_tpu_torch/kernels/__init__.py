@@ -111,4 +111,5 @@ BF16_KERNELS = (csr_spmm, edge_dot, fused_rhs_fwd, fused_rowmax,
 # the walks over row pieces, whose ``piece_builds`` count the calls that
 # built the pieces from rowptr because none were handed over
 ROW_WALKS = (fused_rhs_fwd, fused_rowmax, fused_rhs_bwd, fused_rhs_bwd_sym,
-             norm1_den, norm1_fwd, norm1_bwd, dual_scatter, dual_gather)
+             norm1_den, norm1_fwd, norm1_bwd, dual_scatter, dual_gather,
+             fused_aggregate, fused_score_max, fused_rhs_bwd_heads)

@@ -110,16 +110,19 @@ _ENTRY_POINTS = {
     # n_cols, n_pieces, n_multi, dim, att, heads, flags, reduce_blocks,
     # project (0: qtab and ktab are filled already), tables, stream
     "gnpde_fused_rhs_bwd_col": [_PTR] * 25 + [_INT] * 10 + [_PTR],
-    # The per-edge payload kernels (csrc/fused_payload.cu).
-    # K18, K19 and K8's per-head mode take the same TABLES code for the
-    # node rows x and the per-edge payload xg: 0 both float32, 1 x float32
-    # and xg bfloat16, 2 both bfloat16 (K19, which reads no x: 0 or 1).
-    # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls, shifts (the last three
-    # nullable), num, den, n_rows, dim, att, heads, flags, tables, stream
-    "gnpde_fused_aggregate": [_PTR] * 13 + [_INT] * 6 + [_PTR],
-    # rowptr, q, xg, kw, kb, partial, out, n_rows, dim, att, heads, tables,
-    # stream
-    "gnpde_fused_score_max": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # The per-edge payload kernels (csrc/fused_payload.cu: K18 for the key
+    # families, K8's per-head mode for them).
+    # piece_ptr, piece_row, piece_slot, multi_row, multi_ptr (the rows'
+    # pieces, Graph.scatter_pieces), row, xg, q (x_n Qw + qb), kw, kb, gmax,
+    # var, ls, shifts (the last three nullable), num, den, part (nullable
+    # without multi-piece rows), n_rows, n_pieces, n_multi, dim, att,
+    # heads, flags, n_edges (the pieces' edges), cap (kernels/fused_rhs.py's
+    # key_design), vec (16-byte rows of xg), dtype of xg (0 float32, 1
+    # bfloat16), stream
+    "gnpde_payload_keys": [_PTR] * 17 + [_INT] * 11 + [_PTR],
+    # K8's per-head mode takes the TABLES code for the node rows x and the
+    # per-edge payload xg: 0 both float32, 1 x float32 and xg bfloat16, 2
+    # both bfloat16.
     # rowptr, xg, x, qw, qb, kw, kb, gmax, var, ls (the last two nullable),
     # ct_num, ct_den, dq, dxg, dke, row_sums, partials, n_rows, dim, att,
     # heads, flags, n_slots, reduce_blocks, tables, stream
@@ -133,6 +136,10 @@ _ENTRY_POINTS = {
     # vec (kernels/lanes.py, payload_walk), dtype of xg (0 float32, 1
     # bfloat16), stream
     "gnpde_payload_aggregate": [_PTR] * 14 + [_INT] * 10 + [_PTR],
+    # K19 (csrc/payload_fwd.cu): the rows' pieces as above, xg, q, kwt, kb,
+    # partial, out, n_rows, n_pieces, dim, att, heads, lanes, vec, dtype of
+    # xg, stream
+    "gnpde_payload_score_max": [_PTR] * 11 + [_INT] * 8 + [_PTR],
     # the rows' pieces as above, xg, q, kwt, kw, kb, gmax, ct_num, ct_den,
     # dxg, ab ([a | b] a row), part, dq, node_part, node_bsum, dkw, dkb,
     # dgmax, n_rows, n_pieces, n_multi, n_slots, dim, att, heads,

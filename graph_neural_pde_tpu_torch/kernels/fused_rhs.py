@@ -1043,11 +1043,11 @@ def fused_rhs_bwd_col(colptr, col_by_col, row_by_col, x, qw, qb, kw, kb,
     return (dx,) + dk_sums(partials, d)
 
 
-# K18, K19 and K8's per-head mode run PAYLOAD_WARPS warps a block, which
-# share the block's copy of Qw and Kw (rows padded by one float), and keep
-# a group of GROUP_EDGES payload rows per warp in shared memory: the sums
-# of csrc/fused_payload.cu's ``padded_weight_floats``, ``aggregate_warp_floats``
-# and their siblings.
+# K8's per-head mode for the key families runs PAYLOAD_WARPS warps a
+# block, which share the block's copy of Qw and Kw (rows padded by one
+# float), and keeps a group of GROUP_EDGES payload rows per warp in shared
+# memory: the sums of csrc/fused_payload.cu's ``padded_weight_floats`` and
+# ``bwd_heads_warp_floats``.
 GROUP_EDGES, PAYLOAD_WARPS = 8, 8
 
 
@@ -1055,14 +1055,12 @@ def _round4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _payload_shared(name, d, att, warp_floats, weights):
-    """Raise unless ``weights`` padded [D, ATT] matrices and PAYLOAD_WARPS
-    slices of ``warp_floats`` fit in a block's shared memory."""
-    floats = weights * _round4(d * (att + 1)) + PAYLOAD_WARPS * warp_floats
-    if floats * 4 > MAX_SHARED_BYTES:
+def _payload_shared(name, d, att, nbytes, staged="Qw and Kw are"):
+    """Raise unless ``nbytes`` of shared memory fit in a block."""
+    if nbytes > MAX_SHARED_BYTES:
         raise ValueError(f"{name}: state width {d} and attention_dim {att} "
-                         "need more shared memory than a block has (Qw and "
-                         "Kw are staged there)")
+                         f"need more shared memory than a block has ({staged} "
+                         "staged there)")
 
 
 def _payload_check(name, rowptr, row, x_n, x_g, qw, qb, kw, kb, heads, score,
@@ -1094,7 +1092,7 @@ def _payload_tables(x_n, x_g) -> int:
 
 def payload_stride(d: int, heads: int) -> int:
     """S: the floats of a row's [a | b] and of a piece's partial row,
-    H (D + 1) rounded up to 16 bytes (``csrc/payload_walk.cuh``,
+    H (D + 1) rounded up to 16 bytes (``csrc/piece_merge.cuh``,
     ``payload_stride``)."""
     return -(-heads * (d + 1) // 4) * 4
 
@@ -1222,10 +1220,13 @@ def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
     then lane groups sized by the row width fold each row and walk
     ``pieces`` (``Graph.scatter_pieces``; built from rowptr when None, a
     copy to the host counted in ``piece_builds``), reading each payload
-    row once. The other families walk a row a warp, projecting q_n
-    and each edge's key, eight edges at a time (Qw and Kw staged in shared
-    memory, which must hold them: else it raises). Every sum runs in the
-    row's edge order: two calls agree bit for bit. ``x_g`` may be bfloat16
+    row once. The other families walk the same pieces in windows of
+    consecutive pieces a block (``csrc/fused_payload.cu``): each tile of
+    staged payload rows has its keys projected on the tensor cores from
+    Kw's TF32 parts kept in shared memory (which must hold them and a tile
+    of 16 rows: else it raises, :func:`key_design`), then is scored against
+    q and summed from the same rows. Every sum runs in the row's edge
+    order: two calls agree bit for bit. ``x_g`` may be bfloat16
     beside a float32 or bfloat16 ``x_n`` (see the module docstring); num
     and den are float32. Not differentiable by itself (see
     :func:`fused_rhs_aggregate`)."""
@@ -1243,42 +1244,105 @@ def fused_aggregate(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, *,
         num, den = _aggregate_walk(rowptr, x_n, x_g, qw, qb, kw, kb, gmax,
                                    heads, shifts, square_plus, pieces)
     else:
-        num, den = _aggregate_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax,
-                                   heads, score, var, ls, shifts,
-                                   square_plus)
+        num, den = _aggregate_keys(rowptr, row, x_n, x_g, qw, qb, kw, kb,
+                                   gmax, heads, score, var, ls, shifts,
+                                   square_plus, pieces)
     fused_aggregate.launches += 1
     fused_aggregate.bf16_launches += x_g.dtype == torch.bfloat16
     return num, den
 
 
-def _aggregate_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, heads, score,
-                    var, ls, shifts, square_plus):
-    """K18 for the families that need each edge's key (fused_payload.cu)."""
+# K18 for the key families (csrc/fused_payload.cu, payload_keys_kernel):
+# KEY_THREADS a block, whose shared memory holds Kw split into its high and
+# low TF32 parts, two buffers of CAP staged payload rows and of their
+# edges' row numbers (the next tile's arrive while one is used), their
+# keys, their u and the carried sums: the largest CAP of KEY_CAPS at which
+# two blocks share an SM, else the largest at which one fits. One wave of
+# blocks, each a window of the pieces (the launcher divides the edges
+# among them).
+KEY_THREADS = 256
+KEY_CAPS = (64, 48, 32, 16)
+KEY_BLOCK_RESERVED = 1024           # shared memory the card keeps a block
+# K19's blocks (csrc/payload_fwd.cu), which write a maximum each
+SCORE_MAX_THREADS = 128
+
+
+def key_shared(d: int, att: int, heads: int, elem: int, cap: int) -> dict:
+    """The shared bytes of K18's key-family block at width ``d``, ``att``
+    and ``heads`` over a payload of ``elem``-byte elements and tiles of
+    ``cap`` rows, by region (``csrc/fused_payload.cu``'s ``key_layout``):
+    ``weights`` (Kw's TF32 parts) and ``tiles`` (the rest)."""
+    d8, a8 = -(-d // 8) * 8, -(-att // 8) * 8
+    align = 128 // elem
+    xs = -(-d // align) * align + 16 // elem
+    return dict(weights=8 * d8 * a8,
+                tiles=(2 * cap * (xs * elem + 4) + 4 * cap * (a8 + 1)
+                       + 4 * cap * heads + 4 * payload_stride(d, heads)
+                       + 16))
+
+
+def key_design(d: int, att: int, heads: int, elem: int = 4) -> dict:
+    """K18's key-family walk at width ``d``, ``att`` and ``heads`` over a
+    payload of ``elem``-byte elements: ``cap`` payload rows a tile, the
+    block's ``shared`` bytes (:func:`key_shared`) and the blocks an SM
+    holds by them (``per_sm``). Raises where a tile of 16 rows does not
+    fit a block (:func:`_payload_shared`)."""
+    def shared(cap):
+        return sum(key_shared(d, att, heads, elem, cap).values())
+
+    for per_sm, caps in ((2, KEY_CAPS[:3]), (1, KEY_CAPS)):
+        for cap in caps:
+            sh = shared(cap)
+            if (sh <= MAX_SHARED_BYTES
+                    and per_sm * (sh + KEY_BLOCK_RESERVED) <= SM_SHARED_BYTES):
+                return dict(cap=cap, shared=sh, per_sm=per_sm)
+    _payload_shared("fused_aggregate", d, att, shared(KEY_CAPS[-1]),
+                    "Kw's TF32 parts and a tile of payload rows are")
+
+
+def _aggregate_keys(rowptr, row, x_n, x_g, qw, qb, kw, kb, gmax, heads,
+                    score, var, ls, shifts, square_plus, pieces):
+    """K18 for the families that need each edge's key: q on the node
+    projections' tile, then one walk over windows of ``pieces`` (one a
+    block) projecting each tile's keys on the tensor cores
+    (csrc/fused_payload.cu), and the merge of rows of several pieces."""
     n, d = x_n.shape
     att = qw.shape[1]
-    g = GROUP_EDGES
-    _payload_shared("fused_aggregate", d, att,
-                    _round4(g * d + att + g * (att + 1) + heads * d
-                            + g * heads), 2)
     dev = x_n.device
+    des = key_design(d, att, heads, x_g.element_size())
+    pc = _row_pieces(fused_aggregate, rowptr, pieces, n, dev, SCATTER_WHOLE)
+    q = project(x_n, qw, qb)
     num = torch.empty((n, heads * d), dtype=torch.float32, device=dev)
     den = torch.empty((n, heads), dtype=torch.float32, device=dev)
-    build.launch("fused_aggregate", dev, rowptr.data_ptr(), x_g.data_ptr(),
-                 x_n.data_ptr(), qw.data_ptr(), qb.data_ptr(), kw.data_ptr(),
-                 kb.data_ptr(), gmax.data_ptr(), _ptr(var), _ptr(ls),
-                 _ptr(shifts), num.data_ptr(), den.data_ptr(), n, d, att,
-                 heads, _flags(score, square_plus), _payload_tables(x_n, x_g))
+    part = (torch.empty((pc.n_slots, payload_stride(d, heads)),
+                        dtype=torch.float32, device=dev)
+            if pc.n_multi else None)
+    vec = int(d * x_g.element_size() % 16 == 0 and x_g.data_ptr() % 16 == 0)
+    build.launch("payload_keys", dev, *_piece_args(pc), row.data_ptr(),
+                 x_g.data_ptr(), q.data_ptr(), kw.data_ptr(), kb.data_ptr(),
+                 gmax.data_ptr(), _ptr(var), _ptr(ls), _ptr(shifts),
+                 num.data_ptr(), den.data_ptr(), _ptr(part), n,
+                 pc.n_pieces, pc.n_multi, d, att, heads,
+                 _flags(score, square_plus), pc.n_edges, des["cap"], vec,
+                 int(x_g.dtype == torch.bfloat16))
+    fused_aggregate.walk_launches += 1
     return num, den
 
 
-def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
+def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int,
+                    pieces: Optional[ColPieces] = None):
     """K19: the largest scaled-dot score of the query table ``q`` [N, ATT]
     against the keys of the per-edge payload ``x_g`` [E_pad, D] over every
     valid edge and head, a one-element tensor, 0 unless finite (see
-    :func:`fused_score_max_plain`): the shift the oracle hands K18. Each
-    block reduces its rows, one block the blocks' maxima; no atomics, two
-    calls agree bit for bit. ``x_g`` may be bfloat16 (widened where it is
-    read); q and the weights are float32. Not differentiable."""
+    :func:`fused_score_max_plain`): the shift the oracle hands K18. On K18's
+    scaled-dot fold (``csrc/payload_fwd.cu``): lane groups sized by the row
+    width fold each row's q with Kw^T and walk ``pieces`` (as
+    :func:`fused_aggregate` takes them; built from rowptr when None, a copy
+    to the host counted in ``piece_builds``), reading each payload row once
+    and forming each score as K18's walk does; each block writes its
+    maximum, one block the blocks'. A NaN score wins; no atomics, two calls
+    agree bit for bit. ``x_g`` may be bfloat16 (widened where it is read);
+    q and the weights are float32. Not differentiable."""
     if q.dim() != 2 or x_g.dim() != 2:
         raise ValueError("fused_score_max: q and x_g must be 2-D")
     n, att = q.shape
@@ -1298,17 +1362,18 @@ def fused_score_max(rowptr, row, q, x_g, kw, kb, *, heads: int):
     if q.device.type == "cpu":
         return fused_score_max_plain(rowptr, row, q, x_g, kw, kb,
                                      heads=heads)
-    g = GROUP_EDGES
-    _payload_shared("fused_score_max", d, att,
-                    _round4(g * d + att + g * (att + 1)) + 1, 1)
-    blocks = -(-n // PAYLOAD_WARPS)
-    partial = torch.empty((max(blocks, 1),), dtype=torch.float32,
-                          device=q.device)
-    out = torch.empty((1,), dtype=torch.float32, device=q.device)
-    build.launch("fused_score_max", q.device, rowptr.data_ptr(),
-                 q.data_ptr(), x_g.data_ptr(), kw.data_ptr(), kb.data_ptr(),
-                 partial.data_ptr(), out.data_ptr(), n, d, att, heads,
-                 _payload_tables(q, x_g))
+    dev = q.device
+    pc = _row_pieces(fused_score_max, rowptr, pieces, n, dev, SCATTER_WHOLE)
+    kwt = kw.t().contiguous()
+    group, vec = lanes("payload_walk", d, x_g, kwt, heads=heads)
+    partial = torch.empty((max(1, -(-pc.n_pieces * group
+                                     // SCORE_MAX_THREADS)),),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((1,), dtype=torch.float32, device=dev)
+    build.launch("payload_score_max", dev, *_piece_args(pc), x_g.data_ptr(),
+                 q.data_ptr(), kwt.data_ptr(), kb.data_ptr(),
+                 partial.data_ptr(), out.data_ptr(), n, pc.n_pieces, d, att,
+                 heads, group, vec, int(x_g.dtype == torch.bfloat16))
     fused_score_max.launches += 1
     fused_score_max.bf16_launches += x_g.dtype == torch.bfloat16
     return out
@@ -1361,9 +1426,9 @@ def _bwd_heads_keys(rowptr, x_n, x_g, qw, qb, kw, kb, gmax, ct_num, ct_den,
     att = qw.shape[1]
     g = GROUP_EDGES
     _payload_shared("fused_rhs_bwd_heads", d, att,
-                    _round4(g * d + g * att + 2 * att + g * (att + 1)
-                            + heads * (d + 1) + g * 10 * heads
-                            + 2 * g * heads), 2)
+                    4 * (2 * _round4(d * (att + 1)) + PAYLOAD_WARPS * _round4(
+                        g * d + g * att + 2 * att + g * (att + 1)
+                        + heads * (d + 1) + g * 10 * heads + 2 * g * heads)))
     dev = x_n.device
     dq = torch.empty((n, att), dtype=torch.float32, device=dev)
     # padding slots keep dxg and dk_e at 0; the dkw / dkb reduction walks
@@ -1408,10 +1473,11 @@ fused_rhs_bwd_heads.launches = 0
 fused_aggregate.bf16_launches = 0
 fused_score_max.bf16_launches = 0
 fused_rhs_bwd_heads.bf16_launches = 0
-# the scaled-dot fold's launches by pass, among K18's and the per-head
-# mode's own: the walks (each with its merge) and the per-head mode's node
-# pass (dq, dKw, dKb, dgmax: two kernels); q is a launch of the node
-# projections' tile, counted in node_project.launches
+# the launches by pass, among K18's and the per-head mode's own: the walks
+# (each with its merge; K18's over the scaled-dot fold and over the key
+# families' tiles) and the scaled-dot per-head mode's node pass (dq, dKw,
+# dKb, dgmax: two kernels); q is a launch of the node projections' tile,
+# counted in node_project.launches
 fused_aggregate.walk_launches = 0
 fused_rhs_bwd_heads.walk_launches = 0
 fused_rhs_bwd_heads.node_launches = 0
@@ -1421,8 +1487,9 @@ fused_rhs_fwd.piece_builds = 0
 fused_rowmax.piece_builds = 0
 fused_rhs_bwd.piece_builds = 0
 fused_rhs_bwd_sym.piece_builds = 0
-# (K18's and the per-head mode's: the bench's oracle hands K18 none)
+# (K18's, K19's and the per-head mode's)
 fused_aggregate.piece_builds = 0
+fused_score_max.piece_builds = 0
 fused_rhs_bwd_heads.piece_builds = 0
 
 

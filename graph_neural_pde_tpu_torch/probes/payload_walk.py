@@ -6,7 +6,10 @@ time in them.
 
     python graph_neural_pde_tpu_torch/probes/payload_walk.py [--root DIR]
         [--tag T] [--report] [--out DIR] [--seed N]
-        [--shapes oracle,cora,hub,arxiv,quarter,blend] [--paths u]
+        [--shapes oracle,cora,hub,arxiv,quarter,blend,hub-cosine,
+                  hub-pearson,hub-exp,hub-blend]
+        [--kernels aggregate,heads,max] [--modes f32,bf16,bf16-row]
+        [--two-pass] [--paths u] [--against DIR --sessions N]
 
 * ``--root DIR``: import the package of the checkout at DIR (another
   commit unpacked beside this one, e.g. the parent), so that two trees are
@@ -32,7 +35,32 @@ time in them.
   arxiv-scale graph at D=128 ATT=32 H=2, rank 0's quarter of its 4-way
   edge split (path (u)'s shard: all N nodes, a quarter of the edges), and
   BLEND's D=128 ATT=2x32 H=2 at arxiv (exp_kernel_beltrami, whose key each
-  edge needs: the walk of ``fused_payload.cu`` in both trees).
+  edge needs: ``fused_payload.cu`` in both trees, K18 on the tensor-core
+  key tile over windows of row pieces where the tree has it), and the four
+  key
+  families at the Cora GRAND-nl widths over the hub row (``hub-cosine``,
+  ``hub-pearson``, ``hub-exp``, ``hub-blend``: D=80 ATT=128 H=8, BLEND's
+  two halves packed into the 128). K19 takes the graph's row pieces where
+  the tree's wrapper takes ``pieces``. ``--kernels`` picks among K18
+  (``aggregate``), the per-head mode (``heads``) and K19 (``max``);
+  ``--modes`` among the payload modes (``bf16-row``: a bfloat16 payload
+  beside the bf16 state's bfloat16 row side, timed at arxiv, its quarter
+  and BLEND).
+* ``--two-pass``: beside K18 of a key family, its two-pass variant (the
+  node projections' tile writes every edge's key to an [E_pad, ATT] table,
+  the walk reads it: ``probes/key_table.cu``, which includes this
+  checkout's ``csrc/fused_payload.cu`` and is built alone, its tile as
+  ``key_design`` picks it without Kw's parts), held and timed the same way.
+* ``--against DIR --sessions N``: instead of the above, K19 and K18's key
+  families of this checkout beside those of the checkout at DIR in ONE
+  process: DIR's ``csrc/fused_payload.cu`` (where its K19 and its key
+  families' K18 lived before they moved to the payload walk and the key
+  tile) is built alone with ``nvcc -Xptxas -v`` and called through its C
+  entry points as its wrappers called them (their allocations, no Kw
+  transposed), on the same inputs; the two outputs held to each other,
+  then each timed whole-call in N profiler sessions in turns (DIR's,
+  this one's, ...), medians compared, at the ``--shapes`` and ``--modes``
+  given (K19 at the scaled-dot shapes, K18 at the key-family ones).
 * ``--paths u``: instead of the above, path (u)'s attention RHS under the
   profiler: the in-process 4-way split at arxiv scale (K18 on each rank's
   shard, (a)'s widths) forward, and the Cora stand-in as one rank at the
@@ -66,13 +94,20 @@ SHAPES = {"oracle": ("oracle", 128, 64, 2, "scaled_dot"),
           "hub": ("hub", 80, 128, 8, "scaled_dot"),
           "arxiv": ("arxiv", 128, 32, 2, "scaled_dot"),
           "quarter": ("quarter", 128, 32, 2, "scaled_dot"),
-          "blend": ("arxiv", 128, 64, 2, BELTRAMI)}
+          "blend": ("arxiv", 128, 64, 2, BELTRAMI),
+          "hub-cosine": ("hub", 80, 128, 8, "cosine_sim"),
+          "hub-pearson": ("hub", 80, 128, 8, "pearson"),
+          "hub-exp": ("hub", 80, 128, 8, "exp_kernel"),
+          "hub-blend": ("hub", 80, 128, 8, BELTRAMI)}
 PAYLOAD_KERNELS = ("payload_", "fused_aggregate", "fused_score_max",
                    "score_max_finish", "fused_rhs_bwd_heads", "node_project",
                    "outer_reduce")
+CASES = {"aggregate": "fused_aggregate", "heads": "fused_rhs_bwd_heads",
+         "max": "fused_score_max"}
 # the kernels a call is split into: name -> substrings of the device
 # events' names (both trees)
-GROUPS = {"K18": ("payload_aggregate", "fused_aggregate_kernel"),
+GROUPS = {"K18": ("payload_aggregate", "fused_aggregate_kernel",
+                  "payload_keys"),
           "per-head": ("payload_bwd", "fused_rhs_bwd_heads_kernel"),
           "node pass": ("payload_node",),
           "projections": ("node_project",),
@@ -128,6 +163,11 @@ def time_kernels(args, cs, sw, line, record) -> None:
     dev = torch.device("cuda")
     names = args.shapes.split(",")
     walks = "pieces" in inspect.signature(K.fused_aggregate).parameters
+    max_pieces = "pieces" in inspect.signature(K.fused_score_max).parameters
+    table_dll = (build_table(Path(args.out), line) if args.two_pass
+                 else None)
+    kernels_wanted = {CASES[k] for k in args.kernels.split(",")}
+    modes_wanted = args.modes.split(",")
     with tempfile.TemporaryDirectory() as data_dir:
         graphs = graphs_for(names, args.seed, dev, cs, data_dir)
     bf = torch.bfloat16
@@ -139,6 +179,7 @@ def time_kernels(args, cs, sw, line, record) -> None:
         modes = [("f32", None, False), ("bf16", bf, False)]
         if name in ("arxiv", "quarter", "blend"):
             modes.append(("bf16 row", bf, True))
+        modes = [m for m in modes if m[0].replace(" ", "-") in modes_wanted]
         for mode, payload, row_b16 in modes:
             _, randn, csr, ops, kw_f = cs.rhs_operands(g, d, att, h, score,
                                                        args.seed + 7, dev)
@@ -172,19 +213,35 @@ def time_kernels(args, cs, sw, line, record) -> None:
                  lambda: K.fused_rhs_bwd_heads_plain(
                      *map(_f64, bwd), **{k: _f64(v) for k, v in
                                          kw_f.items()}))]
+            if table_dll is not None and score != "scaled_dot":
+                cases.append((
+                    "fused_aggregate two-pass",
+                    two_pass_call(table_dll, g, row, x, x_g, qw, qb, kw, kb,
+                                  gmax, h, score, kw_f),
+                    cases[0][2], cases[0][3]))
+            kw_m = dict(pieces=g.scatter_pieces) if max_pieces else {}
             if score == "scaled_dot":
                 q = (x.float() @ qw + qb).contiguous()
                 cases.append((
                     "fused_score_max",
                     lambda: K.fused_score_max(rowptr, row, q, x_g, kw,
-                                              kb, heads=h),
+                                              kb, heads=h, **kw_m),
                     lambda: K.fused_score_max_plain(rowptr, row, q, x_g,
                                                     kw, kb, heads=h),
                     lambda: K.fused_score_max_plain(
                         rowptr, row, q.double(), x_g, kw.double(),
                         kb.double(), heads=h)))
+            cases = [c for c in cases
+                     if c[0].split()[0] in kernels_wanted]
             for case, kern, plain, ref in cases:
-                got = _outputs(kern())
+                try:
+                    got = _outputs(kern())
+                except ValueError as err:     # a parent that cannot run it
+                    print(f"[payload] {args.tag} {case} ({tag}) @ {name} "
+                          f"{dims}: refused ({err}) [{line}]", flush=True)
+                    record(kind="kernel", case=case, route=tag, shape=name,
+                           dims=dims, refused=str(err))
+                    continue
                 want = [o.float() for o in _outputs(ref())]
                 rel = max(agree(f"{case} @ {name} {dims} {tag}", a, b)[1]
                           for a, b in zip(got, want))
@@ -206,6 +263,242 @@ def time_kernels(args, cs, sw, line, record) -> None:
                        dims=dims, ms=ms, plain_ms=plain_ms, rel_err=rel,
                        split=split)
             del agg, bwd, x_g, ct_num, ops
+            torch.cuda.empty_cache()
+
+
+def build_table(out: Path, line: str):
+    """``probes/key_table.cu`` (K18's two-pass variant) built alone as a
+    shared library, bound with ctypes."""
+    import ctypes
+    import subprocess
+    from graph_neural_pde_tpu_torch.kernels import build
+    src = Path(__file__).resolve().with_name("key_table.cu")
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "key_table.so"
+    t0 = time.perf_counter()
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o",
+                          str(lib), str(src)], capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
+    print(f"[two-pass] {src} built alone in {time.perf_counter() - t0:.1f} "
+          f"s [{line}]", flush=True)
+    dll = ctypes.CDLL(str(lib))
+    fn = dll.gnpde_probe_payload_keys_table
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return dll
+
+
+def two_pass_call(dll, g, row, x, x_g, qw, qb, kw, kb, gmax, h, score, sp):
+    """A whole call of K18's two-pass variant: q and the [E_pad, ATT] key
+    table on the node projections' tile, then the table's walk, its tile
+    the largest ``key_design`` would pick without Kw's parts."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels import fused_rhs as F
+    from graph_neural_pde_tpu_torch.kernels.dense import project
+    dev = x.device
+    n, d = x.shape
+    att = qw.shape[1]
+    elem = x_g.element_size()
+    pc = g.scatter_pieces
+    cap = next(c for per_sm, caps in ((2, F.KEY_CAPS[:3]), (1, F.KEY_CAPS))
+               for c in caps
+               if per_sm * (F.key_shared(d, att, h, elem, c)["tiles"]
+                            + F.KEY_BLOCK_RESERVED) <= F.SM_SHARED_BYTES)
+    vec = int(d * elem % 16 == 0 and x_g.data_ptr() % 16 == 0)
+
+    def call():
+        q, keys = project(x, qw, qb), project(x_g, kw, kb)
+        num = torch.empty((n, h * d), dtype=torch.float32, device=dev)
+        den = torch.empty((n, h), dtype=torch.float32, device=dev)
+        part = (torch.empty((pc.n_slots, F.payload_stride(d, h)),
+                            dtype=torch.float32, device=dev)
+                if pc.n_multi else None)
+        code = dll.gnpde_probe_payload_keys_table(
+            *F._piece_args(pc), row.data_ptr(), x_g.data_ptr(),
+            q.data_ptr(), kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(),
+            F._ptr(sp.get("var")), F._ptr(sp.get("ls")), None,
+            num.data_ptr(), den.data_ptr(), F._ptr(part), keys.data_ptr(),
+            n, pc.n_pieces, pc.n_multi, d, att, h, F._flags(score, False),
+            pc.n_edges, cap, vec, int(x_g.dtype == torch.bfloat16),
+            torch.cuda.current_stream(dev).cuda_stream)
+        if code:
+            raise ValueError(f"the two-pass variant refused (cudaError_t "
+                             f"{code})")
+        return num, den
+
+    return call
+
+
+# the C entry points of a tree whose K19 and key-family K18 (a warp a row
+# projecting each key) are in its csrc/fused_payload.cu: pointers, then
+# ints, then the stream
+PARENT_ENTRIES = {"gnpde_fused_aggregate": (13, 6),
+                  "gnpde_fused_score_max": (7, 5)}
+
+
+def build_against(src_root: Path, out: Path, line: str):
+    """The other tree's csrc/fused_payload.cu alone as a shared library
+    (ptxas's report of its K18 / K19 kernels printed), bound with
+    ctypes."""
+    import ctypes
+    import re
+    import subprocess
+    from graph_neural_pde_tpu_torch.kernels import build
+    src = src_root / "graph_neural_pde_tpu_torch" / "csrc" / "fused_payload.cu"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "against_fused_payload.so"
+    t0 = time.perf_counter()
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas=-v",
+                          "-shared", "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{res.stdout}{res.stderr}")
+    text = res.stdout + res.stderr
+    print(f"[against] {src} built alone in {time.perf_counter() - t0:.1f} s "
+          f"[{line}]", flush=True)
+    for block in re.split(r"Compiling entry function '", text)[1:]:
+        name = block.split("'", 1)[0]
+        if "aggregate" in name or "score_max" in name:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            print(f"[ptxas] against {name}: registers "
+                  f"{regs.group(1) if regs else '?'}, spill stores "
+                  f"{spill.group(1) if spill else '?'}", flush=True)
+    dll = ctypes.CDLL(str(lib))
+    for name, (ptrs, ints) in PARENT_ENTRIES.items():
+        fn = getattr(dll, name)
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return dll
+
+
+def against_calls(dll, g, x, x_g, qw, qb, kw, kb, gmax, h, score, sp):
+    """The other tree's K18 (key families) and K19 whole calls, as its
+    wrappers made them: (K18 call, K19 call) returning their outputs."""
+    import torch
+    from graph_neural_pde_tpu_torch.kernels.fused_rhs import SCORES
+    dev = x.device
+    n, d = x.shape
+    att = qw.shape[1]
+    bf16 = x_g.dtype == torch.bfloat16
+    tables = 0 if not bf16 else (1 if x.dtype == torch.float32 else 2)
+    var, ls = sp.get("var"), sp.get("ls")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def stream():
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    def k18():
+        num = torch.empty((n, h * d), dtype=torch.float32, device=dev)
+        den = torch.empty((n, h), dtype=torch.float32, device=dev)
+        code = dll.gnpde_fused_aggregate(
+            g.rowptr.data_ptr(), x_g.data_ptr(), x.data_ptr(), qw.data_ptr(),
+            qb.data_ptr(), kw.data_ptr(), kb.data_ptr(), gmax.data_ptr(),
+            ptr(var), ptr(ls), None, num.data_ptr(), den.data_ptr(), n, d,
+            att, h, SCORES[score], tables, stream())
+        if code:
+            raise ValueError(f"the other tree's K18 refused (cudaError_t "
+                             f"{code})")
+        return num, den
+
+    q = (x.float() @ qw + qb).contiguous()
+
+    def k19():
+        partial = torch.empty((max(1, -(-n // 8)),), dtype=torch.float32,
+                              device=dev)
+        out = torch.empty((1,), dtype=torch.float32, device=dev)
+        code = dll.gnpde_fused_score_max(
+            g.rowptr.data_ptr(), q.data_ptr(), x_g.data_ptr(), kw.data_ptr(),
+            kb.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, att, h,
+            int(bf16), stream())
+        if code:
+            raise ValueError(f"the other tree's K19 refused (cudaError_t "
+                             f"{code})")
+        return out
+
+    return k18, k19, q
+
+
+def session_kernels(args, cs, line, record) -> None:
+    """K19 and K18's key families against the other tree's in one process
+    (see the module docstring)."""
+    import statistics
+    import torch
+    from graph_neural_pde_tpu_torch import kernels as K
+    from graph_neural_pde_tpu_torch.probes.gather import agree
+    dev = torch.device("cuda")
+    dll = build_against(Path(args.against).resolve(), Path(args.out), line)
+    names = args.shapes.split(",")
+    modes_wanted = args.modes.split(",")
+    with tempfile.TemporaryDirectory() as data_dir:
+        graphs = graphs_for(names, args.seed, dev, cs, data_dir)
+    bf = torch.bfloat16
+    for name in names:
+        gname, d, att, h, score = SHAPES[name]
+        g = graphs[gname]
+        modes = [("f32", None, False), ("bf16", bf, False)]
+        if name in ("arxiv", "quarter", "blend"):
+            modes.append(("bf16 row", bf, True))
+        for mode, payload, row_b16 in modes:
+            if mode.replace(" ", "-") not in modes_wanted:
+                continue
+            _, randn, csr, ops, kw_f = cs.rhs_operands(g, d, att, h, score,
+                                                       args.seed + 7, dev)
+            rowptr, row = csr[:2]
+            x, qw, qb, kw, kb, gmax = ops
+            x_g = randn(g.capacity, d)
+            if payload is not None:
+                x_g = x_g.to(payload)
+            if row_b16:
+                x = x.to(bf)
+            sp = {k: v for k, v in kw_f.items() if k in ("var", "ls")}
+            k18_other, k19_other, q = against_calls(
+                dll, g, x, x_g, qw, qb, kw, kb, gmax, h, score, sp)
+            dims = (f"N={g.num_nodes} E={g.num_valid} D={d} ATT={att} H={h} "
+                    f"{score} payload {mode}")
+            if score == "scaled_dot":
+                case = "fused_score_max"
+                mine = (lambda: K.fused_score_max(
+                    rowptr, row, q, x_g, kw, kb, heads=h,
+                    pieces=g.scatter_pieces))
+                other = k19_other
+            else:
+                case = "fused_aggregate"
+                mine = (lambda: K.fused_aggregate(
+                    rowptr, row, x, x_g, qw, qb, kw, kb, gmax,
+                    pieces=g.scatter_pieces, **kw_f))
+                other = k18_other
+            try:
+                want = _outputs(other())
+            except ValueError as err:
+                print(f"[sessions] {case} @ {name} {dims}: {err} [{line}]",
+                      flush=True)
+                record(kind="sessions", case=case, shape=name, dims=dims,
+                       refused=str(err))
+                continue
+            got = _outputs(mine())
+            rel = max(agree(f"{case} @ {name} {dims} against the other tree",
+                            a, b, 1e-4)[1] for a, b in zip(got, want))
+            mine_ms, other_ms = [], []
+            for _ in range(args.sessions):
+                other_ms.append(cs.device_ms(other, reps=20))
+                mine_ms.append(cs.device_ms(mine, reps=20))
+            om, mm = statistics.median(other_ms), statistics.median(mine_ms)
+            print(f"[sessions] {case} @ {name} {dims}: other tree "
+                  f"{' '.join(f'{t:.4f}' for t in other_ms)} (median "
+                  f"{om:.4f}), this tree "
+                  f"{' '.join(f'{t:.4f}' for t in mine_ms)} (median "
+                  f"{mm:.4f}) ms; {om / mm:.2f}x; outputs within "
+                  f"{rel:.2e} of each other [{line}]", flush=True)
+            record(kind="sessions", case=case, shape=name, dims=dims,
+                   other_ms=other_ms, this_ms=mine_ms, other_median=om,
+                   this_median=mm, rel=rel)
+            del x_g, ops
             torch.cuda.empty_cache()
 
 
@@ -282,7 +575,12 @@ def main(argv=None) -> int:
     ap.add_argument("--report", action="store_true")
     ap.add_argument("--out", default=os.path.join("build", "probes"))
     ap.add_argument("--shapes", default=",".join(SHAPES))
+    ap.add_argument("--kernels", default="aggregate,heads,max")
+    ap.add_argument("--modes", default="f32,bf16,bf16-row")
+    ap.add_argument("--two-pass", action="store_true")
     ap.add_argument("--paths", default=None)
+    ap.add_argument("--against", default=None)
+    ap.add_argument("--sessions", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     here = Path(__file__).resolve()
@@ -314,6 +612,9 @@ def main(argv=None) -> int:
     if args.paths is not None:
         profile_paths(args, cs, line, record)
         kind = "paths"
+    elif args.against is not None:
+        session_kernels(args, cs, line, record)
+        kind = "sessions"
     else:
         time_kernels(args, cs, sw, line, record)
         kind = "kernels"
